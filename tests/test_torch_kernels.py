@@ -1,0 +1,90 @@
+"""The port's CUDA kernels on the card, against their plain PyTorch versions.
+
+Every test here needs a CUDA card and skips without one. The file imports
+neither jax nor yololite_tpu, so it also runs on a machine that has only the
+port's dependencies:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from yololite_tpu_torch.ops.boxes import box_iou
+from yololite_tpu_torch.ops.kernels import greedy_nms_keep, greedy_nms_keep_plain
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+def _scene(rng, b, k, chain):
+    """(B, K, 4) boxes and (B, K) valid: crowded random boxes, or alternating suppression chains."""
+    if chain:  # box i overlaps i+1 (IoU 9/17) and i+2 little (5/21): keeps alternate, holes flip the parity
+        x = np.arange(k, dtype=np.float32) * 4.0
+        boxes = np.broadcast_to(np.stack([x, np.zeros(k), x + 13.0, np.full(k, 10.0)], 1), (b, k, 4))
+        return np.ascontiguousarray(boxes, np.float32), rng.uniform(size=(b, k)) > 0.05
+    c = rng.uniform(20, 600, (b, k, 2))
+    wh = rng.uniform(10, 120, (b, k, 2))
+    return np.concatenate([c - wh / 2, c + wh / 2], -1).astype(np.float32), rng.uniform(size=(b, k)) > 0.1
+
+
+@pytest.mark.parametrize("chain", [False, True], ids=["crowded", "chain"])
+@pytest.mark.parametrize("k", [128, 300, 1024])
+def test_keep_kernel_matches_plain(card, k, chain):
+    """Keep masks bit-equal to the plain version; one launch per call."""
+    boxes, valid = _scene(np.random.default_rng(k + chain), 8, k, chain)
+    bx = torch.from_numpy(boxes).to(card)
+    iou = box_iou(bx, bx).contiguous()
+    v = torch.from_numpy(valid).to(card)
+    before = greedy_nms_keep.launches
+    got = greedy_nms_keep(iou, v, 0.45)
+    torch.cuda.synchronize()
+    assert greedy_nms_keep.launches == before + 1
+    want = greedy_nms_keep_plain(iou, v, 0.45)
+    assert torch.equal(got, want)
+    assert 0 < int(want.sum()) < int(v.sum())
+
+
+def test_keep_kernel_rejects_what_it_does_not_take(card):
+    iou = torch.zeros(2, 64, 64, device=card)
+    valid = torch.ones(2, 64, dtype=torch.bool, device=card)
+    with pytest.raises(TypeError):
+        greedy_nms_keep(iou.double(), valid, 0.5)
+    with pytest.raises(TypeError):
+        greedy_nms_keep(iou, valid.float(), 0.5)
+    with pytest.raises(ValueError):
+        greedy_nms_keep(iou[:, :, :32], valid, 0.5)
+    with pytest.raises(ValueError):
+        greedy_nms_keep(iou.transpose(1, 2), valid, 0.5)
+    with pytest.raises(ValueError):
+        greedy_nms_keep(iou, valid.cpu(), 0.5)
+    big = torch.zeros(1, 1025, 1025, device=card)
+    with pytest.raises(ValueError):
+        greedy_nms_keep(big, torch.ones(1, 1025, dtype=torch.bool, device=card), 0.5)
+
+
+@pytest.mark.parametrize("half", [False, True], ids=["fp32", "bf16"])
+def test_predict_through_the_kernel_equals_the_plain_keep(card, half, monkeypatch):
+    """yolo11n predict on the card launches the kernel, and its detections equal those of the plain keep."""
+    from yololite_tpu_torch import YOLOLite
+    from yololite_tpu_torch.ops import nms
+
+    rng = np.random.default_rng(0)
+    src = [rng.integers(0, 256, (120, 160, 3), np.uint8) for _ in range(2)]
+    kw = dict(conf=1e-7, imgsz=160, batch=2, half=half, save=False, verbose=False)
+    model = YOLOLite("yolo11n.yaml")
+    before = greedy_nms_keep.launches
+    with_kernel = model.predict(src, **kw)
+    assert greedy_nms_keep.launches > before
+    monkeypatch.setattr(nms, "greedy_nms_keep", greedy_nms_keep_plain)
+    with_plain = model.predict(src, **kw)
+    for a, b in zip(with_kernel, with_plain):
+        assert len(a) > 0 and np.isfinite(a.boxes.data).all()
+        np.testing.assert_array_equal(a.boxes.data, b.boxes.data)

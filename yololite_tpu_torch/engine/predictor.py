@@ -1,0 +1,313 @@
+"""Streaming detection predictor (port of yololite_tpu/engine/predictor.py).
+
+Per batch: a same-shape uint8 batch is uploaded as is and letterboxed on the
+device (`ops.kernels.device_letterbox`); other batches are letterboxed on the
+host with cv2. Then forward + select-first decode + exact greedy NMS run on
+the device and return a padded (B, max_det, 6) tensor, which is copied to
+the host, rescaled and wrapped in Results. Tail batches are padded to the
+batch size so every batch has the same shape.
+
+Images stay in the JAX package's NHWC layout up to the model, which takes
+NCHW; the Detect maps go back to NHWC for the decode and NMS ops.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import copy
+import threading
+from pathlib import Path
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from yololite_tpu_torch.cfg import get_cfg, get_save_dir
+from yololite_tpu_torch.data.build import Prefetcher, load_inference_source
+from yololite_tpu_torch.data.loaders import VID_FORMATS
+from yololite_tpu_torch.engine.results import Results
+from yololite_tpu_torch.ops.boxes import convert_batch2numpy, scale_boxes_np
+from yololite_tpu_torch.ops.decode import decode_detections, postprocess_end2end
+from yololite_tpu_torch.ops.kernels import device_letterbox
+from yololite_tpu_torch.ops.letterbox import preprocess_batch, scale_img
+from yololite_tpu_torch.ops.nms import nms_from_feats, non_max_suppression
+from yololite_tpu_torch.utils import LOGGER, colorstr, select_device
+from yololite_tpu_torch.utils.checks import check_imgsz
+from yololite_tpu_torch.utils.profile import Profile
+
+
+@contextlib.contextmanager
+def fp32_convs(device: torch.device):
+    """cuDNN convolutions in full fp32 (TF32 off) for the block, restored on exit.
+
+    cuDNN runs fp32 convolutions in TF32 by default, which keeps about three
+    decimal digits; the fp32 predict path is held to the JAX package instead.
+    fp32 matmuls already default to full precision.
+    """
+    if device.type != "cuda":
+        yield
+        return
+    cudnn = torch.backends.cudnn
+    with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark, deterministic=cudnn.deterministic,
+                     allow_tf32=False):
+        yield
+
+
+class DetectionPredictor:
+    """Holds the inference model on its device and the streaming loop state."""
+
+    def __init__(self, cfg=None, overrides: Optional[Dict] = None, device=None):
+        self.args = get_cfg(cfg or {}, None) if isinstance(cfg, dict) and not overrides else get_cfg(overrides=overrides)
+        if self.args.conf is None:
+            self.args.conf = 0.25
+        self.device = select_device(self.args.device if device is None else device)
+        self.save_dir = get_save_dir(self.args)
+        self.model = None  # the caller's DetectionModel (names, strides)
+        self.net = None  # its fused inference copy on self.device
+        self.dataset = None
+        self.seen = 0
+        self._lock = threading.Lock()
+        self.done_warmup = False
+
+    # ---- setup ----
+
+    def setup_model(self, model, half: Optional[bool] = None, fuse: bool = True):
+        """Bind a DetectionModel: a fused (and, with half, bf16) copy on the device, plus the NMS settings."""
+        if bool(self.args.int8):
+            raise NotImplementedError("int8 serving is not ported to yololite_tpu_torch yet (ROADMAP.md, Queue 1, 'The rest')")
+        self.model = model
+        net = copy.deepcopy(model).to(self.device).eval()
+        if fuse:  # fold Conv+BN for inference
+            net.fuse()
+        self.half = bool(self.args.half if half is None else half)
+        self.dtype = torch.bfloat16 if self.half else torch.float32
+        self.net = net.to(self.dtype)
+
+        self.conf, self.iou = float(self.args.conf), float(self.args.iou)
+        self.max_det = int(self.args.max_det)
+        self.agnostic = bool(self.args.agnostic_nms)
+        self.augment = bool(self.args.augment)
+        self.class_mask = None
+        if self.args.classes is not None:
+            cm = np.zeros(model.nc, bool)
+            cm[np.asarray(self.args.classes, int)] = True
+            self.class_mask = torch.from_numpy(cm).to(self.device)
+        # NMS-free end2end heads: inference decodes the one2one maps and takes a plain top-k
+        self.end2end = bool(getattr(model.detect, "end2end", False))
+        # top-K candidate pool: 256 at the 0.25 default, 512 when conf is lowered (more
+        # candidates survive the gate), and never below the user's max_det
+        self.pred_max_cand = max(256 if self.conf >= 0.25 else 512, self.max_det)
+
+    def _forward(self, x: torch.Tensor):
+        """NHWC images -> NHWC per-level Detect maps (or the end2end dict of them)."""
+        out = self.net(x.permute(0, 3, 1, 2))
+        nhwc = lambda fs: [f.permute(0, 2, 3, 1) for f in fs]
+        return {k: nhwc(v) for k, v in out.items()} if isinstance(out, dict) else nhwc(out)
+
+    def _forward_decode(self, x: torch.Tensor):
+        feats = self._forward(x)
+        if isinstance(feats, dict):
+            feats = feats["one2many"]
+        boxes, scores = decode_detections(feats, self.model.strides, self.model.nc, self.model.reg_max, xywh=False)
+        return boxes.float(), scores
+
+    def _forward_tta(self, x: torch.Tensor):
+        """Test-time augmentation: scales 1, 0.83 (flipped) and 0.67, merged before NMS.
+
+        Each view is resized by scale_img (padded to the /32 grid with the 0.447
+        fill) and its boxes unscaled by the plain ratio.
+        """
+        w = x.shape[2]
+        outs = []
+        for s, flip in ((1.0, False), (0.83, True), (0.67, False)):
+            xi = scale_img(x.flip(2) if flip else x, s, gs=32)
+            boxes, scores = self._forward_decode(xi)
+            boxes = boxes / s
+            if flip:  # un-flip x coords (xyxy)
+                boxes = torch.stack([w - boxes[..., 2], boxes[..., 1], w - boxes[..., 0], boxes[..., 3]], -1)
+            outs.append((boxes, scores))
+        return torch.cat([o[0] for o in outs], 1), torch.cat([o[1] for o in outs], 1)
+
+    def _single_label(self, x: torch.Tensor) -> torch.Tensor:
+        """Non-TTA predict graph: select-first NMS over the raw maps."""
+        m = self.model
+        feats = self._forward(x)
+        if self.end2end:
+            return postprocess_end2end(feats["one2one"], m.strides, m.nc, m.reg_max,
+                                       max_det=min(self.max_det, m.detect.max_det), conf_thres=self.conf)
+        return nms_from_feats(
+            feats, m.strides, m.nc, m.reg_max, conf_thres=self.conf, iou_thres=self.iou,
+            max_det=self.max_det, max_cand=self.pred_max_cand, agnostic=self.agnostic,
+            class_mask=self.class_mask, half=self.half,
+        )
+
+    def _detect(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.augment or self.end2end:  # end2end: the one2one top-k is the whole tail
+            return self._single_label(x)
+        boxes, scores = self._forward_tta(x)
+        return non_max_suppression(
+            boxes, scores, conf_thres=self.conf, iou_thres=self.iou, max_det=self.max_det,
+            max_cand=512, multi_label=False, agnostic=self.agnostic, class_mask=self.class_mask,
+        )
+
+    @torch.inference_mode()
+    def infer(self, images: torch.Tensor) -> torch.Tensor:
+        """Letterboxed NHWC float batch on the device -> (B, max_det, 6) detections on the device."""
+        with fp32_convs(self.device):
+            return self._detect(images.to(self.dtype))
+
+    @torch.inference_mode()
+    def infer_uint8(self, raw: torch.Tensor, imgsz: int) -> torch.Tensor:
+        """(B, H0, W0, 3) uint8 RGB batch on the device -> device letterbox -> (B, max_det, 6)."""
+        with fp32_convs(self.device):
+            return self._detect(device_letterbox(raw, imgsz=imgsz, out_dtype=self.dtype))
+
+    def setup_source(self, source):
+        self.imgsz = check_imgsz(self.args.imgsz, stride=32, min_dim=2)
+        self.dataset = load_inference_source(
+            source, batch=self.args.batch, vid_stride=self.args.vid_stride, buffer=self.args.stream_buffer
+        )
+
+    def warmup(self, batch: int):
+        self.infer(torch.zeros((batch, self.imgsz[0], self.imgsz[1], 3), device=self.device))
+        self.done_warmup = True
+
+    # ---- inference ----
+
+    def __call__(self, source=None, stream: bool = False, **kwargs):
+        if stream:
+            return self.stream_inference(source)
+        return list(self.stream_inference(source))
+
+    def _pad(self, x, batch_size: int):
+        """Pad a batch with zero images up to batch_size (numpy array or tensor)."""
+        n = len(x)
+        if n >= batch_size:
+            return x
+        if isinstance(x, torch.Tensor):
+            return torch.cat([x, x.new_zeros((batch_size - n, *x.shape[1:]))])
+        return np.concatenate([x, np.zeros((batch_size - n, *x.shape[1:]), x.dtype)])
+
+    def stream_inference(self, source):
+        """Generator yielding per-image Results; the host side is prefetched on a thread."""
+        if self.args.verbose:
+            LOGGER.info("")
+        self.setup_source(source)
+        if self.args.save or self.args.save_txt:
+            self.save_dir.mkdir(parents=True, exist_ok=True)
+        if not self.done_warmup:
+            self.warmup(batch=self.args.batch)
+
+        profilers = (Profile(), Profile(), Profile())
+        batch_size = int(self.args.batch)
+        with self._lock:
+            is_tensor = getattr(getattr(self.dataset, "source_type", None), "tensor", False)
+            for paths, im0s, infos in Prefetcher(self.dataset, depth=2):
+                n = len(im0s)
+                if is_tensor:  # pre-normalized NHWC float batch: no letterbox needed
+                    im = np.asarray(im0s, np.float32)
+                    im0s = convert_batch2numpy(im)  # BGR uint8 for Results
+                    with profilers[0]:
+                        x = torch.from_numpy(self._pad(im, batch_size)).to(self.device)
+                        input_hw = im.shape[1:3]
+                    with profilers[1]:
+                        dets = self.infer(x).cpu().numpy()
+                elif len({im.shape for im in im0s}) == 1:  # device path: upload uint8, letterbox on the card
+                    with profilers[0]:
+                        raw = torch.from_numpy(np.stack(im0s)).to(self.device).flip(-1)  # BGR -> RGB
+                        raw = self._pad(raw, batch_size)
+                        input_hw = (self.imgsz[0], self.imgsz[1])
+                    with profilers[1]:
+                        dets = self.infer_uint8(raw, self.imgsz[0]).cpu().numpy()
+                else:  # mixed shapes: host letterbox (cv2)
+                    with profilers[0]:
+                        im = self._pad(preprocess_batch(im0s, imgsz=self.imgsz[0]), batch_size)
+                        x = torch.from_numpy(im).to(self.device)
+                        input_hw = im.shape[1:3]
+                    with profilers[1]:
+                        dets = self.infer(x).cpu().numpy()
+                with profilers[2]:
+                    results = self.postprocess(dets[:n], input_hw, im0s, paths)
+
+                if self.args.visualize and not is_tensor:
+                    self._visualize_features(preprocess_batch(im0s[:1], imgsz=self.imgsz[0]))
+
+                for i, result in enumerate(results):
+                    self.seen += 1
+                    result.speed = {
+                        "preprocess": profilers[0].dt * 1e3 / n,
+                        "inference": profilers[1].dt * 1e3 / n,
+                        "postprocess": profilers[2].dt * 1e3 / n,
+                    }
+                    if self.args.verbose:
+                        LOGGER.info(f"{infos[i]}{result.verbose()}{profilers[1].dt * 1e3 / n:.1f}ms")
+                    if not is_tensor:
+                        self._save(result, paths[i])
+                    yield result
+
+        for vw in getattr(self, "_vid_writers", {}).values():
+            vw.release()
+        self._vid_writers = {}
+
+        if self.args.verbose and self.seen:
+            t = tuple(p.t / self.seen * 1e3 for p in profilers)
+            LOGGER.info(
+                f"Speed: {t[0]:.1f}ms preprocess, {t[1]:.1f}ms inference, {t[2]:.1f}ms postprocess "
+                f"per image at shape (1, {self.imgsz[0]}, {self.imgsz[1]}, 3)"
+            )
+        if self.args.save or self.args.save_txt:
+            LOGGER.info(f"Results saved to {colorstr('bold', self.save_dir)}")
+
+    def _save(self, result: Results, path: str):
+        """Write the annotated image or video frame, labels and crops the args ask for."""
+        is_video = Path(path).suffix.lower().lstrip(".") in VID_FORMATS or getattr(self.dataset, "mode", "image") == "stream"
+        if self.args.save and is_video:
+            self._write_video_frame(path, result.plot())
+        elif self.args.save:
+            result.save(str(self.save_dir / Path(path).name))
+        if self.args.save_txt:
+            result.save_txt(str(self.save_dir / "labels" / (Path(path).stem + ".txt")), save_conf=self.args.save_conf)
+        if self.args.save_crop:
+            result.save_crop(self.save_dir / "crops", Path(path).name)
+
+    def _write_video_frame(self, path, frame):
+        """Append an annotated frame to a per-source mp4 writer."""
+        import cv2
+
+        if not hasattr(self, "_vid_writers"):
+            self._vid_writers = {}
+        if path not in self._vid_writers:
+            self.save_dir.mkdir(parents=True, exist_ok=True)
+            out = str(self.save_dir / (Path(path).stem + ".mp4"))
+            fps = 30
+            cap = getattr(self.dataset, "cap", None)
+            if cap is not None:
+                fps = int(cap.get(cv2.CAP_PROP_FPS)) or 30
+            h, w = frame.shape[:2]
+            self._vid_writers[path] = cv2.VideoWriter(out, cv2.VideoWriter_fourcc(*"mp4v"), fps, (w, h))
+        self._vid_writers[path].write(frame)
+
+    @torch.inference_mode()
+    def _visualize_features(self, im: np.ndarray):
+        """Save feature maps of the backbone tap layers."""
+        from yololite_tpu_torch.utils.plotting import feature_visualization
+
+        capture = sorted(self.model.save)[:6]
+        features: Dict[int, torch.Tensor] = {}
+        x = torch.from_numpy(im).to(self.device, self.dtype).permute(0, 3, 1, 2)
+        with fp32_convs(self.device):
+            self.net(x, capture=capture, features=features)
+        for idx, feat in features.items():
+            fmap = feat.float().permute(0, 2, 3, 1).cpu().numpy()
+            feature_visualization(fmap, self.model.model[idx].name, idx, save_dir=self.save_dir)
+
+    def postprocess(self, dets: np.ndarray, input_hw, orig_imgs: List[np.ndarray], paths) -> List[Results]:
+        """Strip padding rows, rescale to original frames, wrap in Results."""
+        results = []
+        for det, im0, path in zip(dets, orig_imgs, paths):
+            det = det[det[:, 4] > 0]
+            if len(det):
+                det = det.copy()
+                det[:, :4] = scale_boxes_np(input_hw, det[:, :4], im0.shape[:2])
+            results.append(Results(im0, path, self.model.names, det.astype(np.float32)))
+        return results

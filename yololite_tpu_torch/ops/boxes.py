@@ -1,0 +1,110 @@
+"""Box algebra: format conversion, IoU, anchor geometry (port of yololite_tpu/ops/boxes.py).
+
+Torch versions work on tensors on any device; the `*_np` helpers serve the
+host-side Results path. `box_iou` keeps the JAX operation order and eps, so
+the two give the same bits on the same boxes.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import numpy as np
+import torch
+
+
+# ---- format conversion (torch tensors or numpy arrays) ----
+
+
+def xywh2xyxy(x):
+    """(cx, cy, w, h) -> (x1, y1, x2, y2)."""
+    cat = torch.cat if isinstance(x, torch.Tensor) else np.concatenate
+    xy, wh = x[..., :2], x[..., 2:4]
+    half = wh / 2
+    return cat([xy - half, xy + half], -1)
+
+
+def xyxy2xywh(x):
+    """(x1, y1, x2, y2) -> (cx, cy, w, h)."""
+    cat = torch.cat if isinstance(x, torch.Tensor) else np.concatenate
+    p1, p2 = x[..., :2], x[..., 2:4]
+    return cat([(p1 + p2) / 2, p2 - p1], -1)
+
+
+# ---- clipping / rescaling (host path) ----
+
+
+def clip_boxes_np(boxes: np.ndarray, shape) -> np.ndarray:
+    """Clip xyxy boxes to image shape (h, w) in place."""
+    boxes[..., 0] = boxes[..., 0].clip(0, shape[1])
+    boxes[..., 1] = boxes[..., 1].clip(0, shape[0])
+    boxes[..., 2] = boxes[..., 2].clip(0, shape[1])
+    boxes[..., 3] = boxes[..., 3].clip(0, shape[0])
+    return boxes
+
+
+def convert_batch2numpy(batch) -> list:
+    """Normalized NHWC float batch -> list of BGR uint8 images for Results."""
+    arr = np.asarray(batch, np.float32)
+    return [np.ascontiguousarray((np.clip(a, 0.0, 1.0) * 255).astype(np.uint8)[..., ::-1]) for a in arr]
+
+
+def scale_boxes_np(img1_shape, boxes, img0_shape, ratio_pad=None, padding=True, xywh=False):
+    """Rescale boxes from letterboxed img1_shape back to original img0_shape (round(pad - 0.1) split)."""
+    if ratio_pad is None:
+        gain = min(img1_shape[0] / img0_shape[0], img1_shape[1] / img0_shape[1])
+        pad = (
+            round((img1_shape[1] - img0_shape[1] * gain) / 2 - 0.1),
+            round((img1_shape[0] - img0_shape[0] * gain) / 2 - 0.1),
+        )
+    else:
+        gain = ratio_pad[0][0]
+        pad = ratio_pad[1]
+    boxes = np.array(boxes, dtype=np.float64 if boxes.dtype == np.float64 else np.float32)
+    if padding:
+        boxes[..., 0] -= pad[0]
+        boxes[..., 1] -= pad[1]
+        if not xywh:
+            boxes[..., 2] -= pad[0]
+            boxes[..., 3] -= pad[1]
+    boxes[..., :4] /= gain
+    return clip_boxes_np(boxes, img0_shape)
+
+
+# ---- IoU ----
+
+
+def box_iou(box1: torch.Tensor, box2: torch.Tensor, eps: float = 1e-7) -> torch.Tensor:
+    """Pairwise IoU of xyxy boxes: (..., N, 4) x (..., M, 4) -> (..., N, M)."""
+    a1, a2 = box1[..., :, None, :2], box1[..., :, None, 2:4]  # (..., N, 1, 2)
+    b1, b2 = box2[..., None, :, :2], box2[..., None, :, 2:4]  # (..., 1, M, 2)
+    inter = (torch.minimum(a2, b2) - torch.maximum(a1, b1)).clamp(min=0).prod(-1)
+    area1 = (a2 - a1).prod(-1)
+    area2 = (b2 - b1).prod(-1)
+    return inter / (area1 + area2 - inter + eps)
+
+
+# ---- anchors / distance-box conversion ----
+
+
+def make_anchors(feat_shapes: Sequence[Tuple[int, int]], strides: Sequence[int], offset: float = 0.5,
+                 device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Anchor grid for given (h, w) per level -> (anchors (A, 2), strides (A, 1))."""
+    pts, strs = [], []
+    for (h, w), s in zip(feat_shapes, strides):
+        sx = torch.arange(w, dtype=torch.float32, device=device) + offset
+        sy = torch.arange(h, dtype=torch.float32, device=device) + offset
+        gy, gx = torch.meshgrid(sy, sx, indexing="ij")
+        pts.append(torch.stack([gx, gy], -1).reshape(-1, 2))
+        strs.append(torch.full((h * w, 1), float(s), dtype=torch.float32, device=device))
+    return torch.cat(pts), torch.cat(strs)
+
+
+def dist2bbox(distance: torch.Tensor, anchor_points: torch.Tensor, xywh: bool = True) -> torch.Tensor:
+    """ltrb distances -> boxes around anchor points."""
+    lt, rb = distance[..., :2], distance[..., 2:4]
+    x1y1 = anchor_points - lt
+    x2y2 = anchor_points + rb
+    if xywh:
+        return torch.cat([(x1y1 + x2y2) / 2, x2y2 - x1y1], -1)
+    return torch.cat([x1y1, x2y2], -1)

@@ -1,0 +1,252 @@
+"""Batched non-max suppression on the device (port of yololite_tpu/ops/nms.py).
+
+Fixed-shape output: a padded (B, max_det, 6) tensor [x1, y1, x2, y2, conf, cls]
+with conf == 0 marking empty rows. Greedy order matches torchvision
+(score-descending, suppress IoU > threshold, class-offset trick).
+
+Exact keeps with K <= 1024 go through `ops.kernels.greedy_nms_keep`: the CUDA
+kernel for tensors on the card, its plain version on the CPU. Larger K runs
+in score-ordered blocks of 1024 (`_blocked_keep`). Selection follows
+lax.top_k's rule, lowest index first among equal scores (`topk_stable`).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple
+
+import torch
+
+from yololite_tpu_torch.ops.boxes import box_iou
+from yololite_tpu_torch.ops.decode import dfl_expectation_mm
+from yololite_tpu_torch.ops.kernels import greedy_nms_keep, greedy_nms_keep_plain
+
+MAX_WH = 7680  # class-offset magnitude
+KERNEL_MAX_K = 1024  # largest K one greedy_nms_keep call takes
+
+
+def topk_stable(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k along the last dim, descending, ties to the lower index (lax.top_k's rule)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _fixpoint_keep(shifted: torch.Tensor, valid: torch.Tensor, iou_thres: float) -> torch.Tensor:
+    """Plain exact greedy keep over (B, K, 4) class-offset boxes, on any device."""
+    s = shifted.float()
+    return greedy_nms_keep_plain(box_iou(s, s), valid, iou_thres)
+
+
+def _exact_keep(shifted: torch.Tensor, valid: torch.Tensor, iou_thres: float) -> torch.Tensor:
+    """Exact greedy keep over (B, K <= 1024, 4) class-offset boxes: the kernel on CUDA, plain on CPU."""
+    s = shifted.float()
+    return greedy_nms_keep(box_iou(s, s).contiguous(), valid.contiguous(), iou_thres)
+
+
+def _fast_keep(shifted: torch.Tensor, valid: torch.Tensor, iou_thres: float, chunk: int = 1024) -> torch.Tensor:
+    """One-shot matrix NMS (Fast-NMS): suppressed boxes still suppress others.
+
+    Column max of the upper-triangular IoU over valid rows, taken in row
+    chunks so a large K never materializes the whole (K, K) matrix.
+    """
+    b, k = valid.shape
+    s = shifted.float()
+    idx = torch.arange(k, device=s.device)
+    max_iou = torch.zeros((b, k), dtype=torch.float32, device=s.device)
+    for base in range(0, k, chunk):
+        rows = box_iou(s[:, base:base + chunk], s)  # (B, chunk, K)
+        tri = (idx[base:base + chunk, None] < idx[None, :])[None] & valid[:, base:base + chunk, None]
+        max_iou = torch.maximum(max_iou, torch.where(tri, rows, 0.0).amax(1))
+    return valid & (max_iou <= iou_thres)
+
+
+def _blocked_keep(shifted: torch.Tensor, valid: torch.Tensor, iou_thres: float,
+                  block: int = KERNEL_MAX_K) -> torch.Tensor:
+    """Exact greedy keep for large K via score-ordered blocks.
+
+    Candidates arrive score-sorted, so greedy decomposes exactly: resolve one
+    block with the exact keep (given the incoming alive mask), then drop every
+    later candidate that a kept item of this block suppresses with one dense
+    (block, K_rest) IoU pass, and move on. Blocks with nothing alive are skipped.
+    """
+    b, k = valid.shape
+    block = min(block, k)
+    while k % block:
+        block //= 2
+    s = shifted.float()
+    keep = torch.zeros_like(valid)
+    alive = valid.clone()
+    for lo in range(0, k, block):
+        hi = lo + block
+        alive_seg = alive[:, lo:hi]
+        if not bool(alive_seg.any()):
+            continue
+        kb = _exact_keep(s[:, lo:hi], alive_seg, iou_thres)
+        keep[:, lo:hi] = kb
+        if hi < k:
+            cross = box_iou(s[:, lo:hi], s[:, hi:])  # (B, block, K_rest)
+            alive[:, hi:] &= ~(kb[:, :, None] & (cross > iou_thres)).any(1)
+    return keep
+
+
+def _keep(shifted: torch.Tensor, valid: torch.Tensor, iou_thres: float, mode: str) -> torch.Tensor:
+    """Keep mask by mode: 'greedy' and 'pallas' are exact greedy, 'fast' is Fast-NMS."""
+    if mode == "fast":
+        return _fast_keep(shifted, valid, iou_thres)
+    if mode not in ("greedy", "pallas"):
+        raise ValueError(f"unknown NMS mode {mode!r}; use 'greedy', 'pallas' or 'fast'")
+    if shifted.shape[1] <= KERNEL_MAX_K:
+        return _exact_keep(shifted, valid, iou_thres)
+    return _blocked_keep(shifted, valid, iou_thres)
+
+
+def _gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x (B, A, C), idx (B, K) -> (B, K, C)."""
+    return torch.gather(x, 1, idx[..., None].expand(-1, -1, x.shape[-1]))
+
+
+def _select_candidates(boxes, scores, conf_thres, max_cand, multi_label, class_mask):
+    """Gate + top-K candidate selection -> (vals, boxes_k, cls, valid), all (B, K[, 4])."""
+    b, a, nc = scores.shape
+    if class_mask is not None:
+        scores = torch.where(class_mask, scores, 0.0)
+    if multi_label and nc > 1:
+        k = min(max_cand, a * nc)
+        flat = scores.reshape(b, -1)
+        vals, fidx = topk_stable(torch.where(flat > conf_thres, flat, -1.0), k)
+        bidx = fidx // nc
+        cls = (fidx % nc).float()
+    else:
+        k = min(max_cand, a)
+        conf = scores.amax(-1)
+        vals, bidx = topk_stable(torch.where(conf > conf_thres, conf, -1.0), k)
+        cls = torch.gather(scores.argmax(-1), 1, bidx).float()
+    valid = vals > max(conf_thres, 0.0)
+    return vals, _gather_rows(boxes, bidx), cls, valid
+
+
+def _finalize(cand_boxes, vals, cls, keep, max_det):
+    """Emit the kept candidates, in order, as a padded (B, max_det, 6) block.
+
+    Candidates arrive score-descending and suppression never reorders, so each
+    kept row goes to rank cumsum(keep) - 1; rows past max_det are dropped.
+    """
+    b = keep.shape[0]
+    keep = keep & (vals > 0)
+    pos = keep.long().cumsum(-1) - 1
+    pos = torch.where(keep & (pos < max_det), pos, max_det)  # overflow -> the dropped row
+    rows = torch.cat([cand_boxes.float(), vals.float()[..., None], cls.float()[..., None]], -1)
+    out = torch.zeros((b, max_det + 1, 6), dtype=torch.float32, device=rows.device)
+    out.scatter_(1, pos[..., None].expand(-1, -1, 6), rows)
+    return out[:, :max_det]
+
+
+def non_max_suppression(
+    boxes: torch.Tensor,  # (B, A, 4) xyxy, input-image pixels
+    scores: torch.Tensor,  # (B, A, nc) sigmoid probabilities
+    conf_thres: float = 0.25,
+    iou_thres: float = 0.45,
+    max_det: int = 300,
+    max_cand: int = 1024,
+    multi_label: bool = False,
+    agnostic: bool = False,
+    class_mask: Optional[torch.Tensor] = None,
+    mode: str = "greedy",
+) -> torch.Tensor:
+    """Batched class-aware NMS -> (B, max_det, 6) padded detections.
+
+    mode: 'greedy' (exact torchvision semantics), 'pallas' (the same exact keep;
+    the name of the JAX package's kernel mode), 'fast' (one-shot matrix NMS,
+    slightly over-suppresses).
+    """
+    vals, cand_boxes, cls, valid = _select_candidates(boxes, scores, conf_thres, max_cand, multi_label, class_mask)
+    offset = torch.zeros_like(cls) if agnostic else cls * MAX_WH
+    keep = _keep(cand_boxes + offset[..., None], valid, iou_thres, mode)
+    return _finalize(cand_boxes, vals, cls, keep, max_det)
+
+
+def select_from_feats(feats: Sequence[torch.Tensor], nc: int, reg_max: int, conf_thres: float, max_cand: int,
+                      class_mask: Optional[torch.Tensor] = None, half: bool = False, multi_label: bool = False):
+    """Steps 1-2 of nms_from_feats: gate and select the top-K candidates.
+
+    Scores are the sigmoid of the class logits (max/argmax over the sigmoid,
+    not the logits). Returns vals (B, K), the anchor index bidx (B, K) and
+    the class cls (B, K) float32, in lax.top_k's order over the anchors of
+    all levels (or over anchor x class with multi_label).
+    """
+    B = feats[0].shape[0]
+    ml = multi_label and nc > 1
+    scores, clss = [], []
+    for f in feats:
+        cl = f[..., 4 * reg_max:]
+        s_full = torch.sigmoid(cl if half else cl.float())
+        if class_mask is not None:
+            s_full = torch.where(class_mask, s_full, 0.0)
+        if ml:  # flat (anchor x class) index = anchor * nc + class
+            scores.append(s_full.reshape(B, -1))
+        else:
+            scores.append(s_full.amax(-1).reshape(B, -1))
+            clss.append(s_full.argmax(-1).reshape(B, -1))
+    s = torch.cat(scores, 1)
+    vals, sel = topk_stable(torch.where(s > conf_thres, s, -1.0), min(max_cand, s.shape[1]))
+    if ml:
+        return vals, sel // nc, (sel % nc).float()
+    return vals, sel, torch.gather(torch.cat(clss, 1), 1, sel).float()
+
+
+def nms_from_feats(
+    feats: Sequence[torch.Tensor],
+    strides: Sequence[int],
+    nc: int,
+    reg_max: int = 16,
+    conf_thres: float = 0.25,
+    iou_thres: float = 0.45,
+    max_det: int = 300,
+    max_cand: int = 512,
+    agnostic: bool = False,
+    class_mask: Optional[torch.Tensor] = None,
+    mode: str = "greedy",
+    half: bool = False,
+    multi_label: bool = False,
+) -> torch.Tensor:
+    """Select-first NMS over raw per-level Detect maps (B, H, W, no) -> padded (B, max_det, 6).
+
+    1-2. per-anchor sigmoid max/argmax (or flat anchor x class with
+         multi_label), conf gate, top-K in lax.top_k order;
+    3.   the K candidates' box logits gathered and put through the DFL expectation;
+    4.   anchor centres and strides rebuilt arithmetically from the anchor index;
+    5.   exact greedy keep on class-offset boxes and compaction (_finalize).
+    """
+    B = feats[0].shape[0]
+    vals, bidx, cls_k = select_from_feats(feats, nc, reg_max, conf_thres, max_cand, class_mask, half, multi_label)
+
+    # 3: candidate box logits -> DFL expectation (fp32)
+    box_logits = torch.cat([f[..., : 4 * reg_max].reshape(B, -1, 4 * reg_max) for f in feats], 1)
+    dist = dfl_expectation_mm(_gather_rows(box_logits, bidx), reg_max)  # (B, K, 4)
+
+    # 4: arithmetic anchors (grid x/y + 0.5, per-level stride) from bidx
+    offs, Ws, Ss, o = [], [], [], 0
+    for f, s_ in zip(feats, strides):
+        offs.append(o)
+        Ws.append(f.shape[2])
+        Ss.append(int(s_))
+        o += f.shape[1] * f.shape[2]
+    lvl = torch.zeros_like(bidx)
+    for i in range(1, len(offs)):
+        lvl = torch.where(bidx >= offs[i], i, lvl)
+    # per-level constants picked with where() rather than indexing a host list: no copy to the device
+    off_l = sum(torch.where(lvl == i, offs[i], 0) for i in range(len(offs)))
+    W_l = sum(torch.where(lvl == i, Ws[i], 0) for i in range(len(offs)))
+    S_l = sum(torch.where(lvl == i, Ss[i], 0) for i in range(len(offs))).float()
+    local = bidx - off_l
+    ax = (local % W_l).float() + 0.5
+    ay = (local // W_l).float() + 0.5
+    cand_boxes = torch.stack(
+        [(ax - dist[..., 0]) * S_l, (ay - dist[..., 1]) * S_l, (ax + dist[..., 2]) * S_l, (ay + dist[..., 3]) * S_l],
+        -1,
+    )
+    valid = vals > max(conf_thres, 0.0)
+
+    # 5: suppression + compaction
+    offset = torch.zeros_like(cls_k) if agnostic else cls_k * MAX_WH
+    keep = _keep(cand_boxes + offset[..., None], valid, iou_thres, mode)
+    return _finalize(cand_boxes, vals, cls_k, keep, max_det)
