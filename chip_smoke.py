@@ -7,14 +7,17 @@ Phases, each of which exits non-zero on failure:
   1. build: compiles every kernel source in yololite_tpu_torch/csrc/ with
      nvcc, all at once, and prints the build time and ptxas's report;
   2. kernel: holds each kernel against its plain PyTorch version on the card
-     (bit-equal keep masks for greedy_nms_keep over crowded random scenes and
-     alternating suppression chains) and times both;
+     (bit-equal keep masks for greedy_nms_keep, boxes in, over crowded random
+     scenes and alternating suppression chains, ragged K and K = 1024
+     included) and times both;
   3. slice: YOLOLite("yolo11n.yaml") with init(0) predicts synthetic 480x640
      uint8 batches at imgsz 640 and conf 1e-7, in fp32 (TF32 off) and bf16, at
      batch 1 and 32; checks shapes, finiteness, that the kernel ran, that the
-     kernel and the plain keep give the same detections on one batch's Detect
+     kernel and the plain keep give the same detections on each batch's Detect
      maps, times letterbox, forward and nms_from_feats each alone on that
-     batch, and checks that the card agrees with the CPU on a small input.
+     batch, and checks that the card agrees with the CPU on a small input; on
+     the exact keep's recorded fp32 inputs, checks that one call of it
+     launches the kernel once and allocates nothing but the keep mask.
 Prints the card's name and power limit, a {"kernels": [...]} line, and last
 {"ok": true, "device": {...}}. Needs no network and no JAX.
 """
@@ -28,7 +31,9 @@ import time
 from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
-FP32_OPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
+FP32_OPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores, an FMA counted as 2 ops
+IOU_OPS = 14  # fp32 ops of one IoU test: 4 min/max, 2 sub, 2 clamp, 1 mul, 2 add/sub, 1 add of eps, 1 div, 1 compare
+AREA_OPS = 3  # fp32 ops of one box's area: 2 sub, 1 mul
 
 
 def log(*a):
@@ -52,25 +57,26 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
 
 
 def keep_bound_ms(kept, k: int, b: int):
-    """Least time for the keep mask on these inputs, and what bounds it ("bytes" or "operations").
+    """Least time for the keep mask from boxes on these inputs, and what bounds it ("bytes" or "operations").
 
-    Only a kept row suppresses, so the data needs the IoU entries right of the
-    diagonal in the kept rows (read once, 4 bytes and one compare each), plus
-    valid read and keep written once.
+    Bytes: 16 of boxes and 1 of valid read, 1 of keep written, per candidate.
+    Operations: only a kept row suppresses, so the data needs the IoU of each
+    kept row's pairs right of the diagonal (IOU_OPS each) and every box's
+    area once (AREA_OPS). The formula has no FMA, so at one op per fp32
+    instruction the card's rate is half of FP32_OPS_PER_S and this bound is
+    about 2x low.
     """
     kept_i = kept.nonzero()[:, 1]
-    tri = float((k - 1 - kept_i).sum().item())
-    by_bytes = (tri * 4 + 2 * b * k) / HBM_BYTES_PER_S
-    by_ops = tri / FP32_OPS_PER_S
+    pairs = float((k - 1 - kept_i).sum().item())
+    by_bytes = b * k * (16 + 1 + 1) / HBM_BYTES_PER_S
+    by_ops = (pairs * IOU_OPS + b * k * AREA_OPS) / FP32_OPS_PER_S
     return max(by_bytes, by_ops) * 1e3, "bytes" if by_bytes >= by_ops else "operations"
 
 
 def scenes(b: int, k: int, seed: int, chain: bool):
-    """IoU (B, K, K) and valid (B, K) on the card: crowded random boxes, or alternating chains."""
+    """Boxes (B, K, 4) and valid (B, K) on the card: crowded random boxes, or alternating chains."""
     import numpy as np
     import torch
-
-    from yololite_tpu_torch.ops.boxes import box_iou
 
     rng = np.random.default_rng(seed)
     if chain:  # box i overlaps i+1 (IoU 9/17) and i+2 only a little (5/21): keeps alternate
@@ -83,8 +89,7 @@ def scenes(b: int, k: int, seed: int, chain: bool):
         wh = rng.uniform(10, 120, (b, k, 2))
         boxes = np.concatenate([c - wh / 2, c + wh / 2], -1).astype(np.float32)
         valid = rng.uniform(size=(b, k)) > 0.1
-    bx = torch.from_numpy(boxes).cuda()
-    return box_iou(bx, bx).contiguous(), torch.from_numpy(valid).cuda()
+    return torch.from_numpy(boxes).cuda(), torch.from_numpy(valid).cuda()
 
 
 def card_line() -> str:
@@ -144,26 +149,28 @@ def main() -> int:
             log(f"  {name}: {' | '.join(line.strip() for line in report.read_text().splitlines() if line.strip())}")
 
     # ---- 2. kernel: greedy_nms_keep against its plain version ----
-    ks, bs_ = (128, 256, 300, 512, 1024), (1, 16, 128)
+    ks, bs_ = (1, 63, 64, 65, 128, 256, 300, 512, 1024), (1, 16, 128)
+    checks = 0
     for chain in (False, True):
         for k in ks:
             for b in bs_:
-                iou, valid = scenes(b, k, seed=k * 1000 + b, chain=chain)
+                boxes, valid = scenes(b, k, seed=k * 1000 + b, chain=chain)
                 for thr in (0.45, 0.7) if not chain else (0.4,):
-                    got = greedy_nms_keep(iou, valid, thr)
-                    want = greedy_nms_keep_plain(iou, valid, thr)
+                    got = greedy_nms_keep(boxes, valid, thr)
+                    want = greedy_nms_keep_plain(boxes, valid, thr)
                     torch.cuda.synchronize()
                     if not torch.equal(got, want):
                         raise AssertionError(f"greedy_nms_keep != plain at B={b} K={k} thr={thr} chain={chain}: "
                                              f"{int((got != want).sum())} entries differ")
-    log(f"kernel: greedy_nms_keep bit-equal to its plain version on every K in {ks} x B in {bs_}, "
+                    checks += 1
+    log(f"kernel: greedy_nms_keep bit-equal to its plain version in {checks} checks: every K in {ks} x B in {bs_}, "
         "crowded scenes (thr 0.45, 0.7) and alternating chains (thr 0.4)")
-    for b, k in ((16, 512), (128, 300)):
-        iou, valid = scenes(b, k, seed=7, chain=False)
-        bound, bound_by = keep_bound_ms(greedy_nms_keep_plain(iou, valid, 0.45), k, b)
-        ms = cuda_ms(lambda: greedy_nms_keep(iou, valid, 0.45), 50)
-        plain = cuda_ms(lambda: greedy_nms_keep_plain(iou, valid, 0.45), 10)
-        log(f"kernel: greedy_nms_keep B={b} K={k}: {ms:.4f} ms, plain {plain:.4f} ms, "
+    for b, k in ((32, 512), (1, 512), (16, 512), (128, 300), (32, 1024)):
+        boxes, valid = scenes(b, k, seed=7, chain=False)
+        bound, bound_by = keep_bound_ms(greedy_nms_keep_plain(boxes, valid, 0.45), k, b)
+        ms = cuda_ms(lambda: greedy_nms_keep(boxes, valid, 0.45), 100)
+        plain = cuda_ms(lambda: greedy_nms_keep_plain(boxes, valid, 0.45), 10)
+        log(f"kernel: greedy_nms_keep B={b} K={k} (crowded scene): {ms:.4f} ms, plain {plain:.4f} ms, "
             f"bound {bound:.5f} ms ({bound_by}), on {card}")
 
     # ---- 3. slice: yolo11n predict at 640 through the facade ----
@@ -173,12 +180,13 @@ def main() -> int:
     model = YOLOLite("yolo11n.yaml")  # init(0) on the card
     rng = np.random.default_rng(0)
     frames = [rng.integers(0, 256, (480, 640, 3), dtype=np.uint8) for _ in range(32)]
-    main_inputs = {}  # (half, batch) -> the first inputs the main path gave the kernel
+    main_inputs = {}  # (half, batch) -> the first boxes, valid and threshold the main path gave the exact keep
+    exact_keep = nms._exact_keep
 
-    def recording_keep(iou, valid, thr):  # records the kernel's inputs once per configuration, then launches it
+    def recording_keep(boxes, valid, thr):  # records the exact keep's inputs once per configuration, then runs it
         if config not in main_inputs:
-            main_inputs[config] = (iou.clone(), valid.clone(), thr)
-        return greedy_nms_keep(iou, valid, thr)
+            main_inputs[config] = (boxes.clone(), valid.clone(), thr)
+        return exact_keep(boxes, valid, thr)
 
     launches = 0
     for half in (False, True):
@@ -188,7 +196,7 @@ def main() -> int:
             kw = dict(conf=1e-7, imgsz=640, batch=bs, half=half, save=False, verbose=False)
             model.predict(src, **kw)  # set up and warm up this configuration
             greedy_nms_keep.launches = 0
-            nms.greedy_nms_keep = recording_keep
+            nms._exact_keep = recording_keep
             try:
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
@@ -198,9 +206,9 @@ def main() -> int:
                 torch.cuda.synchronize()
                 dt = (time.perf_counter() - t0) / reps
             finally:
-                nms.greedy_nms_keep = greedy_nms_keep
+                nms._exact_keep = exact_keep
             n = greedy_nms_keep.launches
-            if n < reps:
+            if n != reps:  # one exact keep of K = 512 per predict call
                 raise AssertionError(f"greedy_nms_keep launched {n} times in {reps} predict calls")
             launches += n
             if len(results) != bs:
@@ -221,8 +229,6 @@ def main() -> int:
             dets = pred.infer_uint8(raw, 640)
             if tuple(dets.shape) != (bs, pred.max_det, 6) or not torch.isfinite(dets).all():
                 raise AssertionError(f"predict tensor {tuple(dets.shape)} not finite or not (B, max_det, 6)")
-            if bs != 32:
-                continue
             # on this batch's Detect maps: the kernel against the plain keep inside nms_from_feats,
             # then each stage of the predict graph timed alone
             with torch.inference_mode(), fp32_convs(raw.device):
@@ -261,14 +267,32 @@ def main() -> int:
                                  f"{match_sets(da, db)} matched")
     log(f"slice: card == CPU on 2 images at imgsz 160 ({[len(r) for r in on_card]} detections)")
 
-    # ---- kernels line: timed on the main path's own inputs (fp32, batch 32) ----
-    iou, valid, thr = main_inputs[(False, 32)]
-    got, want = greedy_nms_keep(iou, valid, thr), greedy_nms_keep_plain(iou, valid, thr)
-    err = float((got.int() - want.int()).abs().max().item())
-    if err != 0:
-        raise AssertionError("greedy_nms_keep differs from its plain version on the main path's inputs")
-    b, k = valid.shape
-    bound, bound_by = keep_bound_ms(want, k, b)
+    # ---- kernels line: timed on the main path's own inputs (fp32, batch 32; batch 1 logged) ----
+    for config in ((False, 1), (False, 32)):
+        shifted, valid, thr = main_inputs[config]
+        b, k = valid.shape
+        # the exact keep alone on these inputs: one launch, and no allocation but the (B, K) keep mask
+        first = greedy_nms_keep.launches
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        exact_keep(shifted, valid, thr)
+        torch.cuda.synchronize()
+        extra = torch.cuda.max_memory_allocated() - base
+        if greedy_nms_keep.launches - first != 1 or extra > -(-b * k // 512) * 512:
+            raise AssertionError(f"the exact keep at B={b} K={k} made {greedy_nms_keep.launches - first} launches "
+                                 f"and allocated {extra} bytes, not 1 launch and the {b * k}-byte keep mask")
+        log(f"stage: _exact_keep B={b} K={k}: 1 kernel launch, {extra} bytes allocated (the keep mask)")
+        boxes = shifted.float().contiguous()
+        got, want = greedy_nms_keep(boxes, valid, thr), greedy_nms_keep_plain(boxes, valid, thr)
+        err = float((got.int() - want.int()).abs().max().item())
+        if err != 0:
+            raise AssertionError(f"greedy_nms_keep differs from its plain version on the main path's inputs {config}")
+        bound, bound_by = keep_bound_ms(want, k, b)
+        ms = cuda_ms(lambda: greedy_nms_keep(boxes, valid, thr), 100)
+        plain = cuda_ms(lambda: greedy_nms_keep_plain(boxes, valid, thr), 20)
+        log(f"kernel: greedy_nms_keep B={b} K={k} (the main path's fp32 inputs, {int(want.sum())} kept): "
+            f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bound:.5f} ms ({bound_by}), on {card}")
     entry = {
         "name": "greedy_nms_keep",
         "route": "cuda",
@@ -276,8 +300,8 @@ def main() -> int:
         "replaces": "yololite_tpu/ops/pallas_kernels.py:51",
         "launches": launches,
         "max_abs_err": err,
-        "ms": cuda_ms(lambda: greedy_nms_keep(iou, valid, thr), 100),
-        "plain_ms": cuda_ms(lambda: greedy_nms_keep_plain(iou, valid, thr), 20),
+        "ms": ms,
+        "plain_ms": plain,
         "bound_ms": bound,
         "bound_by": bound_by,
         "library_ms": None,  # no PyTorch call computes greedy NMS

@@ -1,31 +1,57 @@
-// Exact greedy NMS keep mask for Hopper (sm_90a).
+// Exact greedy NMS keep mask for Hopper (sm_90a): boxes in, keep mask out, in one kernel.
 //
 // Replaces the TPU kernel yololite_tpu/ops/pallas_kernels.py:51
-// `greedy_nms_keep_pallas` (body `_nms_kernel_with_valid`, :33) and computes
-// the same function: candidates arrive sorted by score; walking i = 0..K-1,
-// a row i that is still kept drops every later j with iou[b, i, j] > thr
-// (strict). Input `iou` (B, K, K) float32 contiguous and `valid` (B, K) bool;
-// output `keep` (B, K) bool.
+// `greedy_nms_keep_pallas` (body `_nms_kernel_with_valid`, :33) and absorbs
+// the `box_iou` that feeds it (yololite_tpu/ops/nms.py:344): it computes
+// box_iou + greedy_nms_keep_pallas together, which is also `_greedy_keep`
+// (nms.py:27) and `_fixpoint_keep` (nms.py:97). Candidates arrive sorted by
+// score; walking i = 0..K-1, a row i that is still kept drops every later j
+// with iou(i, j) > thr (strict, float32). Input `boxes` (B, K, 4) float32
+// contiguous class-offset xyxy and `valid` (B, K) bool; output `keep` (B, K)
+// bool; K <= 1024.
 //
-// Design: one block per image; the keep vector lives in shared memory (K
-// bytes); the block walks i in order with one barrier per step, and when
-// keep[i] is set its threads clear keep[j] for j > i, reading row i of the
-// IoU matrix coalesced (neighbouring threads, neighbouring j). A step only
-// writes entries j > i and reads entry i after the barrier that ends step
-// i - 1, so one barrier per step orders every read after the writes it
-// depends on.
+// Design: one block of 1024 threads per image, everything between the boxes
+// and the keep mask in shared memory, nothing in device memory.
+//   load:    the K boxes (16 B each, zero-padded to whole 64-bit words),
+//            their K areas, and the "removed" words seeded with ~valid and
+//            the ragged tail past K (one ballot per 32 candidates).
+//   phase A: the upper-triangular suppression bitmask sup[i][w], ceil(K/64)
+//            64-bit words per row (128 KB at K = 1024), built in parallel:
+//            a warp takes (row i, 32 consecutive columns), each lane computes
+//            one IoU, and __ballot_sync packs `j > i && j < K && iou > thr`
+//            into half a word. A row's words are written from the word that
+//            holds i to the end, so phase B reads nothing unwritten.
+//   phase B: one warp holds the removed words, one per lane (at most 16).
+//            For word w it resolves the word's rows in registers, jumping from
+//            one not-removed row to the next (ffs) and OR-ing in the row's
+//            diagonal word sup[i][w]; for each row just kept, every lane
+//            l > w ORs sup[i][l] into its own word. Shared memory only: no
+//            K-step chain of barriers and no device-memory load in the chain.
+//   store:   the keep bytes, coalesced.
+// Above 48 KB of dynamic shared memory (K > 520) the launch needs
+// cudaFuncAttributeMaxDynamicSharedMemorySize, set before such a launch.
 //
-// Bound on an H100 SXM: the function reads at most B*K*K*4 bytes of IoU once
-// (134 MB at B=128, K=512: 40 us at 3.35 TB/s; on real data only the kept
-// rows right of the diagonal, far less) and does one compare per entry read,
-// far below the card's rate, so bytes bound it. This simple design is instead
-// bounded by its serial chain: K barrier steps per block, each waiting on
-// the latency of one row load when keep[i] is set, so its time grows with K
-// and not with the bytes. A later version removes the chain: either a
-// suppression bitmask built in parallel (each block marks, for its rows,
-// the later columns above the threshold) followed by a serial scan over
-// 64-bit words, or the IoU computed inside the kernel from the (K, 4) boxes
-// so the (B, K, K) matrix never touches device memory.
+// Exactness: every IoU has the bits of yololite_tpu_torch/ops/boxes.py:77
+// box_iou (and so of yololite_tpu/ops/boxes.py:162), in the same operation
+// order: w = max(min(ax2, bx2) - max(ax1, bx1), 0), h likewise, inter = w*h,
+// area = (x2-x1)*(y2-y1), iou = inter / (((area_a + area_b) - inter) + 1e-7f).
+// The arithmetic is written with __fsub_rn/__fmul_rn/__fadd_rn/__fdiv_rn,
+// which nvcc never contracts into an FMA, and IEEE division; min and max are
+// PTX min.NaN/max.NaN, which propagate NaN as torch.minimum/maximum/clamp do.
+// Never build this with --use_fast_math. One shortcut is exact: inter == 0
+// makes the IoU +-0 or NaN, never above a threshold >= 0, so the division is
+// skipped there (without it the kernel took 20-40% longer on an H100, PERF.md).
+//
+// Bound on an H100 SXM: the function reads 16 + 1 bytes and writes 1 byte per
+// candidate, and the data needs the IoU of each kept row right of the
+// diagonal, some 14 fp32 operations each; at the predict path's B = 32,
+// K = 512 that is well under a microsecond either way. This design computes
+// every pair right of the diagonal (phase A), not only the kept rows', and is
+// bound by the instruction throughput of the one SM that holds an image: its
+// time grows with K^2 per image, and at B < 132 only B of the 132 SMs get
+// work. Phase B is one warp, serial over the kept rows. Splitting phase A over
+// more blocks (a cluster with distributed shared memory, or a grid-wide
+// pass) is the next speed question (PERF.md, Open questions).
 //
 // C interface, bound with ctypes (pointers and the stream are void*, ints are
 // int): launches on the caller's stream of the caller's device, allocates
@@ -38,39 +64,130 @@
 namespace {
 
 constexpr int kMaxK = 1024;   // the predict path's K is <= 1024 (larger K runs in blocks of 1024)
-constexpr int kThreads = 256;
+constexpr int kThreads = 1024;
+constexpr int kWarps = kThreads / 32;
+constexpr unsigned kFull = 0xffffffffu;
 
-__global__ void __launch_bounds__(kThreads)
-greedy_nms_keep_kernel(const float* __restrict__ iou, const uint8_t* __restrict__ valid,
+__device__ __forceinline__ float min_nan(float a, float b) {
+  float d;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+}
+
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float d;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+}
+
+// iou(a, b) > thr, with the bits of box_iou (see the note above)
+__device__ __forceinline__ bool iou_above(float4 a, float area_a, float4 b, float area_b, float thr) {
+  const float w = max_nan(__fsub_rn(min_nan(a.z, b.z), max_nan(a.x, b.x)), 0.0f);
+  const float h = max_nan(__fsub_rn(min_nan(a.w, b.w), max_nan(a.y, b.y)), 0.0f);
+  const float inter = __fmul_rn(w, h);
+  if (inter == 0.0f && thr >= 0.0f) return false;
+  const float den = __fadd_rn(__fsub_rn(__fadd_rn(area_a, area_b), inter), 1e-7f);
+  return __fdiv_rn(inter, den) > thr;
+}
+
+// dynamic shared memory of one block: boxes, bitmask, removed and kept words, areas
+size_t smem_bytes(int k) {
+  const size_t words = (k + 63) / 64, kp = words * 64;
+  return kp * sizeof(float4) + (size_t)k * words * sizeof(uint64_t) + 2 * words * sizeof(uint64_t) +
+         kp * sizeof(float);
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+greedy_nms_keep_kernel(const float* __restrict__ boxes, const uint8_t* __restrict__ valid,
                        uint8_t* __restrict__ keep, int k, float thr) {
-  __shared__ uint8_t s_keep[kMaxK];
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int words = (k + 63) / 64;  // 64-bit words per bitmask row
+  const int kp = words * 64;        // K padded to whole words
+  float4* s_box = reinterpret_cast<float4*>(smem);
+  uint64_t* s_sup = reinterpret_cast<uint64_t*>(s_box + kp);  // k rows x words
+  uint64_t* s_removed = s_sup + (size_t)k * words;
+  uint64_t* s_kept = s_removed + words;
+  float* s_area = reinterpret_cast<float*>(s_kept + words);
+  uint32_t* s_sup32 = reinterpret_cast<uint32_t*>(s_sup);  // the same bitmask in half-words
+  uint32_t* s_removed32 = reinterpret_cast<uint32_t*>(s_removed);
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const size_t b = blockIdx.x;
-  const float* iou_b = iou + b * (size_t)k * (size_t)k;
-  for (int j = threadIdx.x; j < k; j += kThreads) s_keep[j] = valid[b * k + j] != 0;
-  for (int i = 0; i < k; ++i) {
-    __syncthreads();
-    if (s_keep[i]) {  // the same value for every thread of the block
-      const float* row = iou_b + (size_t)i * k;
-      for (int j = i + 1 + threadIdx.x; j < k; j += kThreads) {
-        if (row[j] > thr) s_keep[j] = 0;
-      }
+  const float* boxes_b = boxes + b * (size_t)k * 4;
+  const uint8_t* valid_b = valid + b * (size_t)k;
+
+  // ---- load ----
+  float* s_boxf = reinterpret_cast<float*>(s_box);
+  for (int t = threadIdx.x; t < kp * 4; t += kThreads) s_boxf[t] = t < k * 4 ? boxes_b[t] : 0.0f;
+  for (int c = warp; c < 2 * words; c += kWarps) {
+    const int j = 32 * c + lane;
+    const unsigned bits = __ballot_sync(kFull, j >= k || valid_b[j] == 0);
+    if (lane == 0) s_removed32[c] = bits;
+  }
+  __syncthreads();
+  for (int j = threadIdx.x; j < kp; j += kThreads) {
+    const float4 q = s_box[j];
+    s_area[j] = __fmul_rn(__fsub_rn(q.z, q.x), __fsub_rn(q.w, q.y));
+  }
+  __syncthreads();
+
+  // ---- phase A: sup[i][w], bit j set when j > i and iou(i, j) > thr ----
+  for (int i = warp; i < k; i += kWarps) {
+    const float4 bi = s_box[i];
+    const float ai = s_area[i];
+    uint32_t* row = s_sup32 + (size_t)i * 2 * words;
+    for (int c = 2 * (i >> 6); c < 2 * words; ++c) {
+      const int j = 32 * c + lane;
+      const bool hit = j > i && j < k && iou_above(bi, ai, s_box[j], s_area[j], thr);
+      const unsigned bits = __ballot_sync(kFull, hit);
+      if (lane == 0) row[c] = bits;
     }
   }
   __syncthreads();
-  for (int j = threadIdx.x; j < k; j += kThreads) keep[b * k + j] = s_keep[j];
+
+  // ---- phase B: the word scan, one warp ----
+  if (warp == 0) {
+    uint64_t removed = lane < words ? s_removed[lane] : 0;  // lane l: removed rows of word l
+    uint64_t kept_word = 0;
+    for (int w = 0; w < words; ++w) {
+      uint64_t rw = __shfl_sync(kFull, removed, w);  // final: every kept row before word w is applied
+      uint64_t kept = 0;
+      uint64_t cand = ~rw;
+      while (cand) {  // the same value in every lane
+        const int t = __ffsll(static_cast<long long>(cand)) - 1;
+        const uint64_t* r = s_sup + (size_t)(64 * w + t) * words;
+        rw |= r[w];
+        if (lane > w && lane < words) removed |= r[lane];
+        kept |= 1ull << t;
+        cand = ~rw & ~((2ull << t) - 1);  // rows after t not removed yet (t = 63 leaves none)
+      }
+      if (lane == w) kept_word = kept;
+    }
+    if (lane < words) s_kept[lane] = kept_word;
+  }
+  __syncthreads();
+
+  // ---- store ----
+  for (int j = threadIdx.x; j < k; j += kThreads) keep[b * k + j] = (s_kept[j >> 6] >> (j & 63)) & 1;
 }
 
 }  // namespace
 
-extern "C" int greedy_nms_keep(const void* iou, const void* valid, void* keep, int b, int k, float thr,
+extern "C" int greedy_nms_keep(const void* boxes, const void* valid, void* keep, int b, int k, float thr,
                                int device, void* stream) {
   if (b < 0 || k < 0 || k > kMaxK) return static_cast<int>(cudaErrorInvalidValue);
   if (b == 0 || k == 0) return 0;
   // nvcc links this library with its own CUDA runtime, whose current device is not PyTorch's
-  const cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  greedy_nms_keep_kernel<<<b, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(iou), static_cast<const uint8_t*>(valid), static_cast<uint8_t*>(keep), k, thr);
+  const size_t bytes = smem_bytes(k);
+  if (bytes > 48 * 1024) {
+    err = cudaFuncSetAttribute(greedy_nms_keep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(bytes));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  greedy_nms_keep_kernel<<<b, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(boxes), static_cast<const uint8_t*>(valid), static_cast<uint8_t*>(keep), k, thr);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,9 +1,10 @@
 """Hand-written kernels and device-side preprocessing (counterpart of yololite_tpu/ops/pallas_kernels.py).
 
-1. `greedy_nms_keep`: exact greedy NMS keep mask. On a CUDA tensor it
-   launches the CUDA kernel csrc/greedy_nms_keep.cu (replacing the Pallas
-   kernel `greedy_nms_keep_pallas`); on a CPU tensor it runs the plain
-   version beside it, `greedy_nms_keep_plain`.
+1. `greedy_nms_keep`: exact greedy NMS keep mask from score-sorted boxes.
+   On a CUDA tensor it launches the CUDA kernel csrc/greedy_nms_keep.cu,
+   which replaces the Pallas kernel `greedy_nms_keep_pallas` and the
+   `box_iou` before it; on a CPU tensor it runs the plain version beside it,
+   `greedy_nms_keep_plain`.
 2. `device_letterbox`: batched letterbox on the device for same-shape uint8
    batches: bilinear resize as two fp32 matmuls, pad with 114, divide by 255.
    Plain torch for now (ROADMAP.md, Queue 2 K2).
@@ -18,17 +19,22 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from yololite_tpu_torch.ops.boxes import box_iou
+
 # ---------------- greedy NMS keep ----------------
 
 
-def greedy_nms_keep_plain(iou: torch.Tensor, valid: torch.Tensor, iou_thres: float) -> torch.Tensor:
-    """Plain torch greedy keep: (B, K, K) IoU of score-sorted candidates, (B, K) valid -> (B, K) bool.
+def greedy_nms_keep_plain(boxes: torch.Tensor, valid: torch.Tensor, iou_thres: float) -> torch.Tensor:
+    """Plain torch greedy keep: (B, K, 4) score-sorted xyxy boxes, (B, K) valid -> (B, K) bool.
 
-    The batched fixpoint of yololite_tpu/ops/nms.py `_fixpoint_keep`: iterate
-    keep[j] = valid[j] & no kept i < j has iou[i, j] > thr until it stops
-    changing; the greedy recurrence has one solution, and each sweep makes at
-    least one more prefix entry final, so this is exactly sequential greedy.
+    `box_iou` in fp32, then the batched fixpoint of yololite_tpu/ops/nms.py
+    `_fixpoint_keep`: iterate keep[j] = valid[j] & no kept i < j has
+    iou[i, j] > thr until it stops changing; the greedy recurrence has one
+    solution, and each sweep makes at least one more prefix entry final, so
+    this is exactly sequential greedy.
     """
+    b = boxes.float()
+    iou = box_iou(b, b)
     k = iou.shape[-1]
     tri = torch.ones(k, k, dtype=torch.bool, device=iou.device).triu(1)  # i suppresses j only if i < j
     sup = (iou > iou_thres) & tri
@@ -41,32 +47,33 @@ def greedy_nms_keep_plain(iou: torch.Tensor, valid: torch.Tensor, iou_thres: flo
         keep = new
 
 
-def greedy_nms_keep(iou: torch.Tensor, valid: torch.Tensor, iou_thres: float) -> torch.Tensor:
-    """Exact greedy keep mask: (B, K, K) float32 IoU (score-sorted), (B, K) bool valid -> (B, K) bool.
+def greedy_nms_keep(boxes: torch.Tensor, valid: torch.Tensor, iou_thres: float) -> torch.Tensor:
+    """Exact greedy keep mask: (B, K, 4) float32 xyxy boxes (score-sorted), (B, K) bool valid -> (B, K) bool.
 
-    A CUDA tensor goes through the CUDA kernel (K <= 1024), a CPU tensor
-    through `greedy_nms_keep_plain`; any other input raises.
+    A CUDA tensor goes through the CUDA kernel (K <= 1024), which computes the
+    IoU itself; a CPU tensor goes through `greedy_nms_keep_plain`; any other
+    input raises.
     """
-    if iou.device.type == "cpu":
-        return greedy_nms_keep_plain(iou, valid, iou_thres)
-    if iou.device.type != "cuda":
-        raise ValueError(f"greedy_nms_keep: unsupported device {iou.device}")
-    if iou.dtype != torch.float32 or valid.dtype != torch.bool:
-        raise TypeError(f"greedy_nms_keep wants float32 iou and bool valid, got {iou.dtype} and {valid.dtype}")
-    if iou.ndim != 3 or iou.shape[1] != iou.shape[2] or tuple(valid.shape) != tuple(iou.shape[:2]):
-        raise ValueError(f"greedy_nms_keep wants iou (B, K, K) and valid (B, K), got {tuple(iou.shape)} "
+    if boxes.device.type == "cpu":
+        return greedy_nms_keep_plain(boxes, valid, iou_thres)
+    if boxes.device.type != "cuda":
+        raise ValueError(f"greedy_nms_keep: unsupported device {boxes.device}")
+    if boxes.dtype != torch.float32 or valid.dtype != torch.bool:
+        raise TypeError(f"greedy_nms_keep wants float32 boxes and bool valid, got {boxes.dtype} and {valid.dtype}")
+    if boxes.ndim != 3 or boxes.shape[2] != 4 or tuple(valid.shape) != tuple(boxes.shape[:2]):
+        raise ValueError(f"greedy_nms_keep wants boxes (B, K, 4) and valid (B, K), got {tuple(boxes.shape)} "
                          f"and {tuple(valid.shape)}")
-    if valid.device != iou.device:
-        raise ValueError(f"iou on {iou.device} but valid on {valid.device}")
-    if not (iou.is_contiguous() and valid.is_contiguous()):
-        raise ValueError("greedy_nms_keep wants contiguous iou and valid")
+    if valid.device != boxes.device:
+        raise ValueError(f"boxes on {boxes.device} but valid on {valid.device}")
+    if not (boxes.is_contiguous() and valid.is_contiguous()):
+        raise ValueError("greedy_nms_keep wants contiguous boxes and valid")
     b, k = valid.shape
     if k > 1024:
         raise ValueError(f"greedy_nms_keep takes K <= 1024, got {k}; run larger K in blocks (ops.nms._blocked_keep)")
-    keep = torch.empty((b, k), dtype=torch.bool, device=iou.device)
-    stream = torch.cuda.current_stream(iou.device).cuda_stream
-    rc = _nms_lib().greedy_nms_keep(iou.data_ptr(), valid.data_ptr(), keep.data_ptr(), b, k, float(iou_thres),
-                                    iou.device.index, stream)
+    keep = torch.empty((b, k), dtype=torch.bool, device=boxes.device)
+    stream = torch.cuda.current_stream(boxes.device).cuda_stream
+    rc = _nms_lib().greedy_nms_keep(boxes.data_ptr(), valid.data_ptr(), keep.data_ptr(), b, k, float(iou_thres),
+                                    boxes.device.index, stream)
     if rc != 0:
         msg = _nms_lib().greedy_nms_keep_error_string(rc).decode()
         raise RuntimeError(f"greedy_nms_keep kernel launch failed: {msg}")

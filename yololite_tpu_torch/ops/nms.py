@@ -4,8 +4,9 @@ Fixed-shape output: a padded (B, max_det, 6) tensor [x1, y1, x2, y2, conf, cls]
 with conf == 0 marking empty rows. Greedy order matches torchvision
 (score-descending, suppress IoU > threshold, class-offset trick).
 
-Exact keeps with K <= 1024 go through `ops.kernels.greedy_nms_keep`: the CUDA
-kernel for tensors on the card, its plain version on the CPU. Larger K runs
+Exact keeps with K <= 1024 go through `ops.kernels.greedy_nms_keep`, boxes in
+and keep mask out: the CUDA kernel for tensors on the card (it computes the
+IoU itself), its plain version on the CPU. Larger K runs
 in score-ordered blocks of 1024 (`_blocked_keep`). Selection follows
 lax.top_k's rule, lowest index first among equal scores (`topk_stable`).
 """
@@ -32,14 +33,15 @@ def topk_stable(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def _fixpoint_keep(shifted: torch.Tensor, valid: torch.Tensor, iou_thres: float) -> torch.Tensor:
     """Plain exact greedy keep over (B, K, 4) class-offset boxes, on any device."""
-    s = shifted.float()
-    return greedy_nms_keep_plain(box_iou(s, s), valid, iou_thres)
+    return greedy_nms_keep_plain(shifted, valid, iou_thres)
 
 
 def _exact_keep(shifted: torch.Tensor, valid: torch.Tensor, iou_thres: float) -> torch.Tensor:
-    """Exact greedy keep over (B, K <= 1024, 4) class-offset boxes: the kernel on CUDA, plain on CPU."""
-    s = shifted.float()
-    return greedy_nms_keep(box_iou(s, s).contiguous(), valid.contiguous(), iou_thres)
+    """Exact greedy keep over (B, K <= 1024, 4) class-offset boxes: the kernel on CUDA, plain on CPU.
+
+    The kernel computes the IoU itself, so no (B, K, K) tensor is made here.
+    """
+    return greedy_nms_keep(shifted.float().contiguous(), valid.contiguous(), iou_thres)
 
 
 def _fast_keep(shifted: torch.Tensor, valid: torch.Tensor, iou_thres: float, chunk: int = 1024) -> torch.Tensor:
