@@ -17,7 +17,17 @@ Phases, each of which exits non-zero on failure:
      maps, times letterbox, forward and nms_from_feats each alone on that
      batch, and checks that the card agrees with the CPU on a small input; on
      the exact keep's recorded fp32 inputs, checks that one call of it
-     launches the kernel once and allocates nothing but the keep mask.
+     launches the kernel once and allocates nothing but the keep mask;
+  4. val: writes a 64-image synthetic YOLO dataset (PNGs of four shapes, so
+     rect batching gives four buckets) and runs YOLOLite("yolo11n.yaml").val
+     at imgsz 640, batch 16, rect, conf 1e-7, in fp32 (TF32 off) and bf16:
+     checks the metrics, predictions.json, and that the kernel launched once
+     per alive block of 1024 of the K = 8192 multi-label NMS; on one val
+     batch checks the kernel against the plain keep inside nms_from_feats
+     and times forward, nms_from_feats and _blocked_keep alone, with the
+     NMS's peak memory; times the kernel on val's own block inputs; checks
+     that the card agrees with the CPU on 4 images at imgsz 160.
+The kernels line's launches count the predict and val runs together.
 Prints the card's name and power limit, a {"kernels": [...]} line, and last
 {"ok": true, "device": {...}}. Needs no network and no JAX.
 """
@@ -112,6 +122,260 @@ def match_sets(a, b, box_tol=0.05, score_rtol=1e-3) -> int:
             used[hit[0]] = True
             n += 1
     return n
+
+
+def write_val_dataset(root: Path, shapes, seed: int, labels=None) -> Path:
+    """A YOLO dataset under root: PNG images (dark background, bright rectangles), labels, data.yaml.
+
+    labels: per-image lists of (cls, cx, cy, w, h) normalized; random boxes over the 80 classes when None.
+    """
+    import cv2
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    (root / "images" / "val").mkdir(parents=True, exist_ok=True)
+    (root / "labels" / "val").mkdir(parents=True, exist_ok=True)
+    for i, (h, w) in enumerate(shapes):
+        im = rng.integers(0, 30, (h, w, 3)).astype(np.uint8)
+        for _ in range(10):
+            y0, x0 = rng.integers(0, h - 8), rng.integers(0, w - 8)
+            im[y0:y0 + rng.integers(8, h // 2), x0:x0 + rng.integers(8, w // 2)] += rng.integers(0, 200, 3).astype(
+                np.uint8)
+        if not cv2.imwrite(str(root / "images" / "val" / f"im{i:03d}.png"), im):
+            raise RuntimeError(f"could not write {root}/images/val/im{i:03d}.png")
+        if labels is None:
+            n = int(rng.integers(1, 8))
+            rows = [(int(k), *xy, *s) for k, xy, s in zip(rng.integers(0, 80, n), rng.uniform(0.2, 0.8, (n, 2)),
+                                                            rng.uniform(0.05, 0.3, (n, 2)))]
+        else:
+            rows = labels[i]
+        (root / "labels" / "val" / f"im{i:03d}.txt").write_text(
+            "\n".join(f"{k} {cx:.6f} {cy:.6f} {bw:.6f} {bh:.6f}" for k, cx, cy, bw, bh in rows))
+    (root / "data.yaml").write_text(f"path: {root}\nval: images/val\nnc: 80\n")
+    return root / "data.yaml"
+
+
+def separating_weights_(model) -> None:
+    """Weights whose class scores differ from anchor to anchor, so near-ties are rare (in place).
+
+    init(0) weights fade the image out through the depth: every class logit
+    sits within a few ulps of one value and rounding alone orders the
+    candidates. Every conv is scaled by 2.5, which keeps the signal alive to
+    the head; each level's last class conv is scaled up and its biases are
+    set to multiples of 1/8 in (-5, 0).
+    """
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(14)
+    with torch.no_grad():
+        for p in model.parameters():
+            if p.ndim == 4:
+                p.mul_(2.5)
+        for conv, s in zip((seq[2] for seq in model.detect.cv3), (100.0, 400.0, 1000.0)):
+            conv.weight.mul_(s)
+            conv.bias.copy_(torch.from_numpy(rng.integers(-39, 0, conv.bias.shape[0]) / 8.0))
+
+
+def val_phase(card: str, model):
+    """yolo11n val at 640 on the card through the facade (`model`, init(0) on the card), its checks and timings.
+
+    Returns the kernel launches of the val runs and the kernel's numbers on
+    val's own K = 1024 block inputs.
+    """
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from yololite_tpu_torch import YOLOLite
+    from yololite_tpu_torch.data.dataset import DataLoader, YOLODataset
+    from yololite_tpu_torch.engine.predictor import forward_nhwc, fp32_convs, inference_net
+    from yololite_tpu_torch.engine.validator import VAL_MAX_CAND, DetectionValidator
+    from yololite_tpu_torch.ops import nms
+    from yololite_tpu_torch.ops.kernels import greedy_nms_keep, greedy_nms_keep_plain
+
+    tmp = tempfile.TemporaryDirectory()
+    root = Path(tmp.name)
+    shapes = [(480, 640), (640, 480), (640, 640), (360, 640)] * 16  # rect at batch 16: four buckets
+    data = write_val_dataset(root / "val64", shapes, seed=15)
+    n_img, bs = len(shapes), 16
+    blocked, exact = nms._blocked_keep, nms._exact_keep
+    alive_blocks, block_inputs = [], []
+
+    def recording_blocked(shifted, valid, thr):  # counts the alive blocks of 1024 of each val batch's keep
+        keep = blocked(shifted, valid, thr)
+        b, k = keep.shape
+        alive_blocks.append(int(torch.nn.functional.pad(keep, (0, -k % 1024)).reshape(b, -1, 1024)
+                                .any(-1).any(0).sum()))
+        return keep
+
+    def recording_exact(boxes, valid, thr):  # records the first val block's inputs, then runs it
+        if not block_inputs:
+            block_inputs.append((boxes.clone(), valid.clone(), thr))
+        return exact(boxes, valid, thr)
+
+    launches = 0
+    for half in (False, True):
+        dtype = "bf16" if half else "fp32"
+        kw = dict(data=str(data), imgsz=640, batch=bs, rect=True, conf=1e-7, half=half, plots=False,
+                  verbose=False, project=str(root / "runs"), name=dtype)
+        metrics = model.val(save_json=True, **kw)  # warm-up, label cache, predictions.json
+        rd = metrics.results_dict
+        if not all(np.isfinite(v) and 0 <= v <= 1 for v in rd.values()):
+            raise AssertionError(f"val {dtype} metrics not finite or outside [0, 1]: {rd}")
+        preds = list((root / "runs").glob(f"{dtype}*/predictions.json"))
+        if len(preds) != 1 or not json.loads(preds[0].read_text()):
+            raise AssertionError(f"val {dtype}: predictions.json missing or empty ({preds})")
+        for rep in range(2):  # two timed runs, for their spread
+            alive_blocks.clear()
+            greedy_nms_keep.launches = 0
+            nms._blocked_keep, nms._exact_keep = recording_blocked, recording_exact
+            try:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                metrics = model.val(save_json=False, **kw)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+            finally:
+                nms._blocked_keep, nms._exact_keep = blocked, exact
+            n = greedy_nms_keep.launches
+            if len(alive_blocks) != n_img // bs or n != sum(alive_blocks) or n == 0:
+                raise AssertionError(f"val {dtype}: {n} kernel launches, but {len(alive_blocks)} NMS calls with "
+                                     f"{alive_blocks} alive blocks of 1024")
+            launches += n
+            sp = metrics.speed
+            log(f"val: yolo11n {dtype} batch {bs} at 640, rect, conf 1e-7, {n_img} images, run {rep + 1}: "
+                f"{n_img / dt:.1f} img/s ({dt:.3f} s); speed per image: preprocess {sp['preprocess']:.3f} ms, "
+                f"inference {sp['inference']:.3f} ms, postprocess {sp['postprocess']:.3f} ms; mAP50-95 "
+                f"{metrics.results_dict['metrics/mAP50-95(B)']:.5f}; {n} kernel launches = alive blocks per "
+                f"batch {alive_blocks}, on {card}")
+
+    # where one fp32 val run's time goes on the card: torch.profiler over the whole run
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from tools.torch_predict_profile import busy_ms
+
+    kw = dict(data=str(data), imgsz=640, batch=bs, rect=True, conf=1e-7, plots=False, verbose=False,
+              project=str(root / "runs"), name="profile")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model.val(**kw)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    on_device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not on_device:
+        raise RuntimeError("torch.profiler recorded no device activity in the val run")
+    by_name = {}
+    for e in on_device:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    device = busy_ms((e.time_range.start, e.time_range.end) for e in on_device)
+    top = ", ".join(f"{n[:48]} {ms:.2f}" for n, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:6])
+    log(f"val: profile of one fp32 run ({n_img} images, under torch.profiler): {wall:.1f} ms, device busy "
+        f"{device:.1f} ms, idle share {1 - device / wall:.3f}, {len(on_device)} device kernels and copies; "
+        f"top ms: {top}; on {card}")
+
+    # one val batch (the first rect bucket) alone: loader, forward, NMS through the kernel and the plain keep
+    t0 = time.perf_counter()
+    ds = YOLODataset(str(root / "val64" / "images" / "val"), imgsz=640, batch_size=bs, rect=True,
+                     data={"names": {i: str(i) for i in range(80)}})
+    t_ds = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    batches = list(DataLoader(ds, batch_size=bs, workers=8))
+    t_load = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    net = inference_net(model.model, torch.device("cuda"), half=False)
+    torch.cuda.synchronize()
+    t_net = time.perf_counter() - t0
+    log(f"val: host loader alone (decode, letterbox, collate; two batches in flight): {n_img / t_load:.1f} img/s "
+        f"({t_load:.3f} s), buckets {sorted({b['img'].shape[1:3] for b in batches})}; set-up alone: dataset "
+        f"from the label cache {t_ds * 1e3:.1f} ms, fused net copy {t_net * 1e3:.1f} ms, on {card}")
+    im = torch.from_numpy(batches[0]["img"]).cuda()
+    with torch.inference_mode(), fp32_convs(im.device):
+        x = im.float() * (1.0 / 255.0)
+        feats = [f.float() for f in forward_nhwc(net, x)]
+        args = (feats, model.model.strides, model.model.nc, model.model.reg_max)
+        kw_nms = dict(conf_thres=1e-7, iou_thres=0.7, max_det=300, max_cand=VAL_MAX_CAND, multi_label=True)
+        with_kernel = nms.nms_from_feats(*args, **kw_nms)
+        nms.greedy_nms_keep = greedy_nms_keep_plain
+        try:
+            with_plain = nms.nms_from_feats(*args, **kw_nms)
+        finally:
+            nms.greedy_nms_keep = greedy_nms_keep
+        if not torch.equal(with_kernel, with_plain):
+            raise AssertionError("val nms_from_feats at K = 8192 differs between the kernel and the plain keep")
+        log(f"val: nms_from_feats K={VAL_MAX_CAND} multi-label through the kernel == through the plain keep "
+            f"(fp32, batch {bs} at {tuple(im.shape[1:3])}, {int((with_kernel[..., 4] > 0).sum())} detections), "
+            f"on {card}")
+        captured = []
+        nms._blocked_keep = lambda s, v, t: captured.append((s, v, t)) or blocked(s, v, t)
+        try:
+            nms.nms_from_feats(*args, **kw_nms)
+        finally:
+            nms._blocked_keep = blocked
+        shifted, valid, thr = captured[0]
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        nms.nms_from_feats(*args, **kw_nms)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        t_fw = cuda_ms(lambda: forward_nhwc(net, im.float() * (1.0 / 255.0)), 10)
+        t_nms = cuda_ms(lambda: nms.nms_from_feats(*args, **kw_nms), 10)
+        t_blk = cuda_ms(lambda: blocked(shifted, valid, thr), 10)
+    log(f"val: stages alone (fp32, batch {bs} at {tuple(im.shape[1:3])}): forward {t_fw:.3f} ms, nms_from_feats "
+        f"K={VAL_MAX_CAND} {t_nms:.3f} ms, of which _blocked_keep {t_blk:.3f} ms; peak memory of the NMS "
+        f"{peak / 2 ** 20:.1f} MiB above the {base / 2 ** 20:.1f} MiB held, on {card}")
+
+    # the kernel on val's own K = 1024 block inputs (the first alive block of the timed fp32 run)
+    boxes, valid, thr = block_inputs[0]
+    boxes = boxes.float().contiguous()
+    b, k = valid.shape
+    got, want = greedy_nms_keep(boxes, valid, thr), greedy_nms_keep_plain(boxes, valid, thr)
+    err = float((got.int() - want.int()).abs().max().item())
+    if err != 0:
+        raise AssertionError("greedy_nms_keep differs from its plain version on val's block inputs")
+    bound, bound_by = keep_bound_ms(want, k, b)
+    ms = cuda_ms(lambda: greedy_nms_keep(boxes, valid, thr), 100)
+    plain = cuda_ms(lambda: greedy_nms_keep_plain(boxes, valid, thr), 20)
+    log(f"kernel: greedy_nms_keep B={b} K={k} (val's fp32 block inputs, {int(want.sum())} kept): {ms:.4f} ms, "
+        f"plain {plain:.4f} ms, bound {bound:.5f} ms ({bound_by}), on {card}")
+
+    # the card against the CPU: 4 images at imgsz 160, separating weights, labels from the model's own detections
+    cpu_model = YOLOLite("yolo11n.yaml", device="cpu")
+    separating_weights_(cpu_model.model)
+    small = [(120, 160), (160, 120), (90, 160), (160, 160)]
+    data_s = write_val_dataset(root / "val4", small, seed=16, labels=[[] for _ in small])
+    files = sorted(str(f) for f in (root / "val4" / "images" / "val").iterdir())
+    rng = np.random.default_rng(17)
+    labels = []
+    for r, (h, w) in zip(cpu_model.predict(files, conf=0.01, imgsz=160, batch=4, save=False, verbose=False), small):
+        rows = []
+        for x1, y1, x2, y2, _, c in r.boxes.data[:8]:
+            x1, y1, x2, y2 = np.clip(np.array([x1, y1, x2, y2]) + rng.uniform(-3, 3, 4), 0, [w, h, w, h])
+            if x2 - x1 > 2 and y2 - y1 > 2:
+                rows.append((int(c), (x1 + x2) / 2 / w, (y1 + y2) / 2 / h, (x2 - x1) / w, (y2 - y1) / h))
+        labels.append(rows)
+    write_val_dataset(root / "val4", small, seed=16, labels=labels)
+    card_model = YOLOLite("yolo11n.yaml")
+    card_model.model.load_state_dict(cpu_model.model.state_dict())
+    vargs = dict(data=str(data_s), imgsz=160, batch=2, rect=True, conf=1e-7, plots=False, verbose=False,
+                 mode="val")
+    on = {}
+    for name, m in (("card", card_model), ("cpu", cpu_model)):
+        v = DetectionValidator(save_dir=root / "runs" / f"small_{name}", args=vargs, device=m.device)
+        v(model=m.model)
+        on[name] = ([len(c) for c in v.stats["conf"]], v.metrics.results_dict["metrics/mAP50-95(B)"])
+    (n_card, map_card), (n_cpu, map_cpu) = on["card"], on["cpu"]
+    if n_card != n_cpu or abs(map_card - map_cpu) > 1e-3 or not 0 < map_cpu < 1:
+        raise AssertionError(f"val card vs CPU at imgsz 160: detections {n_card} vs {n_cpu}, "
+                             f"mAP50-95 {map_card} vs {map_cpu}")
+    log(f"val: card == CPU on 4 images at imgsz 160 (detections {n_card}, mAP50-95 {map_card:.6f} vs "
+        f"{map_cpu:.6f}), on {card}")
+    tmp.cleanup()
+    return launches, {"val_ms": ms, "val_plain_ms": plain, "val_bound_ms": bound, "val_bound_by": bound_by,
+                      "val_shape": [b, k], "val_max_abs_err": err}
 
 
 def main() -> int:
@@ -267,6 +531,10 @@ def main() -> int:
                                  f"{match_sets(da, db)} matched")
     log(f"slice: card == CPU on 2 images at imgsz 160 ({[len(r) for r in on_card]} detections)")
 
+    # ---- 4. val: yolo11n val at 640 through the facade ----
+    val_launches, val_kernel = val_phase(card, model)
+    launches += val_launches
+
     # ---- kernels line: timed on the main path's own inputs (fp32, batch 32; batch 1 logged) ----
     for config in ((False, 1), (False, 32)):
         shifted, valid, thr = main_inputs[config]
@@ -306,6 +574,7 @@ def main() -> int:
         "bound_by": bound_by,
         "library_ms": None,  # no PyTorch call computes greedy NMS
         "shape": [b, k],
+        **val_kernel,  # the same kernel on val's K = 1024 block inputs
     }
     log(json.dumps({"kernels": [entry]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -91,3 +91,34 @@ def test_predict_through_the_kernel_equals_the_plain_keep(card, half, monkeypatc
     for a, b in zip(with_kernel, with_plain):
         assert len(a) > 0 and np.isfinite(a.boxes.data).all()
         np.testing.assert_array_equal(a.boxes.data, b.boxes.data)
+
+
+@pytest.mark.parametrize("half", [False, True], ids=["fp32", "bf16"])
+def test_val_nms_through_the_kernel_equals_the_plain_keep(card, half, monkeypatch):
+    """One val batch's K = 8192 multi-label nms_from_feats: through the kernel, block by block, as through the plain keep.
+
+    A block of 1024 is alive, and launches the kernel once, exactly when it keeps something.
+    """
+    from yololite_tpu_torch import YOLOLite
+    from yololite_tpu_torch.engine.predictor import forward_nhwc, fp32_convs, inference_net
+    from yololite_tpu_torch.ops import nms
+
+    model = YOLOLite("yolo11n.yaml").model
+    net = inference_net(model, card, half)
+    x = torch.from_numpy(np.random.default_rng(1).integers(0, 256, (4, 256, 320, 3), np.uint8)).to(card)
+    keeps = []
+    blocked = nms._blocked_keep
+    with torch.inference_mode(), fp32_convs(card):
+        x = (x.float() * (1.0 / 255.0)).to(torch.bfloat16 if half else torch.float32)
+        feats = [f.float() for f in forward_nhwc(net, x)]
+        kw = dict(conf_thres=1e-7, iou_thres=0.7, max_det=300, max_cand=8192, multi_label=True)
+        monkeypatch.setattr(nms, "_blocked_keep", lambda *a: keeps.append(blocked(*a)) or keeps[-1])
+        before = greedy_nms_keep.launches
+        with_kernel = nms.nms_from_feats(feats, model.strides, model.nc, model.reg_max, **kw)
+        torch.cuda.synchronize()
+        alive_blocks = int(keeps[0].reshape(4, 8, 1024).any(-1).any(0).sum())
+        assert greedy_nms_keep.launches - before == alive_blocks >= 1
+        monkeypatch.setattr(nms, "greedy_nms_keep", greedy_nms_keep_plain)
+        with_plain = nms.nms_from_feats(feats, model.strides, model.nc, model.reg_max, **kw)
+    assert int((with_kernel[..., 4] > 0).sum()) > 0
+    assert torch.equal(with_kernel, with_plain)

@@ -190,7 +190,7 @@ def test_unported_pieces_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         DetectionModel(spec)
     m = YOLOLite("yolo11n.yaml", device="cpu")
-    for call in (m.val, m.train, m.export):
+    for call in (m.train, m.export):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             call()
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):

@@ -1,7 +1,7 @@
-"""YOLOLite facade (port of yololite_tpu/engine/model.py): build, predict, info.
+"""YOLOLite facade (port of yololite_tpu/engine/model.py): build, predict, val, info.
 
 `YOLOLite("yolo11n.yaml")` builds the model with `init(0)` on the card;
-pass device="cpu" to run on the CPU. Only predict is ported so far: val,
+pass device="cpu" to run on the CPU. Predict and val are ported so far:
 train, export and loading .pt/.npz checkpoints raise NotImplementedError
 naming their place in ROADMAP.md.
 """
@@ -31,6 +31,7 @@ class YOLOLite:
         self.device = select_device(device)
         self.overrides: Dict = {}
         self.predictor = None
+        self.metrics = None
         if isinstance(model, dict):
             self._new(model, verbose=verbose)
             return
@@ -79,8 +80,16 @@ class YOLOLite:
         )
         return {"params": n, "gflops": g, "strides": self.model.strides}
 
-    def val(self, *args, **kwargs):
-        raise _not_ported("val", "item 5")
+    def val(self, validator=None, **kwargs):
+        """Validate on `data` (a dataset yaml) on self.device -> DetMetrics; rect batches by default."""
+        custom = {"rect": True, "mode": "val"}
+        args = {**self.overrides, **custom, **kwargs}
+        from yololite_tpu_torch.engine.validator import DetectionValidator
+
+        v = (validator or DetectionValidator)(args=args, device=self.device)
+        v(model=self.model)
+        self.metrics = v.metrics
+        return v.metrics
 
     def train(self, *args, **kwargs):
         raise _not_ported("train", "item 6")

@@ -53,6 +53,21 @@ def fp32_convs(device: torch.device):
         yield
 
 
+def inference_net(model, device: torch.device, half: bool, fuse: bool = True):
+    """A copy of `model` on `device` in eval mode, with Conv+BN folded (fuse) and cast to bf16 (half)."""
+    net = copy.deepcopy(model).to(device).eval()
+    if fuse:
+        net.fuse()
+    return net.to(torch.bfloat16 if half else torch.float32)
+
+
+def forward_nhwc(net, x: torch.Tensor):
+    """NHWC images -> NHWC per-level Detect maps (or the end2end dict of them); the net runs NCHW."""
+    out = net(x.permute(0, 3, 1, 2))
+    nhwc = lambda fs: [f.permute(0, 2, 3, 1) for f in fs]
+    return {k: nhwc(v) for k, v in out.items()} if isinstance(out, dict) else nhwc(out)
+
+
 class DetectionPredictor:
     """Holds the inference model on its device and the streaming loop state."""
 
@@ -76,12 +91,9 @@ class DetectionPredictor:
         if bool(self.args.int8):
             raise NotImplementedError("int8 serving is not ported to yololite_tpu_torch yet (ROADMAP.md, Queue 1, 'The rest')")
         self.model = model
-        net = copy.deepcopy(model).to(self.device).eval()
-        if fuse:  # fold Conv+BN for inference
-            net.fuse()
         self.half = bool(self.args.half if half is None else half)
         self.dtype = torch.bfloat16 if self.half else torch.float32
-        self.net = net.to(self.dtype)
+        self.net = inference_net(model, self.device, self.half, fuse)
 
         self.conf, self.iou = float(self.args.conf), float(self.args.iou)
         self.max_det = int(self.args.max_det)
@@ -99,10 +111,7 @@ class DetectionPredictor:
         self.pred_max_cand = max(256 if self.conf >= 0.25 else 512, self.max_det)
 
     def _forward(self, x: torch.Tensor):
-        """NHWC images -> NHWC per-level Detect maps (or the end2end dict of them)."""
-        out = self.net(x.permute(0, 3, 1, 2))
-        nhwc = lambda fs: [f.permute(0, 2, 3, 1) for f in fs]
-        return {k: nhwc(v) for k, v in out.items()} if isinstance(out, dict) else nhwc(out)
+        return forward_nhwc(self.net, x)
 
     def _forward_decode(self, x: torch.Tensor):
         feats = self._forward(x)

@@ -1,7 +1,7 @@
 """Box algebra: format conversion, IoU, anchor geometry (port of yololite_tpu/ops/boxes.py).
 
 Torch versions work on tensors on any device; the `*_np` helpers serve the
-host-side Results path. `box_iou` keeps the JAX operation order and eps, so
+host-side Results path and the validator's matching. `box_iou` keeps the JAX operation order and eps, so
 the two give the same bits on the same boxes.
 """
 
@@ -29,6 +29,53 @@ def xyxy2xywh(x):
     cat = torch.cat if isinstance(x, torch.Tensor) else np.concatenate
     p1, p2 = x[..., :2], x[..., 2:4]
     return cat([(p1 + p2) / 2, p2 - p1], -1)
+
+
+def xywhn2xyxy(x, w=640, h=640, padw=0, padh=0):
+    """Normalized (cx, cy, w, h) -> pixel (x1, y1, x2, y2) with optional pad offset (numpy)."""
+    y = np.empty_like(x)
+    xc, yc, bw, bh = x[..., 0], x[..., 1], x[..., 2], x[..., 3]
+    y[..., 0] = w * (xc - bw / 2) + padw
+    y[..., 1] = h * (yc - bh / 2) + padh
+    y[..., 2] = w * (xc + bw / 2) + padw
+    y[..., 3] = h * (yc + bh / 2) + padh
+    return y
+
+
+def xyxy2xywhn(x, w=640, h=640, clip=False, eps=0.0):
+    """Pixel (x1, y1, x2, y2) -> normalized (cx, cy, w, h) (numpy)."""
+    if clip:
+        x = clip_boxes_np(x.copy(), (h - eps, w - eps))
+    y = np.empty_like(x)
+    y[..., 0] = ((x[..., 0] + x[..., 2]) / 2) / w
+    y[..., 1] = ((x[..., 1] + x[..., 3]) / 2) / h
+    y[..., 2] = (x[..., 2] - x[..., 0]) / w
+    y[..., 3] = (x[..., 3] - x[..., 1]) / h
+    return y
+
+
+def xywh2ltwh(x):
+    """(cx, cy, w, h) -> (x1, y1, w, h)."""
+    cat = torch.cat if isinstance(x, torch.Tensor) else np.concatenate
+    return cat([x[..., :2] - x[..., 2:4] / 2, x[..., 2:4]], -1)
+
+
+def xyxy2ltwh(x):
+    """(x1, y1, x2, y2) -> (x1, y1, w, h)."""
+    cat = torch.cat if isinstance(x, torch.Tensor) else np.concatenate
+    return cat([x[..., :2], x[..., 2:4] - x[..., :2]], -1)
+
+
+def ltwh2xywh(x):
+    """(x1, y1, w, h) -> (cx, cy, w, h)."""
+    cat = torch.cat if isinstance(x, torch.Tensor) else np.concatenate
+    return cat([x[..., :2] + x[..., 2:4] / 2, x[..., 2:4]], -1)
+
+
+def ltwh2xyxy(x):
+    """(x1, y1, w, h) -> (x1, y1, x2, y2)."""
+    cat = torch.cat if isinstance(x, torch.Tensor) else np.concatenate
+    return cat([x[..., :2], x[..., :2] + x[..., 2:4]], -1)
 
 
 # ---- clipping / rescaling (host path) ----
@@ -79,6 +126,21 @@ def box_iou(box1: torch.Tensor, box2: torch.Tensor, eps: float = 1e-7) -> torch.
     a1, a2 = box1[..., :, None, :2], box1[..., :, None, 2:4]  # (..., N, 1, 2)
     b1, b2 = box2[..., None, :, :2], box2[..., None, :, 2:4]  # (..., 1, M, 2)
     inter = (torch.minimum(a2, b2) - torch.maximum(a1, b1)).clamp(min=0).prod(-1)
+    area1 = (a2 - a1).prod(-1)
+    area2 = (b2 - b1).prod(-1)
+    return inter / (area1 + area2 - inter + eps)
+
+
+def box_iou_np(box1: np.ndarray, box2: np.ndarray, eps: float = 1e-7) -> np.ndarray:
+    """Pairwise IoU of xyxy numpy boxes, (N, 4) x (M, 4) -> (N, M), in the inputs' dtype.
+
+    The validator's TP matching runs here on the host, with `box_iou`'s
+    operation order, so matches at each IoU threshold flip on the same pairs
+    as in the JAX package.
+    """
+    a1, a2 = box1[..., None, :2], box1[..., None, 2:4]  # (N, 1, 2)
+    b1, b2 = box2[None, :, :2], box2[None, :, 2:4]  # (1, M, 2)
+    inter = (np.minimum(a2, b2) - np.maximum(a1, b1)).clip(0).prod(-1)
     area1 = (a2 - a1).prod(-1)
     area2 = (b2 - b1).prod(-1)
     return inter / (area1 + area2 - inter + eps)

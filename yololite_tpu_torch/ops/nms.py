@@ -69,25 +69,34 @@ def _blocked_keep(shifted: torch.Tensor, valid: torch.Tensor, iou_thres: float,
     block with the exact keep (given the incoming alive mask), then drop every
     later candidate that a kept item of this block suppresses with one dense
     (block, K_rest) IoU pass, and move on. Blocks with nothing alive are skipped.
+
+    A K that is not a multiple of the block is padded up to one with invalid
+    zero boxes, which are never kept and never suppress, and the keep is cut
+    back to K: ceil(K / block) blocks, where the JAX package halves the block
+    until it divides K (105 blocks of 64 at K = 6720). Same keep, bit for bit.
+    Each alive block costs one host sync (the skip test), one exact keep and
+    one cross pass.
     """
     b, k = valid.shape
     block = min(block, k)
-    while k % block:
-        block //= 2
+    pad = -k % block
     s = shifted.float()
+    if pad:
+        s = torch.cat([s, s.new_zeros((b, pad, 4))], 1)
+        valid = torch.cat([valid, valid.new_zeros((b, pad))], 1)
     keep = torch.zeros_like(valid)
     alive = valid.clone()
-    for lo in range(0, k, block):
+    for lo in range(0, k + pad, block):
         hi = lo + block
         alive_seg = alive[:, lo:hi]
         if not bool(alive_seg.any()):
             continue
         kb = _exact_keep(s[:, lo:hi], alive_seg, iou_thres)
         keep[:, lo:hi] = kb
-        if hi < k:
-            cross = box_iou(s[:, lo:hi], s[:, hi:])  # (B, block, K_rest)
-            alive[:, hi:] &= ~(kb[:, :, None] & (cross > iou_thres)).any(1)
-    return keep
+        if hi < k:  # the padding rows past K need no suppressing
+            cross = box_iou(s[:, lo:hi], s[:, hi:k])  # (B, block, K_rest)
+            alive[:, hi:k] &= ~(kb[:, :, None] & (cross > iou_thres)).any(1)
+    return keep[:, :k]
 
 
 def _keep(shifted: torch.Tensor, valid: torch.Tensor, iou_thres: float, mode: str) -> torch.Tensor:

@@ -16,6 +16,7 @@ from types import SimpleNamespace
 __all__ = (
     "LOGGER",
     "set_logging",
+    "TQDM",
     "ROOT",
     "DEFAULT_CFG_PATH",
     "colorstr",
@@ -43,6 +44,41 @@ def set_logging(name: str = "yololite_tpu_torch", verbose: bool = True) -> loggi
 
 
 LOGGER = set_logging(verbose=VERBOSE)
+
+
+class TQDM:
+    """Minimal tqdm-compatible progress bar: counts items, logs only on set_description."""
+
+    def __init__(self, iterable=None, total=None, desc="", disable=False, **kwargs):
+        self.iterable = iterable
+        self.total = total if total is not None else (len(iterable) if hasattr(iterable, "__len__") else None)
+        self.desc = desc
+        self.n = 0
+        self.disable = disable or not VERBOSE
+
+    def __iter__(self):
+        for item in self.iterable:
+            yield item
+            self.update(1)
+        self.close()
+
+    def update(self, n=1):
+        self.n += n
+
+    def set_description(self, desc):
+        self.desc = desc
+        if not self.disable:
+            total = f"/{self.total}" if self.total else ""
+            LOGGER.info(f"{desc} [{self.n}{total}]")
+
+    def close(self):
+        pass
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *a):
+        self.close()
 
 
 def colorstr(*input):
