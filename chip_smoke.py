@@ -26,8 +26,20 @@ Phases, each of which exits non-zero on failure:
      batch checks the kernel against the plain keep inside nms_from_feats
      and times forward, nms_from_feats and _blocked_keep alone, with the
      NMS's peak memory; times the kernel on val's own block inputs; checks
-     that the card agrees with the CPU on 4 images at imgsz 160.
-The kernels line's launches count the predict and val runs together.
+     that the card agrees with the CPU on 4 images at imgsz 160;
+  5. train: writes 64 train and 16 val PNGs and trains
+     YOLOLite("yolo11n.yaml") at imgsz 640, batch 16, 2 epochs, mosaic,
+     default hyperparameters (AdamW by 'auto'), in fp32 (TF32 off) and with
+     amp (bf16): checks that each epoch's EMA val launched the kernel once per
+     alive block, finite loss items, last.npz, best.npz and results.csv;
+     predicts from best.npz; resumes last.npz for a third epoch and checks
+     the optimizer's restored moments; checks the kernel against the plain
+     keep in one EMA val batch; times the epoch loop, the host loader alone,
+     one step's stages alone (forward, loss with TAL, backward, clip +
+     optimizer + EMA) with its peak memory, the device's idle share over an
+     epoch (torch.profiler), K5/K6 forward and backward and K7 at the train
+     step's shapes; checks one step on the card against the CPU at imgsz 160.
+The kernels line's launches count the predict, val and train runs together.
 Prints the card's name and power limit, a {"kernels": [...]} line, and last
 {"ok": true, "device": {...}}. Needs no network and no JAX.
 """
@@ -124,34 +136,36 @@ def match_sets(a, b, box_tol=0.05, score_rtol=1e-3) -> int:
     return n
 
 
-def write_val_dataset(root: Path, shapes, seed: int, labels=None) -> Path:
-    """A YOLO dataset under root: PNG images (dark background, bright rectangles), labels, data.yaml.
+def write_val_dataset(root: Path, shapes, seed: int, labels=None, split: str = "val") -> Path:
+    """A YOLO dataset split under root: PNG images (dark background, bright rectangles), labels, data.yaml.
 
     labels: per-image lists of (cls, cx, cy, w, h) normalized; random boxes over the 80 classes when None.
+    data.yaml names the train split too once one has been written.
     """
     import cv2
     import numpy as np
 
     rng = np.random.default_rng(seed)
-    (root / "images" / "val").mkdir(parents=True, exist_ok=True)
-    (root / "labels" / "val").mkdir(parents=True, exist_ok=True)
+    (root / "images" / split).mkdir(parents=True, exist_ok=True)
+    (root / "labels" / split).mkdir(parents=True, exist_ok=True)
     for i, (h, w) in enumerate(shapes):
         im = rng.integers(0, 30, (h, w, 3)).astype(np.uint8)
         for _ in range(10):
             y0, x0 = rng.integers(0, h - 8), rng.integers(0, w - 8)
             im[y0:y0 + rng.integers(8, h // 2), x0:x0 + rng.integers(8, w // 2)] += rng.integers(0, 200, 3).astype(
                 np.uint8)
-        if not cv2.imwrite(str(root / "images" / "val" / f"im{i:03d}.png"), im):
-            raise RuntimeError(f"could not write {root}/images/val/im{i:03d}.png")
+        if not cv2.imwrite(str(root / "images" / split / f"im{i:03d}.png"), im):
+            raise RuntimeError(f"could not write {root}/images/{split}/im{i:03d}.png")
         if labels is None:
             n = int(rng.integers(1, 8))
             rows = [(int(k), *xy, *s) for k, xy, s in zip(rng.integers(0, 80, n), rng.uniform(0.2, 0.8, (n, 2)),
                                                             rng.uniform(0.05, 0.3, (n, 2)))]
         else:
             rows = labels[i]
-        (root / "labels" / "val" / f"im{i:03d}.txt").write_text(
+        (root / "labels" / split / f"im{i:03d}.txt").write_text(
             "\n".join(f"{k} {cx:.6f} {cy:.6f} {bw:.6f} {bh:.6f}" for k, cx, cy, bw, bh in rows))
-    (root / "data.yaml").write_text(f"path: {root}\nval: images/val\nnc: 80\n")
+    train = "train: images/train\n" if (root / "images" / "train").is_dir() else ""
+    (root / "data.yaml").write_text(f"path: {root}\n{train}val: images/val\nnc: 80\n")
     return root / "data.yaml"
 
 
@@ -378,6 +392,366 @@ def val_phase(card: str, model):
                       "val_shape": [b, k], "val_max_abs_err": err}
 
 
+def event_ms(setup, fn, iters: int = 10) -> float:
+    """Median milliseconds of fn alone on the card (CUDA events around it), with setup() run untimed before each call."""
+    import torch
+
+    times = []
+    for i in range(iters + 2):
+        arg = setup()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn(arg)
+        end.record()
+        torch.cuda.synchronize()
+        if i >= 2:  # two warm-up calls
+            times.append(start.elapsed_time(end))
+    return sorted(times)[len(times) // 2]
+
+
+def grad_rel_l2(a, b, floor: float) -> float:
+    return float((a - b).norm() / max(float(b.norm()), floor))
+
+
+def train_phase(card: str):
+    """yolo11n train at 640 on the card through the facade, its checks and timings.
+
+    Training starts from init(0) with every Detect class bias set to -6: init(0)'s
+    priors (-11.5 to -8.8) and its signal, which fades through the eval-mode depth,
+    leave no class score above the EMA val's fixed conf of 0.001, so its NMS
+    would have nothing to suppress and K1 would never run. Returns K1's
+    launches in the train phase's runs (train, reload predict, resume).
+    """
+    import tempfile
+
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from tools.torch_predict_profile import busy_ms
+    from yololite_tpu_torch import YOLOLite
+    from yololite_tpu_torch.cfg import get_cfg
+    from yololite_tpu_torch.data.dataset import build_dataloader, build_yolo_dataset
+    from yololite_tpu_torch.engine import optim
+    from yololite_tpu_torch.engine.predictor import forward_nhwc, fp32_convs
+    from yololite_tpu_torch.data.utils import check_det_dataset
+    from yololite_tpu_torch.engine.trainer import DetectionTrainer
+    from yololite_tpu_torch.models import checkpoint as ckpt
+    from yololite_tpu_torch.ops import nms
+    from yololite_tpu_torch.ops.decode import DFLExpectation, dfl_expectation_mm
+    from yololite_tpu_torch.ops.kernels import greedy_nms_keep, greedy_nms_keep_plain
+    from yololite_tpu_torch.utils.loss import BCESum, DFLCrossEntropy, bce_sum, dfl_ce_mean
+    from yololite_tpu_torch.utils.tal import TaskAlignedAssigner
+
+    tmp = tempfile.TemporaryDirectory()
+    root = Path(tmp.name)
+    shapes = [(480, 640), (640, 480), (640, 640), (360, 640)]
+    write_val_dataset(root / "ds", shapes * 16, seed=20, split="train")  # 64 train images
+    data = write_val_dataset(root / "ds", shapes * 4, seed=21, split="val")  # 16 val images
+    n_train, bs = 64, 16
+    blocked = nms._blocked_keep
+    alive_blocks = []
+
+    def recording_blocked(shifted, valid, thr):  # the alive blocks of 1024 of each EMA val NMS
+        keep = blocked(shifted, valid, thr)
+        b, k = keep.shape
+        alive_blocks.append(int(torch.nn.functional.pad(keep, (0, -k % 1024)).reshape(b, -1, 1024)
+                                .any(-1).any(0).sum()))
+        return keep
+
+    class CheckedTrainer(DetectionTrainer):
+        """Checks each epoch's EMA val: K1 ran, once per alive block of the K = 8192 NMS."""
+
+        def validate(self):
+            alive_blocks.clear()
+            first = greedy_nms_keep.launches
+            nms._blocked_keep = recording_blocked
+            try:
+                stats = super().validate()
+            finally:
+                nms._blocked_keep = blocked
+            n = greedy_nms_keep.launches - first
+            if n == 0 or n != sum(alive_blocks):
+                raise AssertionError(f"train epoch {self.epoch}: EMA val made {n} kernel launches for alive blocks "
+                                     f"{alive_blocks}")
+            self.val_launches = getattr(self, "val_launches", []) + [n]
+            return stats
+
+    def start_model():
+        m = YOLOLite("yolo11n.yaml")  # init(0) on the card
+        with torch.no_grad():
+            for seq in m.model.detect.cv3:
+                seq[2].bias.fill_(-6.0)
+        return m
+
+    launches = 0
+    runs = {}
+    for amp in (False, True):
+        dtype = "bf16" if amp else "fp32"
+        m = start_model()
+        greedy_nms_keep.launches = 0
+        t0 = time.perf_counter()
+        m.train(trainer=CheckedTrainer, data=str(data), epochs=2, imgsz=640, batch=bs, amp=amp, plots=False,
+                project=str(root / "runs"), name=dtype)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = greedy_nms_keep.launches
+        launches += n
+        t = m.trainer
+        rows = np.loadtxt(t.csv, delimiter=",", skiprows=1, ndmin=2)
+        if rows.shape[0] != 2 or not np.isfinite(rows).all() or not (rows[:, 1:4] > 0).all():
+            raise AssertionError(f"train {dtype}: results.csv rows not finite or not 2 epochs: {rows}")
+        for f in (t.last, t.best, t.csv):
+            if not Path(f).exists():
+                raise AssertionError(f"train {dtype}: {f} missing")
+        if t.opt_name != "AdamW" or len(t.val_launches) != 2:
+            raise AssertionError(f"train {dtype}: optimizer {t.opt_name}, EMA val launches {t.val_launches}")
+        runs[dtype] = t
+        ips = [n_train / s_ for s_ in t.train_seconds]
+        log(f"train: yolo11n {dtype} at 640, batch {bs}, {n_train} images, 2 epochs, mosaic, AdamW (auto): "
+            f"epoch loop without val {', '.join(f'{s_:.3f} s ({v:.1f} img/s)' for s_, v in zip(t.train_seconds, ips))}; "
+            f"whole train() {wall:.2f} s; loss items per epoch {rows[:, 1:4].round(5).tolist()}; K1 launches "
+            f"{n} ({t.val_launches} in the EMA vals, the rest in the final val of best.npz), on {card}")
+
+    # reload best.npz and predict; resume last.npz for one more epoch with the optimizer state restored
+    t32 = runs["fp32"]
+    frames = [np.random.default_rng(22).integers(0, 256, (480, 640, 3), dtype=np.uint8) for _ in range(4)]
+    greedy_nms_keep.launches = 0
+    res = YOLOLite(str(t32.best)).predict(frames, imgsz=640, conf=1e-7, batch=4, save=False, verbose=False)
+    launches += greedy_nms_keep.launches
+    if len(res) != 4 or not all(len(r) and np.isfinite(r.boxes.data).all() for r in res):
+        raise AssertionError("predict from best.npz: no detections or not finite")
+    restored = {}
+
+    class ResumeChecked(CheckedTrainer):
+        def resume_training(self, blob):
+            super().resume_training(blob)
+            _, state, meta = blob
+            named = self._named_trainable()
+            mu, nu = optim.moments(self.opt_name, self.optimizer, named)
+            want_mu = ckpt.tensors_of(self.model, state["opt"]["mu"], named)
+            want_nu = ckpt.tensors_of(self.model, state["opt"]["nu"], named)
+            if not all(torch.equal(mu[k].cpu(), want_mu[k]) and torch.equal(nu[k].cpu(), want_nu[k]) for k in named):
+                raise AssertionError("resume: optimizer moments differ from last.npz's")
+            restored.update(step=int(self.optimizer.state[next(iter(named.values()))]["step"]),
+                            epoch=self.start_epoch, updates=self.ema.updates, saved_epoch=meta["epoch"])
+
+    greedy_nms_keep.launches = 0
+    rt = ResumeChecked(overrides={"resume": str(t32.last)})
+    rt.epochs = 3
+    rt.train()
+    launches += greedy_nms_keep.launches
+    if restored.get("epoch") != 2 or restored["saved_epoch"] != 1 or rt.epoch != 2 or restored["step"] < 1:
+        raise AssertionError(f"resume: {restored}, ran to epoch {rt.epoch}")
+    log(f"train: best.npz predicts on the card ({[len(r) for r in res]} detections); resume from last.npz (epoch "
+        f"{restored['saved_epoch']}) ran epoch {rt.epoch + 1} with AdamW at step {restored['step']} and "
+        f"{restored['updates']} EMA updates restored, moments equal to the file's, on {card}")
+
+    # one val batch inside the trainer: the EMA net's maps through nms_from_feats with the kernel and the plain keep
+    vb = next(iter(t32.validator.dataloader))
+    with torch.inference_mode(), fp32_convs(torch.device("cuda")):
+        x = torch.from_numpy(vb["img"]).cuda().float() * (1.0 / 255.0)
+        feats = [f.float() for f in forward_nhwc(t32.ema.ema, x)]
+        args = (feats, t32.model.strides, t32.model.nc, t32.model.reg_max)
+        kw_nms = dict(conf_thres=0.001, iou_thres=0.7, max_det=300, max_cand=8192, multi_label=True)
+        with_kernel = nms.nms_from_feats(*args, **kw_nms)
+        nms.greedy_nms_keep = greedy_nms_keep_plain
+        try:
+            with_plain = nms.nms_from_feats(*args, **kw_nms)
+        finally:
+            nms.greedy_nms_keep = greedy_nms_keep
+    if not torch.equal(with_kernel, with_plain) or not int((with_kernel[..., 4] > 0).sum()):
+        raise AssertionError("train's EMA val: nms_from_feats differs between the kernel and the plain keep")
+    log(f"train: EMA val batch {tuple(x.shape)}: nms_from_feats K=8192 multi-label through the kernel == through "
+        f"the plain keep ({int((with_kernel[..., 4] > 0).sum())} detections), on {card}")
+
+    # the host loader alone, with mosaic
+    hyp = get_cfg(overrides={"data": str(data), "imgsz": 640, "batch": bs, "mode": "train"})
+    dinfo = check_det_dataset(str(data))
+    ds = build_yolo_dataset(hyp, dinfo["train"], bs, dinfo, mode="train")
+    loader = build_dataloader(ds, bs, hyp.workers, shuffle=True, seed=0)
+    for _ in loader:  # one pass fills the image buffer, as a first epoch does
+        pass
+    t0 = time.perf_counter()
+    for _ in loader:
+        pass
+    t_load = time.perf_counter() - t0
+    log(f"train: host loader alone (mosaic, perspective, HSV, flips; {hyp.workers} workers, two batches in flight, "
+        f"images in the RAM buffer): {n_train / t_load:.1f} img/s ({t_load:.3f} s for {n_train}), on {card}")
+
+    # one step's stages alone on a batch of 16 at 640 (CUDA events), its peak memory, per dtype
+    for amp in (False, True):
+        dtype = "bf16" if amp else "fp32"
+        st = DetectionTrainer(overrides={"data": str(data), "imgsz": 640, "batch": bs, "amp": amp, "val": False, "save": False,
+                              "project": str(root / "runs"), "name": f"stages_{dtype}"})
+        st.set_model(start_model().model)
+        st._setup_train()
+        batch = next(iter(st.train_loader))
+        images = torch.from_numpy(batch["img"]).cuda()
+        targets = st._targets(batch)
+        lr, mom = np.full(3, 1e-4, np.float32), 0.9
+        with fp32_convs(images.device):
+            fw = event_ms(lambda: None, lambda _: st._forward(images))
+            loss = event_ms(lambda: st._forward(images), lambda f: st.loss_fn(f, targets))
+            bw = event_ms(lambda: st.loss_fn(st._forward(images), targets)[0], lambda tot: tot.backward())
+            st.optimizer.zero_grad(set_to_none=True)
+            opt = event_ms(lambda: st._grad_step(images, targets), lambda _: st._apply_step(lr, mom))
+            DFLExpectation.calls = DFLCrossEntropy.calls = BCESum.calls = 0
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            st._grad_step(images, targets)
+            st._apply_step(lr, mom)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+        calls = (DFLExpectation.calls, DFLCrossEntropy.calls, BCESum.calls)
+        log(f"train: one step's stages alone ({dtype}, batch {bs} at 640, CUDA events, median of 10): forward "
+            f"{fw:.3f} ms, loss incl. TAL {loss:.3f} ms, backward {bw:.3f} ms, clip + AdamW + EMA {opt:.3f} ms; "
+            f"M = {targets['gt_bboxes'].shape[1]}; peak memory of a step {peak / 2 ** 20:.1f} MiB "
+            f"({(peak - base) / 2 ** 20:.1f} above the {base / 2 ** 20:.1f} held); K5/K6 calls per step "
+            f"(DFLExpectation, DFLCrossEntropy, BCESum) {calls}, on {card}")
+
+    # where an epoch loop's wall time goes (fp32): blocked on the loader, enqueueing the step, waiting for the card
+    lt = DetectionTrainer(overrides={"data": str(data), "imgsz": 640, "batch": bs, "val": False, "save": False,
+                                     "project": str(root / "runs"), "name": "loop"})
+    lt.set_model(start_model().model)
+    lt._setup_train()
+    parts = {"loader": 0.0, "enqueue": 0.0, "device": 0.0}
+    for rep in range(2):  # the first pass fills the image buffer and warms cuDNN
+        it = iter(lt.train_loader)
+        for k in parts:
+            parts[k] = 0.0
+        t_loop = time.perf_counter()
+        while True:
+            t0 = time.perf_counter()
+            b = next(it, None)
+            t1 = time.perf_counter()
+            if b is None:
+                break
+            with fp32_convs(torch.device("cuda")):
+                lt._grad_step(torch.from_numpy(b["img"]).to("cuda", non_blocking=True), lt._targets(b))
+                lt._apply_step(np.full(3, 1e-5, np.float32), 0.9)
+            t2 = time.perf_counter()
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            parts["loader"] += t1 - t0
+            parts["enqueue"] += t2 - t1
+            parts["device"] += t3 - t2
+        t_loop = time.perf_counter() - t_loop
+    log(f"train: one fp32 epoch loop taken apart ({n_train} images, {len(lt.train_loader)} steps, host clock, a sync "
+        f"after each step): {t_loop * 1e3:.1f} ms = blocked on the loader {parts['loader'] * 1e3:.1f} ms + host "
+        f"enqueueing forward, loss, backward, clip, AdamW and EMA {parts['enqueue'] * 1e3:.1f} ms + waiting for the "
+        f"card after that {parts['device'] * 1e3:.1f} ms, on {card}")
+
+    # the device's idle share over one epoch (fp32, no val, no save) under torch.profiler
+    pt = DetectionTrainer(overrides={"data": str(data), "imgsz": 640, "batch": bs, "epochs": 1, "val": False, "save": False,
+                          "project": str(root / "runs"), "name": "profile"})
+    pt.set_model(start_model().model)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        pt.train()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    on_device = [e for e in prof.events()
+                 if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
+    if not on_device:
+        raise RuntimeError("torch.profiler recorded no device activity in the train epoch")
+    by_name = {}
+    for e in on_device:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    device = busy_ms((e.time_range.start, e.time_range.end) for e in on_device)
+    top = ", ".join(f"{k[:48]} {v:.2f}" for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:6])
+    log(f"train: profile of one fp32 epoch ({n_train} images, no val, under torch.profiler): train() {wall:.1f} ms, "
+        f"epoch loop {pt.train_seconds[0] * 1e3:.1f} ms, device busy {device:.1f} ms, idle share of the epoch loop "
+        f"{1 - device / (pt.train_seconds[0] * 1e3):.3f}, {len(on_device)} device kernels and copies; top ms: {top}; "
+        f"on {card}")
+
+    # K5, K6, K7 at the train step's shapes: B = 16, A = 8400, 4 * reg_max = 64, nc = 80
+    B, A = 16, 8400
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    for dt in (torch.float32, torch.bfloat16):
+        es = 2 if dt == torch.bfloat16 else 4
+        box = (torch.randn(B, A, 64, device="cuda", generator=gen) * 3).to(dt).requires_grad_(True)
+        cls = (torch.randn(B, A, 80, device="cuda", generator=gen) * 3).to(dt).requires_grad_(True)
+        tgt = torch.rand(B, A, 4, device="cuda", generator=gen) * 15
+        lab = (torch.rand(B, A, 80, device="cuda", generator=gen) * (torch.rand(B, A, 80, device="cuda", generator=gen)
+                                                                   > 0.99)).to(dt)
+        g4 = torch.randn(B, A, 4, device="cuda", generator=gen)
+        g1 = torch.randn(B, A, 1, device="cuda", generator=gen)
+        specs = [
+            ("K5 DFLExpectation", lambda: dfl_expectation_mm(box, 16), g4,
+             B * A * (64 * es + 16), B * A * (64 * es + 16 + 64 * es)),
+            ("K6 DFLCrossEntropy", lambda: dfl_ce_mean(box, tgt), g1,
+             B * A * (64 * es + 16 + 4), B * A * (64 * es + 16 + 4 + 64 * es)),
+            ("K6 BCESum", lambda: bce_sum(cls, lab), torch.ones((), device="cuda"),
+             B * A * 80 * 2 * es + 4, B * A * 80 * 3 * es),
+        ]
+        for name, fwd, g, fwd_bytes, bwd_bytes in specs:
+            f_ms = event_ms(lambda: None, lambda _: fwd())
+            b_ms = event_ms(fwd, lambda out: out.backward(g))
+            with profile(activities=[ProfilerActivity.CUDA]) as kp:
+                fwd().backward(g)
+                torch.cuda.synchronize()
+            n_dev = sum(1 for e in kp.events() if e.device_type == DeviceType.CUDA)
+            log(f"train: {name} ({str(dt).split('.')[-1]} logits, B={B}, A={A}): forward {f_ms:.4f} ms, backward "
+                f"{b_ms:.4f} ms, {n_dev} device kernels for both; bytes bound forward "
+                f"{fwd_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms, backward {bwd_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms, "
+                f"on {card}")
+    for M in (32, 64):
+        metric = torch.rand(B, M, A, device="cuda", generator=gen)
+        mask = torch.ones(B, M, 1, device="cuda")
+        sel = TaskAlignedAssigner(topk=10)._select_topk_candidates
+        k_ms = event_ms(lambda: None, lambda _: sel(metric, mask))
+        log(f"train: K7 top-10 per GT (stable sort) + pick mask at B={B}, M={M}, A={A}: {k_ms:.4f} ms; bytes bound "
+            f"{2 * B * M * A * 4 / HBM_BYTES_PER_S * 1e3:.4f} ms (metric read, mask written), on {card}")
+
+    # the card against the CPU: one SGD step at imgsz 160, batch 2, fp32, the same weights and batch. The step
+    # moves each weight by lr * 1.9 * (clipped gradient + decay); at lr 100 that lies far above the fp32 rounding
+    # of the new weight (at lr 1, rounding alone can move a BN weight's after - before past the limit where its
+    # gradient is small), so the update is held to the CPU's as the gradients are. BN statistics move in the forward.
+    pair = {}
+    for dev in ("cuda", "cpu"):
+        tr = DetectionTrainer(overrides={"data": str(data), "imgsz": 160, "batch": 2, "val": False, "save": False,
+                              "optimizer": "SGD", "project": str(root / "runs"), "name": f"step_{dev}",
+                              "workers": 0}, device=dev)
+        tr.set_model(YOLOLite("yolo11n.yaml", device="cpu").model)
+        tr._setup_train()
+        pair[dev] = tr
+    batch = next(iter(pair["cpu"].train_loader))
+    got = {}
+
+    def floats(model):
+        return {k: v.detach().cpu().double() for k, v in model.state_dict().items() if v.is_floating_point()}
+
+    for dev, tr in pair.items():
+        before = floats(tr.model)
+        targets = tr._targets(batch)
+        images = torch.from_numpy(batch["img"]).to(tr.device)
+        with fp32_convs(tr.device):
+            total, items, fg = tr.loss_fn.forward(tr._forward(images), targets)
+            total.backward()
+        grads = {k: p.grad.detach().cpu().clone() for k, p in tr.model.named_parameters()}
+        tr._apply_step(np.full(3, 100.0, np.float32), 0.9)
+        after = floats(tr.model)
+        got[dev] = (items.cpu(), fg.cpu(), grads, {k: after[k] - before[k] for k in before})
+    (ic, fc, gc, uc), (ih, fh, gh, uh) = got["cuda"], got["cpu"]
+    floor = 1e-5 * max(float(g.norm()) for g in gh.values())
+    worst = max((grad_rel_l2(gc[k], gh[k], floor), k) for k in gh)
+    item_rel = float(((ic - ih).abs() / ih.abs()).max())
+    u_floor = 1e-5 * max(float(u.norm()) for u in uh.values())
+    u_worst = max((grad_rel_l2(uc[k], uh[k], u_floor), k) for k in uh)
+    if not torch.equal(fc, fh) or item_rel > 1e-4 or worst[0] > 1e-3 or u_worst[0] > 1e-3:
+        raise AssertionError(f"one step card vs CPU: fg equal {torch.equal(fc, fh)}, items rel {item_rel}, worst "
+                             f"gradient rel L2 {worst}, worst update rel L2 {u_worst}")
+    log(f"train: one SGD step card == CPU at 160, batch 2, fp32: fg_mask equal ({int(fh.sum())} anchors), loss "
+        f"items within {item_rel:.2e} relative, worst gradient relative L2 {worst[0]:.2e} ({worst[1]}), worst "
+        f"update (after - before) of a weight or BN statistic relative L2 {u_worst[0]:.2e} ({u_worst[1]}), "
+        f"on {card}")
+    tmp.cleanup()
+    return launches
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -534,6 +908,9 @@ def main() -> int:
     # ---- 4. val: yolo11n val at 640 through the facade ----
     val_launches, val_kernel = val_phase(card, model)
     launches += val_launches
+
+    # ---- 5. train: yolo11n train at 640 through the facade ----
+    launches += train_phase(card)
 
     # ---- kernels line: timed on the main path's own inputs (fp32, batch 32; batch 1 logged) ----
     for config in ((False, 1), (False, 32)):

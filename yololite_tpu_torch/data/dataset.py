@@ -1,10 +1,14 @@
-"""YOLO detection dataset and host dataloader (port of yololite_tpu/data/dataset.py, val mode).
+"""YOLO detection dataset and host dataloader (port of yololite_tpu/data/dataset.py).
 
 File globbing, the label cache (the JAX package's format and version, so
 either package reads the other's `labels.cache.npy`), rect batching, image
-loading and collate, with a thread-pool loader that keeps two batches in
-flight. Batches are numpy dicts; images stay uint8 NHWC RGB. Train mode
-(augment=True) waits for the train slice (ROADMAP.md, Queue 1, item 6).
+loading, the train transforms with their rolling image buffer, and collate,
+with a thread-pool loader that keeps two batches in flight. Batches are numpy
+dicts; images stay uint8 NHWC RGB.
+
+With augment=True the dataset owns one `random.Random` and one
+`np.random.RandomState`, seeded with `seed`, from which all its transforms
+draw (the JAX package draws from the process-wide `random` and `np.random`).
 """
 
 from __future__ import annotations
@@ -14,6 +18,7 @@ import math
 import os
 import pickle
 import random
+import threading
 from concurrent.futures import ThreadPoolExecutor
 from copy import deepcopy
 from pathlib import Path
@@ -21,7 +26,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from yololite_tpu_torch.data.augment import Compose, Format, LetterBox
+from yololite_tpu_torch.data.augment import Compose, Format, LetterBox, v8_transforms
 from yololite_tpu_torch.data.utils import (
     IMG_FORMATS,
     get_hash,
@@ -46,26 +51,29 @@ class YOLODataset:
         imgsz: int = 640,
         batch_size: int = 16,
         augment: bool = False,
+        hyp=None,
         rect: bool = False,
         cache: bool = False,
         single_cls: bool = False,
         classes: Optional[List[int]] = None,
+        fraction: float = 1.0,
         data: Optional[Dict] = None,
         pad: float = 0.5,
         stride: int = 32,
+        seed: int = 0,
     ):
-        if augment:
-            raise NotImplementedError("training augmentation is not ported to yololite_tpu_torch yet "
-                                      "(ROADMAP.md, Queue 1, item 6)")
+        if augment and hyp is None:
+            raise ValueError("augment=True needs the hyperparameters (hyp) of the train transforms")
         self.img_path = img_path
         self.imgsz = imgsz
         self.batch_size = batch_size
+        self.augment = augment
         self.rect = rect
         self.single_cls = single_cls
         self.data = data or {}
         self.pad = pad
         self.stride = stride
-        self.im_files = self.get_img_files(img_path)
+        self.im_files = self.get_img_files(img_path, fraction)
         self.labels = self.get_labels()
         self.im_files = [lb["im_file"] for lb in self.labels]  # corrupt files were dropped
         if single_cls or classes is not None:
@@ -75,15 +83,19 @@ class YOLODataset:
         self.ims = [None] * self.ni  # RAM image cache
         self.im_hw0 = [None] * self.ni
         self.im_hw = [None] * self.ni
+        self.buffer: List[int] = []  # train: indices of the recently loaded images mosaic draws from
+        self.max_buffer_length = min(self.ni, batch_size * 8, 1000) if augment else 0
+        self._buffer_lock = threading.Lock()
         if self.rect:
             self.set_rectangle()
-        self.transforms = Compose([LetterBox(new_shape=(self.imgsz, self.imgsz), scaleup=False),
-                                   Format(bbox_format="xywh", normalize=True, batch_idx=True)])
+        self.rng = random.Random(seed)
+        self.np_rng = np.random.RandomState(seed)
+        self.transforms = self.build_transforms(hyp)
 
     # ---- files & labels ----
 
     @staticmethod
-    def get_img_files(img_path) -> List[str]:
+    def get_img_files(img_path, fraction: float = 1.0) -> List[str]:
         f: List[str] = []
         for p in img_path if isinstance(img_path, list) else [img_path]:
             p = Path(p)
@@ -98,6 +110,8 @@ class YOLODataset:
         im_files = sorted(x for x in f if x.rpartition(".")[-1].lower() in IMG_FORMATS)
         if not im_files:
             raise FileNotFoundError(f"no images found in {img_path}")
+        if fraction < 1.0:
+            im_files = im_files[: max(round(len(im_files) * fraction), 1)]
         return im_files
 
     def get_labels(self) -> List[Dict]:
@@ -175,9 +189,15 @@ class YOLODataset:
     # ---- image loading ----
 
     def load_image(self, i: int):
-        """BGR image i resized so its long side is imgsz (rect mode), with its original and new (h, w)."""
-        if self.ims[i] is not None:
-            return self.ims[i], self.im_hw0[i], self.im_hw[i]
+        """BGR image i resized so its long side is imgsz, with its original and new (h, w).
+
+        With augment, the image joins the rolling buffer of the last
+        max_buffer_length loaded images, which stay in RAM for mosaic.
+        """
+        with self._buffer_lock:  # loader threads evict from the buffer while others read
+            im, hw0, hw = self.ims[i], self.im_hw0[i], self.im_hw[i]
+        if im is not None:
+            return im, hw0, hw
         import cv2
 
         im = imread(self.im_files[i])
@@ -188,8 +208,14 @@ class YOLODataset:
         if r != 1:
             w, h = (min(math.ceil(w0 * r), self.imgsz), min(math.ceil(h0 * r), self.imgsz))
             im = cv2.resize(im, (w, h), interpolation=cv2.INTER_LINEAR)
-        if self.cache_ram:
-            self.ims[i], self.im_hw0[i], self.im_hw[i] = im, (h0, w0), im.shape[:2]
+        if self.augment or self.cache_ram:
+            with self._buffer_lock:
+                self.ims[i], self.im_hw0[i], self.im_hw[i] = im, (h0, w0), im.shape[:2]
+                if self.augment:
+                    self.buffer.append(i)
+                    if 1 < len(self.buffer) >= self.max_buffer_length:
+                        j = self.buffer.pop(0)
+                        self.ims[j], self.im_hw0[j], self.im_hw[j] = None, None, None
         return im, (h0, w0), im.shape[:2]
 
     # ---- items ----
@@ -214,6 +240,25 @@ class YOLODataset:
 
     def __len__(self):
         return len(self.labels)
+
+    def build_transforms(self, hyp=None) -> Compose:
+        """Train: v8_transforms (no mosaic or mixup with rect); val: LetterBox without upscaling. Then Format."""
+        if self.augment:
+            hyp.mosaic = hyp.mosaic if not self.rect else 0.0
+            hyp.mixup = hyp.mixup if not self.rect else 0.0
+            transforms = v8_transforms(self, self.imgsz, hyp, self.rng, self.np_rng)
+        else:
+            transforms = Compose([LetterBox(new_shape=(self.imgsz, self.imgsz), scaleup=False)])
+        transforms.append(Format(bbox_format="xywh", normalize=True, batch_idx=True,
+                                 bgr=hyp.bgr if self.augment else 0.0, rng=self.rng))
+        return transforms
+
+    def close_mosaic(self, hyp):
+        """Turn off mosaic, copy-paste and mixup for the last epochs."""
+        hyp.mosaic = 0.0
+        hyp.copy_paste = 0.0
+        hyp.mixup = 0.0
+        self.transforms = self.build_transforms(hyp)
 
     # ---- collate ----
 
@@ -288,19 +333,23 @@ class DataLoader:
 
 
 def build_yolo_dataset(cfg, img_path, batch, data, mode: str = "val", rect: bool = False, stride: int = 32):
-    """Dataset factory; mode 'train' raises until the train slice lands."""
+    """Dataset factory: mode 'train' augments with cfg's hyperparameters and seed."""
+    train = mode == "train"
     return YOLODataset(
         img_path=img_path,
         imgsz=cfg.imgsz,
         batch_size=batch,
-        augment=mode == "train",
+        augment=train,
+        hyp=cfg,
         rect=cfg.rect or rect,
         cache=cfg.get("cache", False),
         single_cls=cfg.single_cls or False,
         classes=cfg.classes,
+        fraction=getattr(cfg, "fraction", 1.0) if train else 1.0,
         data=data,
         stride=stride,
-        pad=0.5,
+        pad=0.0 if train else 0.5,
+        seed=int(cfg.get("seed", 0) or 0),
     )
 
 

@@ -1,9 +1,9 @@
-"""YOLOLite facade (port of yololite_tpu/engine/model.py): build, predict, val, info.
+"""YOLOLite facade (port of yololite_tpu/engine/model.py): build or load, predict, val, train, save, info.
 
-`YOLOLite("yolo11n.yaml")` builds the model with `init(0)` on the card;
-pass device="cpu" to run on the CPU. Predict and val are ported so far:
-train, export and loading .pt/.npz checkpoints raise NotImplementedError
-naming their place in ROADMAP.md.
+`YOLOLite("yolo11n.yaml")` builds the model with `init(0)` on the card, and
+`YOLOLite("last.npz")` loads a native checkpoint of either package; pass
+device="cpu" to run on the CPU. Export and loading .pt checkpoints raise
+NotImplementedError naming their place in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -11,7 +11,8 @@ from __future__ import annotations
 from pathlib import Path
 from typing import Dict, Union
 
-from yololite_tpu_torch.cfg import get_cfg
+from yololite_tpu_torch.cfg import DEFAULT_CFG_DICT, get_cfg
+from yololite_tpu_torch.models import checkpoint as ckpt
 from yololite_tpu_torch.models.model import DetectionModel
 from yololite_tpu_torch.utils import LOGGER, select_device
 
@@ -31,14 +32,20 @@ class YOLOLite:
         self.device = select_device(device)
         self.overrides: Dict = {}
         self.predictor = None
+        self.trainer = None
         self.metrics = None
+        self.ckpt = None
+        self.ckpt_path = None
         if isinstance(model, dict):
             self._new(model, verbose=verbose)
             return
         model = str(model).strip()
+        self.ckpt_path = model
         if model.endswith((".yaml", ".yml")):
             self._new(model, verbose=verbose)
             self.overrides["model"] = model
+        elif model.endswith(".npz"):
+            self._load_native(model)
         else:
             raise _not_ported(f"loading the checkpoint '{model}'", "'The rest' (models/checkpoint.py)")
 
@@ -46,6 +53,14 @@ class YOLOLite:
         self.model = DetectionModel(cfg, verbose=verbose).init(0).to(self.device)
         self.overrides["task"] = self.task
 
+    def _load_native(self, path: str):
+        """The EMA weights (and BN statistics) of a native .npz, with its names and train args."""
+        model, meta = ckpt.attempt_load_one_weight(path)
+        self.model = model.to(self.device)
+        self.ckpt = meta
+        self.overrides = {k: v for k, v in (meta.get("args") or {}).items() if k in DEFAULT_CFG_DICT}
+        self.overrides.update({"model": path, "task": self.task})
+        self.predictor = None
     @property
     def names(self):
         return self.model.names
@@ -91,8 +106,29 @@ class YOLOLite:
         self.metrics = v.metrics
         return v.metrics
 
-    def train(self, *args, **kwargs):
-        raise _not_ported("train", "item 6")
+    def train(self, trainer=None, **kwargs):
+        """Train on `data` on self.device; afterwards the facade holds best.npz's weights, if one was written."""
+        args = {**self.overrides, "mode": "train", **kwargs}
+        if args.get("resume"):
+            args["resume"] = self.ckpt_path
+        from yololite_tpu_torch.engine.trainer import DetectionTrainer
+
+        self.trainer = (trainer or DetectionTrainer)(overrides=args, device=self.device)
+        if not args.get("resume"):
+            self.trainer.set_model(self.model)
+        self.trainer.train()
+        best = getattr(self.trainer, "best", None)
+        if best and Path(best).exists():
+            self._load_native(str(best))
+        self.metrics = getattr(self.trainer, "metrics", None)
+        return self.metrics
+
+    def save(self, path: Union[str, Path]):
+        """Save the weights as a native .npz (loads in either package)."""
+        meta = {"cfg": dict(self.model.yaml), "nc": self.model.nc, "names": self.model.names, "args": self.overrides}
+        params, state = ckpt.jax_trees(self.model)
+        ckpt.save_native(path, params, state, meta)
+        return path
 
     def export(self, *args, **kwargs):
         raise _not_ported("export", "'The rest' (runtime/export.py)")

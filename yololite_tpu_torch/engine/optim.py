@@ -1,0 +1,115 @@
+"""Optimizers on torch.optim with the JAX package's three parameter groups (port of yololite_tpu/engine/optim.py).
+
+Groups, in the order of the JAX package's lr vector: 0 biases (BN bias and
+conv bias), 1 weights (conv weights, the only group with weight decay), 2 BN
+weights. The trainer writes each group's lr and momentum (or betas[0]) every
+iteration. Frozen parameters are left out of the optimizer: no update and no
+decay, as the JAX package's trainable mask gives.
+
+Each of the 7 names maps onto the torch.optim class whose update is the JAX
+formula: SGD(nesterov), Adam and RAdam with L2 decay folded into the
+gradient, AdamW with decoupled decay, Adamax, NAdam (mu_product kept per
+parameter, as the JAX package keeps one scalar) and RMSprop(alpha 0.99) with a
+momentum buffer. They differ from the JAX formulas only in rounding: AdamW
+divides sqrt(v) by sqrt(1 - beta2^t) where the JAX package takes sqrt(v / (1 -
+beta2^t)), and torch computes the bias corrections in float64 on the host
+where the JAX package uses float32 on the device.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Tuple
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+GROUP_BIAS, GROUP_WEIGHT, GROUP_BN = 0, 1, 2  # indices into the lr vector and the param groups
+
+OPTIMIZERS = ("SGD", "Adam", "Adamax", "AdamW", "NAdam", "RAdam", "RMSProp")
+# optimizer state names that hold the JAX package's first (mu) and second (nu) moments
+_MOMENTS = {
+    "SGD": ("momentum_buffer", None),
+    "Adam": ("exp_avg", "exp_avg_sq"),
+    "AdamW": ("exp_avg", "exp_avg_sq"),
+    "Adamax": ("exp_avg", "exp_inf"),
+    "NAdam": ("exp_avg", "exp_avg_sq"),
+    "RAdam": ("exp_avg", "exp_avg_sq"),
+    "RMSProp": ("momentum_buffer", "square_avg"),
+}
+
+
+def group_params(model: nn.Module) -> Tuple[List[nn.Parameter], ...]:
+    """(bias, weight, bn) lists of the trainable parameters, in module order."""
+    groups: Tuple[list, list, list] = ([], [], [])
+    for m in model.modules():
+        for pname, p in m.named_parameters(recurse=False):
+            if not p.requires_grad:
+                continue
+            if pname == "bias":  # BN bias and conv bias
+                gid = GROUP_BIAS
+            elif isinstance(m, nn.BatchNorm2d):  # BN weight
+                gid = GROUP_BN
+            else:  # conv kernels and any other weight
+                gid = GROUP_WEIGHT
+            groups[gid].append(p)
+    return groups
+
+
+def build_optimizer(name: str, model: nn.Module, lr: float, momentum: float, weight_decay: float):
+    """The named torch.optim optimizer over the model's trainable parameters in the 3 groups."""
+    bias, weight, bn = group_params(model)
+    groups = [{"params": bias, "weight_decay": 0.0}, {"params": weight, "weight_decay": weight_decay},
+              {"params": bn, "weight_decay": 0.0}]
+    if name == "SGD":
+        return torch.optim.SGD(groups, lr=lr, momentum=momentum, nesterov=True)
+    if name == "RMSProp":
+        return torch.optim.RMSprop(groups, lr=lr, alpha=0.99, eps=1e-8, momentum=momentum)
+    cls = {"Adam": torch.optim.Adam, "AdamW": torch.optim.AdamW, "Adamax": torch.optim.Adamax,
+           "NAdam": torch.optim.NAdam, "RAdam": torch.optim.RAdam}.get(name)
+    if cls is None:
+        raise NotImplementedError(f"optimizer '{name}' not supported; choose one of {OPTIMIZERS}")
+    return cls(groups, lr=lr, betas=(momentum, 0.999), eps=1e-8)
+
+
+def set_lr_momentum(optimizer: torch.optim.Optimizer, lr_vec, momentum: float) -> None:
+    """Write this iteration's per-group lr and the momentum (betas[0] for the Adam family) into the groups."""
+    m = float(np.float32(momentum))  # the JAX step takes momentum as a float32 scalar
+    for gid, g in enumerate(optimizer.param_groups):
+        g["lr"] = float(np.float32(lr_vec[gid]))
+        if "betas" in g:
+            g["betas"] = (m, g["betas"][1])
+        else:
+            g["momentum"] = m
+
+
+def nadam_mu_product(step: int, beta1: float, momentum_decay: float = 0.004) -> float:
+    """NAdam's running mu_product after `step` updates at a constant beta1 (for resume)."""
+    i = np.arange(1, int(step) + 1, dtype=np.float64)
+    return float(np.prod(beta1 * (1 - 0.5 * 0.96 ** (i * momentum_decay)))) if step else 1.0
+
+
+def moments(name: str, optimizer: torch.optim.Optimizer, named: Dict[str, nn.Parameter]):
+    """The optimizer's first and second moments by parameter name (zeros where it keeps none)."""
+    k_mu, k_nu = _MOMENTS[name]
+    mu, nu = {}, {}
+    for n, p in named.items():
+        st = optimizer.state.get(p, {})
+        mu[n] = st[k_mu] if k_mu in st else torch.zeros_like(p)
+        nu[n] = st[k_nu] if k_nu and k_nu in st else torch.zeros_like(p)
+    return mu, nu
+
+
+def load_moments(name: str, optimizer: torch.optim.Optimizer, named: Dict[str, nn.Parameter], mu: Dict, nu: Dict,
+                 step: int, beta1: float) -> None:
+    """Restore the optimizer's per-parameter state from moments by name, as of `step` updates."""
+    k_mu, k_nu = _MOMENTS[name]
+    sdt = torch.get_default_dtype()  # torch keeps step counters on the host in the default dtype
+    for n, p in named.items():
+        st = {k_mu: mu[n].to(p).clone()}
+        if name != "SGD":
+            st["step"] = torch.tensor(float(step), dtype=sdt)
+            st[k_nu] = nu[n].to(p).clone()
+        if name == "NAdam":
+            st["mu_product"] = torch.tensor(nadam_mu_product(step, beta1), dtype=sdt)
+        optimizer.state[p] = st

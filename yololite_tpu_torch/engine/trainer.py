@@ -1,0 +1,482 @@
+"""Detection trainer: eager train step, gradient accumulation, EMA, warmup, resume (port of yololite_tpu/engine/trainer.py).
+
+Each iteration runs the forward in train mode (under bf16 autocast with amp;
+the loss then reads the bf16 maps and does its math in fp32), the loss with
+TAL assignment, and a backward that accumulates into `.grad`. When
+`accumulate` iterations have gathered, the gradients are clipped to a global
+norm of 10, the optimizer steps with this iteration's per-group lr and
+momentum, the gradients are zeroed and the EMA of the weights and BN
+statistics follows. The JAX package compiles the same math as one XLA graph
+per step (its grad, apply and fused steps); eager torch needs no such split.
+
+Checkpoints are the JAX package's native .npz (models/checkpoint.py), so
+either package resumes or predicts from the other's last.npz and best.npz.
+"""
+
+from __future__ import annotations
+
+import copy
+import math
+import sys
+import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from yololite_tpu_torch.cfg import get_cfg, get_save_dir
+from yololite_tpu_torch.data.dataset import build_dataloader, build_yolo_dataset
+from yololite_tpu_torch.data.utils import check_det_dataset
+from yololite_tpu_torch.engine import optim
+from yololite_tpu_torch.engine.predictor import forward_nhwc, fp32_convs
+from yololite_tpu_torch.models import checkpoint as ckpt
+from yololite_tpu_torch.models.model import DetectionModel
+from yololite_tpu_torch.utils import LOGGER, TQDM, colorstr, get_latest_run, select_device
+from yololite_tpu_torch.utils.checks import check_imgsz
+from yololite_tpu_torch.utils.ema import ModelEMA
+from yololite_tpu_torch.utils.loss import E2EDetectLoss, build_targets, v8DetectionLoss
+
+
+def one_cycle(y1=1.0, y2=0.01, steps=100):
+    """Cosine ramp y1 -> y2 over `steps`."""
+    return lambda x: max((1 - math.cos(x * math.pi / steps)) / 2, 0) * (y2 - y1) + y1
+
+
+class EarlyStopping:
+    """Stop when fitness has not improved for `patience` epochs (0 or None: never)."""
+
+    def __init__(self, patience: int = 50):
+        self.best_fitness = 0.0
+        self.best_epoch = 0
+        self.patience = patience or float("inf")
+        self.possible_stop = False
+
+    def __call__(self, epoch: int, fitness: Optional[float]) -> bool:
+        if fitness is None:
+            return False
+        if fitness >= self.best_fitness:
+            self.best_epoch = epoch
+            self.best_fitness = fitness
+        delta = epoch - self.best_epoch
+        self.possible_stop = delta >= (self.patience - 1)
+        stop = delta >= self.patience
+        if stop:
+            LOGGER.info(f"Stopping training early as no improvement observed in last {self.patience} epochs. "
+                        f"Best results observed at epoch {self.best_epoch}.")
+        return stop
+
+
+class _AsyncSaver:
+    """One writer thread for checkpoints, writes in order, at most one in flight.
+
+    Each submit waits for the previous write to finish, so no epoch's save is
+    dropped. A write's error is logged at the next submit and raised at flush.
+    The function submitted must hold its own host copy of what it writes:
+    torch changes parameters and optimizer state in place while the writer runs.
+    """
+
+    def __init__(self):
+        self._pool = ThreadPoolExecutor(max_workers=1, thread_name_prefix="ckpt-saver")
+        self._last = None
+        self._error = None
+
+    def _wait(self):
+        if self._last is not None:
+            err, self._last = self._last.exception(), None
+            if err is not None:
+                LOGGER.warning(f"checkpoint save failed: {err!r} (will re-raise at end of training)")
+                self._error = self._error or err
+
+    def submit(self, fn):
+        self._wait()
+        self._last = self._pool.submit(fn)
+
+    def flush(self):
+        """Block until the last write is done; re-raise the first write error."""
+        self._wait()
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise err
+
+
+class DetectionTrainer:
+    """Trains a DetectionModel on a YOLO dataset on one device (cuda unless told otherwise)."""
+
+    def __init__(self, overrides: Optional[Dict] = None, device=None):
+        self.args = get_cfg(overrides=overrides)
+        self._resume_blob = None
+        self.check_resume(overrides or {})
+        self.device = select_device(self.args.device if device is None else device)
+        self.np_rng = np.random.RandomState(self.args.seed)  # multi-scale draws on the main thread
+        self.save_dir = get_save_dir(self.args)
+        self.args.save_dir = str(self.save_dir)  # checkpoints carry it, so a resumed run reuses the directory
+        self.wdir = self.save_dir / "weights"
+        self.batch_size = int(self.args.batch)
+        self.epochs = int(self.args.epochs or 100)
+        self.start_epoch = 0
+        self.epoch = 0
+        self.data = check_det_dataset(self.args.data)
+        self.model: Optional[DetectionModel] = None
+        self.ema: Optional[ModelEMA] = None
+        self.best_fitness = None
+        self.fitness = None
+        self.metrics = None
+        self.stop_training = False
+        self.csv = self.save_dir / "results.csv"
+        self.last, self.best = self.wdir / "last.npz", self.wdir / "best.npz"
+        self.loss_names = ["box_loss", "cls_loss", "dfl_loss"]
+        self.max_gt = 0
+        self.train_seconds = []  # per epoch: the batch loop alone, without val and saving
+        self._saver = _AsyncSaver()
+
+    # ---- model plumbing ----
+
+    def set_model(self, model: DetectionModel):
+        """Train a copy of `model` (the caller's stays as it is)."""
+        self.model = copy.deepcopy(model)
+
+    def get_model(self):
+        if self.model is None:
+            cfg = self.args.model or "yolo11n.yaml"
+            if self._resume_blob is not None:  # the resumed checkpoint's own spec
+                cfg = self._resume_blob[2].get("cfg", cfg)
+            if str(cfg).endswith(".pt"):
+                raise NotImplementedError(f"training from the checkpoint '{cfg}' is not ported to yololite_tpu_torch "
+                                          "yet (ROADMAP.md, Queue 1, 'The rest' (models/checkpoint.py))")
+            self.model = DetectionModel(cfg, nc=self.data["nc"]).init(self.args.seed)
+        if self.model.nc != self.data["nc"]:
+            # a new head for the dataset's class count, from the model's own spec; the other rows keep their weights
+            model2 = DetectionModel(dict(self.model.yaml), nc=self.data["nc"]).init(self.args.seed)
+            head = f"model.{len(model2.model) - 1}."
+            sd2 = model2.state_dict()
+            sd2.update({k: v for k, v in self.model.state_dict().items() if not k.startswith(head)})
+            model2.load_state_dict(sd2)
+            self.model = model2
+        self.model.names = self.data["names"]
+        self.model.to(self.device)
+
+    # ---- setup ----
+
+    def _setup_train(self):
+        self.get_model()
+        self.imgsz = check_imgsz(self.args.imgsz, stride=32, min_dim=1)
+        self.args.imgsz = self.imgsz
+
+        train_ds = build_yolo_dataset(copy.copy(self.args), self.data["train"], self.batch_size, self.data,
+                                      mode="train")
+        self.train_loader = build_dataloader(train_ds, self.batch_size, self.args.workers, shuffle=True,
+                                             seed=self.args.seed)
+        if self.args.val and self.data.get("val"):
+            from yololite_tpu_torch.engine.validator import DetectionValidator
+
+            vargs = {k: v for k, v in vars(self.args).items() if not isinstance(v, Path)}
+            vargs.update({"mode": "val", "rect": True, "conf": 0.001, "plots": False, "verbose": False,
+                          "save_json": False})
+            self.validator = DetectionValidator(save_dir=self.save_dir, args=vargs, device=self.device)
+        else:
+            self.validator = None
+
+        # GT padding: the dataset's most instances per image, with headroom for mosaic
+        max_inst = max((len(lb["cls"]) for lb in train_ds.labels), default=1)
+        self.max_gt = min(max(16, int(4.4 * max_inst) + 8), 256)
+
+        self.accumulate = max(round(self.args.nbs / self.batch_size), 1)
+        self.weight_decay = self.args.weight_decay * self.batch_size * self.accumulate / self.args.nbs
+        iterations = math.ceil(len(train_ds) / max(self.batch_size, self.args.nbs)) * self.epochs
+        self.opt_name, self.lr0, self.momentum = self._resolve_optimizer(iterations)
+        self._freeze()
+        self.optimizer = optim.build_optimizer(self.opt_name, self.model, self.lr0, self.momentum, self.weight_decay)
+        self.ema = ModelEMA(self.model)
+
+        if self.args.cos_lr:
+            self.lf = one_cycle(1, self.args.lrf, self.epochs)
+        else:
+            self.lf = lambda x: max(1 - x / self.epochs, 0) * (1.0 - self.args.lrf) + self.args.lrf
+        self.stopper = EarlyStopping(patience=self.args.patience)
+
+        m = self.model
+        loss_cls = E2EDetectLoss if getattr(m.detect, "end2end", False) else v8DetectionLoss
+        self.loss_fn = loss_cls(m.nc, m.strides, m.reg_max, hyp=self.args)
+        if self._resume_blob is not None:
+            self.resume_training(self._resume_blob)
+
+    def _resolve_optimizer(self, iterations):
+        """'auto' -> AdamW (lr fitted to nc, no bias warmup) for short runs, SGD(0.01, 0.9) past 10,000 iterations."""
+        name = self.args.optimizer
+        lr, momentum = self.args.lr0, self.args.momentum
+        if name == "auto":
+            nc = self.data["nc"]
+            lr_fit = round(0.002 * 5 / (4 + nc), 6)
+            name, lr, momentum = ("SGD", 0.01, 0.9) if iterations > 10000 else ("AdamW", lr_fit, 0.9)
+            self.args.warmup_bias_lr = 0.0
+            LOGGER.info(f"optimizer: auto -> {name}(lr={lr}, momentum={momentum})")
+        canonical = {x.lower(): x for x in optim.OPTIMIZERS}.get(str(name).lower())
+        if canonical is None:
+            raise NotImplementedError(f"optimizer '{self.args.optimizer}' not supported; choose one of "
+                                      f"{optim.OPTIMIZERS}")
+        return canonical, lr, momentum
+
+    def _freeze(self):
+        """Freeze the first `freeze` rows (an int) or the listed rows: no gradient, no update, no decay."""
+        freeze = self.args.freeze
+        if isinstance(freeze, int):
+            rows = set(range(freeze))
+        elif isinstance(freeze, (list, tuple)):
+            rows = {int(x) for x in freeze}
+        else:
+            rows = set()
+        for name, p in self.model.named_parameters():
+            p.requires_grad_(int(name.split(".")[1]) not in rows)
+
+    # ---- one iteration ----
+
+    def _forward(self, images: torch.Tensor):
+        """uint8 NHWC batch on the device -> the Detect maps, NHWC, in train mode (bf16 under amp)."""
+        x = images.float() * (1.0 / 255.0) if images.dtype == torch.uint8 else images
+        with torch.autocast(self.device.type, dtype=torch.bfloat16, enabled=bool(self.args.amp)):
+            return forward_nhwc(self.model, x)
+
+    def _targets(self, batch) -> Dict[str, torch.Tensor]:
+        """The batch's GTs padded to the next power of two of its most boxes per image (>= 16, <= max_gt)."""
+        n = batch["img"].shape[0]
+        counts = np.bincount(np.asarray(batch["batch_idx"]).astype(int), minlength=n)
+        need = max(16, int(counts.max(initial=16)))
+        m_bucket = min(self.max_gt, 1 << (need - 1).bit_length())
+        t = build_targets(batch, n, batch["img"].shape[1:3], m_bucket)
+        return {k: torch.from_numpy(v).to(self.device, non_blocking=True) for k, v in t.items()}
+
+    def _grad_step(self, images: torch.Tensor, targets: Dict[str, torch.Tensor]):
+        """Forward, loss and backward; gradients add into `.grad`. Returns the detached loss items."""
+        with fp32_convs(self.device):
+            total, items = self.loss_fn(self._forward(images), targets)
+            total.backward()
+        return items
+
+    def _apply_step(self, lr_vec, momentum: float):
+        """Clip the summed gradients to norm 10, step the optimizer, zero the gradients, update the EMA."""
+        torch.nn.utils.clip_grad_norm_(self.model.parameters(), 10.0)  # the JAX package's clip_by_global_norm
+        optim.set_lr_momentum(self.optimizer, lr_vec, momentum)
+        self.optimizer.step()
+        self.optimizer.zero_grad(set_to_none=True)
+        self.ema.update(self.model)
+
+    # ---- main loop ----
+
+    def train(self):
+        self._setup_train()
+        nb = len(self.train_loader)
+        nw = max(round(self.args.warmup_epochs * nb), 100) if self.args.warmup_epochs > 0 else -1
+        LOGGER.info(f"Image sizes {self.imgsz} train, {self.imgsz} val\n"
+                    f"Using {self.args.workers} dataloader workers on {self.device}\n"
+                    f"Logging results to {colorstr('bold', self.save_dir)}\n"
+                    f"Starting training for {self.epochs} epochs...")
+        self.wdir.mkdir(parents=True, exist_ok=True)
+        train_time_start = time.time()
+        try:
+            self._train_epochs(nb, nw, train_time_start)
+        finally:
+            # drain the checkpoint writer even when the loop raises, but never let a
+            # saver error replace the exception in flight
+            try:
+                self._saver.flush()
+            except Exception as save_err:
+                if sys.exc_info()[0] is None:
+                    raise
+                LOGGER.warning(f"checkpoint saver error during shutdown: {save_err!r}")
+        LOGGER.info(f"\n{self.epochs - self.start_epoch} epochs completed in "
+                    f"{(time.time() - train_time_start) / 3600:.3f} hours.")
+        self.final_eval()
+        return self.metrics
+
+    def _train_epochs(self, nb, nw, train_time_start):
+        last_opt_step = -1
+        self.optimizer.zero_grad(set_to_none=True)
+        epoch = self.start_epoch
+        while epoch < self.epochs:
+            self.epoch = epoch
+            if epoch == (self.epochs - self.args.close_mosaic) and self.args.close_mosaic:
+                LOGGER.info("Closing dataloader mosaic")
+                self.train_loader.dataset.close_mosaic(hyp=copy.copy(self.args))
+            self.model.train()
+            tloss = None
+            t0 = time.perf_counter()
+            pbar = TQDM(enumerate(self.train_loader), total=nb, desc=f"epoch {epoch + 1}/{self.epochs}")
+            for i, batch in pbar:
+                ni = i + nb * epoch
+                if ni <= nw:  # warmup: accumulate, lr and momentum ramp in
+                    xi = [0, nw]
+                    self.accumulate = max(1, int(np.interp(ni, xi, [1, self.args.nbs / self.batch_size]).round()))
+                    lr_vec = np.array([
+                        np.interp(ni, xi, [self.args.warmup_bias_lr, self.lr0 * self.lf(epoch)]),  # biases
+                        np.interp(ni, xi, [0.0, self.lr0 * self.lf(epoch)]),  # weights
+                        np.interp(ni, xi, [0.0, self.lr0 * self.lf(epoch)]),  # bn
+                    ], np.float32)
+                    momentum = float(np.interp(ni, xi, [self.args.warmup_momentum, self.momentum]))
+                else:
+                    lr = self.lr0 * self.lf(epoch)
+                    lr_vec = np.array([lr, lr, lr], np.float32)
+                    momentum = self.momentum
+
+                batch = self.preprocess_batch(batch)
+                images = torch.from_numpy(batch["img"]).to(self.device, non_blocking=True)
+                items = self._grad_step(images, self._targets(batch))
+                if ni - last_opt_step >= self.accumulate:
+                    self._apply_step(lr_vec, momentum)
+                    last_opt_step = ni
+                # the running mean stays on the device: reading it here would sync every step
+                tloss = items if tloss is None else (tloss * i + items) / (i + 1)
+                if i % max(nb // 4, 1) == 0:
+                    t = tloss.tolist()
+                    pbar.set_description(f"epoch {epoch + 1}/{self.epochs} box {t[0]:.3f} cls {t[1]:.3f} "
+                                         f"dfl {t[2]:.3f}")
+            tloss = tloss.cpu().numpy() if tloss is not None else None  # waits for the epoch's last step
+            self.train_seconds.append(time.perf_counter() - t0)
+            self.lr = {f"lr/pg{j}": float(lr_vec[j]) for j in range(3)}
+
+            final_epoch = epoch + 1 >= self.epochs
+            self.fitness = None
+            if self.validator is not None and (self.args.val or final_epoch):
+                self.metrics = self.validate()
+            self.stop_training = self.stopper(epoch, self.fitness)
+            if self.args.time:
+                self.stop_training |= (time.time() - train_time_start) > self.args.time * 3600
+            self.save_metrics(epoch, tloss)
+            if self.args.save:
+                self.save_model(epoch)
+            if self.stop_training:
+                break
+            epoch += 1
+
+    # ---- hooks ----
+
+    def preprocess_batch(self, batch):
+        """Multi-scale: resize the batch on the host to a random size in [0.5, 1.5] x imgsz, on a /32 grid."""
+        if self.args.multi_scale:
+            import cv2
+
+            imgsz = self.imgsz if isinstance(self.imgsz, int) else self.imgsz[0]
+            sz = max((self.np_rng.randint(int(imgsz * 0.5), int(imgsz * 1.5 + 32)) // 32) * 32, 32)
+            if sz != batch["img"].shape[1]:
+                batch["img"] = np.stack([cv2.resize(im, (sz, sz), interpolation=cv2.INTER_LINEAR)
+                                         for im in batch["img"]])
+        return batch
+
+    def validate(self):
+        v = self.validator
+        v.args.plots = False
+        stats = v(trainer=self)
+        fitness = stats.get("fitness", -np.inf)
+        self.fitness = fitness
+        if self.best_fitness is None or fitness > self.best_fitness:
+            self.best_fitness = fitness
+        return stats
+
+    # ---- persistence ----
+
+    def _train_meta(self, epoch):
+        return {
+            "epoch": epoch,
+            "best_fitness": float(self.best_fitness) if self.best_fitness is not None else None,
+            "ema_updates": self.ema.updates,
+            "cfg": dict(self.model.yaml),  # the whole spec, so a custom architecture reloads as itself
+            "nc": self.model.nc,
+            "names": self.model.names,
+            "args": {k: v for k, v in vars(self.args).items() if not isinstance(v, Path)},
+            "date": time.strftime("%Y-%m-%dT%H:%M:%S"),
+        }
+
+    def _named_trainable(self) -> Dict[str, torch.nn.Parameter]:
+        return {n: p for n, p in self.model.named_parameters() if p.requires_grad}
+
+    def save_model(self, epoch):
+        """Save last (and best, and periodic) checkpoints: EMA weights plus what resume needs.
+
+        Everything is copied to the host here; the writer thread only writes.
+        """
+        meta = self._train_meta(epoch)
+        ema_params, ema_state = ckpt.jax_trees(self.ema.ema)
+        raw_params, raw_state = ckpt.jax_trees(self.model)
+        named = dict(self.model.named_parameters())
+        mu, nu = optim.moments(self.opt_name, self.optimizer, named)
+        state = {"model_state": ema_state, "raw_params": raw_params, "raw_state": raw_state,
+                 "opt": {"mu": ckpt.tree_of(self.model, mu), "nu": ckpt.tree_of(self.model, nu)}}
+        is_best = self.best_fitness is not None and self.fitness is not None and self.best_fitness == self.fitness
+        periodic = self.args.save_period > 0 and epoch % self.args.save_period == 0
+
+        def _write():
+            ckpt.save_native(self.last, ema_params, state, meta)
+            if is_best:
+                ckpt.save_native(self.best, ema_params, state, meta)
+            if periodic:
+                ckpt.save_native(self.wdir / f"epoch{epoch}.npz", ema_params, state, meta)
+
+        self._saver.submit(_write)
+
+    def save_metrics(self, epoch, tloss):
+        """Append one row to results.csv; the columns are fixed at the first write (a resume adopts the file's)."""
+        metrics = dict(self.metrics or {})
+        if not hasattr(self, "_csv_keys"):
+            if self.csv.exists():
+                self._csv_keys = self.csv.read_text(encoding="utf-8").splitlines()[0].split(",")
+            else:
+                metric_keys = list(metrics.keys()) or (
+                    list(self.validator.metrics.keys) + ["fitness"] if self.validator is not None else [])
+                self._csv_keys = ["epoch", *self.loss_names, *metric_keys, "lr/pg0", "lr/pg1", "lr/pg2"]
+        row = dict(zip(self.loss_names, [float(x) for x in (tloss if tloss is not None else [0, 0, 0])]))
+        row["epoch"] = epoch + 1
+        row.update({k: float(v) for k, v in metrics.items()})
+        row.update({f"lr/pg{j}": self.lr.get(f"lr/pg{j}", 0.0) for j in range(3)})
+        header = "" if self.csv.exists() else ",".join(self._csv_keys) + "\n"
+        with open(self.csv, "a", encoding="utf-8") as f:
+            f.write(header + ",".join(f"{row.get(k, 0.0)}" for k in self._csv_keys) + "\n")
+
+    def final_eval(self):
+        """Validate the best checkpoint's EMA weights, standalone (fused), with plots as args say."""
+        if self.best.exists() and self.validator is not None:
+            params, state, _ = ckpt.load_native(self.best)
+            ckpt.load_jax_trees(self.ema.ema, params, state["model_state"])
+            LOGGER.info(f"\nValidating {self.best}...")
+            self.validator.args.plots = self.args.plots
+            self.metrics = self.validator(model=self.ema.ema)
+
+    # ---- resume ----
+
+    def check_resume(self, overrides):
+        """With resume, take the args of the checkpoint (imgsz, batch, device, close_mosaic may be overridden)."""
+        resume = self.args.resume
+        if not resume:
+            return
+        last = Path(resume) if isinstance(resume, (str, Path)) and Path(str(resume)).exists() else None
+        if last is None or last.suffix != ".npz":
+            last = get_latest_run()
+            if not last:
+                raise FileNotFoundError("resume requested but no last.npz found")
+        params, state, meta = ckpt.load_native(last)
+        args = meta.get("args", {})
+        args["resume"] = True
+        for k in ("imgsz", "batch", "device", "close_mosaic"):
+            if k in overrides:
+                args[k] = overrides[k]
+        self.args = get_cfg(overrides=dict(args))
+        if args.get("save_dir"):  # get_cfg drops keys outside the schema; reuse the run directory
+            self.args.save_dir = args["save_dir"]
+        self._resume_blob = (params, state, meta)
+
+    def resume_training(self, blob):
+        """Restore the EMA, the raw weights and BN statistics, the optimizer's moments and the epoch."""
+        params, state, meta = blob
+        self.ema.updates = int(meta.get("ema_updates", 0))
+        ckpt.load_jax_trees(self.ema.ema, params, state["model_state"])
+        ckpt.load_jax_trees(self.model, state["raw_params"], state["raw_state"])
+        named = self._named_trainable()
+        mu = ckpt.tensors_of(self.model, state["opt"]["mu"], named)
+        nu = ckpt.tensors_of(self.model, state["opt"]["nu"], named)
+        optim.load_moments(self.opt_name, self.optimizer, named, mu, nu, self.ema.updates, self.momentum)
+        self.best_fitness = meta.get("best_fitness")
+        self.start_epoch = int(meta.get("epoch", -1)) + 1
+        if self.start_epoch >= self.epochs - self.args.close_mosaic:
+            self.train_loader.dataset.close_mosaic(hyp=copy.copy(self.args))
+        LOGGER.info(f"Resuming training from epoch {self.start_epoch}")
+        self._resume_blob = None

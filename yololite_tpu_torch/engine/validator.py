@@ -10,8 +10,10 @@ padded (B, max_det, 6) result comes to the host. There, per-image TP matching
 in numpy.
 
 Rect batching gives each batch its own shape. Torch compiles nothing per
-shape, so the tail batch is not padded. Not ported yet: validating a
-trainer's EMA weights (`trainer=`, with train) and the multi-device mesh.
+shape, so the tail batch is not padded. Standalone val runs a fused copy of
+the model, built once per validator. A trainer's val (`trainer=`) runs the
+trainer's EMA model as it stands at that call: unfused, in eval mode, with
+the EMA's BN statistics. Not ported yet: the multi-device mesh.
 """
 
 from __future__ import annotations
@@ -59,18 +61,17 @@ class DetectionValidator:
 
     # ---- setup ----
 
-    def _build_infer(self, model, half: bool):
+    def _build_infer(self, net, model, half: bool):
         """uint8 (B, H, W, 3) RGB batch on the device -> (B, max_det, 6) detections there.
 
-        The net is a fused copy of `model` (Conv+BN folded, as standalone val
-        does), in bf16 with half. The NMS always gets fp32 maps.
+        `net` is the eval-mode module to run (bf16 with half); `model` gives
+        the head's layout. The NMS always gets fp32 maps.
         """
         nc, strides, reg_max = model.nc, model.strides, model.reg_max
         conf, iou, max_det = float(self.args.conf), float(self.args.iou), int(self.args.max_det)
         end2end = bool(getattr(model.detect, "end2end", False))
         agnostic = bool(self.args.single_cls)
         dtype = torch.bfloat16 if half else torch.float32
-        net = inference_net(model, self.device, half)
 
         @torch.inference_mode()
         def infer(images: torch.Tensor) -> torch.Tensor:
@@ -92,11 +93,18 @@ class DetectionValidator:
     # ---- main entry ----
 
     def __call__(self, trainer=None, model=None):
-        """Validate `model` (a DetectionModel) on the dataset split of self.args."""
+        """Validate `model` (a DetectionModel), or a trainer's EMA model, on the dataset split of self.args."""
+        half = bool(self.args.half)
         if trainer is not None:
-            raise NotImplementedError("validating a trainer's EMA weights is not ported to yololite_tpu_torch yet "
-                                      "(ROADMAP.md, Queue 1, item 6)")
-        self.data = check_det_dataset(self.args.data)
+            model = trainer.model
+            ema = trainer.ema.ema  # eval mode, unfused, with the EMA's BN statistics
+            self.args.batch = trainer.args.batch
+            self.data = trainer.data
+            self.args.plots &= trainer.stop_training or (trainer.epoch == trainer.epochs - 1)
+            net = inference_net(ema, self.device, half, fuse=False) if half else ema
+            infer = self._build_infer(net, model, half)  # the EMA weights of this call
+        else:
+            self.data = check_det_dataset(self.args.data)
         self.names = self.data.get("names", model.names)
         self.nc = len(self.names)
         # COCO detection: map class indices to 1-based category ids
@@ -112,8 +120,10 @@ class DetectionValidator:
             dataset = build_yolo_dataset(self.args, self.data[self.args.split], self.args.batch, self.data,
                                          mode="val", stride=32)
             self.dataloader = build_dataloader(dataset, self.args.batch, self.args.workers, shuffle=False)
-        if self._infer is None:
-            self._infer = self._build_infer(model, half=bool(self.args.half))
+        if trainer is None:
+            if self._infer is None:  # standalone: a fused copy (Conv+BN folded), built once
+                self._infer = self._build_infer(inference_net(model, self.device, half), model, half)
+            infer = self._infer
 
         self.seen = 0
         self.stats = {"tp": [], "conf": [], "pred_cls": [], "target_cls": [], "target_img": []}
@@ -123,7 +133,7 @@ class DetectionValidator:
             with profilers[0]:
                 im = torch.from_numpy(batch["img"]).to(self.device)
             with profilers[1]:
-                dets = self._infer(im).cpu().numpy()
+                dets = infer(im).cpu().numpy()
             with profilers[2]:
                 self.update_metrics(dets, batch)
 

@@ -2,11 +2,13 @@
 
 Torch versions work on tensors on any device; the `*_np` helpers serve the
 host-side Results path and the validator's matching. `box_iou` keeps the JAX operation order and eps, so
-the two give the same bits on the same boxes.
+the two give the same bits on the same boxes. `bbox_iou` (CIoU for the loss
+and the assigner), `bbox2dist` and the numpy `bbox_ioa` (CopyPaste) serve train.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Sequence, Tuple
 
 import numpy as np
@@ -146,6 +148,48 @@ def box_iou_np(box1: np.ndarray, box2: np.ndarray, eps: float = 1e-7) -> np.ndar
     return inter / (area1 + area2 - inter + eps)
 
 
+def bbox_ioa(box1: np.ndarray, box2: np.ndarray, eps: float = 1e-7) -> np.ndarray:
+    """Intersection over box2's area, xyxy numpy (N, 4) x (M, 4) -> (N, M)."""
+    a1, a2 = box1[..., None, :2], box1[..., None, 2:4]  # (N, 1, 2)
+    b1, b2 = box2[None, :, :2], box2[None, :, 2:4]  # (1, M, 2)
+    inter = (np.minimum(a2, b2) - np.maximum(a1, b1)).clip(0).prod(-1)
+    return inter / ((b2 - b1).prod(-1) + eps)
+
+
+def bbox_iou(box1: torch.Tensor, box2: torch.Tensor, xywh: bool = True, CIoU: bool = False,
+             eps: float = 1e-7) -> torch.Tensor:
+    """Elementwise IoU or CIoU of broadcastable (..., 4) boxes, in the JAX package's operation order.
+
+    The CIoU aspect term's alpha is taken without gradient, as upstream torch does.
+    """
+    if xywh:
+        (x1, y1, w1, h1), (x2, y2, w2, h2) = box1.unbind(-1), box2.unbind(-1)
+        b1_x1, b1_x2 = x1 - w1 / 2, x1 + w1 / 2
+        b1_y1, b1_y2 = y1 - h1 / 2, y1 + h1 / 2
+        b2_x1, b2_x2 = x2 - w2 / 2, x2 + w2 / 2
+        b2_y1, b2_y2 = y2 - h2 / 2, y2 + h2 / 2
+    else:
+        b1_x1, b1_y1, b1_x2, b1_y2 = box1.unbind(-1)
+        b2_x1, b2_y1, b2_x2, b2_y2 = box2.unbind(-1)
+        w1, h1 = b1_x2 - b1_x1, b1_y2 - b1_y1 + eps
+        w2, h2 = b2_x2 - b2_x1, b2_y2 - b2_y1 + eps
+
+    inter = (torch.minimum(b1_x2, b2_x2) - torch.maximum(b1_x1, b2_x1)).clamp(min=0) * (
+        torch.minimum(b1_y2, b2_y2) - torch.maximum(b1_y1, b2_y1)).clamp(min=0)
+    union = w1 * h1 + w2 * h2 - inter + eps
+    iou = inter / union
+    if not CIoU:
+        return iou
+    cw = torch.maximum(b1_x2, b2_x2) - torch.minimum(b1_x1, b2_x1)
+    ch = torch.maximum(b1_y2, b2_y2) - torch.minimum(b1_y1, b2_y1)
+    c2 = cw**2 + ch**2 + eps
+    rho2 = ((b2_x1 + b2_x2 - b1_x1 - b1_x2) ** 2 + (b2_y1 + b2_y2 - b1_y1 - b1_y2) ** 2) / 4
+    v = (4 / math.pi**2) * (torch.atan(w2 / h2) - torch.atan(w1 / h1)) ** 2
+    with torch.no_grad():
+        alpha = v / (v - iou + (1 + eps))
+    return iou - (rho2 / c2 + v * alpha)
+
+
 # ---- anchors / distance-box conversion ----
 
 
@@ -170,3 +214,9 @@ def dist2bbox(distance: torch.Tensor, anchor_points: torch.Tensor, xywh: bool = 
     if xywh:
         return torch.cat([(x1y1 + x2y2) / 2, x2y2 - x1y1], -1)
     return torch.cat([x1y1, x2y2], -1)
+
+
+def bbox2dist(anchor_points: torch.Tensor, bbox: torch.Tensor, reg_max) -> torch.Tensor:
+    """xyxy boxes -> ltrb distances from the anchor points, clamped to [0, reg_max - 0.01]."""
+    x1y1, x2y2 = bbox[..., :2], bbox[..., 2:4]
+    return torch.cat([anchor_points - x1y1, x2y2 - anchor_points], -1).clamp(0, reg_max - 0.01)

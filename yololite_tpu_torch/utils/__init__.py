@@ -23,6 +23,7 @@ __all__ = (
     "yaml_load",
     "IterableSimpleNamespace",
     "increment_path",
+    "get_latest_run",
     "select_device",
 )
 
@@ -133,6 +134,12 @@ def increment_path(path, exist_ok=False, sep="", mkdir=False):
     if mkdir:
         path.mkdir(parents=True, exist_ok=True)
     return path
+
+
+def get_latest_run(search_dir="runs/detect"):
+    """The most recent 'last.npz' under search_dir by creation time (train10 after train9), or ""."""
+    runs = list(Path(search_dir).glob("*/weights/last.npz"))
+    return max(runs, key=lambda p: p.stat().st_ctime) if runs else ""
 
 
 def select_device(device=None):

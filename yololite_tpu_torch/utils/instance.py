@@ -1,11 +1,13 @@
 """Numpy box containers used by the data pipeline (port of yololite_tpu/utils/instance.py).
 
-The part the val transforms use: horizontal boxes, format conversion,
-(de)normalization, scaling and padding. Clipping, flips, indexing and
-concatenation come with the train augmentations (ROADMAP.md, Queue 1, item 6).
+Horizontal boxes with the geometry the val and train transforms use: format
+conversion, (de)normalization, scaling, padding, clipping, flips, indexing
+and concatenation.
 """
 
 from __future__ import annotations
+
+from typing import Sequence
 
 import numpy as np
 
@@ -40,6 +42,12 @@ class Bboxes:
         self.bboxes = func(self.bboxes)
         self.format = format
 
+    def areas(self) -> np.ndarray:
+        b = self.bboxes
+        if self.format == "xyxy":
+            return (b[:, 2] - b[:, 0]) * (b[:, 3] - b[:, 1])
+        return b[:, 2] * b[:, 3]
+
     def mul(self, scale):
         """Scale coords by (sx, sy, sx2, sy2) or a scalar."""
         if not isinstance(scale, (tuple, list)):
@@ -57,9 +65,22 @@ class Bboxes:
     def __len__(self):
         return len(self.bboxes)
 
+    @classmethod
+    def concatenate(cls, boxes_list: Sequence["Bboxes"], axis=0) -> "Bboxes":
+        if not boxes_list:
+            raise ValueError("nothing to concatenate")
+        fmt = boxes_list[0].format
+        for b in boxes_list:
+            b.convert(fmt)
+        return cls(np.concatenate([b.bboxes for b in boxes_list], axis=axis), fmt)
+
+    def __getitem__(self, index) -> "Bboxes":
+        b = self.bboxes[index]
+        return Bboxes(b if b.ndim == 2 else b[None], self.format)
+
 
 class Instances:
-    """Boxes + normalization flag, with the geometry ops the val transforms need."""
+    """Boxes + normalization flag, with the geometry ops the transforms need."""
 
     def __init__(self, bboxes: np.ndarray, bbox_format="xywh", normalized=True):
         self._bboxes = Bboxes(np.asarray(bboxes, dtype=np.float32).reshape(-1, 4), format=bbox_format)
@@ -68,6 +89,10 @@ class Instances:
     @property
     def bboxes(self):
         return self._bboxes.bboxes
+
+    @property
+    def bbox_areas(self):
+        return self._bboxes.areas()
 
     def convert_bbox(self, format):
         self._bboxes.convert(format)
@@ -81,6 +106,12 @@ class Instances:
         self._bboxes.mul((w, h, w, h))
         self.normalized = False
 
+    def normalize(self, w, h):
+        if self.normalized:
+            return
+        self._bboxes.mul((1 / w, 1 / h, 1 / w, 1 / h))
+        self.normalized = True
+
     def add_padding(self, padw, padh):
         if self.normalized:
             raise ValueError("denormalize before adding padding")
@@ -89,5 +120,59 @@ class Instances:
         else:  # xywh/ltwh: offset center/corner only
             self._bboxes.add((padw, padh, 0, 0))
 
+    def clip(self, w, h):
+        fmt = self._bboxes.format
+        self.convert_bbox("xyxy")
+        self.bboxes[:, [0, 2]] = self.bboxes[:, [0, 2]].clip(0, w)
+        self.bboxes[:, [1, 3]] = self.bboxes[:, [1, 3]].clip(0, h)
+        if fmt != "xyxy":
+            self.convert_bbox(fmt)
+
+    def flipud(self, h):
+        if self._bboxes.format == "xyxy":
+            y1 = self.bboxes[:, 1].copy()
+            y2 = self.bboxes[:, 3].copy()
+            self.bboxes[:, 1] = h - y2
+            self.bboxes[:, 3] = h - y1
+        else:
+            self.bboxes[:, 1] = h - self.bboxes[:, 1]
+
+    def fliplr(self, w):
+        if self._bboxes.format == "xyxy":
+            x1 = self.bboxes[:, 0].copy()
+            x2 = self.bboxes[:, 2].copy()
+            self.bboxes[:, 0] = w - x2
+            self.bboxes[:, 2] = w - x1
+        else:
+            self.bboxes[:, 0] = w - self.bboxes[:, 0]
+
+    def remove_zero_area_boxes(self) -> np.ndarray:
+        """Drop boxes of zero area (after clipping); returns the keep mask."""
+        good = self.bbox_areas > 0
+        if not good.all():
+            self._bboxes = self._bboxes[good]
+        return good
+
+    def update(self, bboxes):
+        self._bboxes = Bboxes(bboxes, format=self._bboxes.format)
+
     def __len__(self):
         return len(self._bboxes)
+
+    def __getitem__(self, index) -> "Instances":
+        b = self.bboxes[index]
+        return Instances(b if np.ndim(b) == 2 else b[None], bbox_format=self._bboxes.format,
+                         normalized=self.normalized)
+
+    @classmethod
+    def concatenate(cls, instances_list: Sequence["Instances"], axis=0) -> "Instances":
+        if not instances_list:
+            raise ValueError("nothing to concatenate")
+        norm = instances_list[0].normalized
+        fmt = instances_list[0]._bboxes.format
+        for ins in instances_list:
+            ins.convert_bbox(fmt)
+            if ins.normalized != norm:
+                raise ValueError("cannot concatenate normalized and pixel boxes")
+        cat = np.concatenate([ins.bboxes for ins in instances_list], axis=axis)
+        return cls(cat, bbox_format=fmt, normalized=norm)
