@@ -38,8 +38,23 @@ Phases, each of which exits non-zero on failure:
      one step's stages alone (forward, loss with TAL, backward, clip +
      optimizer + EMA) with its peak memory, the device's idle share over an
      epoch (torch.profiler), K5/K6 forward and backward and K7 at the train
-     step's shapes; checks one step on the card against the CPU at imgsz 160.
-The kernels line's launches count the predict, val and train runs together.
+     step's shapes; checks one step on the card against the CPU at imgsz 160;
+  6. serving: (a) writes two upstream-format .pt files from init(0) and
+     init(1) models (a plain one and a 2-member nn.ModuleList ensemble),
+     loads them through the stub unpickler (weights bit-equal), predicts 32
+     frames at 640, batch 32, conf 1e-7 with each, checks that K1 ran and
+     that its keep equals the plain keep on the inputs each run gave it;
+     (b) predict(int8=True) at 640, batch 1 and 32: K8 launches 76 times a
+     forward; ms per call and img/s beside bf16 predict; K8 held to its
+     plain version (within 1 int8 LSB or 1 bf16 ulp, with the share that
+     differs) and timed on every quantized conv of yolo11n at batch 32, with
+     each conv's bound and torch._int_mm on the 1x1 convs as a yardstick;
+     (c) export at 640, batch 8, fp32 and int8, reloaded and bit-equal to
+     the in-process graph; (d) InferencePipeline at batch 8, 640, 32
+     submissions: p50/p90/p99 ms, img/s, detections equal to the
+     predictor's infer; (e) embed on the card against the CPU, rtol 1e-3.
+The kernels line's launches count the runs of the main paths: predict, val,
+train and serving for K1, int8 predict for K8.
 Prints the card's name and power limit, a {"kernels": [...]} line, and last
 {"ok": true, "device": {...}}. Needs no network and no JAX.
 """
@@ -54,6 +69,7 @@ from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores, an FMA counted as 2 ops
+INT8_OPS_PER_S = 1979e12  # H100 SXM int8 tensor cores, dense, a multiply-add counted as 2 ops
 IOU_OPS = 14  # fp32 ops of one IoU test: 4 min/max, 2 sub, 2 clamp, 1 mul, 2 add/sub, 1 add of eps, 1 div, 1 compare
 AREA_OPS = 3  # fp32 ops of one box's area: 2 sub, 1 mul
 
@@ -752,6 +768,242 @@ def train_phase(card: str):
     return launches
 
 
+def int8_conv_bound_ms(x_shape, w_shape, out_shape, out_bytes: int, stride: int, groups: int):
+    """Least time of one K8 call on these shapes, and what bounds it ("bytes" or "operations").
+
+    Bytes: x and w read once (int8), scale and bias (fp32), the output written
+    once (int8 or bf16). Operations: 2 per multiply-add of the convolution, at
+    the card's int8 tensor-core rate.
+    """
+    b, cin, h, w = x_shape
+    cout, kh, kw, cin_g = w_shape
+    ho, wo = out_shape[2:]
+    by_bytes = (b * cin * h * w + cout * kh * kw * cin_g + 8 * cout + b * cout * ho * wo * out_bytes) / HBM_BYTES_PER_S
+    by_ops = 2 * b * cout * ho * wo * kh * kw * cin_g / INT8_OPS_PER_S
+    return max(by_bytes, by_ops) * 1e3, "bytes" if by_bytes >= by_ops else "operations"
+
+
+def serving_phase(card: str, frames):
+    """Phase 6: .pt and ensemble predict, int8 predict with K8, export, the pipeline and embed on the card.
+
+    Returns K1's launches on these main paths, K8's launches in the int8
+    predict runs, and K8's numbers for the kernels line.
+    """
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.nn as nn
+
+    from yololite_tpu_torch import YOLOLite
+    from yololite_tpu_torch.engine.predictor import DetectionPredictor, fp32_convs
+    from yololite_tpu_torch.models import modules as M
+    from yololite_tpu_torch.models.model import DetectionModel, EnsembleModel
+    from yololite_tpu_torch.ops import nms
+    from yololite_tpu_torch.ops.kernels import (greedy_nms_keep, greedy_nms_keep_plain, int8_conv, int8_conv_plain,
+                                                quantize_act)
+    from yololite_tpu_torch.ops.letterbox import preprocess_batch
+    from yololite_tpu_torch.runtime import InferencePipeline, export_predict, load_exported, predict_graph
+
+    tmp = tempfile.TemporaryDirectory()
+    root = Path(tmp.name)
+    k1 = 0
+    kw = dict(conf=1e-7, imgsz=640, batch=32, save=False, verbose=False)
+
+    # (a) .pt files through the stub unpickler: a plain model and a 2-member ensemble
+    m0, m1 = DetectionModel("yolo11n.yaml").init(0), DetectionModel("yolo11n.yaml").init(1)
+    plain_pt, ens_pt = root / "yolo11n.pt", root / "pair.pt"
+    torch.save({"model": m0, "train_args": {"imgsz": 640}, "epoch": -1}, str(plain_pt))
+    torch.save({"model": nn.ModuleList([m0, m1]), "train_args": {"imgsz": 640}}, str(ens_pt))
+    exact_keep = nms._exact_keep
+    for name, path in (("plain .pt", plain_pt), ("2-member ensemble .pt", ens_pt)):
+        model = YOLOLite(str(path))
+        members = model.model.members if isinstance(model.model, EnsembleModel) else [model.model]
+        for got, want in zip(members, (m0, m1)):
+            if not all(torch.equal(a.cpu(), b) for a, b in zip(got.state_dict().values(), want.state_dict().values())):
+                raise AssertionError(f"{name}: loaded weights differ from the saved ones")
+        model.predict(frames, **kw)  # set up and warm up
+        inputs = []
+        nms._exact_keep = lambda b, v, t: inputs.append((b.clone(), v.clone(), t)) or exact_keep(b, v, t)
+        greedy_nms_keep.launches = 0
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            reps = 3
+            for _ in range(reps):
+                results = model.predict(frames, **kw)
+            torch.cuda.synchronize()
+            dt = (time.perf_counter() - t0) / reps
+        finally:
+            nms._exact_keep = exact_keep
+        n = greedy_nms_keep.launches
+        if n != reps or len(inputs) != reps:
+            raise AssertionError(f"{name}: {n} K1 launches and {len(inputs)} exact keeps in {reps} predict calls")
+        k1 += n
+        boxes, valid, thr = inputs[-1]
+        boxes = boxes.float().contiguous()
+        if not torch.equal(greedy_nms_keep(boxes, valid, thr), greedy_nms_keep_plain(boxes, valid, thr)):
+            raise AssertionError(f"{name}: K1's keep differs from the plain keep on the predict run's inputs")
+        if len(results) != len(frames) or not all(len(r) and np.isfinite(r.boxes.data).all() for r in results):
+            raise AssertionError(f"{name}: predict gave no detections or non-finite ones")
+        log(f"serving (a): {name} (yolo11n, init({'0' if name.startswith('plain') else '0, 1'})) loads bit-equal, "
+            f"predicts batch 32 at 640: {dt * 1e3:.2f} ms/batch, {32 / dt:.1f} img/s, "
+            f"{sum(len(r) for r in results) / 32:.1f} detections/img; K1 {n} launches in {reps} calls, keep == plain "
+            f"on B={tuple(valid.shape)[0]} K={tuple(valid.shape)[1]}, on {card}")
+
+    # (b) int8 predict on the plain .pt model, beside bf16, at batch 1 and 32
+    model = YOLOLite(str(plain_pt))
+    k8_launches = 0
+    for bs in (1, 32):
+        src = frames[:bs]
+        row = {}
+        for mode, extra in (("bf16", {"half": True}), ("int8", {"int8": True})):
+            kwb = dict(kw, batch=bs, **extra)
+            model.predict(src, **kwb)  # set up, warm up (int8: calibrate on this batch)
+            greedy_nms_keep.launches = int8_conv.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            reps = 5
+            for _ in range(reps):
+                results = model.predict(src, **kwb)
+            torch.cuda.synchronize()
+            dt = (time.perf_counter() - t0) / reps
+            if greedy_nms_keep.launches != reps:
+                raise AssertionError(f"{mode} predict: {greedy_nms_keep.launches} K1 launches in {reps} calls")
+            k1 += greedy_nms_keep.launches
+            if mode == "int8":
+                if int8_conv.launches != 76 * reps:  # yolo11n: 76 quantized convs a forward
+                    raise AssertionError(f"int8 predict: {int8_conv.launches} K8 launches in {reps} calls")
+                k8_launches += int8_conv.launches
+            elif int8_conv.launches:
+                raise AssertionError("bf16 predict launched K8")
+            if not all(len(r) and np.isfinite(r.boxes.data).all() for r in results):
+                raise AssertionError(f"{mode} predict at batch {bs}: no detections or non-finite ones")
+            row[mode] = (dt, sum(len(r) for r in results) / bs)
+        log(f"serving (b): yolo11n predict at 640, batch {bs}: int8 {row['int8'][0] * 1e3:.2f} ms/call "
+            f"({bs / row['int8'][0]:.1f} img/s, {row['int8'][1]:.1f} detections/img, K8 76 launches a call) vs bf16 "
+            f"{row['bf16'][0] * 1e3:.2f} ms/call ({bs / row['bf16'][0]:.1f} img/s, {row['bf16'][1]:.1f} "
+            f"detections/img), s_act {model.predictor.scales['s_act']:.6g}, on {card}")
+
+    # K8 against its plain version, and timed, on every quantized conv of one int8 forward at batch 32
+    pred = model.predictor
+    qnet = pred.net
+    calls = []
+    hooks = [m.register_forward_hook(
+        lambda mod, i, y: calls.append((mod, i[0] if i[0].dtype == torch.int8 else quantize_act(i[0], mod.sin), i[1],
+                                        y)))
+        for m in qnet.modules() if isinstance(m, M.QConv)]
+    try:
+        raw = torch.from_numpy(np.stack(frames)).cuda().flip(-1)
+        greedy_nms_keep.launches = 0
+        pred.infer_uint8(raw, 640)
+        k1 += greedy_nms_keep.launches
+    finally:
+        for h in hooks:
+            h.remove()
+    if len(calls) != 76:
+        raise AssertionError(f"{len(calls)} quantized conv calls in one int8 forward, not 76")
+    tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bytes": 0.0, "ops": 0.0, "ms_1x1": 0.0, "int_mm_1x1": 0.0}
+    worst_lsb, worst_ulp, differ, total = 0, 0.0, 0, 0
+    with torch.inference_mode():
+        for mod, x, act, y in calls:
+            args = (x, mod.weight, mod.scale, mod.bias, mod.stride, mod.padding, mod.groups, act, mod.sout or 0.0)
+            want = int8_conv_plain(*args)
+            if y.dtype == torch.int8:
+                d = (y.int() - want.int()).abs()
+                worst_lsb = max(worst_lsb, int(d.max()))
+            else:
+                a, b = y.float(), want.float()
+                ulp = torch.exp2(torch.floor(torch.log2(torch.maximum(a.abs(), b.abs()).clamp_min(2.0 ** -126))) - 7)
+                d = (a - b).abs() / ulp
+                worst_ulp = max(worst_ulp, float(d.max()))
+            differ += int((d > 0).sum())
+            total += d.numel()
+            ms = cuda_ms(lambda: int8_conv(*args), 10)
+            plain = cuda_ms(lambda: int8_conv_plain(*args), 2, warmup=1)
+            bound, by = int8_conv_bound_ms(tuple(x.shape), tuple(mod.weight.shape), tuple(y.shape),
+                                           y.element_size(), mod.stride, mod.groups)
+            tot["ms"] += ms
+            tot["plain_ms"] += plain
+            tot["bound_ms"] += bound
+            tot["bytes" if by == "bytes" else "ops"] += bound
+            cout, kh, kw_, cin_g = mod.weight.shape
+            if kh == kw_ == 1 and mod.stride == 1 and mod.groups == 1:  # torch._int_mm on the same 1x1 product
+                a2 = x.permute(0, 2, 3, 1).reshape(-1, cin_g)  # channels-last: a view
+                b2 = mod.weight.reshape(cout, cin_g).t()
+                tot["int_mm_1x1"] += cuda_ms(lambda: torch._int_mm(a2, b2), 10)
+                tot["ms_1x1"] += ms
+    if worst_lsb > 1 or worst_ulp > 1:
+        raise AssertionError(f"K8 vs its plain version: worst {worst_lsb} int8 LSB, {worst_ulp} bf16 ulp")
+    k8 = {"max_abs_err": float(max(worst_lsb, worst_ulp)), "ms": tot["ms"], "plain_ms": tot["plain_ms"],
+          "bound_ms": tot["bound_ms"], "bound_by": "bytes" if tot["bytes"] >= tot["ops"] else "operations",
+          "share_differing": differ / total, "ms_1x1": tot["ms_1x1"], "int_mm_1x1_ms": tot["int_mm_1x1"]}
+    log(f"serving (b): K8 vs its plain version on the 76 quantized convs of one yolo11n int8 forward at 640, batch "
+        f"32: worst {worst_lsb} int8 LSB and {worst_ulp} bf16 ulp, {differ} of {total} outputs differ "
+        f"({differ / total:.3g}); summed over the 76 calls: K8 {tot['ms']:.3f} ms, plain {tot['plain_ms']:.3f} ms, "
+        f"bound {tot['bound_ms']:.4f} ms ({tot['bytes']:.4f} ms of it bytes-bound convs); on the 1x1 convs K8 "
+        f"{tot['ms_1x1']:.3f} ms vs torch._int_mm (int32 out, no epilogue) {tot['int_mm_1x1']:.3f} ms, on {card}")
+
+    # (c) export at 640, batch 8, fp32 and int8: reloaded, bit-equal to the in-process graph
+    im8 = torch.from_numpy(preprocess_batch(frames[:8], imgsz=640)).cuda()
+    for mode, ekw in (("fp32", {"half": False}), ("int8", {"half": True, "int8_calib": [im8.cpu().numpy()]})):
+        t0 = time.perf_counter()
+        path = export_predict(model.model, root / f"n_{mode}.pt2", imgsz=640, batch=8, conf=1e-7, device="cuda",
+                              **ekw)
+        t_export = time.perf_counter() - t0
+        call, meta = load_exported(path)
+        graph = predict_graph(model.model, conf=1e-7, device="cuda", **ekw)
+        greedy_nms_keep.launches = int8_conv.launches = 0
+        with torch.inference_mode(), fp32_convs(im8.device):
+            ref = graph(im8)
+        out = call(im8)
+        torch.cuda.synchronize()
+        want_k8 = 2 * 76 if mode == "int8" else 0
+        if greedy_nms_keep.launches != 2 or int8_conv.launches != want_k8:
+            raise AssertionError(f"export {mode}: {greedy_nms_keep.launches} K1 and {int8_conv.launches} K8 launches "
+                                 "in the in-process and the exported run")
+        if not torch.equal(out, ref) or not int((ref[..., 4] > 0).sum()):
+            raise AssertionError(f"export {mode}: the reloaded graph differs from the in-process one, or detects nothing")
+        log(f"serving (c): export {mode} at 640, batch 8: {t_export:.1f} s to export, {path.stat().st_size / 1e6:.1f} "
+            f"MB; reloaded output bit-equal to the in-process graph ({int((ref[..., 4] > 0).sum())} detections), "
+            f"K1{' and K8' if want_k8 else ''} as ops, on {card}")
+
+    # (d) InferencePipeline at batch 8, 640: 32 submissions
+    pred = DetectionPredictor(overrides={"conf": 1e-7, "batch": 8, "imgsz": 640, "mode": "predict", "verbose": False,
+                                         "save": False})
+    pred.setup_model(model.model)
+    pipe = InferencePipeline(pred, imgsz=640).start()
+    subs = [frames[(8 * i) % 32:(8 * i) % 32 + 8] for i in range(32)]
+    greedy_nms_keep.launches = 0
+    t0 = time.perf_counter()
+    for b in subs:
+        pipe.submit(b)
+    pipe.close()
+    got = list(pipe.results())
+    wall = time.perf_counter() - t0
+    k1 += greedy_nms_keep.launches
+    if len(got) != 32 or greedy_nms_keep.launches != 32:
+        raise AssertionError(f"pipeline: {len(got)} results, {greedy_nms_keep.launches} K1 launches for 32 batches")
+    want = pred.infer(torch.from_numpy(preprocess_batch(subs[0], imgsz=640)).cuda()).cpu().numpy()
+    if not np.array_equal(got[0][1], want) or not (want[..., 4] > 0).any():
+        raise AssertionError("pipeline: detections differ from the predictor's infer on the same batch")
+    sm = pipe.summary(wall)
+    log(f"serving (d): InferencePipeline yolo11n fp32 at 640, batch 8, 32 submissions: p50 {sm['p50_ms']:.2f} ms, "
+        f"p90 {sm['p90_ms']:.2f} ms, p99 {sm['p99_ms']:.2f} ms (submit to detections on the host), "
+        f"{sm['throughput_img_s']:.1f} img/s; detections == predictor.infer's, on {card}")
+
+    # (e) embed on the card against the CPU
+    on_card = YOLOLite(str(plain_pt)).embed(frames[:2], layers=[4, 6, 10], imgsz=640)
+    on_cpu = YOLOLite(str(plain_pt), device="cpu").embed(frames[:2], layers=[4, 6, 10], imgsz=640)
+    for a, b in zip(on_card, on_cpu):
+        np.testing.assert_allclose(a, b, rtol=1e-3, atol=1e-6)
+    rel = max(float(np.abs(a - b).max() / np.abs(b).max()) for a, b in zip(on_card, on_cpu))
+    log(f"serving (e): embed of rows 4, 6, 10 at 640 on the card == the CPU's within rtol 1e-3 (largest difference "
+        f"{rel:.2e} of the largest value), shape {on_card[0].shape}, on {card}")
+    tmp.cleanup()
+    return k1, k8_launches, k8
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -912,6 +1164,10 @@ def main() -> int:
     # ---- 5. train: yolo11n train at 640 through the facade ----
     launches += train_phase(card)
 
+    # ---- 6. serving: .pt, ensembles, int8 with K8, export, the pipeline, embed ----
+    serving_k1, k8_launches, k8 = serving_phase(card, frames)
+    launches += serving_k1
+
     # ---- kernels line: timed on the main path's own inputs (fp32, batch 32; batch 1 logged) ----
     for config in ((False, 1), (False, 32)):
         shifted, valid, thr = main_inputs[config]
@@ -953,7 +1209,17 @@ def main() -> int:
         "shape": [b, k],
         **val_kernel,  # the same kernel on val's K = 1024 block inputs
     }
-    log(json.dumps({"kernels": [entry]}))
+    k8_entry = {
+        "name": "int8_conv",
+        "route": "cuda",
+        "source": "yololite_tpu_torch/csrc/int8_conv.cu",
+        "replaces": "yololite_tpu/models/modules.py:176",  # Conv's int8 branch: an XLA op, not a Pallas kernel
+        "launches": k8_launches,
+        "library_ms": None,  # no PyTorch call computes an int8 convolution with this epilogue (int_mm_1x1_ms below)
+        "shape": "the 76 quantized convs of one yolo11n forward at 640, batch 32, summed",
+        **k8,
+    }
+    log(json.dumps({"kernels": [entry, k8_entry]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0
 

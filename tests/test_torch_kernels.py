@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from yololite_tpu_torch.ops.kernels import greedy_nms_keep, greedy_nms_keep_plain
+from yololite_tpu_torch.ops.kernels import greedy_nms_keep, greedy_nms_keep_plain, int8_conv, int8_conv_plain
 
 pytestmark = pytest.mark.cuda
 
@@ -122,3 +122,67 @@ def test_val_nms_through_the_kernel_equals_the_plain_keep(card, half, monkeypatc
         with_plain = nms.nms_from_feats(feats, model.strides, model.nc, model.reg_max, **kw)
     assert int((with_kernel[..., 4] > 0).sum()) > 0
     assert torch.equal(with_kernel, with_plain)
+
+
+def test_keep_op_equals_the_direct_launch(card):
+    """The K1 op through torch.library (torch.ops) equals the wrapper's launch and counts one launch."""
+    boxes, valid = _scene(np.random.default_rng(5), 16, 512, False)
+    bx, v = torch.from_numpy(boxes).to(card), torch.from_numpy(valid).to(card)
+    before = greedy_nms_keep.launches
+    via_op = torch.ops.yololite_tpu_torch.greedy_nms_keep(bx, v, 0.45)
+    direct = greedy_nms_keep(bx, v, 0.45)
+    torch.cuda.synchronize()
+    assert greedy_nms_keep.launches == before + 2
+    assert torch.equal(via_op, direct) and torch.equal(direct, greedy_nms_keep_plain(bx, v, 0.45))
+
+
+# (name, batch, Cin, H, W, Cout, k, stride, groups, act, sout): yolo11n's kinds of quantized conv
+K8_CASES = [
+    ("stem", 1, 3, 64, 64, 16, 3, 2, 1, 1, 0.05),
+    ("1x1", 32, 64, 20, 20, 64, 1, 1, 1, 1, 0.05),
+    ("3x3-s2", 1, 64, 40, 40, 128, 3, 2, 1, 1, 0.05),
+    ("dwconv", 32, 80, 20, 20, 80, 3, 1, 80, 1, 0.0),
+    ("odd-hw", 2, 32, 13, 9, 48, 3, 1, 1, 1, 0.05),
+    ("bf16-out", 32, 128, 10, 10, 64, 3, 1, 1, 1, 0.0),
+    ("identity", 2, 16, 8, 8, 24, 1, 1, 1, 0, 0.05),
+]
+
+
+@pytest.mark.parametrize("case", K8_CASES, ids=[c[0] for c in K8_CASES])
+def test_int8_conv_kernel_matches_plain(card, case):
+    """K8 against its plain version on the same int8 inputs: int8 within 1 LSB, bf16 within 1 ulp; one launch."""
+    _, b, cin, h, w, cout, k, stride, groups, act, sout = case
+    rng = np.random.default_rng(cin + h + cout)
+    x = torch.from_numpy(rng.integers(-127, 128, (b, cin, h, w)).astype(np.int8)).to(card)
+    wq = torch.from_numpy(rng.integers(-127, 128, (cout, k, k, cin // groups)).astype(np.int8)).to(card)
+    scale = torch.from_numpy(rng.uniform(2e-6, 2e-5, cout).astype(np.float32)).to(card)
+    bias = torch.from_numpy(rng.normal(0, 1, cout).astype(np.float32)).to(card)
+    args = (x, wq, scale, bias, stride, k // 2, groups, act, sout)
+    before = int8_conv.launches
+    got = int8_conv(*args)
+    torch.cuda.synchronize()
+    assert int8_conv.launches == before + 1
+    want = int8_conv_plain(x.contiguous(memory_format=torch.channels_last), *args[1:])
+    assert got.shape == want.shape and got.dtype == want.dtype
+    if sout > 0:
+        assert int((got.int() - want.int()).abs().max()) <= 1
+        assert 0 < int((want != 0).sum()) and int((want.abs() == 127).sum()) < want.numel()
+    else:
+        a, b_ = got.float(), want.float()
+        ulp = torch.exp2(torch.floor(torch.log2(torch.maximum(a.abs(), b_.abs()).clamp_min(2.0 ** -126))) - 7)
+        assert float(((a - b_).abs() / ulp).max()) <= 1
+
+
+def test_int8_predict_launches_the_kernel(card):
+    """predict(int8=True) on the card runs every quantized conv through K8 (76 a yolo11n forward)."""
+    from yololite_tpu_torch import YOLOLite
+
+    rng = np.random.default_rng(0)
+    src = [rng.integers(0, 256, (120, 160, 3), np.uint8) for _ in range(2)]
+    model = YOLOLite("yolo11n.yaml")
+    kw = dict(conf=1e-7, imgsz=160, batch=2, int8=True, save=False, verbose=False)
+    model.predict(src, **kw)
+    before = int8_conv.launches
+    res = model.predict(src, **kw)
+    assert int8_conv.launches - before == 76
+    assert all(len(r) > 0 and np.isfinite(r.boxes.data).all() for r in res)

@@ -183,19 +183,23 @@ def test_gflops_matches_jax():
     assert DetectionModel("yolo11n.yaml").gflops(640) == pytest.approx(jm.gflops(p, s, 640), rel=1e-9)
 
 
-def test_unported_pieces_raise():
+def test_unported_pieces_raise(tmp_path):
+    """Only the extended block zoo still raises; .pt loading, export and int8 serving run."""
     from yololite_tpu_torch import YOLOLite
+    from yololite_tpu_torch.models.quant import quantized_paths
 
     spec = {"nc": 2, "backbone": [[-1, 1, "Focus", [16, 3]]], "head": [[[0], 1, "Detect", ["nc"]]]}
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         DetectionModel(spec)
     m = YOLOLite("yolo11n.yaml", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        m.export()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        YOLOLite("yolo11n.pt", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        m.predict([np.zeros((64, 64, 3), np.uint8)], int8=True, save=False)
+    pt = tmp_path / "yolo11n.pt"
+    torch.save({"model": m.model, "train_args": {"imgsz": 64}}, str(pt))
+    loaded = YOLOLite(str(pt), device="cpu")
+    assert all(torch.equal(a, b) for a, b in zip(m.model.state_dict().values(), loaded.model.state_dict().values()))
+    path = m.export(tmp_path / "n.pt2", imgsz=64, batch=1, half=False)
+    assert path.exists() and (tmp_path / "n.pt2.json").exists()
+    res = m.predict([np.zeros((64, 64, 3), np.uint8)], int8=True, imgsz=64, conf=1e-7, save=False, verbose=False)
+    assert len(res) == 1 and m.predictor._quantized and len(quantized_paths(m.predictor.net)) == 76
 
 
 def test_no_jax_imports_in_the_port():

@@ -428,8 +428,8 @@ def test_facade_save_and_load_roundtrip(tmp_path):
     jm = JaxYOLOLite(str(path))
     _assert_trees_close(_np(jm.params), ckpt.jax_trees(m.model)[0], 0, 0, "params")
     _assert_trees_close(_np(jm.state), ckpt.jax_trees(m.model)[1], 0, 0, "BN statistics")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ckpt.attempt_load_one_weight("yolo11n.pt")
+    with pytest.raises(FileNotFoundError):
+        ckpt.attempt_load_one_weight(str(tmp_path / "missing.pt"))
 
 
 # ---------------- smaller units ----------------

@@ -1,9 +1,10 @@
-"""YOLOLite facade (port of yololite_tpu/engine/model.py): build or load, predict, val, train, save, info.
+"""YOLOLite facade (port of yololite_tpu/engine/model.py): build or load, predict, embed, val, train, save,
+export, info.
 
-`YOLOLite("yolo11n.yaml")` builds the model with `init(0)` on the card, and
-`YOLOLite("last.npz")` loads a native checkpoint of either package; pass
-device="cpu" to run on the CPU. Export and loading .pt checkpoints raise
-NotImplementedError naming their place in ROADMAP.md.
+`YOLOLite("yolo11n.yaml")` builds the model with `init(0)` on the card,
+`YOLOLite("last.npz")` loads a native checkpoint of either package and
+`YOLOLite("yolo11n.pt")` an upstream-format .pt (a pickled multi-member
+Ensemble loads as an EnsembleModel); pass device="cpu" to run on the CPU.
 """
 
 from __future__ import annotations
@@ -11,20 +12,19 @@ from __future__ import annotations
 from pathlib import Path
 from typing import Dict, Union
 
+import numpy as np
+import torch
+
 from yololite_tpu_torch.cfg import DEFAULT_CFG_DICT, get_cfg
 from yololite_tpu_torch.models import checkpoint as ckpt
 from yololite_tpu_torch.models.model import DetectionModel
 from yololite_tpu_torch.utils import LOGGER, select_device
 
 
-def _not_ported(what: str, where: str):
-    return NotImplementedError(f"{what} is not ported to yololite_tpu_torch yet (ROADMAP.md, Queue 1, {where})")
-
-
 class YOLOLite:
-    """Facade: `YOLOLite('yolo11n.yaml')(images)` -> list of Results."""
+    """Facade: `YOLOLite('yolo11n.pt')(images)` -> list of Results."""
 
-    def __init__(self, model: Union[str, Path, Dict] = "yolo11n.yaml", task: str = "detect", verbose: bool = False,
+    def __init__(self, model: Union[str, Path, Dict] = "yolo11n.pt", task: str = "detect", verbose: bool = False,
                  device=None):
         if task != "detect":
             raise ValueError(f"only detection is supported, got task={task!r}")
@@ -47,11 +47,24 @@ class YOLOLite:
         elif model.endswith(".npz"):
             self._load_native(model)
         else:
-            raise _not_ported(f"loading the checkpoint '{model}'", "'The rest' (models/checkpoint.py)")
+            self._load(model)
 
     def _new(self, cfg, verbose: bool = False):
         self.model = DetectionModel(cfg, verbose=verbose).init(0).to(self.device)
         self.overrides["task"] = self.task
+
+    def _load(self, weights: str):
+        """An upstream-format .pt checkpoint: its (EMA) weights, names and train args."""
+        if not Path(weights).exists():
+            raise FileNotFoundError(f"checkpoint '{weights}' not found. Pass a yolo11[nslmx].yaml to build from "
+                                    "scratch, or a .pt/.npz checkpoint path.")
+        if not weights.endswith(".pt"):
+            raise ValueError(f"unsupported checkpoint format: {weights}")
+        model, meta = ckpt.load_pt(weights)
+        self.model = model.to(self.device)
+        self.ckpt = meta
+        self.overrides = {k: v for k, v in (meta.get("args") or {}).items() if k in DEFAULT_CFG_DICT}
+        self.overrides.update({"model": weights, "task": self.task})
 
     def _load_native(self, path: str):
         """The EMA weights (and BN statistics) of a native .npz, with its names and train args."""
@@ -61,6 +74,7 @@ class YOLOLite:
         self.overrides = {k: v for k, v in (meta.get("args") or {}).items() if k in DEFAULT_CFG_DICT}
         self.overrides.update({"model": path, "task": self.task})
         self.predictor = None
+
     @property
     def names(self):
         return self.model.names
@@ -77,7 +91,7 @@ class YOLOLite:
 
         # NMS/forward settings are fixed when the predictor is set up; rebuild when they change
         sig = tuple(args.get(k) if not isinstance(args.get(k), list) else tuple(args.get(k))
-                    for k in ("conf", "iou", "max_det", "agnostic_nms", "augment", "half", "classes"))
+                    for k in ("conf", "iou", "max_det", "agnostic_nms", "augment", "half", "classes", "int8"))
         if self.predictor is None or predictor is not None or getattr(self.predictor, "_sig", None) != sig:
             self.predictor = (predictor or DetectionPredictor)(overrides=args, device=self.device)
             self.predictor.setup_model(self.model)
@@ -85,6 +99,35 @@ class YOLOLite:
         else:
             self.predictor.args = get_cfg(self.predictor.args, kwargs)
         return self.predictor(source=source, stream=stream)
+
+    @torch.no_grad()
+    def embed(self, source, layers=None, imgsz: int = 640):
+        """Mean-pooled feature embeddings of the given rows (default: the last saved row).
+
+        One (n, C) array per batch that the source's loader yields (a list of
+        arrays is one batch, files come one at a time). The model runs as it
+        is held (unfused, eval mode, TF32 off) on the host-letterboxed images.
+        """
+        from yololite_tpu_torch.data.build import load_inference_source
+        from yololite_tpu_torch.engine.predictor import fp32_convs
+        from yololite_tpu_torch.ops.letterbox import preprocess_batch
+
+        layers = layers or [max(self.model.save)]
+        dataset = load_inference_source(source, batch=1)
+        was = self.model.training
+        self.model.eval()
+        out = []
+        try:
+            for _, im0s, _ in dataset:
+                im = torch.from_numpy(preprocess_batch(im0s, imgsz=imgsz)).to(self.device)
+                features: Dict[int, torch.Tensor] = {}
+                with fp32_convs(self.device):
+                    self.model(im.permute(0, 3, 1, 2), capture=layers, features=features)
+                pooled = [features[i].float().mean((2, 3)).cpu().numpy() for i in sorted(features)]
+                out.append(np.concatenate(pooled, axis=-1))
+        finally:
+            self.model.train(was)
+        return out
 
     def info(self, imgsz: int = 640):
         n = self.model.num_params()
@@ -130,5 +173,14 @@ class YOLOLite:
         ckpt.save_native(path, params, state, meta)
         return path
 
-    def export(self, *args, **kwargs):
-        raise _not_ported("export", "'The rest' (runtime/export.py)")
+    def export(self, path: Union[str, Path] = None, imgsz: int = 640, batch: int = 1, half: bool = True, **kwargs):
+        """Export the fused predict graph (forward + decode + NMS, weights inside) with torch.export.
+
+        See runtime/export.py for the input and output contract; reload with
+        `yololite_tpu_torch.runtime.load_exported(path)`.
+        """
+        from yololite_tpu_torch.runtime.export import export_predict
+
+        if path is None:
+            path = Path(self.ckpt_path or "yolo11n").with_suffix(".pt2").name
+        return export_predict(self.model, path, imgsz=imgsz, batch=batch, half=half, device=self.device, **kwargs)

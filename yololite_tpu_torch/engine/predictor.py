@@ -9,6 +9,11 @@ batch size so every batch has the same shape.
 
 Images stay in the JAX package's NHWC layout up to the model, which takes
 NCHW; the Detect maps go back to NHWC for the decode and NMS ops.
+
+An EnsembleModel (a multi-member .pt) decodes every member and runs one NMS
+over the concatenated candidates. int8=True quantizes the net on the first
+real batch (models/quant.py; a tensor source calibrates on itself) and then
+runs its quantized convs through K8; an ensemble warns and stays float.
 """
 
 from __future__ import annotations
@@ -87,13 +92,15 @@ class DetectionPredictor:
     # ---- setup ----
 
     def setup_model(self, model, half: Optional[bool] = None, fuse: bool = True):
-        """Bind a DetectionModel: a fused (and, with half, bf16) copy on the device, plus the NMS settings."""
-        if bool(self.args.int8):
-            raise NotImplementedError("int8 serving is not ported to yololite_tpu_torch yet (ROADMAP.md, Queue 1, 'The rest')")
+        """Bind a DetectionModel or EnsembleModel: a fused (and, with half, bf16) copy on the device, plus the NMS settings."""
+        from yololite_tpu_torch.models.model import EnsembleModel
+
         self.model = model
+        self.is_ensemble = isinstance(model, EnsembleModel)
         self.half = bool(self.args.half if half is None else half)
         self.dtype = torch.bfloat16 if self.half else torch.float32
         self.net = inference_net(model, self.device, self.half, fuse)
+        self._quantized = False
 
         self.conf, self.iou = float(self.args.conf), float(self.args.iou)
         self.max_det = int(self.args.max_det)
@@ -105,7 +112,7 @@ class DetectionPredictor:
             cm[np.asarray(self.args.classes, int)] = True
             self.class_mask = torch.from_numpy(cm).to(self.device)
         # NMS-free end2end heads: inference decodes the one2one maps and takes a plain top-k
-        self.end2end = bool(getattr(model.detect, "end2end", False))
+        self.end2end = not self.is_ensemble and bool(getattr(model.detect, "end2end", False))
         # top-K candidate pool: 256 at the 0.25 default, 512 when conf is lowered (more
         # candidates survive the gate), and never below the user's max_det
         self.pred_max_cand = max(256 if self.conf >= 0.25 else 512, self.max_det)
@@ -114,6 +121,8 @@ class DetectionPredictor:
         return forward_nhwc(self.net, x)
 
     def _forward_decode(self, x: torch.Tensor):
+        if self.is_ensemble:  # members' decoded outputs concatenate along the anchors
+            return self.net.decode_concat(x, half=self.half)
         feats = self._forward(x)
         if isinstance(feats, dict):
             feats = feats["one2many"]
@@ -138,8 +147,13 @@ class DetectionPredictor:
         return torch.cat([o[0] for o in outs], 1), torch.cat([o[1] for o in outs], 1)
 
     def _single_label(self, x: torch.Tensor) -> torch.Tensor:
-        """Non-TTA predict graph: select-first NMS over the raw maps."""
+        """Non-TTA predict graph: select-first NMS over the raw maps (an ensemble: decode-all concat, then NMS)."""
         m = self.model
+        if self.is_ensemble:
+            boxes, scores = self.net.decode_concat(x, half=self.half)
+            return non_max_suppression(boxes, scores, conf_thres=self.conf, iou_thres=self.iou, max_det=self.max_det,
+                                       max_cand=512, multi_label=False, agnostic=self.agnostic,
+                                       class_mask=self.class_mask)
         feats = self._forward(x)
         if self.end2end:
             return postprocess_end2end(feats["one2one"], m.strides, m.nc, m.reg_max,
@@ -177,6 +191,20 @@ class DetectionPredictor:
             source, batch=self.args.batch, vid_stride=self.args.vid_stride, buffer=self.args.stream_buffer
         )
 
+    def _maybe_quantize(self, calib):
+        """int8 serving: on the first real batch, quantize the net with `calib()` (that batch as NHWC floats in
+        [0, 1]) for the activation scale; an ensemble warns once and stays float."""
+        if not bool(self.args.int8) or self._quantized:
+            return
+        self._quantized = True
+        if self.is_ensemble:
+            LOGGER.warning("int8 serving is not supported for ensembles; running bf16/fp32")
+            return
+        from yololite_tpu_torch.models.quant import quantize_model
+
+        self.net, self.scales = quantize_model(self.net, [calib()], self.device)
+        LOGGER.info("int8 serving: weights quantized (per-channel), activations calibrated on the first batch")
+
     def warmup(self, batch: int):
         self.infer(torch.zeros((batch, self.imgsz[0], self.imgsz[1], 3), device=self.device))
         self.done_warmup = True
@@ -213,6 +241,9 @@ class DetectionPredictor:
             is_tensor = getattr(getattr(self.dataset, "source_type", None), "tensor", False)
             for paths, im0s, infos in Prefetcher(self.dataset, depth=2):
                 n = len(im0s)
+                # a tensor source calibrates on itself, frames on their host letterbox
+                self._maybe_quantize(lambda: np.asarray(im0s, np.float32) if is_tensor
+                                     else preprocess_batch(im0s, imgsz=self.imgsz[0]))
                 if is_tensor:  # pre-normalized NHWC float batch: no letterbox needed
                     im = np.asarray(im0s, np.float32)
                     im0s = convert_batch2numpy(im)  # BGR uint8 for Results

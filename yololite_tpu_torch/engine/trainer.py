@@ -142,10 +142,12 @@ class DetectionTrainer:
             cfg = self.args.model or "yolo11n.yaml"
             if self._resume_blob is not None:  # the resumed checkpoint's own spec
                 cfg = self._resume_blob[2].get("cfg", cfg)
-            if str(cfg).endswith(".pt"):
-                raise NotImplementedError(f"training from the checkpoint '{cfg}' is not ported to yololite_tpu_torch "
-                                          "yet (ROADMAP.md, Queue 1, 'The rest' (models/checkpoint.py))")
-            self.model = DetectionModel(cfg, nc=self.data["nc"]).init(self.args.seed)
+            if str(cfg).endswith(".pt"):  # the checkpoint's weights, the class head by intersect transfer
+                from yololite_tpu_torch.models.checkpoint import load_pt
+
+                self.model, _ = load_pt(cfg, nc=self.data["nc"])
+            else:
+                self.model = DetectionModel(cfg, nc=self.data["nc"]).init(self.args.seed)
         if self.model.nc != self.data["nc"]:
             # a new head for the dataset's class count, from the model's own spec; the other rows keep their weights
             model2 = DetectionModel(dict(self.model.yaml), nc=self.data["nc"]).init(self.args.seed)

@@ -259,3 +259,42 @@ class DetectionModel(nn.Module):
             meta(x)
         return counter.get_total_flops() / 1e9
 
+
+class EnsembleModel(nn.Module):
+    """Multi-model NMS ensemble (port of yololite_tpu/models/model.py:411 EnsembleModel).
+
+    Members run on the same input; their decoded (boxes, scores) concatenate
+    along the anchor axis before one NMS. The JAX package keys the members'
+    weight trees "m0", "m1", ...; here they are `members.0`, `members.1`, ...
+    """
+
+    def __init__(self, members: Sequence[DetectionModel]):
+        super().__init__()
+        if not members:
+            raise ValueError("EnsembleModel needs at least one member")
+        ncs = {m.nc for m in members}
+        if len(ncs) != 1:
+            raise ValueError(f"ensemble members disagree on class count: {sorted(ncs)}")
+        self.members = nn.ModuleList(members)
+        last = self.members[-1]
+        self.nc, self.reg_max, self.strides, self.names = last.nc, last.reg_max, last.strides, last.names
+        self.args: Dict = {}
+
+    def fuse(self) -> "EnsembleModel":
+        for m in self.members:
+            m.fuse()
+        return self
+
+    def decode_concat(self, x: torch.Tensor, half: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+        """x NHWC -> (boxes (B, sum_A, 4) fp32 xyxy, scores (B, sum_A, nc)), members in order."""
+        from yololite_tpu_torch.ops.decode import decode_detections
+
+        all_boxes, all_scores = [], []
+        for m in self.members:
+            feats = [f.permute(0, 2, 3, 1) for f in m(x.permute(0, 3, 1, 2))]
+            if not half:
+                feats = [f.float() for f in feats]
+            boxes, scores = decode_detections(feats, m.strides, m.nc, m.reg_max, xywh=False)
+            all_boxes.append(boxes.float())
+            all_scores.append(scores)
+        return torch.cat(all_boxes, 1), torch.cat(all_scores, 1)

@@ -5,17 +5,26 @@ follow the upstream torch model (cv1, m.0, bn, ...), so a state_dict with
 upstream names loads with strict=True, and submodules are registered in the
 order in which the JAX modules draw their initial weights, so that
 `DetectionModel.init(seed)` gives the same weights as the JAX `init(seed)`.
+
+int8 serving (models/quant.py): a quantized Conv holds a `QConv` in place of
+its conv and runs K8 (`ops.kernels.int8_conv`); the edges between quantized
+convs are int8 tensors at one global scale, channels-last in memory.
+Bottleneck adds them saturating in int16, SPPF max-pools them, Upsample and
+Concat pass them on, all in integers; an unquantized Conv dequantizes an
+int8 input at its `deq_s`.
 """
 
 from __future__ import annotations
 
 import math
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from yololite_tpu_torch.ops.kernels import ACTS, dequantize_act, int8_conv, quantize_act
 
 BN_EPS = 1e-3  # upstream BatchNorm2d eps
 BN_MOMENTUM = 0.03  # and momentum
@@ -50,8 +59,36 @@ def init_conv2d_(conv: nn.Conv2d, rng: np.random.Generator) -> None:
         conv.bias.copy_(kaiming_uniform(rng, (o,), fan_in))
 
 
+class QConv(nn.Module):
+    """The quantized conv of a Conv (port of the `q` branch of yololite_tpu Conv.__call__, modules.py:176-185).
+
+    Buffers: `weight` int8 OHWI (Cout, KH, KW, Cin/groups), per-output-channel
+    `sw`, `scale` = sin * sw and the folded `bias` in fp32, the input scale
+    `sin` (0-d fp32, used to quantize a float input on the fly) and, when the
+    consumer is quantized, `sout` (else the output stays bf16).
+    """
+
+    def __init__(self, weight: torch.Tensor, sw: torch.Tensor, bias: torch.Tensor, sin: float,
+                 sout: Optional[float], stride: int, padding: int, groups: int):
+        super().__init__()
+        f32 = lambda v: torch.as_tensor(v, dtype=torch.float32)
+        self.register_buffer("weight", weight.to(torch.int8).contiguous())
+        self.register_buffer("sw", f32(sw).clone())
+        self.register_buffer("scale", f32(sin) * f32(sw))  # fp32 product, as the JAX epilogue forms it
+        self.register_buffer("bias", f32(bias).clone())
+        self.register_buffer("sin", f32(sin).clone())
+        self.sout = None if sout is None else float(f32(sout))
+        self.stride, self.padding, self.groups = int(stride), int(padding), int(groups)
+
+    def forward(self, x: torch.Tensor, act: int) -> torch.Tensor:
+        if x.dtype != torch.int8:  # bf16 island boundary (or the image): quantize on the fly
+            x = quantize_act(x, self.sin)
+        return int8_conv(x, self.weight, self.scale, self.bias, self.stride, self.padding, self.groups, act,
+                         self.sout or 0.0)
+
+
 class Conv(nn.Module):
-    """Conv2d(bias=False) + BatchNorm2d + SiLU; after fuse() a biased Conv2d + SiLU."""
+    """Conv2d(bias=False) + BatchNorm2d + SiLU; after fuse() a biased Conv2d + SiLU; quantized, a QConv."""
 
     def __init__(self, c1, c2, k=1, s=1, p=None, g=1, d=1, act=True):
         super().__init__()
@@ -61,12 +98,24 @@ class Conv(nn.Module):
         self.bn = nn.BatchNorm2d(c2, eps=BN_EPS, momentum=BN_MOMENTUM)
         self.act = nn.SiLU() if act is True else nn.ReLU() if act == "relu" else nn.Identity()
         self.downsample = s if isinstance(s, int) else int(s[0])
+        self.deq_s = None  # int8 serving: the scale at which an int8 input is dequantized
 
     def forward(self, x):
+        if isinstance(self.conv, QConv):
+            return self.conv(x, self.act_code)
+        if x.dtype == torch.int8:  # int8 edge into an unquantized conv
+            if self.deq_s is None:
+                raise ValueError("an int8 input reached a Conv that models/quant.py left without a deq_s")
+            x = dequantize_act(x, self.deq_s)
         y = self.conv(x)
         if self.bn is not None:
             y = self.bn(y)
         return self.act(y)
+
+    @property
+    def act_code(self) -> int:
+        """The activation as K8's epilogue code."""
+        return ACTS["silu" if isinstance(self.act, nn.SiLU) else "relu" if isinstance(self.act, nn.ReLU) else "none"]
 
     def init_weights(self, rng: np.random.Generator) -> None:
         init_conv2d_(self.conv, rng)
@@ -108,7 +157,11 @@ class Bottleneck(nn.Module):
 
     def forward(self, x):
         y = self.cv2(self.cv1(x))
-        return x + y if self.add else y
+        if not self.add:
+            return y
+        if x.dtype == torch.int8:  # int8 serving: both edges share the global scale; saturating add
+            return torch.clamp(x.to(torch.int16) + y.to(torch.int16), -127, 127).to(torch.int8)
+        return x + y
 
 
 class C3(nn.Module):
@@ -171,10 +224,25 @@ class SPPF(nn.Module):
         self.cv1 = Conv(c1, c_, 1, 1)
         self.cv2 = Conv(c_ * 4, c2, 1, 1)
 
+    def _pool(self, x):
+        if x.dtype != torch.int8:
+            return F.max_pool2d(x, self.k, 1, self.k // 2)
+        # int8: torch's CUDA max-pool takes no integers. The k x k max, separable, over an input padded
+        # with -128 (the int8 minimum, as the JAX package's reduce_window init): exact, and stays int8.
+        p, (h, w) = self.k // 2, x.shape[2:]
+        xp = F.pad(x, (p, p, p, p), value=-128)
+        y = xp[:, :, 0:h]
+        for i in range(1, self.k):
+            y = torch.maximum(y, xp[:, :, i:i + h])
+        out = y[:, :, :, 0:w]
+        for i in range(1, self.k):
+            out = torch.maximum(out, y[:, :, :, i:i + w])
+        return out
+
     def forward(self, x):
         y = [self.cv1(x)]
         for _ in range(3):
-            y.append(F.max_pool2d(y[-1], self.k, 1, self.k // 2))
+            y.append(self._pool(y[-1]))
         return self.cv2(torch.cat(y, 1))
 
 
@@ -263,6 +331,10 @@ class Upsample(nn.Module):
         self.downsample = 1 / self.scale
 
     def forward(self, x):
+        if x.dtype == torch.int8:  # torch's nearest upsample takes no channels-last int8: repeat each pixel
+            b, c, h, w = x.shape
+            s = self.scale
+            return x[:, :, :, None, :, None].expand(b, c, h, s, w, s).reshape(b, c, h * s, w * s)
         return F.interpolate(x, scale_factor=self.scale, mode="nearest")
 
 

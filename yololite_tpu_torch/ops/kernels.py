@@ -1,13 +1,24 @@
 """Hand-written kernels and device-side preprocessing (counterpart of yololite_tpu/ops/pallas_kernels.py).
 
-1. `greedy_nms_keep`: exact greedy NMS keep mask from score-sorted boxes.
+1. `greedy_nms_keep`: exact greedy NMS keep mask from score-sorted boxes (K1).
    On a CUDA tensor it launches the CUDA kernel csrc/greedy_nms_keep.cu,
    which replaces the Pallas kernel `greedy_nms_keep_pallas` and the
    `box_iou` before it; on a CPU tensor it runs the plain version beside it,
    `greedy_nms_keep_plain`.
-2. `device_letterbox`: batched letterbox on the device for same-shape uint8
+2. `int8_conv`: the int8 serving convolution with its epilogue (K8). On a
+   CUDA tensor it launches csrc/int8_conv.cu, which replaces the int32
+   accumulated XLA convolution of yololite_tpu/models/modules.py:176-185; on
+   a CPU tensor it runs `int8_conv_plain`.
+3. `device_letterbox`: batched letterbox on the device for same-shape uint8
    batches: bilinear resize as two fp32 matmuls, pad with 114, divide by 255.
    Plain torch for now (ROADMAP.md, Queue 2 K2).
+
+K1 and K8 are `torch.library` custom ops (`torch.ops.yololite_tpu_torch.*`):
+the CUDA implementation launches the kernel or raises, the CPU one is the
+plain version, and a fake implementation gives the output's shape, so
+`torch.export` records each as one op. The public wrappers check their
+inputs, call the op, and count the kernel's launches (`.launches`); a CUDA
+tensor never reaches a plain version.
 """
 
 from __future__ import annotations
@@ -18,6 +29,7 @@ import functools
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch import Tensor
 
 from yololite_tpu_torch.ops.boxes import box_iou
 
@@ -51,25 +63,38 @@ def greedy_nms_keep(boxes: torch.Tensor, valid: torch.Tensor, iou_thres: float) 
     """Exact greedy keep mask: (B, K, 4) float32 xyxy boxes (score-sorted), (B, K) bool valid -> (B, K) bool.
 
     A CUDA tensor goes through the CUDA kernel (K <= 1024), which computes the
-    IoU itself; a CPU tensor goes through `greedy_nms_keep_plain`; any other
-    input raises.
+    IoU itself; a CPU tensor goes through `greedy_nms_keep_plain`; both as the
+    op `torch.ops.yololite_tpu_torch.greedy_nms_keep`. Any other input raises.
     """
-    if boxes.device.type == "cpu":
-        return greedy_nms_keep_plain(boxes, valid, iou_thres)
-    if boxes.device.type != "cuda":
+    if boxes.device.type == "cuda":
+        if boxes.dtype != torch.float32 or valid.dtype != torch.bool:
+            raise TypeError(f"greedy_nms_keep wants float32 boxes and bool valid, got {boxes.dtype} and {valid.dtype}")
+        if boxes.ndim != 3 or boxes.shape[2] != 4 or tuple(valid.shape) != tuple(boxes.shape[:2]):
+            raise ValueError(f"greedy_nms_keep wants boxes (B, K, 4) and valid (B, K), got {tuple(boxes.shape)} "
+                             f"and {tuple(valid.shape)}")
+        if valid.device != boxes.device:
+            raise ValueError(f"boxes on {boxes.device} but valid on {valid.device}")
+        if not (boxes.is_contiguous() and valid.is_contiguous()):
+            raise ValueError("greedy_nms_keep wants contiguous boxes and valid")
+        if valid.shape[1] > 1024:
+            raise ValueError(f"greedy_nms_keep takes K <= 1024, got {valid.shape[1]}; run larger K in blocks "
+                             "(ops.nms._blocked_keep)")
+    elif boxes.device.type != "cpu":
         raise ValueError(f"greedy_nms_keep: unsupported device {boxes.device}")
-    if boxes.dtype != torch.float32 or valid.dtype != torch.bool:
-        raise TypeError(f"greedy_nms_keep wants float32 boxes and bool valid, got {boxes.dtype} and {valid.dtype}")
-    if boxes.ndim != 3 or boxes.shape[2] != 4 or tuple(valid.shape) != tuple(boxes.shape[:2]):
-        raise ValueError(f"greedy_nms_keep wants boxes (B, K, 4) and valid (B, K), got {tuple(boxes.shape)} "
-                         f"and {tuple(valid.shape)}")
-    if valid.device != boxes.device:
-        raise ValueError(f"boxes on {boxes.device} but valid on {valid.device}")
-    if not (boxes.is_contiguous() and valid.is_contiguous()):
-        raise ValueError("greedy_nms_keep wants contiguous boxes and valid")
+    return torch.ops.yololite_tpu_torch.greedy_nms_keep(boxes, valid, float(iou_thres))
+
+
+greedy_nms_keep.launches = 0  # kernel launches since the last reset
+
+
+@torch.library.custom_op("yololite_tpu_torch::greedy_nms_keep", mutates_args=(), device_types="cpu")
+def _greedy_nms_keep_op(boxes: Tensor, valid: Tensor, iou_thres: float) -> Tensor:
+    return greedy_nms_keep_plain(boxes, valid, iou_thres).clone()  # the plain fixpoint may return `valid` itself
+
+
+@_greedy_nms_keep_op.register_kernel("cuda")
+def _greedy_nms_keep_cuda(boxes: Tensor, valid: Tensor, iou_thres: float) -> Tensor:
     b, k = valid.shape
-    if k > 1024:
-        raise ValueError(f"greedy_nms_keep takes K <= 1024, got {k}; run larger K in blocks (ops.nms._blocked_keep)")
     keep = torch.empty((b, k), dtype=torch.bool, device=boxes.device)
     stream = torch.cuda.current_stream(boxes.device).cuda_stream
     rc = _nms_lib().greedy_nms_keep(boxes.data_ptr(), valid.data_ptr(), keep.data_ptr(), b, k, float(iou_thres),
@@ -81,7 +106,9 @@ def greedy_nms_keep(boxes: torch.Tensor, valid: torch.Tensor, iou_thres: float) 
     return keep
 
 
-greedy_nms_keep.launches = 0  # kernel launches since the last reset
+@_greedy_nms_keep_op.register_fake
+def _greedy_nms_keep_fake(boxes: Tensor, valid: Tensor, iou_thres: float) -> Tensor:
+    return torch.empty(tuple(valid.shape), dtype=torch.bool, device=boxes.device)
 
 
 def _nms_lib() -> ctypes.CDLL:
@@ -94,6 +121,130 @@ def _nms_lib() -> ctypes.CDLL:
         lib.greedy_nms_keep.restype = ctypes.c_int
         lib.greedy_nms_keep_error_string.argtypes = [ctypes.c_int]
         lib.greedy_nms_keep_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+# ---------------- int8 convolution (K8) ----------------
+
+ACTS = {"none": 0, "silu": 1, "relu": 2}  # the epilogue's activation codes
+
+
+def quantize_act(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Float activations -> int8 at `scale` (a 0-d fp32 tensor on x's device): round half to even, clip to +-127.
+
+    The divisor is a tensor on the device so that the division is IEEE on the
+    card too (a Python scalar divisor makes torch multiply by its reciprocal).
+    """
+    return torch.clamp(torch.round(x.float() / scale), -127, 127).to(torch.int8)
+
+
+def dequantize_act(x: torch.Tensor, scale: float) -> torch.Tensor:
+    """int8 activations -> bf16 at `scale`."""
+    return (x.float() * scale).to(torch.bfloat16)
+
+
+def _conv_out_hw(h: int, w: int, kh: int, kw: int, stride: int, padding: int):
+    return (h + 2 * padding - kh) // stride + 1, (w + 2 * padding - kw) // stride + 1
+
+
+def int8_conv_plain(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, stride: int,
+                    padding: int, groups: int, act: int, sout: float) -> torch.Tensor:
+    """Plain torch K8: the accumulator as a float64 convolution of the int8 values, then the same epilogue.
+
+    float64 holds every sum exactly (|acc| <= 127^2 * taps * Cin < 2^53), and
+    its conversion to fp32 rounds as the kernel's int -> float does. Then
+    y = acc * scale + b in fp32 (two roundings), bf16, the activation on bf16,
+    and with sout > 0 round(y / sout) clipped to +-127 as int8. Returns a
+    channels-last (B, Cout, Ho, Wo) tensor, int8 or bf16.
+    """
+    acc = F.conv2d(x.double(), w.permute(0, 3, 1, 2).double(), None, stride, padding, 1, groups).float()
+    y = acc * scale[None, :, None, None]
+    y = (y + bias[None, :, None, None]).to(torch.bfloat16)
+    if act == 1:
+        y = F.silu(y)
+    elif act == 2:
+        y = F.relu(y)
+    if sout > 0:
+        y = quantize_act(y, torch.full((), sout, dtype=torch.float32, device=y.device))
+    out = torch.empty(tuple(y.shape), dtype=y.dtype, device=y.device, memory_format=torch.channels_last)
+    return out.copy_(y)
+
+
+def int8_conv(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, stride: int = 1,
+              padding: int = 0, groups: int = 1, act: int = 1, sout: float = 0.0) -> torch.Tensor:
+    """int8 convolution with its epilogue: x int8 (B, Cin, H, W), w int8 OHWI (Cout, KH, KW, Cin/groups),
+    scale = sin * sw and bias fp32 (Cout) -> channels-last (B, Cout, Ho, Wo), int8 when sout > 0 else bf16.
+
+    act: 0 none, 1 SiLU, 2 ReLU. A CUDA tensor goes through csrc/int8_conv.cu,
+    a CPU tensor through `int8_conv_plain`, both as the op
+    `torch.ops.yololite_tpu_torch.int8_conv`; x is made channels-last first
+    (a no-op for the int8 edges the kernel writes).
+    """
+    if x.dtype != torch.int8 or w.dtype != torch.int8:
+        raise TypeError(f"int8_conv wants int8 x and w, got {x.dtype} and {w.dtype}")
+    if scale.dtype != torch.float32 or bias.dtype != torch.float32:
+        raise TypeError(f"int8_conv wants float32 scale and bias, got {scale.dtype} and {bias.dtype}")
+    cout, kh, kw, cin_g = w.shape
+    if x.ndim != 4 or x.shape[1] != cin_g * groups or cout % groups or tuple(scale.shape) != (cout,) or tuple(
+            bias.shape) != (cout,):
+        raise ValueError(f"int8_conv: x {tuple(x.shape)}, w {tuple(w.shape)}, groups {groups}, scale "
+                         f"{tuple(scale.shape)}, bias {tuple(bias.shape)} do not fit")
+    if not (x.device == w.device == scale.device == bias.device):
+        raise ValueError(f"int8_conv: tensors on {x.device}, {w.device}, {scale.device}, {bias.device}")
+    if x.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"int8_conv: unsupported device {x.device}")
+    if act not in ACTS.values() or stride < 1 or padding < 0:
+        raise ValueError(f"int8_conv: act {act}, stride {stride}, padding {padding}")
+    x = x.contiguous(memory_format=torch.channels_last)
+    return torch.ops.yololite_tpu_torch.int8_conv(x, w.contiguous(), scale.contiguous(), bias.contiguous(),
+                                                  int(stride), int(padding), int(groups), int(act), float(sout))
+
+
+int8_conv.launches = 0  # kernel launches since the last reset
+
+
+@torch.library.custom_op("yololite_tpu_torch::int8_conv", mutates_args=(), device_types="cpu")
+def _int8_conv_op(x: Tensor, w: Tensor, scale: Tensor, bias: Tensor, stride: int, padding: int, groups: int,
+                  act: int, sout: float) -> Tensor:
+    return int8_conv_plain(x, w, scale, bias, stride, padding, groups, act, sout)
+
+
+@_int8_conv_op.register_kernel("cuda")
+def _int8_conv_cuda(x: Tensor, w: Tensor, scale: Tensor, bias: Tensor, stride: int, padding: int, groups: int,
+                    act: int, sout: float) -> Tensor:
+    b, cin, h, wd = x.shape
+    cout, kh, kw, _ = w.shape
+    ho, wo = _conv_out_hw(h, wd, kh, kw, stride, padding)
+    out = torch.empty((b, cout, ho, wo), dtype=torch.int8 if sout > 0 else torch.bfloat16, device=x.device,
+                      memory_format=torch.channels_last)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    lib = _int8_lib()
+    rc = lib.int8_conv(x.data_ptr(), w.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(), b, h, wd, cin,
+                       ho, wo, cout, kh, kw, stride, padding, groups, act, float(sout), x.device.index, stream)
+    if rc != 0:
+        raise RuntimeError(f"int8_conv kernel launch failed: {lib.int8_conv_error_string(rc).decode()}")
+    int8_conv.launches += 1
+    return out
+
+
+@_int8_conv_op.register_fake
+def _int8_conv_fake(x: Tensor, w: Tensor, scale: Tensor, bias: Tensor, stride: int, padding: int, groups: int,
+                    act: int, sout: float) -> Tensor:
+    ho, wo = _conv_out_hw(x.shape[2], x.shape[3], w.shape[1], w.shape[2], stride, padding)
+    return torch.empty((x.shape[0], w.shape[0], ho, wo), dtype=torch.int8 if sout > 0 else torch.bfloat16,
+                       device=x.device, memory_format=torch.channels_last)
+
+
+def _int8_lib() -> ctypes.CDLL:
+    from yololite_tpu_torch.ops import cuda_build
+
+    lib = cuda_build.load("int8_conv")
+    if lib.int8_conv.argtypes is None:  # declare the C signatures once per process
+        lib.int8_conv.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 13 + [ctypes.c_float, ctypes.c_int,
+                                                                                 ctypes.c_void_p]
+        lib.int8_conv.restype = ctypes.c_int
+        lib.int8_conv_error_string.argtypes = [ctypes.c_int]
+        lib.int8_conv_error_string.restype = ctypes.c_char_p
     return lib
 
 
