@@ -5,7 +5,9 @@
 
 Phases, each of which exits non-zero on failure:
   1. build: compiles every kernel source in yololite_tpu_torch/csrc/ with
-     nvcc, all at once, and prints the build time and ptxas's report;
+     nvcc, all at once, and prints the build time and ptxas's report (for
+     K8: registers and spills per kernel, and the count of warpgroup MMA
+     instructions in its SASS, which must not be 0);
   2. kernel: holds each kernel against its plain PyTorch version on the card
      (bit-equal keep masks for greedy_nms_keep, boxes in, over crowded random
      scenes and alternating suppression chains, ragged K and K = 1024
@@ -44,17 +46,20 @@ Phases, each of which exits non-zero on failure:
      loads them through the stub unpickler (weights bit-equal), predicts 32
      frames at 640, batch 32, conf 1e-7 with each, checks that K1 ran and
      that its keep equals the plain keep on the inputs each run gave it;
-     (b) predict(int8=True) at 640, batch 1 and 32: K8 launches 76 times a
-     forward; ms per call and img/s beside bf16 predict; K8 held to its
-     plain version (within 1 int8 LSB or 1 bf16 ulp, with the share that
-     differs) and timed on every quantized conv of yolo11n at batch 32, with
-     each conv's bound and torch._int_mm on the 1x1 convs as a yardstick;
+     (b) predict(int8=True) beside bf16 predict at 640: yolo11n at batch 1
+     and, in turns (bf16, int8, int8, bf16) of 5 calls with their medians,
+     at batch 32; K8 launches 76 times a forward and no quantize runs
+     outside it; K8 equal to its plain version on every output of the 76
+     quantized convs of one batch-32 forward, timed by device time (a CUDA
+     graph of 20 launches replayed), with each conv's bound, sums by kind
+     (stem, 3x3, 1x1, depthwise) and torch._int_mm on the 1x1 products as a
+     yardstick; the same checks at yolo11m (init(0), 101 quantized convs);
      (c) export at 640, batch 8, fp32 and int8, reloaded and bit-equal to
      the in-process graph; (d) InferencePipeline at batch 8, 640, 32
      submissions: p50/p90/p99 ms, img/s, detections equal to the
      predictor's infer; (e) embed on the card against the CPU, rtol 1e-3.
 The kernels line's launches count the runs of the main paths: predict, val,
-train and serving for K1, int8 predict for K8.
+train and serving for K1, the int8 predict calls (yolo11n and yolo11m) for K8.
 Prints the card's name and power limit, a {"kernels": [...]} line, and last
 {"ok": true, "device": {...}}. Needs no network and no JAX.
 """
@@ -768,19 +773,210 @@ def train_phase(card: str):
     return launches
 
 
-def int8_conv_bound_ms(x_shape, w_shape, out_shape, out_bytes: int, stride: int, groups: int):
+def int8_conv_bound_ms(x_shape, x_bytes: int, w_shape, out_shape, out_bytes: int):
     """Least time of one K8 call on these shapes, and what bounds it ("bytes" or "operations").
 
-    Bytes: x and w read once (int8), scale and bias (fp32), the output written
-    once (int8 or bf16). Operations: 2 per multiply-add of the convolution, at
-    the card's int8 tensor-core rate.
+    Bytes: x read once (int8, or bf16 / fp32 when K8 quantizes it in its
+    load), w once (int8), scale and bias (fp32), the output written once (int8
+    or bf16). Operations: 2 per multiply-add of the convolution, at the card's
+    int8 tensor-core rate.
     """
     b, cin, h, w = x_shape
     cout, kh, kw, cin_g = w_shape
     ho, wo = out_shape[2:]
-    by_bytes = (b * cin * h * w + cout * kh * kw * cin_g + 8 * cout + b * cout * ho * wo * out_bytes) / HBM_BYTES_PER_S
+    by_bytes = (b * cin * h * w * x_bytes + cout * kh * kw * cin_g + 8 * cout + b * cout * ho * wo * out_bytes
+                ) / HBM_BYTES_PER_S
     by_ops = 2 * b * cout * ho * wo * kh * kw * cin_g / INT8_OPS_PER_S
     return max(by_bytes, by_ops) * 1e3, "bytes" if by_bytes >= by_ops else "operations"
+
+
+def graph_ms(fn, iters: int = 20, reps: int = 5) -> float:
+    """Median device milliseconds per call of fn: `iters` calls captured in one CUDA graph, the graph replayed
+    `reps` times between CUDA events, so the host's enqueue of each call is outside the timing."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up outside the capture (first-call set-up)
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    del graph
+    return sorted(times)[len(times) // 2]
+
+
+def k8_build_report(lib_path: Path) -> str:
+    """ptxas's registers and spills for each K8 kernel (from the build log), and the count of warpgroup MMA
+    instructions (*GMMA) in the library's SASS (cuobjdump -sass)."""
+    import re
+
+    from yololite_tpu_torch.ops import cuda_build
+
+    rows, name = [], None
+    for line in lib_path.with_suffix(".log").read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = re.search(r"int8_conv_(gemm|depthwise|direct|stem)(?:ILi(\d+)ELi(\d+)E)?", m.group(1))
+            name = None if k is None else k.group(1) if k.group(2) is None else f"gemm<N {k.group(2)}, WG {k.group(3)}>"
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            spills = f"{m.group(1)}/{m.group(2)} B spilled"
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            rows.append(f"{name}: {m.group(1)} regs, {spills}")
+            name = None
+    cuobjdump = str(Path(cuda_build.nvcc()).with_name("cuobjdump"))
+    sass = subprocess.run([cuobjdump, "-sass", str(lib_path)], capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    gmma = [ln for ln in sass.splitlines() if re.search(r"\b[A-Z]?GMMA\b", ln)]
+    ops = sorted({re.search(r"\b([A-Z]?GMMA[.\w]*)", ln).group(1) for ln in gmma})
+    return (f"ptxas per kernel: {'; '.join(rows)}; SASS: {len(gmma)} warpgroup MMA instructions "
+            f"({', '.join(ops[:8])})"), len(gmma)
+
+
+def conv_kind(x, mod) -> str:
+    cout, kh, kw, cin_g = mod.weight.shape
+    return "stem" if x.shape[1] == 3 else "depthwise" if mod.groups > 1 else f"{kh}x{kw}"
+
+
+def k8_on_convs(card: str, pred, frames, n_convs: int, name: str, time_plain: bool) -> dict:
+    """K8 against its plain version (every output equal), and timed by device time, on every quantized conv of
+    one int8 forward of `pred` on `frames`; with each conv's bound, and torch._int_mm on the 1x1 products."""
+    import numpy as np
+    import torch
+
+    from yololite_tpu_torch.models import modules as M
+    from yololite_tpu_torch.ops.kernels import int8_conv, int8_conv_plain, int8_conv_plan, quantize_act
+
+    calls = []
+    hooks = [m.register_forward_hook(lambda mod, i, y: calls.append((mod, i[0], i[1], y)))
+             for m in pred.net.modules() if isinstance(m, M.QConv)]
+    try:
+        raw = torch.from_numpy(np.stack(frames)).cuda().flip(-1)
+        pred.infer_uint8(raw, 640)
+    finally:
+        for h in hooks:
+            h.remove()
+    if len(calls) != n_convs:
+        raise AssertionError(f"{name}: {len(calls)} quantized conv calls in one int8 forward, not {n_convs}")
+    tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bytes": 0.0, "ops": 0.0, "ms_1x1": 0.0, "int_mm_1x1": 0.0}
+    kinds, routes, rows = {}, {}, []
+    differ = total = 0
+    with torch.inference_mode():
+        for mod, x, act, y in calls:
+            args = (x, mod.weight, mod.scale, mod.bias, mod.stride, mod.padding, mod.groups, act, mod.sout or 0.0,
+                    mod.sin_value)
+            want = int8_conv_plain(*args)
+            differ += int((y != want).sum())
+            total += want.numel()
+            ms = graph_ms(lambda: int8_conv(*args))
+            bound, by = int8_conv_bound_ms(tuple(x.shape), x.element_size(), tuple(mod.weight.shape),
+                                           tuple(y.shape), y.element_size())
+            plan = int8_conv_plan(x, mod.weight, y, mod.groups)
+            route = plan["route"] + (f" N{plan['n_tile']} M{plan['m_tile']}" if plan["route"] == "gemm" else "")
+            routes[route] = routes.get(route, 0) + 1
+            kind = conv_kind(x, mod)
+            rows.append(f"{kind}\t{tuple(x.shape)}\t{x.dtype}\t{tuple(mod.weight.shape)}\ts{mod.stride}\t{y.dtype}\t"
+                        f"{route}\t{ms:.4f}\t{bound:.4f}")
+            k = kinds.setdefault(kind, {"n": 0, "ms": 0.0, "bound_ms": 0.0})
+            k["n"] += 1
+            k["ms"] += ms
+            k["bound_ms"] += bound
+            tot["ms"] += ms
+            tot["bound_ms"] += bound
+            tot["bytes" if by == "bytes" else "ops"] += bound
+            if time_plain:
+                tot["plain_ms"] += cuda_ms(lambda: int8_conv_plain(*args), 2, warmup=1)
+            cout, kh, kw_, cin_g = mod.weight.shape
+            if kh == kw_ == 1 and mod.stride == 1 and mod.groups == 1:  # torch._int_mm on the same 1x1 product
+                xq = x if x.dtype == torch.int8 else quantize_act(x, mod.sin)
+                a2 = xq.permute(0, 2, 3, 1).reshape(-1, cin_g)  # channels-last: a view
+                b2 = mod.weight.reshape(cout, cin_g).t()
+                tot["int_mm_1x1"] += graph_ms(lambda: torch._int_mm(a2, b2))
+                tot["ms_1x1"] += ms
+    del calls
+    out = Path("chiprun_out")  # each conv's row, for the record
+    out.mkdir(exist_ok=True)
+    (out / f"k8_{name}_convs.tsv").write_text("kind\tx\tx dtype\tw\tstride\tout dtype\troute\tms\tbound ms\n"
+                                               + "\n".join(rows) + "\n")
+    if differ:
+        raise AssertionError(f"{name}: K8 differs from its plain version on {differ} of {total} outputs")
+    by_kind = "; ".join(f"{k} ({v['n']} convs) {v['ms']:.4f} ms vs bound {v['bound_ms']:.4f} ms "
+                        f"({v['ms'] / v['bound_ms']:.1f}x)" for k, v in sorted(kinds.items()))
+    log(f"serving (b): {name}: K8 == its plain version on all {n_convs} quantized convs of one int8 forward at 640, "
+        f"batch {len(frames)} (0 of {total} outputs differ); device time (CUDA graph replay) summed: K8 "
+        f"{tot['ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms ({tot['ms'] / tot['bound_ms']:.2f}x; "
+        f"{tot['bytes']:.4f} ms of it in bytes-bound convs, {tot['ops']:.4f} ms in operation-bound ones)"
+        + (f", plain {tot['plain_ms']:.3f} ms" if time_plain else "")
+        + f"; 1x1 convs K8 {tot['ms_1x1']:.4f} ms vs torch._int_mm (int32 out, no epilogue) "
+        f"{tot['int_mm_1x1']:.4f} ms; by kind: {by_kind}; routes {routes}; on {card}")
+    return {"max_abs_err": 0.0, "ms": tot["ms"], "plain_ms": tot["plain_ms"] if time_plain else None,
+            "bound_ms": tot["bound_ms"], "bound_by": "bytes" if tot["bytes"] >= tot["ops"] else "operations",
+            "outputs_differing": differ, "ms_1x1": tot["ms_1x1"], "int_mm_1x1_ms": tot["int_mm_1x1"],
+            "by_kind": kinds}
+
+
+def int8_vs_bf16(card: str, path: str, frames, bs: int, n_convs: int, name: str, turns=("bf16", "int8", "int8",
+                                                                                          "bf16")):
+    """predict(int8=True) against bf16 predict on one model, in turns, each turn `reps` calls timed on the host
+    (each call ends in host results). Returns the medians, per-call lists and the K8 launches of the int8 calls."""
+    import numpy as np
+
+    from yololite_tpu_torch import YOLOLite
+    from yololite_tpu_torch.ops import kernels
+    from yololite_tpu_torch.ops.kernels import greedy_nms_keep, int8_conv
+
+    kw = dict(conf=1e-7, imgsz=640, batch=bs, save=False, verbose=False)
+    models = {"bf16": (YOLOLite(path), {"half": True}), "int8": (YOLOLite(path), {"int8": True})}
+    for model, extra in models.values():
+        model.predict(frames, **kw, **extra)  # set up, warm up (int8: calibrate on this batch)
+    times = {"bf16": [], "int8": []}
+    k1 = k8 = 0
+    reps = 5
+    quantize_act, quantizes = kernels.quantize_act, []
+    kernels.quantize_act = lambda *a: quantizes.append(1) or quantize_act(*a)  # K8 quantizes floats in its load
+    try:
+        for mode in turns:
+            model, extra = models[mode]
+            for _ in range(reps):
+                greedy_nms_keep.launches = int8_conv.launches = 0
+                t0 = time.perf_counter()
+                results = model.predict(frames, **kw, **extra)
+                times[mode].append(time.perf_counter() - t0)
+                if greedy_nms_keep.launches != 1 or int8_conv.launches != (n_convs if mode == "int8" else 0):
+                    raise AssertionError(f"{name} {mode} predict: {greedy_nms_keep.launches} K1 and "
+                                         f"{int8_conv.launches} K8 launches in one call")
+                k1 += 1
+                k8 += int8_conv.launches
+                if not all(len(r) and np.isfinite(r.boxes.data).all() for r in results):
+                    raise AssertionError(f"{name} {mode} predict at batch {bs}: no detections or non-finite ones")
+    finally:
+        kernels.quantize_act = quantize_act
+    if quantizes:
+        raise AssertionError(f"{name}: quantize_act ran {len(quantizes)} times outside K8 in int8 predict")
+    med = {m: sorted(t)[len(t) // 2] for m, t in times.items()}
+    log(f"serving (b): {name} predict at 640, batch {bs}, turns {'/'.join(turns)} of {reps} calls: int8 median "
+        f"{med['int8'] * 1e3:.2f} ms/call ({bs / med['int8']:.1f} img/s; calls "
+        f"{', '.join(f'{t * 1e3:.2f}' for t in times['int8'])}) vs bf16 {med['bf16'] * 1e3:.2f} ms/call "
+        f"({bs / med['bf16']:.1f} img/s; calls {', '.join(f'{t * 1e3:.2f}' for t in times['bf16'])}); int8 "
+        f"{'faster' if med['int8'] < med['bf16'] else 'NOT faster'} than bf16 (x{med['bf16'] / med['int8']:.3f}); "
+        f"K8 {n_convs} launches an int8 call, on {card}")
+    return med, k1, k8, models["int8"][0].predictor
 
 
 def serving_phase(card: str, frames):
@@ -797,11 +993,9 @@ def serving_phase(card: str, frames):
 
     from yololite_tpu_torch import YOLOLite
     from yololite_tpu_torch.engine.predictor import DetectionPredictor, fp32_convs
-    from yololite_tpu_torch.models import modules as M
     from yololite_tpu_torch.models.model import DetectionModel, EnsembleModel
     from yololite_tpu_torch.ops import nms
-    from yololite_tpu_torch.ops.kernels import (greedy_nms_keep, greedy_nms_keep_plain, int8_conv, int8_conv_plain,
-                                                quantize_act)
+    from yololite_tpu_torch.ops.kernels import greedy_nms_keep, greedy_nms_keep_plain, int8_conv
     from yololite_tpu_torch.ops.letterbox import preprocess_batch
     from yololite_tpu_torch.runtime import InferencePipeline, export_predict, load_exported, predict_graph
 
@@ -851,98 +1045,29 @@ def serving_phase(card: str, frames):
             f"{sum(len(r) for r in results) / 32:.1f} detections/img; K1 {n} launches in {reps} calls, keep == plain "
             f"on B={tuple(valid.shape)[0]} K={tuple(valid.shape)[1]}, on {card}")
 
-    # (b) int8 predict on the plain .pt model, beside bf16, at batch 1 and 32
+    # (b) int8 predict beside bf16: yolo11n (the plain .pt) at batch 1 and, in turns, 32; K8 on every quantized
+    # conv against its plain version and timed; then the same at yolo11m (init(0))
     model = YOLOLite(str(plain_pt))
     k8_launches = 0
-    for bs in (1, 32):
-        src = frames[:bs]
-        row = {}
-        for mode, extra in (("bf16", {"half": True}), ("int8", {"int8": True})):
-            kwb = dict(kw, batch=bs, **extra)
-            model.predict(src, **kwb)  # set up, warm up (int8: calibrate on this batch)
-            greedy_nms_keep.launches = int8_conv.launches = 0
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            reps = 5
-            for _ in range(reps):
-                results = model.predict(src, **kwb)
-            torch.cuda.synchronize()
-            dt = (time.perf_counter() - t0) / reps
-            if greedy_nms_keep.launches != reps:
-                raise AssertionError(f"{mode} predict: {greedy_nms_keep.launches} K1 launches in {reps} calls")
-            k1 += greedy_nms_keep.launches
-            if mode == "int8":
-                if int8_conv.launches != 76 * reps:  # yolo11n: 76 quantized convs a forward
-                    raise AssertionError(f"int8 predict: {int8_conv.launches} K8 launches in {reps} calls")
-                k8_launches += int8_conv.launches
-            elif int8_conv.launches:
-                raise AssertionError("bf16 predict launched K8")
-            if not all(len(r) and np.isfinite(r.boxes.data).all() for r in results):
-                raise AssertionError(f"{mode} predict at batch {bs}: no detections or non-finite ones")
-            row[mode] = (dt, sum(len(r) for r in results) / bs)
-        log(f"serving (b): yolo11n predict at 640, batch {bs}: int8 {row['int8'][0] * 1e3:.2f} ms/call "
-            f"({bs / row['int8'][0]:.1f} img/s, {row['int8'][1]:.1f} detections/img, K8 76 launches a call) vs bf16 "
-            f"{row['bf16'][0] * 1e3:.2f} ms/call ({bs / row['bf16'][0]:.1f} img/s, {row['bf16'][1]:.1f} "
-            f"detections/img), s_act {model.predictor.scales['s_act']:.6g}, on {card}")
-
-    # K8 against its plain version, and timed, on every quantized conv of one int8 forward at batch 32
-    pred = model.predictor
-    qnet = pred.net
-    calls = []
-    hooks = [m.register_forward_hook(
-        lambda mod, i, y: calls.append((mod, i[0] if i[0].dtype == torch.int8 else quantize_act(i[0], mod.sin), i[1],
-                                        y)))
-        for m in qnet.modules() if isinstance(m, M.QConv)]
-    try:
-        raw = torch.from_numpy(np.stack(frames)).cuda().flip(-1)
-        greedy_nms_keep.launches = 0
-        pred.infer_uint8(raw, 640)
-        k1 += greedy_nms_keep.launches
-    finally:
-        for h in hooks:
-            h.remove()
-    if len(calls) != 76:
-        raise AssertionError(f"{len(calls)} quantized conv calls in one int8 forward, not 76")
-    tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bytes": 0.0, "ops": 0.0, "ms_1x1": 0.0, "int_mm_1x1": 0.0}
-    worst_lsb, worst_ulp, differ, total = 0, 0.0, 0, 0
-    with torch.inference_mode():
-        for mod, x, act, y in calls:
-            args = (x, mod.weight, mod.scale, mod.bias, mod.stride, mod.padding, mod.groups, act, mod.sout or 0.0)
-            want = int8_conv_plain(*args)
-            if y.dtype == torch.int8:
-                d = (y.int() - want.int()).abs()
-                worst_lsb = max(worst_lsb, int(d.max()))
-            else:
-                a, b = y.float(), want.float()
-                ulp = torch.exp2(torch.floor(torch.log2(torch.maximum(a.abs(), b.abs()).clamp_min(2.0 ** -126))) - 7)
-                d = (a - b).abs() / ulp
-                worst_ulp = max(worst_ulp, float(d.max()))
-            differ += int((d > 0).sum())
-            total += d.numel()
-            ms = cuda_ms(lambda: int8_conv(*args), 10)
-            plain = cuda_ms(lambda: int8_conv_plain(*args), 2, warmup=1)
-            bound, by = int8_conv_bound_ms(tuple(x.shape), tuple(mod.weight.shape), tuple(y.shape),
-                                           y.element_size(), mod.stride, mod.groups)
-            tot["ms"] += ms
-            tot["plain_ms"] += plain
-            tot["bound_ms"] += bound
-            tot["bytes" if by == "bytes" else "ops"] += bound
-            cout, kh, kw_, cin_g = mod.weight.shape
-            if kh == kw_ == 1 and mod.stride == 1 and mod.groups == 1:  # torch._int_mm on the same 1x1 product
-                a2 = x.permute(0, 2, 3, 1).reshape(-1, cin_g)  # channels-last: a view
-                b2 = mod.weight.reshape(cout, cin_g).t()
-                tot["int_mm_1x1"] += cuda_ms(lambda: torch._int_mm(a2, b2), 10)
-                tot["ms_1x1"] += ms
-    if worst_lsb > 1 or worst_ulp > 1:
-        raise AssertionError(f"K8 vs its plain version: worst {worst_lsb} int8 LSB, {worst_ulp} bf16 ulp")
-    k8 = {"max_abs_err": float(max(worst_lsb, worst_ulp)), "ms": tot["ms"], "plain_ms": tot["plain_ms"],
-          "bound_ms": tot["bound_ms"], "bound_by": "bytes" if tot["bytes"] >= tot["ops"] else "operations",
-          "share_differing": differ / total, "ms_1x1": tot["ms_1x1"], "int_mm_1x1_ms": tot["int_mm_1x1"]}
-    log(f"serving (b): K8 vs its plain version on the 76 quantized convs of one yolo11n int8 forward at 640, batch "
-        f"32: worst {worst_lsb} int8 LSB and {worst_ulp} bf16 ulp, {differ} of {total} outputs differ "
-        f"({differ / total:.3g}); summed over the 76 calls: K8 {tot['ms']:.3f} ms, plain {tot['plain_ms']:.3f} ms, "
-        f"bound {tot['bound_ms']:.4f} ms ({tot['bytes']:.4f} ms of it bytes-bound convs); on the 1x1 convs K8 "
-        f"{tot['ms_1x1']:.3f} ms vs torch._int_mm (int32 out, no epilogue) {tot['int_mm_1x1']:.3f} ms, on {card}")
+    med1, n1, n8, _ = int8_vs_bf16(card, str(plain_pt), frames[:1], 1, 76, "yolo11n", turns=("bf16", "int8"))
+    k1 += n1
+    k8_launches += n8
+    med32, n1, n8, pred = int8_vs_bf16(card, str(plain_pt), frames, 32, 76, "yolo11n")
+    k1 += n1
+    k8_launches += n8
+    k8 = k8_on_convs(card, pred, frames, 76, "yolo11n", time_plain=True)
+    k8.update(int8_ms_b32=med32["int8"] * 1e3, bf16_ms_b32=med32["bf16"] * 1e3, int8_ms_b1=med1["int8"] * 1e3,
+              bf16_ms_b1=med1["bf16"] * 1e3)
+    del pred
+    med_m, n1, n8, pred = int8_vs_bf16(card, "yolo11m.yaml", frames, 32, 101, "yolo11m")
+    k1 += n1
+    k8_launches += n8
+    k8_m = k8_on_convs(card, pred, frames, 101, "yolo11m", time_plain=False)
+    k8["yolo11m"] = {"ms": k8_m["ms"], "bound_ms": k8_m["bound_ms"], "bound_by": k8_m["bound_by"],
+                     "ms_1x1": k8_m["ms_1x1"], "int_mm_1x1_ms": k8_m["int_mm_1x1_ms"],
+                     "int8_ms_b32": med_m["int8"] * 1e3, "bf16_ms_b32": med_m["bf16"] * 1e3}
+    del pred
+    torch.cuda.empty_cache()
 
     # (c) export at 640, batch 8, fp32 and int8: reloaded, bit-equal to the in-process graph
     im8 = torch.from_numpy(preprocess_batch(frames[:8], imgsz=640)).cuda()
@@ -1035,7 +1160,12 @@ def main() -> int:
     log(f"build: {len(sources)} kernel source(s) {sources} in {time.perf_counter() - t0:.1f} s")
     for name, path in libs.items():
         report = path.with_suffix(".log")
-        if report.exists():
+        if name == "int8_conv":
+            text, gmma = k8_build_report(path)
+            if not gmma:
+                raise AssertionError("K8's library has no warpgroup MMA instruction in its SASS")
+            log(f"  {name}: {text}")
+        elif report.exists():
             log(f"  {name}: {' | '.join(line.strip() for line in report.read_text().splitlines() if line.strip())}")
 
     # ---- 2. kernel: greedy_nms_keep against its plain version ----
@@ -1216,7 +1346,7 @@ def main() -> int:
         "replaces": "yololite_tpu/models/modules.py:176",  # Conv's int8 branch: an XLA op, not a Pallas kernel
         "launches": k8_launches,
         "library_ms": None,  # no PyTorch call computes an int8 convolution with this epilogue (int_mm_1x1_ms below)
-        "shape": "the 76 quantized convs of one yolo11n forward at 640, batch 32, summed",
+        "shape": "the 76 quantized convs of one yolo11n forward at 640, batch 32, summed (device time)",
         **k8,
     }
     log(json.dumps({"kernels": [entry, k8_entry]}))

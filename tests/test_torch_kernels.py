@@ -136,53 +136,119 @@ def test_keep_op_equals_the_direct_launch(card):
     assert torch.equal(via_op, direct) and torch.equal(direct, greedy_nms_keep_plain(bx, v, 0.45))
 
 
-# (name, batch, Cin, H, W, Cout, k, stride, groups, act, sout): yolo11n's kinds of quantized conv
+# (name, batch, Cin, H, W, Cout, k, stride, groups, act, sout, x dtype, route): yolo11n's kinds of quantized
+# conv, each route of csrc/int8_conv.cu, and their edges (Cin tails, wide and narrow Cout, odd frames, partial
+# M tiles, batch 1, float inputs quantized in the load, bf16 out, every activation)
+I8, BF16, FP32 = torch.int8, torch.bfloat16, torch.float32
 K8_CASES = [
-    ("stem", 1, 3, 64, 64, 16, 3, 2, 1, 1, 0.05),
-    ("1x1", 32, 64, 20, 20, 64, 1, 1, 1, 1, 0.05),
-    ("3x3-s2", 1, 64, 40, 40, 128, 3, 2, 1, 1, 0.05),
-    ("dwconv", 32, 80, 20, 20, 80, 3, 1, 80, 1, 0.0),
-    ("odd-hw", 2, 32, 13, 9, 48, 3, 1, 1, 1, 0.05),
-    ("bf16-out", 32, 128, 10, 10, 64, 3, 1, 1, 1, 0.0),
-    ("identity", 2, 16, 8, 8, 24, 1, 1, 1, 0, 0.05),
+    ("stem-fp32", 1, 3, 64, 64, 16, 3, 2, 1, 1, 0.05, FP32, "direct"),
+    ("stem-bf16", 2, 3, 33, 31, 16, 3, 2, 1, 1, 0.05, BF16, "direct"),
+    ("stem-cout8-bf16-out", 1, 3, 20, 21, 8, 3, 2, 1, 2, 0.0, FP32, "direct"),
+    ("1x1-cin3", 2, 3, 9, 7, 64, 1, 1, 1, 0, 0.05, I8, "direct"),
+    ("1x1", 32, 64, 20, 20, 64, 1, 1, 1, 1, 0.05, I8, "gemm"),
+    ("1x1-b32-160", 32, 32, 160, 160, 32, 1, 1, 1, 1, 0.05, I8, "gemm"),
+    ("3x3-s2", 1, 64, 40, 40, 128, 3, 2, 1, 1, 0.05, I8, "gemm"),
+    ("3x3-s2-odd-hw", 3, 16, 15, 11, 32, 3, 2, 1, 1, 0.05, I8, "gemm"),
+    ("odd-hw", 2, 32, 13, 9, 48, 3, 1, 1, 1, 0.05, I8, "gemm"),
+    ("m-tail", 1, 64, 7, 9, 128, 3, 1, 1, 1, 0.05, I8, "gemm"),
+    ("cin8", 2, 8, 24, 24, 16, 3, 1, 1, 1, 0.05, I8, "gemm"),
+    ("cin16", 2, 16, 24, 20, 32, 1, 1, 1, 1, 0.05, I8, "gemm"),
+    ("cin48-cout8", 4, 48, 20, 20, 8, 1, 1, 1, 1, 0.05, I8, "gemm"),
+    ("cin80-cout80-bf16-in-out", 32, 80, 20, 20, 80, 1, 1, 1, 1, 0.0, BF16, "gemm"),
+    ("1x1-cin256-bf16-in", 8, 256, 20, 20, 256, 1, 1, 1, 1, 0.05, BF16, "gemm"),
+    ("3x3-fp32-in", 2, 64, 12, 12, 64, 3, 1, 1, 1, 0.05, FP32, "gemm"),
+    ("cout512", 2, 256, 10, 10, 512, 3, 1, 1, 1, 0.05, I8, "gemm"),
+    ("cout256-3x3-cin512", 2, 512, 20, 20, 256, 3, 1, 1, 1, 0.05, I8, "gemm"),
+    ("bf16-out", 32, 128, 10, 10, 64, 3, 1, 1, 1, 0.0, I8, "gemm"),
+    ("identity", 2, 16, 8, 8, 24, 1, 1, 1, 0, 0.05, I8, "gemm"),
+    ("relu", 2, 32, 16, 16, 64, 3, 1, 1, 2, 0.05, I8, "gemm"),
+    ("dwconv", 32, 80, 20, 20, 80, 3, 1, 80, 1, 0.0, I8, "depthwise"),
+    ("dwconv-s2-int8-out", 2, 64, 17, 13, 64, 3, 2, 64, 1, 0.05, I8, "depthwise"),
+    ("dwconv-bf16-in", 1, 32, 9, 9, 32, 3, 1, 32, 0, 0.05, BF16, "depthwise"),
+    ("groups2", 2, 16, 8, 8, 32, 3, 1, 2, 1, 0.05, I8, "direct"),
+    ("cin12", 1, 12, 10, 10, 16, 3, 1, 1, 2, 0.0, I8, "direct"),
 ]
 
 
 @pytest.mark.parametrize("case", K8_CASES, ids=[c[0] for c in K8_CASES])
 def test_int8_conv_kernel_matches_plain(card, case):
-    """K8 against its plain version on the same int8 inputs: int8 within 1 LSB, bf16 within 1 ulp; one launch."""
-    _, b, cin, h, w, cout, k, stride, groups, act, sout = case
+    """K8 against its plain version on the same inputs: every output equal (0 int8 LSB, 0 bf16 ulp); one launch
+    down the expected route."""
+    from yololite_tpu_torch.ops.kernels import int8_conv_plan
+
+    _, b, cin, h, w, cout, k, stride, groups, act, sout, xdtype, route = case
     rng = np.random.default_rng(cin + h + cout)
-    x = torch.from_numpy(rng.integers(-127, 128, (b, cin, h, w)).astype(np.int8)).to(card)
+    if xdtype == torch.int8:
+        x = torch.from_numpy(rng.integers(-127, 128, (b, cin, h, w)).astype(np.int8)).to(card)
+    else:  # an image or a bf16 island's output, quantized at sin = 1/64 (some values clamp at +-127)
+        x = torch.from_numpy(rng.uniform(-0.5, 2.5, (b, cin, h, w)).astype(np.float32)).to(card, xdtype)
     wq = torch.from_numpy(rng.integers(-127, 128, (cout, k, k, cin // groups)).astype(np.int8)).to(card)
     scale = torch.from_numpy(rng.uniform(2e-6, 2e-5, cout).astype(np.float32)).to(card)
     bias = torch.from_numpy(rng.normal(0, 1, cout).astype(np.float32)).to(card)
-    args = (x, wq, scale, bias, stride, k // 2, groups, act, sout)
+    args = (x, wq, scale, bias, stride, k // 2, groups, act, sout, 1.0 / 64)
     before = int8_conv.launches
     got = int8_conv(*args)
     torch.cuda.synchronize()
     assert int8_conv.launches == before + 1
+    assert int8_conv_plan(x.contiguous(memory_format=torch.channels_last), wq, got, groups)["route"] == route
     want = int8_conv_plain(x.contiguous(memory_format=torch.channels_last), *args[1:])
     assert got.shape == want.shape and got.dtype == want.dtype
+    differ = int((got != want).sum())
+    assert differ == 0, f"{differ} of {want.numel()} outputs differ"
     if sout > 0:
-        assert int((got.int() - want.int()).abs().max()) <= 1
         assert 0 < int((want != 0).sum()) and int((want.abs() == 127).sum()) < want.numel()
-    else:
-        a, b_ = got.float(), want.float()
-        ulp = torch.exp2(torch.floor(torch.log2(torch.maximum(a.abs(), b_.abs()).clamp_min(2.0 ** -126))) - 7)
-        assert float(((a - b_).abs() / ulp).max()) <= 1
 
 
-def test_int8_predict_launches_the_kernel(card):
-    """predict(int8=True) on the card runs every quantized conv through K8 (76 a yolo11n forward)."""
+@pytest.mark.parametrize("act", [0, 1, 2], ids=["none", "silu", "relu"])
+def test_requant_table_equals_the_arithmetic(card, act):
+    """K8's activation + requant table, built by its kernel: every bf16 y's entry equals the plain version's
+    activation and requant on the card; valid at real scales; at a tiny sout invalid, and a conv is then
+    still equal to its plain version (through the arithmetic)."""
+    import torch.nn.functional as F
+
+    from yololite_tpu_torch.ops.kernels import _requant_table, quantize_act
+
+    bits = torch.from_numpy(np.arange(65536, dtype=np.int64)).to(card)
+    y = torch.from_numpy(np.arange(65536).astype(np.uint16).view(np.int16)).view(torch.bfloat16).to(card)
+    y = F.silu(y) if act == 1 else F.relu(y) if act == 2 else y
+    e = (bits >> 7) & 0xFF
+    idx = ((bits >> 15) * 27 + (e - 110).clamp(0, 25) + ((e + 1) >> 8)) * 128 + (bits & 0x7F)
+    own = ((e > 110) & (e < 135)) | (e == 255)
+    for sout, valid in ((0.0371, True), (0.004, True), (1e-6, False)):
+        table = _requant_table(card, act, sout)
+        want = quantize_act(y, torch.tensor(sout, dtype=torch.float32, device=card))
+        got = table[:6912].view(torch.int8)[idx]
+        assert bool(table[6912:6916].view(torch.int32)[0] == 0) == valid
+        assert torch.equal(got[own], want[own])
+        if valid:
+            assert torch.equal(got, want)
+    rng = np.random.default_rng(act)
+    x = torch.from_numpy(rng.integers(-127, 128, (2, 32, 12, 12)).astype(np.int8)).to(card)
+    wq = torch.from_numpy(rng.integers(-127, 128, (64, 3, 3, 32)).astype(np.int8)).to(card)
+    scale = torch.from_numpy(rng.uniform(2e-6, 2e-5, 64).astype(np.float32)).to(card)
+    bias = torch.from_numpy(rng.normal(0, 1, 64).astype(np.float32)).to(card)
+    for sout in (0.0371, 1e-6):
+        args = (x, wq, scale, bias, 1, 1, 1, act, sout)
+        assert torch.equal(int8_conv(*args), int8_conv_plain(x.contiguous(memory_format=torch.channels_last),
+                                                             *args[1:]))
+
+
+def test_int8_predict_launches_the_kernel(card, monkeypatch):
+    """predict(int8=True) on the card runs every quantized conv through K8 (76 a yolo11n forward); the float
+    inputs (the image, the bf16 islands' outputs) reach K8 unquantized: no quantize_act runs on the card."""
     from yololite_tpu_torch import YOLOLite
+    from yololite_tpu_torch.ops import kernels
 
     rng = np.random.default_rng(0)
     src = [rng.integers(0, 256, (120, 160, 3), np.uint8) for _ in range(2)]
     model = YOLOLite("yolo11n.yaml")
     kw = dict(conf=1e-7, imgsz=160, batch=2, int8=True, save=False, verbose=False)
     model.predict(src, **kw)
+    quantizes = []
+    real = kernels.quantize_act
+    monkeypatch.setattr(kernels, "quantize_act", lambda *a: quantizes.append(1) or real(*a))
     before = int8_conv.launches
     res = model.predict(src, **kw)
     assert int8_conv.launches - before == 76
+    assert not quantizes
     assert all(len(r) > 0 and np.isfinite(r.boxes.data).all() for r in res)

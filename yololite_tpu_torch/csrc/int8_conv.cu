@@ -2,45 +2,67 @@
 //
 // Replaces the int8 serving convolution of yololite_tpu/models/modules.py:176-185
 // (Conv's quantized branch): the int32-accumulated `conv2d(..., pet=jnp.int32)`
-// of :63-83, which XLA lowers for the TPU's int8 matrix unit, and its epilogue
-// `acc * (sin * sw) + b` -> bf16 -> SiLU -> `quantize_act` (:86-88). PyTorch has
-// no int8 convolution on CUDA, so this op has no library counterpart to call.
+// of :63-83, which XLA lowers for the TPU's int8 matrix unit, its epilogue
+// `acc * (sin * sw) + b` -> bf16 -> SiLU -> `quantize_act` (:86-88), and the
+// `quantize_act` of a float input before it (:178-179). PyTorch has no int8
+// convolution on CUDA, so this op has no library counterpart to call.
 //
 // What it computes, per output element (b, oy, ox, o):
-//   acc = sum over taps and the group's input channels of x * w    (int32)
+//   xq  = x when x is int8, else int8(clamp(rint(float(x) / sin), -127, 127))
+//   acc = sum over taps and the group's input channels of xq * w    (int32)
 //   y   = float(acc) * scale[o] + bias[o]    (fp32, rounded after each op)
 //   y   = bf16(y); SiLU (or ReLU, or nothing) as torch rounds it on bf16:
 //         bf16(float(y) / (1 + exp(-float(y))))
 //   out = int8(clamp(rint(float(y) / sout), -127, 127)) when the consumer is
 //         quantized (sout > 0), else the bf16 y.
 // scale = sin * sw is formed in fp32 by the caller, as the JAX package does.
-// Every fp32 operation of the epilogue is an __f*_rn intrinsic, which nvcc never
-// contracts into an FMA, and the division is IEEE, so the epilogue has the bits
-// of the plain torch version (ops/kernels.py int8_conv_plain). Never build this
-// with --use_fast_math.
+// Every fp32 operation is an __f*_rn intrinsic, which nvcc never contracts
+// into an FMA, and the divisions are IEEE, so the kernel has the bits of the
+// plain torch version (ops/kernels.py int8_conv_plain) on every output; the
+// int32 sum is exact in any order (|acc| <= 127^2 * 4,608 < 2^31). Never build
+// this with --use_fast_math.
 //
-// Layouts: x is int8 NHWC (B, H, W, Cin), the channels-last form of the port's
-// int8 edges; w is int8 OHWI (Cout, KH, KW, Cin/groups); scale and bias fp32
-// (Cout); out NHWC (B, Ho, Wo, Cout), int8 or bf16. Any stride, padding and
-// groups; dilation 1.
+// Layouts: x is NHWC (B, H, W, Cin), int8, bf16 or fp32; w is int8 OHWI
+// (Cout, KH, KW, Cin/groups); scale and bias fp32 (Cout); out NHWC
+// (B, Ho, Wo, Cout), int8 or bf16. Any stride, padding and groups; dilation 1.
 //
-// Design, simple first: one thread per output pixel and kOCT = 8 consecutive
-// output channels, 128 pixels per block, the block's weights tile (8 output
-// channels x taps x Cin/groups bytes) in shared memory. Where every tile lies in
-// one group and Cin/groups is a multiple of 4 (all of yolo11's convolutions but
-// the 3-channel stem and the depthwise ones), 4 channels pack into one 32-bit
-// word: the thread loads one word of its input pixel and feeds it to __dp4a
-// against the 8 channels' weight words (two 16-byte shared-memory loads, the
-// same address for the whole warp). Otherwise a scalar loop over the group's
-// channels (the stem's 3 channels, the depthwise convolutions' 1).
+// Bound on an H100 SXM: x and w read once, out written once, 2 * B * Ho * Wo *
+// Cout * taps * Cin/groups int8 operations at 1,979 TOP/s (tensor cores). At
+// yolo11n's widths the bytes bound 73 of the 76 convs; at yolo11m's the
+// operations bound most 3x3 and wide 1x1 convs. A bytes-bound conv moves about
+// one byte per output, so the epilogue's arithmetic (expf and two IEEE
+// divisions, some 45 instructions an output) costs more than the bytes: an
+// int8 output's activation + requant is a table lookup (see kTabBase). Three
+// routes, one launch each:
 //
-// Bound on an H100 SXM: the conv reads x and w once and writes out once, and
-// does 2 * Cout * Ho * Wo * B * taps * Cin/groups int8 operations; at 1,979
-// TOP/s int8 (tensor cores) the bytes bound most of yolo11n's convolutions.
-// This design uses no tensor core (IMMA/wgmma), no TMA, and re-reads each input
-// pixel once per 8 output channels through L1/L2, so it is bound by the
-// __dp4a instruction rate and those loads; tensor-core tiles, TMA and a fused
-// quantize of a bf16 input are later work (PERF.md).
+// 1. gemm (groups 1, Cin and Cout multiples of 8): an implicit GEMM on the int8
+//    tensor cores. M = B * Ho * Wo output pixels, N = Cout, K = taps * Cin,
+//    walked flat (k = (ky * kw + kx) * Cin + c, so a 3x3 conv of Cin 16 takes
+//    3 steps, not 9) in steps of two 32-byte chunks. A tile is 64 * WG output
+//    pixels (WG consumer warpgroups, one m64 row block each; WG = 1 where
+//    128-pixel tiles would not fill the card twice) by an N tile of Cout up to
+//    128 (Cout 256 and 512 run as 2 and 4 N tiles: measured faster than one of
+//    256, whose 128 accumulators a thread leave one block an SM). The grid is
+//    persistent: each block walks its tiles' K steps as one stream. Each step's
+//    A (tile rows x 32 bytes a chunk) and B (N tile x 32 bytes a chunk) land in
+//    a ring of kStages shared-memory slots in the 32-byte swizzle layout,
+//    fetched by cp.async with zero-fill: src-size 0 for a tap outside the frame
+//    (the padding) or K past the end; 8-byte copies where Cin is not a multiple
+//    of 16; stride in the address. A bf16 or fp32 x is loaded into registers,
+//    quantized and stored to the slot as int8 instead. Each warpgroup issues a
+//    wgmma.m64nNk32.s32.s8.s8 a chunk, asynchronously, while the copies of the
+//    step two ahead are in flight. At a tile's last step the epilogue runs on
+//    the accumulators in registers, stages the tile in shared memory and writes
+//    it out in 16-byte coalesced stores, while the next tile's copies fly.
+// 2. depthwise (groups == Cin == Cout, a multiple of 16, 3x3): nothing for a
+//    tensor core (K = 9 per channel). One thread per output pixel and 16
+//    channels: the 9 taps' 16-byte loads in flight together, the 144 weight
+//    bytes in registers, the same epilogue, 16-byte stores.
+// 3. direct (everything else): one thread per output pixel and 16 output
+//    channels, the block's weights in shared memory, a float input quantized
+//    as it is loaded. For groups 1 and taps x Cin <= 32 (the 3-channel stem, fp32
+//    or bf16 in) all loads go out first and the K values pack into 8 words for
+//    8 __dp4a an output.
 //
 // C interface, bound with ctypes: launches on the caller's stream of the
 // caller's device, allocates nothing, does not synchronise, and returns the
@@ -52,75 +74,648 @@
 
 namespace {
 
-constexpr int kOCT = 8;        // output channels per thread
-constexpr int kThreads = 128;  // output pixels per block
+enum XType { kInt8 = 0, kBf16 = 1, kFp32 = 2 };
+enum Route { kGemm = 0, kDepthwise = 1, kDirect = 2 };
+
+constexpr int kStages = 4;  // ring slots: the step in the tensor cores, the one before it, two in flight
+constexpr int kChunk = 32;   // K bytes of one wgmma k32
+constexpr int kChunks = 2;   // chunks a step holds: up to two wgmmas a barrier
 
 struct Conv {
-  const int8_t* x;
+  const void* x;
   const int8_t* w;
   const float* scale;
   const float* bias;
   void* out;
-  int b, h, w_in, cin, ho, wo, cout, kh, kw, stride, pad, groups, act;
+  int b, h, w_in, cin, ho, wo, cout, kh, kw, stride, pad, groups, act, xtype;
   float sout;  // > 0: requantize to int8 at this scale; else write bf16
+  float sin;   // the scale at which a bf16 or fp32 x is quantized
+  const uint8_t* table;  // int8 out: the activation + requant table at (act, sout), or null
+  float inv_sin;         // fl(1 / sin); inf for sin 0, which the quantize then treats as the division does
 };
 
-__device__ __forceinline__ void store(const Conv& p, size_t pix, int o, int acc) {
-  float y = __fadd_rn(__fmul_rn(__int2float_rn(acc), p.scale[o]), p.bias[o]);
-  __nv_bfloat16 yb = __float2bfloat16_rn(y);
-  if (p.act == 1) {  // SiLU as torch computes it on bf16: in fp32, one rounding to bf16
+
+__device__ __forceinline__ int xbytes(int xtype) { return xtype == kInt8 ? 1 : xtype == kBf16 ? 2 : 4; }
+
+// ---------------- the epilogue and the quantize, shared by every route ----------------
+
+__device__ __forceinline__ __nv_bfloat16 affine(int acc, float scale, float bias) {  // bf16(acc * scale + bias)
+  return __float2bfloat16_rn(__fadd_rn(__fmul_rn(__int2float_rn(acc), scale), bias));
+}
+
+__device__ __forceinline__ __nv_bfloat16 activate(__nv_bfloat16 yb, int act) {
+  if (act == 1) {  // SiLU as torch computes it on bf16: v / (1 + exp(-v)) in fp32, one rounding to bf16
     const float v = __bfloat162float(yb);
-    yb = __float2bfloat16_rn(__fdiv_rn(v, __fadd_rn(1.0f, expf(-v))));
-  } else if (p.act == 2) {  // ReLU
-    if (!(__bfloat162float(yb) > 0.0f)) yb = __float2bfloat16_rn(0.0f);
+    return __float2bfloat16_rn(__fdiv_rn(v, __fadd_rn(1.0f, expf(-v))));
   }
-  const size_t idx = pix * p.cout + o;
-  if (p.sout > 0.0f) {
-    float q = rintf(__fdiv_rn(__bfloat162float(yb), p.sout));  // round half to even, as torch.round
-    q = fminf(fmaxf(q, -127.0f), 127.0f);
-    static_cast<int8_t*>(p.out)[idx] = static_cast<int8_t>(static_cast<int>(q));
+  if (act == 2 && !(__bfloat162float(yb) > 0.0f)) return __float2bfloat16_rn(0.0f);  // ReLU
+  return yb;
+}
+
+__device__ __forceinline__ __nv_bfloat16 epilogue(int acc, float scale, float bias, int act) {
+  return activate(affine(acc, scale, bias), act);
+}
+
+// int8(clamp(rint(v / s), -127, 127)) as torch computes it: rint rounds half to even (torch.round), the
+// division is IEEE, and a NaN stays NaN through the clamp and converts to 0
+__device__ __forceinline__ uint32_t quantize(float v, float s) {
+  const float q = rintf(__fdiv_rn(v, s));
+  return static_cast<uint32_t>(q != q ? 0 : static_cast<int>(fminf(fmaxf(q, -127.0f), 127.0f))) & 0xffu;
+}
+
+// quantize(v, s) from t = v * fl(1 / s), which is within 2^-14.8 of fl(v / s) while |t| <= 200 (two roundings
+// of 2^-24 each): the same rint unless t lies within 2^-13 of a half-integer, where the IEEE division decides
+// (about one value in 4,000); above 200 both clamp to +-127, and NaN and inf fail the test and stay as they are
+__device__ __forceinline__ uint32_t quantize_fast(float v, float s, float inv_s) {
+  const float t = __fmul_rn(v, inv_s);
+  float q = rintf(t);
+  if (fabsf(t) <= 200.0f && 0.5f - fabsf(__fsub_rn(t, q)) <= 0x1p-13f) q = rintf(__fdiv_rn(v, s));
+  return static_cast<uint32_t>(q != q ? 0 : static_cast<int>(fminf(fmaxf(q, -127.0f), 127.0f))) & 0xffu;
+}
+
+__device__ __forceinline__ uint32_t requant(__nv_bfloat16 yb, float sout) {
+  return quantize(__bfloat162float(yb), sout);
+}
+
+// The requantizing epilogue's tail, activation then requant, as a table over the bf16 y: about 45
+// instructions an output (expf and two IEEE divisions) become one shared-memory load, which matters
+// because the bytes-bound convs move one byte per output. Index: sign, then the exponent field e in slots
+// (0: e <= 110, |y| < 2^-16; 1-24: e = 111..134, one per binade; 25: e = 135..254, |y| >= 2^8; 26: e = 255,
+// inf and NaN), then the 7 mantissa bits. The table kernel evaluates all 65,536 bf16 values and marks the
+// table invalid (its last word) unless every y in slot 0 or 25 gives the value of its slot's entry; an
+// invalid table sends the conv to the arithmetic. So a table read has the bits of the arithmetic always.
+constexpr int kTabBase = 110;
+constexpr int kTabSlots = 27;
+constexpr int kTabBytes = 2 * kTabSlots * 128;  // 6,912; the validity word follows
+
+__device__ __forceinline__ int table_index(__nv_bfloat16 yb) {
+  const int bits = __bfloat16_as_ushort(yb);
+  const int e = (bits >> 7) & 0xff;
+  const int slot = min(max(e - kTabBase, 0), kTabSlots - 2) + ((e + 1) >> 8);
+  return ((bits >> 15) * kTabSlots + slot) * 128 + (bits & 0x7f);
+}
+
+// whether the conv's output goes through the table: int8 out and a valid table (uniform for the launch)
+__device__ __forceinline__ bool use_table(const Conv& p) {
+  return p.table != nullptr && p.sout > 0.0f && __ldg(reinterpret_cast<const int*>(p.table + kTabBytes)) == 0;
+}
+
+__device__ __forceinline__ uint32_t bf16x2(__nv_bfloat16 lo, __nv_bfloat16 hi) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) | (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
+}
+
+__device__ __forceinline__ uint32_t pack4(uint32_t a, uint32_t b, uint32_t c, uint32_t d) {
+  return a | (b << 8) | (c << 16) | (d << 24);
+}
+
+// 8 channels of a bf16 x (the 16 bytes of a) or an fp32 x (the 32 bytes of a, b), quantized at s: 8 int8 in
+// two words
+__device__ __forceinline__ uint2 quantize8(uint4 a, uint4 b, int xtype, float s) {
+  float v[8];
+  if (xtype == kBf16) {
+    const uint32_t words[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {  // a bf16 is the top half of its fp32
+      v[2 * i] = __uint_as_float(words[i] << 16);
+      v[2 * i + 1] = __uint_as_float(words[i] & 0xffff0000u);
+    }
   } else {
-    static_cast<__nv_bfloat16*>(p.out)[idx] = yb;
+    v[0] = __uint_as_float(a.x); v[1] = __uint_as_float(a.y); v[2] = __uint_as_float(a.z); v[3] = __uint_as_float(a.w);
+    v[4] = __uint_as_float(b.x); v[5] = __uint_as_float(b.y); v[6] = __uint_as_float(b.z); v[7] = __uint_as_float(b.w);
+  }
+  uint32_t q[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) q[i] = quantize(v[i], s);
+  return make_uint2(pack4(q[0], q[1], q[2], q[3]), pack4(q[4], q[5], q[6], q[7]));
+}
+
+// the same from memory: 8 channels at src
+__device__ __forceinline__ uint2 quantize8(const void* src, int xtype, float s) {
+  const uint4* v = static_cast<const uint4*>(src);
+  return quantize8(v[0], xtype == kFp32 ? v[1] : v[0], xtype, s);
+}
+
+__device__ __forceinline__ int sbyte(uint32_t word, int i) {  // the i-th int8 of a word, sign-extended
+  return static_cast<int>(word << (24 - 8 * i)) >> 24;
+}
+
+// ---------------- PTX: cp.async, wgmma ----------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// copy `bytes` (16 or 0) from src and zero-fill the rest of the 16
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(bytes) : "memory");
+}
+
+// copy `bytes` (8 or 0) from src and zero-fill the rest of the 8
+__device__ __forceinline__ void cp_async8(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst), "l"(src), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// shared-memory writes of the generic proxy (cp.async, st.shared) made visible to wgmma's async proxy
+__device__ __forceinline__ void fence_proxy_async() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keeps the compiler from moving accumulator reads or writes across a wgmma
+template <int R>
+__device__ __forceinline__ void fence_operands(uint32_t (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// Shared-memory matrix descriptor of a K-major operand in the 32-byte swizzle layout (layout type 3, bits
+// 62-63): each row's 32 K bytes contiguous, 8-row groups 256 bytes apart (stride byte offset, in 16-byte
+// units), the two 16-byte halves of rows 4-7 of each group swapped (address bit 4 ^= bit 7). The leading
+// byte offset is unused: a step's 32 K bytes are one swizzle atom wide. Measured faster than the
+// unswizzled 8 x 16-byte core-matrix layout (PERF.md).
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3ffff) >> 4) | (static_cast<uint64_t>(1) << 16) |
+         (static_cast<uint64_t>(256 >> 4) << 32) | (static_cast<uint64_t>(3) << 62);
+}
+
+// byte offset of (row, K byte k) of an operand tile in its slot (slots start 256-byte aligned)
+__device__ __forceinline__ int swizzled_offset(int row, int k) {
+  const int off = row * kChunk + k;
+  return off ^ (((off >> 7) & 1) << 4);
+}
+
+#define K8_R4(i) "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3])
+#define K8_R8(i) K8_R4(i), K8_R4(i + 4)
+
+// wgmma.mma_async m64nNk32, s32 += s8 * s8, A and B K-major in shared memory, d += A * B^T.
+// The accumulator of thread t of the warpgroup: d[4j + e] is row 16 * (t / 32) + (t % 32) / 4 + 8 * (e / 2),
+// column 8j + 2 * (t % 4) + e % 2.
+template <int N>
+struct Wgmma;
+
+template <>
+struct Wgmma<8> {
+  static __device__ __forceinline__ void mma(uint32_t (&d)[4], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k32.s32.s8.s8 "
+        "{%0, %1, %2, %3}, "
+        "%4, %5, p;\n}\n"
+        : K8_R4(0)
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<16> {
+  static __device__ __forceinline__ void mma(uint32_t (&d)[8], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k32.s32.s8.s8 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "%8, %9, p;\n}\n"
+        : K8_R8(0)
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<32> {
+  static __device__ __forceinline__ void mma(uint32_t (&d)[16], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "%16, %17, p;\n}\n"
+        : K8_R8(0), K8_R8(8)
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<64> {
+  static __device__ __forceinline__ void mma(uint32_t (&d)[32], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p;\n}\n"
+        : K8_R8(0), K8_R8(8), K8_R8(16), K8_R8(24)
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<80> {
+  static __device__ __forceinline__ void mma(uint32_t (&d)[40], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %42, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n80k32.s32.s8.s8 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39}, "
+        "%40, %41, p;\n}\n"
+        : K8_R8(0), K8_R8(8), K8_R8(16), K8_R8(24),
+          K8_R8(32)
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<128> {
+  static __device__ __forceinline__ void mma(uint32_t (&d)[64], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p;\n}\n"
+        : K8_R8(0), K8_R8(8), K8_R8(16), K8_R8(24),
+          K8_R8(32), K8_R8(40), K8_R8(48), K8_R8(56)
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
+
+#undef K8_R8
+#undef K8_R4
+
+// ---------------- route 1: the implicit GEMM ----------------
+
+template <int BN, int WG>
+struct GemmTile {
+  static constexpr int kBM = 64 * WG;  // output pixels
+  static constexpr int kThreads = 128 * WG;
+  static constexpr int kSlotA = kChunks * kBM * kChunk;  // a step's A: kChunks sub-tiles of kBM rows x 32 bytes
+  static constexpr int kSlotB = kChunks * BN * kChunk;
+  static constexpr int kBTasks = (2 * BN * kChunks + kThreads - 1) / kThreads;  // B copies a thread issues
+  static constexpr int kRing = kStages * (kSlotA + kSlotB);
+  static constexpr int kStageRow = BN * 2 + 16;  // a staged output row: bf16 at most, 16 bytes apart
+  static constexpr int kTable = kRing + kBM * kStageRow;  // after the ring and the staged tile
+  static constexpr int kParams = kTable + kTabBytes;      // then scale and bias of every output channel
+  static constexpr int smem(int cout) { return kParams + 8 * cout; }
+};
+
+// Persistent: block b takes tiles b, b + grid, ... (tile = M tile * N tiles + N tile) and walks their K steps
+// as one stream, so the copies of the next tile's first steps are in flight during a tile's epilogue.
+template <int BN, int WG>
+__global__ void __launch_bounds__(128 * WG, 1) int8_conv_gemm(Conv p, int granule) {
+  using T = GemmTile<BN, WG>;
+  extern __shared__ __align__(1024) uint8_t smem[];
+  float* s_scale = reinterpret_cast<float*>(smem + T::kParams);
+  float* s_bias = s_scale + p.cout;
+  const uint8_t* s_tab = smem + T::kTable;
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int hw = p.ho * p.wo, M = p.b * hw;
+  const int n_tiles = p.cout / BN;
+  const int tiles = (M + T::kBM - 1) / T::kBM * n_tiles;
+  const int K = p.kh * p.kw * p.cin;  // walked flat, k = (ky * kw + kx) * Cin + c, in steps of kChunks chunks
+  const int tile_steps = (K + kChunks * kChunk - 1) / (kChunks * kChunk);
+  const int steps = (static_cast<int>(blockIdx.x) < tiles ? (tiles - 1 - blockIdx.x) / gridDim.x + 1 : 0) * tile_steps;
+  const int xes = xbytes(p.xtype);
+
+  for (int i = tid; i < p.cout; i += T::kThreads) {
+    s_scale[i] = p.scale[i];
+    s_bias[i] = p.bias[i];
+  }
+  const bool tab = use_table(p);
+  if (tab)
+    for (int i = tid; i < kTabBytes / 16; i += T::kThreads)
+      reinterpret_cast<uint4*>(smem + T::kTable)[i] = reinterpret_cast<const uint4*>(p.table)[i];
+
+  // The loader. A: the thread's output pixel (row) and 16-byte K half of each chunk, whose tap and channel
+  // follow from k (a K half lies in one tap: Cin is a multiple of 16, or of 8 with 8-byte pieces); B: the
+  // weight row n and K half of each of the thread's copies, OHWI viewed as Cout x K.
+  const int row = tid >> 1, half = tid & 1;
+  const int a_dst = swizzled_offset(row, half * 16);
+  const uint32_t m_cin = 0xffffffffu / p.cin + 1, m_kw = p.kw > 1 ? 0xffffffffu / p.kw + 1 : 0;
+  int b_row[T::kBTasks], b_dst[T::kBTasks], b_k[T::kBTasks];
+#pragma unroll
+  for (int i = 0; i < T::kBTasks; ++i) {
+    const int task = tid + i * T::kThreads;
+    const int kc = task / (2 * BN), n = (task >> 1) % BN, hb = task & 1;
+    b_k[i] = task < 2 * BN * kChunks ? kc * kChunk + hb * 16 : 1 << 30;  // K offset in the step
+    b_row[i] = n * K;
+    b_dst[i] = kc * (T::kSlotB / kChunks) + swizzled_offset(n, hb * 16);
+  }
+  // the load position: tile and step in it
+  int ld_tile = blockIdx.x, ld_step = 0;
+  bool ld_ok = false;
+  int ld_iy0 = 0, ld_ix0 = 0, ld_wbase = 0;
+  long long ld_xrow = 0;  // element offset of the thread's pixel at tap (0, 0)
+  auto set_tile = [&]() {
+    const int mt = ld_tile / n_tiles;
+    const int m = mt * T::kBM + row;
+    ld_ok = m < M;
+    const int bi = ld_ok ? m / hw : 0, rem = ld_ok ? m - bi * hw : 0;
+    const int oy = rem / p.wo, ox = rem - oy * p.wo;
+    ld_iy0 = oy * p.stride - p.pad;
+    ld_ix0 = ox * p.stride - p.pad;
+    ld_xrow = ((long long)(bi * p.h + ld_iy0) * p.w_in + ld_ix0) * p.cin;
+    ld_wbase = (ld_tile - mt * n_tiles) * BN * K;
+  };
+  set_tile();
+  // the x offset of K index k for this thread's pixel, or -1 where it is zero (past K, or padding)
+  auto x_offset = [&](int k) -> long long {
+    if (k >= K || !ld_ok) return -1;
+    const int tap = __umulhi(k, m_cin), c = k - tap * p.cin;
+    const int ky = p.kw > 1 ? __umulhi(tap, m_kw) : tap, kx = tap - ky * p.kw;
+    const int iy = ld_iy0 + ky, ix = ld_ix0 + kx;
+    if (iy < 0 || iy >= p.h || ix < 0 || ix >= p.w_in) return -1;
+    return ld_xrow + (long long)(ky * p.w_in + kx) * p.cin + c;
+  };
+  auto load_next = [&](int slot) {
+    const int k0 = ld_step * kChunks * kChunk;  // the step's first K index
+    uint8_t* sa = smem + slot * T::kSlotA;
+    const uint8_t* xb = static_cast<const uint8_t*>(p.x);
+#pragma unroll
+    for (int kc = 0; kc < kChunks; ++kc) {
+      const int k = k0 + kc * kChunk + half * 16;
+      if (k0 + kc * kChunk >= K) break;  // a chunk past K: its wgmma is not issued
+      uint8_t* dst = sa + kc * (T::kSlotA / kChunks) + a_dst;
+      const long long o0 = x_offset(k), o1 = granule == 16 ? (o0 < 0 ? -1 : o0 + 8) : x_offset(k + 8);
+      if (p.xtype == kInt8) {
+        if (granule == 16) {
+          cp_async16(smem_addr(dst), o0 < 0 ? p.x : xb + o0, o0 < 0 ? 0 : 16);
+        } else {
+          cp_async8(smem_addr(dst), o0 < 0 ? p.x : xb + o0, o0 < 0 ? 0 : 8);
+          cp_async8(smem_addr(dst + 8), o1 < 0 ? p.x : xb + o1, o1 < 0 ? 0 : 8);
+        }
+      } else {  // bf16 or fp32: quantize in registers, store int8
+        const uint2 zero = make_uint2(0u, 0u);
+        const uint2 lo = o0 < 0 ? zero : quantize8(xb + o0 * xes, p.xtype, p.sin);
+        const uint2 hi = o1 < 0 ? zero : quantize8(xb + o1 * xes, p.xtype, p.sin);
+        *reinterpret_cast<uint4*>(dst) = make_uint4(lo.x, lo.y, hi.x, hi.y);
+      }
+    }
+    uint8_t* sb = smem + kStages * T::kSlotA + slot * T::kSlotB;
+    const int8_t* wrow = p.w + ld_wbase + k0;
+#pragma unroll
+    for (int i = 0; i < T::kBTasks; ++i) {
+      const int k = k0 + b_k[i];
+      if (k - b_k[i] % kChunk < K) {  // the copy's chunk has K indices (b_k is past them all without a task)
+        const uint32_t dst = smem_addr(sb + b_dst[i]);
+        const int8_t* src = wrow + b_row[i] + b_k[i];
+        if (granule == 16) {
+          cp_async16(dst, k < K ? src : p.w, k < K ? 16 : 0);
+        } else {
+          cp_async8(dst, k < K ? src : p.w, k < K ? 8 : 0);
+          cp_async8(dst + 8, k + 8 < K ? src + 8 : p.w, k + 8 < K ? 8 : 0);
+        }
+      }
+    }
+    if (++ld_step == tile_steps) {
+      ld_step = 0;
+      ld_tile += gridDim.x;
+      set_tile();
+    }
+  };
+
+  uint32_t acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0u;
+
+#pragma unroll
+  for (int s = 0; s < kStages - 2; ++s) {
+    if (s < steps) load_next(s);
+    cp_async_commit();
+  }
+  const bool q8 = p.sout > 0.0f;
+  const int lane = tid & 31, warp = (tid >> 5) & 3;
+  const int r0 = wg * 64 + warp * 16 + (lane >> 2), c0 = 2 * (lane & 3);
+  int tile = blockIdx.x, tile_step = 0;  // the computed step's tile and index in the tile
+  for (int kt = 0; kt < steps; ++kt) {
+    cp_async_wait<kStages - 3>();  // this thread's copies of step kt have landed
+    fence_proxy_async();
+    __syncthreads();  // everyone's have, every warpgroup is done with step kt - 2's slot, the staged tile is out
+    const int slot = kt % kStages;
+    const uint32_t a = smem_addr(smem + slot * T::kSlotA + wg * 64 * kChunk);
+    const uint32_t b = smem_addr(smem + kStages * T::kSlotA + slot * T::kSlotB);
+    const int chunks = min(kChunks, (K - tile_step * kChunks * kChunk + kChunk - 1) / kChunk);
+    fence_operands(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < kChunks; ++kc)
+      if (kc < chunks)
+        Wgmma<BN>::mma(acc, smem_desc(a + kc * (T::kSlotA / kChunks)), smem_desc(b + kc * (T::kSlotB / kChunks)));
+    wgmma_commit();
+    if (kt + kStages - 2 < steps) load_next((kt + kStages - 2) % kStages);  // into the slot of step kt - 2
+    cp_async_commit();
+    if (++tile_step < tile_steps) {
+      wgmma_wait<1>();  // step kt - 1 is done
+      fence_operands(acc);
+      continue;
+    }
+    // the tile's last step: its epilogue in registers, into the staged tile (row stride kStageRow), while
+    // the copies of the next tile's first steps are in flight
+    tile_step = 0;
+    wgmma_wait<0>();
+    fence_operands(acc);
+    const int mt = tile / n_tiles;
+    const int m0 = mt * T::kBM, n0 = (tile - mt * n_tiles) * BN;
+    uint8_t* staged = smem + T::kRing;
+    if (tab) {  // int8 out through the table
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; e += 2) {
+          const int r = r0 + 8 * (e >> 1), col = n0 + 8 * j + c0;
+          const uint32_t q0 = s_tab[table_index(affine(static_cast<int>(acc[4 * j + e]), s_scale[col], s_bias[col]))];
+          const uint32_t q1 = s_tab[table_index(
+              affine(static_cast<int>(acc[4 * j + e + 1]), s_scale[col + 1], s_bias[col + 1]))];
+          *reinterpret_cast<uint16_t*>(staged + r * T::kStageRow + col - n0) = static_cast<uint16_t>(q0 | (q1 << 8));
+        }
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; e += 2) {
+          const int r = r0 + 8 * (e >> 1), col = n0 + 8 * j + c0;
+          const __nv_bfloat16 y0 = epilogue(static_cast<int>(acc[4 * j + e]), s_scale[col], s_bias[col], p.act);
+          const __nv_bfloat16 y1 =
+              epilogue(static_cast<int>(acc[4 * j + e + 1]), s_scale[col + 1], s_bias[col + 1], p.act);
+          uint8_t* dst = staged + r * T::kStageRow;
+          if (q8)
+            *reinterpret_cast<uint16_t*>(dst + col - n0) =
+                static_cast<uint16_t>(requant(y0, p.sout) | (requant(y1, p.sout) << 8));
+          else
+            *reinterpret_cast<uint32_t*>(dst + 2 * (col - n0)) = bf16x2(y0, y1);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0u;
+    __syncthreads();
+    // the tile out: rows of BN * esize bytes, each at (m * Cout + n0) * esize, in 16- (or 8-) byte stores
+    const int es = q8 ? 1 : 2;
+    const int vec = BN * es % 16 == 0 ? 16 : 8;
+    const int per_row = BN * es / vec;
+    for (int v = tid; v < T::kBM * per_row; v += T::kThreads) {
+      const int r = v / per_row, cv = v - r * per_row;
+      if (m0 + r >= M) break;  // rows ascend with v
+      uint8_t* dst = static_cast<uint8_t*>(p.out) + ((size_t)(m0 + r) * p.cout + n0) * es + cv * vec;
+      const uint8_t* src = staged + r * T::kStageRow + cv * vec;
+      if (vec == 16)
+        *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+      else
+        *reinterpret_cast<uint2*>(dst) = *reinterpret_cast<const uint2*>(src);
+    }
+    tile += gridDim.x;
+  }
+  cp_async_wait<0>();
+}
+
+// ---------------- route 2: depthwise 3x3 ----------------
+
+constexpr int kDwThreads = 256;
+
+__global__ void __launch_bounds__(kDwThreads) int8_conv_depthwise(Conv p) {
+  const int groups16 = p.cin / 16;
+  const size_t idx = (size_t)blockIdx.x * kDwThreads + threadIdx.x;
+  const size_t total = (size_t)p.b * p.ho * p.wo * groups16;
+  if (idx >= total) return;
+  const int g = static_cast<int>(idx % groups16);
+  const size_t pix = idx / groups16;
+  const int ox = static_cast<int>(pix % p.wo), oy = static_cast<int>((pix / p.wo) % p.ho);
+  const size_t bi = pix / ((size_t)p.wo * p.ho);
+  const int c0 = g * 16;
+  // the 16 channels' 3x3 weights, OHWI with I = 1: 144 bytes from w + 9 * c0, channel c's tap t at 9c + t
+  uint32_t wr[36];
+#pragma unroll
+  for (int i = 0; i < 9; ++i) {
+    const uint4 v = reinterpret_cast<const uint4*>(p.w + 9 * c0)[i];
+    wr[4 * i] = v.x; wr[4 * i + 1] = v.y; wr[4 * i + 2] = v.z; wr[4 * i + 3] = v.w;
+  }
+  const int es = xbytes(p.xtype);
+  // the 9 taps' 16 channels as int8: for an int8 x all 9 loads go out before the first use
+  uint32_t xv[9][4];
+#pragma unroll
+  for (int t = 0; t < 9; ++t) {
+    const int iy = oy * p.stride - p.pad + t / 3, ix = ox * p.stride - p.pad + t % 3;
+    const bool in = iy >= 0 && iy < p.h && ix >= 0 && ix < p.w_in;  // zero padding adds nothing
+    const uint8_t* src = static_cast<const uint8_t*>(p.x) + (((bi * p.h + iy) * p.w_in + ix) * p.cin + c0) * es;
+    if (p.xtype == kInt8) {
+      const uint4 v = in ? *reinterpret_cast<const uint4*>(src) : make_uint4(0u, 0u, 0u, 0u);
+      xv[t][0] = v.x; xv[t][1] = v.y; xv[t][2] = v.z; xv[t][3] = v.w;
+    } else {
+      const uint2 zero = make_uint2(0u, 0u);
+      const uint2 lo = in ? quantize8(src, p.xtype, p.sin) : zero;
+      const uint2 hi = in ? quantize8(src + 8 * es, p.xtype, p.sin) : zero;
+      xv[t][0] = lo.x; xv[t][1] = lo.y; xv[t][2] = hi.x; xv[t][3] = hi.y;
+    }
+  }
+  int acc[16];
+#pragma unroll
+  for (int c = 0; c < 16; ++c) acc[c] = 0;
+#pragma unroll
+  for (int t = 0; t < 9; ++t) {
+#pragma unroll
+    for (int c = 0; c < 16; ++c) acc[c] += sbyte(xv[t][c >> 2], c & 3) * sbyte(wr[(9 * c + t) >> 2], (9 * c + t) & 3);
+  }
+  uint8_t* out = static_cast<uint8_t*>(p.out);
+  if (p.sout > 0.0f) {
+    uint32_t q[16];
+    if (use_table(p)) {
+#pragma unroll
+      for (int c = 0; c < 16; ++c) q[c] = __ldg(p.table + table_index(affine(acc[c], p.scale[c0 + c], p.bias[c0 + c])));
+    } else {
+#pragma unroll
+      for (int c = 0; c < 16; ++c) q[c] = requant(epilogue(acc[c], p.scale[c0 + c], p.bias[c0 + c], p.act), p.sout);
+    }
+    *reinterpret_cast<uint4*>(out + pix * p.cout + c0) =
+        make_uint4(pack4(q[0], q[1], q[2], q[3]), pack4(q[4], q[5], q[6], q[7]), pack4(q[8], q[9], q[10], q[11]),
+                   pack4(q[12], q[13], q[14], q[15]));
+  } else {
+    uint32_t o[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      o[i] = bf16x2(epilogue(acc[2 * i], p.scale[c0 + 2 * i], p.bias[c0 + 2 * i], p.act),
+                    epilogue(acc[2 * i + 1], p.scale[c0 + 2 * i + 1], p.bias[c0 + 2 * i + 1], p.act));
+    uint4* dst = reinterpret_cast<uint4*>(out + (pix * p.cout + c0) * 2);
+    dst[0] = make_uint4(o[0], o[1], o[2], o[3]);
+    dst[1] = make_uint4(o[4], o[5], o[6], o[7]);
   }
 }
 
-// One output pixel per thread, kOCT output channels from blockIdx.y * kOCT.
-template <bool kDp4a>
-__global__ void __launch_bounds__(kThreads) int8_conv_kernel(Conv p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int cin_g = p.cin / p.groups, cout_g = p.cout / p.groups;
-  const int taps = p.kh * p.kw;
-  const int row = taps * cin_g;  // weight bytes of one output channel
-  const int oc0 = blockIdx.y * kOCT;
+// ---------------- route 3: direct ----------------
 
-  // ---- the weights tile ----
-  if (kDp4a) {  // words: s_w[(tap * cin4 + c4) * kOCT + o]
-    const int cin4 = cin_g / 4, words = taps * cin4;
-    int* s_w = reinterpret_cast<int*>(smem);
-    for (int t = threadIdx.x; t < words * kOCT; t += kThreads) {
-      const int o = t % kOCT, r = t / kOCT;
-      s_w[t] = oc0 + o < p.cout ? reinterpret_cast<const int*>(p.w + (size_t)(oc0 + o) * row)[r] : 0;
+constexpr int kOC = 16;            // output channels per thread
+constexpr int kDirectThreads = 128;  // output pixels per block
+
+__device__ __forceinline__ int load_q(const Conv& p, size_t i) {  // x[i] as int8, quantized if float
+  if (p.xtype == kInt8) return static_cast<const int8_t*>(p.x)[i];
+  const float v = p.xtype == kBf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(p.x)[i])
+                                   : static_cast<const float*>(p.x)[i];
+  return static_cast<int>(quantize_fast(v, p.sin, p.inv_sin) << 24) >> 24;
+}
+
+// the epilogue of output channels oc0..oc0 + 15 (those below Cout) of pixel pix, stored at (pix, oc0)
+__device__ __forceinline__ void store16(const Conv& p, const int (&acc)[kOC], size_t pix, int oc0) {
+  const size_t idx = pix * p.cout + oc0;
+  if (p.sout > 0.0f) {
+    int8_t* out = static_cast<int8_t*>(p.out);
+    const bool tab = use_table(p);
+    uint32_t q[kOC];
+#pragma unroll
+    for (int o = 0; o < kOC; ++o) {
+      const int oc = min(oc0 + o, p.cout - 1);
+      const __nv_bfloat16 y = affine(acc[o], p.scale[oc], p.bias[oc]);
+      q[o] = tab ? __ldg(p.table + table_index(y)) : requant(activate(y, p.act), p.sout);
     }
-  } else {  // bytes: s_w[o * row + tap * cin_g + c]
-    int8_t* s_w = reinterpret_cast<int8_t*>(smem);
-    for (int t = threadIdx.x; t < row * kOCT; t += kThreads) {
-      const int o = t / row, r = t % row;
-      s_w[t] = oc0 + o < p.cout ? p.w[(size_t)(oc0 + o) * row + r] : 0;
+    if (p.cout % 16 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0) {
+      *reinterpret_cast<uint4*>(out + idx) =
+          make_uint4(pack4(q[0], q[1], q[2], q[3]), pack4(q[4], q[5], q[6], q[7]), pack4(q[8], q[9], q[10], q[11]),
+                     pack4(q[12], q[13], q[14], q[15]));
+    } else {
+#pragma unroll
+      for (int o = 0; o < kOC; ++o)
+        if (oc0 + o < p.cout) out[idx + o] = static_cast<int8_t>(q[o]);
     }
+  } else {
+    __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.out);
+#pragma unroll
+    for (int o = 0; o < kOC; ++o)
+      if (oc0 + o < p.cout) out[idx + o] = epilogue(acc[o], p.scale[oc0 + o], p.bias[oc0 + o], p.act);
+  }
+}
+
+__global__ void __launch_bounds__(kDirectThreads) int8_conv_direct(Conv p) {
+  extern __shared__ __align__(16) unsigned char smem_w[];
+  const int8_t* s_w = reinterpret_cast<const int8_t*>(smem_w);  // s_w[o * row + tap * cin_g + c]
+  const int cin_g = p.cin / p.groups, cout_g = p.cout / p.groups;
+  const int taps = p.kh * p.kw, row = taps * cin_g;
+  const int oc0 = blockIdx.y * kOC;
+  for (int t = threadIdx.x; t < row * kOC; t += kDirectThreads) {
+    const int o = t / row, r = t - o * row;
+    smem_w[t] = oc0 + o < p.cout ? p.w[(size_t)(oc0 + o) * row + r] : 0;
   }
   __syncthreads();
 
   const size_t npix = (size_t)p.b * p.ho * p.wo;
-  const size_t pix = (size_t)blockIdx.x * kThreads + threadIdx.x;
+  const size_t pix = (size_t)blockIdx.x * kDirectThreads + threadIdx.x;
   if (pix >= npix) return;
-  const int ox = pix % p.wo;
-  const int oy = (pix / p.wo) % p.ho;
+  const int ox = static_cast<int>(pix % p.wo), oy = static_cast<int>((pix / p.wo) % p.ho);
   const size_t bi = pix / ((size_t)p.wo * p.ho);
+  const bool one_group = (oc0 / cout_g) == (min(oc0 + kOC, p.cout) - 1) / cout_g;  // one input load for all 16
 
-  int acc[kOCT];
+  int acc[kOC];
 #pragma unroll
-  for (int o = 0; o < kOCT; ++o) acc[o] = 0;
-
+  for (int o = 0; o < kOC; ++o) acc[o] = 0;
   for (int ky = 0; ky < p.kh; ++ky) {
     const int iy = oy * p.stride - p.pad + ky;
     if (iy < 0 || iy >= p.h) continue;
@@ -128,79 +723,289 @@ __global__ void __launch_bounds__(kThreads) int8_conv_kernel(Conv p) {
       const int ix = ox * p.stride - p.pad + kx;
       if (ix < 0 || ix >= p.w_in) continue;  // zero padding adds nothing
       const int tap = ky * p.kw + kx;
-      const int8_t* xp = p.x + ((bi * p.h + iy) * p.w_in + ix) * p.cin;
-      if (kDp4a) {
-        const int cin4 = cin_g / 4;
-        const int* xw = reinterpret_cast<const int*>(xp + (oc0 / cout_g) * cin_g);  // the tile's one group
-        const int4* s_w = reinterpret_cast<const int4*>(smem) + (size_t)tap * cin4 * (kOCT / 4);
-        for (int c4 = 0; c4 < cin4; ++c4) {
-          const int xv = xw[c4];
-          const int4 w0 = s_w[2 * c4], w1 = s_w[2 * c4 + 1];
-          acc[0] = __dp4a(xv, w0.x, acc[0]);
-          acc[1] = __dp4a(xv, w0.y, acc[1]);
-          acc[2] = __dp4a(xv, w0.z, acc[2]);
-          acc[3] = __dp4a(xv, w0.w, acc[3]);
-          acc[4] = __dp4a(xv, w1.x, acc[4]);
-          acc[5] = __dp4a(xv, w1.y, acc[5]);
-          acc[6] = __dp4a(xv, w1.z, acc[6]);
-          acc[7] = __dp4a(xv, w1.w, acc[7]);
+      const size_t base = ((bi * p.h + iy) * p.w_in + ix) * p.cin;
+      if (one_group) {
+        const size_t xg = base + (size_t)(oc0 / cout_g) * cin_g;
+        for (int c = 0; c < cin_g; ++c) {
+          const int xv = load_q(p, xg + c);
+#pragma unroll
+          for (int o = 0; o < kOC; ++o) acc[o] += xv * s_w[o * row + tap * cin_g + c];
         }
       } else {
-        const int8_t* s_w = reinterpret_cast<const int8_t*>(smem);
 #pragma unroll
-        for (int o = 0; o < kOCT; ++o) {
-          const int oc = oc0 + o;
-          if (oc >= p.cout) break;
-          const int8_t* xg = xp + (oc / cout_g) * cin_g;
-          const int8_t* wr = s_w + o * row + tap * cin_g;
+        for (int o = 0; o < kOC; ++o) {
+          if (oc0 + o >= p.cout) break;
+          const size_t xg = base + (size_t)((oc0 + o) / cout_g) * cin_g;
           int a = acc[o];
-          for (int c = 0; c < cin_g; ++c) a += static_cast<int>(xg[c]) * static_cast<int>(wr[c]);
+          for (int c = 0; c < cin_g; ++c) a += load_q(p, xg + c) * s_w[o * row + tap * cin_g + c];
           acc[o] = a;
         }
       }
     }
   }
-#pragma unroll
-  for (int o = 0; o < kOCT; ++o)
-    if (oc0 + o < p.cout) store(p, pix, oc0 + o, acc[o]);
+  store16(p, acc, pix, oc0);
 }
 
-template <bool kDp4a>
-cudaError_t launch(const Conv& p, size_t smem, cudaStream_t stream) {
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(int8_conv_kernel<kDp4a>,
-                                                 cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+constexpr int kStemTW = 32, kStemTH = 4;  // the stem kernel's output tile: one pixel a thread
+
+// The direct route for groups 1 and taps x Cin <= 32 (the 3-channel stem, fp32 or bf16 in): the block
+// quantizes its input tile once into shared memory, reading whole rows (coalesced; each input value serves
+// up to 9 outputs), then each thread packs its K values into 8 words and takes 8 __dp4a an output, for
+// every output channel.
+__global__ void __launch_bounds__(kStemTW * kStemTH) int8_conv_stem(Conv p) {
+  extern __shared__ __align__(16) unsigned char smem_s[];
+  const int K = p.kh * p.kw * p.cin;
+  const int row_bytes = ((kStemTW - 1) * p.stride + p.kw) * p.cin, rows = (kStemTH - 1) * p.stride + p.kh;
+  uint32_t* s_w = reinterpret_cast<uint32_t*>(smem_s);  // s_w[o * 8 + word]: K zero-padded to 32
+  int8_t* s_x = reinterpret_cast<int8_t*>(smem_s + p.cout * 32);  // s_x[r * row_bytes + column * Cin + c]
+  const int ox0 = blockIdx.x * kStemTW, oy0 = blockIdx.y * kStemTH, bi = blockIdx.z;
+  const int ixc0 = (ox0 * p.stride - p.pad) * p.cin, iy0 = oy0 * p.stride - p.pad;
+  for (int t = threadIdx.x; t < p.cout * 8; t += kStemTW * kStemTH) {
+    const int o = t >> 3, k = 4 * (t & 7);
+    uint32_t word = 0;
+    for (int i = 0; i < 4; ++i)
+      if (k + i < K) word |= static_cast<uint32_t>(static_cast<uint8_t>(p.w[o * K + k + i])) << (8 * i);
+    s_w[t] = word;
+  }
+  for (int t = threadIdx.x; t < rows * row_bytes; t += kStemTW * kStemTH) {
+    const int r = t / row_bytes, iy = iy0 + r, ixc = ixc0 + (t - r * row_bytes);  // ixc = ix * Cin + c
+    const bool in = iy >= 0 && iy < p.h && ixc >= 0 && ixc < p.w_in * p.cin;  // zero padding stays 0
+    s_x[t] = static_cast<int8_t>(in ? load_q(p, (static_cast<size_t>(bi) * p.h + iy) * p.w_in * p.cin + ixc) : 0);
+  }
+  __syncthreads();
+  const int tx = threadIdx.x % kStemTW, ty = threadIdx.x / kStemTW;
+  const int ox = ox0 + tx, oy = oy0 + ty;
+  if (ox >= p.wo || oy >= p.ho) return;
+  uint32_t xw[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) xw[i] = 0u;
+  int c = 0, kx = 0, ky = 0;  // k = (ky * kw + kx) * Cin + c
+#pragma unroll
+  for (int k = 0; k < 32; ++k) {
+    if (k < K) {
+      const int8_t v = s_x[(ty * p.stride + ky) * row_bytes + (tx * p.stride + kx) * p.cin + c];
+      xw[k >> 2] |= static_cast<uint32_t>(static_cast<uint8_t>(v)) << (8 * (k & 3));
+      if (++c == p.cin) {
+        c = 0;
+        if (++kx == p.kw) {
+          kx = 0;
+          ++ky;
+        }
+      }
+    }
+  }
+  const size_t pix = (static_cast<size_t>(bi) * p.ho + oy) * p.wo + ox;
+  for (int oc0 = 0; oc0 < p.cout; oc0 += kOC) {
+    int acc[kOC];
+#pragma unroll
+    for (int o = 0; o < kOC; ++o) {
+      const uint4* w = reinterpret_cast<const uint4*>(s_w + min(oc0 + o, p.cout - 1) * 8);
+      const uint4 w0 = w[0], w1 = w[1];
+      int a = __dp4a(static_cast<int>(xw[0]), static_cast<int>(w0.x), 0);
+      a = __dp4a(static_cast<int>(xw[1]), static_cast<int>(w0.y), a);
+      a = __dp4a(static_cast<int>(xw[2]), static_cast<int>(w0.z), a);
+      a = __dp4a(static_cast<int>(xw[3]), static_cast<int>(w0.w), a);
+      a = __dp4a(static_cast<int>(xw[4]), static_cast<int>(w1.x), a);
+      a = __dp4a(static_cast<int>(xw[5]), static_cast<int>(w1.y), a);
+      a = __dp4a(static_cast<int>(xw[6]), static_cast<int>(w1.z), a);
+      acc[o] = __dp4a(static_cast<int>(xw[7]), static_cast<int>(w1.w), a);
+    }
+    store16(p, acc, pix, oc0);
+  }
+}
+
+// ---------------- the requant table ----------------
+
+__global__ void __launch_bounds__(256) int8_conv_table_kernel(uint8_t* table, int act, float sout) {
+  const int bits = blockIdx.x * 256 + threadIdx.x;  // every bf16 value
+  const int e = (bits >> 7) & 0xff;
+  const uint32_t q = requant(activate(__ushort_as_bfloat16(static_cast<unsigned short>(bits)), act), sout);
+  // slots 0 and 25 hold many exponents: the first of each writes the entry, the rest must equal it
+  const int first = e <= kTabBase ? 0 : e >= kTabBase + kTabSlots - 2 && e < 255 ? kTabBase + kTabSlots - 2 : e;
+  if (e == first) {
+    table[table_index(__ushort_as_bfloat16(static_cast<unsigned short>(bits)))] = static_cast<uint8_t>(q);
+  } else {
+    const int rep = (bits & 0x807f) | (first << 7);
+    if (requant(activate(__ushort_as_bfloat16(static_cast<unsigned short>(rep)), act), sout) != q)
+      atomicOr(reinterpret_cast<int*>(table + kTabBytes), 1);  // the table is invalid
+  }
+}
+
+// ---------------- the plan and the launches ----------------
+
+struct Plan {
+  int route, bn, wg, granule;
+};
+
+bool aligned(const void* ptr, int n) { return reinterpret_cast<uintptr_t>(ptr) % n == 0; }
+
+Plan plan(const Conv& p) {
+  const bool a16 = aligned(p.x, 16) && aligned(p.w, 16) && aligned(p.out, 16);
+  if (p.groups == 1 && p.cin % 8 == 0 && p.cout % 8 == 0 && a16) {
+    // N tile: Cout itself up to 128, else the widest that divides it (Cout 256 and 512 run as 2 and 4 N
+    // tiles of 128: measured faster than one N tile of 256, whose 128 accumulators a thread allow one block
+    // an SM)
+    static const int kBN[] = {128, 80, 64, 32, 16, 8};  // instantiated N tiles, widest first
+    int bn = 8;
+    for (int n : kBN)
+      if (n == p.cout || (p.cout > n && p.cout % n == 0)) {
+        bn = n;
+        break;
+      }
+    const long long m = (long long)p.b * p.ho * p.wo;
+    const long long tiles128 = (m + 127) / 128 * (p.cout / bn);
+    return {kGemm, bn, tiles128 >= 2 * 132 ? 2 : 1, p.cin % 16 == 0 ? 16 : 8};
+  }
+  if (p.groups == p.cin && p.cin == p.cout && p.cin % 16 == 0 && p.kh == 3 && p.kw == 3 && a16)
+    return {kDepthwise, 0, 0, 0};
+  return {kDirect, 0, 0, 0};
+}
+
+int gemm_smem(int bn, int wg, int cout) {
+  switch (bn) {
+    case 128: return wg == 2 ? GemmTile<128, 2>::smem(cout) : GemmTile<128, 1>::smem(cout);
+    case 80: return wg == 2 ? GemmTile<80, 2>::smem(cout) : GemmTile<80, 1>::smem(cout);
+    case 64: return wg == 2 ? GemmTile<64, 2>::smem(cout) : GemmTile<64, 1>::smem(cout);
+    case 32: return wg == 2 ? GemmTile<32, 2>::smem(cout) : GemmTile<32, 1>::smem(cout);
+    case 16: return wg == 2 ? GemmTile<16, 2>::smem(cout) : GemmTile<16, 1>::smem(cout);
+    default: return wg == 2 ? GemmTile<8, 2>::smem(cout) : GemmTile<8, 1>::smem(cout);
+  }
+}
+
+int stem_smem(const Conv& p) {  // the stem kernel's packed weights and input tile
+  return p.cout * 32 + ((kStemTH - 1) * p.stride + p.kh) * ((kStemTW - 1) * p.stride + p.kw) * p.cin;
+}
+
+bool stem(const Conv& p) { return p.groups == 1 && p.kh * p.kw * p.cin <= 32 && stem_smem(p) <= 48 * 1024; }
+
+int direct_smem(const Conv& p) { return stem(p) ? stem_smem(p) : kOC * p.kh * p.kw * (p.cin / p.groups); }
+
+constexpr int kMaxSmem = 232448;  // what a block can have on Hopper
+
+template <int BN, int WG>
+cudaError_t launch_gemm(const Conv& p, int granule, cudaStream_t stream) {
+  using T = GemmTile<BN, WG>;
+  static int sms = 0;  // raise the shared-memory limit and read the SM count once per instantiation
+  if (!sms) {
+    cudaError_t err =
+        cudaFuncSetAttribute(int8_conv_gemm<BN, WG>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, 0);
     if (err != cudaSuccess) return err;
   }
-  const size_t npix = (size_t)p.b * p.ho * p.wo;
-  const dim3 grid(static_cast<unsigned>((npix + kThreads - 1) / kThreads), (p.cout + kOCT - 1) / kOCT);
-  int8_conv_kernel<kDp4a><<<grid, kThreads, smem, stream>>>(p);
+  const int smem = T::smem(p.cout);
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  // blocks an SM holds at this shared memory (it varies with Cout only): asked once per size
+  static int cached_smem[8] = {0}, cached_blocks[8] = {0};
+  int per_sm = 0;
+  for (int i = 0; i < 8 && cached_smem[i]; ++i)
+    if (cached_smem[i] == smem) per_sm = cached_blocks[i];
+  if (!per_sm) {
+    const cudaError_t err =
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, int8_conv_gemm<BN, WG>, T::kThreads, smem);
+    if (err != cudaSuccess) return err;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    for (int i = 0; i < 8; ++i)
+      if (!cached_smem[i]) {
+        cached_smem[i] = smem;
+        cached_blocks[i] = per_sm;
+        break;
+      }
+  }
+  const long long m = (long long)p.b * p.ho * p.wo;
+  const long long tiles = (m + T::kBM - 1) / T::kBM * (p.cout / BN);
+  const unsigned grid = static_cast<unsigned>(tiles < (long long)per_sm * sms ? tiles : (long long)per_sm * sms);
+  int8_conv_gemm<BN, WG><<<grid, T::kThreads, smem, stream>>>(p, granule);
   return cudaGetLastError();
+}
+
+template <int BN>
+cudaError_t launch_gemm_bn(const Conv& p, const Plan& pl, cudaStream_t stream) {
+  return pl.wg == 2 ? launch_gemm<BN, 2>(p, pl.granule, stream) : launch_gemm<BN, 1>(p, pl.granule, stream);
+}
+
+cudaError_t launch(const Conv& p, cudaStream_t stream) {
+  const Plan pl = plan(p);
+  const long long npix = (long long)p.b * p.ho * p.wo;
+  if (pl.route == kGemm) {
+    switch (pl.bn) {
+      case 128: return launch_gemm_bn<128>(p, pl, stream);
+      case 80: return launch_gemm_bn<80>(p, pl, stream);
+      case 64: return launch_gemm_bn<64>(p, pl, stream);
+      case 32: return launch_gemm_bn<32>(p, pl, stream);
+      case 16: return launch_gemm_bn<16>(p, pl, stream);
+      default: return launch_gemm_bn<8>(p, pl, stream);
+    }
+  }
+  if (pl.route == kDepthwise) {
+    const unsigned blocks = static_cast<unsigned>((npix * (p.cin / 16) + kDwThreads - 1) / kDwThreads);
+    int8_conv_depthwise<<<blocks, kDwThreads, 0, stream>>>(p);
+    return cudaGetLastError();
+  }
+  const int smem = direct_smem(p);
+  if (stem(p)) {
+    const dim3 grid((p.wo + kStemTW - 1) / kStemTW, (p.ho + kStemTH - 1) / kStemTH, p.b);
+    int8_conv_stem<<<grid, kStemTW * kStemTH, smem, stream>>>(p);
+    return cudaGetLastError();
+  }
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(int8_conv_direct, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+  }
+  const dim3 grid(static_cast<unsigned>((npix + kDirectThreads - 1) / kDirectThreads), (p.cout + kOC - 1) / kOC);
+  int8_conv_direct<<<grid, kDirectThreads, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+bool valid(const Conv& p) {
+  return p.b >= 0 && p.h > 0 && p.w_in > 0 && p.cin > 0 && p.ho > 0 && p.wo > 0 && p.cout > 0 && p.kh > 0 &&
+         p.kw > 0 && p.stride > 0 && p.pad >= 0 && p.groups > 0 && p.cin % p.groups == 0 &&
+         p.cout % p.groups == 0 && p.act >= 0 && p.act <= 2 && p.xtype >= kInt8 && p.xtype <= kFp32 &&
+         (p.xtype == kInt8 || p.sin >= 0.0f) && (long long)p.b * p.ho * p.wo < 0x7fffffffLL &&
+         p.kh * p.kw * (p.cin / p.groups) < 65536 &&  // the loader's division by Cin is exact below 2^16
+         (p.cout + kOC - 1) / kOC <= 65535 && p.b <= 65535;
 }
 
 }  // namespace
 
 extern "C" int int8_conv(const void* x, const void* w, const void* scale, const void* bias, void* out, int b, int h,
                          int w_in, int cin, int ho, int wo, int cout, int kh, int kw, int stride, int pad, int groups,
-                         int act, float sout, int device, void* stream) {
-  if (b < 0 || h <= 0 || w_in <= 0 || cin <= 0 || ho <= 0 || wo <= 0 || cout <= 0 || kh <= 0 || kw <= 0 ||
-      stride <= 0 || pad < 0 || groups <= 0 || cin % groups || cout % groups || act < 0 || act > 2)
-    return static_cast<int>(cudaErrorInvalidValue);
+                         int act, int xtype, float sout, float sin, const void* table, int device, void* stream) {
+  const Conv p{x,    static_cast<const int8_t*>(w), static_cast<const float*>(scale), static_cast<const float*>(bias),
+               out,  b, h, w_in, cin, ho, wo, cout, kh, kw, stride, pad, groups, act, xtype, sout, sin,
+               static_cast<const uint8_t*>(table), 1.0f / sin};  // sin 0 (an all-zero calibration): inf
+  if (!valid(p)) return static_cast<int>(cudaErrorInvalidValue);
   if (b == 0) return 0;
-  if ((size_t)b * ho * wo > (size_t)0x7fffffff * kThreads || (cout + kOCT - 1) / kOCT > 65535)
-    return static_cast<int>(cudaErrorInvalidConfiguration);
   // nvcc links this library with its own CUDA runtime, whose current device is not PyTorch's
-  cudaError_t err = cudaSetDevice(device);
+  const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const Conv p{static_cast<const int8_t*>(x), static_cast<const int8_t*>(w), static_cast<const float*>(scale),
-               static_cast<const float*>(bias), out, b, h, w_in, cin, ho, wo, cout, kh, kw, stride, pad, groups, act,
-               sout};
-  const int cin_g = cin / groups, cout_g = cout / groups;
-  const size_t smem = (size_t)kOCT * kh * kw * cin_g;
-  const bool words = cin_g % 4 == 0 && cin % 4 == 0 && (groups == 1 || cout_g % kOCT == 0) &&
-                     reinterpret_cast<uintptr_t>(x) % 4 == 0 && reinterpret_cast<uintptr_t>(w) % 4 == 0;
+  return static_cast<int>(launch(p, static_cast<cudaStream_t>(stream)));
+}
+
+// Fills `table` (int8_conv_table_bytes(), zeroed by the caller) with the activation + requant table at
+// (act, sout): one thread per bf16 value.
+extern "C" int int8_conv_table(void* table, int act, float sout, int device, void* stream) {
+  if (act < 0 || act > 2 || !(sout > 0.0f)) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(words ? launch<true>(p, smem, s) : launch<false>(p, smem, s));
+  int8_conv_table_kernel<<<256, 256, 0, s>>>(static_cast<uint8_t*>(table), act, sout);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int int8_conv_table_bytes() { return kTabBytes + 16; }
+
+// The route a call with these arguments takes: route (0 gemm, 1 depthwise, 2 direct), the gemm's N tile,
+// its consumer warpgroups (M tile 64 * wg), its copy granule and the launch's dynamic shared memory in bytes,
+// written to plan_out[0..4].
+extern "C" int int8_conv_plan(const void* x, const void* w, void* out, int b, int cin, int ho, int wo, int cout,
+                              int kh, int kw, int groups, int* plan_out) {
+  Conv p{};
+  p.x = x; p.w = static_cast<const int8_t*>(w); p.out = out;
+  p.b = b; p.cin = cin; p.ho = ho; p.wo = wo; p.cout = cout; p.kh = kh; p.kw = kw; p.groups = groups;
+  const Plan pl = plan(p);
+  plan_out[0] = pl.route; plan_out[1] = pl.bn; plan_out[2] = pl.wg; plan_out[3] = pl.granule;
+  plan_out[4] = pl.route == kGemm ? gemm_smem(pl.bn, pl.wg, cout) : pl.route == kDirect ? direct_smem(p) : 0;
+  return 0;
 }
 
 extern "C" const char* int8_conv_error_string(int code) {

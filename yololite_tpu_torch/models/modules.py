@@ -24,7 +24,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from yololite_tpu_torch.ops.kernels import ACTS, dequantize_act, int8_conv, quantize_act
+from yololite_tpu_torch.ops.kernels import ACTS, dequantize_act, int8_conv
 
 BN_EPS = 1e-3  # upstream BatchNorm2d eps
 BN_MOMENTUM = 0.03  # and momentum
@@ -64,8 +64,9 @@ class QConv(nn.Module):
 
     Buffers: `weight` int8 OHWI (Cout, KH, KW, Cin/groups), per-output-channel
     `sw`, `scale` = sin * sw and the folded `bias` in fp32, the input scale
-    `sin` (0-d fp32, used to quantize a float input on the fly) and, when the
-    consumer is quantized, `sout` (else the output stays bf16).
+    `sin` (0-d fp32; a float input is quantized at it inside K8, and on the
+    CPU by K8's plain version) and, when the consumer is quantized, `sout`
+    (else the output stays bf16).
     """
 
     def __init__(self, weight: torch.Tensor, sw: torch.Tensor, bias: torch.Tensor, sin: float,
@@ -77,14 +78,14 @@ class QConv(nn.Module):
         self.register_buffer("scale", f32(sin) * f32(sw))  # fp32 product, as the JAX epilogue forms it
         self.register_buffer("bias", f32(bias).clone())
         self.register_buffer("sin", f32(sin).clone())
+        self.sin_value = float(self.sin)  # the op's argument: a Python float, so torch.export records a constant
         self.sout = None if sout is None else float(f32(sout))
         self.stride, self.padding, self.groups = int(stride), int(padding), int(groups)
 
     def forward(self, x: torch.Tensor, act: int) -> torch.Tensor:
-        if x.dtype != torch.int8:  # bf16 island boundary (or the image): quantize on the fly
-            x = quantize_act(x, self.sin)
+        # a bf16 island boundary (or the image) comes in as floats: K8 quantizes them at sin as it loads them
         return int8_conv(x, self.weight, self.scale, self.bias, self.stride, self.padding, self.groups, act,
-                         self.sout or 0.0)
+                         self.sout or 0.0, self.sin_value)
 
 
 class Conv(nn.Module):
@@ -334,7 +335,9 @@ class Upsample(nn.Module):
         if x.dtype == torch.int8:  # torch's nearest upsample takes no channels-last int8: repeat each pixel
             b, c, h, w = x.shape
             s = self.scale
-            return x[:, :, :, None, :, None].expand(b, c, h, s, w, s).reshape(b, c, h * s, w * s)
+            # in NHWC, so that the copy comes out channels-last, as the int8 edges and K8 keep them
+            y = x.permute(0, 2, 3, 1)[:, :, None, :, None, :].expand(b, h, s, w, s, c).reshape(b, h * s, w * s, c)
+            return y.permute(0, 3, 1, 2)
         return F.interpolate(x, scale_factor=self.scale, mode="nearest")
 
 

@@ -5,10 +5,11 @@
    which replaces the Pallas kernel `greedy_nms_keep_pallas` and the
    `box_iou` before it; on a CPU tensor it runs the plain version beside it,
    `greedy_nms_keep_plain`.
-2. `int8_conv`: the int8 serving convolution with its epilogue (K8). On a
-   CUDA tensor it launches csrc/int8_conv.cu, which replaces the int32
-   accumulated XLA convolution of yololite_tpu/models/modules.py:176-185; on
-   a CPU tensor it runs `int8_conv_plain`.
+2. `int8_conv`: the int8 serving convolution with its epilogue (K8), and the
+   quantize of a bf16 or fp32 input before it. On a CUDA tensor it launches
+   csrc/int8_conv.cu, which replaces the int32 accumulated XLA convolution of
+   yololite_tpu/models/modules.py:176-185; on a CPU tensor it runs
+   `int8_conv_plain`.
 3. `device_letterbox`: batched letterbox on the device for same-shape uint8
    batches: bilinear resize as two fp32 matmuls, pad with 114, divide by 255.
    Plain torch for now (ROADMAP.md, Queue 2 K2).
@@ -25,6 +26,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import numpy as np
 import torch
@@ -148,8 +150,9 @@ def _conv_out_hw(h: int, w: int, kh: int, kw: int, stride: int, padding: int):
 
 
 def int8_conv_plain(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, stride: int,
-                    padding: int, groups: int, act: int, sout: float) -> torch.Tensor:
-    """Plain torch K8: the accumulator as a float64 convolution of the int8 values, then the same epilogue.
+                    padding: int, groups: int, act: int, sout: float, sin: float = 0.0) -> torch.Tensor:
+    """Plain torch K8: a float x quantized at `sin` (`quantize_act`), the accumulator as a float64 convolution of
+    the int8 values, then the same epilogue.
 
     float64 holds every sum exactly (|acc| <= 127^2 * taps * Cin < 2^53), and
     its conversion to fp32 rounds as the kernel's int -> float does. Then
@@ -157,6 +160,8 @@ def int8_conv_plain(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor, bias:
     and with sout > 0 round(y / sout) clipped to +-127 as int8. Returns a
     channels-last (B, Cout, Ho, Wo) tensor, int8 or bf16.
     """
+    if x.dtype != torch.int8:
+        x = quantize_act(x, torch.full((), sin, dtype=torch.float32, device=x.device))
     acc = F.conv2d(x.double(), w.permute(0, 3, 1, 2).double(), None, stride, padding, 1, groups).float()
     y = acc * scale[None, :, None, None]
     y = (y + bias[None, :, None, None]).to(torch.bfloat16)
@@ -170,20 +175,29 @@ def int8_conv_plain(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor, bias:
     return out.copy_(y)
 
 
-def int8_conv(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, stride: int = 1,
-              padding: int = 0, groups: int = 1, act: int = 1, sout: float = 0.0) -> torch.Tensor:
-    """int8 convolution with its epilogue: x int8 (B, Cin, H, W), w int8 OHWI (Cout, KH, KW, Cin/groups),
-    scale = sin * sw and bias fp32 (Cout) -> channels-last (B, Cout, Ho, Wo), int8 when sout > 0 else bf16.
+X_TYPES = {torch.int8: 0, torch.bfloat16: 1, torch.float32: 2}  # K8's input codes
+ROUTES = ("gemm", "depthwise", "direct")  # csrc/int8_conv.cu's routes, by code
 
-    act: 0 none, 1 SiLU, 2 ReLU. A CUDA tensor goes through csrc/int8_conv.cu,
-    a CPU tensor through `int8_conv_plain`, both as the op
-    `torch.ops.yololite_tpu_torch.int8_conv`; x is made channels-last first
-    (a no-op for the int8 edges the kernel writes).
+
+def int8_conv(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, stride: int = 1,
+              padding: int = 0, groups: int = 1, act: int = 1, sout: float = 0.0,
+              sin: Optional[float] = None) -> torch.Tensor:
+    """int8 convolution with its epilogue: x (B, Cin, H, W) int8, or bf16/fp32 quantized at `sin` first, w int8
+    OHWI (Cout, KH, KW, Cin/groups), scale = sin * sw and bias fp32 (Cout) -> channels-last (B, Cout, Ho, Wo),
+    int8 when sout > 0 else bf16.
+
+    act: 0 none, 1 SiLU, 2 ReLU. A CUDA tensor goes through csrc/int8_conv.cu
+    (a float x is quantized as the kernel loads it), a CPU tensor through
+    `int8_conv_plain`, both as the op `torch.ops.yololite_tpu_torch.int8_conv`;
+    x is made channels-last first (a no-op for the int8 edges the kernel
+    writes).
     """
-    if x.dtype != torch.int8 or w.dtype != torch.int8:
-        raise TypeError(f"int8_conv wants int8 x and w, got {x.dtype} and {w.dtype}")
+    if x.dtype not in X_TYPES or w.dtype != torch.int8:
+        raise TypeError(f"int8_conv wants int8, bf16 or fp32 x and int8 w, got {x.dtype} and {w.dtype}")
     if scale.dtype != torch.float32 or bias.dtype != torch.float32:
         raise TypeError(f"int8_conv wants float32 scale and bias, got {scale.dtype} and {bias.dtype}")
+    if x.dtype != torch.int8 and sin is None:
+        raise TypeError(f"int8_conv takes a {x.dtype} x only with its quantize scale sin")
     cout, kh, kw, cin_g = w.shape
     if x.ndim != 4 or x.shape[1] != cin_g * groups or cout % groups or tuple(scale.shape) != (cout,) or tuple(
             bias.shape) != (cout,):
@@ -197,7 +211,8 @@ def int8_conv(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor, bias: torch
         raise ValueError(f"int8_conv: act {act}, stride {stride}, padding {padding}")
     x = x.contiguous(memory_format=torch.channels_last)
     return torch.ops.yololite_tpu_torch.int8_conv(x, w.contiguous(), scale.contiguous(), bias.contiguous(),
-                                                  int(stride), int(padding), int(groups), int(act), float(sout))
+                                                  int(stride), int(padding), int(groups), int(act), float(sout),
+                                                  float(sin or 0.0))
 
 
 int8_conv.launches = 0  # kernel launches since the last reset
@@ -205,22 +220,24 @@ int8_conv.launches = 0  # kernel launches since the last reset
 
 @torch.library.custom_op("yololite_tpu_torch::int8_conv", mutates_args=(), device_types="cpu")
 def _int8_conv_op(x: Tensor, w: Tensor, scale: Tensor, bias: Tensor, stride: int, padding: int, groups: int,
-                  act: int, sout: float) -> Tensor:
-    return int8_conv_plain(x, w, scale, bias, stride, padding, groups, act, sout)
+                  act: int, sout: float, sin: float = 0.0) -> Tensor:
+    return int8_conv_plain(x, w, scale, bias, stride, padding, groups, act, sout, sin)
 
 
 @_int8_conv_op.register_kernel("cuda")
 def _int8_conv_cuda(x: Tensor, w: Tensor, scale: Tensor, bias: Tensor, stride: int, padding: int, groups: int,
-                    act: int, sout: float) -> Tensor:
+                    act: int, sout: float, sin: float = 0.0) -> Tensor:
     b, cin, h, wd = x.shape
     cout, kh, kw, _ = w.shape
     ho, wo = _conv_out_hw(h, wd, kh, kw, stride, padding)
     out = torch.empty((b, cout, ho, wo), dtype=torch.int8 if sout > 0 else torch.bfloat16, device=x.device,
                       memory_format=torch.channels_last)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+    stream = torch._C._cuda_getCurrentRawStream(x.device.index)  # PyTorch's current stream, as an int
     lib = _int8_lib()
+    table = _requant_table(x.device, act, sout).data_ptr() if sout > 0 else None
     rc = lib.int8_conv(x.data_ptr(), w.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(), b, h, wd, cin,
-                       ho, wo, cout, kh, kw, stride, padding, groups, act, float(sout), x.device.index, stream)
+                       ho, wo, cout, kh, kw, stride, padding, groups, act, X_TYPES[x.dtype], float(sout), float(sin),
+                       table, x.device.index, stream)
     if rc != 0:
         raise RuntimeError(f"int8_conv kernel launch failed: {lib.int8_conv_error_string(rc).decode()}")
     int8_conv.launches += 1
@@ -229,10 +246,44 @@ def _int8_conv_cuda(x: Tensor, w: Tensor, scale: Tensor, bias: Tensor, stride: i
 
 @_int8_conv_op.register_fake
 def _int8_conv_fake(x: Tensor, w: Tensor, scale: Tensor, bias: Tensor, stride: int, padding: int, groups: int,
-                    act: int, sout: float) -> Tensor:
+                    act: int, sout: float, sin: float = 0.0) -> Tensor:
     ho, wo = _conv_out_hw(x.shape[2], x.shape[3], w.shape[1], w.shape[2], stride, padding)
     return torch.empty((x.shape[0], w.shape[0], ho, wo), dtype=torch.int8 if sout > 0 else torch.bfloat16,
                        device=x.device, memory_format=torch.channels_last)
+
+
+_requant_tables = {}  # (device, act, sout) -> K8's activation + requant table on that device
+
+
+def _requant_table(device: torch.device, act: int, sout: float) -> torch.Tensor:
+    """K8's table of the epilogue's tail (activation, then requant at sout) over every bf16 y, built on the
+    card at first use by csrc/int8_conv.cu's table kernel and kept: every int8-out conv at one (act, sout),
+    yolo11's 66 at the global activation scale, shares one. Build it outside a CUDA graph capture."""
+    device = torch.device("cuda", torch.cuda.current_device() if device.index is None else device.index)
+    key = (device.index, int(act), float(np.float32(sout)))
+    if key not in _requant_tables:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("int8_conv: run each (act, sout) once before capturing it in a CUDA graph")
+        lib = _int8_lib()
+        table = torch.zeros(lib.int8_conv_table_bytes(), dtype=torch.uint8, device=device)
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = lib.int8_conv_table(table.data_ptr(), act, sout, device.index, stream)
+        if rc != 0:
+            raise RuntimeError(f"int8_conv table kernel launch failed: {lib.int8_conv_error_string(rc).decode()}")
+        _requant_tables[key] = table
+    return _requant_tables[key]
+
+
+def int8_conv_plan(x: torch.Tensor, w: torch.Tensor, out: torch.Tensor, groups: int) -> dict:
+    """The route csrc/int8_conv.cu takes for these CUDA tensors (x channels-last NCHW, w OHWI, out its output):
+    {"route": "gemm" | "depthwise" | "direct", "n_tile", "m_tile", "granule" (those three for gemm), "smem"
+    (the launch's dynamic shared memory, bytes)}."""
+    b, cin = x.shape[:2]
+    cout, kh, kw, _ = w.shape
+    plan = (ctypes.c_int * 5)()
+    _int8_lib().int8_conv_plan(x.data_ptr(), w.data_ptr(), out.data_ptr(), b, cin, out.shape[2], out.shape[3], cout,
+                               kh, kw, groups, plan)
+    return {"route": ROUTES[plan[0]], "n_tile": plan[1], "m_tile": 64 * plan[2], "granule": plan[3], "smem": plan[4]}
 
 
 def _int8_lib() -> ctypes.CDLL:
@@ -240,9 +291,16 @@ def _int8_lib() -> ctypes.CDLL:
 
     lib = cuda_build.load("int8_conv")
     if lib.int8_conv.argtypes is None:  # declare the C signatures once per process
-        lib.int8_conv.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 13 + [ctypes.c_float, ctypes.c_int,
+        lib.int8_conv.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 14 + [ctypes.c_float, ctypes.c_float,
+                                                                                 ctypes.c_void_p, ctypes.c_int,
                                                                                  ctypes.c_void_p]
         lib.int8_conv.restype = ctypes.c_int
+        lib.int8_conv_table.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        lib.int8_conv_table.restype = ctypes.c_int
+        lib.int8_conv_table_bytes.argtypes = []
+        lib.int8_conv_table_bytes.restype = ctypes.c_int
+        lib.int8_conv_plan.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.POINTER(ctypes.c_int)]
+        lib.int8_conv_plan.restype = ctypes.c_int
         lib.int8_conv_error_string.argtypes = [ctypes.c_int]
         lib.int8_conv_error_string.restype = ctypes.c_char_p
     return lib
