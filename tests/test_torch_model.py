@@ -184,13 +184,18 @@ def test_gflops_matches_jax():
 
 
 def test_unported_pieces_raise(tmp_path):
-    """Only the extended block zoo still raises; .pt loading, export and int8 serving run."""
+    """The extended block zoo builds (Focus among it) and predicts, but int8 serving of a zoo model raises, as
+    the JAX package cannot run it; .pt loading, export and int8 serving of yolo11n run (76 quantized convs)."""
     from yololite_tpu_torch import YOLOLite
     from yololite_tpu_torch.models.quant import quantized_paths
 
     spec = {"nc": 2, "backbone": [[-1, 1, "Focus", [16, 3]]], "head": [[[0], 1, "Detect", ["nc"]]]}
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        DetectionModel(spec)
+    zoo = YOLOLite(spec, device="cpu")
+    assert type(zoo.model.model[0]).__name__ == "Focus" and zoo.model.strides == [2]
+    frame = [np.zeros((64, 64, 3), np.uint8)]
+    assert len(zoo.predict(frame, imgsz=64, conf=1e-7, save=False, verbose=False)[0]) > 0
+    with pytest.raises(NotImplementedError, match=r"row 0 \(Focus\).*JAX package"):
+        zoo.predict(frame, int8=True, imgsz=64, conf=1e-7, save=False, verbose=False)
     m = YOLOLite("yolo11n.yaml", device="cpu")
     pt = tmp_path / "yolo11n.pt"
     torch.save({"model": m.model, "train_args": {"imgsz": 64}}, str(pt))

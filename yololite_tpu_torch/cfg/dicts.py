@@ -3,6 +3,12 @@
 `DEFAULT_YAML` equals `yaml.safe_load(cfg/default.yaml)` and `YOLO11_YAML` equals
 `yaml.safe_load(cfg/yolo11.yaml)`; tests/test_torch_model.py holds them to that.
 Edit the yaml and the dict together.
+
+`YOLOV10N` and `GELAN_T` are two specs of the extended block zoo, as dicts
+(`DetectionModel(YOLOV10N)`): the rows of Ultralytics'
+cfg/models/v10/yolov10n.yaml with `Detect [nc, True]` (the end2end head) in
+place of v10Detect, and the backbone and neck rows of
+cfg/models/v9/yolov9t.yaml with this package's Detect (the YOLO11 head).
 """
 
 DEFAULT_YAML = {
@@ -70,5 +76,69 @@ YOLO11_YAML = {
         [[-1, 10], 1, "Concat", [1]],  # 21
         [-1, 2, "C3k2", [1024, True]],  # 22: P5/32 out
         [[16, 19, 22], 1, "Detect", ["nc"]],  # 23
+    ],
+}
+
+YOLOV10N = {  # 2,775,504 parameters, 8.63 GFLOPs at 640
+    "nc": 80,
+    "scales": {"n": [0.33, 0.25, 1024]},
+    "backbone": [
+        [-1, 1, "Conv", [64, 3, 2]],  # 0: P1/2
+        [-1, 1, "Conv", [128, 3, 2]],  # 1: P2/4
+        [-1, 3, "C2f", [128, True]],  # 2
+        [-1, 1, "Conv", [256, 3, 2]],  # 3: P3/8
+        [-1, 6, "C2f", [256, True]],  # 4
+        [-1, 1, "SCDown", [512, 3, 2]],  # 5: P4/16
+        [-1, 6, "C2f", [512, True]],  # 6
+        [-1, 1, "SCDown", [1024, 3, 2]],  # 7: P5/32
+        [-1, 3, "C2f", [1024, True]],  # 8
+        [-1, 1, "SPPF", [1024, 5]],  # 9
+        [-1, 1, "PSA", [1024]],  # 10
+    ],
+    "head": [
+        [-1, 1, "nn.Upsample", [None, 2, "nearest"]],  # 11
+        [[-1, 6], 1, "Concat", [1]],  # 12
+        [-1, 3, "C2f", [512]],  # 13
+        [-1, 1, "nn.Upsample", [None, 2, "nearest"]],  # 14
+        [[-1, 4], 1, "Concat", [1]],  # 15
+        [-1, 3, "C2f", [256]],  # 16: P3/8 out
+        [-1, 1, "Conv", [256, 3, 2]],  # 17
+        [[-1, 13], 1, "Concat", [1]],  # 18
+        [-1, 3, "C2f", [512]],  # 19: P4/16 out
+        [-1, 1, "SCDown", [512, 3, 2]],  # 20
+        [[-1, 10], 1, "Concat", [1]],  # 21
+        [-1, 3, "C2fCIB", [1024, True, True]],  # 22: P5/32 out (CIB with RepVGGDW)
+        [[16, 19, 22], 1, "Detect", ["nc", True]],  # 23: one2many and one2one branches
+    ],
+}
+
+GELAN_T = {  # 1,796,592 parameters, 6.69 GFLOPs at 640
+    "nc": 80,
+    "backbone": [
+        [-1, 1, "Conv", [16, 3, 2]],  # 0: P1/2
+        [-1, 1, "Conv", [32, 3, 2]],  # 1: P2/4
+        [-1, 1, "ELAN1", [32, 32, 16]],  # 2
+        [-1, 1, "AConv", [64]],  # 3: P3/8
+        [-1, 1, "RepNCSPELAN4", [64, 64, 32, 3]],  # 4
+        [-1, 1, "AConv", [96]],  # 5: P4/16
+        [-1, 1, "RepNCSPELAN4", [96, 96, 48, 3]],  # 6
+        [-1, 1, "AConv", [128]],  # 7: P5/32
+        [-1, 1, "RepNCSPELAN4", [128, 128, 64, 3]],  # 8
+        [-1, 1, "SPPELAN", [128, 64]],  # 9
+    ],
+    "head": [
+        [-1, 1, "nn.Upsample", [None, 2, "nearest"]],  # 10
+        [[-1, 6], 1, "Concat", [1]],  # 11
+        [-1, 1, "RepNCSPELAN4", [96, 96, 48, 3]],  # 12
+        [-1, 1, "nn.Upsample", [None, 2, "nearest"]],  # 13
+        [[-1, 4], 1, "Concat", [1]],  # 14
+        [-1, 1, "RepNCSPELAN4", [64, 64, 32, 3]],  # 15: P3/8 out
+        [-1, 1, "AConv", [48]],  # 16
+        [[-1, 12], 1, "Concat", [1]],  # 17
+        [-1, 1, "RepNCSPELAN4", [96, 96, 48, 3]],  # 18: P4/16 out
+        [-1, 1, "AConv", [64]],  # 19
+        [[-1, 9], 1, "Concat", [1]],  # 20
+        [-1, 1, "RepNCSPELAN4", [128, 128, 64, 3]],  # 21: P5/32 out
+        [[15, 18, 21], 1, "Detect", ["nc"]],  # 22
     ],
 }

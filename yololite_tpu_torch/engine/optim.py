@@ -2,9 +2,13 @@
 
 Groups, in the order of the JAX package's lr vector: 0 biases (BN bias and
 conv bias), 1 weights (conv weights, the only group with weight decay), 2 BN
-weights. The trainer writes each group's lr and momentum (or betas[0]) every
-iteration. Frozen parameters are left out of the optimizer: no update and no
-decay, as the JAX package's trainable mask gives.
+weights. As there, the group follows the JAX leaf's name: a leaf 'bias' or
+'b' is a bias, a leaf 'scale' (a BN's weight, or a zoo block's own gate
+scale) is in group 2, everything else (Linear, LayerNorm and attention
+weights, `in_proj_bias`, `logit_scale`) is a weight. The trainer writes
+each group's lr and momentum (or betas[0]) every iteration. Frozen
+parameters are left out of the optimizer: no update and no decay, as the
+JAX package's trainable mask gives.
 
 Each of the 7 names maps onto the torch.optim class whose update is the JAX
 formula: SGD(nesterov), Adam and RAdam with L2 decay folded into the
@@ -48,7 +52,7 @@ def group_params(model: nn.Module) -> Tuple[List[nn.Parameter], ...]:
                 continue
             if pname == "bias":  # BN bias and conv bias
                 gid = GROUP_BIAS
-            elif isinstance(m, nn.BatchNorm2d):  # BN weight
+            elif isinstance(m, nn.BatchNorm2d) or pname == "scale":  # BN weight, and a zoo block's own 'scale'
                 gid = GROUP_BN
             else:  # conv kernels and any other weight
                 gid = GROUP_WEIGHT

@@ -196,13 +196,14 @@ class DetectionPredictor:
         [0, 1]) for the activation scale; an ensemble warns once and stays float."""
         if not bool(self.args.int8) or self._quantized:
             return
-        self._quantized = True
         if self.is_ensemble:
+            self._quantized = True
             LOGGER.warning("int8 serving is not supported for ensembles; running bf16/fp32")
             return
         from yololite_tpu_torch.models.quant import quantize_model
 
-        self.net, self.scales = quantize_model(self.net, [calib()], self.device)
+        self.net, self.scales = quantize_model(self.net, [calib()], self.device)  # raises on a zoo model
+        self._quantized = True
         LOGGER.info("int8 serving: weights quantized (per-channel), activations calibrated on the first batch")
 
     def warmup(self, batch: int):

@@ -237,6 +237,10 @@ class DetectionTrainer:
     def _forward(self, images: torch.Tensor):
         """uint8 NHWC batch on the device -> the Detect maps, NHWC, in train mode (bf16 under amp)."""
         x = images.float() * (1.0 / 255.0) if images.dtype == torch.uint8 else images
+        if x.device.type == "cpu":
+            # torch's CPU BatchNorm takes train-mode statistics of a channels-last map with about 10x the fp32 error
+            # of its NCHW kernel; an NCHW-contiguous batch keeps every map NCHW there
+            x = x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
         with torch.autocast(self.device.type, dtype=torch.bfloat16, enabled=bool(self.args.amp)):
             return forward_nhwc(self.model, x)
 

@@ -2,10 +2,14 @@
 
 The JAX package keeps a model's weights as two nested dicts, params and
 state, keyed by row index and submodule name: a conv's {'w' (HWIO), 'b'},
-a BN's {'scale', 'bias'} in params and {'mean', 'var'} in state. Here they map
-onto the torch modules of the same names: OIHW conv weights, BN weight,
-bias, running_mean and running_var. Nothing of JAX is imported; the trees
-hold numpy arrays.
+a transposed conv's 'wt' (spatially flipped HWIO; 5-dim (kh, kw, c_in/g, g,
+c_out/g) for DWConvTranspose2d), a BN's {'scale', 'bias'} in params and
+{'mean', 'var'} in state, and the leaves of Linear, LayerNorm and attention
+under their torch names ('weight', 'bias', 'in_proj_weight', 'logit_scale',
+...). Here they map onto the torch modules of the same names: OIHW conv
+weights, (c_in, c_out/g, kh, kw) transposed-conv weights, BN weight, bias,
+running_mean and running_var. Nothing of JAX is imported; the trees hold
+numpy arrays.
 
 A native checkpoint is one .npz: `params.<path>` and `state.<path>` arrays
 plus a `__meta__` JSON header, written atomically. A trainer's checkpoint
@@ -46,6 +50,36 @@ def _to_torch(v) -> torch.Tensor:
     return torch.from_numpy(np.array(v, copy=True, order="C"))
 
 
+def from_jax_layout(layout: str, v: np.ndarray) -> np.ndarray:
+    """A JAX leaf in torch's layout: 'conv' HWIO -> OIHW; 'convT' flipped HWIO -> (c_in, c_out, kh, kw);
+    'convT5' flipped (kh, kw, c_in/g, g, c_out/g) -> (c_in, c_out/g, kh, kw); 'id' as it is."""
+    if layout == "conv":
+        return v.transpose(3, 2, 0, 1)
+    if layout == "convT":
+        return v.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]
+    if layout == "convT5":
+        kh, kw, cig, g, og = v.shape
+        return v.transpose(3, 2, 4, 0, 1).reshape(g * cig, og, kh, kw)[:, :, ::-1, ::-1]
+    return v
+
+
+def to_jax_layout(layout: str, a: np.ndarray, groups: int = 1) -> np.ndarray:
+    """The inverse of `from_jax_layout` (`groups` of a DWConvTranspose2d for 'convT5')."""
+    if layout == "conv":
+        return a.transpose(2, 3, 1, 0)
+    if layout == "convT":
+        return a[:, :, ::-1, ::-1].transpose(2, 3, 0, 1)
+    if layout == "convT5":
+        c1, og, kh, kw = a.shape
+        return a[:, :, ::-1, ::-1].reshape(groups, c1 // groups, og, kh, kw).transpose(3, 4, 1, 0, 2)
+    return a
+
+
+def _is_bn_node(node: Dict) -> bool:
+    """A BN's params node holds exactly 'scale' and 'bias' (a block's own 'scale' sits beside other leaves)."""
+    return set(node) == {"scale", "bias"}
+
+
 def state_dict_from_jax(params: Dict, state: Dict, prefix: str = "model.") -> Dict[str, torch.Tensor]:
     """Map (params, state) trees to upstream-named tensors that load with strict=True.
 
@@ -54,8 +88,8 @@ def state_dict_from_jax(params: Dict, state: Dict, prefix: str = "model.") -> Di
     """
     out: Dict[str, torch.Tensor] = {}
 
-    def put(name, v):
-        out[name] = _to_torch(v)
+    def put(path, leaf, v):
+        out[prefix + ".".join(path + (leaf,))] = _to_torch(v)
 
     def walk_params(node, path):
         for k, v in node.items():
@@ -63,60 +97,70 @@ def state_dict_from_jax(params: Dict, state: Dict, prefix: str = "model.") -> Di
                 walk_params(v, path + (k,))
                 continue
             v = np.asarray(v)
-            name = prefix + ".".join(path)
             if k == "w":
-                put(f"{name}.weight", v.transpose(3, 2, 0, 1))
+                put(path, "weight", from_jax_layout("conv", v))
+            elif k == "wt":
+                put(path, "weight", from_jax_layout("convT5" if v.ndim == 5 else "convT", v))
             elif k == "b":
-                put(f"{name}.bias", v)
-            elif k == "scale":  # bn scale lives under a 'bn' path component
-                put(f"{name}.weight", v)
-            elif k == "bias":
-                put(f"{name}.bias", v)
+                put(path, "bias", v)
+            elif k == "scale" and _is_bn_node(node):
+                put(path, "weight", v)
+            elif k in ("scale", "bias", "weight", "in_proj_weight", "in_proj_bias", "logit_scale"):
+                put(path, k, v)
             else:
-                raise KeyError(f"unmapped param leaf '{k}' at {name}")
+                raise KeyError(f"unmapped param leaf '{k}' at {prefix + '.'.join(path)}")
 
     def walk_state(node, path):
         for k, v in node.items():
             if isinstance(v, dict):
                 walk_state(v, path + (k,))
                 continue
-            name = prefix + ".".join(path)
             if k == "mean":
-                put(f"{name}.running_mean", np.asarray(v))
-                out[f"{name}.num_batches_tracked"] = torch.tensor(0)
+                put(path, "running_mean", np.asarray(v))
+                out[prefix + ".".join(path + ("num_batches_tracked",))] = torch.tensor(0)
             elif k == "var":
-                put(f"{name}.running_var", np.asarray(v))
+                put(path, "running_var", np.asarray(v))
             else:
-                raise KeyError(f"unmapped state leaf '{k}' at {name}")
+                raise KeyError(f"unmapped state leaf '{k}' at {prefix + '.'.join(path)}")
 
     walk_params(params, ())
     walk_state(state, ())
     return out
 
 
-def leaf_paths(model: nn.Module, prefix: str = "model.") -> Dict[str, Tuple[str, Tuple[str, ...]]]:
-    """Torch state_dict name -> ('params' or 'state', path of the JAX leaf) for every conv and BN entry."""
+_BN_LEAVES = {"weight": ("params", "scale"), "bias": ("params", "bias"), "running_mean": ("state", "mean"),
+              "running_var": ("state", "var")}
+
+
+def leaf_paths(model: nn.Module, prefix: str = "model.") -> Dict[str, Tuple[str, Tuple[str, ...], str, int]]:
+    """Torch state_dict name -> ('params' or 'state', path of the JAX leaf, layout, groups) for every parameter
+    and BN statistic (`prefix` "" for a bare block)."""
+    from yololite_tpu_torch.models.zoo import DWConvTranspose2d
+
     out = {}
     for mname, m in model.named_modules():
-        if not mname.startswith(prefix):
+        if prefix and not mname.startswith(prefix):
             continue
-        path = tuple(mname[len(prefix):].split("."))
-        if isinstance(m, nn.Conv2d):
-            out[f"{mname}.weight"] = ("params", path + ("w",))
-            if m.bias is not None:
-                out[f"{mname}.bias"] = ("params", path + ("b",))
-        elif isinstance(m, nn.BatchNorm2d):
-            out[f"{mname}.weight"] = ("params", path + ("scale",))
-            out[f"{mname}.bias"] = ("params", path + ("bias",))
-            out[f"{mname}.running_mean"] = ("state", path + ("mean",))
-            out[f"{mname}.running_var"] = ("state", path + ("var",))
+        rel = mname[len(prefix):]
+        path = tuple(rel.split(".")) if rel else ()
+        key = f"{mname}." if mname else ""
+        if isinstance(m, nn.BatchNorm2d):
+            for pname, (kind, leaf) in _BN_LEAVES.items():
+                out[key + pname] = (kind, path + (leaf,), "id", 1)
+            continue
+        for pname, _ in m.named_parameters(recurse=False):
+            leaf, layout = pname, "id"
+            if isinstance(m, nn.ConvTranspose2d) and pname == "weight":
+                leaf, layout = "wt", "convT5" if isinstance(m, DWConvTranspose2d) else "convT"
+            elif isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+                leaf, layout = ("w", "conv") if pname == "weight" else ("b", "id")
+            out[key + pname] = ("params", path + (leaf,), layout, getattr(m, "groups", 1))
     return out
 
 
-def _to_jax_layout(t: torch.Tensor) -> np.ndarray:
-    """A host copy of t, conv weights OIHW -> HWIO (the copy is taken now, so later in-place steps cannot reach it)."""
-    a = t.detach().to("cpu", copy=True)
-    return (a.permute(2, 3, 1, 0) if a.ndim == 4 else a).contiguous().numpy()
+def _to_jax_layout(t: torch.Tensor, layout: str, groups: int) -> np.ndarray:
+    """A host copy of t in the JAX layout (the copy is taken now, so later in-place steps cannot reach it)."""
+    return np.ascontiguousarray(to_jax_layout(layout, t.detach().to("cpu", copy=True).numpy(), groups))
 
 
 def _put(tree: Dict, path: Tuple[str, ...], v) -> None:
@@ -131,12 +175,12 @@ def _get(tree: Dict, path: Tuple[str, ...]):
     return tree
 
 
-def jax_trees(model: nn.Module) -> Tuple[Dict, Dict]:
+def jax_trees(model: nn.Module, prefix: str = "model.") -> Tuple[Dict, Dict]:
     """The model's (params, state) trees in the JAX package's names and layout, as host numpy copies."""
     params, state = {}, {}
     sd = model.state_dict()
-    for name, (kind, path) in leaf_paths(model).items():
-        _put(params if kind == "params" else state, path, _to_jax_layout(sd[name]))
+    for name, (kind, path, layout, groups) in leaf_paths(model, prefix).items():
+        _put(params if kind == "params" else state, path, _to_jax_layout(sd[name], layout, groups))
     return params, state
 
 
@@ -145,7 +189,8 @@ def tree_of(model: nn.Module, tensors: Dict[str, torch.Tensor]) -> Dict:
     tree = {}
     paths = leaf_paths(model)
     for name, t in tensors.items():
-        _put(tree, paths[name][1], _to_jax_layout(t))
+        _, path, layout, groups = paths[name]
+        _put(tree, path, _to_jax_layout(t, layout, groups))
     return tree
 
 
@@ -154,8 +199,8 @@ def tensors_of(model: nn.Module, tree: Dict, names) -> Dict[str, torch.Tensor]:
     paths = leaf_paths(model)
     out = {}
     for name in names:
-        v = torch.from_numpy(np.array(_get(tree, paths[name][1]), copy=True))
-        out[name] = v.permute(3, 2, 0, 1).contiguous() if v.ndim == 4 else v
+        _, path, layout, _ = paths[name]
+        out[name] = _to_torch(from_jax_layout(layout, np.asarray(_get(tree, path))))
     return out
 
 
@@ -445,7 +490,8 @@ def map_state_dict_into(sd: Dict[str, torch.Tensor], model: nn.Module, strict: b
 def load_pt(path, nc: Optional[int] = None) -> Tuple[nn.Module, Dict]:
     """Load a .pt checkpoint -> (DetectionModel or EnsembleModel on the CPU in fp32, meta).
 
-    Each member becomes `DetectionModel(f"yolo11{scale}.yaml", nc)` with
+    Each member becomes a DetectionModel of the spec the checkpoint carries
+    (its model's `yaml` dict; `yolo11{scale}.yaml` when it has none) with
     init(0) weights, which the checkpoint overwrites (fused first, if the
     checkpoint's BN is folded). When `nc` differs from the checkpoint's class
     count, the transfer is the intersect one: the class head keeps its init.
@@ -455,7 +501,9 @@ def load_pt(path, nc: Optional[int] = None) -> Tuple[nn.Module, Dict]:
     members = read_pt_members(path)
 
     def build_one(sd, meta):
-        model = DetectionModel(f"yolo11{meta.get('scale') or 'n'}.yaml", nc=nc or meta.get("nc")).init(0)
+        spec = meta.get("yaml")
+        cfg = spec if isinstance(spec, dict) and spec.get("backbone") else f"yolo11{meta.get('scale') or 'n'}.yaml"
+        model = DetectionModel(cfg, nc=nc or meta.get("nc")).init(0)
         if meta.get("names") and len(meta["names"]) == model.nc:
             model.names = meta["names"]
         model.args = meta.get("args", {})

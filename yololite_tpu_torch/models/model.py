@@ -1,9 +1,10 @@
 """Graph builder: YOLO architecture spec -> torch DetectionModel.
 
-Port of yololite_tpu/models/model.py for the YOLO11 subset of the block
-registry. Each row of the spec becomes one entry of `self.model` (so weight
-names are `model.{i}....` as upstream) carrying its wiring as attributes
-`i` (row index), `f` (input rows) and `name` (spec name).
+Port of yololite_tpu/models/model.py with its whole block registry: the
+YOLO11 blocks (models/modules.py) and the extended zoo (models/zoo.py,
+models/transformer.py). Each row of the spec becomes one entry of
+`self.model` (so weight names are `model.{i}....` as upstream) carrying its
+wiring as attributes `i` (row index), `f` (input rows) and `name` (spec name).
 """
 
 from __future__ import annotations
@@ -20,14 +21,23 @@ import torch.nn as nn
 
 from yololite_tpu_torch.cfg.dicts import YOLO11_YAML
 from yololite_tpu_torch.models import modules as M
+from yololite_tpu_torch.models import transformer as T
+from yololite_tpu_torch.models import zoo as Z
 from yololite_tpu_torch.utils import LOGGER, ROOT, yaml_load
 
 # spec name -> (module class, kind). Kinds drive arg rewriting:
-#   'ch'     : args = [c1, c2_scaled, *rest]
-#   'repeat' : additionally insert repeat count n after c2
-#   'plain'  : args used as-is
-#   'detect' : Detect(nc, input channels, end2end)
-REGISTRY: Dict[str, Tuple[type, str]] = {
+#   'ch'       : args = [c1, c2_scaled, *rest]
+#   'repeat'   : additionally insert repeat count n after c2
+#   'plain'    : args used as-is
+#   'plainch'  : module(c1, *args), output channels c1
+#   'hg'       : HGStem / HGBlock (c1, cm, c2, ...), HGBlock's repeats after k
+#   'resnet'   : the yaml args are the whole (c1, c2, s, is_first, n) signature
+#   'cblinear' : (c1, list of split channels); the row's channels are that list
+#   'cbfuse'   : (idx); channels and stride of the last input
+#   'aifi'     : (c1, *args)
+#   'imgpool'  : (*args, input channels); the row outputs the 512-wide text embedding
+#   'detect'   : Detect(nc, input channels, end2end)
+YOLO11_REGISTRY: Dict[str, Tuple[type, str]] = {
     "Conv": (M.Conv, "ch"),
     "DWConv": (M.DWConv, "ch"),
     "Bottleneck": (M.Bottleneck, "ch"),
@@ -41,17 +51,54 @@ REGISTRY: Dict[str, Tuple[type, str]] = {
     "Upsample": (M.Upsample, "plain"),
     "Detect": (M.Detect, "detect"),
 }
-
-# Blocks of the JAX package's extended zoo (yololite_tpu/models/zoo.py,
-# transformer.py) that this package has not ported yet.
-NOT_PORTED = frozenset({
-    "Focus", "GhostConv", "GhostBottleneck", "ConvTranspose", "RepConv", "LightConv", "SPP", "SPPELAN",
-    "RepNCSPELAN4", "ELAN1", "AConv", "ADown", "SCDown", "PSA", "C1", "C2", "C3x", "C3Ghost", "C3TR",
-    "RepC3", "RepCSP", "BottleneckCSP", "C2fCIB", "C2fPSA", "C3f", "CIB", "RepVGGDW", "CBAM",
-    "ChannelAttention", "HGStem", "HGBlock", "ResNetLayer", "CBLinear", "CBFuse", "AIFI",
-    "TransformerBlock", "Proto", "Conv2", "DWConvTranspose2d", "MaxSigmoidAttnBlock", "C2fAttn",
-    "ImagePoolingAttn", "ContrastiveHead", "BNContrastiveHead",
-})
+REGISTRY: Dict[str, Tuple[type, str]] = {
+    **YOLO11_REGISTRY,
+    # the extended zoo
+    "Focus": (Z.Focus, "ch"),
+    "GhostConv": (Z.GhostConv, "ch"),
+    "GhostBottleneck": (Z.GhostBottleneck, "ch"),
+    "ConvTranspose": (Z.ConvTranspose, "ch"),
+    "RepConv": (Z.RepConv, "ch"),
+    "LightConv": (Z.LightConv, "ch"),
+    "SPP": (Z.SPP, "ch"),
+    "SPPELAN": (Z.SPPELAN, "ch"),
+    "RepNCSPELAN4": (Z.RepNCSPELAN4, "ch"),
+    "ELAN1": (Z.ELAN1, "ch"),
+    "AConv": (Z.AConv, "ch"),
+    "ADown": (Z.ADown, "ch"),
+    "SCDown": (Z.SCDown, "ch"),
+    "PSA": (Z.PSA, "ch"),
+    "C1": (Z.C1, "repeat"),
+    "C2": (Z.C2, "repeat"),
+    "C3x": (Z.C3x, "repeat"),
+    "C3Ghost": (Z.C3Ghost, "repeat"),
+    "C3TR": (T.C3TR, "repeat"),
+    "RepC3": (Z.RepC3, "repeat"),
+    "RepCSP": (Z.RepCSP, "repeat"),
+    "BottleneckCSP": (Z.BottleneckCSP, "repeat"),
+    "C2fCIB": (Z.C2fCIB, "repeat"),
+    "C2fPSA": (Z.C2fPSA, "repeat"),
+    "C3f": (Z.C3f, "repeat"),
+    "CIB": (Z.CIB, "ch"),
+    "RepVGGDW": (Z.RepVGGDW, "plainch"),
+    "CBAM": (Z.CBAM, "plainch"),
+    "ChannelAttention": (Z.ChannelAttention, "plainch"),
+    "HGStem": (Z.HGStem, "hg"),
+    "HGBlock": (Z.HGBlock, "hg"),
+    "ResNetLayer": (Z.ResNetLayer, "resnet"),
+    "CBLinear": (Z.CBLinear, "cblinear"),
+    "CBFuse": (Z.CBFuse, "cbfuse"),
+    "AIFI": (T.AIFI, "aifi"),
+    "TransformerBlock": (T.TransformerBlock, "ch"),
+    "Proto": (Z.Proto, "ch"),
+    "Conv2": (Z.Conv2, "ch"),
+    "DWConvTranspose2d": (Z.DWConvTranspose2d, "ch"),
+    "MaxSigmoidAttnBlock": (Z.MaxSigmoidAttnBlock, "ch"),
+    "C2fAttn": (Z.C2fAttn, "repeat"),
+    "ImagePoolingAttn": (Z.ImagePoolingAttn, "imgpool"),
+    "ContrastiveHead": (Z.ContrastiveHead, "plain"),
+    "BNContrastiveHead": (Z.BNContrastiveHead, "plainch"),
+}
 
 
 def make_divisible(x, divisor=8):
@@ -125,13 +172,6 @@ def parse_spec(d: Dict, ch_in: int = 3, verbose: bool = False) -> Tuple[List[nn.
         for j, a in enumerate(args):
             if a == "nc":
                 args[j] = nc
-        if name not in REGISTRY:
-            if name in NOT_PORTED:
-                raise NotImplementedError(
-                    f"block '{name}' of the extended zoo is not ported to yololite_tpu_torch yet "
-                    "(ROADMAP.md, Queue 1, 'The rest')"
-                )
-            raise KeyError(name)
         cls, kind = REGISTRY[name]
         n_scaled = max(round(n * depth), 1) if n > 1 else n
 
@@ -144,6 +184,10 @@ def parse_spec(d: Dict, ch_in: int = 3, verbose: bool = False) -> Tuple[List[nn.
             if kind == "repeat":
                 margs.insert(2, n_scaled)
                 n_scaled = 1
+            if name == "C2fAttn" and len(margs) > 4:  # embed channels and head count scale with the width
+                margs[3] = make_divisible(min(margs[3], max_channels // 2) * width, 8)
+                margs[4] = int(max(round(min(margs[4], max_channels // 2 // 32)) * width, 1) if margs[4] > 1
+                               else margs[4])
             if name == "C3k2" and scale in "mlx":
                 if len(margs) > 3:  # c3k flag is margs[3] ([c1, c2, n, c3k, ...])
                     margs[3] = True
@@ -156,11 +200,11 @@ def parse_spec(d: Dict, ch_in: int = 3, verbose: bool = False) -> Tuple[List[nn.
             if name == "Concat":
                 c2 = sum(ch[x] for x in f)
                 sp = spatial[f[0]]
-            else:  # Upsample
+            else:  # Upsample, ContrastiveHead
                 c2 = ch[prev]
-                sp = spatial[prev] * mod.downsample
+                sp = spatial[prev] * getattr(mod, "downsample", 1)
             margs = args
-        else:  # detect
+        elif kind == "detect":
             in_ch = [ch[x] for x in f]
             e2e = bool(args[1]) if len(args) > 1 else False  # optional NMS-free one2one branch pair
             mod = cls(nc, in_ch, end2end=e2e)
@@ -169,6 +213,45 @@ def parse_spec(d: Dict, ch_in: int = 3, verbose: bool = False) -> Tuple[List[nn.
             c2 = 0
             sp = 0
             margs = [nc, in_ch]
+        elif kind == "imgpool":
+            margs = [*args, [ch[x] for x in f]]
+            mod = cls(*margs)
+            c2 = 512  # the text embedding (ct, 512 by default; specs pass only ec)
+            sp = spatial[f[0] if isinstance(f, (list, tuple)) else f]
+        elif kind == "plainch":
+            c2 = ch[prev]
+            margs = [c2, *args]
+            mod = cls(*margs)
+            sp = None
+        elif kind == "hg":
+            c1, cm, c2 = ch[prev], args[0], args[1]
+            margs = [c1, cm, c2, *args[2:]]
+            if name == "HGBlock":
+                margs.insert(4, n_scaled)  # repeats after k
+                n_scaled = 1
+            mod = cls(*margs)
+            sp = None
+        elif kind == "resnet":
+            margs = list(args)
+            is_first = margs[3] if len(margs) > 3 else False
+            c2 = margs[1] if is_first else margs[1] * 4
+            mod = cls(*margs)
+            sp = spatial[prev] * (4 if is_first else (margs[2] if len(margs) > 2 else 1))
+        elif kind == "cblinear":
+            c2 = args[0]  # the list of split channel counts
+            margs = [ch[prev], *args]
+            mod = cls(*margs)
+            sp = spatial[prev]
+        elif kind == "cbfuse":
+            c2 = ch[f[-1]]
+            margs = args
+            mod = cls(*margs)
+            sp = spatial[f[-1]]
+        else:  # aifi
+            c2 = ch[prev]
+            margs = [c2, *args]
+            mod = cls(*margs)
+            sp = spatial[prev]
 
         if n_scaled > 1:
             mod = nn.Sequential(*[cls(*margs) for _ in range(n_scaled)])

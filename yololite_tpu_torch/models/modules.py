@@ -404,19 +404,32 @@ class Detect(nn.Module):
 
 
 def init_weights_(module: nn.Module, rng: np.random.Generator) -> None:
-    """Draw every conv weight (and plain-conv bias) from `rng`, in the JAX package's order."""
-    if isinstance(module, Conv):
+    """Draw every conv weight (and plain-conv bias) from `rng`, in the JAX package's order.
+
+    A module that draws leaves of its own (Conv, and the zoo's transposed
+    convs, Linear, attention) has `init_weights(rng)`; a norm layer is reset
+    to weight 1, bias 0 (and running mean 0, var 1); anything else passes
+    the draw on to its children in registration order.
+    """
+    if hasattr(module, "init_weights"):
         module.init_weights(rng)
         return
     if isinstance(module, nn.Conv2d):
         init_conv2d_(module, rng)
+        return
+    if isinstance(module, (nn.BatchNorm2d, nn.LayerNorm)):
+        module.reset_parameters()
         return
     for child in module.children():
         init_weights_(child, rng)
 
 
 def fuse_(module: nn.Module) -> nn.Module:
-    """Fold every Conv+BN pair in place for inference (counterpart of yololite_tpu fuse_tree)."""
+    """Fold every Conv+BN pair in place for inference (counterpart of yololite_tpu fuse_tree).
+
+    Standalone BNs (RepConv's identity BN, BottleneckCSP's, ConvTranspose's)
+    stay unfused, and RepConv's branches stay two convs, as fuse_tree leaves them.
+    """
     for m in module.modules():
         if isinstance(m, Conv):
             m.fuse()

@@ -27,6 +27,7 @@ import torch.nn as nn
 
 from yololite_tpu_torch.engine.predictor import forward_nhwc
 from yololite_tpu_torch.models import modules as M
+from yololite_tpu_torch.models.model import YOLO11_REGISTRY
 
 
 def conv_paths(net: nn.Module):
@@ -114,12 +115,30 @@ def quantize_tree(net: nn.Module, scales: Dict) -> nn.Module:
     return net
 
 
+def refuse_zoo_rows(net: nn.Module) -> None:
+    """Raise NotImplementedError if the net holds a row of the extended block zoo.
+
+    The zoo's blocks never take an int8 edge, and the JAX package cannot run
+    one in int8 either: its RepConv and RepVGGDW apply SiLU to the sum of two
+    int8 conv outputs (yololite_tpu/models/zoo.py:264, 277), which raises
+    TypeError there. So int8 serving stays on models of YOLO11 blocks alone.
+    """
+    for row in net.model:
+        if row.name not in YOLO11_REGISTRY:
+            raise NotImplementedError(
+                f"int8 serving: row {row.i} ({row.name}) is a block of the extended zoo; the JAX package cannot "
+                "run the zoo in int8 either (RepConv and RepVGGDW apply SiLU to an int8 sum, "
+                "yololite_tpu/models/zoo.py:264, 277), so only models of YOLO11 blocks quantize")
+
+
 def quantize_model(net: nn.Module, calib_batches, device: Optional[torch.device] = None) -> Tuple[nn.Module, Dict]:
     """fuse -> calibrate -> quantize: (the int8 serving copy of `net` on `device`, scales).
 
     `net` is a DetectionModel, fused or not, in fp32 or bf16; it is left as
     it is. The copy's float modules are bf16; its QConvs keep fp32 scales.
+    A model with a row of the extended zoo raises first (`refuse_zoo_rows`).
     """
+    refuse_zoo_rows(net)
     device = device or next(net.parameters()).device
     fused = copy.deepcopy(net).eval()
     fused.fuse()
