@@ -71,9 +71,26 @@ Phases, each of which exits non-zero on failure:
      (e) int8=True raises NotImplementedError without touching K8; (f) each
      model on the card against the CPU at imgsz 160: predict, val, one SGD
      step.
+  8. parallel: (a) yolo11n over a mesh of two replicas on cuda:0: predict
+     the 32 frames at batch 32 (two shards, K1 once in each) and the first
+     31 at batch 31 (a tail that runs unsharded), detections equal to one
+     device's; val of the phase-4 set at batch 16 (K1 once per alive block
+     of each shard), every metric within 1e-6 of one device's; (b) the
+     data-parallel train step at 640, global batch 16: two gloo ranks on
+     cuda:0 (8 rows each, cross-rank BN) against the one-process step
+     (fg_mask equal, loss items 1e-4) and a float64 step on the card
+     (gradients and each weight's and BN statistic's update 1e-3 relative
+     L2), with both steps' times and the gradient all_reduce's; one NCCL
+     rank the same way; then YOLOLite.train for 1 epoch on the phase-5
+     images on two gloo ranks against one process (loss items 1e-3; rank 0's
+     EMA val and final val launch K1); (c) rotated ops on the card against
+     the CPU on 2,000 random OBBs: batch_probiou, nms_rotated, the rotated
+     assigner at B 16, A 8,400, M 32; (d) the deformable decoder at
+     RT-DETR-L's widths (d 256, 8 heads, 3 levels, 4 points, 300 queries,
+     6 layers, batch 8) on the card against the CPU, relative L2 1e-4.
 The kernels line's launches count the runs of the main paths: predict, val,
-train, serving and the zoo for K1, the int8 predict calls (yolo11n and
-yolo11m) for K8.
+train, serving, the zoo and phase 8 (rank 0's launches as it reports them)
+for K1, the int8 predict calls (yolo11n and yolo11m) for K8.
 Prints the card's name and power limit, a {"kernels": [...]} line, and last
 {"ok": true, "device": {...}}. Needs no network and no JAX.
 """
@@ -1389,6 +1406,274 @@ def zoo_phase(card: str, frames):
     return k1
 
 
+def rel_l2(a, b) -> float:
+    return float((a.double() - b.double()).norm() / max(float(b.double().norm()), 1e-30))
+
+
+def float64_step(ov, model, batch, lr, momentum) -> dict:
+    """The trainer's SGD step in float64 on the card (an NCHW batch): gradients, weights and BN statistics before and
+    after, the reference of the fp32 steps."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from yololite_tpu_torch.engine.predictor import forward_nhwc
+    from yololite_tpu_torch.engine.trainer import DetectionTrainer
+
+    tr = DetectionTrainer(overrides=ov, device="cuda")
+    tr.set_model(copy.deepcopy(model).double())
+    tr._setup_train()
+    host = lambda: {k: v.detach().cpu().double().clone() for k, v in tr.model.state_dict().items()
+                    if v.is_floating_point()}
+    before = host()
+    targets = {k: v.double() if v.is_floating_point() else v for k, v in tr._targets(batch).items()}
+    x = torch.from_numpy(batch["img"]).cuda().double() / 255.0
+    total, _, _ = tr.loss_fn.forward(forward_nhwc(tr.model, x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)),
+                                     targets)
+    total.backward()
+    grads = {k: p.grad.detach().cpu().clone() for k, p in tr.model.named_parameters()}
+    tr._apply_step(np.asarray(lr, np.float32), momentum)
+    return {"grads": grads, "before": before, "after": host()}
+
+
+def parallel_phase(card: str, frames):
+    """Phase 8: data parallelism on the one card, rotated ops and deformable attention on the card vs the CPU.
+
+    Returns K1's launches in the mesh's predict and val runs and in rank 0's
+    EMA vals and final val of the 2-rank training run.
+    """
+    import math
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from yololite_tpu_torch import YOLOLite
+    from yololite_tpu_torch.cfg import get_cfg
+    from yololite_tpu_torch.data.dataset import build_dataloader, build_yolo_dataset
+    from yololite_tpu_torch.data.utils import check_det_dataset
+    from yololite_tpu_torch.engine.trainer import data_parallel_step
+    from yololite_tpu_torch.models import deformable as D
+    from yololite_tpu_torch.models.model import DetectionModel
+    from yololite_tpu_torch.models.transformer import Linear
+    from yololite_tpu_torch.ops import nms, rotated as R
+    from yololite_tpu_torch.ops.boxes import make_anchors
+    from yololite_tpu_torch.ops.kernels import greedy_nms_keep
+    from yololite_tpu_torch.parallel.mesh import launch
+
+    tmp = tempfile.TemporaryDirectory()
+    root = Path(tmp.name)
+    mesh = ["cuda:0", "cuda:0"]  # two replicas (inference) or two gloo ranks (train) on the one card
+    k1 = 0
+
+    # (a) inference over a mesh of two replicas: predict at batch 32, a tail of 31 frames, val at batch 16
+    one, two = YOLOLite("yolo11n.yaml"), YOLOLite("yolo11n.yaml", device=mesh)
+    for bs, src in ((32, frames), (31, frames[:31])):
+        kw = dict(conf=1e-7, imgsz=640, batch=bs, save=False, verbose=False)
+        want = one.predict(src, **kw)
+        two.predict(src, **kw)  # set up and warm up
+        times = {}
+        for name, m in (("one device", one), ("mesh", two)):
+            greedy_nms_keep.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = m.predict(src, **kw)
+            torch.cuda.synchronize()
+            times[name] = (time.perf_counter() - t0) * 1e3
+            if name == "mesh":
+                n = greedy_nms_keep.launches
+        shards = 2 if bs % 2 == 0 else 1
+        if n != shards or len(two.predictor.replicas) != 2:
+            raise AssertionError(f"mesh predict batch {bs}: {n} K1 launches, {len(two.predictor.replicas)} replicas")
+        k1 += n
+        unmatched = sum(len(a.boxes.data) + len(b.boxes.data) - 2 * match_sets(a.boxes.data, b.boxes.data)
+                        for a, b in zip(want, got))
+        if len(got) != bs or unmatched:
+            raise AssertionError(f"mesh predict batch {bs}: {len(got)} results, {unmatched} unmatched detections")
+        log(f"parallel: mesh of 2 replicas on cuda:0, predict 32 frames at 640, batch {bs}: {shards} shard(s), "
+            f"K1 {n} launches, detections == one device (0 unmatched of {sum(len(r) for r in got)}); one call "
+            f"{times['mesh']:.2f} ms on the mesh, {times['one device']:.2f} ms on one device, on {card}")
+    shapes = [(480, 640), (640, 480), (640, 640), (360, 640)]
+    val_data = write_val_dataset(root / "val64", shapes * 16, seed=15)
+    blocked = nms._blocked_keep
+    alive = []
+
+    def recording_blocked(shifted, valid, thr):
+        keep = blocked(shifted, valid, thr)
+        alive.append(alive_blocks(keep))
+        return keep
+
+    kwv = dict(data=str(val_data), imgsz=640, batch=16, rect=True, conf=1e-7, plots=False, verbose=False,
+               project=str(root / "runs"))
+    rd1 = one.val(**kwv, name="one").results_dict
+    nms._blocked_keep = recording_blocked
+    greedy_nms_keep.launches = 0
+    try:
+        rd2 = two.val(**kwv, name="mesh").results_dict
+    finally:
+        nms._blocked_keep = blocked
+    n = greedy_nms_keep.launches
+    if len(alive) != 8 or n != sum(alive) or not n:
+        raise AssertionError(f"mesh val: {n} K1 launches for {len(alive)} NMS calls with alive blocks {alive}")
+    k1 += n
+    worst = max(abs(rd2[k] - rd1[k]) for k in rd1)
+    if worst > 1e-6:
+        raise AssertionError(f"mesh val differs from one device by {worst}: {rd2} vs {rd1}")
+    log(f"parallel: mesh val of 64 images at 640, batch 16, rect: 4 batches x 2 shards, K1 {n} launches = alive "
+        f"blocks {alive}; mAP50-95 {rd2['metrics/mAP50-95(B)']:.6f}, every metric within {worst:.1e} of one device")
+
+    # (b) the data-parallel train step: two gloo ranks of 8 rows against one process on the global 16
+    write_val_dataset(root / "ds", shapes * 16, seed=20, split="train")
+    train_data = write_val_dataset(root / "ds", shapes * 4, seed=21, split="val")
+    ov = {"data": str(train_data), "imgsz": 640, "batch": 16, "nbs": 16, "val": False, "save": False,
+          "optimizer": "SGD", "amp": False, "project": str(root / "runs"), "name": "dp", "workers": 2}
+    hyp = get_cfg(overrides={**ov, "mode": "train"})
+    dinfo = check_det_dataset(str(train_data))
+    batch = next(iter(build_dataloader(build_yolo_dataset(hyp, dinfo["train"], 16, dinfo, mode="train"), 16, 0,
+                                       shuffle=True, seed=0)))
+    model = DetectionModel("yolo11n.yaml").init(0)
+    lr = [100.0] * 3  # far above the fp32 rounding of the new weights (see one_step_card_vs_cpu)
+    args = (ov, model, [batch], lr, 0.9, 5)
+    ref = data_parallel_step(0, 1, torch.device("cuda:0"), *args)
+    ref64 = float64_step(ov, model, batch, lr, 0.9)
+    t0 = time.perf_counter()
+    ranks = launch(data_parallel_step, mesh, "gloo", args=args)
+    t_launch = time.perf_counter() - t0
+    floor = 1e-5 * max(float(v.norm()) for v in ref64["grads"].values())
+    u64 = {k: ref64["after"][k] - ref64["before"][k] for k in ref64["after"]}
+    u_floor = 1e-5 * max(float(v.norm()) for v in u64.values())
+
+    def worst(got, want, fl):
+        return max((float((got[k].double() - w).norm()) / max(float(w.norm()), fl), k) for k, w in want.items())
+
+    one_g = worst(ref["grads"], ref64["grads"], floor)
+
+    def held(name, outs, bound=1e-3):
+        """fg_mask and loss items against the one-process fp32 step; gradients and updates against the float64
+        step: on the card, fp32 gradients of the near-cancelling BN leaves move with cuDNN's algorithm choices
+        (the one-process step's own distance to float64 is logged beside them)."""
+        fg = torch.cat([o["fg_mask"][0] for o in outs])
+        items = max(float(((o["items"][0] - ref["items"][0]).abs() / ref["items"][0].abs()).max()) for o in outs)
+        gw = worst(outs[0]["grads"], ref64["grads"], floor)
+        uw = worst({k: outs[0]["after"][k].double() - ref["before"][k].double() for k in u64}, u64, u_floor)
+        same = all(torch.equal(o["after"][k], outs[0]["after"][k]) for o in outs for k in u64)
+        if not torch.equal(fg, ref["fg_mask"][0]) or items > 1e-4 or gw[0] > bound or uw[0] > bound or not same:
+            raise AssertionError(f"{name}: fg equal {torch.equal(fg, ref['fg_mask'][0])}, items rel {items}, worst "
+                                 f"gradient {gw}, worst update {uw} against the float64 step (bound {bound}), ranks "
+                                 f"equal {same}; the one-process fp32 step's worst gradient {one_g}")
+        log(f"parallel: {name} step on the global batch of 16 at 640 (yolo11n, fp32, SGD lr 100): fg_mask equal to "
+            f"the one-process step's ({int(fg.sum())} anchors), loss items within {items:.2e} of it; against the "
+            f"float64 step: worst gradient rel L2 {gw[0]:.2e} ({gw[1]}), worst update of a weight or BN statistic "
+            f"{uw[0]:.2e} ({uw[1]}), bound {bound:g} (the one-process fp32 step: worst gradient {one_g[0]:.2e}, "
+            f"{one_g[1]}); every rank's weights, statistics and EMA equal")
+
+    held("2 gloo ranks on cuda:0", ranks)
+    log(f"parallel: train step at 640, global batch 16, mean of 5: one process {ref['step_s'] * 1e3:.2f} ms; 2 gloo "
+        f"ranks on the one card {ranks[0]['step_s'] * 1e3:.2f} ms, of which the gradient all_reduce "
+        f"{ranks[0]['sum_grads_s'] * 1e3:.2f} ms; spawn + set-up + steps {t_launch:.1f} s, on {card}")
+    nccl = launch(data_parallel_step, ["cuda:0"], "nccl", args=args)
+    held("1 NCCL rank", nccl)
+    log(f"parallel: 1 NCCL rank initialised, stepped ({nccl[0]['step_s'] * 1e3:.2f} ms a step) and tore down")
+
+    curves, runs = {}, {}
+    for name, dev in (("one process", None), ("2 gloo ranks", mesh)):
+        m = YOLOLite("yolo11n.yaml")
+        with torch.no_grad():  # class biases -6, so the EMA val's conf 0.001 keeps candidates (see train_phase)
+            for seq in m.model.detect.cv3:
+                seq[2].bias.fill_(-6.0)
+        t0 = time.perf_counter()
+        m.train(data=str(train_data), epochs=1, imgsz=640, batch=16, amp=False, plots=False, workers=0,
+                project=str(root / "runs"), name=name.replace(" ", "_"), **({"device": dev} if dev else {}))
+        runs[name] = (m.trainer, time.perf_counter() - t0)
+        curves[name] = np.loadtxt(m.trainer.csv, delimiter=",", skiprows=1, ndmin=2)[:, 1:4]
+    t2 = runs["2 gloo ranks"][0]
+    n = t2.rank_kernel_launches["greedy_nms_keep"]
+    if not Path(t2.last).exists() or not n or not np.isfinite(curves["2 gloo ranks"]).all():
+        raise AssertionError(f"2-rank train: last.npz {Path(t2.last).exists()}, rank 0's K1 launches {n}")
+    k1 += n
+    rel = float(np.abs(curves["2 gloo ranks"] / curves["one process"] - 1).max())
+    if rel > 1e-3:
+        raise AssertionError(f"2-rank loss curve {curves['2 gloo ranks']} vs one process {curves['one process']}")
+    log(f"parallel: YOLOLite.train 1 epoch at 640, batch 16, fp32, 64 images, one loader thread: 2 gloo ranks {runs['2 gloo ranks'][1]:.1f}"
+        f" s (epoch loop {t2.train_seconds[0]:.3f} s), one process {runs['one process'][1]:.1f} s (epoch loop "
+        f"{runs['one process'][0].train_seconds[0]:.3f} s); loss items {curves['2 gloo ranks'][0].round(5).tolist()}"
+        f" within {rel:.1e} of the one-process epoch; rank 0 saved last.npz and ran the EMA val and final val with "
+        f"K1 {n} launches, on {card}")
+
+    # (c) rotated ops: the card against the CPU
+    rng = np.random.default_rng(30)
+
+    def obbs(n):
+        return torch.from_numpy(np.stack([rng.uniform(20, 620, n), rng.uniform(20, 620, n), rng.uniform(5, 60, n),
+                                          rng.uniform(5, 60, n), rng.uniform(0, math.pi / 2, n)], -1)
+                                .astype(np.float32))
+
+    boxes, scores = obbs(2000), torch.from_numpy(rng.uniform(0.05, 1, 2000).astype(np.float32))
+    bc, sc = boxes.cuda(), scores.cuda()
+    err = float((R.batch_probiou(bc, bc).cpu() - R.batch_probiou(boxes, boxes)).abs().max())
+    t_iou = cuda_ms(lambda: R.batch_probiou(bc, bc), 10)
+    ki, kv = R.nms_rotated(bc, sc, 0.45, 300)
+    ci, cv = R.nms_rotated(boxes, scores, 0.45, 300)
+    t_nms = cuda_ms(lambda: R.nms_rotated(bc, sc, 0.45, 300), 10)
+    anchors, strides = make_anchors([(80, 80), (40, 40), (20, 20)], [8, 16, 32], 0.5)
+    anchors = anchors * strides  # image pixels
+    B, A, M, nc = 16, 8400, 32, 80
+    gt = obbs(B * M).reshape(B, M, 5)
+    pd = torch.cat([anchors[None].expand(B, -1, -1) + torch.from_numpy(rng.uniform(-4, 4, (B, A, 2)).astype(
+        np.float32)), obbs(B * A).reshape(B, A, 5)[..., 2:]], -1)
+    ins = (torch.from_numpy(rng.uniform(0, 1, (B, A, nc)).astype(np.float32)), pd, anchors,
+           torch.from_numpy(rng.integers(0, nc, (B, M, 1)).astype(np.int64)), gt,
+           torch.from_numpy((rng.uniform(size=(B, M, 1)) > 0.2).astype(np.float32)))
+    tal = R.RotatedTaskAlignedAssigner(topk=10, num_classes=nc, alpha=0.5, beta=6.0)
+    on_cpu = tal(*ins)
+    on_card = tal(*(x.cuda() for x in ins))
+    t_tal = cuda_ms(lambda: tal(*(x.cuda() for x in ins)), 5)
+    tal_err = max(float((a.cpu().float() - b.float()).abs().max()) for a, b in zip(on_card[1:3], on_cpu[1:3]))
+    same = [torch.equal(a.cpu(), b) for i, (a, b) in enumerate(zip(on_card, on_cpu)) if i in (0, 3, 4)]
+    if err > 1e-5 or not (torch.equal(ki.cpu(), ci) and torch.equal(kv.cpu(), cv)) or not all(same) or tal_err > 1e-5:
+        raise AssertionError(f"rotated card vs CPU: probiou err {err}, nms keep equal {torch.equal(ki.cpu(), ci)}, "
+                             f"assigner labels/fg/gt_idx equal {same}, targets err {tal_err}")
+    log(f"parallel: rotated ops card == CPU: batch_probiou 2000x2000 max err {err:.1e} ({t_iou:.3f} ms), "
+        f"nms_rotated keep equal ({int(kv.sum())} kept, {t_nms:.3f} ms), RotatedTaskAlignedAssigner B={B} A={A} "
+        f"M={M}: labels, fg_mask ({int(on_cpu[3].sum())}) and gt indices equal, targets within {tal_err:.1e} "
+        f"({t_tal:.3f} ms), on {card}")
+
+    # (d) deformable attention at RT-DETR-L's decoder widths: the card against the CPU
+    d, heads, levels, points, queries, ffn, layers, b = 256, 8, 3, 4, 300, 1024, 6, 8
+    dec = D.DeformableTransformerDecoder(d, lambda: D.DeformableTransformerDecoderLayer(d, heads, ffn, 0.0, levels,
+                                                                                          points), layers).init(0)
+    wrng = np.random.default_rng(31)
+    bbox_heads = torch.nn.ModuleList(Linear(d, 4) for _ in range(layers))
+    score_heads = torch.nn.ModuleList(Linear(d, 80) for _ in range(layers))
+    pos_mlp = Linear(4, d)
+    parts = torch.nn.ModuleList([dec, bbox_heads, score_heads, pos_mlp])
+    with torch.no_grad():
+        for p in parts.parameters():  # off the init's zeros, so offsets and weights depend on the queries
+            p.add_(torch.from_numpy(wrng.normal(0, 0.02, tuple(p.shape)).astype(np.float32)))
+    fshapes = [(80, 80), (40, 40), (20, 20)]
+    xs = [torch.from_numpy(wrng.standard_normal(shape).astype(np.float32)) for shape in
+          ((b, queries, d), (b, queries, 4), (b, sum(h * w for h, w in fshapes), d))]
+
+    def run(dev):
+        parts.to(dev).eval()
+        with torch.no_grad():
+            return dec(*(x.to(dev) for x in xs), fshapes, bbox_heads=bbox_heads, score_heads=score_heads,
+                       pos_mlp=pos_mlp)
+
+    cpu_out = run("cpu")
+    card_out = run("cuda")
+    t_dec = cuda_ms(lambda: run("cuda"), 10)
+    errs = [rel_l2(a.cpu(), c) for a, c in zip(card_out, cpu_out)]
+    if max(errs) > 1e-4 or not all(torch.isfinite(a).all() for a in card_out):
+        raise AssertionError(f"deformable decoder card vs CPU: relative L2 {errs}")
+    log(f"parallel: deformable decoder (d 256, 8 heads, 3 levels 80/40/20, 4 points, 300 queries, d_ffn 1024, 6 "
+        f"layers, batch 8) card == CPU: boxes and logits relative L2 {errs[0]:.1e}, {errs[1]:.1e}; forward "
+        f"{t_dec:.3f} ms, on {card}")
+    tmp.cleanup()
+    return k1
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1560,6 +1845,10 @@ def main() -> int:
 
     # ---- 7. zoo: YOLOv10-N and GELAN-T at full width: predict, val, train, .pt, int8 refusal, card vs CPU ----
     launches += zoo_phase(card, frames)
+
+    # ---- 8. data parallelism on the card (mesh predict and val, ranks' train step and train), rotated ops,
+    # deformable attention ----
+    launches += parallel_phase(card, frames)
 
     # ---- kernels line: timed on the main path's own inputs (fp32, batch 32; batch 1 logged) ----
     for config in ((False, 1), (False, 32)):

@@ -124,6 +124,27 @@ def test_val_nms_through_the_kernel_equals_the_plain_keep(card, half, monkeypatc
     assert torch.equal(with_kernel, with_plain)
 
 
+def test_mesh_predict_launches_the_kernel_once_per_shard(card):
+    """A mesh of two replicas on cuda:0: a batch of 4 runs as two shards, K1 once in each, with the one-device
+    detections; a batch of 3 does not divide and runs whole on the first device, K1 once."""
+    from yololite_tpu_torch import YOLOLite
+
+    rng = np.random.default_rng(2)
+    src = [rng.integers(0, 256, (120, 160, 3), np.uint8) for _ in range(4)]
+    one, two = YOLOLite("yolo11n.yaml"), YOLOLite("yolo11n.yaml", device=["cuda:0", "cuda:0"])
+    for n in (4, 3):
+        kw = dict(conf=1e-7, imgsz=160, batch=n, save=False, verbose=False)
+        want = one.predict(src[:n], **kw)
+        two.predict(src[:n], **kw)  # set up and warm up
+        before = greedy_nms_keep.launches
+        got = two.predict(src[:n], **kw)
+        assert greedy_nms_keep.launches - before == (2 if n % 2 == 0 else 1)
+        assert two.predictor.mesh is not None and len(two.predictor.replicas) == 2
+        for a, b in zip(want, got):
+            assert len(a) > 0 and len(a) == len(b)
+            np.testing.assert_allclose(b.boxes.data, a.boxes.data, rtol=1e-4, atol=0.05)
+
+
 def test_keep_op_equals_the_direct_launch(card):
     """The K1 op through torch.library (torch.ops) equals the wrapper's launch and counts one launch."""
     boxes, valid = _scene(np.random.default_rng(5), 16, 512, False)

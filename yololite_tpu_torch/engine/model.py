@@ -5,6 +5,11 @@ export, info.
 `YOLOLite("last.npz")` loads a native checkpoint of either package and
 `YOLOLite("yolo11n.pt")` an upstream-format .pt (a pickled multi-member
 Ensemble loads as an EnsembleModel); pass device="cpu" to run on the CPU.
+
+Several devices (device="0,1", a list, or None with more than one card
+visible) go through to the engines: predict and val shard each batch over
+them in this process, and train runs one data-parallel rank per device
+(parallel/mesh.py). The model itself lives on the first.
 """
 
 from __future__ import annotations
@@ -18,7 +23,8 @@ import torch
 from yololite_tpu_torch.cfg import DEFAULT_CFG_DICT, get_cfg
 from yololite_tpu_torch.models import checkpoint as ckpt
 from yololite_tpu_torch.models.model import DetectionModel
-from yololite_tpu_torch.utils import LOGGER, select_device
+from yololite_tpu_torch.parallel.mesh import resolve_devices
+from yololite_tpu_torch.utils import LOGGER
 
 
 class YOLOLite:
@@ -29,7 +35,8 @@ class YOLOLite:
         if task != "detect":
             raise ValueError(f"only detection is supported, got task={task!r}")
         self.task = task
-        self.device = select_device(device)
+        self.devices = resolve_devices(device)
+        self.device = self.devices[0]
         self.overrides: Dict = {}
         self.predictor = None
         self.trainer = None
@@ -75,6 +82,12 @@ class YOLOLite:
         self.overrides.update({"model": path, "task": self.task})
         self.predictor = None
 
+    def _engine_device(self, kwargs: Dict):
+        """A call's own device argument, else the facade's device, or its devices when it has several."""
+        if kwargs.get("device") is not None:
+            return kwargs["device"]
+        return list(self.devices) if len(self.devices) > 1 else self.device
+
     @property
     def names(self):
         return self.model.names
@@ -91,9 +104,10 @@ class YOLOLite:
 
         # NMS/forward settings are fixed when the predictor is set up; rebuild when they change
         sig = tuple(args.get(k) if not isinstance(args.get(k), list) else tuple(args.get(k))
-                    for k in ("conf", "iou", "max_det", "agnostic_nms", "augment", "half", "classes", "int8"))
+                    for k in ("conf", "iou", "max_det", "agnostic_nms", "augment", "half", "classes", "int8",
+                          "device"))
         if self.predictor is None or predictor is not None or getattr(self.predictor, "_sig", None) != sig:
-            self.predictor = (predictor or DetectionPredictor)(overrides=args, device=self.device)
+            self.predictor = (predictor or DetectionPredictor)(overrides=args, device=self._engine_device(kwargs))
             self.predictor.setup_model(self.model)
             self.predictor._sig = sig
         else:
@@ -144,7 +158,7 @@ class YOLOLite:
         args = {**self.overrides, **custom, **kwargs}
         from yololite_tpu_torch.engine.validator import DetectionValidator
 
-        v = (validator or DetectionValidator)(args=args, device=self.device)
+        v = (validator or DetectionValidator)(args=args, device=self._engine_device(kwargs))
         v(model=self.model)
         self.metrics = v.metrics
         return v.metrics
@@ -156,7 +170,7 @@ class YOLOLite:
             args["resume"] = self.ckpt_path
         from yololite_tpu_torch.engine.trainer import DetectionTrainer
 
-        self.trainer = (trainer or DetectionTrainer)(overrides=args, device=self.device)
+        self.trainer = (trainer or DetectionTrainer)(overrides=args, device=self._engine_device(kwargs))
         if not args.get("resume"):
             self.trainer.set_model(self.model)
         self.trainer.train()

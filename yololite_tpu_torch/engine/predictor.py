@@ -7,6 +7,12 @@ the device and return a padded (B, max_det, 6) tensor, which is copied to
 the host, rescaled and wrapped in Results. Tail batches are padded to the
 batch size so every batch has the same shape.
 
+Given several devices (a list, or a comma string such as '0,1'), the
+predictor holds one replica of the fused net per device: each batch that
+divides is split over them (parallel/mesh.py), each shard runs on its own
+device, K1 runs once per shard, and the outputs are gathered in order on the
+first device. A batch that does not divide runs whole on the first device.
+
 Images stay in the JAX package's NHWC layout up to the model, which takes
 NCHW; the Detect maps go back to NHWC for the decode and NMS ops.
 
@@ -36,7 +42,8 @@ from yololite_tpu_torch.ops.decode import decode_detections, postprocess_end2end
 from yololite_tpu_torch.ops.kernels import device_letterbox
 from yololite_tpu_torch.ops.letterbox import preprocess_batch, scale_img
 from yololite_tpu_torch.ops.nms import nms_from_feats, non_max_suppression
-from yololite_tpu_torch.utils import LOGGER, colorstr, select_device
+from yololite_tpu_torch.parallel.mesh import make_mesh, replicate_tree, resolve_devices, shard_batch
+from yololite_tpu_torch.utils import LOGGER, colorstr
 from yololite_tpu_torch.utils.checks import check_imgsz
 from yololite_tpu_torch.utils.profile import Profile
 
@@ -66,6 +73,28 @@ def inference_net(model, device: torch.device, half: bool, fuse: bool = True):
     return net.to(torch.bfloat16 if half else torch.float32)
 
 
+def on_device(device: torch.device):
+    """The block's launches go to `device` (the current CUDA device); a no-op off the card."""
+    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
+
+
+def run_sharded(mesh, replicas: list, x: torch.Tensor, fn):
+    """fn(shard, replica) on each shard of x over the mesh, gathered in order on the first device.
+
+    Without a mesh, or for a batch that does not divide, x runs whole on the
+    first replica. The shards' launches do not wait for each other.
+    """
+    shards = shard_batch(mesh, x)
+    outs = []
+    for xs, net in zip(shards, replicas):
+        with on_device(xs.device):
+            outs.append(fn(xs, net))
+    if len(outs) == 1:
+        return outs[0]
+    first = outs[0].device
+    return torch.cat([o.to(first, non_blocking=True) for o in outs])
+
+
 def forward_nhwc(net, x: torch.Tensor):
     """NHWC images -> NHWC per-level Detect maps (or the end2end dict of them); the net runs NCHW."""
     out = net(x.permute(0, 3, 1, 2))
@@ -80,10 +109,13 @@ class DetectionPredictor:
         self.args = get_cfg(cfg or {}, None) if isinstance(cfg, dict) and not overrides else get_cfg(overrides=overrides)
         if self.args.conf is None:
             self.args.conf = 0.25
-        self.device = select_device(self.args.device if device is None else device)
+        self.devices = resolve_devices(self.args.device if device is None else device)
+        self.device = self.devices[0]
+        self.mesh = make_mesh(devices=self.devices) if len(self.devices) > 1 else None
         self.save_dir = get_save_dir(self.args)
         self.model = None  # the caller's DetectionModel (names, strides)
         self.net = None  # its fused inference copy on self.device
+        self.replicas = []  # self.net and, over a mesh, one copy on each further device
         self.dataset = None
         self.seen = 0
         self._lock = threading.Lock()
@@ -100,6 +132,7 @@ class DetectionPredictor:
         self.half = bool(self.args.half if half is None else half)
         self.dtype = torch.bfloat16 if self.half else torch.float32
         self.net = inference_net(model, self.device, self.half, fuse)
+        self.replicas = replicate_tree(self.mesh, self.net)
         self._quantized = False
 
         self.conf, self.iou = float(self.args.conf), float(self.args.iou)
@@ -120,16 +153,16 @@ class DetectionPredictor:
     def _forward(self, x: torch.Tensor):
         return forward_nhwc(self.net, x)
 
-    def _forward_decode(self, x: torch.Tensor):
+    def _forward_decode(self, x: torch.Tensor, net):
         if self.is_ensemble:  # members' decoded outputs concatenate along the anchors
-            return self.net.decode_concat(x, half=self.half)
-        feats = self._forward(x)
+            return net.decode_concat(x, half=self.half)
+        feats = forward_nhwc(net, x)
         if isinstance(feats, dict):
             feats = feats["one2many"]
         boxes, scores = decode_detections(feats, self.model.strides, self.model.nc, self.model.reg_max, xywh=False)
         return boxes.float(), scores
 
-    def _forward_tta(self, x: torch.Tensor):
+    def _forward_tta(self, x: torch.Tensor, net):
         """Test-time augmentation: scales 1, 0.83 (flipped) and 0.67, merged before NMS.
 
         Each view is resized by scale_img (padded to the /32 grid with the 0.447
@@ -139,51 +172,55 @@ class DetectionPredictor:
         outs = []
         for s, flip in ((1.0, False), (0.83, True), (0.67, False)):
             xi = scale_img(x.flip(2) if flip else x, s, gs=32)
-            boxes, scores = self._forward_decode(xi)
+            boxes, scores = self._forward_decode(xi, net)
             boxes = boxes / s
             if flip:  # un-flip x coords (xyxy)
                 boxes = torch.stack([w - boxes[..., 2], boxes[..., 1], w - boxes[..., 0], boxes[..., 3]], -1)
             outs.append((boxes, scores))
         return torch.cat([o[0] for o in outs], 1), torch.cat([o[1] for o in outs], 1)
 
-    def _single_label(self, x: torch.Tensor) -> torch.Tensor:
+    def _class_mask(self, device: torch.device):
+        return None if self.class_mask is None else self.class_mask.to(device)
+
+    def _single_label(self, x: torch.Tensor, net) -> torch.Tensor:
         """Non-TTA predict graph: select-first NMS over the raw maps (an ensemble: decode-all concat, then NMS)."""
         m = self.model
         if self.is_ensemble:
-            boxes, scores = self.net.decode_concat(x, half=self.half)
+            boxes, scores = net.decode_concat(x, half=self.half)
             return non_max_suppression(boxes, scores, conf_thres=self.conf, iou_thres=self.iou, max_det=self.max_det,
                                        max_cand=512, multi_label=False, agnostic=self.agnostic,
-                                       class_mask=self.class_mask)
-        feats = self._forward(x)
+                                       class_mask=self._class_mask(x.device))
+        feats = forward_nhwc(net, x)
         if self.end2end:
             return postprocess_end2end(feats["one2one"], m.strides, m.nc, m.reg_max,
                                        max_det=min(self.max_det, m.detect.max_det), conf_thres=self.conf)
         return nms_from_feats(
             feats, m.strides, m.nc, m.reg_max, conf_thres=self.conf, iou_thres=self.iou,
             max_det=self.max_det, max_cand=self.pred_max_cand, agnostic=self.agnostic,
-            class_mask=self.class_mask, half=self.half,
+            class_mask=self._class_mask(x.device), half=self.half,
         )
 
-    def _detect(self, x: torch.Tensor) -> torch.Tensor:
+    def _detect(self, x: torch.Tensor, net) -> torch.Tensor:
         if not self.augment or self.end2end:  # end2end: the one2one top-k is the whole tail
-            return self._single_label(x)
-        boxes, scores = self._forward_tta(x)
+            return self._single_label(x, net)
+        boxes, scores = self._forward_tta(x, net)
         return non_max_suppression(
             boxes, scores, conf_thres=self.conf, iou_thres=self.iou, max_det=self.max_det,
-            max_cand=512, multi_label=False, agnostic=self.agnostic, class_mask=self.class_mask,
+            max_cand=512, multi_label=False, agnostic=self.agnostic, class_mask=self._class_mask(x.device),
         )
 
     @torch.inference_mode()
     def infer(self, images: torch.Tensor) -> torch.Tensor:
         """Letterboxed NHWC float batch on the device -> (B, max_det, 6) detections on the device."""
         with fp32_convs(self.device):
-            return self._detect(images.to(self.dtype))
+            return run_sharded(self.mesh, self.replicas, images, lambda x, net: self._detect(x.to(self.dtype), net))
 
     @torch.inference_mode()
     def infer_uint8(self, raw: torch.Tensor, imgsz: int) -> torch.Tensor:
         """(B, H0, W0, 3) uint8 RGB batch on the device -> device letterbox -> (B, max_det, 6)."""
         with fp32_convs(self.device):
-            return self._detect(device_letterbox(raw, imgsz=imgsz, out_dtype=self.dtype))
+            return run_sharded(self.mesh, self.replicas, raw, lambda x, net: self._detect(
+                device_letterbox(x, imgsz=imgsz, out_dtype=self.dtype), net))
 
     def setup_source(self, source):
         self.imgsz = check_imgsz(self.args.imgsz, stride=32, min_dim=2)
@@ -203,6 +240,7 @@ class DetectionPredictor:
         from yololite_tpu_torch.models.quant import quantize_model
 
         self.net, self.scales = quantize_model(self.net, [calib()], self.device)  # raises on a zoo model
+        self.replicas = replicate_tree(self.mesh, self.net)
         self._quantized = True
         LOGGER.info("int8 serving: weights quantized (per-channel), activations calibrated on the first batch")
 

@@ -11,12 +11,28 @@ per step (its grad, apply and fused steps); eager torch needs no such split.
 
 Checkpoints are the JAX package's native .npz (models/checkpoint.py), so
 either package resumes or predicts from the other's last.npz and best.npz.
+
+Data parallelism (device="0,1", a device list, a torchrun launch, or None
+with several cards visible and a batch that divides): one rank per device
+(parallel/mesh.py `launch`), and each step is the one-device step on the
+global batch, as the JAX package's step on a mesh is. Every rank runs the
+seeded loader on one thread (the dataset's generator is drawn in load order
+only then), so all see the same global batch with the same augmentation
+draws, and keeps its equal slice of the rows. The BNs take the global
+batch's statistics (models/modules.py `CrossRankBatchNorm2d`), the loss
+divides by the global target_scores_sum, and the gradients are summed over
+the ranks before the clip, so the optimizer and the EMA stay identical on
+every rank. A batch that does not divide runs whole on every rank with
+local BN and a 1/world share of the gradient. Rank 0 alone validates,
+writes results.csv and saves checkpoints; the others take its fitness and
+stop flag by broadcast.
 """
 
 from __future__ import annotations
 
 import copy
 import math
+import os
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -25,6 +41,7 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from yololite_tpu_torch.cfg import get_cfg, get_save_dir
 from yololite_tpu_torch.data.dataset import build_dataloader, build_yolo_dataset
@@ -33,6 +50,8 @@ from yololite_tpu_torch.engine import optim
 from yololite_tpu_torch.engine.predictor import forward_nhwc, fp32_convs
 from yololite_tpu_torch.models import checkpoint as ckpt
 from yololite_tpu_torch.models.model import DetectionModel
+from yololite_tpu_torch.models.modules import cross_rank_bn, cross_rank_bn_
+from yololite_tpu_torch.parallel import mesh as pmesh
 from yololite_tpu_torch.utils import LOGGER, TQDM, colorstr, get_latest_run, select_device
 from yololite_tpu_torch.utils.checks import check_imgsz
 from yololite_tpu_torch.utils.ema import ModelEMA
@@ -102,18 +121,23 @@ class _AsyncSaver:
 
 
 class DetectionTrainer:
-    """Trains a DetectionModel on a YOLO dataset on one device (cuda unless told otherwise)."""
+    """Trains a DetectionModel on a YOLO dataset on one device (cuda unless told otherwise), or as data-parallel
+    ranks on several."""
 
     def __init__(self, overrides: Optional[Dict] = None, device=None):
         self.args = get_cfg(overrides=overrides)
+        self._overrides = dict(overrides or {})
         self._resume_blob = None
         self.check_resume(overrides or {})
-        self.device = select_device(self.args.device if device is None else device)
-        self.np_rng = np.random.RandomState(self.args.seed)  # multi-scale draws on the main thread
-        self.save_dir = get_save_dir(self.args)
-        self.args.save_dir = str(self.save_dir)  # checkpoints carry it, so a resumed run reuses the directory
-        self.wdir = self.save_dir / "weights"
         self.batch_size = int(self.args.batch)
+        self.rank, self.world = (dist.get_rank(), dist.get_world_size()) if dist.is_initialized() else (0, 1)
+        self.group = dist.group.WORLD if dist.is_initialized() else None  # set: this process is a data-parallel rank
+        dev = self.args.device if device is None else device
+        self.devices = [select_device(dev)] if self.group is not None else self._train_devices(dev)
+        self.device = self.devices[0]
+        self.mesh = None
+        self.np_rng = np.random.RandomState(self.args.seed)  # multi-scale draws on the main thread
+        self._set_save_dir(get_save_dir(self.args))
         self.epochs = int(self.args.epochs or 100)
         self.start_epoch = 0
         self.epoch = 0
@@ -124,12 +148,34 @@ class DetectionTrainer:
         self.fitness = None
         self.metrics = None
         self.stop_training = False
-        self.csv = self.save_dir / "results.csv"
-        self.last, self.best = self.wdir / "last.npz", self.wdir / "best.npz"
         self.loss_names = ["box_loss", "cls_loss", "dfl_loss"]
         self.max_gt = 0
         self.train_seconds = []  # per epoch: the batch loop alone, without val and saving
+        self.tlosses = []  # per epoch: the mean loss items, as results.csv has them
+        self.fg_mask = None  # the last step's assigner foreground mask (this rank's rows)
+        self._grads_summed = False
         self._saver = _AsyncSaver()
+
+    def _set_save_dir(self, save_dir):
+        self.save_dir = Path(save_dir)
+        self.args.save_dir = str(self.save_dir)  # checkpoints carry it, so a resumed run reuses the directory
+        self.wdir = self.save_dir / "weights"
+        self.csv = self.save_dir / "results.csv"
+        self.last, self.best = self.wdir / "last.npz", self.wdir / "best.npz"
+
+    def _train_devices(self, dev):
+        """The devices to train on: several from a list or a comma string (batch rules apply), every visible card
+        for None when there are several and the batch divides, else one; under torchrun, this rank's card."""
+        if pmesh.torchrun_env():
+            return [select_device(f"cuda:{os.environ['LOCAL_RANK']}" if dev in (None, "") else dev)]
+        if isinstance(dev, (list, tuple)) or (isinstance(dev, str) and "," in dev):
+            return [select_device(d) for d in pmesh.select_device(dev, batch=self.batch_size)]
+        if dev in (None, "") and torch.cuda.is_available():
+            n = torch.cuda.device_count()
+            if n > 1 and self.batch_size % n == 0:
+                LOGGER.info(f"data-parallel over {n} cards")
+                return [torch.device("cuda", i) for i in range(n)]
+        return [select_device(dev)]
 
     # ---- model plumbing ----
 
@@ -158,6 +204,10 @@ class DetectionTrainer:
             self.model = model2
         self.model.names = self.data["names"]
         self.model.to(self.device)
+        if self.group is not None:  # the BNs take the global batch's statistics; all start from rank 0's weights
+            cross_rank_bn_(self.model)
+            self.mesh = pmesh.make_mesh(devices=[self.device], group=self.group)
+            pmesh.replicate_tree(self.mesh, self.model)
 
     # ---- setup ----
 
@@ -168,9 +218,11 @@ class DetectionTrainer:
 
         train_ds = build_yolo_dataset(copy.copy(self.args), self.data["train"], self.batch_size, self.data,
                                       mode="train")
-        self.train_loader = build_dataloader(train_ds, self.batch_size, self.args.workers, shuffle=True,
-                                             seed=self.args.seed)
-        if self.args.val and self.data.get("val"):
+        # the dataset draws its augmentations from one seeded generator, in load order only when one thread
+        # loads the batches: every rank must draw the same global batch
+        workers = self.args.workers if self.group is None else 0
+        self.train_loader = build_dataloader(train_ds, self.batch_size, workers, shuffle=True, seed=self.args.seed)
+        if self.args.val and self.data.get("val") and self.rank == 0:
             from yololite_tpu_torch.engine.validator import DetectionValidator
 
             vargs = {k: v for k, v in vars(self.args).items() if not isinstance(v, Path)}
@@ -254,23 +306,53 @@ class DetectionTrainer:
         return {k: torch.from_numpy(v).to(self.device, non_blocking=True) for k, v in t.items()}
 
     def _grad_step(self, images: torch.Tensor, targets: Dict[str, torch.Tensor]):
-        """Forward, loss and backward; gradients add into `.grad`. Returns the detached loss items."""
-        with fp32_convs(self.device):
-            total, items = self.loss_fn(self._forward(images), targets)
-            total.backward()
+        """Forward, loss and backward on the global batch; gradients add into `.grad`. Returns the detached loss
+        items of the global batch.
+
+        On ranks, a batch that divides is cut to this rank's rows, and its BN
+        statistics and loss normalization are global; one that does not runs
+        whole here with a 1/world share of the loss.
+        """
+        group = None
+        if self.group is not None and images.shape[0] % self.world == 0:
+            rows = pmesh.batch_sharding(self.mesh, images.shape[0])[0][1]
+            images, targets = images[rows], {k: v[rows] for k, v in targets.items()}
+            group = self.group
+        with fp32_convs(self.device), cross_rank_bn(group):
+            total, items, self.fg_mask = self.loss_fn.forward(self._forward(images), targets, group)
+            (total if group is not None else total / self.world).backward()
+        if group is not None:
+            dist.all_reduce(items, group=group)
         return items
+
+    def _sum_grads(self):
+        """On ranks: sum the gradients gathered since the last step over the ranks (once per step)."""
+        if self.group is None or self._grads_summed:
+            return
+        params = [p for p in self.model.parameters() if p.requires_grad]
+        flat = torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1) for p in params])
+        dist.all_reduce(flat, group=self.group)
+        offset = 0
+        for p in params:
+            p.grad = flat[offset:offset + p.numel()].view_as(p).clone()
+            offset += p.numel()
+        self._grads_summed = True
 
     def _apply_step(self, lr_vec, momentum: float):
         """Clip the summed gradients to norm 10, step the optimizer, zero the gradients, update the EMA."""
+        self._sum_grads()
         torch.nn.utils.clip_grad_norm_(self.model.parameters(), 10.0)  # the JAX package's clip_by_global_norm
         optim.set_lr_momentum(self.optimizer, lr_vec, momentum)
         self.optimizer.step()
         self.optimizer.zero_grad(set_to_none=True)
+        self._grads_summed = False
         self.ema.update(self.model)
 
     # ---- main loop ----
 
     def train(self):
+        if self.group is None and (len(self.devices) > 1 or pmesh.torchrun_env()):
+            return self._train_ranks()
         self._setup_train()
         nb = len(self.train_loader)
         nw = max(round(self.args.warmup_epochs * nb), 100) if self.args.warmup_epochs > 0 else -1
@@ -293,8 +375,32 @@ class DetectionTrainer:
                 LOGGER.warning(f"checkpoint saver error during shutdown: {save_err!r}")
         LOGGER.info(f"\n{self.epochs - self.start_epoch} epochs completed in "
                     f"{(time.time() - train_time_start) / 3600:.3f} hours.")
-        self.final_eval()
+        if self.rank == 0:
+            self.final_eval()
         return self.metrics
+
+    def _train_ranks(self):
+        """Train as one rank per device (spawned, or this process under torchrun); keep rank 0's outcome."""
+        overrides = {k: v for k, v in self._overrides.items() if k != "device"}
+        model = copy.deepcopy(self.model).cpu() if self.model is not None else None
+        out = pmesh.launch(_train_rank, self.devices, args=(overrides, str(self.save_dir), model))[0]
+        if out is None:  # this process is a torchrun rank other than 0
+            return None
+        for k, v in out.items():
+            setattr(self, k, v)
+        return self.metrics
+
+    def _share_epoch_end(self):
+        """Ranks: everyone takes rank 0's fitness (NaN: none) and stop flag."""
+        flag = torch.tensor([np.nan if self.fitness is None else float(self.fitness), float(self.stop_training)],
+                            dtype=torch.float64, device=self.device)
+        dist.broadcast(flag, src=0, group=self.group)
+        fitness, stop = flag.tolist()
+        if self.rank != 0:
+            self.fitness = None if math.isnan(fitness) else fitness
+            if self.fitness is not None and (self.best_fitness is None or self.fitness > self.best_fitness):
+                self.best_fitness = self.fitness
+            self.stop_training = bool(stop)
 
     def _train_epochs(self, nb, nw, train_time_start):
         last_opt_step = -1
@@ -339,6 +445,7 @@ class DetectionTrainer:
                                          f"dfl {t[2]:.3f}")
             tloss = tloss.cpu().numpy() if tloss is not None else None  # waits for the epoch's last step
             self.train_seconds.append(time.perf_counter() - t0)
+            self.tlosses.append(tloss)
             self.lr = {f"lr/pg{j}": float(lr_vec[j]) for j in range(3)}
 
             final_epoch = epoch + 1 >= self.epochs
@@ -348,9 +455,12 @@ class DetectionTrainer:
             self.stop_training = self.stopper(epoch, self.fitness)
             if self.args.time:
                 self.stop_training |= (time.time() - train_time_start) > self.args.time * 3600
-            self.save_metrics(epoch, tloss)
-            if self.args.save:
-                self.save_model(epoch)
+            if self.group is not None:
+                self._share_epoch_end()
+            if self.rank == 0:
+                self.save_metrics(epoch, tloss)
+                if self.args.save:
+                    self.save_model(epoch)
             if self.stop_training:
                 break
             epoch += 1
@@ -486,3 +596,71 @@ class DetectionTrainer:
             self.train_loader.dataset.close_mosaic(hyp=copy.copy(self.args))
         LOGGER.info(f"Resuming training from epoch {self.start_epoch}")
         self._resume_blob = None
+
+
+def _train_rank(rank: int, world: int, device: torch.device, overrides: Dict, save_dir: str, model):
+    """One rank of a data-parallel run (spawned by `DetectionTrainer._train_ranks`): rank 0 returns its outcome."""
+    if rank != 0:
+        LOGGER.setLevel("WARNING")
+    tr = DetectionTrainer(overrides=overrides, device=device)
+    tr._set_save_dir(save_dir)
+    if model is not None:
+        tr.set_model(model)
+    tr.train()
+    if rank != 0:
+        return None
+    from yololite_tpu_torch.ops.kernels import greedy_nms_keep, int8_conv
+
+    return {"metrics": tr.metrics, "fitness": tr.fitness, "best_fitness": tr.best_fitness, "epoch": tr.epoch,
+            "train_seconds": tr.train_seconds, "tlosses": tr.tlosses, "start_epoch": tr.start_epoch,
+            # this process' kernel launches (its EMA vals' and final val's K1), which the caller's counters do not see
+            "rank_kernel_launches": {"greedy_nms_keep": greedy_nms_keep.launches, "int8_conv": int8_conv.launches}}
+
+
+def data_parallel_step(rank: int, world: int, device, overrides: Dict, model: DetectionModel, batches,
+                       lr_vec, momentum: float, timed_steps: int = 0) -> Dict:
+    """One optimizer step of a trainer (on `world` ranks, or alone for world 1) on given global batches.
+
+    Each batch is a loader batch dict (uint8 NHWC "img" with its ragged
+    labels); the step accumulates them, sums the gradients over the ranks,
+    clips, steps and updates the EMA, as the training loop does. Returns,
+    on the host, each batch's loss items and this rank's fg_mask rows, the
+    summed gradients, and the weights and buffers before and after, with the
+    EMA's after. Used to hold the ranks' step to the one-process step. With
+    timed_steps, that many more whole steps on the same batches follow, and
+    their mean wall time and that of their gradient sums are returned
+    (seconds; the card is synchronized around each).
+    """
+    tr = DetectionTrainer(overrides=overrides, device=device)
+    tr.set_model(model)
+    tr._setup_train()
+    host = lambda d: {k: v.detach().cpu().clone() for k, v in d.items()}
+    lr_vec = np.asarray(lr_vec, np.float32)
+    sync = torch.cuda.synchronize if tr.device.type == "cuda" else (lambda: None)
+    before = host(tr.model.state_dict())
+    items, fg = [], []
+    for b in batches:
+        items.append(tr._grad_step(torch.from_numpy(b["img"]).to(tr.device), tr._targets(b)).cpu())
+        fg.append(tr.fg_mask.cpu())
+    tr._sum_grads()
+    grads = host({n: p.grad for n, p in tr.model.named_parameters() if p.grad is not None})
+    tr._apply_step(lr_vec, float(momentum))
+    out = {"items": items, "fg_mask": fg, "grads": grads, "before": before, "after": host(tr.model.state_dict()),
+           "ema": host(tr.ema.ema.state_dict())}
+    step_s, sum_s = [], []
+    for _ in range(timed_steps):
+        sync()
+        t0 = time.perf_counter()
+        for b in batches:
+            tr._grad_step(torch.from_numpy(b["img"]).to(tr.device), tr._targets(b))
+        sync()
+        t1 = time.perf_counter()
+        tr._sum_grads()
+        sync()
+        sum_s.append(time.perf_counter() - t1)
+        tr._apply_step(lr_vec, float(momentum))
+        sync()
+        step_s.append(time.perf_counter() - t0)
+    if timed_steps:
+        out.update(step_s=float(np.mean(step_s)), sum_grads_s=float(np.mean(sum_s)))
+    return out

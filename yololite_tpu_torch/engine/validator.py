@@ -13,7 +13,13 @@ Rect batching gives each batch its own shape. Torch compiles nothing per
 shape, so the tail batch is not padded. Standalone val runs a fused copy of
 the model, built once per validator. A trainer's val (`trainer=`) runs the
 trainer's EMA model as it stands at that call: unfused, in eval mode, with
-the EMA's BN statistics. Not ported yet: the multi-device mesh.
+the EMA's BN statistics.
+
+Given several devices, standalone val holds one replica of the fused net per
+device and splits each batch that divides over them (parallel/mesh.py); each
+shard runs its forward and NMS on its own device, and the detections are
+gathered in order on the first device. A batch that does not divide runs
+whole there. A trainer's val runs on the trainer's device (rank 0's, when it has ranks).
 """
 
 from __future__ import annotations
@@ -28,11 +34,12 @@ import torch
 from yololite_tpu_torch.cfg import get_cfg, get_save_dir
 from yololite_tpu_torch.data.dataset import build_dataloader, build_yolo_dataset
 from yololite_tpu_torch.data.utils import check_det_dataset
-from yololite_tpu_torch.engine.predictor import forward_nhwc, fp32_convs, inference_net
+from yololite_tpu_torch.engine.predictor import forward_nhwc, fp32_convs, inference_net, run_sharded
 from yololite_tpu_torch.ops.boxes import box_iou_np, scale_boxes_np, xywh2xyxy
 from yololite_tpu_torch.ops.decode import postprocess_end2end
 from yololite_tpu_torch.ops.nms import nms_from_feats
-from yololite_tpu_torch.utils import LOGGER, TQDM, select_device
+from yololite_tpu_torch.parallel.mesh import make_mesh, replicate_tree, resolve_devices
+from yololite_tpu_torch.utils import LOGGER, TQDM
 from yololite_tpu_torch.utils.checks import check_imgsz
 from yololite_tpu_torch.utils.metrics import ConfusionMatrix, DetMetrics
 from yololite_tpu_torch.utils.profile import Profile
@@ -45,7 +52,9 @@ class DetectionValidator:
 
     def __init__(self, dataloader=None, save_dir: Optional[Path] = None, args=None, device=None):
         self.args = get_cfg(overrides=args)
-        self.device = select_device(self.args.device if device is None else device)
+        self.devices = resolve_devices(self.args.device if device is None else device)
+        self.device = self.devices[0]
+        self.mesh = make_mesh(devices=self.devices) if len(self.devices) > 1 else None
         self.dataloader = dataloader
         self.save_dir = save_dir or get_save_dir(self.args)
         self.args.conf = self.args.conf or 0.001
@@ -73,20 +82,26 @@ class DetectionValidator:
         agnostic = bool(self.args.single_cls)
         dtype = torch.bfloat16 if half else torch.float32
 
+        def infer_one(images: torch.Tensor, net) -> torch.Tensor:
+            x = images
+            if x.dtype == torch.uint8:  # as XLA lowers the JAX validator's x / 255: the same bits
+                x = x.float() * (1.0 / 255.0)
+            feats = forward_nhwc(net, x.to(dtype))
+            if end2end:  # one2one top-k select; no NMS
+                o2o = [f.float() for f in feats["one2one"]]
+                return postprocess_end2end(o2o, strides, nc, reg_max, max_det=min(max_det, model.detect.max_det),
+                                           conf_thres=conf)
+            return nms_from_feats([f.float() for f in feats], strides, nc, reg_max, conf_thres=conf,
+                                  iou_thres=iou, max_det=max_det, max_cand=VAL_MAX_CAND, multi_label=True,
+                                  agnostic=agnostic)
+
+        mesh = self.mesh
+        replicas = replicate_tree(mesh, net)
+
         @torch.inference_mode()
         def infer(images: torch.Tensor) -> torch.Tensor:
             with fp32_convs(images.device):
-                x = images
-                if x.dtype == torch.uint8:  # as XLA lowers the JAX validator's x / 255: the same bits
-                    x = x.float() * (1.0 / 255.0)
-                feats = forward_nhwc(net, x.to(dtype))
-                if end2end:  # one2one top-k select; no NMS
-                    o2o = [f.float() for f in feats["one2one"]]
-                    return postprocess_end2end(o2o, strides, nc, reg_max, max_det=min(max_det, model.detect.max_det),
-                                               conf_thres=conf)
-                return nms_from_feats([f.float() for f in feats], strides, nc, reg_max, conf_thres=conf,
-                                      iou_thres=iou, max_det=max_det, max_cand=VAL_MAX_CAND, multi_label=True,
-                                      agnostic=agnostic)
+                return run_sharded(mesh, replicas, images, infer_one)
 
         return infer
 

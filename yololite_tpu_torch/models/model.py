@@ -343,6 +343,19 @@ class DetectionModel(nn.Module):
         return counter.get_total_flops() / 1e9
 
 
+def count_params(tree) -> int:
+    """Number of parameters of a module, or of elements of a dict (or list) of tensors."""
+    if isinstance(tree, nn.Module):
+        return sum(p.numel() for p in tree.parameters())
+    values = tree.values() if isinstance(tree, dict) else tree
+    return sum(count_params(v) if isinstance(v, (dict, list, tuple)) else int(v.numel()) for v in values)
+
+
+def guess_model_task(model) -> str:
+    """The task of a model or spec: the package is detection-only."""
+    return "detect"
+
+
 class EnsembleModel(nn.Module):
     """Multi-model NMS ensemble (port of yololite_tpu/models/model.py:411 EnsembleModel).
 

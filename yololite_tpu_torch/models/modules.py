@@ -403,6 +403,106 @@ class Detect(nn.Module):
         return self._branch(xs, self.cv2, self.cv3)
 
 
+class _CrossRankBN(torch.autograd.Function):
+    """Train-mode batch norm over the global batch of data-parallel ranks (N, C, H, W).
+
+    Forward: each rank's per-channel count, mean and sum of squared deviations
+    go into its own row of a (world, 3, C) buffer, one all_reduce gathers the
+    rows, and they combine into the global mean and biased variance (Chan's
+    formula: no E[x^2] - E[x]^2 cancellation). The running statistics take
+    the global mean and the unbiased global variance. Backward: one
+    all_reduce of the per-channel sums of dy and dy * x_hat; the weight and
+    bias gradients stay this rank's share (the trainer sums gradients over
+    the ranks). All math is fp32; the output has the input's dtype.
+    """
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, running_mean, running_var, eps, momentum, group):
+        import torch.distributed as dist
+
+        xf = x.float()
+        c = x.shape[1]
+        n_local = x.numel() // c
+        mean_l = xf.mean((0, 2, 3))
+        m2_l = (xf - mean_l[:, None, None]).square().sum((0, 2, 3))
+        world, rank = dist.get_world_size(group), dist.get_rank(group)
+        rows = xf.new_zeros(world, 3, c)
+        rows[rank, 0] = n_local
+        rows[rank, 1] = mean_l
+        rows[rank, 2] = m2_l
+        dist.all_reduce(rows, group=group)
+        counts, means, m2s = rows[:, 0], rows[:, 1], rows[:, 2]
+        n = counts.sum(0)
+        mean = (counts * means).sum(0) / n
+        m2 = (m2s + counts * (means - mean).square()).sum(0)
+        invstd = torch.rsqrt(m2 / n + eps)
+        with torch.no_grad():
+            running_mean.mul_(1 - momentum).add_(mean.to(running_mean.dtype), alpha=momentum)
+            running_var.mul_(1 - momentum).add_((m2 / (n - 1)).to(running_var.dtype), alpha=momentum)
+        xhat = (xf - mean[:, None, None]) * invstd[:, None, None]
+        ctx.save_for_backward(xhat, weight, invstd, n)
+        ctx.group = group
+        return (xhat * weight.float()[:, None, None] + bias.float()[:, None, None]).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        import torch.distributed as dist
+
+        xhat, weight, invstd, n = ctx.saved_tensors
+        dyf = dy.float()
+        sum_dy = dyf.sum((0, 2, 3))
+        sum_dy_xhat = (dyf * xhat).sum((0, 2, 3))
+        sums = torch.stack([sum_dy, sum_dy_xhat])
+        dist.all_reduce(sums, group=ctx.group)
+        g_dy, g_dy_xhat = sums[0] / n, sums[1] / n
+        scale = (weight.float() * invstd)[:, None, None]
+        dx = scale * (dyf - g_dy[:, None, None] - xhat * g_dy_xhat[:, None, None])
+        return dx.to(dy.dtype), sum_dy_xhat.to(weight.dtype), sum_dy.to(weight.dtype), None, None, None, None, None
+
+
+_BN_GROUP = None  # the process group of the cross-rank BNs while `cross_rank_bn` holds one
+
+
+class CrossRankBatchNorm2d(nn.BatchNorm2d):
+    """A BatchNorm2d that, in train mode inside `cross_rank_bn(group)`, normalizes by the global batch.
+
+    Same parameters, buffers and state_dict keys as BatchNorm2d; outside the
+    context, or in eval mode, it is BatchNorm2d.
+    """
+
+    def forward(self, x):
+        if self.training and _BN_GROUP is not None:
+            self.num_batches_tracked.add_(1)
+            return _CrossRankBN.apply(x, self.weight, self.bias, self.running_mean, self.running_var, self.eps,
+                                      self.momentum, _BN_GROUP)
+        return super().forward(x)
+
+
+def cross_rank_bn_(module: nn.Module) -> nn.Module:
+    """Make every BatchNorm2d of `module` a CrossRankBatchNorm2d, in place (its state stays as it is)."""
+    for m in module.modules():
+        if type(m) is nn.BatchNorm2d:
+            m.__class__ = CrossRankBatchNorm2d
+    return module
+
+
+class cross_rank_bn:
+    """Context: the CrossRankBatchNorm2d layers take train-mode statistics over `group`'s ranks (None: local)."""
+
+    def __init__(self, group):
+        self.group = group
+
+    def __enter__(self):
+        global _BN_GROUP
+        self._prev, _BN_GROUP = _BN_GROUP, self.group
+        return self
+
+    def __exit__(self, *exc):
+        global _BN_GROUP
+        _BN_GROUP = self._prev
+        return False
+
+
 def init_weights_(module: nn.Module, rng: np.random.Generator) -> None:
     """Draw every conv weight (and plain-conv bias) from `rng`, in the JAX package's order.
 

@@ -92,6 +92,31 @@ def clip_boxes_np(boxes: np.ndarray, shape) -> np.ndarray:
     return boxes
 
 
+def scale_image_np(masks: np.ndarray, im0_shape, ratio_pad=None) -> np.ndarray:
+    """Un-letterbox an image or mask array, (H, W[, C]) in letterboxed space -> (h0, w0, C) (cv2 resize)."""
+    import cv2
+
+    im1_shape = masks.shape
+    if im1_shape[:2] == tuple(im0_shape[:2]):
+        return masks
+    if ratio_pad is None:
+        gain = min(im1_shape[0] / im0_shape[0], im1_shape[1] / im0_shape[1])
+        pad = (im1_shape[1] - im0_shape[1] * gain) / 2, (im1_shape[0] - im0_shape[0] * gain) / 2
+    else:
+        pad = ratio_pad[1]
+    top, left = int(pad[1]), int(pad[0])
+    bottom, right = int(im1_shape[0] - pad[1]), int(im1_shape[1] - pad[0])
+    masks = cv2.resize(masks[top:bottom, left:right], (im0_shape[1], im0_shape[0]))
+    return masks[:, :, None] if masks.ndim == 2 else masks
+
+
+def clip_coords(coords, shape):
+    """Clip (..., 2+) point coordinates to an image's (h, w), in place (numpy array or tensor)."""
+    coords[..., 0] = coords[..., 0].clip(0, shape[1])
+    coords[..., 1] = coords[..., 1].clip(0, shape[0])
+    return coords
+
+
 def convert_batch2numpy(batch) -> list:
     """Normalized NHWC float batch -> list of BGR uint8 images for Results."""
     arr = np.asarray(batch, np.float32)

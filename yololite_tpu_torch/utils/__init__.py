@@ -21,6 +21,8 @@ __all__ = (
     "DEFAULT_CFG_PATH",
     "colorstr",
     "yaml_load",
+    "yaml_save",
+    "yaml_print",
     "IterableSimpleNamespace",
     "increment_path",
     "get_latest_run",
@@ -119,6 +121,26 @@ def yaml_load(file, append_filename=False):
     if append_filename:
         data["yaml_file"] = str(path)
     return data
+
+
+def yaml_print(yaml_file):
+    """Log a YAML file or dict, pretty-printed."""
+    import yaml
+
+    data = yaml_load(yaml_file) if isinstance(yaml_file, (str, Path)) else yaml_file
+    dump = yaml.safe_dump(data, sort_keys=False, allow_unicode=True, width=120)
+    LOGGER.info(f"Printing '{colorstr('bold', 'black', yaml_file)}'\n\n{dump}")
+
+
+def yaml_save(file, data):
+    """Save a dict to a YAML file (Path values as strings), creating parent dirs as needed."""
+    import yaml
+
+    path = Path(file)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    clean = {k: (str(v) if isinstance(v, Path) else v) for k, v in data.items()}
+    with open(path, "w", errors="ignore", encoding="utf-8") as f:
+        yaml.safe_dump(clean, f, sort_keys=False, allow_unicode=True)
 
 
 def increment_path(path, exist_ok=False, sep="", mkdir=False):

@@ -167,8 +167,14 @@ class v8DetectionLoss:
         total, items, _ = self.forward(feats, targets)
         return total, items
 
-    def forward(self, feats: List[torch.Tensor], targets: Dict[str, torch.Tensor]):
-        """Like __call__, plus the assigner's fg_mask (B, A)."""
+    def forward(self, feats: List[torch.Tensor], targets: Dict[str, torch.Tensor], group=None):
+        """Like __call__, plus the assigner's fg_mask (B, A).
+
+        With a process group, feats and targets are this rank's equal slice of
+        the global batch: the loss divides by the global target_scores_sum (a
+        detached all_reduce) and scales by the global batch size, so the
+        ranks' totals, and their gradients, sum to the one-device ones.
+        """
         shapes = [(f.shape[1], f.shape[2]) for f in feats]
         x = flatten_levels(feats)  # (B, A, no)
         pred_distri, pred_scores = x[..., : self.reg_max * 4], x[..., self.reg_max * 4:]
@@ -188,7 +194,13 @@ class v8DetectionLoss:
         )
         # under amp the (B, A, nc) targets are held in bf16; every sum below is fp32
         target_scores = target_scores.to(torch.bfloat16 if amp else torch.float32)
-        target_scores_sum = torch.clamp(target_scores.float().sum(), min=1)
+        target_scores_sum = target_scores.float().sum()
+        if group is not None:
+            import torch.distributed as dist
+
+            dist.all_reduce(target_scores_sum, group=group)
+            batch_size *= dist.get_world_size(group)
+        target_scores_sum = torch.clamp(target_scores_sum, min=1)
 
         loss_cls = bce_sum(pred_scores, target_scores) / target_scores_sum
 
@@ -223,7 +235,7 @@ class E2EDetectLoss:
         total, items, _ = self.forward(preds, targets)
         return total, items
 
-    def forward(self, preds, targets: Dict[str, torch.Tensor]):
-        total_m, items_m, fg = self.one2many.forward(preds["one2many"], targets)
-        total_o, items_o, _ = self.one2one.forward(preds["one2one"], targets)
+    def forward(self, preds, targets: Dict[str, torch.Tensor], group=None):
+        total_m, items_m, fg = self.one2many.forward(preds["one2many"], targets, group)
+        total_o, items_o, _ = self.one2one.forward(preds["one2one"], targets, group)
         return total_m + total_o, items_m + items_o, fg

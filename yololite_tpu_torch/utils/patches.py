@@ -37,3 +37,10 @@ def imwrite(filename, img: np.ndarray, params=None) -> bool:
         return True
     except (cv2.error, OSError):
         return False
+
+
+def imshow(winname: str, mat: np.ndarray) -> None:
+    """cv2.imshow with a unicode-escaped window title."""
+    import cv2
+
+    cv2.imshow(winname.encode("unicode_escape").decode(), mat)
