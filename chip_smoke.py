@@ -11,32 +11,55 @@ Phases, each of which exits non-zero on failure:
   2. kernel: holds each kernel against its plain PyTorch version on the card
      (bit-equal keep masks for greedy_nms_keep, boxes in, over crowded random
      scenes and alternating suppression chains, ragged K and K = 1024
-     included) and times both;
+     included; blocked_nms_finalize (K4) bit-equal, NaN rows included, on
+     crowded, spread, first-block-only, all-invalid and NaN scenes at K up to
+     8,192 and max_det 1, 300 and K) and times both, with K4's bound;
   3. slice: YOLOLite("yolo11n.yaml") with init(0) predicts synthetic 480x640
      uint8 batches at imgsz 640 and conf 1e-7, in fp32 (TF32 off) and bf16, at
-     batch 1 and 32; checks shapes, finiteness, that the kernel ran, that the
-     kernel and the plain keep give the same detections on each batch's Detect
-     maps, times letterbox, forward and nms_from_feats each alone on that
-     batch, and checks that the card agrees with the CPU on a small input; on
-     the exact keep's recorded fp32 inputs, checks that one call of it
-     launches the kernel once and allocates nothing but the keep mask;
+     batch 1 and 32; each call replays a CUDA graph of the step (the first
+     set-up call runs eagerly, the second captures); checks shapes,
+     finiteness, that the kernel ran once a call (counted at each replay),
+     that the graphed call's detections and step tensor equal the eager
+     call's bit for bit, times both and the device's idle share of a graphed
+     call (torch.profiler); predicts a stream of frames at 12 sizes at batch
+     1 (sizes seen once stay eager, repeated ones replay) against eager, with
+     the calls replayed, the graphs held (at most graphs.MAX_GRAPHS) and the
+     graph pool's bytes; checks that the
+     kernel and the plain keep give the same detections on each batch's
+     Detect maps, times letterbox, forward and nms_from_feats each alone on
+     that batch, and checks that the card agrees with the CPU on a small
+     input; on the exact keep's recorded fp32 inputs, checks that one call
+     of it launches the kernel once and allocates nothing but the keep mask;
   4. val: writes a 64-image synthetic YOLO dataset (PNGs of four shapes, so
      rect batching gives four buckets) and runs YOLOLite("yolo11n.yaml").val
      at imgsz 640, batch 16, rect, conf 1e-7, in fp32 (TF32 off) and bf16:
-     checks the metrics, predictions.json, and that the kernel launched once
-     per alive block of 1024 of the K = 8192 multi-label NMS; on one val
-     batch checks the kernel against the plain keep inside nms_from_feats
-     and times forward, nms_from_feats and _blocked_keep alone, with the
-     NMS's peak memory; times the kernel on val's own block inputs; checks
-     that the card agrees with the CPU on 4 images at imgsz 160;
+     checks the metrics and predictions.json; runs val through the facade
+     (each bucket shape seen once: all eager), one validator three times (its
+     second run captures, its third replays) and eagerly, with equal
+     metrics, K4 once per batch and K1 never; reports the graphs, the share
+     of calls replayed and the graph pool's reserved bytes; runs val of a
+     256-image set of mixed frame sizes through the facade, graphed and
+     eagerly, with the share of its batches that replay; profiles a replayed
+     run; on one val
+     batch checks nms_from_feats through K4 against its plain version and
+     times it, with its peak memory, beside the path before K4 (the blocked keep
+     with K1 and plain cross passes); times K4 on val's own inputs against
+     its plain version, with its bound; checks that the card agrees with the
+     CPU on 4 images at imgsz 160;
   5. train: writes 64 train and 16 val PNGs and trains
      YOLOLite("yolo11n.yaml") at imgsz 640, batch 16, 2 epochs, mosaic,
      default hyperparameters (AdamW by 'auto'), in fp32 (TF32 off) and with
-     amp (bf16): checks that each epoch's EMA val launched the kernel once per
-     alive block, finite loss items, last.npz, best.npz and results.csv;
+     amp (bf16): checks that each epoch's EMA val (eager) launched K4 once per
+     batch and K1 never, finite loss items, last.npz, best.npz and
+     results.csv;
      predicts from best.npz; resumes last.npz for a third epoch and checks
      the optimizer's restored moments; checks the kernel against the plain
-     keep in one EMA val batch; times the epoch loop, the host loader alone,
+     keep in one EMA val batch; holds the one-process fp32 SGD step at 640,
+     batch 16 to the float64 step at 1e-3 relative L2 on every gradient, on
+     three seeds (model init and loader; the trainer's NCHW batch, and the
+     channels-last batch it fed the card before measured and timed beside
+     it); times the epoch loop, the host
+     loader alone,
      one step's stages alone (forward, loss with TAL, backward, clip +
      optimizer + EMA) with its peak memory, the device's idle share over an
      epoch (torch.profiler), K5/K6 forward and backward and K7 at the train
@@ -44,11 +67,13 @@ Phases, each of which exits non-zero on failure:
   6. serving: (a) writes two upstream-format .pt files from init(0) and
      init(1) models (a plain one and a 2-member nn.ModuleList ensemble),
      loads them through the stub unpickler (weights bit-equal), predicts 32
-     frames at 640, batch 32, conf 1e-7 with each, checks that K1 ran and
-     that its keep equals the plain keep on the inputs each run gave it;
-     (b) predict(int8=True) beside bf16 predict at 640: yolo11n at batch 1
-     and, in turns (bf16, int8, int8, bf16) of 5 calls with their medians,
-     at batch 32; K8 launches 76 times a forward and no quantize runs
+     frames at 640, batch 32, conf 1e-7 with each (graphed after two set-up
+     calls), checks that K1 ran and
+     that its keep equals the plain keep on the inputs an eager run gave it;
+     (b) predict(int8=True) beside bf16 predict at 640, both graphed: yolo11n
+     at batch 1 and, in turns (bf16, int8, int8, bf16) of 5 calls with their
+     medians, at batch 32, then one eager turn of each for the record; K8
+     launches 76 times a forward and no quantize runs
      outside it; K8 equal to its plain version on every output of the 76
      quantized convs of one batch-32 forward, timed by device time (a CUDA
      graph of 20 launches replayed), with each conv's bound, sums by kind
@@ -56,16 +81,17 @@ Phases, each of which exits non-zero on failure:
      yardstick; the same checks at yolo11m (init(0), 101 quantized convs);
      (c) export at 640, batch 8, fp32 and int8, reloaded and bit-equal to
      the in-process graph; (d) InferencePipeline at batch 8, 640, 32
-     submissions: p50/p90/p99 ms, img/s, detections equal to the
-     predictor's infer; (e) embed on the card against the CPU, rtol 1e-3.
+     submissions, graphed, eagerly and graphed again: p50/p90/p99 ms, img/s,
+     detections equal to the predictor's infer; (e) embed on the card
+     against the CPU, rtol 1e-3.
   7. zoo: YOLOv10-N (cfg/dicts.py YOLOV10N: SCDown, PSA, C2fCIB with
      RepVGGDW, the end2end head) and GELAN-T (GELAN_T: ELAN1, AConv,
      RepNCSPELAN4, SPPELAN) at full width with init(0) weights: (a) predict
      the 32 frames at 640, conf 1e-7, in fp32 and bf16, YOLOv10-N at batch 1
      and 32 (the one2one top-k, no K1), GELAN-T at batch 32 (K1 once a call,
      nms_from_feats through K1 equal to the plain keep), with the stage
-     split; (b) val of the phase-4 set at batch 16, rect (GELAN-T: K1 once
-     per alive block); (c) YOLOv10-N trains 1 epoch at 640, batch 16 on the
+     split; (b) val of the phase-4 set at batch 16, rect (GELAN-T: K4 once
+     per batch); (c) YOLOv10-N trains 1 epoch at 640, batch 16 on the
      phase-5 images, amp off and on, and predicts from last.npz; (d) an
      upstream-format .pt of YOLOv10-N loads bit-equal and predicts the same;
      (e) int8=True raises NotImplementedError without touching K8; (f) each
@@ -73,30 +99,35 @@ Phases, each of which exits non-zero on failure:
      step.
   8. parallel: (a) yolo11n over a mesh of two replicas on cuda:0: predict
      the 32 frames at batch 32 (two shards, K1 once in each) and the first
-     31 at batch 31 (a tail that runs unsharded), detections equal to one
-     device's; val of the phase-4 set at batch 16 (K1 once per alive block
-     of each shard), every metric within 1e-6 of one device's; (b) the
+     31 at batch 31 (a tail that runs unsharded), each replica's step a graph
+     of its own, detections equal to one device's; val of the phase-4 set at
+     batch 16 (K4 once per shard), every metric within 1e-6 of one device's;
+     (b) the
      data-parallel train step at 640, global batch 16: two gloo ranks on
      cuda:0 (8 rows each, cross-rank BN) against the one-process step
      (fg_mask equal, loss items 1e-4) and a float64 step on the card
      (gradients and each weight's and BN statistic's update 1e-3 relative
      L2), with both steps' times and the gradient all_reduce's; one NCCL
-     rank the same way; then YOLOLite.train for 1 epoch on the phase-5
+     rank the same way; the gradients of 2 gloo ranks against float64 again
+     on two more seeds; then YOLOLite.train for 1 epoch on the phase-5
      images on two gloo ranks against one process (loss items 1e-3; rank 0's
-     EMA val and final val launch K1); (c) rotated ops on the card against
+     EMA val and final val launch K4); (c) rotated ops on the card against
      the CPU on 2,000 random OBBs: batch_probiou, nms_rotated, the rotated
      assigner at B 16, A 8,400, M 32; (d) the deformable decoder at
      RT-DETR-L's widths (d 256, 8 heads, 3 levels, 4 points, 300 queries,
      6 layers, batch 8) on the card against the CPU, relative L2 1e-4.
-The kernels line's launches count the runs of the main paths: predict, val,
-train, serving, the zoo and phase 8 (rank 0's launches as it reports them)
-for K1, the int8 predict calls (yolo11n and yolo11m) for K8.
+The kernels line's launches count the runs of the main paths (a replayed
+graph adds the launches its capture recorded): predict, train's reload,
+serving, the zoo's GELAN-T predict and phase 8's mesh predict for K1; val,
+train's EMA vals and final vals, the zoo's GELAN-T val and phase 8's mesh val
+and rank 0 for K4; the int8 predict calls (yolo11n and yolo11m) for K8.
 Prints the card's name and power limit, a {"kernels": [...]} line, and last
 {"ok": true, "device": {...}}. Needs no network and no JAX.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -164,6 +195,136 @@ def scenes(b: int, k: int, seed: int, chain: bool):
         boxes = np.concatenate([c - wh / 2, c + wh / 2], -1).astype(np.float32)
         valid = rng.uniform(size=(b, k)) > 0.1
     return torch.from_numpy(boxes).cuda(), torch.from_numpy(valid).cuda()
+
+
+def k4_scene(seed: int, b: int, k: int, case: str):
+    """Score-sorted K4 inputs on the card: shifted, boxes, vals, cls, valid. Scores fall from 1 to -0.1 (the last
+    rows valid with a score <= 0: kept, never emitted). case: "crowded", "spread" (the first block alone keeps
+    hundreds), "first-block" (nothing valid past 1024), "invalid", "nan" (NaN coordinates in every 7th box)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    c = rng.uniform(20, 6000.0 if case == "spread" else 600.0, (b, k, 2))
+    wh = rng.uniform(10, 120, (b, k, 2))
+    boxes = np.concatenate([c - wh / 2, c + wh / 2], -1).astype(np.float32)
+    if case == "nan":
+        boxes[:, ::7, rng.integers(0, 4)] = np.nan
+    vals = np.broadcast_to(np.linspace(1.0, -0.1, k, dtype=np.float32), (b, k)).copy()
+    cls = rng.integers(0, 3, (b, k)).astype(np.float32)
+    valid = rng.uniform(size=(b, k)) > 0.1
+    if case == "first-block":
+        valid[:, 1024:] = False
+    elif case == "invalid":
+        valid[:] = False
+    t = lambda a: torch.from_numpy(a).cuda()
+    boxes, vals, cls, valid = t(boxes), t(vals), t(cls), t(valid)
+    return boxes + cls[..., None] * 7680, boxes, vals, cls, valid
+
+
+def same_bits(a, b) -> bool:
+    """Equal bit for bit (NaN rows included, which torch.equal calls unequal)."""
+    import torch
+
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(a.contiguous().view(torch.int32),
+                                                                     b.contiguous().view(torch.int32))
+
+
+@contextlib.contextmanager
+def plain_keep():
+    """ops.nms's exact keep through its plain version inside the block: no K1 launch."""
+    from yololite_tpu_torch.ops import nms
+    from yololite_tpu_torch.ops.kernels import greedy_nms_keep_plain
+
+    real = nms.greedy_nms_keep
+    nms.greedy_nms_keep = greedy_nms_keep_plain
+    try:
+        yield
+    finally:
+        nms.greedy_nms_keep = real
+
+
+def k4_plain(*args):
+    """K4's plain version (`_blocked_keep` with the plain keep inside, then `_finalize`): no kernel launches."""
+    from yololite_tpu_torch.ops.kernels import blocked_nms_finalize_plain
+
+    with plain_keep():
+        return blocked_nms_finalize_plain(*args)
+
+
+def k4_bound_ms(shifted, vals, valid, thr: float, max_det: int):
+    """Least time for K4 on these inputs, and what bounds it ("bytes" or "operations").
+
+    The walk needs the candidates up to its stop: the max_det-th emitted row of
+    an image, else its last candidate. Bytes: 41 a candidate read up to there
+    (16 + 16 of boxes, 4 + 4 of score and class, 1 of valid), 24 an output row
+    written. Operations: each kept row's IoU with the later candidates up to
+    the stop (IOU_OPS each) and each candidate's area (AREA_OPS); about 2x low,
+    as `keep_bound_ms` says.
+    """
+    import torch
+
+    from yololite_tpu_torch.ops import nms
+
+    with plain_keep():
+        keep = nms._blocked_keep(shifted, valid, thr)
+    b, k = valid.shape
+    done = (keep & (vals > 0)).long().cumsum(1) >= max(max_det, 1)
+    stop = torch.where(done.any(1), done.float().argmax(1), k - 1)  # (B,) the last candidate the walk needs
+    idx = torch.arange(k, device=valid.device)
+    kept = keep & (idx[None] <= stop[:, None])
+    pairs = float(((stop[:, None] - idx[None]) * kept).sum().item())
+    n = float((stop + 1).sum().item())
+    by_bytes = (n * 41 + b * max_det * 24) / HBM_BYTES_PER_S
+    by_ops = (pairs * IOU_OPS + n * AREA_OPS) / FP32_OPS_PER_S
+    return max(by_bytes, by_ops) * 1e3, "bytes" if by_bytes >= by_ops else "operations"
+
+
+def k4_numbers(card: str, args, thr: float, max_det: int, what: str) -> dict:
+    """K4 against its plain version on these inputs (bit for bit), both timed, with the bound."""
+    import torch
+
+    from yololite_tpu_torch.ops.kernels import blocked_nms_finalize
+
+    shifted, boxes, vals, cls, valid = args
+    got = blocked_nms_finalize(*args, thr, max_det)
+    want = k4_plain(*args, thr, max_det)
+    torch.cuda.synchronize()
+    if not same_bits(got, want):
+        raise AssertionError(f"blocked_nms_finalize differs from its plain version on {what}: "
+                             f"{int((got != want).any(-1).sum())} rows")
+    err = float((got - want).abs().nan_to_num(0.0).max().item()) if got.numel() else 0.0
+    bound, bound_by = k4_bound_ms(shifted, vals, valid, thr, max_det)
+    ms = graph_ms(lambda: blocked_nms_finalize(*args, thr, max_det))
+    launch_ms = cuda_ms(lambda: blocked_nms_finalize(*args, thr, max_det), 50)
+    plain = cuda_ms(lambda: k4_plain(*args, thr, max_det), 5, warmup=1)
+    b, k = valid.shape
+    log(f"kernel: blocked_nms_finalize B={b} K={k} max_det {max_det} ({what}, {int((want[..., 4] > 0).sum())} rows "
+        f"out): {ms:.4f} ms device (graph replay), {launch_ms:.4f} ms a call back to back, plain {plain:.3f} ms, "
+        f"bound {bound:.5f} ms ({bound_by}), on {card}")
+    return {"ms": ms, "launch_ms": launch_ms, "plain_ms": plain, "bound_ms": bound, "bound_by": bound_by,
+            "max_abs_err": err, "shape": [b, k, max_det]}
+
+
+def profile_calls(fn, reps: int):
+    """Wall ms of `reps` calls of fn (ending in a synchronize) under torch.profiler, the card's busy ms over them (the
+    union of its kernels and copies), and the count of device events; busy None when the profiler saw none."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from tools.torch_predict_profile import busy_ms
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    on_device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = busy_ms((e.time_range.start, e.time_range.end) for e in on_device) if on_device else None
+    return wall, busy, len(on_device)
 
 
 def card_line() -> str:
@@ -246,11 +407,106 @@ def separating_weights_(model) -> None:
                 conv.bias.copy_(torch.from_numpy(rng.integers(-39, 0, conv.bias.shape[0]) / 8.0))
 
 
+def mixed_sizes_stream(card: str) -> None:
+    """Phase 3: a stream of 48 frames at 12 sizes, drawn with a skew (photos from a few cameras), sent as one
+    predict call each (a server's requests; a list of arrays would be one batch), graphed and eagerly. The uint8
+    path keys its graph on the frame size: a size seen once stays eager, its second frame captures, later ones
+    replay, and the cache holds at most graphs.MAX_GRAPHS. Checks the detections equal the eager run's and the
+    bound; reports the calls replayed, the graphs held and the pool's bytes."""
+    import numpy as np
+    import torch
+
+    from yololite_tpu_torch import YOLOLite
+    from yololite_tpu_torch.engine import graphs
+
+    sizes = [(480, 640), (720, 1280), (1080, 1920), (375, 500), (640, 480), (427, 640), (768, 1024), (300, 400),
+             (600, 800), (512, 512), (1280, 720), (240, 320)]
+    rng = np.random.default_rng(40)
+    p = 1.0 / np.sqrt(np.arange(1, len(sizes) + 1))
+    draws = rng.choice(len(sizes), 48, p=p / p.sum())
+    stream = [rng.integers(0, 256, (*sizes[i], 3), dtype=np.uint8) for i in draws]
+    kw = dict(conf=1e-7, imgsz=640, batch=1, save=False, verbose=False)
+    model = YOLOLite("yolo11n.yaml")
+    model.predict(stream[0], **kw)  # set up: its warm-up and this frame run eagerly (first sights)
+    cache = model.predictor._graphs
+    calls, replays, captures = cache.calls, cache.replays, cache.captures
+    pool0 = graphs.pool_reserved_bytes()
+    times = {}
+    for name in ("graphed", "eager"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with graphs.eager() if name == "eager" else contextlib.nullcontext():
+            got = [model.predict(f, **kw)[0] for f in stream]
+        torch.cuda.synchronize()
+        times[name] = (time.perf_counter() - t0) * 1e3
+        if name == "graphed":
+            graphed = got
+            held, pool1 = len(cache), graphs.pool_reserved_bytes()
+    calls, replays, captures = cache.calls - calls, cache.replays - replays, cache.captures - captures
+    repeated = sum(1 for i, d in enumerate(draws) if d in draws[:i] or d == draws[0])
+    if calls != len(stream) or held > graphs.MAX_GRAPHS or not replays:
+        raise AssertionError(f"mixed sizes: {calls} calls, {replays} replays, {held} graphs held")
+    for a, b in zip(graphed, got):
+        if not np.array_equal(a.boxes.data, b.boxes.data) or a.orig_shape != b.orig_shape:
+            raise AssertionError("mixed sizes: graphed predict differs from eager")
+    log(f"slice: a stream of {len(stream)} frames at {len(set(draws.tolist()))} sizes (skewed draw), yolo11n fp32 "
+        f"batch 1 at 640: {calls} calls, {replays} replayed ({replays / calls:.1%}), {captures} captured, "
+        f"{calls - replays} eager (first sights, or sizes dropped from the cache); {repeated} frames of a size seen "
+        f"before; {held} graphs held (bound {graphs.MAX_GRAPHS}); the graph pool {pool0 / 2 ** 20:.1f} -> "
+        f"{pool1 / 2 ** 20:.1f} MiB reserved; graphed {times['graphed'] / len(stream):.2f} ms a frame, eager "
+        f"{times['eager'] / len(stream):.2f}; detections equal, on {card}")
+
+
+def mixed_sizes_val(card: str, model, root: Path, recorded) -> None:
+    """Phase 4: val through the facade of 256 images whose sizes mix ten common photo sizes (80%) with random ones
+    (20%), at batch 16, rect: a bucket shape's first batch runs eagerly, its second captures, later ones replay.
+    Runs graphed, eagerly and graphed again, each a new validator; checks equal metrics and K4 once a batch; reports
+    img/s and the share of batches that replay."""
+    import numpy as np
+    import torch
+
+    from yololite_tpu_torch.engine import graphs
+    from yololite_tpu_torch.ops.kernels import blocked_nms_finalize
+
+    common = [(480, 640), (427, 640), (640, 480), (640, 427), (512, 640), (360, 640), (640, 640), (375, 500),
+              (333, 500), (500, 375)]
+    weights = np.array([0.35, 0.2, 0.1, 0.05, 0.05, 0.05, 0.05, 0.05, 0.05, 0.05])
+    rng = np.random.default_rng(41)
+    n_img, bs = 256, 16
+    shapes = [common[rng.choice(len(common), p=weights)] if rng.uniform() < 0.8
+              else tuple(int(v) for v in rng.integers(200, 641, 2)) for _ in range(n_img)]
+    data = write_val_dataset(root / "val256", shapes, seed=42)
+    kw = dict(data=str(data), imgsz=640, batch=bs, rect=True, conf=1e-7, plots=False, verbose=False,
+              project=str(root / "runs"), save_json=False)
+    model.val(name="mixed_cache", **kw)  # the label cache
+    rd, lines = None, []
+    for name in ("graphed", "eager", "graphed again"):
+        blocked_nms_finalize.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with graphs.eager() if name == "eager" else contextlib.nullcontext():
+            m = model.val(name=f"mixed_{name.replace(' ', '_')}", validator=recorded, **kw)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        v = recorded.made[-1]
+        batches, g = len(v.dataloader), v._infer.graphs
+        buckets = len({tuple(int(x) for x in r) for r in v.dataloader.dataset.batch_shapes})
+        if blocked_nms_finalize.launches != batches + (0 if name == "eager" else g.warmups) or (
+                rd is not None and m.results_dict != rd):  # a capture's warm-up launches K4 too
+            raise AssertionError(f"mixed-size val {name}: K4 {blocked_nms_finalize.launches} launches for {batches} "
+                                 f"batches, metrics {m.results_dict} vs {rd}")
+        rd = m.results_dict
+        lines.append(f"{name} {n_img / dt:.1f} img/s" + ("" if name == "eager" else
+                     f" ({g.replays} of {g.calls} batches replayed, {g.captures} captured)"))
+    log(f"val: 256 images of mixed sizes (ten common photo sizes and 20% random ones), yolo11n fp32 at 640, batch "
+        f"{bs}, rect, through the facade: {batches} batches in {buckets} bucket shapes; {'; '.join(lines)}; metrics "
+        f"equal, K4 once a batch, on {card}")
+
+
 def val_phase(card: str, model):
     """yolo11n val at 640 on the card through the facade (`model`, init(0) on the card), its checks and timings.
 
-    Returns the kernel launches of the val runs and the kernel's numbers on
-    val's own K = 1024 block inputs.
+    Returns K4's launches in the val runs and K4's numbers on val's own inputs.
     """
     import tempfile
 
@@ -258,93 +514,99 @@ def val_phase(card: str, model):
     import torch
 
     from yololite_tpu_torch.data.dataset import DataLoader, YOLODataset
+    from yololite_tpu_torch.engine import graphs
     from yololite_tpu_torch.engine.predictor import forward_nhwc, fp32_convs, inference_net
-    from yololite_tpu_torch.engine.validator import VAL_MAX_CAND
+    from yololite_tpu_torch.engine.validator import VAL_MAX_CAND, DetectionValidator
     from yololite_tpu_torch.ops import nms
-    from yololite_tpu_torch.ops.kernels import greedy_nms_keep, greedy_nms_keep_plain
+    from yololite_tpu_torch.ops.kernels import blocked_nms_finalize, greedy_nms_keep
+
+    class Recorded(DetectionValidator):
+        """The facade's validator, kept so that its graph cache can be read."""
+        made = []
+
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            Recorded.made.append(self)
 
     tmp = tempfile.TemporaryDirectory()
     root = Path(tmp.name)
     shapes = [(480, 640), (640, 480), (640, 640), (360, 640)] * 16  # rect at batch 16: four buckets
     data = write_val_dataset(root / "val64", shapes, seed=15)
     n_img, bs = len(shapes), 16
-    blocked, exact = nms._blocked_keep, nms._exact_keep
-    alive_blocks, block_inputs = [], []
-
-    def recording_blocked(shifted, valid, thr):  # counts the alive blocks of 1024 of each val batch's keep
-        keep = blocked(shifted, valid, thr)
-        b, k = keep.shape
-        alive_blocks.append(int(torch.nn.functional.pad(keep, (0, -k % 1024)).reshape(b, -1, 1024)
-                                .any(-1).any(0).sum()))
-        return keep
-
-    def recording_exact(boxes, valid, thr):  # records the first val block's inputs, then runs it
-        if not block_inputs:
-            block_inputs.append((boxes.clone(), valid.clone(), thr))
-        return exact(boxes, valid, thr)
-
     launches = 0
     for half in (False, True):
         dtype = "bf16" if half else "fp32"
         kw = dict(data=str(data), imgsz=640, batch=bs, rect=True, conf=1e-7, half=half, plots=False,
                   verbose=False, project=str(root / "runs"), name=dtype)
-        metrics = model.val(save_json=True, **kw)  # warm-up, label cache, predictions.json
+        metrics = model.val(save_json=True, **kw)  # label cache, predictions.json
         rd = metrics.results_dict
         if not all(np.isfinite(v) and 0 <= v <= 1 for v in rd.values()):
             raise AssertionError(f"val {dtype} metrics not finite or outside [0, 1]: {rd}")
         preds = list((root / "runs").glob(f"{dtype}*/predictions.json"))
         if len(preds) != 1 or not json.loads(preds[0].read_text()):
             raise AssertionError(f"val {dtype}: predictions.json missing or empty ({preds})")
-        for rep in range(2):  # two timed runs, for their spread
-            alive_blocks.clear()
-            greedy_nms_keep.launches = 0
-            nms._blocked_keep, nms._exact_keep = recording_blocked, recording_exact
-            try:
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                metrics = model.val(save_json=False, **kw)
-                torch.cuda.synchronize()
-                dt = time.perf_counter() - t0
-            finally:
-                nms._blocked_keep, nms._exact_keep = blocked, exact
-            n = greedy_nms_keep.launches
-            if len(alive_blocks) != n_img // bs or n != sum(alive_blocks) or n == 0:
-                raise AssertionError(f"val {dtype}: {n} kernel launches, but {len(alive_blocks)} NMS calls with "
-                                     f"{alive_blocks} alive blocks of 1024")
-            launches += n
-            sp = metrics.speed
-            log(f"val: yolo11n {dtype} batch {bs} at 640, rect, conf 1e-7, {n_img} images, run {rep + 1}: "
+        # through the facade (a new validator each call; each of the four bucket shapes holds one batch, seen once,
+        # so every step runs eagerly), then one validator three times (its first run eager, its second captures each
+        # shape and replays it, its third replays), then eagerly; K4 once a batch (and once a capture's warm-up
+        # run, if any), K1 never
+        v = DetectionValidator(args={**kw, "mode": "val", "name": f"{dtype}_reused"})
+        runs = {}
+        for name in ("facade", "facade again", "validator", "validator captured", "validator replayed", "eager"):
+            greedy_nms_keep.launches = blocked_nms_finalize.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if name.startswith("facade"):
+                m = model.val(save_json=False, validator=Recorded, **kw)
+                g = Recorded.made[-1]._infer.graphs
+                stats = (g.calls, g.replays, g.captures, g.warmups)
+            elif name == "eager":
+                with graphs.eager():
+                    m = model.val(save_json=False, **kw)
+                stats = (0, 0, 0, 0)
+            else:
+                g = v._infer and v._infer.graphs
+                before = (0, 0, 0, 0) if g is None else (g.calls, g.replays, g.captures, g.warmups)
+                v(model=model.model)
+                m = v.metrics
+                g = v._infer.graphs
+                stats = (g.calls - before[0], g.replays - before[1], g.captures - before[2], g.warmups - before[3])
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            n1, n4 = greedy_nms_keep.launches, blocked_nms_finalize.launches
+            want_replays = {"validator captured": n_img // bs, "validator replayed": n_img // bs}.get(name, 0)
+            if n1 or n4 != n_img // bs + stats[3] or stats[1] != want_replays:  # a capture's warm-up launches too
+                raise AssertionError(f"val {dtype} {name}: {n1} K1 and {n4} K4 launches for {n_img // bs} batches; "
+                                     f"(calls, replays, captures) {stats}")
+            if m.results_dict != rd:
+                raise AssertionError(f"val {dtype} {name}: metrics {m.results_dict} differ from the first run's {rd}")
+            launches += n4
+            runs[name] = dt
+            sp = m.speed
+            log(f"val: yolo11n {dtype} batch {bs} at 640, rect, conf 1e-7, {n_img} images, {name}: "
                 f"{n_img / dt:.1f} img/s ({dt:.3f} s); speed per image: preprocess {sp['preprocess']:.3f} ms, "
                 f"inference {sp['inference']:.3f} ms, postprocess {sp['postprocess']:.3f} ms; mAP50-95 "
-                f"{metrics.results_dict['metrics/mAP50-95(B)']:.5f}; {n} kernel launches = alive blocks per "
-                f"batch {alive_blocks}, on {card}")
+                f"{m.results_dict['metrics/mAP50-95(B)']:.5f} (equal to the first run's); K4 {n4} launches, K1 "
+                f"{n1}; steps on the card {stats[0]}, replayed {stats[1]}, captured {stats[2]} (warm-up runs "
+                f"{stats[3]}), on {card}")
+        log(f"val: {dtype}: {len(v._infer.graphs)} graphs in the reused validator (one per bucket shape); the graph "
+            f"pool holds {graphs.pool_reserved_bytes() / 2 ** 20:.1f} MiB reserved; every run's metrics equal, on "
+            f"{card}")
 
-    # where one fp32 val run's time goes on the card: torch.profiler over the whole run
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    mixed_sizes_val(card, model, root, Recorded)
 
-    from tools.torch_predict_profile import busy_ms
-
-    kw = dict(data=str(data), imgsz=640, batch=bs, rect=True, conf=1e-7, plots=False, verbose=False,
-              project=str(root / "runs"), name="profile")
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        model.val(**kw)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    on_device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not on_device:
+    # where one fp32 val run's time goes on the card: torch.profiler over a reused validator's replayed run
+    v = DetectionValidator(args=dict(data=str(data), imgsz=640, batch=bs, rect=True, conf=1e-7, plots=False,
+                                     verbose=False, project=str(root / "runs"), name="profile", mode="val"))
+    for _ in range(2):  # eager, then every bucket shape captured
+        v(model=model.model)
+    wall, device, events = profile_calls(lambda: v(model=model.model), 1)
+    if device is None:
         raise RuntimeError("torch.profiler recorded no device activity in the val run")
-    by_name = {}
-    for e in on_device:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
-    device = busy_ms((e.time_range.start, e.time_range.end) for e in on_device)
-    top = ", ".join(f"{n[:48]} {ms:.2f}" for n, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:6])
-    log(f"val: profile of one fp32 run ({n_img} images, under torch.profiler): {wall:.1f} ms, device busy "
-        f"{device:.1f} ms, idle share {1 - device / wall:.3f}, {len(on_device)} device kernels and copies; "
-        f"top ms: {top}; on {card}")
+    log(f"val: profile of one fp32 run, graphs replayed ({n_img} images, under torch.profiler): {wall:.1f} ms, "
+        f"device busy {device:.1f} ms, idle share {1 - device / wall:.3f}, {events} device kernels and copies, on "
+        f"{card}")
 
-    # one val batch (the first rect bucket) alone: loader, forward, NMS through the kernel and the plain keep
+    # one val batch (the first rect bucket) alone: loader, forward, NMS through K4 and the plain version
     t0 = time.perf_counter()
     ds = YOLODataset(str(root / "val64" / "images" / "val"), imgsz=640, batch_size=bs, rect=True,
                      data={"names": {i: str(i) for i in range(80)}})
@@ -365,56 +627,57 @@ def val_phase(card: str, model):
         feats = [f.float() for f in forward_nhwc(net, x)]
         args = (feats, model.model.strides, model.model.nc, model.model.reg_max)
         kw_nms = dict(conf_thres=1e-7, iou_thres=0.7, max_det=300, max_cand=VAL_MAX_CAND, multi_label=True)
-        with_kernel = nms.nms_from_feats(*args, **kw_nms)
-        nms.greedy_nms_keep = greedy_nms_keep_plain
+        captured = []
+        real = nms.blocked_nms_finalize
+        nms.blocked_nms_finalize = lambda *a: captured.append(a) or real(*a)
+        try:
+            with_kernel = nms.nms_from_feats(*args, **kw_nms)
+        finally:
+            nms.blocked_nms_finalize = real
+        k4_args, thr, max_det = captured[0][:5], captured[0][5], captured[0][6]
+        nms.blocked_nms_finalize = k4_plain
         try:
             with_plain = nms.nms_from_feats(*args, **kw_nms)
         finally:
-            nms.greedy_nms_keep = greedy_nms_keep
+            nms.blocked_nms_finalize = real
         if not torch.equal(with_kernel, with_plain):
-            raise AssertionError("val nms_from_feats at K = 8192 differs between the kernel and the plain keep")
-        log(f"val: nms_from_feats K={VAL_MAX_CAND} multi-label through the kernel == through the plain keep "
+            raise AssertionError("val nms_from_feats at K = 8192 differs between K4 and its plain version")
+        log(f"val: nms_from_feats K={VAL_MAX_CAND} multi-label through K4 == through its plain version "
             f"(fp32, batch {bs} at {tuple(im.shape[1:3])}, {int((with_kernel[..., 4] > 0).sum())} detections), "
             f"on {card}")
-        captured = []
-        nms._blocked_keep = lambda s, v, t: captured.append((s, v, t)) or blocked(s, v, t)
-        try:
-            nms.nms_from_feats(*args, **kw_nms)
-        finally:
-            nms._blocked_keep = blocked
-        shifted, valid, thr = captured[0]
-        torch.cuda.synchronize()
-        base = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        nms.nms_from_feats(*args, **kw_nms)
-        torch.cuda.synchronize()
-        peak = torch.cuda.max_memory_allocated() - base
+        peaks = {}
+        for name, fn in (("K4", lambda: nms.nms_from_feats(*args, **kw_nms)), ("plain", None)):
+            if fn is None:  # the path before K4: the blocked keep (K1 a block, plain cross passes), then _finalize
+                nms.blocked_nms_finalize = lambda *a: nms._finalize(a[1], a[2], a[3], nms._blocked_keep(
+                    a[0], a[4], a[5]), a[6])
+                fn = lambda: nms.nms_from_feats(*args, **kw_nms)
+            try:
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                fn()
+                torch.cuda.synchronize()
+                peaks[name] = (torch.cuda.max_memory_allocated() - base, cuda_ms(fn, 10))
+            finally:
+                nms.blocked_nms_finalize = real
         t_fw = cuda_ms(lambda: forward_nhwc(net, im.float() * (1.0 / 255.0)), 10)
-        t_nms = cuda_ms(lambda: nms.nms_from_feats(*args, **kw_nms), 10)
-        t_blk = cuda_ms(lambda: blocked(shifted, valid, thr), 10)
     log(f"val: stages alone (fp32, batch {bs} at {tuple(im.shape[1:3])}): forward {t_fw:.3f} ms, nms_from_feats "
-        f"K={VAL_MAX_CAND} {t_nms:.3f} ms, of which _blocked_keep {t_blk:.3f} ms; peak memory of the NMS "
-        f"{peak / 2 ** 20:.1f} MiB above the {base / 2 ** 20:.1f} MiB held, on {card}")
+        f"K={VAL_MAX_CAND} through K4 {peaks['K4'][1]:.3f} ms, peak {peaks['K4'][0] / 2 ** 20:.1f} MiB; through "
+        f"the blocked keep with K1 and the plain cross passes (the path before K4) {peaks['plain'][1]:.3f} ms, peak "
+        f"{peaks['plain'][0] / 2 ** 20:.1f} MiB; above the {base / 2 ** 20:.1f} MiB held, on {card}")
 
-    # the kernel on val's own K = 1024 block inputs (the first alive block of the timed fp32 run)
-    boxes, valid, thr = block_inputs[0]
-    boxes = boxes.float().contiguous()
-    b, k = valid.shape
-    got, want = greedy_nms_keep(boxes, valid, thr), greedy_nms_keep_plain(boxes, valid, thr)
-    err = float((got.int() - want.int()).abs().max().item())
-    if err != 0:
-        raise AssertionError("greedy_nms_keep differs from its plain version on val's block inputs")
-    bound, bound_by = keep_bound_ms(want, k, b)
-    ms = cuda_ms(lambda: greedy_nms_keep(boxes, valid, thr), 100)
-    plain = cuda_ms(lambda: greedy_nms_keep_plain(boxes, valid, thr), 20)
-    log(f"kernel: greedy_nms_keep B={b} K={k} (val's fp32 block inputs, {int(want.sum())} kept): {ms:.4f} ms, "
-        f"plain {plain:.4f} ms, bound {bound:.5f} ms ({bound_by}), on {card}")
+    # K4 on val's own inputs (the first fp32 batch's), against its plain version, with its bound
+    k4 = k4_numbers(card, k4_args, thr, max_det, "val's fp32 inputs")
 
     # the card against the CPU at imgsz 160: separating weights, 4 images labelled from the model's own detections
     small_val_card_vs_cpu(card, root, "yolo11n", "yolo11n.yaml")
     tmp.cleanup()
-    return launches, {"val_ms": ms, "val_plain_ms": plain, "val_bound_ms": bound, "val_bound_by": bound_by,
-                      "val_shape": [b, k], "val_max_abs_err": err}
+    return launches, {"val_ms": k4["ms"], "val_launch_ms": k4["launch_ms"], "val_plain_ms": k4["plain_ms"],
+                      "val_bound_ms": k4["bound_ms"],
+                      "val_bound_by": k4["bound_by"], "val_shape": k4["shape"], "val_max_abs_err": k4["max_abs_err"],
+                      "val_nms_ms": peaks["K4"][1], "val_nms_peak_mib": peaks["K4"][0] / 2 ** 20,
+                      "blocked_keep_path_nms_ms": peaks["plain"][1],
+                      "blocked_keep_path_nms_peak_mib": peaks["plain"][0] / 2 ** 20}
 
 
 def event_ms(setup, fn, iters: int = 10) -> float:
@@ -444,8 +707,9 @@ def train_phase(card: str):
     Training starts from init(0) with every Detect class bias set to -6: init(0)'s
     priors (-11.5 to -8.8) and its signal, which fades through the eval-mode depth,
     leave no class score above the EMA val's fixed conf of 0.001, so its NMS
-    would have nothing to suppress and K1 would never run. Returns K1's
-    launches in the train phase's runs (train, reload predict, resume).
+    would have nothing to suppress and K4 would never run. Returns the launches
+    of K1 (the reload's predict) and K4 (the EMA vals and final vals of the
+    train and resume runs).
     """
     import tempfile
 
@@ -465,7 +729,7 @@ def train_phase(card: str):
     from yololite_tpu_torch.models import checkpoint as ckpt
     from yololite_tpu_torch.ops import nms
     from yololite_tpu_torch.ops.decode import DFLExpectation, dfl_expectation_mm
-    from yololite_tpu_torch.ops.kernels import greedy_nms_keep, greedy_nms_keep_plain
+    from yololite_tpu_torch.ops.kernels import blocked_nms_finalize, greedy_nms_keep
     from yololite_tpu_torch.utils.loss import BCESum, DFLCrossEntropy, bce_sum, dfl_ce_mean
     from yololite_tpu_torch.utils.tal import TaskAlignedAssigner
 
@@ -475,32 +739,18 @@ def train_phase(card: str):
     write_val_dataset(root / "ds", shapes * 16, seed=20, split="train")  # 64 train images
     data = write_val_dataset(root / "ds", shapes * 4, seed=21, split="val")  # 16 val images
     n_train, bs = 64, 16
-    blocked = nms._blocked_keep
-    alive_blocks = []
-
-    def recording_blocked(shifted, valid, thr):  # the alive blocks of 1024 of each EMA val NMS
-        keep = blocked(shifted, valid, thr)
-        b, k = keep.shape
-        alive_blocks.append(int(torch.nn.functional.pad(keep, (0, -k % 1024)).reshape(b, -1, 1024)
-                                .any(-1).any(0).sum()))
-        return keep
 
     class CheckedTrainer(DetectionTrainer):
-        """Checks each epoch's EMA val: K1 ran, once per alive block of the K = 8192 NMS."""
+        """Checks each epoch's EMA val (eager): K4 once per val batch of the K = 8192 NMS, K1 never."""
 
         def validate(self):
-            alive_blocks.clear()
-            first = greedy_nms_keep.launches
-            nms._blocked_keep = recording_blocked
-            try:
-                stats = super().validate()
-            finally:
-                nms._blocked_keep = blocked
-            n = greedy_nms_keep.launches - first
-            if n == 0 or n != sum(alive_blocks):
-                raise AssertionError(f"train epoch {self.epoch}: EMA val made {n} kernel launches for alive blocks "
-                                     f"{alive_blocks}")
-            self.val_launches = getattr(self, "val_launches", []) + [n]
+            k1, k4 = greedy_nms_keep.launches, blocked_nms_finalize.launches
+            stats = super().validate()
+            n1, n4 = greedy_nms_keep.launches - k1, blocked_nms_finalize.launches - k4
+            if n1 or n4 != len(self.validator.dataloader):
+                raise AssertionError(f"train epoch {self.epoch}: EMA val made {n1} K1 and {n4} K4 launches for "
+                                     f"{len(self.validator.dataloader)} batches")
+            self.val_launches = getattr(self, "val_launches", []) + [n4]
             return stats
 
     def start_model():
@@ -510,19 +760,21 @@ def train_phase(card: str):
                 seq[2].bias.fill_(-6.0)
         return m
 
-    launches = 0
+    launches = {"greedy_nms_keep": 0, "blocked_nms_finalize": 0}
     runs = {}
     for amp in (False, True):
         dtype = "bf16" if amp else "fp32"
         m = start_model()
-        greedy_nms_keep.launches = 0
+        greedy_nms_keep.launches = blocked_nms_finalize.launches = 0
         t0 = time.perf_counter()
         m.train(trainer=CheckedTrainer, data=str(data), epochs=2, imgsz=640, batch=bs, amp=amp, plots=False,
                 project=str(root / "runs"), name=dtype)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        n = greedy_nms_keep.launches
-        launches += n
+        n, n1 = blocked_nms_finalize.launches, greedy_nms_keep.launches
+        if n1:
+            raise AssertionError(f"train {dtype}: {n1} K1 launches; every val NMS is K = 8192 (K4)")
+        launches["blocked_nms_finalize"] += n
         t = m.trainer
         rows = np.loadtxt(t.csv, delimiter=",", skiprows=1, ndmin=2)
         if rows.shape[0] != 2 or not np.isfinite(rows).all() or not (rows[:, 1:4] > 0).all():
@@ -536,15 +788,16 @@ def train_phase(card: str):
         ips = [n_train / s_ for s_ in t.train_seconds]
         log(f"train: yolo11n {dtype} at 640, batch {bs}, {n_train} images, 2 epochs, mosaic, AdamW (auto): "
             f"epoch loop without val {', '.join(f'{s_:.3f} s ({v:.1f} img/s)' for s_, v in zip(t.train_seconds, ips))}; "
-            f"whole train() {wall:.2f} s; loss items per epoch {rows[:, 1:4].round(5).tolist()}; K1 launches "
-            f"{n} ({t.val_launches} in the EMA vals, the rest in the final val of best.npz), on {card}")
+            f"whole train() {wall:.2f} s; loss items per epoch {rows[:, 1:4].round(5).tolist()}; K4 launches "
+            f"{n} ({t.val_launches} in the eager EMA vals, the rest in the final val of best.npz: one batch, "
+            f"seen once, so eager), on {card}")
 
     # reload best.npz and predict; resume last.npz for one more epoch with the optimizer state restored
     t32 = runs["fp32"]
     frames = [np.random.default_rng(22).integers(0, 256, (480, 640, 3), dtype=np.uint8) for _ in range(4)]
     greedy_nms_keep.launches = 0
     res = YOLOLite(str(t32.best)).predict(frames, imgsz=640, conf=1e-7, batch=4, save=False, verbose=False)
-    launches += greedy_nms_keep.launches
+    launches["greedy_nms_keep"] += greedy_nms_keep.launches
     if len(res) != 4 or not all(len(r) and np.isfinite(r.boxes.data).all() for r in res):
         raise AssertionError("predict from best.npz: no detections or not finite")
     restored = {}
@@ -562,18 +815,18 @@ def train_phase(card: str):
             restored.update(step=int(self.optimizer.state[next(iter(named.values()))]["step"]),
                             epoch=self.start_epoch, updates=self.ema.updates, saved_epoch=meta["epoch"])
 
-    greedy_nms_keep.launches = 0
+    blocked_nms_finalize.launches = 0
     rt = ResumeChecked(overrides={"resume": str(t32.last)})
     rt.epochs = 3
     rt.train()
-    launches += greedy_nms_keep.launches
+    launches["blocked_nms_finalize"] += blocked_nms_finalize.launches
     if restored.get("epoch") != 2 or restored["saved_epoch"] != 1 or rt.epoch != 2 or restored["step"] < 1:
         raise AssertionError(f"resume: {restored}, ran to epoch {rt.epoch}")
     log(f"train: best.npz predicts on the card ({[len(r) for r in res]} detections); resume from last.npz (epoch "
         f"{restored['saved_epoch']}) ran epoch {rt.epoch + 1} with AdamW at step {restored['step']} and "
         f"{restored['updates']} EMA updates restored, moments equal to the file's, on {card}")
 
-    # one val batch inside the trainer: the EMA net's maps through nms_from_feats with the kernel and the plain keep
+    # one val batch inside the trainer: the EMA net's maps through nms_from_feats with K4 and its plain version
     vb = next(iter(t32.validator.dataloader))
     with torch.inference_mode(), fp32_convs(torch.device("cuda")):
         x = torch.from_numpy(vb["img"]).cuda().float() * (1.0 / 255.0)
@@ -581,15 +834,19 @@ def train_phase(card: str):
         args = (feats, t32.model.strides, t32.model.nc, t32.model.reg_max)
         kw_nms = dict(conf_thres=0.001, iou_thres=0.7, max_det=300, max_cand=8192, multi_label=True)
         with_kernel = nms.nms_from_feats(*args, **kw_nms)
-        nms.greedy_nms_keep = greedy_nms_keep_plain
+        nms.blocked_nms_finalize = k4_plain
         try:
             with_plain = nms.nms_from_feats(*args, **kw_nms)
         finally:
-            nms.greedy_nms_keep = greedy_nms_keep
+            nms.blocked_nms_finalize = blocked_nms_finalize
     if not torch.equal(with_kernel, with_plain) or not int((with_kernel[..., 4] > 0).sum()):
-        raise AssertionError("train's EMA val: nms_from_feats differs between the kernel and the plain keep")
-    log(f"train: EMA val batch {tuple(x.shape)}: nms_from_feats K=8192 multi-label through the kernel == through "
-        f"the plain keep ({int((with_kernel[..., 4] > 0).sum())} detections), on {card}")
+        raise AssertionError("train's EMA val: nms_from_feats differs between K4 and its plain version")
+    log(f"train: EMA val batch {tuple(x.shape)}: nms_from_feats K=8192 multi-label through K4 == through its plain "
+        f"version ({int((with_kernel[..., 4] > 0).sum())} detections), on {card}")
+
+    # the one-process fp32 step against the float64 step at 640, batch 16 (SGD, lr 100), with the trainer's
+    # NCHW-contiguous batch and, for the record, with the channels-last batch it fed the card before
+    step_against_float64(card, root, data)
 
     # the host loader alone, with mosaic
     hyp = get_cfg(overrides={"data": str(data), "imgsz": 640, "batch": bs, "mode": "train"})
@@ -824,6 +1081,7 @@ def k8_on_convs(card: str, pred, frames, n_convs: int, name: str, time_plain: bo
     import numpy as np
     import torch
 
+    from yololite_tpu_torch.engine import graphs
     from yololite_tpu_torch.models import modules as M
     from yololite_tpu_torch.ops.kernels import int8_conv, int8_conv_plain, int8_conv_plan, quantize_act
 
@@ -832,7 +1090,8 @@ def k8_on_convs(card: str, pred, frames, n_convs: int, name: str, time_plain: bo
              for m in pred.net.modules() if isinstance(m, M.QConv)]
     try:
         raw = torch.from_numpy(np.stack(frames)).cuda().flip(-1)
-        pred.infer_uint8(raw, 640)
+        with graphs.eager():  # hooks run in the eager forward, not in a replay
+            pred.infer_uint8(raw, 640)
     finally:
         for h in hooks:
             h.remove()
@@ -897,32 +1156,36 @@ def k8_on_convs(card: str, pred, frames, n_convs: int, name: str, time_plain: bo
 
 def int8_vs_bf16(card: str, path: str, frames, bs: int, n_convs: int, name: str, turns=("bf16", "int8", "int8",
                                                                                           "bf16")):
-    """predict(int8=True) against bf16 predict on one model, in turns, each turn `reps` calls timed on the host
-    (each call ends in host results). Returns the medians, per-call lists and the K8 launches of the int8 calls."""
+    """predict(int8=True) against bf16 predict on one model, both graphed, in turns, each turn `reps` calls timed on
+    the host (each call ends in host results); then one turn of each run eagerly, for the record. Returns the
+    graphed medians, per-call lists and the K8 launches of the int8 calls."""
     import numpy as np
 
     from yololite_tpu_torch import YOLOLite
+    from yololite_tpu_torch.engine import graphs
     from yololite_tpu_torch.ops import kernels
     from yololite_tpu_torch.ops.kernels import greedy_nms_keep, int8_conv
 
     kw = dict(conf=1e-7, imgsz=640, batch=bs, save=False, verbose=False)
     models = {"bf16": (YOLOLite(path), {"half": True}), "int8": (YOLOLite(path), {"int8": True})}
     for model, extra in models.values():
-        model.predict(frames, **kw, **extra)  # set up, warm up (int8: calibrate on this batch)
-    times = {"bf16": [], "int8": []}
+        for _ in range(2):  # set up, warm up (int8: calibrate on this batch) and run eagerly, then capture
+            model.predict(frames, **kw, **extra)
+    times = {"bf16": [], "int8": [], "bf16 eager": [], "int8 eager": []}
     k1 = k8 = 0
     reps = 5
     quantize_act, quantizes = kernels.quantize_act, []
     kernels.quantize_act = lambda *a: quantizes.append(1) or quantize_act(*a)  # K8 quantizes floats in its load
     try:
-        for mode in turns:
-            model, extra = models[mode]
+        for mode in (*turns, "bf16 eager", "int8 eager"):
+            model, extra = models[mode.split()[0]]
             for _ in range(reps):
                 greedy_nms_keep.launches = int8_conv.launches = 0
                 t0 = time.perf_counter()
-                results = model.predict(frames, **kw, **extra)
+                with graphs.eager() if mode.endswith("eager") else contextlib.nullcontext():
+                    results = model.predict(frames, **kw, **extra)
                 times[mode].append(time.perf_counter() - t0)
-                if greedy_nms_keep.launches != 1 or int8_conv.launches != (n_convs if mode == "int8" else 0):
+                if greedy_nms_keep.launches != 1 or int8_conv.launches != (n_convs if mode.startswith("int8") else 0):
                     raise AssertionError(f"{name} {mode} predict: {greedy_nms_keep.launches} K1 and "
                                          f"{int8_conv.launches} K8 launches in one call")
                 k1 += 1
@@ -934,7 +1197,10 @@ def int8_vs_bf16(card: str, path: str, frames, bs: int, n_convs: int, name: str,
     if quantizes:
         raise AssertionError(f"{name}: quantize_act ran {len(quantizes)} times outside K8 in int8 predict")
     med = {m: sorted(t)[len(t) // 2] for m, t in times.items()}
-    log(f"serving (b): {name} predict at 640, batch {bs}, turns {'/'.join(turns)} of {reps} calls: int8 median "
+    log(f"serving (b): {name} predict at 640, batch {bs}, eager (no graphs), one turn of {reps} calls each: int8 "
+        f"median {med['int8 eager'] * 1e3:.2f} ms/call, bf16 {med['bf16 eager'] * 1e3:.2f} ms/call (int8 "
+        f"x{med['bf16 eager'] / med['int8 eager']:.3f}), on {card}")
+    log(f"serving (b): {name} predict at 640, batch {bs}, graphed, turns {'/'.join(turns)} of {reps} calls: int8 median "
         f"{med['int8'] * 1e3:.2f} ms/call ({bs / med['int8']:.1f} img/s; calls "
         f"{', '.join(f'{t * 1e3:.2f}' for t in times['int8'])}) vs bf16 {med['bf16'] * 1e3:.2f} ms/call "
         f"({bs / med['bf16']:.1f} img/s; calls {', '.join(f'{t * 1e3:.2f}' for t in times['bf16'])}); int8 "
@@ -962,6 +1228,7 @@ def serving_phase(card: str, frames):
     from yololite_tpu_torch.ops.kernels import greedy_nms_keep, greedy_nms_keep_plain, int8_conv
     from yololite_tpu_torch.ops.letterbox import preprocess_batch
     from yololite_tpu_torch.runtime import InferencePipeline, export_predict, load_exported, predict_graph
+    from yololite_tpu_torch.engine import graphs
 
     tmp = tempfile.TemporaryDirectory()
     root = Path(tmp.name)
@@ -980,23 +1247,27 @@ def serving_phase(card: str, frames):
         for got, want in zip(members, (m0, m1)):
             if not all(torch.equal(a.cpu(), b) for a, b in zip(got.state_dict().values(), want.state_dict().values())):
                 raise AssertionError(f"{name}: loaded weights differ from the saved ones")
-        model.predict(frames, **kw)  # set up and warm up
+        for _ in range(2):  # set up, warm up and run eagerly, then capture
+            model.predict(frames, **kw)
         inputs = []
         nms._exact_keep = lambda b, v, t: inputs.append((b.clone(), v.clone(), t)) or exact_keep(b, v, t)
-        greedy_nms_keep.launches = 0
         try:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            reps = 3
-            for _ in range(reps):
-                results = model.predict(frames, **kw)
-            torch.cuda.synchronize()
-            dt = (time.perf_counter() - t0) / reps
+            with graphs.eager():  # the inputs the step gives the exact keep
+                model.predict(frames, **kw)
         finally:
             nms._exact_keep = exact_keep
+        greedy_nms_keep.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reps = 3
+        for _ in range(reps):
+            results = model.predict(frames, **kw)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / reps
         n = greedy_nms_keep.launches
-        if n != reps or len(inputs) != reps:
-            raise AssertionError(f"{name}: {n} K1 launches and {len(inputs)} exact keeps in {reps} predict calls")
+        if n != reps or len(inputs) != 1:
+            raise AssertionError(f"{name}: {n} K1 launches in {reps} predict calls, {len(inputs)} exact keeps in the "
+                                 "eager call")
         k1 += n
         boxes, valid, thr = inputs[-1]
         boxes = boxes.float().contiguous()
@@ -1021,7 +1292,8 @@ def serving_phase(card: str, frames):
     k8_launches += n8
     k8 = k8_on_convs(card, pred, frames, 76, "yolo11n", time_plain=True)
     k8.update(int8_ms_b32=med32["int8"] * 1e3, bf16_ms_b32=med32["bf16"] * 1e3, int8_ms_b1=med1["int8"] * 1e3,
-              bf16_ms_b1=med1["bf16"] * 1e3)
+              bf16_ms_b1=med1["bf16"] * 1e3, int8_eager_ms_b32=med32["int8 eager"] * 1e3,
+              bf16_eager_ms_b32=med32["bf16 eager"] * 1e3)
     del pred
     med_m, n1, n8, pred = int8_vs_bf16(card, "yolo11m.yaml", frames, 32, 101, "yolo11m")
     k1 += n1
@@ -1057,29 +1329,39 @@ def serving_phase(card: str, frames):
             f"MB; reloaded output bit-equal to the in-process graph ({int((ref[..., 4] > 0).sum())} detections), "
             f"K1{' and K8' if want_k8 else ''} as ops, on {card}")
 
-    # (d) InferencePipeline at batch 8, 640: 32 submissions
+    # (d) InferencePipeline at batch 8, 640: 32 submissions, graphed (its warm-up eager on this thread, the first
+    # batch captured on the dispatch thread after a warm-up run there), eagerly, and graphed again (all replays)
     pred = DetectionPredictor(overrides={"conf": 1e-7, "batch": 8, "imgsz": 640, "mode": "predict", "verbose": False,
                                          "save": False})
     pred.setup_model(model.model)
-    pipe = InferencePipeline(pred, imgsz=640).start()
     subs = [frames[(8 * i) % 32:(8 * i) % 32 + 8] for i in range(32)]
-    greedy_nms_keep.launches = 0
-    t0 = time.perf_counter()
-    for b in subs:
-        pipe.submit(b)
-    pipe.close()
-    got = list(pipe.results())
-    wall = time.perf_counter() - t0
-    k1 += greedy_nms_keep.launches
-    if len(got) != 32 or greedy_nms_keep.launches != 32:
-        raise AssertionError(f"pipeline: {len(got)} results, {greedy_nms_keep.launches} K1 launches for 32 batches")
-    want = pred.infer(torch.from_numpy(preprocess_batch(subs[0], imgsz=640)).cuda()).cpu().numpy()
-    if not np.array_equal(got[0][1], want) or not (want[..., 4] > 0).any():
-        raise AssertionError("pipeline: detections differ from the predictor's infer on the same batch")
-    sm = pipe.summary(wall)
-    log(f"serving (d): InferencePipeline yolo11n fp32 at 640, batch 8, 32 submissions: p50 {sm['p50_ms']:.2f} ms, "
-        f"p90 {sm['p90_ms']:.2f} ms, p99 {sm['p99_ms']:.2f} ms (submit to detections on the host), "
-        f"{sm['throughput_img_s']:.1f} img/s; detections == predictor.infer's, on {card}")
+    want = None
+    lines = []
+    for name in ("graphed", "eager", "graphed again"):
+        pipe = InferencePipeline(pred, imgsz=640).start()
+        greedy_nms_keep.launches = 0
+        warmups = pred._graphs.warmups
+        t0 = time.perf_counter()
+        with graphs.eager() if name == "eager" else contextlib.nullcontext():
+            for b in subs:
+                pipe.submit(b)
+            pipe.close()
+            got = list(pipe.results())
+        wall = time.perf_counter() - t0
+        k1 += greedy_nms_keep.launches
+        warmups = pred._graphs.warmups - warmups
+        if len(got) != 32 or greedy_nms_keep.launches != 32 + warmups:  # a capture's warm-up launches K1 too
+            raise AssertionError(f"pipeline {name}: {len(got)} results, {greedy_nms_keep.launches} K1 launches for "
+                                 "32 batches")
+        if want is None:
+            want = pred.infer(torch.from_numpy(preprocess_batch(subs[0], imgsz=640)).cuda()).cpu().numpy()
+        if not np.array_equal(got[0][1], want) or not (want[..., 4] > 0).any():
+            raise AssertionError(f"pipeline {name}: detections differ from the predictor's infer on the same batch")
+        sm = pipe.summary(wall)
+        lines.append(f"{name}: p50 {sm['p50_ms']:.2f} ms, p90 {sm['p90_ms']:.2f} ms, p99 {sm['p99_ms']:.2f} ms, "
+                     f"{sm['throughput_img_s']:.1f} img/s")
+    log(f"serving (d): InferencePipeline yolo11n fp32 at 640, batch 8, 32 submissions (submit to detections on the "
+        f"host): {'; '.join(lines)}; detections == predictor.infer's, on {card}")
 
     # (e) embed on the card against the CPU
     on_card = YOLOLite(str(plain_pt)).embed(frames[:2], layers=[4, 6, 10], imgsz=640)
@@ -1091,14 +1373,6 @@ def serving_phase(card: str, frames):
         f"{rel:.2e} of the largest value), shape {on_card[0].shape}, on {card}")
     tmp.cleanup()
     return k1, k8_launches, k8
-
-
-def alive_blocks(keep) -> int:
-    """Blocks of 1024 candidates of a (B, K) keep mask that hold a kept candidate in some image."""
-    import torch
-
-    b, k = keep.shape
-    return int(torch.nn.functional.pad(keep, (0, -k % 1024)).reshape(b, -1, 1024).any(-1).any(0).sum())
 
 
 def small_val_card_vs_cpu(card: str, root: Path, name: str, spec) -> None:
@@ -1217,8 +1491,8 @@ def one_step_card_vs_cpu(card: str, root: Path, name: str, spec, data, bound: fl
 def zoo_phase(card: str, frames):
     """Phase 7: YOLOv10-N and GELAN-T of the extended block zoo at full width and 640 on the card, init(0) weights.
 
-    Returns K1's launches in GELAN-T's predict and val runs (YOLOv10-N's
-    end2end head takes a top-k of its one2one maps and runs no NMS).
+    Returns K1's launches in GELAN-T's predict runs and K4's in its val runs
+    (YOLOv10-N's end2end head takes a top-k of its one2one maps and runs no NMS).
     """
     import tempfile
 
@@ -1231,7 +1505,8 @@ def zoo_phase(card: str, frames):
     from yololite_tpu_torch.models.model import DetectionModel
     from yololite_tpu_torch.ops import nms
     from yololite_tpu_torch.ops.decode import postprocess_end2end
-    from yololite_tpu_torch.ops.kernels import device_letterbox, greedy_nms_keep, greedy_nms_keep_plain, int8_conv
+    from yololite_tpu_torch.ops.kernels import (blocked_nms_finalize, device_letterbox, greedy_nms_keep,
+                                               greedy_nms_keep_plain, int8_conv)
 
     tmp = tempfile.TemporaryDirectory()
     root = Path(tmp.name)
@@ -1240,7 +1515,7 @@ def zoo_phase(card: str, frames):
     for name, m in models.items():
         log(f"zoo: {name}: {m.model.num_params():,} parameters, {m.model.gflops(640):.2f} GFLOPs at 640, strides "
             f"{m.model.strides}, end2end {m.model.detect.end2end}, rows {[r.name for r in m.model.model]}")
-    k1 = 0
+    k1 = k4 = 0
 
     # (a) predict the 32 frames at 640, conf 1e-7: YOLOv10-N at batch 1 and 32, GELAN-T at 32, fp32 and bf16
     configs = {"yolov10n": [(False, 1), (False, 32), (True, 1), (True, 32)], "gelan-t": [(False, 32), (True, 32)]}
@@ -1250,7 +1525,8 @@ def zoo_phase(card: str, frames):
             dtype = "bf16" if half else "fp32"
             src = frames[:bs]
             kw = dict(conf=1e-7, imgsz=640, batch=bs, half=half, save=False, verbose=False)
-            m.predict(src, **kw)  # set up and warm up
+            for _ in range(2):  # set up, warm up and run eagerly, then capture
+                m.predict(src, **kw)
             greedy_nms_keep.launches = 0
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -1304,45 +1580,33 @@ def zoo_phase(card: str, frames):
                 f"{reps} calls; stages alone: letterbox {t_lb:.3f} ms, forward {t_fw:.3f} ms, {tail_name} "
                 f"{t_tail:.3f} ms, their sum {(t_lb + t_fw + t_tail) / (dt * 1e3):.1%} of the call, on {card}")
 
-    # (b) val at 640, batch 16, rect, conf 1e-7 on the phase-4 set (64 images, four shapes)
+    # (b) val at 640, batch 16, rect, conf 1e-7 on the phase-4 set (64 images, four shapes), each bucket shape one
+    # batch: seen once, so every step runs eagerly
     shapes = [(480, 640), (640, 480), (640, 640), (360, 640)]
     val_data = write_val_dataset(root / "val64", shapes * 16, seed=15)
-    blocked = nms._blocked_keep
-    alive = []
-
-    def recording_blocked(shifted, valid, thr):
-        keep = blocked(shifted, valid, thr)
-        alive.append(alive_blocks(keep))
-        return keep
-
     for name, m in models.items():
         kw = dict(data=str(val_data), imgsz=640, batch=16, rect=True, conf=1e-7, plots=False, verbose=False,
                   project=str(root / "runs"), name=f"{name}_val")
-        m.val(**kw)  # warm-up and the label cache
-        alive.clear()
-        greedy_nms_keep.launches = 0
-        nms._blocked_keep = recording_blocked
-        try:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            metrics = m.val(**kw)
-            torch.cuda.synchronize()
-            dt = time.perf_counter() - t0
-        finally:
-            nms._blocked_keep = blocked
-        n = greedy_nms_keep.launches
+        m.val(**kw)  # the label cache
+        greedy_nms_keep.launches = blocked_nms_finalize.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = m.val(**kw)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        n1, n = greedy_nms_keep.launches, blocked_nms_finalize.launches
         e2e = m.model.detect.end2end
-        if (n, len(alive)) != ((0, 0) if e2e else (sum(alive), 4)) or (not e2e and n == 0):
-            raise AssertionError(f"{name} val: {n} K1 launches for {len(alive)} NMS calls with alive blocks {alive}")
-        k1 += n
+        if n1 or (n != 0 if e2e else n != 4):  # 4 batches
+            raise AssertionError(f"{name} val: {n1} K1 and {n} K4 launches for 4 batches")
+        k4 += n
         rd = metrics.results_dict
         if not all(np.isfinite(v) and 0 <= v <= 1 for v in rd.values()):
             raise AssertionError(f"{name} val metrics not finite or outside [0, 1]: {rd}")
         sp = metrics.speed
         log(f"zoo: {name} val fp32 at 640, batch 16, rect, conf 1e-7, 64 images: {64 / dt:.1f} img/s ({dt:.3f} s); "
             f"per image: preprocess {sp['preprocess']:.3f} ms, inference {sp['inference']:.3f} ms, postprocess "
-            f"{sp['postprocess']:.3f} ms; mAP50-95 {rd['metrics/mAP50-95(B)']:.5f}; K1 {n} launches = alive blocks "
-            f"per batch {alive}, on {card}")
+            f"{sp['postprocess']:.3f} ms; mAP50-95 {rd['metrics/mAP50-95(B)']:.5f}; K4 {n} launches (4 batches), "
+            f"K1 0, on {card}")
 
     # (c) YOLOv10-N trains 1 epoch at 640, batch 16, on the phase-5 images, amp off and on; predicts from last.npz
     write_val_dataset(root / "ds", shapes * 16, seed=20, split="train")
@@ -1403,16 +1667,54 @@ def zoo_phase(card: str, frames):
         small_val_card_vs_cpu(card, root, name, spec)
         one_step_card_vs_cpu(card, root, name, spec, train_data, bound=5e-3 if name == "gelan-t" else 1e-3)
     tmp.cleanup()
-    return k1
+    return {"greedy_nms_keep": k1, "blocked_nms_finalize": k4}
 
 
 def rel_l2(a, b) -> float:
     return float((a.double() - b.double()).norm() / max(float(b.double().norm()), 1e-30))
 
 
-def float64_step(ov, model, batch, lr, momentum) -> dict:
+def patched_pool(record=None, force=None, rows=slice(None)):
+    """A replacement for SPPF._pool (models/modules.py): the same max-pool, the first three calls' picks (flat
+    indices into H*W: the checked step's three chained pools) appended to `record`; or, with `force`, the pools
+    taking the given picks (rows `rows` of each) instead of their own."""
+    import torch.nn.functional as F
+
+    calls = iter(force or ())
+
+    def pool(self, x):
+        if force is not None:
+            idx = next(calls)[rows].to(x.device)
+            n, c, h, w = x.shape
+            return x.reshape(n, c, h * w).gather(2, idx.reshape(n, c, h * w)).view(n, c, h, w)
+        out, idx = F.max_pool2d(x, self.k, 1, self.k // 2, return_indices=True)
+        if record is not None and len(record) < 3:
+            record.append(idx.cpu())
+        return out
+
+    return pool
+
+
+def picked_rank_steps(rank: int, world: int, device, ov, models, batches, lr, momentum, timed: int = 0):
+    """A rank function for parallel.mesh.launch: data_parallel_step on each (model, batch) pair in turn, in one
+    process group, each with its SPPF max-pools' picks recorded (this rank's rows); the first with `timed` timed
+    steps. Returns [(output, picks)]."""
+    from yololite_tpu_torch.engine.trainer import data_parallel_step
+    from yololite_tpu_torch.models.modules import SPPF
+
+    outs = []
+    for i, (m, b) in enumerate(zip(models, batches)):
+        picks = []
+        SPPF._pool = patched_pool(picks)
+        out = data_parallel_step(rank, world, device, ov, m, [b], lr, momentum, timed if i == 0 else 0)
+        outs.append((out, picks))
+    return outs
+
+
+def float64_step(ov, model, batch, lr, momentum, picks=None) -> dict:
     """The trainer's SGD step in float64 on the card (an NCHW batch): gradients, weights and BN statistics before and
-    after, the reference of the fp32 steps."""
+    after, and SPPF's max-pool picks; the reference of the fp32 steps. With `picks` (an fp32 step's), SPPF's pools
+    take those picks: the exact step on the same side of every near-tie in the pools."""
     import copy
 
     import numpy as np
@@ -1420,6 +1722,7 @@ def float64_step(ov, model, batch, lr, momentum) -> dict:
 
     from yololite_tpu_torch.engine.predictor import forward_nhwc
     from yololite_tpu_torch.engine.trainer import DetectionTrainer
+    from yololite_tpu_torch.models.modules import SPPF
 
     tr = DetectionTrainer(overrides=ov, device="cuda")
     tr.set_model(copy.deepcopy(model).double())
@@ -1429,19 +1732,87 @@ def float64_step(ov, model, batch, lr, momentum) -> dict:
     before = host()
     targets = {k: v.double() if v.is_floating_point() else v for k, v in tr._targets(batch).items()}
     x = torch.from_numpy(batch["img"]).cuda().double() / 255.0
-    total, _, _ = tr.loss_fn.forward(forward_nhwc(tr.model, x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)),
-                                     targets)
+    own, recorded = SPPF._pool, []
+    SPPF._pool = patched_pool(recorded, picks)
+    try:
+        total, _, _ = tr.loss_fn.forward(forward_nhwc(tr.model, x.permute(0, 3, 1, 2).contiguous()
+                                                      .permute(0, 2, 3, 1)), targets)
+    finally:
+        SPPF._pool = own
     total.backward()
     grads = {k: p.grad.detach().cpu().clone() for k, p in tr.model.named_parameters()}
     tr._apply_step(np.asarray(lr, np.float32), momentum)
-    return {"grads": grads, "before": before, "after": host()}
+    return {"grads": grads, "before": before, "after": host(), "picks": recorded or picks}
+
+
+def seeded_batch(ov, data, seed: int):
+    """The first batch of the train loader shuffled with `seed` (the step checks' batch)."""
+    from yololite_tpu_torch.cfg import get_cfg
+    from yololite_tpu_torch.data.dataset import build_dataloader, build_yolo_dataset
+    from yololite_tpu_torch.data.utils import check_det_dataset
+
+    hyp = get_cfg(overrides={**ov, "mode": "train"})
+    dinfo = check_det_dataset(str(data))
+    return next(iter(build_dataloader(build_yolo_dataset(hyp, dinfo["train"], ov["batch"], dinfo, mode="train"),
+                                      ov["batch"], 0, shuffle=True, seed=seed)))
+
+
+def step_against_float64(card: str, root: Path, data) -> None:
+    """Phase 5: the one-process fp32 SGD step at 640, batch 16 (lr 100) held to the float64 step on the card at
+    1e-3 relative L2 on every gradient leaf, with the trainer's batch (NCHW-contiguous when amp is off) and, for the
+    record, with the channels-last batch it fed the card before, on three seeds (yolo11n init(seed), the loader
+    shuffled with seed); on seed 0 each variant's mean step time over 5 steps."""
+    import torch
+
+    from yololite_tpu_torch.engine import trainer as T
+    from yololite_tpu_torch.engine.predictor import forward_nhwc
+    from yololite_tpu_torch.models.model import DetectionModel
+
+    ov = {"data": str(data), "imgsz": 640, "batch": 16, "nbs": 16, "val": False, "save": False, "optimizer": "SGD",
+          "amp": False, "project": str(root / "runs"), "name": "step64", "workers": 2}
+    lr = [100.0] * 3
+
+    def channels_last_forward(self, images):  # the trainer's card path before this fix
+        x = images.float() * (1.0 / 255.0) if images.dtype == torch.uint8 else images
+        with torch.autocast(self.device.type, dtype=torch.bfloat16, enabled=bool(self.args.amp)):
+            return forward_nhwc(self.model, x)
+
+    nchw_forward = T.DetectionTrainer._forward
+    lines = []
+    for seed in (0, 1, 2):
+        batch = seeded_batch(ov, data, seed)
+        model = DetectionModel("yolo11n.yaml").init(seed)
+        ref64 = float64_step(ov, model, batch, lr, 0.9)
+        floor = 1e-5 * max(float(v.norm()) for v in ref64["grads"].values())
+        got = {}
+        names = ("NCHW batch", "channels-last batch", "NCHW batch again") if seed == 0 else ("NCHW batch",
+                                                                                          "channels-last batch")
+        for name in names:
+            T.DetectionTrainer._forward = channels_last_forward if name.startswith("channels") else nchw_forward
+            try:
+                out = T.data_parallel_step(0, 1, torch.device("cuda:0"), ov, model, [batch], lr, 0.9,
+                                           5 if seed == 0 else 0)
+            finally:
+                T.DetectionTrainer._forward = nchw_forward
+            worst = max((float((out["grads"][k].double() - w).norm()) / max(float(w.norm()), floor), k)
+                        for k, w in ref64["grads"].items())
+            got[name] = (worst, out.get("step_s", float("nan")) * 1e3)
+        for name in names:
+            if name.startswith("NCHW") and got[name][0][0] > 1e-3:
+                raise AssertionError(f"the one-process fp32 step ({name}, seed {seed}) lies {got[name][0]} from the "
+                                     "float64 step")
+        lines.append(f"seed {seed}: " + "; ".join(
+            f"{name} {w[0]:.2e} ({w[1]})" + (f", {ms:.2f} ms" if seed == 0 else "") for name, (w, ms) in got.items()))
+    log("train: one-process fp32 SGD step at 640, batch 16 (yolo11n init(seed), lr 100) against the float64 step on "
+        "the card, worst gradient leaf's relative L2 (bound 1e-3 for the trainer's NCHW batch) and, on seed 0, the "
+        "mean step of 5: " + " | ".join(lines) + f", on {card}")
 
 
 def parallel_phase(card: str, frames):
     """Phase 8: data parallelism on the one card, rotated ops and deformable attention on the card vs the CPU.
 
-    Returns K1's launches in the mesh's predict and val runs and in rank 0's
-    EMA vals and final val of the 2-rank training run.
+    Returns K1's launches in the mesh's predict runs and K4's in its val run
+    and in rank 0's EMA vals and final val of the 2-rank training run.
     """
     import math
     import tempfile
@@ -1450,29 +1821,27 @@ def parallel_phase(card: str, frames):
     import torch
 
     from yololite_tpu_torch import YOLOLite
-    from yololite_tpu_torch.cfg import get_cfg
-    from yololite_tpu_torch.data.dataset import build_dataloader, build_yolo_dataset
-    from yololite_tpu_torch.data.utils import check_det_dataset
     from yololite_tpu_torch.engine.trainer import data_parallel_step
     from yololite_tpu_torch.models import deformable as D
     from yololite_tpu_torch.models.model import DetectionModel
     from yololite_tpu_torch.models.transformer import Linear
-    from yololite_tpu_torch.ops import nms, rotated as R
+    from yololite_tpu_torch.ops import rotated as R
     from yololite_tpu_torch.ops.boxes import make_anchors
-    from yololite_tpu_torch.ops.kernels import greedy_nms_keep
+    from yololite_tpu_torch.ops.kernels import blocked_nms_finalize, greedy_nms_keep
     from yololite_tpu_torch.parallel.mesh import launch
 
     tmp = tempfile.TemporaryDirectory()
     root = Path(tmp.name)
     mesh = ["cuda:0", "cuda:0"]  # two replicas (inference) or two gloo ranks (train) on the one card
-    k1 = 0
+    k1 = k4 = 0
 
     # (a) inference over a mesh of two replicas: predict at batch 32, a tail of 31 frames, val at batch 16
     one, two = YOLOLite("yolo11n.yaml"), YOLOLite("yolo11n.yaml", device=mesh)
     for bs, src in ((32, frames), (31, frames[:31])):
         kw = dict(conf=1e-7, imgsz=640, batch=bs, save=False, verbose=False)
         want = one.predict(src, **kw)
-        two.predict(src, **kw)  # set up and warm up
+        for _ in range(2):  # set up, warm up and run eagerly, then capture each replica's step
+            two.predict(src, **kw)
         times = {}
         for name, m in (("one device", one), ("mesh", two)):
             greedy_nms_keep.launches = 0
@@ -1486,6 +1855,9 @@ def parallel_phase(card: str, frames):
         shards = 2 if bs % 2 == 0 else 1
         if n != shards or len(two.predictor.replicas) != 2:
             raise AssertionError(f"mesh predict batch {bs}: {n} K1 launches, {len(two.predictor.replicas)} replicas")
+        graphed = {k[1] for k in two.predictor._graphs._graphs}  # the modules with a captured step
+        if graphed != {id(r) for r in two.predictor.replicas}:  # both replicas (the tail ran on the first)
+            raise AssertionError(f"mesh predict batch {bs}: graphs for modules {graphed}")
         k1 += n
         unmatched = sum(len(a.boxes.data) + len(b.boxes.data) - 2 * match_sets(a.boxes.data, b.boxes.data)
                         for a, b in zip(want, got))
@@ -1496,85 +1868,92 @@ def parallel_phase(card: str, frames):
             f"{times['mesh']:.2f} ms on the mesh, {times['one device']:.2f} ms on one device, on {card}")
     shapes = [(480, 640), (640, 480), (640, 640), (360, 640)]
     val_data = write_val_dataset(root / "val64", shapes * 16, seed=15)
-    blocked = nms._blocked_keep
-    alive = []
-
-    def recording_blocked(shifted, valid, thr):
-        keep = blocked(shifted, valid, thr)
-        alive.append(alive_blocks(keep))
-        return keep
-
     kwv = dict(data=str(val_data), imgsz=640, batch=16, rect=True, conf=1e-7, plots=False, verbose=False,
                project=str(root / "runs"))
     rd1 = one.val(**kwv, name="one").results_dict
-    nms._blocked_keep = recording_blocked
-    greedy_nms_keep.launches = 0
-    try:
-        rd2 = two.val(**kwv, name="mesh").results_dict
-    finally:
-        nms._blocked_keep = blocked
-    n = greedy_nms_keep.launches
-    if len(alive) != 8 or n != sum(alive) or not n:
-        raise AssertionError(f"mesh val: {n} K1 launches for {len(alive)} NMS calls with alive blocks {alive}")
-    k1 += n
+    greedy_nms_keep.launches = blocked_nms_finalize.launches = 0
+    rd2 = two.val(**kwv, name="mesh").results_dict
+    n1, n = greedy_nms_keep.launches, blocked_nms_finalize.launches
+    if n1 or n != 8:  # 4 batches x 2 shards
+        raise AssertionError(f"mesh val: {n1} K1 and {n} K4 launches for 4 batches of 2 shards")
+    k4 += n
     worst = max(abs(rd2[k] - rd1[k]) for k in rd1)
     if worst > 1e-6:
         raise AssertionError(f"mesh val differs from one device by {worst}: {rd2} vs {rd1}")
-    log(f"parallel: mesh val of 64 images at 640, batch 16, rect: 4 batches x 2 shards, K1 {n} launches = alive "
-        f"blocks {alive}; mAP50-95 {rd2['metrics/mAP50-95(B)']:.6f}, every metric within {worst:.1e} of one device")
+    log(f"parallel: mesh val of 64 images at 640, batch 16, rect: 4 batches x 2 shards, each shard's shape seen "
+        f"once, so eager (K4 {n} launches, K1 0); mAP50-95 {rd2['metrics/mAP50-95(B)']:.6f}, every metric "
+        f"within {worst:.1e} of one device")
 
     # (b) the data-parallel train step: two gloo ranks of 8 rows against one process on the global 16
     write_val_dataset(root / "ds", shapes * 16, seed=20, split="train")
     train_data = write_val_dataset(root / "ds", shapes * 4, seed=21, split="val")
     ov = {"data": str(train_data), "imgsz": 640, "batch": 16, "nbs": 16, "val": False, "save": False,
           "optimizer": "SGD", "amp": False, "project": str(root / "runs"), "name": "dp", "workers": 2}
-    hyp = get_cfg(overrides={**ov, "mode": "train"})
-    dinfo = check_det_dataset(str(train_data))
-    batch = next(iter(build_dataloader(build_yolo_dataset(hyp, dinfo["train"], 16, dinfo, mode="train"), 16, 0,
-                                       shuffle=True, seed=0)))
+    batch = seeded_batch(ov, train_data, 0)
     model = DetectionModel("yolo11n.yaml").init(0)
     lr = [100.0] * 3  # far above the fp32 rounding of the new weights (see one_step_card_vs_cpu)
-    args = (ov, model, [batch], lr, 0.9, 5)
-    ref = data_parallel_step(0, 1, torch.device("cuda:0"), *args)
+    ref = data_parallel_step(0, 1, torch.device("cuda:0"), ov, model, [batch], lr, 0.9, 5)
     ref64 = float64_step(ov, model, batch, lr, 0.9)
     t0 = time.perf_counter()
-    ranks = launch(data_parallel_step, mesh, "gloo", args=args)
+    ranks = launch(picked_rank_steps, mesh, "gloo", args=(ov, [model], [batch], lr, 0.9, 5))
     t_launch = time.perf_counter() - t0
-    floor = 1e-5 * max(float(v.norm()) for v in ref64["grads"].values())
-    u64 = {k: ref64["after"][k] - ref64["before"][k] for k in ref64["after"]}
-    u_floor = 1e-5 * max(float(v.norm()) for v in u64.values())
 
     def worst(got, want, fl):
         return max((float((got[k].double() - w).norm()) / max(float(w.norm()), fl), k) for k, w in want.items())
 
-    one_g = worst(ref["grads"], ref64["grads"], floor)
+    def floors(r64):
+        u64 = {k: r64["after"][k] - r64["before"][k] for k in r64["after"]}
+        return (1e-5 * max(float(v.norm()) for v in r64["grads"].values()), u64,
+                1e-5 * max(float(v.norm()) for v in u64.values()))
 
-    def held(name, outs, bound=1e-3):
-        """fg_mask and loss items against the one-process fp32 step; gradients and updates against the float64
-        step: on the card, fp32 gradients of the near-cancelling BN leaves move with cuDNN's algorithm choices
-        (the one-process step's own distance to float64 is logged beside them)."""
-        fg = torch.cat([o["fg_mask"][0] for o in outs])
-        items = max(float(((o["items"][0] - ref["items"][0]).abs() / ref["items"][0].abs()).max()) for o in outs)
-        gw = worst(outs[0]["grads"], ref64["grads"], floor)
-        uw = worst({k: outs[0]["after"][k].double() - ref["before"][k].double() for k in u64}, u64, u_floor)
+    one_g = worst(ref["grads"], ref64["grads"], floors(ref64)[0])
+
+    def held(name, per_rank, b, r64_own, mdl, check_one=True, bound=1e-3):
+        """Gradients and updates against the float64 step taken on the ranks' own SPPF picks (the exact step on the
+        same side of every near-tie in the max-pools), at `bound`; their distance to the float64 step on its own
+        picks, and the picks that differ, logged beside; fg_mask and loss items against the one-process step."""
+        outs = [o for o, _ in per_rank]
+        picks = [torch.cat([p[i] for _, p in per_rank]) for i in range(3)]
+        r64 = float64_step(ov, mdl, b, lr, 0.9, picks)
+        fl, u64, ufl = floors(r64)
+        gw = worst(outs[0]["grads"], r64["grads"], fl)
+        uw = worst({k: outs[0]["after"][k].double() - outs[0]["before"][k].double() for k in u64}, u64, ufl)
+        own = worst(outs[0]["grads"], r64_own["grads"], floors(r64_own)[0])
+        flips = sum(int((p != q).sum()) for p, q in zip(picks, r64_own["picks"]))
         same = all(torch.equal(o["after"][k], outs[0]["after"][k]) for o in outs for k in u64)
-        if not torch.equal(fg, ref["fg_mask"][0]) or items > 1e-4 or gw[0] > bound or uw[0] > bound or not same:
-            raise AssertionError(f"{name}: fg equal {torch.equal(fg, ref['fg_mask'][0])}, items rel {items}, worst "
-                                 f"gradient {gw}, worst update {uw} against the float64 step (bound {bound}), ranks "
-                                 f"equal {same}; the one-process fp32 step's worst gradient {one_g}")
-        log(f"parallel: {name} step on the global batch of 16 at 640 (yolo11n, fp32, SGD lr 100): fg_mask equal to "
-            f"the one-process step's ({int(fg.sum())} anchors), loss items within {items:.2e} of it; against the "
-            f"float64 step: worst gradient rel L2 {gw[0]:.2e} ({gw[1]}), worst update of a weight or BN statistic "
-            f"{uw[0]:.2e} ({uw[1]}), bound {bound:g} (the one-process fp32 step: worst gradient {one_g[0]:.2e}, "
-            f"{one_g[1]}); every rank's weights, statistics and EMA equal")
+        fg_ok, items = True, 0.0
+        if check_one:
+            fg = torch.cat([o["fg_mask"][0] for o in outs])
+            fg_ok = torch.equal(fg, ref["fg_mask"][0])
+            items = max(float(((o["items"][0] - ref["items"][0]).abs() / ref["items"][0].abs()).max()) for o in outs)
+        if not fg_ok or items > 1e-4 or gw[0] > bound or uw[0] > bound or not same:
+            raise AssertionError(f"{name}: fg equal {fg_ok}, items rel {items}, worst gradient {gw}, worst update "
+                                 f"{uw} against the float64 step on the ranks' picks (bound {bound}), ranks equal "
+                                 f"{same}; against float64's own picks {own} ({flips} picks differ)")
+        log(f"parallel: {name} step on the global batch of 16 at 640 (yolo11n, fp32, SGD lr 100)"
+            + (f": fg_mask equal to the one-process step's ({int(fg.sum())} anchors), loss items within "
+               f"{items:.2e} of it" if check_one else "")
+            + f"; against the float64 step on the ranks' SPPF picks: worst gradient rel L2 {gw[0]:.2e} ({gw[1]}), "
+            f"worst update of a weight or BN statistic {uw[0]:.2e} ({uw[1]}), bound {bound:g}; against the float64 "
+            f"step on its own picks ({flips} of {sum(p.numel() for p in picks)} picks differ): worst gradient "
+            f"{own[0]:.2e} ({own[1]}); every rank's weights, statistics and EMA equal"
+            + (f" (the one-process fp32 step: worst gradient {one_g[0]:.2e}, {one_g[1]})" if check_one else ""))
 
-    held("2 gloo ranks on cuda:0", ranks)
+    held("2 gloo ranks on cuda:0", [r[0] for r in ranks], batch, ref64, model)
     log(f"parallel: train step at 640, global batch 16, mean of 5: one process {ref['step_s'] * 1e3:.2f} ms; 2 gloo "
-        f"ranks on the one card {ranks[0]['step_s'] * 1e3:.2f} ms, of which the gradient all_reduce "
-        f"{ranks[0]['sum_grads_s'] * 1e3:.2f} ms; spawn + set-up + steps {t_launch:.1f} s, on {card}")
-    nccl = launch(data_parallel_step, ["cuda:0"], "nccl", args=args)
-    held("1 NCCL rank", nccl)
-    log(f"parallel: 1 NCCL rank initialised, stepped ({nccl[0]['step_s'] * 1e3:.2f} ms a step) and tore down")
+        f"ranks on the one card {ranks[0][0][0]['step_s'] * 1e3:.2f} ms, of which the gradient all_reduce "
+        f"{ranks[0][0][0]['sum_grads_s'] * 1e3:.2f} ms; spawn + set-up + steps {t_launch:.1f} s, on {card}")
+    nccl = launch(picked_rank_steps, ["cuda:0"], "nccl", args=(ov, [model], [batch], lr, 0.9, 5))
+    held("1 NCCL rank", [r[0] for r in nccl], batch, ref64, model)
+    log(f"parallel: 1 NCCL rank initialised, stepped ({nccl[0][0][0]['step_s'] * 1e3:.2f} ms a step) and tore down")
+    # two more seeds (yolo11n init(seed), the loader shuffled with seed), in one launch
+    seeds = (1, 2)
+    models = [DetectionModel("yolo11n.yaml").init(sd) for sd in seeds]
+    batches = [seeded_batch(ov, train_data, sd) for sd in seeds]
+    per_seed = launch(picked_rank_steps, mesh, "gloo", args=(ov, models, batches, lr, 0.9))
+    for j, (sd, mdl, b) in enumerate(zip(seeds, models, batches)):
+        held(f"2 gloo ranks on cuda:0, seed {sd}", [r[j] for r in per_seed], b, float64_step(ov, mdl, b, lr, 0.9),
+             mdl, check_one=False)
 
     curves, runs = {}, {}
     for name, dev in (("one process", None), ("2 gloo ranks", mesh)):
@@ -1588,10 +1967,10 @@ def parallel_phase(card: str, frames):
         runs[name] = (m.trainer, time.perf_counter() - t0)
         curves[name] = np.loadtxt(m.trainer.csv, delimiter=",", skiprows=1, ndmin=2)[:, 1:4]
     t2 = runs["2 gloo ranks"][0]
-    n = t2.rank_kernel_launches["greedy_nms_keep"]
+    n = t2.rank_kernel_launches["blocked_nms_finalize"]
     if not Path(t2.last).exists() or not n or not np.isfinite(curves["2 gloo ranks"]).all():
-        raise AssertionError(f"2-rank train: last.npz {Path(t2.last).exists()}, rank 0's K1 launches {n}")
-    k1 += n
+        raise AssertionError(f"2-rank train: last.npz {Path(t2.last).exists()}, rank 0's K4 launches {n}")
+    k4 += n
     rel = float(np.abs(curves["2 gloo ranks"] / curves["one process"] - 1).max())
     if rel > 1e-3:
         raise AssertionError(f"2-rank loss curve {curves['2 gloo ranks']} vs one process {curves['one process']}")
@@ -1599,7 +1978,7 @@ def parallel_phase(card: str, frames):
         f" s (epoch loop {t2.train_seconds[0]:.3f} s), one process {runs['one process'][1]:.1f} s (epoch loop "
         f"{runs['one process'][0].train_seconds[0]:.3f} s); loss items {curves['2 gloo ranks'][0].round(5).tolist()}"
         f" within {rel:.1e} of the one-process epoch; rank 0 saved last.npz and ran the EMA val and final val with "
-        f"K1 {n} launches, on {card}")
+        f"K4 {n} launches, on {card}")
 
     # (c) rotated ops: the card against the CPU
     rng = np.random.default_rng(30)
@@ -1671,7 +2050,7 @@ def parallel_phase(card: str, frames):
         f"layers, batch 8) card == CPU: boxes and logits relative L2 {errs[0]:.1e}, {errs[1]:.1e}; forward "
         f"{t_dec:.3f} ms, on {card}")
     tmp.cleanup()
-    return k1
+    return {"greedy_nms_keep": k1, "blocked_nms_finalize": k4}
 
 
 def main() -> int:
@@ -1690,8 +2069,9 @@ def main() -> int:
     if any(m.split(".")[0] in ("jax", "yololite_tpu") for m in sys.modules):
         raise RuntimeError("the port imported jax or yololite_tpu")
     from yololite_tpu_torch import YOLOLite
+    from yololite_tpu_torch.engine import graphs
     from yololite_tpu_torch.ops import cuda_build, nms
-    from yololite_tpu_torch.ops.kernels import greedy_nms_keep, greedy_nms_keep_plain
+    from yololite_tpu_torch.ops.kernels import blocked_nms_finalize, greedy_nms_keep, greedy_nms_keep_plain
 
     card = card_line()
     kind = torch.cuda.get_device_name(0)
@@ -1733,10 +2113,32 @@ def main() -> int:
     for b, k in ((32, 512), (1, 512), (16, 512), (128, 300), (32, 1024)):
         boxes, valid = scenes(b, k, seed=7, chain=False)
         bound, bound_by = keep_bound_ms(greedy_nms_keep_plain(boxes, valid, 0.45), k, b)
-        ms = cuda_ms(lambda: greedy_nms_keep(boxes, valid, 0.45), 100)
+        ms = graph_ms(lambda: greedy_nms_keep(boxes, valid, 0.45))
+        launch_ms = cuda_ms(lambda: greedy_nms_keep(boxes, valid, 0.45), 100)
         plain = cuda_ms(lambda: greedy_nms_keep_plain(boxes, valid, 0.45), 10)
-        log(f"kernel: greedy_nms_keep B={b} K={k} (crowded scene): {ms:.4f} ms, plain {plain:.4f} ms, "
-            f"bound {bound:.5f} ms ({bound_by}), on {card}")
+        log(f"kernel: greedy_nms_keep B={b} K={k} (crowded scene): {ms:.4f} ms device (graph replay), "
+            f"{launch_ms:.4f} ms a call back to back, plain {plain:.4f} ms, bound {bound:.5f} ms ({bound_by}), "
+            f"on {card}")
+
+    # K4 against its plain version: crowded, spread (the first block keeps more than max_det), first block only,
+    # all invalid, NaN boxes; max_det 1, 300 and K
+    k4_checks = 0
+    for b, k in ((1, 8192), (16, 8192), (16, 1500), (4, 2048)):
+        for case in ("crowded", "spread", "first-block", "invalid", "nan"):
+            args = k4_scene(b * k + len(case), b, k, case)
+            for max_det in (1, 300, k):
+                got = blocked_nms_finalize(*args, 0.5, max_det)
+                want = k4_plain(*args, 0.5, max_det)
+                torch.cuda.synchronize()
+                if not same_bits(got, want):
+                    raise AssertionError(f"blocked_nms_finalize != plain at B={b} K={k} {case} max_det {max_det}: "
+                                         f"{int((got != want).any(-1).sum())} rows differ")
+                k4_checks += 1
+    log(f"kernel: blocked_nms_finalize bit-equal to its plain version in {k4_checks} checks: B x K in (1, 8192), "
+        "(16, 8192), (16, 1500), (4, 2048); crowded, spread, first block only, all invalid and NaN scenes; max_det "
+        "1, 300 and K")
+    for b in (16, 1):
+        k4_numbers(card, k4_scene(7, b, 8192, "crowded"), 0.7, 300, "crowded scene")
 
     # ---- 3. slice: yolo11n predict at 640 through the facade ----
     from yololite_tpu_torch.engine.predictor import fp32_convs
@@ -1759,22 +2161,41 @@ def main() -> int:
             config = (half, bs)
             src = frames[:bs]
             kw = dict(conf=1e-7, imgsz=640, batch=bs, half=half, save=False, verbose=False)
-            model.predict(src, **kw)  # set up and warm up this configuration
-            greedy_nms_keep.launches = 0
+            for _ in range(2):  # set up and warm up (the first call runs eagerly), then capture (the second)
+                model.predict(src, **kw)
             nms._exact_keep = recording_keep
             try:
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                reps = 5
-                for _ in range(reps):
-                    results = model.predict(src, **kw)
-                torch.cuda.synchronize()
-                dt = (time.perf_counter() - t0) / reps
+                with graphs.eager():  # the eager call: the exact keep's inputs, and its time below
+                    eager_results = model.predict(src, **kw)
             finally:
                 nms._exact_keep = exact_keep
+            greedy_nms_keep.launches = 0
+            n_graphs = len(model.predictor._graphs)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            reps = 5
+            for _ in range(reps):
+                results = model.predict(src, **kw)
+            torch.cuda.synchronize()
+            dt = (time.perf_counter() - t0) / reps
             n = greedy_nms_keep.launches
-            if n != reps:  # one exact keep of K = 512 per predict call
+            if n != reps:  # one exact keep of K = 512 per predict call, counted at each replay
                 raise AssertionError(f"greedy_nms_keep launched {n} times in {reps} predict calls")
+            if len(model.predictor._graphs) != n_graphs or not n_graphs:  # replays only, no capture
+                raise AssertionError(f"{len(model.predictor._graphs) - n_graphs} graphs captured in the timed calls")
+            with graphs.eager():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(reps):
+                    eager_results = model.predict(src, **kw)
+                torch.cuda.synchronize()
+                dt_eager = (time.perf_counter() - t0) / reps
+            for a, b in zip(results, eager_results):
+                if not np.array_equal(a.boxes.data, b.boxes.data):
+                    raise AssertionError(f"graphed predict differs from eager at batch {bs} ({'bf16' if half else 'fp32'})")
+            wall, busy, events = profile_calls(lambda: model.predict(src, **kw), 3)
+            idle = "not measured (the profiler saw no device activity)" if busy is None else \
+                f"{1 - busy / wall:.3f} ({busy / 3:.2f} ms busy of {wall / 3:.2f} ms a call, {events} device events)"
             launches += n
             if len(results) != bs:
                 raise AssertionError(f"{len(results)} results for {bs} images")
@@ -1785,15 +2206,24 @@ def main() -> int:
                 if (d[:, :4] < 0).any() or (d[:, [0, 2]] > 640).any() or (d[:, [1, 3]] > 480).any():
                     raise AssertionError("boxes outside the 480x640 frame")
             dtype = "bf16" if half else "fp32"
-            log(f"slice: yolo11n {dtype} batch {bs} at 640: {dt * 1e3:.2f} ms/batch, "
+            log(f"slice: yolo11n {dtype} batch {bs} at 640, graphed: {dt * 1e3:.2f} ms/batch, "
                 f"{bs / dt:.1f} img/s, {sum(len(r) for r in results) / bs:.1f} detections/img, "
-                f"{n} kernel launches in {reps} calls, on {card}")
+                f"{n} kernel launches in {reps} calls; eager {dt_eager * 1e3:.2f} ms/batch, {bs / dt_eager:.1f} "
+                f"img/s; detections equal; device idle share of a graphed call {idle}, on {card}")
 
             pred = model.predictor
             raw = torch.from_numpy(np.stack(src)).cuda().flip(-1)
             dets = pred.infer_uint8(raw, 640)
             if tuple(dets.shape) != (bs, pred.max_det, 6) or not torch.isfinite(dets).all():
                 raise AssertionError(f"predict tensor {tuple(dets.shape)} not finite or not (B, max_det, 6)")
+            with graphs.eager():
+                if not same_bits(dets, pred.infer_uint8(raw, 640)):
+                    raise AssertionError(f"the graphed step's tensor differs from the eager step's ({dtype}, {bs})")
+            t_step = cuda_ms(lambda: pred.infer_uint8(raw, 640), 10)
+            with graphs.eager():
+                t_step_eager = cuda_ms(lambda: pred.infer_uint8(raw, 640), 10)
+            log(f"slice: the step alone (infer_uint8: letterbox, forward, NMS; {dtype}, batch {bs}), bit-equal: "
+                f"graph replay {t_step:.3f} ms, eager {t_step_eager:.3f} ms, on {card}")
             # on this batch's Detect maps: the kernel against the plain keep inside nms_from_feats,
             # then each stage of the predict graph timed alone
             with torch.inference_mode(), fp32_convs(raw.device):
@@ -1820,6 +2250,8 @@ def main() -> int:
                 f"nms_from_feats {t_nms:.3f} ms; their sum is {busy / (dt * 1e3):.1%} of the "
                 f"{dt * 1e3:.2f} ms predict call, on {card}")
 
+    mixed_sizes_stream(card)
+
     # the card against the CPU on a small input (fp32, same weights and frames)
     small = [f[::3, ::3].copy() for f in frames[:2]]
     kw = dict(conf=1e-7, imgsz=160, batch=2, save=False, verbose=False)
@@ -1833,22 +2265,21 @@ def main() -> int:
     log(f"slice: card == CPU on 2 images at imgsz 160 ({[len(r) for r in on_card]} detections)")
 
     # ---- 4. val: yolo11n val at 640 through the facade ----
-    val_launches, val_kernel = val_phase(card, model)
-    launches += val_launches
+    k4_launches, val_k4 = val_phase(card, model)
 
     # ---- 5. train: yolo11n train at 640 through the facade ----
-    launches += train_phase(card)
+    counts = train_phase(card)
 
     # ---- 6. serving: .pt, ensembles, int8 with K8, export, the pipeline, embed ----
     serving_k1, k8_launches, k8 = serving_phase(card, frames)
     launches += serving_k1
 
     # ---- 7. zoo: YOLOv10-N and GELAN-T at full width: predict, val, train, .pt, int8 refusal, card vs CPU ----
-    launches += zoo_phase(card, frames)
-
     # ---- 8. data parallelism on the card (mesh predict and val, ranks' train step and train), rotated ops,
     # deformable attention ----
-    launches += parallel_phase(card, frames)
+    for more in (counts, zoo_phase(card, frames), parallel_phase(card, frames)):
+        launches += more["greedy_nms_keep"]
+        k4_launches += more["blocked_nms_finalize"]
 
     # ---- kernels line: timed on the main path's own inputs (fp32, batch 32; batch 1 logged) ----
     for config in ((False, 1), (False, 32)):
@@ -1872,10 +2303,12 @@ def main() -> int:
         if err != 0:
             raise AssertionError(f"greedy_nms_keep differs from its plain version on the main path's inputs {config}")
         bound, bound_by = keep_bound_ms(want, k, b)
-        ms = cuda_ms(lambda: greedy_nms_keep(boxes, valid, thr), 100)
+        ms = graph_ms(lambda: greedy_nms_keep(boxes, valid, thr))
+        launch_ms = cuda_ms(lambda: greedy_nms_keep(boxes, valid, thr), 100)
         plain = cuda_ms(lambda: greedy_nms_keep_plain(boxes, valid, thr), 20)
         log(f"kernel: greedy_nms_keep B={b} K={k} (the main path's fp32 inputs, {int(want.sum())} kept): "
-            f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bound:.5f} ms ({bound_by}), on {card}")
+            f"{ms:.4f} ms device (graph replay), {launch_ms:.4f} ms a call back to back, plain {plain:.4f} ms, "
+            f"bound {bound:.5f} ms ({bound_by}), on {card}")
     entry = {
         "name": "greedy_nms_keep",
         "route": "cuda",
@@ -1888,8 +2321,24 @@ def main() -> int:
         "bound_ms": bound,
         "bound_by": bound_by,
         "library_ms": None,  # no PyTorch call computes greedy NMS
+        "launch_ms": launch_ms,  # back-to-back launches timed by CUDA events, as PRs 1-8 reported "ms"
         "shape": [b, k],
-        **val_kernel,  # the same kernel on val's K = 1024 block inputs
+    }
+    k4_entry = {
+        "name": "blocked_nms_finalize",
+        "route": "cuda",
+        "source": "yololite_tpu_torch/csrc/blocked_nms.cu",
+        "replaces": "yololite_tpu/ops/nms.py:164",  # _blocked_keep, then :281 _finalize: XLA ops, not Pallas
+        "launches": k4_launches,
+        "max_abs_err": val_k4["val_max_abs_err"],
+        "ms": val_k4["val_ms"],
+        "launch_ms": val_k4["val_launch_ms"],
+        "plain_ms": val_k4["val_plain_ms"],
+        "bound_ms": val_k4["val_bound_ms"],
+        "bound_by": val_k4["val_bound_by"],
+        "library_ms": None,  # no PyTorch call computes greedy NMS
+        "shape": val_k4["val_shape"],  # [B, K, max_det] of val's first fp32 batch
+        **{k: v for k, v in val_k4.items() if not k.startswith("val_") or k.startswith("val_nms")},
     }
     k8_entry = {
         "name": "int8_conv",
@@ -1901,7 +2350,7 @@ def main() -> int:
         "shape": "the 76 quantized convs of one yolo11n forward at 640, batch 32, summed (device time)",
         **k8,
     }
-    log(json.dumps({"kernels": [entry, k8_entry]}))
+    log(json.dumps({"kernels": [entry, k4_entry, k8_entry]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0
 

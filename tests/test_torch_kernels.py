@@ -7,11 +7,15 @@ port's dependencies:
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
 
-from yololite_tpu_torch.ops.kernels import greedy_nms_keep, greedy_nms_keep_plain, int8_conv, int8_conv_plain
+from yololite_tpu_torch.engine import graphs
+from yololite_tpu_torch.ops.kernels import (blocked_nms_finalize, blocked_nms_finalize_plain, greedy_nms_keep,
+                                           greedy_nms_keep_plain, int8_conv, int8_conv_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -87,7 +91,8 @@ def test_predict_through_the_kernel_equals_the_plain_keep(card, half, monkeypatc
     with_kernel = model.predict(src, **kw)
     assert greedy_nms_keep.launches > before
     monkeypatch.setattr(nms, "greedy_nms_keep", greedy_nms_keep_plain)
-    with_plain = model.predict(src, **kw)
+    with graphs.eager():  # a replay would run the captured kernel, not the plain keep
+        with_plain = model.predict(src, **kw)
     for a, b in zip(with_kernel, with_plain):
         assert len(a) > 0 and np.isfinite(a.boxes.data).all()
         np.testing.assert_array_equal(a.boxes.data, b.boxes.data)
@@ -95,10 +100,8 @@ def test_predict_through_the_kernel_equals_the_plain_keep(card, half, monkeypatc
 
 @pytest.mark.parametrize("half", [False, True], ids=["fp32", "bf16"])
 def test_val_nms_through_the_kernel_equals_the_plain_keep(card, half, monkeypatch):
-    """One val batch's K = 8192 multi-label nms_from_feats: through the kernel, block by block, as through the plain keep.
-
-    A block of 1024 is alive, and launches the kernel once, exactly when it keeps something.
-    """
+    """One val batch's K = 8192 multi-label nms_from_feats: through K4, one launch and no K1, as through the plain
+    version (the blocked keep with the plain keep, then _finalize)."""
     from yololite_tpu_torch import YOLOLite
     from yololite_tpu_torch.engine.predictor import forward_nhwc, fp32_convs, inference_net
     from yololite_tpu_torch.ops import nms
@@ -106,19 +109,16 @@ def test_val_nms_through_the_kernel_equals_the_plain_keep(card, half, monkeypatc
     model = YOLOLite("yolo11n.yaml").model
     net = inference_net(model, card, half)
     x = torch.from_numpy(np.random.default_rng(1).integers(0, 256, (4, 256, 320, 3), np.uint8)).to(card)
-    keeps = []
-    blocked = nms._blocked_keep
     with torch.inference_mode(), fp32_convs(card):
         x = (x.float() * (1.0 / 255.0)).to(torch.bfloat16 if half else torch.float32)
         feats = [f.float() for f in forward_nhwc(net, x)]
         kw = dict(conf_thres=1e-7, iou_thres=0.7, max_det=300, max_cand=8192, multi_label=True)
-        monkeypatch.setattr(nms, "_blocked_keep", lambda *a: keeps.append(blocked(*a)) or keeps[-1])
-        before = greedy_nms_keep.launches
+        k1, k4 = greedy_nms_keep.launches, blocked_nms_finalize.launches
         with_kernel = nms.nms_from_feats(feats, model.strides, model.nc, model.reg_max, **kw)
         torch.cuda.synchronize()
-        alive_blocks = int(keeps[0].reshape(4, 8, 1024).any(-1).any(0).sum())
-        assert greedy_nms_keep.launches - before == alive_blocks >= 1
+        assert (greedy_nms_keep.launches - k1, blocked_nms_finalize.launches - k4) == (0, 1)
         monkeypatch.setattr(nms, "greedy_nms_keep", greedy_nms_keep_plain)
+        monkeypatch.setattr(nms, "blocked_nms_finalize", blocked_nms_finalize_plain)
         with_plain = nms.nms_from_feats(feats, model.strides, model.nc, model.reg_max, **kw)
     assert int((with_kernel[..., 4] > 0).sum()) > 0
     assert torch.equal(with_kernel, with_plain)
@@ -135,7 +135,8 @@ def test_mesh_predict_launches_the_kernel_once_per_shard(card):
     for n in (4, 3):
         kw = dict(conf=1e-7, imgsz=160, batch=n, save=False, verbose=False)
         want = one.predict(src[:n], **kw)
-        two.predict(src[:n], **kw)  # set up and warm up
+        for _ in range(2):  # set up and warm up (eagerly), then capture
+            two.predict(src[:n], **kw)
         before = greedy_nms_keep.launches
         got = two.predict(src[:n], **kw)
         assert greedy_nms_keep.launches - before == (2 if n % 2 == 0 else 1)
@@ -264,12 +265,278 @@ def test_int8_predict_launches_the_kernel(card, monkeypatch):
     src = [rng.integers(0, 256, (120, 160, 3), np.uint8) for _ in range(2)]
     model = YOLOLite("yolo11n.yaml")
     kw = dict(conf=1e-7, imgsz=160, batch=2, int8=True, save=False, verbose=False)
-    model.predict(src, **kw)
+    model.predict(src, **kw)  # set up, quantize, the frames' key runs eagerly
+    model.predict(src, **kw)  # captured
     quantizes = []
     real = kernels.quantize_act
     monkeypatch.setattr(kernels, "quantize_act", lambda *a: quantizes.append(1) or real(*a))
     before = int8_conv.launches
-    res = model.predict(src, **kw)
+    res = model.predict(src, **kw)  # a replay
     assert int8_conv.launches - before == 76
+    with graphs.eager():  # the eager call runs the Python that would quantize
+        model.predict(src, **kw)
+    assert int8_conv.launches - before == 2 * 76
     assert not quantizes
     assert all(len(r) > 0 and np.isfinite(r.boxes.data).all() for r in res)
+
+
+# ---------------- K4: blocked greedy NMS + compaction ----------------
+
+
+def _same_bits(a, b) -> bool:
+    """Equal bit for bit (NaN rows included, which torch.equal calls unequal)."""
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(a.contiguous().view(torch.int32),
+                                                                     b.contiguous().view(torch.int32))
+
+
+def _k4_scene(seed, b, k, card, case):
+    """Score-sorted candidates on the card: shifted, boxes, vals, cls, valid (see tests/test_torch_blocked_nms.py)."""
+    rng = np.random.default_rng(seed)
+    c = rng.uniform(20, 6000.0 if case == "spread" else 600.0, (b, k, 2))
+    wh = rng.uniform(10, 120, (b, k, 2))
+    boxes = np.concatenate([c - wh / 2, c + wh / 2], -1).astype(np.float32)
+    if case == "nan":  # NaN coordinates never suppress and are never suppressed
+        boxes[:, ::7, rng.integers(0, 4)] = np.nan
+    vals = np.broadcast_to(np.linspace(1.0, -0.1, k, dtype=np.float32), (b, k)).copy()
+    cls = rng.integers(0, 3, (b, k)).astype(np.float32)
+    valid = rng.uniform(size=(b, k)) > 0.1
+    if case == "first-block":
+        valid[:, 1024:] = False
+    elif case == "invalid":
+        valid[:] = False
+    t = lambda a: torch.from_numpy(a).to(card)
+    boxes, vals, cls, valid = t(boxes), t(vals), t(cls), t(valid)
+    return boxes + cls[..., None] * 7680, boxes, vals, cls, valid
+
+
+def _k4_plain(*args):
+    """K4's plain version with the plain keep inside (no K1 launch)."""
+    from yololite_tpu_torch.ops import nms
+
+    real = nms.greedy_nms_keep
+    nms.greedy_nms_keep = greedy_nms_keep_plain
+    try:
+        return blocked_nms_finalize_plain(*args)
+    finally:
+        nms.greedy_nms_keep = real
+
+
+K4_CASES = ["crowded", "spread", "first-block", "invalid", "nan"]
+
+
+@pytest.mark.parametrize("case", K4_CASES)
+@pytest.mark.parametrize("b,k", [(1, 8192), (16, 8192), (16, 1500), (4, 2048), (2, 6720)])
+def test_blocked_nms_kernel_matches_plain(card, b, k, case):
+    """K4 bit-equal to its plain version at max_det 1, 300 and K; one launch per call."""
+    args = _k4_scene(b * k + len(case), b, k, card, case)
+    for max_det in (1, 300, k):
+        before = blocked_nms_finalize.launches
+        got = blocked_nms_finalize(*args, 0.5, max_det)
+        torch.cuda.synchronize()
+        assert blocked_nms_finalize.launches == before + 1
+        want = _k4_plain(*args, 0.5, max_det)
+        assert _same_bits(got, want), f"max_det {max_det}: {int((got != want).any(-1).sum())} rows differ"
+        if case == "invalid":
+            assert not got.any()
+
+
+def test_blocked_nms_kernel_rejects_what_it_does_not_take(card):
+    shifted, boxes, vals, cls, valid = _k4_scene(0, 2, 2048, card, "crowded")
+    with pytest.raises(TypeError):
+        blocked_nms_finalize(shifted.double(), boxes, vals, cls, valid, 0.5, 300)
+    with pytest.raises(TypeError):
+        blocked_nms_finalize(shifted, boxes, vals, cls, valid.float(), 0.5, 300)
+    with pytest.raises(ValueError):
+        blocked_nms_finalize(shifted[:, :100], boxes, vals, cls, valid, 0.5, 300)
+    with pytest.raises(ValueError):
+        blocked_nms_finalize(shifted, boxes, vals, cls, valid.cpu(), 0.5, 300)
+    with pytest.raises(ValueError):
+        blocked_nms_finalize(shifted.transpose(0, 1).contiguous().transpose(0, 1), boxes, vals, cls, valid, 0.5, 300)
+
+
+def test_blocked_nms_op_equals_the_direct_launch(card):
+    args = _k4_scene(9, 4, 2048, card, "crowded")
+    before = blocked_nms_finalize.launches
+    via_op = torch.ops.yololite_tpu_torch.blocked_nms_finalize(*args, 0.45, 300)
+    direct = blocked_nms_finalize(*args, 0.45, 300)
+    torch.cuda.synchronize()
+    assert blocked_nms_finalize.launches == before + 2 and torch.equal(via_op, direct)
+
+
+# ---------------- graphed predict and val against eager ----------------
+
+
+def _counts():
+    return greedy_nms_keep.launches, blocked_nms_finalize.launches, int8_conv.launches
+
+
+def _facade(name, tmp_path):
+    """A facade and predict arguments for each serving mode at imgsz 160, batch 2."""
+    from yololite_tpu_torch import YOLOLite
+    from yololite_tpu_torch.cfg.dicts import YOLOV10N
+    from yololite_tpu_torch.models.model import DetectionModel
+
+    extra = {"bf16": {"half": True}, "int8": {"int8": True}, "tta": {"augment": True}}.get(name, {})
+    if name == "ensemble":
+        path = tmp_path / "pair.pt"
+        torch.save({"model": torch.nn.ModuleList([DetectionModel("yolo11n.yaml").init(0),
+                                                  DetectionModel("yolo11n.yaml").init(1)]),
+                    "train_args": {"imgsz": 160}}, str(path))
+        model = YOLOLite(str(path))
+    else:
+        model = YOLOLite(YOLOV10N if name == "yolov10n" else "yolo11n.yaml")
+    return model, dict(conf=1e-7, imgsz=160, batch=2, save=False, verbose=False, **extra)
+
+
+PER_STEP = {"fp32": (1, 0, 0), "bf16": (1, 0, 0), "int8": (1, 0, 76), "tta": (1, 0, 0), "ensemble": (1, 0, 0),
+            "yolov10n": (0, 0, 0)}  # K1, K4 and K8 launches of one predict step
+
+
+@pytest.mark.parametrize("name", list(PER_STEP))
+def test_graphed_predict_equals_eager(card, name, tmp_path):
+    """Each serving mode's step replays a CUDA graph whose detections equal the eager call's bit for bit, on the
+    uint8 letterbox path and on the float path; each replay adds its capture's launches to the counters."""
+    model, kw = _facade(name, tmp_path)
+    rng = np.random.default_rng(3)
+    src = [rng.integers(0, 256, (120, 160, 3), np.uint8) for _ in range(2)]
+    model.predict(src, **kw)  # set up (int8: quantize), warm up, the first sight of the frames' key runs eagerly
+    pred = model.predictor
+    raw = torch.from_numpy(np.stack(src)).to(card).flip(-1)
+    x = torch.from_numpy(np.random.default_rng(4).uniform(0, 1, (2, 160, 160, 3)).astype(np.float32)).to(card)
+    for step, inp in ((lambda t: pred.infer_uint8(t, 160), raw), (pred.infer, x)):
+        step(inp)
+        step(inp)  # a key's first call runs eagerly (unless set-up made it), its second captures
+        n = len(pred._graphs)
+        before = _counts()
+        got = step(inp)
+        torch.cuda.synchronize()
+        assert tuple(a - b for a, b in zip(_counts(), before)) == PER_STEP[name]
+        assert len(pred._graphs) == n  # a replay, not a capture
+        with graphs.eager():
+            want = step(inp)
+        assert _same_bits(got, want)
+        assert int((got[..., 4] > 0).sum()) > 0
+
+
+def test_graphed_val_equals_eager(card, tmp_path):
+    """Standalone val runs a batch shape eagerly at its first sight, captures it at its second and replays it after;
+    its detections and metrics equal the eager run's, with K4 once a batch and K1 never."""
+    import cv2
+
+    from yololite_tpu_torch import YOLOLite
+    from yololite_tpu_torch.engine.validator import DetectionValidator
+
+    root = tmp_path / "ds"
+    (root / "images" / "val").mkdir(parents=True)
+    (root / "labels" / "val").mkdir(parents=True)
+    rng = np.random.default_rng(5)
+    for i, (h, w) in enumerate([(120, 160), (160, 120), (120, 160), (160, 120), (160, 160)]):
+        cv2.imwrite(str(root / "images" / "val" / f"im{i}.png"), rng.integers(0, 256, (h, w, 3), np.uint8))
+        (root / "labels" / "val" / f"im{i}.txt").write_text("1 0.5 0.5 0.3 0.3\n7 0.3 0.6 0.2 0.1")
+    (root / "data.yaml").write_text(f"path: {root}\nval: images/val\nnc: 80\n")
+    model = YOLOLite("yolo11n.yaml")
+    kw = dict(data=str(root / "data.yaml"), imgsz=160, batch=2, rect=True, conf=1e-7, plots=False, verbose=False,
+              project=str(tmp_path / "runs"), mode="val")
+    v = DetectionValidator(args={**kw, "name": "graphed"})
+    runs = {}
+    captures, warmups = {}, {}
+    for name in ("first", "captured", "replayed", "eager"):  # first sights, captures, replays, all eager
+        g = None if v._infer is None else v._infer.graphs
+        before, caps, warm = _counts(), 0 if g is None else g.captures, 0 if g is None else g.warmups
+        with graphs.eager() if name == "eager" else contextlib.nullcontext():
+            v(model=model.model)
+        captures[name] = v._infer.graphs.captures - caps
+        warmups[name] = v._infer.graphs.warmups - warm
+        runs[name] = ({k: [a.copy() for a in x] for k, x in v.stats.items()}, dict(v.metrics.results_dict),
+                      tuple(a - b for a, b in zip(_counts(), before)))
+    assert len(v._infer.graphs) >= 2 and captures["captured"] == len(v._infer.graphs)  # one per batch shape
+    assert captures["first"] == captures["replayed"] == 0 and v._infer.graphs.replays == 2 * 3
+    stats, rd, _ = runs["replayed"]
+    for name in runs:  # 5 images at batch 2: K4 once in each batch (and in a capture's warm-up), and K1 never
+        assert runs[name][2][:2] == (0, 3 + warmups[name])
+    for name in ("first", "captured", "eager"):
+        s2, rd2, _ = runs[name]
+        assert rd2 == rd
+        for key in stats:
+            for a, b in zip(stats[key], s2[key]):
+                np.testing.assert_array_equal(a, b)
+
+
+def test_quantizing_after_warm_up_drops_the_float_graphs(card):
+    """predict(int8=True) warms up on the float net, then quantizes on the first batch: no key of the float net is
+    left, every graph captured after is keyed on the quantized net, and each replay launches K8."""
+    from yololite_tpu_torch import YOLOLite
+
+    model = YOLOLite("yolo11n.yaml")
+    rng = np.random.default_rng(6)
+    src = [rng.integers(0, 256, (120, 160, 3), np.uint8) for _ in range(2)]
+    kw = dict(conf=1e-7, imgsz=160, batch=2, save=False, verbose=False, int8=True)
+    model.predict(src, **kw)  # the warm-up's float key, dropped at quantization; the frames' key, a first sight
+    pred = model.predictor
+    assert pred._quantized and not len(pred._graphs) and all(k[1] == id(pred.net) for k in pred._graphs._seen)
+    model.predict(src, **kw)  # captured on the quantized net
+    assert len(pred._graphs) and all(k[1] == id(pred.net) for k in pred._graphs._graphs)
+    before = int8_conv.launches
+    model.predict(src, **kw)
+    assert int8_conv.launches - before == 76
+
+
+def test_graph_cache_stays_bounded_over_many_frame_sizes(card):
+    """Frames at more sizes than the cache holds, each size twice in a row, one predict call each: every second
+    frame replays, the cache keeps at most MAX_GRAPHS graphs, and the detections equal the eager run's bit for bit."""
+    from yololite_tpu_torch import YOLOLite
+
+    rng = np.random.default_rng(7)
+    sizes = [(96 + 16 * i, 160) for i in range(graphs.MAX_GRAPHS + 3)]
+    src = [rng.integers(0, 256, (*hw, 3), np.uint8) for hw in sizes for _ in range(2)]
+    kw = dict(conf=1e-7, imgsz=160, batch=1, save=False, verbose=False)
+    model = YOLOLite("yolo11n.yaml")
+    got = [model.predict(f, **kw)[0] for f in src]
+    cache = model.predictor._graphs
+    assert cache.replays == cache.captures == len(sizes) and len(cache) == graphs.MAX_GRAPHS
+    with graphs.eager():
+        want = [model.predict(f, **kw)[0] for f in src]
+    for a, b in zip(got, want):
+        assert np.array_equal(a.boxes.data, b.boxes.data)
+
+
+def test_two_caches_replay_from_two_threads(card):
+    """Two predictors' graphs share the pool: replays from two threads, each on a stream of its own, each equal to
+    its eager call bit for bit."""
+    import threading
+
+    from yololite_tpu_torch import YOLOLite
+    from yololite_tpu_torch.models.model import DetectionModel
+
+    rng = np.random.default_rng(8)
+    models = [YOLOLite("yolo11n.yaml"), YOLOLite("yolo11n.yaml")]
+    models[1].model.load_state_dict(DetectionModel("yolo11n.yaml").init(1).state_dict())
+    kw = dict(conf=1e-7, imgsz=160, batch=2, save=False, verbose=False)
+    src = [rng.integers(0, 256, (120, 160, 3), np.uint8) for _ in range(2)]
+    raw = torch.from_numpy(np.stack(src)).to(card)
+    preds, want = [], []
+    for m in models:
+        m.predict(src, **kw)
+        p = m.predictor
+        for _ in range(2):  # eagerly, then captured
+            p.infer_uint8(raw, 160)
+        with graphs.eager():
+            want.append(p.infer_uint8(raw, 160))
+        preds.append(p)
+    assert not _same_bits(want[0], want[1])  # two nets: a mix-up would show
+    outs = [[], []]
+
+    def run(i):
+        with torch.cuda.stream(torch.cuda.Stream()):
+            for _ in range(20):
+                outs[i].append(preds[i].infer_uint8(raw, 160))
+            torch.cuda.current_stream().synchronize()
+
+    torch.cuda.synchronize()  # the threads' streams do not wait for the default stream's work
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for i in range(2):
+        assert len(outs[i]) == 20 and all(_same_bits(o, want[i]) for o in outs[i])

@@ -106,3 +106,23 @@ def test_ops_refuse_what_they_do_not_take():
         K.int8_conv(x, torch.zeros((8, 3, 3, 4), dtype=torch.int8), s, b)
     with pytest.raises(TypeError):
         K.int8_conv(x, w, s.double(), b)
+
+
+def test_pipeline_raises_a_stage_failure_instead_of_hanging():
+    """A failing infer (a capture that fails on the card, say) comes out of results(); submit and close return."""
+
+    class Failing:
+        args = type("A", (), {"imgsz": 64, "batch": 2})()
+        device = torch.device("cpu")
+        done_warmup = True
+
+        def infer(self, x):
+            raise RuntimeError("the step failed")
+
+    pipe = InferencePipeline(Failing(), imgsz=64, depth=1).start()
+    frames = [np.zeros((48, 64, 3), np.uint8)] * 2
+    for _ in range(6):  # more than the queues hold
+        pipe.submit(frames)
+    pipe.close()
+    with pytest.raises(RuntimeError, match="the step failed"):
+        list(pipe.results())

@@ -31,16 +31,10 @@
 // Above 48 KB of dynamic shared memory (K > 520) the launch needs
 // cudaFuncAttributeMaxDynamicSharedMemorySize, set before such a launch.
 //
-// Exactness: every IoU has the bits of yololite_tpu_torch/ops/boxes.py:77
-// box_iou (and so of yololite_tpu/ops/boxes.py:162), in the same operation
-// order: w = max(min(ax2, bx2) - max(ax1, bx1), 0), h likewise, inter = w*h,
-// area = (x2-x1)*(y2-y1), iou = inter / (((area_a + area_b) - inter) + 1e-7f).
-// The arithmetic is written with __fsub_rn/__fmul_rn/__fadd_rn/__fdiv_rn,
-// which nvcc never contracts into an FMA, and IEEE division; min and max are
-// PTX min.NaN/max.NaN, which propagate NaN as torch.minimum/maximum/clamp do.
-// Never build this with --use_fast_math. One shortcut is exact: inter == 0
-// makes the IoU +-0 or NaN, never above a threshold >= 0, so the division is
-// skipped there (without it the kernel took 20-40% longer on an H100, PERF.md).
+// Exactness: every IoU has the bits of box_iou, as csrc/nms_device.cuh
+// sets out (no FMA contraction, IEEE division, NaN-propagating min/max);
+// never build this with --use_fast_math. The inter == 0 shortcut there made
+// this kernel 20-40% faster on an H100 (PERF.md).
 //
 // Bound on an H100 SXM: the function reads 16 + 1 bytes and writes 1 byte per
 // candidate, and the data needs the IoU of each kept row right of the
@@ -58,37 +52,15 @@
 // nothing, does not synchronise, and returns the first CUDA error, that of
 // the launch included.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "nms_device.cuh"
 
 namespace {
 
-constexpr int kMaxK = 1024;   // the predict path's K is <= 1024 (larger K runs in blocks of 1024)
+using nms::kFull;
+
+constexpr int kMaxK = 1024;   // the predict path's K is <= 1024 (larger K runs in csrc/blocked_nms.cu)
 constexpr int kThreads = 1024;
 constexpr int kWarps = kThreads / 32;
-constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ float min_nan(float a, float b) {
-  float d;
-  asm("min.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
-  return d;
-}
-
-__device__ __forceinline__ float max_nan(float a, float b) {
-  float d;
-  asm("max.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
-  return d;
-}
-
-// iou(a, b) > thr, with the bits of box_iou (see the note above)
-__device__ __forceinline__ bool iou_above(float4 a, float area_a, float4 b, float area_b, float thr) {
-  const float w = max_nan(__fsub_rn(min_nan(a.z, b.z), max_nan(a.x, b.x)), 0.0f);
-  const float h = max_nan(__fsub_rn(min_nan(a.w, b.w), max_nan(a.y, b.y)), 0.0f);
-  const float inter = __fmul_rn(w, h);
-  if (inter == 0.0f && thr >= 0.0f) return false;
-  const float den = __fadd_rn(__fsub_rn(__fadd_rn(area_a, area_b), inter), 1e-7f);
-  return __fdiv_rn(inter, den) > thr;
-}
 
 // dynamic shared memory of one block: boxes, bitmask, removed and kept words, areas
 size_t smem_bytes(int k) {
@@ -127,44 +99,16 @@ greedy_nms_keep_kernel(const float* __restrict__ boxes, const uint8_t* __restric
   __syncthreads();
   for (int j = threadIdx.x; j < kp; j += kThreads) {
     const float4 q = s_box[j];
-    s_area[j] = __fmul_rn(__fsub_rn(q.z, q.x), __fsub_rn(q.w, q.y));
+    s_area[j] = nms::box_area(q);
   }
   __syncthreads();
 
   // ---- phase A: sup[i][w], bit j set when j > i and iou(i, j) > thr ----
-  for (int i = warp; i < k; i += kWarps) {
-    const float4 bi = s_box[i];
-    const float ai = s_area[i];
-    uint32_t* row = s_sup32 + (size_t)i * 2 * words;
-    for (int c = 2 * (i >> 6); c < 2 * words; ++c) {
-      const int j = 32 * c + lane;
-      const bool hit = j > i && j < k && iou_above(bi, ai, s_box[j], s_area[j], thr);
-      const unsigned bits = __ballot_sync(kFull, hit);
-      if (lane == 0) row[c] = bits;
-    }
-  }
+  nms::build_suppression<false>(s_box, s_area, s_sup32, s_removed32, k, words, thr);
   __syncthreads();
 
   // ---- phase B: the word scan, one warp ----
-  if (warp == 0) {
-    uint64_t removed = lane < words ? s_removed[lane] : 0;  // lane l: removed rows of word l
-    uint64_t kept_word = 0;
-    for (int w = 0; w < words; ++w) {
-      uint64_t rw = __shfl_sync(kFull, removed, w);  // final: every kept row before word w is applied
-      uint64_t kept = 0;
-      uint64_t cand = ~rw;
-      while (cand) {  // the same value in every lane
-        const int t = __ffsll(static_cast<long long>(cand)) - 1;
-        const uint64_t* r = s_sup + (size_t)(64 * w + t) * words;
-        rw |= r[w];
-        if (lane > w && lane < words) removed |= r[lane];
-        kept |= 1ull << t;
-        cand = ~rw & ~((2ull << t) - 1);  // rows after t not removed yet (t = 63 leaves none)
-      }
-      if (lane == w) kept_word = kept;
-    }
-    if (lane < words) s_kept[lane] = kept_word;
-  }
+  if (warp == 0) nms::scan_keep(s_sup, s_removed, s_kept, words);
   __syncthreads();
 
   // ---- store ----

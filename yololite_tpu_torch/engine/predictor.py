@@ -16,6 +16,12 @@ first device. A batch that does not divide runs whole on the first device.
 Images stay in the JAX package's NHWC layout up to the model, which takes
 NCHW; the Detect maps go back to NHWC for the decode and NMS ops.
 
+On the card `infer` and `infer_uint8` replay a CUDA graph of the whole step
+(letterbox, forward, NMS) for an input shape seen before: the first call of
+a shape runs eagerly, the second captures it (engine/graphs.py), one graph
+per replica over a mesh, a bounded number per predictor; the cache is
+cleared whenever the net is replaced (set-up, int8 quantization).
+
 An EnsembleModel (a multi-member .pt) decodes every member and runs one NMS
 over the concatenated candidates. int8=True quantizes the net on the first
 real batch (models/quant.py; a tensor source calibrates on itself) and then
@@ -36,6 +42,7 @@ import torch
 from yololite_tpu_torch.cfg import get_cfg, get_save_dir
 from yololite_tpu_torch.data.build import Prefetcher, load_inference_source
 from yololite_tpu_torch.data.loaders import VID_FORMATS
+from yololite_tpu_torch.engine.graphs import GraphCache
 from yololite_tpu_torch.engine.results import Results
 from yololite_tpu_torch.ops.boxes import convert_batch2numpy, scale_boxes_np
 from yololite_tpu_torch.ops.decode import decode_detections, postprocess_end2end
@@ -120,6 +127,7 @@ class DetectionPredictor:
         self.seen = 0
         self._lock = threading.Lock()
         self.done_warmup = False
+        self._graphs = GraphCache()  # the captured steps of self.net's replicas
 
     # ---- setup ----
 
@@ -133,6 +141,7 @@ class DetectionPredictor:
         self.dtype = torch.bfloat16 if self.half else torch.float32
         self.net = inference_net(model, self.device, self.half, fuse)
         self.replicas = replicate_tree(self.mesh, self.net)
+        self._graphs.clear()
         self._quantized = False
 
         self.conf, self.iou = float(self.args.conf), float(self.args.iou)
@@ -149,6 +158,10 @@ class DetectionPredictor:
         # top-K candidate pool: 256 at the 0.25 default, 512 when conf is lowered (more
         # candidates survive the gate), and never below the user's max_det
         self.pred_max_cand = max(256 if self.conf >= 0.25 else 512, self.max_det)
+        # what changes a captured step besides its input and module (engine/graphs.py)
+        classes = None if self.args.classes is None else tuple(np.atleast_1d(np.asarray(self.args.classes, int)))
+        self._graph_key = (self.half, self.augment, self.end2end, self.is_ensemble, self.conf, self.iou,
+                           self.max_det, self.agnostic, self.pred_max_cand, classes)
 
     def _forward(self, x: torch.Tensor):
         return forward_nhwc(self.net, x)
@@ -211,16 +224,21 @@ class DetectionPredictor:
 
     @torch.inference_mode()
     def infer(self, images: torch.Tensor) -> torch.Tensor:
-        """Letterboxed NHWC float batch on the device -> (B, max_det, 6) detections on the device."""
+        """Letterboxed NHWC float batch on the device -> (B, max_det, 6) detections on the device (a graph replay
+        once the shape repeats)."""
+        key = ("float", self._quantized, *self._graph_key)
         with fp32_convs(self.device):
-            return run_sharded(self.mesh, self.replicas, images, lambda x, net: self._detect(x.to(self.dtype), net))
+            return run_sharded(self.mesh, self.replicas, images, lambda x, net: self._graphs(
+                lambda xs: self._detect(xs.to(self.dtype), net), x, net, key))
 
     @torch.inference_mode()
     def infer_uint8(self, raw: torch.Tensor, imgsz: int) -> torch.Tensor:
-        """(B, H0, W0, 3) uint8 RGB batch on the device -> device letterbox -> (B, max_det, 6)."""
+        """(B, H0, W0, 3) uint8 RGB batch on the device -> device letterbox -> (B, max_det, 6), letterbox, forward
+        and NMS in one graph replay once the frame size repeats."""
+        key = ("uint8", int(imgsz), self._quantized, *self._graph_key)
         with fp32_convs(self.device):
-            return run_sharded(self.mesh, self.replicas, raw, lambda x, net: self._detect(
-                device_letterbox(x, imgsz=imgsz, out_dtype=self.dtype), net))
+            return run_sharded(self.mesh, self.replicas, raw, lambda x, net: self._graphs(
+                lambda xs: self._detect(device_letterbox(xs, imgsz=imgsz, out_dtype=self.dtype), net), x, net, key))
 
     def setup_source(self, source):
         self.imgsz = check_imgsz(self.args.imgsz, stride=32, min_dim=2)
@@ -241,6 +259,7 @@ class DetectionPredictor:
 
         self.net, self.scales = quantize_model(self.net, [calib()], self.device)  # raises on a zoo model
         self.replicas = replicate_tree(self.mesh, self.net)
+        self._graphs.clear()  # the warm-up's graphs ran the float net
         self._quantized = True
         LOGGER.info("int8 serving: weights quantized (per-channel), activations calibrated on the first batch")
 

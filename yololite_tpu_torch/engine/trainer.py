@@ -289,9 +289,14 @@ class DetectionTrainer:
     def _forward(self, images: torch.Tensor):
         """uint8 NHWC batch on the device -> the Detect maps, NHWC, in train mode (bf16 under amp)."""
         x = images.float() * (1.0 / 255.0) if images.dtype == torch.uint8 else images
-        if x.device.type == "cpu":
-            # torch's CPU BatchNorm takes train-mode statistics of a channels-last map with about 10x the fp32 error
-            # of its NCHW kernel; an NCHW-contiguous batch keeps every map NCHW there
+        if x.device.type == "cpu" or not self.args.amp:
+            # with amp off the batch is NCHW-contiguous, so every map is NCHW: one layout wherever the fp32 step is
+            # held to a float64 step, in one process and on ranks. torch's CPU BatchNorm takes channels-last
+            # train-mode statistics with about 10x the error of its NCHW kernel. On the card the layout does not set
+            # the step's precision: on three seeds every layout and the ranks lie 1.8e-4 to 2.2e-4 relative L2 from
+            # the float64 step once SPPF's max-pools take the float64 step's picks; unforced, a near-tie there that
+            # the last bits of row 8 flip can move row 8's BN gradients to 5.6e-3 (NVIDIA H100 80GB HBM3, 700 W;
+            # tools/train_step_precision.py --force-picks)
             x = x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
         with torch.autocast(self.device.type, dtype=torch.bfloat16, enabled=bool(self.args.amp)):
             return forward_nhwc(self.model, x)
@@ -609,12 +614,12 @@ def _train_rank(rank: int, world: int, device: torch.device, overrides: Dict, sa
     tr.train()
     if rank != 0:
         return None
-    from yololite_tpu_torch.ops.kernels import greedy_nms_keep, int8_conv
+    from yololite_tpu_torch.ops.kernels import COUNTED
 
     return {"metrics": tr.metrics, "fitness": tr.fitness, "best_fitness": tr.best_fitness, "epoch": tr.epoch,
             "train_seconds": tr.train_seconds, "tlosses": tr.tlosses, "start_epoch": tr.start_epoch,
-            # this process' kernel launches (its EMA vals' and final val's K1), which the caller's counters do not see
-            "rank_kernel_launches": {"greedy_nms_keep": greedy_nms_keep.launches, "int8_conv": int8_conv.launches}}
+            # this process' kernel launches (its EMA vals' and final val's NMS), which the caller's counters do not see
+            "rank_kernel_launches": {w.__name__: w.launches for w in COUNTED}}
 
 
 def data_parallel_step(rank: int, world: int, device, overrides: Dict, model: DetectionModel, batches,

@@ -3,14 +3,18 @@
 Per batch, the collated uint8 NHWC batch is uploaded as it is and cast and
 divided by 255 on the device. The fused (and, with half, bf16) net runs,
 and the Detect maps go through the multi-label select-first NMS at
-K = 8192 in fp32 (`ops.nms.nms_from_feats`). On the card, that NMS sends each
-alive block of 1024 candidates through the greedy_nms_keep kernel. The
-padded (B, max_det, 6) result comes to the host. There, per-image TP matching
+K = 8192 in fp32 (`ops.nms.nms_from_feats`). On the card, that NMS is one
+launch of the blocked_nms_finalize kernel (K4) per batch, with no host sync.
+Standalone val replays the whole step (cast, forward, NMS) as a CUDA graph
+for each batch shape seen before: a shape's first batch runs eagerly, its
+second captures it (engine/graphs.py); a trainer's val runs eagerly, since
+its EMA weights move between calls. The padded
+(B, max_det, 6) result comes to the host. There, per-image TP matching
 (greedy IoU-sorted unique matching at 10 IoU thresholds) and the metrics run
 in numpy.
 
-Rect batching gives each batch its own shape. Torch compiles nothing per
-shape, so the tail batch is not padded. Standalone val runs a fused copy of
+Rect batching gives each batch its own shape: one graph per bucket shape
+that holds two batches or more, the tail batch (not padded) among them. Standalone val runs a fused copy of
 the model, built once per validator. A trainer's val (`trainer=`) runs the
 trainer's EMA model as it stands at that call: unfused, in eval mode, with
 the EMA's BN statistics.
@@ -34,6 +38,7 @@ import torch
 from yololite_tpu_torch.cfg import get_cfg, get_save_dir
 from yololite_tpu_torch.data.dataset import build_dataloader, build_yolo_dataset
 from yololite_tpu_torch.data.utils import check_det_dataset
+from yololite_tpu_torch.engine.graphs import GraphCache
 from yololite_tpu_torch.engine.predictor import forward_nhwc, fp32_convs, inference_net, run_sharded
 from yololite_tpu_torch.ops.boxes import box_iou_np, scale_boxes_np, xywh2xyxy
 from yololite_tpu_torch.ops.decode import postprocess_end2end
@@ -70,11 +75,14 @@ class DetectionValidator:
 
     # ---- setup ----
 
-    def _build_infer(self, net, model, half: bool):
+    def _build_infer(self, net, model, half: bool, graph: bool = False):
         """uint8 (B, H, W, 3) RGB batch on the device -> (B, max_det, 6) detections there.
 
         `net` is the eval-mode module to run (bf16 with half); `model` gives
-        the head's layout. The NMS always gets fp32 maps.
+        the head's layout. The NMS always gets fp32 maps. With `graph` (the
+        standalone val), each replica's step on the card replays a CUDA graph
+        once its batch shape repeats (`infer.graphs` holds them); without (a
+        trainer's val), it runs eagerly.
         """
         nc, strides, reg_max = model.nc, model.strides, model.reg_max
         conf, iou, max_det = float(self.args.conf), float(self.args.iou), int(self.args.max_det)
@@ -97,12 +105,16 @@ class DetectionValidator:
 
         mesh = self.mesh
         replicas = replicate_tree(mesh, net)
+        graphs = GraphCache() if graph else None
+        key = (half, end2end, agnostic, conf, iou, max_det)
+        step = infer_one if graphs is None else lambda x, net: graphs(lambda xs: infer_one(xs, net), x, net, key)
 
         @torch.inference_mode()
         def infer(images: torch.Tensor) -> torch.Tensor:
             with fp32_convs(images.device):
-                return run_sharded(mesh, replicas, images, infer_one)
+                return run_sharded(mesh, replicas, images, step)
 
+        infer.graphs = graphs
         return infer
 
     # ---- main entry ----
@@ -117,7 +129,7 @@ class DetectionValidator:
             self.data = trainer.data
             self.args.plots &= trainer.stop_training or (trainer.epoch == trainer.epochs - 1)
             net = inference_net(ema, self.device, half, fuse=False) if half else ema
-            infer = self._build_infer(net, model, half)  # the EMA weights of this call
+            infer = self._build_infer(net, model, half)  # the EMA weights of this call, eagerly
         else:
             self.data = check_det_dataset(self.args.data)
         self.names = self.data.get("names", model.names)
@@ -137,7 +149,7 @@ class DetectionValidator:
             self.dataloader = build_dataloader(dataset, self.args.batch, self.args.workers, shuffle=False)
         if trainer is None:
             if self._infer is None:  # standalone: a fused copy (Conv+BN folded), built once
-                self._infer = self._build_infer(inference_net(model, self.device, half), model, half)
+                self._infer = self._build_infer(inference_net(model, self.device, half), model, half, graph=True)
             infer = self._infer
 
         self.seen = 0

@@ -1,8 +1,8 @@
 """Build the hand-written CUDA kernels with nvcc and load them with ctypes.
 
 Each `csrc/<name>.cu` has a plain C interface and compiles on its own into
-`csrc/build/lib<name>-<hash>.so` (the hash covers the source and the flags,
-so an edited source is rebuilt). The build happens at first use, on the
+`csrc/build/lib<name>-<hash>.so` (the hash covers the source, the shared
+headers `csrc/*.cuh` and the flags, so an edited source or header is rebuilt). The build happens at first use, on the
 machine with the card; nothing here runs when the module is imported.
 `build(names)` starts one nvcc per source, all at once, and waits for all.
 """
@@ -41,8 +41,8 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    text = b"".join(p.read_bytes() for p in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

@@ -5,21 +5,30 @@
    which replaces the Pallas kernel `greedy_nms_keep_pallas` and the
    `box_iou` before it; on a CPU tensor it runs the plain version beside it,
    `greedy_nms_keep_plain`.
-2. `int8_conv`: the int8 serving convolution with its epilogue (K8), and the
+2. `blocked_nms_finalize`: exact greedy NMS over K > 1024 score-sorted
+   candidates and the compaction of the kept rows into the padded
+   (B, max_det, 6) detections (K4). On a CUDA tensor it launches
+   csrc/blocked_nms.cu, which replaces the XLA ops `_blocked_keep` and
+   `_finalize` of yololite_tpu/ops/nms.py:164,281; on a CPU tensor it runs
+   `blocked_nms_finalize_plain`, which is those two functions of ops/nms.py.
+3. `int8_conv`: the int8 serving convolution with its epilogue (K8), and the
    quantize of a bf16 or fp32 input before it. On a CUDA tensor it launches
    csrc/int8_conv.cu, which replaces the int32 accumulated XLA convolution of
    yololite_tpu/models/modules.py:176-185; on a CPU tensor it runs
    `int8_conv_plain`.
-3. `device_letterbox`: batched letterbox on the device for same-shape uint8
+4. `device_letterbox`: batched letterbox on the device for same-shape uint8
    batches: bilinear resize as two fp32 matmuls, pad with 114, divide by 255.
    Plain torch for now (ROADMAP.md, Queue 2 K2).
 
-K1 and K8 are `torch.library` custom ops (`torch.ops.yololite_tpu_torch.*`):
+K1, K4 and K8 are `torch.library` custom ops (`torch.ops.yololite_tpu_torch.*`):
 the CUDA implementation launches the kernel or raises, the CPU one is the
 plain version, and a fake implementation gives the output's shape, so
 `torch.export` records each as one op. The public wrappers check their
 inputs, call the op, and count the kernel's launches (`.launches`); a CUDA
-tensor never reaches a plain version.
+tensor never reaches a plain version. `COUNTED` lists those wrappers: a
+replayed CUDA graph adds the launches its capture recorded to them
+(engine/graphs.py). Every kernel launches on PyTorch's current stream, which
+under a capture is the capture stream.
 """
 
 from __future__ import annotations
@@ -79,8 +88,8 @@ def greedy_nms_keep(boxes: torch.Tensor, valid: torch.Tensor, iou_thres: float) 
         if not (boxes.is_contiguous() and valid.is_contiguous()):
             raise ValueError("greedy_nms_keep wants contiguous boxes and valid")
         if valid.shape[1] > 1024:
-            raise ValueError(f"greedy_nms_keep takes K <= 1024, got {valid.shape[1]}; run larger K in blocks "
-                             "(ops.nms._blocked_keep)")
+            raise ValueError(f"greedy_nms_keep takes K <= 1024, got {valid.shape[1]}; larger K goes through "
+                             "blocked_nms_finalize")
     elif boxes.device.type != "cpu":
         raise ValueError(f"greedy_nms_keep: unsupported device {boxes.device}")
     return torch.ops.yololite_tpu_torch.greedy_nms_keep(boxes, valid, float(iou_thres))
@@ -123,6 +132,101 @@ def _nms_lib() -> ctypes.CDLL:
         lib.greedy_nms_keep.restype = ctypes.c_int
         lib.greedy_nms_keep_error_string.argtypes = [ctypes.c_int]
         lib.greedy_nms_keep_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+# ---------------- blocked greedy NMS + compaction (K4) ----------------
+
+
+def blocked_nms_finalize_plain(shifted: torch.Tensor, boxes: torch.Tensor, vals: torch.Tensor, cls: torch.Tensor,
+                               valid: torch.Tensor, iou_thres: float, max_det: int) -> torch.Tensor:
+    """Plain torch K4: `_finalize(boxes, vals, cls, _blocked_keep(shifted, valid, iou_thres), max_det)` of ops/nms.py,
+    the blocked keep syncing with the host once per block to skip a dead one."""
+    from yololite_tpu_torch.ops import nms  # ops.nms imports this module
+
+    return nms._finalize(boxes, vals, cls, nms._blocked_keep(shifted, valid, iou_thres), max_det)
+
+
+def blocked_nms_finalize(shifted: torch.Tensor, boxes: torch.Tensor, vals: torch.Tensor, cls: torch.Tensor,
+                         valid: torch.Tensor, iou_thres: float, max_det: int) -> torch.Tensor:
+    """Exact greedy NMS and compaction: score-sorted class-offset boxes `shifted` (B, K, 4), their unshifted `boxes`
+    (B, K, 4), scores `vals` and classes `cls` (B, K), all float32, and bool `valid` (B, K) -> (B, max_det, 6) float32
+    rows [x1, y1, x2, y2, score, class] of the kept candidates with score > 0, in order, then zeros.
+
+    A CUDA tensor goes through csrc/blocked_nms.cu (any K, one launch, no host
+    sync), a CPU tensor through `blocked_nms_finalize_plain`; both as the op
+    `torch.ops.yololite_tpu_torch.blocked_nms_finalize`. Any other input raises.
+    """
+    if shifted.device.type == "cuda":
+        tensors = (shifted, boxes, vals, cls, valid)
+        if any(t.dtype != torch.float32 for t in tensors[:4]) or valid.dtype != torch.bool:
+            raise TypeError("blocked_nms_finalize wants float32 shifted, boxes, vals and cls and bool valid, got "
+                            f"{[t.dtype for t in tensors]}")
+        b, k = valid.shape if valid.ndim == 2 else (-1, -1)
+        if tuple(shifted.shape) != (b, k, 4) or tuple(boxes.shape) != (b, k, 4) or tuple(vals.shape) != (b, k) or \
+                tuple(cls.shape) != (b, k):
+            raise ValueError("blocked_nms_finalize wants shifted and boxes (B, K, 4), vals, cls and valid (B, K), got "
+                             f"{[tuple(t.shape) for t in tensors]}")
+        if any(t.device != shifted.device for t in tensors):
+            raise ValueError(f"blocked_nms_finalize: tensors on {[str(t.device) for t in tensors]}")
+        if not all(t.is_contiguous() for t in tensors):
+            raise ValueError("blocked_nms_finalize wants contiguous tensors")
+        if max_det < 0:
+            raise ValueError(f"blocked_nms_finalize: max_det {max_det}")
+    elif shifted.device.type != "cpu":
+        raise ValueError(f"blocked_nms_finalize: unsupported device {shifted.device}")
+    return torch.ops.yololite_tpu_torch.blocked_nms_finalize(shifted, boxes, vals, cls, valid, float(iou_thres),
+                                                             int(max_det))
+
+
+blocked_nms_finalize.launches = 0  # kernel launches since the last reset
+
+
+@torch.library.custom_op("yololite_tpu_torch::blocked_nms_finalize", mutates_args=(), device_types="cpu")
+def _blocked_nms_finalize_op(shifted: Tensor, boxes: Tensor, vals: Tensor, cls: Tensor, valid: Tensor,
+                             iou_thres: float, max_det: int) -> Tensor:
+    return blocked_nms_finalize_plain(shifted, boxes, vals, cls, valid, iou_thres, max_det).clone()  # not a view
+
+
+def _aligned16(t: Tensor) -> Tensor:
+    """t itself when its data starts on 16 bytes (the kernel loads boxes as float4), else an aligned copy."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+@_blocked_nms_finalize_op.register_kernel("cuda")
+def _blocked_nms_finalize_cuda(shifted: Tensor, boxes: Tensor, vals: Tensor, cls: Tensor, valid: Tensor,
+                               iou_thres: float, max_det: int) -> Tensor:
+    b, k = valid.shape
+    shifted, boxes = _aligned16(shifted), _aligned16(boxes)
+    out = torch.empty((b, max_det, 6), dtype=torch.float32, device=shifted.device)
+    workspace = torch.empty((b, k, 4), dtype=torch.float32, device=shifted.device)  # the kept boxes, in order
+    stream = torch.cuda.current_stream(shifted.device).cuda_stream
+    lib = _blocked_lib()
+    rc = lib.blocked_nms_finalize(shifted.data_ptr(), boxes.data_ptr(), vals.data_ptr(), cls.data_ptr(),
+                                  valid.data_ptr(), out.data_ptr(), workspace.data_ptr(), b, k, float(iou_thres),
+                                  max_det, shifted.device.index, stream)
+    if rc != 0:
+        raise RuntimeError(f"blocked_nms_finalize kernel launch failed: {lib.blocked_nms_error_string(rc).decode()}")
+    blocked_nms_finalize.launches += 1
+    return out
+
+
+@_blocked_nms_finalize_op.register_fake
+def _blocked_nms_finalize_fake(shifted: Tensor, boxes: Tensor, vals: Tensor, cls: Tensor, valid: Tensor,
+                               iou_thres: float, max_det: int) -> Tensor:
+    return torch.empty((valid.shape[0], max_det, 6), dtype=torch.float32, device=shifted.device)
+
+
+def _blocked_lib() -> ctypes.CDLL:
+    from yololite_tpu_torch.ops import cuda_build
+
+    lib = cuda_build.load("blocked_nms")
+    if lib.blocked_nms_finalize.argtypes is None:  # declare the C signatures once per process
+        lib.blocked_nms_finalize.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                                                                     ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        lib.blocked_nms_finalize.restype = ctypes.c_int
+        lib.blocked_nms_error_string.argtypes = [ctypes.c_int]
+        lib.blocked_nms_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -216,6 +320,8 @@ def int8_conv(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor, bias: torch
 
 
 int8_conv.launches = 0  # kernel launches since the last reset
+
+COUNTED = (greedy_nms_keep, blocked_nms_finalize, int8_conv)  # the wrappers that count their kernel's launches
 
 
 @torch.library.custom_op("yololite_tpu_torch::int8_conv", mutates_args=(), device_types="cpu")

@@ -5,10 +5,14 @@ with conf == 0 marking empty rows. Greedy order matches torchvision
 (score-descending, suppress IoU > threshold, class-offset trick).
 
 Exact keeps with K <= 1024 go through `ops.kernels.greedy_nms_keep`, boxes in
-and keep mask out: the CUDA kernel for tensors on the card (it computes the
-IoU itself), its plain version on the CPU. Larger K runs
-in score-ordered blocks of 1024 (`_blocked_keep`). Selection follows
-lax.top_k's rule, lowest index first among equal scores (`topk_stable`).
+and keep mask out: the CUDA kernel K1 for tensors on the card (it computes
+the IoU itself), its plain version on the CPU; `_finalize` then compacts the
+kept rows. Exact NMS with K > 1024 goes through
+`ops.kernels.blocked_nms_finalize`, keep and compaction in one: on the card
+the kernel K4 (one launch, no host sync), on the CPU its plain version, the
+score-ordered blocks of 1024 of `_blocked_keep` and then `_finalize`.
+Selection follows lax.top_k's rule, lowest index first among equal scores
+(`topk_stable`).
 """
 
 from __future__ import annotations
@@ -19,10 +23,10 @@ import torch
 
 from yololite_tpu_torch.ops.boxes import box_iou
 from yololite_tpu_torch.ops.decode import dfl_expectation_mm
-from yololite_tpu_torch.ops.kernels import greedy_nms_keep, greedy_nms_keep_plain
+from yololite_tpu_torch.ops.kernels import blocked_nms_finalize, greedy_nms_keep, greedy_nms_keep_plain
 
 MAX_WH = 7680  # class-offset magnitude
-KERNEL_MAX_K = 1024  # largest K one greedy_nms_keep call takes
+KERNEL_MAX_K = 1024  # largest K one greedy_nms_keep call takes; exact NMS above it runs blocked_nms_finalize
 
 
 def topk_stable(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -75,7 +79,8 @@ def _blocked_keep(shifted: torch.Tensor, valid: torch.Tensor, iou_thres: float,
     back to K: ceil(K / block) blocks, where the JAX package halves the block
     until it divides K (105 blocks of 64 at K = 6720). Same keep, bit for bit.
     Each alive block costs one host sync (the skip test), one exact keep and
-    one cross pass.
+    one cross pass. The plain path of K4 (`blocked_nms_finalize`): the CPU
+    runs it, the card never does.
     """
     b, k = valid.shape
     block = min(block, k)
@@ -108,6 +113,16 @@ def _keep(shifted: torch.Tensor, valid: torch.Tensor, iou_thres: float, mode: st
     if shifted.shape[1] <= KERNEL_MAX_K:
         return _exact_keep(shifted, valid, iou_thres)
     return _blocked_keep(shifted, valid, iou_thres)
+
+
+def _suppress(cand_boxes, vals, cls, shifted, valid, iou_thres: float, max_det: int, mode: str) -> torch.Tensor:
+    """Keep and compaction -> (B, max_det, 6): exact NMS over K > 1024 as one `blocked_nms_finalize` (K4 on the
+    card), every other case as the keep mask of `_keep` and then `_finalize`."""
+    if mode in ("greedy", "pallas") and shifted.shape[1] > KERNEL_MAX_K:
+        return blocked_nms_finalize(shifted.float().contiguous(), cand_boxes.float().contiguous(),
+                                    vals.float().contiguous(), cls.float().contiguous(), valid.contiguous(),
+                                    iou_thres, max_det)
+    return _finalize(cand_boxes, vals, cls, _keep(shifted, valid, iou_thres, mode), max_det)
 
 
 def _gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -171,8 +186,7 @@ def non_max_suppression(
     """
     vals, cand_boxes, cls, valid = _select_candidates(boxes, scores, conf_thres, max_cand, multi_label, class_mask)
     offset = torch.zeros_like(cls) if agnostic else cls * MAX_WH
-    keep = _keep(cand_boxes + offset[..., None], valid, iou_thres, mode)
-    return _finalize(cand_boxes, vals, cls, keep, max_det)
+    return _suppress(cand_boxes, vals, cls, cand_boxes + offset[..., None], valid, iou_thres, max_det, mode)
 
 
 def select_from_feats(feats: Sequence[torch.Tensor], nc: int, reg_max: int, conf_thres: float, max_cand: int,
@@ -225,7 +239,7 @@ def nms_from_feats(
          multi_label), conf gate, top-K in lax.top_k order;
     3.   the K candidates' box logits gathered and put through the DFL expectation;
     4.   anchor centres and strides rebuilt arithmetically from the anchor index;
-    5.   exact greedy keep on class-offset boxes and compaction (_finalize).
+    5.   exact greedy keep on class-offset boxes and compaction (`_suppress`).
     """
     B = feats[0].shape[0]
     vals, bidx, cls_k = select_from_feats(feats, nc, reg_max, conf_thres, max_cand, class_mask, half, multi_label)
@@ -259,5 +273,4 @@ def nms_from_feats(
 
     # 5: suppression + compaction
     offset = torch.zeros_like(cls_k) if agnostic else cls_k * MAX_WH
-    keep = _keep(cand_boxes + offset[..., None], valid, iou_thres, mode)
-    return _finalize(cand_boxes, vals, cls_k, keep, max_det)
+    return _suppress(cand_boxes, vals, cls_k, cand_boxes + offset[..., None], valid, iou_thres, max_det, mode)

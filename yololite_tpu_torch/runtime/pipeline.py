@@ -5,7 +5,9 @@ Submission does not block while the buffers have room: a host thread
 letterboxes each batch (cv2) and pads it to the predictor's batch size, a
 dispatch thread uploads it, runs the predictor's `infer` on its device and
 copies the detections back, and the results wait in completion order.
-Per-batch latency, submission to detections on the host, is recorded.
+Per-batch latency, submission to detections on the host, is recorded. A
+stage's exception is raised by `results()`; the stages go on draining their
+queues, so `submit` and `close` never block on a dead stage.
 """
 
 from __future__ import annotations
@@ -65,30 +67,48 @@ class InferencePipeline:
     # ---- stage workers ----
 
     def _preprocess_worker(self):
+        failed = None
         while True:
             item = self._pre_q.get()
             if item is self._stop:
                 self._disp_q.put(self._stop)
                 return
-            ticket, images, t0 = item
-            im = preprocess_batch(images, imgsz=self.imgsz)
-            n = im.shape[0]
-            if n < self.batch:
-                im = np.concatenate([im, np.zeros((self.batch - n, *im.shape[1:]), im.dtype)])
-            self._disp_q.put((ticket, im, n, t0))
+            if failed is not None:  # drain, so that submit never blocks on a dead stage
+                continue
+            try:
+                ticket, images, t0 = item
+                im = preprocess_batch(images, imgsz=self.imgsz)
+                n = im.shape[0]
+                if n < self.batch:
+                    im = np.concatenate([im, np.zeros((self.batch - n, *im.shape[1:]), im.dtype)])
+                self._disp_q.put((ticket, im, n, t0))
+            except BaseException as e:  # raised by results()
+                failed = e
+                self._disp_q.put(e)
 
     def _dispatch_worker(self):
         p = self.predictor
+        failed = None
         while True:
             item = self._disp_q.get()
             if item is self._stop:
                 self._out_q.put(self._stop)
                 return
-            ticket, im, n, t0 = item
-            dets = p.infer(torch.from_numpy(im).to(p.device)).cpu().numpy()[:n]  # the copy back waits for the card
-            self.stats.latencies_ms.append((time.perf_counter() - t0) * 1e3)
-            self.stats.completed += n
-            self._out_q.put((ticket, dets))
+            if failed is not None:  # drain
+                continue
+            if isinstance(item, BaseException):
+                failed = item
+                self._out_q.put(item)
+                continue
+            try:
+                ticket, im, n, t0 = item
+                dets = p.infer(torch.from_numpy(im).to(p.device)).cpu().numpy()[:n]  # the copy back waits for the card
+                self.stats.latencies_ms.append((time.perf_counter() - t0) * 1e3)
+                self.stats.completed += n
+                self._out_q.put((ticket, dets))
+            except BaseException as e:  # raised by results()
+                failed = e
+                self._out_q.put(e)
 
     # ---- API ----
 
@@ -113,11 +133,14 @@ class InferencePipeline:
         return ticket
 
     def results(self):
-        """Yield (ticket, dets) in completion order until close() has drained the stages."""
+        """Yield (ticket, dets) in completion order until close() has drained the stages; a stage's exception is
+        raised here."""
         while True:
             item = self._out_q.get()
             if item is self._stop:
                 return
+            if isinstance(item, BaseException):
+                raise item
             yield item
 
     def close(self):
