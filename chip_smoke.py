@@ -6,14 +6,17 @@
 Phases, each of which exits non-zero on failure:
   1. build: compiles every kernel source in yololite_tpu_torch/csrc/ with
      nvcc, all at once, and prints the build time and ptxas's report (for
-     K8: registers and spills per kernel, and the count of warpgroup MMA
-     instructions in its SASS, which must not be 0);
+     K8 and K4: registers and spills per kernel; for K8 the count of
+     warpgroup MMA instructions in its SASS, which must not be 0);
   2. kernel: holds each kernel against its plain PyTorch version on the card
      (bit-equal keep masks for greedy_nms_keep, boxes in, over crowded random
      scenes and alternating suppression chains, ragged K and K = 1024
      included; blocked_nms_finalize (K4) bit-equal, NaN rows included, on
-     crowded, spread, first-block-only, all-invalid and NaN scenes at K up to
-     8,192 and max_det 1, 300 and K) and times both, with K4's bound;
+     crowded, spread, first-block-only, all-invalid, NaN, disjoint (max_det
+     reached on a step's last candidate) and near-threshold (IoUs within a
+     few ulps of it) scenes at B up to 40 and K 1,025 to 8,192, max_det 1, 300
+     and K) and times both, K4 on the crowded scene at B 16, 8 and 1 with its
+     bound, cluster size, step and cudaOccupancyMaxActiveClusters;
   3. slice: YOLOLite("yolo11n.yaml") with init(0) predicts synthetic 480x640
      uint8 batches at imgsz 640 and conf 1e-7, in fp32 (TF32 off) and bf16, at
      batch 1 and 32; each call replays a CUDA graph of the step (the first
@@ -200,7 +203,9 @@ def scenes(b: int, k: int, seed: int, chain: bool):
 def k4_scene(seed: int, b: int, k: int, case: str):
     """Score-sorted K4 inputs on the card: shifted, boxes, vals, cls, valid. Scores fall from 1 to -0.1 (the last
     rows valid with a score <= 0: kept, never emitted). case: "crowded", "spread" (the first block alone keeps
-    hundreds), "first-block" (nothing valid past 1024), "invalid", "nan" (NaN coordinates in every 7th box)."""
+    hundreds), "first-block" (nothing valid past 1024), "invalid", "nan" (NaN coordinates in every 7th box),
+    "disjoint" (no overlaps, all valid: the r-th row out is candidate r, so a max_det of 256, 512 or 1024 is reached
+    on a step's last candidate), "near-threshold" (pairs whose IoU lies within a few ulps of 0.5, one class)."""
     import numpy as np
     import torch
 
@@ -210,6 +215,12 @@ def k4_scene(seed: int, b: int, k: int, case: str):
     boxes = np.concatenate([c - wh / 2, c + wh / 2], -1).astype(np.float32)
     if case == "nan":
         boxes[:, ::7, rng.integers(0, 4)] = np.nan
+    elif case == "disjoint":
+        x0 = np.arange(k, dtype=np.float32) * 200.0
+        boxes = np.stack([np.broadcast_to(x0, (b, k)), np.zeros((b, k)), x0 + wh[..., 0], wh[..., 1]], -1)
+    elif case == "near-threshold":
+        boxes = near_threshold_boxes(rng, b, k, 0.5)
+    boxes = np.ascontiguousarray(boxes, np.float32)
     vals = np.broadcast_to(np.linspace(1.0, -0.1, k, dtype=np.float32), (b, k)).copy()
     cls = rng.integers(0, 3, (b, k)).astype(np.float32)
     valid = rng.uniform(size=(b, k)) > 0.1
@@ -217,9 +228,29 @@ def k4_scene(seed: int, b: int, k: int, case: str):
         valid[:, 1024:] = False
     elif case == "invalid":
         valid[:] = False
+    elif case in ("disjoint", "near-threshold"):
+        cls[:] = 0.0
+        valid[:] = True
     t = lambda a: torch.from_numpy(a).cuda()
     boxes, vals, cls, valid = t(boxes), t(vals), t(cls), t(valid)
     return boxes + cls[..., None] * 7680, boxes, vals, cls, valid
+
+
+def near_threshold_boxes(rng, b: int, k: int, thr: float):
+    """(B, K, 4) float32 boxes in pairs (A, B) 256 apart: A = [x, 0, x + w, ha], B = [x, 0, x + w, hb] with hb the
+    float32 of ha * thr moved by -6 to 6 ulps, so iou(A, B) = hb / ha within a few ulps of thr."""
+    import numpy as np
+
+    n = (k + 1) // 2
+    x0 = np.arange(n, dtype=np.float32) * 256.0
+    w = rng.uniform(10, 100, (b, n)).astype(np.float32)
+    ha = rng.uniform(10, 100, (b, n)).astype(np.float32)
+    hb = (ha * np.float32(thr)).astype(np.float32)
+    hb = (hb.view(np.int32) + rng.integers(-6, 7, (b, n)).astype(np.int32)).view(np.float32)
+    x1 = (x0 + w).astype(np.float32)
+    pair = np.stack([np.stack([np.broadcast_to(x0, (b, n)), np.zeros((b, n), np.float32), x1, h], -1)
+                     for h in (ha, hb)], 2)  # (B, n, 2, 4)
+    return pair.reshape(b, 2 * n, 4)[:, :k]
 
 
 def same_bits(a, b) -> bool:
@@ -284,7 +315,7 @@ def k4_numbers(card: str, args, thr: float, max_det: int, what: str) -> dict:
     """K4 against its plain version on these inputs (bit for bit), both timed, with the bound."""
     import torch
 
-    from yololite_tpu_torch.ops.kernels import blocked_nms_finalize
+    from yololite_tpu_torch.ops.kernels import blocked_nms_finalize, blocked_nms_plan
 
     shifted, boxes, vals, cls, valid = args
     got = blocked_nms_finalize(*args, thr, max_det)
@@ -299,11 +330,15 @@ def k4_numbers(card: str, args, thr: float, max_det: int, what: str) -> dict:
     launch_ms = cuda_ms(lambda: blocked_nms_finalize(*args, thr, max_det), 50)
     plain = cuda_ms(lambda: k4_plain(*args, thr, max_det), 5, warmup=1)
     b, k = valid.shape
+    plan = blocked_nms_plan(b, k, shifted.device)
     log(f"kernel: blocked_nms_finalize B={b} K={k} max_det {max_det} ({what}, {int((want[..., 4] > 0).sum())} rows "
         f"out): {ms:.4f} ms device (graph replay), {launch_ms:.4f} ms a call back to back, plain {plain:.3f} ms, "
-        f"bound {bound:.5f} ms ({bound_by}), on {card}")
+        f"bound {bound:.5f} ms ({bound_by}); cluster C {plan['cluster']} CTAs of {plan['threads']} threads an "
+        f"image, step S {plan['step']}, {plan['smem']} B of shared memory a CTA, cudaOccupancyMaxActiveClusters "
+        f"{plan['max_active_clusters']}, on {card}")
     return {"ms": ms, "launch_ms": launch_ms, "plain_ms": plain, "bound_ms": bound, "bound_by": bound_by,
-            "max_abs_err": err, "shape": [b, k, max_det]}
+            "max_abs_err": err, "shape": [b, k, max_det], "cluster": plan["cluster"], "step": plan["step"],
+            "max_active_clusters": plan["max_active_clusters"]}
 
 
 def profile_calls(fn, reps: int):
@@ -675,6 +710,8 @@ def val_phase(card: str, model):
     return launches, {"val_ms": k4["ms"], "val_launch_ms": k4["launch_ms"], "val_plain_ms": k4["plain_ms"],
                       "val_bound_ms": k4["bound_ms"],
                       "val_bound_by": k4["bound_by"], "val_shape": k4["shape"], "val_max_abs_err": k4["max_abs_err"],
+                      "val_cluster": k4["cluster"], "val_step": k4["step"],
+                      "val_max_active_clusters": k4["max_active_clusters"],
                       "val_nms_ms": peaks["K4"][1], "val_nms_peak_mib": peaks["K4"][0] / 2 ** 20,
                       "blocked_keep_path_nms_ms": peaks["plain"][1],
                       "blocked_keep_path_nms_peak_mib": peaks["plain"][0] / 2 ** 20}
@@ -1068,6 +1105,25 @@ def k8_build_report(lib_path: Path) -> str:
     ops = sorted({re.search(r"\b([A-Z]?GMMA[.\w]*)", ln).group(1) for ln in gmma})
     return (f"ptxas per kernel: {'; '.join(rows)}; SASS: {len(gmma)} warpgroup MMA instructions "
             f"({', '.join(ops[:8])})"), len(gmma)
+
+
+def k4_build_report(lib_path: Path) -> str:
+    """ptxas's registers and spills for K4's kernel, from the build log, and its SASS instructions (cuobjdump -sass;
+    the library has the one kernel)."""
+    import re
+
+    from yololite_tpu_torch.ops import cuda_build
+
+    log = lib_path.with_suffix(".log").read_text()
+    entry = log[log.index("blocked_nms_cluster_kernel"):]
+    regs = re.search(r"Used (\d+) registers", entry).group(1)
+    spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", entry)
+    cuobjdump = str(Path(cuda_build.nvcc()).with_name("cuobjdump"))
+    sass = subprocess.run([cuobjdump, "-sass", str(lib_path)], capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    n = len(re.findall(r"/\*[0-9a-f]{4,}\*/", sass[sass.index("blocked_nms_cluster_kernel"):]))
+    return (f"ptxas: blocked_nms_cluster_kernel {regs} regs, {spills.group(1)}/{spills.group(2)} B spilled; "
+            f"{n} SASS instructions")
 
 
 def conv_kind(x, mod) -> str:
@@ -2090,6 +2146,8 @@ def main() -> int:
             if not gmma:
                 raise AssertionError("K8's library has no warpgroup MMA instruction in its SASS")
             log(f"  {name}: {text}")
+        elif name == "blocked_nms":
+            log(f"  {name}: {k4_build_report(path)}")
         elif report.exists():
             log(f"  {name}: {' | '.join(line.strip() for line in report.read_text().splitlines() if line.strip())}")
 
@@ -2121,12 +2179,16 @@ def main() -> int:
             f"on {card}")
 
     # K4 against its plain version: crowded, spread (the first block keeps more than max_det), first block only,
-    # all invalid, NaN boxes; max_det 1, 300 and K
+    # all invalid, NaN boxes, disjoint boxes (max_det reached on a step's last candidate), IoUs within a few ulps
+    # of the threshold; max_det 1, 300 and K (and 256, 512, 1024 on the disjoint scene); B 40 holds more clusters
+    # than the card runs at once
     k4_checks = 0
-    for b, k in ((1, 8192), (16, 8192), (16, 1500), (4, 2048)):
-        for case in ("crowded", "spread", "first-block", "invalid", "nan"):
+    k4_shapes = ((1, 8192), (16, 8192), (16, 1500), (4, 2048), (40, 8192), (1, 1025), (16, 8191))
+    k4_cases = ("crowded", "spread", "first-block", "invalid", "nan", "disjoint", "near-threshold")
+    for b, k in k4_shapes:
+        for case in k4_cases:
             args = k4_scene(b * k + len(case), b, k, case)
-            for max_det in (1, 300, k):
+            for max_det in (1, 300, k) + tuple(d for d in (256, 512, 1024) if case == "disjoint" and d < k):
                 got = blocked_nms_finalize(*args, 0.5, max_det)
                 want = k4_plain(*args, 0.5, max_det)
                 torch.cuda.synchronize()
@@ -2134,11 +2196,9 @@ def main() -> int:
                     raise AssertionError(f"blocked_nms_finalize != plain at B={b} K={k} {case} max_det {max_det}: "
                                          f"{int((got != want).any(-1).sum())} rows differ")
                 k4_checks += 1
-    log(f"kernel: blocked_nms_finalize bit-equal to its plain version in {k4_checks} checks: B x K in (1, 8192), "
-        "(16, 8192), (16, 1500), (4, 2048); crowded, spread, first block only, all invalid and NaN scenes; max_det "
-        "1, 300 and K")
-    for b in (16, 1):
-        k4_numbers(card, k4_scene(7, b, 8192, "crowded"), 0.7, 300, "crowded scene")
+    log(f"kernel: blocked_nms_finalize bit-equal to its plain version in {k4_checks} checks: B x K in {k4_shapes}; "
+        f"scenes {k4_cases}; max_det 1, 300 and K (256, 512, 1024 on the disjoint scene)")
+    k4_crowded = {b: k4_numbers(card, k4_scene(7, b, 8192, "crowded"), 0.7, 300, "crowded scene") for b in (16, 8, 1)}
 
     # ---- 3. slice: yolo11n predict at 640 through the facade ----
     from yololite_tpu_torch.engine.predictor import fp32_convs
@@ -2338,6 +2398,11 @@ def main() -> int:
         "bound_by": val_k4["val_bound_by"],
         "library_ms": None,  # no PyTorch call computes greedy NMS
         "shape": val_k4["val_shape"],  # [B, K, max_det] of val's first fp32 batch
+        "cluster": val_k4["val_cluster"],  # CTAs an image (csrc/blocked_nms.cu cluster_for)
+        "step": val_k4["val_step"],  # candidates a step
+        "max_active_clusters": val_k4["val_max_active_clusters"],
+        "crowded": {f"B{b}": {key: v[key] for key in ("ms", "plain_ms", "bound_ms", "cluster", "max_active_clusters")}
+                    for b, v in k4_crowded.items()},  # chip_smoke's crowded scene at K 8192, iou 0.7, max_det 300
         **{k: v for k, v in val_k4.items() if not k.startswith("val_") or k.startswith("val_nms")},
     }
     k8_entry = {

@@ -24,8 +24,9 @@ import jax.numpy as jnp
 
 from yololite_tpu.ops import nms as jnms
 
-from yololite_tpu_torch.ops import kernels as K, nms as tnms
+from yololite_tpu_torch.ops import boxes as tboxes, kernels as K, nms as tnms
 
+from chip_smoke import near_threshold_boxes
 from tests.test_torch_nms import BOX_ATOL, BOX_RTOL, STRIDES, _feats
 
 MAX_WH = 7680
@@ -47,13 +48,15 @@ def _scene(seed, b, k, nc=3, case="crowded"):
     kept (they suppress) but never emitted. `case`: "crowded" (heavy overlap
     across blocks), "spread" (few overlaps: the first block alone keeps
     hundreds), "first-block" (every candidate past the first 1024 invalid),
-    "invalid" (nothing valid).
+    "invalid" (nothing valid), "nan" (NaN coordinates in every 7th box).
     """
     rng = np.random.default_rng(seed)
     span = 6000.0 if case == "spread" else 600.0
     c = rng.uniform(20, span, (b, k, 2))
     wh = rng.uniform(10, 120, (b, k, 2))
     boxes = np.concatenate([c - wh / 2, c + wh / 2], -1).astype(np.float32)
+    if case == "nan":
+        boxes[:, ::7, rng.integers(0, 4)] = np.nan
     vals = np.broadcast_to(np.linspace(1.0, -0.1, k, dtype=np.float32), (b, k)).copy()
     cls = rng.integers(0, nc, (b, k)).astype(np.float32)
     valid = rng.uniform(size=(b, k)) > 0.1
@@ -193,3 +196,101 @@ def test_nms_from_feats_k2048_multi_label_matches_jax(monkeypatch):
     assert (got[..., 4] > 0).sum(1).min() > 50
     np.testing.assert_array_equal(got[..., 4:], want[..., 4:])
     np.testing.assert_allclose(got[..., :4], want[..., :4], rtol=BOX_RTOL, atol=BOX_ATOL)
+
+
+# ---------------- the invariants K4's design relies on ----------------
+
+STEP_SCENES = ["crowded", "spread", "first-block", "invalid", "nan"]
+
+
+@functools.lru_cache(maxsize=None)
+def _step_scene(k, case):
+    """A scene at K (B 2) as torch tensors: shifted, boxes, vals, cls, valid."""
+    boxes, vals, cls, valid = _scene(k + len(case), 2, k, case=case)
+    t = torch.from_numpy
+    return t(boxes) + t(cls)[..., None] * MAX_WH, t(boxes), t(vals), t(cls), t(valid)
+
+
+@functools.lru_cache(maxsize=None)
+def _keep_at_1024(k, case):
+    shifted, _, _, _, valid = _step_scene(k, case)
+    return tnms._blocked_keep(shifted, valid, 0.5, block=1024)
+
+
+@pytest.mark.parametrize("case", STEP_SCENES)
+@pytest.mark.parametrize("k", [1500, 2048, 6720])
+@pytest.mark.parametrize("step", [128, 256, 512, 1024])
+def test_blocked_keep_is_the_same_at_any_step(step, k, case):
+    """Candidates are score-sorted and suppression only acts forward, so walking them in steps of 128, 256, 512 or
+    1024 (a ragged last step at K 1500 and 6720) gives one keep; at 1024 it is the JAX package's `_blocked_keep`
+    (its fixpoint keep at K 1500, see the module's note)."""
+    shifted, _, _, _, valid = _step_scene(k, case)
+    want = _keep_at_1024(k, case)
+    if step == 1024:
+        jax_keep = _jax_keep_fn(k)(jnp.asarray(shifted.numpy()), jnp.asarray(valid.numpy()), 0.5)
+        np.testing.assert_array_equal(want.numpy(), np.asarray(jax_keep))
+        if case in ("crowded", "nan"):
+            assert 0 < int(want.sum()) < int(valid.sum())
+    else:
+        assert torch.equal(tnms._blocked_keep(shifted, valid, 0.5, block=step), want)
+
+
+@pytest.mark.parametrize("max_det", [1, 300])
+@pytest.mark.parametrize("case", ["crowded", "spread", "nan"])
+@pytest.mark.parametrize("k", [2048, 6720])
+def test_finalize_is_settled_at_the_walks_stop(k, case, max_det):
+    """The walk may stop once max_det rows are out: `_finalize`'s rows do not change when every candidate past the
+    max_det-th emitted one is made invalid."""
+    shifted, boxes, vals, cls, valid = _step_scene(k, case)
+    keep = _keep_at_1024(k, case)
+    want = tnms._finalize(boxes, vals, cls, keep, max_det)
+    done = (keep & (vals > 0)).long().cumsum(1) >= max_det
+    assert bool(done.any(1).all())  # every image reaches max_det before its last candidate
+    stop = done.float().argmax(1)
+    cut = valid & (torch.arange(k)[None] <= stop[:, None])
+    assert int(cut.sum()) < int(valid.sum())
+    got = tnms._finalize(boxes, vals, cls, tnms._blocked_keep(shifted, cut, 0.5), max_det)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+
+
+def _division_free_above(inter, den, thr):
+    """numpy model of csrc/blocked_nms.cu `iou_above`: the fma signs decide below thr and above the float after
+    thr, den <= 0, NaN and the one-ulp band between take the IEEE quotient. float64 holds thr * den exactly, and its
+    difference with inter keeps the sign of the fma's exact value. Returns (decision, decided without division)."""
+    thr = np.float32(thr)
+    up = np.nextafter(thr, np.float32(np.inf))
+    i64, d64 = inter.astype(np.float64), den.astype(np.float64)
+    below, above = i64 - np.float64(thr) * d64, i64 - np.float64(up) * d64
+    with np.errstate(invalid="ignore", divide="ignore"):
+        decided = (den > 0) & ((below < 0) | (above > 0))
+        return np.where(decided, above > 0, (inter / den) > thr), decided
+
+
+@pytest.mark.parametrize("thr", [0.45, 0.5, 0.7])
+def test_division_free_iou_test_keeps_box_ious_bits(thr):
+    """K4's IoU test without the division gives `box_iou(a, b) > thr` on every pair: pairs within a few ulps of thr
+    (some of them inside the one-ulp band that takes the division), crowded random pairs, degenerate boxes (den <=
+    0) and NaN coordinates."""
+    rng = np.random.default_rng(int(thr * 100))
+    near = near_threshold_boxes(rng, 1, 40000, thr)[0]
+    c = rng.uniform(20, 200, (40000, 2))
+    wh = rng.uniform(-5, 60, (40000, 2))  # some widths negative: degenerate boxes
+    crowd = np.concatenate([c - wh / 2, c + wh / 2], -1).astype(np.float32)
+    crowd[::97, 1] = np.nan
+    a = np.concatenate([near[0::2], crowd[0::2]])
+    b = np.concatenate([near[1::2], crowd[1::2]])
+    with np.errstate(invalid="ignore"):
+        w = np.maximum(np.minimum(a[:, 2], b[:, 2]) - np.maximum(a[:, 0], b[:, 0]), np.float32(0))
+        h = np.maximum(np.minimum(a[:, 3], b[:, 3]) - np.maximum(a[:, 1], b[:, 1]), np.float32(0))
+        inter = w * h
+        area_a, area_b = (a[:, 2] - a[:, 0]) * (a[:, 3] - a[:, 1]), (b[:, 2] - b[:, 0]) * (b[:, 3] - b[:, 1])
+        den = ((area_a + area_b) - inter) + np.float32(1e-7)
+    assert inter.dtype == den.dtype == np.float32
+    got, decided = _division_free_above(inter, den, thr)
+    iou = tboxes.box_iou(torch.from_numpy(a)[:, None], torch.from_numpy(b)[:, None])[:, 0, 0].numpy()
+    want = iou > np.float32(thr)
+    np.testing.assert_array_equal(got, want)
+    n = len(near) // 2
+    assert want[:n].any() and not want[:n].all()  # both sides of thr among the near pairs
+    assert 0 < int((~decided[:n]).sum()) < n // 4  # the band (with hb / ha == thr exactly) takes the division
+    assert (den[n:] <= 0).any() and (~decided[n:]).any()

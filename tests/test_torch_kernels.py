@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import k4_scene
 from yololite_tpu_torch.engine import graphs
 from yololite_tpu_torch.ops.kernels import (blocked_nms_finalize, blocked_nms_finalize_plain, greedy_nms_keep,
                                            greedy_nms_keep_plain, int8_conv, int8_conv_plain)
@@ -289,26 +290,6 @@ def _same_bits(a, b) -> bool:
                                                                      b.contiguous().view(torch.int32))
 
 
-def _k4_scene(seed, b, k, card, case):
-    """Score-sorted candidates on the card: shifted, boxes, vals, cls, valid (see tests/test_torch_blocked_nms.py)."""
-    rng = np.random.default_rng(seed)
-    c = rng.uniform(20, 6000.0 if case == "spread" else 600.0, (b, k, 2))
-    wh = rng.uniform(10, 120, (b, k, 2))
-    boxes = np.concatenate([c - wh / 2, c + wh / 2], -1).astype(np.float32)
-    if case == "nan":  # NaN coordinates never suppress and are never suppressed
-        boxes[:, ::7, rng.integers(0, 4)] = np.nan
-    vals = np.broadcast_to(np.linspace(1.0, -0.1, k, dtype=np.float32), (b, k)).copy()
-    cls = rng.integers(0, 3, (b, k)).astype(np.float32)
-    valid = rng.uniform(size=(b, k)) > 0.1
-    if case == "first-block":
-        valid[:, 1024:] = False
-    elif case == "invalid":
-        valid[:] = False
-    t = lambda a: torch.from_numpy(a).to(card)
-    boxes, vals, cls, valid = t(boxes), t(vals), t(cls), t(valid)
-    return boxes + cls[..., None] * 7680, boxes, vals, cls, valid
-
-
 def _k4_plain(*args):
     """K4's plain version with the plain keep inside (no K1 launch)."""
     from yololite_tpu_torch.ops import nms
@@ -321,15 +302,18 @@ def _k4_plain(*args):
         nms.greedy_nms_keep = real
 
 
-K4_CASES = ["crowded", "spread", "first-block", "invalid", "nan"]
+K4_CASES = ["crowded", "spread", "first-block", "invalid", "nan", "disjoint", "near-threshold"]
 
 
 @pytest.mark.parametrize("case", K4_CASES)
-@pytest.mark.parametrize("b,k", [(1, 8192), (16, 8192), (16, 1500), (4, 2048), (2, 6720)])
+@pytest.mark.parametrize("b,k", [(1, 8192), (16, 8192), (16, 1500), (4, 2048), (2, 6720), (40, 8192), (1, 1025),
+                                 (40, 1025), (16, 8191)])
 def test_blocked_nms_kernel_matches_plain(card, b, k, case):
-    """K4 bit-equal to its plain version at max_det 1, 300 and K; one launch per call."""
-    args = _k4_scene(b * k + len(case), b, k, card, case)
-    for max_det in (1, 300, k):
+    """K4 bit-equal to its plain version at max_det 1, 300 and K (and, where a step's last candidate is the row that
+    reaches it, 256, 512 and 1024); one launch per call. B 40 holds more clusters than the card runs at once."""
+    args = k4_scene(b * k + len(case), b, k, case)
+    dets = (1, 300, k) + tuple(d for d in (256, 512, 1024) if case == "disjoint" and d < k)
+    for max_det in dets:
         before = blocked_nms_finalize.launches
         got = blocked_nms_finalize(*args, 0.5, max_det)
         torch.cuda.synchronize()
@@ -338,10 +322,76 @@ def test_blocked_nms_kernel_matches_plain(card, b, k, case):
         assert _same_bits(got, want), f"max_det {max_det}: {int((got != want).any(-1).sum())} rows differ"
         if case == "invalid":
             assert not got.any()
+        elif case == "disjoint":
+            assert int((got[..., 4] > 0).sum()) == b * min(max_det, int((args[2][0] > 0).sum()))
+        elif case == "near-threshold" and max_det == k:  # both sides of the threshold occur
+            assert 0 < int((got[..., 4] > 0).sum()) < int((args[2] > 0).sum())
+
+
+def _k4_launch(args, thr, max_det, cluster):
+    """K4 at a chosen cluster size (csrc/blocked_nms.cu blocked_nms_finalize_ex), on the current stream."""
+    from yololite_tpu_torch.ops import kernels
+
+    shifted, boxes, vals, cls, valid = args
+    b, k = valid.shape
+    out = torch.empty((b, max_det, 6), dtype=torch.float32, device=shifted.device)
+    ws = torch.empty((b, k, 4), dtype=torch.float32, device=shifted.device)
+    lib = kernels._blocked_lib()
+    rc = lib.blocked_nms_finalize_ex(*(t.data_ptr() for t in (*args, out, ws)), b, k, thr, max_det, cluster,
+                                     shifted.device.index or 0, torch.cuda.current_stream().cuda_stream)
+    assert rc == 0, lib.blocked_nms_error_string(rc).decode()
+    return out
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 3, 5, 8, 11, 16])
+def test_blocked_nms_kernel_any_cluster_size(card, cluster):
+    """Every cluster size the C interface offers gives the plain version's bits; at cluster 1 the spread scene's
+    7,000-odd kept boxes overflow a CTA's shared share into the workspace."""
+    from yololite_tpu_torch.ops.kernels import blocked_nms_plan
+
+    for case, thr in (("spread", 0.5), ("crowded", 0.7), ("near-threshold", 0.5)):
+        args = k4_scene(cluster * 100 + len(case), 2, 8192, case)
+        for max_det in (300, 8192):
+            got = _k4_launch(args, thr, max_det, cluster)
+            torch.cuda.synchronize()
+            assert _same_bits(got, _k4_plain(*args, thr, max_det)), f"{case} max_det {max_det}"
+    plan = blocked_nms_plan(2, 8192, cluster=cluster)
+    assert plan["cluster"] == cluster and plan["step"] == 512 and plan["max_active_clusters"] >= 1
+    assert plan["share_cap"] == min(-(-8192 // cluster), 5120)  # 100 KB of 20-byte boxes, the rest in the workspace
+
+
+def test_blocked_nms_plan_fills_the_card_in_one_wave(card):
+    """The default cluster size is the largest the card runs B of at once; it is > 1 at val's B 16."""
+    from yololite_tpu_torch.ops.kernels import blocked_nms_plan
+
+    for b in (1, 8, 16, 40):
+        plan = blocked_nms_plan(b, 8192)
+        assert plan["max_active_clusters"] >= b or plan["cluster"] == 1
+        if plan["cluster"] < 16:
+            assert blocked_nms_plan(b, 8192, cluster=plan["cluster"] + 1)["max_active_clusters"] < b
+    assert blocked_nms_plan(16, 8192)["cluster"] > 1
+
+
+def test_blocked_nms_kernel_replays_in_a_graph(card):
+    """K4 captured in a CUDA graph replays to the eager call's bits (it allocates nothing and syncs nothing)."""
+    args = k4_scene(11, 16, 8192, "crowded")
+    want = blocked_nms_finalize(*args, 0.7, 300)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        blocked_nms_finalize(*args, 0.7, 300)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = blocked_nms_finalize(*args, 0.7, 300)
+    got.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert _same_bits(got, want) and _same_bits(want, _k4_plain(*args, 0.7, 300))
 
 
 def test_blocked_nms_kernel_rejects_what_it_does_not_take(card):
-    shifted, boxes, vals, cls, valid = _k4_scene(0, 2, 2048, card, "crowded")
+    shifted, boxes, vals, cls, valid = k4_scene(0, 2, 2048, "crowded")
     with pytest.raises(TypeError):
         blocked_nms_finalize(shifted.double(), boxes, vals, cls, valid, 0.5, 300)
     with pytest.raises(TypeError):
@@ -355,7 +405,7 @@ def test_blocked_nms_kernel_rejects_what_it_does_not_take(card):
 
 
 def test_blocked_nms_op_equals_the_direct_launch(card):
-    args = _k4_scene(9, 4, 2048, card, "crowded")
+    args = k4_scene(9, 4, 2048, "crowded")
     before = blocked_nms_finalize.launches
     via_op = torch.ops.yololite_tpu_torch.blocked_nms_finalize(*args, 0.45, 300)
     direct = blocked_nms_finalize(*args, 0.45, 300)

@@ -1,8 +1,9 @@
-// Device code shared by the exact greedy NMS kernels for Hopper (sm_90a):
-// csrc/greedy_nms_keep.cu (K1) and csrc/blocked_nms.cu (K4).
+// Device code of the exact greedy NMS kernels for Hopper (sm_90a):
+// csrc/greedy_nms_keep.cu (K1) and csrc/blocked_nms.cu (K4). K4 uses the
+// min/max and area helpers; its own walk and IoU test are in blocked_nms.cu.
 //
-// Both resolve up to 1024 score-sorted candidates in one block of 1024
-// threads with the same two phases (see greedy_nms_keep.cu for the design):
+// K1 resolves up to 1024 score-sorted candidates in one block of 1024
+// threads with two phases (see greedy_nms_keep.cu for the design):
 //   phase A (`build_suppression`): the upper-triangular suppression bitmask
 //            sup[i][w] in shared memory, 64-bit words, a warp per row and a
 //            ballot per 32 columns;

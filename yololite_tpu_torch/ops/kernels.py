@@ -217,6 +217,20 @@ def _blocked_nms_finalize_fake(shifted: Tensor, boxes: Tensor, vals: Tensor, cls
     return torch.empty((valid.shape[0], max_det, 6), dtype=torch.float32, device=shifted.device)
 
 
+def blocked_nms_plan(b: int, k: int, device: Optional[torch.device] = None, cluster: int = 0) -> dict:
+    """What csrc/blocked_nms.cu's launch for a (B, K) batch uses on the card (cluster 0: the size it picks for B):
+    {"cluster": C CTAs an image, "step": S candidates a step, "smem": a CTA's dynamic shared memory in bytes,
+    "share_cap": kept boxes a CTA holds in shared memory, "max_active_clusters": cudaOccupancyMaxActiveClusters,
+    "threads": a CTA's}."""
+    device = torch.device("cuda", torch.cuda.current_device()) if device is None else torch.device(device)
+    plan = (ctypes.c_int * 6)()
+    lib = _blocked_lib()
+    rc = lib.blocked_nms_plan(b, k, cluster, device.index or 0, plan)
+    if rc != 0:
+        raise RuntimeError(f"blocked_nms_plan failed: {lib.blocked_nms_error_string(rc).decode()}")
+    return dict(zip(("cluster", "step", "smem", "share_cap", "max_active_clusters", "threads"), plan))
+
+
 def _blocked_lib() -> ctypes.CDLL:
     from yololite_tpu_torch.ops import cuda_build
 
@@ -225,6 +239,11 @@ def _blocked_lib() -> ctypes.CDLL:
         lib.blocked_nms_finalize.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
                                                                      ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         lib.blocked_nms_finalize.restype = ctypes.c_int
+        lib.blocked_nms_finalize_ex.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_int, ctypes.c_float] + [
+            ctypes.c_int] * 3 + [ctypes.c_void_p]
+        lib.blocked_nms_finalize_ex.restype = ctypes.c_int
+        lib.blocked_nms_plan.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+        lib.blocked_nms_plan.restype = ctypes.c_int
         lib.blocked_nms_error_string.argtypes = [ctypes.c_int]
         lib.blocked_nms_error_string.restype = ctypes.c_char_p
     return lib
