@@ -49,13 +49,20 @@ Phases, each of which exits non-zero on failure:
      with K1 and plain cross passes); times K4 on val's own inputs against
      its plain version, with its bound; checks that the card agrees with the
      CPU on 4 images at imgsz 160;
-  5. train: writes 64 train and 16 val PNGs and trains
-     YOLOLite("yolo11n.yaml") at imgsz 640, batch 16, 2 epochs, mosaic,
-     default hyperparameters (AdamW by 'auto'), in fp32 (TF32 off) and with
-     amp (bf16): checks that each epoch's EMA val (eager) launched K4 once per
-     batch and K1 never, finite loss items, last.npz, best.npz and
-     results.csv;
-     predicts from best.npz; resumes last.npz for a third epoch and checks
+  5. train: writes 64 train and 16 val PNGs; (a) holds the train graphs to
+     the eager steps in deterministic mode: 10 steps at 640, batch 16 from
+     the same start, the warmup ramp over the first 4, AdamW fp32 and bf16
+     (grad and apply graphs) and SGD at nbs 16 (the fused graph): loss items,
+     fg_mask, weights, BN statistics, optimizer moments and EMA bit for bit
+     (or within a second eager run's spread, the op named); (b) trains
+     YOLOLite("yolo11n.yaml") at imgsz 640, batch 16, 3 epochs, mosaic,
+     default hyperparameters (AdamW by 'auto'), graphed in fp32 (TF32 off)
+     and with amp (bf16), and eagerly in fp32: epoch-loop img/s, the step
+     graphs' captures and replays and the pool's bytes; (c) checks that each
+     epoch's EMA val launched K4 once per batch and K1 never, replays every
+     batch in its third epoch and gives the metrics of an eager val of the
+     same EMA; finite loss items, last.npz, best.npz and results.csv;
+     predicts from best.npz; resumes last.npz for a fourth epoch and checks
      the optimizer's restored moments; checks the kernel against the plain
      keep in one EMA val batch; holds the one-process fp32 SGD step at 640,
      batch 16 to the float64 step at 1e-3 relative L2 on every gradient, on
@@ -64,9 +71,13 @@ Phases, each of which exits non-zero on failure:
      it); times the epoch loop, the host
      loader alone,
      one step's stages alone (forward, loss with TAL, backward, clip +
-     optimizer + EMA) with its peak memory, the device's idle share over an
-     epoch (torch.profiler), K5/K6 forward and backward and K7 at the train
-     step's shapes; checks one step on the card against the CPU at imgsz 160;
+     optimizer + EMA, the whole step graphed and eager) with its peak memory
+     graphed and eager, an epoch loop's third pass taken apart (loader,
+     upload, host enqueue, the card; the pass's captures and first sights)
+     graphed and eager, the device's idle share over 2 epochs
+     (torch.profiler) graphed and eager, K5/K6 forward and backward and K7 at
+     the train step's shapes; checks one step on the card against the CPU at
+     imgsz 160;
   6. serving: (a) writes two upstream-format .pt files from init(0) and
      init(1) models (a plain one and a 2-member nn.ModuleList ensemble),
      loads them through the stub unpickler (weights bit-equal), predicts 32
@@ -120,7 +131,8 @@ Phases, each of which exits non-zero on failure:
      RT-DETR-L's widths (d 256, 8 heads, 3 levels, 4 points, 300 queries,
      6 layers, batch 8) on the card against the CPU, relative L2 1e-4.
 The kernels line's launches count the runs of the main paths (a replayed
-graph adds the launches its capture recorded): predict, train's reload,
+graph adds the launches its capture recorded; the K5/K6 `.calls` counters
+likewise): predict, train's reload,
 serving, the zoo's GELAN-T predict and phase 8's mesh predict for K1; val,
 train's EMA vals and final vals, the zoo's GELAN-T val and phase 8's mesh val
 and rank 0 for K4; the int8 predict calls (yolo11n and yolo11m) for K8.
@@ -738,6 +750,105 @@ def grad_rel_l2(a, b, floor: float) -> float:
     return float((a - b).norm() / max(float(b.norm()), floor))
 
 
+@contextlib.contextmanager
+def deterministic():
+    """torch's deterministic mode inside the block (cuDNN's deterministic algorithms, the sort-based index and
+    scatter sums); an op with no deterministic CUDA version warns instead of raising, and its name is added to the
+    set yielded. cuBLAS needs CUBLAS_WORKSPACE_CONFIG, which main() sets before the first cuBLAS call."""
+    import warnings
+
+    import torch
+
+    before = (torch.are_deterministic_algorithms_enabled(), torch.is_deterministic_algorithms_warn_only_enabled(),
+              torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    names = set()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+        try:
+            yield names
+        finally:
+            torch.use_deterministic_algorithms(before[0], warn_only=before[1])
+            torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = before[2], before[3]
+            names.update(str(w.message).split(" does not have a deterministic")[0] for w in caught
+                         if "does not have a deterministic" in str(w.message))
+
+
+def train_step_groups(tr) -> dict:
+    """A trainer's state after its steps, by group: weights, BN statistics, optimizer moments, EMA (lists of
+    tensors)."""
+    from yololite_tpu_torch.engine import optim
+
+    named = tr._named_trainable()
+    mu, nu = optim.moments(tr.opt_name, tr.optimizer, named)
+    return {"weights": list(named.values()),
+            "BN statistics": [b for k, b in tr.model.named_buffers() if "running" in k],
+            "optimizer moments": [*mu.values(), *nu.values()],
+            "EMA": [v for v in tr.ema.ema.state_dict().values() if v.is_floating_point()]}
+
+
+def graphed_vs_eager_steps(ov, model_fn, batches, nw: int) -> dict:
+    """Trainers from the same start take the same iterations (`batches`, the warmup ramping lr, momentum and
+    accumulate over `nw` iterations) in deterministic mode: one through the train graphs, one eagerly
+    (`graphs.eager()`) and one more eagerly (the eager-to-eager spread). Returns per group (loss items, fg_mask,
+    weights, BN statistics, optimizer moments, EMA) whether graphed equals eager bit for bit and the largest
+    |graphed - eager| and |eager - eager|, the graphed trainer's captures, replays and warm-ups by kind of step,
+    its applies, and the ops that have no deterministic CUDA version."""
+    import numpy as np
+    import torch
+
+    from yololite_tpu_torch.engine import graphs
+    from yololite_tpu_torch.engine.trainer import DetectionTrainer
+
+    runs = {}
+    with deterministic() as nondet:
+        for kind in ("graphed", "eager", "eager again"):
+            tr = DetectionTrainer(overrides={**ov, "name": f"{ov.get('name', 'steps')}_{kind.replace(' ', '_')}"})
+            tr.set_model(model_fn())
+            tr._setup_train()
+            tr.model.train()
+            items, fg, last, applies = [], [], -1, 0
+            with graphs.eager() if kind != "graphed" else contextlib.nullcontext():
+                for ni, b in enumerate(batches):
+                    tr.accumulate, lr_vec, momentum = tr._schedule(ni, nw, 0)
+                    apply = tr.fused or ni - last >= tr.accumulate
+                    items.append(tr._train_batch(dict(b), apply, lr_vec, momentum))
+                    fg.append(tr.fg_mask)
+                    if apply:
+                        last, applies = ni, applies + 1
+            torch.cuda.synchronize()
+            runs[kind] = (tr, {"loss items": items, "fg_mask": fg, **train_step_groups(tr)}, applies)
+    tg, g, applies = runs["graphed"]
+    _, e, _ = runs["eager"]
+    _, e2, _ = runs["eager again"]
+    dist = lambda xs, ys: max(float((x.detach().double() - y.detach().double()).abs().max()) if x.numel() else 0.0
+                              for x, y in zip(xs, ys))
+    out = {k: {"equal": all(torch.equal(x, y) for x, y in zip(g[k], e[k])), "graphed_eager": dist(g[k], e[k]),
+               "eager_eager": dist(e2[k], e[k])} for k in e}
+    kinds = {}
+    for key in tg.graphs._graphs:
+        kinds[key[0]] = kinds.get(key[0], 0) + 1
+    return {"groups": out, "captured": kinds, "captures": tg.graphs.captures, "replays": tg.graphs.replays,
+            "warmups": tg.graphs.warmups, "calls": tg.graphs.calls, "steps": len(batches), "applies": applies,
+            "nondeterministic": sorted(nondet), "fused": tg.fused, "accumulate": tg.accumulate}
+
+
+def graphed_vs_eager_verdict(report: dict) -> str:
+    """'bit for bit' when every group of a `graphed_vs_eager_steps` report is equal; else each unequal group held
+    within the eager-to-eager spread, named with the ops torch has no deterministic version of. Raises otherwise."""
+    bad = {k: v for k, v in report["groups"].items() if not v["equal"]}
+    if not bad:
+        return "bit for bit"
+    over = {k: v for k, v in bad.items() if v["graphed_eager"] > v["eager_eager"]}
+    if over or not report["nondeterministic"]:
+        raise AssertionError(f"graphed train steps differ from eager beyond the eager-to-eager spread: {bad}; "
+                             f"nondeterministic ops {report['nondeterministic']}")
+    return ("within the eager-to-eager spread (" + "; ".join(f"{k} {v['graphed_eager']:.3g} <= {v['eager_eager']:.3g}"
+                                                            for k, v in bad.items())
+            + f"; ops with no deterministic CUDA version: {report['nondeterministic']})")
+
+
 def train_phase(card: str):
     """yolo11n train at 640 on the card through the facade, its checks and timings.
 
@@ -759,7 +870,7 @@ def train_phase(card: str):
     from yololite_tpu_torch import YOLOLite
     from yololite_tpu_torch.cfg import get_cfg
     from yololite_tpu_torch.data.dataset import build_dataloader, build_yolo_dataset
-    from yololite_tpu_torch.engine import optim
+    from yololite_tpu_torch.engine import graphs, optim
     from yololite_tpu_torch.engine.predictor import forward_nhwc, fp32_convs
     from yololite_tpu_torch.data.utils import check_det_dataset
     from yololite_tpu_torch.engine.trainer import DetectionTrainer
@@ -778,16 +889,29 @@ def train_phase(card: str):
     n_train, bs = 64, 16
 
     class CheckedTrainer(DetectionTrainer):
-        """Checks each epoch's EMA val (eager): K4 once per val batch of the K = 8192 NMS, K1 never."""
+        """Checks each epoch's EMA val: K4 once per val batch of the K = 8192 NMS, K1 never, and (graphed) metrics
+        equal to an eager val of the same EMA; records the val graphs' calls, captures and replays per epoch."""
 
         def validate(self):
             k1, k4 = greedy_nms_keep.launches, blocked_nms_finalize.launches
+            g = self.validator.ema_graphs
+            before = (g.calls, g.captures, g.replays)
             stats = super().validate()
             n1, n4 = greedy_nms_keep.launches - k1, blocked_nms_finalize.launches - k4
             if n1 or n4 != len(self.validator.dataloader):
                 raise AssertionError(f"train epoch {self.epoch}: EMA val made {n1} K1 and {n4} K4 launches for "
                                      f"{len(self.validator.dataloader)} batches")
             self.val_launches = getattr(self, "val_launches", []) + [n4]
+            self.val_graphs = getattr(self, "val_graphs", []) + [
+                tuple(a - b for a, b in zip((g.calls, g.captures, g.replays), before))]
+            if not graphs._eager:  # the same EMA eagerly: the same metrics
+                k4 = blocked_nms_finalize.launches
+                with graphs.eager():
+                    eager = self.validator(trainer=self)
+                self.compare_k4 = getattr(self, "compare_k4", 0) + blocked_nms_finalize.launches - k4
+                if eager != stats:
+                    raise AssertionError(f"train epoch {self.epoch}: the graphed EMA val's metrics {stats} differ "
+                                         f"from the eager val's {eager}")
             return stats
 
     def start_model():
@@ -797,40 +921,90 @@ def train_phase(card: str):
                 seq[2].bias.fill_(-6.0)
         return m
 
+    # (a) the train graphs against the eager steps, in deterministic mode: N steps from the same start, the warmup
+    # (lr, momentum and accumulate ramping) over the first 4; AdamW in fp32 and bf16 through the grad and apply
+    # graphs (nbs 32: accumulate 1 -> 2; the apply graph keyed by the momentum captures once the ramp ends), SGD
+    # through the fused graph (nbs 16 at batch 16: accumulate 1; the ramp's steps eager by their momentum)
+    hyp = get_cfg(overrides={"data": str(data), "imgsz": 640, "batch": bs, "mode": "train"})
+    dinfo = check_det_dataset(str(data))
+    loader = build_dataloader(build_yolo_dataset(hyp, dinfo["train"], bs, dinfo, mode="train"), bs, hyp.workers,
+                              shuffle=True, seed=0)
+    n_steps = 10
+    batches = [b for _ in range(3) for b in loader][:n_steps]
+    for case, kw in (("AdamW fp32", dict(optimizer="AdamW", nbs=32, amp=False)),
+                     ("AdamW bf16", dict(optimizer="AdamW", nbs=32, amp=True)),
+                     ("SGD fused", dict(optimizer="SGD", nbs=16, amp=False))):
+        ov = {"data": str(data), "imgsz": 640, "batch": bs, "val": False, "save": False, "plots": False,
+              "project": str(root / "runs"), "name": case.replace(" ", "_"), **kw}
+        t0 = time.perf_counter()
+        rep = graphed_vs_eager_steps(ov, lambda: start_model().model, batches, nw=4)
+        verdict = graphed_vs_eager_verdict(rep)
+        want = {"fused"} if kw["optimizer"] == "SGD" else {"grad", "apply"}
+        if set(rep["captured"]) != want or rep["fused"] != (kw["optimizer"] == "SGD") or not rep["replays"]:
+            raise AssertionError(f"train graphs {case}: captured {rep['captured']}, fused {rep['fused']}, "
+                                 f"{rep['replays']} replays")
+        groups = ", ".join(f"{k} {'equal' if v['equal'] else 'NOT equal'} (max |graphed - eager| "
+                           f"{v['graphed_eager']:.3g}, |eager - eager| {v['eager_eager']:.3g})"
+                           for k, v in rep["groups"].items())
+        log(f"train graphs (a) {case}: {rep['steps']} steps at 640, batch {bs}, warmup over 4, {rep['applies']} "
+            f"applies, accumulate {rep['accumulate']} at the end, deterministic mode: graphed == eager {verdict}; "
+            f"{groups}; graphs held by kind {rep['captured']}, {rep['captures']} captures, {rep['replays']} replays "
+            f"of {rep['calls']} graph calls, {rep['warmups']} warm-ups; ops torch has no deterministic CUDA version "
+            f"of: {rep['nondeterministic'] or 'none'}; {time.perf_counter() - t0:.1f} s, on {card}")
+
+    # (b), (c) the facade's train, graphed (fp32 and bf16) and eager (fp32), 3 epochs: the keys repeat from the
+    # second step, the EMA val's bucket shapes from the second epoch
     launches = {"greedy_nms_keep": 0, "blocked_nms_finalize": 0}
     runs = {}
-    for amp in (False, True):
+    for amp, mode in ((False, "graphed"), (True, "graphed"), (False, "eager")):
         dtype = "bf16" if amp else "fp32"
         m = start_model()
         greedy_nms_keep.launches = blocked_nms_finalize.launches = 0
+        pool0 = graphs.pool_reserved_bytes()
         t0 = time.perf_counter()
-        m.train(trainer=CheckedTrainer, data=str(data), epochs=2, imgsz=640, batch=bs, amp=amp, plots=False,
-                project=str(root / "runs"), name=dtype)
+        with graphs.eager() if mode == "eager" else contextlib.nullcontext():
+            m.train(trainer=CheckedTrainer, data=str(data), epochs=3, imgsz=640, batch=bs, amp=amp, plots=False,
+                    project=str(root / "runs"), name=f"{dtype}_{mode}")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        n, n1 = blocked_nms_finalize.launches, greedy_nms_keep.launches
+        t = m.trainer
+        n, n1 = blocked_nms_finalize.launches - getattr(t, "compare_k4", 0), greedy_nms_keep.launches
         if n1:
             raise AssertionError(f"train {dtype}: {n1} K1 launches; every val NMS is K = 8192 (K4)")
-        launches["blocked_nms_finalize"] += n
-        t = m.trainer
+        if mode == "graphed":
+            launches["blocked_nms_finalize"] += n
         rows = np.loadtxt(t.csv, delimiter=",", skiprows=1, ndmin=2)
-        if rows.shape[0] != 2 or not np.isfinite(rows).all() or not (rows[:, 1:4] > 0).all():
-            raise AssertionError(f"train {dtype}: results.csv rows not finite or not 2 epochs: {rows}")
+        if rows.shape[0] != 3 or not np.isfinite(rows).all() or not (rows[:, 1:4] > 0).all():
+            raise AssertionError(f"train {dtype}: results.csv rows not finite or not 3 epochs: {rows}")
         for f in (t.last, t.best, t.csv):
             if not Path(f).exists():
                 raise AssertionError(f"train {dtype}: {f} missing")
-        if t.opt_name != "AdamW" or len(t.val_launches) != 2:
+        if t.opt_name != "AdamW" or len(t.val_launches) != 3:
             raise AssertionError(f"train {dtype}: optimizer {t.opt_name}, EMA val launches {t.val_launches}")
-        runs[dtype] = t
+        g = t.graphs
+        if mode == "graphed":
+            n_val = len(t.validator.dataloader)
+            if not g.replays or t.val_graphs[2][2] != n_val:
+                raise AssertionError(f"train {dtype}: {g.replays} train step replays; EMA val graphs (calls, "
+                                     f"captures, replays) per epoch {t.val_graphs}, {n_val} batches")
+        elif g.calls:
+            raise AssertionError(f"train {dtype} eager: {g.calls} graph calls")
+        runs[(dtype, mode)] = t
         ips = [n_train / s_ for s_ in t.train_seconds]
-        log(f"train: yolo11n {dtype} at 640, batch {bs}, {n_train} images, 2 epochs, mosaic, AdamW (auto): "
+        log(f"train: yolo11n {dtype} {mode} at 640, batch {bs}, {n_train} images, 3 epochs, mosaic, AdamW (auto): "
             f"epoch loop without val {', '.join(f'{s_:.3f} s ({v:.1f} img/s)' for s_, v in zip(t.train_seconds, ips))}; "
-            f"whole train() {wall:.2f} s; loss items per epoch {rows[:, 1:4].round(5).tolist()}; K4 launches "
-            f"{n} ({t.val_launches} in the eager EMA vals, the rest in the final val of best.npz: one batch, "
-            f"seen once, so eager), on {card}")
+            f"whole train() {wall:.2f} s; loss items per epoch {rows[:, 1:4].round(5).tolist()}; train steps "
+            f"{g.calls} on the card, {g.captures} captured, {g.replays} replayed ({len(t._step_shapes)} (shape, M) "
+            f"variants, graphs held by kind {sorted(k[0] for k in g._graphs)}); EMA val graphs (calls, captures, "
+            f"replays) per epoch {t.val_graphs}, metrics equal to an eager val each epoch; K4 launches {n} "
+            f"(and {getattr(t, 'compare_k4', 0)} in those eager vals) "
+            f"({t.val_launches} in the EMA vals, the rest in the final val of best.npz: one batch, seen once, so "
+            f"eager); graph pool {graphs.pool_reserved_bytes() / 2 ** 20:.1f} MiB reserved (+"
+            f"{(graphs.pool_reserved_bytes() - pool0) / 2 ** 20:.1f} in this run), "
+            f"{graphs.pool_allocated_bytes() / 2 ** 20:.1f} MiB of it held by live blocks, on {card}")
 
     # reload best.npz and predict; resume last.npz for one more epoch with the optimizer state restored
-    t32 = runs["fp32"]
+    t32 = runs[("fp32", "graphed")]
     frames = [np.random.default_rng(22).integers(0, 256, (480, 640, 3), dtype=np.uint8) for _ in range(4)]
     greedy_nms_keep.launches = 0
     res = YOLOLite(str(t32.best)).predict(frames, imgsz=640, conf=1e-7, batch=4, save=False, verbose=False)
@@ -854,10 +1028,10 @@ def train_phase(card: str):
 
     blocked_nms_finalize.launches = 0
     rt = ResumeChecked(overrides={"resume": str(t32.last)})
-    rt.epochs = 3
+    rt.epochs = 4
     rt.train()
-    launches["blocked_nms_finalize"] += blocked_nms_finalize.launches
-    if restored.get("epoch") != 2 or restored["saved_epoch"] != 1 or rt.epoch != 2 or restored["step"] < 1:
+    launches["blocked_nms_finalize"] += blocked_nms_finalize.launches - getattr(rt, "compare_k4", 0)
+    if restored.get("epoch") != 3 or restored["saved_epoch"] != 2 or rt.epoch != 3 or restored["step"] < 1:
         raise AssertionError(f"resume: {restored}, ran to epoch {rt.epoch}")
     log(f"train: best.npz predicts on the card ({[len(r) for r in res]} detections); resume from last.npz (epoch "
         f"{restored['saved_epoch']}) ran epoch {rt.epoch + 1} with AdamW at step {restored['step']} and "
@@ -899,13 +1073,14 @@ def train_phase(card: str):
     log(f"train: host loader alone (mosaic, perspective, HSV, flips; {hyp.workers} workers, two batches in flight, "
         f"images in the RAM buffer): {n_train / t_load:.1f} img/s ({t_load:.3f} s for {n_train}), on {card}")
 
-    # one step's stages alone on a batch of 16 at 640 (CUDA events), its peak memory, per dtype
+    # one step's stages alone on a batch of 16 at 640 (CUDA events), its peak memory graphed and eager, per dtype
     for amp in (False, True):
         dtype = "bf16" if amp else "fp32"
         st = DetectionTrainer(overrides={"data": str(data), "imgsz": 640, "batch": bs, "amp": amp, "val": False, "save": False,
                               "project": str(root / "runs"), "name": f"stages_{dtype}"})
         st.set_model(start_model().model)
         st._setup_train()
+        pool0 = graphs.pool_reserved_bytes()
         batch = next(iter(st.train_loader))
         images = torch.from_numpy(batch["img"]).cuda()
         targets = st._targets(batch)
@@ -914,77 +1089,113 @@ def train_phase(card: str):
             fw = event_ms(lambda: None, lambda _: st._forward(images))
             loss = event_ms(lambda: st._forward(images), lambda f: st.loss_fn(f, targets))
             bw = event_ms(lambda: st.loss_fn(st._forward(images), targets)[0], lambda tot: tot.backward())
-            st.optimizer.zero_grad(set_to_none=True)
-            opt = event_ms(lambda: st._grad_step(images, targets), lambda _: st._apply_step(lr, mom))
-            DFLExpectation.calls = DFLCrossEntropy.calls = BCESum.calls = 0
-            torch.cuda.synchronize()
-            base = torch.cuda.memory_allocated()
-            torch.cuda.reset_peak_memory_stats()
-            st._grad_step(images, targets)
-            st._apply_step(lr, mom)
-            torch.cuda.synchronize()
-            peak = torch.cuda.max_memory_allocated()
-        calls = (DFLExpectation.calls, DFLCrossEntropy.calls, BCESum.calls)
+            torch._foreach_zero_(st._grads)
+            opt = event_ms(lambda: st._grad_step(images, targets), lambda _: st._apply_step(lr, mom))  # replayed
+            with graphs.eager():
+                opt_eager = event_ms(lambda: st._grad_step(images, targets), lambda _: st._apply_step(lr, mom))
+            step = event_ms(lambda: None, lambda _: (st._grad_step(images, targets), st._apply_step(lr, mom)))
+            with graphs.eager():
+                step_eager = event_ms(lambda: None, lambda _: (st._grad_step(images, targets),
+                                                              st._apply_step(lr, mom)))
+            peaks = {}
+            for mode in ("graphed", "eager"):
+                with graphs.eager() if mode == "eager" else contextlib.nullcontext():
+                    DFLExpectation.calls = DFLCrossEntropy.calls = BCESum.calls = 0
+                    torch.cuda.synchronize()
+                    base = torch.cuda.memory_allocated()
+                    torch.cuda.reset_peak_memory_stats()
+                    st._grad_step(images, targets)
+                    st._apply_step(lr, mom)
+                    torch.cuda.synchronize()
+                    peaks[mode] = (torch.cuda.max_memory_allocated() - base, base,
+                                   (DFLExpectation.calls, DFLCrossEntropy.calls, BCESum.calls))
+        g = st.graphs
         log(f"train: one step's stages alone ({dtype}, batch {bs} at 640, CUDA events, median of 10): forward "
-            f"{fw:.3f} ms, loss incl. TAL {loss:.3f} ms, backward {bw:.3f} ms, clip + AdamW + EMA {opt:.3f} ms; "
-            f"M = {targets['gt_bboxes'].shape[1]}; peak memory of a step {peak / 2 ** 20:.1f} MiB "
-            f"({(peak - base) / 2 ** 20:.1f} above the {base / 2 ** 20:.1f} held); K5/K6 calls per step "
-            f"(DFLExpectation, DFLCrossEntropy, BCESum) {calls}, on {card}")
+            f"{fw:.3f} ms, loss incl. TAL {loss:.3f} ms, backward {bw:.3f} ms (eager, each alone); clip + AdamW + EMA "
+            f"{opt:.3f} ms replayed, {opt_eager:.3f} eager; the whole step (grad + apply) {step:.3f} ms replayed, "
+            f"{step_eager:.3f} eager; M = {targets['gt_bboxes'].shape[1]}; step's peak above the "
+            f"{peaks['eager'][1] / 2 ** 20:.1f} MiB held: graphed {peaks['graphed'][0] / 2 ** 20:.1f} MiB (its "
+            f"activations live in the graph pool: {graphs.pool_reserved_bytes() / 2 ** 20:.1f} MiB reserved, "
+            f"+{(graphs.pool_reserved_bytes() - pool0) / 2 ** 20:.1f} for this trainer's captures), eager "
+            f"{peaks['eager'][0] / 2 ** 20:.1f} MiB; K5/K6 calls per step (DFLExpectation, DFLCrossEntropy, BCESum) "
+            f"graphed {peaks['graphed'][2]} (a replay adds its capture's), eager {peaks['eager'][2]}; "
+            f"{g.captures} captures, {g.replays} replays, on {card}")
 
-    # where an epoch loop's wall time goes (fp32): blocked on the loader, enqueueing the step, waiting for the card
+    # where an epoch loop's wall time goes (fp32), graphed and eager: blocked on the loader, enqueueing the step
+    # (a replay: the graph launch and the copies in and out), waiting for the card
     lt = DetectionTrainer(overrides={"data": str(data), "imgsz": 640, "batch": bs, "val": False, "save": False,
                                      "project": str(root / "runs"), "name": "loop"})
     lt.set_model(start_model().model)
     lt._setup_train()
-    parts = {"loader": 0.0, "enqueue": 0.0, "device": 0.0}
-    for rep in range(2):  # the first pass fills the image buffer and warms cuDNN
-        it = iter(lt.train_loader)
-        for k in parts:
-            parts[k] = 0.0
-        t_loop = time.perf_counter()
-        while True:
-            t0 = time.perf_counter()
-            b = next(it, None)
-            t1 = time.perf_counter()
-            if b is None:
-                break
-            with fp32_convs(torch.device("cuda")):
-                lt._grad_step(torch.from_numpy(b["img"]).to("cuda", non_blocking=True), lt._targets(b))
-                lt._apply_step(np.full(3, 1e-5, np.float32), 0.9)
-            t2 = time.perf_counter()
-            torch.cuda.synchronize()
-            t3 = time.perf_counter()
-            parts["loader"] += t1 - t0
-            parts["enqueue"] += t2 - t1
-            parts["device"] += t3 - t2
-        t_loop = time.perf_counter() - t_loop
-    log(f"train: one fp32 epoch loop taken apart ({n_train} images, {len(lt.train_loader)} steps, host clock, a sync "
-        f"after each step): {t_loop * 1e3:.1f} ms = blocked on the loader {parts['loader'] * 1e3:.1f} ms + host "
-        f"enqueueing forward, loss, backward, clip, AdamW and EMA {parts['enqueue'] * 1e3:.1f} ms + waiting for the "
-        f"card after that {parts['device'] * 1e3:.1f} ms, on {card}")
+    for mode in ("graphed", "eager"):
+        parts = {"loader": 0.0, "upload": 0.0, "enqueue": 0.0, "device": 0.0}
+        with graphs.eager() if mode == "eager" else contextlib.nullcontext():
+            for rep in range(3):  # the first passes fill the image buffer, warm cuDNN and capture the keys
+                it = iter(lt.train_loader)
+                for k in parts:
+                    parts[k] = 0.0
+                counts = (lt.graphs.calls, lt.graphs.captures, lt.graphs.replays)
+                per_step = []  # (host enqueue s, whether the step captured a graph)
+                t_loop = time.perf_counter()
+                while True:
+                    t0 = time.perf_counter()
+                    b = next(it, None)
+                    t1 = time.perf_counter()
+                    if b is None:
+                        break
+                    images, targets = torch.from_numpy(b["img"]).to("cuda", non_blocking=True), lt._targets(b)
+                    torch.cuda.synchronize()
+                    t2 = time.perf_counter()
+                    captures = lt.graphs.captures
+                    lt._grad_step(images, targets)
+                    lt._apply_step(np.full(3, 1e-5, np.float32), 0.9)
+                    t3 = time.perf_counter()
+                    per_step.append((t3 - t2, lt.graphs.captures > captures))
+                    torch.cuda.synchronize()
+                    t4 = time.perf_counter()
+                    for k, dt in zip(parts, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+                        parts[k] += dt
+                t_loop = time.perf_counter() - t_loop
+        steps = len(lt.train_loader)
+        ms = {k: v * 1e3 for k, v in parts.items()}
+        calls, captures, replays = (a - b for a, b in zip((lt.graphs.calls, lt.graphs.captures, lt.graphs.replays),
+                                                           counts))
+        log(f"train: one fp32 epoch loop taken apart, {mode}, its third pass ({n_train} images, {steps} steps, "
+            f"{calls} graph calls: {replays} replayed ({captures} of them captured in this pass), {calls - replays} "
+            f"eager at a key's first sight; host clock, a sync after the upload and after each step): "
+            f"{t_loop * 1e3:.1f} ms = blocked on the loader {ms['loader']:.1f} ms + uploading the pageable uint8 "
+            f"batch and the targets {ms['upload']:.1f} ms ({ms['upload'] / steps:.1f} ms a step) + host enqueueing "
+            f"forward, loss, backward, clip, AdamW and EMA {ms['enqueue']:.1f} ms ({ms['enqueue'] / steps:.1f} ms a "
+            f"step) + waiting for the card after that {ms['device']:.1f} ms ({ms['device'] / steps:.1f} ms a step); "
+            f"the enqueue of a step without a capture {', '.join(f'{e * 1e3:.1f}' for e, c in per_step if not c)} ms, "
+            f"of a step with one {', '.join(f'{e * 1e3:.1f}' for e, c in per_step if c) or '-'} ms, on {card}")
 
-    # the device's idle share over one epoch (fp32, no val, no save) under torch.profiler
-    pt = DetectionTrainer(overrides={"data": str(data), "imgsz": 640, "batch": bs, "epochs": 1, "val": False, "save": False,
-                          "project": str(root / "runs"), "name": "profile"})
-    pt.set_model(start_model().model)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        pt.train()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    on_device = [e for e in prof.events()
-                 if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
-    if not on_device:
-        raise RuntimeError("torch.profiler recorded no device activity in the train epoch")
-    by_name = {}
-    for e in on_device:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
-    device = busy_ms((e.time_range.start, e.time_range.end) for e in on_device)
-    top = ", ".join(f"{k[:48]} {v:.2f}" for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:6])
-    log(f"train: profile of one fp32 epoch ({n_train} images, no val, under torch.profiler): train() {wall:.1f} ms, "
-        f"epoch loop {pt.train_seconds[0] * 1e3:.1f} ms, device busy {device:.1f} ms, idle share of the epoch loop "
-        f"{1 - device / (pt.train_seconds[0] * 1e3):.3f}, {len(on_device)} device kernels and copies; top ms: {top}; "
-        f"on {card}")
+    # the device's idle share over a 2-epoch train (fp32, no val, no save) under torch.profiler, graphed and eager
+    for mode in ("graphed", "eager"):
+        pt = DetectionTrainer(overrides={"data": str(data), "imgsz": 640, "batch": bs, "epochs": 2, "val": False,
+                                         "save": False, "project": str(root / "runs"), "name": f"profile_{mode}"})
+        pt.set_model(start_model().model)
+        with graphs.eager() if mode == "eager" else contextlib.nullcontext():
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                pt.train()
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+        on_device = [e for e in prof.events()
+                     if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
+        if not on_device:
+            raise RuntimeError("torch.profiler recorded no device activity in the train epochs")
+        by_name = {}
+        for e in on_device:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+        device = busy_ms((e.time_range.start, e.time_range.end) for e in on_device)
+        loop = sum(pt.train_seconds) * 1e3
+        top = ", ".join(f"{k[:48]} {v:.2f}" for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:6])
+        log(f"train: profile of a 2-epoch fp32 train, {mode} ({n_train} images, no val, under torch.profiler): "
+            f"train() {wall:.1f} ms, epoch loops {loop:.1f} ms ({', '.join(f'{x * 1e3:.1f}' for x in pt.train_seconds)}"
+            f"), device busy {device:.1f} ms, idle share of the epoch loops {1 - device / loop:.3f}, "
+            f"{len(on_device)} device kernels and copies; {pt.graphs.captures} captures, {pt.graphs.replays} replays "
+            f"of {pt.graphs.calls} graph calls; top ms: {top}; on {card}")
 
     # K5, K6, K7 at the train step's shapes: B = 16, A = 8400, 4 * reg_max = 64, nc = 80
     B, A = 16, 8400
@@ -2110,6 +2321,11 @@ def parallel_phase(card: str, frames):
 
 
 def main() -> int:
+    import os
+
+    # phase 5 holds the train graphs to the eager steps in deterministic mode, which needs cuBLAS's fixed
+    # workspace; cuBLAS reads this before its first call in the process
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import numpy as np
     import torch
 

@@ -168,14 +168,19 @@ def test_predictor_steps_go_through_its_cache_and_quantizing_drops_it():
 
 
 def test_validator_graphs_standalone_and_not_the_trainers_val():
+    """Standalone val steps through a cache of its own; a trainer's val through the validator's `ema_graphs`, one
+    cache kept across its calls (its net's weights move in place); without a cache the step runs eagerly. On CPU
+    tensors nothing is captured and all three give the same detections."""
     v = DetectionValidator(args={"imgsz": 64, "batch": 2, "conf": 1e-7, "mode": "val"}, device="cpu")
     model = DetectionModel(NARROW).init(0)
-    standalone = v._build_infer(model.eval(), model, half=False, graph=True)
-    ema = v._build_infer(model.eval(), model, half=False)
-    assert isinstance(standalone.graphs, GraphCache) and ema.graphs is None
+    standalone = v._build_infer(model.eval(), model, half=False, graphs=GraphCache())
+    trainers = v._build_infer(model.eval(), model, half=False, graphs=v.ema_graphs)
+    eager = v._build_infer(model.eval(), model, half=False)
+    assert isinstance(standalone.graphs, GraphCache) and standalone.graphs is not v.ema_graphs
+    assert trainers.graphs is v.ema_graphs and eager.graphs is None
     x = torch.from_numpy(np.random.default_rng(1).integers(0, 256, (2, 64, 64, 3), np.uint8))
-    assert torch.equal(standalone(x), ema(x))
-    assert len(standalone.graphs) == 0  # CPU tensors: nothing captured
+    assert torch.equal(standalone(x), eager(x)) and torch.equal(trainers(x), eager(x))
+    assert len(standalone.graphs) == len(v.ema_graphs) == 0  # CPU tensors: nothing captured
 
 
 @pytest.mark.parametrize("amp", [False, True])
@@ -194,3 +199,105 @@ def test_trainer_forward_feeds_an_nchw_batch(amp, monkeypatch):
     x = seen[0]
     assert x.permute(0, 3, 1, 2).is_contiguous()
     assert torch.equal(x, images.float() * (1.0 / 255.0))
+
+
+# ---------------- the train step's graphs: keys, static gradients, resume, the EMA val's bf16 copy ----------------
+
+
+def _bare_trainer(amp=False):
+    from yololite_tpu_torch.engine import trainer as T
+
+    tr = T.DetectionTrainer.__new__(T.DetectionTrainer)
+    tr.args = type("A", (), {"amp": amp})()
+    tr.device = torch.device("cpu")
+    return tr
+
+
+def test_train_graph_keys_separate_shape_m_amp_kind_and_momentum():
+    tr = _bare_trainer()
+    img = torch.zeros((2, 64, 64, 3), dtype=torch.uint8)
+    t16, t32 = ({"gt_bboxes": torch.zeros((2, m, 4))} for m in (16, 32))
+    grad = tr._step_key("grad", img, t16)
+    assert grad == tr._step_key("grad", img.clone(), {"gt_bboxes": torch.ones((2, 16, 4))})
+    assert grad != tr._step_key("grad", torch.zeros((2, 96, 64, 3), dtype=torch.uint8), t16)  # shape
+    assert grad != tr._step_key("grad", torch.zeros((2, 64, 64, 3)), t16)  # dtype
+    assert grad != tr._step_key("grad", img, t32)  # GT bucket M
+    assert grad != _bare_trainer(amp=True)._step_key("grad", img, t16)  # amp
+    assert grad != tr._step_key("fused", img, t16, 0.9)  # kind
+    apply = tr._step_key("apply", None, None, 0.9)
+    assert apply != tr._step_key("apply", None, None, 0.85) and apply != grad  # momentum, kind
+    assert apply == tr._step_key("apply", None, None, np.float32(0.9))  # the float32 value the step takes
+    assert tr._step_key("fused", img, t16, 0.9) != tr._step_key("fused", img, t16, 0.8)
+
+
+def test_static_grad_accumulation_equals_set_to_none():
+    """Two backwards into gradients allocated once as zeros (added in place, as a captured step does) equal two
+    backwards from set_to_none, bit for bit; zeroing in place then a third equals a fresh one."""
+    torch.manual_seed(0)
+    models = [DetectionModel(NARROW).init(0).train() for _ in range(2)]
+    xs = [torch.from_numpy(np.random.default_rng(s).uniform(0, 1, (2, 3, 64, 64)).astype(np.float32))
+          for s in (3, 4, 5)]
+    static = [p for p in models[0].parameters() if p.requires_grad]
+    for p in static:
+        p.grad = torch.zeros_like(p)
+    grads = [p.grad for p in static]
+    for m in models:
+        for x in xs[:2]:
+            sum(f.sum() for f in m(x)).backward()
+    assert all(p.grad is g for p, g in zip(static, grads))  # in place: the same tensors
+    for a, b in zip(models[0].parameters(), models[1].parameters()):
+        assert torch.equal(a.grad, b.grad)
+    torch._foreach_zero_(grads)
+    models[1].zero_grad(set_to_none=True)
+    for m in models:
+        sum(f.sum() for f in m(xs[2])).backward()
+    for a, b in zip(models[0].parameters(), models[1].parameters()):
+        assert torch.equal(a.grad, b.grad)
+
+
+@pytest.mark.parametrize("name", ["Adam", "AdamW", "NAdam", "SGD"])
+def test_load_moments_places_state_on_the_parameters_device_when_capturable(name):
+    """A capturable optimizer (the card's) keeps `step` and NAdam's `mu_product` on the parameter's device, so
+    `load_moments` puts them there; otherwise they stay on the host, as torch keeps them. The meta device stands
+    in for the card."""
+    from yololite_tpu_torch.engine import optim as toptim
+
+    for capturable in (False, True):
+        p = torch.nn.Parameter(torch.zeros(3, device="meta"))
+        cls = {"Adam": torch.optim.Adam, "AdamW": torch.optim.AdamW, "NAdam": torch.optim.NAdam,
+               "SGD": torch.optim.SGD}[name]
+        kw = {"momentum": 0.9} if name == "SGD" else {"capturable": capturable}
+        opt = cls([{"params": [p]}, {"params": []}, {"params": []}], lr=0.01, **kw)
+        mu = {"p": torch.ones(3)}
+        toptim.load_moments(name, opt, {"p": p}, mu, {"p": torch.full((3,), 2.0)}, step=5, beta1=0.9)
+        st = opt.state[p]
+        assert st[toptim._MOMENTS[name][0]].device.type == "meta"
+        scalars = [st[k] for k in ("step", "mu_product") if k in st]
+        assert len(scalars) == (0 if name == "SGD" else 2 if name == "NAdam" else 1)
+        for t in scalars:
+            assert t.device.type == ("meta" if capturable else "cpu") and t.dtype == torch.get_default_dtype()
+
+
+def test_half_ema_val_copy_updated_in_place_equals_a_fresh_inference_net():
+    """A half-precision trainer val keeps one bf16 copy of the EMA; each val copies the EMA's weights into it in
+    place (so a graph captured on it reads them), equal bit for bit to a fresh inference_net(ema, half, unfused)."""
+    from yololite_tpu_torch.engine.predictor import inference_net
+
+    v = DetectionValidator(args={"imgsz": 64, "batch": 2, "conf": 1e-7, "mode": "val"}, device="cpu")
+    ema = DetectionModel(NARROW).init(0).eval()
+    assert v._ema_net(ema, half=False) is ema  # fp32: the EMA module itself
+    first = v._ema_net(ema, half=True)
+    rng = np.random.default_rng(9)
+    with torch.no_grad():
+        for t in ema.state_dict().values():
+            if t.is_floating_point():
+                t.add_(torch.from_numpy(rng.standard_normal(t.shape).astype(np.float32)) * 0.1)
+    again = v._ema_net(ema, half=True)
+    assert again is first and not again.training
+    fresh = inference_net(ema, torch.device("cpu"), True, fuse=False)
+    got, want = again.state_dict(), fresh.state_dict()
+    assert list(got) == list(want)
+    for k in got:
+        assert got[k].dtype == want[k].dtype and torch.equal(got[k], want[k]), k
+    other = DetectionModel(NARROW).init(1).eval()
+    assert v._ema_net(other, half=True) is not first  # another trainer's EMA: a copy of its own

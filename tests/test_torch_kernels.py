@@ -8,6 +8,7 @@ port's dependencies:
 """
 
 import contextlib
+import os
 
 import numpy as np
 import pytest
@@ -19,6 +20,10 @@ from yololite_tpu_torch.ops.kernels import (blocked_nms_finalize, blocked_nms_fi
                                            greedy_nms_keep_plain, int8_conv, int8_conv_plain)
 
 pytestmark = pytest.mark.cuda
+
+# the train graphs are held to the eager steps in deterministic mode, which needs cuBLAS's fixed workspace; cuBLAS
+# reads this before its first call in the process
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 
 @pytest.fixture
@@ -590,3 +595,127 @@ def test_two_caches_replay_from_two_threads(card):
         t.join()
     for i in range(2):
         assert len(outs[i]) == 20 and all(_same_bits(o, want[i]) for o in outs[i])
+
+
+# ---------------- the train step's graphs and the trainer's EMA val ----------------
+
+
+def _train_data(tmp_path):
+    """8 train and 4 val PNGs at four shapes around 160 with their labels; data.yaml."""
+    from chip_smoke import write_val_dataset
+
+    root = tmp_path / "ds"
+    shapes = [(120, 160), (160, 120), (160, 160), (100, 150)]
+    write_val_dataset(root, shapes * 2, seed=30, split="train")
+    return write_val_dataset(root, shapes, seed=31, split="val")
+
+
+def _train_batches(n, seed=32):
+    """n loader-like batches of 2 uint8 images at 160 with 2-5 boxes each (GT bucket 16)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        img = rng.integers(0, 40, (2, 160, 160, 3)).astype(np.uint8)
+        bi, cls, boxes = [], [], []
+        for b in range(2):
+            for _ in range(int(rng.integers(2, 6))):
+                wh = rng.uniform(0.1, 0.4, 2)
+                c = rng.uniform(wh / 2, 1 - wh / 2)
+                x0, y0 = ((c - wh / 2) * 160).astype(int)
+                x1, y1 = ((c + wh / 2) * 160).astype(int)
+                img[b, y0:y1, x0:x1] = rng.integers(80, 255, 3)
+                bi.append(b)
+                cls.append(int(rng.integers(0, 80)))
+                boxes.append([*c, *wh])
+        out.append({"img": img, "batch_idx": np.array(bi, np.float32), "cls": np.array(cls, np.float32)[:, None],
+                    "bboxes": np.array(boxes, np.float32)})
+    return out
+
+
+def _train_overrides(data, tmp_path, name, **kw):
+    return {"data": str(data), "imgsz": 160, "batch": 2, "workers": 0, "val": False, "save": False, "plots": False,
+            "project": str(tmp_path / "runs"), "name": name, "warmup_epochs": 0, **kw}
+
+
+def _yolo11n_detecting():
+    """yolo11n init(0) with the class biases at -6: its EMA val passes conf 0.001, so K4 has work."""
+    from yololite_tpu_torch.models.model import DetectionModel
+
+    m = DetectionModel("yolo11n.yaml", nc=80).init(0)
+    with torch.no_grad():
+        for seq in m.detect.cv3:
+            seq[2].bias.fill_(-6.0)
+    return m
+
+
+TRAIN_CASES = {"grad_apply_fp32": dict(optimizer="AdamW", nbs=4, amp=False),
+               "grad_apply_bf16": dict(optimizer="AdamW", nbs=4, amp=True),
+               "fused_sgd": dict(optimizer="SGD", nbs=2, amp=False)}
+
+
+@pytest.mark.parametrize("case", list(TRAIN_CASES))
+def test_graphed_train_steps_equal_eager(card, case, tmp_path):
+    """4 steps at imgsz 160, batch 2, in deterministic mode: the grad graph (captured at step 2) and the apply graph
+    (accumulate 2: applies at steps 2 and 4, captured at the second), or the fused graph (accumulate 1, SGD), give
+    the eager steps' loss items, fg_mask, weights, BN statistics, optimizer moments and EMA bit for bit."""
+    from chip_smoke import graphed_vs_eager_steps
+
+    data = _train_data(tmp_path)
+    rep = graphed_vs_eager_steps(_train_overrides(data, tmp_path, case, **TRAIN_CASES[case]), _yolo11n_detecting,
+                                 _train_batches(4), nw=-1)
+    fused = case == "fused_sgd"
+    assert rep["fused"] == fused and rep["warmups"] == 0
+    assert rep["captured"] == ({"fused": 1} if fused else {"grad": 1, "apply": 1})
+    assert rep["replays"] == (3 if fused else 3 + 1) and rep["applies"] == (4 if fused else 2)
+    for group, v in rep["groups"].items():
+        assert v["equal"], (group, v, rep["nondeterministic"])
+
+
+@pytest.mark.parametrize("half", [False, True], ids=["fp32", "bf16"])
+def test_graphed_ema_val_equals_eager(card, half, tmp_path):
+    """A trainer's val keeps its graphs across calls: by the third call every batch replays (K4 once a batch), and
+    the metrics equal an eager val of the same EMA."""
+    from yololite_tpu_torch.engine.trainer import DetectionTrainer
+
+    data = _train_data(tmp_path)
+    t = DetectionTrainer(overrides=_train_overrides(data, tmp_path, "emaval", val=True, half=half))
+    t.set_model(_yolo11n_detecting())
+    t._setup_train()
+    g = t.validator.ema_graphs
+    runs = []
+    for _ in range(3):
+        before, replays = _counts(), g.replays
+        stats = t.validate()
+        runs.append((stats, tuple(a - b for a, b in zip(_counts(), before)), g.replays - replays))
+    n = len(t.validator.dataloader)
+    with graphs.eager():
+        eager = t.validator(trainer=t)
+    assert g.warmups == 0 and len(g) >= 1 and runs[2][2] == n  # the third val replays every batch
+    for stats, launches, _ in runs:
+        assert launches[:2] == (0, n) and stats == eager
+    assert sum(len(c) for c in t.validator.stats["conf"]) > 0  # detections: K4 had work
+
+
+def test_train_state_stays_outside_the_graph_pool(card, tmp_path):
+    """After the grad and apply graphs are captured, no tensor that lives across steps (weights, BN statistics,
+    gradients, optimizer state and lr, EMA and its decay) lies in the graph pool; a graph's static outputs do."""
+    from yololite_tpu_torch.engine.trainer import DetectionTrainer
+
+    data = _train_data(tmp_path)
+    tr = DetectionTrainer(overrides=_train_overrides(data, tmp_path, "pool", optimizer="AdamW", nbs=4))
+    tr.set_model(_yolo11n_detecting())
+    tr._setup_train()
+    last = -1
+    for ni, b in enumerate(_train_batches(6)):
+        tr.accumulate, lr_vec, momentum = tr._schedule(ni, -1, 0)
+        apply = ni - last >= tr.accumulate
+        tr._train_batch(b, apply, lr_vec, momentum)
+        last = ni if apply else last
+    torch.cuda.synchronize()
+    assert {k[0] for k in tr.graphs._graphs} == {"grad", "apply"}
+    state = [t for st in tr.optimizer.state.values() for t in st.values() if isinstance(t, torch.Tensor)]
+    lives = [*tr.model.state_dict().values(), *tr._grads, *state, *[g["lr"] for g in tr.optimizer.param_groups],
+             *tr.ema.ema.state_dict().values(), tr.ema.d, tr.ema.one_minus_d]
+    assert len(state) == 3 * len(tr._grads) and graphs.in_pool(lives) == []
+    grad = next(v for k, v in tr.graphs._graphs.items() if k[0] == "grad")
+    assert len(graphs.in_pool(list(grad.static_out))) == 2  # the loss items and fg_mask: made in the capture

@@ -51,6 +51,7 @@ from yololite_tpu_torch.engine import optim as toptim
 from yololite_tpu_torch.engine import trainer as ttrainer
 from yololite_tpu_torch.models import checkpoint as ckpt
 from yololite_tpu_torch.models.model import DetectionModel
+from yololite_tpu_torch.utils.ema import ema_decay
 
 from tests.test_torch_nms import _safe_grid
 from tests.test_torch_predict import _match_sets
@@ -276,6 +277,97 @@ def test_jax_resumes_a_port_checkpoint(step_pair, dataset):
     _assert_trees_close(_np(jt.ema.ema_params), ckpt.jax_trees(tt.ema.ema)[0], 0, 0, "EMA")
     mu, _ = toptim.moments("SGD", tt.optimizer, dict(tt.model.named_parameters()))
     _assert_trees_close(_np(jt.opt_state.mu), ckpt.tree_of(tt.model, mu), 0, 0, "momentum")
+
+
+def _ema_host_floats(ema, model, updates):
+    """The EMA update with its decay as Python floats (the form before the decay became a device tensor)."""
+    d = ema_decay(updates)
+    e_f, m_f = [], []
+    with torch.no_grad():
+        for e, m in zip(ema.state_dict().values(), model.state_dict().values()):
+            if e.is_floating_point():
+                e_f.append(e)
+                m_f.append(m.detach())
+            else:
+                e.copy_(m)
+        torch._foreach_mul_(e_f, d)
+        torch._foreach_add_(e_f, torch._foreach_mul(m_f, float(np.float32(1) - np.float32(d))))
+
+
+@pytest.mark.parametrize("opt", ["SGD", "AdamW"])
+@pytest.mark.parametrize("acc", [1, 2], ids=["accumulate1", "accumulate2"])
+def test_step_scalars_in_tensors_match_host_floats(dataset, opt, acc):
+    """Over a warmup ramp (lr, momentum and accumulate ramping in; accumulate 1 is the fused step), the trainer's
+    step, with its EMA decay in 0-d tensors written before each apply, its gradients allocated once and added into
+    in place, and (SGD) each group's lr in a 0-d tensor written in place as the card's optimizer holds it, gives
+    the weights, BN statistics, EMA and loss items of the step with host floats and set_to_none gradients, bit for
+    bit."""
+    data, root = dataset
+    kw = dict(nbs=2 * acc, optimizer=opt, imgsz=64)
+    tt, ref = (ttrainer.DetectionTrainer(overrides=_overrides(data, root, f"{name}_{opt}{acc}", **kw), device="cpu")
+               for name in ("scalars", "floats"))
+    for t in (tt, ref):
+        t.set_model(DetectionModel(NARROW, nc=3).init(0))
+        t._setup_train()
+    assert tt.fused == (acc == 1) and isinstance(tt.ema.d, torch.Tensor)
+    if opt == "SGD":
+        for g in tt.optimizer.param_groups:
+            g["lr"] = torch.tensor(float(g["lr"]))
+    for p in ref.model.parameters():
+        p.grad = None
+    nw, last, updates, applies = 5, -1, 0, 0
+    for ni in range(8):
+        b = _batch(60 + ni, imgsz=64)
+        tt.accumulate, lr_vec, momentum = tt._schedule(ni, nw, 0)
+        apply = tt.fused or ni - last >= tt.accumulate
+        got = tt._train_batch(b, apply, lr_vec, momentum)
+        total, want, _ = ref.loss_fn.forward(ref._forward(torch.from_numpy(b["img"])), ref._targets(b))
+        total.backward()
+        if apply:
+            torch.nn.utils.clip_grad_norm_(ref.model.parameters(), 10.0)
+            for gid, g in enumerate(ref.optimizer.param_groups):
+                g["lr"] = float(np.float32(lr_vec[gid]))
+                if "betas" in g:
+                    g["betas"] = (float(np.float32(momentum)), g["betas"][1])
+                else:
+                    g["momentum"] = float(np.float32(momentum))
+            ref.optimizer.step()
+            ref.optimizer.zero_grad(set_to_none=True)
+            updates += 1
+            _ema_host_floats(ref.ema.ema, ref.model, updates)
+            last, applies = ni, applies + 1
+        assert torch.equal(got, want), ni
+        for what, a, b_ in (("weights", tt.model, ref.model), ("EMA", tt.ema.ema, ref.ema.ema)):
+            for (k, x), y in zip(a.state_dict().items(), b_.state_dict().values()):
+                assert torch.equal(x, y), (ni, what, k)
+    assert tt.ema.updates == updates == applies and applies >= (8 if acc == 1 else 5)
+    assert float(tt.optimizer.param_groups[1]["lr"]) == float(np.float32(lr_vec[1]))
+
+
+def test_multi_scale_grid_coarsens_like_jax(dataset):
+    """Both trainers record the same 13 (batch shape, GT bucket) variants and draw the same multi-scale sizes: both
+    switch from the /32 grid to /64 at the 13th variant, and give the same sizes before and after."""
+    data, root = dataset
+    jt = jtrainer.DetectionTrainer(overrides=_overrides(data, root, "jax_ms", multi_scale=True))
+    tt = ttrainer.DetectionTrainer(overrides=_overrides(data, root, "port_ms", multi_scale=True), device="cpu")
+    jt.imgsz = tt.imgsz = 128
+    np.random.seed(7)  # the JAX trainer's draws come from np.random, the port's from its own generator
+    tt.np_rng = np.random.RandomState(7)
+    variants = [((2, 64 + 32 * (k % 6), 64 + 32 * (k % 6), 3), 16 << (k // 6)) for k in range(13)]
+    img = np.zeros((2, 16, 16, 3), np.uint8)
+    quants, sizes = [], []
+    for k in range(24):
+        got = [t.preprocess_batch({"img": img.copy()})["img"].shape[1] for t in (jt, tt)]
+        assert got[0] == got[1], k
+        if k < len(variants):
+            for t in (jt, tt):
+                t._track_compiles(*variants[k])
+        assert jt._ms_quant == tt._ms_quant, k
+        quants.append(tt._ms_quant)
+        sizes.append(got[1])
+    assert quants.index(64) == 12 and len(jt._step_shapes) == len(tt._step_shapes) == 13
+    assert all(s % 32 == 0 for s in sizes[:13]) and any(s % 64 for s in sizes[:13])
+    assert all(s % 64 == 0 for s in sizes[13:])
 
 
 # ---------------- augmentations and the loader ----------------
@@ -505,7 +597,8 @@ def test_async_saver_writes_in_order_and_errors_surface():
 
 
 def test_trainer_val_runs_the_current_ema_unfused(dataset, tmp_path):
-    """Each trainer val builds its net from the EMA as it stands: eval mode, BN unfused, never a cached copy."""
+    """Each trainer val runs the EMA as it stands: eval mode, BN unfused, the EMA module itself (whose weights move
+    in place), through the validator's one graph cache for a trainer's vals, never the standalone one."""
     data, root = dataset
     t = ttrainer.DetectionTrainer(overrides=_overrides(data, tmp_path, "val", val=True), device="cpu")
     t.set_model(DetectionModel(NARROW, nc=3).init(0))
@@ -513,9 +606,10 @@ def test_trainer_val_runs_the_current_ema_unfused(dataset, tmp_path):
     nets = []
     build = t.validator._build_infer
 
-    def spy(net, model, half):
-        nets.append((net, [m.running_mean.clone() for m in net.modules() if isinstance(m, torch.nn.BatchNorm2d)]))
-        return build(net, model, half)
+    def spy(net, model, half, graphs=None):
+        nets.append((net, [m.running_mean.clone() for m in net.modules() if isinstance(m, torch.nn.BatchNorm2d)],
+                     graphs))
+        return build(net, model, half, graphs)
 
     t.validator._build_infer = spy
     stats = t.validate()
@@ -525,6 +619,7 @@ def test_trainer_val_runs_the_current_ema_unfused(dataset, tmp_path):
                 m.running_mean.add_(0.5)
     t.validate()
     assert len(nets) == 2 and nets[0][0] is nets[1][0] is t.ema.ema and not t.ema.ema.training
+    assert nets[0][2] is nets[1][2] is t.validator.ema_graphs  # one cache across the trainer's vals
     assert len(nets[0][1]) > 0  # BN still there: unfused
     assert not torch.equal(nets[0][1][0], nets[1][1][0])  # the second val saw the moved statistics
     assert t.validator._infer is None and "fitness" in stats and t.fitness == stats["fitness"]

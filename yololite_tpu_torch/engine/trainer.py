@@ -1,4 +1,5 @@
-"""Detection trainer: eager train step, gradient accumulation, EMA, warmup, resume (port of yololite_tpu/engine/trainer.py).
+"""Detection trainer: train step replayed as CUDA graphs, gradient accumulation, EMA, warmup, resume (port of
+yololite_tpu/engine/trainer.py).
 
 Each iteration runs the forward in train mode (under bf16 autocast with amp;
 the loss then reads the bf16 maps and does its math in fp32), the loss with
@@ -6,8 +7,26 @@ TAL assignment, and a backward that accumulates into `.grad`. When
 `accumulate` iterations have gathered, the gradients are clipped to a global
 norm of 10, the optimizer steps with this iteration's per-group lr and
 momentum, the gradients are zeroed and the EMA of the weights and BN
-statistics follows. The JAX package compiles the same math as one XLA graph
-per step (its grad, apply and fused steps); eager torch needs no such split.
+statistics follows.
+
+As the JAX package jits its grad, apply and fused steps, the one-process
+trainer on the card replays them as CUDA graphs (engine/graphs.py, one cache
+per trainer): a grad graph per (batch shape and dtype, GT bucket M, amp), an
+apply graph (clip, optimizer, zeroing, EMA) per momentum, and, when
+accumulate is 1 for the whole run (JAX's rule: round(nbs / batch) <= 1), one
+fused graph per (shape, M, amp, momentum) instead of both. A key's first
+sight runs eagerly, its second captures, later ones replay; the warmup ramp
+changes the momentum every iteration, so its applies run eagerly (the
+momentum is a Python float in torch.optim: engine/optim.py). So that a graph
+can read them, every tensor that lives across steps is allocated outside any
+capture: the gradients once, as zeros (the backward adds into them in place,
+the apply zeroes them in place), the optimizer's state (device lr tensors;
+the state at the first, eager apply), the EMA and its decay scalars (written
+before each apply), the BN statistics. Off the card, on ranks (whose gloo
+all_reduce cannot be captured) and inside `graphs.eager()`, the same step
+functions run eagerly. Each (batch shape, GT bucket) is recorded as the JAX
+trainer records its jit variants; past 12, multi-scale coarsens its size
+grid from /32 to /64.
 
 Checkpoints are the JAX package's native .npz (models/checkpoint.py), so
 either package resumes or predicts from the other's last.npz and best.npz.
@@ -46,7 +65,7 @@ import torch.distributed as dist
 from yololite_tpu_torch.cfg import get_cfg, get_save_dir
 from yololite_tpu_torch.data.dataset import build_dataloader, build_yolo_dataset
 from yololite_tpu_torch.data.utils import check_det_dataset
-from yololite_tpu_torch.engine import optim
+from yololite_tpu_torch.engine import graphs, optim
 from yololite_tpu_torch.engine.predictor import forward_nhwc, fp32_convs
 from yololite_tpu_torch.models import checkpoint as ckpt
 from yololite_tpu_torch.models.model import DetectionModel
@@ -56,6 +75,8 @@ from yololite_tpu_torch.utils import LOGGER, TQDM, colorstr, get_latest_run, sel
 from yololite_tpu_torch.utils.checks import check_imgsz
 from yololite_tpu_torch.utils.ema import ModelEMA
 from yololite_tpu_torch.utils.loss import E2EDetectLoss, build_targets, v8DetectionLoss
+
+MAX_TRAIN_GRAPHS = 32  # graphs a trainer's cache holds: (shape, GT bucket) variants, bounded by multi-scale's /64 grid
 
 
 def one_cycle(y1=1.0, y2=0.01, steps=100):
@@ -155,6 +176,9 @@ class DetectionTrainer:
         self.fg_mask = None  # the last step's assigner foreground mask (this rank's rows)
         self._grads_summed = False
         self._saver = _AsyncSaver()
+        self._step_shapes = set()  # (batch shape, GT bucket) variants of the step, as the JAX trainer records them
+        self._ms_quant = 32  # multi-scale size grid; 64 once more than 12 variants were seen
+        self.graphs = graphs.GraphCache(MAX_TRAIN_GRAPHS)  # the train steps' CUDA graphs (one process on the card)
 
     def _set_save_dir(self, save_dir):
         self.save_dir = Path(save_dir)
@@ -242,7 +266,13 @@ class DetectionTrainer:
         self.opt_name, self.lr0, self.momentum = self._resolve_optimizer(iterations)
         self._freeze()
         self.optimizer = optim.build_optimizer(self.opt_name, self.model, self.lr0, self.momentum, self.weight_decay)
+        self._params = [p for p in self.model.parameters() if p.requires_grad]
+        for p in self._params:  # allocated once, outside any capture: the backward adds in place, apply zeroes
+            p.grad = torch.zeros_like(p)
+        self._grads = [p.grad for p in self._params]
         self.ema = ModelEMA(self.model)
+        # JAX's rule: a fused step (grad, clip, optimizer, EMA in one graph) when accumulate is 1 for the whole run
+        self.fused = self.group is None and max(round(self.args.nbs / self.batch_size), 1) == 1
 
         if self.args.cos_lr:
             self.lf = one_cycle(1, self.args.lrf, self.epochs)
@@ -298,7 +328,8 @@ class DetectionTrainer:
             # the last bits of row 8 flip can move row 8's BN gradients to 5.6e-3 (NVIDIA H100 80GB HBM3, 700 W;
             # tools/train_step_precision.py --force-picks)
             x = x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
-        with torch.autocast(self.device.type, dtype=torch.bfloat16, enabled=bool(self.args.amp)):
+        # no cast cache: a capture's cached bf16 weights would live in the graph pool past the capture
+        with torch.autocast(self.device.type, dtype=torch.bfloat16, enabled=bool(self.args.amp), cache_enabled=False):
             return forward_nhwc(self.model, x)
 
     def _targets(self, batch) -> Dict[str, torch.Tensor]:
@@ -310,16 +341,77 @@ class DetectionTrainer:
         t = build_targets(batch, n, batch["img"].shape[1:3], m_bucket)
         return {k: torch.from_numpy(v).to(self.device, non_blocking=True) for k, v in t.items()}
 
+    def _step_key(self, kind: str, images: Optional[torch.Tensor], targets: Optional[Dict], momentum=None) -> tuple:
+        """The graph key of a train step: its kind ("grad", "apply" or "fused"), the batch's device, shape and dtype,
+        the GT bucket M and amp (grad and fused), and the momentum that torch.optim reads as a Python float (apply
+        and fused)."""
+        key = (kind, str(self.device))
+        if images is not None:
+            key += (tuple(images.shape), images.dtype, targets["gt_bboxes"].shape[1], bool(self.args.amp))
+        if momentum is not None:
+            key += (float(np.float32(momentum)),)
+        return key
+
+    def _grad_fn(self, images, gt_labels, gt_bboxes, mask_gt):
+        """Forward, loss and backward of one process; the gradients add into the static `.grad` in place. Returns
+        the detached loss items and the assigner's fg_mask."""
+        targets = {"gt_labels": gt_labels, "gt_bboxes": gt_bboxes, "mask_gt": mask_gt}
+        with fp32_convs(self.device):
+            total, items, fg_mask = self.loss_fn.forward(self._forward(images), targets)
+            total.backward()
+        return items, fg_mask
+
+    def _apply_fn(self):
+        """Clip the gradients to norm 10, step the optimizer, zero the gradients in place, update the EMA at the
+        decay written before (`ModelEMA.advance`). No host sync: clip_grad_norm_ keeps error_if_nonfinite off."""
+        torch.nn.utils.clip_grad_norm_(self._params, 10.0, error_if_nonfinite=False)  # JAX's clip_by_global_norm
+        self.optimizer.step()
+        torch._foreach_zero_(self._grads)
+        self.ema.apply(self.model)
+
+    def _fused_fn(self, images, gt_labels, gt_bboxes, mask_gt):
+        out = self._grad_fn(images, gt_labels, gt_bboxes, mask_gt)
+        self._apply_fn()
+        return out
+
+    def _step_scalars(self, lr_vec, momentum: float):
+        """Write the apply's lr (device tensors, in place), momentum and EMA decay before it runs or replays."""
+        optim.set_lr_momentum(self.optimizer, lr_vec, momentum)
+        self.ema.advance()
+
+    def _captured(self, captures: int):
+        """After a capture on the card: no tensor that lives across steps may lie in the graph pool."""
+        if self.graphs.captures == captures or self.device.type != "cuda":
+            return
+        state = [t for st in self.optimizer.state.values() for t in st.values() if isinstance(t, torch.Tensor)]
+        state += [g["lr"] for g in self.optimizer.param_groups if isinstance(g["lr"], torch.Tensor)]
+        lives = [*self.model.state_dict().values(), *self._grads, *state, *self.ema.ema.state_dict().values(),
+                 self.ema.d, self.ema.one_minus_d]
+        bad = graphs.in_pool(lives)
+        if bad:
+            raise RuntimeError(f"{len(bad)} tensors that live across train steps lie in the CUDA graph pool "
+                               f"(first: {tuple(bad[0].shape)} {bad[0].dtype}): a later capture would overwrite them")
+
+    def _graphed(self, fn, inputs, key):
+        captures = self.graphs.captures
+        out = self.graphs.step(fn, inputs, key, self.device)
+        self._captured(captures)
+        return out
+
     def _grad_step(self, images: torch.Tensor, targets: Dict[str, torch.Tensor]):
         """Forward, loss and backward on the global batch; gradients add into `.grad`. Returns the detached loss
         items of the global batch.
 
-        On ranks, a batch that divides is cut to this rank's rows, and its BN
-        statistics and loss normalization are global; one that does not runs
-        whole here with a 1/world share of the loss.
+        In one process this is the grad graph of the batch's key (engine/graphs.py; eager at its first sight and
+        off the card). On ranks, a batch that divides is cut to this rank's rows, and its BN statistics and loss
+        normalization are global; one that does not runs whole here with a 1/world share of the loss.
         """
+        if self.group is None:
+            inputs = (images, targets["gt_labels"], targets["gt_bboxes"], targets["mask_gt"])
+            items, self.fg_mask = self._graphed(self._grad_fn, inputs, self._step_key("grad", images, targets))
+            return items
         group = None
-        if self.group is not None and images.shape[0] % self.world == 0:
+        if images.shape[0] % self.world == 0:
             rows = pmesh.batch_sharding(self.mesh, images.shape[0])[0][1]
             images, targets = images[rows], {k: v[rows] for k, v in targets.items()}
             group = self.group
@@ -331,27 +423,62 @@ class DetectionTrainer:
         return items
 
     def _sum_grads(self):
-        """On ranks: sum the gradients gathered since the last step over the ranks (once per step)."""
+        """On ranks: sum the gradients gathered since the last step over the ranks (once per step), in place."""
         if self.group is None or self._grads_summed:
             return
-        params = [p for p in self.model.parameters() if p.requires_grad]
-        flat = torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1) for p in params])
+        flat = torch.cat([g.reshape(-1) for g in self._grads])
         dist.all_reduce(flat, group=self.group)
         offset = 0
-        for p in params:
-            p.grad = flat[offset:offset + p.numel()].view_as(p).clone()
-            offset += p.numel()
+        for g in self._grads:
+            g.copy_(flat[offset:offset + g.numel()].view_as(g))
+            offset += g.numel()
         self._grads_summed = True
 
     def _apply_step(self, lr_vec, momentum: float):
-        """Clip the summed gradients to norm 10, step the optimizer, zero the gradients, update the EMA."""
+        """Clip the summed gradients to norm 10, step the optimizer, zero the gradients, update the EMA: the apply
+        graph of this momentum in one process."""
         self._sum_grads()
-        torch.nn.utils.clip_grad_norm_(self.model.parameters(), 10.0)  # the JAX package's clip_by_global_norm
-        optim.set_lr_momentum(self.optimizer, lr_vec, momentum)
-        self.optimizer.step()
-        self.optimizer.zero_grad(set_to_none=True)
+        self._step_scalars(lr_vec, momentum)
+        if self.group is None:
+            self._graphed(self._apply_fn, (), self._step_key("apply", None, None, momentum))
+        else:
+            self._apply_fn()
         self._grads_summed = False
-        self.ema.update(self.model)
+
+    def _fused_step(self, images: torch.Tensor, targets: Dict[str, torch.Tensor], lr_vec, momentum: float):
+        """`_grad_step` then `_apply_step` as one graph (one process, accumulate 1 for the whole run)."""
+        self._step_scalars(lr_vec, momentum)
+        inputs = (images, targets["gt_labels"], targets["gt_bboxes"], targets["mask_gt"])
+        items, self.fg_mask = self._graphed(self._fused_fn, inputs, self._step_key("fused", images, targets, momentum))
+        return items
+
+    def _schedule(self, ni: int, nw: int, epoch: int):
+        """Iteration ni's accumulate, per-group lr vector and momentum: the warmup ramp up to nw, then the epoch's."""
+        if ni <= nw:  # warmup: accumulate, lr and momentum ramp in
+            xi = [0, nw]
+            accumulate = max(1, int(np.interp(ni, xi, [1, self.args.nbs / self.batch_size]).round()))
+            lr_vec = np.array([
+                np.interp(ni, xi, [self.args.warmup_bias_lr, self.lr0 * self.lf(epoch)]),  # biases
+                np.interp(ni, xi, [0.0, self.lr0 * self.lf(epoch)]),  # weights
+                np.interp(ni, xi, [0.0, self.lr0 * self.lf(epoch)]),  # bn
+            ], np.float32)
+            return accumulate, lr_vec, float(np.interp(ni, xi, [self.args.warmup_momentum, self.momentum]))
+        lr = self.lr0 * self.lf(epoch)
+        return self.accumulate, np.array([lr, lr, lr], np.float32), self.momentum
+
+    def _train_batch(self, batch, apply: bool, lr_vec, momentum: float):
+        """One iteration on a loader batch: the grad step, and the apply step if `apply` (one fused step where the
+        run is fused). Returns the loss items on the device."""
+        batch = self.preprocess_batch(batch)
+        images = torch.from_numpy(batch["img"]).to(self.device, non_blocking=True)
+        targets = self._targets(batch)
+        self._track_compiles(images.shape, targets["gt_bboxes"].shape[1])
+        if self.fused:
+            return self._fused_step(images, targets, lr_vec, momentum)
+        items = self._grad_step(images, targets)
+        if apply:
+            self._apply_step(lr_vec, momentum)
+        return items
 
     # ---- main loop ----
 
@@ -409,7 +536,6 @@ class DetectionTrainer:
 
     def _train_epochs(self, nb, nw, train_time_start):
         last_opt_step = -1
-        self.optimizer.zero_grad(set_to_none=True)
         epoch = self.start_epoch
         while epoch < self.epochs:
             self.epoch = epoch
@@ -422,25 +548,10 @@ class DetectionTrainer:
             pbar = TQDM(enumerate(self.train_loader), total=nb, desc=f"epoch {epoch + 1}/{self.epochs}")
             for i, batch in pbar:
                 ni = i + nb * epoch
-                if ni <= nw:  # warmup: accumulate, lr and momentum ramp in
-                    xi = [0, nw]
-                    self.accumulate = max(1, int(np.interp(ni, xi, [1, self.args.nbs / self.batch_size]).round()))
-                    lr_vec = np.array([
-                        np.interp(ni, xi, [self.args.warmup_bias_lr, self.lr0 * self.lf(epoch)]),  # biases
-                        np.interp(ni, xi, [0.0, self.lr0 * self.lf(epoch)]),  # weights
-                        np.interp(ni, xi, [0.0, self.lr0 * self.lf(epoch)]),  # bn
-                    ], np.float32)
-                    momentum = float(np.interp(ni, xi, [self.args.warmup_momentum, self.momentum]))
-                else:
-                    lr = self.lr0 * self.lf(epoch)
-                    lr_vec = np.array([lr, lr, lr], np.float32)
-                    momentum = self.momentum
-
-                batch = self.preprocess_batch(batch)
-                images = torch.from_numpy(batch["img"]).to(self.device, non_blocking=True)
-                items = self._grad_step(images, self._targets(batch))
-                if ni - last_opt_step >= self.accumulate:
-                    self._apply_step(lr_vec, momentum)
+                self.accumulate, lr_vec, momentum = self._schedule(ni, nw, epoch)
+                apply = self.fused or ni - last_opt_step >= self.accumulate
+                items = self._train_batch(batch, apply, lr_vec, momentum)
+                if apply:
                     last_opt_step = ni
                 # the running mean stays on the device: reading it here would sync every step
                 tloss = items if tloss is None else (tloss * i + items) / (i + 1)
@@ -464,6 +575,10 @@ class DetectionTrainer:
                 self._share_epoch_end()
             if self.rank == 0:
                 self.save_metrics(epoch, tloss)
+                g = self.graphs
+                LOGGER.info(f"train-step variants so far: {len(self._step_shapes)} (batch-shape x GT-bucket keys); "
+                            f"graphs {len(g)} held, {g.captures} captured, {g.replays} of {g.calls} steps on the "
+                            f"card replayed")
                 if self.args.save:
                     self.save_model(epoch)
             if self.stop_training:
@@ -473,16 +588,28 @@ class DetectionTrainer:
     # ---- hooks ----
 
     def preprocess_batch(self, batch):
-        """Multi-scale: resize the batch on the host to a random size in [0.5, 1.5] x imgsz, on a /32 grid."""
+        """Multi-scale: resize the batch on the host to a random size in [0.5, 1.5] x imgsz, on the `_ms_quant` grid
+        (/32, coarsened to /64 once the step has more than 12 variants: each size is a graph of its own)."""
         if self.args.multi_scale:
             import cv2
 
+            q = self._ms_quant
             imgsz = self.imgsz if isinstance(self.imgsz, int) else self.imgsz[0]
-            sz = max((self.np_rng.randint(int(imgsz * 0.5), int(imgsz * 1.5 + 32)) // 32) * 32, 32)
+            sz = max((self.np_rng.randint(int(imgsz * 0.5), int(imgsz * 1.5 + 32)) // q) * q, q)
             if sz != batch["img"].shape[1]:
                 batch["img"] = np.stack([cv2.resize(im, (sz, sz), interpolation=cv2.INTER_LINEAR)
                                          for im in batch["img"]])
         return batch
+
+    def _track_compiles(self, images_shape, m_bucket):
+        """Record the step's (batch shape, GT bucket) variant; coarsen multi-scale to /64 past 12 variants (the JAX
+        trainer's rule for its jit cache, here the bound on the train graphs)."""
+        self._step_shapes.add((*images_shape, m_bucket))
+        n = len(self._step_shapes)
+        if self.args.multi_scale and n > 12 and self._ms_quant < 64:
+            self._ms_quant = 64
+            LOGGER.warning(f"multi-scale training compiled {n} step variants; coarsening the size grid from /32 to "
+                           f"/64 to bound the train graphs")
 
     def validate(self):
         v = self.validator
@@ -632,9 +759,11 @@ def data_parallel_step(rank: int, world: int, device, overrides: Dict, model: De
     on the host, each batch's loss items and this rank's fg_mask rows, the
     summed gradients, and the weights and buffers before and after, with the
     EMA's after. Used to hold the ranks' step to the one-process step. With
-    timed_steps, that many more whole steps on the same batches follow, and
-    their mean wall time and that of their gradient sums are returned
-    (seconds; the card is synchronized around each).
+    timed_steps, one untimed and that many more whole steps on the same
+    batches follow, and the timed ones' mean wall time and that of their
+    gradient sums are returned (seconds; the card is synchronized around
+    each; in one process on the card the untimed step captures the graphs
+    that the timed ones replay).
     """
     tr = DetectionTrainer(overrides=overrides, device=device)
     tr.set_model(model)
@@ -653,7 +782,7 @@ def data_parallel_step(rank: int, world: int, device, overrides: Dict, model: De
     out = {"items": items, "fg_mask": fg, "grads": grads, "before": before, "after": host(tr.model.state_dict()),
            "ema": host(tr.ema.ema.state_dict())}
     step_s, sum_s = [], []
-    for _ in range(timed_steps):
+    for rep in range(timed_steps + 1 if timed_steps else 0):  # the first untimed: in one process it captures
         sync()
         t0 = time.perf_counter()
         for b in batches:
@@ -662,10 +791,12 @@ def data_parallel_step(rank: int, world: int, device, overrides: Dict, model: De
         t1 = time.perf_counter()
         tr._sum_grads()
         sync()
-        sum_s.append(time.perf_counter() - t1)
+        t2 = time.perf_counter()
         tr._apply_step(lr_vec, float(momentum))
         sync()
-        step_s.append(time.perf_counter() - t0)
+        if rep:
+            sum_s.append(t2 - t1)
+            step_s.append(time.perf_counter() - t0)
     if timed_steps:
         out.update(step_s=float(np.mean(step_s)), sum_grads_s=float(np.mean(sum_s)))
     return out

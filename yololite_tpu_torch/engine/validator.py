@@ -5,10 +5,13 @@ divided by 255 on the device. The fused (and, with half, bf16) net runs,
 and the Detect maps go through the multi-label select-first NMS at
 K = 8192 in fp32 (`ops.nms.nms_from_feats`). On the card, that NMS is one
 launch of the blocked_nms_finalize kernel (K4) per batch, with no host sync.
-Standalone val replays the whole step (cast, forward, NMS) as a CUDA graph
-for each batch shape seen before: a shape's first batch runs eagerly, its
-second captures it (engine/graphs.py); a trainer's val runs eagerly, since
-its EMA weights move between calls. The padded
+Val replays the whole step (cast, forward, NMS) as a CUDA graph for each
+batch shape seen before: a shape's first batch runs eagerly, its second
+captures it (engine/graphs.py). Standalone val keeps its graphs for the
+validator's life; a trainer's val keeps one cache across the epochs, on a
+net whose weights move in place (the EMA module itself in fp32; in half
+precision one bf16 copy, into which each epoch copies the EMA's weights), so
+a bucket shape seen once an epoch replays from the third epoch. The padded
 (B, max_det, 6) result comes to the host. There, per-image TP matching
 (greedy IoU-sorted unique matching at 10 IoU thresholds) and the metrics run
 in numpy.
@@ -72,17 +75,18 @@ class DetectionValidator:
         self.jdict: List = []
         self.speed = {"preprocess": 0.0, "inference": 0.0, "loss": 0.0, "postprocess": 0.0}
         self._infer = None
+        self.ema_graphs = GraphCache()  # a trainer's val: its graphs, kept across the epochs
+        self._ema_half = None  # (the trainer's EMA module, its bf16 copy) for a half-precision trainer val
 
     # ---- setup ----
 
-    def _build_infer(self, net, model, half: bool, graph: bool = False):
+    def _build_infer(self, net, model, half: bool, graphs: Optional[GraphCache] = None):
         """uint8 (B, H, W, 3) RGB batch on the device -> (B, max_det, 6) detections there.
 
         `net` is the eval-mode module to run (bf16 with half); `model` gives
-        the head's layout. The NMS always gets fp32 maps. With `graph` (the
-        standalone val), each replica's step on the card replays a CUDA graph
-        once its batch shape repeats (`infer.graphs` holds them); without (a
-        trainer's val), it runs eagerly.
+        the head's layout. The NMS always gets fp32 maps. With `graphs`, each
+        replica's step on the card replays a CUDA graph of that cache once its
+        batch shape repeats (`infer.graphs`); without, it runs eagerly.
         """
         nc, strides, reg_max = model.nc, model.strides, model.reg_max
         conf, iou, max_det = float(self.args.conf), float(self.args.iou), int(self.args.max_det)
@@ -105,7 +109,6 @@ class DetectionValidator:
 
         mesh = self.mesh
         replicas = replicate_tree(mesh, net)
-        graphs = GraphCache() if graph else None
         key = (half, end2end, agnostic, conf, iou, max_det)
         step = infer_one if graphs is None else lambda x, net: graphs(lambda xs: infer_one(xs, net), x, net, key)
 
@@ -128,8 +131,7 @@ class DetectionValidator:
             self.args.batch = trainer.args.batch
             self.data = trainer.data
             self.args.plots &= trainer.stop_training or (trainer.epoch == trainer.epochs - 1)
-            net = inference_net(ema, self.device, half, fuse=False) if half else ema
-            infer = self._build_infer(net, model, half)  # the EMA weights of this call, eagerly
+            infer = self._build_infer(self._ema_net(ema, half), model, half, self.ema_graphs)
         else:
             self.data = check_det_dataset(self.args.data)
         self.names = self.data.get("names", model.names)
@@ -149,7 +151,7 @@ class DetectionValidator:
             self.dataloader = build_dataloader(dataset, self.args.batch, self.args.workers, shuffle=False)
         if trainer is None:
             if self._infer is None:  # standalone: a fused copy (Conv+BN folded), built once
-                self._infer = self._build_infer(inference_net(model, self.device, half), model, half, graph=True)
+                self._infer = self._build_infer(inference_net(model, self.device, half), model, half, GraphCache())
             infer = self._infer
 
         self.seen = 0
@@ -182,6 +184,21 @@ class DetectionValidator:
             stats = self.eval_json(stats)
         self.metrics.speed = self.speed
         return stats
+
+    @torch.no_grad()
+    def _ema_net(self, ema, half: bool):
+        """The net a trainer's val runs: the EMA module itself, or with half its one bf16 copy (unfused, eval mode),
+        into which the EMA's weights and BN statistics are copied in place, so that a graph captured on it reads
+        them."""
+        if not half:
+            return ema
+        if self._ema_half is None or self._ema_half[0] is not ema:
+            self._ema_half = (ema, inference_net(ema, self.device, half, fuse=False))
+            return self._ema_half[1]
+        net = self._ema_half[1]
+        for dst, src in zip(net.state_dict().values(), ema.state_dict().values()):
+            dst.copy_(src)  # fp32 -> bf16 rounds as .to(bfloat16) does
+        return net
 
     def eval_json(self, stats: Dict) -> Dict:
         """Re-score the exported predictions with COCO semantics (the vendored numpy COCOeval).

@@ -19,7 +19,13 @@ class ModelEMA:
     """An eval-mode copy of the model whose floating state_dict entries follow ema = d * ema + (1 - d) * model.
 
     That covers the parameters and the BN running mean and var; integer
-    entries (the BN batch counters) are copied.
+    entries (the BN batch counters) are copied. An update is two parts:
+    `advance` counts it on the host (`updates`, which checkpoints keep) and
+    writes its decay d and 1 - d into two 0-d float32 tensors on the model's
+    device; `apply` multiplies by those tensors, so a CUDA graph that captured
+    it (the trainer's apply and fused steps) reads each update's decay. d and
+    1 - d are float32 values, so the tensors give the bits that the Python
+    floats gave.
     """
 
     def __init__(self, model: nn.Module, updates: int = 0):
@@ -27,11 +33,20 @@ class ModelEMA:
         for p in self.ema.parameters():
             p.requires_grad_(False)
         self.updates = updates
+        device = next(self.ema.parameters()).device
+        self.d = torch.zeros((), dtype=torch.float32, device=device)  # the decay of the next apply
+        self.one_minus_d = torch.zeros((), dtype=torch.float32, device=device)
 
-    @torch.no_grad()
-    def update(self, model: nn.Module) -> None:
+    def advance(self) -> None:
+        """Count one update and write its decay into `d` and `one_minus_d` (in place, no host sync)."""
         self.updates += 1
         d = ema_decay(self.updates)
+        self.d.fill_(d)
+        self.one_minus_d.fill_(float(np.float32(1) - np.float32(d)))
+
+    @torch.no_grad()
+    def apply(self, model: nn.Module) -> None:
+        """ema = d * ema + (1 - d) * model at the decay `advance` wrote."""
         e_f, m_f = [], []
         for e, m in zip(self.ema.state_dict().values(), model.state_dict().values()):
             if e.is_floating_point():
@@ -39,5 +54,9 @@ class ModelEMA:
                 m_f.append(m.detach())
             else:
                 e.copy_(m)
-        torch._foreach_mul_(e_f, d)
-        torch._foreach_add_(e_f, torch._foreach_mul(m_f, float(np.float32(1) - np.float32(d))))
+        torch._foreach_mul_(e_f, self.d)
+        torch._foreach_add_(e_f, torch._foreach_mul(m_f, self.one_minus_d))
+
+    def update(self, model: nn.Module) -> None:
+        self.advance()
+        self.apply(model)
