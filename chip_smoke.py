@@ -16,7 +16,14 @@ Phases, each of which exits non-zero on failure:
      reached on a step's last candidate) and near-threshold (IoUs within a
      few ulps of it) scenes at B up to 40 and K 1,025 to 8,192, max_det 1, 300
      and K) and times both, K4 on the crowded scene at B 16, 8 and 1 with its
-     bound, cluster size, step and cudaOccupancyMaxActiveClusters;
+     bound, cluster size, step and cudaOccupancyMaxActiveClusters; select_decode
+     (K3) against its plain version on the 22 scenes of K3_CASES (vals, bidx,
+     cls, valid bit for bit, boxes within 1e-6 relative: K = 1 to 20,000,
+     K >= N, all gated out, all equal, a threshold that is not a bf16 value,
+     class masks, NaN maps, NCHW views and channels-last maps, B 1 to 32);
+     device_letterbox (K2) in 32 checks (no resize bit for bit, a resize
+     within 1e-5; fp32, bf16, bgr, both layouts) and timed at B 32, 480x640
+     and 720x1280 -> 640 beside its bound and F.interpolate;
   3. slice: YOLOLite("yolo11n.yaml") with init(0) predicts synthetic 480x640
      uint8 batches at imgsz 640 and conf 1e-7, in fp32 (TF32 off) and bf16, at
      batch 1 and 32; each call replays a CUDA graph of the step (the first
@@ -29,8 +36,11 @@ Phases, each of which exits non-zero on failure:
      the calls replayed, the graphs held (at most graphs.MAX_GRAPHS) and the
      graph pool's bytes; checks that the
      kernel and the plain keep give the same detections on each batch's
-     Detect maps, times letterbox, forward and nms_from_feats each alone on
-     that batch, and checks that the card agrees with the CPU on a small
+     Detect maps, times letterbox, forward (on both input layouts at batch
+     32) and nms_from_feats each alone on that batch, K3 on batch 32's maps
+     beside its plain version, bound and torch.topk, nms_from_feats with K3
+     and with its plain version, checks that K2 and K3 launch once a call,
+     and checks that the card agrees with the CPU on a small
      input; on the exact keep's recorded fp32 inputs, checks that one call
      of it launches the kernel once and allocates nothing but the keep mask;
   4. val: writes a 64-image synthetic YOLO dataset (PNGs of four shapes, so
@@ -135,7 +145,11 @@ graph adds the launches its capture recorded; the K5/K6 `.calls` counters
 likewise): predict, train's reload,
 serving, the zoo's GELAN-T predict and phase 8's mesh predict for K1; val,
 train's EMA vals and final vals, the zoo's GELAN-T val and phase 8's mesh val
-and rank 0 for K4; the int8 predict calls (yolo11n and yolo11m) for K8.
+and rank 0 for K4; the int8 predict calls (yolo11n and yolo11m) for K8; all
+of K1's and K4's paths, the int8 calls and the pipeline for K3 (not the
+ensembles, whose members are decoded whole); every infer_uint8 call (or
+mesh shard) of those paths for K2. Phases 4-8 also check K3 once per val
+batch, EMA-val batch and export run, and K2 once per uint8 predict call.
 Prints the card's name and power limit, a {"kernels": [...]} line, and last
 {"ok": true, "device": {...}}. Needs no network and no JAX.
 """
@@ -248,6 +262,72 @@ def k4_scene(seed: int, b: int, k: int, case: str):
     return boxes + cls[..., None] * 7680, boxes, vals, cls, valid
 
 
+K3_S640 = ((80, 80), (40, 40), (20, 20))  # yolo11's levels at 640
+K3_RECT = ((48, 80), (24, 40), (12, 20))  # a rect batch's (384 x 640)
+K3_TINY = ((8, 10), (4, 5), (2, 3))  # fewer entries than K
+
+
+def k3_maps(rng, b, shapes, nc, dtype, layout, scene):
+    """Per-level (B, H, W, 64 + nc) maps on the card: NHWC views of NCHW tensors ("nchw", as the float nets give
+    them) or NHWC-contiguous ("nhwc", channels-last nets). Scenes: "random" logits, "equal" (every class logit
+    -2: all scores tie), "nan" (NaN class and box logits on a few anchors)."""
+    import numpy as np
+    import torch
+
+    out = []
+    for h, w in shapes:
+        a = rng.standard_normal((b, 64 + nc, h, w)).astype(np.float32)
+        a[:, 64:] = a[:, 64:] * 3.0 - 4.0
+        if scene == "equal":
+            a[:, 64:] = -2.0
+        elif scene == "nan":
+            a[0, 64:, 1, 1] = np.nan
+            a[-1, 64 + nc - 1, 2, 3] = np.nan
+            a[0, 5, 3, 2] = np.nan
+        t = torch.from_numpy(a).cuda().to(dtype)
+        out.append(t.permute(0, 2, 3, 1) if layout == "nchw" else t.permute(0, 2, 3, 1).contiguous())
+    return out
+
+
+# (id, B, levels, nc, K, multi_label, map dtype, half, layout, scene, conf, class mask, agnostic)
+K3_CASES = [
+    ("predict-fp32", 32, K3_S640, 80, 512, False, "fp32", False, "nchw", "random", 1e-7, False, False),
+    ("predict-bf16", 32, K3_S640, 80, 512, False, "bf16", True, "nchw", "random", 1e-7, False, False),
+    ("predict-fp32-nhwc", 32, K3_S640, 80, 300, False, "fp32", False, "nhwc", "random", 0.25, False, False),
+    ("val-fp32", 16, K3_RECT, 80, 8192, True, "fp32", False, "nhwc", "random", 1e-7, False, False),
+    ("val-bf16-maps", 16, K3_RECT, 80, 8192, True, "bf16", False, "nhwc", "random", 1e-7, False, True),
+    ("val-bf16-half-nchw", 16, K3_S640, 80, 8192, True, "bf16", True, "nchw", "random", 0.001, False, False),
+    ("k1", 1, K3_S640, 80, 1, True, "fp32", False, "nchw", "random", 1e-7, False, False),
+    ("k300-b1", 1, K3_RECT, 80, 300, False, "fp32", False, "nchw", "random", 0.01, False, False),
+    ("k10000", 2, K3_S640, 80, 10_000, True, "fp32", False, "nhwc", "random", 1e-7, False, False),
+    ("k20000-global-sort", 2, K3_S640, 80, 20_000, True, "bf16", True, "nchw", "random", 1e-7, False, False),
+    ("k-ge-n-single", 2, K3_TINY, 5, 10**6, False, "fp32", False, "nchw", "random", 0.3, False, False),
+    ("k-ge-n-multi", 2, K3_TINY, 5, 10**6, True, "fp32", False, "nhwc", "random", 0.3, False, False),
+    ("all-gated", 4, K3_RECT, 80, 1000, True, "fp32", False, "nchw", "random", 1.0, False, False),
+    ("all-equal-multi", 4, K3_RECT, 80, 5000, True, "fp32", False, "nchw", "equal", 0.01, False, False),
+    ("all-equal-single", 4, K3_RECT, 80, 700, False, "bf16", True, "nhwc", "equal", 0.01, False, False),
+    ("thr-not-bf16", 8, K3_RECT, 80, 512, False, "bf16", True, "nchw", "random", 0.0123, False, False),
+    ("thr-not-bf16-multi", 8, K3_RECT, 80, 8192, True, "bf16", True, "nhwc", "random", 0.3001, False, False),
+    ("class-mask", 16, K3_RECT, 80, 512, False, "fp32", False, "nchw", "random", 0.01, True, False),
+    ("class-mask-multi", 16, K3_RECT, 80, 8192, True, "bf16", False, "nhwc", "random", 1e-7, True, True),
+    ("nan", 4, K3_RECT, 80, 512, False, "bf16", True, "nchw", "nan", 0.01, False, False),
+    ("nan-multi", 4, K3_RECT, 80, 8192, True, "fp32", False, "nhwc", "nan", 1e-7, False, False),
+    ("nc1-multi", 4, K3_RECT, 1, 600, True, "fp32", False, "nchw", "random", 0.01, False, False),
+]
+
+
+def k3_args(case):
+    """select_decode's arguments for a K3_CASES row, maps made from a seed of the case's name."""
+    import numpy as np
+    import torch
+
+    _, b, levels, nc, k, ml, dtype, half, layout, scene, conf, use_mask, agnostic = case
+    rng = np.random.default_rng(sum(map(ord, case[0])))
+    feats = k3_maps(rng, b, levels, nc, {"fp32": torch.float32, "bf16": torch.bfloat16}[dtype], layout, scene)
+    mask = torch.from_numpy(np.arange(nc) % 3 != 1).cuda() if use_mask else None
+    return (feats, [8, 16, 32], nc, 16, conf, k, mask, half, ml, agnostic)
+
+
 def near_threshold_boxes(rng, b: int, k: int, thr: float):
     """(B, K, 4) float32 boxes in pairs (A, B) 256 apart: A = [x, 0, x + w, ha], B = [x, 0, x + w, hb] with hb the
     float32 of ha * thr moved by -6 to 6 ulps, so iou(A, B) = hb / ha within a few ulps of thr."""
@@ -269,8 +349,8 @@ def same_bits(a, b) -> bool:
     """Equal bit for bit (NaN rows included, which torch.equal calls unequal)."""
     import torch
 
-    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(a.contiguous().view(torch.int32),
-                                                                     b.contiguous().view(torch.int32))
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.contiguous().reshape(-1).view(torch.uint8), b.contiguous().reshape(-1).view(torch.uint8))
 
 
 @contextlib.contextmanager
@@ -351,6 +431,151 @@ def k4_numbers(card: str, args, thr: float, max_det: int, what: str) -> dict:
     return {"ms": ms, "launch_ms": launch_ms, "plain_ms": plain, "bound_ms": bound, "bound_by": bound_by,
             "max_abs_err": err, "shape": [b, k, max_det], "cluster": plan["cluster"], "step": plan["step"],
             "max_active_clusters": plan["max_active_clusters"]}
+
+
+K3_SCORE_OPS = 4  # fp32 ops of one gated score: exp, add, divide, compare
+K3_DFL_OPS = 6  # fp32 ops per box logit of a candidate's DFL decode: max, subtract, exp, multiply, two adds
+
+
+def k3_bound_ms(args, bidx):
+    """Least time for K3 on these inputs, and what bounds it ("bytes" or "operations").
+
+    Bytes: every class logit read once, the 4 * reg_max box logits of each
+    distinct candidate anchor (this run's bidx) read once, and 49 bytes
+    written per candidate (vals 4, bidx 8, cls 4, boxes 16, shifted 16, valid
+    1). Operations: K3_SCORE_OPS per class logit, K3_DFL_OPS per candidate
+    box logit, at the card's fp32 rate.
+    """
+    import torch
+
+    feats, _, nc, reg_max = args[:4]
+    elt = feats[0].element_size()
+    b, k = bidx.shape
+    n_cls = sum(f.shape[0] * f.shape[1] * f.shape[2] for f in feats) * nc
+    anchors = sum(int(torch.unique(bidx[i]).numel()) for i in range(b))
+    by_bytes = (n_cls * elt + anchors * 4 * reg_max * elt + b * k * 49) / HBM_BYTES_PER_S
+    by_ops = (n_cls * K3_SCORE_OPS + b * k * 4 * reg_max * K3_DFL_OPS) / FP32_OPS_PER_S
+    return max(by_bytes, by_ops) * 1e3, "bytes" if by_bytes >= by_ops else "operations"
+
+
+def gated_row(feats, nc: int, reg_max: int, conf: float, half: bool, multi_label: bool):
+    """The plain version's gated score row (B, N), which its sort (and torch.topk, the yardstick) takes."""
+    import torch
+
+    b = feats[0].shape[0]
+    rows = []
+    for f in feats:
+        s = torch.sigmoid(f[..., 4 * reg_max:] if half else f[..., 4 * reg_max:].float())
+        rows.append(s.reshape(b, -1) if multi_label and nc > 1 else s.amax(-1).reshape(b, -1))
+    s = torch.cat(rows, 1)
+    return torch.where(s > conf, s, -1.0)
+
+
+@contextlib.contextmanager
+def plain_select():
+    """ops.nms's steps 1-4 through K3's plain version inside the block: no K3 launch."""
+    from yololite_tpu_torch.ops import nms
+    from yololite_tpu_torch.ops.kernels import select_decode, select_decode_plain
+
+    nms.select_decode = select_decode_plain
+    try:
+        yield
+    finally:
+        nms.select_decode = select_decode
+
+
+def k3_check(got, want, what: str) -> bool:
+    """K3's outputs against its plain version's: vals, bidx, cls and valid bit for bit, boxes and the class-offset
+    boxes within 1e-6 relative (NaN where the plain version has NaN). Returns whether the boxes are bit-equal."""
+    import torch
+
+    for name, g, w in zip(("vals", "bidx", "cls", "boxes", "shifted", "valid"), got, want):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"select_decode {what}: {name} {tuple(g.shape)} {g.dtype}, plain {tuple(w.shape)} "
+                                 f"{w.dtype}")
+        if name in ("boxes", "shifted"):
+            nan = torch.isnan(w)
+            if not torch.equal(torch.isnan(g), nan) or not bool(((g - w).abs() <= 1e-6 * w.abs()).logical_or(
+                    nan).all()):
+                raise AssertionError(f"select_decode {what}: {name} beyond 1e-6 relative of the plain version's, "
+                                     f"max |diff| {float((g - w).abs().nan_to_num(0).max())}")
+        elif not same_bits(g, w):
+            raise AssertionError(f"select_decode {what}: {name} differs from the plain version's in "
+                                 f"{int((g != w).sum())} entries")
+    return same_bits(got[3], want[3]) and same_bits(got[4], want[4])
+
+
+def k3_numbers(card: str, args, what: str) -> dict:
+    """K3 against its plain version on these inputs (`k3_check`), both timed by device time (a CUDA graph of 20
+    calls replayed), with the bound and torch.topk on the gated row as a yardstick (its tie order is not
+    lax.top_k's: a yardstick only)."""
+    import torch
+
+    from yololite_tpu_torch.ops.kernels import select_decode, select_decode_plain
+
+    got = select_decode(*args)
+    want = select_decode_plain(*args)
+    torch.cuda.synchronize()
+    bits = k3_check(got, want, what)
+    err = float((got[3] - want[3]).abs().nan_to_num(0.0).max().item()) if got[3].numel() else 0.0
+    bound, bound_by = k3_bound_ms(args, want[1])
+    ms = graph_ms(lambda: select_decode(*args))
+    plain = graph_ms(lambda: select_decode_plain(*args), iters=5, reps=3)
+    feats, _, nc, reg_max, conf, _, _, half, ml = args[:9]
+    gated = gated_row(feats, nc, reg_max, conf, half, ml)
+    k = got[0].shape[1]
+    library = graph_ms(lambda: torch.topk(gated, k))
+    b = got[0].shape[0]
+    log(f"kernel: select_decode B={b} K={k} {'multi' if ml else 'single'}-label {feats[0].dtype} maps "
+        f"{'(half)' if half else ''} ({what}): {ms:.4f} ms device (graph replay), plain {plain:.4f} ms, bound "
+        f"{bound:.5f} ms ({bound_by}), torch.topk on the gated row (B, {gated.shape[1]}) {library:.4f} ms "
+        f"(yardstick); vals, bidx, cls, valid bit-equal, boxes {'bit-equal' if bits else f'max |diff| {err:.3g}'}, "
+        f"on {card}")
+    return {"ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": bound_by, "library_ms": library,
+            "max_abs_err": err, "boxes_bit_equal": bits, "shape": [b, k, int(gated.shape[1])]}
+
+
+def k2_bound_ms(b: int, h0: int, w0: int, s: int, out_bytes: int):
+    """Least time for K2 on this batch: each input byte read once, each output element written once (the few
+    operations a pixel are far under the card's rate)."""
+    return (b * h0 * w0 * 3 + b * s * s * 3 * out_bytes) / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+def k2_numbers(card: str, raw, s: int, dtype, channels_last: bool, bgr: bool, what: str) -> dict:
+    """K2 against its plain version on this batch (the pad and a frame without a resize bit for bit, a resize
+    within 1e-5, TF32 off), both timed by device time, with the bound and F.interpolate (bilinear, half-pixel
+    centres) of the resize alone as a yardstick."""
+    import torch
+    import torch.nn.functional as F
+
+    from yololite_tpu_torch.ops.kernels import device_letterbox, device_letterbox_plain, letterbox_geometry
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    b, h0, w0, _ = raw.shape
+    got = device_letterbox(raw, s, dtype, bgr=bgr, channels_last=channels_last)
+    want32 = device_letterbox_plain(raw, s, torch.float32, bgr)
+    want = want32.to(dtype)
+    torch.cuda.synchronize()
+    new_h, new_w, top, left = letterbox_geometry(h0, w0, s)
+    pad = torch.ones((s, s), dtype=torch.bool, device=raw.device)
+    pad[top:top + new_h, left:left + new_w] = False
+    resize = (new_h, new_w) != (h0, w0)
+    err = float((got.float() - want32).abs().max().item())
+    if not same_bits(got[:, pad], want[:, pad]) or (not resize and not same_bits(got.contiguous(), want)) or (
+            err > (1e-5 if dtype == torch.float32 else 2.0 ** -9 + 1e-5)):
+        raise AssertionError(f"device_letterbox {what}: differs from its plain version (max |diff| {err:.3g})")
+    bound, bound_by = k2_bound_ms(b, h0, w0, s, got.element_size())
+    ms = graph_ms(lambda: device_letterbox(raw, s, dtype, bgr=bgr, channels_last=channels_last))
+    plain = graph_ms(lambda: device_letterbox_plain(raw, s, dtype, bgr), iters=5, reps=3)
+    x = raw.permute(0, 3, 1, 2).float()
+    library = graph_ms(lambda: F.interpolate(x, size=(new_h, new_w), mode="bilinear", align_corners=False))
+    log(f"kernel: device_letterbox B={b} {h0}x{w0} -> {s} ({'resize' if resize else 'no resize'}, {dtype}, "
+        f"{'channels-last' if channels_last else 'NCHW'} out, bgr {bgr}; {what}): {ms:.4f} ms device (graph "
+        f"replay), plain {plain:.4f} ms, bound {bound:.5f} ms ({bound_by}), F.interpolate of the resize alone "
+        f"{library:.4f} ms (yardstick); pad {'and all ' if not resize else ''}bit-equal, max |diff| {err:.3g}, on "
+        f"{card}")
+    return {"ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": bound_by, "library_ms": library,
+            "max_abs_err": err, "shape": [b, h0, w0, s]}
 
 
 def profile_calls(fn, reps: int):
@@ -513,7 +738,7 @@ def mixed_sizes_val(card: str, model, root: Path, recorded) -> None:
     import torch
 
     from yololite_tpu_torch.engine import graphs
-    from yololite_tpu_torch.ops.kernels import blocked_nms_finalize
+    from yololite_tpu_torch.ops.kernels import blocked_nms_finalize, select_decode
 
     common = [(480, 640), (427, 640), (640, 480), (640, 427), (512, 640), (360, 640), (640, 640), (375, 500),
               (333, 500), (500, 375)]
@@ -528,7 +753,7 @@ def mixed_sizes_val(card: str, model, root: Path, recorded) -> None:
     model.val(name="mixed_cache", **kw)  # the label cache
     rd, lines = None, []
     for name in ("graphed", "eager", "graphed again"):
-        blocked_nms_finalize.launches = 0
+        blocked_nms_finalize.launches = select_decode.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with graphs.eager() if name == "eager" else contextlib.nullcontext():
@@ -539,21 +764,24 @@ def mixed_sizes_val(card: str, model, root: Path, recorded) -> None:
         batches, g = len(v.dataloader), v._infer.graphs
         buckets = len({tuple(int(x) for x in r) for r in v.dataloader.dataset.batch_shapes})
         if blocked_nms_finalize.launches != batches + (0 if name == "eager" else g.warmups) or (
-                rd is not None and m.results_dict != rd):  # a capture's warm-up launches K4 too
-            raise AssertionError(f"mixed-size val {name}: K4 {blocked_nms_finalize.launches} launches for {batches} "
-                                 f"batches, metrics {m.results_dict} vs {rd}")
+                select_decode.launches != blocked_nms_finalize.launches) or (
+                rd is not None and m.results_dict != rd):  # a capture's warm-up launches K3 and K4 too
+            raise AssertionError(f"mixed-size val {name}: K4 {blocked_nms_finalize.launches} and K3 "
+                                 f"{select_decode.launches} launches for {batches} batches, metrics {m.results_dict} "
+                                 f"vs {rd}")
         rd = m.results_dict
         lines.append(f"{name} {n_img / dt:.1f} img/s" + ("" if name == "eager" else
                      f" ({g.replays} of {g.calls} batches replayed, {g.captures} captured)"))
     log(f"val: 256 images of mixed sizes (ten common photo sizes and 20% random ones), yolo11n fp32 at 640, batch "
         f"{bs}, rect, through the facade: {batches} batches in {buckets} bucket shapes; {'; '.join(lines)}; metrics "
-        f"equal, K4 once a batch, on {card}")
+        f"equal, K3 and K4 once a batch, on {card}")
 
 
 def val_phase(card: str, model):
     """yolo11n val at 640 on the card through the facade (`model`, init(0) on the card), its checks and timings.
 
-    Returns K4's launches in the val runs and K4's numbers on val's own inputs.
+    Returns K4's launches in the val runs, K4's numbers on val's own inputs, and K3's launches in the val runs
+    with its numbers on those inputs and nms_from_feats's times with K3 and with its plain version.
     """
     import tempfile
 
@@ -565,7 +793,7 @@ def val_phase(card: str, model):
     from yololite_tpu_torch.engine.predictor import forward_nhwc, fp32_convs, inference_net
     from yololite_tpu_torch.engine.validator import VAL_MAX_CAND, DetectionValidator
     from yololite_tpu_torch.ops import nms
-    from yololite_tpu_torch.ops.kernels import blocked_nms_finalize, greedy_nms_keep
+    from yololite_tpu_torch.ops.kernels import blocked_nms_finalize, greedy_nms_keep, select_decode
 
     class Recorded(DetectionValidator):
         """The facade's validator, kept so that its graph cache can be read."""
@@ -580,7 +808,7 @@ def val_phase(card: str, model):
     shapes = [(480, 640), (640, 480), (640, 640), (360, 640)] * 16  # rect at batch 16: four buckets
     data = write_val_dataset(root / "val64", shapes, seed=15)
     n_img, bs = len(shapes), 16
-    launches = 0
+    launches = k3_launches = 0
     for half in (False, True):
         dtype = "bf16" if half else "fp32"
         kw = dict(data=str(data), imgsz=640, batch=bs, rect=True, conf=1e-7, half=half, plots=False,
@@ -599,7 +827,7 @@ def val_phase(card: str, model):
         v = DetectionValidator(args={**kw, "mode": "val", "name": f"{dtype}_reused"})
         runs = {}
         for name in ("facade", "facade again", "validator", "validator captured", "validator replayed", "eager"):
-            greedy_nms_keep.launches = blocked_nms_finalize.launches = 0
+            greedy_nms_keep.launches = blocked_nms_finalize.launches = select_decode.launches = 0
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             if name.startswith("facade"):
@@ -619,21 +847,22 @@ def val_phase(card: str, model):
                 stats = (g.calls - before[0], g.replays - before[1], g.captures - before[2], g.warmups - before[3])
             torch.cuda.synchronize()
             dt = time.perf_counter() - t0
-            n1, n4 = greedy_nms_keep.launches, blocked_nms_finalize.launches
+            n1, n4, n3 = greedy_nms_keep.launches, blocked_nms_finalize.launches, select_decode.launches
             want_replays = {"validator captured": n_img // bs, "validator replayed": n_img // bs}.get(name, 0)
-            if n1 or n4 != n_img // bs + stats[3] or stats[1] != want_replays:  # a capture's warm-up launches too
-                raise AssertionError(f"val {dtype} {name}: {n1} K1 and {n4} K4 launches for {n_img // bs} batches; "
-                                     f"(calls, replays, captures) {stats}")
+            if n1 or n4 != n_img // bs + stats[3] or n3 != n4 or stats[1] != want_replays:  # a capture's warm-up too
+                raise AssertionError(f"val {dtype} {name}: {n1} K1, {n3} K3 and {n4} K4 launches for {n_img // bs} "
+                                     f"batches; (calls, replays, captures) {stats}")
             if m.results_dict != rd:
                 raise AssertionError(f"val {dtype} {name}: metrics {m.results_dict} differ from the first run's {rd}")
             launches += n4
+            k3_launches += n3
             runs[name] = dt
             sp = m.speed
             log(f"val: yolo11n {dtype} batch {bs} at 640, rect, conf 1e-7, {n_img} images, {name}: "
                 f"{n_img / dt:.1f} img/s ({dt:.3f} s); speed per image: preprocess {sp['preprocess']:.3f} ms, "
                 f"inference {sp['inference']:.3f} ms, postprocess {sp['postprocess']:.3f} ms; mAP50-95 "
-                f"{m.results_dict['metrics/mAP50-95(B)']:.5f} (equal to the first run's); K4 {n4} launches, K1 "
-                f"{n1}; steps on the card {stats[0]}, replayed {stats[1]}, captured {stats[2]} (warm-up runs "
+                f"{m.results_dict['metrics/mAP50-95(B)']:.5f} (equal to the first run's); K3 and K4 {n4} launches "
+                f"each, K1 {n1}; steps on the card {stats[0]}, replayed {stats[1]}, captured {stats[2]} (warm-up runs "
                 f"{stats[3]}), on {card}")
         log(f"val: {dtype}: {len(v._infer.graphs)} graphs in the reused validator (one per bucket shape); the graph "
             f"pool holds {graphs.pool_reserved_bytes() / 2 ** 20:.1f} MiB reserved; every run's metrics equal, on "
@@ -708,6 +937,15 @@ def val_phase(card: str, model):
             finally:
                 nms.blocked_nms_finalize = real
         t_fw = cuda_ms(lambda: forward_nhwc(net, im.float() * (1.0 / 255.0)), 10)
+        # K3 on this batch's maps; nms_from_feats with K3 (back to back and by device time) and with its plain version
+        k3 = k3_numbers(card, (feats, *args[1:], 1e-7, VAL_MAX_CAND, None, False, True, False), "val's fp32 maps")
+        with plain_select():
+            same = torch.equal(with_kernel, nms.nms_from_feats(*args, **kw_nms))
+            t_plain_select = cuda_ms(lambda: nms.nms_from_feats(*args, **kw_nms), 10)
+        t_nms_graph = graph_ms(lambda: nms.nms_from_feats(*args, **kw_nms))
+    log(f"val: nms_from_feats K={VAL_MAX_CAND} (fp32, batch {bs}) with K3 and K4 {peaks['K4'][1]:.3f} ms back to back "
+        f"({t_nms_graph:.4f} ms device time, graph replay), with K3's plain version and K4 (the path before K3) "
+        f"{t_plain_select:.3f} ms; detections {'equal' if same else 'NOT equal'}, on {card}")
     log(f"val: stages alone (fp32, batch {bs} at {tuple(im.shape[1:3])}): forward {t_fw:.3f} ms, nms_from_feats "
         f"K={VAL_MAX_CAND} through K4 {peaks['K4'][1]:.3f} ms, peak {peaks['K4'][0] / 2 ** 20:.1f} MiB; through "
         f"the blocked keep with K1 and the plain cross passes (the path before K4) {peaks['plain'][1]:.3f} ms, peak "
@@ -719,7 +957,9 @@ def val_phase(card: str, model):
     # the card against the CPU at imgsz 160: separating weights, 4 images labelled from the model's own detections
     small_val_card_vs_cpu(card, root, "yolo11n", "yolo11n.yaml")
     tmp.cleanup()
-    return launches, {"val_ms": k4["ms"], "val_launch_ms": k4["launch_ms"], "val_plain_ms": k4["plain_ms"],
+    k3_val = {"launches": k3_launches, "numbers": k3, "nms_ms": peaks["K4"][1], "nms_graph_ms": t_nms_graph,
+              "nms_plain_select_ms": t_plain_select}
+    return launches, k3_val, {"val_ms": k4["ms"], "val_launch_ms": k4["launch_ms"], "val_plain_ms": k4["plain_ms"],
                       "val_bound_ms": k4["bound_ms"],
                       "val_bound_by": k4["bound_by"], "val_shape": k4["shape"], "val_max_abs_err": k4["max_abs_err"],
                       "val_cluster": k4["cluster"], "val_step": k4["step"],
@@ -856,8 +1096,8 @@ def train_phase(card: str):
     priors (-11.5 to -8.8) and its signal, which fades through the eval-mode depth,
     leave no class score above the EMA val's fixed conf of 0.001, so its NMS
     would have nothing to suppress and K4 would never run. Returns the launches
-    of K1 (the reload's predict) and K4 (the EMA vals and final vals of the
-    train and resume runs).
+    of K1 (the reload's predict), K4 (the EMA vals and final vals of the
+    train and resume runs), K3 (all of those) and K2 (the reload's predict).
     """
     import tempfile
 
@@ -877,7 +1117,7 @@ def train_phase(card: str):
     from yololite_tpu_torch.models import checkpoint as ckpt
     from yololite_tpu_torch.ops import nms
     from yololite_tpu_torch.ops.decode import DFLExpectation, dfl_expectation_mm
-    from yololite_tpu_torch.ops.kernels import blocked_nms_finalize, greedy_nms_keep
+    from yololite_tpu_torch.ops.kernels import blocked_nms_finalize, device_letterbox, greedy_nms_keep, select_decode
     from yololite_tpu_torch.utils.loss import BCESum, DFLCrossEntropy, bce_sum, dfl_ce_mean
     from yololite_tpu_torch.utils.tal import TaskAlignedAssigner
 
@@ -889,26 +1129,29 @@ def train_phase(card: str):
     n_train, bs = 64, 16
 
     class CheckedTrainer(DetectionTrainer):
-        """Checks each epoch's EMA val: K4 once per val batch of the K = 8192 NMS, K1 never, and (graphed) metrics
-        equal to an eager val of the same EMA; records the val graphs' calls, captures and replays per epoch."""
+        """Checks each epoch's EMA val: K3 and K4 once per val batch of the K = 8192 NMS, K1 never, and (graphed)
+        metrics equal to an eager val of the same EMA; records the val graphs' calls, captures and replays per
+        epoch."""
 
         def validate(self):
-            k1, k4 = greedy_nms_keep.launches, blocked_nms_finalize.launches
+            k1, k4, k3 = greedy_nms_keep.launches, blocked_nms_finalize.launches, select_decode.launches
             g = self.validator.ema_graphs
             before = (g.calls, g.captures, g.replays)
             stats = super().validate()
             n1, n4 = greedy_nms_keep.launches - k1, blocked_nms_finalize.launches - k4
-            if n1 or n4 != len(self.validator.dataloader):
-                raise AssertionError(f"train epoch {self.epoch}: EMA val made {n1} K1 and {n4} K4 launches for "
-                                     f"{len(self.validator.dataloader)} batches")
+            n3 = select_decode.launches - k3
+            if n1 or n4 != len(self.validator.dataloader) or n3 != n4:
+                raise AssertionError(f"train epoch {self.epoch}: EMA val made {n1} K1, {n3} K3 and {n4} K4 launches "
+                                     f"for {len(self.validator.dataloader)} batches")
             self.val_launches = getattr(self, "val_launches", []) + [n4]
             self.val_graphs = getattr(self, "val_graphs", []) + [
                 tuple(a - b for a, b in zip((g.calls, g.captures, g.replays), before))]
             if not graphs._eager:  # the same EMA eagerly: the same metrics
-                k4 = blocked_nms_finalize.launches
+                k4, k3 = blocked_nms_finalize.launches, select_decode.launches
                 with graphs.eager():
                     eager = self.validator(trainer=self)
                 self.compare_k4 = getattr(self, "compare_k4", 0) + blocked_nms_finalize.launches - k4
+                self.compare_k3 = getattr(self, "compare_k3", 0) + select_decode.launches - k3
                 if eager != stats:
                     raise AssertionError(f"train epoch {self.epoch}: the graphed EMA val's metrics {stats} differ "
                                          f"from the eager val's {eager}")
@@ -954,12 +1197,12 @@ def train_phase(card: str):
 
     # (b), (c) the facade's train, graphed (fp32 and bf16) and eager (fp32), 3 epochs: the keys repeat from the
     # second step, the EMA val's bucket shapes from the second epoch
-    launches = {"greedy_nms_keep": 0, "blocked_nms_finalize": 0}
+    launches = {"greedy_nms_keep": 0, "blocked_nms_finalize": 0, "select_decode": 0, "device_letterbox": 0}
     runs = {}
     for amp, mode in ((False, "graphed"), (True, "graphed"), (False, "eager")):
         dtype = "bf16" if amp else "fp32"
         m = start_model()
-        greedy_nms_keep.launches = blocked_nms_finalize.launches = 0
+        greedy_nms_keep.launches = blocked_nms_finalize.launches = select_decode.launches = 0
         pool0 = graphs.pool_reserved_bytes()
         t0 = time.perf_counter()
         with graphs.eager() if mode == "eager" else contextlib.nullcontext():
@@ -969,10 +1212,12 @@ def train_phase(card: str):
         wall = time.perf_counter() - t0
         t = m.trainer
         n, n1 = blocked_nms_finalize.launches - getattr(t, "compare_k4", 0), greedy_nms_keep.launches
-        if n1:
-            raise AssertionError(f"train {dtype}: {n1} K1 launches; every val NMS is K = 8192 (K4)")
+        n3 = select_decode.launches - getattr(t, "compare_k3", 0)
+        if n1 or n3 != n:
+            raise AssertionError(f"train {dtype}: {n1} K1 and {n3} K3 launches; every val NMS is K = 8192 (K3, K4)")
         if mode == "graphed":
             launches["blocked_nms_finalize"] += n
+            launches["select_decode"] += n3
         rows = np.loadtxt(t.csv, delimiter=",", skiprows=1, ndmin=2)
         if rows.shape[0] != 3 or not np.isfinite(rows).all() or not (rows[:, 1:4] > 0).all():
             raise AssertionError(f"train {dtype}: results.csv rows not finite or not 3 epochs: {rows}")
@@ -1006,9 +1251,14 @@ def train_phase(card: str):
     # reload best.npz and predict; resume last.npz for one more epoch with the optimizer state restored
     t32 = runs[("fp32", "graphed")]
     frames = [np.random.default_rng(22).integers(0, 256, (480, 640, 3), dtype=np.uint8) for _ in range(4)]
-    greedy_nms_keep.launches = 0
+    greedy_nms_keep.launches = select_decode.launches = device_letterbox.launches = 0
     res = YOLOLite(str(t32.best)).predict(frames, imgsz=640, conf=1e-7, batch=4, save=False, verbose=False)
+    if (select_decode.launches, device_letterbox.launches) != (greedy_nms_keep.launches, 1):
+        raise AssertionError(f"predict from best.npz: K1 {greedy_nms_keep.launches}, K3 {select_decode.launches}, "
+                             f"K2 {device_letterbox.launches} launches (the warm-up and one call)")
     launches["greedy_nms_keep"] += greedy_nms_keep.launches
+    launches["select_decode"] += select_decode.launches
+    launches["device_letterbox"] += device_letterbox.launches
     if len(res) != 4 or not all(len(r) and np.isfinite(r.boxes.data).all() for r in res):
         raise AssertionError("predict from best.npz: no detections or not finite")
     restored = {}
@@ -1026,11 +1276,12 @@ def train_phase(card: str):
             restored.update(step=int(self.optimizer.state[next(iter(named.values()))]["step"]),
                             epoch=self.start_epoch, updates=self.ema.updates, saved_epoch=meta["epoch"])
 
-    blocked_nms_finalize.launches = 0
+    blocked_nms_finalize.launches = select_decode.launches = 0
     rt = ResumeChecked(overrides={"resume": str(t32.last)})
     rt.epochs = 4
     rt.train()
     launches["blocked_nms_finalize"] += blocked_nms_finalize.launches - getattr(rt, "compare_k4", 0)
+    launches["select_decode"] += select_decode.launches - getattr(rt, "compare_k3", 0)
     if restored.get("epoch") != 3 or restored["saved_epoch"] != 2 or rt.epoch != 3 or restored["step"] < 1:
         raise AssertionError(f"resume: {restored}, ran to epoch {rt.epoch}")
     log(f"train: best.npz predicts on the card ({[len(r) for r in res]} detections); resume from last.npz (epoch "
@@ -1425,13 +1676,14 @@ def int8_vs_bf16(card: str, path: str, frames, bs: int, n_convs: int, name: str,
                                                                                           "bf16")):
     """predict(int8=True) against bf16 predict on one model, both graphed, in turns, each turn `reps` calls timed on
     the host (each call ends in host results); then one turn of each run eagerly, for the record. Returns the
-    graphed medians, per-call lists and the K8 launches of the int8 calls."""
+    graphed medians, the calls (each launched K1, K3 and K2 once), the K8 launches of the int8 calls and the int8
+    predictor."""
     import numpy as np
 
     from yololite_tpu_torch import YOLOLite
     from yololite_tpu_torch.engine import graphs
     from yololite_tpu_torch.ops import kernels
-    from yololite_tpu_torch.ops.kernels import greedy_nms_keep, int8_conv
+    from yololite_tpu_torch.ops.kernels import device_letterbox, greedy_nms_keep, int8_conv, select_decode
 
     kw = dict(conf=1e-7, imgsz=640, batch=bs, save=False, verbose=False)
     models = {"bf16": (YOLOLite(path), {"half": True}), "int8": (YOLOLite(path), {"int8": True})}
@@ -1447,13 +1699,15 @@ def int8_vs_bf16(card: str, path: str, frames, bs: int, n_convs: int, name: str,
         for mode in (*turns, "bf16 eager", "int8 eager"):
             model, extra = models[mode.split()[0]]
             for _ in range(reps):
-                greedy_nms_keep.launches = int8_conv.launches = 0
+                greedy_nms_keep.launches = int8_conv.launches = select_decode.launches = device_letterbox.launches = 0
                 t0 = time.perf_counter()
                 with graphs.eager() if mode.endswith("eager") else contextlib.nullcontext():
                     results = model.predict(frames, **kw, **extra)
                 times[mode].append(time.perf_counter() - t0)
-                if greedy_nms_keep.launches != 1 or int8_conv.launches != (n_convs if mode.startswith("int8") else 0):
-                    raise AssertionError(f"{name} {mode} predict: {greedy_nms_keep.launches} K1 and "
+                if (greedy_nms_keep.launches, select_decode.launches, device_letterbox.launches) != (1, 1, 1) or (
+                        int8_conv.launches != (n_convs if mode.startswith("int8") else 0)):
+                    raise AssertionError(f"{name} {mode} predict: {greedy_nms_keep.launches} K1, "
+                                         f"{select_decode.launches} K3, {device_letterbox.launches} K2 and "
                                          f"{int8_conv.launches} K8 launches in one call")
                 k1 += 1
                 k8 += int8_conv.launches
@@ -1480,7 +1734,8 @@ def serving_phase(card: str, frames):
     """Phase 6: .pt and ensemble predict, int8 predict with K8, export, the pipeline and embed on the card.
 
     Returns K1's launches on these main paths, K8's launches in the int8
-    predict runs, and K8's numbers for the kernels line.
+    predict runs, K8's numbers for the kernels line, and K3's and K2's
+    launches on these main paths.
     """
     import tempfile
 
@@ -1492,14 +1747,15 @@ def serving_phase(card: str, frames):
     from yololite_tpu_torch.engine.predictor import DetectionPredictor, fp32_convs
     from yololite_tpu_torch.models.model import DetectionModel, EnsembleModel
     from yololite_tpu_torch.ops import nms
-    from yololite_tpu_torch.ops.kernels import greedy_nms_keep, greedy_nms_keep_plain, int8_conv
+    from yololite_tpu_torch.ops.kernels import (device_letterbox, greedy_nms_keep, greedy_nms_keep_plain, int8_conv,
+                                               select_decode)
     from yololite_tpu_torch.ops.letterbox import preprocess_batch
     from yololite_tpu_torch.runtime import InferencePipeline, export_predict, load_exported, predict_graph
     from yololite_tpu_torch.engine import graphs
 
     tmp = tempfile.TemporaryDirectory()
     root = Path(tmp.name)
-    k1 = 0
+    k1 = k3 = k2 = 0
     kw = dict(conf=1e-7, imgsz=640, batch=32, save=False, verbose=False)
 
     # (a) .pt files through the stub unpickler: a plain model and a 2-member ensemble
@@ -1523,7 +1779,7 @@ def serving_phase(card: str, frames):
                 model.predict(frames, **kw)
         finally:
             nms._exact_keep = exact_keep
-        greedy_nms_keep.launches = 0
+        greedy_nms_keep.launches = select_decode.launches = device_letterbox.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         reps = 3
@@ -1532,10 +1788,14 @@ def serving_phase(card: str, frames):
         torch.cuda.synchronize()
         dt = (time.perf_counter() - t0) / reps
         n = greedy_nms_keep.launches
-        if n != reps or len(inputs) != 1:
-            raise AssertionError(f"{name}: {n} K1 launches in {reps} predict calls, {len(inputs)} exact keeps in the "
-                                 "eager call")
+        ensemble = isinstance(model.model, EnsembleModel)  # decodes every member, then non_max_suppression: no K3
+        if n != reps or len(inputs) != 1 or (select_decode.launches, device_letterbox.launches) != (
+                0 if ensemble else reps, reps):
+            raise AssertionError(f"{name}: {n} K1, {select_decode.launches} K3 and {device_letterbox.launches} K2 "
+                                 f"launches in {reps} predict calls, {len(inputs)} exact keeps in the eager call")
         k1 += n
+        k3 += select_decode.launches
+        k2 += device_letterbox.launches
         boxes, valid, thr = inputs[-1]
         boxes = boxes.float().contiguous()
         if not torch.equal(greedy_nms_keep(boxes, valid, thr), greedy_nms_keep_plain(boxes, valid, thr)):
@@ -1544,7 +1804,8 @@ def serving_phase(card: str, frames):
             raise AssertionError(f"{name}: predict gave no detections or non-finite ones")
         log(f"serving (a): {name} (yolo11n, init({'0' if name.startswith('plain') else '0, 1'})) loads bit-equal, "
             f"predicts batch 32 at 640: {dt * 1e3:.2f} ms/batch, {32 / dt:.1f} img/s, "
-            f"{sum(len(r) for r in results) / 32:.1f} detections/img; K1 {n} launches in {reps} calls, keep == plain "
+            f"{sum(len(r) for r in results) / 32:.1f} detections/img; K1 {n} launches in {reps} calls (K3 "
+            f"{0 if ensemble else reps}, K2 {reps}), keep == plain "
             f"on B={tuple(valid.shape)[0]} K={tuple(valid.shape)[1]}, on {card}")
 
     # (b) int8 predict beside bf16: yolo11n (the plain .pt) at batch 1 and, in turns, 32; K8 on every quantized
@@ -1552,10 +1813,10 @@ def serving_phase(card: str, frames):
     model = YOLOLite(str(plain_pt))
     k8_launches = 0
     med1, n1, n8, _ = int8_vs_bf16(card, str(plain_pt), frames[:1], 1, 76, "yolo11n", turns=("bf16", "int8"))
-    k1 += n1
+    k1, k3, k2 = k1 + n1, k3 + n1, k2 + n1
     k8_launches += n8
     med32, n1, n8, pred = int8_vs_bf16(card, str(plain_pt), frames, 32, 76, "yolo11n")
-    k1 += n1
+    k1, k3, k2 = k1 + n1, k3 + n1, k2 + n1
     k8_launches += n8
     k8 = k8_on_convs(card, pred, frames, 76, "yolo11n", time_plain=True)
     k8.update(int8_ms_b32=med32["int8"] * 1e3, bf16_ms_b32=med32["bf16"] * 1e3, int8_ms_b1=med1["int8"] * 1e3,
@@ -1563,7 +1824,7 @@ def serving_phase(card: str, frames):
               bf16_eager_ms_b32=med32["bf16 eager"] * 1e3)
     del pred
     med_m, n1, n8, pred = int8_vs_bf16(card, "yolo11m.yaml", frames, 32, 101, "yolo11m")
-    k1 += n1
+    k1, k3, k2 = k1 + n1, k3 + n1, k2 + n1
     k8_launches += n8
     k8_m = k8_on_convs(card, pred, frames, 101, "yolo11m", time_plain=False)
     k8["yolo11m"] = {"ms": k8_m["ms"], "bound_ms": k8_m["bound_ms"], "bound_by": k8_m["bound_by"],
@@ -1581,20 +1842,24 @@ def serving_phase(card: str, frames):
         t_export = time.perf_counter() - t0
         call, meta = load_exported(path)
         graph = predict_graph(model.model, conf=1e-7, device="cuda", **ekw)
-        greedy_nms_keep.launches = int8_conv.launches = 0
+        greedy_nms_keep.launches = int8_conv.launches = select_decode.launches = 0
         with torch.inference_mode(), fp32_convs(im8.device):
             ref = graph(im8)
         out = call(im8)
         torch.cuda.synchronize()
         want_k8 = 2 * 76 if mode == "int8" else 0
-        if greedy_nms_keep.launches != 2 or int8_conv.launches != want_k8:
-            raise AssertionError(f"export {mode}: {greedy_nms_keep.launches} K1 and {int8_conv.launches} K8 launches "
-                                 "in the in-process and the exported run")
+        if greedy_nms_keep.launches != 2 or select_decode.launches != 2 or int8_conv.launches != want_k8:
+            raise AssertionError(f"export {mode}: {greedy_nms_keep.launches} K1, {select_decode.launches} K3 and "
+                                 f"{int8_conv.launches} K8 launches in the in-process and the exported run")
+        k3_ops = [n for n in torch.export.load(str(path)).graph.nodes
+                  if n.op == "call_function" and "select_decode" in str(n.target)]
+        if len(k3_ops) != 1:
+            raise AssertionError(f"export {mode}: the exported graph holds {len(k3_ops)} select_decode ops, not one")
         if not torch.equal(out, ref) or not int((ref[..., 4] > 0).sum()):
             raise AssertionError(f"export {mode}: the reloaded graph differs from the in-process one, or detects nothing")
         log(f"serving (c): export {mode} at 640, batch 8: {t_export:.1f} s to export, {path.stat().st_size / 1e6:.1f} "
             f"MB; reloaded output bit-equal to the in-process graph ({int((ref[..., 4] > 0).sum())} detections), "
-            f"K1{' and K8' if want_k8 else ''} as ops, on {card}")
+            f"K3 (one op in the graph), K1{' and K8' if want_k8 else ''} as ops, on {card}")
 
     # (d) InferencePipeline at batch 8, 640: 32 submissions, graphed (its warm-up eager on this thread, the first
     # batch captured on the dispatch thread after a warm-up run there), eagerly, and graphed again (all replays)
@@ -1606,7 +1871,7 @@ def serving_phase(card: str, frames):
     lines = []
     for name in ("graphed", "eager", "graphed again"):
         pipe = InferencePipeline(pred, imgsz=640).start()
-        greedy_nms_keep.launches = 0
+        greedy_nms_keep.launches = select_decode.launches = 0
         warmups = pred._graphs.warmups
         t0 = time.perf_counter()
         with graphs.eager() if name == "eager" else contextlib.nullcontext():
@@ -1616,10 +1881,11 @@ def serving_phase(card: str, frames):
             got = list(pipe.results())
         wall = time.perf_counter() - t0
         k1 += greedy_nms_keep.launches
+        k3 += select_decode.launches
         warmups = pred._graphs.warmups - warmups
-        if len(got) != 32 or greedy_nms_keep.launches != 32 + warmups:  # a capture's warm-up launches K1 too
-            raise AssertionError(f"pipeline {name}: {len(got)} results, {greedy_nms_keep.launches} K1 launches for "
-                                 "32 batches")
+        if len(got) != 32 or greedy_nms_keep.launches != 32 + warmups or select_decode.launches != 32 + warmups:
+            raise AssertionError(f"pipeline {name}: {len(got)} results, {greedy_nms_keep.launches} K1 and "
+                                 f"{select_decode.launches} K3 launches for 32 batches")  # a capture's warm-up too
         if want is None:
             want = pred.infer(torch.from_numpy(preprocess_batch(subs[0], imgsz=640)).cuda()).cpu().numpy()
         if not np.array_equal(got[0][1], want) or not (want[..., 4] > 0).any():
@@ -1639,7 +1905,7 @@ def serving_phase(card: str, frames):
     log(f"serving (e): embed of rows 4, 6, 10 at 640 on the card == the CPU's within rtol 1e-3 (largest difference "
         f"{rel:.2e} of the largest value), shape {on_card[0].shape}, on {card}")
     tmp.cleanup()
-    return k1, k8_launches, k8
+    return k1, k8_launches, k8, {"select_decode": k3, "device_letterbox": k2}
 
 
 def small_val_card_vs_cpu(card: str, root: Path, name: str, spec) -> None:
@@ -1758,8 +2024,8 @@ def one_step_card_vs_cpu(card: str, root: Path, name: str, spec, data, bound: fl
 def zoo_phase(card: str, frames):
     """Phase 7: YOLOv10-N and GELAN-T of the extended block zoo at full width and 640 on the card, init(0) weights.
 
-    Returns K1's launches in GELAN-T's predict runs and K4's in its val runs
-    (YOLOv10-N's end2end head takes a top-k of its one2one maps and runs no NMS).
+    Returns K1's launches in GELAN-T's predict runs and K4's in its val runs, K3's in both and K2's in every
+    predict run (YOLOv10-N's end2end head takes a top-k of its one2one maps and runs no NMS, so no K3).
     """
     import tempfile
 
@@ -1773,7 +2039,7 @@ def zoo_phase(card: str, frames):
     from yololite_tpu_torch.ops import nms
     from yololite_tpu_torch.ops.decode import postprocess_end2end
     from yololite_tpu_torch.ops.kernels import (blocked_nms_finalize, device_letterbox, greedy_nms_keep,
-                                               greedy_nms_keep_plain, int8_conv)
+                                               greedy_nms_keep_plain, int8_conv, select_decode)
 
     tmp = tempfile.TemporaryDirectory()
     root = Path(tmp.name)
@@ -1782,7 +2048,7 @@ def zoo_phase(card: str, frames):
     for name, m in models.items():
         log(f"zoo: {name}: {m.model.num_params():,} parameters, {m.model.gflops(640):.2f} GFLOPs at 640, strides "
             f"{m.model.strides}, end2end {m.model.detect.end2end}, rows {[r.name for r in m.model.model]}")
-    k1 = k4 = 0
+    k1 = k4 = k3 = k2 = 0
 
     # (a) predict the 32 frames at 640, conf 1e-7: YOLOv10-N at batch 1 and 32, GELAN-T at 32, fp32 and bf16
     configs = {"yolov10n": [(False, 1), (False, 32), (True, 1), (True, 32)], "gelan-t": [(False, 32), (True, 32)]}
@@ -1794,7 +2060,7 @@ def zoo_phase(card: str, frames):
             kw = dict(conf=1e-7, imgsz=640, batch=bs, half=half, save=False, verbose=False)
             for _ in range(2):  # set up, warm up and run eagerly, then capture
                 m.predict(src, **kw)
-            greedy_nms_keep.launches = 0
+            greedy_nms_keep.launches = select_decode.launches = device_letterbox.launches = 0
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             reps = 5
@@ -1803,9 +2069,12 @@ def zoo_phase(card: str, frames):
             torch.cuda.synchronize()
             dt = (time.perf_counter() - t0) / reps
             n = greedy_nms_keep.launches
-            if n != (0 if e2e else reps):
-                raise AssertionError(f"{name} predict {dtype} batch {bs}: {n} K1 launches in {reps} calls")
+            if n != (0 if e2e else reps) or select_decode.launches != n or device_letterbox.launches != reps:
+                raise AssertionError(f"{name} predict {dtype} batch {bs}: {n} K1, {select_decode.launches} K3 and "
+                                     f"{device_letterbox.launches} K2 launches in {reps} calls")
             k1 += n
+            k3 += select_decode.launches
+            k2 += device_letterbox.launches
             if len(results) != bs:
                 raise AssertionError(f"{name}: {len(results)} results for {bs} images")
             for r in results:
@@ -1817,8 +2086,9 @@ def zoo_phase(card: str, frames):
             pred = m.predictor
             raw = torch.from_numpy(np.stack(src)).cuda().flip(-1)
             mm = m.model
+            layout = pred.letterbox_channels_last(raw.device)
             with torch.inference_mode(), fp32_convs(raw.device):
-                x = device_letterbox(raw, 640, pred.dtype)
+                x = device_letterbox(raw, 640, pred.dtype, channels_last=layout)
                 feats = pred._forward(x)
                 if e2e:
                     tail = lambda: postprocess_end2end(feats["one2one"], mm.strides, mm.nc, mm.reg_max,
@@ -1839,12 +2109,13 @@ def zoo_phase(card: str, frames):
                         raise AssertionError(f"{name} {dtype}: nms_from_feats differs between K1 and the plain keep")
                     tail = lambda: nms.nms_from_feats(*args, **kw_nms)
                     tail_name = f"nms_from_feats K={pred.pred_max_cand} (== plain keep)"
-                t_lb = cuda_ms(lambda: device_letterbox(raw, 640, pred.dtype), 10)
+                t_lb = cuda_ms(lambda: device_letterbox(raw, 640, pred.dtype, channels_last=layout), 10)
                 t_fw = cuda_ms(lambda: pred._forward(x), 10)
                 t_tail = cuda_ms(tail, 10)
             log(f"zoo: {name} predict {dtype} batch {bs} at 640, conf 1e-7: {dt * 1e3:.2f} ms/call, "
-                f"{bs / dt:.1f} img/s, {sum(len(r) for r in results) / bs:.1f} detections/img, K1 {n} launches in "
-                f"{reps} calls; stages alone: letterbox {t_lb:.3f} ms, forward {t_fw:.3f} ms, {tail_name} "
+                f"{bs / dt:.1f} img/s, {sum(len(r) for r in results) / bs:.1f} detections/img, K1 and K3 {n} launches "
+                f"each, K2 {reps}, in {reps} calls; stages alone: letterbox {t_lb:.3f} ms, forward {t_fw:.3f} ms, "
+                f"{tail_name} "
                 f"{t_tail:.3f} ms, their sum {(t_lb + t_fw + t_tail) / (dt * 1e3):.1%} of the call, on {card}")
 
     # (b) val at 640, batch 16, rect, conf 1e-7 on the phase-4 set (64 images, four shapes), each bucket shape one
@@ -1855,7 +2126,7 @@ def zoo_phase(card: str, frames):
         kw = dict(data=str(val_data), imgsz=640, batch=16, rect=True, conf=1e-7, plots=False, verbose=False,
                   project=str(root / "runs"), name=f"{name}_val")
         m.val(**kw)  # the label cache
-        greedy_nms_keep.launches = blocked_nms_finalize.launches = 0
+        greedy_nms_keep.launches = blocked_nms_finalize.launches = select_decode.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         metrics = m.val(**kw)
@@ -1863,16 +2134,19 @@ def zoo_phase(card: str, frames):
         dt = time.perf_counter() - t0
         n1, n = greedy_nms_keep.launches, blocked_nms_finalize.launches
         e2e = m.model.detect.end2end
-        if n1 or (n != 0 if e2e else n != 4):  # 4 batches
-            raise AssertionError(f"{name} val: {n1} K1 and {n} K4 launches for 4 batches")
+        if n1 or (n != 0 if e2e else n != 4) or select_decode.launches != n:  # 4 batches
+            raise AssertionError(f"{name} val: {n1} K1, {select_decode.launches} K3 and {n} K4 launches for 4 "
+                                 "batches")
         k4 += n
+        k3 += n
         rd = metrics.results_dict
         if not all(np.isfinite(v) and 0 <= v <= 1 for v in rd.values()):
             raise AssertionError(f"{name} val metrics not finite or outside [0, 1]: {rd}")
         sp = metrics.speed
         log(f"zoo: {name} val fp32 at 640, batch 16, rect, conf 1e-7, 64 images: {64 / dt:.1f} img/s ({dt:.3f} s); "
             f"per image: preprocess {sp['preprocess']:.3f} ms, inference {sp['inference']:.3f} ms, postprocess "
-            f"{sp['postprocess']:.3f} ms; mAP50-95 {rd['metrics/mAP50-95(B)']:.5f}; K4 {n} launches (4 batches), "
+            f"{sp['postprocess']:.3f} ms; mAP50-95 {rd['metrics/mAP50-95(B)']:.5f}; K3 and K4 {n} launches each (4 "
+            f"batches), "
             f"K1 0, on {card}")
 
     # (c) YOLOv10-N trains 1 epoch at 640, batch 16, on the phase-5 images, amp off and on; predicts from last.npz
@@ -1934,7 +2208,7 @@ def zoo_phase(card: str, frames):
         small_val_card_vs_cpu(card, root, name, spec)
         one_step_card_vs_cpu(card, root, name, spec, train_data, bound=5e-3 if name == "gelan-t" else 1e-3)
     tmp.cleanup()
-    return {"greedy_nms_keep": k1, "blocked_nms_finalize": k4}
+    return {"greedy_nms_keep": k1, "blocked_nms_finalize": k4, "select_decode": k3, "device_letterbox": k2}
 
 
 def rel_l2(a, b) -> float:
@@ -2094,13 +2368,13 @@ def parallel_phase(card: str, frames):
     from yololite_tpu_torch.models.transformer import Linear
     from yololite_tpu_torch.ops import rotated as R
     from yololite_tpu_torch.ops.boxes import make_anchors
-    from yololite_tpu_torch.ops.kernels import blocked_nms_finalize, greedy_nms_keep
+    from yololite_tpu_torch.ops.kernels import blocked_nms_finalize, device_letterbox, greedy_nms_keep, select_decode
     from yololite_tpu_torch.parallel.mesh import launch
 
     tmp = tempfile.TemporaryDirectory()
     root = Path(tmp.name)
     mesh = ["cuda:0", "cuda:0"]  # two replicas (inference) or two gloo ranks (train) on the one card
-    k1 = k4 = 0
+    k1 = k4 = k3 = k2 = 0
 
     # (a) inference over a mesh of two replicas: predict at batch 32, a tail of 31 frames, val at batch 16
     one, two = YOLOLite("yolo11n.yaml"), YOLOLite("yolo11n.yaml", device=mesh)
@@ -2111,44 +2385,48 @@ def parallel_phase(card: str, frames):
             two.predict(src, **kw)
         times = {}
         for name, m in (("one device", one), ("mesh", two)):
-            greedy_nms_keep.launches = 0
+            greedy_nms_keep.launches = select_decode.launches = device_letterbox.launches = 0
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             got = m.predict(src, **kw)
             torch.cuda.synchronize()
             times[name] = (time.perf_counter() - t0) * 1e3
             if name == "mesh":
-                n = greedy_nms_keep.launches
+                n, n3, n2 = greedy_nms_keep.launches, select_decode.launches, device_letterbox.launches
         shards = 2 if bs % 2 == 0 else 1
-        if n != shards or len(two.predictor.replicas) != 2:
-            raise AssertionError(f"mesh predict batch {bs}: {n} K1 launches, {len(two.predictor.replicas)} replicas")
+        if (n, n3, n2) != (shards,) * 3 or len(two.predictor.replicas) != 2:  # K1, K3 and K2 once a shard
+            raise AssertionError(f"mesh predict batch {bs}: {n} K1, {n3} K3 and {n2} K2 launches, "
+                                 f"{len(two.predictor.replicas)} replicas")
         graphed = {k[1] for k in two.predictor._graphs._graphs}  # the modules with a captured step
         if graphed != {id(r) for r in two.predictor.replicas}:  # both replicas (the tail ran on the first)
             raise AssertionError(f"mesh predict batch {bs}: graphs for modules {graphed}")
-        k1 += n
+        k1, k3, k2 = k1 + n, k3 + n3, k2 + n2
         unmatched = sum(len(a.boxes.data) + len(b.boxes.data) - 2 * match_sets(a.boxes.data, b.boxes.data)
                         for a, b in zip(want, got))
         if len(got) != bs or unmatched:
             raise AssertionError(f"mesh predict batch {bs}: {len(got)} results, {unmatched} unmatched detections")
         log(f"parallel: mesh of 2 replicas on cuda:0, predict 32 frames at 640, batch {bs}: {shards} shard(s), "
-            f"K1 {n} launches, detections == one device (0 unmatched of {sum(len(r) for r in got)}); one call "
+            f"K1, K3 and K2 {n} launches each, detections == one device (0 unmatched of "
+            f"{sum(len(r) for r in got)}); one call "
             f"{times['mesh']:.2f} ms on the mesh, {times['one device']:.2f} ms on one device, on {card}")
     shapes = [(480, 640), (640, 480), (640, 640), (360, 640)]
     val_data = write_val_dataset(root / "val64", shapes * 16, seed=15)
     kwv = dict(data=str(val_data), imgsz=640, batch=16, rect=True, conf=1e-7, plots=False, verbose=False,
                project=str(root / "runs"))
     rd1 = one.val(**kwv, name="one").results_dict
-    greedy_nms_keep.launches = blocked_nms_finalize.launches = 0
+    greedy_nms_keep.launches = blocked_nms_finalize.launches = select_decode.launches = 0
     rd2 = two.val(**kwv, name="mesh").results_dict
     n1, n = greedy_nms_keep.launches, blocked_nms_finalize.launches
-    if n1 or n != 8:  # 4 batches x 2 shards
-        raise AssertionError(f"mesh val: {n1} K1 and {n} K4 launches for 4 batches of 2 shards")
+    if n1 or n != 8 or select_decode.launches != 8:  # 4 batches x 2 shards
+        raise AssertionError(f"mesh val: {n1} K1, {select_decode.launches} K3 and {n} K4 launches for 4 batches of 2 "
+                             "shards")
     k4 += n
+    k3 += n
     worst = max(abs(rd2[k] - rd1[k]) for k in rd1)
     if worst > 1e-6:
         raise AssertionError(f"mesh val differs from one device by {worst}: {rd2} vs {rd1}")
     log(f"parallel: mesh val of 64 images at 640, batch 16, rect: 4 batches x 2 shards, each shard's shape seen "
-        f"once, so eager (K4 {n} launches, K1 0); mAP50-95 {rd2['metrics/mAP50-95(B)']:.6f}, every metric "
+        f"once, so eager (K3 and K4 {n} launches each, K1 0); mAP50-95 {rd2['metrics/mAP50-95(B)']:.6f}, every metric "
         f"within {worst:.1e} of one device")
 
     # (b) the data-parallel train step: two gloo ranks of 8 rows against one process on the global 16
@@ -2235,9 +2513,12 @@ def parallel_phase(card: str, frames):
         curves[name] = np.loadtxt(m.trainer.csv, delimiter=",", skiprows=1, ndmin=2)[:, 1:4]
     t2 = runs["2 gloo ranks"][0]
     n = t2.rank_kernel_launches["blocked_nms_finalize"]
-    if not Path(t2.last).exists() or not n or not np.isfinite(curves["2 gloo ranks"]).all():
-        raise AssertionError(f"2-rank train: last.npz {Path(t2.last).exists()}, rank 0's K4 launches {n}")
+    if not Path(t2.last).exists() or not n or not np.isfinite(curves["2 gloo ranks"]).all() or (
+            t2.rank_kernel_launches["select_decode"] != n):
+        raise AssertionError(f"2-rank train: last.npz {Path(t2.last).exists()}, rank 0's launches "
+                             f"{t2.rank_kernel_launches}")
     k4 += n
+    k3 += n
     rel = float(np.abs(curves["2 gloo ranks"] / curves["one process"] - 1).max())
     if rel > 1e-3:
         raise AssertionError(f"2-rank loss curve {curves['2 gloo ranks']} vs one process {curves['one process']}")
@@ -2317,7 +2598,7 @@ def parallel_phase(card: str, frames):
         f"layers, batch 8) card == CPU: boxes and logits relative L2 {errs[0]:.1e}, {errs[1]:.1e}; forward "
         f"{t_dec:.3f} ms, on {card}")
     tmp.cleanup()
-    return {"greedy_nms_keep": k1, "blocked_nms_finalize": k4}
+    return {"greedy_nms_keep": k1, "blocked_nms_finalize": k4, "select_decode": k3, "device_letterbox": k2}
 
 
 def main() -> int:
@@ -2343,7 +2624,9 @@ def main() -> int:
     from yololite_tpu_torch import YOLOLite
     from yololite_tpu_torch.engine import graphs
     from yololite_tpu_torch.ops import cuda_build, nms
-    from yololite_tpu_torch.ops.kernels import blocked_nms_finalize, greedy_nms_keep, greedy_nms_keep_plain
+    from yololite_tpu_torch.ops.kernels import (blocked_nms_finalize, device_letterbox, device_letterbox_plain,
+                                               greedy_nms_keep, greedy_nms_keep_plain, letterbox_geometry,
+                                               select_decode, select_decode_plain)
 
     card = card_line()
     kind = torch.cuda.get_device_name(0)
@@ -2416,9 +2699,47 @@ def main() -> int:
         f"scenes {k4_cases}; max_det 1, 300 and K (256, 512, 1024 on the disjoint scene)")
     k4_crowded = {b: k4_numbers(card, k4_scene(7, b, 8192, "crowded"), 0.7, 300, "crowded scene") for b in (16, 8, 1)}
 
+    # K3 against its plain version on every scene of K3_CASES; K2 on frames of four sizes, both layouts, bgr or not
+    k3_bits = []
+    for case in K3_CASES:
+        args = k3_args(case)
+        got = select_decode(*args)
+        want = select_decode_plain(*args)
+        torch.cuda.synchronize()
+        if k3_check(got, want, case[0]):
+            k3_bits.append(case[0])
+    log(f"kernel: select_decode equal to its plain version in {len(K3_CASES)} scenes "
+        f"({', '.join(c[0] for c in K3_CASES)}): "
+        f"vals, bidx, cls, valid bit for bit; boxes bit-equal in {len(k3_bits)} of them, within 1e-6 relative in all")
+    k2_checks = 0
+    lb_rng = np.random.default_rng(8)
+    for (h0, w0), s in (((480, 640), 640), ((720, 1280), 640), ((333, 517), 320), ((100, 120), 320)):
+        raw = torch.from_numpy(lb_rng.integers(0, 256, (3, h0, w0, 3), dtype=np.uint8)).cuda()
+        for dtype in (torch.float32, torch.bfloat16):
+            for bgr in (False, True):
+                for channels_last in (False, True):
+                    got = device_letterbox(raw, s, dtype, bgr=bgr, channels_last=channels_last)
+                    want32 = device_letterbox_plain(raw, s, torch.float32, bgr)
+                    err = float((got.float() - want32).abs().max().item())
+                    resize = tuple(letterbox_geometry(h0, w0, s)[:2]) != (h0, w0)
+                    if err > (1e-5 if dtype == torch.float32 else 2.0 ** -9 + 1e-5) or (
+                            not resize and not same_bits(got.contiguous(), want32.to(dtype))):
+                        raise AssertionError(f"device_letterbox {h0}x{w0} -> {s} {dtype} bgr {bgr} channels_last "
+                                             f"{channels_last}: max |diff| {err:.3g} from its plain version")
+                    k2_checks += 1
+    log(f"kernel: device_letterbox equal to its plain version in {k2_checks} checks (480x640 and 720x1280 -> 640, "
+        f"333x517 and 100x120 -> 320; fp32, bf16; bgr; both layouts): no resize bit for bit, a resize within 1e-5")
+    # K2 timed at predict's batch (B 32, 480x640 -> 640, no resize: the smoke's frames) in the layouts predict
+    # writes (fp32 NCHW, bf16 channels-last), and at a resizing shape
+    frames32 = torch.from_numpy(lb_rng.integers(0, 256, (32, 480, 640, 3), dtype=np.uint8)).cuda()
+    k2 = {"fp32": k2_numbers(card, frames32, 640, torch.float32, False, True, "predict's batch, fp32"),
+          "bf16": k2_numbers(card, frames32, 640, torch.bfloat16, True, True, "predict's batch, bf16")}
+    hd = torch.from_numpy(lb_rng.integers(0, 256, (32, 720, 1280, 3), dtype=np.uint8)).cuda()
+    k2["fp32_720x1280"] = k2_numbers(card, hd, 640, torch.float32, False, True, "a 720p batch, fp32")
+    del hd, frames32
+
     # ---- 3. slice: yolo11n predict at 640 through the facade ----
     from yololite_tpu_torch.engine.predictor import fp32_convs
-    from yololite_tpu_torch.ops.kernels import device_letterbox
 
     model = YOLOLite("yolo11n.yaml")  # init(0) on the card
     rng = np.random.default_rng(0)
@@ -2432,6 +2753,8 @@ def main() -> int:
         return exact_keep(boxes, valid, thr)
 
     launches = 0
+    k3_launches = k2_launches = 0  # K3's and K2's launches on the main paths
+    k3_pred, nms_pred = {}, {}  # K3's numbers and nms_from_feats's times on predict's batch-32 maps, by dtype
     for half in (False, True):
         for bs in (1, 32):
             config = (half, bs)
@@ -2445,7 +2768,7 @@ def main() -> int:
                     eager_results = model.predict(src, **kw)
             finally:
                 nms._exact_keep = exact_keep
-            greedy_nms_keep.launches = 0
+            greedy_nms_keep.launches = select_decode.launches = device_letterbox.launches = 0
             n_graphs = len(model.predictor._graphs)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -2455,8 +2778,12 @@ def main() -> int:
             torch.cuda.synchronize()
             dt = (time.perf_counter() - t0) / reps
             n = greedy_nms_keep.launches
-            if n != reps:  # one exact keep of K = 512 per predict call, counted at each replay
-                raise AssertionError(f"greedy_nms_keep launched {n} times in {reps} predict calls")
+            if (n, select_decode.launches, device_letterbox.launches) != (reps,) * 3:
+                # one letterbox, one select of K = 512 and one exact keep per predict call, counted at each replay
+                raise AssertionError(f"K1, K3 and K2 launched {n}, {select_decode.launches} and "
+                                     f"{device_letterbox.launches} times in {reps} predict calls")
+            k3_launches += reps
+            k2_launches += reps
             if len(model.predictor._graphs) != n_graphs or not n_graphs:  # replays only, no capture
                 raise AssertionError(f"{len(model.predictor._graphs) - n_graphs} graphs captured in the timed calls")
             with graphs.eager():
@@ -2484,7 +2811,8 @@ def main() -> int:
             dtype = "bf16" if half else "fp32"
             log(f"slice: yolo11n {dtype} batch {bs} at 640, graphed: {dt * 1e3:.2f} ms/batch, "
                 f"{bs / dt:.1f} img/s, {sum(len(r) for r in results) / bs:.1f} detections/img, "
-                f"{n} kernel launches in {reps} calls; eager {dt_eager * 1e3:.2f} ms/batch, {bs / dt_eager:.1f} "
+                f"{n} launches of K1, K3 and K2 each in {reps} calls; eager {dt_eager * 1e3:.2f} ms/batch, "
+                f"{bs / dt_eager:.1f} "
                 f"img/s; detections equal; device idle share of a graphed call {idle}, on {card}")
 
             pred = model.predictor
@@ -2502,8 +2830,9 @@ def main() -> int:
                 f"graph replay {t_step:.3f} ms, eager {t_step_eager:.3f} ms, on {card}")
             # on this batch's Detect maps: the kernel against the plain keep inside nms_from_feats,
             # then each stage of the predict graph timed alone
+            layout = pred.letterbox_channels_last(raw.device)
             with torch.inference_mode(), fp32_convs(raw.device):
-                x = device_letterbox(raw, 640, pred.dtype)
+                x = device_letterbox(raw, 640, pred.dtype, channels_last=layout)
                 feats = pred._forward(x)
                 args = (feats, model.model.strides, model.model.nc, model.model.reg_max)
                 kw_nms = dict(conf_thres=pred.conf, iou_thres=pred.iou, max_det=pred.max_det,
@@ -2518,11 +2847,32 @@ def main() -> int:
                     raise AssertionError("nms_from_feats differs between the kernel and the plain keep")
                 log(f"slice: nms_from_feats through the kernel == through the plain keep "
                     f"({dtype}, batch {bs}, {int((with_kernel[..., 4] > 0).sum())} detections)")
-                t_lb = cuda_ms(lambda: device_letterbox(raw, 640, pred.dtype), 10)
+                t_lb = cuda_ms(lambda: device_letterbox(raw, 640, pred.dtype, channels_last=layout), 10)
                 t_fw = cuda_ms(lambda: pred._forward(x), 10)
                 t_nms = cuda_ms(lambda: nms.nms_from_feats(*args, **kw_nms), 10)
+                if bs == 32:  # the forward on the other input layout, which K2 could write instead
+                    x_other = device_letterbox(raw, 640, pred.dtype, channels_last=not layout)
+                    t_fw_other = cuda_ms(lambda: pred._forward(x_other), 10)
+                    log(f"slice: forward ({dtype}, batch 32) on an NCHW-contiguous input "
+                        f"{t_fw if not layout else t_fw_other:.3f} ms, on a channels-last input "
+                        f"{t_fw_other if not layout else t_fw:.3f} ms (K2 writes "
+                        f"{'channels-last' if layout else 'NCHW'}), on {card}")
+                    del x_other
+                if bs == 32:  # K3 on this batch's maps, and nms_from_feats with K3 against with its plain version
+                    k3_pred[dtype] = k3_numbers(card, (feats, *args[1:], pred.conf, pred.pred_max_cand, None,
+                                                       pred.half, False, False), f"predict's {dtype} maps")
+                    with plain_select():
+                        same = torch.equal(with_kernel, nms.nms_from_feats(*args, **kw_nms))
+                        t_plain = cuda_ms(lambda: nms.nms_from_feats(*args, **kw_nms), 10)
+                    nms_pred[dtype] = {"k3": t_nms, "plain_select": t_plain,
+                                       "k3_graph": graph_ms(lambda: nms.nms_from_feats(*args, **kw_nms))}
+                    log(f"slice: nms_from_feats K={pred.pred_max_cand} ({dtype}, batch 32) with K3 {t_nms:.3f} ms "
+                        f"(device time, graph replay: {nms_pred[dtype]['k3_graph']:.4f} ms), with K3's plain version "
+                        f"(the path before K3) {t_plain:.3f} ms, back-to-back calls; detections "
+                        f"{'equal' if same else 'NOT equal'}, on {card}")
             busy = t_lb + t_fw + t_nms
-            log(f"slice: stages alone ({dtype}, batch {bs}): letterbox {t_lb:.3f} ms, forward {t_fw:.3f} ms, "
+            log(f"slice: stages alone ({dtype}, batch {bs}, input {'channels-last' if layout else 'NCHW'}): "
+                f"letterbox {t_lb:.3f} ms, forward {t_fw:.3f} ms, "
                 f"nms_from_feats {t_nms:.3f} ms; their sum is {busy / (dt * 1e3):.1%} of the "
                 f"{dt * 1e3:.2f} ms predict call, on {card}")
 
@@ -2541,14 +2891,17 @@ def main() -> int:
     log(f"slice: card == CPU on 2 images at imgsz 160 ({[len(r) for r in on_card]} detections)")
 
     # ---- 4. val: yolo11n val at 640 through the facade ----
-    k4_launches, val_k4 = val_phase(card, model)
+    k4_launches, k3_val, val_k4 = val_phase(card, model)
+    k3_launches += k3_val["launches"]
 
     # ---- 5. train: yolo11n train at 640 through the facade ----
     counts = train_phase(card)
 
     # ---- 6. serving: .pt, ensembles, int8 with K8, export, the pipeline, embed ----
-    serving_k1, k8_launches, k8 = serving_phase(card, frames)
+    serving_k1, k8_launches, k8, serving_k32 = serving_phase(card, frames)
     launches += serving_k1
+    k3_launches += serving_k32["select_decode"]
+    k2_launches += serving_k32["device_letterbox"]
 
     # ---- 7. zoo: YOLOv10-N and GELAN-T at full width: predict, val, train, .pt, int8 refusal, card vs CPU ----
     # ---- 8. data parallelism on the card (mesh predict and val, ranks' train step and train), rotated ops,
@@ -2556,6 +2909,8 @@ def main() -> int:
     for more in (counts, zoo_phase(card, frames), parallel_phase(card, frames)):
         launches += more["greedy_nms_keep"]
         k4_launches += more["blocked_nms_finalize"]
+        k3_launches += more["select_decode"]
+        k2_launches += more["device_letterbox"]
 
     # ---- kernels line: timed on the main path's own inputs (fp32, batch 32; batch 1 logged) ----
     for config in ((False, 1), (False, 32)):
@@ -2631,7 +2986,38 @@ def main() -> int:
         "shape": "the 76 quantized convs of one yolo11n forward at 640, batch 32, summed (device time)",
         **k8,
     }
-    log(json.dumps({"kernels": [entry, k4_entry, k8_entry]}))
+    k3_entry = {
+        "name": "select_decode",
+        "route": "cuda",
+        "source": "yololite_tpu_torch/csrc/select_decode.cu",
+        "replaces": "yololite_tpu/ops/nms.py:357",  # nms_from_feats steps 1-4 (:409-494): XLA ops shaped by hand
+        "launches": k3_launches,
+        # on val's first fp32 batch (B 16, K 8,192 multi-label); predict's batch-32 maps under "predict"
+        **{key: k3_val["numbers"][key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                                    "library_ms", "shape", "boxes_bit_equal")},
+        "library": "torch.topk on the gated row (its tie order is not lax.top_k's: a yardstick)",
+        "predict": {d: {key: v[key] for key in ("ms", "plain_ms", "bound_ms", "library_ms", "boxes_bit_equal")}
+                    for d, v in k3_pred.items()},
+        "nms_from_feats_ms": {"val": {"with_k3": k3_val["nms_ms"], "with_k3_device": k3_val["nms_graph_ms"],
+                                      "plain_select": k3_val["nms_plain_select_ms"]},
+                              **{f"predict_{d}": {"with_k3": v["k3"], "with_k3_device": v["k3_graph"],
+                                                  "plain_select": v["plain_select"]} for d, v in nms_pred.items()}},
+    }
+    k2_entry = {
+        "name": "device_letterbox",
+        "route": "cuda",
+        "source": "yololite_tpu_torch/csrc/letterbox.cu",
+        "replaces": "yololite_tpu/ops/pallas_kernels.py:89",  # device_letterbox: XLA ops, not a Pallas kernel
+        "launches": k2_launches,
+        # B 32, 480x640 -> 640 (no resize), fp32 NCHW out, as predict's fp32 path writes it
+        **{key: k2["fp32"][key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                             "shape")},
+        "library": "F.interpolate bilinear (align_corners False) of the resize alone",
+        "bf16": {key: k2["bf16"][key] for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
+        "fp32_720x1280": {key: k2["fp32_720x1280"][key] for key in ("ms", "plain_ms", "bound_ms", "library_ms",
+                                                                     "max_abs_err")},
+    }
+    log(json.dumps({"kernels": [entry, k3_entry, k2_entry, k4_entry, k8_entry]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0
 

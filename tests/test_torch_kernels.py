@@ -14,10 +14,11 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import k4_scene
+from chip_smoke import K3_CASES, K3_RECT, k3_args, k3_check, k3_maps, k4_scene
 from yololite_tpu_torch.engine import graphs
-from yololite_tpu_torch.ops.kernels import (blocked_nms_finalize, blocked_nms_finalize_plain, greedy_nms_keep,
-                                           greedy_nms_keep_plain, int8_conv, int8_conv_plain)
+from yololite_tpu_torch.ops.kernels import (blocked_nms_finalize, blocked_nms_finalize_plain, device_letterbox,
+                                           device_letterbox_plain, greedy_nms_keep, greedy_nms_keep_plain, int8_conv,
+                                           int8_conv_plain, select_decode, select_decode_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -291,8 +292,8 @@ def test_int8_predict_launches_the_kernel(card, monkeypatch):
 
 def _same_bits(a, b) -> bool:
     """Equal bit for bit (NaN rows included, which torch.equal calls unequal)."""
-    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(a.contiguous().view(torch.int32),
-                                                                     b.contiguous().view(torch.int32))
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.contiguous().reshape(-1).view(torch.uint8), b.contiguous().reshape(-1).view(torch.uint8))
 
 
 def _k4_plain(*args):
@@ -719,3 +720,163 @@ def test_train_state_stays_outside_the_graph_pool(card, tmp_path):
     assert len(state) == 3 * len(tr._grads) and graphs.in_pool(lives) == []
     grad = next(v for k, v in tr.graphs._graphs.items() if k[0] == "grad")
     assert len(graphs.in_pool(list(grad.static_out))) == 2  # the loss items and fg_mask: made in the capture
+
+
+# ---------------- K3: candidate select + DFL decode ----------------
+
+@pytest.mark.parametrize("case", K3_CASES, ids=[c[0] for c in K3_CASES])
+def test_select_decode_kernel_matches_plain(card, case):
+    """K3 against its plain version on the card: vals, bidx, cls and valid bit for bit in all K rows (the -1
+    fillers included), boxes and the class-offset boxes within 1e-6 relative (NaN where the plain version has
+    NaN); one launch per call."""
+    args = k3_args(case)
+    before = select_decode.launches
+    got = select_decode(*args)
+    torch.cuda.synchronize()
+    assert select_decode.launches == before + 1
+    k3_check(got, select_decode_plain(*args), case[0])  # raises on a difference
+    if case[0].startswith("all-gated"):
+        assert bool((got[0] == -1).all()) and not bool(got[5].any())
+
+
+def test_select_decode_sigmoid_bits_equal_torchs(card):
+    """The kernel's scores equal torch.sigmoid's bits: every finite bf16 logit (in fp32 and rounded to bf16) and
+    an fp32 sweep over [-30, 30]; each entry is read back through its index (K = N, nothing gated out)."""
+    allbf = torch.arange(0, 1 << 16, dtype=torch.int32).to(torch.int16).view(torch.bfloat16)
+    allbf = allbf[torch.isfinite(allbf)]
+    sweep = torch.linspace(-30, 30, 64 * 4001)
+    for logits, halves in ((allbf, (False, True)), (sweep, (False,))):
+        t = logits[: logits.numel() // 64 * 64].reshape(1, 64, 1, -1).to(card)
+        feat = torch.cat([torch.zeros_like(t), t], 1).permute(0, 2, 3, 1)  # 64 box channels, 64 classes
+        for half in halves:
+            vals, bidx, cls = select_decode([feat], [8], 64, 16, -2.0, 1 << 30, None, half, True, False)[:3]
+            s = torch.sigmoid(t if half else t.float()).float().permute(0, 2, 3, 1).reshape(-1)
+            assert vals.shape[1] == s.numel()
+            assert _same_bits(vals[0], s[bidx[0] * 64 + cls[0].long()])
+
+
+def test_select_decode_kernel_replays_in_a_graph(card):
+    """Captured in a CUDA graph, K3 replays on new maps copied into the captured inputs and gives the eager
+    results (no host sync inside: the capture would fail)."""
+    args = k3_args(K3_CASES[3])
+    feats = [f.clone() for f in args[0]]
+    static = [f.clone() for f in feats]
+    select_decode(static, *args[1:])  # warm up outside the capture
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = select_decode(static, *args[1:])
+    for seed in (1, 2):
+        new = k3_maps(np.random.default_rng(seed), 16, K3_RECT, 80, torch.float32, "nhwc", "random")
+        for s, n in zip(static, new):
+            s.copy_(n)
+        g.replay()
+        torch.cuda.synchronize()
+        want = select_decode(new, *args[1:])
+        for o, w in zip(out, want):
+            assert _same_bits(o, w)
+
+
+def test_select_decode_kernel_rejects_what_it_does_not_take(card):
+    feats = k3_args(K3_CASES[0])[0]
+    with pytest.raises(TypeError):
+        select_decode([f.double() for f in feats], [8, 16, 32], 80, 16, 0.1, 512)
+    with pytest.raises(TypeError):
+        select_decode([feats[0].half(), feats[1], feats[2]], [8, 16, 32], 80, 16, 0.1, 512)
+    with pytest.raises(ValueError):
+        select_decode(feats, [8, 16, 32], 79, 16, 0.1, 512)
+    with pytest.raises(ValueError):
+        select_decode([feats[0].cpu(), feats[1], feats[2]], [8, 16, 32], 80, 16, 0.1, 512)
+    with pytest.raises(ValueError):
+        select_decode(feats, [8, 16, 32], 80, 16, 0.1, 512, torch.ones(79, dtype=torch.bool, device=card))
+
+
+# ---------------- K2: the letterbox ----------------
+
+K2_SHAPES = [((480, 640), 640), ((640, 640), 640), ((720, 1280), 640), ((100, 120), 320), ((333, 517), 320),
+             ((517, 333), 416)]
+
+
+@pytest.mark.parametrize("shape,s", K2_SHAPES, ids=[f"{h}x{w}-{s}" for (h, w), s in K2_SHAPES])
+def test_letterbox_kernel_matches_plain(card, shape, s):
+    """K2 against its plain version (TF32 off): the pad bit for bit, a frame that needs no resize bit for bit
+    everywhere, a resize within 1e-5 (fp32; bf16 within half an ulp of the plain fp32 value more), in both
+    layouts, with and without bgr; one launch per call."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(shape[0] + s)
+    im = torch.from_numpy(rng.integers(0, 256, (3, *shape, 3), dtype=np.uint8)).to(card)
+    h0, w0 = shape
+    from yololite_tpu_torch.ops.kernels import letterbox_geometry
+
+    new_h, new_w, top, left = letterbox_geometry(h0, w0, s)
+    pad = torch.ones((s, s), dtype=torch.bool, device=card)
+    pad[top:top + new_h, left:left + new_w] = False
+    for dtype in (torch.float32, torch.bfloat16):
+        for bgr in (False, True):
+            want32 = device_letterbox_plain(im, s, torch.float32, bgr)
+            want = want32.to(dtype)
+            for cl in (True, False):
+                before = device_letterbox.launches
+                got = device_letterbox(im, s, dtype, bgr=bgr, channels_last=cl)
+                torch.cuda.synchronize()
+                assert device_letterbox.launches == before + 1 and got.shape == want.shape and got.dtype == dtype
+                assert got.is_contiguous() if cl else got.permute(0, 3, 1, 2).is_contiguous()
+                assert _same_bits(got[:, pad], want[:, pad])
+                if (new_h, new_w) == (h0, w0):
+                    assert _same_bits(got.contiguous(), want)
+                else:
+                    tol = 1e-5 if dtype == torch.float32 else 2.0 ** -9 + 1e-5
+                    assert float((got.float() - want32).abs().max()) <= tol
+    if (new_h, new_w) != (h0, w0):
+        assert not torch.equal(device_letterbox(im, s), device_letterbox(im, s, bgr=True))
+
+
+# ---------------- K3 and K2 on the main paths ----------------
+
+
+@pytest.mark.parametrize("half", [False, True], ids=["fp32", "bf16"])
+def test_graphed_predict_and_val_run_k3_and_k2(card, half, tmp_path):
+    """A replayed predict step launches K2 once (the uint8 path) and K3 once, and equals its eager call bit for bit;
+    a replayed standalone val launches K3 once a batch, the metrics those of the eager run."""
+    from yololite_tpu_torch import YOLOLite
+
+    model = YOLOLite("yolo11n.yaml")
+    rng = np.random.default_rng(6)
+    src = [rng.integers(0, 256, (120, 160, 3), np.uint8) for _ in range(2)]
+    kw = dict(conf=1e-7, imgsz=160, batch=2, half=half, save=False, verbose=False)
+    model.predict(src, **kw)
+    pred = model.predictor
+    raw = torch.from_numpy(np.stack(src)).to(card)  # BGR, as the stream uploads it
+    for _ in range(2):
+        pred.infer_uint8(raw, 160, bgr=True)
+    k2, k3 = device_letterbox.launches, select_decode.launches
+    got = pred.infer_uint8(raw, 160, bgr=True)
+    torch.cuda.synchronize()
+    assert (device_letterbox.launches - k2, select_decode.launches - k3) == (1, 1)
+    with graphs.eager():
+        assert _same_bits(got, pred.infer_uint8(raw, 160, bgr=True))
+        assert _same_bits(got, pred.infer_uint8(raw.flip(-1).contiguous(), 160))
+    assert int((got[..., 4] > 0).sum()) > 0
+
+    import cv2
+
+    from yololite_tpu_torch.engine.validator import DetectionValidator
+
+    root = tmp_path / "ds"
+    (root / "images" / "val").mkdir(parents=True)
+    (root / "labels" / "val").mkdir(parents=True)
+    for i in range(4):
+        cv2.imwrite(str(root / "images" / "val" / f"im{i}.png"), rng.integers(0, 256, (120, 160, 3), np.uint8))
+        (root / "labels" / "val" / f"im{i}.txt").write_text("1 0.5 0.5 0.3 0.3")
+    (root / "data.yaml").write_text(f"path: {root}\nval: images/val\nnc: 80\n")
+    v = DetectionValidator(args=dict(data=str(root / "data.yaml"), imgsz=160, batch=2, conf=1e-7, plots=False,
+                                     verbose=False, half=half, project=str(tmp_path / "runs"), mode="val"))
+    for _ in range(2):
+        v(model=model.model)
+    k3 = select_decode.launches
+    v(model=model.model)
+    rd = dict(v.metrics.results_dict)
+    assert select_decode.launches - k3 == 2 and v._infer.graphs.replays >= 2
+    with graphs.eager():
+        v(model=model.model)
+    assert v.metrics.results_dict == rd

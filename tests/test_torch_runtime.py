@@ -2,7 +2,7 @@
 
 - `export_predict` (torch.export) reloaded by `load_exported` equals the
   in-process graph (`predict_graph`) bit for bit, in fp32 and int8, and the
-  graph calls K1 (and K8 when int8) as `torch.library` ops;
+  graph calls K3 and K1 (and K8 when int8) as `torch.library` ops;
 - `InferencePipeline`'s detections equal the predictor's `infer` on the same
   batch;
 - `torch.library.opcheck` passes for both ops (schema, fake tensors,
@@ -49,6 +49,7 @@ def test_export_round_trip_equals_the_graph(model, tmp_path, int8):
     assert out.shape == (2, 300, 6) and int((ref[..., 4] > 0).sum()) > 0
     assert torch.equal(out, ref)
     want = ["yololite_tpu_torch.greedy_nms_keep.default"] + (["yololite_tpu_torch.int8_conv.default"] if int8 else [])
+    want += ["yololite_tpu_torch.select_decode.default"]  # K3: steps 1-4 of nms_from_feats, one op
     assert _graph_ops(path) == want
 
 

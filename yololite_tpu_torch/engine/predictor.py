@@ -1,8 +1,10 @@
 """Streaming detection predictor (port of yololite_tpu/engine/predictor.py).
 
-Per batch: a same-shape uint8 batch is uploaded as is and letterboxed on the
-device (`ops.kernels.device_letterbox`); other batches are letterboxed on the
-host with cv2. Then forward + select-first decode + exact greedy NMS run on
+Per batch: a same-shape uint8 batch is uploaded as is (BGR) and letterboxed
+on the device (`ops.kernels.device_letterbox`, K2 on the card, which reverses
+the channels as it reads them and writes the layout the net's first conv
+reads); other batches are letterboxed on the host with cv2. Then forward +
+select-first decode (K3) + exact greedy NMS run on
 the device and return a padded (B, max_det, 6) tensor, which is copied to
 the host, rescaled and wrapped in Results. Tail batches are padded to the
 batch size so every batch has the same shape.
@@ -231,14 +233,27 @@ class DetectionPredictor:
             return run_sharded(self.mesh, self.replicas, images, lambda x, net: self._graphs(
                 lambda xs: self._detect(xs.to(self.dtype), net), x, net, key))
 
+    def letterbox_channels_last(self, device: torch.device) -> bool:
+        """The layout K2 writes the net's input in, which cuDNN keeps through the net: NCHW-contiguous for the fp32
+        net on the card, channels-last for the bf16 and int8 nets (K8 reads channels-last) and on the CPU: on an
+        H100 the fp32 forward runs faster on NCHW and the bf16 one on channels-last (chip_smoke.py phase 3 times
+        both; PERF.md, PR 12)."""
+        return self._quantized or self.half or device.type != "cuda"
+
     @torch.inference_mode()
-    def infer_uint8(self, raw: torch.Tensor, imgsz: int) -> torch.Tensor:
-        """(B, H0, W0, 3) uint8 RGB batch on the device -> device letterbox -> (B, max_det, 6), letterbox, forward
-        and NMS in one graph replay once the frame size repeats."""
-        key = ("uint8", int(imgsz), self._quantized, *self._graph_key)
+    def infer_uint8(self, raw: torch.Tensor, imgsz: int, bgr: bool = False) -> torch.Tensor:
+        """(B, H0, W0, 3) uint8 RGB batch (BGR with bgr) on the device -> device letterbox -> (B, max_det, 6),
+        letterbox, forward and NMS in one graph replay once the frame size repeats."""
+        key = ("uint8-bgr" if bgr else "uint8", int(imgsz), self._quantized, *self._graph_key)
+
+        def step(xs, net):
+            x = device_letterbox(xs, imgsz=imgsz, out_dtype=self.dtype, bgr=bgr,
+                                 channels_last=self.letterbox_channels_last(xs.device))
+            return self._detect(x, net)
+
         with fp32_convs(self.device):
-            return run_sharded(self.mesh, self.replicas, raw, lambda x, net: self._graphs(
-                lambda xs: self._detect(device_letterbox(xs, imgsz=imgsz, out_dtype=self.dtype), net), x, net, key))
+            return run_sharded(self.mesh, self.replicas, raw,
+                               lambda x, net: self._graphs(lambda xs: step(xs, net), x, net, key))
 
     def setup_source(self, source):
         self.imgsz = check_imgsz(self.args.imgsz, stride=32, min_dim=2)
@@ -312,11 +327,10 @@ class DetectionPredictor:
                         dets = self.infer(x).cpu().numpy()
                 elif len({im.shape for im in im0s}) == 1:  # device path: upload uint8, letterbox on the card
                     with profilers[0]:
-                        raw = torch.from_numpy(np.stack(im0s)).to(self.device).flip(-1)  # BGR -> RGB
-                        raw = self._pad(raw, batch_size)
+                        raw = self._pad(torch.from_numpy(np.stack(im0s)).to(self.device), batch_size)  # BGR
                         input_hw = (self.imgsz[0], self.imgsz[1])
                     with profilers[1]:
-                        dets = self.infer_uint8(raw, self.imgsz[0]).cpu().numpy()
+                        dets = self.infer_uint8(raw, self.imgsz[0], bgr=True).cpu().numpy()
                 else:  # mixed shapes: host letterbox (cv2)
                     with profilers[0]:
                         im = self._pad(preprocess_batch(im0s, imgsz=self.imgsz[0]), batch_size)

@@ -3,8 +3,9 @@
 Per batch, the collated uint8 NHWC batch is uploaded as it is and cast and
 divided by 255 on the device. The fused (and, with half, bf16) net runs,
 and the Detect maps go through the multi-label select-first NMS at
-K = 8192 in fp32 (`ops.nms.nms_from_feats`). On the card, that NMS is one
-launch of the blocked_nms_finalize kernel (K4) per batch, with no host sync.
+K = 8192, scored in fp32 (`ops.nms.nms_from_feats`: on the card K3 reads
+the maps where they lie, bf16 ones upcast as read, then the
+blocked_nms_finalize kernel K4, one launch each per batch, no host sync).
 Val replays the whole step (cast, forward, NMS) as a CUDA graph for each
 batch shape seen before: a shape's first batch runs eagerly, its second
 captures it (engine/graphs.py). Standalone val keeps its graphs for the
@@ -84,9 +85,11 @@ class DetectionValidator:
         """uint8 (B, H, W, 3) RGB batch on the device -> (B, max_det, 6) detections there.
 
         `net` is the eval-mode module to run (bf16 with half); `model` gives
-        the head's layout. The NMS always gets fp32 maps. With `graphs`, each
-        replica's step on the card replays a CUDA graph of that cache once its
-        batch shape repeats (`infer.graphs`); without, it runs eagerly.
+        the head's layout. The NMS scores and decodes in fp32 whatever the
+        maps' dtype (half=False), with no fp32 copy of the maps. With
+        `graphs`, each replica's step on the card replays a CUDA graph of that
+        cache once its batch shape repeats (`infer.graphs`); without, it runs
+        eagerly.
         """
         nc, strides, reg_max = model.nc, model.strides, model.reg_max
         conf, iou, max_det = float(self.args.conf), float(self.args.iou), int(self.args.max_det)
@@ -103,7 +106,7 @@ class DetectionValidator:
                 o2o = [f.float() for f in feats["one2one"]]
                 return postprocess_end2end(o2o, strides, nc, reg_max, max_det=min(max_det, model.detect.max_det),
                                            conf_thres=conf)
-            return nms_from_feats([f.float() for f in feats], strides, nc, reg_max, conf_thres=conf,
+            return nms_from_feats(feats, strides, nc, reg_max, conf_thres=conf,
                                   iou_thres=iou, max_det=max_det, max_cand=VAL_MAX_CAND, multi_label=True,
                                   agnostic=agnostic)
 

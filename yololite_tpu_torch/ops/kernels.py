@@ -16,11 +16,20 @@
    csrc/int8_conv.cu, which replaces the int32 accumulated XLA convolution of
    yololite_tpu/models/modules.py:176-185; on a CPU tensor it runs
    `int8_conv_plain`.
-4. `device_letterbox`: batched letterbox on the device for same-shape uint8
-   batches: bilinear resize as two fp32 matmuls, pad with 114, divide by 255.
-   Plain torch for now (ROADMAP.md, Queue 2 K2).
+4. `select_decode`: steps 1-4 of ops/nms.py nms_from_feats (K3): per-level
+   sigmoid scores from the raw Detect maps, the conf gate, the top K in
+   lax.top_k's order, the candidates' DFL decode and their anchors. On a
+   CUDA tensor it launches csrc/select_decode.cu, which replaces those XLA
+   ops of yololite_tpu/ops/nms.py:357 (steps 1-4, :409-494); on a CPU tensor
+   it runs `select_decode_plain`.
+5. `device_letterbox`: batched letterbox of a same-shape uint8 batch (K2):
+   bilinear resize, pad with 114, times 1/255, optionally with the channels
+   reversed (BGR in). On a CUDA tensor it launches csrc/letterbox.cu, which
+   replaces yololite_tpu/ops/pallas_kernels.py:89 `device_letterbox`; on a
+   CPU tensor it runs `device_letterbox_plain` (two fp32 matmuls, a pad, a
+   scale).
 
-K1, K4 and K8 are `torch.library` custom ops (`torch.ops.yololite_tpu_torch.*`):
+All five are `torch.library` custom ops (`torch.ops.yololite_tpu_torch.*`):
 the CUDA implementation launches the kernel or raises, the CPU one is the
 plain version, and a fake implementation gives the output's shape, so
 `torch.export` records each as one op. The public wrappers check their
@@ -35,7 +44,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -43,6 +52,9 @@ import torch.nn.functional as F
 from torch import Tensor
 
 from yololite_tpu_torch.ops.boxes import box_iou
+from yololite_tpu_torch.ops.decode import dfl_expectation_mm
+
+MAX_WH = 7680  # class-offset magnitude of the NMS's class-aware boxes
 
 # ---------------- greedy NMS keep ----------------
 
@@ -340,8 +352,6 @@ def int8_conv(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor, bias: torch
 
 int8_conv.launches = 0  # kernel launches since the last reset
 
-COUNTED = (greedy_nms_keep, blocked_nms_finalize, int8_conv)  # the wrappers that count their kernel's launches
-
 
 @torch.library.custom_op("yololite_tpu_torch::int8_conv", mutates_args=(), device_types="cpu")
 def _int8_conv_op(x: Tensor, w: Tensor, scale: Tensor, bias: Tensor, stride: int, padding: int, groups: int,
@@ -431,7 +441,218 @@ def _int8_lib() -> ctypes.CDLL:
     return lib
 
 
-# ---------------- device letterbox (matmul bilinear resize) ----------------
+# ---------------- candidate select + DFL decode (K3) ----------------
+
+
+def topk_stable(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k along the last dim, descending, ties to the lower index (lax.top_k's rule)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def select_decode_plain(feats: Sequence[torch.Tensor], strides: Sequence[int], nc: int, reg_max: int,
+                        conf_thres: float, max_cand: int, class_mask: Optional[torch.Tensor] = None,
+                        half: bool = False, multi_label: bool = False, agnostic: bool = False):
+    """Plain torch K3, steps 1-4 of ops/nms.py nms_from_feats over per-level (B, H, W, 4*reg_max + nc) maps.
+
+    1-2. the sigmoid of the class logits (in the maps' dtype with half, else
+         fp32), `class_mask` (masked scores are 0), the per-anchor max and
+         argmax over the sigmoid (or the flat anchor x class row with
+         multi_label and nc > 1), the gate where(s > conf, s, -1) and the
+         top K = min(max_cand, N) in lax.top_k's order;
+    3.   the K candidates' box logits through the DFL expectation (fp32);
+    4.   anchor centres and strides rebuilt from the anchor index.
+    Returns vals (B, K) float32 (the scores' values, exact), the anchor index
+    bidx (B, K) int64, the class cls (B, K) float32, the boxes (B, K, 4)
+    float32 xyxy pixels, the class-offset boxes `shifted` (B, K, 4) (cls *
+    MAX_WH added, nothing with agnostic) and valid = vals > max(conf, 0)
+    (B, K) bool, compared in the scores' dtype.
+    """
+    B = feats[0].shape[0]
+    ml = multi_label and nc > 1
+    scores, clss = [], []
+    for f in feats:
+        cl = f[..., 4 * reg_max:]
+        s_full = torch.sigmoid(cl if half else cl.float())
+        if class_mask is not None:
+            s_full = torch.where(class_mask, s_full, 0.0)
+        if ml:  # flat (anchor x class) index = anchor * nc + class
+            scores.append(s_full.reshape(B, -1))
+        else:
+            scores.append(s_full.amax(-1).reshape(B, -1))
+            clss.append(s_full.argmax(-1).reshape(B, -1))
+    s = torch.cat(scores, 1)
+    vals, sel = topk_stable(torch.where(s > conf_thres, s, -1.0), min(max_cand, s.shape[1]))
+    if ml:
+        bidx, cls = sel // nc, (sel % nc).float()
+    else:
+        bidx, cls = sel, torch.gather(torch.cat(clss, 1), 1, sel).float()
+
+    # 3: candidate box logits -> DFL expectation (fp32)
+    box_logits = torch.cat([f[..., : 4 * reg_max].reshape(B, -1, 4 * reg_max) for f in feats], 1)
+    rows = torch.gather(box_logits, 1, bidx[..., None].expand(-1, -1, box_logits.shape[-1]))
+    dist = dfl_expectation_mm(rows, reg_max)  # (B, K, 4)
+
+    # 4: arithmetic anchors (grid x/y + 0.5, per-level stride) from bidx
+    offs, Ws, Ss, o = [], [], [], 0
+    for f, s_ in zip(feats, strides):
+        offs.append(o)
+        Ws.append(f.shape[2])
+        Ss.append(int(s_))
+        o += f.shape[1] * f.shape[2]
+    lvl = torch.zeros_like(bidx)
+    for i in range(1, len(offs)):
+        lvl = torch.where(bidx >= offs[i], i, lvl)
+    # per-level constants picked with where() rather than indexing a host list: no copy to the device
+    off_l = sum(torch.where(lvl == i, offs[i], 0) for i in range(len(offs)))
+    W_l = sum(torch.where(lvl == i, Ws[i], 0) for i in range(len(offs)))
+    S_l = sum(torch.where(lvl == i, Ss[i], 0) for i in range(len(offs))).float()
+    local = bidx - off_l
+    ax = (local % W_l).float() + 0.5
+    ay = (local // W_l).float() + 0.5
+    boxes = torch.stack(
+        [(ax - dist[..., 0]) * S_l, (ay - dist[..., 1]) * S_l, (ax + dist[..., 2]) * S_l, (ay + dist[..., 3]) * S_l],
+        -1,
+    )
+    valid = vals > max(conf_thres, 0.0)
+    offset = torch.zeros_like(cls) if agnostic else cls * MAX_WH
+    return vals.float(), bidx, cls, boxes, boxes + offset[..., None], valid
+
+
+SCORE_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}  # K3's map and score type codes
+
+
+def _gate_threshold(conf: float, score_type: torch.dtype) -> float:
+    """The threshold as torch compares a tensor of score_type with the Python float conf: the float rounded to
+    fp32, then to score_type (returned as the float of that value)."""
+    return torch.tensor(float(conf), dtype=torch.float32).to(score_type).item()
+
+
+def _n_entries(feats: Sequence[torch.Tensor], nc: int, multi_label: bool) -> int:
+    """Entries of one image's score row: anchors, times nc with multi_label and nc > 1."""
+    return sum(int(f.shape[1]) * int(f.shape[2]) for f in feats) * (nc if multi_label and nc > 1 else 1)
+
+
+def select_decode(feats: Sequence[torch.Tensor], strides: Sequence[int], nc: int, reg_max: int, conf_thres: float,
+                  max_cand: int, class_mask: Optional[torch.Tensor] = None, half: bool = False,
+                  multi_label: bool = False, agnostic: bool = False):
+    """Candidate select + DFL decode of per-level (B, H, W, 4*reg_max + nc) maps -> (vals, bidx, cls, boxes, shifted,
+    valid), as `select_decode_plain` returns them.
+
+    The maps may be any strided views (the predictor's are NHWC views of the
+    net's NCHW outputs); on the card they are read where they lie. A CUDA
+    tensor goes through csrc/select_decode.cu (maps fp32, bf16 or fp16, all
+    of one dtype, one launch, no host sync), a CPU tensor through
+    `select_decode_plain`; both as the op
+    `torch.ops.yololite_tpu_torch.select_decode`. Any other input raises.
+    """
+    if max_cand < 0 or not len(feats) or len(strides) != len(feats):
+        raise ValueError(f"select_decode: max_cand {max_cand}, {len(feats)} levels, {len(strides)} strides")
+    dev = feats[0].device
+    if any(f.device != dev for f in feats) or (class_mask is not None and class_mask.device != dev):
+        raise ValueError(f"select_decode: maps on {[str(f.device) for f in feats]}, class_mask on "
+                         f"{None if class_mask is None else class_mask.device}")
+    if dev.type == "cuda":
+        if feats[0].dtype not in SCORE_TYPES or any(f.dtype != feats[0].dtype for f in feats):
+            raise TypeError(f"select_decode wants maps of one dtype out of fp32, bf16, fp16, got "
+                            f"{[f.dtype for f in feats]}")
+        b = feats[0].shape[0]
+        if any(f.ndim != 4 or f.shape[0] != b or f.shape[3] != 4 * reg_max + nc for f in feats) or nc < 1 or \
+                reg_max < 1:
+            raise ValueError(f"select_decode wants (B, H, W, 4*{reg_max} + {nc}) maps, got "
+                             f"{[tuple(f.shape) for f in feats]}")
+        if class_mask is not None and (class_mask.dtype != torch.bool or tuple(class_mask.shape) != (nc,)):
+            raise ValueError(f"select_decode wants a bool (nc,) class_mask, got {class_mask.dtype} "
+                             f"{tuple(class_mask.shape)}")
+    elif dev.type != "cpu":
+        raise ValueError(f"select_decode: unsupported device {dev}")
+    return torch.ops.yololite_tpu_torch.select_decode(list(feats), [int(s) for s in strides], int(nc), int(reg_max),
+                                                      float(conf_thres), int(max_cand), class_mask, bool(half),
+                                                      bool(multi_label), bool(agnostic))
+
+
+select_decode.launches = 0  # kernel launches since the last reset
+
+
+@torch.library.custom_op("yololite_tpu_torch::select_decode", mutates_args=(), device_types="cpu")
+def _select_decode_op(feats: List[Tensor], strides: List[int], nc: int, reg_max: int, conf_thres: float,
+                      max_cand: int, class_mask: Optional[Tensor], half: bool, multi_label: bool,
+                      agnostic: bool) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor, Tensor]:
+    out = select_decode_plain(feats, strides, nc, reg_max, conf_thres, max_cand, class_mask, half, multi_label,
+                              agnostic)
+    return tuple(t.clone(memory_format=torch.contiguous_format) for t in out)  # fresh and contiguous, as the fake
+
+
+def _select_decode_empty(feats, nc: int, max_cand: int, multi_label: bool):
+    b, dev = feats[0].shape[0], feats[0].device
+    k = min(max_cand, _n_entries(feats, nc, multi_label))
+    f32 = dict(dtype=torch.float32, device=dev)
+    return (torch.empty((b, k), **f32), torch.empty((b, k), dtype=torch.int64, device=dev), torch.empty((b, k), **f32),
+            torch.empty((b, k, 4), **f32), torch.empty((b, k, 4), **f32),
+            torch.empty((b, k), dtype=torch.bool, device=dev))
+
+
+@_select_decode_op.register_kernel("cuda")
+def _select_decode_cuda(feats: List[Tensor], strides: List[int], nc: int, reg_max: int, conf_thres: float,
+                        max_cand: int, class_mask: Optional[Tensor], half: bool, multi_label: bool,
+                        agnostic: bool) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor, Tensor]:
+    out = _select_decode_empty(feats, nc, max_cand, multi_label)
+    vals, bidx, cls, boxes, shifted, valid = out
+    b, k = vals.shape
+    if b == 0 or k == 0:
+        return out
+    dev = feats[0].device
+    ml = multi_label and nc > 1
+    n_levels = len(feats)
+    score_type = feats[0].dtype if half else torch.float32  # what the plain version's sigmoid computes in
+    thr, valid_thr = _gate_threshold(conf_thres, score_type), _gate_threshold(max(conf_thres, 0.0), score_type)
+    a = sum(int(f.shape[1]) * int(f.shape[2]) for f in feats)
+    lib = _select_lib()
+    ptrs = (ctypes.c_uint64 * n_levels)(*[f.data_ptr() for f in feats])
+    strd = (ctypes.c_longlong * (4 * n_levels))(*[s for f in feats for s in f.stride()])
+    hw = (ctypes.c_int * (2 * n_levels))(*[d for f in feats for d in (f.shape[1], f.shape[2])])
+    px = (ctypes.c_float * n_levels)(*[float(s) for s in strides])
+    nbytes = lib.select_decode_workspace_bytes(n_levels, b, a, nc, int(ml), k)
+    workspace = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)  # PyTorch's current stream, as an int
+    mask = None if class_mask is None else class_mask.contiguous().data_ptr()
+    rc = lib.select_decode(n_levels, ptrs, strd, hw, px, SCORE_TYPES[feats[0].dtype], b, nc, reg_max, int(ml), k,
+                           thr, valid_thr, SCORE_TYPES[score_type], mask, int(agnostic), workspace.data_ptr(), nbytes,
+                           vals.data_ptr(), bidx.data_ptr(), cls.data_ptr(), boxes.data_ptr(), shifted.data_ptr(),
+                           valid.data_ptr(), dev.index, stream)
+    if rc != 0:
+        raise RuntimeError(f"select_decode kernel launch failed: {lib.select_decode_error_string(rc).decode()}")
+    select_decode.launches += 1
+    return out
+
+
+@_select_decode_op.register_fake
+def _select_decode_fake(feats: List[Tensor], strides: List[int], nc: int, reg_max: int, conf_thres: float,
+                        max_cand: int, class_mask: Optional[Tensor], half: bool, multi_label: bool,
+                        agnostic: bool) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor, Tensor]:
+    return _select_decode_empty(feats, nc, max_cand, multi_label)
+
+
+def _select_lib() -> ctypes.CDLL:
+    from yololite_tpu_torch.ops import cuda_build
+
+    lib = cuda_build.load("select_decode")
+    if lib.select_decode.argtypes is None:  # declare the C signatures once per process
+        lib.select_decode.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_uint64), ctypes.POINTER(ctypes.c_longlong),
+                                      ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_float)] + [
+            ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                                 ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_void_p] * 6 + [ctypes.c_int,
+                                                                                               ctypes.c_void_p]
+        lib.select_decode.restype = ctypes.c_int
+        lib.select_decode_workspace_bytes.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+                                                      ctypes.c_int, ctypes.c_int]
+        lib.select_decode_workspace_bytes.restype = ctypes.c_longlong
+        lib.select_decode_error_string.argtypes = [ctypes.c_int]
+        lib.select_decode_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+# ---------------- device letterbox (K2) ----------------
 
 
 def _interp_matrix(dst: int, src: int) -> np.ndarray:
@@ -455,21 +676,27 @@ def _interp_on(dst: int, src: int, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(_interp_matrix(dst, src)).to(device)
 
 
-def device_letterbox(images: torch.Tensor, imgsz: int = 640, out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """Batched letterbox on the images' device for same-shape inputs.
-
-    images: (B, H0, W0, 3) uint8 RGB. Returns (B, imgsz, imgsz, 3) in [0, 1]
-    with the reference geometry: r = min(S/H0, S/W0), round() new size,
-    centred round(d-0.1)/round(d+0.1) padding, 114-gray fill.
-    """
-    b, h0, w0, c = images.shape
+def letterbox_geometry(h0: int, w0: int, imgsz: int):
+    """(new_h, new_w, top, left) of the reference letterbox: r = min(S/H0, S/W0), round() new size, centred
+    round(d-0.1)/round(d+0.1) padding."""
     r = min(imgsz / h0, imgsz / w0)
     new_w, new_h = int(round(w0 * r)), int(round(h0 * r))
     dw, dh = (imgsz - new_w) / 2, (imgsz - new_h) / 2
-    top, left = int(round(dh - 0.1)), int(round(dw - 0.1))
+    return new_h, new_w, int(round(dh - 0.1)), int(round(dw - 0.1))
+
+
+def device_letterbox_plain(images: torch.Tensor, imgsz: int = 640, out_dtype: torch.dtype = torch.float32,
+                           bgr: bool = False) -> torch.Tensor:
+    """Plain torch K2: (B, H0, W0, 3) uint8 (RGB, or BGR with bgr) -> (B, imgsz, imgsz, 3) RGB in [0, 1], contiguous.
+
+    The resize as two fp32 matmuls with `_interp_matrix` (rows, then
+    columns), the pad with 114, then x * (1/255) and the cast to out_dtype.
+    """
+    b, h0, w0, c = images.shape
+    new_h, new_w, top, left = letterbox_geometry(h0, w0, imgsz)
     bottom, right = imgsz - new_h - top, imgsz - new_w - left
 
-    x = images.float()
+    x = (images.flip(-1) if bgr else images).float()
     if (new_h, new_w) != (h0, w0):
         ry = _interp_on(new_h, h0, images.device)  # (new_h, h0)
         rx = _interp_on(new_w, w0, images.device)  # (new_w, w0)
@@ -477,3 +704,85 @@ def device_letterbox(images: torch.Tensor, imgsz: int = 640, out_dtype: torch.dt
         x = torch.einsum("xw,bywc->byxc", rx, x)
     x = F.pad(x, (0, 0, left, right, top, bottom), value=114.0)
     return (x * (1.0 / 255.0)).to(out_dtype)  # as XLA lowers the JAX package's x / 255: the pad's bits match
+
+
+def device_letterbox(images: torch.Tensor, imgsz: int = 640, out_dtype: torch.dtype = torch.float32,
+                     bgr: bool = False, channels_last: bool = True) -> torch.Tensor:
+    """Batched letterbox on the images' device for same-shape inputs.
+
+    images: (B, H0, W0, 3) uint8, RGB (or BGR with bgr: the channels are
+    reversed as they are read). Returns (B, imgsz, imgsz, 3) RGB in [0, 1]
+    in out_dtype, with the reference geometry (`letterbox_geometry`), 114-gray
+    fill. With channels_last the result is contiguous; without, it is the
+    NHWC view of an NCHW-contiguous tensor, so `permute(0, 3, 1, 2)` gives
+    the net an NCHW-contiguous input without a copy. A CUDA tensor goes
+    through csrc/letterbox.cu, a CPU tensor through `device_letterbox_plain`,
+    both as the op `torch.ops.yololite_tpu_torch.device_letterbox`.
+    """
+    if images.dtype != torch.uint8 or images.ndim != 4 or images.shape[3] != 3:
+        raise TypeError(f"device_letterbox wants a (B, H0, W0, 3) uint8 batch, got {images.dtype} "
+                        f"{tuple(images.shape)}")
+    if out_dtype not in SCORE_TYPES or imgsz < 1:
+        raise ValueError(f"device_letterbox: out_dtype {out_dtype}, imgsz {imgsz}")
+    if images.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"device_letterbox: unsupported device {images.device}")
+    out = torch.ops.yololite_tpu_torch.device_letterbox(images.contiguous(), int(imgsz), out_dtype, bool(bgr),
+                                                        bool(channels_last))
+    return out if channels_last else out.permute(0, 2, 3, 1)
+
+
+device_letterbox.launches = 0  # kernel launches since the last reset
+
+
+@torch.library.custom_op("yololite_tpu_torch::device_letterbox", mutates_args=(), device_types="cpu")
+def _device_letterbox_op(images: Tensor, imgsz: int, out_dtype: torch.dtype, bgr: bool,
+                         channels_last: bool) -> Tensor:
+    """The letterbox in its storage layout: (B, S, S, 3) contiguous with channels_last, else (B, 3, S, S)."""
+    x = device_letterbox_plain(images, imgsz, out_dtype, bgr)  # a new contiguous tensor
+    return x if channels_last else x.permute(0, 3, 1, 2).contiguous()
+
+
+def _device_letterbox_empty(images: Tensor, imgsz: int, out_dtype: torch.dtype, channels_last: bool) -> Tensor:
+    b = images.shape[0]
+    shape = (b, imgsz, imgsz, 3) if channels_last else (b, 3, imgsz, imgsz)
+    return torch.empty(shape, dtype=out_dtype, device=images.device)
+
+
+@_device_letterbox_op.register_kernel("cuda")
+def _device_letterbox_cuda(images: Tensor, imgsz: int, out_dtype: torch.dtype, bgr: bool,
+                           channels_last: bool) -> Tensor:
+    out = _device_letterbox_empty(images, imgsz, out_dtype, channels_last)
+    b, h0, w0, _ = images.shape
+    if out.numel() == 0:
+        return out
+    new_h, new_w, top, left = letterbox_geometry(h0, w0, imgsz)
+    stream = torch._C._cuda_getCurrentRawStream(images.device.index)
+    lib = _letterbox_lib()
+    rc = lib.device_letterbox(images.data_ptr(), out.data_ptr(), b, h0, w0, imgsz, new_h, new_w, top, left,
+                              SCORE_TYPES[out_dtype], int(bgr), int(channels_last), images.device.index, stream)
+    if rc != 0:
+        raise RuntimeError(f"device_letterbox kernel launch failed: {lib.device_letterbox_error_string(rc).decode()}")
+    device_letterbox.launches += 1
+    return out
+
+
+@_device_letterbox_op.register_fake
+def _device_letterbox_fake(images: Tensor, imgsz: int, out_dtype: torch.dtype, bgr: bool,
+                           channels_last: bool) -> Tensor:
+    return _device_letterbox_empty(images, imgsz, out_dtype, channels_last)
+
+
+def _letterbox_lib() -> ctypes.CDLL:
+    from yololite_tpu_torch.ops import cuda_build
+
+    lib = cuda_build.load("letterbox")
+    if lib.device_letterbox.argtypes is None:  # declare the C signatures once per process
+        lib.device_letterbox.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
+        lib.device_letterbox.restype = ctypes.c_int
+        lib.device_letterbox_error_string.argtypes = [ctypes.c_int]
+        lib.device_letterbox_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+# the wrappers that count their kernel's launches
+COUNTED = (greedy_nms_keep, blocked_nms_finalize, int8_conv, select_decode, device_letterbox)

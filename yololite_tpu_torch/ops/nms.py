@@ -12,27 +12,23 @@ kept rows. Exact NMS with K > 1024 goes through
 the kernel K4 (one launch, no host sync), on the CPU its plain version, the
 score-ordered blocks of 1024 of `_blocked_keep` and then `_finalize`.
 Selection follows lax.top_k's rule, lowest index first among equal scores
-(`topk_stable`).
+(`topk_stable`). `nms_from_feats`'s steps 1-4 (select and decode over the
+raw Detect maps) are one `ops.kernels.select_decode` call: the kernel K3 on
+the card, its plain version on the CPU.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+import functools
+from typing import Optional, Sequence
 
 import torch
 
 from yololite_tpu_torch.ops.boxes import box_iou
-from yololite_tpu_torch.ops.decode import dfl_expectation_mm
-from yololite_tpu_torch.ops.kernels import blocked_nms_finalize, greedy_nms_keep, greedy_nms_keep_plain
+from yololite_tpu_torch.ops.kernels import (MAX_WH, blocked_nms_finalize, greedy_nms_keep, greedy_nms_keep_plain,
+                                           select_decode, topk_stable)
 
-MAX_WH = 7680  # class-offset magnitude
 KERNEL_MAX_K = 1024  # largest K one greedy_nms_keep call takes; exact NMS above it runs blocked_nms_finalize
-
-
-def topk_stable(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Top-k along the last dim, descending, ties to the lower index (lax.top_k's rule)."""
-    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
-    return vals[..., :k], idx[..., :k]
 
 
 def _fixpoint_keep(shifted: torch.Tensor, valid: torch.Tensor, iou_thres: float) -> torch.Tensor:
@@ -191,31 +187,18 @@ def non_max_suppression(
 
 def select_from_feats(feats: Sequence[torch.Tensor], nc: int, reg_max: int, conf_thres: float, max_cand: int,
                       class_mask: Optional[torch.Tensor] = None, half: bool = False, multi_label: bool = False):
-    """Steps 1-2 of nms_from_feats: gate and select the top-K candidates.
+    """Steps 1-2 of nms_from_feats: gate and select the top-K candidates (through `select_decode`).
 
     Scores are the sigmoid of the class logits (max/argmax over the sigmoid,
-    not the logits). Returns vals (B, K), the anchor index bidx (B, K) and
-    the class cls (B, K) float32, in lax.top_k's order over the anchors of
-    all levels (or over anchor x class with multi_label).
+    not the logits). Returns vals (B, K) in the scores' dtype, the anchor
+    index bidx (B, K) and the class cls (B, K) float32, in lax.top_k's order
+    over the anchors of all levels (or over anchor x class with multi_label).
     """
-    B = feats[0].shape[0]
-    ml = multi_label and nc > 1
-    scores, clss = [], []
-    for f in feats:
-        cl = f[..., 4 * reg_max:]
-        s_full = torch.sigmoid(cl if half else cl.float())
-        if class_mask is not None:
-            s_full = torch.where(class_mask, s_full, 0.0)
-        if ml:  # flat (anchor x class) index = anchor * nc + class
-            scores.append(s_full.reshape(B, -1))
-        else:
-            scores.append(s_full.amax(-1).reshape(B, -1))
-            clss.append(s_full.argmax(-1).reshape(B, -1))
-    s = torch.cat(scores, 1)
-    vals, sel = topk_stable(torch.where(s > conf_thres, s, -1.0), min(max_cand, s.shape[1]))
-    if ml:
-        return vals, sel // nc, (sel % nc).float()
-    return vals, sel, torch.gather(torch.cat(clss, 1), 1, sel).float()
+    strides = [1] * len(feats)  # any: they scale only the boxes, which are not returned
+    vals, bidx, cls = select_decode(feats, strides, nc, reg_max, conf_thres, max_cand, class_mask, half,
+                                    multi_label)[:3]
+    score_type = functools.reduce(torch.promote_types, [f.dtype for f in feats]) if half else torch.float32
+    return vals.to(score_type), bidx, cls
 
 
 def nms_from_feats(
@@ -240,37 +223,10 @@ def nms_from_feats(
     3.   the K candidates' box logits gathered and put through the DFL expectation;
     4.   anchor centres and strides rebuilt arithmetically from the anchor index;
     5.   exact greedy keep on class-offset boxes and compaction (`_suppress`).
+    Steps 1-4 are one `select_decode` call (K3 on the card); the maps may be
+    in any layout and dtype (bf16 maps with half=False are scored in fp32, as
+    their fp32 copy would be).
     """
-    B = feats[0].shape[0]
-    vals, bidx, cls_k = select_from_feats(feats, nc, reg_max, conf_thres, max_cand, class_mask, half, multi_label)
-
-    # 3: candidate box logits -> DFL expectation (fp32)
-    box_logits = torch.cat([f[..., : 4 * reg_max].reshape(B, -1, 4 * reg_max) for f in feats], 1)
-    dist = dfl_expectation_mm(_gather_rows(box_logits, bidx), reg_max)  # (B, K, 4)
-
-    # 4: arithmetic anchors (grid x/y + 0.5, per-level stride) from bidx
-    offs, Ws, Ss, o = [], [], [], 0
-    for f, s_ in zip(feats, strides):
-        offs.append(o)
-        Ws.append(f.shape[2])
-        Ss.append(int(s_))
-        o += f.shape[1] * f.shape[2]
-    lvl = torch.zeros_like(bidx)
-    for i in range(1, len(offs)):
-        lvl = torch.where(bidx >= offs[i], i, lvl)
-    # per-level constants picked with where() rather than indexing a host list: no copy to the device
-    off_l = sum(torch.where(lvl == i, offs[i], 0) for i in range(len(offs)))
-    W_l = sum(torch.where(lvl == i, Ws[i], 0) for i in range(len(offs)))
-    S_l = sum(torch.where(lvl == i, Ss[i], 0) for i in range(len(offs))).float()
-    local = bidx - off_l
-    ax = (local % W_l).float() + 0.5
-    ay = (local // W_l).float() + 0.5
-    cand_boxes = torch.stack(
-        [(ax - dist[..., 0]) * S_l, (ay - dist[..., 1]) * S_l, (ax + dist[..., 2]) * S_l, (ay + dist[..., 3]) * S_l],
-        -1,
-    )
-    valid = vals > max(conf_thres, 0.0)
-
-    # 5: suppression + compaction
-    offset = torch.zeros_like(cls_k) if agnostic else cls_k * MAX_WH
-    return _suppress(cand_boxes, vals, cls_k, cand_boxes + offset[..., None], valid, iou_thres, max_det, mode)
+    vals, _, cls_k, cand_boxes, shifted, valid = select_decode(feats, strides, nc, reg_max, conf_thres, max_cand,
+                                                               class_mask, half, multi_label, agnostic)
+    return _suppress(cand_boxes, vals, cls_k, shifted, valid, iou_thres, max_det, mode)

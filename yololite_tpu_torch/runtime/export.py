@@ -3,8 +3,9 @@
 Serializes forward + DFL decode + NMS, the graph the predictor runs, with the
 weights inside, as `<path>` (`torch.export.save`) plus `<path>.json` (names,
 shapes and thresholds for the host post-processing). The hand-written kernels
-are `torch.library` ops in the graph: K1 (the keep mask) always, K8 (the int8
-convolution) when the graph is quantized. Loading an artifact therefore
+are `torch.library` ops in the graph: K3 (the candidate select and decode) and
+K1 (the keep mask) always, K8 (the int8 convolution) when the graph is
+quantized. Loading an artifact therefore
 needs `yololite_tpu_torch` importable, for the registrations of those ops;
 `load_exported` imports them. The artifact holds its weights on the device it
 was exported on and runs there.
@@ -95,7 +96,7 @@ def load_exported(path) -> Tuple[Callable[[torch.Tensor], torch.Tensor], Dict]:
     The callable runs without autograd and with cuDNN's TF32 off, as the
     predictor runs its fp32 graph.
     """
-    import yololite_tpu_torch.ops.kernels  # noqa: F401  (registers the K1 and K8 ops the graph calls)
+    import yololite_tpu_torch.ops.kernels  # noqa: F401  (registers the K1, K3, K4 and K8 ops the graph calls)
 
     path = Path(path)
     module = torch.export.load(str(path)).module()
