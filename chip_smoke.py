@@ -23,7 +23,13 @@ Phases, each of which exits non-zero on failure:
      class masks, NaN maps, NCHW views and channels-last maps, B 1 to 32);
      device_letterbox (K2) in 32 checks (no resize bit for bit, a resize
      within 1e-5; fp32, bf16, bgr, both layouts) and timed at B 32, 480x640
-     and 720x1280 -> 640 beside its bound and F.interpolate;
+     and 720x1280 -> 640 beside its bound and F.interpolate; the loss tail:
+     K5 (dfl_expectation), K6a (dfl_ce_mean), K6b (bce_sum) forward and
+     backward on the (B, A, 144) maps' strided slices at (B, A) in
+     LOSS_TAIL_SHAPES, fp32 and bf16, bit for bit (K6b's sum within
+     BCE_SUM_RTOL), and K7 (topk_rows) on the assigner-like metrics of
+     TOPK_CASES, values and indices bit for bit; each also the same bits on
+     a second call and in a CUDA graph replay;
   3. slice: YOLOLite("yolo11n.yaml") with init(0) predicts synthetic 480x640
      uint8 batches at imgsz 640 and conf 1e-7, in fp32 (TF32 off) and bf16, at
      batch 1 and 32; each call replays a CUDA graph of the step (the first
@@ -64,7 +70,11 @@ Phases, each of which exits non-zero on failure:
      the same start, the warmup ramp over the first 4, AdamW fp32 and bf16
      (grad and apply graphs) and SGD at nbs 16 (the fused graph): loss items,
      fg_mask, weights, BN statistics, optimizer moments and EMA bit for bit
-     (or within a second eager run's spread, the op named); (b) trains
+     (or within a second eager run's spread, the op named); one step at 640,
+     batch 16, fp32 and bf16, with the loss-tail kernels against the same
+     step with their plain versions (`plain_loss`): fg_mask equal, loss items
+     within rtol 1e-5, every gradient bit for bit (each gradient's relative
+     L2 to chiprun_out/ as the record); (b) trains
      YOLOLite("yolo11n.yaml") at imgsz 640, batch 16, 3 epochs, mosaic,
      default hyperparameters (AdamW by 'auto'), graphed in fp32 (TF32 off)
      and with amp (bf16), and eagerly in fp32: epoch-loop img/s, the step
@@ -85,9 +95,10 @@ Phases, each of which exits non-zero on failure:
      graphed and eager, an epoch loop's third pass taken apart (loader,
      upload, host enqueue, the card; the pass's captures and first sights)
      graphed and eager, the device's idle share over 2 epochs
-     (torch.profiler) graphed and eager, K5/K6 forward and backward and K7 at
-     the train step's shapes; checks one step on the card against the CPU at
-     imgsz 160;
+     (torch.profiler) graphed and eager; times K5, K6a and K6b forward and
+     backward at B 16, A 8,400, fp32 and bf16, and K7 at M 32 and 64, each
+     beside its plain version, bound and a library call; checks one step on
+     the card against the CPU at imgsz 160;
   6. serving: (a) writes two upstream-format .pt files from init(0) and
      init(1) models (a plain one and a 2-member nn.ModuleList ensemble),
      loads them through the stub unpickler (weights bit-equal), predicts 32
@@ -141,8 +152,9 @@ Phases, each of which exits non-zero on failure:
      RT-DETR-L's widths (d 256, 8 heads, 3 levels, 4 points, 300 queries,
      6 layers, batch 8) on the card against the CPU, relative L2 1e-4.
 The kernels line's launches count the runs of the main paths (a replayed
-graph adds the launches its capture recorded; the K5/K6 `.calls` counters
-likewise): predict, train's reload,
+graph adds the launches its capture recorded): for K5, K6a, K6b (and their
+backwards) and K7, phase 5 (b)'s graphed train runs in fp32 and bf16 and
+the resume, each of which must launch every one of them; predict, train's reload,
 serving, the zoo's GELAN-T predict and phase 8's mesh predict for K1; val,
 train's EMA vals and final vals, the zoo's GELAN-T val and phase 8's mesh val
 and rank 0 for K4; the int8 predict calls (yolo11n and yolo11m) for K8; all
@@ -576,6 +588,301 @@ def k2_numbers(card: str, raw, s: int, dtype, channels_last: bool, bgr: bool, wh
         f"{card}")
     return {"ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": bound_by, "library_ms": library,
             "max_abs_err": err, "shape": [b, h0, w0, s]}
+
+
+# ---------------- the loss tail: K5, K6a, K6b (each with its backward) and K7 ----------------
+
+LOSS_TAIL_SHAPES = ((16, 8400), (16, 2100), (3, 300))  # (B, A): the train step's at 640 and at 320, a small batch
+TOPK_CASES = ((16, 32, 8400, 10), (16, 64, 8400, 10), (16, 16, 8400, 13), (16, 256, 2100, 10), (4, 16, 8400, 1),
+              (2, 16, 5, 10))  # (B, M, A, k): the assigner's rows at 640 and 320, one2one's k 1, A <= k
+# K6b's sum against torch's: the same fp32 terms added in another order; readings 0 to 7.8e-8 relative on an H100
+# (PERF.md), and one of the 134,400 rows of (16, 8400) left out would move the sum about 7e-6
+BCE_SUM_RTOL = 1e-6
+LOSS_TAIL_OPS = {"dfl_expectation": 6, "dfl_expectation_backward": 12, "dfl_ce_mean": 8, "dfl_ce_backward": 12,
+                 "bce_sum": 9, "bce_sum_backward": 6}  # fp32 operations a logit (expf and log1pf counted as one)
+
+
+def loss_tail_inputs(b: int, a: int, dtype, seed: int):
+    """The loss's inputs at (B, A) on the card: the (B, A, 144) Detect maps in dtype (the box and class logits are
+    its column slices, row stride 144), every fifth anchor's side 1 far below its other sides (the underflow
+    case); targets (B, A, 4) fp32 past both clips and at R - 1 - 0.01; labels (B, A, 80) in dtype, 1% nonzero (the
+    amp path's bf16 target scores); the gradients g4 (B, A, 4) and g1 (B, A, 1) fp32."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    f32 = dict(device="cuda", generator=gen)
+    maps = torch.randn(b, a, 144, **f32) * 3
+    maps[:, ::5, 16:32] -= 100.0
+    tgt = torch.rand(b, a, 4, **f32) * 17 - 1
+    tgt[:, ::7, 1] = 15 - 0.01
+    lab = torch.rand(b, a, 80, **f32) * (torch.rand(b, a, 80, **f32) > 0.99)
+    return maps.to(dtype), tgt, lab.to(dtype), torch.randn(b, a, 4, **f32), torch.randn(b, a, 1, **f32)
+
+
+def loss_tail_metrics(b: int, m: int, a: int, seed: int):
+    """(B, M, A) fp32 align metrics as the assigner makes them: zero outside a GT's anchors (90%), values on a grid
+    of 1/64 (ties), the last quarter of the GT rows padding (all zero)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.floor(torch.rand(b, m, a, device="cuda", generator=gen) * 64) / 64
+    x = x * (torch.rand(b, m, a, device="cuda", generator=gen) > 0.9)
+    x[:, 3 * m // 4:] = 0.0
+    return x
+
+
+def loss_tail_pairs(maps, tgt, lab, g4, g1) -> dict:
+    """Each loss-tail kernel's call and its plain version's on these inputs, by wrapper name: (kernel, plain)."""
+    from yololite_tpu_torch.ops import loss_kernels as L
+
+    box, cls, g0 = maps[..., :64], maps[..., 64:], g1[0, 0, 0]
+    return {
+        "dfl_expectation": (lambda: L.dfl_expectation(box, 16), lambda: L.dfl_expectation_plain(box, 16)),
+        "dfl_expectation_backward": (lambda: L.dfl_expectation_backward(box, g4, 16),
+                                     lambda: L.dfl_expectation_backward_plain(box, g4, 16)),
+        "dfl_ce_mean": (lambda: L.dfl_ce_mean(box, tgt), lambda: L.dfl_ce_plain(box, tgt)),
+        "dfl_ce_backward": (lambda: L.dfl_ce_backward(box, tgt, g1), lambda: L.dfl_ce_backward_plain(box, tgt, g1)),
+        "bce_sum": (lambda: L.bce_sum(cls, lab), lambda: L.bce_sum_plain(cls, lab)),
+        "bce_sum_backward": (lambda: L.bce_sum_backward(cls, lab, g0), lambda: L.bce_sum_backward_plain(cls, lab, g0)),
+    }
+
+
+def loss_tail_check(name: str, kernel, plain, what: str) -> float:
+    """One loss-tail kernel against its plain version: bit for bit (K6b's sum within BCE_SUM_RTOL), a second call
+    the same bits, and a CUDA graph of the call replayed the same bits. Returns max |kernel - plain|."""
+    import torch
+
+    got, want, again = kernel(), plain(), kernel()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = kernel()
+    graph.replay()
+    torch.cuda.synchronize()
+    got_t, want_t = (got if isinstance(got, tuple) else (got,)), (want if isinstance(want, tuple) else (want,))
+    again_t, cap_t = (again if isinstance(again, tuple) else (again,)), (captured if isinstance(captured, tuple)
+                                                                         else (captured,))
+    err = 0.0
+    for g, w, a, c in zip(got_t, want_t, again_t, cap_t):
+        if not (same_bits(g, a) and same_bits(g, c)):
+            raise AssertionError(f"{name} ({what}): a second call or a graph replay gave other bits")
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"{name} ({what}): {tuple(g.shape)} {g.dtype}, plain {tuple(w.shape)} {w.dtype}")
+        if g.is_floating_point():
+            err = max(err, float((g.double() - w.double()).abs().nan_to_num(0.0).max()) if g.numel() else 0.0)
+        if name == "bce_sum":
+            if not bool((g.double() - w.double()).abs() <= BCE_SUM_RTOL * w.double().abs()):
+                raise AssertionError(f"bce_sum ({what}): {float(g)} against the plain {float(w)}, beyond "
+                                     f"{BCE_SUM_RTOL} relative")
+        elif not same_bits(g, w):
+            raise AssertionError(f"{name} ({what}): differs from its plain version in {int((g != w).sum())} of "
+                                 f"{g.numel()} entries, max |diff| {err:.3g}")
+    del graph
+    return err
+
+
+def loss_tail_checks(card: str) -> dict:
+    """Every loss-tail kernel against its plain version (`loss_tail_check`) at each (B, A) of LOSS_TAIL_SHAPES in
+    fp32 and bf16 (the logits read through the maps' row stride of 144), and K7 on each case of TOPK_CASES.
+    Returns the smallest and largest relative errors of K6b's sum and the count of checks."""
+    import torch
+
+    from yololite_tpu_torch.ops import loss_kernels as L
+
+    n, bce_rel = 0, []
+    for b, a in LOSS_TAIL_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            inputs = loss_tail_inputs(b, a, dtype, seed=b * a)
+            for name, (kernel, plain) in loss_tail_pairs(*inputs).items():
+                err = loss_tail_check(name, kernel, plain, f"B {b}, A {a}, {str(dtype).split('.')[-1]}")
+                if name == "bce_sum":
+                    bce_rel.append(err / abs(float(plain())))
+                n += 1
+    for b, m, a, k in TOPK_CASES:
+        x = loss_tail_metrics(b, m, a, seed=b + m + a + k)
+        loss_tail_check("topk_rows", lambda: L.topk_rows(x, k), lambda: L.topk_stable(x, k), f"B {b}, M {m}, A {a}, "
+                        f"k {k}")
+        n += 1
+    log(f"kernel: the loss tail equal to its plain versions in {n} checks, each also bit-equal on a second call and "
+        f"in a CUDA graph replay: K5 forward and backward, K6a forward and backward, K6b backward bit for bit at (B, "
+        f"A) in {LOSS_TAIL_SHAPES}, fp32 and bf16, logits read through a row stride of 144; K6b's sum within "
+        f"{BCE_SUM_RTOL} relative (readings {min(bce_rel):.3g} to {max(bce_rel):.3g}); K7 values and indices bit for bit at (B, M, A, k) in "
+        f"{TOPK_CASES}, on {card}")
+    return {"checks": n, "bce_sum_rel_err": max(bce_rel), "bce_sum_rel_err_least": min(bce_rel)}
+
+
+def loss_tail_bound_ms(name: str, rows: int, es_x: int, es_y: int = 0, n: int = 0, k: int = 0):
+    """Least time of one loss-tail call on these shapes, and what bounds it: each input byte read once and each
+    output byte written once, against LOSS_TAIL_OPS fp32 operations a logit. K5 and K6a read (rows, 64) logits of
+    es_x bytes; K6b (rows, 80) logits and labels of es_x and es_y bytes; K7 (rows, n) metrics and writes (rows, k)
+    values and int64 indices."""
+    if name == "topk_rows":
+        by_bytes, ops = rows * (n * es_x + k * (es_x + 8)), rows * n
+    elif name.startswith("bce_sum"):
+        logits = rows * 80
+        by_bytes = logits * (es_x + es_y) + 4 + (logits * es_x if name.endswith("backward") else 0)
+        ops = logits * LOSS_TAIL_OPS[name]
+    else:
+        logits = rows * 64
+        by_bytes = logits * es_x + (logits * es_x if name.endswith("backward") else 0)
+        by_bytes += rows * ({"dfl_expectation": 16, "dfl_expectation_backward": 16, "dfl_ce_mean": 16 + 4,
+                             "dfl_ce_backward": 16 + 4}[name])
+        ops = logits * LOSS_TAIL_OPS[name]
+    t_bytes, t_ops = by_bytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def loss_tail_numbers(card: str) -> dict:
+    """The loss tail at the train step's shapes, by device time (a CUDA graph of 20 calls replayed): K5, K6a and
+    K6b forward and backward at B 16, A 8,400 on the (B, A, 144) maps' slices, fp32 and bf16; K7 at B 16, A 8,400,
+    M 32 and 64, k 10. Each beside its plain version, its bound and, where one PyTorch call computes the same
+    function, that call (a yardstick: F.binary_cross_entropy_with_logits for K6b, F.cross_entropy with the two-hot
+    probabilities for K6a, torch.topk for K7, whose tie order is not lax.top_k's). Returns, by wrapper name and
+    dtype, {ms, plain_ms, bound_ms, bound_by, library_ms, max_abs_err, shape}."""
+    import torch
+    import torch.nn.functional as F
+
+    from yololite_tpu_torch.ops import loss_kernels as L
+
+    b, a = 16, 8400
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname, es = str(dtype).split(".")[-1], dtype.itemsize
+        maps, tgt, lab, g4, g1 = loss_tail_inputs(b, a, dtype, seed=23)
+        box, cls = maps[..., :64], maps[..., 64:]
+        # the yardsticks' inputs, made before timing: (rows * 4, 16) logits and the two-hot probabilities of K6a
+        x2 = box.float().reshape(-1, 16).contiguous()
+        t = tgt.clamp(0, 15 - 0.01).reshape(-1)
+        tl = t.long()
+        probs = torch.zeros_like(x2).scatter_(1, tl[:, None], (tl + 1 - t)[:, None])
+        probs.scatter_add_(1, (tl + 1).clamp(max=15)[:, None], (t - tl)[:, None])
+        library = {"bce_sum": lambda: F.binary_cross_entropy_with_logits(cls, lab, reduction="sum"),
+                   "dfl_ce_mean": lambda: F.cross_entropy(x2, probs, reduction="none")}
+        for name, (kernel, plain) in loss_tail_pairs(maps, tgt, lab, g4, g1).items():
+            got, want = kernel(), plain()
+            torch.cuda.synchronize()
+            err = float((got.double() - want.double()).abs().nan_to_num(0.0).max())
+            ms = graph_ms(kernel)
+            plain_ms = graph_ms(plain, iters=5, reps=3)
+            lib_ms = graph_ms(library[name]) if name in library else None
+            bound, bound_by = loss_tail_bound_ms(name, b * a, es, es)
+            out.setdefault(name, {})[dname] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+                                               "library_ms": lib_ms, "max_abs_err": err, "shape": [b, a, 144]}
+            log(f"kernel: {name} ({dname} logits, B {b}, A {a}, row stride 144): {ms:.4f} ms device (graph replay), "
+                f"{ms / bound:.2f}x its bound of {bound:.4f} ms ({bound_by}); plain {plain_ms:.4f} ms; "
+                f"{'library ' + format(lib_ms, '.4f') + ' ms; ' if lib_ms is not None else ''}max |kernel - plain| "
+                f"{err:.3g}, on {card}")
+        del maps, tgt, lab, g4, g1, x2, probs
+    for m in (32, 64):
+        x = loss_tail_metrics(b, m, a, seed=24)
+        vk, ik = L.topk_rows(x, 10)
+        vp, ip = L.topk_stable(x, 10)
+        torch.cuda.synchronize()
+        if not (same_bits(vk, vp) and same_bits(ik, ip)):
+            raise AssertionError(f"topk_rows differs from its plain version at M {m}")
+        ms = graph_ms(lambda: L.topk_rows(x, 10))
+        plain_ms = graph_ms(lambda: L.topk_stable(x, 10), iters=5, reps=3)
+        lib_ms = graph_ms(lambda: torch.topk(x, 10))
+        bound, bound_by = loss_tail_bound_ms("topk_rows", b * m, 4, n=a, k=10)
+        out.setdefault("topk_rows", {})[f"M{m}"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                                                    "bound_by": bound_by, "library_ms": lib_ms, "max_abs_err": 0.0,
+                                                    "shape": [b, m, a, 10]}
+        log(f"kernel: topk_rows (B {b}, M {m}, A {a}, k 10, fp32 metrics with ties): {ms:.4f} ms device (graph "
+            f"replay), {ms / bound:.2f}x its bound of {bound:.4f} ms ({bound_by}); plain (stable sort) {plain_ms:.4f} "
+            f"ms; torch.topk {lib_ms:.4f} ms (another tie order: a yardstick); values and indices bit-equal, on {card}")
+    return out
+
+
+@contextlib.contextmanager
+def plain_loss():
+    """The loss tail through its plain versions inside the block: K5, K6a and K6b as autograd Functions of the plain
+    forwards with the plain closed-form backwards, K7 as the stable sort; no loss-tail launch."""
+    import torch
+
+    from yololite_tpu_torch.ops import loss_kernels as L
+    from yololite_tpu_torch.utils import loss as tloss, tal
+
+    def plain_function(fwd, bwd):
+        class Plain(torch.autograd.Function):
+            @staticmethod
+            def forward(ctx, x, *rest):
+                ctx.save_for_backward(x)
+                ctx.rest = rest
+                return fwd(x, *rest)
+
+            @staticmethod
+            def backward(ctx, g):
+                (x,) = ctx.saved_tensors
+                return (bwd(x, *ctx.rest, g),) + (None,) * len(ctx.rest)
+
+        return Plain.apply
+
+    saved = (L.dfl_expectation, tloss.dfl_ce_mean, tloss.bce_sum, tal.topk_rows)
+    L.dfl_expectation = plain_function(L.dfl_expectation_plain,
+                                       lambda x, r, g: L.dfl_expectation_backward_plain(x, g, r))
+    tloss.dfl_ce_mean = plain_function(L.dfl_ce_plain, L.dfl_ce_backward_plain)
+    tloss.bce_sum = plain_function(L.bce_sum_plain, L.bce_sum_backward_plain)
+    tal.topk_rows = L.topk_stable
+    try:
+        yield
+    finally:
+        L.dfl_expectation, tloss.dfl_ce_mean, tloss.bce_sum, tal.topk_rows = saved
+
+
+def loss_tail_step_check(card: str, trainer_fn) -> None:
+    """One train step of trainer_fn(amp)'s first batch (640, batch 16 in phase 5; forward, loss, backward; eager, in
+    deterministic mode) with the loss-tail kernels against the same step with their plain versions (`plain_loss`),
+    in fp32 and bf16: fg_mask equal, loss items within rtol 1e-5, each kernel launched once a step and none with
+    the plain versions, and every gradient equal bit for bit (the backward kernels follow their plain versions'
+    rounding, and no gradient depends on K6b's sum); each gradient's relative L2 to
+    chiprun_out/loss_tail_step_grads_<dtype>.tsv as the record."""
+    import torch
+
+    from yololite_tpu_torch.engine import graphs
+    from yololite_tpu_torch.ops import loss_kernels as L
+
+    for amp in (False, True):
+        dtype = "bf16" if amp else "fp32"
+        st = trainer_fn(amp)
+        batch = next(iter(st.train_loader))
+        images = torch.from_numpy(batch["img"]).to(st.device)
+        targets = st._targets(batch)
+        out = {}
+        with deterministic(), graphs.eager():
+            for mode in ("kernels", "plain"):
+                before = [w.launches for w in L.COUNTED]
+                with plain_loss() if mode == "plain" else contextlib.nullcontext():
+                    items = st._grad_step(images, targets)
+                torch.cuda.synchronize()
+                launched = [w.launches - n for w, n in zip(L.COUNTED, before)]
+                grads = {n: p.grad.detach().clone() for n, p in st.model.named_parameters() if p.grad is not None}
+                torch._foreach_zero_(st._grads)
+                out[mode] = (items.clone(), st.fg_mask.clone(), grads, launched)
+        (ik, fk, gk, lk), (ip, fp, gp, lp) = out["kernels"], out["plain"]
+        if any(n != 1 for n in lk) or any(lp):
+            raise AssertionError(f"loss-tail step {dtype}: launches {dict(zip((w.__name__ for w in L.COUNTED), lk))} "
+                                 f"with the kernels, {lp} with the plain versions")
+        if not torch.equal(fk, fp):
+            raise AssertionError(f"loss-tail step {dtype}: fg_mask differs in {int((fk != fp).sum())} anchors")
+        if not torch.allclose(ik, ip, rtol=1e-5, atol=0):
+            raise AssertionError(f"loss-tail step {dtype}: loss items {ik.tolist()} against {ip.tolist()}")
+        if set(gk) != set(gp):
+            raise AssertionError(f"loss-tail step {dtype}: gradients of {sorted(set(gk) ^ set(gp))[:3]} in one step "
+                                 f"only")
+        rel = {n: float((gk[n].double() - gp[n].double()).norm() / max(float(gp[n].double().norm()), 1e-30))
+               for n in gp}
+        Path("chiprun_out").mkdir(exist_ok=True)
+        Path(f"chiprun_out/loss_tail_step_grads_{dtype}.tsv").write_text(
+            "".join(f"{n}\t{r:.6g}\n" for n, r in sorted(rel.items(), key=lambda kv: -kv[1])))
+        differ = [n for n in gp if not same_bits(gk[n], gp[n])]
+        if differ:
+            raise AssertionError(f"loss-tail step {dtype}: {len(differ)} of {len(gp)} gradients differ from the plain "
+                                 f"step's bits (largest relative L2 {max(rel.values()):.3g}), first {differ[:3]}")
+        log(f"train: one step at {images.shape[1]}, batch {images.shape[0]} ({dtype}, M "
+            f"{targets['gt_bboxes'].shape[1]}, eager, "
+            f"deterministic mode) with the loss-tail kernels against their plain versions: fg_mask equal "
+            f"({int(fk.sum())} foreground anchors), loss items {ik.tolist()} within "
+            f"{float(((ik - ip).abs() / ip.abs()).max()):.3g} relative; all {len(gp)} gradients bit for bit; each "
+            f"kernel launched once, on {card}")
 
 
 def profile_calls(fn, reps: int):
@@ -1115,11 +1422,9 @@ def train_phase(card: str):
     from yololite_tpu_torch.data.utils import check_det_dataset
     from yololite_tpu_torch.engine.trainer import DetectionTrainer
     from yololite_tpu_torch.models import checkpoint as ckpt
+    from yololite_tpu_torch.ops import loss_kernels as L
     from yololite_tpu_torch.ops import nms
-    from yololite_tpu_torch.ops.decode import DFLExpectation, dfl_expectation_mm
     from yololite_tpu_torch.ops.kernels import blocked_nms_finalize, device_letterbox, greedy_nms_keep, select_decode
-    from yololite_tpu_torch.utils.loss import BCESum, DFLCrossEntropy, bce_sum, dfl_ce_mean
-    from yololite_tpu_torch.utils.tal import TaskAlignedAssigner
 
     tmp = tempfile.TemporaryDirectory()
     root = Path(tmp.name)
@@ -1195,14 +1500,29 @@ def train_phase(card: str):
             f"of {rep['calls']} graph calls, {rep['warmups']} warm-ups; ops torch has no deterministic CUDA version "
             f"of: {rep['nondeterministic'] or 'none'}; {time.perf_counter() - t0:.1f} s, on {card}")
 
+    # one step with the loss-tail kernels against the same step with their plain versions, fp32 and bf16
+    def loss_trainer(amp):
+        tr = DetectionTrainer(overrides={"data": str(data), "imgsz": 640, "batch": bs, "amp": amp, "val": False,
+                                         "save": False, "project": str(root / "runs"),
+                                         "name": f"loss_tail_{'bf16' if amp else 'fp32'}"})
+        tr.set_model(start_model().model)
+        tr._setup_train()
+        return tr
+
+    loss_tail_step_check(card, loss_trainer)
+
     # (b), (c) the facade's train, graphed (fp32 and bf16) and eager (fp32), 3 epochs: the keys repeat from the
-    # second step, the EMA val's bucket shapes from the second epoch
-    launches = {"greedy_nms_keep": 0, "blocked_nms_finalize": 0, "select_decode": 0, "device_letterbox": 0}
+    # second step, the EMA val's bucket shapes from the second epoch; the loss tail's launches counted in the
+    # graphed runs and the resume (a replayed grad graph adds its capture's)
+    launches = {"greedy_nms_keep": 0, "blocked_nms_finalize": 0, "select_decode": 0, "device_letterbox": 0,
+                **{w.__name__: 0 for w in L.COUNTED}}
     runs = {}
     for amp, mode in ((False, "graphed"), (True, "graphed"), (False, "eager")):
         dtype = "bf16" if amp else "fp32"
         m = start_model()
         greedy_nms_keep.launches = blocked_nms_finalize.launches = select_decode.launches = 0
+        for w in L.COUNTED:
+            w.launches = 0
         pool0 = graphs.pool_reserved_bytes()
         t0 = time.perf_counter()
         with graphs.eager() if mode == "eager" else contextlib.nullcontext():
@@ -1215,9 +1535,14 @@ def train_phase(card: str):
         n3 = select_decode.launches - getattr(t, "compare_k3", 0)
         if n1 or n3 != n:
             raise AssertionError(f"train {dtype}: {n1} K1 and {n3} K3 launches; every val NMS is K = 8192 (K3, K4)")
+        tail = {w.__name__: w.launches for w in L.COUNTED}
+        if not all(tail.values()):
+            raise AssertionError(f"train {dtype} {mode}: loss-tail launches {tail}")
         if mode == "graphed":
             launches["blocked_nms_finalize"] += n
             launches["select_decode"] += n3
+            for name, v in tail.items():
+                launches[name] += v
         rows = np.loadtxt(t.csv, delimiter=",", skiprows=1, ndmin=2)
         if rows.shape[0] != 3 or not np.isfinite(rows).all() or not (rows[:, 1:4] > 0).all():
             raise AssertionError(f"train {dtype}: results.csv rows not finite or not 3 epochs: {rows}")
@@ -1241,7 +1566,8 @@ def train_phase(card: str):
             f"whole train() {wall:.2f} s; loss items per epoch {rows[:, 1:4].round(5).tolist()}; train steps "
             f"{g.calls} on the card, {g.captures} captured, {g.replays} replayed ({len(t._step_shapes)} (shape, M) "
             f"variants, graphs held by kind {sorted(k[0] for k in g._graphs)}); EMA val graphs (calls, captures, "
-            f"replays) per epoch {t.val_graphs}, metrics equal to an eager val each epoch; K4 launches {n} "
+            f"replays) per epoch {t.val_graphs}, metrics equal to an eager val each epoch; loss-tail launches "
+            f"{tail}; K4 launches {n} "
             f"(and {getattr(t, 'compare_k4', 0)} in those eager vals) "
             f"({t.val_launches} in the EMA vals, the rest in the final val of best.npz: one batch, seen once, so "
             f"eager); graph pool {graphs.pool_reserved_bytes() / 2 ** 20:.1f} MiB reserved (+"
@@ -1277,9 +1603,15 @@ def train_phase(card: str):
                             epoch=self.start_epoch, updates=self.ema.updates, saved_epoch=meta["epoch"])
 
     blocked_nms_finalize.launches = select_decode.launches = 0
+    for w in L.COUNTED:
+        w.launches = 0
     rt = ResumeChecked(overrides={"resume": str(t32.last)})
     rt.epochs = 4
     rt.train()
+    for w in L.COUNTED:
+        if not w.launches:
+            raise AssertionError(f"resume: {w.__name__} never launched")
+        launches[w.__name__] += w.launches
     launches["blocked_nms_finalize"] += blocked_nms_finalize.launches - getattr(rt, "compare_k4", 0)
     launches["select_decode"] += select_decode.launches - getattr(rt, "compare_k3", 0)
     if restored.get("epoch") != 3 or restored["saved_epoch"] != 2 or rt.epoch != 3 or restored["step"] < 1:
@@ -1351,7 +1683,8 @@ def train_phase(card: str):
             peaks = {}
             for mode in ("graphed", "eager"):
                 with graphs.eager() if mode == "eager" else contextlib.nullcontext():
-                    DFLExpectation.calls = DFLCrossEntropy.calls = BCESum.calls = 0
+                    for w in L.COUNTED:
+                        w.launches = 0
                     torch.cuda.synchronize()
                     base = torch.cuda.memory_allocated()
                     torch.cuda.reset_peak_memory_stats()
@@ -1359,7 +1692,7 @@ def train_phase(card: str):
                     st._apply_step(lr, mom)
                     torch.cuda.synchronize()
                     peaks[mode] = (torch.cuda.max_memory_allocated() - base, base,
-                                   (DFLExpectation.calls, DFLCrossEntropy.calls, BCESum.calls))
+                                   tuple(w.launches for w in L.COUNTED))
         g = st.graphs
         log(f"train: one step's stages alone ({dtype}, batch {bs} at 640, CUDA events, median of 10): forward "
             f"{fw:.3f} ms, loss incl. TAL {loss:.3f} ms, backward {bw:.3f} ms (eager, each alone); clip + AdamW + EMA "
@@ -1368,8 +1701,10 @@ def train_phase(card: str):
             f"{peaks['eager'][1] / 2 ** 20:.1f} MiB held: graphed {peaks['graphed'][0] / 2 ** 20:.1f} MiB (its "
             f"activations live in the graph pool: {graphs.pool_reserved_bytes() / 2 ** 20:.1f} MiB reserved, "
             f"+{(graphs.pool_reserved_bytes() - pool0) / 2 ** 20:.1f} for this trainer's captures), eager "
-            f"{peaks['eager'][0] / 2 ** 20:.1f} MiB; K5/K6 calls per step (DFLExpectation, DFLCrossEntropy, BCESum) "
-            f"graphed {peaks['graphed'][2]} (a replay adds its capture's), eager {peaks['eager'][2]}; "
+            f"{peaks['eager'][0] / 2 ** 20:.1f} MiB; loss-tail launches per step "
+            f"({', '.join(w.__name__ for w in L.COUNTED)}) graphed {peaks['graphed'][2]} (a replay adds its "
+            f"capture's), eager {peaks['eager'][2]}; the graphed step before the loss-tail kernels took 48.8-49.8 ms "
+            f"fp32 and 19.0-19.2 bf16 (NVIDIA H100 80GB HBM3, 700 W); "
             f"{g.captures} captures, {g.replays} replays, on {card}")
 
     # where an epoch loop's wall time goes (fp32), graphed and eager: blocked on the loader, enqueueing the step
@@ -1448,44 +1783,8 @@ def train_phase(card: str):
             f"{len(on_device)} device kernels and copies; {pt.graphs.captures} captures, {pt.graphs.replays} replays "
             f"of {pt.graphs.calls} graph calls; top ms: {top}; on {card}")
 
-    # K5, K6, K7 at the train step's shapes: B = 16, A = 8400, 4 * reg_max = 64, nc = 80
-    B, A = 16, 8400
-    gen = torch.Generator(device="cuda").manual_seed(23)
-    for dt in (torch.float32, torch.bfloat16):
-        es = 2 if dt == torch.bfloat16 else 4
-        box = (torch.randn(B, A, 64, device="cuda", generator=gen) * 3).to(dt).requires_grad_(True)
-        cls = (torch.randn(B, A, 80, device="cuda", generator=gen) * 3).to(dt).requires_grad_(True)
-        tgt = torch.rand(B, A, 4, device="cuda", generator=gen) * 15
-        lab = (torch.rand(B, A, 80, device="cuda", generator=gen) * (torch.rand(B, A, 80, device="cuda", generator=gen)
-                                                                   > 0.99)).to(dt)
-        g4 = torch.randn(B, A, 4, device="cuda", generator=gen)
-        g1 = torch.randn(B, A, 1, device="cuda", generator=gen)
-        specs = [
-            ("K5 DFLExpectation", lambda: dfl_expectation_mm(box, 16), g4,
-             B * A * (64 * es + 16), B * A * (64 * es + 16 + 64 * es)),
-            ("K6 DFLCrossEntropy", lambda: dfl_ce_mean(box, tgt), g1,
-             B * A * (64 * es + 16 + 4), B * A * (64 * es + 16 + 4 + 64 * es)),
-            ("K6 BCESum", lambda: bce_sum(cls, lab), torch.ones((), device="cuda"),
-             B * A * 80 * 2 * es + 4, B * A * 80 * 3 * es),
-        ]
-        for name, fwd, g, fwd_bytes, bwd_bytes in specs:
-            f_ms = event_ms(lambda: None, lambda _: fwd())
-            b_ms = event_ms(fwd, lambda out: out.backward(g))
-            with profile(activities=[ProfilerActivity.CUDA]) as kp:
-                fwd().backward(g)
-                torch.cuda.synchronize()
-            n_dev = sum(1 for e in kp.events() if e.device_type == DeviceType.CUDA)
-            log(f"train: {name} ({str(dt).split('.')[-1]} logits, B={B}, A={A}): forward {f_ms:.4f} ms, backward "
-                f"{b_ms:.4f} ms, {n_dev} device kernels for both; bytes bound forward "
-                f"{fwd_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms, backward {bwd_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms, "
-                f"on {card}")
-    for M in (32, 64):
-        metric = torch.rand(B, M, A, device="cuda", generator=gen)
-        mask = torch.ones(B, M, 1, device="cuda")
-        sel = TaskAlignedAssigner(topk=10)._select_topk_candidates
-        k_ms = event_ms(lambda: None, lambda _: sel(metric, mask))
-        log(f"train: K7 top-10 per GT (stable sort) + pick mask at B={B}, M={M}, A={A}: {k_ms:.4f} ms; bytes bound "
-            f"{2 * B * M * A * 4 / HBM_BYTES_PER_S * 1e3:.4f} ms (metric read, mask written), on {card}")
+    # K5, K6a, K6b (forward and backward) and K7 at the train step's shapes, beside their plain versions and bounds
+    launches["loss_tail"] = loss_tail_numbers(card)
 
     # the card against the CPU: one SGD step at imgsz 160, batch 2, fp32, the same weights and batch
     one_step_card_vs_cpu(card, root, "yolo11n", "yolo11n.yaml", data)
@@ -2738,6 +3037,9 @@ def main() -> int:
     k2["fp32_720x1280"] = k2_numbers(card, hd, 640, torch.float32, False, True, "a 720p batch, fp32")
     del hd, frames32
 
+    # the loss tail (K5, K6a, K6b with their backwards, K7) against its plain versions
+    tail_checks = loss_tail_checks(card)
+
     # ---- 3. slice: yolo11n predict at 640 through the facade ----
     from yololite_tpu_torch.engine.predictor import fp32_convs
 
@@ -3017,7 +3319,36 @@ def main() -> int:
         "fp32_720x1280": {key: k2["fp32_720x1280"][key] for key in ("ms", "plain_ms", "bound_ms", "library_ms",
                                                                      "max_abs_err")},
     }
-    log(json.dumps({"kernels": [entry, k3_entry, k2_entry, k4_entry, k8_entry]}))
+    tail = counts["loss_tail"]  # the loss tail at the train step's shapes (loss_tail_numbers); launches: phase 5 (b)
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err")
+
+    def tail_entry(name, backward, source, replaces, library):
+        f, h = tail[name]["float32"], tail[name]["bfloat16"]
+        entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": counts[name],
+                 **{k: f[k] for k in keys}, "shape": f["shape"], "library": library,
+                 "bf16": {k: h[k] for k in keys}}
+        if backward:  # the backward kernel of the same source: its own wrapper, launches and numbers
+            fb, hb = tail[backward]["float32"], tail[backward]["bfloat16"]
+            entry["backward"] = {"name": backward, "launches": counts[backward], **{k: fb[k] for k in keys},
+                                 "bf16": {k: hb[k] for k in keys}}
+        return entry
+
+    k5_entry = tail_entry("dfl_expectation", "dfl_expectation_backward", "yololite_tpu_torch/csrc/dfl.cu",
+                          "yololite_tpu/ops/decode.py:75", None)  # the custom vjp of dfl_expectation_mm: XLA ops
+    k6a_entry = tail_entry("dfl_ce_mean", "dfl_ce_backward", "yololite_tpu_torch/csrc/dfl.cu",
+                           "yololite_tpu/utils/loss.py:237", "F.cross_entropy with the two-hot probabilities")
+    k6b_entry = tail_entry("bce_sum", "bce_sum_backward", "yololite_tpu_torch/csrc/bce_sum.cu",
+                           "yololite_tpu/utils/loss.py:283", "F.binary_cross_entropy_with_logits, reduction sum")
+    k6b_entry["sum_rel_err"] = tail_checks["bce_sum_rel_err"]  # the largest over phase 2's checks, vs BCE_SUM_RTOL
+    k6b_entry["sum_rel_err_least"] = tail_checks["bce_sum_rel_err_least"]
+    t32, t64 = tail["topk_rows"]["M32"], tail["topk_rows"]["M64"]
+    k7_entry = {"name": "topk_rows", "route": "cuda", "source": "yololite_tpu_torch/csrc/topk_rows.cu",
+                "replaces": "yololite_tpu/utils/tal.py:61",  # topk_blockmax_gather (and :97 topk_hierarchical)
+                "launches": counts["topk_rows"], **{k: t32[k] for k in keys}, "shape": t32["shape"],
+                "library": "torch.topk (its tie order is not lax.top_k's: a yardstick)",
+                "M64": {**{k: t64[k] for k in keys}, "shape": t64["shape"]}}
+    log(json.dumps({"kernels": [entry, k3_entry, k2_entry, k4_entry, k8_entry, k5_entry, k6a_entry, k6b_entry,
+                                k7_entry]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0
 

@@ -14,8 +14,10 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import K3_CASES, K3_RECT, k3_args, k3_check, k3_maps, k4_scene
+from chip_smoke import (K3_CASES, K3_RECT, LOSS_TAIL_SHAPES, TOPK_CASES, k3_args, k3_check, k3_maps, k4_scene,
+                        loss_tail_check, loss_tail_inputs, loss_tail_metrics, loss_tail_pairs, loss_tail_step_check)
 from yololite_tpu_torch.engine import graphs
+from yololite_tpu_torch.ops import loss_kernels as L
 from yololite_tpu_torch.ops.kernels import (blocked_nms_finalize, blocked_nms_finalize_plain, device_letterbox,
                                            device_letterbox_plain, greedy_nms_keep, greedy_nms_keep_plain, int8_conv,
                                            int8_conv_plain, select_decode, select_decode_plain)
@@ -880,3 +882,82 @@ def test_graphed_predict_and_val_run_k3_and_k2(card, half, tmp_path):
     with graphs.eager():
         v(model=model.model)
     assert v.metrics.results_dict == rd
+
+
+# ---------------- the loss tail: K5, K6a, K6b (each with its backward) and K7 ----------------
+
+
+def _wrapper(name):
+    return {w.__name__: w for w in L.COUNTED}[name]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("b,a", LOSS_TAIL_SHAPES)
+def test_loss_tail_kernels_match_plain(card, b, a, dtype):
+    """K5, K6a, K6b forward and backward on the (B, A, 144) maps' strided slices against their plain versions: bit
+    for bit (K6b's sum within chip_smoke.BCE_SUM_RTOL), the same bits on a second call and in a CUDA graph replay;
+    one launch a call (the check calls each three times: twice, and once in the capture)."""
+    for name, (kernel, plain) in loss_tail_pairs(*loss_tail_inputs(b, a, dtype, seed=b * a + 1)).items():
+        before = _wrapper(name).launches
+        loss_tail_check(name, kernel, plain, f"B {b}, A {a}, {dtype}")
+        assert _wrapper(name).launches == before + 3
+
+
+@pytest.mark.parametrize("b,m,a,k", TOPK_CASES)
+def test_topk_rows_kernel_matches_plain(card, b, m, a, k):
+    """K7 on the assigner's metrics (ties, masked rows; M 16-256, k 1-13, A <= k): values and indices bit for bit,
+    the same on a second call and in a graph replay."""
+    x = loss_tail_metrics(b, m, a, seed=b * m + a + k)
+    before = L.topk_rows.launches
+    loss_tail_check("topk_rows", lambda: L.topk_rows(x, k), lambda: L.topk_stable(x, k), f"B {b}, M {m}, A {a}")
+    assert L.topk_rows.launches == before + 3
+
+
+def test_loss_tail_kernels_take_the_float64_step(card):
+    """fp64 maps, as the float64 reference step feeds them, through every kernel, and K7 on fp32 and fp64 metrics
+    with NaN and signed zeros: equal to the plain versions as in fp32."""
+    maps, tgt, lab, g4, g1 = loss_tail_inputs(2, 300, torch.float64, seed=5)
+    for name, (kernel, plain) in loss_tail_pairs(maps, tgt, lab.float(), g4, g1).items():
+        loss_tail_check(name, kernel, plain, "fp64")
+    for mdt in (torch.float32, torch.float64):
+        x = loss_tail_metrics(3, 8, 1000, seed=6).to(mdt)
+        x[0, 0, ::97] = float("nan")
+        x[1, 1, ::3] = -0.0
+        loss_tail_check("topk_rows", lambda: L.topk_rows(x, 13), lambda: L.topk_stable(x, 13), str(mdt))
+
+
+def test_loss_tail_kernels_reject_what_they_do_not_take(card):
+    maps = torch.zeros(2, 50, 144, device=card)
+    with pytest.raises(ValueError):  # the logits' last dim strided
+        L.dfl_expectation(maps[..., :128:2], 16)
+    with pytest.raises(ValueError):  # rows not evenly spaced
+        L.bce_sum(maps[:, :25, 64:], torch.zeros(2, 25, 80, device=card))
+    with pytest.raises(TypeError):
+        L.dfl_ce_mean(maps[..., :64], torch.zeros(2, 50, 4, device=card, dtype=torch.float64))
+    with pytest.raises(ValueError):
+        L.topk_rows(maps, 33)
+    with pytest.raises(TypeError):
+        L.topk_rows(maps.bfloat16(), 10)
+    with pytest.raises(TypeError):  # no path of the port makes fp16 maps
+        L.dfl_expectation(maps[..., :64].half(), 16)
+    with pytest.raises(TypeError):
+        L.bce_sum(maps[..., 64:], torch.zeros(2, 50, 80, device=card, dtype=torch.float64))
+    with pytest.raises(ValueError):
+        L.bce_sum(maps[..., 64:], torch.zeros(2, 50, 80))  # labels on another device
+
+
+def test_train_step_with_the_loss_tail_kernels_equals_the_plain_one(card, tmp_path):
+    """One yolo11n train step at imgsz 160, batch 2, fp32 and bf16, eager in deterministic mode: the loss-tail
+    kernels against their plain versions (chip_smoke.loss_tail_step_check: fg_mask equal, loss items within rtol
+    1e-5, each kernel launched once)."""
+    from yololite_tpu_torch.engine.trainer import DetectionTrainer
+
+    data = _train_data(tmp_path)
+
+    def trainer(amp):
+        tr = DetectionTrainer(overrides=_train_overrides(data, tmp_path, f"tail_{amp}", amp=amp))
+        tr.set_model(_yolo11n_detecting())
+        tr._setup_train()
+        return tr
+
+    loss_tail_step_check(torch.cuda.get_device_name(0), trainer)

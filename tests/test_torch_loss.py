@@ -1,9 +1,9 @@
 """yololite_tpu_torch train math vs the JAX package, on the CPU: box algebra, K5-K7, TAL, the loss, optimizers, EMA.
 
 The same numpy-seeded inputs go through the JAX function and the port's.
-The hand-written backwards (K5 `DFLExpectation`, K6 `DFLCrossEntropy` and
-`BCESum`) are held to JAX's custom vjps and to torch autograd of the plain
-forward. The assigner's outputs are held exactly where they are exact
+The hand-written backwards (K5 `dfl_expectation_mm`, K6a `dfl_ce_mean` and
+K6b `bce_sum`, ops of ops/loss_kernels.py with autograd registered) are held
+to JAX's custom vjps and to torch autograd of the plain forward. The assigner's outputs are held exactly where they are exact
 (foreground mask, assigned GT, labels, boxes); inputs are drawn so that
 candidates do not tie within rounding: class logits on the grid where both
 frameworks' sigmoid agree (tests/test_torch_nms.py `_safe_grid`) and box
@@ -30,6 +30,7 @@ from yololite_tpu_torch.models import checkpoint as ckpt
 from yololite_tpu_torch.models import modules as TM
 from yololite_tpu_torch.ops import boxes as tboxes
 from yololite_tpu_torch.ops import decode as tdecode
+from yololite_tpu_torch.ops import loss_kernels as LK
 from yololite_tpu_torch.utils import ema as tema
 from yololite_tpu_torch.utils import loss as tloss
 from yololite_tpu_torch.utils import tal as ttal
@@ -104,7 +105,7 @@ def _check_function(torch_fn, plain_fn, jax_fn, inputs, dtype, atol_rel=1e-7):
     """Forward vs JAX (rtol 1e-6); backward vs JAX's custom vjp and vs torch autograd of the plain forward.
 
     fp32 backward: rtol 1e-5, atol atol_rel * max|grad|. bf16: rtol 2^-7 (one
-    bf16 ulp) and atol 2^-6 * max|grad|: BCESum's backward runs in bf16 in
+    bf16 ulp) and atol 2^-6 * max|grad|: bce_sum's backward runs in bf16 in
     both packages, and XLA's bf16 sigmoid rounds otherwise than torch's
     (measured 1.3e-2 * |g| apart, each within 1.1e-2 * |g| of the exact value).
     """
@@ -138,7 +139,7 @@ def _check_function(torch_fn, plain_fn, jax_fn, inputs, dtype, atol_rel=1e-7):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 def test_dfl_expectation_backward_matches_jax(dtype):
-    """K5 `DFLExpectation`: dE/dx = softmax * (proj - E) per side.
+    """K5 `dfl_expectation_mm`: dE/dx = softmax * (proj - E) per side.
 
     Against JAX the atol is 2e-6 * max|grad|: the two forwards sum E in other
     orders (XLA as a matmul), so E differs by up to 2 ulps, and proj - E
@@ -148,7 +149,7 @@ def test_dfl_expectation_backward_matches_jax(dtype):
     """
     rng = np.random.default_rng(4)
     x = (rng.standard_normal((2, 300, 64)) * 3).astype(np.float32)
-    _check_function(tdecode.dfl_expectation_mm, lambda v: tdecode._dfl_mm_parts(v, 16)[0],
+    _check_function(tdecode.dfl_expectation_mm, lambda v: LK._dfl_mm_parts(v, 16)[0],
                     lambda v: jdecode.dfl_expectation_mm(v, 16), [x], dtype, atol_rel=2e-6)
 
 
@@ -157,28 +158,28 @@ def test_dfl_expectation_forward_keeps_its_bits():
     x = torch.from_numpy((np.random.default_rng(5).standard_normal((3, 50, 64)) * 4).astype(np.float32))
     with torch.no_grad():
         plain = tdecode.dfl_expectation_mm(x)
-    n = tdecode.DFLExpectation.calls
-    assert torch.equal(tdecode.dfl_expectation_mm(x.clone().requires_grad_(True)).detach(), plain)
-    assert tdecode.DFLExpectation.calls == n + 1
+    out = tdecode.dfl_expectation_mm(x.clone().requires_grad_(True))
+    assert torch.equal(out.detach(), plain)
+    assert "yololite_tpu_torch_dfl_expectation" in type(out.grad_fn).__name__  # the K5 op's registered backward
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 def test_dfl_ce_backward_matches_jax(dtype):
-    """K6 `DFLCrossEntropy`: (softmax - two-hot target) / 4, the targets clipped to reg_max - 1.01."""
+    """K6a `dfl_ce_mean`: (softmax - two-hot target) / 4, the targets clipped to reg_max - 1.01."""
     rng = np.random.default_rng(6)
     x = (rng.standard_normal((2, 300, 64)) * 3).astype(np.float32)
     target = rng.uniform(-1, 16, (2, 300, 4)).astype(np.float32)  # past both clips
-    _check_function(tloss.dfl_ce_mean, lambda v, t: tloss._dfl_ce_parts(v, t)[0], jloss.dfl_ce_mean, [x, target],
+    _check_function(tloss.dfl_ce_mean, lambda v, t: LK._dfl_ce_parts(v, t)[0], jloss.dfl_ce_mean, [x, target],
                     dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 def test_bce_sum_backward_matches_jax(dtype):
-    """K6 `BCESum`: sigmoid(x) - y, in the logits' dtype."""
+    """K6b `bce_sum`: sigmoid(x) - y, in the logits' dtype."""
     rng = np.random.default_rng(7)
     x = (rng.standard_normal((2, 300, 80)) * 4).astype(np.float32)
     y = (rng.uniform(0, 1, (2, 300, 80)) * (rng.uniform(size=(2, 300, 80)) > 0.9)).astype(np.float32)
-    _check_function(tloss.bce_sum, lambda v, t: tloss.sigmoid_bce(v, t).sum(), jloss.bce_sum, [x, y], dtype)
+    _check_function(tloss.bce_sum, lambda v, t: LK.sigmoid_bce(v, t).sum(), jloss.bce_sum, [x, y], dtype)
 
 
 # ---------------- TAL (K7 and the assigner) ----------------

@@ -1,0 +1,290 @@
+"""The loss-tail kernels' public wrappers and ops (ops/loss_kernels.py: K5, K6a, K6b, K7) against the JAX package.
+
+On the CPU every wrapper runs its kernel's plain version through the
+`torch.library` op; csrc/dfl.cu, csrc/bce_sum.cu and csrc/topk_rows.cu are
+held to those plain versions on the card (tests/test_torch_kernels.py,
+chip_smoke.py). Inputs come from a numpy seed and reach the port as the loss
+passes them: the box and class logits as column slices of one (B, A, 144)
+tensor (rows with a stride of 144), at B 2 and A 300 or 8,400.
+
+Tolerances, each with its reason:
+- forwards against JAX: rtol 1e-6, atol 1e-6. The JAX package sums each
+  side's exp and products as segment matmuls (and its loss in another
+  order), so the float32 sums differ in their last bits.
+- fp32 backwards against JAX's custom vjps: rtol 1e-5, atol 1e-7 (K6a),
+  2e-7 (K6b) or 2e-6 (K5) times max |grad|: in K5 the same sums (m, z, E)
+  enter every element of a side; in K6b XLA's fp32 sigmoid lies up to 4
+  ulps from torch's (2.4e-7 near 1: one element in 1.3 million at A 8,400).
+- bf16 backwards: rtol 2^-7 (one bf16 ulp), atol 2^-6 times max |grad|: both
+  packages round to bf16 once at the end (K5, K6a), and K6b's bf16 sigmoid
+  rounds otherwise in XLA than in torch.
+- fp32 backwards against torch autograd of the plain forward: the same
+  bounds as against JAX (autograd takes another route through the sums).
+- K7 bit for bit in values and indices: the top-k is exact.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+from jax import lax
+
+from yololite_tpu.ops import decode as jdecode
+from yololite_tpu.utils import loss as jloss
+from yololite_tpu.utils import tal as jtal
+
+from yololite_tpu_torch.ops import loss_kernels as LK
+from yololite_tpu_torch.ops.decode import dfl_expectation_mm
+from yololite_tpu_torch.utils.loss import bce_sum, dfl_ce_mean
+from yololite_tpu_torch.utils.tal import TaskAlignedAssigner
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Run torch on one CPU thread while this module holds it against JAX (see tests/test_torch_nms.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _maps(rng, a, underflow=False):
+    """(2, a, 144) float32 logits: 64 box logits (one side far below the others with `underflow`), 80 class ones."""
+    x = (rng.standard_normal((2, a, 144)) * 3).astype(np.float32)
+    if underflow:  # side 1 sits 120 below sides 0, 2, 3: exp of it against a shared max would underflow to 0
+        x[:, :, 16:32] -= 120.0
+        x[:, :, 32:48] += 40.0
+    return x
+
+
+def _targets(rng, a):
+    """(2, a, 4) continuous bins: past both clips (< 0, > R - 1 - 0.01), exactly at R - 1 - 0.01, and inside."""
+    t = rng.uniform(-1, 16, (2, a, 4)).astype(np.float32)
+    t[:, ::7, 1] = np.float32(15 - 0.01)  # the tr clamp: tl 14, tr 15
+    t[:, ::11, 2] = 0.0
+    return t
+
+
+def _labels(rng, a):
+    return (rng.uniform(0, 1, (2, a, 80)) * (rng.uniform(size=(2, a, 80)) > 0.9)).astype(np.float32)
+
+
+def _assert_close(got, want, rtol, atol_rel):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    np.testing.assert_allclose(got, want, rtol=rtol, atol=atol_rel * max(np.abs(want).max(), 1e-30))
+
+
+def _check(name, x144, rest, dtype, atol_rel):
+    """The wrapper on the strided slice against JAX's forward and custom vjp, and (fp32) torch autograd of the
+    plain forward; the gradient lands in the slice's columns of the (B, A, 144) tensor, in the logits' dtype."""
+    cols = slice(0, 64) if name != "bce_sum" else slice(64, 144)
+    port_fn = {"dfl_expectation": lambda v: dfl_expectation_mm(v, 16), "dfl_ce_mean": dfl_ce_mean,
+               "bce_sum": bce_sum}[name]
+    jax_fn = {"dfl_expectation": lambda v: jdecode.dfl_expectation_mm(v, 16), "dfl_ce_mean": jloss.dfl_ce_mean,
+              "bce_sum": jloss.bce_sum}[name]
+    plain_fn = {"dfl_expectation": lambda v: LK.dfl_expectation_plain(v, 16), "dfl_ce_mean": LK.dfl_ce_plain,
+                "bce_sum": LK.bce_sum_plain}[name]
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    x = x144[..., cols]
+    jx = jnp.asarray(x, jdt)
+    jrest = [jnp.asarray(r) for r in rest]
+    trest = [torch.from_numpy(r) for r in rest]
+    full = torch.from_numpy(x144).to(dtype).requires_grad_(True)
+    tout = port_fn(full[..., cols], *trest)
+    jout, vjp = jax.vjp(lambda v: jax_fn(v, *jrest), jx)
+    np.testing.assert_allclose(tout.detach().numpy(), np.asarray(jout), rtol=1e-6, atol=1e-6)
+
+    g = np.random.default_rng(3).standard_normal(tout.shape).astype(np.float32)
+    tout.backward(torch.from_numpy(g))
+    assert full.grad.dtype == dtype and not full.grad[..., [c for c in range(144) if c not in range(144)[cols]]].any()
+    got = full.grad[..., cols].float().numpy()
+    (jg,) = vjp(jnp.asarray(g))
+    if dtype == torch.bfloat16:
+        _assert_close(got, np.asarray(jg, np.float32), 2 ** -7, 2 ** -6)
+        return
+    _assert_close(got, np.asarray(jg), 1e-5, atol_rel)
+    tx = torch.from_numpy(np.ascontiguousarray(x)).requires_grad_(True)
+    plain_fn(tx, *trest).backward(torch.from_numpy(g))
+    _assert_close(got, tx.grad.numpy(), 1e-5, atol_rel)
+
+
+CASES = [("dfl_expectation", 2e-6), ("dfl_ce_mean", 1e-7), ("bce_sum", 2e-7)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("a,underflow", [(300, False), (300, True), (8400, False)], ids=["A300", "A300-underflow",
+                                                                                     "A8400"])
+@pytest.mark.parametrize("name,atol_rel", CASES, ids=[c[0] for c in CASES])
+def test_loss_tail_matches_jax(name, atol_rel, a, underflow, dtype):
+    """K5, K6a, K6b forward and backward through the wrappers, on the loss's strided slices, against JAX."""
+    rng = np.random.default_rng(a + underflow)
+    x = _maps(rng, a, underflow)
+    rest = {"dfl_expectation": [], "dfl_ce_mean": [_targets(rng, a)], "bce_sum": [_labels(rng, a)]}[name]
+    _check(name, x, rest, dtype, atol_rel)
+
+
+def test_the_underflowing_side_keeps_a_finite_expectation():
+    """A side 120 below the others: its own max keeps exp(0) = 1 in its sum, so E, ce and their gradients stay
+    finite, and E equals the expectation of the side alone."""
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy(_maps(rng, 50, underflow=True))[..., :64].requires_grad_(True)
+    e = dfl_expectation_mm(x, 16)
+    alone = dfl_expectation_mm(x.detach()[..., 16:32].repeat(1, 1, 4), 16)[..., 1]
+    torch.testing.assert_close(e[..., 1].detach(), alone, rtol=0, atol=0)
+    ce = dfl_ce_mean(x, torch.from_numpy(_targets(rng, 50)))
+    (e.sum() + ce.sum()).backward()
+    assert torch.isfinite(e).all() and torch.isfinite(ce).all() and torch.isfinite(x.grad).all()
+
+
+# ---------------- K7 ----------------
+
+
+def _metrics(rng, a, kind):
+    """(2, 6, a) float32 rows: random, quantized to four values (ties everywhere), or with all-zero masked rows."""
+    m = rng.uniform(0, 1, (2, 6, a)).astype(np.float32)
+    if kind == "ties":
+        m = np.floor(m * 4) / 4
+    elif kind == "masked":
+        m *= rng.uniform(size=(2, 6, a)) > 0.97  # mostly zero, as outside the GT boxes
+        m[1, 3:] = 0.0  # padded GT rows
+    return m.astype(np.float32)
+
+
+@pytest.mark.parametrize("kind", ["random", "ties", "masked"])
+@pytest.mark.parametrize("a", [129, 300, 8400])
+@pytest.mark.parametrize("k", [1, 10, 13])
+def test_topk_rows_matches_lax_top_k_and_the_blocked_forms(k, a, kind):
+    """K7 bit for bit against lax.top_k, topk_blockmax_gather and topk_hierarchical: values and indices."""
+    m = _metrics(np.random.default_rng(k * 1000 + a), a, kind)
+    vals, idx = LK.topk_rows(torch.from_numpy(m), k)
+    jm = jnp.asarray(m)
+    for fn in (lambda v: lax.top_k(v, k), lambda v: jtal.topk_blockmax_gather(v, k),
+               lambda v: jtal.topk_hierarchical(v, k)):
+        wv, wi = fn(jm)
+        np.testing.assert_array_equal(vals.numpy().view(np.int32), np.asarray(wv).view(np.int32))
+        np.testing.assert_array_equal(idx.numpy(), np.asarray(wi))
+    assert idx.dtype == torch.int64 and vals.dtype == torch.float32
+
+
+@pytest.mark.parametrize("a,k", [(5, 10), (13, 13), (1, 1)])
+def test_topk_rows_of_a_short_row_is_the_row_sorted(a, k):
+    """n <= k: every element, sorted (min(k, n) columns), as lax.top_k(m, min(k, n)) and the blocked forms give."""
+    m = np.floor(np.random.default_rng(a).uniform(0, 3, (2, 4, a))).astype(np.float32)
+    vals, idx = LK.topk_rows(torch.from_numpy(m), k)
+    assert vals.shape == (2, 4, min(k, a))
+    for fn in (lax.top_k, jtal.topk_blockmax_gather, jtal.topk_hierarchical):
+        wv, wi = fn(jnp.asarray(m), min(k, a)) if fn is lax.top_k else fn(jnp.asarray(m), k)
+        np.testing.assert_array_equal(vals.numpy(), np.asarray(wv))
+        np.testing.assert_array_equal(idx.numpy(), np.asarray(wi))
+
+
+def test_topk_rows_orders_nan_first_and_signed_zeros_by_index():
+    """NaN above every number (torch.sort's descending order), -0.0 tied with 0.0 and taken by index."""
+    row = torch.tensor([[0.0, -0.0, float("nan"), 1.0, -0.0, float("nan"), 0.5, 0.0]])
+    vals, idx = LK.topk_rows(row, 6)
+    assert idx.tolist() == [[2, 5, 3, 6, 0, 1]]
+    assert torch.equal(vals[:, :2].isnan(), torch.ones(1, 2, dtype=torch.bool))
+
+
+def test_assigner_picks_through_topk_rows_match_jax():
+    """The assigner's per-GT picks (K7 plus the count rule) on rows with ties and masked GTs equal JAX's."""
+    m = _metrics(np.random.default_rng(12), 8400, "masked")
+    mask_gt = np.ones((2, 6, 1), np.float32)
+    mask_gt[1, 3:] = 0
+    for topk in (1, 10, 13):
+        got = TaskAlignedAssigner(topk=topk)._select_topk_candidates(torch.from_numpy(m), torch.from_numpy(mask_gt))
+        want = jtal.TaskAlignedAssigner(topk=topk)._select_topk_candidates(jnp.asarray(m), jnp.asarray(mask_gt))
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+# ---------------- the ops and the routing ----------------
+
+
+def _op_args(requires_grad: bool):
+    rng = np.random.default_rng(13)
+    full = torch.from_numpy(_maps(rng, 40)).requires_grad_(requires_grad)
+    box, cls = full[..., :64], full[..., 64:]
+    t, lab = torch.from_numpy(_targets(rng, 40)), torch.from_numpy(_labels(rng, 40))
+    ops = torch.ops.yololite_tpu_torch
+    return [
+        (ops.dfl_expectation.default, (box, 16)),
+        (ops.dfl_expectation_backward.default, (box.detach(), torch.randn(2, 40, 4), 16)),
+        (ops.dfl_ce_mean.default, (box, t)),
+        (ops.dfl_ce_backward.default, (box.detach(), t, torch.randn(2, 40, 1))),
+        (ops.bce_sum.default, (cls, lab)),
+        (ops.bce_sum_backward.default, (cls.detach(), lab, torch.tensor(0.7))),
+        (ops.topk_rows.default, (torch.from_numpy(_metrics(rng, 300, "ties")), 10)),
+    ]
+
+
+@pytest.mark.parametrize("i", range(7), ids=["dfl_expectation", "dfl_expectation_backward", "dfl_ce_mean",
+                                              "dfl_ce_backward", "bce_sum", "bce_sum_backward", "topk_rows"])
+@pytest.mark.parametrize("requires_grad", [False, True], ids=["nograd", "grad"])
+def test_loss_tail_ops_pass_opcheck(i, requires_grad):
+    """Schema, fake tensor, autograd registration and AOT dispatch of each op (the backward ops and K7 take no
+    gradient)."""
+    op, args = _op_args(requires_grad)[i]
+    torch.library.opcheck(op, args)
+
+
+def test_cpu_tensors_route_to_the_plain_versions():
+    """On CPU tensors each wrapper returns its plain version's bits and counts no launch."""
+    rng = np.random.default_rng(14)
+    full = torch.from_numpy(_maps(rng, 60))
+    box, cls = full[..., :64], full[..., 64:]
+    t, lab = torch.from_numpy(_targets(rng, 60)), torch.from_numpy(_labels(rng, 60))
+    g4, g1, g0 = torch.randn(2, 60, 4), torch.randn(2, 60, 1), torch.tensor(1.3)
+    m = torch.from_numpy(_metrics(rng, 300, "ties"))
+    before = [w.launches for w in LK.COUNTED]
+    pairs = [
+        (LK.dfl_expectation(box, 16), LK.dfl_expectation_plain(box, 16)),
+        (LK.dfl_expectation_backward(box, g4, 16), LK.dfl_expectation_backward_plain(box, g4, 16)),
+        (LK.dfl_ce_mean(box, t), LK.dfl_ce_plain(box, t)),
+        (LK.dfl_ce_backward(box, t, g1), LK.dfl_ce_backward_plain(box, t, g1)),
+        (LK.bce_sum(cls, lab), LK.bce_sum_plain(cls, lab)),
+        (LK.bce_sum_backward(cls, lab, g0), LK.bce_sum_backward_plain(cls, lab, g0)),
+        (*LK.topk_rows(m, 10), *LK.topk_stable(m, 10)),
+    ]
+    for got, want in pairs[:-1]:
+        assert torch.equal(got, want)
+    vals, idx, wv, wi = pairs[-1]
+    assert torch.equal(vals, wv) and torch.equal(idx, wi)
+    assert [w.launches for w in LK.COUNTED] == before
+    from yololite_tpu_torch.engine.graphs import COUNTERS
+
+    assert all((w, "launches") in COUNTERS for w in LK.COUNTED)  # a replayed train graph adds their launches
+
+
+def test_wrappers_reject_what_no_version_takes():
+    x = torch.zeros(2, 10, 64)
+    with pytest.raises(ValueError):
+        LK.dfl_expectation(x, 8)  # 64 logits are 4 x 16
+    with pytest.raises(ValueError):
+        LK.dfl_ce_mean(x, torch.zeros(2, 10, 3))
+    with pytest.raises(ValueError):
+        LK.bce_sum(x, torch.zeros(2, 10, 63))
+    with pytest.raises(ValueError):
+        LK.dfl_expectation(x.to("meta"), 16)  # neither a CUDA nor a CPU tensor
+    with pytest.raises(ValueError):
+        LK.topk_rows(torch.zeros(()), 3)
+
+
+@pytest.mark.parametrize("view,want", [
+    (lambda x: x[..., :64], (60, 144)),
+    (lambda x: x[..., 64:], (60, 144)),
+    (lambda x: x[:, 3], (2, 4320)),
+    (lambda x: x[0, :1], (1, 144)),
+    (lambda x: x.reshape(2, 30, 144)[:, :0], (0, 144)),
+])
+def test_rows_of_reads_evenly_spaced_rows_in_place(view, want):
+    """The kernels read a slice's rows through their stride; a layout they cannot read raises, never copies."""
+    assert LK._rows_of(view(torch.zeros(2, 30, 144))) == want
+
+
+@pytest.mark.parametrize("view", [lambda x: x.transpose(1, 2), lambda x: x[:, ::2, :].transpose(0, 1)[:, :, :64],
+                                  lambda x: x[:, :, ::2], lambda x: x[:, :1].expand(2, 5, 144)])
+def test_rows_of_refuses_other_layouts(view):
+    with pytest.raises(ValueError):
+        LK._rows_of(view(torch.zeros(2, 30, 144)))

@@ -6,11 +6,32 @@ same tests on GELAN-T (`cfg.dicts.GELAN_T`, v8DetectionLoss), as a file of its
 own so that the two spread over workers. The model (`MODEL`), at full width
 with a 3-class head, takes one step on the small synthetic dataset and batch
 of tests/test_torch_train.py: the JAX trainer's `_grad_step` and `_apply_step`
-against the port's eager step from the same init(0) weights, held to that
-file's bounds (loss items within rtol 1e-4, each gradient within GRAD_REL_L2
-relative L2, params, BN statistics, EMA params and statistics after the step
-within rtol 3e-5, atol STEP_ATOL). The JAX trainer's last.npz of that step
-resumes in the port, and the port's in the JAX trainer.
+against the port's eager step from the same init(0) weights. Loss items are
+held to JAX's within rtol 1e-4; params, BN statistics, EMA params and
+statistics after the step within rtol 3e-5, atol STEP_ATOL.
+
+Each gradient and each SGD momentum is also held to the same step taken by
+the port in float64 (weights, batch and targets in float64 on the CPU, the
+method of tools/train_step_precision.py): the port's within GRAD_REL_L2
+relative L2 and no farther than the JAX step's, and the JAX step's within
+JAX_FROM_FLOAT64, so that a defect shared by the port's fp32 and float64
+steps (a wrong term in a loss or its backward) still fails against JAX.
+The models of DIRECT_TO_JAX have their gradients and momentum held to the
+JAX step directly as well, within GRAD_REL_L2.
+
+GELAN-T is not among them: held directly to the JAX step, its gradients
+came out 2.17e-3 apart at row 18's output BN on one host (and within 2e-3
+on another). The port's step lies 7.0e-4 from float64 there, the JAX step
+1.92e-3 (YOLOv10-N: 1.8e-4 and 4.9e-4). The JAX step's fp32 arithmetic is
+the farther one, with the same max-pool and assigner picks in both steps
+and loss gradients within 1e-6 on the same maps; its forward already lies
+1.5e-6 from float64 after row 0 against the port's 2.1e-7 (XLA's fp32
+batch statistics, and the BN folded as x * inv + (bias - mean * inv)).
+
+JAX_FROM_FLOAT64 is 4e-3, about twice the largest distance of the JAX step
+from float64 measured on any leaf (1.92e-3, GELAN-T's row 18), since that
+distance moves with the host's XLA code; a wrong loss-gradient term moves
+the leaves it reaches by far more.
 """
 
 from pathlib import Path
@@ -38,6 +59,8 @@ from tests.test_torch_train import (GRAD_REL_L2, STEP_ATOL, _assert_trees_close,
 
 SPECS = {"yolov10n": YOLOV10N, "gelan-t": GELAN_T}
 MODEL = "yolov10n"  # the spec this module runs (SPECS key)
+DIRECT_TO_JAX = ("yolov10n",)  # gradients and momentum also held to the JAX step's within GRAD_REL_L2
+JAX_FROM_FLOAT64 = 4e-3  # the JAX step's gradients and momentum from the port's float64 step (see above)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -85,8 +108,18 @@ def step_pair(request, dataset):
                                             copy_tree(jt.ema.ema_params), copy_tree(jt.ema.ema_state), state,
                                             jnp.asarray(lr_vec), jnp.float32(momentum), jnp.asarray(1))
     tt._apply_step(lr_vec, momentum)
+    # the same step in float64: weights, the batch in [0, 1] and the targets (the loss keeps its fp32 parts)
+    tf = ttrainer.DetectionTrainer(overrides=_overrides(data, root, f"float64_{name}", nbs=2), device="cpu")
+    tf.set_model(DetectionModel(spec, nc=3).init(0).double())
+    tf._setup_train()
+    tf._grad_step(torch.from_numpy(b["img"]).double() / 255.0,
+                  {k: v.double() if v.is_floating_point() else v for k, v in tf._targets(b).items()})
+    f64_grads = ckpt.tree_of(tf.model, {n: p.grad for n, p in tf.model.named_parameters()})
+    tf._apply_step(lr_vec, momentum)
+    f64_mu = ckpt.tree_of(tf.model, toptim.moments("SGD", tf.optimizer, dict(tf.model.named_parameters()))[0])
     out = dict(items=items, jitems=np.asarray(jitems), grads=grads, jgrads=jgrads, jparams=_np(jp),
-               jstate=_np(state), jema=(_np(jep), _np(jes)), jopt=jo, jt=jt, tt=tt, name=name)
+               jstate=_np(state), jema=(_np(jep), _np(jes)), jopt=jo, jt=jt, tt=tt, name=name,
+               f64_grads=f64_grads, f64_mu=f64_mu)
     # the JAX trainer's checkpoint of this step, for the resume test
     jt.params, jt.state, jt.opt_state = jp, state, jo
     jt.ema.ema_params, jt.ema.ema_state, jt.ema.updates = jep, jes, 1
@@ -95,16 +128,29 @@ def step_pair(request, dataset):
     return out
 
 
+def _worst_from_float64(got, exact, floor):
+    """(relative L2, leaf) of the leaf of `got` farthest from the float64 step's."""
+    gl, el = jax.tree_util.tree_leaves_with_path(got), jax.tree.leaves(exact)
+    assert len(gl) == len(el)
+    return max((_rel_l2(np.asarray(g, np.float64), np.asarray(e, np.float64), floor), jax.tree_util.keystr(path))
+               for (path, g), e in zip(gl, el))
+
+
 def test_train_step_matches_jax(step_pair):
     o = step_pair
     np.testing.assert_allclose(o["items"], o["jitems"], rtol=1e-4)
     assert (o["items"] > 0).all()
-    gl, wl = jax.tree_util.tree_leaves_with_path(o["grads"]), jax.tree.leaves(o["jgrads"])
-    assert len(gl) == len(wl)
-    floor = 1e-5 * max(np.linalg.norm(w) for w in wl)
-    worst = max((_rel_l2(g, w, floor), jax.tree_util.keystr(path)) for (path, g), w in zip(gl, wl))
-    print(f"{o['name']}: worst gradient relative L2 {worst}")
-    assert worst[0] <= GRAD_REL_L2, worst
+    floor = 1e-5 * max(np.linalg.norm(e) for e in jax.tree.leaves(o["f64_grads"]))
+    port = _worst_from_float64(o["grads"], o["f64_grads"], floor)
+    ref = _worst_from_float64(o["jgrads"], o["f64_grads"], floor)
+    direct = _worst_from_float64(o["grads"], o["jgrads"], floor)
+    print(f"{o['name']}: worst gradient relative L2 from the float64 step: port {port}, JAX {ref}; port from JAX "
+          f"{direct}")
+    assert port[0] <= GRAD_REL_L2, port
+    assert port[0] <= ref[0], (port, ref)
+    assert ref[0] <= JAX_FROM_FLOAT64, ref
+    if o["name"] in DIRECT_TO_JAX:
+        assert direct[0] <= GRAD_REL_L2, direct
     tt = o["tt"]
     p, s = ckpt.jax_trees(tt.model)
     _assert_trees_close(p, o["jparams"], 3e-5, STEP_ATOL, "params")
@@ -113,8 +159,18 @@ def test_train_step_matches_jax(step_pair):
     _assert_trees_close(ep, o["jema"][0], 3e-5, STEP_ATOL, "EMA params")
     _assert_trees_close(es, o["jema"][1], 3e-5, STEP_ATOL, "EMA statistics")
     mu, _ = toptim.moments("SGD", tt.optimizer, dict(tt.model.named_parameters()))
-    for m, w in zip(jax.tree.leaves(ckpt.tree_of(tt.model, mu)), jax.tree.leaves(o["jopt"].mu)):
-        assert _rel_l2(m, np.asarray(w), floor) <= GRAD_REL_L2
+    mu = ckpt.tree_of(tt.model, mu)
+    mu_floor = 1e-5 * max(np.linalg.norm(e) for e in jax.tree.leaves(o["f64_mu"]))
+    port_mu = _worst_from_float64(mu, o["f64_mu"], mu_floor)
+    ref_mu = _worst_from_float64(o["jopt"].mu, o["f64_mu"], mu_floor)
+    direct_mu = _worst_from_float64(mu, o["jopt"].mu, mu_floor)
+    print(f"{o['name']}: worst momentum relative L2 from the float64 step: port {port_mu}, JAX {ref_mu}; port from "
+          f"JAX {direct_mu}")
+    assert port_mu[0] <= GRAD_REL_L2, port_mu
+    assert port_mu[0] <= ref_mu[0], (port_mu, ref_mu)
+    assert ref_mu[0] <= JAX_FROM_FLOAT64, ref_mu
+    if o["name"] in DIRECT_TO_JAX:
+        assert direct_mu[0] <= GRAD_REL_L2, direct_mu
 
 
 def test_port_resumes_a_jax_checkpoint(step_pair, dataset):

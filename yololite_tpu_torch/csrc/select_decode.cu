@@ -97,6 +97,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "dfl_math.cuh"
+
 namespace {
 
 constexpr int kDigit = 11;             // bits a radix pass decides
@@ -663,63 +665,22 @@ __global__ void __launch_bounds__(kChunk) rank_chunks(Params P) {
   P.sorted[(size_t)b * P.k + rank] = x;
 }
 
-// torch's CUDA sum over a contiguous row of r floats: block_width = the largest power of two <= r (at most 32)
-// threads, thread t summing t, t + bw, ... in four accumulators, then a shuffle-down tree over the threads with
-// the offset halving from bw / 2 (at r = 16: ((x0 + x8) + (x4 + x12)) + ((x2 + x10) + (x6 + x14)) + ...); with it
-// the boxes equal the plain version's bit for bit (chip_smoke.py phase 2, tests/test_torch_kernels.py)
-__device__ __forceinline__ float row_sum(const float* v, int r) {
-  int bw = 1;
-  while (bw * 2 <= r && bw < 32) bw *= 2;
-  float part[32];
-#pragma unroll
-  for (int t = 0; t < 32; ++t) {
-    if (t >= bw) break;
-    float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    int idx = t;
-    while (idx + 3 * bw < r) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[i] = __fadd_rn(acc[i], v[idx + i * bw]);
-      idx += 4 * bw;
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      if (idx + i * bw < r) acc[i] = __fadd_rn(acc[i], v[idx + i * bw]);
-    part[t] = __fadd_rn(__fadd_rn(__fadd_rn(acc[0], acc[1]), acc[2]), acc[3]);
-  }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    if (o >= bw) continue;
-#pragma unroll
-    for (int t = 0; t < o; ++t) part[t] = __fadd_rn(part[t], part[t + o]);
-  }
-  return part[0];
-}
-
-constexpr int kMaxReg = 64;  // reg_max the decode's generic form takes
-
 // one side's DFL distance of the anchor whose box logits start at element o of level L: the side's max m (NaN
-// propagating), e = expf(x - m), sum(e * j) / sum(e) with torch's summation order. RM is reg_max when it is known
-// at compile time (16, every model the repo builds: the loads unrolled, in registers), else 0 (read from P)
+// propagating), e = expf(x - m), sum(e * j) / sum(e) with torch's summation order (csrc/dfl_math.cuh). RM is
+// reg_max when it is known at compile time (16, every model the repo builds: the loads unrolled, in registers),
+// else 0 (read from P)
 template <int RM>
 __device__ __forceinline__ float dfl_side(const Params& P, const Level& L, long long o, int side) {
   constexpr int kCap = RM ? RM : kMaxReg;
   const int R = RM ? RM : P.reg_max;
   float v[kCap], e[kCap];
-  float m = 0.0f;
 #pragma unroll
   for (int j = 0; j < kCap; ++j) {
     if (j >= R) break;
     v[j] = load_map(L, P.map_type, o + (side * R + j) * L.sc);
-    if (j == 0 || (!isnan(m) && (isnan(v[j]) || v[j] > m))) m = v[j];  // amax, NaN propagating
   }
-#pragma unroll
-  for (int j = 0; j < kCap; ++j)
-    if (j < R) e[j] = expf(__fsub_rn(v[j], m));
-  const float z = row_sum(e, R);
-#pragma unroll
-  for (int j = 0; j < kCap; ++j)
-    if (j < R) v[j] = __fmul_rn(e[j], (float)j);
-  return __fdiv_rn(row_sum(v, R), z);
+  const float z = dfl_side_exp_sum<RM>(v, e, R, dfl_side_max<RM>(v, R));
+  return dfl_side_expectation<RM>(e, v, R, z);
 }
 
 // every anchor's DFL distances into P.dist, one thread an (anchor, side): neighbouring anchors on neighbouring

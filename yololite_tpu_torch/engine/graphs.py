@@ -64,10 +64,10 @@ Hazards, each met here or by the callers named:
    warmed up. K1, K4 and K8 launch on
    `torch.cuda.current_stream()`, which during the capture is the capture
    stream.
-2. Launch counters. The `.launches` counters of `ops.kernels.COUNTED`, and
-   the `.calls` counters of the loss's autograd Functions (K5, K6), are
-   Python-side: the capture advances them though it launches nothing, and a
-   replay runs no Python. So the capture's advance is taken back and added
+2. Launch counters. The `.launches` counters of `ops.kernels.COUNTED` (the
+   loss tail's K5-K7 and their backwards included) are Python-side: the
+   capture advances them though it launches nothing, and a replay runs no
+   Python. So the capture's advance is taken back and added
    again at every replay.
 3. Weights replaced after warm-up. `Predictor.warmup` runs before
    `_maybe_quantize` swaps the net for its int8 copy, and `setup_model` and
@@ -99,13 +99,10 @@ from typing import Callable, Dict, Hashable, List, Sequence
 
 import torch
 
-from yololite_tpu_torch.ops.decode import DFLExpectation
 from yololite_tpu_torch.ops.kernels import COUNTED
-from yololite_tpu_torch.utils.loss import BCESum, DFLCrossEntropy
 
 # (object, attribute) of each Python-side counter that a replay must advance as the capture did (hazard 2)
-COUNTERS = tuple((w, "launches") for w in COUNTED) + tuple((f, "calls") for f in (DFLExpectation, DFLCrossEntropy,
-                                                                                  BCESum))
+COUNTERS = tuple((w, "launches") for w in COUNTED)
 
 MAX_GRAPHS = 8  # graphs one cache holds; the least recently replayed goes first
 MAX_SEEN = 64  # keys seen once that one cache remembers

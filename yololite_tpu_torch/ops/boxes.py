@@ -4,6 +4,8 @@ Torch versions work on tensors on any device; the `*_np` helpers serve the
 host-side Results path and the validator's matching. `box_iou` keeps the JAX operation order and eps, so
 the two give the same bits on the same boxes. `bbox_iou` (CIoU for the loss
 and the assigner), `bbox2dist` and the numpy `bbox_ioa` (CopyPaste) serve train.
+`topk_stable` is the top-k in lax.top_k's order that the candidate selects,
+the NMS and the assigner share (the plain version of K3's select and of K7).
 """
 
 from __future__ import annotations
@@ -245,3 +247,9 @@ def bbox2dist(anchor_points: torch.Tensor, bbox: torch.Tensor, reg_max) -> torch
     """xyxy boxes -> ltrb distances from the anchor points, clamped to [0, reg_max - 0.01]."""
     x1y1, x2y2 = bbox[..., :2], bbox[..., 2:4]
     return torch.cat([anchor_points - x1y1, x2y2 - anchor_points], -1).clamp(0, reg_max - 0.01)
+
+
+def topk_stable(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k along the last dim, descending, ties to the lower index (lax.top_k's rule)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]

@@ -2,7 +2,8 @@
 
 Public functions take the per-level maps in the JAX package's layout,
 (B, H, W, 4*reg_max + nc), so tests compare like with like. The DFL
-expectation carries the JAX package's hand-written backward (K5) for train.
+expectation carries the JAX package's hand-written backward (K5) for train;
+its plain body `_dfl_mm_parts` lives beside the kernel in ops/loss_kernels.py.
 """
 
 from __future__ import annotations
@@ -11,6 +12,7 @@ from typing import Sequence, Tuple
 
 import torch
 
+from yololite_tpu_torch.ops import loss_kernels
 from yololite_tpu_torch.ops.boxes import dist2bbox, make_anchors
 
 
@@ -19,55 +21,16 @@ def flatten_levels(feats: Sequence[torch.Tensor]) -> torch.Tensor:
     return torch.cat([f.reshape(f.shape[0], -1, f.shape[-1]) for f in feats], 1)
 
 
-def _dfl_mm_parts(box_logits: torch.Tensor, reg_max: int):
-    """Forward body: the expectation E (..., 4) and each side's max m and sum of exp z."""
-    x = box_logits.float().unflatten(-1, (4, reg_max))
-    m = x.amax(-1, keepdim=True)
-    e = torch.exp(x - m)
-    proj = torch.arange(reg_max, dtype=torch.float32, device=x.device)
-    z = e.sum(-1)
-    return (e * proj).sum(-1) / z, m, z
-
-
-class DFLExpectation(torch.autograd.Function):
-    """K5: the DFL expectation with its closed-form backward (port of the JAX custom vjp).
-
-    dE/dx_j = softmax_j * (proj_j - E) per side, one elementwise pass over the
-    (..., 4*reg_max) logits, returned in the logits' dtype (bf16 under amp).
-    """
-
-    calls = 0  # forward calls with a gradient to take, since the last reset
-
-    @staticmethod
-    def forward(ctx, box_logits: torch.Tensor, reg_max: int) -> torch.Tensor:
-        out, m, z = _dfl_mm_parts(box_logits, reg_max)
-        ctx.save_for_backward(box_logits, m, z, out)
-        ctx.reg_max = reg_max
-        DFLExpectation.calls += 1
-        return out
-
-    @staticmethod
-    def backward(ctx, g: torch.Tensor):
-        x, m, z, out = ctx.saved_tensors
-        r = ctx.reg_max
-        xs = x.float().unflatten(-1, (4, r))
-        sm = torch.exp(xs - m) / z[..., None]
-        proj = torch.arange(r, dtype=torch.float32, device=x.device)
-        dx = sm * (proj - out[..., None]) * g.float()[..., None]
-        return dx.flatten(-2).to(x.dtype), None
-
-
 def dfl_expectation_mm(box_logits: torch.Tensor, reg_max: int = 16) -> torch.Tensor:
     """(..., 4*reg_max) -> (..., 4) fp32: the expected bin under each side's softmax.
 
     Each side is shifted by its own max before exp, so a side far below
-    another side's logits keeps exp(0) = 1 in its denominator and cannot
-    underflow to 0/0. With a gradient to take, it runs as `DFLExpectation`
-    (same forward bits, closed-form backward).
+    another side's logits cannot underflow to 0/0. K5: ops/loss_kernels.py
+    `dfl_expectation` (csrc/dfl.cu on the card, with or without a gradient to
+    take), differentiable with the closed-form backward dE/dx_j = softmax_j *
+    (j - E) per side, returned in the logits' dtype (bf16 under amp).
     """
-    if box_logits.requires_grad and torch.is_grad_enabled():
-        return DFLExpectation.apply(box_logits, reg_max)
-    return _dfl_mm_parts(box_logits, reg_max)[0]
+    return loss_kernels.dfl_expectation(box_logits, reg_max)
 
 
 def decode_detections(

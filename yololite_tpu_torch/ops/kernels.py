@@ -29,7 +29,10 @@
    CPU tensor it runs `device_letterbox_plain` (two fp32 matmuls, a pad, a
    scale).
 
-All five are `torch.library` custom ops (`torch.ops.yololite_tpu_torch.*`):
+The train step's loss-tail kernels (K5, K6a, K6b, K7) are in
+ops/loss_kernels.py; their wrappers join `COUNTED` below.
+
+All five here are `torch.library` custom ops (`torch.ops.yololite_tpu_torch.*`):
 the CUDA implementation launches the kernel or raises, the CPU one is the
 plain version, and a fake implementation gives the output's shape, so
 `torch.export` records each as one op. The public wrappers check their
@@ -51,8 +54,9 @@ import torch
 import torch.nn.functional as F
 from torch import Tensor
 
-from yololite_tpu_torch.ops.boxes import box_iou
-from yololite_tpu_torch.ops.decode import dfl_expectation_mm
+from yololite_tpu_torch.ops.boxes import box_iou, topk_stable
+from yololite_tpu_torch.ops import loss_kernels
+from yololite_tpu_torch.ops.loss_kernels import dfl_expectation_plain
 
 MAX_WH = 7680  # class-offset magnitude of the NMS's class-aware boxes
 
@@ -444,12 +448,6 @@ def _int8_lib() -> ctypes.CDLL:
 # ---------------- candidate select + DFL decode (K3) ----------------
 
 
-def topk_stable(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Top-k along the last dim, descending, ties to the lower index (lax.top_k's rule)."""
-    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
-    return vals[..., :k], idx[..., :k]
-
-
 def select_decode_plain(feats: Sequence[torch.Tensor], strides: Sequence[int], nc: int, reg_max: int,
                         conf_thres: float, max_cand: int, class_mask: Optional[torch.Tensor] = None,
                         half: bool = False, multi_label: bool = False, agnostic: bool = False):
@@ -491,7 +489,7 @@ def select_decode_plain(feats: Sequence[torch.Tensor], strides: Sequence[int], n
     # 3: candidate box logits -> DFL expectation (fp32)
     box_logits = torch.cat([f[..., : 4 * reg_max].reshape(B, -1, 4 * reg_max) for f in feats], 1)
     rows = torch.gather(box_logits, 1, bidx[..., None].expand(-1, -1, box_logits.shape[-1]))
-    dist = dfl_expectation_mm(rows, reg_max)  # (B, K, 4)
+    dist = dfl_expectation_plain(rows, reg_max)  # (B, K, 4): K5's plain version, as K3's is plain
 
     # 4: arithmetic anchors (grid x/y + 0.5, per-level stride) from bidx
     offs, Ws, Ss, o = [], [], [], 0
@@ -784,5 +782,5 @@ def _letterbox_lib() -> ctypes.CDLL:
     return lib
 
 
-# the wrappers that count their kernel's launches
-COUNTED = (greedy_nms_keep, blocked_nms_finalize, int8_conv, select_decode, device_letterbox)
+# the wrappers that count their kernel's launches, those of the loss tail (ops/loss_kernels.py) included
+COUNTED = (greedy_nms_keep, blocked_nms_finalize, int8_conv, select_decode, device_letterbox, *loss_kernels.COUNTED)

@@ -4,8 +4,9 @@ Targets arrive padded to a static (B, M) block (`build_targets`, on the host).
 The loss reads the Detect maps in the JAX package's layout, NHWC flattened to
 (B, A, no), and runs its math in fp32 whatever the maps' dtype; on the amp
 path the (B, A, nc) target scores stay bf16, as in the JAX package, and the
-two hand-written backwards (K6: `DFLCrossEntropy`, `BCESum`) return their
-gradients in the logits' dtype.
+two hand-written backwards (K6a `dfl_ce_mean`, K6b `bce_sum`: kernels beside
+their plain versions in ops/loss_kernels.py) return their gradients in the
+logits' dtype.
 
 The box and DFL terms run in the dense form, over all A anchors with the
 non-foreground rows weighted 0. The JAX package's default compact form
@@ -23,6 +24,7 @@ import torch
 
 from yololite_tpu_torch.ops.boxes import bbox2dist, bbox_iou, dist2bbox, make_anchors, xywh2xyxy
 from yololite_tpu_torch.ops.decode import dfl_expectation_mm, flatten_levels
+from yololite_tpu_torch.ops.loss_kernels import bce_sum, dfl_ce_mean
 from yololite_tpu_torch.utils import LOGGER
 from yololite_tpu_torch.utils.tal import TaskAlignedAssigner
 
@@ -59,88 +61,6 @@ def build_targets(batch: Dict, batch_size: int, imgsz: Tuple[int, int], max_gt: 
             gt_bboxes[b, :n] = xyxy
             mask_gt[b, :n, 0] = (xyxy.sum(-1) > 0).astype(np.float32)
     return {"gt_labels": gt_labels, "gt_bboxes": gt_bboxes, "mask_gt": mask_gt}
-
-
-def _dfl_ce_parts(pred_dist: torch.Tensor, target: torch.Tensor):
-    """DFL cross-entropy body: (B, A, 4R) logits, (B, A, 4) continuous bins -> ce (B, A, 1), the mean of 4 sides.
-
-    Each side's logsumexp is shifted by that side's own max.
-    """
-    R = pred_dist.shape[-1] // 4
-    x = pred_dist.float().unflatten(-1, (4, R))  # (B, A, 4, R)
-    target = target.clamp(0, R - 1 - 0.01)
-    tl = target.long()
-    tr = tl + 1
-    wl = tr.float() - target.float()
-    wr = 1 - wl
-    m = x.amax(-1)  # (B, A, 4)
-    z = torch.exp(x - m[..., None]).sum(-1)
-    lse = torch.log(z) + m
-    x_l = torch.gather(x, -1, tl[..., None]).squeeze(-1)
-    x_r = torch.gather(x, -1, tr.clamp(max=R - 1)[..., None]).squeeze(-1)
-    ce = ((lse - x_l) * wl + (lse - x_r) * wr).mean(-1, keepdim=True)
-    return ce, (m, z, tl, tr, wl, wr)
-
-
-class DFLCrossEntropy(torch.autograd.Function):
-    """K6: DFL cross-entropy, mean over the 4 sides, with the closed-form backward.
-
-    d ce / d x_j = (softmax_j - y_j) / 4 per side, y the two-hot target (wl at
-    tl, wr at tr): one elementwise pass over the logits, returned in their
-    dtype. The target gets no gradient (it comes from the assigner).
-    """
-
-    calls = 0  # forward calls since the last reset
-
-    @staticmethod
-    def forward(ctx, pred_dist: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
-        ce, (m, z, tl, tr, wl, wr) = _dfl_ce_parts(pred_dist, target)
-        ctx.save_for_backward(pred_dist, m, z, tl, tr, wl, wr)
-        DFLCrossEntropy.calls += 1
-        return ce
-
-    @staticmethod
-    def backward(ctx, g: torch.Tensor):
-        x, m, z, tl, tr, wl, wr = ctx.saved_tensors
-        R = x.shape[-1] // 4
-        xs = x.float().unflatten(-1, (4, R))
-        sm = torch.exp(xs - m[..., None]) / z[..., None]
-        y = torch.zeros_like(sm).scatter_(-1, tl[..., None], wl[..., None])
-        y = y.scatter_add_(-1, tr.clamp(max=R - 1)[..., None], wr[..., None])
-        dx = (sm - y) * (g.float() * 0.25)[..., None]  # g (B, A, 1) broadcasts over the sides and bins
-        return dx.flatten(-2).to(x.dtype), None
-
-
-dfl_ce_mean = DFLCrossEntropy.apply
-
-
-def sigmoid_bce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Numerically stable BCE with logits, elementwise."""
-    return torch.clamp(logits, min=0) - logits * labels + torch.log1p(torch.exp(-torch.abs(logits)))
-
-
-class BCESum(torch.autograd.Function):
-    """K6: sum of BCE with logits in fp32, with the closed-form backward sigmoid(x) - y.
-
-    The gradient is computed in the logits' dtype (bf16 under amp), as in the
-    JAX package; the labels get none.
-    """
-
-    calls = 0  # forward calls since the last reset
-
-    @staticmethod
-    def forward(ctx, logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-        ctx.save_for_backward(logits, labels)
-        BCESum.calls += 1
-        return sigmoid_bce(logits.float(), labels.float()).sum()
-
-    @staticmethod
-    def backward(ctx, g: torch.Tensor):
-        logits, labels = ctx.saved_tensors
-        return (torch.sigmoid(logits) - labels.to(logits.dtype)) * g.to(logits.dtype), None
-
-
-bce_sum = BCESum.apply
 
 
 class v8DetectionLoss:

@@ -8,8 +8,10 @@ GT boxes arrive padded to a static M with a mask_gt flag:
   - target scores normalized by each GT's peak metric, scaled to its peak CIoU.
 
 The JAX package's blocked top-k forms and one-hot matmul gathers exist only
-to avoid slow sorts and row gathers on the TPU; here one stable sort and
-direct gathers give the same values and indices.
+to avoid slow sorts and row gathers on the TPU; here the top-k is K7
+(ops/loss_kernels.py `topk_rows`: csrc/topk_rows.cu on the card, a stable
+sort on the CPU) and the gathers are direct, with the same values and
+indices.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ from typing import Tuple
 import torch
 
 from yololite_tpu_torch.ops.boxes import bbox_iou
-from yololite_tpu_torch.ops.nms import topk_stable
+from yololite_tpu_torch.ops.loss_kernels import topk_rows
 
 
 def _pow_const(x: torch.Tensor, p: float) -> torch.Tensor:
@@ -138,7 +140,7 @@ class TaskAlignedAssigner:
         Masked GT rows point all k picks at anchor 0; the count of picks per
         anchor is then k there, and a count above 1 is dropped to 0.
         """
-        _, topk_idxs = topk_stable(metrics, self.topk)  # (B, M, k)
+        _, topk_idxs = topk_rows(metrics, self.topk)  # (B, M, k): K7
         topk_idxs = torch.where(mask_gt > 0, topk_idxs, 0)
         count = torch.zeros_like(metrics, dtype=torch.int32).scatter_add_(
             -1, topk_idxs, torch.ones_like(topk_idxs, dtype=torch.int32))
