@@ -17,10 +17,13 @@ Phases, each of which exits non-zero on failure:
      few ulps of it) scenes at B up to 40 and K 1,025 to 8,192, max_det 1, 300
      and K) and times both, K4 on the crowded scene at B 16, 8 and 1 with its
      bound, cluster size, step and cudaOccupancyMaxActiveClusters; select_decode
-     (K3) against its plain version on the 22 scenes of K3_CASES (vals, bidx,
+     (K3) against its plain version on the 27 scenes of K3_CASES (vals, bidx,
      cls, valid bit for bit, boxes within 1e-6 relative: K = 1 to 20,000,
-     K >= N, all gated out, all equal, a threshold that is not a bf16 value,
-     class masks, NaN maps, NCHW views and channels-last maps, B 1 to 32);
+     K >= N, K = N, all gated out, all equal, the K-th score in a bin of ties,
+     a threshold that is not a bf16 value, class masks, NaN maps, NCHW views
+     and channels-last maps, B 1 to 32, rows of 16,384 and 16,385 entries),
+     each down the route K3_ROUTES names (finish: the score pass and the
+     finishing CTAs; passes);
      device_letterbox (K2) in 32 checks (no resize bit for bit, a resize
      within 1e-5; fp32, bf16, bgr, both layouts) and timed at B 32, 480x640
      and 720x1280 -> 640 beside its bound and F.interpolate; the loss tail:
@@ -111,9 +114,13 @@ Phases, each of which exits non-zero on failure:
      launches 76 times a forward and no quantize runs
      outside it; K8 equal to its plain version on every output of the 76
      quantized convs of one batch-32 forward, timed by device time (a CUDA
-     graph of 20 launches replayed), with each conv's bound, sums by kind
-     (stem, 3x3, 1x1, depthwise) and torch._int_mm on the 1x1 products as a
-     yardstick; the same checks at yolo11m (init(0), 101 quantized convs);
+     graph of 20 launches replayed) through int8_conv and as the kernel alone,
+     with each conv's bound, its route (gemm1x1 where prefer_1x1 picks it),
+     each 1x1 conv on both routes (equal outputs, timed), at batch 32 and at
+     batch 1, sums by kind
+     (stem, 3x3, 1x1, depthwise) and torch._int_mm on each 1x1 product as a
+     yardstick (a column of the per-conv table k8_<model>_convs.tsv); the same
+     checks at yolo11m (init(0), 101 quantized convs);
      (c) export at 640, batch 8, fp32 and int8, reloaded and bit-equal to
      the in-process graph; (d) InferencePipeline at batch 8, 640, 32
      submissions, graphed, eagerly and graphed again: p50/p90/p99 ms, img/s,
@@ -282,7 +289,8 @@ K3_TINY = ((8, 10), (4, 5), (2, 3))  # fewer entries than K
 def k3_maps(rng, b, shapes, nc, dtype, layout, scene):
     """Per-level (B, H, W, 64 + nc) maps on the card: NHWC views of NCHW tensors ("nchw", as the float nets give
     them) or NHWC-contiguous ("nhwc", channels-last nets). Scenes: "random" logits, "equal" (every class logit
-    -2: all scores tie), "nan" (NaN class and box logits on a few anchors)."""
+    -2: all scores tie), "ties" (every class logit -2 but for one anchor in 40 with random ones: the K-th largest
+    score of predict's K 512 lies in a bin of ties), "nan" (NaN class and box logits on a few anchors)."""
     import numpy as np
     import torch
 
@@ -290,8 +298,9 @@ def k3_maps(rng, b, shapes, nc, dtype, layout, scene):
     for h, w in shapes:
         a = rng.standard_normal((b, 64 + nc, h, w)).astype(np.float32)
         a[:, 64:] = a[:, 64:] * 3.0 - 4.0
-        if scene == "equal":
-            a[:, 64:] = -2.0
+        if scene in ("equal", "ties"):
+            keep = rng.uniform(size=(b, 1, h, w)) < (0.025 if scene == "ties" else 0.0)
+            a[:, 64:] = np.where(keep, a[:, 64:], -2.0)
         elif scene == "nan":
             a[0, 64:, 1, 1] = np.nan
             a[-1, 64 + nc - 1, 2, 3] = np.nan
@@ -325,7 +334,19 @@ K3_CASES = [
     ("nan", 4, K3_RECT, 80, 512, False, "bf16", True, "nchw", "nan", 0.01, False, False),
     ("nan-multi", 4, K3_RECT, 80, 8192, True, "fp32", False, "nhwc", "nan", 1e-7, False, False),
     ("nc1-multi", 4, K3_RECT, 1, 600, True, "fp32", False, "nchw", "random", 0.01, False, False),
+    ("predict-fp32-b1", 1, K3_S640, 80, 512, False, "fp32", False, "nchw", "random", 1e-7, False, False),
+    ("finish-cap", 2, ((120, 128), (30, 34), (2, 2)), 80, 512, False, "fp32", False, "nchw", "random", 1e-7, False,
+     False),
+    ("finish-cap-plus-1", 2, ((120, 128), (32, 32), (1, 1)), 80, 512, False, "fp32", False, "nchw", "random", 1e-7,
+     False, False),
+    ("ties-at-k", 4, K3_S640, 80, 512, False, "bf16", True, "nhwc", "ties", 0.01, False, False),
+    ("k-eq-n", 2, K3_RECT, 80, 5040, False, "fp32", False, "nchw", "random", 1e-7, False, False),
 ]
+# the route csrc/select_decode.cu takes on each scene (`select_decode_plan`): "finish" (score pass, then a
+# finishing CTA group an image) where an image's row holds at most 16,384 entries, else "passes"; finish-cap's
+# rows hold exactly 16,384 anchors, finish-cap-plus-1's one more
+K3_ROUTES = {c[0]: "finish" if sum(h * w for h, w in c[2]) * (c[3] if c[5] else 1) <= 16384 else "passes"
+             for c in K3_CASES}
 
 
 def k3_args(case):
@@ -517,13 +538,36 @@ def k3_check(got, want, what: str) -> bool:
     return same_bits(got[3], want[3]) and same_bits(got[4], want[4])
 
 
-def k3_numbers(card: str, args, what: str) -> dict:
-    """K3 against its plain version on these inputs (`k3_check`), both timed by device time (a CUDA graph of 20
-    calls replayed), with the bound and torch.topk on the gated row as a yardstick (its tie order is not
-    lax.top_k's: a yardstick only)."""
+def k3_list_lengths(gated, k: int):
+    """Per image, the entries at or above the first 11-bit digit of the K-th largest order key: the list the
+    passes route compacts after its first digit, and what a finishing kernel would have to hold."""
     import torch
 
-    from yololite_tpu_torch.ops.kernels import select_decode, select_decode_plain
+    u = gated.float().contiguous().view(torch.int32).long() & 0xFFFFFFFF
+    keys = torch.where(u >= 1 << 31, 0xFFFFFFFF - u, u | (1 << 31))
+    bins = keys >> 21
+    kth = torch.topk(bins, k, dim=1).values[:, -1:]
+    return [int(v) for v in (bins >= kth).sum(1)]
+
+
+def k3_score_bytes(args, plan) -> int:
+    """Bytes K3's score pass moves: every class logit read, a 4-byte key an entry and (single-label) a 4-byte
+    class an anchor written."""
+    feats, _, nc = args[:3]
+    ml = args[8] and nc > 1
+    a = sum(f.shape[0] * f.shape[1] * f.shape[2] for f in feats)
+    return a * nc * feats[0].element_size() + a * (nc if ml else 1) * 4 + (0 if ml else a * 4)
+
+
+def k3_numbers(card: str, args, what: str) -> dict:
+    """K3 against its plain version on these inputs (`k3_check`), both timed by device time (a CUDA graph of 20
+    calls replayed), with the bound, its route (`select_decode_plan`), its score pass alone (device time and
+    bytes a second: the part of K3 that `torch.topk` does not do) and torch.topk on the gated row as a yardstick
+    (its tie order is not lax.top_k's: a yardstick only); on the passes route, the lists its first digit leaves."""
+    import torch
+
+    from yololite_tpu_torch.ops.kernels import _select_decode_launch, select_decode, select_decode_plain, \
+        select_decode_plan
 
     got = select_decode(*args)
     want = select_decode_plain(*args)
@@ -533,18 +577,29 @@ def k3_numbers(card: str, args, what: str) -> dict:
     bound, bound_by = k3_bound_ms(args, want[1])
     ms = graph_ms(lambda: select_decode(*args))
     plain = graph_ms(lambda: select_decode_plain(*args), iters=5, reps=3)
-    feats, _, nc, reg_max, conf, _, _, half, ml = args[:9]
+    feats, _, nc, reg_max, conf, max_cand, _, half, ml = args[:9]
+    plan = select_decode_plan(feats, nc, reg_max, max_cand, ml)
+    score_ms = graph_ms(lambda: _select_decode_launch(*args, score_only=True))
+    score_bytes = k3_score_bytes(args, plan)
     gated = gated_row(feats, nc, reg_max, conf, half, ml)
     k = got[0].shape[1]
     library = graph_ms(lambda: torch.topk(gated, k))
+    lists = k3_list_lengths(gated, k) if plan["route"] == "passes" else []
     b = got[0].shape[0]
     log(f"kernel: select_decode B={b} K={k} {'multi' if ml else 'single'}-label {feats[0].dtype} maps "
-        f"{'(half)' if half else ''} ({what}): {ms:.4f} ms device (graph replay), plain {plain:.4f} ms, bound "
-        f"{bound:.5f} ms ({bound_by}), torch.topk on the gated row (B, {gated.shape[1]}) {library:.4f} ms "
-        f"(yardstick); vals, bidx, cls, valid bit-equal, boxes {'bit-equal' if bits else f'max |diff| {err:.3g}'}, "
-        f"on {card}")
+        f"{'(half)' if half else ''} ({what}): {ms:.4f} ms device (graph replay), route {plan['route']} "
+        f"({plan['launches']} kernels a call, score pass {plan['score']}"
+        + (f", {plan['reps']} finishing CTAs an image, {plan['smem']} B of shared memory each" if plan["reps"] else "")
+        + f"); the score pass alone {score_ms:.4f} ms ({score_bytes / score_ms / 1e9:.3f} TB/s of {score_bytes} "
+        f"bytes), the rest {ms - score_ms:.4f} ms; plain {plain:.4f} ms, bound {bound:.5f} ms ({bound_by}), "
+        f"torch.topk on the gated row (B, {gated.shape[1]}) {library:.4f} ms (yardstick)"
+        + (f"; the first digit's lists {min(lists)}-{max(lists)} entries an image (a finishing CTA holds 16,384)"
+           if lists else "")
+        + f"; vals, bidx, cls, valid bit-equal, boxes {'bit-equal' if bits else f'max |diff| {err:.3g}'}, on {card}")
     return {"ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": bound_by, "library_ms": library,
-            "max_abs_err": err, "boxes_bit_equal": bits, "shape": [b, k, int(gated.shape[1])]}
+            "max_abs_err": err, "boxes_bit_equal": bits, "shape": [b, k, int(gated.shape[1])], "route": plan["route"],
+            "kernels_a_call": plan["launches"], "score_ms": score_ms, "score_tb_s": score_bytes / score_ms / 1e9,
+            "list_lengths": [min(lists), max(lists)] if lists else None}
 
 
 def k2_bound_ms(b: int, h0: int, w0: int, s: int, out_bytes: int):
@@ -1892,15 +1947,50 @@ def conv_kind(x, mod) -> str:
     return "stem" if x.shape[1] == 3 else "depthwise" if mod.groups > 1 else f"{kh}x{kw}"
 
 
-def k8_on_convs(card: str, pred, frames, n_convs: int, name: str, time_plain: bool) -> dict:
+def k8_1x1_routes(name: str, x, mod, args, y) -> dict:
+    """One 1x1 conv (kernel 1x1, stride 1, groups 1) on both of K8's routes for it, each asserted equal to the
+    forward's output y: each route's kernel alone on a channels-last x ("gemm", the route before gemm1x1, and
+    "gemm1x1", None where that route cannot run), the route before gemm1x1 with the copy `int8_conv` makes of a
+    view that is not channels-last ("gemm_copy", timed as the conv's `ms` is), torch._int_mm on the same product,
+    and the quantities of the two plans that the route rule reads."""
+    import torch
+
+    from yololite_tpu_torch.ops.kernels import _int8_conv_launch, int8_conv_plan, quantize_act
+
+    cl = torch.channels_last
+    x_cl = x.contiguous(memory_format=cl)
+    args_cl = (x_cl, *args[1:])
+    cout, _, _, cin = mod.weight.shape
+    out = {"gemm1x1": None}
+    for pick in ("gemm", "gemm1x1"):
+        plan = int8_conv_plan(x_cl, mod.weight, y, 1, 1, 0, pick=pick)
+        out[f"{pick}_plan"] = plan
+        if plan["route"] is None:
+            continue
+        if not torch.equal(_int8_conv_launch(*args_cl, pick=pick), y):
+            raise AssertionError(f"{name}: {tuple(x.shape)} -> {cout}: the {pick} route's output differs")
+        out[pick] = graph_ms(lambda: _int8_conv_launch(*args_cl, pick=pick))
+    out["gemm_copy"] = graph_ms(lambda: _int8_conv_launch(x.contiguous(memory_format=cl), *args[1:], pick="gemm"))
+    xq = x if x.dtype == torch.int8 else quantize_act(x, mod.sin)
+    a2 = xq.permute(0, 2, 3, 1).reshape(-1, cin)  # channels-last: a view
+    b2 = mod.weight.reshape(cout, cin).t()
+    out["int_mm"] = graph_ms(lambda: torch._int_mm(a2, b2))
+    return out
+
+
+def k8_on_convs(card: str, pred, frames, n_convs: int, name: str, time_plain: bool, only_1x1: bool = False) -> dict:
     """K8 against its plain version (every output equal), and timed by device time, on every quantized conv of
-    one int8 forward of `pred` on `frames`; with each conv's bound, and torch._int_mm on the 1x1 products."""
+    one int8 forward of `pred` on `frames` (`only_1x1`: its 1x1 convs alone); with each conv's bound, and each
+    1x1 conv on both routes and torch._int_mm (`k8_1x1_routes`). A conv's `ms` is `int8_conv`'s, the copy of a
+    view that is not channels-last included, `kernel_ms` the kernel alone on a channels-last
+    x; the sums "old" put the 1x1 convs on the route before gemm1x1, timed the same way. Writes each conv's row to
+    chiprun_out/k8_<name>_convs.tsv (b<batch> appended below batch 32)."""
     import numpy as np
     import torch
 
     from yololite_tpu_torch.engine import graphs
     from yololite_tpu_torch.models import modules as M
-    from yololite_tpu_torch.ops.kernels import int8_conv, int8_conv_plain, int8_conv_plan, quantize_act
+    from yololite_tpu_torch.ops.kernels import _int8_conv_launch, int8_conv, int8_conv_plain, int8_conv_plan
 
     calls = []
     hooks = [m.register_forward_hook(lambda mod, i, y: calls.append((mod, i[0], i[1], y)))
@@ -1914,60 +2004,113 @@ def k8_on_convs(card: str, pred, frames, n_convs: int, name: str, time_plain: bo
             h.remove()
     if len(calls) != n_convs:
         raise AssertionError(f"{name}: {len(calls)} quantized conv calls in one int8 forward, not {n_convs}")
-    tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bytes": 0.0, "ops": 0.0, "ms_1x1": 0.0, "int_mm_1x1": 0.0}
+    bs = len(frames)
+    keys = ("ms", "kernel_ms", "old_ms", "plain_ms", "bound_ms", "bytes", "ops", "ms_1x1", "kernel_1x1",
+            "old_1x1", "old_kernel_1x1", "int_mm_1x1", "bound_1x1", "edge_ms", "edge_bound")
+    tot = dict.fromkeys(keys, 0.0)
+    slower, missed = [], []  # 1x1 convs on gemm1x1 but slower there; on gemm but 3% or more faster on gemm1x1
     kinds, routes, rows = {}, {}, []
-    differ = total = 0
+    differ = total = n_1x1 = 0
+    on_1x1 = [0, 0]  # 1x1 convs that gemm1x1 can run that take it, and that keep the route before it
     with torch.inference_mode():
         for mod, x, act, y in calls:
+            kind = conv_kind(x, mod)
+            cout, kh, kw_, cin_g = mod.weight.shape
+            is_1x1 = kh == kw_ == 1 and mod.stride == 1 and mod.groups == 1
+            if only_1x1 and not is_1x1:
+                continue
             args = (x, mod.weight, mod.scale, mod.bias, mod.stride, mod.padding, mod.groups, act, mod.sout or 0.0,
                     mod.sin_value)
             want = int8_conv_plain(*args)
             differ += int((y != want).sum())
             total += want.numel()
-            ms = graph_ms(lambda: int8_conv(*args))
+            ms = graph_ms(lambda: int8_conv(*args))  # the wrapper: the copy of a view that is not channels-last too
+            args_cl = (x.contiguous(memory_format=torch.channels_last), *args[1:])
             bound, by = int8_conv_bound_ms(tuple(x.shape), x.element_size(), tuple(mod.weight.shape),
                                            tuple(y.shape), y.element_size())
-            plan = int8_conv_plan(x, mod.weight, y, mod.groups)
-            route = plan["route"] + (f" N{plan['n_tile']} M{plan['m_tile']}" if plan["route"] == "gemm" else "")
+            plan = int8_conv_plan(x, mod.weight, y, mod.groups, mod.stride, mod.padding)
+            route = plan["route"] + (f" N{plan['n_tile']} M{plan['m_tile']}" if plan["route"].startswith("gemm")
+                                     else "")
             routes[route] = routes.get(route, 0) + 1
-            kind = conv_kind(x, mod)
-            rows.append(f"{kind}\t{tuple(x.shape)}\t{x.dtype}\t{tuple(mod.weight.shape)}\ts{mod.stride}\t{y.dtype}\t"
-                        f"{route}\t{ms:.4f}\t{bound:.4f}")
+            r = None
+            if is_1x1:
+                n_1x1 += 1
+                r = k8_1x1_routes(name, x, mod, args, y)
+                kernel = r.get(plan["route"]) or graph_ms(lambda: _int8_conv_launch(*args_cl))
+                tot["ms_1x1"] += ms
+                tot["kernel_1x1"] += kernel
+                tot["old_1x1"] += r["gemm_copy"]
+                tot["old_kernel_1x1"] += r["gemm"]
+                tot["int_mm_1x1"] += r["int_mm"]
+                tot["bound_1x1"] += bound
+                tot["old_ms"] += r["gemm_copy"]
+                if x.dtype != torch.int8:
+                    tot["edge_ms"] += ms
+                    tot["edge_bound"] += bound
+                if r["gemm1x1"] is not None:
+                    on_1x1[plan["route"] != "gemm1x1"] += 1
+                    what = f"{tuple(x.shape)} {x.dtype} -> {cout} {y.dtype}: {r['gemm1x1']:.4f} vs {r['gemm']:.4f} ms"
+                    if plan["route"] == "gemm1x1" and r["gemm1x1"] > r["gemm"]:
+                        slower.append(what)
+                    if plan["route"] != "gemm1x1" and r["gemm1x1"] <= 0.97 * r["gemm"]:
+                        missed.append(what)
+            else:
+                kernel = graph_ms(lambda: _int8_conv_launch(*args_cl))
+                tot["old_ms"] += ms
+            row = [kind, tuple(x.shape), x.dtype, tuple(mod.weight.shape), f"s{mod.stride}", y.dtype, route,
+                   f"{ms:.4f}", f"{kernel:.4f}", f"{bound:.4f}"]
+            if r is not None:
+                g, q = r["gemm_plan"], r["gemm1x1_plan"]
+                m_tiles = -(-int(np.prod(y.shape)) // cout // 128)
+                row += [f"{r['int_mm']:.4f}", f"{r['gemm']:.4f}",
+                        "" if r["gemm1x1"] is None else f"{r['gemm1x1']:.4f}", f"{r['gemm_copy']:.4f}", m_tiles,
+                        f"N{g['n_tile']} M{g['m_tile']}",
+                        *((q["n_tile"], q["n_groups"], q["blocks_per_sm"], q["a_sets"]) if q["route"] else ("",) * 4)]
+            rows.append("\t".join(str(v) for v in row))
             k = kinds.setdefault(kind, {"n": 0, "ms": 0.0, "bound_ms": 0.0})
             k["n"] += 1
             k["ms"] += ms
             k["bound_ms"] += bound
             tot["ms"] += ms
+            tot["kernel_ms"] += kernel
             tot["bound_ms"] += bound
             tot["bytes" if by == "bytes" else "ops"] += bound
             if time_plain:
                 tot["plain_ms"] += cuda_ms(lambda: int8_conv_plain(*args), 2, warmup=1)
-            cout, kh, kw_, cin_g = mod.weight.shape
-            if kh == kw_ == 1 and mod.stride == 1 and mod.groups == 1:  # torch._int_mm on the same 1x1 product
-                xq = x if x.dtype == torch.int8 else quantize_act(x, mod.sin)
-                a2 = xq.permute(0, 2, 3, 1).reshape(-1, cin_g)  # channels-last: a view
-                b2 = mod.weight.reshape(cout, cin_g).t()
-                tot["int_mm_1x1"] += graph_ms(lambda: torch._int_mm(a2, b2))
-                tot["ms_1x1"] += ms
     del calls
     out = Path("chiprun_out")  # each conv's row, for the record
     out.mkdir(exist_ok=True)
-    (out / f"k8_{name}_convs.tsv").write_text("kind\tx\tx dtype\tw\tstride\tout dtype\troute\tms\tbound ms\n"
-                                               + "\n".join(rows) + "\n")
+    head = ("kind\tx\tx dtype\tw\tstride\tout dtype\troute\tms (int8_conv)\tkernel ms\tbound ms\t"
+            "torch._int_mm ms\tgemm ms\tgemm1x1 ms\tgemm ms with the copy\tM tiles of 128\tgemm tile\t"
+            "gemm1x1 N tile\tN groups\tblocks an SM\tA sets\n")
+    (out / f"k8_{name}_convs{'' if bs == 32 else f'_b{bs}'}.tsv").write_text(head + "\n".join(rows) + "\n")
     if differ:
         raise AssertionError(f"{name}: K8 differs from its plain version on {differ} of {total} outputs")
+
     by_kind = "; ".join(f"{k} ({v['n']} convs) {v['ms']:.4f} ms vs bound {v['bound_ms']:.4f} ms "
                         f"({v['ms'] / v['bound_ms']:.1f}x)" for k, v in sorted(kinds.items()))
-    log(f"serving (b): {name}: K8 == its plain version on all {n_convs} quantized convs of one int8 forward at 640, "
-        f"batch {len(frames)} (0 of {total} outputs differ); device time (CUDA graph replay) summed: K8 "
-        f"{tot['ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms ({tot['ms'] / tot['bound_ms']:.2f}x; "
-        f"{tot['bytes']:.4f} ms of it in bytes-bound convs, {tot['ops']:.4f} ms in operation-bound ones)"
+    convs = f"its {n_1x1} 1x1 convs" if only_1x1 else f"all {n_convs} quantized convs"
+    log(f"serving (b): {name}: K8 == its plain version on {convs} of one int8 forward at 640, batch {bs} (0 of "
+        f"{total} outputs differ); device time (CUDA graph replay) summed: K8 {tot['ms']:.4f} ms through int8_conv "
+        f"(its copy of a view that is not channels-last included; the kernels alone {tot['kernel_ms']:.4f} ms), "
+        f"{tot['old_ms']:.4f} ms with the 1x1 convs on the route before gemm1x1 timed the same way, bound "
+        f"{tot['bound_ms']:.4f} ms ({tot['ms'] / tot['bound_ms']:.2f}x; {tot['bytes']:.4f} ms of it in bytes-bound "
+        f"convs, {tot['ops']:.4f} ms in operation-bound ones)"
         + (f", plain {tot['plain_ms']:.3f} ms" if time_plain else "")
-        + f"; 1x1 convs K8 {tot['ms_1x1']:.4f} ms vs torch._int_mm (int32 out, no epilogue) "
-        f"{tot['int_mm_1x1']:.4f} ms; by kind: {by_kind}; routes {routes}; on {card}")
-    return {"max_abs_err": 0.0, "ms": tot["ms"], "plain_ms": tot["plain_ms"] if time_plain else None,
-            "bound_ms": tot["bound_ms"], "bound_by": "bytes" if tot["bytes"] >= tot["ops"] else "operations",
-            "outputs_differing": differ, "ms_1x1": tot["ms_1x1"], "int_mm_1x1_ms": tot["int_mm_1x1"],
+        + f"; 1x1 convs through int8_conv {tot['ms_1x1']:.4f} ms, on the route before gemm1x1 {tot['old_1x1']:.4f} "
+        f"ms (kernels alone {tot['kernel_1x1']:.4f} vs {tot['old_kernel_1x1']:.4f} ms), torch._int_mm (int32 out, "
+        f"no epilogue) {tot['int_mm_1x1']:.4f} ms, bound {tot['bound_1x1']:.4f} ms; {on_1x1[0]} 1x1 convs take "
+        f"gemm1x1, {on_1x1[1]} that it can run keep the route before it; on gemm1x1 but slower there than on the "
+        f"route before (kernels alone): {len(slower)} {slower}; kept off gemm1x1 though 3% or more faster there: "
+        f"{len(missed)} {missed}; the float-edge 1x1s {tot['edge_ms']:.4f} ms vs bound {tot['edge_bound']:.4f} ms; "
+        f"by kind: {by_kind}; routes {routes}; on {card}")
+    return {"max_abs_err": 0.0, "ms": tot["ms"], "kernel_ms": tot["kernel_ms"], "old_ms": tot["old_ms"],
+            "plain_ms": tot["plain_ms"] if time_plain else None, "bound_ms": tot["bound_ms"],
+            "bound_by": "bytes" if tot["bytes"] >= tot["ops"] else "operations", "outputs_differing": differ,
+            "ms_1x1": tot["ms_1x1"], "old_1x1_ms": tot["old_1x1"], "kernel_1x1_ms": tot["kernel_1x1"],
+            "old_kernel_1x1_ms": tot["old_kernel_1x1"], "int_mm_1x1_ms": tot["int_mm_1x1"],
+            "bound_1x1_ms": tot["bound_1x1"], "edge_1x1_ms": tot["edge_ms"], "edge_1x1_bound_ms": tot["edge_bound"],
+            "slower_1x1": len(slower), "missed_1x1": len(missed), "on_gemm1x1": on_1x1[0], "routes": routes,
             "by_kind": kinds}
 
 
@@ -2118,6 +2261,7 @@ def serving_phase(card: str, frames):
     k1, k3, k2 = k1 + n1, k3 + n1, k2 + n1
     k8_launches += n8
     k8 = k8_on_convs(card, pred, frames, 76, "yolo11n", time_plain=True)
+    k8_b1 = k8_on_convs(card, pred, frames[:1], 76, "yolo11n", time_plain=False, only_1x1=True)
     k8.update(int8_ms_b32=med32["int8"] * 1e3, bf16_ms_b32=med32["bf16"] * 1e3, int8_ms_b1=med1["int8"] * 1e3,
               bf16_ms_b1=med1["bf16"] * 1e3, int8_eager_ms_b32=med32["int8 eager"] * 1e3,
               bf16_eager_ms_b32=med32["bf16 eager"] * 1e3)
@@ -2126,8 +2270,13 @@ def serving_phase(card: str, frames):
     k1, k3, k2 = k1 + n1, k3 + n1, k2 + n1
     k8_launches += n8
     k8_m = k8_on_convs(card, pred, frames, 101, "yolo11m", time_plain=False)
-    k8["yolo11m"] = {"ms": k8_m["ms"], "bound_ms": k8_m["bound_ms"], "bound_by": k8_m["bound_by"],
-                     "ms_1x1": k8_m["ms_1x1"], "int_mm_1x1_ms": k8_m["int_mm_1x1_ms"],
+    k8_m_b1 = k8_on_convs(card, pred, frames[:1], 101, "yolo11m", time_plain=False, only_1x1=True)
+    sums = ("ms_1x1", "old_1x1_ms", "kernel_1x1_ms", "old_kernel_1x1_ms", "int_mm_1x1_ms", "bound_1x1_ms",
+            "slower_1x1", "missed_1x1", "on_gemm1x1")
+    k8["b1_1x1"] = {key: k8_b1[key] for key in sums}  # the 1x1 convs of a batch-1 forward
+    k8["yolo11m"] = {**{key: k8_m[key] for key in ("ms", "kernel_ms", "old_ms", "bound_ms", "bound_by",
+                                                   "edge_1x1_ms", "edge_1x1_bound_ms", "routes", *sums)},
+                     "b1_1x1": {key: k8_m_b1[key] for key in sums},
                      "int8_ms_b32": med_m["int8"] * 1e3, "bf16_ms_b32": med_m["bf16"] * 1e3}
     del pred
     torch.cuda.empty_cache()
@@ -2925,7 +3074,8 @@ def main() -> int:
     from yololite_tpu_torch.ops import cuda_build, nms
     from yololite_tpu_torch.ops.kernels import (blocked_nms_finalize, device_letterbox, device_letterbox_plain,
                                                greedy_nms_keep, greedy_nms_keep_plain, letterbox_geometry,
-                                               select_decode, select_decode_plain)
+                                               select_decode, select_decode_plain, select_decode_plan,
+                                               sigmoid_monotone)
 
     card = card_line()
     kind = torch.cuda.get_device_name(0)
@@ -2999,16 +3149,22 @@ def main() -> int:
     k4_crowded = {b: k4_numbers(card, k4_scene(7, b, 8192, "crowded"), 0.7, 300, "crowded scene") for b in (16, 8, 1)}
 
     # K3 against its plain version on every scene of K3_CASES; K2 on frames of four sizes, both layouts, bgr or not
-    k3_bits = []
+    if not sigmoid_monotone(torch.device("cuda")):  # what the single-label score pass relies on (ClassMax)
+        raise AssertionError("select_decode: its score function is not monotone over every fp32 on this card")
+    k3_bits, k3_routes = [], {}
     for case in K3_CASES:
         args = k3_args(case)
+        route = select_decode_plan(args[0], args[2], args[3], args[5], args[8])["route"]
+        if route != K3_ROUTES[case[0]]:
+            raise AssertionError(f"select_decode scene {case[0]}: route {route}, not {K3_ROUTES[case[0]]}")
+        k3_routes[case[0]] = route
         got = select_decode(*args)
         want = select_decode_plain(*args)
         torch.cuda.synchronize()
         if k3_check(got, want, case[0]):
             k3_bits.append(case[0])
     log(f"kernel: select_decode equal to its plain version in {len(K3_CASES)} scenes "
-        f"({', '.join(c[0] for c in K3_CASES)}): "
+        f"({', '.join(f'{n} [{r}]' for n, r in k3_routes.items())}): "
         f"vals, bidx, cls, valid bit for bit; boxes bit-equal in {len(k3_bits)} of them, within 1e-6 relative in all")
     k2_checks = 0
     lb_rng = np.random.default_rng(8)
@@ -3296,9 +3452,11 @@ def main() -> int:
         "launches": k3_launches,
         # on val's first fp32 batch (B 16, K 8,192 multi-label); predict's batch-32 maps under "predict"
         **{key: k3_val["numbers"][key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                                                    "library_ms", "shape", "boxes_bit_equal")},
+                                                    "library_ms", "shape", "boxes_bit_equal", "route",
+                                                    "kernels_a_call", "score_ms", "score_tb_s", "list_lengths")},
         "library": "torch.topk on the gated row (its tie order is not lax.top_k's: a yardstick)",
-        "predict": {d: {key: v[key] for key in ("ms", "plain_ms", "bound_ms", "library_ms", "boxes_bit_equal")}
+        "predict": {d: {key: v[key] for key in ("ms", "plain_ms", "bound_ms", "library_ms", "boxes_bit_equal",
+                                                "route", "kernels_a_call", "score_ms", "score_tb_s")}
                     for d, v in k3_pred.items()},
         "nms_from_feats_ms": {"val": {"with_k3": k3_val["nms_ms"], "with_k3_device": k3_val["nms_graph_ms"],
                                       "plain_select": k3_val["nms_plain_select_ms"]},

@@ -300,3 +300,261 @@ def test_requant_table_index_covers_bf16_and_compresses_exactly(act):
         q = _requant_chain(act, sout)
         uniform = all(len(np.unique(q[idx == i])) == 1 for i in np.unique(idx[~own]))
         assert uniform == valid, (sout, act)
+
+
+# ---------------- gemm1x1: the 1x1 route's tile schedule, pipeline and shared-memory layout ----------------
+
+BM, STEP, B_STAGES, RAW_STAGES, SMS, MAX_SMEM = 128, 64, 4, 2, 132, 232448  # csrc/int8_conv.cu's k1* constants
+TAB_BYTES = 2 * 27 * 128
+
+
+def _smem_1x1(bn, xes, oes, k_steps, a_sets, cout, whole=False):
+    """smem_1x1: A slots, B ring, raw ring (float x), staged tile (rows of BN outputs of oes bytes), the table
+    (whole: 64 KB, else compressed), scale and bias, barriers."""
+    at = a_sets * k_steps * BM * STEP + B_STAGES * bn * STEP + (0 if xes == 1 else RAW_STAGES * BM * STEP * xes)
+    at += BM * (bn * oes + 16) + (1 << 16 if whole else TAB_BYTES) + 8 * cout
+    return -(-at // 8) * 8 + 8 * (2 * a_sets * k_steps + 2 * B_STAGES + 2 * RAW_STAGES)
+
+
+def _plan_1x1(cin, cout, xes, oes=1):
+    """plan() for a 1x1 stride-1 conv: (N tile, the sets of A slots that fit with the compressed table: (1,) or
+    (1, 2)), or None where route 4 does not take it (the card's occupancy picks between the sets, and takes the
+    whole table where it fits)."""
+    if cin % 16 or cout % 8:
+        return None
+    bn = next(n for n in N_TILES if n == cout or (cout > n and cout % n == 0))
+    k_steps = -(-cin // STEP)
+    sets = tuple(a for a in ((1, 2) if xes == 1 else (1,)) if _smem_1x1(bn, xes, oes, k_steps, a, cout) <= MAX_SMEM)
+    return (bn, sets) if sets else None
+
+
+def _groups(m_tiles, n_tiles, slots):
+    """plan()'s groups of N tiles: doubled while the M tiles alone would leave block slots idle."""
+    g = 1
+    while 2 * g <= n_tiles and n_tiles % (2 * g) == 0 and m_tiles * g < slots:
+        g *= 2
+    return g
+
+
+def _chunks(cin, ks):
+    return min(2, -(-(cin - ks * STEP) // CHUNK))
+
+
+# (Cin, H, W, Cout) at 640 of the 1x1 convs that int8 serving feeds bf16 (a bf16 island's output: the Detect
+# head's class branch of yolo11n, the C2PSA edges), from chip_smoke.py's per-conv tables of yolo11n and yolo11m
+FLOAT_EDGES = {(256, 20, 20, 256), (80, 20, 20, 80), (80, 40, 40, 80), (80, 80, 80, 80), (512, 20, 20, 512),
+               (256, 80, 80, 256), (256, 40, 40, 256)}
+
+
+def _yolo_1x1_shapes():
+    """(B, Cin, H, W, Cout, x bytes) of every 1x1 conv of yolo11n and yolo11m at 640, batch 32 (a forward at 64
+    scaled by 10) with an int8 x, and of the float edges with a bf16 x."""
+    from yololite_tpu_torch.models.model import DetectionModel
+
+    shapes = set()
+    for name in ("yolo11n.yaml", "yolo11m.yaml"):
+        model, seen = DetectionModel(name).eval(), []
+        hooks = [m.conv.register_forward_hook(lambda mod, i, o: seen.append((i[0].shape, mod.weight.shape, mod.stride)))
+                 for m in model.modules() if isinstance(m, M.Conv)]
+        with torch.no_grad():
+            model(torch.zeros(1, 3, 64, 64))
+        for h in hooks:
+            h.remove()
+        for (_, cin, h, w), (cout, _, kh, kw), stride in seen:
+            if kh == kw == 1 and tuple(stride) == (1, 1):
+                shapes.add((32, cin, 10 * h, 10 * w, cout, 1))
+                if (cin, 10 * h, 10 * w, cout) in FLOAT_EDGES:
+                    shapes.add((32, cin, 10 * h, 10 * w, cout, 2))
+    assert {s[1:5] for s in shapes if s[5] == 2} == FLOAT_EDGES
+    return sorted(shapes)
+
+
+def _simulate_block(items, per_group, k_steps, quant, a_sets):
+    """One block's producer warp and two consumer warpgroups over its work items ((M tile, first N tile) each),
+    run step by step on the mbarriers' phase counts (a wait on parity P passes once the barrier's completed phases
+    have the other parity); TMA lands at once. Returns the (M tile, N tile, K step) each consumer computed, in
+    order; raises on a deadlock."""
+    full = {}  # barrier -> completed phases
+    arrivals = {}
+    done = lambda bar: full.get(bar, 0)
+    passes = lambda bar, parity: (done(bar) & 1) != parity
+
+    def arrive(bar, count):
+        arrivals[bar] = arrivals.get(bar, 0) + 1
+        if arrivals[bar] == count:
+            arrivals[bar] = 0
+            full[bar] = done(bar) + 1
+
+    def producer():
+        bi = ri = 0
+        for mi, (mt, nt0) in enumerate(items):
+            for nt in range(nt0, nt0 + per_group):
+                for ks in range(k_steps):
+                    if nt == nt0 and not quant:
+                        slot = (mi % a_sets) * k_steps + ks
+                        while not passes(("a_empty", slot), ((mi // a_sets) & 1) ^ 1):
+                            yield
+                        arrive(("a_full", slot), 1)
+                    elif nt == nt0:
+                        while not passes(("raw_empty", ri % RAW_STAGES), ((ri // RAW_STAGES) & 1) ^ 1):
+                            yield
+                        arrive(("raw_full", ri % RAW_STAGES), 1)
+                        ri += 1
+                    while not passes(("b_empty", bi % B_STAGES), ((bi // B_STAGES) & 1) ^ 1):
+                        yield
+                    arrive(("b_full", bi % B_STAGES), 1)
+                    bi += 1
+                    yield
+
+    def consumer(out):
+        bi = ri = 0
+        for mi, (mt, nt0) in enumerate(items):
+            aset = 0 if quant else mi % a_sets
+            for nt in range(nt0, nt0 + per_group):
+                last = nt == nt0 + per_group - 1
+                for ks in range(k_steps):
+                    if nt == nt0 and quant:
+                        while not passes(("raw_full", ri % RAW_STAGES), (ri // RAW_STAGES) & 1):
+                            yield
+                        arrive(("raw_empty", ri % RAW_STAGES), 2)
+                        ri += 1
+                    elif nt == nt0:
+                        while not passes(("a_full", aset * k_steps + ks), (mi // a_sets) & 1):
+                            yield
+                    while not passes(("b_full", bi % B_STAGES), (bi // B_STAGES) & 1):
+                        yield
+                    out.append((mt, nt, ks))
+                    if ks > 0:  # the step before is done: its slots go back
+                        arrive(("b_empty", (bi - 1) % B_STAGES), 2)
+                        if last and not quant:
+                            arrive(("a_empty", aset * k_steps + ks - 1), 2)
+                    bi += 1
+                    yield
+                arrive(("b_empty", (bi - 1) % B_STAGES), 2)
+                if last and not quant:
+                    arrive(("a_empty", aset * k_steps + k_steps - 1), 2)
+
+    outs = [[], []]
+    alive = [producer(), consumer(outs[0]), consumer(outs[1])]
+    stalls = 0
+    while alive:
+        before = (dict(full), len(outs[0]) + len(outs[1]))
+        for a in list(alive):
+            try:
+                next(a)
+            except StopIteration:
+                alive.remove(a)
+        stalls = stalls + 1 if (dict(full), len(outs[0]) + len(outs[1])) == before else 0
+        assert stalls < 16, "the pipeline deadlocked"
+    assert outs[0] == outs[1]
+    return outs[0]
+
+
+@pytest.mark.parametrize("xes", [1, 2], ids=["int8", "bf16"])
+def test_1x1_schedule_covers_every_tile_once(xes):
+    """On every 1x1 shape of yolo11n and yolo11m at 640, batch 32: route 4 takes it (Cin a multiple of 16, its
+    shared memory fits); for every grouping of the N tiles plan() can pick and every grid of 1 or 2 blocks an SM,
+    the persistent blocks' work items ((M tile, group of N tiles)) take every (M tile, N tile, K step) once, and
+    the steps' 32-byte chunks cover [0, Cin) with the K tail's box reading zeros past it; the M tiles cover every
+    output row (the tail's rows past M zero-filled, not stored). One block's producer and consumers, run on the
+    barriers' phases with one or two sets of A slots, take the same steps in the same order without a deadlock."""
+    shapes = [s for s in _yolo_1x1_shapes() if s[5] == xes]
+    assert len(shapes) >= (20 if xes == 1 else 7)
+    for b, cin, h, w, cout, _ in shapes:
+        plan = _plan_1x1(cin, cout, xes)
+        assert plan is not None, (cin, cout)
+        bn, sets = plan
+        m = b * h * w
+        m_tiles, n_tiles, k_steps = -(-m // BM), cout // bn, -(-cin // STEP)
+        assert m_tiles * BM - m < BM
+        kbytes = np.zeros(-(-cin // CHUNK) * CHUNK, np.int64)
+        for ks in range(k_steps):
+            for c in range(_chunks(cin, ks)):
+                kbytes[ks * STEP + c * CHUNK:ks * STEP + (c + 1) * CHUNK] += 1
+        assert (kbytes == 1).all() and len(kbytes) - cin < CHUNK
+        for blocks in (1, 2):
+            g = _groups(m_tiles, n_tiles, SMS * blocks)
+            per = n_tiles // g
+            items = m_tiles * g
+            grid = min(items, SMS * blocks)
+            seen = np.zeros((m_tiles, n_tiles), np.int64)
+            for blk in {0, grid - 1}:  # the first and last blocks' items, then every item at once
+                assert all(w_ % grid == blk for w_ in range(blk, items, grid))
+            wi = np.arange(items)
+            for nt in range(per):
+                np.add.at(seen, (wi // g, (wi % g) * per + nt), 1)
+            assert (seen == 1).all()  # every (M tile, N tile) once; each runs all its K steps
+            for sets_ in sets:
+                mine = [(w_ // g, (w_ % g) * per) for w_ in range(0, items, grid)][:3]
+                order = _simulate_block(mine, per, k_steps, xes > 1, sets_)
+                assert order == [(mt, nt, ks) for mt, nt0 in mine for nt in range(nt0, nt0 + per)
+                                 for ks in range(k_steps)]
+
+
+def _tma_box(src, r0, c0, rows, cols):
+    """A TMA box of a row-major matrix: rows x cols from (r0, c0), zero past its edges."""
+    out = np.zeros((rows, cols), src.dtype)
+    part = src[r0:r0 + rows, c0:c0 + cols]
+    out[:part.shape[0], :part.shape[1]] = part
+    return out
+
+
+def _swizzle32_write(slot, base, box):
+    """A TMA box of 32-byte rows written with CU_TENSOR_MAP_SWIZZLE_32B: row r's 16-byte halves at r * 32, swapped
+    where address bit 7 is set (the wgmma descriptors' 32-byte swizzle)."""
+    for r in range(box.shape[0]):
+        for k in range(CHUNK):
+            slot[base + _swizzled_offset(r, k)] = box[r, k].view(np.uint8)
+
+
+@pytest.mark.parametrize("case", [(2, 48, 5, 7, 8, 1), (3, 64, 7, 9, 256, 1), (1, 96, 6, 6, 80, 2),
+                                  (1, 16, 4, 4, 24, 4)], ids=["cin48-k-tail", "cout256-m-tail", "bf16-x", "fp32-x-cout24"])
+def test_1x1_layout_model_matches_conv(case):
+    """A numpy model of route 4's data path on one M tile after another: A's 32-byte chunks by TMA into the
+    swizzled slot (an int8 x), or a float x's raw box into the staging slot and each warpgroup's 64 rows
+    quantized into the A slot (8 elements a write, at swizzled_offset); B's chunks of each N tile; each
+    warpgroup's wgmma reading its 64 rows through the descriptors (chunk c at c * 4,096, warpgroup w at
+    w * 2,048; B chunk c at c * BN * 32). The int32 sums equal the reference conv."""
+    b, cin, h, w, cout, xes = case
+    rng = np.random.default_rng(cin + cout)
+    bn, _ = _plan_1x1(cin, cout, xes)
+    m = b * h * w
+    wq = rng.integers(-127, 128, (cout, 1, 1, cin)).astype(np.int8)
+    sin = np.float32(1 / 64)
+    if xes == 1:
+        x = rng.integers(-127, 128, (b, h, w, cin)).astype(np.int8)
+        xq = x
+    else:
+        x = rng.uniform(-0.5, 2.5, (b, h, w, cin)).astype(np.float32)
+        if xes == 2:
+            x = torch.from_numpy(x).to(torch.bfloat16).float().numpy()
+        xq = K.quantize_act(torch.from_numpy(x), torch.tensor(sin)).numpy()
+    a_mat, b_mat = x.reshape(m, cin), wq.reshape(cout, cin)
+    got = np.zeros((m, cout), np.int64)
+    for mt in range(-(-m // BM)):
+        for nt in range(cout // bn):
+            acc = np.zeros((BM, bn), np.int64)
+            for ks in range(-(-cin // STEP)):
+                sa = np.zeros(BM * STEP, np.uint8)
+                if xes == 1:
+                    for c in range(_chunks(cin, ks)):
+                        _swizzle32_write(sa, c * BM * CHUNK, _tma_box(a_mat, mt * BM, ks * STEP + c * CHUNK, BM, CHUNK))
+                else:
+                    raw = _tma_box(a_mat, mt * BM, ks * STEP, BM, STEP)  # the staging slot, row-major
+                    q = K.quantize_act(torch.from_numpy(raw), torch.tensor(sin)).numpy()
+                    for r in range(BM):
+                        for kg in range(8):
+                            for e in range(8):
+                                at = (kg >> 2) * BM * CHUNK + _swizzled_offset(r, (kg & 3) * 8 + e)
+                                sa[at] = q[r, kg * 8 + e].view(np.uint8)
+                sb = np.zeros(bn * STEP, np.uint8)
+                for c in range(_chunks(cin, ks)):
+                    _swizzle32_write(sb, c * bn * CHUNK, _tma_box(b_mat, nt * bn, ks * STEP + c * CHUNK, bn, CHUNK))
+                for wg in range(2):
+                    for c in range(_chunks(cin, ks)):
+                        ar = _descriptor_read(sa, c * BM * CHUNK + wg * 64 * CHUNK, 64).view(np.int8).astype(np.int64)
+                        br = _descriptor_read(sb, c * bn * CHUNK, bn).view(np.int8).astype(np.int64)
+                        acc[wg * 64:(wg + 1) * 64] += ar @ br.T
+            rows = min(BM, m - mt * BM)
+            got[mt * BM:mt * BM + rows, nt * bn:(nt + 1) * bn] = acc[:rows]
+    np.testing.assert_array_equal(got, xq.reshape(m, cin).astype(np.int64) @ b_mat.astype(np.int64).T)

@@ -14,8 +14,9 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (K3_CASES, K3_RECT, LOSS_TAIL_SHAPES, TOPK_CASES, k3_args, k3_check, k3_maps, k4_scene,
-                        loss_tail_check, loss_tail_inputs, loss_tail_metrics, loss_tail_pairs, loss_tail_step_check)
+from chip_smoke import (K3_CASES, K3_RECT, K3_ROUTES, LOSS_TAIL_SHAPES, TOPK_CASES, k3_args, k3_check, k3_maps,
+                        k4_scene, loss_tail_check, loss_tail_inputs, loss_tail_metrics, loss_tail_pairs,
+                        loss_tail_step_check)
 from yololite_tpu_torch.engine import graphs
 from yololite_tpu_torch.ops import loss_kernels as L
 from yololite_tpu_torch.ops.kernels import (blocked_nms_finalize, blocked_nms_finalize_plain, device_letterbox,
@@ -169,7 +170,11 @@ def test_keep_op_equals_the_direct_launch(card):
 
 # (name, batch, Cin, H, W, Cout, k, stride, groups, act, sout, x dtype, route): yolo11n's kinds of quantized
 # conv, each route of csrc/int8_conv.cu, and their edges (Cin tails, wide and narrow Cout, odd frames, partial
-# M tiles, batch 1, float inputs quantized in the load, bf16 out, every activation)
+# M tiles, batch 1, float inputs quantized in the load, bf16 out, every activation); the 1x1 convs of Cin a
+# multiple of 16 take gemm1x1 where csrc/int8_conv.cu prefer_1x1 picks it (yolo11m's float edges, M and K tails,
+# Cout 256 and 512, Cin 1024), the others keep gemm (an int8 x: two blocks an SM in one or two rounds, an item of
+# two N tiles, one block an SM over four rounds, a K tail inside a 32-byte chunk), and Cin 8 keeps gemm (a tensor
+# map's row pitch is a multiple of 16 bytes); each 1x1 conv that gemm1x1 can run is held on both routes
 I8, BF16, FP32 = torch.int8, torch.bfloat16, torch.float32
 K8_CASES = [
     ("stem-fp32", 1, 3, 64, 64, 16, 3, 2, 1, 1, 0.05, FP32, "direct"),
@@ -177,7 +182,7 @@ K8_CASES = [
     ("stem-cout8-bf16-out", 1, 3, 20, 21, 8, 3, 2, 1, 2, 0.0, FP32, "direct"),
     ("1x1-cin3", 2, 3, 9, 7, 64, 1, 1, 1, 0, 0.05, I8, "direct"),
     ("1x1", 32, 64, 20, 20, 64, 1, 1, 1, 1, 0.05, I8, "gemm"),
-    ("1x1-b32-160", 32, 32, 160, 160, 32, 1, 1, 1, 1, 0.05, I8, "gemm"),
+    ("1x1-b32-160", 32, 32, 160, 160, 32, 1, 1, 1, 1, 0.05, I8, "gemm1x1"),
     ("3x3-s2", 1, 64, 40, 40, 128, 3, 2, 1, 1, 0.05, I8, "gemm"),
     ("3x3-s2-odd-hw", 3, 16, 15, 11, 32, 3, 2, 1, 1, 0.05, I8, "gemm"),
     ("odd-hw", 2, 32, 13, 9, 48, 3, 1, 1, 1, 0.05, I8, "gemm"),
@@ -185,8 +190,8 @@ K8_CASES = [
     ("cin8", 2, 8, 24, 24, 16, 3, 1, 1, 1, 0.05, I8, "gemm"),
     ("cin16", 2, 16, 24, 20, 32, 1, 1, 1, 1, 0.05, I8, "gemm"),
     ("cin48-cout8", 4, 48, 20, 20, 8, 1, 1, 1, 1, 0.05, I8, "gemm"),
-    ("cin80-cout80-bf16-in-out", 32, 80, 20, 20, 80, 1, 1, 1, 1, 0.0, BF16, "gemm"),
-    ("1x1-cin256-bf16-in", 8, 256, 20, 20, 256, 1, 1, 1, 1, 0.05, BF16, "gemm"),
+    ("cin80-cout80-bf16-in-out", 32, 80, 20, 20, 80, 1, 1, 1, 1, 0.0, BF16, "gemm1x1"),
+    ("1x1-cin256-bf16-in", 8, 256, 20, 20, 256, 1, 1, 1, 1, 0.05, BF16, "gemm1x1"),
     ("3x3-fp32-in", 2, 64, 12, 12, 64, 3, 1, 1, 1, 0.05, FP32, "gemm"),
     ("cout512", 2, 256, 10, 10, 512, 3, 1, 1, 1, 0.05, I8, "gemm"),
     ("cout256-3x3-cin512", 2, 512, 20, 20, 256, 3, 1, 1, 1, 0.05, I8, "gemm"),
@@ -198,14 +203,28 @@ K8_CASES = [
     ("dwconv-bf16-in", 1, 32, 9, 9, 32, 3, 1, 32, 0, 0.05, BF16, "depthwise"),
     ("groups2", 2, 16, 8, 8, 32, 3, 1, 2, 1, 0.05, I8, "direct"),
     ("cin12", 1, 12, 10, 10, 16, 3, 1, 1, 2, 0.0, I8, "direct"),
+    ("1x1-m-bf16-edge-80x80", 32, 256, 80, 80, 256, 1, 1, 1, 1, 0.0, BF16, "gemm1x1"),
+    ("1x1-m-bf16-edge-int8-out", 32, 512, 20, 20, 512, 1, 1, 1, 1, 0.05, BF16, "gemm1x1"),
+    ("1x1-fp32-in-relu", 2, 64, 12, 12, 64, 1, 1, 1, 2, 0.05, FP32, "gemm1x1"),
+    ("1x1-cin8", 2, 8, 24, 24, 16, 1, 1, 1, 1, 0.05, I8, "gemm"),
+    ("1x1-m-tail", 3, 64, 7, 9, 128, 1, 1, 1, 1, 0.05, I8, "gemm1x1"),
+    ("1x1-cout256", 4, 128, 16, 16, 256, 1, 1, 1, 1, 0.05, I8, "gemm1x1"),
+    ("1x1-cout512-cin384", 2, 384, 20, 20, 512, 1, 1, 1, 1, 0.05, I8, "gemm1x1"),
+    ("1x1-cin1024-cout256-bf16-out", 4, 1024, 20, 20, 256, 1, 1, 1, 1, 0.0, I8, "gemm1x1"),
+    ("1x1-cin1024-cout512", 4, 1024, 20, 20, 512, 1, 1, 1, 1, 0.05, I8, "gemm1x1"),
+    ("1x1-40x40-cout128-keeps-gemm", 32, 256, 40, 40, 128, 1, 1, 1, 1, 0.05, I8, "gemm"),
+    ("1x1-cin512-cout512-keeps-gemm", 32, 512, 20, 20, 512, 1, 1, 1, 1, 0.05, I8, "gemm"),
+    ("1x1-b1-cout80-keeps-gemm", 1, 64, 80, 80, 80, 1, 1, 1, 1, 0.05, I8, "gemm"),
+    ("1x1-cin48-cout80-k-tail", 4, 48, 20, 20, 80, 1, 1, 1, 1, 0.05, I8, "gemm"),
+    ("1x1-cin48-bf16-k-tail", 4, 48, 20, 20, 64, 1, 1, 1, 0, 0.05, BF16, "gemm1x1"),
 ]
 
 
 @pytest.mark.parametrize("case", K8_CASES, ids=[c[0] for c in K8_CASES])
 def test_int8_conv_kernel_matches_plain(card, case):
     """K8 against its plain version on the same inputs: every output equal (0 int8 LSB, 0 bf16 ulp); one launch
-    down the expected route."""
-    from yololite_tpu_torch.ops.kernels import int8_conv_plan
+    down the expected route; a 1x1 conv that gemm1x1 can run also on both routes (int8_conv_pick)."""
+    from yololite_tpu_torch.ops.kernels import _int8_conv_launch, int8_conv_plan
 
     _, b, cin, h, w, cout, k, stride, groups, act, sout, xdtype, route = case
     rng = np.random.default_rng(cin + h + cout)
@@ -221,13 +240,18 @@ def test_int8_conv_kernel_matches_plain(card, case):
     got = int8_conv(*args)
     torch.cuda.synchronize()
     assert int8_conv.launches == before + 1
-    assert int8_conv_plan(x.contiguous(memory_format=torch.channels_last), wq, got, groups)["route"] == route
+    assert int8_conv_plan(x.contiguous(memory_format=torch.channels_last), wq, got, groups, stride,
+                          k // 2)["route"] == route
     want = int8_conv_plain(x.contiguous(memory_format=torch.channels_last), *args[1:])
     assert got.shape == want.shape and got.dtype == want.dtype
     differ = int((got != want).sum())
     assert differ == 0, f"{differ} of {want.numel()} outputs differ"
     if sout > 0:
         assert 0 < int((want != 0).sum()) and int((want.abs() == 127).sum()) < want.numel()
+    x_cl = x.contiguous(memory_format=torch.channels_last)
+    if int8_conv_plan(x_cl, wq, got, groups, stride, k // 2, pick="gemm1x1")["route"] == "gemm1x1":
+        for pick in ("gemm1x1", "gemm"):
+            assert torch.equal(_int8_conv_launch(x_cl, *args[1:], pick=pick), want), pick
 
 
 @pytest.mark.parametrize("act", [0, 1, 2], ids=["none", "silu", "relu"])
@@ -730,8 +754,13 @@ def test_train_state_stays_outside_the_graph_pool(card, tmp_path):
 def test_select_decode_kernel_matches_plain(card, case):
     """K3 against its plain version on the card: vals, bidx, cls and valid bit for bit in all K rows (the -1
     fillers included), boxes and the class-offset boxes within 1e-6 relative (NaN where the plain version has
-    NaN); one launch per call."""
+    NaN); one counted launch per call, down the route `K3_ROUTES` names (the finish route: two kernels)."""
+    from yololite_tpu_torch.ops.kernels import select_decode_plan
+
     args = k3_args(case)
+    plan = select_decode_plan(args[0], args[2], args[3], args[5], args[8])
+    assert plan["route"] == K3_ROUTES[case[0]]
+    assert plan["launches"] == 2 if plan["route"] == "finish" else plan["launches"] >= 10
     before = select_decode.launches
     got = select_decode(*args)
     torch.cuda.synchronize()
@@ -755,6 +784,15 @@ def test_select_decode_sigmoid_bits_equal_torchs(card):
             s = torch.sigmoid(t if half else t.float()).float().permute(0, 2, 3, 1).reshape(-1)
             assert vals.shape[1] == s.numel()
             assert _same_bits(vals[0], s[bidx[0] * 64 + cls[0].long()])
+
+
+def test_select_decode_score_function_is_monotone(card):
+    """The single-label score pass keeps an anchor's largest logits and scores those alone (csrc/select_decode.cu
+    ClassMax), exact only while its score function is monotone non-decreasing: the check kernel walks every
+    non-NaN fp32 on this card (rounding to bf16 or fp16 keeps the order)."""
+    from yololite_tpu_torch.ops.kernels import sigmoid_monotone
+
+    assert sigmoid_monotone(card)
 
 
 def test_select_decode_kernel_replays_in_a_graph(card):

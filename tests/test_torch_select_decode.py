@@ -270,3 +270,276 @@ def test_validator_hands_bf16_maps_to_the_nms_without_a_copy(monkeypatch, tmp_pa
     v = V.DetectionValidator(save_dir=tmp_path / "v", args=args, device="cpu")
     v(model=model)
     assert v.seen == 4 and len(seen) == 2 and all(d == [torch.bfloat16] * 3 for d in seen)
+
+
+# ---------------- a numpy model of K3's finishing kernel ----------------
+
+FINISH_CAP, FINISH_THREADS, DIGIT, MAX_SMEM, TIE_CAP, RANK_CAP = 16384, 512, 11, 232448, 4096, 2048  # the .cu's
+
+
+def _order_keys(gated):
+    """The kernel's 32-bit order keys of fp32 scores: a larger float, a larger key."""
+    u = np.ascontiguousarray(gated, np.float32).view(np.uint32)
+    return np.where(u & 0x80000000, ~u, u | 0x80000000).astype(np.uint32)
+
+
+def _key_values(keys):
+    k = keys.astype(np.uint32)
+    return np.where(k & 0x80000000, k & 0x7FFFFFFF, ~k).astype(np.uint32).view(np.float32)
+
+
+def _finish_bin(hist, need):
+    """finish_bin: FINISH_THREADS threads sum runs of bins from the top, a scan finds the one whose run reaches
+    need; returns (bin, what the bin still has to give)."""
+    nb = len(hist)
+    per = -(-nb // FINISH_THREADS)
+    found = []
+    incl = 0
+    for t in range(FINISH_THREADS):
+        top = nb - 1 - t * per
+        run = [top - j for j in range(per) if top - j >= 0]
+        total = int(sum(hist[i] for i in run))
+        incl += total
+        if incl - total < need <= incl:
+            cum = incl - total
+            for b in run:
+                if cum + hist[b] >= need:
+                    break
+                cum += hist[b]
+            found.append((b, need - cum))
+    assert len(found) == 1  # one thread exactly
+    return found[0]
+
+
+def _bitonic_desc(s):
+    """The kernel's bitonic sort of its p2 slots, descending: step (k, j) compares slot i with i | j."""
+    p2 = len(s)
+    k = 2
+    while k <= p2:
+        j = k >> 1
+        while j:
+            q = np.arange(p2 // 2)
+            i = ((q & ~(j - 1)) << 1) | (q & (j - 1))
+            x, y = s[i].copy(), s[i | j].copy()
+            swap = (x < y) == ((i & k) == 0)
+            s[i[swap]], s[(i | j)[swap]] = y[swap], x[swap]
+            j >>= 1
+        k <<= 1
+    return s
+
+
+def _finish_model(keys, flat, k):
+    """One image through the finishing kernel's select: keys (N,) in storage order, flat (N,) each one's flat
+    index. The composite (key << ib) | (N - 1 - index); the first digit (the key's top 11 bits) counted over the
+    row and the K-th entry's bin b0 found; where more than RANK_CAP entries lie at or above b0, b0's entries
+    counted by the next 11 bits and the K-th entry's bin b1 found there. Where the candidates (above b0, and b0's
+    at or above b1) number at most RANK_CAP, each one's count of larger ones is its output row. Else the entries
+    above b0 taken, b0's listed (up to TIE_CAP, else the row is scanned); the later 11-bit digits over the entries
+    whose decided bits match; b0's entries at or above the threshold taken; the winners bitonic-sorted. Returns
+    the K composites in order and the ib."""
+    n = len(keys)
+    ib = max(int(n - 1).bit_length(), 1)
+    total = 32 + ib
+    comp = (keys.astype(np.uint64) << np.uint64(ib)) | (n - 1 - flat).astype(np.uint64)
+    hist0 = np.bincount((keys >> 21).astype(np.int64), minlength=1 << DIGIT)
+    b0, need = _finish_bin(hist0, k)
+    listed = comp[(keys >> 21) >= b0]
+    assert len(listed) == k - need + hist0[b0]
+    if len(listed) > RANK_CAP:  # the second digit (key bits 10-20) of b0's entries
+        d1 = (keys >> 10) & 2047
+        hist1 = np.bincount(d1[keys >> 21 == b0].astype(np.int64), minlength=1 << DIGIT)
+        b1, need1 = _finish_bin(hist1, need)
+        listed = comp[((keys >> 21) > b0) | ((keys >> 21 == b0) & (d1 >= b1))]
+        assert len(listed) == k - need1 + hist1[b1]
+    if len(listed) <= RANK_CAP:  # the rank route: a listed entry's count of larger ones is its output row
+        above = (listed[None, :] > listed[:, None]).sum(1)
+        rows = np.zeros(k, np.uint64)
+        assert len(set(above[above < k])) == k  # every row once
+        rows[above[above < k]] = listed[above < k]
+        return rows, ib
+    prefix, lo = b0 << (total - DIGIT), total - DIGIT
+    done = int((keys >> 21 == b0).sum()) == need
+    above = comp[(keys >> 21) > b0]
+    ties = np.nonzero(keys >> 21 == b0)[0]
+    span = comp[ties] if len(ties) <= TIE_CAP else comp  # the list, or the row (the prefix filters it)
+    hi = lo
+    while not done:
+        lo = max(hi - DIGIT, 0)
+        nb = 1 << (hi - lo)
+        match = (span >> np.uint64(hi)) == np.uint64(prefix >> hi)
+        hist = np.bincount(((span[match] >> np.uint64(lo)) & np.uint64(nb - 1)).astype(np.int64), minlength=nb)
+        b, left = _finish_bin(hist, need)
+        prefix |= b << lo
+        need = left
+        done = hist[b] == left or lo == 0
+        hi = lo
+    win = np.concatenate([above, comp[ties][comp[ties] >= np.uint64(prefix)]])
+    assert len(win) == k and (np.sort(win) == np.sort(comp[comp >= np.uint64(prefix)])).all()
+    p2 = 1 << max(k - 1, 0).bit_length()
+    assert _finish_smem(n, p2) <= MAX_SMEM - 1024  # keys, histogram, winners, tie list (and the static part)
+    s = np.zeros(p2, np.uint64)
+    s[:k] = win
+    s = _bitonic_desc(s)
+    assert (np.diff(s[:k].astype(np.float64)) < 0).all() and (s[k:] == 0).all()
+    return s[:k], ib
+
+
+def _finish_smem(n, p2):
+    return -(-n // 4) * 4 * 4 + (1 << DIGIT) * 4 + p2 * 8 + TIE_CAP * 2 + RANK_CAP * 8
+
+
+def _gated_rows(tfeats, nc, conf, mask, ml):
+    """The plain version's gated score rows (B, N) as fp32 numpy, in the flat index order."""
+    rows = []
+    for f in tfeats:
+        s = torch.sigmoid(f[..., 64:].float())
+        if mask is not None:
+            s = torch.where(torch.from_numpy(mask), s, 0.0)
+        rows.append(s.reshape(f.shape[0], -1) if ml else s.amax(-1).reshape(f.shape[0], -1))
+    s = torch.cat(rows, 1)
+    return torch.where(s > conf, s, -1.0).numpy()
+
+
+def _class_major_flat(shapes, nc):
+    """The flat index of each position of a multi-label row stored class-major (NCHW planes: level, class,
+    anchor), as the kernel's flat_index maps it."""
+    out, off = [], 0
+    for h, w in shapes:
+        local = np.arange(h * w)
+        out.append(((off + local)[None, :] * nc + np.arange(nc)[:, None]).reshape(-1))
+        off += h * w
+    return np.concatenate(out)
+
+
+@pytest.mark.parametrize("case", ["single", "multi", "nhwc-views", "k-ge-n", "k-ge-n-multi", "class-mask",
+                                  "class-mask-multi", "ties", "ties-multi", "nan", "nan-multi", "nc1-multi"])
+def test_finish_select_model_matches_plain_and_top_k(case):
+    """The finishing kernel's select, modelled in numpy on the gated rows, gives the plain version's candidates
+    (values bit for bit, indices, classes) and lax.top_k's; class-major storage (NCHW views) holds the same
+    composites as the flat order."""
+    feats, tfeats, mask, c = _case_inputs(case)
+    nc = c["nc"]
+    ml = c["ml"] and nc > 1
+    tmask = None if mask is None else torch.from_numpy(mask)
+    vals, bidx, cls = K.select_decode_plain(tfeats, STRIDES, nc, 16, 0.01, c["max_cand"], tmask,
+                                            multi_label=c["ml"])[:3]
+    gated = _gated_rows(tfeats, nc, 0.01, mask, ml)
+    n = gated.shape[1]
+    assert n <= FINISH_CAP
+    k = min(c["max_cand"], n)
+    jv, ji = jax.lax.top_k(jnp.asarray(gated), k)
+    for i in range(gated.shape[0]):
+        keys = _order_keys(gated[i])
+        flat = np.arange(n)
+        if ml and CASES[case][6]:  # stored class-major: the same composites, read in another order
+            storage = _class_major_flat(RECT, nc)  # the flat index of each storage position
+            assert np.array_equal(np.sort(storage), flat)
+            keys, flat = keys[storage], storage
+        comp, ib = _finish_model(keys, flat, k)
+        idx = (n - 1 - (comp & np.uint64((1 << ib) - 1)).astype(np.int64))
+        got_vals = _key_values((comp >> np.uint64(ib)).astype(np.uint32))
+        np.testing.assert_array_equal(got_vals.view(np.uint32), vals[i].numpy().view(np.uint32))
+        np.testing.assert_array_equal(idx, (bidx[i] * nc + cls[i].long() if ml else bidx[i]).numpy())
+        np.testing.assert_array_equal(idx, np.asarray(ji[i]))
+        np.testing.assert_array_equal(got_vals, np.asarray(jv[i]))
+
+
+def test_finish_select_model_takes_a_second_digit_where_the_first_crowds():
+    """Scores crowded into one quarter binade (the first digit, the key's top 11 bits, holds some 8,000 entries: a
+    max over 80 classes of logits 3 N(0, 1) - 4, as chip_smoke.py's predict maps): the second digit narrows the
+    candidates under RANK_CAP, and the model still equals the plain version and lax.top_k."""
+    rng = np.random.default_rng(7)
+    shapes = ((80, 80), (40, 40), (20, 20))
+    feats = _feats(rng, B=1, shapes=shapes, nc=80)
+    for f in feats:
+        f[..., 64:] = rng.standard_normal(f[..., 64:].shape).astype(np.float32) * 3.0 - 4.0
+    tfeats = [torch.from_numpy(f) for f in feats]
+    vals, bidx = K.select_decode_plain(tfeats, STRIDES, 80, 16, 1e-7, 512)[:2]
+    gated = _gated_rows(tfeats, 80, 1e-7, None, False)
+    keys = _order_keys(gated[0])
+    hist0 = np.bincount((keys >> 21).astype(np.int64), minlength=1 << DIGIT)
+    b0, need = _finish_bin(hist0, 512)
+    assert 512 - need + hist0[b0] > RANK_CAP  # the first digit alone leaves too many candidates
+    comp, ib = _finish_model(keys, np.arange(len(keys)), 512)
+    idx = len(keys) - 1 - (comp & np.uint64((1 << ib) - 1)).astype(np.int64)
+    np.testing.assert_array_equal(idx, bidx[0].numpy())
+    np.testing.assert_array_equal(_key_values((comp >> np.uint64(ib)).astype(np.uint32)), vals[0].numpy())
+    np.testing.assert_array_equal(idx, np.asarray(jax.lax.top_k(jnp.asarray(gated), 512)[1][0]))
+
+
+@pytest.mark.parametrize("k", [512, 16384])
+def test_finish_select_model_at_the_capacity(k):
+    """A row of exactly FINISH_CAP entries (single-label, three distinct logit values: long runs of ties) with K
+    512 and K = N (16,384 winners in 16,384 slots): the model equals lax.top_k and the plain version, and fits
+    the kernel's shared memory."""
+    shapes = ((120, 128), (30, 34), (2, 2))
+    rng = np.random.default_rng(k)
+    feats = _feats(rng, B=1, shapes=shapes, nc=3, n_values=3)
+    tfeats = [torch.from_numpy(f) for f in feats]
+    assert sum(h * w for h, w in shapes) == FINISH_CAP
+    vals, bidx = K.select_decode_plain(tfeats, STRIDES, 3, 16, 0.01, k)[:2]
+    gated = _gated_rows(tfeats, 3, 0.01, None, False)
+    comp, ib = _finish_model(_order_keys(gated[0]), np.arange(FINISH_CAP), k)
+    idx = FINISH_CAP - 1 - (comp & np.uint64((1 << ib) - 1)).astype(np.int64)
+    np.testing.assert_array_equal(idx, bidx[0].numpy())
+    np.testing.assert_array_equal(_key_values((comp >> np.uint64(ib)).astype(np.uint32)), vals[0].numpy())
+    np.testing.assert_array_equal(idx, np.asarray(jax.lax.top_k(jnp.asarray(gated), k)[1][0]))
+
+
+def _class_max_model(x, mask, f, top):
+    """ClassMax<true, top> on one anchor's logits x (nc,) in one pass without scores: the `top` (2 or 3) largest
+    logits (ties in class order), the first NaN and the first masked class; then f(m0), the first class among the
+    kept ones that tie it, and a rescan of the classes before that one only where every kept logit ties. Returns
+    (best, arg)."""
+    kept = []  # [(logit, class)], the largest first
+    nan_i = zero_i = -1
+    for c, v in enumerate(x):
+        if mask is not None and not mask[c]:
+            zero_i = c if zero_i < 0 else zero_i
+        elif np.isnan(v):
+            nan_i = c if nan_i < 0 else nan_i
+        elif len(kept) < top or v > kept[-1][0]:
+            at = next((s for s, (m, _) in enumerate(kept) if v > m), len(kept))
+            kept = (kept[:at] + [(v, c)] + kept[at:])[:top]
+    if nan_i >= 0:
+        return np.nan, nan_i
+    if not kept:
+        return 0.0, zero_i
+    best = f(kept[0][0])
+    arg = kept[0][1]
+    if len(kept) >= 2 and f(kept[1][0]) == best:
+        arg = min(arg, kept[1][1])
+        if len(kept) == top and f(kept[-1][0]) == best:  # the tie may reach below the kept logits
+            arg = next((c for c in range(arg) if (mask is None or mask[c]) and f(x[c]) == best), arg)
+    if best == 0.0 and 0 <= zero_i < arg:
+        arg = zero_i
+    return best, arg
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_class_max_one_pass_matches_amax_argmax(dtype):
+    """The single-label score pass's one-pass max and argmax (taken where the sigmoid is monotone: every score
+    function on these rows is, checked here) equals torch's amax / argmax of where(mask, sigmoid(x), 0): random
+    rows, equal logits, logits that saturate to 1 and underflow to 0 (ties of different logits), NaN, masks that
+    hide the max or every class."""
+    rng = np.random.default_rng(5)
+    nc = 16
+    rows = [rng.normal(0, 3, nc), np.full(nc, -2.0), rng.choice([-4.0, 1.0, 3.0], nc), rng.uniform(17, 40, nc),
+            rng.uniform(-120, -95, nc), np.where(np.arange(nc) == 5, np.nan, rng.normal(0, 3, nc)),
+            np.r_[rng.normal(0, 1, 8), np.full(8, 2.0)], np.linspace(-3, 3, nc)[::-1].copy()]
+    masks = [None, np.arange(nc) % 3 != 0, np.zeros(nc, bool), np.arange(nc) != 5]
+    f = lambda v: float(torch.sigmoid(torch.tensor(v, dtype=torch.float32).to(dtype)).float())
+    grid = torch.sort(torch.from_numpy(np.concatenate(rows)).float().to(dtype).float().nan_to_num(0.0)).values
+    fs = torch.sigmoid(grid.to(dtype)).float()
+    assert bool((fs[1:] >= fs[:-1]).all())  # monotone on every logit of the rows
+    for x in rows:
+        xq = torch.from_numpy(x).float().to(dtype).float().numpy()
+        for mask in masks:
+            s = torch.sigmoid(torch.from_numpy(xq).to(dtype)).float()
+            if mask is not None:
+                s = torch.where(torch.from_numpy(mask), s, 0.0)
+            for top in (2, 3):  # as the kernels keep them: for fp32 scores, for bf16 and fp16 ones
+                best, arg = _class_max_model(xq, mask, f, top)
+                assert arg == int(s.argmax()), (x, mask, top)
+                want = float(s.amax())
+                assert (np.isnan(best) and np.isnan(want)) or best == want

@@ -9,8 +9,10 @@ single-label) with fp32 NCHW-view maps and bf16 channels-last maps (the
 layouts predict's fp32 and bf16 nets give), and val's (B 16 at a 384x672
 rect, K 8,192, multi-label, fp32) in both layouts. For each, the op's
 device time (`chip_smoke.graph_ms`: a CUDA graph of 20 calls, replayed,
-the median) and the device time of each kernel the op launched over 10
-calls (torch.profiler's key_averages), per call, largest first.
+the median), its route (`select_decode_plan`: predict's rows take the
+finish route, the score pass and the finishing CTAs; val's the passes) and
+the device time of each kernel the op launched over 10 calls
+(torch.profiler's key_averages), per call, largest first.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ def main() -> int:
 
     from chip_smoke import K3_S640, card_line, graph_ms, k3_maps
     from yololite_tpu_torch.ops import cuda_build
-    from yololite_tpu_torch.ops.kernels import select_decode
+    from yololite_tpu_torch.ops.kernels import select_decode, select_decode_plan
 
     if not torch.cuda.is_available():
         print("k3_profile: no CUDA card is visible", file=sys.stderr)
@@ -51,7 +53,9 @@ def main() -> int:
         for _ in range(3):
             fn()
         torch.cuda.synchronize()
-        print(f"{name}: {graph_ms(fn):.4f} ms device (graph replay)", flush=True)
+        plan = select_decode_plan(feats, 80, 16, k, ml)
+        print(f"{name}: {graph_ms(fn):.4f} ms device (graph replay), route {plan['route']}, {plan['launches']} "
+              f"kernels a call, score pass {plan['score']}", flush=True)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(10):
                 fn()

@@ -32,8 +32,8 @@
 // operations bound most 3x3 and wide 1x1 convs. A bytes-bound conv moves about
 // one byte per output, so the epilogue's arithmetic (expf and two IEEE
 // divisions, some 45 instructions an output) costs more than the bytes: an
-// int8 output's activation + requant is a table lookup (see kTabBase). Three
-// routes, one launch each:
+// int8 output's activation + requant is a table lookup (see kTabBase). Four
+// routes, one launch each (numbered as plan() codes them, 4 = gemm1x1):
 //
 // 1. gemm (groups 1, Cin and Cout multiples of 8): an implicit GEMM on the int8
 //    tensor cores. M = B * Ho * Wo output pixels, N = Cout, K = taps * Cin,
@@ -54,6 +54,24 @@
 //    step two ahead are in flight. At a tile's last step the epilogue runs on
 //    the accumulators in registers, stages the tile in shared memory and writes
 //    it out in 16-byte coalesced stores, while the next tile's copies fly.
+// 4. gemm1x1 (kernel 1x1, stride 1, no padding, groups 1, Cin a multiple of 16,
+//    Cout of 8, where prefer_1x1 finds it faster than route 1: the float edges,
+//    and int8 convs by how its work items fill the card): the GEMM out = x w^T
+//    with A the plain (M, Cin) NHWC matrix, fed by TMA. Warp-specialised: one
+//    producer warp issues every load (2-D tensor maps, the 32-byte swizzle the
+//    wgmma descriptors read, zero fill past M and Cin) into mbarrier-tracked
+//    slots, and two consumer warpgroups (64 rows each of a 128-pixel M tile)
+//    issue the wgmma.m64nNk32.s32.s8.s8. An M tile's A stays in shared memory
+//    (one slot per 64-byte K step, two sets where they fit so the next tile's
+//    A loads during this one) while its N tiles walk Cout, so A is read once;
+//    B streams through a 4-slot ring. A bf16 or fp32 x is TMA-loaded raw into
+//    a 2-slot staging ring, and each consumer warpgroup quantizes its own 64
+//    rows (quantize8's arithmetic) into the A slot at the tile's first N tile,
+//    while the wgmmas of the step before run. The grid is persistent (one M
+//    tile after another per block), and a tile's epilogue (the same
+//    arithmetic, staged in shared memory, 16-byte stores) overlaps the loads of
+//    the next. Cin of 8 but not 16 stays on route 1: a tensor map's row pitch
+//    must be a multiple of 16 bytes.
 // 2. depthwise (groups == Cin == Cout, a multiple of 16, 3x3): nothing for a
 //    tensor core (K = 9 per channel). One thread per output pixel and 16
 //    channels: the 9 taps' 16-byte loads in flight together, the 144 weight
@@ -68,6 +86,7 @@
 // caller's device, allocates nothing, does not synchronise, and returns the
 // first CUDA error, that of the launch included.
 
+#include <cuda.h>  // CUtensorMap and its enums (the encoder lives in libcuda, found at run time: no -lcuda)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -75,7 +94,7 @@
 namespace {
 
 enum XType { kInt8 = 0, kBf16 = 1, kFp32 = 2 };
-enum Route { kGemm = 0, kDepthwise = 1, kDirect = 2 };
+enum Route { kGemm = 0, kDepthwise = 1, kDirect = 2, kGemm1x1 = 3 };
 
 constexpr int kStages = 4;  // ring slots: the step in the tensor cores, the one before it, two in flight
 constexpr int kChunk = 32;   // K bytes of one wgmma k32
@@ -95,7 +114,7 @@ struct Conv {
 };
 
 
-__device__ __forceinline__ int xbytes(int xtype) { return xtype == kInt8 ? 1 : xtype == kBf16 ? 2 : 4; }
+__host__ __device__ __forceinline__ int xbytes(int xtype) { return xtype == kInt8 ? 1 : xtype == kBf16 ? 2 : 4; }
 
 // ---------------- the epilogue and the quantize, shared by every route ----------------
 
@@ -114,6 +133,22 @@ __device__ __forceinline__ __nv_bfloat16 activate(__nv_bfloat16 yb, int act) {
 
 __device__ __forceinline__ __nv_bfloat16 epilogue(int acc, float scale, float bias, int act) {
   return activate(affine(acc, scale, bias), act);
+}
+
+// activate's bf16 with the SiLU's IEEE division replaced by a multiply with the approximate reciprocal where that
+// cannot change the bf16: q = v * rcp.approx(d) lies within 4 fp32 ulps of fl(v / d), so both round to the same
+// bf16 unless q's low 16 bits lie within 8 of the rounding point 0x8000; there (about one value in 4,000), and for
+// |v| >= 64 (d near overflow), the IEEE division decides. The same bits as activate, in fewer instructions.
+__device__ __forceinline__ __nv_bfloat16 activate_fast(__nv_bfloat16 yb, int act) {
+  if (act != 1) return activate(yb, act);
+  const float v = __bfloat162float(yb);
+  const float d = __fadd_rn(1.0f, expf(-v));
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(d));
+  const float q = __fmul_rn(v, r);
+  const uint32_t low = __float_as_uint(q) & 0xffffu;
+  if (!(fabsf(v) < 64.0f) || (low >= 0x8000u - 8 && low <= 0x8000u + 8)) return __float2bfloat16_rn(__fdiv_rn(v, d));
+  return __float2bfloat16_rn(q);
 }
 
 // int8(clamp(rint(v / s), -127, 127)) as torch computes it: rint rounds half to even (torch.round), the
@@ -147,6 +182,10 @@ __device__ __forceinline__ uint32_t requant(__nv_bfloat16 yb, float sout) {
 constexpr int kTabBase = 110;
 constexpr int kTabSlots = 27;
 constexpr int kTabBytes = 2 * kTabSlots * 128;  // 6,912; the validity word follows
+// gemm1x1 reads the same function uncompressed where its shared memory has room: one byte for every bf16 y (its
+// 16 bits the index, no arithmetic), after the compressed table and its validity word
+constexpr int kTabFullOff = kTabBytes + 16;
+constexpr int kTabFullBytes = 1 << 16;
 
 __device__ __forceinline__ int table_index(__nv_bfloat16 yb) {
   const int bits = __bfloat16_as_ushort(yb);
@@ -168,10 +207,8 @@ __device__ __forceinline__ uint32_t pack4(uint32_t a, uint32_t b, uint32_t c, ui
   return a | (b << 8) | (c << 16) | (d << 24);
 }
 
-// 8 channels of a bf16 x (the 16 bytes of a) or an fp32 x (the 32 bytes of a, b), quantized at s: 8 int8 in
-// two words
-__device__ __forceinline__ uint2 quantize8(uint4 a, uint4 b, int xtype, float s) {
-  float v[8];
+// the 8 floats of 8 channels of a bf16 x (the 16 bytes of a) or an fp32 x (the 32 bytes of a, b)
+__device__ __forceinline__ void unpack8(uint4 a, uint4 b, int xtype, float (&v)[8]) {
   if (xtype == kBf16) {
     const uint32_t words[4] = {a.x, a.y, a.z, a.w};
 #pragma unroll
@@ -183,6 +220,13 @@ __device__ __forceinline__ uint2 quantize8(uint4 a, uint4 b, int xtype, float s)
     v[0] = __uint_as_float(a.x); v[1] = __uint_as_float(a.y); v[2] = __uint_as_float(a.z); v[3] = __uint_as_float(a.w);
     v[4] = __uint_as_float(b.x); v[5] = __uint_as_float(b.y); v[6] = __uint_as_float(b.z); v[7] = __uint_as_float(b.w);
   }
+}
+
+// 8 channels of a bf16 x (the 16 bytes of a) or an fp32 x (the 32 bytes of a, b), quantized at s: 8 int8 in
+// two words
+__device__ __forceinline__ uint2 quantize8(uint4 a, uint4 b, int xtype, float s) {
+  float v[8];
+  unpack8(a, b, xtype, v);
   uint32_t q[8];
 #pragma unroll
   for (int i = 0; i < 8; ++i) q[i] = quantize(v[i], s);
@@ -193,6 +237,18 @@ __device__ __forceinline__ uint2 quantize8(uint4 a, uint4 b, int xtype, float s)
 __device__ __forceinline__ uint2 quantize8(const void* src, int xtype, float s) {
   const uint4* v = static_cast<const uint4*>(src);
   return quantize8(v[0], xtype == kFp32 ? v[1] : v[0], xtype, s);
+}
+
+// quantize8's int8 by quantize_fast (its bits: the IEEE division where the multiply by fl(1 / s) could round
+// otherwise), from memory
+__device__ __forceinline__ uint2 quantize8_fast(const void* src, int xtype, float s, float inv_s) {
+  const uint4* m = static_cast<const uint4*>(src);
+  float v[8];
+  unpack8(m[0], xtype == kFp32 ? m[1] : m[0], xtype, v);
+  uint32_t q[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) q[i] = quantize_fast(v[i], s, inv_s);
+  return make_uint2(pack4(q[0], q[1], q[2], q[3]), pack4(q[4], q[5], q[6], q[7]));
 }
 
 __device__ __forceinline__ int sbyte(uint32_t word, int i) {  // the i-th int8 of a word, sign-extended
@@ -580,6 +636,309 @@ __global__ void __launch_bounds__(128 * WG, 1) int8_conv_gemm(Conv p, int granul
   cp_async_wait<0>();
 }
 
+// ---------------- route 4: 1x1 convs by TMA, warp-specialised ----------------
+
+constexpr int k1BM = 128;          // output pixels of an M tile: two consumer warpgroups of 64 rows
+constexpr int k1Threads = 288;     // the two consumer warpgroups (threads 0-255) and the producer warp
+constexpr int k1Step = 64;         // K bytes a step: two wgmma k32 chunks
+constexpr int k1SlotA = k1BM * k1Step;  // an A slot: chunk c's 128 rows x 32 bytes at c * 4,096
+constexpr int k1BStages = 4;       // B ring slots
+constexpr int k1RawStages = 2;     // staging slots of a float x's raw tile (128 rows x 64 elements)
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// arrive and add `bytes` of TMA transactions to the phase
+__device__ __forceinline__ void mbar_expect(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
+}
+
+// until the phase of this parity has completed (a fresh barrier's phase "before 0", parity 1, counts as complete);
+// a wait of more than 2^32 cycles (seconds: a fault, never a slow load) traps, so the launch fails, not hangs
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  const long long start = clock64();
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (!done && clock64() - start > (1LL << 32)) __trap();
+  } while (!done);
+}
+
+// a 2-D TMA load of the box at (column c0, row c1) of the tensor map into shared memory, completing on bar
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int c0, int c1, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(
+          dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// The shared memory of a gemm1x1 block: A slots (a_sets x k_steps), the B ring, the raw ring (float x), the staged
+// output tile (rows of BN outputs of `oes` bytes), the requant table, scale and bias, then the barriers (a_full,
+// a_empty per A slot; b_full, b_empty; raw_full, raw_empty)
+struct Smem1x1 {
+  int a, b, raw, staged, table, params, bars, total;
+};
+
+__host__ __device__ inline int stage_row_1x1(int bn, int oes) { return bn * oes + 16; }
+
+__host__ __device__ inline Smem1x1 smem_1x1(int bn, int xes, int oes, int k_steps, int a_sets, int cout,
+                                             int full_tab) {
+  Smem1x1 L;
+  int at = 0;
+  L.a = at;
+  at += a_sets * k_steps * k1SlotA;
+  L.b = at;
+  at += k1BStages * bn * k1Step;
+  L.raw = at;
+  at += xes == 1 ? 0 : k1RawStages * k1BM * k1Step * xes;
+  L.staged = at;
+  at += k1BM * stage_row_1x1(bn, oes);
+  L.table = at;
+  at += full_tab ? kTabFullBytes : kTabBytes;
+  L.params = at;
+  at += 8 * cout;
+  L.bars = (at + 7) / 8 * 8;
+  at = L.bars + 8 * (2 * a_sets * k_steps + 2 * k1BStages + 2 * k1RawStages);
+  L.total = at;
+  return L;
+}
+
+// Persistent: block i takes work items i, i + grid, ...; item w is M tile w / groups and the w % groups-th group
+// of its N tiles (groups > 1 only where the M tiles alone would leave the card's blocks idle); an item walks its N
+// tiles (tile nt covers output channels nt * BN ...), each N tile its K steps. A of an item (k_steps slots) is
+// loaded once, at its first N tile; B of every (N tile, K step) goes through the ring.
+template <int BN>
+__global__ void __launch_bounds__(k1Threads, 1)
+    int8_conv_1x1(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_b, Conv p,
+                  int a_sets, int groups, int full_tab) {
+  extern __shared__ __align__(1024) uint8_t smem[];
+  const int tid = threadIdx.x;
+  const int M = p.b * p.ho * p.wo;
+  const int m_tiles = (M + k1BM - 1) / k1BM, per_group = p.cout / BN / groups, items = m_tiles * groups;
+  const int k_steps = (p.cin + k1Step - 1) / k1Step;
+  const int xes = xbytes(p.xtype);
+  const bool quant = p.xtype != kInt8, q8 = p.sout > 0.0f;
+  // int8 out by the table: whole (every bf16 y's entry computed, no compression to check) where planned, else the
+  // compressed one where its check passed
+  const bool whole = full_tab && p.table != nullptr && q8, tab = whole || use_table(p);
+  const Smem1x1 L = smem_1x1(BN, xes, q8 ? 1 : 2, k_steps, a_sets, p.cout, whole);
+  float* s_scale = reinterpret_cast<float*>(smem + L.params);
+  float* s_bias = s_scale + p.cout;
+  const uint8_t* s_tab = smem + L.table;
+  const uint32_t bars = smem_addr(smem + L.bars);
+  const int n_a = a_sets * k_steps;
+  auto a_full = [&](int i) { return bars + 8 * i; };
+  auto a_empty = [&](int i) { return bars + 8 * (n_a + i); };
+  auto b_full = [&](int i) { return bars + 8 * (2 * n_a + i); };
+  auto b_empty = [&](int i) { return bars + 8 * (2 * n_a + k1BStages + i); };
+  auto raw_full = [&](int i) { return bars + 8 * (2 * n_a + 2 * k1BStages + i); };
+  auto raw_empty = [&](int i) { return bars + 8 * (2 * n_a + 2 * k1BStages + k1RawStages + i); };
+
+  for (int i = tid; i < p.cout; i += k1Threads) {
+    s_scale[i] = p.scale[i];
+    s_bias[i] = p.bias[i];
+  }
+  if (tab)
+    for (int i = tid; i < (whole ? kTabFullBytes : kTabBytes) / 16; i += k1Threads)
+      reinterpret_cast<uint4*>(smem + L.table)[i] =
+          reinterpret_cast<const uint4*>(p.table + (whole ? kTabFullOff : 0))[i];
+  if (tid == 0) {
+    for (int i = 0; i < n_a; ++i) {
+      mbar_init(a_full(i), 1);   // the producer's expect_tx
+      mbar_init(a_empty(i), 8);  // lane 0 of each consumer warp, after its wgmma wait
+    }
+    for (int i = 0; i < k1BStages; ++i) {
+      mbar_init(b_full(i), 1);
+      mbar_init(b_empty(i), 8);
+    }
+    for (int i = 0; i < k1RawStages; ++i) {
+      mbar_init(raw_full(i), 1);
+      mbar_init(raw_empty(i), 2);  // one thread of each consumer warpgroup, after its named barrier
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= 256) {  // the producer warp: one lane issues every load, in the order the consumers take them
+    if (tid == 256) {
+      int bi = 0, ri = 0, mi = 0;
+      for (int w = blockIdx.x; w < items; w += gridDim.x, ++mi) {
+        const int mt = w / groups, nt0 = (w - mt * groups) * per_group;
+        const int set = mi % a_sets;
+        const uint32_t a_parity = (mi / a_sets) & 1;
+        for (int nt = nt0; nt < nt0 + per_group; ++nt) {
+          for (int ks = 0; ks < k_steps; ++ks) {
+            const int chunks = min(2, (p.cin - ks * k1Step + kChunk - 1) / kChunk);
+            if (nt == nt0 && !quant) {  // A's step into its slot, once per item
+              const int slot = set * k_steps + ks;
+              mbar_wait(a_empty(slot), a_parity ^ 1);
+              mbar_expect(a_full(slot), chunks * k1BM * kChunk);
+              for (int c = 0; c < chunks; ++c)
+                tma_load(smem_addr(smem + L.a + slot * k1SlotA + c * (k1BM * kChunk)), &map_a,
+                         ks * k1Step + c * kChunk, mt * k1BM, a_full(slot));
+            } else if (nt == nt0) {  // a float x's raw step into the staging ring
+              const int slot = ri % k1RawStages;
+              mbar_wait(raw_empty(slot), ((ri / k1RawStages) & 1) ^ 1);
+              mbar_expect(raw_full(slot), k1BM * k1Step * xes);
+              tma_load(smem_addr(smem + L.raw + slot * k1BM * k1Step * xes), &map_a, ks * k1Step, mt * k1BM,
+                       raw_full(slot));
+              ++ri;
+            }
+            const int slot = bi % k1BStages;
+            mbar_wait(b_empty(slot), ((bi / k1BStages) & 1) ^ 1);
+            mbar_expect(b_full(slot), chunks * BN * kChunk);
+            for (int c = 0; c < chunks; ++c)
+              tma_load(smem_addr(smem + L.b + slot * BN * k1Step + c * (BN * kChunk)), &map_b,
+                       ks * k1Step + c * kChunk, nt * BN, b_full(slot));
+            ++bi;
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // the consumers: warpgroup wg owns rows wg * 64 ... of each M tile
+  const int wg = tid >> 7, wt = tid & 127;
+  const int lane = tid & 31, warp = (tid >> 5) & 3;
+  const int r0 = warp * 16 + (lane >> 2), c0 = 2 * (lane & 3);
+  const int stage_row = stage_row_1x1(BN, q8 ? 1 : 2);
+  uint8_t* staged = smem + L.staged + wg * 64 * stage_row;
+  uint32_t acc[BN / 2];
+  int bi = 0, ri = 0, mi = 0;
+  for (int w = blockIdx.x; w < items; w += gridDim.x, ++mi) {
+    const int mt = w / groups, nt0 = (w - mt * groups) * per_group;
+    const int set = quant ? 0 : mi % a_sets;
+    const uint32_t a_parity = (mi / a_sets) & 1;
+    for (int nt = nt0; nt < nt0 + per_group; ++nt) {
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc[i] = 0u;
+      const bool last_nt = nt == nt0 + per_group - 1;
+      for (int ks = 0; ks < k_steps; ++ks) {
+        const int chunks = min(2, (p.cin - ks * k1Step + kChunk - 1) / kChunk);
+        const int a_slot = set * k_steps + ks;
+        uint8_t* sa = smem + L.a + a_slot * k1SlotA;
+        if (nt == nt0 && quant) {  // this warpgroup's 64 rows of the raw step, quantized into the A slot
+          const int slot = ri % k1RawStages;
+          mbar_wait(raw_full(slot), (ri / k1RawStages) & 1);
+          const uint8_t* raw = smem + L.raw + slot * k1BM * k1Step * xes;
+          for (int g = wt; g < 64 * 8; g += 128) {  // 8 elements (a 16- or 32-byte run of a row) at a time
+            const int r = wg * 64 + (g >> 3), kg = g & 7;
+            const uint2 q = quantize8_fast(raw + (r * k1Step + kg * 8) * xes, p.xtype, p.sin, p.inv_sin);
+            *reinterpret_cast<uint2*>(sa + (kg >> 2) * (k1BM * kChunk) + swizzled_offset(r, (kg & 3) * 8)) = q;
+          }
+          fence_proxy_async();  // the stores, visible to the wgmmas
+          named_sync(1 + wg, 128);
+          if (wt == 0) mbar_arrive(raw_empty(slot));
+          ++ri;
+        } else if (nt == nt0) {
+          mbar_wait(a_full(a_slot), a_parity);
+        }
+        const int b_slot = bi % k1BStages;
+        mbar_wait(b_full(b_slot), (bi / k1BStages) & 1);
+        const uint32_t a = smem_addr(sa + wg * 64 * kChunk);
+        const uint32_t b = smem_addr(smem + L.b + b_slot * BN * k1Step);
+        fence_operands(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int c = 0; c < 2; ++c)
+          if (c < chunks)
+            Wgmma<BN>::mma(acc, smem_desc(a + c * (k1BM * kChunk)), smem_desc(b + c * (BN * kChunk)));
+        wgmma_commit();
+        wgmma_wait<1>();  // the step before is done: its slots go back
+        fence_operands(acc);
+        if (ks > 0 && lane == 0) {
+          mbar_arrive(b_empty((bi - 1) % k1BStages));
+          if (last_nt && !quant) mbar_arrive(a_empty(a_slot - 1));
+        }
+        ++bi;
+      }
+      wgmma_wait<0>();
+      fence_operands(acc);
+      if (lane == 0) {
+        mbar_arrive(b_empty((bi - 1) % k1BStages));
+        if (last_nt && !quant) mbar_arrive(a_empty(set * k_steps + k_steps - 1));
+      }
+      // the epilogue in registers, into this warpgroup's 64 staged rows, then out in 16- (or 8-) byte stores
+      const int n0 = nt * BN;
+      if (whole) {  // int8 out: the table's byte at y's 16 bits
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; e += 2) {
+            const int r = r0 + 8 * (e >> 1), col = n0 + 8 * j + c0;
+            const uint32_t q0 = s_tab[__bfloat16_as_ushort(
+                affine(static_cast<int>(acc[4 * j + e]), s_scale[col], s_bias[col]))];
+            const uint32_t q1 = s_tab[__bfloat16_as_ushort(
+                affine(static_cast<int>(acc[4 * j + e + 1]), s_scale[col + 1], s_bias[col + 1]))];
+            *reinterpret_cast<uint16_t*>(staged + r * stage_row + col - n0) = static_cast<uint16_t>(q0 | (q1 << 8));
+          }
+        }
+      } else if (tab) {
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; e += 2) {
+            const int r = r0 + 8 * (e >> 1), col = n0 + 8 * j + c0;
+            const uint32_t q0 = s_tab[table_index(affine(static_cast<int>(acc[4 * j + e]), s_scale[col], s_bias[col]))];
+            const uint32_t q1 = s_tab[table_index(
+                affine(static_cast<int>(acc[4 * j + e + 1]), s_scale[col + 1], s_bias[col + 1]))];
+            *reinterpret_cast<uint16_t*>(staged + r * stage_row + col - n0) = static_cast<uint16_t>(q0 | (q1 << 8));
+          }
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; e += 2) {
+            const int r = r0 + 8 * (e >> 1), col = n0 + 8 * j + c0;
+            const __nv_bfloat16 y0 =
+                activate_fast(affine(static_cast<int>(acc[4 * j + e]), s_scale[col], s_bias[col]), p.act);
+            const __nv_bfloat16 y1 =
+                activate_fast(affine(static_cast<int>(acc[4 * j + e + 1]), s_scale[col + 1], s_bias[col + 1]), p.act);
+            uint8_t* dst = staged + r * stage_row;
+            if (q8)
+              *reinterpret_cast<uint16_t*>(dst + col - n0) =
+                  static_cast<uint16_t>(requant(y0, p.sout) | (requant(y1, p.sout) << 8));
+            else
+              *reinterpret_cast<uint32_t*>(dst + 2 * (col - n0)) = bf16x2(y0, y1);
+          }
+        }
+      }
+      named_sync(1 + wg, 128);
+      const int es = q8 ? 1 : 2;
+      const int vec = BN * es % 16 == 0 ? 16 : 8;
+      const int per_row = BN * es / vec;
+      const int m0 = mt * k1BM + wg * 64;
+      for (int v = wt; v < 64 * per_row; v += 128) {
+        const int r = v / per_row, cv = v - r * per_row;
+        if (m0 + r >= M) break;  // rows ascend with v
+        uint8_t* dst = static_cast<uint8_t*>(p.out) + ((size_t)(m0 + r) * p.cout + n0) * es + cv * vec;
+        const uint8_t* src = staged + r * stage_row + cv * vec;
+        if (vec == 16)
+          *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+        else
+          *reinterpret_cast<uint2*>(dst) = *reinterpret_cast<const uint2*>(src);
+      }
+      named_sync(1 + wg, 128);  // the staged rows are free for the next tile
+    }
+  }
+}
+
 // ---------------- route 2: depthwise 3x3 ----------------
 
 constexpr int kDwThreads = 256;
@@ -820,6 +1179,7 @@ __global__ void __launch_bounds__(256) int8_conv_table_kernel(uint8_t* table, in
   const int bits = blockIdx.x * 256 + threadIdx.x;  // every bf16 value
   const int e = (bits >> 7) & 0xff;
   const uint32_t q = requant(activate(__ushort_as_bfloat16(static_cast<unsigned short>(bits)), act), sout);
+  table[kTabFullOff + bits] = static_cast<uint8_t>(q);
   // slots 0 and 25 hold many exponents: the first of each writes the entry, the rest must equal it
   const int first = e <= kTabBase ? 0 : e >= kTabBase + kTabSlots - 2 && e < 255 ? kTabBase + kTabSlots - 2 : e;
   if (e == first) {
@@ -835,30 +1195,141 @@ __global__ void __launch_bounds__(256) int8_conv_table_kernel(uint8_t* table, in
 
 struct Plan {
   int route, bn, wg, granule;
+  int a_sets, groups, blocks, whole;  // gemm1x1's A sets, N groups, blocks an SM, and whether the table is whole
 };
 
 bool aligned(const void* ptr, int n) { return reinterpret_cast<uintptr_t>(ptr) % n == 0; }
 
-Plan plan(const Conv& p) {
-  const bool a16 = aligned(p.x, 16) && aligned(p.w, 16) && aligned(p.out, 16);
-  if (p.groups == 1 && p.cin % 8 == 0 && p.cout % 8 == 0 && a16) {
-    // N tile: Cout itself up to 128, else the widest that divides it (Cout 256 and 512 run as 2 and 4 N
-    // tiles of 128: measured faster than one N tile of 256, whose 128 accumulators a thread allow one block
-    // an SM)
-    static const int kBN[] = {128, 80, 64, 32, 16, 8};  // instantiated N tiles, widest first
-    int bn = 8;
-    for (int n : kBN)
-      if (n == p.cout || (p.cout > n && p.cout % n == 0)) {
-        bn = n;
-        break;
+constexpr int kMaxSmem = 232448;  // what a block can have on Hopper
+
+int n_tile(int cout) {
+  // Cout itself up to 128, else the widest that divides it (Cout 256 and 512 run as 2 and 4 N tiles of 128:
+  // measured faster on route 1 than one N tile of 256, whose 128 accumulators a thread allow one block an SM)
+  static const int kBN[] = {128, 80, 64, 32, 16, 8};  // instantiated N tiles, widest first
+  for (int n : kBN)
+    if (n == cout || (cout > n && cout % n == 0)) return n;
+  return 8;
+}
+
+int device_sms() {  // the current device's SM count, asked once per device
+  static int sms[64] = {0};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
+  if (!sms[dev] && cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) sms[dev] = 0;
+  return sms[dev];
+}
+
+// blocks of int8_conv_1x1<BN> an SM holds at this dynamic shared memory (the limit raised first), asked once per
+// (device, size); 0 where the query fails
+template <int BN>
+int blocks_1x1_t(int smem) {
+  static int raised[64] = {0}, sizes[64][16] = {{0}}, blocks[64][16] = {{0}};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
+  if (!raised[dev]) {
+    if (cudaFuncSetAttribute(int8_conv_1x1<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem) != cudaSuccess)
+      return 0;
+    raised[dev] = 1;
+  }
+  for (int i = 0; i < 16 && sizes[dev][i]; ++i)
+    if (sizes[dev][i] == smem) return blocks[dev][i];
+  int n = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, int8_conv_1x1<BN>, k1Threads, smem) != cudaSuccess) return 0;
+  for (int i = 0; i < 16; ++i)
+    if (!sizes[dev][i]) {
+      sizes[dev][i] = smem;
+      blocks[dev][i] = n;
+      break;
+    }
+  return n;
+}
+
+int blocks_1x1(int bn, int smem) {
+  switch (bn) {
+    case 128: return blocks_1x1_t<128>(smem);
+    case 80: return blocks_1x1_t<80>(smem);
+    case 64: return blocks_1x1_t<64>(smem);
+    case 32: return blocks_1x1_t<32>(smem);
+    case 16: return blocks_1x1_t<16>(smem);
+    default: return blocks_1x1_t<8>(smem);
+  }
+}
+
+// Whether gemm1x1 (its plan q) takes a conv it can run, from how q's items (an M tile of 128 pixels and a group
+// of N tiles) fill the card's block slots (SMs x q.blocks) and in how many rounds; by chip_smoke.py's per-conv
+// tables of yolo11n's and yolo11m's 1x1 convs on both routes at batch 32 and batch 1 (NVIDIA H100 80GB HBM3, 700 W):
+// - a float x: always (its quantize leaves the loads' path: 0.41-0.62x the time of the route before);
+// - an int8 x in whole 32-byte chunks of Cin (a K tail inside a chunk: 0.82-1.07x), either two blocks an SM (an
+//   N tile of at most 80) over three rounds or more (one block's epilogue overlaps the other's loads: 0.80-0.96x),
+//   or one block an SM, one N tile an item and at most two rounds (the N groups spread few M tiles over idle SMs
+//   and each block reads its A once: 0.63-0.96x).
+// Elsewhere the route before it (more and smaller blocks: M tiles of 64 where they are few) keeps the conv: two
+// blocks an SM in one or two rounds (0.86-1.22x on gemm1x1, slower on 18 of 30 convs, 3% faster or more on 5, 1%
+// slower summed), one block an SM walking two N tiles or more an item (0.98-1.21x), or one N tile an item over three
+// rounds or more (1.00-1.16x). Blocks an SM other than 1 or 2 were not measured: those convs keep it too.
+bool prefer_1x1(const Conv& p, const Plan& q) {
+  if (p.xtype != kInt8) return true;
+  const long long m_tiles = ((long long)p.b * p.ho * p.wo + k1BM - 1) / k1BM, items = m_tiles * q.groups;
+  const long long slots = (long long)device_sms() * q.blocks, rounds = (items + slots - 1) / slots;
+  const int per_item = p.cout / q.bn / q.groups;  // N tiles an item walks
+  return p.cin % 32 == 0 &&
+         ((q.blocks == 2 && rounds >= 3) || (q.blocks == 1 && per_item == 1 && rounds <= 2));
+}
+
+// gemm1x1's plan for a conv it can run (kernel 1x1, stride 1, no padding, groups 1, Cin a multiple of 16, Cout of
+// 8, 16-byte aligned, shared memory that fits), else a plan of route -1
+Plan plan_1x1(const Conv& p, bool a16) {
+  if (!(p.groups == 1 && p.kh == 1 && p.kw == 1 && p.stride == 1 && p.pad == 0 && p.cin % 16 == 0 &&
+        p.cout % 8 == 0 && a16))
+    return {-1, 0, 0, 0, 0, 0, 0, 0};
+  // two sets of A slots let an int8 x's next item load during this one's N tiles (a float x's A slots are written
+  // by the consumers); the N tiles split into groups (powers of two) while the M tiles alone would not give every
+  // block of the card one item
+  const int bn = n_tile(p.cout), k_steps = (p.cin + k1Step - 1) / k1Step, xes = xbytes(p.xtype);
+  const int oes = p.sout > 0.0f ? 1 : 2;
+  // the most blocks an SM (a block's epilogue, which bounds these convs, overlaps another's loads and wgmmas),
+  // then the whole table (it spares some 12 instructions an int8 output), then two sets of A slots
+  int best_blocks = 0, best_whole = 0, best_sets = 0;
+  for (int whole = oes == 1 ? 1 : 0; whole >= 0; --whole)
+    for (int sets = p.xtype == kInt8 ? 2 : 1; sets >= 1; --sets) {
+      const int bytes = smem_1x1(bn, xes, oes, k_steps, sets, p.cout, whole).total;
+      const int blocks = bytes <= kMaxSmem ? blocks_1x1(bn, bytes) : 0;
+      if (blocks > best_blocks) {
+        best_blocks = blocks;
+        best_whole = whole;
+        best_sets = sets;
       }
+    }
+  if (best_blocks > 0) {
+    const long long m_tiles = ((long long)p.b * p.ho * p.wo + k1BM - 1) / k1BM, n_tiles = p.cout / bn;
+    const long long slots = (long long)device_sms() * best_blocks;
+    int groups = 1;
+    while (2 * groups <= n_tiles && n_tiles % (2 * groups) == 0 && m_tiles * groups < slots) groups *= 2;
+    return {kGemm1x1, bn, 2, 16, best_sets, groups, best_blocks, best_whole};
+  }
+  return {-1, 0, 0, 0, 0, 0, 0, 0};
+}
+
+// which route plan() may take: its own choice, the route before gemm1x1, or gemm1x1 wherever it can run (the last
+// two for timing the routes side by side: int8_conv_pick)
+enum Pick { kPickPlan = 0, kPickGemm = 1, kPick1x1 = 2 };
+
+// the route of a conv
+Plan plan(const Conv& p, int pick = kPickPlan) {
+  const bool a16 = aligned(p.x, 16) && aligned(p.w, 16) && aligned(p.out, 16);
+  if (pick != kPickGemm) {
+    const Plan q = plan_1x1(p, a16);
+    if (q.route == kGemm1x1 && (pick == kPick1x1 || prefer_1x1(p, q))) return q;
+  }
+  if (p.groups == 1 && p.cin % 8 == 0 && p.cout % 8 == 0 && a16) {
+    const int bn = n_tile(p.cout);
     const long long m = (long long)p.b * p.ho * p.wo;
     const long long tiles128 = (m + 127) / 128 * (p.cout / bn);
-    return {kGemm, bn, tiles128 >= 2 * 132 ? 2 : 1, p.cin % 16 == 0 ? 16 : 8};
+    return {kGemm, bn, tiles128 >= 2 * 132 ? 2 : 1, p.cin % 16 == 0 ? 16 : 8, 0, 0, 0, 0};
   }
   if (p.groups == p.cin && p.cin == p.cout && p.cin % 16 == 0 && p.kh == 3 && p.kw == 3 && a16)
-    return {kDepthwise, 0, 0, 0};
-  return {kDirect, 0, 0, 0};
+    return {kDepthwise, 0, 0, 0, 0, 0, 0, 0};
+  return {kDirect, 0, 0, 0, 0, 0, 0, 0};
 }
 
 int gemm_smem(int bn, int wg, int cout) {
@@ -879,8 +1350,6 @@ int stem_smem(const Conv& p) {  // the stem kernel's packed weights and input ti
 bool stem(const Conv& p) { return p.groups == 1 && p.kh * p.kw * p.cin <= 32 && stem_smem(p) <= 48 * 1024; }
 
 int direct_smem(const Conv& p) { return stem(p) ? stem_smem(p) : kOC * p.kh * p.kw * (p.cin / p.groups); }
-
-constexpr int kMaxSmem = 232448;  // what a block can have on Hopper
 
 template <int BN, int WG>
 cudaError_t launch_gemm(const Conv& p, int granule, cudaStream_t stream) {
@@ -918,14 +1387,81 @@ cudaError_t launch_gemm(const Conv& p, int granule, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// cuTensorMapEncodeTiled, from libcuda, through the runtime's entry-point query (so the library needs no -lcuda)
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault,
+                                                             &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(f);
+  }
+  return fn;
+}
+
+// a row-major (rows, cols) matrix of `es`-byte elements at ptr as a 2-D tensor map with boxes of (box_rows,
+// box_cols); out of bounds reads as zero
+bool tensor_map(CUtensorMap* map, const void* ptr, CUtensorMapDataType type, int es, long long rows, long long cols,
+                int box_rows, int box_cols, CUtensorMapSwizzle swizzle) {
+  const EncodeTiled encode = encode_tiled();
+  if (!encode) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols * es)};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols), static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode(map, type, 2, const_cast<void*>(ptr), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int BN>
+cudaError_t launch_1x1(const Conv& p, const Plan& pl, cudaStream_t stream) {
+  const long long m = (long long)p.b * p.ho * p.wo;
+  const int xes = xbytes(p.xtype);
+  CUtensorMap map_a, map_b;
+  const bool ok =
+      (p.xtype == kInt8 ? tensor_map(&map_a, p.x, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, m, p.cin, k1BM, kChunk,
+                                     CU_TENSOR_MAP_SWIZZLE_32B)
+                        : tensor_map(&map_a, p.x,
+                                     p.xtype == kBf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                                      : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                                     xes, m, p.cin, k1BM, k1Step, CU_TENSOR_MAP_SWIZZLE_NONE)) &&
+      tensor_map(&map_b, p.w, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, p.cout, p.cin, BN, kChunk, CU_TENSOR_MAP_SWIZZLE_32B);
+  if (!ok) return cudaErrorInvalidValue;
+  const int smem =
+      smem_1x1(BN, xes, p.sout > 0.0f ? 1 : 2, (p.cin + k1Step - 1) / k1Step, pl.a_sets, p.cout, pl.whole).total;
+  const long long items = (m + k1BM - 1) / k1BM * pl.groups, slots = (long long)device_sms() * pl.blocks;
+  const unsigned grid = static_cast<unsigned>(items < slots ? items : slots);
+  int8_conv_1x1<BN><<<grid, k1Threads, smem, stream>>>(map_a, map_b, p, pl.a_sets, pl.groups, pl.whole);
+  return cudaGetLastError();
+}
+
 template <int BN>
 cudaError_t launch_gemm_bn(const Conv& p, const Plan& pl, cudaStream_t stream) {
   return pl.wg == 2 ? launch_gemm<BN, 2>(p, pl.granule, stream) : launch_gemm<BN, 1>(p, pl.granule, stream);
 }
 
-cudaError_t launch(const Conv& p, cudaStream_t stream) {
-  const Plan pl = plan(p);
+cudaError_t launch(const Conv& p, cudaStream_t stream, int pick) {
+  const Plan pl = plan(p, pick);
   const long long npix = (long long)p.b * p.ho * p.wo;
+  if (pl.route == kGemm1x1) {
+    switch (pl.bn) {
+      case 128: return launch_1x1<128>(p, pl, stream);
+      case 80: return launch_1x1<80>(p, pl, stream);
+      case 64: return launch_1x1<64>(p, pl, stream);
+      case 32: return launch_1x1<32>(p, pl, stream);
+      case 16: return launch_1x1<16>(p, pl, stream);
+      default: return launch_1x1<8>(p, pl, stream);
+    }
+  }
   if (pl.route == kGemm) {
     switch (pl.bn) {
       case 128: return launch_gemm_bn<128>(p, pl, stream);
@@ -965,24 +1501,42 @@ bool valid(const Conv& p) {
          (p.cout + kOC - 1) / kOC <= 65535 && p.b <= 65535;
 }
 
+int run(const void* x, const void* w, const void* scale, const void* bias, void* out, int b, int h, int w_in,
+        int cin, int ho, int wo, int cout, int kh, int kw, int stride, int pad, int groups, int act, int xtype,
+        float sout, float sin, const void* table, int device, void* stream, int pick) {
+  const Conv p{x,    static_cast<const int8_t*>(w), static_cast<const float*>(scale), static_cast<const float*>(bias),
+               out,  b, h, w_in, cin, ho, wo, cout, kh, kw, stride, pad, groups, act, xtype, sout, sin,
+               static_cast<const uint8_t*>(table), 1.0f / sin};  // sin 0 (an all-zero calibration): inf
+  if (!valid(p) || pick < kPickPlan || pick > kPick1x1) return static_cast<int>(cudaErrorInvalidValue);
+  if (pick == kPick1x1 && plan(p, pick).route != kGemm1x1) return static_cast<int>(cudaErrorInvalidValue);
+  if (b == 0) return 0;
+  // nvcc links this library with its own CUDA runtime, whose current device is not PyTorch's
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(launch(p, static_cast<cudaStream_t>(stream), pick));
+}
+
 }  // namespace
 
 extern "C" int int8_conv(const void* x, const void* w, const void* scale, const void* bias, void* out, int b, int h,
                          int w_in, int cin, int ho, int wo, int cout, int kh, int kw, int stride, int pad, int groups,
                          int act, int xtype, float sout, float sin, const void* table, int device, void* stream) {
-  const Conv p{x,    static_cast<const int8_t*>(w), static_cast<const float*>(scale), static_cast<const float*>(bias),
-               out,  b, h, w_in, cin, ho, wo, cout, kh, kw, stride, pad, groups, act, xtype, sout, sin,
-               static_cast<const uint8_t*>(table), 1.0f / sin};  // sin 0 (an all-zero calibration): inf
-  if (!valid(p)) return static_cast<int>(cudaErrorInvalidValue);
-  if (b == 0) return 0;
-  // nvcc links this library with its own CUDA runtime, whose current device is not PyTorch's
-  const cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(launch(p, static_cast<cudaStream_t>(stream)));
+  return run(x, w, scale, bias, out, b, h, w_in, cin, ho, wo, cout, kh, kw, stride, pad, groups, act, xtype, sout,
+             sin, table, device, stream, kPickPlan);
+}
+
+// int8_conv on a route the caller picks (1: the route before gemm1x1, 2: gemm1x1, an error where it cannot run),
+// for timing the two routes side by side (chip_smoke.py); the same outputs
+extern "C" int int8_conv_pick(const void* x, const void* w, const void* scale, const void* bias, void* out, int b,
+                              int h, int w_in, int cin, int ho, int wo, int cout, int kh, int kw, int stride, int pad,
+                              int groups, int act, int xtype, float sout, float sin, const void* table, int device,
+                              void* stream, int pick) {
+  return run(x, w, scale, bias, out, b, h, w_in, cin, ho, wo, cout, kh, kw, stride, pad, groups, act, xtype, sout,
+             sin, table, device, stream, pick);
 }
 
 // Fills `table` (int8_conv_table_bytes(), zeroed by the caller) with the activation + requant table at
-// (act, sout): one thread per bf16 value.
+// (act, sout), compressed and whole: one thread per bf16 value.
 extern "C" int int8_conv_table(void* table, int act, float sout, int device, void* stream) {
   if (act < 0 || act > 2 || !(sout > 0.0f)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t err = cudaSetDevice(device);
@@ -992,19 +1546,32 @@ extern "C" int int8_conv_table(void* table, int act, float sout, int device, voi
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int int8_conv_table_bytes() { return kTabBytes + 16; }
+extern "C" int int8_conv_table_bytes() { return kTabFullOff + kTabFullBytes; }
 
-// The route a call with these arguments takes: route (0 gemm, 1 depthwise, 2 direct), the gemm's N tile,
-// its consumer warpgroups (M tile 64 * wg), its copy granule and the launch's dynamic shared memory in bytes,
-// written to plan_out[0..4].
+// The route a call with these arguments takes, on the current device (pick as int8_conv_pick's, 0: int8_conv's
+// own): route (0 gemm, 1 depthwise, 2 direct, 3 gemm1x1, -1 none: gemm1x1 picked where it cannot run), the gemm's N
+// tile, its consumer warpgroups (M tile 64 * wg), its copy granule, the launch's dynamic shared memory in bytes, and
+// gemm1x1's sets of A slots, groups of N tiles, blocks an SM and whole table (1) or compressed (0), written to
+// plan_out[0..8].
 extern "C" int int8_conv_plan(const void* x, const void* w, void* out, int b, int cin, int ho, int wo, int cout,
-                              int kh, int kw, int groups, int* plan_out) {
+                              int kh, int kw, int stride, int pad, int groups, int xtype, float sout, int pick,
+                              int* plan_out) {
   Conv p{};
   p.x = x; p.w = static_cast<const int8_t*>(w); p.out = out;
   p.b = b; p.cin = cin; p.ho = ho; p.wo = wo; p.cout = cout; p.kh = kh; p.kw = kw; p.groups = groups;
-  const Plan pl = plan(p);
+  p.stride = stride; p.pad = pad; p.xtype = xtype; p.sout = sout;
+  if (pick < kPickPlan || pick > kPick1x1) return static_cast<int>(cudaErrorInvalidValue);
+  Plan pl = plan(p, pick);
+  if (pick == kPick1x1 && pl.route != kGemm1x1) pl = {-1, 0, 0, 0, 0, 0, 0, 0};
   plan_out[0] = pl.route; plan_out[1] = pl.bn; plan_out[2] = pl.wg; plan_out[3] = pl.granule;
-  plan_out[4] = pl.route == kGemm ? gemm_smem(pl.bn, pl.wg, cout) : pl.route == kDirect ? direct_smem(p) : 0;
+  plan_out[4] = pl.route == kGemm1x1 ? smem_1x1(pl.bn, xbytes(xtype), sout > 0.0f ? 1 : 2, (cin + k1Step - 1) / k1Step,
+                                                pl.a_sets, cout, pl.whole).total
+                : pl.route == kGemm ? gemm_smem(pl.bn, pl.wg, cout)
+                : pl.route == kDirect ? direct_smem(p) : 0;
+  plan_out[5] = pl.a_sets;
+  plan_out[6] = pl.groups;
+  plan_out[7] = pl.blocks;
+  plan_out[8] = pl.whole;
   return 0;
 }
 

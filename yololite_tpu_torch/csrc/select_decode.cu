@@ -36,34 +36,36 @@
 //            (ay + b) s), no FMA contraction; shifted = boxes + cls * 7680
 //            (+ 0 with agnostic); valid = val > max(conf, 0) (also rounded).
 //
-// Design: a sequence of kernels on the caller's stream, no host sync, every
-// buffer in one workspace that the wrapper allocates with torch:
-//   store:   the level descriptors, passed by value (32 a launch), written
-//            into the workspace (no host-to-device copy, so a CUDA graph
-//            captures it);
-//   score:   one pass over the class logits, read in the order they lie:
-//            multi-label, one thread an entry with anchors along the threads
-//            for NCHW planes (in a class-major order of the row), one thread
-//            a 16-byte run of an anchor's classes for channel-contiguous maps
-//            (the row's own order);
-//            single-label, one thread an anchor looping over the classes
-//            (16-byte loads where the classes lie contiguous and aligned).
-//            Writes each entry's 32-bit order key of its gated score (and,
-//            single-label, the argmax class) and counts the keys' top
-//            11 bits in a shared-memory histogram (warp-aggregated with
-//            __match_any_sync: ties are the rule at low conf), added into a
-//            per-image histogram in device memory;
-//   select:  per image, the last CTA of a pass to add its histogram reads
-//            it into shared memory and one warp finds the bin that holds the
-//            K-th largest entry, on the composite (key << ib) | (N - 1 -
-//            index):
-//            all composites differ, so a radix select over them in digits of
-//            11 bits (5 passes at N < 2^20) ends on exactly K entries, the
-//            lowest indices winning ties. A pass per digit (`hist`), each
-//            skipped once its image is decided. After the first digit, an
-//            image whose entries at or above the K-th entry's bin number at
-//            most N / 4 lists their composites (`compact`): the later passes
-//            and the collection read that list, not the key row;
+// Design: kernels on the caller's stream, no host sync, every buffer in one
+// workspace that the wrapper allocates with torch; the level descriptors
+// travel by value in the launches' parameters. One of two routes, picked on
+// the host from the shapes alone (`plan`, reported by select_decode_plan):
+//
+// finish (a row of N <= kFinishCap entries: predict's 8,400 anchors, any
+//   single-label row at 640 and below): two launches.
+//   score:   one pass over the class logits (below), writing each entry's
+//            32-bit order key of its gated score (and, single-label, the
+//            argmax class); nothing else, so no state to reset;
+//   finish:  `reps` CTAs an image (the card's SMs over B, at most 8), each
+//            reading the image's key row into shared memory and selecting on
+//            its own (the same answer in each): a radix select over the
+//            composite (key << ib) | (N - 1 - index) in 11-bit digits, all in
+//            shared memory (all composites differ, so it ends on exactly K
+//            entries, the lowest indices winning ties), the K winners
+//            collected and bitonic-sorted in shared memory, then each CTA
+//            decodes every reps-th winner, a thread a (candidate, side).
+// passes (longer rows: val's multi-label 400,000-entry rows): a memset of
+//   the per-image state, then
+//   score:   as above, and counts the keys' top 11 bits in a shared-memory
+//            histogram (warp-aggregated with __match_any_sync: ties are the
+//            rule at low conf), added into a per-image histogram in device
+//            memory; the last CTA of an image (`last_to_arrive`) finds the
+//            bin that holds the K-th largest entry;
+//   select:  a pass per later digit (`hist`), each skipped once its image is
+//            decided. After the first digit, an image whose entries at or
+//            above the K-th entry's bin number at most N / 4 lists their
+//            composites (`compact`): the later passes and the collection
+//            read that list, not the key row;
 //   collect: every entry with composite >= the threshold into a K-slot list
 //            (warp-aggregated atomics);
 //   sort:    the K composites descending: a bitonic sort of each chunk of
@@ -76,16 +78,24 @@
 //            come from a dense pass over every (anchor, side) (`dfl_all`) when
 //            K >= A / 4, else from the candidate's own R logits of the side
 //            (at reg_max 16 the loads unrolled into registers).
+// The score pass reads the class logits in the order they lie: multi-label,
+// one thread an entry with anchors along the threads for NCHW planes (in a
+// class-major order of the row), one thread a 16-byte run of an anchor's
+// classes for channel-contiguous maps (the row's own order); single-label,
+// one thread V neighbouring anchors of an NCHW plane, each class's V logits in
+// one 16-byte load (`score_plane`: predict's fp32 maps), or one thread an
+// anchor looping over its classes, 16 bytes at a time where they lie
+// contiguous and aligned (`score_anchor_vec`: the bf16 maps); each thread
+// issues the loads of several classes before their compare chains.
 //
 // Bound on an H100 SXM (chip_smoke.py k3_bound_ms): the function reads each
 // class logit once, the 4R box logits of each distinct candidate anchor and
 // writes 49 bytes per candidate: at predict's B 32 fp32 (640 x 640) some 86
-// MB of class logits, 27 us at 3.35 TB/s. This design moves more: the keys
-// (4 bytes an entry) are written once and read by the first list and, when
-// the list would be long, by every radix pass and the collection; a
-// candidate's box logits in NCHW planes are 64 separate sectors. It runs at
-// 5-18x the bound, mostly in the score pass and in the launch and latency of
-// the later passes (PERF.md; tools/k3_profile.py splits it by kernel).
+// MB of class logits, 27 us at 3.35 TB/s. The score pass also writes the keys
+// (4 bytes an entry) and, single-label, the classes; the passes route reads
+// the keys again per digit where the list would be long; a candidate's box
+// logits in NCHW planes are 64 separate sectors (PERF.md; tools/k3_profile.py
+// splits the time by kernel).
 //
 // C interface, bound with ctypes (pointers and the stream are void*, ints are
 // int): launches on the caller's stream of the caller's device, allocates
@@ -106,8 +116,12 @@ constexpr int kBins = 1 << kDigit;     // histogram bins a pass
 constexpr int kThreads = 256;          // threads of the streaming kernels
 constexpr int kPerCtaRow = 4096;       // entries a CTA of the key passes takes
 constexpr int kPerCtaAnchor = 256;     // anchors a CTA of the single-label score pass takes: one a thread
-constexpr int kLevelsPerStore = 32;    // level descriptors a store launch carries
+constexpr int kMaxLevels = 16;         // level descriptors the launches' parameters carry
 constexpr int kChunk = 1024;           // candidates a CTA of the sort orders
+constexpr int kFinishThreads = 512;    // threads of a finishing CTA
+constexpr int kFinishCap = 16384;      // entries of a row the finish route holds in shared memory
+constexpr int kMaxReps = 8;            // finishing CTAs an image, at most
+constexpr int kMaxSmem = 232448;       // shared memory a block can have on Hopper
 constexpr unsigned kFull = 0xffffffffu;
 
 struct Level {
@@ -118,14 +132,9 @@ struct Level {
   float stride;              // its stride in pixels
 };
 
-struct LevelChunk {
-  Level lv[kLevelsPerStore];
-  int first, n;
-};
-
-struct Image {                // one image's select state
+struct Image {                // one image's select state (the passes route), zeroed by a memset
   unsigned long long prefix;  // the composite's bits decided so far (the threshold once done)
-  unsigned int need;          // entries still to take at the decided prefix
+  unsigned int taken;         // entries taken above the decided prefix (K - taken still to take)
   unsigned int done;          // 1 once the threshold is final
   unsigned int count;         // entries collected
   unsigned int compact;       // 1 when the passes after the first read the compacted list, not the key row
@@ -134,7 +143,7 @@ struct Image {                // one image's select state
 };
 
 struct Params {
-  const Level* levels;
+  Level levels[kMaxLevels];
   int n_levels;
   int map_type;    // 0 fp32, 1 bf16, 2 fp16
   int score_type;  // the type the sigmoid rounds to, the same codes
@@ -150,7 +159,8 @@ struct Params {
   uint32_t* keys;          // (B, N)
   int32_t* cls_of;         // (B, A) single-label argmax
   float* dist;             // (B, A, 4) every anchor's DFL distances, when `dense`
-  int dense;               // decode every anchor once (K >= A / 4), else each candidate
+  int dense;               // decode every anchor once (K >= A / 4), else each candidate (the passes route)
+  int passes;              // the passes route (else finish): the score pass's last CTA of an image selects
   Image* img;              // (B)
   uint32_t* hist;          // (B, kBins)
   unsigned long long* cand;  // (B, P2): the collected composites, then sorted chunk by chunk
@@ -239,26 +249,6 @@ __device__ __forceinline__ void flush_hist(const uint32_t* s_hist, uint32_t* g_h
     if (s_hist[i]) atomicAdd(&g_hist[i], s_hist[i]);
 }
 
-__global__ void store_levels(LevelChunk chunk, Level* levels) {
-  if ((int)threadIdx.x < chunk.n) levels[chunk.first + threadIdx.x] = chunk.lv[threadIdx.x];
-}
-
-__global__ void init_images(Params P) {
-  const int b = blockIdx.x;
-  if (threadIdx.x == 0) {
-    Image im;
-    im.prefix = 0;
-    im.need = (unsigned)P.k;
-    im.done = 0;
-    im.count = 0;
-    im.compact = 0;
-    im.listed = 0;
-    im.arrived = 0;
-    P.img[b] = im;
-  }
-  for (int i = threadIdx.x; i < kBins; i += blockDim.x) P.hist[(size_t)b * kBins + i] = 0;
-}
-
 // gated score of an entry, from its score
 __device__ __forceinline__ float gate(const Params& P, float s) { return s > P.thr ? s : -1.0f; }
 
@@ -291,6 +281,7 @@ __device__ void select_bin(const Params& P, int b, int pass, uint32_t* s_h) {
   Image* im = P.img + b;
   __threadfence();
   if (im->done) return;
+  const unsigned need = (unsigned)P.k - im->taken;  // read before the one thread that finds the bin changes it
   int hi, lo;
   pass_bits(P, pass, &hi, &lo);
   const int nb = 1 << (hi - lo);
@@ -314,7 +305,6 @@ __device__ void select_bin(const Params& P, int b, int pass, uint32_t* s_h) {
   if (lane == 31) s_warp[warp] = incl;
   __syncthreads();
   for (int w = 0; w < warp; ++w) incl += s_warp[w];
-  const unsigned need = im->need;
   if (incl - sum < need && need <= incl) {  // the first thread whose run reaches need: one exactly
     unsigned cum = incl - sum;  // entries in higher bins
     int bin = top;
@@ -325,7 +315,7 @@ __device__ void select_bin(const Params& P, int b, int pass, uint32_t* s_h) {
     }
     const unsigned left = need - cum;
     im->prefix |= (unsigned long long)bin << lo;
-    im->need = left;
+    im->taken = (unsigned)P.k - left;
     if (s_h[bin] == left || lo == 0)
       im->done = 1;  // every entry of the bin is taken: the threshold is the prefix
     else if (pass == 0 && cum + s_h[bin] <= (unsigned)P.list_cap)
@@ -333,8 +323,100 @@ __device__ void select_bin(const Params& P, int b, int pass, uint32_t* s_h) {
   }
 }
 
+// The score pass's end for one CTA: its histogram of the keys' top digit added into the image's; on the passes
+// route the image's last CTA then selects the first digit's bin (the finish route's finishing CTAs do that)
+__device__ __forceinline__ void score_done(const Params& P, uint32_t* s_hist) {
+  const int b = blockIdx.y;
+  __syncthreads();
+  flush_hist(s_hist, P.hist + (size_t)b * kBins, kBins);
+  if (P.passes && last_to_arrive(P.img + b)) select_bin(P, b, 0, s_hist);
+}
+
+__device__ __forceinline__ bool masked_class(const Params& P, int c) { return P.mask && !P.mask[c]; }
+
+// The max and first argmax of an anchor's class scores, as torch's amax / argmax of where(mask, sigmoid(x), 0)
+// (NaN first), fed the logits class by class. The score function torch_sigmoid is monotone non-decreasing over
+// every fp32 (`sigmoid_monotone_check`, run by the card tests; rounding to bf16 or fp16 keeps it so), so the pass
+// computes no sigmoid: it keeps the kTop (2 or 3) largest logits (ties in the order of the classes), and then max
+// f(x_c) = f(m0), and a class ties it only if its logit is at least the smallest with that score: where the last
+// kept logit scores below f(m0) the ties are among the kept ones, the first of them wins; else (a tie reaching below
+// them, rare) the classes before the first tie found are scored again, in order.
+template <int kTop>
+struct ClassMax {
+  float best, m0, m1, m2;
+  int arg, i0, i1, i2, n, nan_i, zero_i;
+
+  __device__ __forceinline__ ClassMax() {
+    best = 0.0f;
+    arg = 0;
+    m0 = m1 = m2 = 0.0f;
+    i0 = i1 = i2 = 0;
+    n = 0;
+    nan_i = zero_i = -1;
+  }
+
+  __device__ __forceinline__ void add(const Params& P, float x, int c, bool masked) {
+    if (masked) {
+      if (zero_i < 0) zero_i = c;
+    } else if (isnan(x)) {
+      if (nan_i < 0) nan_i = c;
+    } else if (n < kTop || x > (kTop == 3 ? m2 : m1)) {  // into the kept ones, after every one at least as large
+      if (n < 1 || x > m0) {
+        if (kTop == 3) {
+          m2 = m1;
+          i2 = i1;
+        }
+        m1 = m0; i1 = i0;
+        m0 = x; i0 = c;
+      } else if (n < 2 || x > m1) {
+        if (kTop == 3) {
+          m2 = m1;
+          i2 = i1;
+        }
+        m1 = x; i1 = c;
+      } else {
+        m2 = x; i2 = c;
+      }
+      n = min(n + 1, kTop);
+    }
+  }
+
+  // best and arg from what was added; first_tie(limit, best) scans the classes before `limit` again (their loads
+  // several at a time) for the first unmasked one that scores best, or returns limit: the rescan of a tie that
+  // reaches below every kept logit
+  template <typename FirstTie>
+  __device__ __forceinline__ void done(const Params& P, FirstTie first_tie) {
+    if (nan_i >= 0) {  // a NaN score: the first one wins
+      best = __int_as_float(0x7fffffff);
+      arg = nan_i;
+      return;
+    }
+    if (n == 0) {  // every class masked: all score 0
+      best = 0.0f;
+      arg = zero_i;
+      return;
+    }
+    best = torch_sigmoid(m0, P.score_type);
+    arg = i0;
+    if (n >= 2 && torch_sigmoid(m1, P.score_type) == best) {
+      arg = min(i0, i1);
+      if (n >= kTop && (kTop == 2 || torch_sigmoid(m2, P.score_type) == best))  // may reach further down: scan
+        arg = min(arg, first_tie(arg, best));
+    }
+    if (best == 0.0f && zero_i >= 0 && zero_i < arg) arg = zero_i;  // a masked class's 0 ties a score of 0
+  }
+};
+
+// the logits ClassMax keeps (2 or 3): an fp32 score's ties are rare (logits a few ulps apart), a bf16 or fp16 one's
+// coarse rounding ties neighbouring logits often (near 1, logits a few tenths apart): a third kept logit spares
+// most of their rescans
+template <typename T>
+struct TopOf {
+  static constexpr int value = sizeof(T) == 4 ? 2 : 3;
+};
+
 // single-label: one thread an anchor, the classes in turn: key of the gated max, the argmax, digit 0
-__global__ void __launch_bounds__(kThreads) score_anchor(Params P) {
+__global__ void __launch_bounds__(kThreads) score_anchor(const __grid_constant__ Params P) {
   __shared__ uint32_t s_hist[kBins];
   zero_shared(s_hist, kBins);
   __syncthreads();
@@ -350,38 +432,45 @@ __global__ void __launch_bounds__(kThreads) score_anchor(Params P) {
       const Level& L = P.levels[level_of_anchor(P, a)];
       const int local = a - L.off, y = local / L.w, x = local - y * L.w;
       const long long o = offset_of(L, b, y, x, c0);
-      float best = 0.0f;
-      int arg = 0;
+      ClassMax<3> cm;
 #pragma unroll 8
-      for (int c = 0; c < P.nc; ++c) {
-        float s = torch_sigmoid(load_map(L, P.map_type, o + c * L.sc), P.score_type);
-        if (P.mask && !P.mask[c]) s = 0.0f;
-        if (c == 0 || (!isnan(best) && (isnan(s) || s > best))) {  // amax / argmax: NaN first, then the first max
-          best = s;
-          arg = c;
+      for (int c = 0; c < P.nc; ++c) cm.add(P, load_map(L, P.map_type, o + c * L.sc), c, masked_class(P, c));
+      cm.done(P, [&](int limit, float best) {
+        for (int c0 = 0; c0 < limit; c0 += 8) {
+          float x[8];
+#pragma unroll
+          for (int u = 0; u < 8; ++u) x[u] = c0 + u < limit ? load_map(L, P.map_type, o + (c0 + u) * L.sc) : 0.0f;
+#pragma unroll
+          for (int u = 0; u < 8; ++u)
+            if (c0 + u < limit && !masked_class(P, c0 + u) && torch_sigmoid(x[u], P.score_type) == best) return c0 + u;
         }
-      }
-      const uint32_t key = order_key(gate(P, best));
+        return limit;
+      });
+      const uint32_t key = order_key(gate(P, cm.best));
       P.keys[(size_t)b * P.n + a] = key;
-      P.cls_of[(size_t)b * P.a + a] = arg;
+      P.cls_of[(size_t)b * P.a + a] = cm.arg;
       bin = (int)(key >> shift);
     }
     count_bin(s_hist, bin);
   }
-  __syncthreads();
-  flush_hist(s_hist, P.hist + (size_t)b * kBins, kBins);
-  if (last_to_arrive(P.img + b)) select_bin(P, b, 0, s_hist);
+  score_done(P, s_hist);
 }
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ float to_float(__half v) { return __half2float(v); }
 
+// The single-label score passes' shape: 16-byte loads, four of them in flight a thread (of a channels-last row in
+// score_anchor_vec, of four class planes in score_plane): four plane loads took fewer registers, so more threads an
+// SM, than eight, and timed faster on predict's maps; two channels-last loads timed slower on the net's maps
+constexpr int kLoadsAhead = 4;
+constexpr int kPlaneBytes = 16;
+
 // single-label over channel-contiguous maps whose class logits start on 16 bytes: one thread an anchor, its class
-// logits read 16 bytes at a time (so each sector a warp fetches is used at once, not re-read after other warps
-// have evicted it: thread-per-anchor scalar reads of such maps ran some 3x slower)
+// logits read 16 bytes at a time, kLoadsAhead loads in flight (so each sector a warp fetches is used at once, not
+// re-read after other warps have evicted it: thread-per-anchor scalar reads of such maps ran some 3x slower)
 template <typename T>
-__global__ void __launch_bounds__(kThreads) score_anchor_vec(Params P) {
+__global__ void __launch_bounds__(kThreads) score_anchor_vec(const __grid_constant__ Params P) {
   constexpr int kPer = 16 / sizeof(T);  // logits a load
   __shared__ uint32_t s_hist[kBins];
   zero_shared(s_hist, kBins);
@@ -394,35 +483,134 @@ __global__ void __launch_bounds__(kThreads) score_anchor_vec(Params P) {
     const Level& L = P.levels[level_of_anchor(P, a)];
     const int local = a - L.off, y = local / L.w, x = local - y * L.w;
     const T* row = static_cast<const T*>(L.ptr) + offset_of(L, b, y, x, 4 * P.reg_max);
-    float best = 0.0f;
-    int arg = 0;
-    for (int v0 = 0; v0 < P.nc; v0 += kPer) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(row + v0);
-      const T* vals = reinterpret_cast<const T*>(&raw);
+    ClassMax<TopOf<T>::value> cm;
+    for (int v0 = 0; v0 < P.nc; v0 += kLoadsAhead * kPer) {
+      uint4 raw[kLoadsAhead];
 #pragma unroll
-      for (int u = 0; u < kPer; ++u) {
-        const int c = v0 + u;
-        float s = torch_sigmoid(to_float(vals[u]), P.score_type);
-        if (P.mask && !P.mask[c]) s = 0.0f;
-        if (c == 0 || (!isnan(best) && (isnan(s) || s > best))) {  // amax / argmax: NaN first, then the first max
-          best = s;
-          arg = c;
+      for (int q = 0; q < kLoadsAhead; ++q)
+        if (v0 + q * kPer < P.nc) raw[q] = __ldg(reinterpret_cast<const uint4*>(row + v0 + q * kPer));
+#pragma unroll
+      for (int q = 0; q < kLoadsAhead; ++q) {
+        if (v0 + q * kPer >= P.nc) break;
+        const T* vals = reinterpret_cast<const T*>(&raw[q]);
+#pragma unroll
+        for (int u = 0; u < kPer; ++u) {
+          const int c = v0 + q * kPer + u;
+          cm.add(P, to_float(vals[u]), c, masked_class(P, c));
         }
       }
     }
-    const uint32_t key = order_key(gate(P, best));
+    cm.done(P, [&](int limit, float best) {
+      for (int v0 = 0; v0 < limit; v0 += kLoadsAhead * kPer) {
+        uint4 raw[kLoadsAhead];
+#pragma unroll
+        for (int q = 0; q < kLoadsAhead; ++q)
+          if (v0 + q * kPer < limit) raw[q] = __ldg(reinterpret_cast<const uint4*>(row + v0 + q * kPer));
+#pragma unroll
+        for (int q = 0; q < kLoadsAhead; ++q) {
+          const T* vals = reinterpret_cast<const T*>(&raw[q]);
+#pragma unroll
+          for (int u = 0; u < kPer; ++u) {
+            const int c = v0 + q * kPer + u;
+            if (c < limit && !masked_class(P, c) && torch_sigmoid(to_float(vals[u]), P.score_type) == best) return c;
+          }
+        }
+      }
+      return limit;
+    });
+    const uint32_t key = order_key(gate(P, cm.best));
     P.keys[(size_t)b * P.n + a] = key;
-    P.cls_of[(size_t)b * P.a + a] = arg;
+    P.cls_of[(size_t)b * P.a + a] = cm.arg;
     bin = (int)(key >> shift);
   }
   count_bin(s_hist, bin);
+  score_done(P, s_hist);
+}
+
+
+// single-label over NCHW planes (each level's anchors contiguous in a class plane, in aligned runs of V anchors):
+// one thread V = kPlaneBytes / sizeof(T) neighbouring anchors of one level, each class plane's V logits in one
+// load, the loads of kLoadsAhead classes issued before their compare chains; the V keys and classes stored
+// together. (One thread an anchor with 4-byte loads read predict's fp32 planes at about 1.5 TB/s.)
+template <typename T>
+__global__ void __launch_bounds__(kThreads) score_plane(const __grid_constant__ Params P) {
+  constexpr int V = kPlaneBytes / sizeof(T);  // 4 or 8
+  __shared__ uint32_t s_hist[kBins];
+  zero_shared(s_hist, kBins);
   __syncthreads();
-  flush_hist(s_hist, P.hist + (size_t)b * kBins, kBins);
-  if (last_to_arrive(P.img + b)) select_bin(P, b, 0, s_hist);
+  const int b = blockIdx.y;
+  const int shift = 32 - kDigit;
+  const int a0 = (blockIdx.x * kThreads + threadIdx.x) * V;
+  uint32_t keys[V];
+  const bool in = a0 < P.a;
+  if (in) {
+    const Level& L = P.levels[level_of_anchor(P, a0)];
+    const T* base = static_cast<const T*>(L.ptr) + b * L.sb + (a0 - L.off) + 4 * P.reg_max * L.sc;
+    ClassMax<TopOf<T>::value> cm[V];
+    for (int c0 = 0; c0 < P.nc; c0 += kLoadsAhead) {
+      uint4 raw[kLoadsAhead];
+#pragma unroll
+      for (int u = 0; u < kLoadsAhead; ++u)
+        if (c0 + u < P.nc) raw[u] = __ldg(reinterpret_cast<const uint4*>(base + (long long)(c0 + u) * L.sc));
+#pragma unroll
+      for (int u = 0; u < kLoadsAhead; ++u) {
+        const int c = c0 + u;
+        if (c >= P.nc) break;
+        const bool masked = masked_class(P, c);
+        const T* vals = reinterpret_cast<const T*>(&raw[u]);
+#pragma unroll
+        for (int v = 0; v < V; ++v) cm[v].add(P, to_float(vals[v]), c, masked);
+      }
+    }
+    int arg[V];
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      cm[v].done(P, [&](int limit, float best) {
+        for (int c0 = 0; c0 < limit; c0 += 8) {
+          float x[8];
+#pragma unroll
+          for (int u = 0; u < 8; ++u) x[u] = c0 + u < limit ? to_float(base[(long long)(c0 + u) * L.sc + v]) : 0.0f;
+#pragma unroll
+          for (int u = 0; u < 8; ++u)
+            if (c0 + u < limit && !masked_class(P, c0 + u) && torch_sigmoid(x[u], P.score_type) == best) return c0 + u;
+        }
+        return limit;
+      });
+      keys[v] = order_key(gate(P, cm[v].best));
+      arg[v] = cm[v].arg;
+    }
+    uint4* kd = reinterpret_cast<uint4*>(P.keys + (size_t)b * P.n + a0);
+    uint4* cd = reinterpret_cast<uint4*>(P.cls_of + (size_t)b * P.a + a0);
+#pragma unroll
+    for (int q = 0; q < V / 4; ++q) {
+      kd[q] = make_uint4(keys[4 * q], keys[4 * q + 1], keys[4 * q + 2], keys[4 * q + 3]);
+      cd[q] = make_uint4(arg[4 * q], arg[4 * q + 1], arg[4 * q + 2], arg[4 * q + 3]);
+    }
+  }
+#pragma unroll
+  for (int v = 0; v < V; ++v) count_bin(s_hist, in ? (int)(keys[v] >> shift) : -1);
+  score_done(P, s_hist);
+}
+
+// whether torch_sigmoid (fp32) is monotone non-decreasing over every non-NaN float: the order keys from -inf's
+// (0x007fffff) to +inf's (0xff800000), 4,096 consecutive ones a thread, each score compared with the one before
+// (a thread's first with its predecessor's); any decrease sets *bad
+__global__ void __launch_bounds__(256) sigmoid_monotone_check(unsigned* bad) {
+  constexpr unsigned long long kLo = 0x007fffffull, kHi = 0xff800000ull;
+  const unsigned long long start = kLo + (unsigned long long)(blockIdx.x * 256 + threadIdx.x) * 4096;
+  if (start > kHi) return;
+  float prev = torch_sigmoid(key_value((uint32_t)(start == kLo ? kLo : start - 1)), 0);
+  bool ok = true;
+  for (unsigned long long k = start; k < start + 4096 && k <= kHi; ++k) {
+    const float s = torch_sigmoid(key_value((uint32_t)k), 0);
+    ok &= !(s < prev);
+    prev = s;
+  }
+  if (!ok) atomicOr(bad, 1u);
 }
 
 // multi-label: one thread an entry, in storage order: key of the gated score, digit 0
-__global__ void __launch_bounds__(kThreads) score_entry(Params P) {
+__global__ void __launch_bounds__(kThreads) score_entry(const __grid_constant__ Params P) {
   __shared__ uint32_t s_hist[kBins];
   zero_shared(s_hist, kBins);
   __syncthreads();
@@ -454,15 +642,13 @@ __global__ void __launch_bounds__(kThreads) score_entry(Params P) {
     }
     count_bin(s_hist, bin);
   }
-  __syncthreads();
-  flush_hist(s_hist, P.hist + (size_t)b * kBins, kBins);
-  if (last_to_arrive(P.img + b)) select_bin(P, b, 0, s_hist);
+  score_done(P, s_hist);
 }
 
 // multi-label over channel-contiguous maps whose class logits start on 16 bytes: one thread a 16-byte run of one
 // anchor's class logits (the row's own order), its keys stored 16 bytes at a time
 template <typename T>
-__global__ void __launch_bounds__(kThreads) score_entry_vec(Params P) {
+__global__ void __launch_bounds__(kThreads) score_entry_vec(const __grid_constant__ Params P) {
   constexpr int kPer = 16 / sizeof(T);  // entries a load
   __shared__ uint32_t s_hist[kBins];
   zero_shared(s_hist, kBins);
@@ -495,14 +681,12 @@ __global__ void __launch_bounds__(kThreads) score_entry_vec(Params P) {
 #pragma unroll
     for (int u = 0; u < kPer; ++u) count_bin(s_hist, in ? (int)(keys[u] >> shift) : -1);
   }
-  __syncthreads();
-  flush_hist(s_hist, P.hist + (size_t)b * kBins, kBins);
-  if (last_to_arrive(P.img + b)) select_bin(P, b, 0, s_hist);
+  score_done(P, s_hist);
 }
 
 // a later radix pass: counts the digit of each entry (of the list, or the key row) whose decided bits match the
 // prefix; the pass's last CTA selects
-__global__ void __launch_bounds__(kThreads) hist_pass(Params P, int pass) {
+__global__ void __launch_bounds__(kThreads) hist_pass(const __grid_constant__ Params P, int pass) {
   __shared__ uint32_t s_hist[kBins];
   const int b = blockIdx.y;
   const Image im = P.img[b];
@@ -558,7 +742,7 @@ constexpr int kIter = kPerCtaRow / kThreads;  // entries a thread of a row pass 
 // after the first pass, when the image is to be compacted: every entry at or above the K-th entry's first-digit
 // bin (key >> 21 >= that bin) into the image's list, which the later passes and the collection read instead of the
 // key row
-__global__ void __launch_bounds__(kThreads) compact(Params P) {
+__global__ void __launch_bounds__(kThreads) compact(const __grid_constant__ Params P) {
   const int b = blockIdx.y;
   const Image im = P.img[b];
   if (im.done || !im.compact) return;
@@ -587,7 +771,7 @@ __global__ void __launch_bounds__(kThreads) compact(Params P) {
 }
 
 // every entry at or above the threshold (from the list or the key row) into the image's K slots
-__global__ void __launch_bounds__(kThreads) collect(Params P) {
+__global__ void __launch_bounds__(kThreads) collect(const __grid_constant__ Params P) {
   const int b = blockIdx.y;
   const Image im = P.img[b];
   const int n = im.compact ? (int)im.listed : P.n;  // the compacted list, or the key row
@@ -615,7 +799,7 @@ __global__ void __launch_bounds__(kThreads) collect(Params P) {
 
 // one CTA a chunk of 1,024 of an image's K composites: a bitonic sort, descending (the padding, 0, last), one entry a
 // thread; partners within a warp exchange by shuffles, farther ones through shared memory
-__global__ void __launch_bounds__(kChunk) sort_chunks(Params P) {
+__global__ void __launch_bounds__(kChunk) sort_chunks(const __grid_constant__ Params P) {
   __shared__ unsigned long long s_c[kChunk];
   const int b = blockIdx.y, t = threadIdx.x;
   const int gi = blockIdx.x * kChunk + t;
@@ -642,7 +826,7 @@ __global__ void __launch_bounds__(kChunk) sort_chunks(Params P) {
 // each entry's rank among the image's K: its place in its own sorted chunk plus, in every other chunk, the number
 // of entries greater than it (a binary search: the chunks are descending and all composites differ); the entry is
 // written to that rank of P.sorted
-__global__ void __launch_bounds__(kChunk) rank_chunks(Params P) {
+__global__ void __launch_bounds__(kChunk) rank_chunks(const __grid_constant__ Params P) {
   const int b = blockIdx.y, chunk = blockIdx.x, t = threadIdx.x;
   const unsigned long long* g = P.cand + (size_t)b * P.p2;
   const unsigned long long x = g[chunk * kChunk + t];
@@ -686,7 +870,7 @@ __device__ __forceinline__ float dfl_side(const Params& P, const Level& L, long 
 // every anchor's DFL distances into P.dist, one thread an (anchor, side): neighbouring anchors on neighbouring
 // thread groups, coalesced reads of NCHW planes
 template <int RM>
-__global__ void __launch_bounds__(128) dfl_all(Params P) {
+__global__ void __launch_bounds__(128) dfl_all(const __grid_constant__ Params P) {
   const int b = blockIdx.y;
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   const int a = t >> 2, side = t & 3;
@@ -696,17 +880,12 @@ __global__ void __launch_bounds__(128) dfl_all(Params P) {
   P.dist[((size_t)b * P.a + a) * 4 + side] = dfl_side<RM>(P, L, offset_of(L, b, y, x, 0), side);
 }
 
-// one thread a (candidate, side): the side's DFL distance (read from P.dist when dense, else computed) and its box
-// coordinate (x1 from the left distance, y1 the top, x2 the right, y2 the bottom); the side-0 thread writes the
-// value, index, class and valid
+// the outputs of row r of image b, whose composite is c, for one side: the side's DFL distance (read from P.dist
+// when dense, else computed) and its box coordinate (x1 from the left distance, y1 the top, x2 the right, y2 the
+// bottom); side 0 also writes the value, index, class and valid
 template <int RM>
-__global__ void __launch_bounds__(128) decode(Params P) {
-  const int b = blockIdx.y;
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  const int r = t >> 2, side = t & 3;
-  if (r >= P.k) return;
+__device__ __forceinline__ void decode_side(const Params& P, int b, int r, int side, unsigned long long c) {
   const size_t row = (size_t)b * P.k + r;
-  const unsigned long long c = P.sorted[row];
   const uint32_t key = (uint32_t)(c >> P.ib);
   const int idx = P.n - 1 - (int)(c & ((1ull << P.ib) - 1));
   int a, cl;
@@ -735,6 +914,258 @@ __global__ void __launch_bounds__(128) decode(Params P) {
   }
 }
 
+// one thread a (candidate, side) of the sorted composites
+template <int RM>
+__global__ void __launch_bounds__(128) decode(const __grid_constant__ Params P) {
+  const int b = blockIdx.y;
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  const int r = t >> 2;
+  if (r >= P.k) return;
+  decode_side<RM>(P, b, r, t & 3, P.sorted[(size_t)b * P.k + r]);
+}
+
+// ---------------- the finish route: select, sort and decode an image in shared memory ----------------
+
+// the bin of the composites counted in s_hist (nb bins, the digit at bits [lo, lo + log2 nb)) that holds the
+// *need-th largest of them: each thread sums a run of bins, the highest first, a block scan finds the one thread
+// whose run holds it, and that thread adds the bin to *prefix, sets *need to what the bin still has to give and
+// *done when every entry of the bin is taken (or the digit is the last). Every thread of the CTA calls it.
+__device__ void finish_bin(const uint32_t* s_hist, int nb, int lo, unsigned long long* prefix, unsigned* need,
+                           unsigned* done) {
+  __shared__ unsigned s_warp[kFinishThreads / 32];
+  const unsigned want = *need;  // read before the one thread that finds the bin changes it
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int per = (nb + kFinishThreads - 1) / kFinishThreads;  // bins a thread sums, thread 0 the highest
+  const int top = nb - 1 - t * per;
+  unsigned sum = 0;
+  for (int j = 0; j < per; ++j)
+    if (top - j >= 0) sum += s_hist[top - j];
+  unsigned incl = sum;  // inclusive scan over the threads, in thread order
+  for (int o = 1; o < 32; o <<= 1) {
+    const unsigned v = __shfl_up_sync(kFull, incl, o);
+    if (lane >= o) incl += v;
+  }
+  if (lane == 31) s_warp[warp] = incl;
+  __syncthreads();
+  for (int w = 0; w < warp; ++w) incl += s_warp[w];
+  if (incl - sum < want && want <= incl) {  // the first thread whose run reaches need: one exactly
+    unsigned cum = incl - sum;  // entries in higher bins
+    int bin = top;
+    for (int j = 0; j < per; ++j) {
+      bin = top - j;
+      if (cum + s_hist[bin] >= want) break;
+      cum += s_hist[bin];
+    }
+    const unsigned left = want - cum;
+    *prefix |= (unsigned long long)bin << lo;
+    *need = left;
+    *done = s_hist[bin] == left || lo == 0;
+  }
+  __syncthreads();
+}
+
+constexpr int kTieCap = 4096;   // entries of the K-th entry's first-digit bin a finishing CTA lists
+constexpr int kRankCap = 2048;  // entries at or above that bin that the finishing CTAs rank directly
+
+// `reps` CTAs an image (blockIdx.x = image * reps + rep). Each reads the first digit's counts (the keys' top 11
+// bits, counted by the score pass) and finds the bin b0 of the K-th entry, and reads the image's key row into
+// shared memory. Where the entries at or above b0 number more than kRankCap, it counts the next 11 bits of b0's
+// entries and finds the K-th entry's bin b1 there. Then, where the candidates (the entries above b0, and b0's at or
+// above b1) number at most kRankCap, the rank route: they are listed as composites, each CTA counts for each of
+// its own (every rep-th position) how many listed ones are larger (four threads a candidate), and a candidate
+// whose count r is below K is output row r, decoded by the same CTA: no sort. Otherwise the radix route: the
+// entries above b0 are taken as winners and those in b0 (the ties of the first digit) listed, up to kTieCap of them
+// (else the later passes scan the row); the later digits' radix passes run over the list; the list's entries at or
+// above the threshold are taken; the K winners are bitonic-sorted in p2 = the power of two >= K slots; rows rep,
+// rep + reps, ... are decoded. Either way a thread a (row, side) decodes.
+template <int RM>
+__global__ void __launch_bounds__(kFinishThreads, 1) finish(const __grid_constant__ Params P, int reps, int p2) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  __shared__ unsigned long long s_prefix;
+  __shared__ unsigned long long s_prefix1;
+  __shared__ unsigned s_need, s_done, s_count, s_ties, s_rows_n, s_need1, s_done1;
+  const int n = P.n, t = threadIdx.x, lane = t & 31;
+  const int shift = 32 - kDigit;
+  uint32_t* s_key = reinterpret_cast<uint32_t*>(smem);
+  uint32_t* s_hist = s_key + ((n + 3) & ~3);
+  unsigned long long* s_win = reinterpret_cast<unsigned long long*>(s_hist + kBins);
+  uint16_t* s_tie = reinterpret_cast<uint16_t*>(s_win + p2);
+  unsigned long long* s_cand = reinterpret_cast<unsigned long long*>(s_tie + kTieCap);
+  const int b = blockIdx.x / reps, rep = blockIdx.x - b * reps;
+  const uint32_t* keys = P.keys + (size_t)b * n;
+  for (int i = t; i < kBins; i += kFinishThreads) s_hist[i] = __ldcg(P.hist + (size_t)b * kBins + i);
+  if (t == 0) {
+    s_prefix = 0;
+    s_need = (unsigned)P.k;
+    s_done = 0;
+    s_count = 0;
+    s_ties = 0;
+    s_rows_n = 0;
+  }
+  __syncthreads();
+  finish_bin(s_hist, kBins, P.total_bits - kDigit, &s_prefix, &s_need, &s_done);  // the score pass counted it
+  const int b0 = (int)(s_prefix >> (P.total_bits - kDigit));
+  const int listed_all = P.k - (int)s_need + (int)s_hist[b0];  // the entries at or above b0
+  // the key row into shared memory, 8 loads a thread in flight
+  constexpr int kAhead = 8;
+  for (int base = 0; base < n; base += kAhead * kFinishThreads) {
+    uint32_t k8[kAhead];
+#pragma unroll
+    for (int u = 0; u < kAhead; ++u) {
+      const int p = base + u * kFinishThreads + t;
+      k8[u] = p < n ? __ldcg(keys + p) : 0u;
+    }
+#pragma unroll
+    for (int u = 0; u < kAhead; ++u) {
+      const int p = base + u * kFinishThreads + t;
+      if (p < n) s_key[p] = k8[u];
+    }
+  }
+  __syncthreads();
+  // where too many entries lie at or above b0 (scores that crowd one quarter binade), the second digit (the key's
+  // bits 10-20) of b0's entries: those at or above its K-th entry's bin b1, with the entries above b0, are the
+  // candidates
+  int b1 = -1, listed = listed_all;
+  if (listed_all > kRankCap) {
+    zero_shared(s_hist, kBins);
+    if (t == 0) {
+      s_prefix1 = s_prefix;
+      s_need1 = s_need;
+      s_done1 = 0;
+    }
+    __syncthreads();
+    for (int p = t; p < n; p += kFinishThreads)
+      if ((int)(s_key[p] >> shift) == b0) atomicAdd(&s_hist[(s_key[p] >> 10) & (kBins - 1)], 1u);
+    __syncthreads();
+    finish_bin(s_hist, kBins, P.total_bits - 2 * kDigit, &s_prefix1, &s_need1, &s_done1);
+    b1 = (int)((s_prefix1 >> (P.total_bits - 2 * kDigit)) & (kBins - 1));
+    listed = P.k - (int)s_need1 + (int)s_hist[b1];
+  }
+  const bool rank = listed <= kRankCap;
+  if (rank) {  // the candidates listed as composites (in an order that differs from CTA to CTA), and this CTA's
+               // own ones (those at positions rep, rep + reps, ...) by their slot in that list
+    for (int base = 0; base < n; base += kFinishThreads) {
+      const int p = base + t;
+      const uint32_t key = p < n ? s_key[p] : 0u;
+      const int bin = (int)(key >> shift);
+      const bool in = p < n && (bin > b0 || (bin == b0 && (b1 < 0 || (int)((key >> 10) & (kBins - 1)) >= b1)));
+      const bool own = in && p % reps == rep;
+      const unsigned m = __ballot_sync(kFull, in), m_own = __ballot_sync(kFull, own);
+      unsigned at = 0, at_own = 0;
+      if (lane == 0 && m) at = atomicAdd(&s_count, (unsigned)__popc(m));
+      if (lane == 0 && m_own) at_own = atomicAdd(&s_ties, (unsigned)__popc(m_own));
+      at = __shfl_sync(kFull, at, 0);
+      at_own = __shfl_sync(kFull, at_own, 0);
+      const unsigned before = (1u << lane) - 1, slot = at + __popc(m & before);
+      if (in) s_cand[slot] = composite(P, key, flat_index(P, p));
+      if (own) s_tie[at_own + __popc(m_own & before)] = (uint16_t)slot;
+    }
+    __syncthreads();
+  }
+  if (rank) {  // the rank route: a candidate's count of larger ones is its output row
+    uint16_t* s_rows = reinterpret_cast<uint16_t*>(s_hist);  // this CTA's rows (the histogram is done with)
+    const int mine = (int)s_ties;
+    for (int base = 0; base < mine; base += kFinishThreads / 4) {
+      const int j = base + (t >> 2);
+      const unsigned long long c = j < mine ? s_cand[s_tie[j]] : ~0ull;
+      unsigned above = 0;
+      for (int i = t & 3; i < listed; i += 4) above += s_cand[i] > c;
+      above += __shfl_xor_sync(kFull, above, 1);
+      above += __shfl_xor_sync(kFull, above, 2);
+      if ((t & 3) == 0 && j < mine && above < (unsigned)P.k) {  // output row `above`
+        s_win[above] = c;
+        s_rows[atomicAdd(&s_rows_n, 1u)] = (uint16_t)above;
+      }
+    }
+    __syncthreads();
+    for (int q = t; q < 4 * (int)s_rows_n; q += kFinishThreads) {
+      const int r = s_rows[q >> 2];
+      decode_side<RM>(P, b, r, q & 3, s_win[r]);
+    }
+    return;
+  }
+  // the radix route: the winners above the K-th entry's bin into s_win, its bin's entries into the tie list
+  for (int base = 0; base < n; base += kFinishThreads) {
+    const int p = base + t;
+    const int bin = p < n ? (int)(s_key[p] >> shift) : -1;
+    const bool above = bin > b0, tie = bin == b0;
+    const unsigned m_above = __ballot_sync(kFull, above), m_tie = __ballot_sync(kFull, tie);
+    unsigned at = 0, at_tie = 0;
+    if (lane == 0) {
+      if (m_above) at = atomicAdd(&s_count, (unsigned)__popc(m_above));
+      if (m_tie) at_tie = atomicAdd(&s_ties, (unsigned)__popc(m_tie));
+    }
+    at = __shfl_sync(kFull, at, 0);
+    at_tie = __shfl_sync(kFull, at_tie, 0);
+    const unsigned before = (1u << lane) - 1;
+    if (above) s_win[at + __popc(m_above & before)] = composite(P, s_key[p], flat_index(P, p));
+    const unsigned slot = at_tie + __popc(m_tie & before);
+    if (tie && slot < kTieCap) s_tie[slot] = (uint16_t)p;
+  }
+  __syncthreads();
+  const bool tie_listed = s_ties <= kTieCap;  // the later passes read the list, else the row
+  const int span = tie_listed ? (int)s_ties : n;
+  // the later digits over the entries of the tie bin whose decided bits match the prefix
+  for (int pass = 1; !s_done; ++pass) {
+    int hi, lo;
+    pass_bits(P, pass, &hi, &lo);
+    const int nb = 1 << (hi - lo);
+    zero_shared(s_hist, nb);
+    __syncthreads();
+    const unsigned long long prefix_hi = s_prefix >> hi;
+    for (int base = 0; base < span; base += kFinishThreads) {
+      const int i = base + t;
+      int bin = -1;
+      if (i < span) {
+        const int p = tie_listed ? s_tie[i] : i;
+        const unsigned long long c = composite(P, s_key[p], flat_index(P, p));
+        if ((c >> hi) == prefix_hi) bin = (int)((c >> lo) & (unsigned long long)(nb - 1));
+      }
+      count_bin(s_hist, bin);
+    }
+    __syncthreads();
+    finish_bin(s_hist, nb, lo, &s_prefix, &s_need, &s_done);
+  }
+  // the tie bin's entries at or above the threshold join the winners; the rest of s_win is padding
+  const unsigned long long thr = s_prefix;
+  for (int base = 0; base < span; base += kFinishThreads) {
+    const int i = base + t;
+    unsigned long long c = 0ull;
+    if (i < span) {
+      const int p = tie_listed ? s_tie[i] : i;
+      if ((int)(s_key[p] >> shift) == b0) c = composite(P, s_key[p], flat_index(P, p));
+    }
+    const bool take = c != 0ull && c >= thr;
+    const unsigned m = __ballot_sync(kFull, take);
+    unsigned at = 0;
+    if (lane == 0 && m) at = atomicAdd(&s_count, (unsigned)__popc(m));
+    at = __shfl_sync(kFull, at, 0);
+    if (take) s_win[at + __popc(m & ((1u << lane) - 1))] = c;
+  }
+  for (int i = P.k + t; i < p2; i += kFinishThreads) s_win[i] = 0ull;  // padding sorts last (every key > 0)
+  __syncthreads();
+  // bitonic sort, descending: the pair (i, i | j) of each step, the lower index keeping the larger where the
+  // k-block is descending
+  for (int k = 2; k <= p2; k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      for (int q = t; q < p2 / 2; q += kFinishThreads) {
+        const int i = ((q & ~(j - 1)) << 1) | (q & (j - 1));
+        const unsigned long long x = s_win[i], y = s_win[i | j];
+        if ((x < y) == ((i & k) == 0)) {
+          s_win[i] = y;
+          s_win[i | j] = x;
+        }
+      }
+      __syncthreads();
+    }
+  }
+  const int rows = (P.k - rep + reps - 1) / reps;  // this CTA's rows: rep, rep + reps, ...
+  for (int q = t; q < 4 * rows; q += kFinishThreads) {
+    const int r = rep + (q >> 2) * reps;
+    decode_side<RM>(P, b, r, q & 3, s_win[r]);
+  }
+}
+
 int bit_length(long long v) {
   int n = 0;
   while (v > 0) {
@@ -746,18 +1177,22 @@ int bit_length(long long v) {
 
 long long round_up(long long v, long long to) { return (v + to - 1) / to * to; }
 
+int pow2_at_least(int v) {
+  int p = 1;
+  while (p < v) p <<= 1;
+  return p;
+}
+
 struct Layout {
-  long long levels, img, hist, keys, cls_of, dist, list, cand, sorted, total;
+  long long img, hist, keys, cls_of, dist, list, cand, sorted, total;
 };
 
-Layout layout(int n_levels, int b, long long a, int nc, int ml, int k) {
+Layout layout(int b, long long a, int nc, int ml, int k) {
   const long long n = ml ? a * nc : a;
   const long long p2 = round_up(k, kChunk);  // whole chunks for the sort
   Layout w;
   long long at = 0;
-  w.levels = at;
-  at = round_up(at + (long long)n_levels * sizeof(Level), 256);
-  w.img = at;
+  w.img = at;  // img and hist: the passes route's state, zeroed by one memset
   at = round_up(at + (long long)b * sizeof(Image), 256);
   w.hist = at;
   at = round_up(at + (long long)b * kBins * 4, 256);
@@ -789,53 +1224,190 @@ bool vec_classes(int n_levels, const unsigned long long* ptrs, const long long* 
   return true;
 }
 
-template <typename T>
-void launch_score_vec_t(const Params& P, bool entries, dim3 grid, cudaStream_t st) {
-  if (entries)
-    score_entry_vec<T><<<grid, kThreads, 0, st>>>(P);
-  else
-    score_anchor_vec<T><<<grid, kThreads, 0, st>>>(P);
+// whether every level is a set of NCHW planes whose anchors lie contiguous (x stride 1, y stride W) in runs of
+// V = kPlaneBytes / element that start on that many bytes in every class plane of every image
+bool plane_classes(int n_levels, const unsigned long long* ptrs, const long long* strides, const int* hw,
+                   int map_type) {
+  const long long v = kPlaneBytes / (map_type == 0 ? 4 : 2);
+  for (int l = 0; l < n_levels; ++l) {
+    const long long* s = strides + 4 * l;
+    const long long h = hw[2 * l], w = hw[2 * l + 1];
+    if (s[2] != 1 || s[1] != w || (h * w) % v || s[0] % v || s[3] % v || ptrs[l] % kPlaneBytes) return false;
+  }
+  return true;
 }
 
-// the 16-byte score pass of a map type: multi-label (`entries`) or single-label
-cudaError_t launch_score_vec(const Params& P, int map_type, bool entries, dim3 grid, cudaStream_t st) {
-  if (map_type == 0)
-    launch_score_vec_t<float>(P, entries, grid, st);
-  else if (map_type == 1)
-    launch_score_vec_t<__nv_bfloat16>(P, entries, grid, st);
-  else
-    launch_score_vec_t<__half>(P, entries, grid, st);
+enum Score { kScoreAnchor = 0, kScoreAnchorVec = 1, kScorePlane = 2, kScoreEntry = 3, kScoreEntryVec = 4 };
+
+// The route of a call, from its shapes and strides alone: finish (two launches) where an image's row fits the
+// finishing CTA's shared memory, else the passes; the score pass's kernel; the finishing CTAs an image and
+// their dynamic shared memory
+struct Plan {
+  int finish, score, reps, p2, smem, launches;
+};
+
+int finish_smem(long long n, int p2) {  // keys, histogram, winners, tie list (or rows), candidates
+  return (int)(round_up(n, 4) * 4 + kBins * 4 + (long long)p2 * 8 + kTieCap * 2 + kRankCap * 8);
+}
+
+Plan plan(int n_levels, const unsigned long long* ptrs, const long long* strides, const int* hw, int map_type,
+          int b, int nc, int reg_max, int ml, int k, long long a, int sms) {
+  const long long n = ml ? a * nc : a;
+  Plan pl{};
+  const bool vec = vec_classes(n_levels, ptrs, strides, map_type, nc, reg_max);
+  pl.score = ml ? (vec ? kScoreEntryVec : kScoreEntry)
+                : vec ? kScoreAnchorVec : plane_classes(n_levels, ptrs, strides, hw, map_type) ? kScorePlane
+                                                                                               : kScoreAnchor;
+  pl.p2 = pow2_at_least(k);
+  pl.finish = n <= kFinishCap && finish_smem(n, pl.p2) <= kMaxSmem - 1024;  // (the kernel's static shared memory)
+  if (pl.finish) {
+    pl.reps = sms / (b > 0 ? b : 1);  // a finishing CTA an SM
+    pl.reps = pl.reps < 1 ? 1 : pl.reps > kMaxReps ? kMaxReps : pl.reps;
+    if (pl.reps > k) pl.reps = k > 0 ? k : 1;
+    pl.smem = finish_smem(n, pl.p2);
+    pl.launches = 2;
+  } else {
+    const int ib = bit_length(n - 1) > 0 ? bit_length(n - 1) : 1;
+    const int passes = (32 + ib + kDigit - 1) / kDigit;
+    // score, compact, a hist pass per later digit, collect, sort, rank, the dense DFL pass, decode
+    pl.launches = 2 + (passes - 1) + 3 + (4LL * k >= a ? 1 : 0) + 1;
+  }
+  return pl;
+}
+
+int sm_count(int device) {
+  static int cached[64] = {0};
+  if (device < 0 || device >= 64) return 0;
+  if (!cached[device] && cudaDeviceGetAttribute(&cached[device], cudaDevAttrMultiProcessorCount, device) != cudaSuccess)
+    cached[device] = 0;
+  return cached[device];
+}
+
+cudaError_t launch_score(const Params& P, int score, int b, long long a, long long n, cudaStream_t st) {
+  const dim3 rows((unsigned)((n + kPerCtaRow - 1) / kPerCtaRow), b);
+  switch (score) {
+    case kScoreEntryVec:
+      if (P.map_type == 0)
+        score_entry_vec<float><<<rows, kThreads, 0, st>>>(P);
+      else if (P.map_type == 1)
+        score_entry_vec<__nv_bfloat16><<<rows, kThreads, 0, st>>>(P);
+      else
+        score_entry_vec<__half><<<rows, kThreads, 0, st>>>(P);
+      break;
+    case kScoreEntry:
+      score_entry<<<rows, kThreads, 0, st>>>(P);
+      break;
+    case kScoreAnchorVec: {
+      const dim3 grid((unsigned)((a + kThreads - 1) / kThreads), b);
+      if (P.map_type == 0)
+        score_anchor_vec<float><<<grid, kThreads, 0, st>>>(P);
+      else if (P.map_type == 1)
+        score_anchor_vec<__nv_bfloat16><<<grid, kThreads, 0, st>>>(P);
+      else
+        score_anchor_vec<__half><<<grid, kThreads, 0, st>>>(P);
+      break;
+    }
+    case kScorePlane: {
+      const long long v = kPlaneBytes / (P.map_type == 0 ? 4 : 2);  // anchors a thread
+      const dim3 grid((unsigned)((a / v + kThreads - 1) / kThreads), b);
+      if (P.map_type == 0)
+        score_plane<float><<<grid, kThreads, 0, st>>>(P);
+      else if (P.map_type == 1)
+        score_plane<__nv_bfloat16><<<grid, kThreads, 0, st>>>(P);
+      else
+        score_plane<__half><<<grid, kThreads, 0, st>>>(P);
+      break;
+    }
+    default:
+      score_anchor<<<dim3((unsigned)((a + kPerCtaAnchor - 1) / kPerCtaAnchor), b), kThreads, 0, st>>>(P);
+  }
+  return cudaGetLastError();
+}
+
+template <int RM>
+cudaError_t launch_finish(const Params& P, const Plan& pl, int b, cudaStream_t st) {
+  if (pl.smem > 48 * 1024) {  // the dynamic shared-memory limit raised to what this launch takes
+    const cudaError_t err = cudaFuncSetAttribute(finish<RM>, cudaFuncAttributeMaxDynamicSharedMemorySize, pl.smem);
+    if (err != cudaSuccess) return err;
+  }
+  finish<RM><<<(unsigned)(b * pl.reps), kFinishThreads, pl.smem, st>>>(P, pl.reps, pl.p2);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" long long select_decode_workspace_bytes(int n_levels, int b, long long a, int nc, int ml, int k) {
-  return layout(n_levels, b, a, nc, ml, k).total;
+  return layout(b, a, nc, ml, k).total;
 }
 
-extern "C" int select_decode(int n_levels, const unsigned long long* ptrs, const long long* strides, const int* hw,
-                             const float* stride_px, int map_type, int b, int nc, int reg_max, int ml, int k,
-                             float thr, float valid_thr, int score_type, const void* mask, int agnostic,
-                             void* workspace, long long workspace_bytes, void* vals, void* bidx, void* cls,
-                             void* boxes, void* shifted, void* valid, int device, void* stream) {
-  if (n_levels < 1 || b < 0 || nc < 1 || reg_max < 1 || reg_max > kMaxReg || k < 0 || map_type < 0 ||
-      map_type > 2 || score_type < 0 || score_type > 2)
+// The route a call with these arguments takes (select_decode's leading arguments, then the device): route (0
+// passes, 1 finish), the score pass's kernel (0 anchor, 1 anchor_vec, 2 plane, 3 entry, 4 entry_vec), the kernel
+// launches of one call, the finishing CTAs an image and their dynamic shared memory in bytes, written to
+// plan_out[0..4]
+extern "C" int select_decode_plan(int n_levels, const unsigned long long* ptrs, const long long* strides,
+                                  const int* hw, int map_type, int b, int nc, int reg_max, int ml, int k, int device,
+                                  int* plan_out) {
+  long long a = 0;
+  for (int l = 0; l < n_levels; ++l) a += (long long)hw[2 * l] * hw[2 * l + 1];
+  const Plan pl = plan(n_levels, ptrs, strides, hw, map_type, b, nc, reg_max, ml, k, a, sm_count(device));
+  plan_out[0] = pl.finish;
+  plan_out[1] = pl.score;
+  plan_out[2] = pl.launches;
+  plan_out[3] = pl.finish ? pl.reps : 0;
+  plan_out[4] = pl.finish ? pl.smem : 0;
+  return 0;
+}
+
+// Writes 1 to *bad (an int the caller zeroed) unless torch_sigmoid is monotone non-decreasing over every non-NaN
+// fp32, which the single-label score pass assumes (ClassMax): one launch of some 4.3 billion scores, run by the card
+// tests and chip_smoke.py
+extern "C" int select_decode_sigmoid_check(void* bad, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned long long keys = 0xff800000ull - 0x007fffffull + 1;
+  const unsigned blocks = (unsigned)((keys + 4096ull * 256 - 1) / (4096ull * 256));
+  sigmoid_monotone_check<<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(static_cast<unsigned*>(bad));
+  return static_cast<int>(cudaGetLastError());
+}
+
+namespace {
+
+// one call's launches; score_only: the memset and the score pass alone
+int run(int n_levels, const unsigned long long* ptrs, const long long* strides, const int* hw, const float* stride_px,
+        int map_type, int b, int nc, int reg_max, int ml, int k, float thr, float valid_thr, int score_type,
+        const void* mask, int agnostic, void* workspace, long long workspace_bytes, void* vals, void* bidx, void* cls,
+        void* boxes, void* shifted, void* valid, int device, void* stream, bool score_only) {
+  if (n_levels < 1 || n_levels > kMaxLevels || b < 0 || nc < 1 || reg_max < 1 || reg_max > kMaxReg || k < 0 ||
+      map_type < 0 || map_type > 2 || score_type < 0 || score_type > 2)
     return static_cast<int>(cudaErrorInvalidValue);
   long long a = 0;
   for (int l = 0; l < n_levels; ++l) a += (long long)hw[2 * l] * hw[2 * l + 1];
   const long long n = ml ? a * nc : a;
   if (k > n || n >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
   if (b == 0 || k == 0) return 0;
-  const Layout w = layout(n_levels, b, a, nc, ml, k);
+  const Layout w = layout(b, a, nc, ml, k);
   if (workspace_bytes < w.total) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);  // nvcc's own runtime: its current device is not PyTorch's
   if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   char* ws = static_cast<char*>(workspace);
+  const Plan pl = plan(n_levels, ptrs, strides, hw, map_type, b, nc, reg_max, ml, k, a, sm_count(device));
 
   Params P;
-  P.levels = reinterpret_cast<const Level*>(ws + w.levels);
+  long long off = 0;
+  for (int l = 0; l < n_levels; ++l) {  // the level descriptors, by value in every launch's parameters
+    Level& L = P.levels[l];
+    L.ptr = reinterpret_cast<const void*>(ptrs[l]);
+    L.sb = strides[4 * l];
+    L.sh = strides[4 * l + 1];
+    L.sw = strides[4 * l + 2];
+    L.sc = strides[4 * l + 3];
+    L.h = hw[2 * l];
+    L.w = hw[2 * l + 1];
+    L.off = (int)off;
+    L.stride = stride_px[l];
+    off += (long long)L.h * L.w;
+  }
   P.n_levels = n_levels;
   P.map_type = map_type;
   P.score_type = score_type;
@@ -863,8 +1435,9 @@ extern "C" int select_decode(int n_levels, const unsigned long long* ptrs, const
   P.list = reinterpret_cast<unsigned long long*>(ws + w.list);
   P.list_cap = (int)(n / 4);
   // decode every anchor once when the candidates are at least a quarter of the anchors (val's 8,192 of 5,040-8,400),
-  // each candidate's own logits when they are fewer (predict's 512 of 8,400: the dense pass took twice as long)
-  P.dense = 4LL * k >= a;
+  // each candidate's own logits when they are fewer (predict's 512 of 8,400: the dense pass took twice as long);
+  // the finish route decodes each candidate's own
+  P.dense = !pl.finish && 4LL * k >= a;
   P.cand = reinterpret_cast<unsigned long long*>(ws + w.cand);
   P.sorted = reinterpret_cast<unsigned long long*>(ws + w.sorted);
   P.vals = static_cast<float*>(vals);
@@ -874,45 +1447,17 @@ extern "C" int select_decode(int n_levels, const unsigned long long* ptrs, const
   P.shifted = static_cast<float*>(shifted);
   P.valid = static_cast<uint8_t*>(valid);
 
-  // the level descriptors into the workspace, by value through the launches
-  long long off = 0;
-  for (int first = 0; first < n_levels; first += kLevelsPerStore) {
-    LevelChunk chunk;
-    chunk.first = first;
-    chunk.n = n_levels - first < kLevelsPerStore ? n_levels - first : kLevelsPerStore;
-    for (int i = 0; i < chunk.n; ++i) {
-      const int l = first + i;
-      Level& L = chunk.lv[i];
-      L.ptr = reinterpret_cast<const void*>(ptrs[l]);
-      L.sb = strides[4 * l];
-      L.sh = strides[4 * l + 1];
-      L.sw = strides[4 * l + 2];
-      L.sc = strides[4 * l + 3];
-      L.h = hw[2 * l];
-      L.w = hw[2 * l + 1];
-      L.off = (int)off;
-      L.stride = stride_px[l];
-      off += (long long)L.h * L.w;
-    }
-    store_levels<<<1, kLevelsPerStore, 0, st>>>(chunk, const_cast<Level*>(P.levels));
-    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  P.passes = !pl.finish;
+  // the per-image state and the histograms zeroed, then the score pass, which counts the first digit
+  if ((err = cudaMemsetAsync(ws + w.img, 0, w.keys - w.img, st)) != cudaSuccess) return static_cast<int>(err);
+  if ((err = launch_score(P, pl.score, b, a, n, st)) != cudaSuccess || score_only) return static_cast<int>(err);
+  if (pl.finish) {  // then a finishing CTA group an image
+    err = reg_max == 16 ? launch_finish<16>(P, pl, b, st) : launch_finish<0>(P, pl, b, st);
+    return static_cast<int>(err);
   }
-  init_images<<<b, 256, 0, st>>>(P);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-
+  // the passes: the score pass's last CTA of each image selected the first digit; the list of the entries at or
+  // above that bin, then the later digits, each pass's last CTA selecting
   const unsigned row_ctas = (unsigned)((n + kPerCtaRow - 1) / kPerCtaRow);
-  const bool vec = vec_classes(n_levels, ptrs, strides, map_type, nc, reg_max);
-  if (ml && vec)
-    err = launch_score_vec(P, map_type, true, dim3(row_ctas, b), st);
-  else if (ml)
-    score_entry<<<dim3(row_ctas, b), kThreads, 0, st>>>(P);
-  else if (vec)
-    err = launch_score_vec(P, map_type, false, dim3((unsigned)((a + kThreads - 1) / kThreads), b), st);
-  else
-    score_anchor<<<dim3((unsigned)((a + kPerCtaAnchor - 1) / kPerCtaAnchor), b), kThreads, 0, st>>>(P);
-  if (err != cudaSuccess || (err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  // the score pass counted the first digit and its last CTA selected; list the entries at or above that bin, then
-  // the later digits, each pass's last CTA selecting
   compact<<<dim3(row_ctas, b), kThreads, 0, st>>>(P);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   const int passes = (P.total_bits + kDigit - 1) / kDigit;
@@ -942,6 +1487,27 @@ extern "C" int select_decode(int n_levels, const unsigned long long* ptrs, const
   else
     decode<0><<<decode_grid, 128, 0, st>>>(P);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int select_decode(int n_levels, const unsigned long long* ptrs, const long long* strides, const int* hw,
+                             const float* stride_px, int map_type, int b, int nc, int reg_max, int ml, int k,
+                             float thr, float valid_thr, int score_type, const void* mask, int agnostic,
+                             void* workspace, long long workspace_bytes, void* vals, void* bidx, void* cls,
+                             void* boxes, void* shifted, void* valid, int device, void* stream) {
+  return run(n_levels, ptrs, strides, hw, stride_px, map_type, b, nc, reg_max, ml, k, thr, valid_thr, score_type,
+             mask, agnostic, workspace, workspace_bytes, vals, bidx, cls, boxes, shifted, valid, device, stream, false);
+}
+
+// select_decode's memset and score pass alone, for timing the score pass (chip_smoke.py); the outputs are not written
+extern "C" int select_decode_score(int n_levels, const unsigned long long* ptrs, const long long* strides,
+                                   const int* hw, const float* stride_px, int map_type, int b, int nc, int reg_max,
+                                   int ml, int k, float thr, float valid_thr, int score_type, const void* mask,
+                                   int agnostic, void* workspace, long long workspace_bytes, void* vals, void* bidx,
+                                   void* cls, void* boxes, void* shifted, void* valid, int device, void* stream) {
+  return run(n_levels, ptrs, strides, hw, stride_px, map_type, b, nc, reg_max, ml, k, thr, valid_thr, score_type,
+             mask, agnostic, workspace, workspace_bytes, vals, bidx, cls, boxes, shifted, valid, device, stream, true);
 }
 
 extern "C" const char* select_decode_error_string(int code) {

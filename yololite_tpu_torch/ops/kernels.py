@@ -315,7 +315,8 @@ def int8_conv_plain(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor, bias:
 
 
 X_TYPES = {torch.int8: 0, torch.bfloat16: 1, torch.float32: 2}  # K8's input codes
-ROUTES = ("gemm", "depthwise", "direct")  # csrc/int8_conv.cu's routes, by code
+ROUTES = ("gemm", "depthwise", "direct", "gemm1x1")  # csrc/int8_conv.cu's routes, by code
+PICKS = {"plan": 0, "gemm": 1, "gemm1x1": 2}  # the route int8_conv_pick takes: the plan's, or the one named
 
 
 def int8_conv(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, stride: int = 1,
@@ -363,9 +364,11 @@ def _int8_conv_op(x: Tensor, w: Tensor, scale: Tensor, bias: Tensor, stride: int
     return int8_conv_plain(x, w, scale, bias, stride, padding, groups, act, sout, sin)
 
 
-@_int8_conv_op.register_kernel("cuda")
-def _int8_conv_cuda(x: Tensor, w: Tensor, scale: Tensor, bias: Tensor, stride: int, padding: int, groups: int,
-                    act: int, sout: float, sin: float = 0.0) -> Tensor:
+def _int8_conv_launch(x: Tensor, w: Tensor, scale: Tensor, bias: Tensor, stride: int, padding: int, groups: int,
+                      act: int, sout: float, sin: float = 0.0, pick: str = "plan") -> Tensor:
+    """One launch of csrc/int8_conv.cu into a fresh output, on the route its plan picks, or (`pick` "gemm", the
+    route before gemm1x1, or "gemm1x1") through its entry point int8_conv_pick, which chip_smoke.py times both
+    routes of a 1x1 conv with."""
     b, cin, h, wd = x.shape
     cout, kh, kw, _ = w.shape
     ho, wo = _conv_out_hw(h, wd, kh, kw, stride, padding)
@@ -374,11 +377,19 @@ def _int8_conv_cuda(x: Tensor, w: Tensor, scale: Tensor, bias: Tensor, stride: i
     stream = torch._C._cuda_getCurrentRawStream(x.device.index)  # PyTorch's current stream, as an int
     lib = _int8_lib()
     table = _requant_table(x.device, act, sout).data_ptr() if sout > 0 else None
-    rc = lib.int8_conv(x.data_ptr(), w.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(), b, h, wd, cin,
-                       ho, wo, cout, kh, kw, stride, padding, groups, act, X_TYPES[x.dtype], float(sout), float(sin),
-                       table, x.device.index, stream)
+    args = (x.data_ptr(), w.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(), b, h, wd, cin, ho, wo,
+            cout, kh, kw, stride, padding, groups, act, X_TYPES[x.dtype], float(sout), float(sin), table,
+            x.device.index, stream)
+    rc = lib.int8_conv(*args) if pick == "plan" else lib.int8_conv_pick(*args, PICKS[pick])
     if rc != 0:
         raise RuntimeError(f"int8_conv kernel launch failed: {lib.int8_conv_error_string(rc).decode()}")
+    return out
+
+
+@_int8_conv_op.register_kernel("cuda")
+def _int8_conv_cuda(x: Tensor, w: Tensor, scale: Tensor, bias: Tensor, stride: int, padding: int, groups: int,
+                    act: int, sout: float, sin: float = 0.0) -> Tensor:
+    out = _int8_conv_launch(x, w, scale, bias, stride, padding, groups, act, sout, sin)
     int8_conv.launches += 1
     return out
 
@@ -413,16 +424,23 @@ def _requant_table(device: torch.device, act: int, sout: float) -> torch.Tensor:
     return _requant_tables[key]
 
 
-def int8_conv_plan(x: torch.Tensor, w: torch.Tensor, out: torch.Tensor, groups: int) -> dict:
-    """The route csrc/int8_conv.cu takes for these CUDA tensors (x channels-last NCHW, w OHWI, out its output):
-    {"route": "gemm" | "depthwise" | "direct", "n_tile", "m_tile", "granule" (those three for gemm), "smem"
-    (the launch's dynamic shared memory, bytes)}."""
+def int8_conv_plan(x: torch.Tensor, w: torch.Tensor, out: torch.Tensor, groups: int, stride: int = 1,
+                   padding: Optional[int] = None, pick: str = "plan") -> dict:
+    """The route csrc/int8_conv.cu takes for these CUDA tensors (x channels-last NCHW, w OHWI, out its output, int8
+    or bf16; the padding defaults to the model's k // 2): {"route": "gemm1x1" | "gemm" | "depthwise" | "direct",
+    "n_tile", "m_tile", "granule" (those three for the gemm routes), "smem" (the launch's dynamic shared memory,
+    bytes), "a_sets", "n_groups", "blocks_per_sm", "whole_table" (gemm1x1's sets of A slots, groups of N tiles,
+    blocks an SM, and whether it reads the requant table uncompressed)}. `pick` as `_int8_conv_launch`'s: with
+    "gemm1x1" where that route cannot run, the route is None."""
     b, cin = x.shape[:2]
     cout, kh, kw, _ = w.shape
-    plan = (ctypes.c_int * 5)()
-    _int8_lib().int8_conv_plan(x.data_ptr(), w.data_ptr(), out.data_ptr(), b, cin, out.shape[2], out.shape[3], cout,
-                               kh, kw, groups, plan)
-    return {"route": ROUTES[plan[0]], "n_tile": plan[1], "m_tile": 64 * plan[2], "granule": plan[3], "smem": plan[4]}
+    plan = (ctypes.c_int * 9)()
+    with torch.cuda.device(x.device):
+        _int8_lib().int8_conv_plan(x.data_ptr(), w.data_ptr(), out.data_ptr(), b, cin, out.shape[2], out.shape[3],
+                                   cout, kh, kw, stride, kh // 2 if padding is None else padding, groups,
+                                   X_TYPES[x.dtype], 1.0 if out.dtype == torch.int8 else 0.0, PICKS[pick], plan)
+    return {"route": ROUTES[plan[0]] if plan[0] >= 0 else None, "n_tile": plan[1], "m_tile": 64 * plan[2],
+            "granule": plan[3], "smem": plan[4], "a_sets": plan[5], "n_groups": plan[6], "blocks_per_sm": plan[7], "whole_table": bool(plan[8])}
 
 
 def _int8_lib() -> ctypes.CDLL:
@@ -434,11 +452,14 @@ def _int8_lib() -> ctypes.CDLL:
                                                                                  ctypes.c_void_p, ctypes.c_int,
                                                                                  ctypes.c_void_p]
         lib.int8_conv.restype = ctypes.c_int
+        lib.int8_conv_pick.argtypes = lib.int8_conv.argtypes + [ctypes.c_int]
+        lib.int8_conv_pick.restype = ctypes.c_int
         lib.int8_conv_table.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         lib.int8_conv_table.restype = ctypes.c_int
         lib.int8_conv_table_bytes.argtypes = []
         lib.int8_conv_table_bytes.restype = ctypes.c_int
-        lib.int8_conv_plan.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.POINTER(ctypes.c_int)]
+        lib.int8_conv_plan.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 11 + [ctypes.c_float, ctypes.c_int,
+                                                                                 ctypes.POINTER(ctypes.c_int)]
         lib.int8_conv_plan.restype = ctypes.c_int
         lib.int8_conv_error_string.argtypes = [ctypes.c_int]
         lib.int8_conv_error_string.restype = ctypes.c_char_p
@@ -518,6 +539,9 @@ def select_decode_plain(feats: Sequence[torch.Tensor], strides: Sequence[int], n
 
 
 SCORE_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}  # K3's map and score type codes
+SELECT_MAX_LEVELS = 16  # level descriptors csrc/select_decode.cu carries in its launch parameters
+SELECT_ROUTES = ("passes", "finish")  # csrc/select_decode.cu's routes, by code
+SELECT_SCORES = ("anchor", "anchor_vec", "plane", "entry", "entry_vec")  # its score-pass kernels, by code
 
 
 def _gate_threshold(conf: float, score_type: torch.dtype) -> float:
@@ -551,6 +575,8 @@ def select_decode(feats: Sequence[torch.Tensor], strides: Sequence[int], nc: int
         raise ValueError(f"select_decode: maps on {[str(f.device) for f in feats]}, class_mask on "
                          f"{None if class_mask is None else class_mask.device}")
     if dev.type == "cuda":
+        if len(feats) > SELECT_MAX_LEVELS:
+            raise ValueError(f"select_decode takes at most {SELECT_MAX_LEVELS} levels on the card, got {len(feats)}")
         if feats[0].dtype not in SCORE_TYPES or any(f.dtype != feats[0].dtype for f in feats):
             raise TypeError(f"select_decode wants maps of one dtype out of fp32, bf16, fp16, got "
                             f"{[f.dtype for f in feats]}")
@@ -590,10 +616,21 @@ def _select_decode_empty(feats, nc: int, max_cand: int, multi_label: bool):
             torch.empty((b, k), dtype=torch.bool, device=dev))
 
 
-@_select_decode_op.register_kernel("cuda")
-def _select_decode_cuda(feats: List[Tensor], strides: List[int], nc: int, reg_max: int, conf_thres: float,
-                        max_cand: int, class_mask: Optional[Tensor], half: bool, multi_label: bool,
-                        agnostic: bool) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor, Tensor]:
+def _level_args(feats: Sequence[Tensor], strides: Optional[Sequence[int]] = None):
+    """The levels as csrc/select_decode.cu takes them: pointers, element strides, (H, W) and strides in pixels."""
+    n = len(feats)
+    ptrs = (ctypes.c_uint64 * n)(*[f.data_ptr() for f in feats])
+    strd = (ctypes.c_longlong * (4 * n))(*[s for f in feats for s in f.stride()])
+    hw = (ctypes.c_int * (2 * n))(*[d for f in feats for d in (f.shape[1], f.shape[2])])
+    px = None if strides is None else (ctypes.c_float * n)(*[float(s) for s in strides])
+    return ptrs, strd, hw, px
+
+
+def _select_decode_launch(feats: List[Tensor], strides: List[int], nc: int, reg_max: int, conf_thres: float,
+                          max_cand: int, class_mask: Optional[Tensor], half: bool, multi_label: bool,
+                          agnostic: bool, score_only: bool = False):
+    """One launch sequence of csrc/select_decode.cu into fresh outputs (`score_only`: its entry point that launches
+    the score pass alone, into the workspace, for timing it)."""
     out = _select_decode_empty(feats, nc, max_cand, multi_label)
     vals, bidx, cls, boxes, shifted, valid = out
     b, k = vals.shape
@@ -601,27 +638,63 @@ def _select_decode_cuda(feats: List[Tensor], strides: List[int], nc: int, reg_ma
         return out
     dev = feats[0].device
     ml = multi_label and nc > 1
-    n_levels = len(feats)
     score_type = feats[0].dtype if half else torch.float32  # what the plain version's sigmoid computes in
     thr, valid_thr = _gate_threshold(conf_thres, score_type), _gate_threshold(max(conf_thres, 0.0), score_type)
     a = sum(int(f.shape[1]) * int(f.shape[2]) for f in feats)
     lib = _select_lib()
-    ptrs = (ctypes.c_uint64 * n_levels)(*[f.data_ptr() for f in feats])
-    strd = (ctypes.c_longlong * (4 * n_levels))(*[s for f in feats for s in f.stride()])
-    hw = (ctypes.c_int * (2 * n_levels))(*[d for f in feats for d in (f.shape[1], f.shape[2])])
-    px = (ctypes.c_float * n_levels)(*[float(s) for s in strides])
-    nbytes = lib.select_decode_workspace_bytes(n_levels, b, a, nc, int(ml), k)
+    ptrs, strd, hw, px = _level_args(feats, strides)
+    nbytes = lib.select_decode_workspace_bytes(len(feats), b, a, nc, int(ml), k)
     workspace = torch.empty(nbytes, dtype=torch.uint8, device=dev)
     stream = torch._C._cuda_getCurrentRawStream(dev.index)  # PyTorch's current stream, as an int
     mask = None if class_mask is None else class_mask.contiguous().data_ptr()
-    rc = lib.select_decode(n_levels, ptrs, strd, hw, px, SCORE_TYPES[feats[0].dtype], b, nc, reg_max, int(ml), k,
-                           thr, valid_thr, SCORE_TYPES[score_type], mask, int(agnostic), workspace.data_ptr(), nbytes,
-                           vals.data_ptr(), bidx.data_ptr(), cls.data_ptr(), boxes.data_ptr(), shifted.data_ptr(),
-                           valid.data_ptr(), dev.index, stream)
+    entry = lib.select_decode_score if score_only else lib.select_decode
+    rc = entry(len(feats), ptrs, strd, hw, px, SCORE_TYPES[feats[0].dtype], b, nc, reg_max, int(ml), k, thr,
+               valid_thr, SCORE_TYPES[score_type], mask, int(agnostic), workspace.data_ptr(), nbytes, vals.data_ptr(),
+               bidx.data_ptr(), cls.data_ptr(), boxes.data_ptr(), shifted.data_ptr(), valid.data_ptr(), dev.index,
+               stream)
     if rc != 0:
         raise RuntimeError(f"select_decode kernel launch failed: {lib.select_decode_error_string(rc).decode()}")
-    select_decode.launches += 1
     return out
+
+
+@_select_decode_op.register_kernel("cuda")
+def _select_decode_cuda(feats: List[Tensor], strides: List[int], nc: int, reg_max: int, conf_thres: float,
+                        max_cand: int, class_mask: Optional[Tensor], half: bool, multi_label: bool,
+                        agnostic: bool) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor, Tensor]:
+    out = _select_decode_launch(feats, strides, nc, reg_max, conf_thres, max_cand, class_mask, half, multi_label,
+                                agnostic)
+    if out[0].numel():
+        select_decode.launches += 1
+    return out
+
+
+def sigmoid_monotone(device: torch.device) -> bool:
+    """Whether K3's score function (torch's CUDA sigmoid, bit for bit) is monotone non-decreasing over every non-NaN
+    fp32 on this card, checked exhaustively by csrc/select_decode.cu's check kernel. The single-label score pass
+    relies on it: it takes the largest logits and computes the sigmoid of those alone. The card tests and
+    chip_smoke.py run it; the path does not."""
+    lib = _select_lib()
+    bad = torch.zeros(1, dtype=torch.int32, device=device)
+    rc = lib.select_decode_sigmoid_check(bad.data_ptr(), bad.device.index,
+                                         torch._C._cuda_getCurrentRawStream(bad.device.index))
+    if rc != 0:
+        raise RuntimeError(f"select_decode check kernel launch failed: {lib.select_decode_error_string(rc).decode()}")
+    return int(bad.item()) == 0
+
+
+def select_decode_plan(feats: Sequence[torch.Tensor], nc: int, reg_max: int, max_cand: int,
+                       multi_label: bool = False) -> dict:
+    """The route csrc/select_decode.cu takes for these CUDA maps: {"route": "finish" | "passes", "score" (the
+    score pass's kernel), "launches" (kernels a call launches), "reps" (finishing CTAs an image), "smem" (their
+    dynamic shared memory, bytes)}. The rule lives in the kernel's `plan`, from the shapes and strides alone."""
+    b = int(feats[0].shape[0])
+    k = min(max_cand, _n_entries(feats, nc, multi_label))
+    ptrs, strd, hw, _ = _level_args(feats)
+    plan = (ctypes.c_int * 5)()
+    _select_lib().select_decode_plan(len(feats), ptrs, strd, hw, SCORE_TYPES[feats[0].dtype], b, nc, reg_max,
+                                     int(multi_label and nc > 1), k, feats[0].device.index or 0, plan)
+    return {"route": SELECT_ROUTES[plan[0]], "score": SELECT_SCORES[plan[1]], "launches": plan[2], "reps": plan[3],
+            "smem": plan[4]}
 
 
 @_select_decode_op.register_fake
@@ -636,12 +709,18 @@ def _select_lib() -> ctypes.CDLL:
 
     lib = cuda_build.load("select_decode")
     if lib.select_decode.argtypes is None:  # declare the C signatures once per process
-        lib.select_decode.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_uint64), ctypes.POINTER(ctypes.c_longlong),
-                                      ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_float)] + [
-            ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-                                 ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_void_p] * 6 + [ctypes.c_int,
-                                                                                               ctypes.c_void_p]
+        levels = [ctypes.c_int, ctypes.POINTER(ctypes.c_uint64), ctypes.POINTER(ctypes.c_longlong),
+                  ctypes.POINTER(ctypes.c_int)]
+        lib.select_decode.argtypes = levels + [ctypes.POINTER(ctypes.c_float)] + [ctypes.c_int] * 6 + [
+            ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_longlong] + [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_void_p]
         lib.select_decode.restype = ctypes.c_int
+        lib.select_decode_score.argtypes = lib.select_decode.argtypes
+        lib.select_decode_score.restype = ctypes.c_int
+        lib.select_decode_sigmoid_check.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+        lib.select_decode_sigmoid_check.restype = ctypes.c_int
+        lib.select_decode_plan.argtypes = levels + [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int)]
+        lib.select_decode_plan.restype = ctypes.c_int
         lib.select_decode_workspace_bytes.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
                                                       ctypes.c_int, ctypes.c_int]
         lib.select_decode_workspace_bytes.restype = ctypes.c_longlong
