@@ -6,8 +6,9 @@
 Phases, each of which exits non-zero on failure:
   1. build: compiles every kernel source in yololite_tpu_torch/csrc/ with
      nvcc, all at once, and prints the build time and ptxas's report (for
-     K8 and K4: registers and spills per kernel; for K8 the count of
-     warpgroup MMA instructions in its SASS, which must not be 0);
+     K8, K4 and the loss tail's dfl and bce_sum: registers, stack frame and
+     spills per kernel; for K8 the count of warpgroup MMA instructions in
+     its SASS, which must not be 0);
   2. kernel: holds each kernel against its plain PyTorch version on the card
      (bit-equal keep masks for greedy_nms_keep, boxes in, over crowded random
      scenes and alternating suppression chains, ragged K and K = 1024
@@ -29,10 +30,14 @@ Phases, each of which exits non-zero on failure:
      and 720x1280 -> 640 beside its bound and F.interpolate; the loss tail:
      K5 (dfl_expectation), K6a (dfl_ce_mean), K6b (bce_sum) forward and
      backward on the (B, A, 144) maps' strided slices at (B, A) in
-     LOSS_TAIL_SHAPES, fp32 and bf16, bit for bit (K6b's sum within
-     BCE_SUM_RTOL), and K7 (topk_rows) on the assigner-like metrics of
-     TOPK_CASES, values and indices bit for bit; each also the same bits on
-     a second call and in a CUDA graph replay;
+     LOSS_TAIL_SHAPES and LOSS_TAIL_EDGE_SHAPES (row counts off the kernels'
+     tiles), fp32 and bf16, also through the layouts that take K6a's and
+     K6b's scalar routes, with NaN, +-inf and -0.0 logits, and in fp64, bit
+     for bit (K6b's sum within BCE_SUM_RTOL, bit for bit its terms added in
+     the kernel's order, and the same on both routes), each layout down the
+     route LOSS_TAIL_ROUTES names, and K7 (topk_rows) on the assigner-like
+     metrics of TOPK_CASES, values and indices bit for bit; each also the
+     same bits on a second call and in a CUDA graph replay;
   3. slice: YOLOLite("yolo11n.yaml") with init(0) predicts synthetic 480x640
      uint8 batches at imgsz 640 and conf 1e-7, in fp32 (TF32 off) and bf16, at
      batch 1 and 32; each call replays a CUDA graph of the step (the first
@@ -98,10 +103,13 @@ Phases, each of which exits non-zero on failure:
      graphed and eager, an epoch loop's third pass taken apart (loader,
      upload, host enqueue, the card; the pass's captures and first sights)
      graphed and eager, the device's idle share over 2 epochs
-     (torch.profiler) graphed and eager; times K5, K6a and K6b forward and
-     backward at B 16, A 8,400, fp32 and bf16, and K7 at M 32 and 64, each
-     beside its plain version, bound and a library call; checks one step on
-     the card against the CPU at imgsz 160;
+     (torch.profiler) graphed and eager; the device time a step of
+     autograd's slice_backward and adds around the loss tail (torch.profiler,
+     fp32 and bf16); times K5, K6a and K6b forward and backward at B 16,
+     A 8,400, fp32 and bf16, and K7 at M 32 and 64, each warm (one input
+     set) and cold (input sets in turn, more than 100 MB), beside its plain
+     version, bound and a library call; checks one step on the card against
+     the CPU at imgsz 160;
   6. serving: (a) writes two upstream-format .pt files from init(0) and
      init(1) models (a plain one and a 2-member nn.ModuleList ensemble),
      loads them through the stub unpickler (weights bit-equal), predicts 32
@@ -176,6 +184,7 @@ Prints the card's name and power limit, a {"kernels": [...]} line, and last
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
 import subprocess
 import sys
@@ -653,6 +662,7 @@ TOPK_CASES = ((16, 32, 8400, 10), (16, 64, 8400, 10), (16, 16, 8400, 13), (16, 2
 # K6b's sum against torch's: the same fp32 terms added in another order; readings 0 to 7.8e-8 relative on an H100
 # (PERF.md), and one of the 134,400 rows of (16, 8400) left out would move the sum about 7e-6
 BCE_SUM_RTOL = 1e-6
+COLD_BYTES = 100e6  # the other input sets' bytes between two visits of one set in a cold timing (`cold_sets`)
 LOSS_TAIL_OPS = {"dfl_expectation": 6, "dfl_expectation_backward": 12, "dfl_ce_mean": 8, "dfl_ce_backward": 12,
                  "bce_sum": 9, "bce_sum_backward": 6}  # fp32 operations a logit (expf and log1pf counted as one)
 
@@ -688,9 +698,14 @@ def loss_tail_metrics(b: int, m: int, a: int, seed: int):
 
 def loss_tail_pairs(maps, tgt, lab, g4, g1) -> dict:
     """Each loss-tail kernel's call and its plain version's on these inputs, by wrapper name: (kernel, plain)."""
+    return loss_tail_calls(maps[..., :64], maps[..., 64:], tgt, lab, g4, g1)
+
+
+def loss_tail_calls(box, cls, tgt, lab, g4, g1) -> dict:
+    """`loss_tail_pairs` on box and class logits given apart (any layout the kernels read)."""
     from yololite_tpu_torch.ops import loss_kernels as L
 
-    box, cls, g0 = maps[..., :64], maps[..., 64:], g1[0, 0, 0]
+    g0 = g1.reshape(-1)[0]
     return {
         "dfl_expectation": (lambda: L.dfl_expectation(box, 16), lambda: L.dfl_expectation_plain(box, 16)),
         "dfl_expectation_backward": (lambda: L.dfl_expectation_backward(box, g4, 16),
@@ -702,9 +717,86 @@ def loss_tail_pairs(maps, tgt, lab, g4, g1) -> dict:
     }
 
 
+# the layouts and values the redesigned K6a and K6b are held on besides the maps' slices (`loss_tail_case`): the
+# same values where 16-byte loads cannot read them (maps of row stride 146 with the box slice one column in,
+# labels of row stride 81), and NaN, +-inf and -0.0 logits in both slices
+LOSS_TAIL_CASES = ("aligned", "scalar", "special")
+LOSS_TAIL_ROUTES = {"aligned": ("lanes", "vector"), "scalar": ("lanes-scalar", "scalar"),
+                    "special": ("lanes", "vector")}  # (K6a's route, K6b's) each case must take
+# rows that are no multiple of K6a's 32 rows a block nor of K6b's chunk of 1,024 pieces, and one row
+LOSS_TAIL_EDGE_SHAPES = ((1, 1), (1, 1001), (7, 333))
+
+
+def loss_tail_case(case: str, maps, tgt, lab, g4, g1):
+    """(box, cls, tgt, lab, g4, g1) of one of LOSS_TAIL_CASES from `loss_tail_inputs`' tensors."""
+    import torch
+
+    if case == "aligned":
+        return maps[..., :64], maps[..., 64:], tgt, lab, g4, g1
+    if case == "scalar":
+        b, a, _ = maps.shape
+        wide = torch.zeros(b, a, 146, dtype=maps.dtype, device=maps.device)
+        wide[..., 1:65], wide[..., 66:] = maps[..., :64], maps[..., 64:]
+        lab81 = torch.zeros(b, a, 81, dtype=lab.dtype, device=lab.device)
+        lab81[..., 1:] = lab
+        return wide[..., 1:65], wide[..., 66:], tgt, lab81[..., 1:], g4, g1
+    special = maps.clone()
+    rows = special.view(-1, 144)
+    rows[::13, 3] = float("nan")
+    rows[::17, 20] = float("inf")
+    rows[::19, 40] = float("-inf")
+    rows[::23, 50:54] = -0.0
+    rows[::29, 32:48] = float("-inf")  # a whole side at -inf
+    rows[::31, 70] = float("nan")
+    rows[::37, 90] = float("inf")
+    rows[::41, 100] = float("-inf")
+    rows[::43, 120:124] = -0.0
+    return special[..., :64], special[..., 64:], tgt, lab, g4, g1
+
+
+def bce_sum_kernel_order(logits, labels):
+    """K6b's sum taken in csrc/bce_sum.cu's order in plain torch (on the card, whose elementwise ops give the
+    kernel's terms): the terms in row-major order cut into `bce_sum_plan`'s pieces; thread t of chunk c adds the
+    terms of its pieces c * 1024 + i * 256 + t (i < 4) in order; each warp's shuffle-down tree, the block's 8 warps
+    in order, then the partials the same way on one block of 512 threads. A term past the last is 0, which adds
+    nothing: a sum that starts at +0.0 is never -0.0."""
+    import torch
+
+    from yololite_tpu_torch.ops import loss_kernels as L
+
+    plan = L.bce_sum_plan(logits, labels)
+    g, blocks = plan["piece"], plan["blocks"]
+    terms = L.sigmoid_bce(logits.float(), labels.float()).reshape(-1)
+    padded = torch.zeros(max(blocks, 1) * L.BCE_CHUNK * g, dtype=torch.float32, device=terms.device)
+    padded[:terms.numel()] = terms
+    pieces = padded.view(-1, L.BCE_CHUNK // 256, 256, g)  # (chunk, i, thread, j)
+    acc = torch.zeros(pieces.shape[0], 256, dtype=torch.float32, device=terms.device)
+    for i in range(pieces.shape[1]):
+        for j in range(g):
+            acc = acc + pieces[:, i, :, j]
+
+    def block(acc, threads):  # the shuffle-down tree in each warp, then the warps' sums in order
+        lanes = acc.view(acc.shape[0], threads // 32, 32).clone()
+        for o in (16, 8, 4, 2, 1):
+            lanes[..., :o] = lanes[..., :o] + lanes[..., o:2 * o]
+        s = lanes[:, 0, 0]
+        for w in range(1, threads // 32):
+            s = s + lanes[:, w, 0]
+        return s
+
+    partials = block(acc, 256) if blocks else torch.zeros(0, dtype=torch.float32, device=terms.device)
+    per = torch.zeros(-(-max(partials.numel(), 1) // 512) * 512, dtype=torch.float32, device=terms.device)
+    per[:partials.numel()] = partials
+    acc = torch.zeros(1, 512, dtype=torch.float32, device=terms.device)
+    for i in range(per.numel() // 512):
+        acc = acc + per[i * 512:(i + 1) * 512]
+    return block(acc, 512)[0]
+
+
 def loss_tail_check(name: str, kernel, plain, what: str) -> float:
-    """One loss-tail kernel against its plain version: bit for bit (K6b's sum within BCE_SUM_RTOL), a second call
-    the same bits, and a CUDA graph of the call replayed the same bits. Returns max |kernel - plain|."""
+    """One loss-tail kernel against its plain version: bit for bit (K6b's sum within BCE_SUM_RTOL, or the same bits
+    where the plain sum is not finite), a second call the same bits, and a CUDA graph of the call replayed the
+    same bits. Returns max |kernel - plain| over the finite entries."""
     import torch
 
     got, want, again = kernel(), plain(), kernel()
@@ -722,9 +814,10 @@ def loss_tail_check(name: str, kernel, plain, what: str) -> float:
             raise AssertionError(f"{name} ({what}): a second call or a graph replay gave other bits")
         if g.shape != w.shape or g.dtype != w.dtype:
             raise AssertionError(f"{name} ({what}): {tuple(g.shape)} {g.dtype}, plain {tuple(w.shape)} {w.dtype}")
-        if g.is_floating_point():
-            err = max(err, float((g.double() - w.double()).abs().nan_to_num(0.0).max()) if g.numel() else 0.0)
-        if name == "bce_sum":
+        if g.is_floating_point() and g.numel():
+            d = (g.double() - w.double()).abs()
+            err = max(err, float(d[torch.isfinite(d)].max()) if torch.isfinite(d).any() else 0.0)
+        if name == "bce_sum" and bool(torch.isfinite(w)):
             if not bool((g.double() - w.double()).abs() <= BCE_SUM_RTOL * w.double().abs()):
                 raise AssertionError(f"bce_sum ({what}): {float(g)} against the plain {float(w)}, beyond "
                                      f"{BCE_SUM_RTOL} relative")
@@ -735,23 +828,60 @@ def loss_tail_check(name: str, kernel, plain, what: str) -> float:
     return err
 
 
+def loss_tail_case_checks(b: int, a: int, dtype, case: str, seed: int) -> dict:
+    """Every loss-tail kernel of `loss_tail_calls` on one of LOSS_TAIL_CASES at (B, A) in dtype against its plain
+    version (`loss_tail_check`); K6a and K6b down the routes LOSS_TAIL_ROUTES names; K6b's sum also bit for bit
+    equal to `bce_sum_kernel_order` and, in the scalar case, to the aligned layout's sum (the same pieces).
+    Returns {"checks", "bce_rel" (K6b's relative error, None where the sum is not finite)}."""
+    import torch
+
+    from yololite_tpu_torch.ops import loss_kernels as L
+
+    inputs = list(loss_tail_inputs(b, a, dtype, seed=seed))
+    if dtype == torch.float64:  # the float64 reference step's labels are fp32
+        inputs[2] = inputs[2].float()
+    box, cls, tgt, lab, g4, g1 = loss_tail_case(case, *inputs)
+    what = f"B {b}, A {a}, {str(dtype).split('.')[-1]}, {case}"
+    routes = (L.dfl_ce_plan(box)["route"], L.bce_sum_plan(cls, lab)["route"])
+    if routes != LOSS_TAIL_ROUTES[case]:
+        raise AssertionError(f"loss tail ({what}): K6a and K6b take routes {routes}, not {LOSS_TAIL_ROUTES[case]}")
+    n, rel = 0, None
+    for name, (kernel, plain) in loss_tail_calls(box, cls, tgt, lab, g4, g1).items():
+        err = loss_tail_check(name, kernel, plain, what)
+        n += 1
+        if name != "bce_sum":
+            continue
+        got, want = kernel(), plain()
+        if not same_bits(got, bce_sum_kernel_order(cls, lab)):
+            raise AssertionError(f"bce_sum ({what}): {float(got)} is not the sum taken in the kernel's order")
+        if case == "scalar" and not same_bits(got, L.bce_sum(inputs[0][..., 64:], inputs[2])):
+            raise AssertionError(f"bce_sum ({what}): the {routes[1]} route's sum differs from the aligned layout's")
+        if bool(torch.isfinite(want)):
+            rel = err / abs(float(want))
+    return {"checks": n, "bce_rel": rel}
+
+
 def loss_tail_checks(card: str) -> dict:
-    """Every loss-tail kernel against its plain version (`loss_tail_check`) at each (B, A) of LOSS_TAIL_SHAPES in
-    fp32 and bf16 (the logits read through the maps' row stride of 144), and K7 on each case of TOPK_CASES.
-    Returns the smallest and largest relative errors of K6b's sum and the count of checks."""
+    """Every loss-tail kernel against its plain version (`loss_tail_check`): at each (B, A) of LOSS_TAIL_SHAPES and
+    LOSS_TAIL_EDGE_SHAPES in fp32 and bf16 on the maps' slices (row stride 144), at (16, 2100), (7, 333) and (1, 1)
+    also in the scalar route's layouts and with NaN, +-inf and -0.0 logits, in fp64 at (2, 300) and (7, 333)
+    (`loss_tail_case_checks`); K7 on each case of TOPK_CASES. Returns the smallest and largest relative errors of
+    K6b's finite sums and the count of checks."""
     import torch
 
     from yololite_tpu_torch.ops import loss_kernels as L
 
     n, bce_rel = 0, []
-    for b, a in LOSS_TAIL_SHAPES:
-        for dtype in (torch.float32, torch.bfloat16):
-            inputs = loss_tail_inputs(b, a, dtype, seed=b * a)
-            for name, (kernel, plain) in loss_tail_pairs(*inputs).items():
-                err = loss_tail_check(name, kernel, plain, f"B {b}, A {a}, {str(dtype).split('.')[-1]}")
-                if name == "bce_sum":
-                    bce_rel.append(err / abs(float(plain())))
-                n += 1
+    runs = [(b, a, dtype, "aligned") for b, a in LOSS_TAIL_SHAPES + LOSS_TAIL_EDGE_SHAPES
+            for dtype in (torch.float32, torch.bfloat16)]
+    runs += [(b, a, dtype, case) for b, a in ((16, 2100), (7, 333), (1, 1)) for dtype in (torch.float32, torch.bfloat16)
+             for case in ("scalar", "special")]
+    runs += [(b, a, torch.float64, case) for b, a in ((2, 300), (7, 333)) for case in ("aligned", "scalar")]
+    for b, a, dtype, case in runs:
+        got = loss_tail_case_checks(b, a, dtype, case, seed=b * a)
+        n += got["checks"]
+        if got["bce_rel"] is not None:
+            bce_rel.append(got["bce_rel"])
     for b, m, a, k in TOPK_CASES:
         x = loss_tail_metrics(b, m, a, seed=b + m + a + k)
         loss_tail_check("topk_rows", lambda: L.topk_rows(x, k), lambda: L.topk_stable(x, k), f"B {b}, M {m}, A {a}, "
@@ -759,40 +889,63 @@ def loss_tail_checks(card: str) -> dict:
         n += 1
     log(f"kernel: the loss tail equal to its plain versions in {n} checks, each also bit-equal on a second call and "
         f"in a CUDA graph replay: K5 forward and backward, K6a forward and backward, K6b backward bit for bit at (B, "
-        f"A) in {LOSS_TAIL_SHAPES}, fp32 and bf16, logits read through a row stride of 144; K6b's sum within "
-        f"{BCE_SUM_RTOL} relative (readings {min(bce_rel):.3g} to {max(bce_rel):.3g}); K7 values and indices bit for bit at (B, M, A, k) in "
-        f"{TOPK_CASES}, on {card}")
+        f"A) in {LOSS_TAIL_SHAPES + LOSS_TAIL_EDGE_SHAPES}, fp32 and bf16, logits read through a row stride of 144, "
+        f"at (16, 2100), (7, 333), (1, 1) also through the scalar route's layouts (K6a {LOSS_TAIL_ROUTES['scalar'][0]}"
+        f", K6b {LOSS_TAIL_ROUTES['scalar'][1]}) and with NaN, +-inf and -0.0 logits, fp64 at (2, 300), (7, 333); "
+        f"K6b's sum within {BCE_SUM_RTOL} relative (readings {min(bce_rel):.3g} to {max(bce_rel):.3g}), bit for bit "
+        f"the sum in the kernel's order and the same on both routes; K7 values and indices bit for bit at (B, M, A, "
+        f"k) in {TOPK_CASES}, on {card}")
     return {"checks": n, "bce_sum_rel_err": max(bce_rel), "bce_sum_rel_err_least": min(bce_rel)}
 
 
-def loss_tail_bound_ms(name: str, rows: int, es_x: int, es_y: int = 0, n: int = 0, k: int = 0):
-    """Least time of one loss-tail call on these shapes, and what bounds it: each input byte read once and each
-    output byte written once, against LOSS_TAIL_OPS fp32 operations a logit. K5 and K6a read (rows, 64) logits of
-    es_x bytes; K6b (rows, 80) logits and labels of es_x and es_y bytes; K7 (rows, n) metrics and writes (rows, k)
-    values and int64 indices."""
+def loss_tail_work(name: str, rows: int, es_x: int, es_y: int = 0, n: int = 0, k: int = 0):
+    """(bytes, fp32 operations) of one loss-tail call on these shapes: each input byte read once and each output
+    byte written once, LOSS_TAIL_OPS operations a logit. K5 and K6a read (rows, 64) logits of es_x bytes; K6b
+    (rows, 80) logits and labels of es_x and es_y bytes; K7 (rows, n) metrics and writes (rows, k) values and int64
+    indices."""
     if name == "topk_rows":
-        by_bytes, ops = rows * (n * es_x + k * (es_x + 8)), rows * n
-    elif name.startswith("bce_sum"):
+        return rows * (n * es_x + k * (es_x + 8)), rows * n
+    if name.startswith("bce_sum"):
         logits = rows * 80
         by_bytes = logits * (es_x + es_y) + 4 + (logits * es_x if name.endswith("backward") else 0)
-        ops = logits * LOSS_TAIL_OPS[name]
-    else:
-        logits = rows * 64
-        by_bytes = logits * es_x + (logits * es_x if name.endswith("backward") else 0)
-        by_bytes += rows * ({"dfl_expectation": 16, "dfl_expectation_backward": 16, "dfl_ce_mean": 16 + 4,
-                             "dfl_ce_backward": 16 + 4}[name])
-        ops = logits * LOSS_TAIL_OPS[name]
+        return by_bytes, logits * LOSS_TAIL_OPS[name]
+    logits = rows * 64
+    by_bytes = logits * es_x + (logits * es_x if name.endswith("backward") else 0)
+    by_bytes += rows * ({"dfl_expectation": 16, "dfl_expectation_backward": 16, "dfl_ce_mean": 16 + 4,
+                         "dfl_ce_backward": 16 + 4}[name])
+    return by_bytes, logits * LOSS_TAIL_OPS[name]
+
+
+def loss_tail_bound_ms(name: str, rows: int, es_x: int, es_y: int = 0, n: int = 0, k: int = 0):
+    """Least time of one loss-tail call on these shapes, and what bounds it: `loss_tail_work`'s bytes at the HBM
+    rate against its operations at the fp32 rate."""
+    by_bytes, ops = loss_tail_work(name, rows, es_x, es_y, n, k)
     t_bytes, t_ops = by_bytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def cold_sets(touched_bytes: int) -> int:
+    """Input sets a cold timing rotates through: enough that the other sets' bytes between two visits of one set
+    exceed COLD_BYTES, twice the H100's 50 MB L2."""
+    return max(2, -(-int(COLD_BYTES) // max(int(touched_bytes), 1)) + 1)
+
+
+def cold_graph_ms(calls, iters: int = 20, reps: int = 5) -> float:
+    """`graph_ms` of calls on distinct input sets taken in turn (see `cold_sets`): each call finds its inputs
+    outside L2, as the train step's backward finds the maps its forward read long before."""
+    turn = itertools.cycle(calls)
+    return graph_ms(lambda: next(turn)(), iters=max(iters, len(calls)), reps=reps)
 
 
 def loss_tail_numbers(card: str) -> dict:
     """The loss tail at the train step's shapes, by device time (a CUDA graph of 20 calls replayed): K5, K6a and
     K6b forward and backward at B 16, A 8,400 on the (B, A, 144) maps' slices, fp32 and bf16; K7 at B 16, A 8,400,
-    M 32 and 64, k 10. Each beside its plain version, its bound and, where one PyTorch call computes the same
-    function, that call (a yardstick: F.binary_cross_entropy_with_logits for K6b, F.cross_entropy with the two-hot
-    probabilities for K6a, torch.topk for K7, whose tie order is not lax.top_k's). Returns, by wrapper name and
-    dtype, {ms, plain_ms, bound_ms, bound_by, library_ms, max_abs_err, shape}."""
+    M 32 and 64, k 10. Each kernel twice: warm (`graph_ms`, one input set, which L2 may hold across the calls) and
+    cold (`cold_graph_ms`, input sets in turn); beside its plain version, its bound and, where one PyTorch call
+    computes the same function, that call (a yardstick: F.binary_cross_entropy_with_logits for K6b,
+    F.cross_entropy with the two-hot probabilities for K6a, torch.topk for K7, whose tie order is not
+    lax.top_k's). Returns, by wrapper name and dtype, {ms, cold_ms, cold_sets, plain_ms, bound_ms, bound_by,
+    library_ms, max_abs_err, shape}."""
     import torch
     import torch.nn.functional as F
 
@@ -802,7 +955,10 @@ def loss_tail_numbers(card: str) -> dict:
     out = {}
     for dtype in (torch.float32, torch.bfloat16):
         dname, es = str(dtype).split(".")[-1], dtype.itemsize
-        maps, tgt, lab, g4, g1 = loss_tail_inputs(b, a, dtype, seed=23)
+        n_sets = max(cold_sets(loss_tail_work(name, b * a, es, es)[0]) for name in LOSS_TAIL_OPS)
+        sets = [loss_tail_inputs(b, a, dtype, seed=23 + i) for i in range(n_sets)]
+        pairs = [loss_tail_pairs(*inputs) for inputs in sets]
+        maps, tgt, lab = sets[0][:3]
         box, cls = maps[..., :64], maps[..., 64:]
         # the yardsticks' inputs, made before timing: (rows * 4, 16) logits and the two-hot probabilities of K6a
         x2 = box.float().reshape(-1, 16).contiguous()
@@ -812,38 +968,47 @@ def loss_tail_numbers(card: str) -> dict:
         probs.scatter_add_(1, (tl + 1).clamp(max=15)[:, None], (t - tl)[:, None])
         library = {"bce_sum": lambda: F.binary_cross_entropy_with_logits(cls, lab, reduction="sum"),
                    "dfl_ce_mean": lambda: F.cross_entropy(x2, probs, reduction="none")}
-        for name, (kernel, plain) in loss_tail_pairs(maps, tgt, lab, g4, g1).items():
+        for name, (kernel, plain) in pairs[0].items():
             got, want = kernel(), plain()
             torch.cuda.synchronize()
             err = float((got.double() - want.double()).abs().nan_to_num(0.0).max())
             ms = graph_ms(kernel)
+            n_cold = cold_sets(loss_tail_work(name, b * a, es, es)[0])
+            cold = cold_graph_ms([p[name][0] for p in pairs[:n_cold]])
             plain_ms = graph_ms(plain, iters=5, reps=3)
             lib_ms = graph_ms(library[name]) if name in library else None
             bound, bound_by = loss_tail_bound_ms(name, b * a, es, es)
-            out.setdefault(name, {})[dname] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
-                                               "library_ms": lib_ms, "max_abs_err": err, "shape": [b, a, 144]}
-            log(f"kernel: {name} ({dname} logits, B {b}, A {a}, row stride 144): {ms:.4f} ms device (graph replay), "
-                f"{ms / bound:.2f}x its bound of {bound:.4f} ms ({bound_by}); plain {plain_ms:.4f} ms; "
+            out.setdefault(name, {})[dname] = {"ms": ms, "cold_ms": cold, "cold_sets": n_cold, "plain_ms": plain_ms,
+                                               "bound_ms": bound, "bound_by": bound_by, "library_ms": lib_ms,
+                                               "max_abs_err": err, "shape": [b, a, 144]}
+            log(f"kernel: {name} ({dname} logits, B {b}, A {a}, row stride 144): {ms:.4f} ms device warm (graph "
+                f"replay, one input set), {cold:.4f} cold ({n_cold} sets in turn), {ms / bound:.2f}x and "
+                f"{cold / bound:.2f}x its bound of {bound:.4f} ms ({bound_by}); plain {plain_ms:.4f} ms; "
                 f"{'library ' + format(lib_ms, '.4f') + ' ms; ' if lib_ms is not None else ''}max |kernel - plain| "
                 f"{err:.3g}, on {card}")
-        del maps, tgt, lab, g4, g1, x2, probs
+        del sets, pairs, maps, tgt, lab, box, cls, x2, probs
     for m in (32, 64):
-        x = loss_tail_metrics(b, m, a, seed=24)
+        n_cold = cold_sets(loss_tail_work("topk_rows", b * m, 4, n=a, k=10)[0])
+        xs = [loss_tail_metrics(b, m, a, seed=24 + i) for i in range(n_cold)]
+        x = xs[0]
         vk, ik = L.topk_rows(x, 10)
         vp, ip = L.topk_stable(x, 10)
         torch.cuda.synchronize()
         if not (same_bits(vk, vp) and same_bits(ik, ip)):
             raise AssertionError(f"topk_rows differs from its plain version at M {m}")
         ms = graph_ms(lambda: L.topk_rows(x, 10))
+        cold = cold_graph_ms([lambda xi=xi: L.topk_rows(xi, 10) for xi in xs])
         plain_ms = graph_ms(lambda: L.topk_stable(x, 10), iters=5, reps=3)
         lib_ms = graph_ms(lambda: torch.topk(x, 10))
         bound, bound_by = loss_tail_bound_ms("topk_rows", b * m, 4, n=a, k=10)
-        out.setdefault("topk_rows", {})[f"M{m}"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-                                                    "bound_by": bound_by, "library_ms": lib_ms, "max_abs_err": 0.0,
-                                                    "shape": [b, m, a, 10]}
-        log(f"kernel: topk_rows (B {b}, M {m}, A {a}, k 10, fp32 metrics with ties): {ms:.4f} ms device (graph "
-            f"replay), {ms / bound:.2f}x its bound of {bound:.4f} ms ({bound_by}); plain (stable sort) {plain_ms:.4f} "
-            f"ms; torch.topk {lib_ms:.4f} ms (another tie order: a yardstick); values and indices bit-equal, on {card}")
+        out.setdefault("topk_rows", {})[f"M{m}"] = {"ms": ms, "cold_ms": cold, "cold_sets": n_cold,
+                                                    "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+                                                    "library_ms": lib_ms, "max_abs_err": 0.0, "shape": [b, m, a, 10]}
+        log(f"kernel: topk_rows (B {b}, M {m}, A {a}, k 10, fp32 metrics with ties): {ms:.4f} ms device warm (graph "
+            f"replay), {cold:.4f} cold ({n_cold} sets in turn), {ms / bound:.2f}x and {cold / bound:.2f}x its bound "
+            f"of {bound:.4f} ms ({bound_by}); plain (stable sort) {plain_ms:.4f} ms; torch.topk {lib_ms:.4f} ms "
+            f"(another tie order: a yardstick); values and indices bit-equal, on {card}")
+        del xs, x
     return out
 
 
@@ -938,6 +1103,73 @@ def loss_tail_step_check(card: str, trainer_fn) -> None:
             f"({int(fk.sum())} foreground anchors), loss items {ik.tolist()} within "
             f"{float(((ik - ip).abs() / ip.abs()).max()):.3g} relative; all {len(gp)} gradients bit for bit; each "
             f"kernel launched once, on {card}")
+
+
+def loss_tail_autograd(card: str, trainer_fn) -> dict:
+    """What autograd does around the loss tail in a train step, by device time, fp32 and bf16: one eager grad step
+    of trainer_fn(amp)'s first batch under torch.profiler (with shapes; after two warm-up steps), the kernels of
+    each `aten::slice_backward` that puts the (B, A, 64) or (B, A, 80) gradient of pred_distri or pred_scores back
+    into a zeroed (B, A, 144) map (utils/loss.py), and of each add autograd makes of two gradients of those shapes
+    (K5's and K6a's dx, the two slices' maps); beside the loss-tail kernels' own device time in the same step. A graphed
+    step replays the same kernels. Returns {dtype: {slice_ms, add_ms, kernels_ms, step_ms}}."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from yololite_tpu_torch.engine import graphs
+
+    def device_ms(e):
+        return (getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0.0)) / 1e3
+
+    def shape0(e):
+        return list(e.input_shapes[0]) if e.input_shapes and e.input_shapes[0] else None
+
+    def under(e, prefix):  # an ancestor's name starts with prefix
+        e = e.cpu_parent
+        while e is not None and not e.name.startswith(prefix):
+            e = e.cpu_parent
+        return e is not None
+
+    out = {}
+    for amp in (False, True):
+        dtype = "bf16" if amp else "fp32"
+        st = trainer_fn(amp)
+        batch = next(iter(st.train_loader))
+        images = torch.from_numpy(batch["img"]).to(st.device)
+        targets = st._targets(batch)
+        b, h, w = images.shape[0], images.shape[1], images.shape[2]
+        a = sum((h // s) * (w // s) for s in (8, 16, 32))
+        det = st.model.detect
+        wanted = ([b, a, 4 * det.reg_max], [b, a, det.nc], [b, a, det.no])
+        with graphs.eager():
+            for _ in range(2):
+                st._grad_step(images, targets)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], record_shapes=True) as prof:
+                st._grad_step(images, targets)
+                torch.cuda.synchronize()
+        torch._foreach_zero_(st._grads)
+        events = prof.events()
+        slices = [e for e in events if e.name == "aten::slice_backward" and shape0(e) in wanted]
+        adds = [e for e in events if e.name in ("aten::add", "aten::add_") and shape0(e) in wanted
+                and len(e.input_shapes) > 1 and list(e.input_shapes[1]) == shape0(e)
+                and under(e, "autograd::engine::evaluate_function")]
+        tail = [e for e in events  # each loss-tail op once (not the op inside itself)
+                if e.name.startswith("yololite_tpu_torch::") and not under(e, "yololite_tpu_torch::")]
+        step = sum(e.time_range.elapsed_us() for e in events if e.device_type == DeviceType.CUDA) / 1e3
+        if not slices or not tail:
+            raise AssertionError(f"loss-tail autograd {dtype}: the profile shows {len(slices)} slice_backward and "
+                                 f"{len(tail)} loss-tail ops on the maps' shapes")
+        out[dtype] = {"slice_ms": sum(map(device_ms, slices)), "slices": len(slices),
+                      "add_ms": sum(map(device_ms, adds)), "adds": len(adds), "kernels_ms": sum(map(device_ms, tail)),
+                      "step_ms": step}
+        r = out[dtype]
+        log(f"train: autograd around the loss tail, one eager grad step at {h}, batch {b} ({dtype}, A {a}, under "
+            f"torch.profiler; a graphed step replays these kernels): {r['slices']} slice_backward of the maps' "
+            f"slices {r['slice_ms']:.4f} ms, {r['adds']} adds of their gradients {r['add_ms']:.4f} ms, together "
+            f"{r['slice_ms'] + r['add_ms']:.4f} ms of device time; the loss-tail kernels {r['kernels_ms']:.4f} ms; "
+            f"the step's kernels {r['step_ms']:.1f} ms in all, on {card}")
+    return out
 
 
 def profile_calls(fn, reps: int):
@@ -1565,6 +1797,7 @@ def train_phase(card: str):
         return tr
 
     loss_tail_step_check(card, loss_trainer)
+    autograd_tail = loss_tail_autograd(card, loss_trainer)
 
     # (b), (c) the facade's train, graphed (fp32 and bf16) and eager (fp32), 3 epochs: the keys repeat from the
     # second step, the EMA val's bucket shapes from the second epoch; the loss tail's launches counted in the
@@ -1840,6 +2073,7 @@ def train_phase(card: str):
 
     # K5, K6a, K6b (forward and backward) and K7 at the train step's shapes, beside their plain versions and bounds
     launches["loss_tail"] = loss_tail_numbers(card)
+    launches["loss_tail_autograd"] = autograd_tail
 
     # the card against the CPU: one SGD step at imgsz 160, batch 2, fp32, the same weights and batch
     one_step_card_vs_cpu(card, root, "yolo11n", "yolo11n.yaml", data)
@@ -1940,6 +2174,35 @@ def k4_build_report(lib_path: Path) -> str:
     n = len(re.findall(r"/\*[0-9a-f]{4,}\*/", sass[sass.index("blocked_nms_cluster_kernel"):]))
     return (f"ptxas: blocked_nms_cluster_kernel {regs} regs, {spills.group(1)}/{spills.group(2)} B spilled; "
             f"{n} SASS instructions")
+
+
+def loss_tail_build_report(lib_path: Path) -> str:
+    """ptxas's registers, stack frame and spills for each kernel of a loss-tail library (csrc/dfl.cu,
+    csrc/bce_sum.cu), from its build log; the names demangled by the toolkit's cu++filt where it has one."""
+    import re
+
+    from yololite_tpu_torch.ops import cuda_build
+
+    rows, name, frame = [], None, ""
+    for line in lib_path.with_suffix(".log").read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            frame = f"{m.group(1)} B stack, {m.group(2)}/{m.group(3)} B spilled"
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            rows.append((name, f"{m.group(1)} regs, {frame}"))
+            name, frame = None, ""
+    filt = Path(cuda_build.nvcc()).with_name("cu++filt")
+    names = [n for n, _ in rows]
+    if filt.exists() and names:
+        out = subprocess.run([str(filt)], input="\n".join(names), capture_output=True, text=True, timeout=60)
+        if out.returncode == 0 and len(out.stdout.splitlines()) == len(names):
+            names = [re.sub(r"\([^()]*\)$", "", re.sub(r"\(anonymous namespace\)::|<unnamed>::|void |\(int\)", "", n))
+                     for n in out.stdout.splitlines()]
+    return "; ".join(f"{n}: {r}" for n, (_, r) in zip(names, rows))
 
 
 def conv_kind(x, mod) -> str:
@@ -3096,6 +3359,8 @@ def main() -> int:
             log(f"  {name}: {text}")
         elif name == "blocked_nms":
             log(f"  {name}: {k4_build_report(path)}")
+        elif name in ("dfl", "bce_sum"):
+            log(f"  {name}: ptxas per kernel: {loss_tail_build_report(path)}")
         elif report.exists():
             log(f"  {name}: {' | '.join(line.strip() for line in report.read_text().splitlines() if line.strip())}")
 
@@ -3478,7 +3743,7 @@ def main() -> int:
                                                                      "max_abs_err")},
     }
     tail = counts["loss_tail"]  # the loss tail at the train step's shapes (loss_tail_numbers); launches: phase 5 (b)
-    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err")
+    keys = ("ms", "cold_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err")  # ms warm, cold_ms cold
 
     def tail_entry(name, backward, source, replaces, library):
         f, h = tail[name]["float32"], tail[name]["bfloat16"]

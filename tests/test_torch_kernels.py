@@ -14,9 +14,10 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (K3_CASES, K3_RECT, K3_ROUTES, LOSS_TAIL_SHAPES, TOPK_CASES, k3_args, k3_check, k3_maps,
-                        k4_scene, loss_tail_check, loss_tail_inputs, loss_tail_metrics, loss_tail_pairs,
-                        loss_tail_step_check)
+from chip_smoke import (K3_CASES, K3_RECT, K3_ROUTES, LOSS_TAIL_EDGE_SHAPES, LOSS_TAIL_ROUTES, LOSS_TAIL_SHAPES,
+                        TOPK_CASES, bce_sum_kernel_order, k3_args, k3_check, k3_maps, k4_scene,
+                        loss_tail_case, loss_tail_case_checks, loss_tail_check, loss_tail_inputs, loss_tail_metrics,
+                        loss_tail_pairs, loss_tail_step_check, same_bits)
 from yololite_tpu_torch.engine import graphs
 from yololite_tpu_torch.ops import loss_kernels as L
 from yololite_tpu_torch.ops.kernels import (blocked_nms_finalize, blocked_nms_finalize_plain, device_letterbox,
@@ -939,6 +940,60 @@ def test_loss_tail_kernels_match_plain(card, b, a, dtype):
         before = _wrapper(name).launches
         loss_tail_check(name, kernel, plain, f"B {b}, A {a}, {dtype}")
         assert _wrapper(name).launches == before + 3
+
+
+OFF_ALIGNED = [("scalar", torch.float32), ("scalar", torch.bfloat16), ("scalar", torch.float64),
+               ("special", torch.float32), ("special", torch.bfloat16)]  # the float64 step's logits are finite
+
+
+@pytest.mark.parametrize("case,dtype", OFF_ALIGNED, ids=[f"{c}-{str(d).split('.')[-1]}" for c, d in OFF_ALIGNED])
+@pytest.mark.parametrize("b,a", [(16, 2100), *LOSS_TAIL_EDGE_SHAPES])
+def test_loss_tail_kernels_match_plain_off_the_aligned_maps(card, b, a, case, dtype):
+    """K5-K6b on the scalar route's layouts (maps of row stride 146, the box slice one column in; labels of row
+    stride 81) and with NaN, +-inf and -0.0 logits, at row counts that are no multiple of K6a's 32 rows a block nor
+    of K6b's 1,024-piece chunk: bit for bit as on the maps (chip_smoke.loss_tail_case_checks: K6a and K6b down the
+    routes LOSS_TAIL_ROUTES names; K6b's sum the kernel order's bits, and on the scalar route the aligned
+    layout's)."""
+    loss_tail_case_checks(b, a, dtype, case, seed=b * a + 2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("b,a", LOSS_TAIL_EDGE_SHAPES)
+def test_loss_tail_kernels_match_plain_at_ragged_row_counts(card, b, a, dtype):
+    """The maps' slices at row counts off K6a's and K6b's tiles: every kernel bit for bit (K6b's sum within
+    BCE_SUM_RTOL and the kernel order's bits), the routes the aligned layout takes."""
+    loss_tail_case_checks(b, a, dtype, "aligned", seed=b * a + 3)
+
+
+def test_loss_tail_routes_follow_the_layout(card):
+    """K6a's and K6b's plans: the maps' slices take the 16-byte routes in fp32, bf16 and fp64, the shifted layouts
+    the scalar ones, another reg_max K6a's generic kernels (bit for bit too); K6b's partition is fixed by the
+    element count and the logits' type, so two layouts of the same values give the same sum."""
+    for dtype in (torch.float32, torch.bfloat16, torch.float64):
+        inputs = list(loss_tail_inputs(2, 300, dtype, seed=9))
+        inputs[2] = inputs[2].float() if dtype == torch.float64 else inputs[2]
+        sums = []
+        for case in ("aligned", "scalar"):
+            box, cls, _, lab, _, _ = loss_tail_case(case, *inputs)
+            assert (L.dfl_ce_plan(box)["route"], L.bce_sum_plan(cls, lab)["route"]) == LOSS_TAIL_ROUTES[case]
+            assert L.bce_sum_plan(cls, lab)["piece"] == 16 // dtype.itemsize
+            sums.append(L.bce_sum(cls, lab))
+        assert same_bits(*sums)
+    maps, tgt, _, _, g1 = loss_tail_inputs(2, 50, torch.float32, seed=10)
+    for r in (8, 4):  # another reg_max: the generic kernels
+        x = maps[..., :4 * r]
+        assert L.dfl_ce_plan(x)["route"] == "generic"
+        loss_tail_check("dfl_ce_mean", lambda: L.dfl_ce_mean(x, tgt), lambda: L.dfl_ce_plain(x, tgt), f"reg_max {r}")
+        loss_tail_check("dfl_ce_backward", lambda: L.dfl_ce_backward(x, tgt, g1),
+                        lambda: L.dfl_ce_backward_plain(x, tgt, g1), f"reg_max {r}")
+
+
+def test_bce_sum_adds_in_the_kernel_order(card):
+    """K6b's sum equals, bit for bit, its terms added in the kernel's order by plain torch
+    (chip_smoke.bce_sum_kernel_order) at the train step's shapes, fp32 and bf16."""
+    for dtype in (torch.float32, torch.bfloat16):
+        maps, _, lab, _, _ = loss_tail_inputs(16, 8400, dtype, seed=11)
+        assert same_bits(L.bce_sum(maps[..., 64:], lab), bce_sum_kernel_order(maps[..., 64:], lab))
 
 
 @pytest.mark.parametrize("b,m,a,k", TOPK_CASES)

@@ -288,3 +288,169 @@ def test_rows_of_reads_evenly_spaced_rows_in_place(view, want):
 def test_rows_of_refuses_other_layouts(view):
     with pytest.raises(ValueError):
         LK._rows_of(view(torch.zeros(2, 30, 144)))
+
+
+# ---------------- numpy models of the redesigned schedules (K6a at R 16, K6b) ----------------
+# csrc/dfl.cu and csrc/bce_sum.cu run only on the card; these models replay their orders of addition and their
+# walks in numpy float32 (IEEE adds, round to nearest) so that a change of either can be checked here first.
+
+
+def _row_sum16(v):
+    """torch's CUDA sum over a row of 16 (csrc/dfl_math.cuh row_sum): thread t starts at 0 and adds v[t] (its four
+    accumulators, three of them 0), then the shuffle-down tree with offsets 8, 4, 2, 1."""
+    z = np.float32(0)
+    part = [((z + v[t]) + z) + z + z for t in range(16)]
+    for o in (8, 4, 2, 1):
+        part = [part[t] + part[t + o] for t in range(o)]
+    return part[0]
+
+
+def _lanes16(e):
+    """K6a's z at R 16 (`Side16`): lane h holds bins 8h..8h+7; one swap of the halves, each lane adds its bin j and
+    the other half's (bin j + 8 on lane 0, bin j on lane 1), then levels 4, 2, 1 in registers. Both lanes' z."""
+    out = []
+    for h in (0, 1):
+        mine, other = e[8 * h:8 * h + 8], e[8 - 8 * h:16 - 8 * h]
+        p = [mine[j] + other[j] for j in range(8)]
+        p = [p[j] + p[j + 4] for j in range(4)]
+        p = [p[j] + p[j + 2] for j in range(2)]
+        out.append(p[0] + p[1])
+    return out
+
+
+def _adversarial_rows(rng):
+    """Rows of 16 non-negative float32 (or NaN, inf), as exp's outputs are: random, one large among tiny ones in
+    every position, binades apart so that the order of addition changes the bits, denormals, zeros, NaN, inf."""
+    rows = [rng.exponential(size=16).astype(np.float32) for _ in range(200)]
+    rows += [np.exp(rng.uniform(-30, 0, 16)).astype(np.float32) for _ in range(200)]
+    for i in range(16):
+        r = np.full(16, 2.0 ** -24, np.float32)
+        r[i] = 1.0
+        rows.append(r)
+        rows.append(np.float32(2.0) ** -np.arange(16, dtype=np.float32)[np.roll(np.arange(16), i)])
+    rows += [np.zeros(16, np.float32), np.full(16, 1.4e-45, np.float32), np.full(16, 3e38, np.float32)]
+    for bad in (np.nan, np.inf):
+        r = np.ones(16, np.float32)
+        r[5] = bad
+        rows.append(r)
+    return rows
+
+
+def test_k6a_lanes_sum_in_row_sums_order():
+    """The two lanes of a side get z with the bits of torch's CUDA order, on random and adversarial rows."""
+    rows = _adversarial_rows(np.random.default_rng(21))
+    with np.errstate(over="ignore", invalid="ignore"):
+        for e in rows:
+            want = np.float32(_row_sum16(e)).view(np.int32)
+            got = [np.float32(z).view(np.int32) for z in _lanes16(e)]
+            assert got[0] == want and got[1] == want, (e, got, want)
+        # the order matters on these rows: a plain left-to-right sum differs somewhere
+        assert any(np.float32(_row_sum16(e)) != np.cumsum(e, dtype=np.float32)[-1] for e in rows[400:432])
+
+
+def _bce_walk(rows, cols, piece, chunk_threads=256, per=4):
+    """csrc/bce_sum.cu's pieces as its threads visit them, for one element count: (block, thread, i, j, flat
+    element) of every term in the order a thread adds them; on the vector route each piece's (row, first column) by
+    the kernel's stepping (one division for the thread's first piece, then dr rows and dq pieces a step)."""
+    n = rows * cols
+    pieces = -(-n // piece)
+    chunk = chunk_threads * per
+    blocks = -(-pieces // chunk)
+    b, t, i = np.meshgrid(np.arange(blocks), np.arange(chunk_threads), np.arange(per), indexing="ij")
+    p = b * chunk + i * chunk_threads + t
+    e = p[..., None] * piece + np.arange(piece)
+    live = e < n
+    vec = None
+    if cols % piece == 0:
+        ppr = cols // piece
+        dr, dq = chunk_threads // ppr, chunk_threads % ppr
+        p0 = b[..., 0] * chunk + t[..., 0]
+        r, q = p0 // ppr, p0 % ppr
+        steps = []
+        for _ in range(per):
+            steps.append((r.copy(), q.copy()))
+            r, q = r + dr, q + dq
+            wrap = q >= ppr
+            q, r = np.where(wrap, q - ppr, q), np.where(wrap, r + 1, r)
+        vec = np.stack([np.stack(s, -1) for s in steps], 2)  # (block, thread, i, (row, piece in row))
+    return e, live, vec
+
+
+@pytest.mark.parametrize("rows,cols,piece", [(16800, 80, 4), (16800, 80, 8), (900, 80, 2), (1001, 80, 4),
+                                             (1, 80, 8), (7, 81, 4), (333, 80, 8), (5, 3, 8), (2100, 64, 4)])
+def test_bce_partition_covers_every_element_once(rows, cols, piece):
+    """Every element in exactly one piece of one thread of one chunk, for ragged row counts; the vector route's
+    stepped (row, piece) equal to the scalar route's division of the same flat element; the walk a function of
+    the element count and the piece alone (the same for (rows, cols) of one product)."""
+    e, live, vec = _bce_walk(rows, cols, piece)
+    flat = e[live]
+    assert flat.size == rows * cols and np.array_equal(np.sort(flat), np.arange(rows * cols))
+    if vec is not None:
+        first = e[..., 0]
+        ok = live[..., 0]
+        assert np.array_equal(vec[..., 0][ok], first[ok] // cols) and np.array_equal(vec[..., 1][ok] * piece,
+                                                                                       first[ok] % cols)
+    if rows % 2 == 0:
+        e2, live2, _ = _bce_walk(rows // 2, cols * 2, piece)
+        assert np.array_equal(e2, e) and np.array_equal(live2, live)
+
+
+def test_bce_sum_kernel_order_model_is_the_threads_loop():
+    """chip_smoke.bce_sum_kernel_order (the card's check of K6b's sum) on the CPU against a direct replay of the
+    kernel's loops over `_bce_walk` (each thread's terms in order, each warp's shuffle-down tree, the warps in
+    order, then the partials on 512 threads): the same bits."""
+    import chip_smoke
+
+    rng = np.random.default_rng(22)
+    for rows, dtype in ((37, torch.float32), (2100, torch.bfloat16), (9, torch.float64)):
+        full = torch.from_numpy((rng.standard_normal((rows, 144)) * 3).astype(np.float32)).to(dtype)
+        lab = torch.from_numpy(_labels(rng, rows)[0].astype(np.float32))
+        x = full[:, 64:]
+        terms = LK.sigmoid_bce(x.float(), lab).reshape(-1).numpy()
+        e, live, _ = _bce_walk(rows, 80, 16 // dtype.itemsize)
+        vals = np.where(live, terms[np.minimum(e, terms.size - 1)], np.float32(0))
+        acc = np.zeros(vals.shape[:2], np.float32)
+        for i in range(vals.shape[2]):
+            for j in range(vals.shape[3]):
+                acc = acc + vals[:, :, i, j]
+
+        def block(a, threads):
+            lanes = a.reshape(a.shape[0], threads // 32, 32).copy()
+            for o in (16, 8, 4, 2, 1):
+                lanes[..., :o] = lanes[..., :o] + lanes[..., o:2 * o]
+            s = lanes[:, 0, 0].copy()
+            for w in range(1, threads // 32):
+                s = s + lanes[:, w, 0]
+            return s
+
+        partials = block(acc, 256)
+        fin = np.zeros(512, np.float32)
+        for k in range(0, partials.size, 512):
+            chunk = np.zeros(512, np.float32)
+            chunk[:min(512, partials.size - k)] = partials[k:k + 512]
+            fin = fin + chunk
+        want = block(fin[None], 512)[0]
+        got = chip_smoke.bce_sum_kernel_order(x, lab)
+        assert np.float32(got.item()).view(np.int32) == want.view(np.int32)
+        assert abs(float(got) - float(LK.bce_sum_plain(x, lab))) <= 1e-6 * abs(float(got))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float64], ids=["fp32", "bf16", "fp64"])
+def test_plans_pick_the_routes_the_layouts_allow(dtype):
+    """K6b's and K6a's plans on the maps' slices and on shifted layouts (the scalar routes); K6b's blocks are its
+    chunks of BCE_CHUNK pieces; another reg_max takes K6a's generic kernels."""
+    maps = torch.zeros(2, 300, 144, dtype=dtype)
+    lab = torch.zeros(2, 300, 80, dtype=torch.bfloat16 if dtype == torch.bfloat16 else torch.float32)
+    plan = LK.bce_sum_plan(maps[..., 64:], lab)
+    g = 16 // dtype.itemsize
+    assert plan["route"] == "vector" and plan["piece"] == g and plan["pieces"] == 600 * 80 // g
+    assert plan["blocks"] == -(-plan["pieces"] // LK.BCE_CHUNK) and plan["x_row_stride"] == 144
+    assert LK.dfl_ce_plan(maps[..., :64])["route"] == "lanes"
+    wide = torch.zeros(2, 300, 146, dtype=dtype)
+    assert LK.dfl_ce_plan(wide[..., 1:65])["route"] == "lanes-scalar"
+    assert LK.bce_sum_plan(wide[..., 66:], torch.zeros(2, 300, 81, dtype=lab.dtype)[..., 1:])["route"] == "scalar"
+    assert LK.bce_sum_plan(maps[..., 63:143], lab)["route"] == "scalar"  # logits one column off
+    assert LK.dfl_ce_plan(maps[..., :32])["route"] == "generic"
+    odd = torch.zeros(5, 3)  # 3 columns: no whole pieces a row
+    assert LK.bce_sum_plan(odd, odd)["route"] == "scalar" and LK.bce_sum_plan(odd, odd)["pieces"] == 4
+

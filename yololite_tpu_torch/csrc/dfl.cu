@@ -22,11 +22,22 @@
 // the bf16 ones (the math runs in fp32 from the exact upcast, one rounding at the end), equal the plain versions
 // bit for bit.
 //
-// Design: one thread an (anchor row, side), the four sides of a row on four neighbouring lanes, so a warp reads
+// Design. K5: one thread an (anchor row, side), the four sides of a row on four neighbouring lanes, so a warp reads
 // 8 rows' 4R logits as 32 runs of R; at R = 16 the run is loaded with 16-byte vector loads when the pointer and
 // the row stride allow, and held in registers. The backward recomputes m, z and E with the forward's code
 // instead of reading saved (rows, 4) tensors, and writes dx (rows, 4R) contiguous in x's type in 16-byte
-// stores. K6a's mean gathers the four sides' terms with warp shuffles.
+// stores. K6a at R = 16 (`dfl_ce_fwd16`, `dfl_ce_bwd16`): a row on 8 neighbouring lanes, two a side, each lane
+// holding 8 consecutive bins (its half of the side), so a warp reads 4 rows' 64 logits as 4 runs of 256 bytes
+// (fp32) or 128 (bf16) in 16-byte loads, every load of a lane started before it computes. The side's max is a max
+// over the lane's bins and one shuffle; z keeps torch's order (`row_sum` at 16: a tree of offsets 8, 4, 2, 1): one
+// shuffle swaps the two halves, each lane adds bin t and bin t + 8 (the tree's first level; an IEEE add is
+// commutative, so both lanes get the same bits) and runs the levels 4, 2, 1 in registers. The forward's two-hot
+// logits are read again (the row is in L1) and the row's mean ((c0 + c2) + (c1 + c3)) * 0.25 takes two shuffles;
+// the backward stores its 8 bins of dx in 16-byte stores. What a side does once (the two-hot, the log, the term)
+// runs on both of its lanes: splitting it, one lane a row over two rows, measured no faster cold on an H100
+// (PERF.md). A layout that 16-byte loads cannot read (`vec` 0, chosen by the wrapper, ops/loss_kernels.py
+// `dfl_ce_plan`) takes the same kernels with scalar loads; another R takes the generic kernels (a thread a side, R
+// read at run time).
 //
 // Bound on an H100 SXM at the train step's shapes (B 16, A 8,400: 134,400 rows, R 16; chip_smoke.py
 // loss_tail_bound_ms), each input read once and each output written once: K5 forward 34.4 MB of fp32 logits and
@@ -226,6 +237,143 @@ __global__ void __launch_bounds__(kThreads) dfl_ce_bwd(Args a) {
   store_side<T, RM>(static_cast<T*>(a.out) + (r * 4 + side) * R, v, R);
 }
 
+// NaN-propagating max (torch's amax: any NaN makes the max NaN; which NaN does not matter, every use of m is
+// arithmetic and gives the canonical NaN)
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+// K6a at R = 16: the lane's 8 consecutive bins of its side as floats, from p (32-byte aligned with `vec`: 16-byte
+// loads; else one element at a time)
+template <typename T>
+__device__ __forceinline__ void load_half(const T* __restrict__ p, float (&v)[8], bool vec) {
+  if (vec) {
+    constexpr int kPer = 16 / sizeof(T);  // values a 16-byte load carries
+#pragma unroll
+    for (int i = 0; i < 8 / kPer; ++i) {
+      const uint4 u = __ldg(reinterpret_cast<const uint4*>(p) + i);
+      const T* t = reinterpret_cast<const T*>(&u);
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) v[i * kPer + j] = to_float<T>(t[j]);
+    }
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j) v[j] = to_float<T>(p[j]);
+}
+
+// the lane's 8 bins of dx into p in T (dx contiguous: each half-side run is 16-byte aligned)
+template <typename T>
+__device__ __forceinline__ void store_half(T* __restrict__ p, const float (&v)[8]) {
+  constexpr int kPer = 16 / sizeof(T);
+#pragma unroll
+  for (int i = 0; i < 8 / kPer; ++i) {
+    uint4 u;
+    T* t = reinterpret_cast<T*>(&u);
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) t[j] = from_float<T>(v[i * kPer + j]);
+    reinterpret_cast<uint4*>(p)[i] = u;
+  }
+}
+
+// one side's softmax at R = 16 across its two lanes (lane bit 0 = the half): the lane's bins v, the side's max m,
+// the lane's e_j = expf(v_j - m), and z in torch's order, the same bits on both lanes
+struct Side16 {
+  float e[8];
+  float m, z;
+
+  __device__ __forceinline__ void of(const float (&v)[8]) {
+    m = v[0];
+#pragma unroll
+    for (int j = 1; j < 8; ++j) m = max_nan(m, v[j]);
+    m = max_nan(m, __shfl_xor_sync(kFull, m, 1));
+#pragma unroll
+    for (int j = 0; j < 8; ++j) e[j] = expf(__fsub_rn(v[j], m));
+    float p[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) p[j] = __fadd_rn(e[j], __shfl_xor_sync(kFull, e[j], 1));  // bins j and j + 8
+#pragma unroll
+    for (int j = 0; j < 4; ++j) p[j] = __fadd_rn(p[j], p[j + 4]);
+#pragma unroll
+    for (int j = 0; j < 2; ++j) p[j] = __fadd_rn(p[j], p[j + 2]);
+    z = __fadd_rn(p[0], p[1]);
+  }
+};
+
+// K6a at R = 16: a warp takes 4 rows, a group of 8 lanes one; lane bit 0 is the half of the side, bits 1-2 the side
+struct Lane16 {
+  long long r;  // the lane's row
+  bool live;
+  int lane, side, half;
+
+  __device__ __forceinline__ explicit Lane16(long long rows) {
+    const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
+    r = t >> 3;
+    live = r < rows;
+    lane = threadIdx.x & 31;
+    side = (lane >> 1) & 3;
+    half = lane & 1;
+  }
+};
+
+// the lane's half-side (0 past the last row), and its side's softmax
+template <typename T>
+__device__ __forceinline__ Side16 side16(const Args& a, const Lane16& w, float (&v)[8]) {
+  if (w.live) {
+    load_half<T>(static_cast<const T*>(a.x) + w.r * a.rs + w.side * 16 + w.half * 8, v, a.vec);
+  } else {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) v[j] = 0.0f;
+  }
+  Side16 s;
+  s.of(v);
+  return s;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads) dfl_ce_fwd16(Args a) {
+  const Lane16 w(a.rows);  // every lane reaches the shuffles below
+  const float target = w.live ? a.target[w.r * 4 + w.side] : 0.0f;  // loaded beside the logits
+  float v[8];
+  const Side16 s = side16<T>(a, w, v);
+  const TwoHot h = two_hot(target, 16);
+  float xl = __int_as_float(0x7fc00000), xr = 0.0f;  // a NaN target (tl -1): NaN
+  if (w.live) {  // the two-hot's logits, read again (the row is in L1)
+    const T* side_p = static_cast<const T*>(a.x) + w.r * a.rs + w.side * 16;
+    if (h.tl >= 0) xl = to_float<T>(__ldg(side_p + h.tl));
+    xr = to_float<T>(__ldg(side_p + h.tr));
+  }
+  const float lse = __fadd_rn(logf(s.z), s.m);
+  const float term = __fadd_rn(__fmul_rn(__fsub_rn(lse, xl), h.wl), __fmul_rn(__fsub_rn(lse, xr), h.wr));
+  // the row's mean ((c0 + c2) + (c1 + c3)) * 0.25: lane xor 4 pairs side s with s ^ 2, xor 2 with s ^ 1; an IEEE
+  // add is commutative, so every lane of the row gets the same bits
+  const float u = __fadd_rn(term, __shfl_xor_sync(kFull, term, 4));
+  const float mean = __fmul_rn(__fadd_rn(u, __shfl_xor_sync(kFull, u, 2)), 0.25f);
+  if (w.live && (w.lane & 7) == 0) static_cast<float*>(a.out)[w.r] = mean;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads) dfl_ce_bwd16(Args a) {
+  const Lane16 w(a.rows);
+  const float target = w.live ? a.target[w.r * 4 + w.side] : 0.0f, g = w.live ? a.g[w.r] : 0.0f;
+  float v[8];
+  const Side16 s = side16<T>(a, w, v);
+  if (!w.live) return;
+  const TwoHot h = two_hot(target, 16);
+  const float gq = __fmul_rn(g, 0.25f);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int bin = w.half * 8 + j;
+    float y = 0.0f;
+    if (bin == h.tl) y = h.wl;
+    if (bin == h.tr) y = __fadd_rn(y, h.wr);
+    v[j] = __fmul_rn(__fsub_rn(__fdiv_rn(s.e[j], s.z), y), gq);
+  }
+  store_half<T>(static_cast<T*>(a.out) + w.r * 64 + w.side * 16 + w.half * 8, v);
+}
+
 enum Kind { kExpFwd = 0, kExpBwd = 1, kCeFwd = 2, kCeBwd = 3 };
 
 template <typename T, int RM>
@@ -235,23 +383,48 @@ cudaError_t launch_rm(int kind, const Args& a, cudaStream_t st) {
   switch (kind) {
     case kExpFwd: dfl_expectation_fwd<T, RM><<<blocks, kThreads, 0, st>>>(a); break;
     case kExpBwd: dfl_expectation_bwd<T, RM><<<blocks, kThreads, 0, st>>>(a); break;
-    case kCeFwd: dfl_ce_fwd<T, RM><<<blocks, kThreads, 0, st>>>(a); break;
-    default: dfl_ce_bwd<T, RM><<<blocks, kThreads, 0, st>>>(a); break;
+    default:
+      if constexpr (RM == 0) {  // K6a at R = 16 takes the lanes kernels (launch_ce16)
+        if (kind == kCeFwd)
+          dfl_ce_fwd<T, 0><<<blocks, kThreads, 0, st>>>(a);
+        else
+          dfl_ce_bwd<T, 0><<<blocks, kThreads, 0, st>>>(a);
+      }
   }
   return cudaGetLastError();
 }
 
+// K6a at R = 16: 8 lanes a row
 template <typename T>
-cudaError_t launch_t(int kind, Args a, cudaStream_t st) {
-  a.vec = a.R == 16 && reinterpret_cast<uintptr_t>(a.x) % 16 == 0 && (a.rs * (long long)sizeof(T)) % 16 == 0;
+cudaError_t launch_ce16(int kind, const Args& a, cudaStream_t st) {
+  const long long threads = a.rows * 8;
+  const unsigned blocks = (unsigned)((threads + kThreads - 1) / kThreads);
+  if (kind == kCeFwd)
+    dfl_ce_fwd16<T><<<blocks, kThreads, 0, st>>>(a);
+  else
+    dfl_ce_bwd16<T><<<blocks, kThreads, 0, st>>>(a);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_t(int kind, Args a, int vec, cudaStream_t st) {
+  const bool fits = reinterpret_cast<uintptr_t>(a.x) % 16 == 0 && (a.rs * (long long)sizeof(T)) % 16 == 0;
+  if (kind == kCeFwd || kind == kCeBwd) {  // K6a: the wrapper's route
+    if (a.R != 16) return launch_rm<T, 0>(kind, a, st);
+    if (vec && !fits) return cudaErrorMisalignedAddress;
+    if (kind == kCeBwd && reinterpret_cast<uintptr_t>(a.out) % 16 != 0) return cudaErrorMisalignedAddress;
+    a.vec = vec;
+    return launch_ce16<T>(kind, a, st);
+  }
+  a.vec = a.R == 16 && fits;
   return a.R == 16 ? launch_rm<T, 16>(kind, a, st) : launch_rm<T, 0>(kind, a, st);
 }
 
 // x_type: 0 fp32, 1 bf16, 2 fp64
-int run(int kind, const void* x, long long row_stride, long long rows, int reg_max, int x_type, const void* target,
-        const void* g, void* out, int device, void* stream) {
+int run(int kind, const void* x, long long row_stride, long long rows, int reg_max, int x_type, int vec,
+        const void* target, const void* g, void* out, int device, void* stream) {
   if (rows < 0 || reg_max < 1 || reg_max > kMaxReg || x_type < 0 || x_type > 2 || row_stride < 4 * reg_max ||
-      rows * 4 / kThreads >= (1ll << 31))
+      rows * 8 / kThreads >= (1ll << 31))
     return static_cast<int>(cudaErrorInvalidValue);
   if (rows == 0) return 0;
   cudaError_t err = cudaSetDevice(device);  // nvcc's own runtime: its current device is not PyTorch's
@@ -259,9 +432,9 @@ int run(int kind, const void* x, long long row_stride, long long rows, int reg_m
   const Args a{x, row_stride, rows, reg_max, 0, static_cast<const float*>(target), static_cast<const float*>(g), out};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (x_type) {
-    case 0: return static_cast<int>(launch_t<float>(kind, a, st));
-    case 1: return static_cast<int>(launch_t<__nv_bfloat16>(kind, a, st));
-    default: return static_cast<int>(launch_t<double>(kind, a, st));
+    case 0: return static_cast<int>(launch_t<float>(kind, a, vec, st));
+    case 1: return static_cast<int>(launch_t<__nv_bfloat16>(kind, a, vec, st));
+    default: return static_cast<int>(launch_t<double>(kind, a, vec, st));
   }
 }
 
@@ -269,22 +442,23 @@ int run(int kind, const void* x, long long row_stride, long long rows, int reg_m
 
 extern "C" int dfl_expectation_forward(const void* x, long long row_stride, long long rows, int reg_max, int x_type,
                                        void* out, int device, void* stream) {
-  return run(kExpFwd, x, row_stride, rows, reg_max, x_type, nullptr, nullptr, out, device, stream);
+  return run(kExpFwd, x, row_stride, rows, reg_max, x_type, 0, nullptr, nullptr, out, device, stream);
 }
 
 extern "C" int dfl_expectation_backward(const void* x, long long row_stride, long long rows, int reg_max, int x_type,
                                         const void* g, void* dx, int device, void* stream) {
-  return run(kExpBwd, x, row_stride, rows, reg_max, x_type, nullptr, g, dx, device, stream);
+  return run(kExpBwd, x, row_stride, rows, reg_max, x_type, 0, nullptr, g, dx, device, stream);
 }
 
-extern "C" int dfl_ce_forward(const void* x, long long row_stride, long long rows, int reg_max, int x_type,
+// K6a takes the wrapper's route: vec 1 for 16-byte loads at R = 16 (x 16-byte aligned, its row stride too)
+extern "C" int dfl_ce_forward(const void* x, long long row_stride, long long rows, int reg_max, int x_type, int vec,
                               const void* target, void* out, int device, void* stream) {
-  return run(kCeFwd, x, row_stride, rows, reg_max, x_type, target, nullptr, out, device, stream);
+  return run(kCeFwd, x, row_stride, rows, reg_max, x_type, vec, target, nullptr, out, device, stream);
 }
 
-extern "C" int dfl_ce_backward(const void* x, long long row_stride, long long rows, int reg_max, int x_type,
+extern "C" int dfl_ce_backward(const void* x, long long row_stride, long long rows, int reg_max, int x_type, int vec,
                                const void* target, const void* g, void* dx, int device, void* stream) {
-  return run(kCeBwd, x, row_stride, rows, reg_max, x_type, target, g, dx, device, stream);
+  return run(kCeBwd, x, row_stride, rows, reg_max, x_type, vec, target, g, dx, device, stream);
 }
 
 extern "C" const char* dfl_error_string(int code) { return cudaGetErrorString(static_cast<cudaError_t>(code)); }

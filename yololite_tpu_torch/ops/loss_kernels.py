@@ -49,6 +49,7 @@ LABEL_TYPES = {torch.float32: 0, torch.bfloat16: 1}
 METRIC_TYPES = {torch.float32: 0, torch.float64: 1}
 MAX_REG = 64  # reg_max csrc/dfl.cu takes
 MAX_K = 32  # k csrc/topk_rows.cu takes
+BCE_CHUNK = 256 * 4  # pieces a block of csrc/bce_sum.cu takes (256 threads, 4 pieces each): one partial of the sum
 
 # ---------------- plain versions ----------------
 
@@ -330,16 +331,35 @@ def _dfl_ce_op(pred_dist: Tensor, target: Tensor) -> Tensor:
     return dfl_ce_plain(pred_dist, target)
 
 
+def _vec16(x: Tensor, rs: int) -> bool:
+    """x's rows can be read in 16-byte pieces: its pointer and its row stride in bytes are multiples of 16."""
+    return x.data_ptr() % 16 == 0 and rs * x.element_size() % 16 == 0
+
+
+def dfl_ce_plan(pred_dist: Tensor) -> dict:
+    """The route csrc/dfl.cu takes for K6a on these logits (as `dfl_ce_mean` and `dfl_ce_backward` take them):
+    {"route": "lanes" (R 16: 8 lanes a row, 16-byte loads), "lanes-scalar" (R 16, a layout 16-byte loads cannot
+    read: the same kernels, one element at a time) or "generic" (another R: a thread a side), "rows", "row_stride"}.
+    The rule lives here; the kernel holds the wrapper to it."""
+    rows, rs = _rows_of(pred_dist)
+    if pred_dist.shape[-1] != 64:
+        route = "generic"
+    else:
+        route = "lanes" if _vec16(pred_dist, rs) else "lanes-scalar"
+    return {"route": route, "rows": rows, "row_stride": rs}
+
+
 @_dfl_ce_op.register_kernel("cuda")
 def _dfl_ce_cuda(pred_dist: Tensor, target: Tensor) -> Tensor:
-    rows, rs = _rows_of(pred_dist)
+    plan = dfl_ce_plan(pred_dist)
+    rows = plan["rows"]
     out = torch.empty((*pred_dist.shape[:-1], 1), dtype=torch.float32, device=pred_dist.device)
     if rows == 0:
         return out
     lib = _dfl_lib()
-    rc = lib.dfl_ce_forward(pred_dist.data_ptr(), rs, rows, pred_dist.shape[-1] // 4, X_TYPES[pred_dist.dtype],
-                            target.contiguous().data_ptr(), out.data_ptr(), pred_dist.device.index,
-                            _stream(pred_dist))
+    rc = lib.dfl_ce_forward(pred_dist.data_ptr(), plan["row_stride"], rows, pred_dist.shape[-1] // 4,
+                            X_TYPES[pred_dist.dtype], int(plan["route"] == "lanes"), target.contiguous().data_ptr(),
+                            out.data_ptr(), pred_dist.device.index, _stream(pred_dist))
     if rc != 0:
         raise RuntimeError(f"dfl_ce_mean kernel launch failed: {lib.dfl_error_string(rc).decode()}")
     dfl_ce_mean.launches += 1
@@ -358,14 +378,15 @@ def _dfl_ce_backward_op(pred_dist: Tensor, target: Tensor, g: Tensor) -> Tensor:
 
 @_dfl_ce_backward_op.register_kernel("cuda")
 def _dfl_ce_backward_cuda(pred_dist: Tensor, target: Tensor, g: Tensor) -> Tensor:
-    rows, rs = _rows_of(pred_dist)
+    plan = dfl_ce_plan(pred_dist)
+    rows = plan["rows"]
     dx = torch.empty(tuple(pred_dist.shape), dtype=pred_dist.dtype, device=pred_dist.device)
     if rows == 0:
         return dx
     lib = _dfl_lib()
-    rc = lib.dfl_ce_backward(pred_dist.data_ptr(), rs, rows, pred_dist.shape[-1] // 4, X_TYPES[pred_dist.dtype],
-                             target.contiguous().data_ptr(), g.contiguous().data_ptr(), dx.data_ptr(),
-                             pred_dist.device.index, _stream(pred_dist))
+    rc = lib.dfl_ce_backward(pred_dist.data_ptr(), plan["row_stride"], rows, pred_dist.shape[-1] // 4,
+                             X_TYPES[pred_dist.dtype], int(plan["route"] == "lanes"), target.contiguous().data_ptr(),
+                             g.contiguous().data_ptr(), dx.data_ptr(), pred_dist.device.index, _stream(pred_dist))
     if rc != 0:
         raise RuntimeError(f"dfl_ce_backward kernel launch failed: {lib.dfl_error_string(rc).decode()}")
     dfl_ce_backward.launches += 1
@@ -398,8 +419,8 @@ def _dfl_lib() -> ctypes.CDLL:
         tail = [ctypes.c_int, ctypes.c_void_p]
         lib.dfl_expectation_forward.argtypes = head + [ctypes.c_void_p] + tail
         lib.dfl_expectation_backward.argtypes = head + [ctypes.c_void_p] * 2 + tail
-        lib.dfl_ce_forward.argtypes = head + [ctypes.c_void_p] * 2 + tail
-        lib.dfl_ce_backward.argtypes = head + [ctypes.c_void_p] * 3 + tail
+        lib.dfl_ce_forward.argtypes = head + [ctypes.c_int] + [ctypes.c_void_p] * 2 + tail
+        lib.dfl_ce_backward.argtypes = head + [ctypes.c_int] + [ctypes.c_void_p] * 3 + tail
         for fn in (lib.dfl_expectation_forward, lib.dfl_expectation_backward, lib.dfl_ce_forward,
                    lib.dfl_ce_backward):
             fn.restype = ctypes.c_int
@@ -418,8 +439,9 @@ def bce_sum(logits: Tensor, labels: Tensor) -> Tensor:
     logits and labels of one shape (on the card: logits fp32, bf16 or fp64,
     labels fp32 or bf16; the last dim contiguous, the rows evenly spaced). A
     CUDA tensor goes through
-    csrc/bce_sum.cu (a deterministic sum: fixed per-block partials, then one
-    block adds them), a CPU tensor through `bce_sum_plain`; both as the op
+    csrc/bce_sum.cu (a deterministic sum: a partial per chunk of BCE_CHUNK
+    16-byte pieces, then one block adds them; `bce_sum_plan`), a CPU tensor
+    through `bce_sum_plain`; both as the op
     `torch.ops.yololite_tpu_torch.bce_sum`. Any other input raises.
     """
     if tuple(logits.shape) != tuple(labels.shape) or logits.dim() == 0:
@@ -452,15 +474,33 @@ def _bce_sum_op(logits: Tensor, labels: Tensor) -> Tensor:
     return bce_sum_plain(logits, labels)
 
 
-@_bce_sum_op.register_kernel("cuda")
-def _bce_sum_cuda(logits: Tensor, labels: Tensor) -> Tensor:
+def bce_sum_plan(logits: Tensor, labels: Tensor) -> dict:
+    """How csrc/bce_sum.cu takes these inputs (as `bce_sum` and `bce_sum_backward` take them): {"route": "vector"
+    (16-byte pieces) or "scalar" (a layout they cannot read: the same pieces, one element at a time), "piece"
+    (elements a piece: 16 bytes of logits), "pieces", "blocks" (chunks of BCE_CHUNK pieces: the forward's partials),
+    "rows", "x_row_stride", "y_row_stride"}. The partition depends on the element count and the logits' type
+    alone; the rule lives here and the kernel holds the wrapper to it."""
     rows, xrs = _rows_of(logits)
     _, yrs = _rows_of(labels)
+    cols = logits.shape[-1]
+    piece = 16 // logits.element_size()
+    pieces = -(-rows * cols // piece)
+    label_bytes = min(piece * labels.element_size(), 16)  # a piece's labels are read in loads of this size
+    vec = (cols % piece == 0 and _vec16(logits, xrs) and labels.data_ptr() % label_bytes == 0 and yrs % piece == 0
+           and pieces < 2 ** 31)
+    return {"route": "vector" if vec else "scalar", "piece": piece, "pieces": pieces,
+            "blocks": -(-pieces // BCE_CHUNK), "rows": rows, "x_row_stride": xrs, "y_row_stride": yrs}
+
+
+@_bce_sum_op.register_kernel("cuda")
+def _bce_sum_cuda(logits: Tensor, labels: Tensor) -> Tensor:
+    plan = bce_sum_plan(logits, labels)
     lib = _bce_lib()
     out = torch.empty((), dtype=torch.float32, device=logits.device)
-    partials = torch.empty(lib.bce_sum_partials(), dtype=torch.float32, device=logits.device)
-    rc = lib.bce_sum_forward(logits.data_ptr(), xrs, X_TYPES[logits.dtype], labels.data_ptr(), yrs,
-                             LABEL_TYPES[labels.dtype], rows, logits.shape[-1], partials.data_ptr(), out.data_ptr(),
+    partials = torch.empty(max(plan["blocks"], 1), dtype=torch.float32, device=logits.device)
+    rc = lib.bce_sum_forward(logits.data_ptr(), plan["x_row_stride"], X_TYPES[logits.dtype], labels.data_ptr(),
+                             plan["y_row_stride"], LABEL_TYPES[labels.dtype], plan["rows"], logits.shape[-1],
+                             int(plan["route"] == "vector"), partials.data_ptr(), plan["blocks"], out.data_ptr(),
                              logits.device.index, _stream(logits))
     if rc != 0:
         raise RuntimeError(f"bce_sum kernel launch failed: {lib.bce_sum_error_string(rc).decode()}")
@@ -480,15 +520,15 @@ def _bce_sum_backward_op(logits: Tensor, labels: Tensor, g: Tensor) -> Tensor:
 
 @_bce_sum_backward_op.register_kernel("cuda")
 def _bce_sum_backward_cuda(logits: Tensor, labels: Tensor, g: Tensor) -> Tensor:
-    rows, xrs = _rows_of(logits)
-    _, yrs = _rows_of(labels)
     dx = torch.empty(tuple(logits.shape), dtype=logits.dtype, device=logits.device)
     if dx.numel() == 0:
         return dx
+    plan = bce_sum_plan(logits, labels)
     lib = _bce_lib()
-    rc = lib.bce_sum_backward(logits.data_ptr(), xrs, X_TYPES[logits.dtype], labels.data_ptr(), yrs,
-                              LABEL_TYPES[labels.dtype], rows, logits.shape[-1], g.contiguous().data_ptr(),
-                              dx.data_ptr(), logits.device.index, _stream(logits))
+    rc = lib.bce_sum_backward(logits.data_ptr(), plan["x_row_stride"], X_TYPES[logits.dtype], labels.data_ptr(),
+                              plan["y_row_stride"], LABEL_TYPES[labels.dtype], plan["rows"], logits.shape[-1],
+                              int(plan["route"] == "vector"), g.contiguous().data_ptr(), dx.data_ptr(),
+                              logits.device.index, _stream(logits))
     if rc != 0:
         raise RuntimeError(f"bce_sum_backward kernel launch failed: {lib.bce_sum_error_string(rc).decode()}")
     bce_sum_backward.launches += 1
@@ -518,13 +558,12 @@ def _bce_lib() -> ctypes.CDLL:
     lib = cuda_build.load("bce_sum")
     if lib.bce_sum_forward.argtypes is None:  # declare the C signatures once per process
         head = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                ctypes.c_longlong, ctypes.c_int]
-        lib.bce_sum_forward.argtypes = head + [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p]
+                ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
+        lib.bce_sum_forward.argtypes = head + [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int,
+                                               ctypes.c_void_p]
         lib.bce_sum_forward.restype = ctypes.c_int
         lib.bce_sum_backward.argtypes = head + [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p]
         lib.bce_sum_backward.restype = ctypes.c_int
-        lib.bce_sum_partials.argtypes = []
-        lib.bce_sum_partials.restype = ctypes.c_int
         lib.bce_sum_error_string.argtypes = [ctypes.c_int]
         lib.bce_sum_error_string.restype = ctypes.c_char_p
     return lib
