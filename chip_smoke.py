@@ -35,9 +35,13 @@ Phases, each of which exits non-zero on failure:
      K6b's scalar routes, with NaN, +-inf and -0.0 logits, and in fp64, bit
      for bit (K6b's sum within BCE_SUM_RTOL, bit for bit its terms added in
      the kernel's order, and the same on both routes), each layout down the
-     route LOSS_TAIL_ROUTES names, and K7 (topk_rows) on the assigner-like
-     metrics of TOPK_CASES, values and indices bit for bit; each also the
-     same bits on a second call and in a CUDA graph replay;
+     route LOSS_TAIL_ROUTES names (K5's and K6a's plan, K6b's), and K7
+     (topk_rows) on the metrics of TOPK_CASES (the assigner's, all-zero rows,
+     more than k entries equal to the k-th, NaN, +-inf and -0.0 / 0.0 ties;
+     k 1 to 32; the vector and scalar routes, every register tile and a
+     streamed row), values and indices bit for bit, each down the route
+     topk_rows_plan gives; each also the same bits on a second call and in a
+     CUDA graph replay;
   3. slice: YOLOLite("yolo11n.yaml") with init(0) predicts synthetic 480x640
      uint8 batches at imgsz 640 and conf 1e-7, in fp32 (TF32 off) and bf16, at
      batch 1 and 32; each call replays a CUDA graph of the step (the first
@@ -186,6 +190,7 @@ from __future__ import annotations
 import contextlib
 import itertools
 import json
+import re
 import subprocess
 import sys
 import time
@@ -657,8 +662,15 @@ def k2_numbers(card: str, raw, s: int, dtype, channels_last: bool, bgr: bool, wh
 # ---------------- the loss tail: K5, K6a, K6b (each with its backward) and K7 ----------------
 
 LOSS_TAIL_SHAPES = ((16, 8400), (16, 2100), (3, 300))  # (B, A): the train step's at 640 and at 320, a small batch
-TOPK_CASES = ((16, 32, 8400, 10), (16, 64, 8400, 10), (16, 16, 8400, 13), (16, 256, 2100, 10), (4, 16, 8400, 1),
-              (2, 16, 5, 10))  # (B, M, A, k): the assigner's rows at 640 and 320, one2one's k 1, A <= k
+# (B, M, A, k, kind of rows; `loss_tail_metrics`): the assigner's rows at 640 and 320, one2one's k 1, A <= k; all-zero
+# rows, more than k entries equal to the k-th, NaN, +-inf and -0.0 / 0.0 ties; k 32; A not a multiple of 4 (K7's
+# scalar route); A 33,600 (imgsz 1280: a row longer than K7's register tiles, streamed), with GT bumps (t0 raised)
+TOPK_CASES = ((16, 32, 8400, 10, "assigner"), (16, 64, 8400, 10, "assigner"), (16, 16, 8400, 13, "assigner"),
+              (16, 256, 2100, 10, "assigner"), (4, 16, 8400, 1, "assigner"), (2, 16, 5, 10, "assigner"),
+              (4, 16, 8400, 10, "zeros"), (4, 16, 8400, 13, "ties"), (4, 16, 8400, 10, "special"),
+              (4, 16, 8400, 32, "assigner"), (4, 16, 2101, 32, "special"), (4, 16, 8399, 10, "assigner"),
+              (4, 16, 8399, 13, "ties"), (2, 8, 33600, 10, "assigner"), (2, 8, 33600, 32, "special"),
+              (2, 8, 1000, 32, "ties"), (4, 16, 8400, 10, "boxes"), (2, 8, 33600, 13, "boxes"))
 # K6b's sum against torch's: the same fp32 terms added in another order; readings 0 to 7.8e-8 relative on an H100
 # (PERF.md), and one of the 134,400 rows of (16, 8400) left out would move the sum about 7e-6
 BCE_SUM_RTOL = 1e-6
@@ -684,13 +696,33 @@ def loss_tail_inputs(b: int, a: int, dtype, seed: int):
     return maps.to(dtype), tgt, lab.to(dtype), torch.randn(b, a, 4, **f32), torch.randn(b, a, 1, **f32)
 
 
-def loss_tail_metrics(b: int, m: int, a: int, seed: int):
-    """(B, M, A) fp32 align metrics as the assigner makes them: zero outside a GT's anchors (90%), values on a grid
-    of 1/64 (ties), the last quarter of the GT rows padding (all zero)."""
+def loss_tail_metrics(b: int, m: int, a: int, seed: int, kind: str = "assigner"):
+    """(B, M, A) fp32 align metrics. "assigner", as the assigner makes them: zero outside a GT's anchors (90%), values
+    on a grid of 1/64 (ties), the last quarter of the GT rows padding (all zero); "boxes": a GT's smooth bump,
+    distinct values falling off from a peak over 400 anchors each side, zero elsewhere (the largest side by side, so
+    a thread of K7 holds several: on a streamed row t0 is raised); "zeros": every row zero; "ties":
+    values on a grid of 1/4, so more than k entries equal the k-th; "special": normal values, half of them zero,
+    -0.0 among the zeros, NaN in every seventh column, +inf and -inf in some rows."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    x = torch.floor(torch.rand(b, m, a, device="cuda", generator=gen) * 64) / 64
+    x = torch.rand(b, m, a, device="cuda", generator=gen)
+    if kind == "zeros":
+        return torch.zeros_like(x)
+    if kind == "boxes":
+        peak = torch.randint(0, a, (b, m, 1), device="cuda", generator=gen)
+        d = torch.arange(a, device="cuda") - peak
+        return torch.exp(-(d / 200.0) ** 2) * (d.abs() < 400)
+    if kind == "ties":
+        return torch.floor(x * 4) / 4
+    if kind == "special":
+        x = torch.randn(b, m, a, device="cuda", generator=gen) * (x > 0.5)
+        x[torch.rand(b, m, a, device="cuda", generator=gen) < 0.3] = -0.0
+        x[..., ::7] = float("nan")
+        x[:, :m // 2, 3::11] = float("inf")
+        x[:, m // 2:, 5::13] = float("-inf")
+        return x
+    x = torch.floor(x * 64) / 64
     x = x * (torch.rand(b, m, a, device="cuda", generator=gen) > 0.9)
     x[:, 3 * m // 4:] = 0.0
     return x
@@ -722,7 +754,7 @@ def loss_tail_calls(box, cls, tgt, lab, g4, g1) -> dict:
 # labels of row stride 81), and NaN, +-inf and -0.0 logits in both slices
 LOSS_TAIL_CASES = ("aligned", "scalar", "special")
 LOSS_TAIL_ROUTES = {"aligned": ("lanes", "vector"), "scalar": ("lanes-scalar", "scalar"),
-                    "special": ("lanes", "vector")}  # (K6a's route, K6b's) each case must take
+                    "special": ("lanes", "vector")}  # (K5's and K6a's route, one plan; K6b's) each case must take
 # rows that are no multiple of K6a's 32 rows a block nor of K6b's chunk of 1,024 pieces, and one row
 LOSS_TAIL_EDGE_SHAPES = ((1, 1), (1, 1001), (7, 333))
 
@@ -830,7 +862,7 @@ def loss_tail_check(name: str, kernel, plain, what: str) -> float:
 
 def loss_tail_case_checks(b: int, a: int, dtype, case: str, seed: int) -> dict:
     """Every loss-tail kernel of `loss_tail_calls` on one of LOSS_TAIL_CASES at (B, A) in dtype against its plain
-    version (`loss_tail_check`); K6a and K6b down the routes LOSS_TAIL_ROUTES names; K6b's sum also bit for bit
+    version (`loss_tail_check`); K5, K6a and K6b down the routes LOSS_TAIL_ROUTES names; K6b's sum also bit for bit
     equal to `bce_sum_kernel_order` and, in the scalar case, to the aligned layout's sum (the same pieces).
     Returns {"checks", "bce_rel" (K6b's relative error, None where the sum is not finite)}."""
     import torch
@@ -842,9 +874,10 @@ def loss_tail_case_checks(b: int, a: int, dtype, case: str, seed: int) -> dict:
         inputs[2] = inputs[2].float()
     box, cls, tgt, lab, g4, g1 = loss_tail_case(case, *inputs)
     what = f"B {b}, A {a}, {str(dtype).split('.')[-1]}, {case}"
-    routes = (L.dfl_ce_plan(box)["route"], L.bce_sum_plan(cls, lab)["route"])
+    routes = (L.dfl_plan(box)["route"], L.bce_sum_plan(cls, lab)["route"])
     if routes != LOSS_TAIL_ROUTES[case]:
-        raise AssertionError(f"loss tail ({what}): K6a and K6b take routes {routes}, not {LOSS_TAIL_ROUTES[case]}")
+        raise AssertionError(f"loss tail ({what}): K5 and K6a, and K6b take routes {routes}, not "
+                             f"{LOSS_TAIL_ROUTES[case]}")
     n, rel = 0, None
     for name, (kernel, plain) in loss_tail_calls(box, cls, tgt, lab, g4, g1).items():
         err = loss_tail_check(name, kernel, plain, what)
@@ -882,20 +915,42 @@ def loss_tail_checks(card: str) -> dict:
         n += got["checks"]
         if got["bce_rel"] is not None:
             bce_rel.append(got["bce_rel"])
-    for b, m, a, k in TOPK_CASES:
-        x = loss_tail_metrics(b, m, a, seed=b + m + a + k)
-        loss_tail_check("topk_rows", lambda: L.topk_rows(x, k), lambda: L.topk_stable(x, k), f"B {b}, M {m}, A {a}, "
-                        f"k {k}")
-        n += 1
+    routes = [topk_case_check(*case, seed=sum(case[:4])) for case in TOPK_CASES]
+    n += len(routes)
     log(f"kernel: the loss tail equal to its plain versions in {n} checks, each also bit-equal on a second call and "
         f"in a CUDA graph replay: K5 forward and backward, K6a forward and backward, K6b backward bit for bit at (B, "
         f"A) in {LOSS_TAIL_SHAPES + LOSS_TAIL_EDGE_SHAPES}, fp32 and bf16, logits read through a row stride of 144, "
-        f"at (16, 2100), (7, 333), (1, 1) also through the scalar route's layouts (K6a {LOSS_TAIL_ROUTES['scalar'][0]}"
+        f"at (16, 2100), (7, 333), (1, 1) also through the scalar route's layouts (K5 and K6a "
+        f"{LOSS_TAIL_ROUTES['scalar'][0]}"
         f", K6b {LOSS_TAIL_ROUTES['scalar'][1]}) and with NaN, +-inf and -0.0 logits, fp64 at (2, 300), (7, 333); "
         f"K6b's sum within {BCE_SUM_RTOL} relative (readings {min(bce_rel):.3g} to {max(bce_rel):.3g}), bit for bit "
         f"the sum in the kernel's order and the same on both routes; K7 values and indices bit for bit at (B, M, A, "
-        f"k) in {TOPK_CASES}, on {card}")
+        f"k, rows) in {TOPK_CASES}, down the routes (route, values a thread) {routes}, on {card}")
     return {"checks": n, "bce_sum_rel_err": max(bce_rel), "bce_sum_rel_err_least": min(bce_rel)}
+
+
+def topk_case_check(b: int, m: int, a: int, k: int, kind: str, seed: int, dtype=None) -> tuple:
+    """K7 on `loss_tail_metrics(b, m, a, seed, kind)` in dtype (fp32 by default) against its plain version
+    (`loss_tail_check`), down the route its layout allows (16-byte loads where A is a multiple of the values one
+    carries) in the first register tile that holds A (a longer row streamed), one launch a call. Returns the plan's
+    (route, values a thread holds)."""
+    import torch
+
+    from yololite_tpu_torch.ops import loss_kernels as L
+
+    x = loss_tail_metrics(b, m, a, seed, kind).to(dtype or torch.float32)
+    plan = L.topk_rows_plan(x, k)
+    fits = [i for i in L.TOPK_ITEMS if L.TOPK_THREADS * i >= a]
+    want = ("vector" if a % (16 // x.element_size()) == 0 else "scalar", fits[0] if fits else 0)
+    got = (plan["route"], plan["items"])
+    what = f"B {b}, M {m}, A {a}, k {k}, {kind} rows, {x.dtype}"
+    if got != want:
+        raise AssertionError(f"topk_rows ({what}): the plan {got}, not {want}")
+    before = L.topk_rows.launches
+    loss_tail_check("topk_rows", lambda: L.topk_rows(x, k), lambda: L.topk_stable(x, k), what)
+    if L.topk_rows.launches != before + 3:  # twice, and once in the capture
+        raise AssertionError(f"topk_rows ({what}): {L.topk_rows.launches - before} launches for 3 calls")
+    return got
 
 
 def loss_tail_work(name: str, rows: int, es_x: int, es_y: int = 0, n: int = 0, k: int = 0):
@@ -939,13 +994,15 @@ def cold_graph_ms(calls, iters: int = 20, reps: int = 5) -> float:
 
 def loss_tail_numbers(card: str) -> dict:
     """The loss tail at the train step's shapes, by device time (a CUDA graph of 20 calls replayed): K5, K6a and
-    K6b forward and backward at B 16, A 8,400 on the (B, A, 144) maps' slices, fp32 and bf16; K7 at B 16, A 8,400,
-    M 32 and 64, k 10. Each kernel twice: warm (`graph_ms`, one input set, which L2 may hold across the calls) and
-    cold (`cold_graph_ms`, input sets in turn); beside its plain version, its bound and, where one PyTorch call
+    K6b forward and backward at B 16, A 8,400 on the (B, A, 144) maps' slices, fp32 and bf16; K7 at B 16, k 10,
+    A 8,400 with M 32 and 64, and with M 32 at A 2,100 (imgsz 320) and 33,600 (imgsz 1,280, a streamed row). Each
+    kernel twice: warm (`graph_ms`, one input set, which L2 may hold across the calls) and cold (`cold_graph_ms`,
+    input sets in turn); beside its plain version, its bound and, where one PyTorch call
     computes the same function, that call (a yardstick: F.binary_cross_entropy_with_logits for K6b,
     F.cross_entropy with the two-hot probabilities for K6a, torch.topk for K7, whose tie order is not
-    lax.top_k's). Returns, by wrapper name and dtype, {ms, cold_ms, cold_sets, plain_ms, bound_ms, bound_by,
-    library_ms, max_abs_err, shape}."""
+    lax.top_k's); K5, which no one call computes, beside two (`yardstick_ms`: a softmax over the 16 bins of a
+    contiguous copy of the logits into fp32, then a matmul with the bin indices). Returns, by wrapper name and
+    dtype, {ms, cold_ms, cold_sets, plain_ms, bound_ms, bound_by, library_ms, yardstick_ms, max_abs_err, shape}."""
     import torch
     import torch.nn.functional as F
 
@@ -968,6 +1025,8 @@ def loss_tail_numbers(card: str) -> dict:
         probs.scatter_add_(1, (tl + 1).clamp(max=15)[:, None], (t - tl)[:, None])
         library = {"bce_sum": lambda: F.binary_cross_entropy_with_logits(cls, lab, reduction="sum"),
                    "dfl_ce_mean": lambda: F.cross_entropy(x2, probs, reduction="none")}
+        xk, proj = box.reshape(-1, 16).contiguous(), torch.arange(16, dtype=torch.float32, device=box.device)
+        yardstick = {"dfl_expectation": lambda: torch.softmax(xk, 1, dtype=torch.float32) @ proj}
         for name, (kernel, plain) in pairs[0].items():
             got, want = kernel(), plain()
             torch.cuda.synchronize()
@@ -977,34 +1036,37 @@ def loss_tail_numbers(card: str) -> dict:
             cold = cold_graph_ms([p[name][0] for p in pairs[:n_cold]])
             plain_ms = graph_ms(plain, iters=5, reps=3)
             lib_ms = graph_ms(library[name]) if name in library else None
+            yard_ms = graph_ms(yardstick[name]) if name in yardstick else None
             bound, bound_by = loss_tail_bound_ms(name, b * a, es, es)
             out.setdefault(name, {})[dname] = {"ms": ms, "cold_ms": cold, "cold_sets": n_cold, "plain_ms": plain_ms,
                                                "bound_ms": bound, "bound_by": bound_by, "library_ms": lib_ms,
-                                               "max_abs_err": err, "shape": [b, a, 144]}
+                                               "yardstick_ms": yard_ms, "max_abs_err": err, "shape": [b, a, 144]}
+            yard = f"softmax then matmul (two calls, a yardstick) {yard_ms:.4f} ms; " if yard_ms else ""
             log(f"kernel: {name} ({dname} logits, B {b}, A {a}, row stride 144): {ms:.4f} ms device warm (graph "
                 f"replay, one input set), {cold:.4f} cold ({n_cold} sets in turn), {ms / bound:.2f}x and "
                 f"{cold / bound:.2f}x its bound of {bound:.4f} ms ({bound_by}); plain {plain_ms:.4f} ms; "
-                f"{'library ' + format(lib_ms, '.4f') + ' ms; ' if lib_ms is not None else ''}max |kernel - plain| "
-                f"{err:.3g}, on {card}")
-        del sets, pairs, maps, tgt, lab, box, cls, x2, probs
-    for m in (32, 64):
-        n_cold = cold_sets(loss_tail_work("topk_rows", b * m, 4, n=a, k=10)[0])
-        xs = [loss_tail_metrics(b, m, a, seed=24 + i) for i in range(n_cold)]
+                f"{'library ' + format(lib_ms, '.4f') + ' ms; ' if lib_ms is not None else ''}{yard}"
+                f"max |kernel - plain| {err:.3g}, on {card}")
+        del sets, pairs, maps, tgt, lab, box, cls, x2, probs, xk
+    for m, n, key in ((32, a, "M32"), (64, a, "M64"), (32, 2100, "M32_A2100"), (32, 33600, "M32_A33600")):
+        # imgsz 640, 320 (the smaller register tile) and 1,280 (a streamed row)
+        n_cold = cold_sets(loss_tail_work("topk_rows", b * m, 4, n=n, k=10)[0])
+        xs = [loss_tail_metrics(b, m, n, seed=24 + i) for i in range(n_cold)]
         x = xs[0]
         vk, ik = L.topk_rows(x, 10)
         vp, ip = L.topk_stable(x, 10)
         torch.cuda.synchronize()
         if not (same_bits(vk, vp) and same_bits(ik, ip)):
-            raise AssertionError(f"topk_rows differs from its plain version at M {m}")
+            raise AssertionError(f"topk_rows differs from its plain version at M {m}, A {n}")
         ms = graph_ms(lambda: L.topk_rows(x, 10))
         cold = cold_graph_ms([lambda xi=xi: L.topk_rows(xi, 10) for xi in xs])
         plain_ms = graph_ms(lambda: L.topk_stable(x, 10), iters=5, reps=3)
         lib_ms = graph_ms(lambda: torch.topk(x, 10))
-        bound, bound_by = loss_tail_bound_ms("topk_rows", b * m, 4, n=a, k=10)
-        out.setdefault("topk_rows", {})[f"M{m}"] = {"ms": ms, "cold_ms": cold, "cold_sets": n_cold,
-                                                    "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
-                                                    "library_ms": lib_ms, "max_abs_err": 0.0, "shape": [b, m, a, 10]}
-        log(f"kernel: topk_rows (B {b}, M {m}, A {a}, k 10, fp32 metrics with ties): {ms:.4f} ms device warm (graph "
+        bound, bound_by = loss_tail_bound_ms("topk_rows", b * m, 4, n=n, k=10)
+        out.setdefault("topk_rows", {})[key] = {"ms": ms, "cold_ms": cold, "cold_sets": n_cold,
+                                                "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+                                                "library_ms": lib_ms, "max_abs_err": 0.0, "shape": [b, m, n, 10]}
+        log(f"kernel: topk_rows (B {b}, M {m}, A {n}, k 10, fp32 metrics with ties): {ms:.4f} ms device warm (graph "
             f"replay), {cold:.4f} cold ({n_cold} sets in turn), {ms / bound:.2f}x and {cold / bound:.2f}x its bound "
             f"of {bound:.4f} ms ({bound_by}); plain (stable sort) {plain_ms:.4f} ms; torch.topk {lib_ms:.4f} ms "
             f"(another tie order: a yardstick); values and indices bit-equal, on {card}")
@@ -2131,8 +2193,6 @@ def graph_ms(fn, iters: int = 20, reps: int = 5) -> float:
 def k8_build_report(lib_path: Path) -> str:
     """ptxas's registers and spills for each K8 kernel (from the build log), and the count of warpgroup MMA
     instructions (*GMMA) in the library's SASS (cuobjdump -sass)."""
-    import re
-
     from yololite_tpu_torch.ops import cuda_build
 
     rows, name = [], None
@@ -2160,8 +2220,6 @@ def k8_build_report(lib_path: Path) -> str:
 def k4_build_report(lib_path: Path) -> str:
     """ptxas's registers and spills for K4's kernel, from the build log, and its SASS instructions (cuobjdump -sass;
     the library has the one kernel)."""
-    import re
-
     from yololite_tpu_torch.ops import cuda_build
 
     log = lib_path.with_suffix(".log").read_text()
@@ -2178,9 +2236,8 @@ def k4_build_report(lib_path: Path) -> str:
 
 def loss_tail_build_report(lib_path: Path) -> str:
     """ptxas's registers, stack frame and spills for each kernel of a loss-tail library (csrc/dfl.cu,
-    csrc/bce_sum.cu), from its build log; the names demangled by the toolkit's cu++filt where it has one."""
-    import re
-
+    csrc/bce_sum.cu, csrc/topk_rows.cu), from its build log; the names demangled by the toolkit's cu++filt where it
+    has one."""
     from yololite_tpu_torch.ops import cuda_build
 
     rows, name, frame = [], None, ""
@@ -3359,8 +3416,12 @@ def main() -> int:
             log(f"  {name}: {text}")
         elif name == "blocked_nms":
             log(f"  {name}: {k4_build_report(path)}")
-        elif name in ("dfl", "bce_sum"):
-            log(f"  {name}: ptxas per kernel: {loss_tail_build_report(path)}")
+        elif name in ("dfl", "bce_sum", "topk_rows"):
+            text = loss_tail_build_report(path)
+            log(f"  {name}: ptxas per kernel: {text}")
+            framed = re.findall(r"(\S*(?:fwd16|bwd16)\S*): \d+ regs, ([1-9]\d*) B stack", text)
+            if framed or (name == "dfl" and len(re.findall(r"(?:fwd16|bwd16)", text)) != 12):
+                raise AssertionError(f"dfl: the R = 16 kernels (4 of them, 3 types) want no stack frame: {framed}")
         elif report.exists():
             log(f"  {name}: {' | '.join(line.strip() for line in report.read_text().splitlines() if line.strip())}")
 
@@ -3758,18 +3819,27 @@ def main() -> int:
 
     k5_entry = tail_entry("dfl_expectation", "dfl_expectation_backward", "yololite_tpu_torch/csrc/dfl.cu",
                           "yololite_tpu/ops/decode.py:75", None)  # the custom vjp of dfl_expectation_mm: XLA ops
+    # no one call computes K5; two do (loss_tail_numbers), timed beside it
+    k5_entry["yardstick"] = "softmax over the 16 bins into fp32, then a matmul with the bin indices: two calls"
+    k5_entry["yardstick_ms"] = tail["dfl_expectation"]["float32"]["yardstick_ms"]
+    k5_entry["bf16"]["yardstick_ms"] = tail["dfl_expectation"]["bfloat16"]["yardstick_ms"]
     k6a_entry = tail_entry("dfl_ce_mean", "dfl_ce_backward", "yololite_tpu_torch/csrc/dfl.cu",
                            "yololite_tpu/utils/loss.py:237", "F.cross_entropy with the two-hot probabilities")
     k6b_entry = tail_entry("bce_sum", "bce_sum_backward", "yololite_tpu_torch/csrc/bce_sum.cu",
                            "yololite_tpu/utils/loss.py:283", "F.binary_cross_entropy_with_logits, reduction sum")
     k6b_entry["sum_rel_err"] = tail_checks["bce_sum_rel_err"]  # the largest over phase 2's checks, vs BCE_SUM_RTOL
     k6b_entry["sum_rel_err_least"] = tail_checks["bce_sum_rel_err_least"]
-    t32, t64 = tail["topk_rows"]["M32"], tail["topk_rows"]["M64"]
+    t32, t64, t320 = (tail["topk_rows"][key] for key in ("M32", "M64", "M32_A2100"))
+    from yololite_tpu_torch.ops.loss_kernels import topk_rows_plan
+
+    k7_plan = topk_rows_plan(torch.zeros(t32["shape"][:3], device="cuda"), t32["shape"][3])  # the step's layout
     k7_entry = {"name": "topk_rows", "route": "cuda", "source": "yololite_tpu_torch/csrc/topk_rows.cu",
                 "replaces": "yololite_tpu/utils/tal.py:61",  # topk_blockmax_gather (and :97 topk_hierarchical)
                 "launches": counts["topk_rows"], **{k: t32[k] for k in keys}, "shape": t32["shape"],
+                "plan": {k: k7_plan[k] for k in ("route", "items")},
                 "library": "torch.topk (its tie order is not lax.top_k's: a yardstick)",
-                "M64": {**{k: t64[k] for k in keys}, "shape": t64["shape"]}}
+                "M64": {**{k: t64[k] for k in keys}, "shape": t64["shape"]},
+                "M32_A2100": {**{k: t320[k] for k in keys}, "shape": t320["shape"]}}
     log(json.dumps({"kernels": [entry, k3_entry, k2_entry, k4_entry, k8_entry, k5_entry, k6a_entry, k6b_entry,
                                 k7_entry]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -17,7 +17,7 @@ import torch
 from chip_smoke import (K3_CASES, K3_RECT, K3_ROUTES, LOSS_TAIL_EDGE_SHAPES, LOSS_TAIL_ROUTES, LOSS_TAIL_SHAPES,
                         TOPK_CASES, bce_sum_kernel_order, k3_args, k3_check, k3_maps, k4_scene,
                         loss_tail_case, loss_tail_case_checks, loss_tail_check, loss_tail_inputs, loss_tail_metrics,
-                        loss_tail_pairs, loss_tail_step_check, same_bits)
+                        loss_tail_pairs, loss_tail_step_check, same_bits, topk_case_check)
 from yololite_tpu_torch.engine import graphs
 from yololite_tpu_torch.ops import loss_kernels as L
 from yololite_tpu_torch.ops.kernels import (blocked_nms_finalize, blocked_nms_finalize_plain, device_letterbox,
@@ -966,23 +966,27 @@ def test_loss_tail_kernels_match_plain_at_ragged_row_counts(card, b, a, dtype):
 
 
 def test_loss_tail_routes_follow_the_layout(card):
-    """K6a's and K6b's plans: the maps' slices take the 16-byte routes in fp32, bf16 and fp64, the shifted layouts
-    the scalar ones, another reg_max K6a's generic kernels (bit for bit too); K6b's partition is fixed by the
-    element count and the logits' type, so two layouts of the same values give the same sum."""
+    """K5's and K6a's plan and K6b's: the maps' slices take the 16-byte routes in fp32, bf16 and fp64, the shifted
+    layouts the scalar ones, another reg_max K5's and K6a's generic kernels (bit for bit too); K6b's partition is
+    fixed by the element count and the logits' type, so two layouts of the same values give the same sum."""
     for dtype in (torch.float32, torch.bfloat16, torch.float64):
         inputs = list(loss_tail_inputs(2, 300, dtype, seed=9))
         inputs[2] = inputs[2].float() if dtype == torch.float64 else inputs[2]
         sums = []
         for case in ("aligned", "scalar"):
             box, cls, _, lab, _, _ = loss_tail_case(case, *inputs)
-            assert (L.dfl_ce_plan(box)["route"], L.bce_sum_plan(cls, lab)["route"]) == LOSS_TAIL_ROUTES[case]
+            assert (L.dfl_plan(box)["route"], L.bce_sum_plan(cls, lab)["route"]) == LOSS_TAIL_ROUTES[case]
             assert L.bce_sum_plan(cls, lab)["piece"] == 16 // dtype.itemsize
             sums.append(L.bce_sum(cls, lab))
         assert same_bits(*sums)
-    maps, tgt, _, _, g1 = loss_tail_inputs(2, 50, torch.float32, seed=10)
+    maps, tgt, _, g4, g1 = loss_tail_inputs(2, 50, torch.float32, seed=10)
     for r in (8, 4):  # another reg_max: the generic kernels
         x = maps[..., :4 * r]
-        assert L.dfl_ce_plan(x)["route"] == "generic"
+        assert L.dfl_plan(x)["route"] == "generic"
+        loss_tail_check("dfl_expectation", lambda: L.dfl_expectation(x, r), lambda: L.dfl_expectation_plain(x, r),
+                        f"reg_max {r}")
+        loss_tail_check("dfl_expectation_backward", lambda: L.dfl_expectation_backward(x, g4, r),
+                        lambda: L.dfl_expectation_backward_plain(x, g4, r), f"reg_max {r}")
         loss_tail_check("dfl_ce_mean", lambda: L.dfl_ce_mean(x, tgt), lambda: L.dfl_ce_plain(x, tgt), f"reg_max {r}")
         loss_tail_check("dfl_ce_backward", lambda: L.dfl_ce_backward(x, tgt, g1),
                         lambda: L.dfl_ce_backward_plain(x, tgt, g1), f"reg_max {r}")
@@ -996,14 +1000,51 @@ def test_bce_sum_adds_in_the_kernel_order(card):
         assert same_bits(L.bce_sum(maps[..., 64:], lab), bce_sum_kernel_order(maps[..., 64:], lab))
 
 
-@pytest.mark.parametrize("b,m,a,k", TOPK_CASES)
-def test_topk_rows_kernel_matches_plain(card, b, m, a, k):
-    """K7 on the assigner's metrics (ties, masked rows; M 16-256, k 1-13, A <= k): values and indices bit for bit,
-    the same on a second call and in a graph replay."""
-    x = loss_tail_metrics(b, m, a, seed=b * m + a + k)
-    before = L.topk_rows.launches
-    loss_tail_check("topk_rows", lambda: L.topk_rows(x, k), lambda: L.topk_stable(x, k), f"B {b}, M {m}, A {a}")
-    assert L.topk_rows.launches == before + 3
+def test_loss_tail_kernels_refuse_a_route_the_layout_does_not_allow(card):
+    """The C entries hold the wrapper to its plan: K5's and K6a's 16-byte route on logits one column in, and K7's on
+    metrics one column in or of a length no multiple of 4, return cudaErrorMisalignedAddress and launch nothing."""
+    maps = torch.zeros(2, 50, 146, device=card)
+    x = maps[..., 1:65]
+    assert L.dfl_plan(x)["route"] == "lanes-scalar"
+    dfl, stream = L._dfl_lib(), torch.cuda.current_stream().cuda_stream
+    out = torch.empty(2, 50, 4, device=card)
+    dx = torch.empty(2, 50, 64, device=card)
+    g4 = torch.zeros(2, 50, 4, device=card)
+    tgt, g1 = torch.zeros(2, 50, 4, device=card), torch.zeros(2, 50, 1, device=card)
+    rcs = [dfl.dfl_expectation_forward(x.data_ptr(), 146, 100, 16, 0, 1, out.data_ptr(), card.index or 0, stream),
+           dfl.dfl_expectation_backward(x.data_ptr(), 146, 100, 16, 0, 1, g4.data_ptr(), dx.data_ptr(),
+                                        card.index or 0, stream),
+           dfl.dfl_ce_forward(x.data_ptr(), 146, 100, 16, 0, 1, tgt.data_ptr(), out.data_ptr(), card.index or 0,
+                              stream),
+           dfl.dfl_ce_backward(x.data_ptr(), 146, 100, 16, 0, 1, tgt.data_ptr(), g1.data_ptr(), dx.data_ptr(),
+                               card.index or 0, stream)]
+    topk = L._topk_lib()
+    vals, idx = torch.empty(12, 10, device=card), torch.empty(12, 10, dtype=torch.int64, device=card)
+    for m, n in ((torch.zeros(2, 6, 8404, device=card)[..., 1:8401], 8400), (torch.zeros(2, 6, 8399, device=card),
+                                                                             8399)):
+        rcs.append(topk.topk_rows(m.data_ptr(), m.stride(1), 12, n, 0, 10, 1, 36, vals.data_ptr(), idx.data_ptr(),
+                                  card.index or 0, stream))
+    torch.cuda.synchronize()
+    assert [dfl.dfl_error_string(rc).decode() for rc in rcs[:4]] == ["misaligned address"] * 4, rcs
+    assert [topk.topk_rows_error_string(rc).decode() for rc in rcs[4:]] == ["misaligned address"] * 2, rcs
+
+
+@pytest.mark.parametrize("b,m,a,k,kind", TOPK_CASES)
+def test_topk_rows_kernel_matches_plain(card, b, m, a, k, kind):
+    """K7 on the metrics of chip_smoke.TOPK_CASES (the assigner's, all-zero rows, more than k entries equal to the
+    k-th, NaN, +-inf and -0.0 / 0.0 ties, GT bumps; M 8-256, k 1-32, A 5 to 33,600): values and indices bit for
+    bit, the same on a second call and in a graph replay, one launch a call, down the route and tile its layout
+    allows."""
+    topk_case_check(b, m, a, k, kind, seed=b * m + a + k)
+
+
+@pytest.mark.parametrize("a,dtype,kind", [(86016, torch.float64, "assigner"), (86016, torch.float64, "boxes"),
+                                          (200000, torch.float32, "boxes")], ids=["fp64-2048", "fp64-bumps", "fp32"])
+def test_topk_rows_streams_a_row_of_any_length(card, a, dtype, kind):
+    """K7 on rows longer than its register tiles at k 32: the float64 reference step's at imgsz 2,048 (A 86,016) and
+    a 200,000-value fp32 row, the bumps' rows taking the radix raise of t0; the streamed route's shared memory does
+    not grow with the row, so these launch and equal the plain version bit for bit."""
+    assert topk_case_check(2, 4, a, 32, kind, seed=a, dtype=dtype) == ("vector", 0)
 
 
 def test_loss_tail_kernels_take_the_float64_step(card):
@@ -1017,6 +1058,8 @@ def test_loss_tail_kernels_take_the_float64_step(card):
         x[0, 0, ::97] = float("nan")
         x[1, 1, ::3] = -0.0
         loss_tail_check("topk_rows", lambda: L.topk_rows(x, 13), lambda: L.topk_stable(x, 13), str(mdt))
+    for case in (TOPK_CASES[8], TOPK_CASES[10], TOPK_CASES[12], TOPK_CASES[14]):  # fp64's keys on each route and tile
+        topk_case_check(*case, seed=7, dtype=torch.float64)
 
 
 def test_loss_tail_kernels_reject_what_they_do_not_take(card):

@@ -290,9 +290,10 @@ def test_rows_of_refuses_other_layouts(view):
         LK._rows_of(view(torch.zeros(2, 30, 144)))
 
 
-# ---------------- numpy models of the redesigned schedules (K6a at R 16, K6b) ----------------
-# csrc/dfl.cu and csrc/bce_sum.cu run only on the card; these models replay their orders of addition and their
-# walks in numpy float32 (IEEE adds, round to nearest) so that a change of either can be checked here first.
+# ---------------- numpy models of the redesigned schedules (K5 and K6a at R 16, K6b, K7) ----------------
+# csrc/dfl.cu, csrc/bce_sum.cu and csrc/topk_rows.cu run only on the card; these models replay their orders of
+# addition, their walks and their selection in numpy (float32 IEEE adds, round to nearest; the same keys) so that a
+# change of any can be checked here first.
 
 
 def _row_sum16(v):
@@ -346,6 +347,177 @@ def test_k6a_lanes_sum_in_row_sums_order():
             assert got[0] == want and got[1] == want, (e, got, want)
         # the order matters on these rows: a plain left-to-right sum differs somewhere
         assert any(np.float32(_row_sum16(e)) != np.cumsum(e, dtype=np.float32)[-1] for e in rows[400:432])
+
+
+def _same_float(a, b):
+    """The same float32 bits, or both NaN (the card's arithmetic gives the canonical NaN either way)."""
+    a, b = np.float32(a), np.float32(b)
+    return a.view(np.int32) == b.view(np.int32) or (np.isnan(a) and np.isnan(b))
+
+
+def test_k5_lanes_sum_in_row_sums_order():
+    """K5 at R 16 (csrc/dfl.cu `expectation16`): both lanes of a side get z and the numerator sum(e_j * j) with the
+    bits of torch's CUDA order, so E = num / z has the plain version's bits on both, on random and adversarial
+    rows."""
+    rows = _adversarial_rows(np.random.default_rng(23))
+    bins = np.arange(16, dtype=np.float32)
+    with np.errstate(over="ignore", invalid="ignore"):
+        for e in rows:
+            w = e * bins  # the lane's products, bin 8 * half + j
+            want_z, want_num = np.float32(_row_sum16(e)), np.float32(_row_sum16(w))
+            want_e = want_num / want_z
+            for z, num in zip(_lanes16(e), _lanes16(w)):
+                assert _same_float(z, want_z) and _same_float(num, want_num), (e, z, num, want_z, want_num)
+                assert _same_float(np.float32(num) / np.float32(z), want_e)
+        # the numerator's order matters on these rows too
+        assert any(np.float32(_row_sum16(e * bins)) != np.cumsum(e * bins, dtype=np.float32)[-1]
+                   for e in rows[:200])
+
+
+def _k7_keys(x):
+    """csrc/topk_rows.cu `key_of`: order-preserving unsigned keys, NaN on top, -0.0 folded onto 0.0."""
+    ut, sign = (np.uint32, np.uint32(1 << 31)) if x.dtype == np.float32 else (np.uint64, np.uint64(1 << 63))
+    u = x.view(ut).copy()
+    u[x == 0] = 0
+    key = np.where(u & sign, ~u, u | sign)
+    key[np.isnan(x)] = np.iinfo(ut).max
+    return key
+
+
+def _k7_radix_raise(keys, owner, k, t0):
+    """csrc/topk_rows.cu `radix_raise` (a streamed row's t0): where at least k keys lie above t0, the k-th largest of
+    the row's keys by a radix select over those keys, digits of 11 bits from the top, the keys that carry the prefix
+    so far counted by their next digit (a thread whose largest key, `owner` for each key, lies below the prefix
+    counts none and holds none), the bins scanned highest first for the one that holds the k-th of those left;
+    else t0."""
+    ut = keys.dtype.type
+    prefix, mask, left = ut(0), ut(0), k
+    keys, owner = keys[keys > t0], owner[keys > t0]
+    if keys.size < k:
+        return t0
+    for hi in range(8 * keys.itemsize, 0, -11):
+        lo = max(hi - 11, 0)
+        dmask = ut((1 << (hi - lo)) - 1)
+        carry = (keys & mask) == prefix
+        assert not (carry & ((owner & mask) < prefix)).any()  # a skipped thread holds none of them
+        hist = np.bincount(((keys[carry] >> ut(lo)) & dmask).astype(np.int64), minlength=2048)
+        at_or_above = np.cumsum(hist[::-1])  # keys in each bin and the bins above it, highest first
+        i = int(np.searchsorted(at_or_above, left))
+        digit = 2047 - i
+        left -= int(at_or_above[i] - hist[digit])
+        prefix, mask = prefix | (ut(digit) << ut(lo)), mask | (dmask << ut(lo))
+    return prefix
+
+
+def _k7_select(x, k, plan):
+    """csrc/topk_rows.cu's select on (rows, n) values as the plan lays them out: thread t's load step s holds values
+    (s * threads + t) * V + j (-inf past the row's end); t0 the key of the k-th largest of the threads' maxima (NaN
+    winning), on a streamed row raised to the k-th largest key where at least k keys lie above it
+    (`_k7_radix_raise`); the values above t0 (NaN too, unless t0 is NaN's key) ranked by key, then index, at most
+    (k - 1) * values a thread (fewer than k on a streamed row); then, below k of them, the values of key t0 in the
+    row in the steps' order. Returns (vals, idx), how many rows took the fill and how many rows' t0 was raised."""
+    rows, n = x.shape
+    v = 16 // x.itemsize if plan["route"] == "vector" else 1
+    threads, items = LK.TOPK_THREADS, plan["items"]
+    steps = items // v if items else -(-n // (threads * v))
+    s, t, j = np.meshgrid(np.arange(steps), np.arange(threads), np.arange(v), indexing="ij")
+    index = (s * threads + t) * v + j  # (steps, threads, V): in C order the row's index order
+    assert np.array_equal(index.reshape(-1), np.arange(index.size)) and index.size >= n
+    padded = np.full((rows, index.size), -np.inf, x.dtype)
+    padded[:, :n] = x
+    held, live = padded[:, index], index < n
+    with np.errstate(invalid="ignore"):
+        maxima = np.where(np.isnan(held).any(axis=(1, 3)), np.nan, held.max(axis=(1, 3)))  # (rows, threads)
+    mine = _k7_keys(maxima)
+    top = np.iinfo(mine.dtype).max
+    out, fills, raised = np.empty((rows, k), np.int64), 0, 0
+    for r in range(rows):
+        keys = _k7_keys(held[r])
+        t0 = np.sort(mine[r])[::-1][k - 1]
+        assert t0 <= np.sort(keys[live])[::-1][k - 1]
+        if not items:
+            owner = np.broadcast_to(mine[r][None, :, None], live.shape)[live]
+            t1 = _k7_radix_raise(keys[live], owner, k, t0)
+            if t1 != t0:
+                raised += 1
+                assert t1 == np.sort(keys[live])[::-1][k - 1]
+            t0 = t1
+        nan0 = t0 == top
+        tv = held[r][keys == t0][0]  # a value t0 stands for
+        with np.errstate(invalid="ignore"):
+            above = np.zeros_like(live) if nan0 else ~(held[r] <= tv)
+            equal = (np.isnan(held[r]) if nan0 else held[r] == tv) & live
+        assert (mine[r] > t0).sum() <= k - 1 and above.sum() <= (k - 1) * (steps * v if items else 1)
+        assert np.array_equal(above.any(axis=(0, 2)), mine[r] > t0)  # only those threads hold any
+        ka, ia = keys[above], index[above]
+        ranked = ia[np.lexsort((ia, top - ka))][:k]
+        if ranked.size < k:
+            fills += 1
+            ranked = np.concatenate([ranked, index[equal][:k - ranked.size]])
+        out[r] = ranked
+    return np.take_along_axis(x, out, 1), out, fills, raised
+
+
+def _k7_rows(rng, kind, a, dtype):
+    """(6, a) rows: random, quantized (more than k entries equal the k-th), the assigner's (mostly zero, values on a
+    grid of 1/64, two padded all-zero rows), a GT's smooth bump (distinct values that fall off from a peak over 400
+    anchors each side, zero elsewhere: the largest sit side by side, so a thread holds several), all zero, with NaN,
+    +-inf and -0.0 / 0.0 ties, or ones with a handful above them."""
+    m = rng.uniform(0, 1, (6, a))
+    if kind == "ties":
+        m = np.floor(m * 4) / 4
+    elif kind == "assigner":
+        m = np.floor(m * 64) / 64 * (rng.uniform(size=(6, a)) > 0.9)
+        m[4:] = 0.0
+    elif kind == "boxes":
+        d = np.arange(a)[None] - rng.integers(0, a, (6, 1))
+        m = np.exp(-(d / 200.0) ** 2) * (np.abs(d) < 400)
+    elif kind == "zeros":
+        m[:] = 0.0
+    elif kind == "special":
+        m = rng.standard_normal((6, a)) * (rng.uniform(size=(6, a)) > 0.5)
+        m[rng.uniform(size=(6, a)) < 0.3] = -0.0
+        m[:, ::7] = np.nan
+        m[:3, 3::11] = np.inf
+        m[3:, 5::13] = -np.inf
+    elif kind == "plateau":
+        m = np.ones((6, a))
+        m[:, rng.integers(0, a, 4)] = 2.0
+    return m.astype(dtype)
+
+
+K7_KINDS = ["random", "ties", "assigner", "boxes", "zeros", "special", "plateau"]
+K7_LENGTHS = [5, 129, 2101, 8400, 9300]  # the A <= k case, every register tile, the scalar route, a streamed row
+
+
+@pytest.mark.parametrize("a", K7_LENGTHS)
+@pytest.mark.parametrize("k", [1, 10, 13, 32])
+@pytest.mark.parametrize("kind", K7_KINDS)
+def test_k7_select_model_equals_topk_stable(kind, k, a):
+    """The numpy model of csrc/topk_rows.cu (t0 from the threads' maxima, on a streamed row raised by a radix select
+    over the keys above it; the values above t0 ranked, the tie fill by index) on fp32 rows laid out by
+    `topk_rows_plan`: values (bits) and indices equal to topk_stable's."""
+    x = _k7_rows(np.random.default_rng(k * 100 + a), kind, a, np.float32)
+    kk = min(k, a)
+    vals, idx, fills, raised = _k7_select(x, kk, LK.topk_rows_plan(torch.from_numpy(x), k))
+    wv, wi = LK.topk_stable(torch.from_numpy(x), k)
+    np.testing.assert_array_equal(vals.view(np.int32), wv.numpy().view(np.int32))
+    np.testing.assert_array_equal(idx, wi.numpy())
+    if kind == "zeros":  # an all-zero row is t0 alone: every slot comes from the fill
+        assert fills == x.shape[0]
+    if kind == "boxes" and k > 1 and LK.TOPK_THREADS * max(LK.TOPK_ITEMS) < a:  # a bump's rows take the raise
+        assert raised == x.shape[0]
+
+
+@pytest.mark.parametrize("a", K7_LENGTHS)
+@pytest.mark.parametrize("kind", K7_KINDS)
+def test_k7_select_model_equals_topk_stable_in_fp64(kind, a):
+    """The same model on fp64 rows (64-bit keys, two values a 16-byte load) at k 32."""
+    x = _k7_rows(np.random.default_rng(a + 7), kind, a, np.float64)
+    vals, idx, _, _ = _k7_select(x, min(32, a), LK.topk_rows_plan(torch.from_numpy(x), 32))
+    wv, wi = LK.topk_stable(torch.from_numpy(x), 32)
+    np.testing.assert_array_equal(vals.view(np.int64), wv.numpy().view(np.int64))
+    np.testing.assert_array_equal(idx, wi.numpy())
 
 
 def _bce_walk(rows, cols, piece, chunk_threads=256, per=4):
@@ -437,20 +609,33 @@ def test_bce_sum_kernel_order_model_is_the_threads_loop():
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float64], ids=["fp32", "bf16", "fp64"])
 def test_plans_pick_the_routes_the_layouts_allow(dtype):
-    """K6b's and K6a's plans on the maps' slices and on shifted layouts (the scalar routes); K6b's blocks are its
-    chunks of BCE_CHUNK pieces; another reg_max takes K6a's generic kernels."""
+    """K6b's, K5's and K6a's (one plan), and K7's plans on the maps' slices and on shifted layouts (the scalar routes);
+    K6b's blocks are its chunks of BCE_CHUNK pieces; another reg_max takes the generic DFL kernels; K7's block is the
+    first register tile that holds the row, a longer row streams."""
     maps = torch.zeros(2, 300, 144, dtype=dtype)
     lab = torch.zeros(2, 300, 80, dtype=torch.bfloat16 if dtype == torch.bfloat16 else torch.float32)
     plan = LK.bce_sum_plan(maps[..., 64:], lab)
     g = 16 // dtype.itemsize
     assert plan["route"] == "vector" and plan["piece"] == g and plan["pieces"] == 600 * 80 // g
     assert plan["blocks"] == -(-plan["pieces"] // LK.BCE_CHUNK) and plan["x_row_stride"] == 144
-    assert LK.dfl_ce_plan(maps[..., :64])["route"] == "lanes"
+    assert LK.dfl_plan(maps[..., :64]) == {"route": "lanes", "rows": 600, "row_stride": 144}
     wide = torch.zeros(2, 300, 146, dtype=dtype)
-    assert LK.dfl_ce_plan(wide[..., 1:65])["route"] == "lanes-scalar"
+    assert LK.dfl_plan(wide[..., 1:65])["route"] == "lanes-scalar"
     assert LK.bce_sum_plan(wide[..., 66:], torch.zeros(2, 300, 81, dtype=lab.dtype)[..., 1:])["route"] == "scalar"
     assert LK.bce_sum_plan(maps[..., 63:143], lab)["route"] == "scalar"  # logits one column off
-    assert LK.dfl_ce_plan(maps[..., :32])["route"] == "generic"
+    assert LK.dfl_plan(maps[..., :32])["route"] == "generic"
     odd = torch.zeros(5, 3)  # 3 columns: no whole pieces a row
     assert LK.bce_sum_plan(odd, odd)["route"] == "scalar" and LK.bce_sum_plan(odd, odd)["pieces"] == 4
+    # K7 takes fp32 and fp64 metrics
+    mdt = torch.float32 if dtype == torch.bfloat16 else dtype
 
+    def k7(n, k=10, view=lambda m: m):
+        p = LK.topk_rows_plan(view(torch.zeros(2, 6, n, dtype=mdt)), k)
+        return p["route"], p["items"], p["k"]
+
+    assert k7(8400) == ("vector", 36, 10) and k7(2100) == ("vector", 12, 10) and k7(128, 32) == ("vector", 12, 32)
+    assert k7(3072)[1] == 12 and k7(3076)[1] == 36 and k7(9216)[1] == 36 and k7(9220)[1] == 0
+    assert k7(2101) == ("scalar", 12, 10) and k7(5) == ("scalar", 12, 5)
+    assert k7(8401, view=lambda m: m[..., 1:])[0] == "scalar"  # one column in: the pointer off 16 bytes
+    plan = LK.topk_rows_plan(torch.zeros(2, 6, 8400, dtype=mdt)[:, ::2], 13)
+    assert plan["rows"] == 6 and plan["row_stride"] == 16800 and plan["n"] == 8400

@@ -5,15 +5,17 @@
 
 Builds DIR's (default: this repository's) yololite_tpu_torch/csrc/dfl.cu,
 bce_sum.cu and topk_rows.cu with the port's flags, prints ptxas's registers,
-stack frame and spills for each kernel of dfl and bce_sum
+stack frame and spills for each kernel of the three
 (`chip_smoke.loss_tail_build_report`), then times every loss-tail kernel
 with this repository's `chip_smoke.loss_tail_numbers` on DIR's package: warm
 (a CUDA graph of 20 calls on one input set) and cold (the calls rotating
 over input sets that span more than 100 MB), beside its bound, its plain
-version and the library call, at B 16, A 8,400, fp32 and bf16 (K7 at M 32
-and 64). A process imports one package, so to compare two trees on one card
-run this once per tree in one call, in turns (A, B, B, A), for example with
-the parent commit unpacked by `git archive` under the gitignored `_archive/`.
+version and the library call (for K5 a softmax then a matmul, two calls),
+at B 16, A 8,400, fp32 and bf16 (K7 at M 32 and 64, and at M 32 with A
+2,100 and 33,600, a streamed row). A process imports one package, so to
+compare two trees on one card run this once per tree in one call, in turns
+(A, B, B, A), for example with the parent commit unpacked by `git archive`
+under the gitignored `_archive/`.
 Prints the card and one JSON object last, and writes the object to --out if
 given.
 """
@@ -54,7 +56,7 @@ def main() -> int:
     card = smoke.card_line()
     smoke.log(f"card: {card}; tree {tree}")
     libs = cuda_build.build(["dfl", "bce_sum", "topk_rows"])
-    report = {name: smoke.loss_tail_build_report(libs[name]) for name in ("dfl", "bce_sum")}
+    report = {name: smoke.loss_tail_build_report(libs[name]) for name in libs}
     for name, text in report.items():
         smoke.log(f"ptxas {name}: {text}")
     numbers = smoke.loss_tail_numbers(card)

@@ -12,7 +12,8 @@
 //
 // What it computes, as the plain versions do, per side of 4:
 //   K5 forward   m = max (NaN propagating), e_j = expf(x_j - m), z = sum(e), E = sum(e_j * j) / z, the sums in
-//                torch's CUDA order (csrc/dfl_math.cuh, shared with K3's decode), out (rows, 4) fp32;
+//                torch's CUDA order (`row_sum` of csrc/dfl_math.cuh, K3's; at R 16 the same order across two
+//                lanes), out (rows, 4) fp32;
 //   K5 backward  dx_j = ((e_j / z) * (j - E)) * g, rounded once to x's type at the end;
 //   K6a forward  t = clamp(target, 0, R - 1 - 0.01), tl = (int)t, tr = tl + 1, wl = tr - t, wr = 1 - wl,
 //                lse = logf(z) + m, ce = (lse - x_tl) * wl + (lse - x_tr') * wr with tr' = min(tr, R - 1), the
@@ -22,22 +23,21 @@
 // the bf16 ones (the math runs in fp32 from the exact upcast, one rounding at the end), equal the plain versions
 // bit for bit.
 //
-// Design. K5: one thread an (anchor row, side), the four sides of a row on four neighbouring lanes, so a warp reads
-// 8 rows' 4R logits as 32 runs of R; at R = 16 the run is loaded with 16-byte vector loads when the pointer and
-// the row stride allow, and held in registers. The backward recomputes m, z and E with the forward's code
-// instead of reading saved (rows, 4) tensors, and writes dx (rows, 4R) contiguous in x's type in 16-byte
-// stores. K6a at R = 16 (`dfl_ce_fwd16`, `dfl_ce_bwd16`): a row on 8 neighbouring lanes, two a side, each lane
-// holding 8 consecutive bins (its half of the side), so a warp reads 4 rows' 64 logits as 4 runs of 256 bytes
-// (fp32) or 128 (bf16) in 16-byte loads, every load of a lane started before it computes. The side's max is a max
-// over the lane's bins and one shuffle; z keeps torch's order (`row_sum` at 16: a tree of offsets 8, 4, 2, 1): one
-// shuffle swaps the two halves, each lane adds bin t and bin t + 8 (the tree's first level; an IEEE add is
-// commutative, so both lanes get the same bits) and runs the levels 4, 2, 1 in registers. The forward's two-hot
-// logits are read again (the row is in L1) and the row's mean ((c0 + c2) + (c1 + c3)) * 0.25 takes two shuffles;
-// the backward stores its 8 bins of dx in 16-byte stores. What a side does once (the two-hot, the log, the term)
-// runs on both of its lanes: splitting it, one lane a row over two rows, measured no faster cold on an H100
-// (PERF.md). A layout that 16-byte loads cannot read (`vec` 0, chosen by the wrapper, ops/loss_kernels.py
-// `dfl_ce_plan`) takes the same kernels with scalar loads; another R takes the generic kernels (a thread a side, R
-// read at run time).
+// Design at R = 16, K5 and K6a alike (`dfl_expectation_fwd16`, `_bwd16`, `dfl_ce_fwd16`, `_bwd16`): a row on 8
+// neighbouring lanes, two a side, each lane holding 8 consecutive bins (its half of the side), so a warp reads 4 rows'
+// 64 logits as 4 runs of 256 bytes (fp32) or 128 (bf16) in 16-byte loads, every load of a lane started before it
+// computes. The side's max is a max over the lane's bins and one shuffle; z keeps torch's order (`row_sum` at 16: a
+// tree of offsets 8, 4, 2, 1): one shuffle swaps the two halves, each lane adds bin t and bin t + 8 (the tree's first
+// level; an IEEE add is commutative, so both lanes get the same bits) and runs the levels 4, 2, 1 in registers. K5's
+// numerator sum(e_j * j) takes the same tree over the lane's products, so E = num / z has the same bits on both lanes
+// of a side; its forward gathers the row's four E on the row's first lane (two rounds of shuffles) and writes them in
+// one 16-byte store; its backward reads g once a side and stores the lane's 8 bins of dx in 16-byte stores. K6a's
+// forward reads the two-hot's logits again (the row is in L1) and takes the row's mean ((c0 + c2) + (c1 + c3)) * 0.25
+// in two shuffles; its backward stores like K5's. What a side does once (the two-hot, the log, the term) runs on both
+// of its lanes: splitting it, one lane a row over two rows, measured no faster cold on an H100 (PERF.md). A layout
+// that 16-byte loads cannot read (`vec` 0, chosen by the wrapper, ops/loss_kernels.py `dfl_plan`) takes the same
+// kernels with scalar loads; another R takes the generic kernels: a thread a side, R read at run time, the softmax in
+// csrc/dfl_math.cuh's code (K3's), the backward recomputing m, z and E instead of reading saved tensors.
 //
 // Bound on an H100 SXM at the train step's shapes (B 16, A 8,400: 134,400 rows, R 16; chip_smoke.py
 // loss_tail_bound_ms), each input read once and each output written once: K5 forward 34.4 MB of fp32 logits and
@@ -78,46 +78,20 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) { re
 template <>
 __device__ __forceinline__ double from_float<double>(float v) { return (double)v; }
 
-// one side's R logits from p as floats: at RM = 16 with `vec`, 16-byte loads (p 16-byte aligned)
-template <typename T, int RM>
-__device__ __forceinline__ void load_side(const T* __restrict__ p, float* v, int R, bool vec) {
-  constexpr int kCap = RM ? RM : kMaxReg;
-  if (RM == 16 && vec) {
-    constexpr int kPer = 16 / sizeof(T);  // values a 16-byte load carries
+// the generic kernels' side of R logits from p as floats, and R gradients into p in T
+template <typename T>
+__device__ __forceinline__ void load_side(const T* __restrict__ p, float* v, int R) {
 #pragma unroll
-    for (int i = 0; i < 16 / kPer; ++i) {
-      const uint4 u = __ldg(reinterpret_cast<const uint4*>(p) + i);
-      const T* t = reinterpret_cast<const T*>(&u);
-#pragma unroll
-      for (int j = 0; j < kPer; ++j) v[i * kPer + j] = to_float<T>(t[j]);
-    }
-    return;
-  }
-#pragma unroll
-  for (int j = 0; j < kCap; ++j) {
+  for (int j = 0; j < kMaxReg; ++j) {
     if (j >= R) break;
     v[j] = to_float<T>(p[j]);
   }
 }
 
-// one side's R gradients into p in T: at RM = 16, 16-byte stores (dx is contiguous, each side's run aligned)
-template <typename T, int RM>
+template <typename T>
 __device__ __forceinline__ void store_side(T* __restrict__ p, const float* v, int R) {
-  constexpr int kCap = RM ? RM : kMaxReg;
-  if (RM == 16) {
-    constexpr int kPer = 16 / sizeof(T);
 #pragma unroll
-    for (int i = 0; i < 16 / kPer; ++i) {
-      uint4 u;
-      T* t = reinterpret_cast<T*>(&u);
-#pragma unroll
-      for (int j = 0; j < kPer; ++j) t[j] = from_float<T>(v[i * kPer + j]);
-      reinterpret_cast<uint4*>(p)[i] = u;
-    }
-    return;
-  }
-#pragma unroll
-  for (int j = 0; j < kCap; ++j) {
+  for (int j = 0; j < kMaxReg; ++j) {
     if (j >= R) break;
     p[j] = from_float<T>(v[j]);
   }
@@ -128,7 +102,7 @@ struct Args {
   long long rs;    // x's row stride in elements
   long long rows;
   int R;
-  int vec;         // x's side runs may be read with 16-byte loads
+  int vec;         // R 16: x's half-side runs are read with 16-byte loads (the wrapper's route)
   const float* target;  // (rows, 4), K6a
   const float* g;       // (rows, 4) K5, (rows, 1) K6a
   void* out;            // (rows, 4) or (rows, 1) fp32 forward; (rows, 4R) in x's type backward
@@ -152,54 +126,52 @@ __device__ __forceinline__ TwoHot two_hot(float target, int R) {
   return h;
 }
 
-template <typename T, int RM>
+// the generic kernels (R != 16): one thread an (anchor row, side), the four sides of a row on neighbouring lanes
+template <typename T>
 __global__ void __launch_bounds__(kThreads) dfl_expectation_fwd(Args a) {
-  constexpr int kCap = RM ? RM : kMaxReg;
   const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
   const long long r = t >> 2;
-  const int side = (int)(t & 3), R = RM ? RM : a.R;
+  const int side = (int)(t & 3), R = a.R;
   if (r >= a.rows) return;
-  float v[kCap], e[kCap];
-  load_side<T, RM>(static_cast<const T*>(a.x) + r * a.rs + side * R, v, R, a.vec);
-  const float z = dfl_side_exp_sum<RM>(v, e, R, dfl_side_max<RM>(v, R));
-  static_cast<float*>(a.out)[r * 4 + side] = dfl_side_expectation<RM>(e, v, R, z);
+  float v[kMaxReg], e[kMaxReg];
+  load_side<T>(static_cast<const T*>(a.x) + r * a.rs + side * R, v, R);
+  const float z = dfl_side_exp_sum<0>(v, e, R, dfl_side_max<0>(v, R));
+  static_cast<float*>(a.out)[r * 4 + side] = dfl_side_expectation<0>(e, v, R, z);
 }
 
-template <typename T, int RM>
+template <typename T>
 __global__ void __launch_bounds__(kThreads) dfl_expectation_bwd(Args a) {
-  constexpr int kCap = RM ? RM : kMaxReg;
   const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
   const long long r = t >> 2;
-  const int side = (int)(t & 3), R = RM ? RM : a.R;
+  const int side = (int)(t & 3), R = a.R;
   if (r >= a.rows) return;
-  float v[kCap], e[kCap];
-  load_side<T, RM>(static_cast<const T*>(a.x) + r * a.rs + side * R, v, R, a.vec);
-  const float z = dfl_side_exp_sum<RM>(v, e, R, dfl_side_max<RM>(v, R));
-  const float E = dfl_side_expectation<RM>(e, v, R, z);
+  float v[kMaxReg], e[kMaxReg];
+  load_side<T>(static_cast<const T*>(a.x) + r * a.rs + side * R, v, R);
+  const float z = dfl_side_exp_sum<0>(v, e, R, dfl_side_max<0>(v, R));
+  const float E = dfl_side_expectation<0>(e, v, R, z);
   const float g = a.g[r * 4 + side];
 #pragma unroll
-  for (int j = 0; j < kCap; ++j)
+  for (int j = 0; j < kMaxReg; ++j)
     if (j < R) v[j] = __fmul_rn(__fmul_rn(__fdiv_rn(e[j], z), __fsub_rn((float)j, E)), g);
-  store_side<T, RM>(static_cast<T*>(a.out) + (r * 4 + side) * R, v, R);
+  store_side<T>(static_cast<T*>(a.out) + (r * 4 + side) * R, v, R);
 }
 
-template <typename T, int RM>
+template <typename T>
 __global__ void __launch_bounds__(kThreads) dfl_ce_fwd(Args a) {
-  constexpr int kCap = RM ? RM : kMaxReg;
   const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
   const long long r = t >> 2;
-  const int side = (int)(t & 3), R = RM ? RM : a.R;
+  const int side = (int)(t & 3), R = a.R;
   const bool live = r < a.rows;  // every lane reaches the shuffles below
   float term = 0.0f;
   if (live) {
-    float v[kCap], e[kCap];
-    load_side<T, RM>(static_cast<const T*>(a.x) + r * a.rs + side * R, v, R, a.vec);
-    const float m = dfl_side_max<RM>(v, R);
-    const float z = dfl_side_exp_sum<RM>(v, e, R, m);
+    float v[kMaxReg], e[kMaxReg];
+    load_side<T>(static_cast<const T*>(a.x) + r * a.rs + side * R, v, R);
+    const float m = dfl_side_max<0>(v, R);
+    const float z = dfl_side_exp_sum<0>(v, e, R, m);
     const TwoHot h = two_hot(a.target[r * 4 + side], R);
     float xl = __int_as_float(0x7fc00000), xr = xl;  // NaN unless the bins are in range
 #pragma unroll
-    for (int j = 0; j < kCap; ++j) {
+    for (int j = 0; j < kMaxReg; ++j) {
       if (j >= R) break;
       if (j == h.tl) xl = v[j];
       if (j == h.tr) xr = v[j];
@@ -214,27 +186,26 @@ __global__ void __launch_bounds__(kThreads) dfl_ce_fwd(Args a) {
   if (live && side == 0) static_cast<float*>(a.out)[r] = __fmul_rn(row_sum(c, 4), 0.25f);
 }
 
-template <typename T, int RM>
+template <typename T>
 __global__ void __launch_bounds__(kThreads) dfl_ce_bwd(Args a) {
-  constexpr int kCap = RM ? RM : kMaxReg;
   const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
   const long long r = t >> 2;
-  const int side = (int)(t & 3), R = RM ? RM : a.R;
+  const int side = (int)(t & 3), R = a.R;
   if (r >= a.rows) return;
-  float v[kCap], e[kCap];
-  load_side<T, RM>(static_cast<const T*>(a.x) + r * a.rs + side * R, v, R, a.vec);
-  const float z = dfl_side_exp_sum<RM>(v, e, R, dfl_side_max<RM>(v, R));
+  float v[kMaxReg], e[kMaxReg];
+  load_side<T>(static_cast<const T*>(a.x) + r * a.rs + side * R, v, R);
+  const float z = dfl_side_exp_sum<0>(v, e, R, dfl_side_max<0>(v, R));
   const TwoHot h = two_hot(a.target[r * 4 + side], R);
   const float gq = __fmul_rn(a.g[r], 0.25f);
 #pragma unroll
-  for (int j = 0; j < kCap; ++j) {
+  for (int j = 0; j < kMaxReg; ++j) {
     if (j >= R) break;
     float y = 0.0f;
     if (j == h.tl) y = h.wl;
     if (j == h.tr) y = __fadd_rn(y, h.wr);
     v[j] = __fmul_rn(__fsub_rn(__fdiv_rn(e[j], z), y), gq);
   }
-  store_side<T, RM>(static_cast<T*>(a.out) + (r * 4 + side) * R, v, R);
+  store_side<T>(static_cast<T*>(a.out) + (r * 4 + side) * R, v, R);
 }
 
 // NaN-propagating max (torch's amax: any NaN makes the max NaN; which NaN does not matter, every use of m is
@@ -245,7 +216,7 @@ __device__ __forceinline__ float max_nan(float a, float b) {
   return r;
 }
 
-// K6a at R = 16: the lane's 8 consecutive bins of its side as floats, from p (32-byte aligned with `vec`: 16-byte
+// R = 16: the lane's 8 consecutive bins of its side as floats, from p (32-byte aligned with `vec`: 16-byte
 // loads; else one element at a time)
 template <typename T>
 __device__ __forceinline__ void load_half(const T* __restrict__ p, float (&v)[8], bool vec) {
@@ -279,9 +250,9 @@ __device__ __forceinline__ void store_half(T* __restrict__ p, const float (&v)[8
 }
 
 // one side's softmax at R = 16 across its two lanes (lane bit 0 = the half): the lane's bins v, the side's max m,
-// the lane's e_j = expf(v_j - m), and z in torch's order, the same bits on both lanes
+// the lane's e_j = expf(v_j - m), the other lane's (o), and z in torch's order, the same bits on both lanes
 struct Side16 {
-  float e[8];
+  float e[8], o[8];
   float m, z;
 
   __device__ __forceinline__ void of(const float (&v)[8]) {
@@ -293,7 +264,10 @@ struct Side16 {
     for (int j = 0; j < 8; ++j) e[j] = expf(__fsub_rn(v[j], m));
     float p[8];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) p[j] = __fadd_rn(e[j], __shfl_xor_sync(kFull, e[j], 1));  // bins j and j + 8
+    for (int j = 0; j < 8; ++j) {
+      o[j] = __shfl_xor_sync(kFull, e[j], 1);
+      p[j] = __fadd_rn(e[j], o[j]);  // bins j and j + 8
+    }
 #pragma unroll
     for (int j = 0; j < 4; ++j) p[j] = __fadd_rn(p[j], p[j + 4]);
 #pragma unroll
@@ -302,7 +276,7 @@ struct Side16 {
   }
 };
 
-// K6a at R = 16: a warp takes 4 rows, a group of 8 lanes one; lane bit 0 is the half of the side, bits 1-2 the side
+// R = 16: a warp takes 4 rows, a group of 8 lanes one; lane bit 0 is the half of the side, bits 1-2 the side
 struct Lane16 {
   long long r;  // the lane's row
   bool live;
@@ -330,6 +304,46 @@ __device__ __forceinline__ Side16 side16(const Args& a, const Lane16& w, float (
   Side16 s;
   s.of(v);
   return s;
+}
+
+// K5 at R = 16: the side's expectation sum(e_j * j) / z across its two lanes, the numerator in torch's order (the
+// tree of `Side16::of` over the products e_j * j, each lane forming the other half's products from its e), the
+// same bits on both lanes
+__device__ __forceinline__ float expectation16(const Side16& s, int half) {
+  float p[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)  // bins j and j + 8
+    p[j] = __fadd_rn(__fmul_rn(s.e[j], (float)(half * 8 + j)), __fmul_rn(s.o[j], (float)((1 - half) * 8 + j)));
+#pragma unroll
+  for (int j = 0; j < 4; ++j) p[j] = __fadd_rn(p[j], p[j + 4]);
+#pragma unroll
+  for (int j = 0; j < 2; ++j) p[j] = __fadd_rn(p[j], p[j + 2]);
+  return __fdiv_rn(__fadd_rn(p[0], p[1]), s.z);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads) dfl_expectation_fwd16(Args a) {
+  const Lane16 w(a.rows);  // every lane reaches the shuffles below
+  float v[8];
+  const float E = expectation16(side16<T>(a, w, v), w.half);
+  // the row's four E on its first lane: lane xor 2 holds side ^ 1, lane xor 4 side ^ 2
+  const float e1 = __shfl_xor_sync(kFull, E, 2);
+  const float e2 = __shfl_xor_sync(kFull, E, 4), e3 = __shfl_xor_sync(kFull, e1, 4);
+  if (w.live && (w.lane & 7) == 0) reinterpret_cast<float4*>(a.out)[w.r] = make_float4(E, e1, e2, e3);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads) dfl_expectation_bwd16(Args a) {
+  const Lane16 w(a.rows);
+  const float g = w.live ? a.g[w.r * 4 + w.side] : 0.0f;  // loaded beside the logits
+  float v[8];
+  const Side16 s = side16<T>(a, w, v);
+  const float E = expectation16(s, w.half);
+  if (!w.live) return;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+    v[j] = __fmul_rn(__fmul_rn(__fdiv_rn(s.e[j], s.z), __fsub_rn((float)(w.half * 8 + j), E)), g);
+  store_half<T>(static_cast<T*>(a.out) + w.r * 64 + w.side * 16 + w.half * 8, v);
 }
 
 template <typename T>
@@ -376,48 +390,44 @@ __global__ void __launch_bounds__(kThreads) dfl_ce_bwd16(Args a) {
 
 enum Kind { kExpFwd = 0, kExpBwd = 1, kCeFwd = 2, kCeBwd = 3 };
 
-template <typename T, int RM>
-cudaError_t launch_rm(int kind, const Args& a, cudaStream_t st) {
+// another R: a thread a side
+template <typename T>
+cudaError_t launch_generic(int kind, const Args& a, cudaStream_t st) {
   const long long threads = a.rows * 4;
   const unsigned blocks = (unsigned)((threads + kThreads - 1) / kThreads);
   switch (kind) {
-    case kExpFwd: dfl_expectation_fwd<T, RM><<<blocks, kThreads, 0, st>>>(a); break;
-    case kExpBwd: dfl_expectation_bwd<T, RM><<<blocks, kThreads, 0, st>>>(a); break;
-    default:
-      if constexpr (RM == 0) {  // K6a at R = 16 takes the lanes kernels (launch_ce16)
-        if (kind == kCeFwd)
-          dfl_ce_fwd<T, 0><<<blocks, kThreads, 0, st>>>(a);
-        else
-          dfl_ce_bwd<T, 0><<<blocks, kThreads, 0, st>>>(a);
-      }
+    case kExpFwd: dfl_expectation_fwd<T><<<blocks, kThreads, 0, st>>>(a); break;
+    case kExpBwd: dfl_expectation_bwd<T><<<blocks, kThreads, 0, st>>>(a); break;
+    case kCeFwd: dfl_ce_fwd<T><<<blocks, kThreads, 0, st>>>(a); break;
+    default: dfl_ce_bwd<T><<<blocks, kThreads, 0, st>>>(a);
   }
   return cudaGetLastError();
 }
 
-// K6a at R = 16: 8 lanes a row
+// R = 16: 8 lanes a row
 template <typename T>
-cudaError_t launch_ce16(int kind, const Args& a, cudaStream_t st) {
+cudaError_t launch_lanes(int kind, const Args& a, cudaStream_t st) {
   const long long threads = a.rows * 8;
   const unsigned blocks = (unsigned)((threads + kThreads - 1) / kThreads);
-  if (kind == kCeFwd)
-    dfl_ce_fwd16<T><<<blocks, kThreads, 0, st>>>(a);
-  else
-    dfl_ce_bwd16<T><<<blocks, kThreads, 0, st>>>(a);
+  switch (kind) {
+    case kExpFwd: dfl_expectation_fwd16<T><<<blocks, kThreads, 0, st>>>(a); break;
+    case kExpBwd: dfl_expectation_bwd16<T><<<blocks, kThreads, 0, st>>>(a); break;
+    case kCeFwd: dfl_ce_fwd16<T><<<blocks, kThreads, 0, st>>>(a); break;
+    default: dfl_ce_bwd16<T><<<blocks, kThreads, 0, st>>>(a);
+  }
   return cudaGetLastError();
 }
 
+// the wrapper's route: R 16 takes the lanes kernels, with 16-byte loads where vec is 1 (refused unless x and its row
+// stride are 16-byte aligned); K5's forward stores a row's 4 E in one 16-byte store and the backwards store dx in
+// 16-byte pieces, so out must be 16-byte aligned there
 template <typename T>
-cudaError_t launch_t(int kind, Args a, int vec, cudaStream_t st) {
-  const bool fits = reinterpret_cast<uintptr_t>(a.x) % 16 == 0 && (a.rs * (long long)sizeof(T)) % 16 == 0;
-  if (kind == kCeFwd || kind == kCeBwd) {  // K6a: the wrapper's route
-    if (a.R != 16) return launch_rm<T, 0>(kind, a, st);
-    if (vec && !fits) return cudaErrorMisalignedAddress;
-    if (kind == kCeBwd && reinterpret_cast<uintptr_t>(a.out) % 16 != 0) return cudaErrorMisalignedAddress;
-    a.vec = vec;
-    return launch_ce16<T>(kind, a, st);
-  }
-  a.vec = a.R == 16 && fits;
-  return a.R == 16 ? launch_rm<T, 16>(kind, a, st) : launch_rm<T, 0>(kind, a, st);
+cudaError_t launch_t(int kind, Args a, cudaStream_t st) {
+  if (a.R != 16) return a.vec ? cudaErrorInvalidValue : launch_generic<T>(kind, a, st);
+  if (a.vec && (reinterpret_cast<uintptr_t>(a.x) % 16 != 0 || (a.rs * (long long)sizeof(T)) % 16 != 0))
+    return cudaErrorMisalignedAddress;
+  if (kind != kCeFwd && reinterpret_cast<uintptr_t>(a.out) % 16 != 0) return cudaErrorMisalignedAddress;
+  return launch_lanes<T>(kind, a, st);
 }
 
 // x_type: 0 fp32, 1 bf16, 2 fp64
@@ -429,28 +439,30 @@ int run(int kind, const void* x, long long row_stride, long long rows, int reg_m
   if (rows == 0) return 0;
   cudaError_t err = cudaSetDevice(device);  // nvcc's own runtime: its current device is not PyTorch's
   if (err != cudaSuccess) return static_cast<int>(err);
-  const Args a{x, row_stride, rows, reg_max, 0, static_cast<const float*>(target), static_cast<const float*>(g), out};
+  const Args a{x, row_stride, rows, reg_max, vec, static_cast<const float*>(target), static_cast<const float*>(g),
+               out};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (x_type) {
-    case 0: return static_cast<int>(launch_t<float>(kind, a, vec, st));
-    case 1: return static_cast<int>(launch_t<__nv_bfloat16>(kind, a, vec, st));
-    default: return static_cast<int>(launch_t<double>(kind, a, vec, st));
+    case 0: return static_cast<int>(launch_t<float>(kind, a, st));
+    case 1: return static_cast<int>(launch_t<__nv_bfloat16>(kind, a, st));
+    default: return static_cast<int>(launch_t<double>(kind, a, st));
   }
 }
 
 }  // namespace
 
+// every entry takes the wrapper's route (ops/loss_kernels.py dfl_plan): vec 1 for 16-byte loads at R = 16 (x 16-byte
+// aligned, its row stride too), 0 for scalar loads and for another R
 extern "C" int dfl_expectation_forward(const void* x, long long row_stride, long long rows, int reg_max, int x_type,
-                                       void* out, int device, void* stream) {
-  return run(kExpFwd, x, row_stride, rows, reg_max, x_type, 0, nullptr, nullptr, out, device, stream);
+                                       int vec, void* out, int device, void* stream) {
+  return run(kExpFwd, x, row_stride, rows, reg_max, x_type, vec, nullptr, nullptr, out, device, stream);
 }
 
 extern "C" int dfl_expectation_backward(const void* x, long long row_stride, long long rows, int reg_max, int x_type,
-                                        const void* g, void* dx, int device, void* stream) {
-  return run(kExpBwd, x, row_stride, rows, reg_max, x_type, 0, nullptr, g, dx, device, stream);
+                                        int vec, const void* g, void* dx, int device, void* stream) {
+  return run(kExpBwd, x, row_stride, rows, reg_max, x_type, vec, nullptr, g, dx, device, stream);
 }
 
-// K6a takes the wrapper's route: vec 1 for 16-byte loads at R = 16 (x 16-byte aligned, its row stride too)
 extern "C" int dfl_ce_forward(const void* x, long long row_stride, long long rows, int reg_max, int x_type, int vec,
                               const void* target, void* out, int device, void* stream) {
   return run(kCeFwd, x, row_stride, rows, reg_max, x_type, vec, target, nullptr, out, device, stream);

@@ -29,7 +29,9 @@ captures both kernels. The public wrappers check their inputs, call the op,
 and count the kernel's launches (`.launches`); a CUDA tensor never reaches a
 plain version. The logits are read where they lie: the loss's box and class
 logits are column slices of the (B, A, 4R + nc) Detect maps, taken as rows
-with a row stride, never copied.
+with a row stride, never copied. The wrappers pick every kernel's route from
+the layout (`dfl_plan` for K5 and K6a, `bce_sum_plan`, `topk_rows_plan`), and
+each C entry refuses a route the layout does not allow.
 """
 
 from __future__ import annotations
@@ -49,6 +51,10 @@ LABEL_TYPES = {torch.float32: 0, torch.bfloat16: 1}
 METRIC_TYPES = {torch.float32: 0, torch.float64: 1}
 MAX_REG = 64  # reg_max csrc/dfl.cu takes
 MAX_K = 32  # k csrc/topk_rows.cu takes
+# csrc/topk_rows.cu's block of TOPK_THREADS takes a row, each thread holding TOPK_ITEMS values in registers: the first
+# that holds the row (A 2,100 at imgsz 320, 8,400 at 640); a longer row streams (items 0, loaded again in each pass)
+TOPK_THREADS = 256
+TOPK_ITEMS = (12, 36)
 BCE_CHUNK = 256 * 4  # pieces a block of csrc/bce_sum.cu takes (256 threads, 4 pieces each): one partial of the sum
 
 # ---------------- plain versions ----------------
@@ -186,6 +192,27 @@ def _stream(t: Tensor) -> int:
     return torch._C._cuda_getCurrentRawStream(t.device.index)  # PyTorch's current stream, as an int
 
 
+def _vec16(x: Tensor, rs: int) -> bool:
+    """x's rows can be read in 16-byte pieces: its pointer and its row stride in bytes are multiples of 16."""
+    return x.data_ptr() % 16 == 0 and rs * x.element_size() % 16 == 0
+
+
+# ---------------- K5 and K6a: the route csrc/dfl.cu takes ----------------
+
+
+def dfl_plan(logits: Tensor) -> dict:
+    """The route csrc/dfl.cu takes for K5 and K6a, forward and backward, on these (..., 4R) logits (as
+    `dfl_expectation` and `dfl_ce_mean` take them): {"route": "lanes" (R 16: 8 lanes a row, 16-byte loads),
+    "lanes-scalar" (R 16, a layout 16-byte loads cannot read: the same kernels, one element at a time) or "generic"
+    (another R: a thread a side), "rows", "row_stride"}. The rule lives here; the kernel holds the wrapper to it."""
+    rows, rs = _rows_of(logits)
+    if logits.shape[-1] != 64:
+        route = "generic"
+    else:
+        route = "lanes" if _vec16(logits, rs) else "lanes-scalar"
+    return {"route": route, "rows": rows, "row_stride": rs}
+
+
 # ---------------- K5: the DFL expectation ----------------
 
 
@@ -229,13 +256,15 @@ def _dfl_expectation_op(box_logits: Tensor, reg_max: int) -> Tensor:
 
 @_dfl_expectation_op.register_kernel("cuda")
 def _dfl_expectation_cuda(box_logits: Tensor, reg_max: int) -> Tensor:
-    rows, rs = _rows_of(box_logits)
+    plan = dfl_plan(box_logits)
+    rows = plan["rows"]
     out = torch.empty((*box_logits.shape[:-1], 4), dtype=torch.float32, device=box_logits.device)
     if rows == 0:
         return out
     lib = _dfl_lib()
-    rc = lib.dfl_expectation_forward(box_logits.data_ptr(), rs, rows, reg_max, X_TYPES[box_logits.dtype],
-                                     out.data_ptr(), box_logits.device.index, _stream(box_logits))
+    rc = lib.dfl_expectation_forward(box_logits.data_ptr(), plan["row_stride"], rows, reg_max,
+                                     X_TYPES[box_logits.dtype], int(plan["route"] == "lanes"), out.data_ptr(),
+                                     box_logits.device.index, _stream(box_logits))
     if rc != 0:
         raise RuntimeError(f"dfl_expectation kernel launch failed: {lib.dfl_error_string(rc).decode()}")
     dfl_expectation.launches += 1
@@ -254,12 +283,14 @@ def _dfl_expectation_backward_op(box_logits: Tensor, g: Tensor, reg_max: int) ->
 
 @_dfl_expectation_backward_op.register_kernel("cuda")
 def _dfl_expectation_backward_cuda(box_logits: Tensor, g: Tensor, reg_max: int) -> Tensor:
-    rows, rs = _rows_of(box_logits)
+    plan = dfl_plan(box_logits)
+    rows = plan["rows"]
     dx = torch.empty(tuple(box_logits.shape), dtype=box_logits.dtype, device=box_logits.device)
     if rows == 0:
         return dx
     lib = _dfl_lib()
-    rc = lib.dfl_expectation_backward(box_logits.data_ptr(), rs, rows, reg_max, X_TYPES[box_logits.dtype],
+    rc = lib.dfl_expectation_backward(box_logits.data_ptr(), plan["row_stride"], rows, reg_max,
+                                      X_TYPES[box_logits.dtype], int(plan["route"] == "lanes"),
                                       g.contiguous().data_ptr(), dx.data_ptr(), box_logits.device.index,
                                       _stream(box_logits))
     if rc != 0:
@@ -331,27 +362,9 @@ def _dfl_ce_op(pred_dist: Tensor, target: Tensor) -> Tensor:
     return dfl_ce_plain(pred_dist, target)
 
 
-def _vec16(x: Tensor, rs: int) -> bool:
-    """x's rows can be read in 16-byte pieces: its pointer and its row stride in bytes are multiples of 16."""
-    return x.data_ptr() % 16 == 0 and rs * x.element_size() % 16 == 0
-
-
-def dfl_ce_plan(pred_dist: Tensor) -> dict:
-    """The route csrc/dfl.cu takes for K6a on these logits (as `dfl_ce_mean` and `dfl_ce_backward` take them):
-    {"route": "lanes" (R 16: 8 lanes a row, 16-byte loads), "lanes-scalar" (R 16, a layout 16-byte loads cannot
-    read: the same kernels, one element at a time) or "generic" (another R: a thread a side), "rows", "row_stride"}.
-    The rule lives here; the kernel holds the wrapper to it."""
-    rows, rs = _rows_of(pred_dist)
-    if pred_dist.shape[-1] != 64:
-        route = "generic"
-    else:
-        route = "lanes" if _vec16(pred_dist, rs) else "lanes-scalar"
-    return {"route": route, "rows": rows, "row_stride": rs}
-
-
 @_dfl_ce_op.register_kernel("cuda")
 def _dfl_ce_cuda(pred_dist: Tensor, target: Tensor) -> Tensor:
-    plan = dfl_ce_plan(pred_dist)
+    plan = dfl_plan(pred_dist)
     rows = plan["rows"]
     out = torch.empty((*pred_dist.shape[:-1], 1), dtype=torch.float32, device=pred_dist.device)
     if rows == 0:
@@ -378,7 +391,7 @@ def _dfl_ce_backward_op(pred_dist: Tensor, target: Tensor, g: Tensor) -> Tensor:
 
 @_dfl_ce_backward_op.register_kernel("cuda")
 def _dfl_ce_backward_cuda(pred_dist: Tensor, target: Tensor, g: Tensor) -> Tensor:
-    plan = dfl_ce_plan(pred_dist)
+    plan = dfl_plan(pred_dist)
     rows = plan["rows"]
     dx = torch.empty(tuple(pred_dist.shape), dtype=pred_dist.dtype, device=pred_dist.device)
     if rows == 0:
@@ -417,8 +430,8 @@ def _dfl_lib() -> ctypes.CDLL:
     if lib.dfl_expectation_forward.argtypes is None:  # declare the C signatures once per process
         head = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
         tail = [ctypes.c_int, ctypes.c_void_p]
-        lib.dfl_expectation_forward.argtypes = head + [ctypes.c_void_p] + tail
-        lib.dfl_expectation_backward.argtypes = head + [ctypes.c_void_p] * 2 + tail
+        lib.dfl_expectation_forward.argtypes = head + [ctypes.c_int, ctypes.c_void_p] + tail
+        lib.dfl_expectation_backward.argtypes = head + [ctypes.c_int] + [ctypes.c_void_p] * 2 + tail
         lib.dfl_ce_forward.argtypes = head + [ctypes.c_int] + [ctypes.c_void_p] * 2 + tail
         lib.dfl_ce_backward.argtypes = head + [ctypes.c_int] + [ctypes.c_void_p] * 3 + tail
         for fn in (lib.dfl_expectation_forward, lib.dfl_expectation_backward, lib.dfl_ce_forward,
@@ -604,15 +617,30 @@ def _topk_rows_op(x: Tensor, k: int) -> Tuple[Tensor, Tensor]:
     return vals.contiguous(), idx.contiguous()
 
 
+def topk_rows_plan(x: Tensor, k: int) -> dict:
+    """How csrc/topk_rows.cu takes x (..., n) and k (as `topk_rows` takes them): {"route": "vector" (16-byte loads:
+    x and its row stride 16-byte aligned, n a multiple of the values a load carries) or "scalar", "items" (the
+    values a thread holds: the first of TOPK_ITEMS with TOPK_THREADS * items >= n, else 0, the row streamed),
+    "rows", "row_stride", "n", "k" (min(k, n), the output's width)}. The launch follows the shapes alone; the rule
+    lives here and the kernel holds the wrapper to it."""
+    rows, rs = _rows_of(x)
+    n = x.shape[-1]
+    vec = n % (16 // x.element_size()) == 0 and _vec16(x, rs)
+    items = next((i for i in TOPK_ITEMS if TOPK_THREADS * i >= n), 0)
+    return {"route": "vector" if vec else "scalar", "items": items, "rows": rows, "row_stride": rs, "n": n,
+            "k": min(k, n)}
+
+
 @_topk_rows_op.register_kernel("cuda")
 def _topk_rows_cuda(x: Tensor, k: int) -> Tuple[Tensor, Tensor]:
     vals, idx = _topk_empty(x, k)
-    rows, rs = _rows_of(x)
     if vals.numel() == 0:
         return vals, idx
+    plan = topk_rows_plan(x, k)
     lib = _topk_lib()
-    rc = lib.topk_rows(x.data_ptr(), rs, rows, x.shape[-1], METRIC_TYPES[x.dtype], vals.shape[-1], vals.data_ptr(),
-                       idx.data_ptr(), x.device.index, _stream(x))
+    rc = lib.topk_rows(x.data_ptr(), plan["row_stride"], plan["rows"], plan["n"], METRIC_TYPES[x.dtype], plan["k"],
+                       int(plan["route"] == "vector"), plan["items"], vals.data_ptr(), idx.data_ptr(),
+                       x.device.index, _stream(x))
     if rc != 0:
         raise RuntimeError(f"topk_rows kernel launch failed: {lib.topk_rows_error_string(rc).decode()}")
     topk_rows.launches += 1
@@ -629,8 +657,8 @@ def _topk_lib() -> ctypes.CDLL:
 
     lib = cuda_build.load("topk_rows")
     if lib.topk_rows.argtypes is None:  # declare the C signatures once per process
-        lib.topk_rows.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                                  ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+        lib.topk_rows.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong] + [ctypes.c_int] * 5 + [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
         lib.topk_rows.restype = ctypes.c_int
         lib.topk_rows_error_string.argtypes = [ctypes.c_int]
         lib.topk_rows_error_string.restype = ctypes.c_char_p
