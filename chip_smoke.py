@@ -6,9 +6,9 @@
 Phases, each of which exits non-zero on failure:
   1. build: compiles every kernel source in yololite_tpu_torch/csrc/ with
      nvcc, all at once, and prints the build time and ptxas's report (for
-     K8, K4 and the loss tail's dfl and bce_sum: registers, stack frame and
-     spills per kernel; for K8 the count of warpgroup MMA instructions in
-     its SASS, which must not be 0);
+     K8, K4 and the loss tail's dfl, bce_sum, topk_rows and compact_rows:
+     registers, stack frame and spills per kernel; for K8 the count of
+     warpgroup MMA instructions in its SASS, which must not be 0);
   2. kernel: holds each kernel against its plain PyTorch version on the card
      (bit-equal keep masks for greedy_nms_keep, boxes in, over crowded random
      scenes and alternating suppression chains, ragged K and K = 1024
@@ -41,7 +41,13 @@ Phases, each of which exits non-zero on failure:
      k 1 to 32; the vector and scalar routes, every register tile and a
      streamed row), values and indices bit for bit, each down the route
      topk_rows_plan gives; each also the same bits on a second call and in a
-     CUDA graph replay;
+     CUDA graph replay; K9 (compact_rows, the compact box/DFL form's
+     foreground gather) forward (rows, idx, pos) and backward bit for bit on
+     the assigner's masks (COMPACT_CASES: imgsz 640 with M 16-256, 320 and
+     1,280) and on masks with no foreground row, exactly K and more than K,
+     fp32 and bf16 on the maps' box slice, at 640 / M 32 also on a contiguous
+     tensor, down the scalar route and in fp64, a second call and a graph
+     replay the same bits;
   3. slice: YOLOLite("yolo11n.yaml") with init(0) predicts synthetic 480x640
      uint8 batches at imgsz 640 and conf 1e-7, in fp32 (TF32 off) and bf16, at
      batch 1 and 32; each call replays a CUDA graph of the step (the first
@@ -84,9 +90,15 @@ Phases, each of which exits non-zero on failure:
      fg_mask, weights, BN statistics, optimizer moments and EMA bit for bit
      (or within a second eager run's spread, the op named); one step at 640,
      batch 16, fp32 and bf16, with the loss-tail kernels against the same
-     step with their plain versions (`plain_loss`): fg_mask equal, loss items
-     within rtol 1e-5, every gradient bit for bit (each gradient's relative
-     L2 to chiprun_out/ as the record); (b) trains
+     step with their plain versions (`plain_loss`, K9's included): fg_mask
+     equal, loss items within rtol 1e-5, every gradient bit for bit (each
+     gradient's relative L2 to a .tsv file as the record), the compact
+     box/DFL form's launches (K9 once a step); the compact step against the
+     dense one (COMPACT_BOX_LOSS off) on the same batch: fg_mask equal, items
+     within rtol 1e-5, every gradient and d loss / d maps equal in value, the
+     rows K9 left out +0.0; the end2end loss's two compact heads against the
+     plain versions (K9 twice); the loss's device time by op in both forms
+     and the graphed step in both forms, fp32 and bf16; (b) trains
      YOLOLite("yolo11n.yaml") at imgsz 640, batch 16, 3 epochs, mosaic,
      default hyperparameters (AdamW by 'auto'), graphed in fp32 (TF32 off)
      and with amp (bf16), and eagerly in fp32: epoch-loop img/s, the step
@@ -107,13 +119,12 @@ Phases, each of which exits non-zero on failure:
      graphed and eager, an epoch loop's third pass taken apart (loader,
      upload, host enqueue, the card; the pass's captures and first sights)
      graphed and eager, the device's idle share over 2 epochs
-     (torch.profiler) graphed and eager; the device time a step of
-     autograd's slice_backward and adds around the loss tail (torch.profiler,
-     fp32 and bf16); times K5, K6a and K6b forward and backward at B 16,
-     A 8,400, fp32 and bf16, and K7 at M 32 and 64, each warm (one input
-     set) and cold (input sets in turn, more than 100 MB), beside its plain
-     version, bound and a library call; checks one step on the card against
-     the CPU at imgsz 160;
+     (torch.profiler) graphed and eager; times K5, K6a and K6b forward and
+     backward at B 16, A 8,400, fp32 and bf16, K7 at M 32 and 64, and K9
+     forward and backward at M 32 (K 320) on the assigner's masks, each warm
+     (one input set) and cold (input sets in turn, more than 100 MB), beside
+     its plain version, bound and a library call; checks one step on the
+     card against the CPU at imgsz 160;
   6. serving: (a) writes two upstream-format .pt files from init(0) and
      init(1) models (a plain one and a 2-member nn.ModuleList ensemble),
      loads them through the stub unpickler (weights bit-equal), predicts 32
@@ -171,9 +182,9 @@ Phases, each of which exits non-zero on failure:
      RT-DETR-L's widths (d 256, 8 heads, 3 levels, 4 points, 300 queries,
      6 layers, batch 8) on the card against the CPU, relative L2 1e-4.
 The kernels line's launches count the runs of the main paths (a replayed
-graph adds the launches its capture recorded): for K5, K6a, K6b (and their
-backwards) and K7, phase 5 (b)'s graphed train runs in fp32 and bf16 and
-the resume, each of which must launch every one of them; predict, train's reload,
+graph adds the launches its capture recorded): for K5, K6a, K6b, K9 (and
+their backwards) and K7, phase 5 (b)'s graphed train runs in fp32 and bf16
+and the resume, each of which must launch every one of them; predict, train's reload,
 serving, the zoo's GELAN-T predict and phase 8's mesh predict for K1; val,
 train's EMA vals and final vals, the zoo's GELAN-T val and phase 8's mesh val
 and rank 0 for K4; the int8 predict calls (yolo11n and yolo11m) for K8; all
@@ -674,6 +685,8 @@ TOPK_CASES = ((16, 32, 8400, 10, "assigner"), (16, 64, 8400, 10, "assigner"), (1
 # K6b's sum against torch's: the same fp32 terms added in another order; readings 0 to 7.8e-8 relative on an H100
 # (PERF.md), and one of the 134,400 rows of (16, 8400) left out would move the sum about 7e-6
 BCE_SUM_RTOL = 1e-6
+STEP_TURNS = ("compact", "dense", "dense", "compact") * 2  # the graphed step's turns in `graphed_step_forms`
+AUTOGRAD_STEPS = 4  # profiled grad steps a form in `loss_tail_autograd`, the forms in turns
 COLD_BYTES = 100e6  # the other input sets' bytes between two visits of one set in a cold timing (`cold_sets`)
 LOSS_TAIL_OPS = {"dfl_expectation": 6, "dfl_expectation_backward": 12, "dfl_ce_mean": 8, "dfl_ce_backward": 12,
                  "bce_sum": 9, "bce_sum_backward": 6}  # fp32 operations a logit (expf and log1pf counted as one)
@@ -1074,10 +1087,222 @@ def loss_tail_numbers(card: str) -> dict:
     return out
 
 
+# ---------------- K9: the compact box/DFL form's foreground gather ----------------
+
+# (B, imgsz, M, mask): the assigner's masks at imgsz 640 (A 8,400) with M 16-256 (K 160-2,560), at 320 (A 2,100) and
+# 1,280 (A 33,600); and at 640, M 32, no foreground row, exactly K of them in each image, and more than K (forced)
+COMPACT_CASES = ((16, 640, 16, "assigner"), (16, 640, 32, "assigner"), (16, 640, 64, "assigner"),
+                 (16, 640, 256, "assigner"), (16, 320, 32, "assigner"), (4, 1280, 32, "assigner"),
+                 (16, 640, 32, "none"), (16, 640, 32, "exactly_k"), (16, 640, 32, "over_k"))
+# the layouts K9 is held on (`compact_layout`): the maps' box slice (row stride 144), a contiguous (B, A, 64) tensor,
+# and the maps of row stride 146 with the box slice one column in (the scalar route, its backward's gradient too)
+COMPACT_ROUTES = {"map": "vector", "contiguous": "vector", "scalar": "scalar"}
+
+
+def assigner_fg(b: int, imgsz: int, m: int, seed: int):
+    """The assigner's (B, A) foreground mask on the card at imgsz (A of its three levels) with M GT rows (the last
+    quarter padding): GT boxes of 8 to imgsz / 4 + 8 px at random places, predicted boxes around each anchor, random
+    class scores; the port's TaskAlignedAssigner (topk 10, 80 classes, K7 inside) as the loss runs it."""
+    import torch
+
+    from yololite_tpu_torch.ops.boxes import make_anchors
+    from yololite_tpu_torch.utils.tal import TaskAlignedAssigner
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    f32 = dict(device="cuda", generator=gen)
+    anchors, strides = make_anchors([(imgsz // s, imgsz // s) for s in (8, 16, 32)], [8, 16, 32], 0.5, device="cuda")
+    anc = anchors * strides
+    a = anc.shape[0]
+    c = torch.rand(b, m, 2, **f32) * imgsz
+    wh = torch.rand(b, m, 2, **f32) * (imgsz / 4) + 8
+    mask_gt = (torch.arange(m, device="cuda") < m - m // 4).float()[None, :, None].expand(b, m, 1).contiguous()
+    gt = torch.cat([c - wh / 2, c + wh / 2], -1).clamp(0, imgsz) * mask_gt
+    labels = torch.randint(0, 80, (b, m, 1), **f32).int()
+    ext = torch.rand(b, a, 4, **f32) * 64 + 4
+    boxes = torch.cat([anc - ext[..., :2], anc + ext[..., 2:]], -1)
+    scores = torch.rand(b, a, 80, **f32)
+    assigner = TaskAlignedAssigner(topk=10, num_classes=80, alpha=0.5, beta=6.0)
+    return assigner(scores, boxes, anc, labels, gt, mask_gt)[3]
+
+
+def compact_mask(b: int, imgsz: int, m: int, kind: str, seed: int):
+    """(fg (B, A) bool, K = 10 * M) for one of COMPACT_CASES' masks."""
+    import torch
+
+    k = 10 * m
+    if kind == "assigner":
+        return assigner_fg(b, imgsz, m, seed), k
+    a = sum((imgsz // s) ** 2 for s in (8, 16, 32))
+    fg = torch.zeros(b, a, dtype=torch.bool, device="cuda")
+    if kind != "none":
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        n = k if kind == "exactly_k" else k + 1 + a // 10
+        fg.scatter_(1, torch.rand(b, a, device="cuda", generator=gen).argsort(1)[:, :n], True)
+    return fg, k
+
+
+def compact_layout(layout: str, b: int, a: int, dtype, seed: int):
+    """(x (B, A, 64) logits in dtype, a (B, A, 144)-sized maps' worth of values) in one of COMPACT_ROUTES' layouts,
+    NaN, +-inf and -0.0 among the values (a gather copies bits)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    maps = (torch.randn(b, a, 144, device="cuda", generator=gen) * 3).to(dtype)
+    rows = maps.view(-1, 144)
+    rows[::13, 3], rows[::17, 20], rows[::19, 40], rows[::23, 50:54] = float("nan"), float("inf"), float("-inf"), -0.0
+    if layout == "map":
+        return maps[..., :64]
+    if layout == "contiguous":
+        return maps[..., :64].contiguous()
+    wide = torch.zeros(b, a, 146, dtype=dtype, device="cuda")
+    wide[..., 1:65] = maps[..., :64]
+    return wide[..., 1:65]
+
+
+def compact_gradient(b: int, k: int, dtype, seed: int, misaligned: bool):
+    """The rows' gradient g (B, K, 64) in dtype, contiguous; 16-byte aligned or, `misaligned`, one element off (the
+    backward's scalar route)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    flat = torch.randn(b * k * 64 + 1, device="cuda", generator=gen).to(dtype)
+    return (flat[1:] if misaligned else flat[:-1]).view(b, k, 64)
+
+
+def compact_case_check(x, fg, k: int, g, route: str, what: str) -> None:
+    """K9 on x, fg and k against its plain version (`loss_tail_check`: rows, idx and pos bit for bit, the same bits on
+    a second call and in a CUDA graph replay), and its backward on g the same way; both down `route`, 3 launches
+    each (two calls and one in the capture)."""
+    import torch
+
+    from yololite_tpu_torch.ops import loss_kernels as L
+
+    routes = (L.compact_rows_plan(x)["route"], L.compact_rows_plan(g)["route"])
+    if routes != (route, route):
+        raise AssertionError(f"compact_rows ({what}): routes {routes}, not {route}")
+    op = torch.ops.yololite_tpu_torch.compact_rows
+    before = (L.compact_rows.launches, L.compact_rows_backward.launches)
+    loss_tail_check("compact_rows", lambda: op(x, fg, k), lambda: L.compact_rows_plain(x, fg, k), what)
+    _, idx, pos = L.compact_rows_plain(x, fg, k)
+    loss_tail_check("compact_rows_backward", lambda: L.compact_rows_backward(g, idx, pos),
+                    lambda: L.compact_rows_backward_plain(g, idx, pos), what)
+    after = (L.compact_rows.launches, L.compact_rows_backward.launches)
+    if (after[0] - before[0], after[1] - before[1]) != (3, 3):
+        raise AssertionError(f"compact_rows ({what}): {after[0] - before[0]} and {after[1] - before[1]} launches "
+                             "for 3 calls each")
+
+
+def compact_rows_checks(card: str) -> dict:
+    """K9 forward and backward against their plain versions (`compact_case_check`) on every mask of COMPACT_CASES, in
+    fp32 and bf16 on the maps' box slice; at 640 with M 32 also on a contiguous tensor and down the scalar route, and
+    in fp64 (the float64 reference step). Returns {"checks", "nfg": the masks' foreground counts (least, most) against
+    K}."""
+    import torch
+
+    n, seen = 0, []
+    for b, imgsz, m, kind in COMPACT_CASES:
+        seed = b + imgsz + m + len(kind)
+        fg, k = compact_mask(b, imgsz, m, kind, seed)
+        a = fg.shape[1]
+        nfg = fg.sum(1)
+        seen.append((kind, imgsz, m, int(nfg.min()), int(nfg.max()), k))
+        if kind == "assigner" and not 0 < int(nfg.max()) <= k:
+            raise AssertionError(f"compact_rows: the assigner's mask at {imgsz}, M {m} holds {int(nfg.max())} "
+                                 f"foreground rows in an image, K {k}")
+        layouts = [("map", torch.float32), ("map", torch.bfloat16)]
+        if (imgsz, m, kind) == (640, 32, "assigner"):
+            layouts += [("contiguous", torch.float32), ("contiguous", torch.bfloat16), ("scalar", torch.float32),
+                        ("scalar", torch.bfloat16), ("map", torch.float64), ("scalar", torch.float64)]
+        for layout, dtype in layouts:
+            x = compact_layout(layout, b, a, dtype, seed)
+            g = compact_gradient(b, k, dtype, seed + 1, misaligned=layout == "scalar")
+            compact_case_check(x, fg, k, g, COMPACT_ROUTES[layout],
+                               f"B {b}, A {a}, M {m}, K {k}, {kind} mask, {layout}, {str(dtype).split('.')[-1]}")
+            n += 1
+    log(f"kernel: compact_rows (K9) equal to its plain version in {n} checks, forward (rows, idx, pos) and backward "
+        f"bit for bit, each also on a second call and in a CUDA graph replay: masks (kind, imgsz, M, least and most "
+        f"foreground rows an image, K) {seen}; fp32 and bf16 on the maps' box slice (row stride 144), at 640 / M 32 "
+        f"also on a contiguous tensor, down the scalar route (row stride 146, one column in; the gradient one element "
+        f"off) and in fp64; NaN, +-inf and -0.0 among the logits, on {card}")
+    return {"checks": n, "masks": seen}
+
+
+def compact_rows_work(name: str, b: int, a: int, k: int, es: int) -> int:
+    """Bytes of the function one K9 call computes at these shapes (C 64), each read once and each written once: the
+    forward (lax.top_k of fg, then the gather) reads fg (B * A bytes) and the K rows it gathers and writes the rows
+    and idx (int64); the backward (the gather's transpose) reads g and idx and writes the dense dx (B, A, 64). The
+    inverse map pos that this design's forward writes and its backward reads is not the function's, so not counted."""
+    if name == "compact_rows":
+        return b * a + 2 * b * k * 64 * es + b * k * 8
+    return b * k * 64 * es + b * k * 8 + b * a * 64 * es
+
+
+def compact_rows_bound_ms(name: str, b: int, a: int, k: int, es: int):
+    """Least time of one K9 call: `compact_rows_work`'s bytes at the HBM rate (a copy: no arithmetic to bound it)."""
+    return compact_rows_work(name, b, a, k, es) / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+def compact_rows_numbers(card: str) -> dict:
+    """K9 at the train step's shapes (B 16, A 8,400, M 32: K 320) on the assigner's masks, forward on the maps' box
+    slice and backward, fp32 and bf16, by device time (a CUDA graph of 20 calls replayed): warm (one input set) and
+    cold (`cold_graph_ms`: the maps and masks in turn, each mask rolled along A), beside the plain version, the bound
+    and, for the forward, a yardstick of library calls (a stable torch.sort of fg, then torch.gather; the plain
+    backward is itself zeros and a scatter). Returns {name: {dtype: {ms, cold_ms, cold_sets, plain_ms, bound_ms,
+    bound_by, library_ms, max_abs_err, nfg, shape}}}."""
+    import torch
+
+    from yololite_tpu_torch.ops import loss_kernels as L
+
+    b, m = 16, 32
+    fg0, k = compact_mask(b, 640, m, "assigner", seed=31)
+    a = fg0.shape[1]
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname, es = str(dtype).split(".")[-1], dtype.itemsize
+        for name in ("compact_rows", "compact_rows_backward"):
+            n_sets = cold_sets(compact_rows_work(name, b, a, k, es))
+            fgs = [torch.roll(fg0, 7 * i, 1) for i in range(n_sets)]
+            if name == "compact_rows":
+                xs = [compact_layout("map", b, a, dtype, seed=32 + i) for i in range(n_sets)]
+                calls = [lambda x=x, f=f: L.compact_rows(x, f, k) for x, f in zip(xs, fgs)]
+                plain = lambda: L.compact_rows_plain(xs[0], fgs[0], k)[:2]
+                lib = lambda: torch.gather(xs[0], 1, torch.sort(fgs[0].view(torch.uint8), dim=1, descending=True,
+                                                                stable=True)[1][:, :k, None].expand(-1, -1, 64))
+            else:
+                gs = [compact_gradient(b, k, dtype, seed=40 + i, misaligned=False) for i in range(n_sets)]
+                inv = [L.compact_rows_plain(fg.new_zeros(b, a, 1, dtype=torch.float32), fg, k)[1:] for fg in fgs]
+                calls = [lambda g=g, ip=ip: L.compact_rows_backward(g, *ip) for g, ip in zip(gs, inv)]
+                plain = lambda: L.compact_rows_backward_plain(gs[0], *inv[0])
+                lib = None
+            got, want = calls[0](), plain()
+            torch.cuda.synchronize()
+            got_t, want_t = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+            if not all(same_bits(x, y) for x, y in zip(got_t, want_t)):
+                raise AssertionError(f"{name} ({dname}) differs from its plain version at B {b}, A {a}, K {k}")
+            ms = graph_ms(calls[0])
+            cold = cold_graph_ms(calls)
+            plain_ms = graph_ms(plain, iters=5, reps=3)
+            lib_ms = graph_ms(lib) if lib else None
+            bound, bound_by = compact_rows_bound_ms(name, b, a, k, es)
+            out.setdefault(name, {})[dname] = {"ms": ms, "cold_ms": cold, "cold_sets": n_sets, "plain_ms": plain_ms,
+                                               "bound_ms": bound, "bound_by": bound_by, "library_ms": lib_ms,
+                                               "max_abs_err": 0.0, "nfg": [int(fg0.sum(1).min()), int(fg0.sum(1).max())],
+                                               "shape": [b, a, 64, k]}
+            log(f"kernel: {name} ({dname}, B {b}, A {a}, K {k}, the assigner's masks with "
+                f"{int(fg0.sum(1).min())}-{int(fg0.sum(1).max())} foreground rows an image): {ms:.4f} ms device warm "
+                f"(graph replay), {cold:.4f} cold ({n_sets} sets in turn), {ms / bound:.2f}x and {cold / bound:.2f}x "
+                f"its bound of {bound:.4f} ms ({bound_by}); plain {plain_ms:.4f} ms"
+                f"{'; stable torch.sort of fg then torch.gather ' + format(lib_ms, '.4f') + ' ms' if lib else ''}; "
+                f"bit for bit, on {card}")
+            del calls
+    return out
+
+
 @contextlib.contextmanager
 def plain_loss():
     """The loss tail through its plain versions inside the block: K5, K6a and K6b as autograd Functions of the plain
-    forwards with the plain closed-form backwards, K7 as the stable sort; no loss-tail launch."""
+    forwards with the plain closed-form backwards, K7 as the stable sort, K9 as the stable sort and torch.gather with
+    the rows put back into zeros as its backward; no loss-tail launch."""
     import torch
 
     from yololite_tpu_torch.ops import loss_kernels as L
@@ -1098,25 +1323,73 @@ def plain_loss():
 
         return Plain.apply
 
-    saved = (L.dfl_expectation, tloss.dfl_ce_mean, tloss.bce_sum, tal.topk_rows)
+    class PlainCompact(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, fg, k):
+            rows, idx, pos = L.compact_rows_plain(x, fg, k)
+            ctx.save_for_backward(idx, pos)
+            ctx.mark_non_differentiable(idx)
+            return rows, idx
+
+        @staticmethod
+        def backward(ctx, g, _):
+            idx, pos = ctx.saved_tensors
+            return L.compact_rows_backward_plain(g, idx, pos), None, None
+
+    saved = (L.dfl_expectation, tloss.dfl_ce_mean, tloss.bce_sum, tal.topk_rows, tloss.compact_rows)
     L.dfl_expectation = plain_function(L.dfl_expectation_plain,
                                        lambda x, r, g: L.dfl_expectation_backward_plain(x, g, r))
     tloss.dfl_ce_mean = plain_function(L.dfl_ce_plain, L.dfl_ce_backward_plain)
     tloss.bce_sum = plain_function(L.bce_sum_plain, L.bce_sum_backward_plain)
     tal.topk_rows = L.topk_stable
+    tloss.compact_rows = PlainCompact.apply
     try:
         yield
     finally:
-        L.dfl_expectation, tloss.dfl_ce_mean, tloss.bce_sum, tal.topk_rows = saved
+        L.dfl_expectation, tloss.dfl_ce_mean, tloss.bce_sum, tal.topk_rows, tloss.compact_rows = saved
+
+
+def loss_launches(compact: bool, heads: int = 1) -> dict:
+    """The loss-tail launches one train step makes, by wrapper name: each kernel once a head; K5's forward twice in
+    the compact form (the dense decode for the assigner, the gathered rows' for the box terms); K9 and its backward
+    once a head in the compact form, never in the dense one."""
+    from yololite_tpu_torch.ops import loss_kernels as L
+
+    want = {w.__name__: heads for w in L.COUNTED}
+    want["dfl_expectation"] = heads * (2 if compact else 1)
+    want["compact_rows"] = want["compact_rows_backward"] = heads if compact else 0
+    return want
+
+
+def loss_rows(loss, images, targets):
+    """(A, K) of the v8 loss `loss` on this batch: its anchors, and the rows its compact form keeps
+    (`v8DetectionLoss.compact_k`), K None where it runs the dense form."""
+    h, w = images.shape[1], images.shape[2]
+    a = sum((h // s) * (w // s) for s in loss.strides)
+    return a, loss.compact_k(targets["gt_bboxes"].shape[1], a)
+
+
+@contextlib.contextmanager
+def box_loss_form(compact: bool):
+    """utils/loss.py's COMPACT_BOX_LOSS set to `compact` inside the block."""
+    from yololite_tpu_torch.utils import loss as tloss
+
+    saved = tloss.COMPACT_BOX_LOSS
+    tloss.COMPACT_BOX_LOSS = compact
+    try:
+        yield
+    finally:
+        tloss.COMPACT_BOX_LOSS = saved
 
 
 def loss_tail_step_check(card: str, trainer_fn) -> None:
     """One train step of trainer_fn(amp)'s first batch (640, batch 16 in phase 5; forward, loss, backward; eager, in
     deterministic mode) with the loss-tail kernels against the same step with their plain versions (`plain_loss`),
-    in fp32 and bf16: fg_mask equal, loss items within rtol 1e-5, each kernel launched once a step and none with
-    the plain versions, and every gradient equal bit for bit (the backward kernels follow their plain versions'
-    rounding, and no gradient depends on K6b's sum); each gradient's relative L2 to
-    chiprun_out/loss_tail_step_grads_<dtype>.tsv as the record."""
+    in fp32 and bf16: fg_mask equal, loss items within rtol 1e-5, each kernel launched as `loss_launches` says (the
+    compact form where the batch takes it: K9 once, K5's forward twice) and none with the plain versions, and every
+    gradient equal bit for bit (the backward kernels follow their plain versions' rounding, and no gradient depends
+    on K6b's sum); each gradient's relative L2 to loss_tail_step_grads_<dtype>.tsv in the output directory as the
+    record."""
     import torch
 
     from yololite_tpu_torch.engine import graphs
@@ -1140,9 +1413,11 @@ def loss_tail_step_check(card: str, trainer_fn) -> None:
                 torch._foreach_zero_(st._grads)
                 out[mode] = (items.clone(), st.fg_mask.clone(), grads, launched)
         (ik, fk, gk, lk), (ip, fp, gp, lp) = out["kernels"], out["plain"]
-        if any(n != 1 for n in lk) or any(lp):
+        compact = loss_rows(st.loss_fn, images, targets)[1] is not None
+        if dict(zip((w.__name__ for w in L.COUNTED), lk)) != loss_launches(compact) or any(lp):
             raise AssertionError(f"loss-tail step {dtype}: launches {dict(zip((w.__name__ for w in L.COUNTED), lk))} "
-                                 f"with the kernels, {lp} with the plain versions")
+                                 f"with the kernels ({'compact' if compact else 'dense'} form), {lp} with the plain "
+                                 f"versions")
         if not torch.equal(fk, fp):
             raise AssertionError(f"loss-tail step {dtype}: fg_mask differs in {int((fk != fp).sum())} anchors")
         if not torch.allclose(ik, ip, rtol=1e-5, atol=0):
@@ -1163,22 +1438,165 @@ def loss_tail_step_check(card: str, trainer_fn) -> None:
             f"{targets['gt_bboxes'].shape[1]}, eager, "
             f"deterministic mode) with the loss-tail kernels against their plain versions: fg_mask equal "
             f"({int(fk.sum())} foreground anchors), loss items {ik.tolist()} within "
-            f"{float(((ik - ip).abs() / ip.abs()).max()):.3g} relative; all {len(gp)} gradients bit for bit; each "
-            f"kernel launched once, on {card}")
+            f"{float(((ik - ip).abs() / ip.abs()).max()):.3g} relative; all {len(gp)} gradients bit for bit; the "
+            f"{'compact' if compact else 'dense'} box/DFL form, launches {dict(zip((w.__name__ for w in L.COUNTED), lk))}"
+            f", on {card}")
+
+
+def largest_difference(got: dict, want: dict) -> str:
+    """Where two dicts of tensors of the same keys differ most, relative to the larger magnitude there: the key,
+    the flat index and both values; "" where every pair is torch.equal."""
+    import torch
+
+    worst = None
+    for n in want:
+        if torch.equal(got[n], want[n]):
+            continue
+        a, b = got[n].double().reshape(-1), want[n].double().reshape(-1)
+        rel = ((a - b).abs() / torch.maximum(a.abs(), b.abs()).clamp_min(1e-30)).nan_to_num(float("inf"))
+        i = int(rel.argmax())
+        if worst is None or float(rel[i]) > worst[0]:
+            worst = (float(rel[i]), n, i, float(a[i]), float(b[i]))
+    if worst is None:
+        return ""
+    return (f"largest relative difference {worst[0]:.3g} in {worst[1]} at flat index {worst[2]} ({worst[3]!r} "
+            f"against {worst[4]!r})")
+
+
+def compact_vs_dense_step(card: str, trainer_fn) -> dict:
+    """One train step of trainer_fn(amp)'s first batch (eager, deterministic mode, the loss-tail kernels) in the
+    compact box/DFL form and in the dense one (utils/loss.py COMPACT_BOX_LOSS), fp32 and bf16: fg_mask equal, loss
+    items within rtol 1e-5, every parameter's gradient and d loss / d maps equal in value (torch.equal: -0.0 and
+    +0.0 alike), and in the compact form every row of d loss / d pred_distri that K9 did not pick +0.0, bit for bit;
+    K9 launched once in the compact step and never in the dense one. A difference fails the check, with the largest
+    relative one and where it is. Returns {dtype: {items_rel, nfg, picked, k}}."""
+    import torch
+
+    from yololite_tpu_torch.engine import graphs
+    from yololite_tpu_torch.engine.predictor import fp32_convs
+    from yololite_tpu_torch.ops import loss_kernels as L
+    from yololite_tpu_torch.ops.decode import flatten_levels
+
+    out = {}
+    for amp in (False, True):
+        dtype = "bf16" if amp else "fp32"
+        st = trainer_fn(amp)
+        batch = next(iter(st.train_loader))
+        images = torch.from_numpy(batch["img"]).to(st.device)
+        targets = st._targets(batch)
+        k = loss_rows(st.loss_fn, images, targets)[1]
+        if k is None:
+            raise AssertionError(f"compact vs dense {dtype}: the batch takes the dense form")
+        runs = {}
+        with deterministic(), graphs.eager():
+            for form in ("compact", "dense"):
+                before = L.compact_rows.launches
+                with box_loss_form(form == "compact"), fp32_convs(st.device):
+                    feats = st._forward(images)
+                    for f in feats:
+                        f.retain_grad()
+                    total, items, fg = st.loss_fn.forward(feats, targets)
+                    total.backward()
+                torch.cuda.synchronize()
+                grads = {n: p.grad.detach().clone() for n, p in st.model.named_parameters() if p.grad is not None}
+                grads["d loss / d maps"] = flatten_levels([f.grad for f in feats]).detach().clone()
+                torch._foreach_zero_(st._grads)
+                runs[form] = (items.clone(), fg.clone(), grads, L.compact_rows.launches - before)
+        (ic, fc, gc, nc), (idn, fd, gd, nd) = runs["compact"], runs["dense"]
+        if (nc, nd) != (1, 0):
+            raise AssertionError(f"compact vs dense {dtype}: K9 launched {nc} times in the compact step, {nd} in the "
+                                 f"dense one")
+        if not torch.equal(fc, fd):
+            raise AssertionError(f"compact vs dense {dtype}: fg_mask differs in {int((fc != fd).sum())} anchors")
+        rel = float(((ic - idn).abs() / idn.abs()).max())
+        if not torch.allclose(ic, idn, rtol=1e-5, atol=0):
+            raise AssertionError(f"compact vs dense {dtype}: loss items {ic.tolist()} against {idn.tolist()}")
+        differ = largest_difference(gc, gd)
+        if differ:
+            n_diff = sum(not torch.equal(gc[n], gd[n]) for n in gd)
+            raise AssertionError(f"compact vs dense {dtype}: {n_diff} of {len(gd)} gradients differ in value; {differ}")
+        box = gc["d loss / d maps"][..., :64]
+        picked = L.compact_rows_plain(box[..., :1], fc, k)[2] >= 0
+        rest = box[~picked]
+        if not same_bits(rest, torch.zeros_like(rest)):
+            raise AssertionError(f"compact vs dense {dtype}: {int((rest != 0).any(-1).sum())} rows K9 did not pick carry "
+                                 f"a gradient, or -0.0")
+        nfg = fc.sum(1)
+        out[dtype] = {"items_rel": rel, "nfg": [int(nfg.min()), int(nfg.max())], "picked": int(picked.sum()), "k": k}
+        log(f"train: one step at {images.shape[1]}, batch {images.shape[0]} ({dtype}, M "
+            f"{targets['gt_bboxes'].shape[1]}: K {k}, eager, "
+            f"deterministic mode) in the compact box/DFL form against the dense form: fg_mask equal "
+            f"({int(nfg.min())}-{int(nfg.max())} foreground anchors an image, {int(picked.sum())} rows gathered), loss "
+            f"items within {rel:.3g} relative, all {len(gd) - 1} parameter gradients and d loss / d maps equal in "
+            f"value (torch.equal), the {int((~picked).sum())} rows K9 did not pick +0.0 in the compact form; K9 once "
+            f"in the compact step, never in the dense one, on {card}")
+    return out
+
+
+def e2e_loss_check(card: str) -> None:
+    """The end2end loss (one-to-many topk 10, one-to-one topk 1) at 640, batch 16, M 32 on seeded random maps, fp32,
+    with the kernels against `plain_loss`: loss items within rtol 1e-5, d loss / d maps bit for bit, each head in the
+    compact form (K9 and its backward twice a step, K5's forward four times), no launch with the plain versions."""
+    import numpy as np
+    import torch
+
+    from yololite_tpu_torch.ops import loss_kernels as L
+    from yololite_tpu_torch.utils import loss as tloss
+
+    rng = np.random.default_rng(50)
+    b, m, imgsz = 16, 32, 640
+    n = rng.integers(4, m, b)
+    bi = np.concatenate([np.full(c, i) for i, c in enumerate(n)]).astype(np.float32)
+    c, wh = rng.uniform(0.1, 0.9, (len(bi), 2)), rng.uniform(0.02, 0.3, (len(bi), 2))
+    batch = {"batch_idx": bi, "cls": rng.integers(0, 80, (len(bi), 1)).astype(np.float32),
+             "bboxes": np.concatenate([c, wh], 1).astype(np.float32)}
+    targets = {k: torch.from_numpy(v).cuda() for k, v in tloss.build_targets(batch, b, (imgsz, imgsz), m).items()}
+    shapes = [(imgsz // s, imgsz // s) for s in (8, 16, 32)]
+    maps = [torch.from_numpy((rng.standard_normal((2, b, h, w, 144)) * 2).astype(np.float32)).cuda()
+            for h, w in shapes]
+    loss = tloss.E2EDetectLoss(80, [8, 16, 32], 16)
+    a = sum(h * w for h, w in shapes)
+    ks = [head.compact_k(m, a) for head in (loss.one2many, loss.one2one)]
+    if None in ks:
+        raise AssertionError(f"e2e loss: a head takes the dense form at A {a}, M {m} (K {ks})")
+    res = {}
+    for mode in ("kernels", "plain"):
+        leaves = [x.clone().requires_grad_() for x in maps]
+        before = [w.launches for w in L.COUNTED]
+        with plain_loss() if mode == "plain" else contextlib.nullcontext():
+            total, items = loss({"one2many": [x[0] for x in leaves], "one2one": [x[1] for x in leaves]}, targets)
+            total.backward()
+        torch.cuda.synchronize()
+        res[mode] = (items, [x.grad for x in leaves], dict(zip((w.__name__ for w in L.COUNTED),
+                                                               (w.launches - n for w, n in zip(L.COUNTED, before)))))
+    (ik, gk, lk), (ip, gp, lp) = res["kernels"], res["plain"]
+    if lk != loss_launches(True, heads=2) or any(lp.values()):
+        raise AssertionError(f"e2e loss: launches {lk} with the kernels, {lp} with the plain versions")
+    if not torch.allclose(ik, ip, rtol=1e-5, atol=0) or not all(same_bits(x, y) for x, y in zip(gk, gp)):
+        raise AssertionError(f"e2e loss: items {ik.tolist()} against {ip.tolist()}, maps' gradients bit for bit "
+                             f"{[same_bits(x, y) for x, y in zip(gk, gp)]}")
+    log(f"train: the end2end loss at 640, batch 16, M 32 (both heads compact: K {ks[0]} and {ks[1]}) with the kernels "
+        f"against their plain versions: items within {float(((ik - ip).abs() / ip.abs()).max()):.3g} relative, d loss / "
+        f"d maps bit for bit; launches {lk}, on {card}")
 
 
 def loss_tail_autograd(card: str, trainer_fn) -> dict:
-    """What autograd does around the loss tail in a train step, by device time, fp32 and bf16: one eager grad step
-    of trainer_fn(amp)'s first batch under torch.profiler (with shapes; after two warm-up steps), the kernels of
-    each `aten::slice_backward` that puts the (B, A, 64) or (B, A, 80) gradient of pred_distri or pred_scores back
-    into a zeroed (B, A, 144) map (utils/loss.py), and of each add autograd makes of two gradients of those shapes
-    (K5's and K6a's dx, the two slices' maps); beside the loss-tail kernels' own device time in the same step. A graphed
-    step replays the same kernels. Returns {dtype: {slice_ms, add_ms, kernels_ms, step_ms}}."""
+    """Where the loss's device time goes in a train step, op by op, in the compact box/DFL form and in the dense one
+    (utils/loss.py COMPACT_BOX_LOSS), fp32 and bf16: one eager grad step of trainer_fn(amp)'s first batch under
+    torch.profiler (with shapes; after two warm-up steps in the same form). By device time: each loss-tail op (K5,
+    K6a, K6b forward and backward, K7, K9 and its backward); the CIoU terms (utils/loss.py's `bbox_iou` call, its
+    forward ops under a profiler range and the backward nodes of those ops, linked by their sequence numbers); the
+    backward of `flatten_levels` (its torch.cat, the same way); each `aten::slice_backward` that puts the (B, A, 64)
+    or (B, A, 80) gradient of pred_distri or pred_scores back into a zeroed (B, A, 144) map; each add autograd makes
+    of two gradients of the maps' or the gathered rows' shapes (K5's and K6a's dx, the two slices' maps); and the
+    step's kernels in all. `AUTOGRAD_STEPS` profiled steps a form, the forms in turns, so each number has a spread.
+    A graphed step replays the same kernels. Returns {form: {dtype: {name: [one value a profiled step]}}}."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     from yololite_tpu_torch.engine import graphs
+    from yololite_tpu_torch.utils import loss as tloss
 
     def device_ms(e):
         return (getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0.0)) / 1e3
@@ -1192,45 +1610,134 @@ def loss_tail_autograd(card: str, trainer_fn) -> dict:
             e = e.cpu_parent
         return e is not None
 
+    def descendants(e):
+        for c in e.cpu_children:
+            yield c
+            yield from descendants(c)
+
+    def scoped(events, name):  # (forward ms, backward ms, backward nodes) of the ops under the range `name`
+        ranges = [e for e in events if e.name == name and e.device_type == DeviceType.CPU]  # not its span on the card
+        seq = {c.sequence_nr for r in ranges for c in descendants(r) if c.sequence_nr >= 0}
+        back = [e for e in events if e.name.startswith("autograd::engine::evaluate_function") and e.sequence_nr in seq]
+        return sum(map(device_ms, ranges)), sum(map(device_ms, back)), len(back)
+
+    def in_range(fn, name):
+        def wrapped(*args, **kw):
+            with record_function(name):
+                return fn(*args, **kw)
+        return wrapped
+
+    def spread(values, fmt=".4f"):
+        return f"{min(values):{fmt}}-{max(values):{fmt}}"
+
     out = {}
+    saved = (tloss.bbox_iou, tloss.flatten_levels)
+    tloss.bbox_iou = in_range(tloss.bbox_iou, "chip_smoke::ciou")
+    tloss.flatten_levels = in_range(tloss.flatten_levels, "chip_smoke::flatten_levels")
+    try:
+        for amp in (False, True):
+            dtype = "bf16" if amp else "fp32"
+            st = trainer_fn(amp)
+            batch = next(iter(st.train_loader))
+            images = torch.from_numpy(batch["img"]).to(st.device)
+            targets = st._targets(batch)
+            b, h = images.shape[0], images.shape[1]
+            a, k = loss_rows(st.loss_fn, images, targets)
+            det = st.model.detect
+            wanted = ([b, a, 4 * det.reg_max], [b, a, det.nc], [b, a, det.no], [b, k, 4 * det.reg_max])
+            for form in ("compact", "dense"):  # two warm-up steps a form
+                with graphs.eager(), box_loss_form(form == "compact"):
+                    for _ in range(2):
+                        st._grad_step(images, targets)
+            torch.cuda.synchronize()
+            torch._foreach_zero_(st._grads)
+            for turn in range(AUTOGRAD_STEPS):
+                for form in ("compact", "dense") if turn % 2 == 0 else ("dense", "compact"):
+                    with graphs.eager(), box_loss_form(form == "compact"):
+                        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                                     record_shapes=True) as prof:
+                            st._grad_step(images, targets)
+                            torch.cuda.synchronize()
+                    torch._foreach_zero_(st._grads)
+                    events = prof.events()
+                    slices = [e for e in events if e.name == "aten::slice_backward" and shape0(e) in wanted[:3]]
+                    adds = [e for e in events if e.name in ("aten::add", "aten::add_") and shape0(e) in wanted
+                            and len(e.input_shapes) > 1 and list(e.input_shapes[1]) == shape0(e)
+                            and under(e, "autograd::engine::evaluate_function")]
+                    ops = {}
+                    for e in events:  # each loss-tail op once (not the op inside itself)
+                        if e.name.startswith("yololite_tpu_torch::") and not under(e, "yololite_tpu_torch::"):
+                            ops[e.name.split("::")[1]] = ops.get(e.name.split("::")[1], 0.0) + device_ms(e)
+                    ciou_f, ciou_b, ciou_n = scoped(events, "chip_smoke::ciou")
+                    cat_f, cat_b, cat_n = scoped(events, "chip_smoke::flatten_levels")
+                    step = sum(e.time_range.elapsed_us() for e in events if e.device_type == DeviceType.CUDA
+                               and not getattr(e, "is_user_annotation", False)) / 1e3
+                    if not slices or not ops or not ciou_n or not cat_n:
+                        raise AssertionError(f"loss-tail autograd {form} {dtype}: the profile shows {len(slices)} "
+                                             f"slice_backward, {len(ops)} loss-tail ops, {ciou_n} CIoU backward "
+                                             f"nodes and {cat_n} of flatten_levels")
+                    if ("compact_rows" in ops) != (form == "compact"):
+                        raise AssertionError(f"loss-tail autograd {form} {dtype}: K9 "
+                                             f"{'absent' if form == 'compact' else 'ran'}")
+                    r = {**{f"op:{n}": v for n, v in ops.items()}, "kernels_ms": sum(ops.values()),
+                         "ciou_ms": ciou_f, "ciou_backward_ms": ciou_b, "ciou_nodes": ciou_n, "cat_ms": cat_f,
+                         "cat_backward_ms": cat_b, "cat_nodes": cat_n, "slice_ms": sum(map(device_ms, slices)),
+                         "slices": len(slices), "add_ms": sum(map(device_ms, adds)), "adds": len(adds),
+                         "step_ms": step}
+                    r["loss_ms"] = r["kernels_ms"] + ciou_f + ciou_b + r["slice_ms"] + r["add_ms"]
+                    steps = out.setdefault(form, {}).setdefault(dtype, {})
+                    for n, v in r.items():
+                        steps.setdefault(n, []).append(v)
+            for form in ("compact", "dense"):
+                r = out[form][dtype]
+                by_op = ", ".join(f"{n[3:]} {spread(r[n])}" for n in sorted(r) if n.startswith("op:"))
+                log(f"train: the loss's device time by op, {form} box/DFL form, {AUTOGRAD_STEPS} eager grad steps at "
+                    f"{h}, batch {b} in turns with the other form ({dtype}, A {a}, M {targets['gt_bboxes'].shape[1]}, "
+                    f"each under torch.profiler; least-most of the steps; a graphed step replays these kernels): "
+                    f"{by_op} ms (the loss-tail ops {spread(r['kernels_ms'])}); CIoU forward {spread(r['ciou_ms'])}, "
+                    f"its backward {spread(r['ciou_backward_ms'])} ({r['ciou_nodes'][0]} nodes); {r['slices'][0]} slice_backward "
+                    f"of the maps' slices {spread(r['slice_ms'])}; {r['adds'][0]} adds of their gradients "
+                    f"{spread(r['add_ms'])}; these together {spread(r['loss_ms'])} ms; flatten_levels' torch.cat "
+                    f"{spread(r['cat_ms'])}, its backward {spread(r['cat_backward_ms'])} ({r['cat_nodes'][0]} nodes); "
+                    f"the step's kernels {spread(r['step_ms'], '.1f')} ms in all, on {card}")
+            saving = [d - c for c, d in zip(out["compact"][dtype]["loss_ms"], out["dense"][dtype]["loss_ms"])]
+            log(f"train: the loss's device time, dense less compact, turn by turn ({dtype}): "
+                f"{', '.join(f'{v:.4f}' for v in saving)} ms, on {card}")
+    finally:
+        tloss.bbox_iou, tloss.flatten_levels = saved
+    return out
+
+
+def graphed_step_forms(card: str, trainer_fn) -> dict:
+    """The whole train step (grad then apply, AdamW) of trainer_fn(amp)'s first batch replayed from its CUDA graphs,
+    in the compact box/DFL form and in the dense one (a trainer each, the form set while it captures), fp32 and
+    bf16, on one batch: CUDA events around each step, the median of 10, in turns (`STEP_TURNS`). Returns {form:
+    {dtype: [ms of each turn]}}."""
+    import numpy as np
+    import torch
+
+    from yololite_tpu_torch.engine.predictor import fp32_convs
+
+    out = {}
+    lr, mom = np.full(3, 1e-4, np.float32), 0.9
     for amp in (False, True):
         dtype = "bf16" if amp else "fp32"
-        st = trainer_fn(amp)
-        batch = next(iter(st.train_loader))
-        images = torch.from_numpy(batch["img"]).to(st.device)
-        targets = st._targets(batch)
-        b, h, w = images.shape[0], images.shape[1], images.shape[2]
-        a = sum((h // s) * (w // s) for s in (8, 16, 32))
-        det = st.model.detect
-        wanted = ([b, a, 4 * det.reg_max], [b, a, det.nc], [b, a, det.no])
-        with graphs.eager():
-            for _ in range(2):
-                st._grad_step(images, targets)
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], record_shapes=True) as prof:
-                st._grad_step(images, targets)
-                torch.cuda.synchronize()
-        torch._foreach_zero_(st._grads)
-        events = prof.events()
-        slices = [e for e in events if e.name == "aten::slice_backward" and shape0(e) in wanted]
-        adds = [e for e in events if e.name in ("aten::add", "aten::add_") and shape0(e) in wanted
-                and len(e.input_shapes) > 1 and list(e.input_shapes[1]) == shape0(e)
-                and under(e, "autograd::engine::evaluate_function")]
-        tail = [e for e in events  # each loss-tail op once (not the op inside itself)
-                if e.name.startswith("yololite_tpu_torch::") and not under(e, "yololite_tpu_torch::")]
-        step = sum(e.time_range.elapsed_us() for e in events if e.device_type == DeviceType.CUDA) / 1e3
-        if not slices or not tail:
-            raise AssertionError(f"loss-tail autograd {dtype}: the profile shows {len(slices)} slice_backward and "
-                                 f"{len(tail)} loss-tail ops on the maps' shapes")
-        out[dtype] = {"slice_ms": sum(map(device_ms, slices)), "slices": len(slices),
-                      "add_ms": sum(map(device_ms, adds)), "adds": len(adds), "kernels_ms": sum(map(device_ms, tail)),
-                      "step_ms": step}
-        r = out[dtype]
-        log(f"train: autograd around the loss tail, one eager grad step at {h}, batch {b} ({dtype}, A {a}, under "
-            f"torch.profiler; a graphed step replays these kernels): {r['slices']} slice_backward of the maps' "
-            f"slices {r['slice_ms']:.4f} ms, {r['adds']} adds of their gradients {r['add_ms']:.4f} ms, together "
-            f"{r['slice_ms'] + r['add_ms']:.4f} ms of device time; the loss-tail kernels {r['kernels_ms']:.4f} ms; "
-            f"the step's kernels {r['step_ms']:.1f} ms in all, on {card}")
+        trainers, batch = {}, None
+        for form in ("compact", "dense"):
+            st = trainer_fn(amp)
+            batch = batch or next(iter(st.train_loader))  # one batch for both: the loader's draws vary by thread
+            trainers[form] = (st, torch.from_numpy(batch["img"]).to(st.device), st._targets(batch))
+        for form in STEP_TURNS:
+            st, images, targets = trainers[form]
+            with box_loss_form(form == "compact"), fp32_convs(images.device):
+                ms = event_ms(lambda: None, lambda _: (st._grad_step(images, targets), st._apply_step(lr, mom)))
+            if not st.graphs.replays:
+                raise AssertionError(f"graphed step {form} {dtype}: no replay")
+            out.setdefault(form, {}).setdefault(dtype, []).append(ms)
+        log(f"train: the whole step replayed ({dtype}, batch {images.shape[0]} at {images.shape[1]}, M "
+            f"{targets['gt_bboxes'].shape[1]}, CUDA events, median of 10, in turns {', '.join(STEP_TURNS)}): "
+            f"compact {', '.join(f'{v:.3f}' for v in out['compact'][dtype])} ms, dense "
+            f"{', '.join(f'{v:.3f}' for v in out['dense'][dtype])} ms, on {card}")
     return out
 
 
@@ -1859,7 +2366,12 @@ def train_phase(card: str):
         return tr
 
     loss_tail_step_check(card, loss_trainer)
+    # the compact box/DFL form (K9) against the dense form on the same batch; the end2end loss's two compact heads;
+    # the loss's device time by op and the graphed step, in both forms
+    compact_dense = compact_vs_dense_step(card, loss_trainer)
+    e2e_loss_check(card)
     autograd_tail = loss_tail_autograd(card, loss_trainer)
+    step_forms = graphed_step_forms(card, loss_trainer)
 
     # (b), (c) the facade's train, graphed (fp32 and bf16) and eager (fp32), 3 epochs: the keys repeat from the
     # second step, the EMA val's bucket shapes from the second epoch; the loss tail's launches counted in the
@@ -2136,6 +2648,10 @@ def train_phase(card: str):
     # K5, K6a, K6b (forward and backward) and K7 at the train step's shapes, beside their plain versions and bounds
     launches["loss_tail"] = loss_tail_numbers(card)
     launches["loss_tail_autograd"] = autograd_tail
+    # K9 (forward and backward) at the train step's shapes, beside its plain version, bound and library calls
+    launches["compact_rows_numbers"] = compact_rows_numbers(card)
+    launches["compact_vs_dense"] = compact_dense
+    launches["step_forms"] = step_forms
 
     # the card against the CPU: one SGD step at imgsz 160, batch 2, fp32, the same weights and batch
     one_step_card_vs_cpu(card, root, "yolo11n", "yolo11n.yaml", data)
@@ -3416,7 +3932,7 @@ def main() -> int:
             log(f"  {name}: {text}")
         elif name == "blocked_nms":
             log(f"  {name}: {k4_build_report(path)}")
-        elif name in ("dfl", "bce_sum", "topk_rows"):
+        elif name in ("dfl", "bce_sum", "topk_rows", "compact_rows"):
             text = loss_tail_build_report(path)
             log(f"  {name}: ptxas per kernel: {text}")
             framed = re.findall(r"(\S*(?:fwd16|bwd16)\S*): \d+ regs, ([1-9]\d*) B stack", text)
@@ -3519,8 +4035,9 @@ def main() -> int:
     k2["fp32_720x1280"] = k2_numbers(card, hd, 640, torch.float32, False, True, "a 720p batch, fp32")
     del hd, frames32
 
-    # the loss tail (K5, K6a, K6b with their backwards, K7) against its plain versions
+    # the loss tail (K5, K6a, K6b with their backwards, K7) and K9 against their plain versions
     tail_checks = loss_tail_checks(card)
+    compact_rows_checks(card)
 
     # ---- 3. slice: yolo11n predict at 640 through the facade ----
     from yololite_tpu_torch.engine.predictor import fp32_convs
@@ -3840,8 +4357,18 @@ def main() -> int:
                 "library": "torch.topk (its tie order is not lax.top_k's: a yardstick)",
                 "M64": {**{k: t64[k] for k in keys}, "shape": t64["shape"]},
                 "M32_A2100": {**{k: t320[k] for k in keys}, "shape": t320["shape"]}}
+    k9 = counts["compact_rows_numbers"]  # B 16, A 8,400, K 320 on the assigner's masks; launches: phase 5 (b)
+    f9, h9 = k9["compact_rows"]["float32"], k9["compact_rows"]["bfloat16"]
+    fb9, hb9 = k9["compact_rows_backward"]["float32"], k9["compact_rows_backward"]["bfloat16"]
+    k9_entry = {"name": "compact_rows", "route": "cuda", "source": "yololite_tpu_torch/csrc/compact_rows.cu",
+                "replaces": "yololite_tpu/utils/loss.py:162",  # lax.top_k and the one-hot contraction (:162-172)
+                "launches": counts["compact_rows"], **{k: f9[k] for k in keys}, "shape": f9["shape"],
+                "nfg": f9["nfg"], "library": "a stable torch.sort of fg, then torch.gather (two calls: a yardstick)",
+                "bf16": {k: h9[k] for k in keys},
+                "backward": {"name": "compact_rows_backward", "launches": counts["compact_rows_backward"],
+                             **{k: fb9[k] for k in keys}, "bf16": {k: hb9[k] for k in keys}}}
     log(json.dumps({"kernels": [entry, k3_entry, k2_entry, k4_entry, k8_entry, k5_entry, k6a_entry, k6b_entry,
-                                k7_entry]}))
+                                k7_entry, k9_entry]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0
 

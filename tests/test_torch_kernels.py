@@ -14,10 +14,11 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (K3_CASES, K3_RECT, K3_ROUTES, LOSS_TAIL_EDGE_SHAPES, LOSS_TAIL_ROUTES, LOSS_TAIL_SHAPES,
-                        TOPK_CASES, bce_sum_kernel_order, k3_args, k3_check, k3_maps, k4_scene,
-                        loss_tail_case, loss_tail_case_checks, loss_tail_check, loss_tail_inputs, loss_tail_metrics,
-                        loss_tail_pairs, loss_tail_step_check, same_bits, topk_case_check)
+from chip_smoke import (COMPACT_CASES, COMPACT_ROUTES, K3_CASES, K3_RECT, K3_ROUTES, LOSS_TAIL_EDGE_SHAPES,
+                        LOSS_TAIL_ROUTES, LOSS_TAIL_SHAPES, TOPK_CASES, bce_sum_kernel_order, compact_case_check,
+                        compact_gradient, compact_layout, compact_mask, e2e_loss_check, k3_args, k3_check, k3_maps,
+                        k4_scene, loss_tail_case, loss_tail_case_checks, loss_tail_check, loss_tail_inputs,
+                        loss_tail_metrics, loss_tail_pairs, loss_tail_step_check, same_bits, topk_case_check)
 from yololite_tpu_torch.engine import graphs
 from yololite_tpu_torch.ops import loss_kernels as L
 from yololite_tpu_torch.ops.kernels import (blocked_nms_finalize, blocked_nms_finalize_plain, device_letterbox,
@@ -1085,7 +1086,8 @@ def test_loss_tail_kernels_reject_what_they_do_not_take(card):
 def test_train_step_with_the_loss_tail_kernels_equals_the_plain_one(card, tmp_path):
     """One yolo11n train step at imgsz 160, batch 2, fp32 and bf16, eager in deterministic mode: the loss-tail
     kernels against their plain versions (chip_smoke.loss_tail_step_check: fg_mask equal, loss items within rtol
-    1e-5, each kernel launched once)."""
+    1e-5, every gradient bit for bit; the compact box/DFL form at A 525, K 160: K9 launched once, K5's forward
+    twice)."""
     from yololite_tpu_torch.engine.trainer import DetectionTrainer
 
     data = _train_data(tmp_path)
@@ -1097,3 +1099,81 @@ def test_train_step_with_the_loss_tail_kernels_equals_the_plain_one(card, tmp_pa
         return tr
 
     loss_tail_step_check(torch.cuda.get_device_name(0), trainer)
+
+
+# ---------------- K9: the compact box/DFL form's foreground gather ----------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("b,imgsz,m,kind", COMPACT_CASES)
+def test_compact_rows_kernel_matches_plain(card, b, imgsz, m, kind, dtype):
+    """K9 on the maps' box slice (row stride 144) over chip_smoke.COMPACT_CASES' masks (the assigner's at imgsz 320,
+    640 and 1,280 with M 16-256; none, exactly K and more than K foreground rows): rows, idx and pos, and the
+    backward's dx, bit for bit against the plain versions, the same on a second call and in a graph replay, one
+    launch a call, down the 16-byte route."""
+    seed = b + imgsz + m + len(kind) + 1
+    fg, k = compact_mask(b, imgsz, m, kind, seed)
+    x = compact_layout("map", b, fg.shape[1], dtype, seed)
+    compact_case_check(x, fg, k, compact_gradient(b, k, dtype, seed + 1, misaligned=False), "vector",
+                       f"{kind} mask at {imgsz}, M {m}, {dtype}")
+
+
+LAYOUTS = [(layout, dtype) for layout in ("contiguous", "scalar") for dtype in (torch.float32, torch.bfloat16)]
+LAYOUTS += [("map", torch.float64), ("scalar", torch.float64)]
+
+
+@pytest.mark.parametrize("layout,dtype", LAYOUTS, ids=[f"{lay}-{str(d).split('.')[-1]}" for lay, d in LAYOUTS])
+def test_compact_rows_kernel_takes_every_layout(card, layout, dtype):
+    """K9 on a contiguous tensor, down the scalar route (the box slice one column into maps of row stride 146, the
+    gradient one element off 16 bytes) and in fp64 (the float64 reference step): bit for bit as on the maps."""
+    fg, k = compact_mask(4, 640, 32, "assigner", seed=5)
+    x = compact_layout(layout, 4, fg.shape[1], dtype, seed=6)
+    g = compact_gradient(4, k, dtype, seed=7, misaligned=layout == "scalar")
+    compact_case_check(x, fg, k, g, COMPACT_ROUTES[layout], f"{layout}, {dtype}")
+
+
+@pytest.mark.parametrize("b,a,k,frac", [(1, 1, 1, 1.0), (1, 1, 0, 0.0), (3, 8193, 8193, 0.5), (2, 300, 0, 0.5),
+                                        (2, 1001, 1000, 0.999), (5, 16385, 7, 0.001)])
+def test_compact_rows_kernel_at_edge_shapes(card, b, a, k, frac):
+    """K = 0 and K = A, one row, A one past the scan's tile of 8,192 and two tiles past it: bit for bit."""
+    gen = torch.Generator(device="cuda").manual_seed(a + k)
+    fg = torch.rand(b, a, device=card, generator=gen) < frac
+    x = compact_layout("map", b, a, torch.float32, seed=a)
+    compact_case_check(x, fg, k, compact_gradient(b, k, torch.float32, seed=k, misaligned=False), "vector",
+                       f"B {b}, A {a}, K {k}")
+
+
+def test_compact_rows_refuses_a_route_the_layout_does_not_allow(card):
+    """The C entries hold the wrapper to its plan: the 16-byte route on logits one column in, and on a gradient one
+    element off, return cudaErrorMisalignedAddress and launch nothing."""
+    lib, stream = L._compact_lib(), torch.cuda.current_stream().cuda_stream
+    x = torch.zeros(2, 50, 146, device=card)[..., 1:65]
+    fg = torch.ones(2, 50, dtype=torch.bool, device=card)
+    rows = torch.empty(2, 10, 64, device=card)
+    idx, pos = torch.empty(2, 10, dtype=torch.int64, device=card), torch.empty(2, 50, dtype=torch.int32, device=card)
+    g = torch.zeros(2 * 10 * 64 + 1, device=card)[1:]
+    dx = torch.empty(2, 50, 64, device=card)
+    rcs = [lib.compact_rows_forward(x.data_ptr(), 146, 2, 50, 64, 4, 1, fg.data_ptr(), 10, rows.data_ptr(),
+                                    idx.data_ptr(), pos.data_ptr(), card.index or 0, stream),
+           lib.compact_rows_backward(g.data_ptr(), 2, 10, 50, 64, 4, 1, pos.data_ptr(), dx.data_ptr(), card.index or 0,
+                                     stream)]
+    torch.cuda.synchronize()
+    assert [lib.compact_rows_error_string(rc).decode() for rc in rcs] == ["misaligned address"] * 2, rcs
+    assert L.compact_rows_plan(x)["route"] == "scalar" and L.compact_rows_plan(g.view(2, 10, 64))["route"] == "scalar"
+
+
+def test_compact_rows_rejects_what_it_does_not_take(card):
+    maps = torch.zeros(2, 50, 144, device=card)
+    fg = torch.zeros(2, 50, dtype=torch.bool, device=card)
+    with pytest.raises(TypeError):  # no path of the port makes fp16 maps
+        L.compact_rows(maps[..., :64].half(), fg, 10)
+    with pytest.raises(ValueError):  # the logits' last dim strided
+        L.compact_rows(maps[..., :128:2], fg, 10)
+    with pytest.raises(ValueError):
+        L.compact_rows(maps[..., :64], fg.cpu(), 10)  # the mask on another device
+
+
+def test_end2end_loss_gathers_with_k9_in_both_heads(card):
+    """The end2end loss at 640, batch 16, M 32 (chip_smoke.e2e_loss_check): both heads compact (K9 and its backward
+    twice a step), items within rtol 1e-5 and d loss / d maps bit for bit against the plain versions."""
+    e2e_loss_check(torch.cuda.get_device_name(0))

@@ -267,7 +267,8 @@ def _targets(rng, B, M, imgsz=128, nc=5):
 @pytest.mark.parametrize("seed", [0, 1])
 @pytest.mark.parametrize("e2e", [False, True], ids=["v8", "e2e"])
 def test_loss_and_gradient_match_jax(seed, e2e):
-    """Loss items within rtol 1e-5 and d loss / d maps within rtol 1e-4 of jax.grad (JAX's default compact form)."""
+    """Loss items within rtol 1e-5 and d loss / d maps within rtol 1e-4 of jax.grad, both packages in their default
+    compact box/DFL form (A 336, K 160)."""
     rng = np.random.default_rng(20 + seed)
     shapes = ((16, 16), (8, 8), (4, 4))
     feats = _feats(rng, B=2, shapes=shapes, nc=5)

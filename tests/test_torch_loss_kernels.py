@@ -1,8 +1,8 @@
-"""The loss-tail kernels' public wrappers and ops (ops/loss_kernels.py: K5, K6a, K6b, K7) against the JAX package.
+"""The loss-tail kernels' public wrappers and ops (ops/loss_kernels.py: K5, K6a, K6b, K7, K9) against the JAX package.
 
 On the CPU every wrapper runs its kernel's plain version through the
-`torch.library` op; csrc/dfl.cu, csrc/bce_sum.cu and csrc/topk_rows.cu are
-held to those plain versions on the card (tests/test_torch_kernels.py,
+`torch.library` op; csrc/dfl.cu, csrc/bce_sum.cu, csrc/topk_rows.cu and
+csrc/compact_rows.cu are held to those plain versions on the card (tests/test_torch_kernels.py,
 chip_smoke.py). Inputs come from a numpy seed and reach the port as the loss
 passes them: the box and class logits as column slices of one (B, A, 144)
 tensor (rows with a stride of 144), at B 2 and A 300 or 8,400.
@@ -207,6 +207,7 @@ def _op_args(requires_grad: bool):
     full = torch.from_numpy(_maps(rng, 40)).requires_grad_(requires_grad)
     box, cls = full[..., :64], full[..., 64:]
     t, lab = torch.from_numpy(_targets(rng, 40)), torch.from_numpy(_labels(rng, 40))
+    fg = torch.from_numpy(rng.uniform(size=(2, 40)) > 0.7)
     ops = torch.ops.yololite_tpu_torch
     return [
         (ops.dfl_expectation.default, (box, 16)),
@@ -216,11 +217,14 @@ def _op_args(requires_grad: bool):
         (ops.bce_sum.default, (cls, lab)),
         (ops.bce_sum_backward.default, (cls.detach(), lab, torch.tensor(0.7))),
         (ops.topk_rows.default, (torch.from_numpy(_metrics(rng, 300, "ties")), 10)),
+        (ops.compact_rows.default, (box, fg, 16)),
+        (ops.compact_rows_backward.default, (torch.randn(2, 16, 64), *ops.compact_rows(box.detach(), fg, 16)[1:])),
     ]
 
 
-@pytest.mark.parametrize("i", range(7), ids=["dfl_expectation", "dfl_expectation_backward", "dfl_ce_mean",
-                                              "dfl_ce_backward", "bce_sum", "bce_sum_backward", "topk_rows"])
+@pytest.mark.parametrize("i", range(9), ids=["dfl_expectation", "dfl_expectation_backward", "dfl_ce_mean",
+                                              "dfl_ce_backward", "bce_sum", "bce_sum_backward", "topk_rows",
+                                              "compact_rows", "compact_rows_backward"])
 @pytest.mark.parametrize("requires_grad", [False, True], ids=["nograd", "grad"])
 def test_loss_tail_ops_pass_opcheck(i, requires_grad):
     """Schema, fake tensor, autograd registration and AOT dispatch of each op (the backward ops and K7 take no
@@ -251,6 +255,12 @@ def test_cpu_tensors_route_to_the_plain_versions():
         assert torch.equal(got, want)
     vals, idx, wv, wi = pairs[-1]
     assert torch.equal(vals, wv) and torch.equal(idx, wi)
+    fg = torch.from_numpy(rng.uniform(size=(2, 60)) > 0.8)
+    rows, kidx = LK.compact_rows(box, fg, 20)
+    wrows, widx, wpos = LK.compact_rows_plain(box, fg, 20)
+    assert torch.equal(rows, wrows) and torch.equal(kidx, widx)
+    g = torch.randn(2, 20, 64)
+    assert torch.equal(LK.compact_rows_backward(g, widx, wpos), LK.compact_rows_backward_plain(g, widx, wpos))
     assert [w.launches for w in LK.COUNTED] == before
     from yololite_tpu_torch.engine.graphs import COUNTERS
 
@@ -269,6 +279,20 @@ def test_wrappers_reject_what_no_version_takes():
         LK.dfl_expectation(x.to("meta"), 16)  # neither a CUDA nor a CPU tensor
     with pytest.raises(ValueError):
         LK.topk_rows(torch.zeros(()), 3)
+    fg = torch.zeros(2, 10, dtype=torch.bool)
+    with pytest.raises(ValueError):
+        LK.compact_rows(x, fg, 11)  # k past A
+    with pytest.raises(ValueError):
+        LK.compact_rows(x, fg[:, :9], 4)
+    with pytest.raises(ValueError):
+        LK.compact_rows(x[0], fg, 4)  # not (B, A, C)
+    with pytest.raises(TypeError):
+        LK.compact_rows(x, fg.float(), 4)  # the mask is bool
+    with pytest.raises(ValueError):
+        LK.compact_rows(x.to("meta"), fg.to("meta"), 4)
+    with pytest.raises(ValueError):
+        LK.compact_rows_backward(torch.zeros(2, 4, 64), torch.zeros(2, 5, dtype=torch.int64),
+                                 torch.zeros(2, 10, dtype=torch.int32))
 
 
 @pytest.mark.parametrize("view,want", [
@@ -639,3 +663,69 @@ def test_plans_pick_the_routes_the_layouts_allow(dtype):
     assert k7(8401, view=lambda m: m[..., 1:])[0] == "scalar"  # one column in: the pointer off 16 bytes
     plan = LK.topk_rows_plan(torch.zeros(2, 6, 8400, dtype=mdt)[:, ::2], 13)
     assert plan["rows"] == 6 and plan["row_stride"] == 16800 and plan["n"] == 8400
+    # K9 reads the maps' box slice, a contiguous tensor (its rows, the backward's gradient) in 16-byte pieces; a slice
+    # one column in, or rows whose bytes are no multiple of 16, one element at a time
+    assert LK.compact_rows_plan(maps[..., :64]) == {"route": "vector", "rows": 600, "row_stride": 144}
+    assert LK.compact_rows_plan(torch.zeros(2, 300, 64, dtype=dtype))["route"] == "vector"
+    assert LK.compact_rows_plan(wide[..., 1:65])["route"] == "scalar"
+    assert LK.compact_rows_plan(maps[..., :65])["route"] == "scalar"
+
+
+def _k9_block_scan(v):
+    """csrc/compact_rows.cu block_exclusive_scan over 1,024 threads' counts v in numpy: each warp's shuffle-up
+    (Hillis-Steele) inclusive scan, then warp 0's of the 32 warps' totals. Returns (exclusive prefixes, total)."""
+    lanes = np.arange(32)
+
+    def warp_scan(w):  # (..., 32) inclusive, as __shfl_up_sync with `if (lane >= o) inc += n`
+        w = w.copy()
+        for o in (1, 2, 4, 8, 16):
+            up = np.concatenate([np.zeros_like(w[..., :o]), w[..., :-o]], -1)
+            w = np.where(lanes >= o, w + up, w)
+        return w
+
+    inc = warp_scan(v.reshape(32, 32))
+    sums = warp_scan(inc[:, 31])
+    before = np.concatenate([[0], sums[:-1]])[:, None] + inc - v.reshape(32, 32)
+    return before.reshape(-1), sums[-1]
+
+
+def _k9_scan(fg, k, threads=1024, per=8):
+    """csrc/compact_rows.cu compact_scan in numpy: pass 1 the image's foreground count; pass 2 tiles of threads * per
+    entries, thread t the per consecutive entries t * per.., the block's scan carrying the running count; the
+    foreground entry with f foreground entries before it at position f, the other entry e at nfg + (e - f), a
+    position below k picked. Returns (idx (B, k), pos (B, A)); entries never written hold -7."""
+    b, a = fg.shape
+    idx, pos = np.full((b, k), -7, np.int64), np.full((b, a), -7, np.int64)
+    for i in range(b):
+        f = fg[i].astype(np.int64)
+        nfg = int(f.sum())
+        carry = 0
+        for base in range(0, a, threads * per):
+            tile = np.zeros(threads * per, np.int64)
+            seg = f[base:base + threads * per]
+            tile[:len(seg)] = seg
+            v = tile.reshape(threads, per)
+            before, total = _k9_block_scan(v.sum(1))
+            f_before = carry + before[:, None] + np.cumsum(v, 1) - v  # per entry
+            e = base + np.arange(threads * per).reshape(threads, per)
+            p = np.where(v == 1, f_before, nfg + (e - f_before))
+            live = e < a
+            pos[i, e[live]] = np.where(p[live] < k, p[live], -1)
+            picked = live & (p < k)
+            idx[i, p[picked]] = e[picked]
+            carry += int(total)
+    return idx, pos
+
+
+@pytest.mark.parametrize("a,k,frac", [(8400, 320, 0.02), (8400, 2560, 0.3), (2100, 2100, 0.5), (8193, 160, 0.0),
+                                      (33600, 160, 0.01), (300, 16, 1.0)])
+def test_k9_scan_model_gives_the_plain_positions(a, k, frac):
+    """The numpy model of K9's scan (its block scan, tiles and position rule) writes every pos and every idx, and
+    both equal the plain version's (`compact_rows_plain`: lax.top_k's order) at the train step's A (8,400; 2,100 at
+    320; 33,600 at 1,280, several tiles), A one past a tile, nfg 0, nfg > k and every row foreground."""
+    rng = np.random.default_rng(a + k)
+    fg = rng.uniform(size=(2, a)) < frac
+    idx, pos = _k9_scan(fg, k)
+    _, widx, wpos = LK.compact_rows_plain(torch.zeros(2, a, 1), torch.from_numpy(fg), k)
+    np.testing.assert_array_equal(idx, widx.numpy())
+    np.testing.assert_array_equal(pos, wpos.numpy())

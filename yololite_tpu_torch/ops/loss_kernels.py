@@ -1,4 +1,4 @@
-"""The train step's loss-tail kernels and their plain versions (K5, K6a, K6b, K7).
+"""The train step's loss-tail kernels and their plain versions (K5, K6a, K6b, K7, K9).
 
 1. `dfl_expectation` (K5): the DFL expectation of each side's softmax over
    its reg_max bins, (..., 4R) logits -> (..., 4) fp32, with the closed-form
@@ -19,10 +19,18 @@
    the lower index (lax.top_k's order), no gradient: csrc/topk_rows.cu, which
    replaces yololite_tpu/utils/tal.py:61 `topk_blockmax_gather` and :97
    `topk_hierarchical`; plain `ops/boxes.py topk_stable` (a stable sort).
+5. `compact_rows` (K9): the compact box/DFL form's foreground gather, the
+   (B, K) indices of lax.top_k over the (B, A) foreground mask (foreground
+   rows first, then the other rows, each in index order) and the (B, K, C)
+   rows of the logits at them, with the backward `compact_rows_backward`
+   (the rows' gradient put back into a dense (B, A, C) one): csrc/compact_rows.cu,
+   which replaces yololite_tpu/utils/loss.py:162-172 (`lax.top_k` and the
+   one-hot contraction); plain `compact_rows_plain` (`topk_stable`, then
+   torch.gather) and `compact_rows_backward_plain`.
 
 Each is a `torch.library` custom op (`torch.ops.yololite_tpu_torch.*`): the
 CUDA implementation launches the kernel or raises, the CPU one is the plain
-version, a fake gives the output's shape. K5, K6a and K6b have autograd
+version, a fake gives the output's shape. K5, K6a, K6b and K9 have autograd
 registered on the op, whose backward is the backward kernel's own op, so
 `torch.export` records a decode as one op and a CUDA graph of the train step
 captures both kernels. The public wrappers check their inputs, call the op,
@@ -30,8 +38,9 @@ and count the kernel's launches (`.launches`); a CUDA tensor never reaches a
 plain version. The logits are read where they lie: the loss's box and class
 logits are column slices of the (B, A, 4R + nc) Detect maps, taken as rows
 with a row stride, never copied. The wrappers pick every kernel's route from
-the layout (`dfl_plan` for K5 and K6a, `bce_sum_plan`, `topk_rows_plan`), and
-each C entry refuses a route the layout does not allow.
+the layout (`dfl_plan` for K5 and K6a, `bce_sum_plan`, `topk_rows_plan`,
+`compact_rows_plan`), and each C entry refuses a route the layout does not
+allow.
 """
 
 from __future__ import annotations
@@ -665,6 +674,162 @@ def _topk_lib() -> ctypes.CDLL:
     return lib
 
 
+# ---------------- K9: the compact box/DFL form's foreground gather ----------------
+
+
+def compact_rows_plain(x: Tensor, fg: Tensor, k: int) -> Tuple[Tensor, Tensor, Tensor]:
+    """Plain K9: x (B, A, C), fg (B, A) bool -> rows (B, k, C) in x's dtype, idx (B, k) int64 and the inverse map
+    pos (B, A) int32 (a row's position among the k, or -1). idx is lax.top_k(fg as floats, k)'s: the foreground rows
+    first, then the others, each in index order."""
+    _, idx = topk_stable(fg.float(), k)
+    idx = idx.contiguous()
+    rows = torch.gather(x, 1, idx[..., None].expand(-1, -1, x.shape[-1]))
+    pos = torch.full(tuple(fg.shape), -1, dtype=torch.int32, device=fg.device)
+    pos.scatter_(1, idx, torch.arange(k, dtype=torch.int32, device=fg.device).expand(idx.shape).contiguous())
+    return rows, idx, pos
+
+
+def compact_rows_backward_plain(g: Tensor, idx: Tensor, pos: Tensor) -> Tensor:
+    """Plain K9 backward: zeros (B, A, C) in g's dtype with g's rows (B, k, C) put back at idx."""
+    dx = torch.zeros((*pos.shape, g.shape[-1]), dtype=g.dtype, device=g.device)
+    return dx.scatter_(1, idx[..., None].expand(-1, -1, g.shape[-1]), g)
+
+
+def compact_rows_plan(x: Tensor) -> dict:
+    """How csrc/compact_rows.cu reads x (..., C), the logits of the forward or the contiguous gradient of the
+    backward: {"route": "vector" (16-byte pieces: x's pointer, its row stride in bytes and a row's C elements in
+    bytes multiples of 16) or "scalar" (an element at a time), "rows", "row_stride"}. The rule lives here; the
+    kernel holds the wrapper to it."""
+    rows, rs = _rows_of(x)
+    vec = x.shape[-1] * x.element_size() % 16 == 0 and _vec16(x, rs)
+    return {"route": "vector" if vec else "scalar", "rows": rows, "row_stride": rs}
+
+
+def compact_rows(x: Tensor, fg: Tensor, k: int) -> Tuple[Tensor, Tensor]:
+    """The k rows of x (B, A, C) that lax.top_k picks over the foreground mask fg (B, A) bool: rows (B, k, C) in
+    x's dtype, an exact copy, and their indices idx (B, k) int64 (the foreground rows first, at most k of them, then
+    the first others, each in index order); differentiable in x with `compact_rows_backward`. k <= A.
+
+    A CUDA tensor (fp32, bf16 or fp64 logits; the last dim contiguous, the
+    rows evenly spaced) goes through csrc/compact_rows.cu, a CPU tensor
+    through `compact_rows_plain`; both as the op
+    `torch.ops.yololite_tpu_torch.compact_rows`, which also returns the inverse
+    map its backward reads. Any other input raises.
+    """
+    if x.dim() != 3 or tuple(fg.shape) != tuple(x.shape[:2]) or not 0 <= k <= x.shape[1]:
+        raise ValueError(f"compact_rows wants x (B, A, C), fg (B, A) and 0 <= k <= A, got {tuple(x.shape)}, "
+                         f"{tuple(fg.shape)} and k {k}")
+    if fg.dtype != torch.bool:
+        raise TypeError(f"compact_rows wants a bool foreground mask, got {fg.dtype}")
+    if _check_device("compact_rows", x, fg) == "cuda":
+        _check_types("compact_rows", x, X_TYPES)
+    rows, idx, _ = torch.ops.yololite_tpu_torch.compact_rows(x, fg, int(k))
+    return rows, idx
+
+
+compact_rows.launches = 0
+
+
+def compact_rows_backward(g: Tensor, idx: Tensor, pos: Tensor) -> Tensor:
+    """K9's backward: the gradient g (B, k, C) of `compact_rows`' rows, with its idx (B, k) and inverse map pos
+    (B, A) -> dx (B, A, C) contiguous in g's dtype, g's rows at idx and +0.0 elsewhere. csrc/compact_rows.cu on the
+    card, `compact_rows_backward_plain` on the CPU; the op `torch.ops.yololite_tpu_torch.compact_rows_backward`."""
+    if g.dim() != 3 or tuple(idx.shape) != tuple(g.shape[:2]) or pos.dim() != 2 or pos.shape[0] != g.shape[0]:
+        raise ValueError(f"compact_rows_backward: g {tuple(g.shape)}, idx {tuple(idx.shape)}, pos {tuple(pos.shape)}")
+    if _check_device("compact_rows_backward", g, idx, pos) == "cuda":
+        _check_types("compact_rows_backward", g, X_TYPES)
+    return torch.ops.yololite_tpu_torch.compact_rows_backward(g.contiguous(), idx, pos)
+
+
+compact_rows_backward.launches = 0
+
+
+def _compact_empty(x: Tensor, k: int):
+    b, a, c = x.shape
+    return (x.new_empty((b, k, c)), x.new_empty((b, k), dtype=torch.int64),
+            x.new_empty((b, a), dtype=torch.int32))
+
+
+@torch.library.custom_op("yololite_tpu_torch::compact_rows", mutates_args=(), device_types="cpu")
+def _compact_rows_op(x: Tensor, fg: Tensor, k: int) -> Tuple[Tensor, Tensor, Tensor]:
+    return compact_rows_plain(x, fg, k)
+
+
+@_compact_rows_op.register_kernel("cuda")
+def _compact_rows_cuda(x: Tensor, fg: Tensor, k: int) -> Tuple[Tensor, Tensor, Tensor]:
+    rows, idx, pos = _compact_empty(x, k)
+    if pos.numel() == 0:
+        return rows, idx, pos
+    plan = compact_rows_plan(x)
+    lib = _compact_lib()
+    b, a, c = x.shape
+    rc = lib.compact_rows_forward(x.data_ptr(), plan["row_stride"], b, a, c, x.element_size(),
+                                  int(plan["route"] == "vector"), fg.contiguous().data_ptr(), k, rows.data_ptr(),
+                                  idx.data_ptr(), pos.data_ptr(), x.device.index, _stream(x))
+    if rc != 0:
+        raise RuntimeError(f"compact_rows kernel launch failed: {lib.compact_rows_error_string(rc).decode()}")
+    compact_rows.launches += 1
+    return rows, idx, pos
+
+
+@_compact_rows_op.register_fake
+def _compact_rows_fake(x: Tensor, fg: Tensor, k: int) -> Tuple[Tensor, Tensor, Tensor]:
+    return _compact_empty(x, k)
+
+
+@torch.library.custom_op("yololite_tpu_torch::compact_rows_backward", mutates_args=(), device_types="cpu")
+def _compact_rows_backward_op(g: Tensor, idx: Tensor, pos: Tensor) -> Tensor:
+    return compact_rows_backward_plain(g, idx, pos)
+
+
+@_compact_rows_backward_op.register_kernel("cuda")
+def _compact_rows_backward_cuda(g: Tensor, idx: Tensor, pos: Tensor) -> Tensor:
+    b, k, c = g.shape
+    a = pos.shape[1]
+    dx = torch.empty((b, a, c), dtype=g.dtype, device=g.device)
+    if dx.numel() == 0:
+        return dx
+    plan = compact_rows_plan(g)
+    lib = _compact_lib()
+    rc = lib.compact_rows_backward(g.data_ptr(), b, k, a, c, g.element_size(), int(plan["route"] == "vector"),
+                                   pos.contiguous().data_ptr(), dx.data_ptr(), g.device.index, _stream(g))
+    if rc != 0:
+        raise RuntimeError(f"compact_rows_backward kernel launch failed: {lib.compact_rows_error_string(rc).decode()}")
+    compact_rows_backward.launches += 1
+    return dx
+
+
+@_compact_rows_backward_op.register_fake
+def _compact_rows_backward_fake(g: Tensor, idx: Tensor, pos: Tensor) -> Tensor:
+    return g.new_empty((g.shape[0], pos.shape[1], g.shape[2]))
+
+
+def _compact_rows_setup(ctx, inputs, output):
+    ctx.save_for_backward(output[1], output[2])
+
+
+def _compact_rows_grad(ctx, g, g_idx, g_pos):
+    idx, pos = ctx.saved_tensors
+    return compact_rows_backward(g, idx, pos), None, None
+
+
+_compact_rows_op.register_autograd(_compact_rows_grad, setup_context=_compact_rows_setup)
+
+
+def _compact_lib() -> ctypes.CDLL:
+    from yololite_tpu_torch.ops import cuda_build
+
+    lib = cuda_build.load("compact_rows")
+    if lib.compact_rows_forward.argtypes is None:  # declare the C signatures once per process
+        ll, vp, i = ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int
+        lib.compact_rows_forward.argtypes = [vp, ll, ll, ll, i, i, i, vp, ll, vp, vp, vp, i, vp]
+        lib.compact_rows_backward.argtypes = [vp, ll, ll, ll, i, i, i, vp, vp, i, vp]
+        lib.compact_rows_forward.restype = lib.compact_rows_backward.restype = ctypes.c_int
+        lib.compact_rows_error_string.argtypes = [ctypes.c_int]
+        lib.compact_rows_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 # the wrappers that count their kernel's launches
 COUNTED = (dfl_expectation, dfl_expectation_backward, dfl_ce_mean, dfl_ce_backward, bce_sum, bce_sum_backward,
-           topk_rows)
+           topk_rows, compact_rows, compact_rows_backward)

@@ -8,28 +8,38 @@ two hand-written backwards (K6a `dfl_ce_mean`, K6b `bce_sum`: kernels beside
 their plain versions in ops/loss_kernels.py) return their gradients in the
 logits' dtype.
 
-The box and DFL terms run in the dense form, over all A anchors with the
-non-foreground rows weighted 0. The JAX package's default compact form
-gathers the foreground rows first to spare the TPU the dense passes; the two
-give the same sums up to the order of addition (tests/test_torch_loss.py
-holds this form against the compact one).
+The box and DFL terms take the JAX package's default, the compact form
+(`COMPACT_BOX_LOSS`), wherever it does (topk * M < A): K9 (`compact_rows`)
+gathers the at most topk * M foreground rows of the DFL logits, foreground
+rows first, and decode (K5), CIoU, bbox2dist and the DFL cross-entropy (K6a)
+run on those (B, K) rows; the dense decode then only feeds the assigner and
+takes no gradient. Elsewhere, and with COMPACT_BOX_LOSS False, they run in
+the dense form over all A anchors with the non-foreground rows weighted 0.
+The two forms give the same terms and gradients; only the order of the
+loss's sums differs (tests/test_torch_compact_loss.py).
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Tuple
+import contextlib
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from yololite_tpu_torch.ops.boxes import bbox2dist, bbox_iou, dist2bbox, make_anchors, xywh2xyxy
 from yololite_tpu_torch.ops.decode import dfl_expectation_mm, flatten_levels
-from yololite_tpu_torch.ops.loss_kernels import bce_sum, dfl_ce_mean
+from yololite_tpu_torch.ops.loss_kernels import bce_sum, compact_rows, dfl_ce_mean
 from yololite_tpu_torch.utils import LOGGER
 from yololite_tpu_torch.utils.tal import TaskAlignedAssigner
 
 
 _TRUNC_WARNED = False  # warn once per process on GT truncation
+
+# The box and DFL terms' form, as the JAX package's constant of the same name: True takes the compact form wherever
+# topk * M < A (every dropped row has weight 0: the assigner's dedup keeps the foreground within topk * M rows),
+# False the dense form everywhere
+COMPACT_BOX_LOSS = True
 
 
 def build_targets(batch: Dict, batch_size: int, imgsz: Tuple[int, int], max_gt: int) -> Dict[str, np.ndarray]:
@@ -77,6 +87,12 @@ class v8DetectionLoss:
         self.hyp_dfl = float(getattr(hyp, "dfl", 1.5))
         self.assigner = TaskAlignedAssigner(topk=tal_topk, num_classes=nc, alpha=0.5, beta=6.0)
 
+    def compact_k(self, m: int, a: int) -> Optional[int]:
+        """K = topk * M, the rows the compact box/DFL form keeps at M padded GTs and A anchors, or None where the loss
+        runs the dense form (COMPACT_BOX_LOSS False, or topk * M >= A): yololite_tpu/utils/loss.py:162's rule."""
+        k = self.assigner.topk * m
+        return k if COMPACT_BOX_LOSS and k < a else None
+
     def bbox_decode(self, anchor_points: torch.Tensor, pred_dist: torch.Tensor) -> torch.Tensor:
         """DFL expectation (K5) -> xyxy boxes in anchor (stride) units, fp32."""
         dist = dfl_expectation_mm(pred_dist, self.reg_max) if self.use_dfl else pred_dist.float()
@@ -103,7 +119,11 @@ class v8DetectionLoss:
         anchor_points, stride_tensor = make_anchors(shapes, self.strides, 0.5, device=x.device)
         gt_labels, gt_bboxes, mask_gt = targets["gt_labels"], targets["gt_bboxes"], targets["mask_gt"]
 
-        pred_bboxes = self.bbox_decode(anchor_points, pred_distri)  # (B, A, 4) anchor units, fp32
+        M, A = gt_labels.shape[1], pred_distri.shape[1]
+        K = self.compact_k(M, A)
+        compact = K is not None
+        with torch.no_grad() if compact else contextlib.nullcontext():  # compact: the dense decode feeds the assigner
+            pred_bboxes = self.bbox_decode(anchor_points, pred_distri)  # (B, A, 4) anchor units, fp32
         _, target_bboxes, target_scores, fg_mask, _ = self.assigner(
             torch.sigmoid(pred_scores.detach()),
             (pred_bboxes.detach() * stride_tensor).to(gt_bboxes.dtype),
@@ -127,6 +147,12 @@ class v8DetectionLoss:
         fg = fg_mask.float()  # (B, A)
         target_bboxes = target_bboxes.float() / stride_tensor
         weight = target_scores.float().sum(-1) * fg  # (B, A)
+        if compact:  # K9: the (B, K) rows, foreground first; the rows left out weigh 0
+            pred_distri, idx = compact_rows(pred_distri, fg_mask, K)
+            anchor_points = anchor_points[idx]  # (B, K, 2)
+            target_bboxes = torch.gather(target_bboxes, 1, idx[..., None].expand(-1, -1, 4))
+            weight = torch.gather(weight, 1, idx)
+            pred_bboxes = self.bbox_decode(anchor_points, pred_distri)
         iou = bbox_iou(pred_bboxes, target_bboxes, xywh=False, CIoU=True)
         loss_box = ((1.0 - iou) * weight).sum() / target_scores_sum
         if self.use_dfl:
