@@ -43,11 +43,12 @@ Phases, each of which exits non-zero on failure:
      topk_rows_plan gives; each also the same bits on a second call and in a
      CUDA graph replay; K9 (compact_rows, the compact box/DFL form's
      foreground gather) forward (rows, idx, pos) and backward bit for bit on
-     the assigner's masks (COMPACT_CASES: imgsz 640 with M 16-256, 320 and
-     1,280) and on masks with no foreground row, exactly K and more than K,
-     fp32 and bf16 on the maps' box slice, at 640 / M 32 also on a contiguous
-     tensor, down the scalar route and in fp64, a second call and a graph
-     replay the same bits;
+     the assigner's masks (COMPACT_CASES: imgsz 640 with M 16-256, at B 1
+     and with a ragged share of K, 320 and 1,280) and on masks with no
+     foreground row, exactly K and more than K, fp32 and bf16 on the maps'
+     box slice, at 640 / M 32 also on a contiguous tensor, down the scalar
+     route and in fp64, a second call and a graph replay the same bits; one
+     device kernel a forward call (torch.profiler);
   3. slice: YOLOLite("yolo11n.yaml") with init(0) predicts synthetic 480x640
      uint8 batches at imgsz 640 and conf 1e-7, in fp32 (TF32 off) and bf16, at
      batch 1 and 32; each call replays a CUDA graph of the step (the first
@@ -123,7 +124,8 @@ Phases, each of which exits non-zero on failure:
      backward at B 16, A 8,400, fp32 and bf16, K7 at M 32 and 64, and K9
      forward and backward at M 32 (K 320) on the assigner's masks, each warm
      (one input set) and cold (input sets in turn, more than 100 MB), beside
-     its plain version, bound and a library call; checks one step on the
+     its plain version, bound and a library call (K9's forward also beside
+     an empty kernel on its grid, the launch floor); checks one step on the
      card against the CPU at imgsz 160;
   6. serving: (a) writes two upstream-format .pt files from init(0) and
      init(1) models (a plain one and a 2-member nn.ModuleList ensemble),
@@ -1089,10 +1091,13 @@ def loss_tail_numbers(card: str) -> dict:
 
 # ---------------- K9: the compact box/DFL form's foreground gather ----------------
 
-# (B, imgsz, M, mask): the assigner's masks at imgsz 640 (A 8,400) with M 16-256 (K 160-2,560), at 320 (A 2,100) and
-# 1,280 (A 33,600); and at 640, M 32, no foreground row, exactly K of them in each image, and more than K (forced)
+# (B, imgsz, M, mask): the assigner's masks at imgsz 640 (A 8,400) with M 16-256 (K 160-2,560; M 256 a share of 320
+# positions, walked in two chunks), at 320 (A 2,100: fg's rows not 16-byte aligned) and 1,280 (A 33,600: three tiles);
+# at 640 with B 1 (10 blocks) and M 20 (K 200 over 7 blocks: a ragged share); and at 640, M 32, no foreground row,
+# exactly K of them in each image, and more than K (forced)
 COMPACT_CASES = ((16, 640, 16, "assigner"), (16, 640, 32, "assigner"), (16, 640, 64, "assigner"),
                  (16, 640, 256, "assigner"), (16, 320, 32, "assigner"), (4, 1280, 32, "assigner"),
+                 (1, 640, 32, "assigner"), (16, 640, 20, "assigner"),
                  (16, 640, 32, "none"), (16, 640, 32, "exactly_k"), (16, 640, 32, "over_k"))
 # the layouts K9 is held on (`compact_layout`): the maps' box slice (row stride 144), a contiguous (B, A, 64) tensor,
 # and the maps of row stride 146 with the box slice one column in (the scalar route, its backward's gradient too)
@@ -1192,14 +1197,43 @@ def compact_case_check(x, fg, k: int, g, route: str, what: str) -> None:
                              "for 3 calls each")
 
 
+def compact_kernels_a_call(x, fg, k: int) -> int:
+    """Device kernels (and copies) torch.profiler records under one `compact_rows` call on x, fg and k."""
+    from yololite_tpu_torch.ops import loss_kernels as L
+
+    L.compact_rows(x, fg, k)  # the library built and loaded outside the profile
+    return profile_calls(lambda: L.compact_rows(x, fg, k), 1)[2]
+
+
+def compact_floor_ms(b: int, k: int):
+    """The launch floor beside K9's forward: `graph_ms` of an empty kernel on the forward's grid of (B, S) blocks of
+    256 (csrc/compact_rows.cu `compact_rows_empty`, S from `compact_rows_shares`). None where the package timed has
+    neither (a tree from before the one-launch forward, timed by tools/loss_tail_timing.py)."""
+    import torch
+
+    from yololite_tpu_torch.ops import loss_kernels as L
+
+    lib = L._compact_lib()
+    if not hasattr(L, "compact_rows_shares") or not hasattr(lib, "compact_rows_empty"):
+        return None
+    shares, device = L.compact_rows_shares(b, k), torch.cuda.current_device()
+
+    def empty():
+        rc = lib.compact_rows_empty(b, shares, device, torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"compact_rows_empty launch failed: {lib.compact_rows_error_string(rc).decode()}")
+
+    return graph_ms(empty)
+
+
 def compact_rows_checks(card: str) -> dict:
     """K9 forward and backward against their plain versions (`compact_case_check`) on every mask of COMPACT_CASES, in
     fp32 and bf16 on the maps' box slice; at 640 with M 32 also on a contiguous tensor and down the scalar route, and
-    in fp64 (the float64 reference step). Returns {"checks", "nfg": the masks' foreground counts (least, most) against
-    K}."""
+    in fp64 (the float64 reference step); one device kernel a forward call at B 16, M 32 (`compact_kernels_a_call`).
+    Returns {"checks", "masks": the masks' foreground counts (least, most) against K, "kernels_a_call"}."""
     import torch
 
-    n, seen = 0, []
+    n, seen, kernels = 0, [], None
     for b, imgsz, m, kind in COMPACT_CASES:
         seed = b + imgsz + m + len(kind)
         fg, k = compact_mask(b, imgsz, m, kind, seed)
@@ -1219,12 +1253,17 @@ def compact_rows_checks(card: str) -> dict:
             compact_case_check(x, fg, k, g, COMPACT_ROUTES[layout],
                                f"B {b}, A {a}, M {m}, K {k}, {kind} mask, {layout}, {str(dtype).split('.')[-1]}")
             n += 1
+        if (b, imgsz, m, kind) == (16, 640, 32, "assigner"):
+            kernels = compact_kernels_a_call(compact_layout("map", b, a, torch.float32, seed), fg, k)
+            if kernels != 1:
+                raise AssertionError(f"compact_rows: {kernels} device kernels under one forward call, not 1")
     log(f"kernel: compact_rows (K9) equal to its plain version in {n} checks, forward (rows, idx, pos) and backward "
         f"bit for bit, each also on a second call and in a CUDA graph replay: masks (kind, imgsz, M, least and most "
         f"foreground rows an image, K) {seen}; fp32 and bf16 on the maps' box slice (row stride 144), at 640 / M 32 "
         f"also on a contiguous tensor, down the scalar route (row stride 146, one column in; the gradient one element "
-        f"off) and in fp64; NaN, +-inf and -0.0 among the logits, on {card}")
-    return {"checks": n, "masks": seen}
+        f"off) and in fp64; NaN, +-inf and -0.0 among the logits; one device kernel a forward call (torch.profiler, "
+        f"B 16, A 8,400, K 320), on {card}")
+    return {"checks": n, "masks": seen, "kernels_a_call": kernels}
 
 
 def compact_rows_work(name: str, b: int, a: int, k: int, es: int) -> int:
@@ -1247,8 +1286,9 @@ def compact_rows_numbers(card: str) -> dict:
     slice and backward, fp32 and bf16, by device time (a CUDA graph of 20 calls replayed): warm (one input set) and
     cold (`cold_graph_ms`: the maps and masks in turn, each mask rolled along A), beside the plain version, the bound
     and, for the forward, a yardstick of library calls (a stable torch.sort of fg, then torch.gather; the plain
-    backward is itself zeros and a scatter). Returns {name: {dtype: {ms, cold_ms, cold_sets, plain_ms, bound_ms,
-    bound_by, library_ms, max_abs_err, nfg, shape}}}."""
+    backward is itself zeros and a scatter), and the forward beside the launch floor (`compact_floor_ms`). Returns
+    {name: {dtype: {ms, cold_ms, cold_sets, plain_ms, bound_ms, bound_by, library_ms, max_abs_err, nfg, shape; the
+    forward also floor_ms}}}."""
     import torch
 
     from yololite_tpu_torch.ops import loss_kernels as L
@@ -1256,6 +1296,7 @@ def compact_rows_numbers(card: str) -> dict:
     b, m = 16, 32
     fg0, k = compact_mask(b, 640, m, "assigner", seed=31)
     a = fg0.shape[1]
+    floor = compact_floor_ms(b, k)
     out = {}
     for dtype in (torch.float32, torch.bfloat16):
         dname, es = str(dtype).split(".")[-1], dtype.itemsize
@@ -1284,14 +1325,18 @@ def compact_rows_numbers(card: str) -> dict:
             plain_ms = graph_ms(plain, iters=5, reps=3)
             lib_ms = graph_ms(lib) if lib else None
             bound, bound_by = compact_rows_bound_ms(name, b, a, k, es)
-            out.setdefault(name, {})[dname] = {"ms": ms, "cold_ms": cold, "cold_sets": n_sets, "plain_ms": plain_ms,
-                                               "bound_ms": bound, "bound_by": bound_by, "library_ms": lib_ms,
-                                               "max_abs_err": 0.0, "nfg": [int(fg0.sum(1).min()), int(fg0.sum(1).max())],
-                                               "shape": [b, a, 64, k]}
+            entry = {"ms": ms, "cold_ms": cold, "cold_sets": n_sets, "plain_ms": plain_ms, "bound_ms": bound,
+                     "bound_by": bound_by, "library_ms": lib_ms, "max_abs_err": 0.0,
+                     "nfg": [int(fg0.sum(1).min()), int(fg0.sum(1).max())], "shape": [b, a, 64, k]}
+            extra = ""
+            if name == "compact_rows":
+                entry["floor_ms"] = floor
+                extra = f"; an empty kernel on its grid {floor:.4f} ms" if floor is not None else ""
+            out.setdefault(name, {})[dname] = entry
             log(f"kernel: {name} ({dname}, B {b}, A {a}, K {k}, the assigner's masks with "
                 f"{int(fg0.sum(1).min())}-{int(fg0.sum(1).max())} foreground rows an image): {ms:.4f} ms device warm "
                 f"(graph replay), {cold:.4f} cold ({n_sets} sets in turn), {ms / bound:.2f}x and {cold / bound:.2f}x "
-                f"its bound of {bound:.4f} ms ({bound_by}); plain {plain_ms:.4f} ms"
+                f"its bound of {bound:.4f} ms ({bound_by}){extra}; plain {plain_ms:.4f} ms"
                 f"{'; stable torch.sort of fg then torch.gather ' + format(lib_ms, '.4f') + ' ms' if lib else ''}; "
                 f"bit for bit, on {card}")
             del calls
@@ -4037,7 +4082,7 @@ def main() -> int:
 
     # the loss tail (K5, K6a, K6b with their backwards, K7) and K9 against their plain versions
     tail_checks = loss_tail_checks(card)
-    compact_rows_checks(card)
+    k9_checks = compact_rows_checks(card)
 
     # ---- 3. slice: yolo11n predict at 640 through the facade ----
     from yololite_tpu_torch.engine.predictor import fp32_convs
@@ -4364,6 +4409,7 @@ def main() -> int:
                 "replaces": "yololite_tpu/utils/loss.py:162",  # lax.top_k and the one-hot contraction (:162-172)
                 "launches": counts["compact_rows"], **{k: f9[k] for k in keys}, "shape": f9["shape"],
                 "nfg": f9["nfg"], "library": "a stable torch.sort of fg, then torch.gather (two calls: a yardstick)",
+                "floor_ms": f9["floor_ms"], "kernels_a_call": k9_checks["kernels_a_call"],  # phase 2's count
                 "bf16": {k: h9[k] for k in keys},
                 "backward": {"name": "compact_rows_backward", "launches": counts["compact_rows_backward"],
                              **{k: fb9[k] for k in keys}, "bf16": {k: hb9[k] for k in keys}}}

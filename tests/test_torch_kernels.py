@@ -16,9 +16,10 @@ import torch
 
 from chip_smoke import (COMPACT_CASES, COMPACT_ROUTES, K3_CASES, K3_RECT, K3_ROUTES, LOSS_TAIL_EDGE_SHAPES,
                         LOSS_TAIL_ROUTES, LOSS_TAIL_SHAPES, TOPK_CASES, bce_sum_kernel_order, compact_case_check,
-                        compact_gradient, compact_layout, compact_mask, e2e_loss_check, k3_args, k3_check, k3_maps,
-                        k4_scene, loss_tail_case, loss_tail_case_checks, loss_tail_check, loss_tail_inputs,
-                        loss_tail_metrics, loss_tail_pairs, loss_tail_step_check, same_bits, topk_case_check)
+                        compact_gradient, compact_kernels_a_call, compact_layout, compact_mask, e2e_loss_check,
+                        k3_args, k3_check, k3_maps, k4_scene, loss_tail_case, loss_tail_case_checks,
+                        loss_tail_check, loss_tail_inputs, loss_tail_metrics, loss_tail_pairs, loss_tail_step_check,
+                        same_bits, topk_case_check)
 from yololite_tpu_torch.engine import graphs
 from yololite_tpu_torch.ops import loss_kernels as L
 from yololite_tpu_torch.ops.kernels import (blocked_nms_finalize, blocked_nms_finalize_plain, device_letterbox,
@@ -1133,14 +1134,26 @@ def test_compact_rows_kernel_takes_every_layout(card, layout, dtype):
 
 
 @pytest.mark.parametrize("b,a,k,frac", [(1, 1, 1, 1.0), (1, 1, 0, 0.0), (3, 8193, 8193, 0.5), (2, 300, 0, 0.5),
-                                        (2, 1001, 1000, 0.999), (5, 16385, 7, 0.001)])
+                                        (2, 1001, 1000, 0.999), (5, 16385, 7, 0.001), (3, 2100, 2100, 0.5),
+                                        (1, 33601, 700, 0.02)])
 def test_compact_rows_kernel_at_edge_shapes(card, b, a, k, frac):
-    """K = 0 and K = A, one row, A one past the scan's tile of 8,192 and two tiles past it: bit for bit."""
+    """K = 0 and K = A, one row, fg's rows off 16 bytes (A 8,193, 2,100, 16,385), a row one entry past the forward's
+    tile of 16,384 and three tiles long, and K = A over 44 blocks an image in ragged shares: bit for bit."""
     gen = torch.Generator(device="cuda").manual_seed(a + k)
     fg = torch.rand(b, a, device=card, generator=gen) < frac
     x = compact_layout("map", b, a, torch.float32, seed=a)
     compact_case_check(x, fg, k, compact_gradient(b, k, torch.float32, seed=k, misaligned=False), "vector",
                        f"B {b}, A {a}, K {k}")
+
+
+def test_compact_rows_forward_is_one_kernel(card):
+    """One K9 forward call runs one device kernel (torch.profiler, chip_smoke.compact_kernels_a_call) on a grid that
+    the shapes fix (`compact_rows_shares`): B 16, A 8,400, K 320 on the assigner's mask, and B 1."""
+    for b in (16, 1):
+        fg, k = compact_mask(b, 640, 32, "assigner", seed=b)
+        x = compact_layout("map", b, fg.shape[1], torch.float32, seed=b)
+        assert compact_kernels_a_call(x, fg, k) == 1
+    assert L.compact_rows_shares(16, 320) == 8 and L.compact_rows_shares(1, 320) == 10
 
 
 def test_compact_rows_refuses_a_route_the_layout_does_not_allow(card):
@@ -1153,7 +1166,7 @@ def test_compact_rows_refuses_a_route_the_layout_does_not_allow(card):
     idx, pos = torch.empty(2, 10, dtype=torch.int64, device=card), torch.empty(2, 50, dtype=torch.int32, device=card)
     g = torch.zeros(2 * 10 * 64 + 1, device=card)[1:]
     dx = torch.empty(2, 50, 64, device=card)
-    rcs = [lib.compact_rows_forward(x.data_ptr(), 146, 2, 50, 64, 4, 1, fg.data_ptr(), 10, rows.data_ptr(),
+    rcs = [lib.compact_rows_forward(x.data_ptr(), 146, 2, 50, 64, 4, 1, fg.data_ptr(), 10, 1, rows.data_ptr(),
                                     idx.data_ptr(), pos.data_ptr(), card.index or 0, stream),
            lib.compact_rows_backward(g.data_ptr(), 2, 10, 50, 64, 4, 1, pos.data_ptr(), dx.data_ptr(), card.index or 0,
                                      stream)]

@@ -671,61 +671,125 @@ def test_plans_pick_the_routes_the_layouts_allow(dtype):
     assert LK.compact_rows_plan(maps[..., :65])["route"] == "scalar"
 
 
+K9_THREADS, K9_WORDS = 256, 2  # csrc/compact_rows.cu kThreads and kWords: a forward thread's two 32-entry words
+K9_TILE = K9_THREADS * K9_WORDS * 32  # kTile: fg entries a tile
+
+
 def _k9_block_scan(v):
-    """csrc/compact_rows.cu block_exclusive_scan over 1,024 threads' counts v in numpy: each warp's shuffle-up
-    (Hillis-Steele) inclusive scan, then warp 0's of the 32 warps' totals. Returns (exclusive prefixes, total)."""
+    """csrc/compact_rows.cu block_exclusive_scan over 256 threads' counts v in numpy: each warp's shuffle-up
+    (Hillis-Steele) inclusive scan, then each thread adds the totals of the warps before its own. Returns (exclusive
+    prefixes, total)."""
     lanes = np.arange(32)
-
-    def warp_scan(w):  # (..., 32) inclusive, as __shfl_up_sync with `if (lane >= o) inc += n`
-        w = w.copy()
-        for o in (1, 2, 4, 8, 16):
-            up = np.concatenate([np.zeros_like(w[..., :o]), w[..., :-o]], -1)
-            w = np.where(lanes >= o, w + up, w)
-        return w
-
-    inc = warp_scan(v.reshape(32, 32))
-    sums = warp_scan(inc[:, 31])
-    before = np.concatenate([[0], sums[:-1]])[:, None] + inc - v.reshape(32, 32)
-    return before.reshape(-1), sums[-1]
+    w = v.reshape(K9_THREADS // 32, 32).copy()
+    for o in (1, 2, 4, 8, 16):  # as __shfl_up_sync with `if (lane >= o) inc += n`
+        up = np.concatenate([np.zeros_like(w[:, :o]), w[:, :-o]], 1)
+        w = np.where(lanes >= o, w + up, w)
+    sums = w[:, 31]
+    before = (np.cumsum(sums) - sums)[:, None] + w - v.reshape(w.shape)
+    return before.reshape(-1), int(sums.sum())
 
 
-def _k9_scan(fg, k, threads=1024, per=8):
-    """csrc/compact_rows.cu compact_scan in numpy: pass 1 the image's foreground count; pass 2 tiles of threads * per
-    entries, thread t the per consecutive entries t * per.., the block's scan carrying the running count; the
-    foreground entry with f foreground entries before it at position f, the other entry e at nfg + (e - f), a
-    position below k picked. Returns (idx (B, k), pos (B, A)); entries never written hold -7."""
+def _k9_nth_set_bit(m, r):
+    """csrc/compact_rows.cu nth_set_bit, elementwise: the position of m's r-th set bit (from 0), by halving."""
+    m, r, at = m.astype(np.uint32), r.astype(np.int64), np.zeros(np.shape(r), np.int64)
+    for width in (16, 8, 4, 2, 1):
+        c = np.bitwise_count(m & np.uint32((1 << width) - 1)).astype(np.int64)
+        go = r >= c
+        r, m, at = np.where(go, r - c, r), np.where(go, m >> np.uint32(width), m), at + np.where(go, width, 0)
+    return at
+
+
+def _k9_scan(fg, k, shares):
+    """csrc/compact_rows.cu compact_forward's positions in numpy, block by block of its (B, S) grid. Each block reads
+    its image's whole fg row in the row's 16-byte frame (entry e at bit e + head, head the row's offset in its 16-byte
+    piece: rows of a contiguous mask start at b * A), tiles of K9_TILE entries, thread t the words 2t and 2t + 1 of a
+    tile; the block scan over the threads' counts carried from tile to tile gives each word the foreground entries
+    before it. Block s writes pos over its slice [s * ceil(A / S), ..) of A (the foreground entry with f foreground
+    entries before it at f, another e at nfg + (e - f), -1 from K on) and resolves its share [s * ceil(K / S), ..) of
+    the K positions into a list, tile by tile: a foreground position by the last word whose count before it is at
+    most p and a select of the bit, another by the same over the other entries; the list goes to idx. Returns
+    (idx (B, K), pos (B, A), the writes of each idx entry, of each pos entry); entries never written hold -7."""
     b, a = fg.shape
     idx, pos = np.full((b, k), -7, np.int64), np.full((b, a), -7, np.int64)
+    idx_writes, pos_writes = np.zeros((b, k), np.int64), np.zeros((b, a), np.int64)
+    share, piece = -(-k // shares), -(-a // shares)
+    bit = np.uint32(1) << np.arange(32, dtype=np.uint32)
     for i in range(b):
-        f = fg[i].astype(np.int64)
-        nfg = int(f.sum())
-        carry = 0
-        for base in range(0, a, threads * per):
-            tile = np.zeros(threads * per, np.int64)
-            seg = f[base:base + threads * per]
-            tile[:len(seg)] = seg
-            v = tile.reshape(threads, per)
-            before, total = _k9_block_scan(v.sum(1))
-            f_before = carry + before[:, None] + np.cumsum(v, 1) - v  # per entry
-            e = base + np.arange(threads * per).reshape(threads, per)
-            p = np.where(v == 1, f_before, nfg + (e - f_before))
-            live = e < a
-            pos[i, e[live]] = np.where(p[live] < k, p[live], -1)
-            picked = live & (p < k)
-            idx[i, p[picked]] = e[picked]
-            carry += int(total)
-    return idx, pos
+        head = i * a % 16
+        tiles = -(-(head + a) // K9_TILE)
+        frame = np.zeros(tiles * K9_TILE, bool)
+        frame[head:head + a] = fg[i]
+        words = (frame.reshape(-1, 32) * bit).sum(1, dtype=np.uint64).astype(np.uint32)
+        ones = np.bitwise_count(words).astype(np.int64)
+        before = np.zeros(len(words), np.int64)  # foreground entries of the row before each word
+        in_tile, carry = [], 0
+        for tile in range(tiles):
+            w = slice(tile * K9_TILE // 32, (tile + 1) * K9_TILE // 32)
+            c = ones[w].reshape(K9_THREADS, K9_WORDS)
+            f, total = _k9_block_scan(c.sum(1))
+            before[w] = (carry + f[:, None] + np.cumsum(c, 1) - c).reshape(-1)
+            in_tile.append(total)
+            carry += total
+        nfg = carry
+        first = np.arange(len(words)) * 32 - head  # each word's first entry
+        others = np.clip(first, 0, a) - before  # the row's other entries before each word
+        for s in range(shares):
+            p0, lo = min(s * piece, a), min(s * share, k)
+            e = np.arange(p0, min(p0 + piece, a))
+            g = e + head
+            mw = words[g >> 5]
+            fb = before[g >> 5] + np.bitwise_count(mw & ((np.uint32(1) << (g & 31).astype(np.uint32)) - np.uint32(1)))
+            q = np.where((mw >> (g & 31).astype(np.uint32)) & 1, fb, nfg + e - fb)
+            pos[i, e] = np.where(q < k, q, -1)
+            pos_writes[i, e] += 1
+            p = np.arange(lo, min(lo + share, k))
+            anchor = np.full(len(p), -7, np.int64)  # the block's list: position p - lo -> row
+            carry = 0
+            for tile in range(tiles):
+                w0, t0 = tile * K9_TILE // 32, tile * K9_TILE
+                w = slice(w0, w0 + K9_TILE // 32)
+                bg0 = max(t0 - head, 0) - carry
+                bg1 = min(t0 + K9_TILE - head, a) - carry - in_tile[tile]
+                fgp = (p < nfg) & (p >= carry) & (p < carry + in_tile[tile])
+                u = w0 + np.searchsorted(before[w], p[fgp], side="right") - 1
+                anchor[fgp] = first[u] + _k9_nth_set_bit(words[u], p[fgp] - before[u])
+                q = p - nfg
+                bgp = (p >= nfg) & (q >= bg0) & (q < bg1)
+                u = w0 + np.searchsorted(others[w], q[bgp], side="right") - 1
+                valid = ((first[u][:, None] + np.arange(32) >= 0) & (first[u][:, None] + np.arange(32) < a)) * bit
+                anchor[bgp] = first[u] + _k9_nth_set_bit(~words[u] & valid.sum(1, dtype=np.uint64).astype(np.uint32),
+                                                         q[bgp] - others[u])
+                carry += in_tile[tile]
+            idx[i, p] = anchor
+            idx_writes[i, p] += 1
+    return idx, pos, idx_writes, pos_writes
 
 
+@pytest.mark.parametrize("shares", ["one", "production", "ragged"])
 @pytest.mark.parametrize("a,k,frac", [(8400, 320, 0.02), (8400, 2560, 0.3), (2100, 2100, 0.5), (8193, 160, 0.0),
                                       (33600, 160, 0.01), (300, 16, 1.0)])
-def test_k9_scan_model_gives_the_plain_positions(a, k, frac):
-    """The numpy model of K9's scan (its block scan, tiles and position rule) writes every pos and every idx, and
-    both equal the plain version's (`compact_rows_plain`: lax.top_k's order) at the train step's A (8,400; 2,100 at
-    320; 33,600 at 1,280, several tiles), A one past a tile, nfg 0, nfg > k and every row foreground."""
+def test_k9_scan_model_gives_the_plain_positions(a, k, frac, shares):
+    """The numpy model of K9's forward grid (`_k9_scan`: the per-block row read, the block scan, the pos slices and
+    the share lists) writes every pos and every idx entry exactly once, and both equal the plain version's
+    (`compact_rows_plain`: lax.top_k's order) at the train step's A (8,400; 2,100 at 320, rows not 16-byte aligned;
+    33,600 at 1,280, several tiles), A one past a 16-byte piece, nfg 0, nfg > k and every row foreground; with one
+    block an image, the wrapper's S (`compact_rows_shares`) and 13, which divides none of the K."""
+    s = {"one": 1, "production": LK.compact_rows_shares(2, k), "ragged": 13}[shares]
+    assert shares != "ragged" or k % s
     rng = np.random.default_rng(a + k)
     fg = rng.uniform(size=(2, a)) < frac
-    idx, pos = _k9_scan(fg, k)
+    idx, pos, idx_writes, pos_writes = _k9_scan(fg, k, s)
     _, widx, wpos = LK.compact_rows_plain(torch.zeros(2, a, 1), torch.from_numpy(fg), k)
+    assert (idx_writes == 1).all() and (pos_writes == 1).all()
     np.testing.assert_array_equal(idx, widx.numpy())
     np.testing.assert_array_equal(pos, wpos.numpy())
+
+
+def test_k9_shares_follow_the_shapes_alone():
+    """S, K9's forward blocks an image (`compact_rows_shares`): 8 at the train step's B 16, K 320 (shares of 40, 128
+    blocks); at least 32 positions a block, about 132 blocks in all, and at least one block an image, K 0 included."""
+    assert LK.compact_rows_shares(16, 320) == 8
+    assert LK.compact_rows_shares(1, 320) == 10 and LK.compact_rows_shares(16, 160) == 5
+    assert LK.compact_rows_shares(16, 200) == 7 and 200 % 7  # a ragged share (chip_smoke.COMPACT_CASES, M 20)
+    assert LK.compact_rows_shares(16, 2560) == 8 and -(-2560 // 8) > K9_THREADS  # a share walked in two chunks
+    assert LK.compact_rows_shares(256, 320) == 1 and LK.compact_rows_shares(2, 0) == 1

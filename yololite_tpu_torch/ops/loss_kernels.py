@@ -705,6 +705,17 @@ def compact_rows_plan(x: Tensor) -> dict:
     return {"route": "vector" if vec else "scalar", "rows": rows, "row_stride": rs}
 
 
+K9_BLOCKS = 132  # the forward's blocks in all, about: one an SM of an H100
+K9_MIN_SHARE = 32  # the fewest of the K positions a forward block takes
+
+
+def compact_rows_shares(b: int, k: int) -> int:
+    """S, the forward's blocks an image in csrc/compact_rows.cu: about K9_BLOCKS blocks over the B images, each
+    taking at least K9_MIN_SHARE of the K positions (ceil(K / S) each, the last fewer where S does not divide K),
+    and at least one (it writes its slice of pos). Fixed by (B, K), so a CUDA graph replays the same grid."""
+    return max(1, min(-(-k // K9_MIN_SHARE), K9_BLOCKS // max(b, 1), 65535))
+
+
 def compact_rows(x: Tensor, fg: Tensor, k: int) -> Tuple[Tensor, Tensor]:
     """The k rows of x (B, A, C) that lax.top_k picks over the foreground mask fg (B, A) bool: rows (B, k, C) in
     x's dtype, an exact copy, and their indices idx (B, k) int64 (the foreground rows first, at most k of them, then
@@ -764,8 +775,9 @@ def _compact_rows_cuda(x: Tensor, fg: Tensor, k: int) -> Tuple[Tensor, Tensor, T
     lib = _compact_lib()
     b, a, c = x.shape
     rc = lib.compact_rows_forward(x.data_ptr(), plan["row_stride"], b, a, c, x.element_size(),
-                                  int(plan["route"] == "vector"), fg.contiguous().data_ptr(), k, rows.data_ptr(),
-                                  idx.data_ptr(), pos.data_ptr(), x.device.index, _stream(x))
+                                  int(plan["route"] == "vector"), fg.contiguous().data_ptr(), k,
+                                  compact_rows_shares(b, k), rows.data_ptr(), idx.data_ptr(), pos.data_ptr(),
+                                  x.device.index, _stream(x))
     if rc != 0:
         raise RuntimeError(f"compact_rows kernel launch failed: {lib.compact_rows_error_string(rc).decode()}")
     compact_rows.launches += 1
@@ -822,9 +834,11 @@ def _compact_lib() -> ctypes.CDLL:
     lib = cuda_build.load("compact_rows")
     if lib.compact_rows_forward.argtypes is None:  # declare the C signatures once per process
         ll, vp, i = ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int
-        lib.compact_rows_forward.argtypes = [vp, ll, ll, ll, i, i, i, vp, ll, vp, vp, vp, i, vp]
+        lib.compact_rows_forward.argtypes = [vp, ll, ll, ll, i, i, i, vp, ll, ll, vp, vp, vp, i, vp]
         lib.compact_rows_backward.argtypes = [vp, ll, ll, ll, i, i, i, vp, vp, i, vp]
+        lib.compact_rows_empty.argtypes = [ll, ll, i, vp]
         lib.compact_rows_forward.restype = lib.compact_rows_backward.restype = ctypes.c_int
+        lib.compact_rows_empty.restype = ctypes.c_int
         lib.compact_rows_error_string.argtypes = [ctypes.c_int]
         lib.compact_rows_error_string.restype = ctypes.c_char_p
     return lib
