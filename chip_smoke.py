@@ -48,7 +48,15 @@ Phases, each of which exits non-zero on failure:
      foreground row, exactly K and more than K, fp32 and bf16 on the maps'
      box slice, at 640 / M 32 also on a contiguous tensor, down the scalar
      route and in fp64, a second call and a graph replay the same bits; one
-     device kernel a forward call (torch.profiler);
+     device kernel a forward call (torch.profiler); K10 (optim_apply, the
+     train step's apply: clip, update, zeroing, EMA) for all 7 rules on
+     yolo11n's tensors over 2 applies with lr and momentum moving and on odd
+     tensors (1, 7, 13, 4,097 elements, 4 bytes off 16): every tensor bit for
+     bit given its clip factor, the norm within 1e-6 of the plain version's, a
+     second run the same bits; K10 timed cold and warm at yolo11n (AdamW, SGD)
+     beside its bound, its plain version, torch.optim's fused AdamW and SGD
+     and the parent's whole apply as a graph, with each form's device kernels
+     an apply;
   3. slice: YOLOLite("yolo11n.yaml") with init(0) predicts synthetic 480x640
      uint8 batches at imgsz 640 and conf 1e-7, in fp32 (TF32 off) and bf16, at
      batch 1 and 32; each call replays a CUDA graph of the step (the first
@@ -86,8 +94,9 @@ Phases, each of which exits non-zero on failure:
      CPU on 4 images at imgsz 160;
   5. train: writes 64 train and 16 val PNGs; (a) holds the train graphs to
      the eager steps in deterministic mode: 10 steps at 640, batch 16 from
-     the same start, the warmup ramp over the first 4, AdamW fp32 and bf16
-     (grad and apply graphs) and SGD at nbs 16 (the fused graph): loss items,
+     the same start, all in the warmup's ramp, AdamW fp32 and bf16 (grad and
+     apply graphs) and SGD at nbs 16 (the fused graph), each key's calls from
+     its third replayed: loss items,
      fg_mask, weights, BN statistics, optimizer moments and EMA bit for bit
      (or within a second eager run's spread, the op named); one step at 640,
      batch 16, fp32 and bf16, with the loss-tail kernels against the same
@@ -103,7 +112,9 @@ Phases, each of which exits non-zero on failure:
      YOLOLite("yolo11n.yaml") at imgsz 640, batch 16, 3 epochs, mosaic,
      default hyperparameters (AdamW by 'auto'), graphed in fp32 (TF32 off)
      and with amp (bf16), and eagerly in fp32: epoch-loop img/s, the step
-     graphs' captures and replays and the pool's bytes; (c) checks that each
+     graphs' captures and replays (at least 10 of the 12 warmup applies
+     replayed) and the pool's bytes; the fused form (nbs 16) in fp32 and bf16,
+     its fused steps replayed from a key's third; (c) checks that each
      epoch's EMA val launched K4 once per batch and K1 never, replays every
      batch in its third epoch and gives the metrics of an eager val of the
      same EMA; finite loss items, last.npz, best.npz and results.csv;
@@ -185,8 +196,8 @@ Phases, each of which exits non-zero on failure:
      6 layers, batch 8) on the card against the CPU, relative L2 1e-4.
 The kernels line's launches count the runs of the main paths (a replayed
 graph adds the launches its capture recorded): for K5, K6a, K6b, K9 (and
-their backwards) and K7, phase 5 (b)'s graphed train runs in fp32 and bf16
-and the resume, each of which must launch every one of them; predict, train's reload,
+their backwards), K7 and K10, phase 5 (b)'s graphed train runs in fp32 and
+bf16, its fused runs and the resume, each of which must launch every one of them; predict, train's reload,
 serving, the zoo's GELAN-T predict and phase 8's mesh predict for K1; val,
 train's EMA vals and final vals, the zoo's GELAN-T val and phase 8's mesh val
 and rank 0 for K4; the int8 predict calls (yolo11n and yolo11m) for K8; all
@@ -1343,6 +1354,351 @@ def compact_rows_numbers(card: str) -> dict:
     return out
 
 
+# ---------------- K10: the apply (clip, the 7 rules, the zeroing, the EMA) ----------------
+
+K10_RULES = ("SGD", "Adam", "Adamax", "AdamW", "NAdam", "RAdam", "RMSProp")
+K10_RAMP = (([0.001, 0.002, 0.003], 0.8), ([0.01, 0.02, 0.005], 0.86))  # (lr_vec, momentum) of the checks' 2 steps
+
+
+def k10_setup(rule: str, seed: int):
+    """yolo11n's apply on the card, the same bits for the same seed: init(0) weights, every trainable tensor with a
+    gradient (`k10_grads`) and moments drawn on the card, random BN statistics, an EMA a
+    little off the weights, the optimizer at step 3 (NAdam's mu_product to match) and K10's table built. Returns
+    (model, optimizer, ema)."""
+    import torch
+
+    from yololite_tpu_torch.engine import optim
+    from yololite_tpu_torch.models.model import DetectionModel
+    from yololite_tpu_torch.utils.ema import ModelEMA
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rand(t, scale=1.0):
+        return torch.randn(t.shape, generator=gen, device="cuda") * scale
+
+    m = DetectionModel("yolo11n.yaml", nc=80).init(0).cuda()
+    with torch.no_grad():
+        for k, t in m.state_dict().items():
+            if k.endswith("running_mean"):
+                t.copy_(rand(t, 0.5))
+            elif k.endswith("running_var"):
+                t.copy_(rand(t).abs() + 0.5)
+    opt = optim.build_optimizer(rule, m, 0.01, 0.9, 5e-4)
+    with torch.no_grad():
+        for p, mu, nu in zip(opt.params, opt.mu, opt.nu):
+            p.grad = torch.zeros_like(p)
+            mu.copy_(rand(p, 1e-3))
+            nu.copy_(rand(p, 1e-3).square())
+    ema = ModelEMA(m)
+    with torch.no_grad():
+        for e in ema.ema.state_dict().values():
+            if e.is_floating_point():
+                e.add_(rand(e, 1e-3))
+    ema.updates = 3
+    optim.load_moments(rule, opt, {}, {}, {}, step=3, beta1=0.9)
+    k10_grads(opt, seed)
+    opt.track(m, ema)
+    return m, opt, ema
+
+
+def k10_grads(opt, seed: int) -> None:
+    """Fresh gradients (norm about 16) in place, the same bits for the same seed (an apply zeroes them)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    for p in opt.params:
+        p.grad.copy_(torch.randn(p.shape, generator=gen, device="cuda") * 0.01)
+
+
+def k10_state(m, opt, ema) -> list:
+    """Every tensor one apply writes: the weights and BN statistics, moments, gradients, EMA, step, mu_product."""
+    return [*m.state_dict().values(), *opt.mu, *opt.nu, *(p.grad for p in opt.params),
+            *ema.ema.state_dict().values(), opt.step, opt.extra]
+
+
+def k10_table_tensors(table) -> list:
+    """Every tensor of an apply table, in its order."""
+    return [x for r in table.train for x in r[:5]] + [x for r in table.floats + table.ints for x in r]
+
+
+def k10_plain_step(opt, ema, scale):
+    """`Optimizer.apply` with K10's plain version in place of the kernel, at the clip factor given."""
+    from yololite_tpu_torch.ops import optim_kernels as OK
+
+    opt.step.add_(1)
+    s, extra = OK.step_scalars(opt.name, opt.step, opt.momentum, opt.extra)
+    if extra is not None:
+        opt.extra.copy_(extra)
+    return OK.optim_apply_plain(opt.table, opt.name, opt.hyper, s, opt.weight_decay, ema.d, ema.one_minus_d,
+                                scale=scale)
+
+
+def k10_odd(seed: int, dtype=None):
+    """An apply table of odd tensors of `dtype` (fp32, or fp64 as the float64 reference step's), the same bits for
+    the same seed: trainable rows of 1, 7, 4,097 and 13 elements (the last two an element off 16 bytes, so the
+    kernel's scalar route), in the three groups; an EMA-only row of 5 off 16 bytes and one of 8,200 aligned; an int64
+    row of 3. Returns (table, hyper, d, one_minus_d, step, extra)."""
+    import torch
+
+    from yololite_tpu_torch.ops import optim_kernels as OK
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def t(n, off=False, s=1.0):
+        x = (torch.randn(n + off, generator=gen, device="cuda") * s).to(dtype or torch.float32)
+        return x[1:] if off else x
+
+    train = []
+    for n, gid, off in ((1, 0, False), (7, 1, False), (4097, 2, True), (13, 1, True)):
+        train.append((t(n, off), t(n, off, 3.0), t(n, off, 0.1), t(n, off, 0.1).square(), t(n, off), gid))
+    rest = [(t(5, True), t(5, True)), (t(8200), t(8200)),
+            (torch.arange(3, device="cuda"), torch.arange(7, 10, device="cuda"))]
+    hyper = torch.tensor([0.01, 0.02, 0.03, 0.87], device="cuda")
+    d = torch.tensor(0.25, device="cuda")
+    return (OK.ApplyTable(train, rest), hyper, d, 1.0 - d, torch.tensor(4, dtype=torch.int32, device="cuda"),
+            torch.tensor(0.5, device="cuda"))
+
+
+def max_abs_diff(xs, ys) -> float:
+    """The largest |x - y| over pairs of tensors, in fp64 (NaN where both are NaN counts 0)."""
+    import torch
+
+    worst = 0.0
+    for x, y in zip(xs, ys):
+        if x.numel():
+            a, b = x.double(), y.double()
+            worst = max(worst, float(torch.where(a.isnan() & b.isnan(), 0.0, (a - b).abs()).max()))
+    return worst
+
+
+def k10_rule_check(rule: str, second_run: bool = False) -> dict:
+    """K10 against its plain version on the card for one rule: on yolo11n (255 trainable tensors, 162 EMA-only
+    floating and 81 integer state_dict entries) over 2 applies with lr and momentum moving (`K10_RAMP`), and on
+    `k10_odd`'s tensors (two draws in fp32, one in fp64): every tensor it writes bit for bit given the kernel's
+    clip factor, the norm
+    within 1e-6 relative of the plain version's, one counted call an apply; with second_run, a second run from the
+    same start gives the same bits, the norm's included. Raises on a difference; returns {"checks", "norm_rel_err"
+    (largest), "max_abs_err" (largest |kernel - plain| over the tensors compared), "train", "floats", "ints", "vec"
+    (trainable rows on the 16-byte route)}."""
+    import torch
+
+    from yololite_tpu_torch.ops import optim_kernels as OK
+
+    def run(m, o, e, plain_of=None):
+        clips = []
+        for i, (lr_vec, momentum) in enumerate(K10_RAMP):
+            k10_grads(o, 100 + i)
+            o.set_lr_momentum(lr_vec, momentum)
+            e.advance()
+            if plain_of is None:
+                before = OK.optim_apply.launches
+                clips.append(o.apply(e.d, e.one_minus_d))
+                if OK.optim_apply.launches != before + 1:
+                    raise AssertionError(f"optim_apply {rule}: {OK.optim_apply.launches - before} counted calls")
+            else:
+                clips.append(k10_plain_step(o, e, plain_of[i][1]))
+        torch.cuda.synchronize()
+        return clips
+
+    worst, checks = 0.0, 0
+    (ma, oa, ea), (mb, ob, eb) = k10_setup(rule, 7), k10_setup(rule, 7)
+    got = run(ma, oa, ea)
+    want = run(mb, ob, eb, plain_of=got)  # each apply of the plain run at the kernel run's clip factor
+    for i, (clip, plain) in enumerate(zip(got, want)):
+        rel = abs(float(clip[0]) - float(plain[0])) / float(plain[0])
+        worst = max(worst, rel)
+        if rel > 1e-6 or not float(clip[1]) < 1:
+            raise AssertionError(f"optim_apply {rule}, apply {i}: norm {float(clip[0])!r} vs plain "
+                                 f"{float(plain[0])!r}, scale {float(clip[1])!r}")
+        checks += 1
+    err = max_abs_diff(k10_state(ma, oa, ea), k10_state(mb, ob, eb))
+    bad = [i for i, (x, y) in enumerate(zip(k10_state(ma, oa, ea), k10_state(mb, ob, eb))) if not same_bits(x, y)]
+    if bad:
+        raise AssertionError(f"optim_apply {rule} on yolo11n differs from its plain version in {len(bad)} tensors "
+                             f"(first: state index {bad[0]})")
+    if second_run:
+        mc, oc, ec = k10_setup(rule, 7)
+        again = run(mc, oc, ec)
+        if not (all(same_bits(x, y) for x, y in zip(again, got)) and
+                all(same_bits(x, y) for x, y in zip(k10_state(mc, oc, ec), k10_state(ma, oa, ea)))):
+            raise AssertionError(f"optim_apply {rule}: a second run from the same start gave other bits")
+        del mc, oc, ec
+    out = {"train": len(oa.table.train), "floats": len(oa.table.floats), "ints": len(oa.table.ints),
+           "vec": sum(OK._vec16(*r[:5]) for r in oa.table.train)}
+    del ma, oa, ea, mb, ob, eb
+    for seed, dtype in ((11, torch.float32), (12, torch.float32), (13, torch.float64)):
+        runs = []
+        for _ in range(2):
+            table, hyper, d, omd, step, extra = k10_odd(seed, dtype)
+            scalars, _ = OK.step_scalars(rule, step, hyper[3], extra)
+            runs.append((table, hyper, scalars, d, omd))
+        (ta, ha, sa, da, oda), (tb, hb, sb, db, odb) = runs
+        clip = OK.optim_apply(ta, rule, ha, sa, 5e-4, da, oda)
+        plain = OK.optim_apply_plain(tb, rule, hb, sb, 5e-4, db, odb, scale=clip[1])
+        torch.cuda.synchronize()
+        rel = abs(float(clip[0]) - float(plain[0])) / float(plain[0])
+        worst = max(worst, rel)
+        err = max(err, max_abs_diff(k10_table_tensors(ta), k10_table_tensors(tb)))
+        if rel > 1e-6 or not all(same_bits(x, y) for x, y in zip(k10_table_tensors(ta), k10_table_tensors(tb))):
+            raise AssertionError(f"optim_apply {rule} on the odd {dtype} tensors (seed {seed}) differs from its plain "
+                                 f"version")
+        checks += 1
+    return {"checks": checks, "norm_rel_err": worst, "max_abs_err": err, **out}
+
+
+def k10_checks(card: str) -> dict:
+    """`k10_rule_check` for all 7 rules, AdamW with a second run. Returns {"checks", "norm_rel_err" (largest),
+    "max_abs_err"}."""
+    results = {rule: k10_rule_check(rule, second_run=rule == "AdamW") for rule in K10_RULES}
+    checks = sum(r["checks"] for r in results.values())
+    worst = max(r["norm_rel_err"] for r in results.values())
+    err = max(r["max_abs_err"] for r in results.values())
+    r = results["AdamW"]
+    log(f"kernel: optim_apply (K10) bit for bit against its plain version given its clip factor, for all 7 rules "
+        f"({', '.join(K10_RULES)}), in {checks} checks: yolo11n's {r['train']} trainable tensors ({r['vec']} on the "
+        f"16-byte route), {r['floats']} EMA-only floating and {r['ints']} integer entries over 2 applies with lr and "
+        f"momentum moving, and tensors of 1, 7, 13 and 4,097 elements (two an element off 16 bytes), an EMA-only row "
+        f"of 5 off 16, in fp32 and in fp64 (the float64 reference step's), max |kernel - plain| {err!r}; the norm within "
+        f"{worst:.3g} relative of the plain version's fp64 sum; a second AdamW run the same bits; one counted call an "
+        f"apply, on {card}")
+    return {"checks": checks, "norm_rel_err": worst, "max_abs_err": err}
+
+
+def k10_bytes(table, rule: str) -> int:
+    """The bytes the function must move, each input read once and each output written once: p, g, mu, nu (not
+    SGD's) and the EMA read, and p, mu, nu, the EMA and the zeroed g written; each other floating entry and its EMA
+    read and the EMA written; each integer entry read and written. The norm's second read of g is this design's,
+    not the function's (g fits the L2), so it is not counted."""
+    n_train = sum(r[0].numel() for r in table.train)
+    arrays = 8 if rule == "SGD" else 10
+    n_float = sum(x.numel() for _, x in table.floats)
+    n_int = sum(x.numel() * x.element_size() for _, x in table.ints)
+    return 4 * n_train * arrays + 3 * 4 * n_float + 2 * n_int
+
+
+def k10_bound_ms(table, rule: str):
+    """Least time of one apply on the card: its bytes (`k10_bytes`) over HBM; the ~20 fp32 ops an element are far
+    under the fp32 rate."""
+    n = sum(r[0].numel() for r in table.train)
+    ops = 25 * n
+    by_bytes, by_ops = k10_bytes(table, rule) / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def device_kernels(fn) -> int:
+    """Device kernels (and memsets and copies) one call of fn launched, by torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False))
+
+
+def parent_apply(m, opt, ema, rule: str):
+    """The parent's apply on the same tensors, as the library yardstick: clip_grad_norm_, torch.optim's capturable
+    foreach AdamW (SGD: its fused form, nesterov) at device lr and a Python-float momentum, _foreach_zero_ and the
+    EMA's two foreach ops. Returns a function that runs one apply (no host sync: a graph captures it)."""
+    import torch
+
+    params = opt.params
+    lr = torch.tensor(0.01, device="cuda")
+    if rule == "SGD":
+        t_opt = torch.optim.SGD(params, lr=lr, momentum=0.9, nesterov=True, fused=True)
+    else:
+        t_opt = torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=5e-4, capturable=True,
+                                  foreach=True)
+    grads = [p.grad for p in params]
+    e_f, m_f = [], []
+    for e, x in zip(ema.ema.state_dict().values(), m.state_dict().values()):
+        if e.is_floating_point():
+            e_f.append(e)
+            m_f.append(x)
+
+    def step():
+        torch.nn.utils.clip_grad_norm_(params, 10.0, error_if_nonfinite=False)
+        t_opt.step()
+        torch._foreach_zero_(grads)
+        torch._foreach_mul_(e_f, ema.d)
+        torch._foreach_add_(e_f, torch._foreach_mul(m_f, ema.one_minus_d))
+
+    step()  # the state, outside any capture
+    return step
+
+
+def fused_library_step(m, opt, rule: str):
+    """torch.optim's fused AdamW (SGD: fused SGD, nesterov) stepping alone over the same parameters: the library's
+    fastest form of the update alone (no clip, no zeroing, no EMA). Returns a function of one step."""
+    import torch
+
+    lr = torch.tensor(0.01, device="cuda")
+    if rule == "SGD":
+        t_opt = torch.optim.SGD(opt.params, lr=lr, momentum=0.9, nesterov=True, fused=True)
+    else:
+        t_opt = torch.optim.AdamW(opt.params, lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=5e-4,
+                                  fused=True, capturable=True)
+    t_opt.step()
+    return t_opt.step
+
+
+def k10_numbers(card: str) -> dict:
+    """K10 at yolo11n, AdamW and SGD, by device time: the kernel's call cold (`cold_graph_ms`: two sets of tensors
+    in turn, each apply's 95-116 MB beyond the L2) and warm, the whole apply as the trainer runs it (the step
+    scalars and K10) replayed as a graph, cold; its plain version (back-to-back calls, CUDA events); the bound; the
+    library yardsticks, cold: torch.optim's fused AdamW or SGD stepping alone, and the parent's whole apply
+    (clip_grad_norm_, capturable foreach torch.optim, _foreach_zero_, the EMA's foreach); the device kernels one
+    apply launches in each form (torch.profiler). Returns {rule: {...}}."""
+    import torch
+
+    from yololite_tpu_torch.ops import optim_kernels as OK
+
+    out = {}
+    for rule in ("AdamW", "SGD"):
+        sets = [k10_setup(rule, 20 + i) for i in range(2)]
+        m, opt, ema = sets[0]
+        for _, o, e in sets:
+            o.set_lr_momentum([0.01] * 3, 0.9)
+            e.advance()
+        s = [OK.step_scalars(rule, o.step, o.momentum, o.extra)[0] for _, o, _ in sets]
+        kernel = [lambda o=o, e=e, s=s_: OK.optim_apply(o.table, rule, o.hyper, s, o.weight_decay, e.d,
+                                                         e.one_minus_d) for (_, o, e), s_ in zip(sets, s)]
+        whole = [lambda o=o, e=e: o.apply(e.d, e.one_minus_d) for _, o, e in sets]
+        ms = cold_graph_ms(kernel)
+        warm = graph_ms(kernel[0])
+        whole_ms = cold_graph_ms(whole)
+        plain_ms = cuda_ms(lambda: OK.optim_apply_plain(opt.table, rule, opt.hyper, s[0], opt.weight_decay, ema.d,
+                                                        ema.one_minus_d), 3, warmup=1)
+        bound, bound_by = k10_bound_ms(opt.table, rule)
+        launches_k10 = device_kernels(whole[0])
+        for i, (_, o, _) in enumerate(sets):  # the gradients again (the applies zeroed them), for the yardsticks
+            k10_grads(o, 30 + i)
+        fused = [fused_library_step(mm, o, rule) for mm, o, _ in sets]
+        lib_ms = cold_graph_ms(fused)
+        parent = [parent_apply(mm, o, e, rule) for mm, o, e in sets]
+        parent_ms = cold_graph_ms(parent, iters=5)
+        launches_parent = device_kernels(parent[0])
+        mb = k10_bytes(opt.table, rule) / 1e6
+        out[rule] = {"ms": ms, "warm_ms": warm, "apply_ms": whole_ms, "plain_ms": plain_ms, "bound_ms": bound,
+                     "bound_by": bound_by, "library_ms": lib_ms, "parent_apply_ms": parent_ms, "mbytes": mb,
+                     "device_kernels_an_apply": launches_k10, "parent_device_kernels_an_apply": launches_parent,
+                     "trainable": len(opt.table.train), "values": sum(r[0].numel() for r in opt.table.train)}
+        log(f"kernel: optim_apply (K10) {rule} on yolo11n ({len(opt.table.train)} trainable tensors, "
+            f"{out[rule]['values']} values; {mb:.1f} MB an apply): {ms:.4f} ms device cold (graph replay, 2 sets in "
+            f"turn), {warm:.4f} warm, {ms / bound:.2f}x its bound of {bound:.4f} ms ({bound_by}); the whole apply "
+            f"(step scalars + K10) {whole_ms:.4f} ms cold, {launches_k10} device kernels; plain version "
+            f"{plain_ms:.3f} ms (back-to-back calls); torch.optim fused {rule} stepping alone {lib_ms:.4f} ms cold; "
+            f"the parent's whole apply (clip_grad_norm_, {'fused SGD' if rule == 'SGD' else 'capturable foreach AdamW'}"
+            f", _foreach_zero_, the EMA's foreach) {parent_ms:.4f} ms cold as a graph, {launches_parent} device "
+            f"kernels, on {card}")
+        del sets, kernel, whole, fused, parent, m, opt, ema
+        torch.cuda.empty_cache()
+    return out
+
+
 @contextlib.contextmanager
 def plain_loss():
     """The loss tail through its plain versions inside the block: K5, K6a and K6b as autograd Functions of the plain
@@ -2236,13 +2592,47 @@ def train_step_groups(tr) -> dict:
             "EMA": [v for v in tr.ema.ema.state_dict().values() if v.is_floating_point()]}
 
 
+def record_graph_calls(tr) -> list:
+    """Record every call of a trainer's graph cache: (key, "eager", "captured" or "replayed") per call, in order
+    (a capture also replays: "captured"). Returns the list it fills."""
+    calls = []
+    step = tr.graphs.step
+
+    def recording(fn, inputs, key, device, holds=None):
+        g = tr.graphs
+        before = (g.calls, g.captures, g.replays)
+        out = step(fn, inputs, key, device, holds)
+        how = ("captured" if g.captures > before[1] else "replayed" if g.replays > before[2] else
+               "eager" if g.calls > before[0] else "uncached")
+        calls.append((key, how))
+        return out
+
+    tr.graphs.step = recording
+    return calls
+
+
+def replays_from_third_sight(calls, kind: str):
+    """(calls of `kind`, those replayed without a capture, whether every call after its key's second sight was one)
+    from `record_graph_calls`' list."""
+    seen, n, replayed, ok = {}, 0, 0, True
+    for key, how in calls:
+        if key[0] != kind:
+            continue
+        seen[key] = seen.get(key, 0) + 1
+        n += 1
+        replayed += how == "replayed"
+        ok &= how == ("eager" if seen[key] == 1 else "captured" if seen[key] == 2 else "replayed")
+    return n, replayed, ok
+
+
 def graphed_vs_eager_steps(ov, model_fn, batches, nw: int) -> dict:
     """Trainers from the same start take the same iterations (`batches`, the warmup ramping lr, momentum and
     accumulate over `nw` iterations) in deterministic mode: one through the train graphs, one eagerly
     (`graphs.eager()`) and one more eagerly (the eager-to-eager spread). Returns per group (loss items, fg_mask,
     weights, BN statistics, optimizer moments, EMA) whether graphed equals eager bit for bit and the largest
-    |graphed - eager| and |eager - eager|, the graphed trainer's captures, replays and warm-ups by kind of step,
-    its applies, and the ops that have no deterministic CUDA version."""
+    |graphed - eager| and |eager - eager|, the graphed trainer's captures, replays and warm-ups by kind of step and
+    each graph call (`record_graph_calls`), its applies, its optimizer step, and the ops that have no
+    deterministic CUDA version."""
     import numpy as np
     import torch
 
@@ -2256,6 +2646,7 @@ def graphed_vs_eager_steps(ov, model_fn, batches, nw: int) -> dict:
             tr.set_model(model_fn())
             tr._setup_train()
             tr.model.train()
+            calls = record_graph_calls(tr)
             items, fg, last, applies = [], [], -1, 0
             with graphs.eager() if kind != "graphed" else contextlib.nullcontext():
                 for ni, b in enumerate(batches):
@@ -2266,10 +2657,10 @@ def graphed_vs_eager_steps(ov, model_fn, batches, nw: int) -> dict:
                     if apply:
                         last, applies = ni, applies + 1
             torch.cuda.synchronize()
-            runs[kind] = (tr, {"loss items": items, "fg_mask": fg, **train_step_groups(tr)}, applies)
-    tg, g, applies = runs["graphed"]
-    _, e, _ = runs["eager"]
-    _, e2, _ = runs["eager again"]
+            runs[kind] = (tr, {"loss items": items, "fg_mask": fg, **train_step_groups(tr)}, applies, calls)
+    tg, g, applies, calls = runs["graphed"]
+    te, e, _, _ = runs["eager"]
+    _, e2, _, _ = runs["eager again"]
     dist = lambda xs, ys: max(float((x.detach().double() - y.detach().double()).abs().max()) if x.numel() else 0.0
                               for x, y in zip(xs, ys))
     out = {k: {"equal": all(torch.equal(x, y) for x, y in zip(g[k], e[k])), "graphed_eager": dist(g[k], e[k]),
@@ -2279,6 +2670,7 @@ def graphed_vs_eager_steps(ov, model_fn, batches, nw: int) -> dict:
         kinds[key[0]] = kinds.get(key[0], 0) + 1
     return {"groups": out, "captured": kinds, "captures": tg.graphs.captures, "replays": tg.graphs.replays,
             "warmups": tg.graphs.warmups, "calls": tg.graphs.calls, "steps": len(batches), "applies": applies,
+            "graph_calls": calls, "step": int(tg.optimizer.step), "eager_step": int(te.optimizer.step),
             "nondeterministic": sorted(nondet), "fused": tg.fused, "accumulate": tg.accumulate}
 
 
@@ -2325,6 +2717,7 @@ def train_phase(card: str):
     from yololite_tpu_torch.models import checkpoint as ckpt
     from yololite_tpu_torch.ops import loss_kernels as L
     from yololite_tpu_torch.ops import nms
+    from yololite_tpu_torch.ops import optim_kernels as OK
     from yololite_tpu_torch.ops.kernels import blocked_nms_finalize, device_letterbox, greedy_nms_keep, select_decode
 
     tmp = tempfile.TemporaryDirectory()
@@ -2337,7 +2730,11 @@ def train_phase(card: str):
     class CheckedTrainer(DetectionTrainer):
         """Checks each epoch's EMA val: K3 and K4 once per val batch of the K = 8192 NMS, K1 never, and (graphed)
         metrics equal to an eager val of the same EMA; records the val graphs' calls, captures and replays per
-        epoch."""
+        epoch, and each train step's graph call (`record_graph_calls`)."""
+
+        def _setup_train(self):
+            super()._setup_train()
+            self.graph_calls = record_graph_calls(self)
 
         def validate(self):
             k1, k4, k3 = greedy_nms_keep.launches, blocked_nms_finalize.launches, select_decode.launches
@@ -2370,10 +2767,10 @@ def train_phase(card: str):
                 seq[2].bias.fill_(-6.0)
         return m
 
-    # (a) the train graphs against the eager steps, in deterministic mode: N steps from the same start, the warmup
-    # (lr, momentum and accumulate ramping) over the first 4; AdamW in fp32 and bf16 through the grad and apply
-    # graphs (nbs 32: accumulate 1 -> 2; the apply graph keyed by the momentum captures once the ramp ends), SGD
-    # through the fused graph (nbs 16 at batch 16: accumulate 1; the ramp's steps eager by their momentum)
+    # (a) the train graphs against the eager steps, in deterministic mode: 10 steps from the same start, all of them
+    # in the warmup (lr, momentum and accumulate ramping every step); AdamW in fp32 and bf16 through the grad and
+    # apply graphs (nbs 32: accumulate 1 -> 2; one apply graph, lr and momentum device scalars), SGD through the
+    # fused graph (nbs 16 at batch 16: accumulate 1); each key's third and later calls replay, warmup included
     hyp = get_cfg(overrides={"data": str(data), "imgsz": 640, "batch": bs, "mode": "train"})
     dinfo = check_det_dataset(str(data))
     loader = build_dataloader(build_yolo_dataset(hyp, dinfo["train"], bs, dinfo, mode="train"), bs, hyp.workers,
@@ -2386,17 +2783,24 @@ def train_phase(card: str):
         ov = {"data": str(data), "imgsz": 640, "batch": bs, "val": False, "save": False, "plots": False,
               "project": str(root / "runs"), "name": case.replace(" ", "_"), **kw}
         t0 = time.perf_counter()
-        rep = graphed_vs_eager_steps(ov, lambda: start_model().model, batches, nw=4)
+        rep = graphed_vs_eager_steps(ov, lambda: start_model().model, batches, nw=n_steps)
         verdict = graphed_vs_eager_verdict(rep)
         want = {"fused"} if kw["optimizer"] == "SGD" else {"grad", "apply"}
-        if set(rep["captured"]) != want or rep["fused"] != (kw["optimizer"] == "SGD") or not rep["replays"]:
+        kind = "fused" if kw["optimizer"] == "SGD" else "apply"
+        n_apply, n_replayed, ok = replays_from_third_sight(rep["graph_calls"], kind)
+        if (set(rep["captured"]) != want or rep["fused"] != (kw["optimizer"] == "SGD") or not ok or
+                n_apply != rep["applies"] or not n_replayed or not rep["step"] == rep["eager_step"] == rep["applies"]):
             raise AssertionError(f"train graphs {case}: captured {rep['captured']}, fused {rep['fused']}, "
-                                 f"{rep['replays']} replays")
+                                 f"{kind} calls {n_apply} ({n_replayed} replayed, from the third sight of a key: {ok})"
+                                 f", {rep['applies']} applies, optimizer step {rep['step']} (eager "
+                                 f"{rep['eager_step']})")
         groups = ", ".join(f"{k} {'equal' if v['equal'] else 'NOT equal'} (max |graphed - eager| "
                            f"{v['graphed_eager']:.3g}, |eager - eager| {v['eager_eager']:.3g})"
                            for k, v in rep["groups"].items())
-        log(f"train graphs (a) {case}: {rep['steps']} steps at 640, batch {bs}, warmup over 4, {rep['applies']} "
-            f"applies, accumulate {rep['accumulate']} at the end, deterministic mode: graphed == eager {verdict}; "
+        log(f"train graphs (a) {case}: {rep['steps']} steps at 640, batch {bs}, all in the warmup (lr, momentum "
+            f"and accumulate moving), {rep['applies']} applies ({n_replayed} of them replayed {kind} graphs, every "
+            f"call from a key's third sight; the optimizer's device step {rep['step']}), accumulate "
+            f"{rep['accumulate']} at the end, deterministic mode: graphed == eager {verdict}; "
             f"{groups}; graphs held by kind {rep['captured']}, {rep['captures']} captures, {rep['replays']} replays "
             f"of {rep['calls']} graph calls, {rep['warmups']} warm-ups; ops torch has no deterministic CUDA version "
             f"of: {rep['nondeterministic'] or 'none'}; {time.perf_counter() - t0:.1f} s, on {card}")
@@ -2419,16 +2823,18 @@ def train_phase(card: str):
     step_forms = graphed_step_forms(card, loss_trainer)
 
     # (b), (c) the facade's train, graphed (fp32 and bf16) and eager (fp32), 3 epochs: the keys repeat from the
-    # second step, the EMA val's bucket shapes from the second epoch; the loss tail's launches counted in the
-    # graphed runs and the resume (a replayed grad graph adds its capture's)
+    # second step, the EMA val's bucket shapes from the second epoch; every step is in the warmup (100 iterations),
+    # and its applies replay the one apply graph from the third; the loss tail's and K10's launches counted in the
+    # graphed runs and the resume (a replayed graph adds its capture's)
+    step_counted = (*L.COUNTED, OK.optim_apply)
     launches = {"greedy_nms_keep": 0, "blocked_nms_finalize": 0, "select_decode": 0, "device_letterbox": 0,
-                **{w.__name__: 0 for w in L.COUNTED}}
+                **{w.__name__: 0 for w in step_counted}}
     runs = {}
     for amp, mode in ((False, "graphed"), (True, "graphed"), (False, "eager")):
         dtype = "bf16" if amp else "fp32"
         m = start_model()
         greedy_nms_keep.launches = blocked_nms_finalize.launches = select_decode.launches = 0
-        for w in L.COUNTED:
+        for w in step_counted:
             w.launches = 0
         pool0 = graphs.pool_reserved_bytes()
         t0 = time.perf_counter()
@@ -2442,9 +2848,10 @@ def train_phase(card: str):
         n3 = select_decode.launches - getattr(t, "compare_k3", 0)
         if n1 or n3 != n:
             raise AssertionError(f"train {dtype}: {n1} K1 and {n3} K3 launches; every val NMS is K = 8192 (K3, K4)")
-        tail = {w.__name__: w.launches for w in L.COUNTED}
+        tail = {w.__name__: w.launches for w in step_counted}
         if not all(tail.values()):
-            raise AssertionError(f"train {dtype} {mode}: loss-tail launches {tail}")
+            raise AssertionError(f"train {dtype} {mode}: loss-tail and K10 launches {tail}")
+        n_apply, n_replayed, from_third = replays_from_third_sight(t.graph_calls, "apply")
         if mode == "graphed":
             launches["blocked_nms_finalize"] += n
             launches["select_decode"] += n3
@@ -2464,6 +2871,9 @@ def train_phase(card: str):
             if not g.replays or t.val_graphs[2][2] != n_val:
                 raise AssertionError(f"train {dtype}: {g.replays} train step replays; EMA val graphs (calls, "
                                      f"captures, replays) per epoch {t.val_graphs}, {n_val} batches")
+            if n_apply != 12 or n_replayed < 10 or not from_third:
+                raise AssertionError(f"train {dtype}: {n_replayed} of {n_apply} applies replayed (from the third "
+                                     f"sight: {from_third}); the warmup's applies replay the one apply graph")
         elif g.calls:
             raise AssertionError(f"train {dtype} eager: {g.calls} graph calls")
         runs[(dtype, mode)] = t
@@ -2472,14 +2882,44 @@ def train_phase(card: str):
             f"epoch loop without val {', '.join(f'{s_:.3f} s ({v:.1f} img/s)' for s_, v in zip(t.train_seconds, ips))}; "
             f"whole train() {wall:.2f} s; loss items per epoch {rows[:, 1:4].round(5).tolist()}; train steps "
             f"{g.calls} on the card, {g.captures} captured, {g.replays} replayed ({len(t._step_shapes)} (shape, M) "
-            f"variants, graphs held by kind {sorted(k[0] for k in g._graphs)}); EMA val graphs (calls, captures, "
-            f"replays) per epoch {t.val_graphs}, metrics equal to an eager val each epoch; loss-tail launches "
+            f"variants, graphs held by kind {sorted(k[0] for k in g._graphs)}); applies {n_apply}, {n_replayed} of "
+            f"them replayed (all {n_apply} in the warmup's ramp of lr and momentum); EMA val graphs (calls, captures, "
+            f"replays) per epoch {t.val_graphs}, metrics equal to an eager val each epoch; loss-tail and K10 launches "
             f"{tail}; K4 launches {n} "
             f"(and {getattr(t, 'compare_k4', 0)} in those eager vals) "
             f"({t.val_launches} in the EMA vals, the rest in the final val of best.npz: one batch, seen once, so "
             f"eager); graph pool {graphs.pool_reserved_bytes() / 2 ** 20:.1f} MiB reserved (+"
             f"{(graphs.pool_reserved_bytes() - pool0) / 2 ** 20:.1f} in this run), "
             f"{graphs.pool_allocated_bytes() / 2 ** 20:.1f} MiB of it held by live blocks, on {card}")
+
+    # the fused form through the facade: nbs 16 at batch 16 (accumulate 1 for the whole run), fp32 and bf16, 3
+    # epochs without val: one fused graph per (shape, M) key, replayed from the key's third sight through the warmup
+    for amp in (False, True):
+        dtype = "bf16" if amp else "fp32"
+        m = start_model()
+        for w in step_counted:
+            w.launches = 0
+        t0 = time.perf_counter()
+        m.train(trainer=CheckedTrainer, data=str(data), epochs=3, imgsz=640, batch=bs, nbs=bs, amp=amp, val=False,
+                plots=False, project=str(root / "runs"), name=f"{dtype}_fused")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        t = m.trainer
+        tail = {w.__name__: w.launches for w in step_counted}
+        n_fused, n_replayed, from_third = replays_from_third_sight(t.graph_calls, "fused")
+        rows = np.loadtxt(t.csv, delimiter=",", skiprows=1, ndmin=2)
+        if (not t.fused or not all(tail.values()) or n_fused != 12 or not n_replayed or not from_third or
+                rows.shape[0] != 3 or not np.isfinite(rows).all()):
+            raise AssertionError(f"train {dtype} fused: fused {t.fused}, {n_replayed} of {n_fused} fused steps "
+                                 f"replayed (from the third sight: {from_third}), launches {tail}, results {rows}")
+        for name, v in tail.items():
+            launches[name] += v
+        g = t.graphs
+        log(f"train: yolo11n {dtype} fused (nbs {bs}: accumulate 1) at 640, batch {bs}, {n_train} images, 3 epochs, "
+            f"no val: epoch loop {', '.join(f'{s_:.3f} s' for s_ in t.train_seconds)}, whole train() {wall:.2f} s; "
+            f"{n_fused} fused steps, {n_replayed} replayed ({len(t._step_shapes)} (shape, M) keys; all in the "
+            f"warmup's ramp of lr and momentum); graphs held by kind {sorted(k[0] for k in g._graphs)}; loss items per "
+            f"epoch {rows[:, 1:4].round(5).tolist()}; loss-tail and K10 launches {tail}, on {card}")
 
     # reload best.npz and predict; resume last.npz for one more epoch with the optimizer state restored
     t32 = runs[("fp32", "graphed")]
@@ -2506,26 +2946,31 @@ def train_phase(card: str):
             want_nu = ckpt.tensors_of(self.model, state["opt"]["nu"], named)
             if not all(torch.equal(mu[k].cpu(), want_mu[k]) and torch.equal(nu[k].cpu(), want_nu[k]) for k in named):
                 raise AssertionError("resume: optimizer moments differ from last.npz's")
-            restored.update(step=int(self.optimizer.state[next(iter(named.values()))]["step"]),
-                            epoch=self.start_epoch, updates=self.ema.updates, saved_epoch=meta["epoch"])
+            restored.update(step=int(self.optimizer.step), epoch=self.start_epoch, updates=self.ema.updates,
+                            saved_epoch=meta["epoch"])
 
     blocked_nms_finalize.launches = select_decode.launches = 0
-    for w in L.COUNTED:
+    for w in step_counted:
         w.launches = 0
     rt = ResumeChecked(overrides={"resume": str(t32.last)})
     rt.epochs = 4
     rt.train()
-    for w in L.COUNTED:
+    for w in step_counted:
         if not w.launches:
             raise AssertionError(f"resume: {w.__name__} never launched")
         launches[w.__name__] += w.launches
     launches["blocked_nms_finalize"] += blocked_nms_finalize.launches - getattr(rt, "compare_k4", 0)
     launches["select_decode"] += select_decode.launches - getattr(rt, "compare_k3", 0)
-    if restored.get("epoch") != 3 or restored["saved_epoch"] != 2 or rt.epoch != 3 or restored["step"] < 1:
-        raise AssertionError(f"resume: {restored}, ran to epoch {rt.epoch}")
+    n_apply, n_replayed, from_third = replays_from_third_sight(rt.graph_calls, "apply")
+    if (restored.get("epoch") != 3 or restored["saved_epoch"] != 2 or rt.epoch != 3 or restored["step"] < 1 or
+            restored["step"] != restored["updates"] or int(rt.optimizer.step) != restored["step"] + n_apply or
+            not from_third):
+        raise AssertionError(f"resume: {restored}, ran to epoch {rt.epoch}, optimizer step {int(rt.optimizer.step)} "
+                             f"after {n_apply} applies ({n_replayed} replayed, from the third: {from_third})")
     log(f"train: best.npz predicts on the card ({[len(r) for r in res]} detections); resume from last.npz (epoch "
         f"{restored['saved_epoch']}) ran epoch {rt.epoch + 1} with AdamW at step {restored['step']} and "
-        f"{restored['updates']} EMA updates restored, moments equal to the file's, on {card}")
+        f"{restored['updates']} EMA updates restored, moments equal to the file's; its {n_apply} applies advanced "
+        f"the device step to {int(rt.optimizer.step)}, {n_replayed} of them replayed, on {card}")
 
     # one val batch inside the trainer: the EMA net's maps through nms_from_feats with K4 and its plain version
     vb = next(iter(t32.validator.dataloader))
@@ -2615,11 +3060,13 @@ def train_phase(card: str):
             f"{g.captures} captures, {g.replays} replays, on {card}")
 
     # where an epoch loop's wall time goes (fp32), graphed and eager: blocked on the loader, enqueueing the step
-    # (a replay: the graph launch and the copies in and out), waiting for the card
+    # (a replay: the graph launch and the copies in and out), waiting for the card; every step in the warmup's ramp
+    # (lr and momentum moving), as the first 100 iterations of a run are
     lt = DetectionTrainer(overrides={"data": str(data), "imgsz": 640, "batch": bs, "val": False, "save": False,
                                      "project": str(root / "runs"), "name": "loop"})
     lt.set_model(start_model().model)
     lt._setup_train()
+    ni = 0
     for mode in ("graphed", "eager"):
         parts = {"loader": 0.0, "upload": 0.0, "enqueue": 0.0, "device": 0.0}
         with graphs.eager() if mode == "eager" else contextlib.nullcontext():
@@ -2640,8 +3087,10 @@ def train_phase(card: str):
                     torch.cuda.synchronize()
                     t2 = time.perf_counter()
                     captures = lt.graphs.captures
+                    _, lr_vec, momentum = lt._schedule(ni, 100, 0)
+                    ni += 1
                     lt._grad_step(images, targets)
-                    lt._apply_step(np.full(3, 1e-5, np.float32), 0.9)
+                    lt._apply_step(lr_vec, momentum)
                     t3 = time.perf_counter()
                     per_step.append((t3 - t2, lt.graphs.captures > captures))
                     torch.cuda.synchronize()
@@ -2653,7 +3102,8 @@ def train_phase(card: str):
         ms = {k: v * 1e3 for k, v in parts.items()}
         calls, captures, replays = (a - b for a, b in zip((lt.graphs.calls, lt.graphs.captures, lt.graphs.replays),
                                                            counts))
-        log(f"train: one fp32 epoch loop taken apart, {mode}, its third pass ({n_train} images, {steps} steps, "
+        log(f"train: one fp32 epoch loop taken apart, {mode}, its third pass ({n_train} images, {steps} steps in the "
+            f"warmup's ramp, iterations {ni - steps}-{ni - 1} of 100, "
             f"{calls} graph calls: {replays} replayed ({captures} of them captured in this pass), {calls - replays} "
             f"eager at a key's first sight; host clock, a sync after the upload and after each step): "
             f"{t_loop * 1e3:.1f} ms = blocked on the loader {ms['loader']:.1f} ms + uploading the pageable uint8 "
@@ -4083,6 +4533,9 @@ def main() -> int:
     # the loss tail (K5, K6a, K6b with their backwards, K7) and K9 against their plain versions
     tail_checks = loss_tail_checks(card)
     k9_checks = compact_rows_checks(card)
+    # K10 (the apply) against its plain version, and timed at yolo11n beside its bound and the library's forms
+    k10_check = k10_checks(card)
+    k10 = k10_numbers(card)
 
     # ---- 3. slice: yolo11n predict at 640 through the facade ----
     from yololite_tpu_torch.engine.predictor import fp32_convs
@@ -4340,8 +4793,9 @@ def main() -> int:
         "launches": k3_launches,
         # on val's first fp32 batch (B 16, K 8,192 multi-label); predict's batch-32 maps under "predict"
         **{key: k3_val["numbers"][key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                                                    "library_ms", "shape", "boxes_bit_equal", "route",
-                                                    "kernels_a_call", "score_ms", "score_tb_s", "list_lengths")},
+                                                    "library_ms", "shape", "boxes_bit_equal", "kernels_a_call",
+                                                    "score_ms", "score_tb_s", "list_lengths")},
+        "k3_route": k3_val["numbers"]["route"],  # select_decode_plan's route; "route" is the contract's "cuda"
         "library": "torch.topk on the gated row (its tie order is not lax.top_k's: a yardstick)",
         "predict": {d: {key: v[key] for key in ("ms", "plain_ms", "bound_ms", "library_ms", "boxes_bit_equal",
                                                 "route", "kernels_a_call", "score_ms", "score_tb_s")}
@@ -4413,8 +4867,20 @@ def main() -> int:
                 "bf16": {k: h9[k] for k in keys},
                 "backward": {"name": "compact_rows_backward", "launches": counts["compact_rows_backward"],
                              **{k: fb9[k] for k in keys}, "bf16": {k: hb9[k] for k in keys}}}
+    k10a, k10s = k10["AdamW"], k10["SGD"]  # yolo11n's apply; launches: phase 5 (b)'s graphed runs and the resume
+    k10_keys = ("ms", "warm_ms", "apply_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "parent_apply_ms",
+                "mbytes", "device_kernels_an_apply", "parent_device_kernels_an_apply")
+    k10_entry = {"name": "optim_apply", "route": "cuda", "source": "yololite_tpu_torch/csrc/optim_apply.cu",
+                 # apply_step (:342-350) and fused_step's tail (:374-378): XLA ops, not a Pallas kernel
+                 "replaces": "yololite_tpu/engine/trainer.py:342",
+                 "launches": counts["optim_apply"], "max_abs_err": k10_check["max_abs_err"],
+                 **{k: k10a[k] for k in k10_keys}, "norm_rel_err": k10_check["norm_rel_err"],
+                 "shape": f"yolo11n AdamW: {k10a['trainable']} trainable tensors, {k10a['values']} values",
+                 "library": "torch.optim.AdamW(fused=True) stepping alone (parent_apply_ms: the parent's whole apply "
+                            "as a graph)",
+                 "SGD": {k: k10s[k] for k in k10_keys}}
     log(json.dumps({"kernels": [entry, k3_entry, k2_entry, k4_entry, k8_entry, k5_entry, k6a_entry, k6b_entry,
-                                k7_entry, k9_entry]}))
+                                k7_entry, k9_entry, k10_entry]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0
 

@@ -16,12 +16,13 @@ REPO = Path(__file__).resolve().parents[1]
 JAX, PORT = REPO / "yololite_tpu", REPO / "yololite_tpu_torch"
 
 EXCEPTIONS = {
-    # the functional optimizer (optax-style update rules over pytrees, their state, the param-group
-    # labels and the gradient clip): the port steps torch.optim optimizers (engine/optim.py
-    # build_optimizer) and clips with torch.nn.utils.clip_grad_norm_
+    # the functional optimizer's pytree forms (update rules over pytrees, their state tuple and init, the
+    # param-group labels tree, the clip over a tree): the port's engine/optim.py Optimizer holds the state, every
+    # rule is one tensor's update in ops/optim_kernels.py rule_update, the clip its grad_norm_plain and
+    # clip_scale, applied to all tensors at once by K10
     "engine/optim.py": {"OptState", "adam_update", "adamax_update", "adamw_update", "build_group_labels",
-                        "clip_by_global_norm", "group_of", "init_state", "nadam_update", "radam_update",
-                        "rmsprop_update", "sgd_update"},
+                        "clip_by_global_norm", "init_state", "nadam_update", "radam_update", "rmsprop_update",
+                        "sgd_update"},
     # pytree <-> state_dict plumbing: the port's weights are a state_dict already (state_dict_from_jax and
     # jax_trees bridge the two packages)
     "models/checkpoint.py": {"conform_tree", "pytree_to_state_dict", "state_dict_to_pytree"},
@@ -38,7 +39,8 @@ EXCEPTIONS = {
     # the Pallas kernels and their interpret helpers: ops/kernels.py greedy_nms_keep (K1,
     # csrc/greedy_nms_keep.cu) and device_letterbox
     "ops/pallas_kernels.py": {"device_letterbox", "greedy_nms_keep_pallas"},
-    "utils/ema.py": {"ema_update"},  # the functional EMA step: utils/ema.py ModelEMA.update
+    # the functional EMA step: utils/ema.py ModelEMA.update, ops/optim_kernels.py ema_plain
+    "utils/ema.py": {"ema_update"},
     "utils/loss.py": {"optax_sigmoid_bce"},  # utils/loss.py bce_sum
     # the TPU's blocked top-k forms that avoid a sort: ops/nms.py topk_stable
     "utils/tal.py": {"topk_blockmax_gather", "topk_hierarchical"},

@@ -213,7 +213,10 @@ def _bare_trainer(amp=False):
     return tr
 
 
-def test_train_graph_keys_separate_shape_m_amp_kind_and_momentum():
+def test_train_graph_keys_separate_shape_m_amp_and_kind_not_momentum():
+    """A train step's key holds its kind, the batch's shape and dtype, the GT bucket and amp; lr and momentum are
+    device scalars, so no key holds them: one apply graph, and one fused graph per batch key, serve the warmup
+    ramp."""
     tr = _bare_trainer()
     img = torch.zeros((2, 64, 64, 3), dtype=torch.uint8)
     t16, t32 = ({"gt_bboxes": torch.zeros((2, m, 4))} for m in (16, 32))
@@ -223,11 +226,12 @@ def test_train_graph_keys_separate_shape_m_amp_kind_and_momentum():
     assert grad != tr._step_key("grad", torch.zeros((2, 64, 64, 3)), t16)  # dtype
     assert grad != tr._step_key("grad", img, t32)  # GT bucket M
     assert grad != _bare_trainer(amp=True)._step_key("grad", img, t16)  # amp
-    assert grad != tr._step_key("fused", img, t16, 0.9)  # kind
-    apply = tr._step_key("apply", None, None, 0.9)
-    assert apply != tr._step_key("apply", None, None, 0.85) and apply != grad  # momentum, kind
-    assert apply == tr._step_key("apply", None, None, np.float32(0.9))  # the float32 value the step takes
-    assert tr._step_key("fused", img, t16, 0.9) != tr._step_key("fused", img, t16, 0.8)
+    fused = tr._step_key("fused", img, t16)
+    assert fused != grad and fused[1:] == grad[1:]  # kind
+    apply = tr._step_key("apply", None, None)
+    assert apply == ("apply", "cpu") and apply != grad
+    with pytest.raises(TypeError):  # no momentum argument left
+        tr._step_key("apply", None, None, 0.9)
 
 
 def test_static_grad_accumulation_equals_set_to_none():
@@ -257,25 +261,28 @@ def test_static_grad_accumulation_equals_set_to_none():
 
 @pytest.mark.parametrize("name", ["Adam", "AdamW", "NAdam", "SGD"])
 def test_load_moments_places_state_on_the_parameters_device_when_capturable(name):
-    """A capturable optimizer (the card's) keeps `step` and NAdam's `mu_product` on the parameter's device, so
-    `load_moments` puts them there; otherwise they stay on the host, as torch keeps them. The meta device stands
-    in for the card."""
+    """The optimizer keeps all of its state on the parameters' device (the card's, which a captured apply reads):
+    the moments, the int32 step, NAdam's fp32 mu_product and the lr and momentum scalars, allocated at
+    construction; `load_moments` writes them in place, so a table or graph built before still reads them. The meta
+    device stands in for the card; the CPU gives the values."""
     from yololite_tpu_torch.engine import optim as toptim
 
-    for capturable in (False, True):
-        p = torch.nn.Parameter(torch.zeros(3, device="meta"))
-        cls = {"Adam": torch.optim.Adam, "AdamW": torch.optim.AdamW, "NAdam": torch.optim.NAdam,
-               "SGD": torch.optim.SGD}[name]
-        kw = {"momentum": 0.9} if name == "SGD" else {"capturable": capturable}
-        opt = cls([{"params": [p]}, {"params": []}, {"params": []}], lr=0.01, **kw)
-        mu = {"p": torch.ones(3)}
-        toptim.load_moments(name, opt, {"p": p}, mu, {"p": torch.full((3,), 2.0)}, step=5, beta1=0.9)
-        st = opt.state[p]
-        assert st[toptim._MOMENTS[name][0]].device.type == "meta"
-        scalars = [st[k] for k in ("step", "mu_product") if k in st]
-        assert len(scalars) == (0 if name == "SGD" else 2 if name == "NAdam" else 1)
-        for t in scalars:
-            assert t.device.type == ("meta" if capturable else "cpu") and t.dtype == torch.get_default_dtype()
+    for device in ("meta", "cpu"):
+        model = torch.nn.Sequential(torch.nn.Conv2d(2, 3, 1)).to(device)
+        opt = toptim.build_optimizer(name, model, lr=0.01, momentum=0.9, weight_decay=0.0)
+        named = dict(model.named_parameters())
+        held = [*opt.mu, *opt.nu, opt.step, opt.extra, opt.hyper]
+        mu = {n: torch.ones_like(p, device="cpu") for n, p in named.items()}
+        nu = {n: torch.full_like(p, 2.0, device="cpu") for n, p in named.items()}
+        toptim.load_moments(name, opt, named, mu, nu, step=5, beta1=0.9)
+        assert all(a is b for a, b in zip(held, [*opt.mu, *opt.nu, opt.step, opt.extra, opt.hyper]))  # in place
+        assert all(t.device.type == device for t in held)
+        assert opt.step.dtype == torch.int32 and opt.extra.dtype == opt.hyper.dtype == torch.float32
+        if device == "cpu":
+            assert int(opt.step) == 5 and all(bool((m == 1).all()) for m in opt.mu)
+            assert all(bool((v == 2).all()) for v in opt.nu)
+            want = np.float32(toptim.nadam_mu_product(5, 0.9)) if name == "NAdam" else np.float32(1.0)
+            assert float(opt.extra) == float(want)
 
 
 def test_half_ema_val_copy_updated_in_place_equals_a_fresh_inference_net():

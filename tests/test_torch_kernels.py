@@ -14,12 +14,12 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (COMPACT_CASES, COMPACT_ROUTES, K3_CASES, K3_RECT, K3_ROUTES, LOSS_TAIL_EDGE_SHAPES,
+from chip_smoke import (COMPACT_CASES, COMPACT_ROUTES, K3_CASES, K3_RECT, K3_ROUTES, K10_RULES, LOSS_TAIL_EDGE_SHAPES,
                         LOSS_TAIL_ROUTES, LOSS_TAIL_SHAPES, TOPK_CASES, bce_sum_kernel_order, compact_case_check,
                         compact_gradient, compact_kernels_a_call, compact_layout, compact_mask, e2e_loss_check,
-                        k3_args, k3_check, k3_maps, k4_scene, loss_tail_case, loss_tail_case_checks,
+                        k10_rule_check, k3_args, k3_check, k3_maps, k4_scene, loss_tail_case, loss_tail_case_checks,
                         loss_tail_check, loss_tail_inputs, loss_tail_metrics, loss_tail_pairs, loss_tail_step_check,
-                        same_bits, topk_case_check)
+                        replays_from_third_sight, same_bits, topk_case_check)
 from yololite_tpu_torch.engine import graphs
 from yololite_tpu_torch.ops import loss_kernels as L
 from yololite_tpu_torch.ops.kernels import (blocked_nms_finalize, blocked_nms_finalize_plain, device_letterbox,
@@ -685,18 +685,23 @@ TRAIN_CASES = {"grad_apply_fp32": dict(optimizer="AdamW", nbs=4, amp=False),
 
 @pytest.mark.parametrize("case", list(TRAIN_CASES))
 def test_graphed_train_steps_equal_eager(card, case, tmp_path):
-    """4 steps at imgsz 160, batch 2, in deterministic mode: the grad graph (captured at step 2) and the apply graph
-    (accumulate 2: applies at steps 2 and 4, captured at the second), or the fused graph (accumulate 1, SGD), give
-    the eager steps' loss items, fg_mask, weights, BN statistics, optimizer moments and EMA bit for bit."""
+    """10 steps at imgsz 160, batch 2, all in the warmup's ramp (lr, momentum and accumulate moving every step), in
+    deterministic mode: the grad graph and the one apply graph (accumulate 1 -> 2: applies at steps 1-5, 7, 9),
+    or the fused graph (accumulate 1, SGD), give the eager steps' loss items, fg_mask, weights, BN statistics,
+    optimizer moments and EMA bit for bit; each key's first call runs eagerly, its second captures, every later one
+    replays, warmup included; the optimizer's device step counts the applies in both runs."""
     from chip_smoke import graphed_vs_eager_steps
 
     data = _train_data(tmp_path)
     rep = graphed_vs_eager_steps(_train_overrides(data, tmp_path, case, **TRAIN_CASES[case]), _yolo11n_detecting,
-                                 _train_batches(4), nw=-1)
+                                 _train_batches(10), nw=10)
     fused = case == "fused_sgd"
     assert rep["fused"] == fused and rep["warmups"] == 0
     assert rep["captured"] == ({"fused": 1} if fused else {"grad": 1, "apply": 1})
-    assert rep["replays"] == (3 if fused else 3 + 1) and rep["applies"] == (4 if fused else 2)
+    assert rep["applies"] == (10 if fused else 7) and rep["step"] == rep["eager_step"] == rep["applies"]
+    n, replayed, from_third = replays_from_third_sight(rep["graph_calls"], "fused" if fused else "apply")
+    assert n == rep["applies"] and replayed == n - 2 and from_third
+    assert rep["replays"] == (9 if fused else 9 + 6)  # a capture replays too
     for group, v in rep["groups"].items():
         assert v["equal"], (group, v, rep["nondeterministic"])
 
@@ -728,7 +733,8 @@ def test_graphed_ema_val_equals_eager(card, half, tmp_path):
 
 def test_train_state_stays_outside_the_graph_pool(card, tmp_path):
     """After the grad and apply graphs are captured, no tensor that lives across steps (weights, BN statistics,
-    gradients, optimizer state and lr, EMA and its decay) lies in the graph pool; a graph's static outputs do."""
+    gradients, optimizer state, lr and momentum, K10's table, EMA and its decay) lies in the graph pool; a graph's
+    static outputs do."""
     from yololite_tpu_torch.engine.trainer import DetectionTrainer
 
     data = _train_data(tmp_path)
@@ -743,12 +749,56 @@ def test_train_state_stays_outside_the_graph_pool(card, tmp_path):
         last = ni if apply else last
     torch.cuda.synchronize()
     assert {k[0] for k in tr.graphs._graphs} == {"grad", "apply"}
-    state = [t for st in tr.optimizer.state.values() for t in st.values() if isinstance(t, torch.Tensor)]
-    lives = [*tr.model.state_dict().values(), *tr._grads, *state, *[g["lr"] for g in tr.optimizer.param_groups],
-             *tr.ema.ema.state_dict().values(), tr.ema.d, tr.ema.one_minus_d]
-    assert len(state) == 3 * len(tr._grads) and graphs.in_pool(lives) == []
+    state = tr.optimizer.state_tensors()  # mu, nu, step, mu_product, lr and momentum, K10's table
+    lives = [*tr.model.state_dict().values(), *tr._grads, *state, *tr.ema.ema.state_dict().values(), tr.ema.d,
+             tr.ema.one_minus_d]
+    assert len(state) == 2 * len(tr._grads) + 5 and graphs.in_pool(lives) == []
     grad = next(v for k, v in tr.graphs._graphs.items() if k[0] == "grad")
     assert len(graphs.in_pool(list(grad.static_out))) == 2  # the loss items and fg_mask: made in the capture
+
+
+# ---------------- K10: the apply ----------------
+
+
+@pytest.mark.parametrize("rule", K10_RULES)
+def test_optim_apply_kernel_matches_plain(card, rule):
+    """K10 for one rule against its plain version: yolo11n's 255 trainable tensors with its BN statistics and batch
+    counters over 2 applies with lr and momentum moving, then tensors of 1, 7, 13 and 4,097 elements (two an element
+    off 16 bytes) and EMA-only rows of 5 (off 16) and 8,200, in fp32 and fp64: every tensor written bit for bit
+    given the kernel's clip factor, the norm within 1e-6 relative; AdamW also a second run the same bits
+    (chip_smoke.k10_rule_check)."""
+    r = k10_rule_check(rule, second_run=rule == "AdamW")
+    assert r["checks"] == 5 and r["train"] == 255 and r["norm_rel_err"] <= 1e-6
+
+
+def test_optim_apply_replays_in_a_graph_with_the_step_advancing(card):
+    """One AdamW apply captured as a graph and replayed 10 times from the same start as 10 eager applies: the
+    optimizer's device step, the bias corrections read from it, and every tensor equal bit for bit (a step frozen
+    into the capture would replay step 4 ten times)."""
+    from chip_smoke import k10_grads, k10_setup, k10_state
+
+    runs = []
+    for graphed in (False, True):
+        m, opt, ema = k10_setup("AdamW", 5)
+        graph = None
+        for i in range(10):
+            k10_grads(opt, 50 + i)
+            opt.set_lr_momentum([0.001 * (i + 1)] * 3, 0.8 + 0.01 * i)
+            ema.advance()
+            if not graphed:
+                opt.apply(ema.d, ema.one_minus_d)
+                continue
+            if graph is None:
+                side = torch.cuda.Stream()
+                side.wait_stream(torch.cuda.current_stream())
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph, stream=side):
+                    opt.apply(ema.d, ema.one_minus_d)
+            graph.replay()
+        torch.cuda.synchronize()
+        runs.append((int(opt.step), k10_state(m, opt, ema)))
+    assert runs[0][0] == runs[1][0] == 13  # set up at step 3
+    assert all(same_bits(a, b) for a, b in zip(runs[0][1], runs[1][1]))
 
 
 # ---------------- K3: candidate select + DFL decode ----------------

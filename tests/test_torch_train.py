@@ -51,6 +51,7 @@ from yololite_tpu_torch.engine import optim as toptim
 from yololite_tpu_torch.engine import trainer as ttrainer
 from yololite_tpu_torch.models import checkpoint as ckpt
 from yololite_tpu_torch.models.model import DetectionModel
+from yololite_tpu_torch.ops import optim_kernels
 from yololite_tpu_torch.utils.ema import ema_decay
 
 from tests.test_torch_nms import _safe_grid
@@ -294,14 +295,43 @@ def _ema_host_floats(ema, model, updates):
         torch._foreach_add_(e_f, torch._foreach_mul(m_f, float(np.float32(1) - np.float32(d))))
 
 
+class _HostApply:
+    """The apply with its scalars as host values: the plain clip, each rule step with lr and momentum made into
+    fresh tensors from Python floats, the step counted on the host, moments of its own, the EMA's decay as Python
+    floats."""
+
+    def __init__(self, tr):
+        self.opt = tr.optimizer
+        self.mu = [torch.zeros_like(p) for p in self.opt.params]
+        self.nu = [torch.zeros_like(p) for p in self.opt.params]
+        self.step, self.extra = 0, torch.ones(())
+
+    @torch.no_grad()
+    def __call__(self, lr_vec, momentum):
+        o = self.opt
+        self.step += 1
+        b1 = torch.tensor(float(np.float32(momentum)))
+        s, extra = optim_kernels.step_scalars(o.name, torch.tensor(self.step, dtype=torch.int32), b1, self.extra)
+        self.extra = self.extra if extra is None else extra
+        scale = optim_kernels.clip_scale(optim_kernels.grad_norm_plain([p.grad for p in o.params]))
+        for i, (p, gid) in enumerate(zip(o.params, o.groups)):
+            g = p.grad * scale
+            lr = torch.tensor(float(np.float32(lr_vec[gid])))
+            p_new, self.mu[i], self.nu[i] = optim_kernels.rule_update(o.name, p, g, self.mu[i], self.nu[i], lr, b1,
+                                                                      o.weight_decay, gid == 1, s)
+            p.copy_(p_new)
+
+
 @pytest.mark.parametrize("opt", ["SGD", "AdamW"])
 @pytest.mark.parametrize("acc", [1, 2], ids=["accumulate1", "accumulate2"])
 def test_step_scalars_in_tensors_match_host_floats(dataset, opt, acc):
     """Over a warmup ramp (lr, momentum and accumulate ramping in; accumulate 1 is the fused step), the trainer's
-    step, with its EMA decay in 0-d tensors written before each apply, its gradients allocated once and added into
-    in place, and (SGD) each group's lr in a 0-d tensor written in place as the card's optimizer holds it, gives
-    the weights, BN statistics, EMA and loss items of the step with host floats and set_to_none gradients, bit for
-    bit."""
+    step, with each group's lr, the momentum and the EMA decay in 0-d tensors written in place before each apply,
+    the optimizer's step advanced on the device and its gradients allocated once and added into in place, gives
+    the weights, BN statistics, EMA and loss items of the step with host floats, a host step count and set_to_none
+    gradients, bit for bit. The reference (`_HostApply`) runs the port's own plain clip and rule steps, so this
+    checks only the plumbing of the device scalars; the rules themselves are held to the JAX package's update
+    functions in tests/test_torch_optim.py."""
     data, root = dataset
     kw = dict(nbs=2 * acc, optimizer=opt, imgsz=64)
     tt, ref = (ttrainer.DetectionTrainer(overrides=_overrides(data, root, f"{name}_{opt}{acc}", **kw), device="cpu")
@@ -310,9 +340,8 @@ def test_step_scalars_in_tensors_match_host_floats(dataset, opt, acc):
         t.set_model(DetectionModel(NARROW, nc=3).init(0))
         t._setup_train()
     assert tt.fused == (acc == 1) and isinstance(tt.ema.d, torch.Tensor)
-    if opt == "SGD":
-        for g in tt.optimizer.param_groups:
-            g["lr"] = torch.tensor(float(g["lr"]))
+    assert all(isinstance(x, torch.Tensor) and x.dim() == 0 for x in (*tt.optimizer.lr, tt.optimizer.momentum))
+    host_apply = _HostApply(ref)
     for p in ref.model.parameters():
         p.grad = None
     nw, last, updates, applies = 5, -1, 0, 0
@@ -324,15 +353,9 @@ def test_step_scalars_in_tensors_match_host_floats(dataset, opt, acc):
         total, want, _ = ref.loss_fn.forward(ref._forward(torch.from_numpy(b["img"])), ref._targets(b))
         total.backward()
         if apply:
-            torch.nn.utils.clip_grad_norm_(ref.model.parameters(), 10.0)
-            for gid, g in enumerate(ref.optimizer.param_groups):
-                g["lr"] = float(np.float32(lr_vec[gid]))
-                if "betas" in g:
-                    g["betas"] = (float(np.float32(momentum)), g["betas"][1])
-                else:
-                    g["momentum"] = float(np.float32(momentum))
-            ref.optimizer.step()
-            ref.optimizer.zero_grad(set_to_none=True)
+            host_apply(lr_vec, momentum)
+            for p in ref.model.parameters():
+                p.grad = None
             updates += 1
             _ema_host_floats(ref.ema.ema, ref.model, updates)
             last, applies = ni, applies + 1
@@ -341,7 +364,9 @@ def test_step_scalars_in_tensors_match_host_floats(dataset, opt, acc):
             for (k, x), y in zip(a.state_dict().items(), b_.state_dict().values()):
                 assert torch.equal(x, y), (ni, what, k)
     assert tt.ema.updates == updates == applies and applies >= (8 if acc == 1 else 5)
-    assert float(tt.optimizer.param_groups[1]["lr"]) == float(np.float32(lr_vec[1]))
+    assert int(tt.optimizer.step) == host_apply.step == applies
+    assert float(tt.optimizer.lr[1]) == float(np.float32(lr_vec[1]))
+    assert float(tt.optimizer.momentum) == float(np.float32(momentum))
 
 
 def test_multi_scale_grid_coarsens_like_jax(dataset):

@@ -85,8 +85,8 @@ Hazards, each met here or by the callers named:
    atomic sum picks its order at run time).
 6. Host syncs. A captured step may not wait for the card: no `.item()`, no
    pageable host-to-device copy, no shape that depends on the data. A train
-   step's scalars (lr, the EMA decay) are device tensors written before the
-   replay; what cannot be one (torch.optim's momentum) is part of the key.
+   step's scalars (lr, momentum, the EMA decay) are device tensors written
+   before the replay; the optimizer's step advances on the device.
 """
 
 from __future__ import annotations

@@ -1,120 +1,161 @@
-"""Optimizers on torch.optim with the JAX package's three parameter groups (port of yololite_tpu/engine/optim.py).
+"""Optimizers: the JAX package's 7 update rules with its three parameter groups, their state, lr and momentum on the
+device (port of yololite_tpu/engine/optim.py).
 
 Groups, in the order of the JAX package's lr vector: 0 biases (BN bias and
 conv bias), 1 weights (conv weights, the only group with weight decay), 2 BN
 weights. As there, the group follows the JAX leaf's name: a leaf 'bias' or
 'b' is a bias, a leaf 'scale' (a BN's weight, or a zoo block's own gate
 scale) is in group 2, everything else (Linear, LayerNorm and attention
-weights, `in_proj_bias`, `logit_scale`) is a weight. The trainer writes
-each group's lr and momentum (or betas[0]) every iteration. Frozen
-parameters are left out of the optimizer: no update and no decay, as the
-JAX package's trainable mask gives.
+weights, `in_proj_bias`, `logit_scale`) is a weight. Frozen parameters are
+left out of the optimizer: no update and no decay, as the JAX package's
+trainable mask gives.
 
-Each of the 7 names maps onto the torch.optim class whose update is the JAX
-formula: SGD(nesterov), Adam and RAdam with L2 decay folded into the
-gradient, AdamW with decoupled decay, Adamax, NAdam (mu_product kept per
-parameter, as the JAX package keeps one scalar) and RMSprop(alpha 0.99) with a
-momentum buffer.
+`Optimizer` holds what the JAX package's `OptState` holds, allocated at
+construction as zeros (`init_state`), outside any CUDA graph capture: the
+per-parameter first and second moments `mu` and `nu`, the int32 `step`,
+NAdam's running mu_product `extra`. Beside them, `hyper`: the three groups'
+lr and the momentum (SGD's, RMSProp's, the Adam family's beta1) as fp32
+device scalars, which `set_lr_momentum` writes in place with no host sync.
+As the JAX package traces lr and momentum, so that the warmup's
+interpolation costs no recompiles, the trainer's one apply graph (or fused
+graph) per key serves every iteration, the warmup ramp included.
 
-On the card the optimizer is built to be captured in a CUDA graph (the
-trainer's apply and fused steps, engine/graphs.py): each group's lr is a 0-d
-float32 tensor on the device, which `set_lr_momentum` writes in place with
-no host sync, and the optimizer state (the step counts too) lives on the
-device. SGD takes its fused form (`fused=True`, the one that reads a tensor
-lr without a sync); the others `capturable=True` on their foreach form. In
-this torch the momentum (SGD's and RMSprop's `momentum`, the Adam family's
-`betas[0]`) stays a Python float: foreach Adam's `_foreach_lerp_` takes its
-weight as a Python number, so a device `betas[0]` syncs and fails a capture,
-and its single-tensor form, which takes one, costs 6.6 ms of device time an
-AdamW step of yolo11n against 0.93 foreach (tools/optim_graph_probe.py on an
-NVIDIA H100 80GB HBM3, 700 W). So the trainer keys its apply graph by the
-momentum, and the warmup ramp's applies run eagerly. On the CPU nothing is
-captured: the lr and momentum are Python floats, as before.
+`apply` is JAX's `apply_step`: the step advances on the device, the rule's
+scalars (bias corrections, NAdam's mu schedule, RAdam's rectification) are
+computed once from it by torch ops (ops/optim_kernels.py `step_scalars`),
+and one call of K10 (ops/optim_kernels.py `optim_apply`, csrc/optim_apply.cu
+on the card, its plain version on the CPU) clips, updates every tensor,
+zeroes the gradients and moves the EMA. Every step of each rule is in the
+JAX package's order of operations in fp32, the bias corrections included,
+so the port follows the JAX update functions to the last bits (their
+difference is the fp64 norm of the clip, and XLA's own roundings).
 
-They differ from the JAX formulas only in rounding: AdamW divides sqrt(v) by
-sqrt(1 - beta2^t) where the JAX package takes sqrt(v / (1 - beta2^t)); off
-the card torch computes the Adam family's bias corrections in float64 on the
-host, while on the card (capturable) it computes them in float32 on the
-device, as the JAX package does; SGD's fused kernel on the card evaluates the
-same nesterov update as the foreach loop on the CPU, in one pass.
+`moments` and `load_moments` carry mu and nu by parameter name in the JAX
+package's checkpoint layout, with the step and NAdam's mu_product from the
+update count, so either package resumes the other's run.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List
 
 import numpy as np
 import torch
 import torch.nn as nn
 
-GROUP_BIAS, GROUP_WEIGHT, GROUP_BN = 0, 1, 2  # indices into the lr vector and the param groups
+from yololite_tpu_torch.ops import optim_kernels
+from yololite_tpu_torch.ops.optim_kernels import OPTIMIZERS
 
-OPTIMIZERS = ("SGD", "Adam", "Adamax", "AdamW", "NAdam", "RAdam", "RMSProp")
-# optimizer state names that hold the JAX package's first (mu) and second (nu) moments
-_MOMENTS = {
-    "SGD": ("momentum_buffer", None),
-    "Adam": ("exp_avg", "exp_avg_sq"),
-    "AdamW": ("exp_avg", "exp_avg_sq"),
-    "Adamax": ("exp_avg", "exp_inf"),
-    "NAdam": ("exp_avg", "exp_avg_sq"),
-    "RAdam": ("exp_avg", "exp_avg_sq"),
-    "RMSProp": ("momentum_buffer", "square_avg"),
-}
+GROUP_BIAS, GROUP_WEIGHT, GROUP_BN = 0, 1, 2  # indices into the lr vector
 
 
-def group_params(model: nn.Module) -> Tuple[List[nn.Parameter], ...]:
-    """(bias, weight, bn) lists of the trainable parameters, in module order."""
-    groups: Tuple[list, list, list] = ([], [], [])
-    for m in model.modules():
+def group_of(module: nn.Module, pname: str) -> int:
+    """The group of a module's own parameter `pname` (the JAX leaf rule)."""
+    if pname == "bias":  # BN bias and conv bias
+        return GROUP_BIAS
+    if isinstance(module, nn.BatchNorm2d) or pname == "scale":  # BN weight, and a zoo block's own 'scale'
+        return GROUP_BN
+    return GROUP_WEIGHT  # conv kernels and any other weight
+
+
+def _trainable(model: nn.Module):
+    """(name, parameter, group) of each trainable parameter, in the order of model.named_parameters()."""
+    out = []
+    for mname, m in model.named_modules():
         for pname, p in m.named_parameters(recurse=False):
-            if not p.requires_grad:
-                continue
-            if pname == "bias":  # BN bias and conv bias
-                gid = GROUP_BIAS
-            elif isinstance(m, nn.BatchNorm2d) or pname == "scale":  # BN weight, and a zoo block's own 'scale'
-                gid = GROUP_BN
-            else:  # conv kernels and any other weight
-                gid = GROUP_WEIGHT
-            groups[gid].append(p)
-    return groups
+            if p.requires_grad:
+                out.append((f"{mname}.{pname}" if mname else pname, p, group_of(m, pname)))
+    return out
 
 
-def build_optimizer(name: str, model: nn.Module, lr: float, momentum: float, weight_decay: float):
-    """The named torch.optim optimizer over the model's trainable parameters in the 3 groups; on the card, one that
-    a CUDA graph can capture (each group's lr a device tensor)."""
-    bias, weight, bn = group_params(model)
-    groups = [{"params": bias, "weight_decay": 0.0}, {"params": weight, "weight_decay": weight_decay},
-              {"params": bn, "weight_decay": 0.0}]
-    device = next((p.device for g in groups for p in g["params"]), torch.device("cpu"))
-    on_card = device.type == "cuda"
-    if on_card:  # written in place each iteration; allocated here, outside any capture
-        for g in groups:
-            g["lr"] = torch.full((), float(np.float32(lr)), dtype=torch.float32, device=device)
-    if name == "SGD":
-        return torch.optim.SGD(groups, lr=lr, momentum=momentum, nesterov=True, fused=on_card or None)
-    if name == "RMSProp":
-        return torch.optim.RMSprop(groups, lr=lr, alpha=0.99, eps=1e-8, momentum=momentum, capturable=on_card)
-    cls = {"Adam": torch.optim.Adam, "AdamW": torch.optim.AdamW, "Adamax": torch.optim.Adamax,
-           "NAdam": torch.optim.NAdam, "RAdam": torch.optim.RAdam}.get(name)
-    if cls is None:
-        raise NotImplementedError(f"optimizer '{name}' not supported; choose one of {OPTIMIZERS}")
-    return cls(groups, lr=lr, betas=(momentum, 0.999), eps=1e-8, capturable=on_card)
+class Optimizer:
+    """One of the 7 rules over a model's trainable parameters, its state on their device (see the module's notes).
+
+    `params` and `groups` list the trainable parameters in model order and
+    their groups; `mu`, `nu` their moments; `step`, `extra`, `hyper` (with
+    the views `lr`, three 0-d tensors, and `momentum`) the scalars. `track`
+    builds K10's table over these, the gradients and an EMA; `apply` runs
+    one step.
+    """
+
+    def __init__(self, name: str, model: nn.Module, lr: float, momentum: float, weight_decay: float):
+        if name not in OPTIMIZERS:
+            raise NotImplementedError(f"optimizer '{name}' not supported; choose one of {OPTIMIZERS}")
+        self.name = name
+        trainable = _trainable(model)
+        self.params = [p for _, p, _ in trainable]
+        self.groups = [gid for _, _, gid in trainable]
+        device = self.params[0].device if self.params else next(model.parameters()).device
+        self.mu = [torch.zeros_like(p, requires_grad=False) for p in self.params]
+        self.nu = [torch.zeros_like(p, requires_grad=False) for p in self.params]
+        self.step = torch.zeros((), dtype=torch.int32, device=device)
+        self.extra = torch.ones((), dtype=torch.float32, device=device)  # NAdam's mu_product
+        self.hyper = torch.tensor([lr, lr, lr, momentum], dtype=torch.float32, device=device)
+        self.lr = [self.hyper[i] for i in range(3)]
+        self.momentum = self.hyper[3]
+        self.weight_decay = float(np.float32(weight_decay))  # a Python float in the JAX step: fp32 there
+        self.table = None
+
+    def set_lr_momentum(self, lr_vec, momentum: float) -> None:
+        """Write this iteration's per-group lr and the momentum, as fp32, in place (no host sync)."""
+        for t, v in zip(self.lr, lr_vec):
+            t.fill_(float(np.float32(v)))
+        self.momentum.fill_(float(np.float32(momentum)))  # the JAX step takes momentum as a float32 scalar
+
+    def _sources(self, model: nn.Module, ema):
+        """(train, rest) of K10's table as the model and EMA hold them now: (p, g, mu, nu, ema, group) per trainable
+        parameter, (ema, x) per other state_dict entry."""
+        index = {id(p): i for i, p in enumerate(self.params)}
+        ema_sd = ema.ema.state_dict()
+        train = [None] * len(self.params)
+        rest = []
+        for k, x in model.state_dict(keep_vars=True).items():
+            i = index.get(id(x))
+            if i is None:
+                rest.append((ema_sd[k], x.detach()))
+            elif x.grad is None:
+                raise ValueError(f"optimizer: {k} has no gradient to apply; allocate it first")
+            else:
+                train[i] = (x.detach(), x.grad, self.mu[i], self.nu[i], ema_sd[k], self.groups[i])
+        if any(r is None for r in train):
+            raise ValueError("optimizer: a trainable parameter is not in the model's state_dict")
+        return train, rest
+
+    def track(self, model: nn.Module, ema) -> None:
+        """Build K10's table over the parameters, their gradients (allocated by then) and moments, and the EMA
+        (utils/ema.py ModelEMA) of every state_dict entry of `model`."""
+        self._tracked = (model, ema)
+        self.table = optim_kernels.ApplyTable(*self._sources(model, ema))
+
+    def stale(self) -> bool:
+        """Whether the table is missing or a tensor it walks was replaced since (build it again with `track`)."""
+        if self.table is None:
+            return True
+        try:
+            return optim_kernels.pointers(*self._sources(*self._tracked)) != self.table.pointers
+        except ValueError:  # a gradient dropped
+            return True
+
+    def state_tensors(self) -> List[torch.Tensor]:
+        """Every tensor of the optimizer that lives across steps (they must lie outside any CUDA graph pool)."""
+        return [*self.mu, *self.nu, self.step, self.extra, self.hyper,
+                *(self.table.device_tensors() if self.table is not None else [])]
+
+    @torch.no_grad()
+    def apply(self, d: torch.Tensor, one_minus_d: torch.Tensor) -> torch.Tensor:
+        """One step at the lr and momentum written before, the EMA at decay d: the step advanced, the rule's scalars
+        computed, then K10 (clip to norm 10, the update, the gradients zeroed, the EMA). Returns (norm, scale)."""
+        self.step.add_(1)
+        scalars, extra = optim_kernels.step_scalars(self.name, self.step, self.momentum, self.extra)
+        if extra is not None:
+            self.extra.copy_(extra)
+        return optim_kernels.optim_apply(self.table, self.name, self.hyper, scalars, self.weight_decay, d,
+                                         one_minus_d)
 
 
-def set_lr_momentum(optimizer: torch.optim.Optimizer, lr_vec, momentum: float) -> None:
-    """Write this iteration's per-group lr and the momentum (betas[0] for the Adam family) into the groups; a
-    device lr in place, with no host sync, so that a captured step reads it."""
-    m = float(np.float32(momentum))  # the JAX step takes momentum as a float32 scalar
-    for gid, g in enumerate(optimizer.param_groups):
-        lr = float(np.float32(lr_vec[gid]))
-        if isinstance(g["lr"], torch.Tensor):
-            g["lr"].fill_(lr)
-        else:
-            g["lr"] = lr
-        if "betas" in g:
-            g["betas"] = (m, g["betas"][1])
-        else:
-            g["momentum"] = m
+def build_optimizer(name: str, model: nn.Module, lr: float, momentum: float, weight_decay: float) -> Optimizer:
+    """The named optimizer over the model's trainable parameters in the 3 groups, its state on their device."""
+    return Optimizer(name, model, lr, momentum, weight_decay)
 
 
 def nadam_mu_product(step: int, beta1: float, momentum_decay: float = 0.004) -> float:
@@ -123,29 +164,28 @@ def nadam_mu_product(step: int, beta1: float, momentum_decay: float = 0.004) -> 
     return float(np.prod(beta1 * (1 - 0.5 * 0.96 ** (i * momentum_decay)))) if step else 1.0
 
 
-def moments(name: str, optimizer: torch.optim.Optimizer, named: Dict[str, nn.Parameter]):
-    """The optimizer's first and second moments by parameter name (zeros where it keeps none)."""
-    k_mu, k_nu = _MOMENTS[name]
+def moments(name: str, optimizer: Optimizer, named: Dict[str, nn.Parameter]):
+    """The optimizer's first and second moments by parameter name (zeros for a parameter it does not hold)."""
+    index = {id(p): i for i, p in enumerate(optimizer.params)}
     mu, nu = {}, {}
     for n, p in named.items():
-        st = optimizer.state.get(p, {})
-        mu[n] = st[k_mu] if k_mu in st else torch.zeros_like(p)
-        nu[n] = st[k_nu] if k_nu and k_nu in st else torch.zeros_like(p)
+        i = index.get(id(p))
+        mu[n] = optimizer.mu[i] if i is not None else torch.zeros_like(p, requires_grad=False)
+        nu[n] = optimizer.nu[i] if i is not None else torch.zeros_like(p, requires_grad=False)
     return mu, nu
 
 
-def load_moments(name: str, optimizer: torch.optim.Optimizer, named: Dict[str, nn.Parameter], mu: Dict, nu: Dict,
+@torch.no_grad()
+def load_moments(name: str, optimizer: Optimizer, named: Dict[str, nn.Parameter], mu: Dict, nu: Dict,
                  step: int, beta1: float) -> None:
-    """Restore the optimizer's per-parameter state from moments by name, as of `step` updates."""
-    k_mu, k_nu = _MOMENTS[name]
-    sdt = torch.get_default_dtype()  # torch keeps step counters in the default dtype: on the host, or on the
-    on_device = optimizer.param_groups[0].get("capturable", False)  # parameter's device when capturable
+    """Restore the moments by name, in place, and the state of `step` updates: the step, and NAdam's mu_product at
+    a constant beta1, as the JAX package's resume sets them."""
+    index = {id(p): i for i, p in enumerate(optimizer.params)}
     for n, p in named.items():
-        where = p.device if on_device else None
-        st = {k_mu: mu[n].to(p).clone()}
-        if name != "SGD":
-            st["step"] = torch.tensor(float(step), dtype=sdt, device=where)
-            st[k_nu] = nu[n].to(p).clone()
-        if name == "NAdam":
-            st["mu_product"] = torch.tensor(nadam_mu_product(step, beta1), dtype=sdt, device=where)
-        optimizer.state[p] = st
+        i = index.get(id(p))
+        if i is None:
+            continue
+        optimizer.mu[i].copy_(mu[n])
+        optimizer.nu[i].copy_(nu[n])
+    optimizer.step.fill_(int(step))
+    optimizer.extra.fill_(float(np.float32(nadam_mu_product(step, beta1))) if name == "NAdam" else 1.0)

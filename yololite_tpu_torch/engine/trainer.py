@@ -11,22 +11,22 @@ statistics follows.
 
 As the JAX package jits its grad, apply and fused steps, the one-process
 trainer on the card replays them as CUDA graphs (engine/graphs.py, one cache
-per trainer): a grad graph per (batch shape and dtype, GT bucket M, amp), an
-apply graph (clip, optimizer, zeroing, EMA) per momentum, and, when
-accumulate is 1 for the whole run (JAX's rule: round(nbs / batch) <= 1), one
-fused graph per (shape, M, amp, momentum) instead of both. A key's first
-sight runs eagerly, its second captures, later ones replay; the warmup ramp
-changes the momentum every iteration, so its applies run eagerly (the
-momentum is a Python float in torch.optim: engine/optim.py). So that a graph
-can read them, every tensor that lives across steps is allocated outside any
-capture: the gradients once, as zeros (the backward adds into them in place,
-the apply zeroes them in place), the optimizer's state (device lr tensors;
-the state at the first, eager apply), the EMA and its decay scalars (written
-before each apply), the BN statistics. Off the card, on ranks (whose gloo
-all_reduce cannot be captured) and inside `graphs.eager()`, the same step
-functions run eagerly. Each (batch shape, GT bucket) is recorded as the JAX
-trainer records its jit variants; past 12, multi-scale coarsens its size
-grid from /32 to /64.
+per trainer): a grad graph per (batch shape and dtype, GT bucket M, amp), one
+apply graph (clip, optimizer, zeroing, EMA: one call of K10,
+csrc/optim_apply.cu), and, when accumulate is 1 for the whole run (JAX's
+rule: round(nbs / batch) <= 1), one fused graph per (shape, M, amp) instead
+of both. A key's first sight runs eagerly, its second captures, later ones
+replay. lr, momentum, the optimizer's step and the EMA's decay are device
+scalars written (or advanced on the device) at each step, as the JAX
+package traces them, so the warmup ramp replays the same graphs. So that a
+graph can read them, every tensor that lives across steps is allocated
+outside any capture: the gradients once, as zeros (the backward adds into
+them in place, the apply zeroes them in place), the optimizer's state and
+K10's table (engine/optim.py), the EMA and its decay scalars, the BN
+statistics. Off the card, on ranks (whose gloo all_reduce cannot be
+captured) and inside `graphs.eager()`, the same step functions run eagerly.
+Each (batch shape, GT bucket) is recorded as the JAX trainer records its jit
+variants; past 12, multi-scale coarsens its size grid from /32 to /64.
 
 Checkpoints are the JAX package's native .npz (models/checkpoint.py), so
 either package resumes or predicts from the other's last.npz and best.npz.
@@ -266,7 +266,7 @@ class DetectionTrainer:
         self.opt_name, self.lr0, self.momentum = self._resolve_optimizer(iterations)
         self._freeze()
         self.optimizer = optim.build_optimizer(self.opt_name, self.model, self.lr0, self.momentum, self.weight_decay)
-        self._params = [p for p in self.model.parameters() if p.requires_grad]
+        self._params = self.optimizer.params
         for p in self._params:  # allocated once, outside any capture: the backward adds in place, apply zeroes
             p.grad = torch.zeros_like(p)
         self._grads = [p.grad for p in self._params]
@@ -285,6 +285,14 @@ class DetectionTrainer:
         self.loss_fn = loss_cls(m.nc, m.strides, m.reg_max, hyp=self.args)
         if self._resume_blob is not None:
             self.resume_training(self._resume_blob)
+        self.optimizer.track(self.model, self.ema)  # K10's table, after the resume's in-place loads
+
+    def _check_table(self):
+        """Rebuild K10's table, and drop the train graphs that read the old one, if a tensor it tracks was
+        replaced."""
+        if self.optimizer.stale():
+            self.optimizer.track(self.model, self.ema)
+            self.graphs.clear()
 
     def _resolve_optimizer(self, iterations):
         """'auto' -> AdamW (lr fitted to nc, no bias warmup) for short runs, SGD(0.01, 0.9) past 10,000 iterations."""
@@ -341,15 +349,12 @@ class DetectionTrainer:
         t = build_targets(batch, n, batch["img"].shape[1:3], m_bucket)
         return {k: torch.from_numpy(v).to(self.device, non_blocking=True) for k, v in t.items()}
 
-    def _step_key(self, kind: str, images: Optional[torch.Tensor], targets: Optional[Dict], momentum=None) -> tuple:
-        """The graph key of a train step: its kind ("grad", "apply" or "fused"), the batch's device, shape and dtype,
-        the GT bucket M and amp (grad and fused), and the momentum that torch.optim reads as a Python float (apply
-        and fused)."""
+    def _step_key(self, kind: str, images: Optional[torch.Tensor], targets: Optional[Dict]) -> tuple:
+        """The graph key of a train step: its kind ("grad", "apply" or "fused"), the batch's device, and its shape and
+        dtype, the GT bucket M and amp (grad and fused). lr and momentum are device scalars: no key holds them."""
         key = (kind, str(self.device))
         if images is not None:
             key += (tuple(images.shape), images.dtype, targets["gt_bboxes"].shape[1], bool(self.args.amp))
-        if momentum is not None:
-            key += (float(np.float32(momentum)),)
         return key
 
     def _grad_fn(self, images, gt_labels, gt_bboxes, mask_gt):
@@ -363,11 +368,8 @@ class DetectionTrainer:
 
     def _apply_fn(self):
         """Clip the gradients to norm 10, step the optimizer, zero the gradients in place, update the EMA at the
-        decay written before (`ModelEMA.advance`). No host sync: clip_grad_norm_ keeps error_if_nonfinite off."""
-        torch.nn.utils.clip_grad_norm_(self._params, 10.0, error_if_nonfinite=False)  # JAX's clip_by_global_norm
-        self.optimizer.step()
-        torch._foreach_zero_(self._grads)
-        self.ema.apply(self.model)
+        decay written before (`ModelEMA.advance`): JAX's apply_step, one K10 call on the card. No host sync."""
+        self.optimizer.apply(self.ema.d, self.ema.one_minus_d)
 
     def _fused_fn(self, images, gt_labels, gt_bboxes, mask_gt):
         out = self._grad_fn(images, gt_labels, gt_bboxes, mask_gt)
@@ -375,18 +377,16 @@ class DetectionTrainer:
         return out
 
     def _step_scalars(self, lr_vec, momentum: float):
-        """Write the apply's lr (device tensors, in place), momentum and EMA decay before it runs or replays."""
-        optim.set_lr_momentum(self.optimizer, lr_vec, momentum)
+        """Write the apply's lr, momentum and EMA decay (device tensors, in place) before it runs or replays."""
+        self.optimizer.set_lr_momentum(lr_vec, momentum)
         self.ema.advance()
 
     def _captured(self, captures: int):
         """After a capture on the card: no tensor that lives across steps may lie in the graph pool."""
         if self.graphs.captures == captures or self.device.type != "cuda":
             return
-        state = [t for st in self.optimizer.state.values() for t in st.values() if isinstance(t, torch.Tensor)]
-        state += [g["lr"] for g in self.optimizer.param_groups if isinstance(g["lr"], torch.Tensor)]
-        lives = [*self.model.state_dict().values(), *self._grads, *state, *self.ema.ema.state_dict().values(),
-                 self.ema.d, self.ema.one_minus_d]
+        lives = [*self.model.state_dict().values(), *self._grads, *self.optimizer.state_tensors(),
+                 *self.ema.ema.state_dict().values(), self.ema.d, self.ema.one_minus_d]
         bad = graphs.in_pool(lives)
         if bad:
             raise RuntimeError(f"{len(bad)} tensors that live across train steps lie in the CUDA graph pool "
@@ -435,12 +435,12 @@ class DetectionTrainer:
         self._grads_summed = True
 
     def _apply_step(self, lr_vec, momentum: float):
-        """Clip the summed gradients to norm 10, step the optimizer, zero the gradients, update the EMA: the apply
-        graph of this momentum in one process."""
+        """Clip the summed gradients to norm 10, step the optimizer, zero the gradients, update the EMA: the one
+        apply graph in one process, eagerly on ranks."""
         self._sum_grads()
         self._step_scalars(lr_vec, momentum)
         if self.group is None:
-            self._graphed(self._apply_fn, (), self._step_key("apply", None, None, momentum))
+            self._graphed(self._apply_fn, (), self._step_key("apply", None, None))
         else:
             self._apply_fn()
         self._grads_summed = False
@@ -449,7 +449,7 @@ class DetectionTrainer:
         """`_grad_step` then `_apply_step` as one graph (one process, accumulate 1 for the whole run)."""
         self._step_scalars(lr_vec, momentum)
         inputs = (images, targets["gt_labels"], targets["gt_bboxes"], targets["mask_gt"])
-        items, self.fg_mask = self._graphed(self._fused_fn, inputs, self._step_key("fused", images, targets, momentum))
+        items, self.fg_mask = self._graphed(self._fused_fn, inputs, self._step_key("fused", images, targets))
         return items
 
     def _schedule(self, ni: int, nw: int, epoch: int):
@@ -539,6 +539,7 @@ class DetectionTrainer:
         epoch = self.start_epoch
         while epoch < self.epochs:
             self.epoch = epoch
+            self._check_table()
             if epoch == (self.epochs - self.args.close_mosaic) and self.args.close_mosaic:
                 LOGGER.info("Closing dataloader mosaic")
                 self.train_loader.dataset.close_mosaic(hyp=copy.copy(self.args))

@@ -29,8 +29,9 @@
    CPU tensor it runs `device_letterbox_plain` (two fp32 matmuls, a pad, a
    scale).
 
-The train step's loss-tail kernels (K5, K6a, K6b, K7) are in
-ops/loss_kernels.py; their wrappers join `COUNTED` below.
+The train step's loss-tail kernels (K5, K6a, K6b, K7, K9) are in
+ops/loss_kernels.py, its apply (K10) in ops/optim_kernels.py; their
+wrappers join `COUNTED` below.
 
 All five here are `torch.library` custom ops (`torch.ops.yololite_tpu_torch.*`):
 the CUDA implementation launches the kernel or raises, the CPU one is the
@@ -55,7 +56,7 @@ import torch.nn.functional as F
 from torch import Tensor
 
 from yololite_tpu_torch.ops.boxes import box_iou, topk_stable
-from yololite_tpu_torch.ops import loss_kernels
+from yololite_tpu_torch.ops import loss_kernels, optim_kernels
 from yololite_tpu_torch.ops.loss_kernels import dfl_expectation_plain
 
 MAX_WH = 7680  # class-offset magnitude of the NMS's class-aware boxes
@@ -861,5 +862,7 @@ def _letterbox_lib() -> ctypes.CDLL:
     return lib
 
 
-# the wrappers that count their kernel's launches, those of the loss tail (ops/loss_kernels.py) included
-COUNTED = (greedy_nms_keep, blocked_nms_finalize, int8_conv, select_decode, device_letterbox, *loss_kernels.COUNTED)
+# the wrappers that count their kernel's launches, those of the loss tail (ops/loss_kernels.py) and the apply
+# (ops/optim_kernels.py) included
+COUNTED = (greedy_nms_keep, blocked_nms_finalize, int8_conv, select_decode, device_letterbox, *loss_kernels.COUNTED,
+           *optim_kernels.COUNTED)

@@ -8,6 +8,8 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from yololite_tpu_torch.ops.optim_kernels import ema_plain
+
 
 def ema_decay(updates: int, decay: float = 0.9999, tau: float = 2000.0) -> float:
     """Ramped decay d(t) = decay * (1 - exp(-t / tau)), in float32 as the JAX package computes it."""
@@ -22,8 +24,10 @@ class ModelEMA:
     entries (the BN batch counters) are copied. An update is two parts:
     `advance` counts it on the host (`updates`, which checkpoints keep) and
     writes its decay d and 1 - d into two 0-d float32 tensors on the model's
-    device; `apply` multiplies by those tensors, so a CUDA graph that captured
-    it (the trainer's apply and fused steps) reads each update's decay. d and
+    device. The trainer's apply moves the EMA inside K10
+    (ops/optim_kernels.py `optim_apply`, reading d and 1 - d from these
+    tensors, so a CUDA graph of it reads each update's decay); `apply` runs
+    the same update by itself through K10's plain form (`ema_plain`). d and
     1 - d are float32 values, so the tensors give the bits that the Python
     floats gave.
     """
@@ -44,18 +48,11 @@ class ModelEMA:
         self.d.fill_(d)
         self.one_minus_d.fill_(float(np.float32(1) - np.float32(d)))
 
-    @torch.no_grad()
     def apply(self, model: nn.Module) -> None:
         """ema = d * ema + (1 - d) * model at the decay `advance` wrote."""
-        e_f, m_f = [], []
-        for e, m in zip(self.ema.state_dict().values(), model.state_dict().values()):
-            if e.is_floating_point():
-                e_f.append(e)
-                m_f.append(m.detach())
-            else:
-                e.copy_(m)
-        torch._foreach_mul_(e_f, self.d)
-        torch._foreach_add_(e_f, torch._foreach_mul(m_f, self.one_minus_d))
+        pairs = list(zip(self.ema.state_dict().values(), model.state_dict().values()))
+        ema_plain([(e, m) for e, m in pairs if e.is_floating_point()],
+                  [(e, m) for e, m in pairs if not e.is_floating_point()], self.d, self.one_minus_d)
 
     def update(self, model: nn.Module) -> None:
         self.advance()
