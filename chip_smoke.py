@@ -18,13 +18,18 @@ Phases, each of which exits non-zero on failure:
      few ulps of it) scenes at B up to 40 and K 1,025 to 8,192, max_det 1, 300
      and K) and times both, K4 on the crowded scene at B 16, 8 and 1 with its
      bound, cluster size, step and cudaOccupancyMaxActiveClusters; select_decode
-     (K3) against its plain version on the 27 scenes of K3_CASES (vals, bidx,
+     (K3) against its plain version on the 36 scenes of K3_CASES (vals, bidx,
      cls, valid bit for bit, boxes within 1e-6 relative: K = 1 to 20,000,
      K >= N, K = N, all gated out, all equal, the K-th score in a bin of ties,
      a threshold that is not a bf16 value, class masks, NaN maps, NCHW views
-     and channels-last maps, B 1 to 32, rows of 16,384 and 16,385 entries),
-     each down the route K3_ROUTES names (finish: the score pass and the
-     finishing CTAs; passes);
+     and channels-last maps, B 1 to 136, rows of 16,384 and 16,385 entries,
+     fewer than K entries passing the gate, K at the cluster route's most and
+     one past it, a first-digit bin more crowded than a cluster CTA's list
+     holds, keys that a thousand entries share), each down the route
+     K3_ROUTES names (finish: the score pass and the finishing CTAs; cluster:
+     the score pass and a thread-block cluster an image; passes), and the
+     other long-row route (select_decode_pick) wherever it can take the
+     shapes;
      device_letterbox (K2) in 32 checks (no resize bit for bit, a resize
      within 1e-5; fp32, bf16, bgr, both layouts) and timed at B 32, 480x640
      and 720x1280 -> 640 beside its bound and F.interpolate; the loss tail:
@@ -322,20 +327,28 @@ def k4_scene(seed: int, b: int, k: int, case: str):
 K3_S640 = ((80, 80), (40, 40), (20, 20))  # yolo11's levels at 640
 K3_RECT = ((48, 80), (24, 40), (12, 20))  # a rect batch's (384 x 640)
 K3_TINY = ((8, 10), (4, 5), (2, 3))  # fewer entries than K
+K3_CLUSTER_MAX_K = 8192  # csrc/select_decode.cu kClusterMaxK: the cluster route's most candidates an image
+K3_CLUSTER_MAX_B = 66  # the most clusters of 2 CTAs an H100 holds at once: past it the shapes pick the passes route
 
 
 def k3_maps(rng, b, shapes, nc, dtype, layout, scene):
     """Per-level (B, H, W, 64 + nc) maps on the card: NHWC views of NCHW tensors ("nchw", as the float nets give
     them) or NHWC-contiguous ("nhwc", channels-last nets). Scenes: "random" logits, "equal" (every class logit
     -2: all scores tie), "ties" (every class logit -2 but for one anchor in 40 with random ones: the K-th largest
-    score of predict's K 512 lies in a bin of ties), "nan" (NaN class and box logits on a few anchors)."""
+    score of predict's K 512 lies in a bin of ties), "nan" (NaN class and box logits on a few anchors), "sparse"
+    (class logits 3 N(0, 1) - 14.4: a share 0.0062 of the entries passes conf 0.001, some 2,500 of an image's
+    403,200 at val's rect shape; the rest are -1 fillers, one key), "crowd" (class logits 0.01 N(0, 1) + 0.3: every
+    score within 0.574 +- 0.01, in one first-digit bin, more than a cluster CTA's tie list holds), "bunched" (class
+    logits 0.5 N(0, 1) - 6, as a net whose class biases start at -6 gives them: in bf16 maps some hundred distinct
+    values above the gate, so that a key is shared by up to some thousand entries of a row)."""
     import numpy as np
     import torch
 
     out = []
     for h, w in shapes:
         a = rng.standard_normal((b, 64 + nc, h, w)).astype(np.float32)
-        a[:, 64:] = a[:, 64:] * 3.0 - 4.0
+        a[:, 64:] = a[:, 64:] * {"sparse": 3.0, "crowd": 0.01, "bunched": 0.5}.get(scene, 3.0) + {
+            "sparse": -14.4, "crowd": 0.3, "bunched": -6.0}.get(scene, -4.0)
         if scene in ("equal", "ties"):
             keep = rng.uniform(size=(b, 1, h, w)) < (0.025 if scene == "ties" else 0.0)
             a[:, 64:] = np.where(keep, a[:, 64:], -2.0)
@@ -379,12 +392,43 @@ K3_CASES = [
      False, False),
     ("ties-at-k", 4, K3_S640, 80, 512, False, "bf16", True, "nhwc", "ties", 0.01, False, False),
     ("k-eq-n", 2, K3_RECT, 80, 5040, False, "fp32", False, "nchw", "random", 1e-7, False, False),
+    # fewer than K pass (some 2,500 of 403,200 an image, `k3_maps`): the -1 fillers fill the K-th entry's bin
+    ("val-sparse", 16, K3_RECT, 80, 8192, True, "fp32", False, "nhwc", "sparse", 0.001, False, False),
+    ("cluster-cap", 2, K3_S640, 80, K3_CLUSTER_MAX_K, True, "fp32", False, "nhwc", "random", 1e-7, False, False),
+    ("cluster-cap-plus-1", 2, K3_S640, 80, K3_CLUSTER_MAX_K + 1, True, "fp32", False, "nhwc", "random", 1e-7, False,
+     False),
+    ("val-b64", 64, K3_RECT, 80, 8192, True, "fp32", False, "nhwc", "random", 1e-7, False, False),  # many clusters
+    # past K3_CLUSTER_MAX_B: the passes route; the cluster route (select_decode_pick) in clusters of one CTA, one
+    # wave at B 72, two at B 136 (an H100 holds 132 at once)
+    ("val-b72", 72, K3_RECT, 80, 8192, True, "fp32", False, "nhwc", "random", 1e-7, False, False),
+    ("val-b136", 136, K3_RECT, 80, 8192, True, "fp32", False, "nhwc", "random", 1e-7, False, False),
+    # keys that many entries share (bf16 logits near -6): buckets of the ordering digit that a CTA sorts
+    ("val-bunched", 16, K3_RECT, 80, 8192, True, "bf16", False, "nhwc", "bunched", 0.001, False, False),
+    ("single-b1-1280", 1, ((160, 160), (80, 80), (40, 40)), 80, 300, False, "fp32", False, "nchw", "random", 0.01,
+     False, False),
+    ("crowded-bin", 2, K3_S640, 80, 8192, True, "fp32", False, "nhwc", "crowd", 1e-7, False, False),  # list overflow
 ]
 # the route csrc/select_decode.cu takes on each scene (`select_decode_plan`): "finish" (score pass, then a
-# finishing CTA group an image) where an image's row holds at most 16,384 entries, else "passes"; finish-cap's
-# rows hold exactly 16,384 anchors, finish-cap-plus-1's one more
-K3_ROUTES = {c[0]: "finish" if sum(h * w for h, w in c[2]) * (c[3] if c[5] else 1) <= 16384 else "passes"
-             for c in K3_CASES}
+# finishing CTA group an image) where an image's row holds at most 16,384 entries, else "cluster" (score pass,
+# then a thread-block cluster an image) where K is at most K3_CLUSTER_MAX_K and either the box logits lie
+# channel-contiguous ("nhwc") or K is under a quarter of the anchors, and the card holds the batch's clusters in
+# clusters of 2 or more CTAs at once, else "passes" (whose dense decode reads NCHW planes coalesced, and which beats
+# clusters of one CTA); finish-cap's rows hold exactly 16,384 anchors, finish-cap-plus-1's one more; cluster-cap's
+# K is the cluster route's most, cluster-cap-plus-1's one more
+
+
+def k3_route(case) -> str:
+    _, b, levels, nc, k, ml, _, _, layout = case[:9]
+    a = sum(h * w for h, w in levels)
+    n = a * (nc if ml and nc > 1 else 1)
+    k = min(k, n)
+    if n <= 16384:
+        return "finish"
+    return "cluster" if k <= K3_CLUSTER_MAX_K and (layout == "nhwc" or 4 * k < a) and b <= K3_CLUSTER_MAX_B else (
+        "passes")
+
+
+K3_ROUTES = {c[0]: k3_route(c) for c in K3_CASES}
 
 
 def k3_args(case):
@@ -576,6 +620,35 @@ def k3_check(got, want, what: str) -> bool:
     return same_bits(got[3], want[3]) and same_bits(got[4], want[4])
 
 
+K3_MAIN_ROUTES = {}  # K3's launches on the main paths by the route taken, summed window by window (k3_tally)
+K3_EMA_ROUTES = {}  # K3's long-row routes timed on phase 5's EMA val maps, by the train's dtype (k3_route_times)
+
+
+def k3_zero():
+    """K3's launch count and its counts by route to 0: where a window whose launches are read starts."""
+    from yololite_tpu_torch.ops.kernels import select_decode
+
+    select_decode.launches = 0
+    select_decode.by_route.reset()
+
+
+def k3_tally(n: int, what: str, routes=None, less=None, only=None, add=True) -> dict:
+    """A window's K3 launches by route: `routes` (default: the counts since k3_zero) less `less` (launches made in
+    the window only to compare). Fails unless they sum to n, the launches the window counted, and, with `only`,
+    unless every one took that route. With `add`, a main-path window's: added to K3_MAIN_ROUTES."""
+    from yololite_tpu_torch.ops.kernels import select_decode
+
+    got = dict(select_decode.by_route.as_dict() if routes is None else routes)
+    got = {r: v - (less or {}).get(r, 0) for r, v in got.items()}
+    if sum(got.values()) != n or min(got.values()) < 0 or (only and any(v for r, v in got.items() if r != only)):
+        raise AssertionError(f"{what}: K3 launches by route {got}, where {n} were counted"
+                             + (f", all on the {only} route" if only else ""))
+    if add:
+        for r, v in got.items():
+            K3_MAIN_ROUTES[r] = K3_MAIN_ROUTES.get(r, 0) + v
+    return got
+
+
 def k3_list_lengths(gated, k: int):
     """Per image, the entries at or above the first 11-bit digit of the K-th largest order key: the list the
     passes route compacts after its first digit, and what a finishing kernel would have to hold."""
@@ -638,6 +711,147 @@ def k3_numbers(card: str, args, what: str) -> dict:
             "max_abs_err": err, "boxes_bit_equal": bits, "shape": [b, k, int(gated.shape[1])], "route": plan["route"],
             "kernels_a_call": plan["launches"], "score_ms": score_ms, "score_tb_s": score_bytes / score_ms / 1e9,
             "list_lengths": [min(lists), max(lists)] if lists else None}
+
+
+K3_SORT_STEP_READS = 16  # csrc/select_decode.cu kSortStepReads: a cluster CTA's count reads a thread a sort step costs
+
+
+def k3_cluster_stats(args, plan) -> dict:
+    """What the cluster route's select meets on these inputs, image by image: a model of its decisions on the
+    plain version's gated rows (class mask None), in the kernel's row order (class-major for NCHW planes, multi-
+    label), with the plan's cluster size, tie list and slack. Counts the images whose first digit decides ("done"),
+    that take the shortcut (the K-th entry's bin holds one key: fewer than K pass), that order the first digit's
+    group at once ("order") or run later digits ("digits": their most, "most_digits"), those in which some CTA's
+    tie list overflows (it reads its key slice again, for each later digit and to collect), and those in which a
+    CTA sorts its slots (its counts over the ordering digit's buckets, the squares of their sizes, would read more
+    than K3_SORT_STEP_READS a thread for each step of the sort: "sorted"), with the largest bucket ("max_bucket")."""
+    import torch
+
+    feats, _, nc, reg_max, conf, max_cand, mask, half, ml = args[:9]
+    if mask is not None:
+        raise ValueError("k3_cluster_stats models no class mask")
+    ml = ml and nc > 1
+    gated = gated_row(feats, nc, reg_max, conf, half, ml)
+    b, n = gated.shape
+    k = min(max_cand, n)
+    u = gated.float().contiguous().view(torch.int32).long() & 0xFFFFFFFF
+    keys = torch.where(u >= 1 << 31, 0xFFFFFFFF - u, u | (1 << 31))
+    flat = torch.arange(n, device=keys.device)
+    class_major = ml and feats[0].stride(3) > feats[0].stride(2)
+    if class_major:  # level by level, class by class, anchor by anchor
+        order, off = [], 0
+        for f in feats:
+            hw = f.shape[1] * f.shape[2]
+            order.append(((off + torch.arange(hw, device=keys.device))[None, :] * nc
+                          + torch.arange(nc, device=keys.device)[:, None]).reshape(-1))
+            off += hw
+        flat = torch.cat(order)
+        keys = keys[:, flat]
+    ib = max((n - 1).bit_length(), 1)
+    lo0 = 32 + ib - 11
+    comp = (keys << ib) | (n - 1 - flat)[None, :]
+    c = plan["cluster"]
+    per = -(-(-(-n // c)) // 8) * 8
+    cta = torch.arange(n, device=keys.device) // per
+    kth = torch.topk(comp, k, dim=1).values[:, -1]
+    out = dict.fromkeys(("done", "shortcut", "order", "digits", "overflow", "sorted"), 0)
+    out.update(images=b, most_digits=0, max_bucket=0, cluster=c, tie_cap=plan["tie_cap"], slack=plan["slack"])
+    for i in range(b):
+        row, ck = comp[i], int(kth[i])
+        bins = row >> lo0
+        b0 = ck >> lo0
+        tie = bins == b0
+        need0 = k - int((bins > b0).sum())
+        n_tie = int(tie.sum())
+        ties_by_cta = torch.zeros(c, dtype=torch.long, device=keys.device).scatter_add_(0, cta, tie.long())
+        out["overflow"] += int(bool((ties_by_cta > plan["tie_cap"]).any()))
+        tie_keys = keys[i][tie]
+        one_key = int(tie_keys.min()) == int(tie_keys.max())
+        if n_tie == need0:
+            out["done"] += 1
+            lowest, member = b0 << lo0, bins >= b0
+        elif one_key and not class_major:
+            out["shortcut"] += 1
+            member = bins > b0
+            lowest = int(row[member].min()) if bool(member.any()) else None
+        elif k - need0 + n_tie <= k + plan["slack"]:
+            out["order"] += 1
+            lowest, member = b0 << lo0, bins >= b0
+        else:
+            out["digits"] += 1
+            hi, digits = (ib if one_key else lo0), 0
+            while True:
+                lo = max(hi - 11, 0)
+                digits += 1
+                at = row >> lo >= ck >> lo
+                if int(at.sum()) <= k + plan["slack"] or lo == 0:  # (a bin that decides leaves exactly K)
+                    break
+                hi = lo
+            out["most_digits"] = max(out["most_digits"], digits)
+            lowest, member = (ck >> lo) << lo, at
+        if lowest is None:
+            continue
+        top = int(row.max())
+        span = (top ^ lowest).bit_length() if top > lowest else 0
+        dlo = max(span - 11, 0)
+        digit = (row[member] >> dlo) & ((1 << (span - dlo)) - 1)
+        if not digit.numel():
+            continue
+        cnt = torch.bincount(digit, minlength=1 << (span - dlo))  # the buckets, and each one's first place
+        start = cnt.flip(0).cumsum(0).flip(0) - cnt
+        group, rs = int(digit.numel()), -(-int(digit.numel()) // c)
+        first = []
+        for q in range(c):  # CTA q's slots: from the first bucket start at or past q RS
+            at = (start >= q * rs).nonzero()
+            first.append(min(int(start[at[-1, 0]]), group) if at.numel() else group)
+        first.append(group)
+        sorts = False
+        for q in range(c):
+            mine = (start >= first[q]) & (start < first[q + 1]) & (cnt > 0)
+            slots, p2, lg = first[q + 1] - first[q], 1, 0
+            while p2 < slots:
+                p2, lg = p2 * 2, lg + 1
+            steps = lg * (lg + 1) // 2 * -(-(p2 // 2) // 1024)
+            sorts |= int((cnt[mine] ** 2).sum()) > K3_SORT_STEP_READS * 1024 * steps
+        out["max_bucket"] = max(out["max_bucket"], int(cnt.max()))
+        out["sorted"] += int(sorts)
+    return out
+
+
+def k3_route_times(card: str, args, what: str) -> dict:
+    """K3 down each of its long-row routes (cluster and passes) that can take these inputs, through
+    select_decode_pick: each held to the plain version (`k3_check`), then timed by device time (a CUDA graph of
+    20 calls replayed) in turns, cluster, passes, passes, cluster. Returns {route: {"ms": [two turns],
+    "kernels_a_call", "cluster" (CTAs an image, 0 but for the cluster route)}}, the cluster route's with its memset
+    and score pass alone ("score_ms") and what its select meets on these inputs (`k3_cluster_stats`, "select")."""
+    import torch
+
+    from yololite_tpu_torch.ops.kernels import _select_decode_launch, select_decode_plain, select_decode_plan
+
+    feats, _, nc, reg_max, _, max_cand, _, _, ml = args[:9]
+    plans = {r: select_decode_plan(feats, nc, reg_max, max_cand, ml, route=r) for r in ("cluster", "passes")}
+    plans = {r: p for r, p in plans.items() if p["route"]}
+    want = select_decode_plain(*args)
+    for r in plans:
+        k3_check(_select_decode_launch(*args, route=r)[0], want, f"{what} ({r} route)")
+    torch.cuda.synchronize()
+    out = {r: {"ms": [], "kernels_a_call": p["launches"], "cluster": p["cluster"]} for r, p in plans.items()}
+    for r in ("cluster", "passes", "passes", "cluster"):
+        if r in out:
+            out[r]["ms"].append(graph_ms(lambda: _select_decode_launch(*args, route=r)))
+    b, k = want[0].shape
+    stats = k3_cluster_stats(args, plans["cluster"]) if "cluster" in plans else None
+    if stats:
+        out["cluster"]["select"] = stats
+        # the memset and the score pass alone: the rest of the cluster route's time is its cluster kernel's
+        out["cluster"]["score_ms"] = graph_ms(lambda: _select_decode_launch(*args, score_only=True, route="cluster"))
+    log(f"kernel: select_decode B={b} K={k} ({what}) by route, in turns (select_decode_pick; both equal to the plain "
+        f"version): " + "; ".join(f"{r} {' '.join(f'{t:.4f}' for t in v['ms'])} ms device ({v['kernels_a_call']} "
+                                   f"kernels a call" + (f", clusters of {v['cluster']} CTAs" if v["cluster"] else "")
+                                   + ")" for r, v in out.items())
+        + (f"; the cluster route's memset and score pass alone {out['cluster']['score_ms']:.4f} ms; the cluster "
+           f"select's images (model, `k3_cluster_stats`): {stats}" if stats else "") + f", on {card}")
+    return out
 
 
 def k2_bound_ms(b: int, h0: int, w0: int, s: int, out_bytes: int):
@@ -2317,7 +2531,8 @@ def mixed_sizes_val(card: str, model, root: Path, recorded) -> None:
     model.val(name="mixed_cache", **kw)  # the label cache
     rd, lines = None, []
     for name in ("graphed", "eager", "graphed again"):
-        blocked_nms_finalize.launches = select_decode.launches = 0
+        blocked_nms_finalize.launches = 0
+        k3_zero()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with graphs.eager() if name == "eager" else contextlib.nullcontext():
@@ -2327,6 +2542,7 @@ def mixed_sizes_val(card: str, model, root: Path, recorded) -> None:
         v = recorded.made[-1]
         batches, g = len(v.dataloader), v._infer.graphs
         buckets = len({tuple(int(x) for x in r) for r in v.dataloader.dataset.batch_shapes})
+        k3_tally(select_decode.launches, f"mixed-size val {name}", only="cluster", add=False)
         if blocked_nms_finalize.launches != batches + (0 if name == "eager" else g.warmups) or (
                 select_decode.launches != blocked_nms_finalize.launches) or (
                 rd is not None and m.results_dict != rd):  # a capture's warm-up launches K3 and K4 too
@@ -2391,7 +2607,8 @@ def val_phase(card: str, model):
         v = DetectionValidator(args={**kw, "mode": "val", "name": f"{dtype}_reused"})
         runs = {}
         for name in ("facade", "facade again", "validator", "validator captured", "validator replayed", "eager"):
-            greedy_nms_keep.launches = blocked_nms_finalize.launches = select_decode.launches = 0
+            greedy_nms_keep.launches = blocked_nms_finalize.launches = 0
+            k3_zero()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             if name.startswith("facade"):
@@ -2420,6 +2637,7 @@ def val_phase(card: str, model):
                 raise AssertionError(f"val {dtype} {name}: metrics {m.results_dict} differ from the first run's {rd}")
             launches += n4
             k3_launches += n3
+            k3_tally(n3, f"val {dtype} {name}", only="cluster")
             runs[name] = dt
             sp = m.speed
             log(f"val: yolo11n {dtype} batch {bs} at 640, rect, conf 1e-7, {n_img} images, {name}: "
@@ -2502,7 +2720,17 @@ def val_phase(card: str, model):
                 nms.blocked_nms_finalize = real
         t_fw = cuda_ms(lambda: forward_nhwc(net, im.float() * (1.0 / 255.0)), 10)
         # K3 on this batch's maps; nms_from_feats with K3 (back to back and by device time) and with its plain version
-        k3 = k3_numbers(card, (feats, *args[1:], 1e-7, VAL_MAX_CAND, None, False, True, False), "val's fp32 maps")
+        k3_args_val = (feats, *args[1:], 1e-7, VAL_MAX_CAND, None, False, True, False)
+        k3 = k3_numbers(card, k3_args_val, "val's fp32 maps")
+        # the long-row routes on val's fp32 maps, on the half net's bf16 maps (scored in fp32, as the bf16 val does)
+        # and on the sparse scene (fewer than K entries pass the gate)
+        net16 = inference_net(model.model, torch.device("cuda"), half=True)
+        feats16 = forward_nhwc(net16, x.to(torch.bfloat16))
+        k3_routes = {"fp32": k3_route_times(card, k3_args_val, "val's fp32 maps"),
+                     "bf16": k3_route_times(card, (feats16, *k3_args_val[1:]), "val's bf16 maps"),
+                     **{name: k3_route_times(card, k3_args(next(c for c in K3_CASES if c[0] == f"val-{name}")),
+                                                f"val-{name}") for name in ("sparse", "bunched", "b72", "b136")}}
+        del net16, feats16
         with plain_select():
             same = torch.equal(with_kernel, nms.nms_from_feats(*args, **kw_nms))
             t_plain_select = cuda_ms(lambda: nms.nms_from_feats(*args, **kw_nms), 10)
@@ -2521,7 +2749,8 @@ def val_phase(card: str, model):
     # the card against the CPU at imgsz 160: separating weights, 4 images labelled from the model's own detections
     small_val_card_vs_cpu(card, root, "yolo11n", "yolo11n.yaml")
     tmp.cleanup()
-    k3_val = {"launches": k3_launches, "numbers": k3, "nms_ms": peaks["K4"][1], "nms_graph_ms": t_nms_graph,
+    k3_val = {"launches": k3_launches, "numbers": k3, "routes": k3_routes, "nms_ms": peaks["K4"][1],
+              "nms_graph_ms": t_nms_graph,
               "nms_plain_select_ms": t_plain_select}
     return launches, k3_val, {"val_ms": k4["ms"], "val_launch_ms": k4["launch_ms"], "val_plain_ms": k4["plain_ms"],
                       "val_bound_ms": k4["bound_ms"],
@@ -2711,6 +2940,7 @@ def train_phase(card: str):
     from yololite_tpu_torch.cfg import get_cfg
     from yololite_tpu_torch.data.dataset import build_dataloader, build_yolo_dataset
     from yololite_tpu_torch.engine import graphs, optim
+    from yololite_tpu_torch.engine import validator as validator_mod
     from yololite_tpu_torch.engine.predictor import forward_nhwc, fp32_convs
     from yololite_tpu_torch.data.utils import check_det_dataset
     from yololite_tpu_torch.engine.trainer import DetectionTrainer
@@ -2738,6 +2968,7 @@ def train_phase(card: str):
 
         def validate(self):
             k1, k4, k3 = greedy_nms_keep.launches, blocked_nms_finalize.launches, select_decode.launches
+            r3 = select_decode.by_route.as_dict()
             g = self.validator.ema_graphs
             before = (g.calls, g.captures, g.replays)
             stats = super().validate()
@@ -2746,15 +2977,25 @@ def train_phase(card: str):
             if n1 or n4 != len(self.validator.dataloader) or n3 != n4:
                 raise AssertionError(f"train epoch {self.epoch}: EMA val made {n1} K1, {n3} K3 and {n4} K4 launches "
                                      f"for {len(self.validator.dataloader)} batches")
+            k3_tally(n3, f"train epoch {self.epoch} EMA val", only="cluster", add=False, less=r3)
             self.val_launches = getattr(self, "val_launches", []) + [n4]
             self.val_graphs = getattr(self, "val_graphs", []) + [
                 tuple(a - b for a, b in zip((g.calls, g.captures, g.replays), before))]
-            if not graphs._eager:  # the same EMA eagerly: the same metrics
-                k4, k3 = blocked_nms_finalize.launches, select_decode.launches
-                with graphs.eager():
-                    eager = self.validator(trainer=self)
+            if not graphs._eager:  # the same EMA eagerly: the same metrics, and (the last epoch's) its maps
+                k4, k3, r3 = blocked_nms_finalize.launches, select_decode.launches, select_decode.by_route.as_dict()
+                real, maps = validator_mod.nms_from_feats, []
+                validator_mod.nms_from_feats = lambda feats, *a, **kw: (
+                    maps or maps.append(([f.clone() for f in feats], a, kw)), real(feats, *a, **kw))[1]
+                try:
+                    with graphs.eager():
+                        eager = self.validator(trainer=self)
+                finally:
+                    validator_mod.nms_from_feats = real
+                self.ema_maps = maps[0]  # the first batch's
                 self.compare_k4 = getattr(self, "compare_k4", 0) + blocked_nms_finalize.launches - k4
                 self.compare_k3 = getattr(self, "compare_k3", 0) + select_decode.launches - k3
+                self.compare_routes = {r: getattr(self, "compare_routes", {}).get(r, 0) + v - r3[r]
+                                       for r, v in select_decode.by_route.as_dict().items()}
                 if eager != stats:
                     raise AssertionError(f"train epoch {self.epoch}: the graphed EMA val's metrics {stats} differ "
                                          f"from the eager val's {eager}")
@@ -2833,7 +3074,8 @@ def train_phase(card: str):
     for amp, mode in ((False, "graphed"), (True, "graphed"), (False, "eager")):
         dtype = "bf16" if amp else "fp32"
         m = start_model()
-        greedy_nms_keep.launches = blocked_nms_finalize.launches = select_decode.launches = 0
+        greedy_nms_keep.launches = blocked_nms_finalize.launches = 0
+        k3_zero()
         for w in step_counted:
             w.launches = 0
         pool0 = graphs.pool_reserved_bytes()
@@ -2855,6 +3097,7 @@ def train_phase(card: str):
         if mode == "graphed":
             launches["blocked_nms_finalize"] += n
             launches["select_decode"] += n3
+            k3_tally(n3, f"train {dtype} {mode}", less=getattr(t, "compare_routes", None))
             for name, v in tail.items():
                 launches[name] += v
         rows = np.loadtxt(t.csv, delimiter=",", skiprows=1, ndmin=2)
@@ -2892,6 +3135,14 @@ def train_phase(card: str):
             f"{(graphs.pool_reserved_bytes() - pool0) / 2 ** 20:.1f} in this run), "
             f"{graphs.pool_allocated_bytes() / 2 ** 20:.1f} MiB of it held by live blocks, on {card}")
 
+    # K3's long-row routes on the EMA val's own maps (the last epoch's first batch, from the eager val beside the
+    # graphed one; scored in fp32 as the EMA val scores them): the class biases start at -6, so that the scores bunch
+    for dtype in ("fp32", "bf16"):
+        feats, a, kw = runs[(dtype, "graphed")].ema_maps
+        K3_EMA_ROUTES[dtype] = k3_route_times(card, (feats, *a, kw["conf_thres"], kw["max_cand"], kw.get("class_mask"),
+                                                     kw.get("half", False), kw["multi_label"], kw["agnostic"]),
+                                              f"the {dtype} train's EMA val, epoch 3, batch 0")
+
     # the fused form through the facade: nbs 16 at batch 16 (accumulate 1 for the whole run), fp32 and bf16, 3
     # epochs without val: one fused graph per (shape, M) key, replayed from the key's third sight through the warmup
     for amp in (False, True):
@@ -2924,13 +3175,15 @@ def train_phase(card: str):
     # reload best.npz and predict; resume last.npz for one more epoch with the optimizer state restored
     t32 = runs[("fp32", "graphed")]
     frames = [np.random.default_rng(22).integers(0, 256, (480, 640, 3), dtype=np.uint8) for _ in range(4)]
-    greedy_nms_keep.launches = select_decode.launches = device_letterbox.launches = 0
+    greedy_nms_keep.launches = device_letterbox.launches = 0
+    k3_zero()
     res = YOLOLite(str(t32.best)).predict(frames, imgsz=640, conf=1e-7, batch=4, save=False, verbose=False)
     if (select_decode.launches, device_letterbox.launches) != (greedy_nms_keep.launches, 1):
         raise AssertionError(f"predict from best.npz: K1 {greedy_nms_keep.launches}, K3 {select_decode.launches}, "
                              f"K2 {device_letterbox.launches} launches (the warm-up and one call)")
     launches["greedy_nms_keep"] += greedy_nms_keep.launches
     launches["select_decode"] += select_decode.launches
+    k3_tally(select_decode.launches, "predict from best.npz", only="finish")
     launches["device_letterbox"] += device_letterbox.launches
     if len(res) != 4 or not all(len(r) and np.isfinite(r.boxes.data).all() for r in res):
         raise AssertionError("predict from best.npz: no detections or not finite")
@@ -2949,7 +3202,8 @@ def train_phase(card: str):
             restored.update(step=int(self.optimizer.step), epoch=self.start_epoch, updates=self.ema.updates,
                             saved_epoch=meta["epoch"])
 
-    blocked_nms_finalize.launches = select_decode.launches = 0
+    blocked_nms_finalize.launches = 0
+    k3_zero()
     for w in step_counted:
         w.launches = 0
     rt = ResumeChecked(overrides={"resume": str(t32.last)})
@@ -2961,6 +3215,7 @@ def train_phase(card: str):
         launches[w.__name__] += w.launches
     launches["blocked_nms_finalize"] += blocked_nms_finalize.launches - getattr(rt, "compare_k4", 0)
     launches["select_decode"] += select_decode.launches - getattr(rt, "compare_k3", 0)
+    k3_tally(select_decode.launches - getattr(rt, "compare_k3", 0), "resume", less=getattr(rt, "compare_routes", None))
     n_apply, n_replayed, from_third = replays_from_third_sight(rt.graph_calls, "apply")
     if (restored.get("epoch") != 3 or restored["saved_epoch"] != 2 or rt.epoch != 3 or restored["step"] < 1 or
             restored["step"] != restored["updates"] or int(rt.optimizer.step) != restored["step"] + n_apply or
@@ -3472,7 +3727,8 @@ def int8_vs_bf16(card: str, path: str, frames, bs: int, n_convs: int, name: str,
         for mode in (*turns, "bf16 eager", "int8 eager"):
             model, extra = models[mode.split()[0]]
             for _ in range(reps):
-                greedy_nms_keep.launches = int8_conv.launches = select_decode.launches = device_letterbox.launches = 0
+                greedy_nms_keep.launches = int8_conv.launches = device_letterbox.launches = 0
+                k3_zero()
                 t0 = time.perf_counter()
                 with graphs.eager() if mode.endswith("eager") else contextlib.nullcontext():
                     results = model.predict(frames, **kw, **extra)
@@ -3483,6 +3739,7 @@ def int8_vs_bf16(card: str, path: str, frames, bs: int, n_convs: int, name: str,
                                          f"{select_decode.launches} K3, {device_letterbox.launches} K2 and "
                                          f"{int8_conv.launches} K8 launches in one call")
                 k1 += 1
+                k3_tally(1, f"{name} {mode} predict", only="finish")
                 k8 += int8_conv.launches
                 if not all(len(r) and np.isfinite(r.boxes.data).all() for r in results):
                     raise AssertionError(f"{name} {mode} predict at batch {bs}: no detections or non-finite ones")
@@ -3552,7 +3809,8 @@ def serving_phase(card: str, frames):
                 model.predict(frames, **kw)
         finally:
             nms._exact_keep = exact_keep
-        greedy_nms_keep.launches = select_decode.launches = device_letterbox.launches = 0
+        greedy_nms_keep.launches = device_letterbox.launches = 0
+        k3_zero()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         reps = 3
@@ -3568,6 +3826,7 @@ def serving_phase(card: str, frames):
                                  f"launches in {reps} predict calls, {len(inputs)} exact keeps in the eager call")
         k1 += n
         k3 += select_decode.launches
+        k3_tally(select_decode.launches, f"serving {name} predict", only="finish")
         k2 += device_letterbox.launches
         boxes, valid, thr = inputs[-1]
         boxes = boxes.float().contiguous()
@@ -3621,7 +3880,8 @@ def serving_phase(card: str, frames):
         t_export = time.perf_counter() - t0
         call, meta = load_exported(path)
         graph = predict_graph(model.model, conf=1e-7, device="cuda", **ekw)
-        greedy_nms_keep.launches = int8_conv.launches = select_decode.launches = 0
+        greedy_nms_keep.launches = int8_conv.launches = 0
+        k3_zero()
         with torch.inference_mode(), fp32_convs(im8.device):
             ref = graph(im8)
         out = call(im8)
@@ -3650,7 +3910,8 @@ def serving_phase(card: str, frames):
     lines = []
     for name in ("graphed", "eager", "graphed again"):
         pipe = InferencePipeline(pred, imgsz=640).start()
-        greedy_nms_keep.launches = select_decode.launches = 0
+        greedy_nms_keep.launches = 0
+        k3_zero()
         warmups = pred._graphs.warmups
         t0 = time.perf_counter()
         with graphs.eager() if name == "eager" else contextlib.nullcontext():
@@ -3661,6 +3922,7 @@ def serving_phase(card: str, frames):
         wall = time.perf_counter() - t0
         k1 += greedy_nms_keep.launches
         k3 += select_decode.launches
+        k3_tally(select_decode.launches, f"pipeline {name}", only="finish")
         warmups = pred._graphs.warmups - warmups
         if len(got) != 32 or greedy_nms_keep.launches != 32 + warmups or select_decode.launches != 32 + warmups:
             raise AssertionError(f"pipeline {name}: {len(got)} results, {greedy_nms_keep.launches} K1 and "
@@ -3839,7 +4101,8 @@ def zoo_phase(card: str, frames):
             kw = dict(conf=1e-7, imgsz=640, batch=bs, half=half, save=False, verbose=False)
             for _ in range(2):  # set up, warm up and run eagerly, then capture
                 m.predict(src, **kw)
-            greedy_nms_keep.launches = select_decode.launches = device_letterbox.launches = 0
+            greedy_nms_keep.launches = device_letterbox.launches = 0
+            k3_zero()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             reps = 5
@@ -3853,6 +4116,7 @@ def zoo_phase(card: str, frames):
                                      f"{device_letterbox.launches} K2 launches in {reps} calls")
             k1 += n
             k3 += select_decode.launches
+            k3_tally(select_decode.launches, f"{name} predict {dtype} batch {bs}", only="finish")
             k2 += device_letterbox.launches
             if len(results) != bs:
                 raise AssertionError(f"{name}: {len(results)} results for {bs} images")
@@ -3905,7 +4169,8 @@ def zoo_phase(card: str, frames):
         kw = dict(data=str(val_data), imgsz=640, batch=16, rect=True, conf=1e-7, plots=False, verbose=False,
                   project=str(root / "runs"), name=f"{name}_val")
         m.val(**kw)  # the label cache
-        greedy_nms_keep.launches = blocked_nms_finalize.launches = select_decode.launches = 0
+        greedy_nms_keep.launches = blocked_nms_finalize.launches = 0
+        k3_zero()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         metrics = m.val(**kw)
@@ -3918,6 +4183,7 @@ def zoo_phase(card: str, frames):
                                  "batches")
         k4 += n
         k3 += n
+        k3_tally(n, f"{name} val", only="cluster")
         rd = metrics.results_dict
         if not all(np.isfinite(v) and 0 <= v <= 1 for v in rd.values()):
             raise AssertionError(f"{name} val metrics not finite or outside [0, 1]: {rd}")
@@ -4164,7 +4430,8 @@ def parallel_phase(card: str, frames):
             two.predict(src, **kw)
         times = {}
         for name, m in (("one device", one), ("mesh", two)):
-            greedy_nms_keep.launches = select_decode.launches = device_letterbox.launches = 0
+            greedy_nms_keep.launches = device_letterbox.launches = 0
+            k3_zero()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             got = m.predict(src, **kw)
@@ -4172,6 +4439,7 @@ def parallel_phase(card: str, frames):
             times[name] = (time.perf_counter() - t0) * 1e3
             if name == "mesh":
                 n, n3, n2 = greedy_nms_keep.launches, select_decode.launches, device_letterbox.launches
+                k3_tally(n3, f"mesh predict batch {bs}", only="finish")
         shards = 2 if bs % 2 == 0 else 1
         if (n, n3, n2) != (shards,) * 3 or len(two.predictor.replicas) != 2:  # K1, K3 and K2 once a shard
             raise AssertionError(f"mesh predict batch {bs}: {n} K1, {n3} K3 and {n2} K2 launches, "
@@ -4193,7 +4461,8 @@ def parallel_phase(card: str, frames):
     kwv = dict(data=str(val_data), imgsz=640, batch=16, rect=True, conf=1e-7, plots=False, verbose=False,
                project=str(root / "runs"))
     rd1 = one.val(**kwv, name="one").results_dict
-    greedy_nms_keep.launches = blocked_nms_finalize.launches = select_decode.launches = 0
+    greedy_nms_keep.launches = blocked_nms_finalize.launches = 0
+    k3_zero()
     rd2 = two.val(**kwv, name="mesh").results_dict
     n1, n = greedy_nms_keep.launches, blocked_nms_finalize.launches
     if n1 or n != 8 or select_decode.launches != 8:  # 4 batches x 2 shards
@@ -4201,6 +4470,7 @@ def parallel_phase(card: str, frames):
                              "shards")
     k4 += n
     k3 += n
+    k3_tally(n, "mesh val", only="cluster")
     worst = max(abs(rd2[k] - rd1[k]) for k in rd1)
     if worst > 1e-6:
         raise AssertionError(f"mesh val differs from one device by {worst}: {rd2} vs {rd1}")
@@ -4298,6 +4568,7 @@ def parallel_phase(card: str, frames):
                              f"{t2.rank_kernel_launches}")
     k4 += n
     k3 += n
+    k3_tally(n, "2-rank train (rank 0's EMA vals and final val)", routes=t2.rank_select_routes, only="cluster")
     rel = float(np.abs(curves["2 gloo ranks"] / curves["one process"] - 1).max())
     if rel > 1e-3:
         raise AssertionError(f"2-rank loss curve {curves['2 gloo ranks']} vs one process {curves['one process']}")
@@ -4403,10 +4674,10 @@ def main() -> int:
     from yololite_tpu_torch import YOLOLite
     from yololite_tpu_torch.engine import graphs
     from yololite_tpu_torch.ops import cuda_build, nms
-    from yololite_tpu_torch.ops.kernels import (blocked_nms_finalize, device_letterbox, device_letterbox_plain,
-                                               greedy_nms_keep, greedy_nms_keep_plain, letterbox_geometry,
-                                               select_decode, select_decode_plain, select_decode_plan,
-                                               sigmoid_monotone)
+    from yololite_tpu_torch.ops.kernels import (_select_decode_launch, blocked_nms_finalize, device_letterbox,
+                                               device_letterbox_plain, greedy_nms_keep, greedy_nms_keep_plain,
+                                               letterbox_geometry, select_decode, select_decode_plain,
+                                               select_decode_plan, sigmoid_monotone)
 
     card = card_line()
     kind = torch.cuda.get_device_name(0)
@@ -4488,7 +4759,7 @@ def main() -> int:
     # K3 against its plain version on every scene of K3_CASES; K2 on frames of four sizes, both layouts, bgr or not
     if not sigmoid_monotone(torch.device("cuda")):  # what the single-label score pass relies on (ClassMax)
         raise AssertionError("select_decode: its score function is not monotone over every fp32 on this card")
-    k3_bits, k3_routes = [], {}
+    k3_bits, k3_routes, k3_other = [], {}, []
     for case in K3_CASES:
         args = k3_args(case)
         route = select_decode_plan(args[0], args[2], args[3], args[5], args[8])["route"]
@@ -4500,9 +4771,15 @@ def main() -> int:
         torch.cuda.synchronize()
         if k3_check(got, want, case[0]):
             k3_bits.append(case[0])
+        other = {"cluster": "passes", "passes": "cluster"}.get(route)  # the other long-row route, where it can run
+        if other and select_decode_plan(args[0], args[2], args[3], args[5], args[8], route=other)["route"]:
+            k3_check(_select_decode_launch(*args, route=other)[0], want, f"{case[0]} ({other} route)")
+            k3_other.append(f"{case[0]} [{other}]")
     log(f"kernel: select_decode equal to its plain version in {len(K3_CASES)} scenes "
         f"({', '.join(f'{n} [{r}]' for n, r in k3_routes.items())}): "
-        f"vals, bidx, cls, valid bit for bit; boxes bit-equal in {len(k3_bits)} of them, within 1e-6 relative in all")
+        f"vals, bidx, cls, valid bit for bit; boxes bit-equal in {len(k3_bits)} of them, within 1e-6 relative in all; "
+        f"the other long-row route (select_decode_pick) equal too where it can take the shapes: "
+        f"{', '.join(k3_other)}")
     k2_checks = 0
     lb_rng = np.random.default_rng(8)
     for (h0, w0), s in (((480, 640), 640), ((720, 1280), 640), ((333, 517), 320), ((100, 120), 320)):
@@ -4567,7 +4844,8 @@ def main() -> int:
                     eager_results = model.predict(src, **kw)
             finally:
                 nms._exact_keep = exact_keep
-            greedy_nms_keep.launches = select_decode.launches = device_letterbox.launches = 0
+            greedy_nms_keep.launches = device_letterbox.launches = 0
+            k3_zero()
             n_graphs = len(model.predictor._graphs)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -4582,6 +4860,7 @@ def main() -> int:
                 raise AssertionError(f"K1, K3 and K2 launched {n}, {select_decode.launches} and "
                                      f"{device_letterbox.launches} times in {reps} predict calls")
             k3_launches += reps
+            k3_tally(reps, f"predict {'bf16' if half else 'fp32'} batch {bs}", only="finish")
             k2_launches += reps
             if len(model.predictor._graphs) != n_graphs or not n_graphs:  # replays only, no capture
                 raise AssertionError(f"{len(model.predictor._graphs) - n_graphs} graphs captured in the timed calls")
@@ -4785,6 +5064,11 @@ def main() -> int:
         "shape": "the 76 quantized convs of one yolo11n forward at 640, batch 32, summed (device time)",
         **k8,
     }
+    if sum(K3_MAIN_ROUTES.values()) != k3_launches:
+        raise AssertionError(f"select_decode: the main paths' {k3_launches} launches, by route {K3_MAIN_ROUTES}")
+    log(f"kernel: select_decode launches on the main paths by the route taken (each window's counts zeroed at its "
+        f"start; graph replays included): {K3_MAIN_ROUTES} of {k3_launches}; every val and EMA val launch on the "
+        f"cluster route, every predict launch on the finish route, on {card}")
     k3_entry = {
         "name": "select_decode",
         "route": "cuda",
@@ -4796,6 +5080,14 @@ def main() -> int:
                                                     "library_ms", "shape", "boxes_bit_equal", "kernels_a_call",
                                                     "score_ms", "score_tb_s", "list_lengths")},
         "k3_route": k3_val["numbers"]["route"],  # select_decode_plan's route; "route" is the contract's "cuda"
+        # the three routes: finish on predict's fp32 maps, cluster and passes (select_decode_pick, in turns) on
+        # val's fp32 and bf16 maps, the sparse, bunched, B 72 and B 136 scenes and the EMA val's own maps in phase
+        # 5's fp32 and bf16 trains; and the main paths' launches by the route taken
+        "routes": {"finish": {key: k3_pred["fp32"][key] for key in ("ms", "kernels_a_call")},
+                   **{r: {**{d: v[r] for d, v in k3_val["routes"].items() if r in v},
+                          **{f"ema_{d}": v[r] for d, v in K3_EMA_ROUTES.items() if r in v}}
+                      for r in ("cluster", "passes")}},
+        "launches_by_route": dict(K3_MAIN_ROUTES),
         "library": "torch.topk on the gated row (its tie order is not lax.top_k's: a yardstick)",
         "predict": {d: {key: v[key] for key in ("ms", "plain_ms", "bound_ms", "library_ms", "boxes_bit_equal",
                                                 "route", "kernels_a_call", "score_ms", "score_tb_s")}

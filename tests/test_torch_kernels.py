@@ -807,17 +807,21 @@ def test_optim_apply_replays_in_a_graph_with_the_step_advancing(card):
 def test_select_decode_kernel_matches_plain(card, case):
     """K3 against its plain version on the card: vals, bidx, cls and valid bit for bit in all K rows (the -1
     fillers included), boxes and the class-offset boxes within 1e-6 relative (NaN where the plain version has
-    NaN); one counted launch per call, down the route `K3_ROUTES` names (the finish route: two kernels)."""
+    NaN); one counted launch per call, counted under the route taken, down the route `K3_ROUTES` names (the
+    finish and cluster routes: two kernels; the passes: ten or more)."""
     from yololite_tpu_torch.ops.kernels import select_decode_plan
 
     args = k3_args(case)
     plan = select_decode_plan(args[0], args[2], args[3], args[5], args[8])
     assert plan["route"] == K3_ROUTES[case[0]]
-    assert plan["launches"] == 2 if plan["route"] == "finish" else plan["launches"] >= 10
-    before = select_decode.launches
+    assert plan["launches"] == 2 if plan["route"] in ("finish", "cluster") else plan["launches"] >= 10
+    assert (plan["cluster"] >= 1) == (plan["route"] == "cluster")
+    before, by_route = select_decode.launches, select_decode.by_route.as_dict()
     got = select_decode(*args)
     torch.cuda.synchronize()
     assert select_decode.launches == before + 1
+    by_route[plan["route"]] += 1
+    assert select_decode.by_route.as_dict() == by_route
     k3_check(got, select_decode_plain(*args), case[0])  # raises on a difference
     if case[0].startswith("all-gated"):
         assert bool((got[0] == -1).all()) and not bool(got[5].any())
@@ -848,10 +852,51 @@ def test_select_decode_score_function_is_monotone(card):
     assert sigmoid_monotone(card)
 
 
+@pytest.mark.parametrize("case", [c for c in K3_CASES if K3_ROUTES[c[0]] == "cluster"],
+                         ids=[c[0] for c in K3_CASES if K3_ROUTES[c[0]] == "cluster"])
+def test_select_decode_passes_route_matches_plain_on_cluster_scenes(card, case):
+    """The passes route, run through select_decode_pick on a scene that the shapes send to the cluster route,
+    still equals the plain version (vals, bidx, cls, valid bit for bit); a route that cannot take the shapes
+    (finish on a long row) raises."""
+    from yololite_tpu_torch.ops.kernels import _select_decode_launch
+
+    args = k3_args(case)
+    got, route = _select_decode_launch(*args, route="passes")
+    torch.cuda.synchronize()
+    assert route == "passes"
+    k3_check(got, select_decode_plain(*args), f"{case[0]} (passes route)")
+    with pytest.raises(RuntimeError):
+        _select_decode_launch(*args, route="finish")
+
+
+@pytest.mark.parametrize("name", ["val-b72", "val-b136"])
+def test_select_decode_cluster_route_in_clusters_of_one(card, name):
+    """Past the batch the card holds in clusters of two CTAs at once the shapes pick the passes route; the cluster
+    route, run through select_decode_pick, then takes clusters of one CTA (in waves at B 136, past the 132 an H100
+    holds), a tie list and slack under those of val's B 16, and still equals the plain version."""
+    from yololite_tpu_torch.ops.kernels import _select_decode_launch, select_decode_plan
+
+    args = k3_args(next(c for c in K3_CASES if c[0] == name))
+    b = args[0][0].shape[0]
+    assert select_decode_plan(args[0], 80, 16, 8192, True)["route"] == K3_ROUTES[name] == "passes"
+    plan = select_decode_plan(args[0], 80, 16, 8192, True, route="cluster")
+    wide = select_decode_plan(k3_args(K3_CASES[3])[0], 80, 16, 8192, True)  # val's B 16
+    assert plan["route"] == "cluster" and plan["cluster"] == 1 and wide["cluster"] > 1
+    assert 0 < plan["slack"] < wide["slack"] and 0 < plan["tie_cap"] < wide["tie_cap"], (plan, wide)
+    assert (plan["max_active_clusters"] < b) == (name == "val-b136")
+    got, route = _select_decode_launch(*args, route="cluster")
+    torch.cuda.synchronize()
+    assert route == "cluster"
+    k3_check(got, select_decode_plain(*args), f"{name} (cluster route)")
+
+
 def test_select_decode_kernel_replays_in_a_graph(card):
     """Captured in a CUDA graph, K3 replays on new maps copied into the captured inputs and gives the eager
-    results (no host sync inside: the capture would fail)."""
+    results (no host sync inside: the capture would fail); val's scene, which takes the cluster route."""
+    from yololite_tpu_torch.ops.kernels import select_decode_plan
+
     args = k3_args(K3_CASES[3])
+    assert select_decode_plan(args[0], args[2], args[3], args[5], args[8])["route"] == "cluster"
     feats = [f.clone() for f in args[0]]
     static = [f.clone() for f in feats]
     select_decode(static, *args[1:])  # warm up outside the capture
@@ -868,6 +913,35 @@ def test_select_decode_kernel_replays_in_a_graph(card):
         want = select_decode(new, *args[1:])
         for o, w in zip(out, want):
             assert _same_bits(o, w)
+
+
+def test_select_decode_cluster_route_replays_in_a_graph_on_the_sparse_scene(card):
+    """The cluster route's shortcut (fewer than K entries pass: b0's bin holds one key) captured in a CUDA graph
+    replays on new sparse maps as the eager calls do, and a replay advances the by-route counts as its capture
+    did."""
+    case = next(c for c in K3_CASES if c[0] == "val-sparse")
+    args = k3_args(case)
+    static = [f.clone() for f in args[0]]
+    select_decode(static, *args[1:])
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = select_decode(static, *args[1:])
+    for seed in (3, 4):
+        new = k3_maps(np.random.default_rng(seed), case[1], case[2], 80, torch.float32, "nhwc", "sparse")
+        for s, n in zip(static, new):
+            s.copy_(n)
+        g.replay()
+        torch.cuda.synchronize()
+        want = select_decode(new, *args[1:])
+        for o, w in zip(out, want):
+            assert _same_bits(o, w)
+    cache = graphs.GraphCache()
+    step = lambda *f: select_decode(list(f), *args[1:])  # noqa: E731
+    before = select_decode.by_route.cluster
+    for _ in range(3):  # seen (eager), captured and replayed, replayed
+        cache.step(step, tuple(static), ("k3-sparse",), torch.device(card))
+    assert select_decode.by_route.cluster - before == 3 and cache.replays == 2
 
 
 def test_select_decode_kernel_rejects_what_it_does_not_take(card):

@@ -113,15 +113,34 @@ def test_select_decode_op_is_the_plain_version(case):
     tmask = None if mask is None else torch.from_numpy(mask)
     args = (tfeats, STRIDES, c["nc"], 16, 0.01, c["max_cand"], tmask, False, c["ml"], c["agnostic"])
     want = K.select_decode_plain(*args)
-    before = K.select_decode.launches
+    before, by_route = K.select_decode.launches, K.select_decode.by_route.as_dict()
     for got in (K.select_decode(*args), torch.ops.yololite_tpu_torch.select_decode(*args)):
         for g, w in zip(got, want):
             assert g.dtype == w.dtype and g.is_contiguous()
             np.testing.assert_array_equal(g.numpy(), w.numpy())
-    assert K.select_decode.launches == before  # the counter counts card launches only
+    assert K.select_decode.launches == before  # the counters count card launches only
+    assert K.select_decode.by_route.as_dict() == by_route
     vals, bidx, cls = tnms.select_from_feats(tfeats, c["nc"], 16, 0.01, c["max_cand"], tmask,
                                              multi_label=c["ml"])
     assert torch.equal(vals, want[0]) and torch.equal(bidx, want[1]) and torch.equal(cls, want[2])
+
+
+def test_route_counts_follow_graph_replays_and_routes_are_named():
+    """K3's launches by route are Python counters that a replayed CUDA graph advances (engine/graphs.py COUNTERS),
+    one a route of SELECT_ROUTES; a route to run is "plan" or one of those names, anything else raises before any
+    library is loaded."""
+    from yololite_tpu_torch.engine.graphs import COUNTERS
+
+    assert K.SELECT_ROUTES == ("passes", "finish", "cluster")
+    assert all((K.select_decode.by_route, r) in COUNTERS for r in K.SELECT_ROUTES)
+    assert (K.select_decode, "launches") in COUNTERS
+    assert [K._route_code(r) for r in ("plan", *K.SELECT_ROUTES)] == [-1, 0, 1, 2]
+    counts = K._RouteCounts()
+    counts.cluster, counts.finish = 2, 5
+    counts.reset()  # a window whose launches are read starts from 0 on every route
+    assert counts.as_dict() == dict.fromkeys(K.SELECT_ROUTES, 0)
+    with pytest.raises(ValueError):
+        K._route_code("sorted")
 
 
 def test_select_from_feats_keeps_the_scores_dtype():
@@ -288,14 +307,14 @@ def _key_values(keys):
     return np.where(k & 0x80000000, k & 0x7FFFFFFF, ~k).astype(np.uint32).view(np.float32)
 
 
-def _finish_bin(hist, need):
-    """finish_bin: FINISH_THREADS threads sum runs of bins from the top, a scan finds the one whose run reaches
-    need; returns (bin, what the bin still has to give)."""
+def _finish_bin(hist, need, threads=FINISH_THREADS):
+    """finish_bin: `threads` threads sum runs of bins from the top, a scan finds the one whose run reaches need;
+    returns (bin, what the bin still has to give)."""
     nb = len(hist)
-    per = -(-nb // FINISH_THREADS)
+    per = -(-nb // threads)
     found = []
     incl = 0
-    for t in range(FINISH_THREADS):
+    for t in range(threads):
         top = nb - 1 - t * per
         run = [top - j for j in range(per) if top - j >= 0]
         total = int(sum(hist[i] for i in run))
@@ -481,6 +500,257 @@ def test_finish_select_model_at_the_capacity(k):
     gated = _gated_rows(tfeats, 3, 0.01, None, False)
     comp, ib = _finish_model(_order_keys(gated[0]), np.arange(FINISH_CAP), k)
     idx = FINISH_CAP - 1 - (comp & np.uint64((1 << ib) - 1)).astype(np.int64)
+    np.testing.assert_array_equal(idx, bidx[0].numpy())
+    np.testing.assert_array_equal(_key_values((comp >> np.uint64(ib)).astype(np.uint32)), vals[0].numpy())
+    np.testing.assert_array_equal(idx, np.asarray(jax.lax.top_k(jnp.asarray(gated), k)[1][0]))
+
+
+# ---------------- a numpy model of K3's cluster route ----------------
+
+CLUSTER_THREADS, KEYS_A_THREAD, CLUSTER_MAX_K, SLACK, SORT_STEP_READS = 1024, 8, 8192, 4096, 16  # the .cu's
+
+
+def _sort_descending(s):
+    """sort_descending on s (any length n): a bitonic network over the 2^k >= n places whose every comparator puts
+    the larger first (a merge's first stage pairs mirrored places), comparators that reach past n skipped."""
+    n, p2 = len(s), 1
+    while p2 < n:
+        p2 <<= 1
+    size = 2
+    while size <= p2:
+        stride = size >> 1
+        while stride:
+            i = np.arange(p2 // 2)
+            lo = i // stride * 2 * stride + i % stride
+            hi = lo - i % stride + 2 * stride - 1 - i % stride if stride == size >> 1 else lo + stride
+            keep = hi < n
+            lo, hi = lo[keep], hi[keep]
+            x, y = s[lo].copy(), s[hi].copy()
+            swap = x < y
+            s[lo[swap]], s[hi[swap]] = y[swap], x[swap]
+            stride >>= 1
+        size <<= 1
+    return s
+
+
+def _sort_steps(n):
+    """sort_descending's comparator steps a thread on n slots: log2(p2) (log2(p2) + 1) / 2 stages of p2 / 2
+    comparators over CLUSTER_THREADS threads."""
+    p2, lg = 1, 0
+    while p2 < n:
+        p2, lg = p2 * 2, lg + 1
+    return lg * (lg + 1) // 2 * -(-(p2 // 2) // CLUSTER_THREADS)
+
+
+def _cluster_model(keys, flat, k, clusters, tie_cap, class_major=False, slack=SLACK, sort_step_reads=SORT_STEP_READS):
+    """One image through the cluster kernel, C = `clusters` CTAs: keys (N,) in storage order, flat (N,) each one's
+    flat index. Each CTA's slice (a multiple of 8 entries) listed in row order: the composites above the first
+    digit's bin b0 of the K-th entry, and the first tie_cap of those in it; the shared counts decide: every entry
+    of b0 wins; or b0 holds one key in an index-ordered row (the shortcut: each CTA's first winners of the bin from
+    a prefix count of the CTAs' ties); or the later digits from the CTAs' histograms summed (one key: from its index
+    bits), a CTA whose tie list overflowed counting from its key slice, until the entries at or above the decided
+    bits (the group) number at most K + slack. The group is ordered by the 11 bits below those all its entries
+    share: the CTAs' histograms summed give each bucket its first place, each entry takes a slot of its bucket (after
+    the CTAs below its own), each slot's entry goes to its bucket's first place plus its count of larger ones in the
+    bucket (or, in a CTA whose counts would read more than sort_step_reads a thread for each of its sort's steps,
+    to its CTA's first place plus its place in the CTA's sorted slots: " sorted" ends the branch), and places below
+    K are rows; the shortcut's winners of the bin take rows K - need on, in their prefix
+    count's order. Returns the K composites by row, ib and the branch taken. (The kernel's tie_cap is at least K +
+    slack; the model takes smaller ones to reach the key slices.)"""
+    n = len(keys)
+    ib = max(int(n - 1).bit_length(), 1)
+    lo0 = 32 + ib - DIGIT
+    comp = (keys.astype(np.uint64) << np.uint64(ib)) | (n - 1 - flat).astype(np.uint64)
+    bins = (keys >> 21).astype(np.int64)
+    b0, need0 = _finish_bin(np.bincount(bins, minlength=1 << DIGIT), k, CLUSTER_THREADS)
+    done0 = int((bins == b0).sum()) == need0
+    per = -(-(-(-n // clusters)) // KEYS_A_THREAD) * KEYS_A_THREAD
+    slices = [np.arange(min(r * per, n), min(r * per + per, n)) for r in range(clusters)]
+    above = [comp[sl][bins[sl] > b0] for sl in slices]  # row order
+    ties = [comp[sl][bins[sl] == b0] for sl in slices]
+    listed = [t[:tie_cap] for t in ties]
+    over = [len(t) > tie_cap for t in ties]
+    assert sum(map(len, above)) == k - need0 and all(len(a) <= k for a in above)
+    tie_keys = keys[bins == b0]
+    one_key = tie_keys.min() == tie_keys.max()
+    before = np.concatenate([[0], np.cumsum([len(t) for t in ties])])[:-1]
+    m = [int(min(max(need0 - before[r], 0), len(ties[r]))) for r in range(clusters)]
+    by_index = not done0 and one_key and not class_major
+    # (the kernel's tie_cap, at least K + slack, always holds a CTA's winners of the bin)
+    assert not by_index or all(m[r] <= len(listed[r]) for r in range(clusters))
+    prefix, group = b0 << lo0, k
+    went = "done" if done0 else "shortcut" if by_index else "index digits" if one_key else "digits"
+    if went.endswith("digits") and any(over):
+        went += " and key slices"
+    if not done0 and not by_index and k - need0 + int((bins == b0).sum()) <= k + slack:
+        group, went = k - need0 + int((bins == b0).sum()), "order"  # the first digit leaves few enough
+    elif not done0 and not by_index:
+        need, hi = need0, lo0
+        if one_key:
+            prefix, hi = int(tie_keys[0]) << ib, ib
+        done = False
+        while not done:
+            lo = max(hi - DIGIT, 0)
+            nb = 1 << (hi - lo)
+            total = np.zeros(nb, np.int64)
+            for r in range(clusters):  # each CTA's histogram, from its list or (overflowed) its key slice
+                src = ties[r] if over[r] else listed[r]  # the slice's ties are what the row scan meets
+                match = src[(src >> np.uint64(hi)) == np.uint64(prefix >> hi)]
+                total += np.bincount(((match >> np.uint64(lo)) & np.uint64(nb - 1)).astype(np.int64), minlength=nb)
+            b, left = _finish_bin(total, need, CLUSTER_THREADS)
+            prefix |= b << lo
+            need = left
+            done = total[b] == left or lo == 0
+            if not done and k - left + total[b] <= k + slack:  # few enough to order: the rest fall past row K
+                group, done = k - left + int(total[b]), True
+                went += " then order"
+            hi = lo
+    if by_index:
+        group = k - need0
+        mine = above
+        lowest = min((int(a.min()) for a in above if len(a)), default=(1 << 64) - 1)
+    else:
+        mine = [np.concatenate([above[r], ties[r][ties[r] >= np.uint64(prefix)]]) for r in range(clusters)]
+        lowest = prefix
+    assert sum(map(len, mine)) == group
+    top = max(int(c.max()) for c in listed + above if len(c))
+    span = (top ^ lowest).bit_length() if top > lowest else 0
+    dlo = max(span - DIGIT, 0)
+    nd = 1 << (span - dlo)
+    digit = lambda c: ((c >> np.uint64(dlo)) & np.uint64(nd - 1)).astype(np.int64)  # noqa: E731
+    cnt = np.stack([np.bincount(digit(w), minlength=nd) for w in mine])  # (C, nd)
+    start = np.concatenate([np.cumsum(cnt.sum(0)[::-1])[::-1][1:], [0]])  # the entries of larger digits
+    slots = np.zeros(group, np.uint64)
+    for r in range(clusters):  # each entry to a slot of its bucket, after the CTAs below this one
+        nxt = start + cnt[:r].sum(0)
+        for c, d in zip(mine[r], digit(mine[r])):
+            slots[nxt[d]] = c
+            nxt[d] += 1
+    rows = np.zeros(k, np.uint64)
+    filled = np.zeros(k, np.int64)
+    rs = -(-group // clusters)  # each CTA's even share of the places; its slots start at a bucket's first place
+    first = [min(int(start[max(d for d in range(nd) if start[d] >= q * rs)]), group)
+             if any(start[d] >= q * rs for d in range(nd)) else group for q in range(clusters)] + [group]
+    sorted_ctas = 0
+    for q in range(clusters):  # each slot to its place: its bucket's first place and its larger ones there
+        region = slots[first[q]:first[q + 1]]
+        ends = [start[d - 1] if d > 0 else group for d in range(nd)]
+        reads = sum(ends[d] - start[d] for d in digit(region))  # the counts' reads: a bucket's size a slot
+        if reads > sort_step_reads * CLUSTER_THREADS * _sort_steps(len(region)):  # the CTA sorts its slots
+            sorted_ctas += 1
+            places = first[q] + np.arange(len(region))
+            region = _sort_descending(region.copy())
+        else:
+            places = [start[d] + int((slots[start[d]:ends[d]] > c).sum()) for c, d in zip(region, digit(region))]
+        for place, c in zip(places, region):
+            if place < k:
+                rows[place] = c
+                filled[place] += 1
+    if sorted_ctas:
+        went += " sorted"
+    if by_index:
+        for r in range(clusters):
+            for j in range(m[r]):
+                row = group + before[r] + j
+                rows[row] = listed[r][j]
+                filled[row] += 1
+    assert (filled == 1).all()  # every output row once
+    assert (np.diff(rows.astype(np.float64)) <= 0).all() and len(set(rows.tolist())) == k
+    return rows, ib, went
+
+
+def _model_case_rows(tfeats, nc, conf, mask, ml, nchw, shapes):
+    """(keys, flat) of each image's gated row in the kernel's storage order (class-major for NCHW views)."""
+    gated = _gated_rows(tfeats, nc, conf, mask, ml)
+    out = []
+    for i in range(gated.shape[0]):
+        keys, flat = _order_keys(gated[i]), np.arange(gated.shape[1])
+        if ml and nchw:
+            storage = _class_major_flat(shapes, nc)
+            keys, flat = keys[storage], storage
+        out.append((keys, flat))
+    return gated, out
+
+
+FEW_PASS = lambda x: x - 6.0  # noqa: E731  (class logits whose scores mostly fail the gate)
+CROWDED = lambda x: x * 0.01  # noqa: E731  (scores within 0.5 +- 0.01: a few first-digit bins hold every entry)
+BUNCHED = lambda x: torch.round(x * 2) / 2  # noqa: E731  (a few logit values, as bf16 logits near a bias give: keys
+# that a hundred entries share)
+CLUSTER_CASES = {  # name: (case of CASES, K, C, tie_cap, class-logit map or None, the branch taken, slack, and
+    # the sort's cost in count reads a step: SORT_STEP_READS, or 0 to sort wherever a count reads anything)
+    "multi": ("multi", 300, 3, 8192, None, "digits", 0, SORT_STEP_READS),
+    "multi-order": ("multi", 300, 3, 8192, None, "order", SLACK, SORT_STEP_READS),
+    "multi-digits-then-order": ("multi", 300, 3, 8192, None, "digits then order", 16, SORT_STEP_READS),
+    "class-major": ("nhwc-views", 300, 5, 8192, None, "digits", 0, SORT_STEP_READS),
+    "class-major-order": ("nhwc-views", 300, 5, 8192, None, "order", SLACK, SORT_STEP_READS),
+    "few-pass": ("multi", 1000, 4, 8192, FEW_PASS, "shortcut", SLACK, SORT_STEP_READS),
+    "few-pass-class-major": ("nhwc-views", 1000, 7, 8192, FEW_PASS, "index digits", 0, SORT_STEP_READS),
+    "few-pass-c1": ("multi", 1000, 1, 8192, FEW_PASS, "shortcut", SLACK, SORT_STEP_READS),
+    "all-gated": ("multi", 700, 16, 8192, lambda x: x - 40.0, "shortcut", SLACK, SORT_STEP_READS),
+    "k-eq-n": ("multi", 1575, 4, 8192, None, "done", SLACK, SORT_STEP_READS),
+    "ties": ("ties-multi", 400, 3, 8192, None, "shortcut", SLACK, SORT_STEP_READS),
+    "class-mask": ("class-mask-multi", 200, 6, 8192, None, "digits", 0, SORT_STEP_READS),
+    "nan": ("nan-multi", 300, 2, 8192, None, "digits", 0, SORT_STEP_READS),
+    "overflow": ("multi", 300, 2, 100, CROWDED, "digits and key slices", 0, SORT_STEP_READS),
+    "overflow-one-key": ("nhwc-views", 1000, 3, 100, FEW_PASS, "index digits and key slices", 0, SORT_STEP_READS),
+    "single": ("single", 100, 3, 8192, None, "digits", 0, SORT_STEP_READS),
+    "single-order": ("single", 100, 3, 8192, None, "order", SLACK, SORT_STEP_READS),
+    "bunched": ("multi", 300, 3, 8192, BUNCHED, "order", SLACK, SORT_STEP_READS),
+    "bunched-sorted": ("multi", 300, 3, 8192, BUNCHED, "order sorted", SLACK, 0),
+    "bunched-digits-sorted": ("multi", 300, 2, 8192, BUNCHED, "digits sorted", 0, 0),
+    "few-pass-class-major-sorted": ("nhwc-views", 1000, 7, 8192, FEW_PASS, "index digits sorted", 0, 0),
+}
+
+
+@pytest.mark.parametrize("name", list(CLUSTER_CASES))
+def test_cluster_select_model_matches_plain_and_top_k(name):
+    """The cluster kernel's select, modelled in numpy on the gated rows (slices, lists in row order, the first
+    digit, the shared counts, the shortcut or the later digits, the sorts and the cross-CTA ranks), gives the plain
+    version's candidates (values bit for bit, indices, classes) and lax.top_k's, through the branch named."""
+    case, k, clusters, tie_cap, logits, went, slack, sort_step_reads = CLUSTER_CASES[name]
+    feats, tfeats, mask, c = _case_inputs(case)
+    if logits is not None:
+        tfeats = [f.clone() for f in tfeats]
+        for f in tfeats:
+            f[..., 64:] = logits(f[..., 64:])
+    nc = c["nc"]
+    ml = c["ml"] and nc > 1
+    tmask = None if mask is None else torch.from_numpy(mask)
+    vals, bidx, cls = K.select_decode_plain(tfeats, STRIDES, nc, 16, 0.01, k, tmask, multi_label=c["ml"])[:3]
+    gated, rows = _model_case_rows(tfeats, nc, 0.01, mask, ml, CASES[case][6], RECT)
+    n = gated.shape[1]
+    k = min(k, n)
+    jv, ji = jax.lax.top_k(jnp.asarray(gated), k)
+    for i, (keys, flat) in enumerate(rows):
+        comp, ib, route = _cluster_model(keys, flat, k, clusters, tie_cap, class_major=ml and CASES[case][6],
+                                         slack=slack, sort_step_reads=sort_step_reads)
+        assert route == went
+        idx = n - 1 - (comp & np.uint64((1 << ib) - 1)).astype(np.int64)
+        got_vals = _key_values((comp >> np.uint64(ib)).astype(np.uint32))
+        np.testing.assert_array_equal(got_vals.view(np.uint32), vals[i].numpy().view(np.uint32))
+        np.testing.assert_array_equal(idx, (bidx[i] * nc + cls[i].long() if ml else bidx[i]).numpy())
+        np.testing.assert_array_equal(idx, np.asarray(ji[i]))
+        np.testing.assert_array_equal(got_vals, np.asarray(jv[i]))
+
+
+@pytest.mark.parametrize("clusters", [2, 6])
+def test_cluster_select_model_at_the_capacity(clusters):
+    """K = CLUSTER_MAX_K winners of an 11,264-entry row (single-label, three distinct logit values: long runs of
+    ties; at most the 3,072 anchors of the smaller levels pass): the model equals lax.top_k and the plain version, its CTAs' lists and sorts
+    inside the kernel's capacities."""
+    shapes = ((64, 128), (32, 64), (16, 64))
+    rng = np.random.default_rng(clusters)
+    feats = _feats(rng, B=1, shapes=shapes, nc=3, n_values=3)
+    feats[0][..., 64:] -= 9.0  # the largest level's scores under the gate
+    tfeats = [torch.from_numpy(f) for f in feats]
+    k = CLUSTER_MAX_K
+    vals, bidx = K.select_decode_plain(tfeats, STRIDES, 3, 16, 0.01, k)[:2]
+    gated = _gated_rows(tfeats, 3, 0.01, None, False)
+    n = gated.shape[1]
+    assert n == 11264 and (gated[0] > 0).sum() <= 3072
+    comp, ib, went = _cluster_model(_order_keys(gated[0]), np.arange(n), k, clusters, CLUSTER_MAX_K)
+    assert went == "shortcut sorted"  # three logit values: the counts over their buckets cost more than a sort
+    idx = n - 1 - (comp & np.uint64((1 << ib) - 1)).astype(np.int64)
     np.testing.assert_array_equal(idx, bidx[0].numpy())
     np.testing.assert_array_equal(_key_values((comp >> np.uint64(ib)).astype(np.uint32)), vals[0].numpy())
     np.testing.assert_array_equal(idx, np.asarray(jax.lax.top_k(jnp.asarray(gated), k)[1][0]))

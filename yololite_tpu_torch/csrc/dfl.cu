@@ -37,7 +37,8 @@
 // of its lanes: splitting it, one lane a row over two rows, measured no faster cold on an H100 (PERF.md). A layout
 // that 16-byte loads cannot read (`vec` 0, chosen by the wrapper, ops/loss_kernels.py `dfl_plan`) takes the same
 // kernels with scalar loads; another R takes the generic kernels: a thread a side, R read at run time, the softmax in
-// csrc/dfl_math.cuh's code (K3's), the backward recomputing m, z and E instead of reading saved tensors.
+// csrc/dfl_math.cuh's code (K3's), the backward recomputing m, z and E instead of reading saved tensors. The R = 16
+// softmax and expectation (`Side16`, `expectation16`) live in csrc/dfl_math.cuh too: K3's decode runs them.
 //
 // Bound on an H100 SXM at the train step's shapes (B 16, A 8,400: 134,400 rows, R 16; chip_smoke.py
 // loss_tail_bound_ms), each input read once and each output written once: K5 forward 34.4 MB of fp32 logits and
@@ -208,14 +209,6 @@ __global__ void __launch_bounds__(kThreads) dfl_ce_bwd(Args a) {
   store_side<T>(static_cast<T*>(a.out) + (r * 4 + side) * R, v, R);
 }
 
-// NaN-propagating max (torch's amax: any NaN makes the max NaN; which NaN does not matter, every use of m is
-// arithmetic and gives the canonical NaN)
-__device__ __forceinline__ float max_nan(float a, float b) {
-  float r;
-  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
-  return r;
-}
-
 // R = 16: the lane's 8 consecutive bins of its side as floats, from p (32-byte aligned with `vec`: 16-byte
 // loads; else one element at a time)
 template <typename T>
@@ -249,33 +242,6 @@ __device__ __forceinline__ void store_half(T* __restrict__ p, const float (&v)[8
   }
 }
 
-// one side's softmax at R = 16 across its two lanes (lane bit 0 = the half): the lane's bins v, the side's max m,
-// the lane's e_j = expf(v_j - m), the other lane's (o), and z in torch's order, the same bits on both lanes
-struct Side16 {
-  float e[8], o[8];
-  float m, z;
-
-  __device__ __forceinline__ void of(const float (&v)[8]) {
-    m = v[0];
-#pragma unroll
-    for (int j = 1; j < 8; ++j) m = max_nan(m, v[j]);
-    m = max_nan(m, __shfl_xor_sync(kFull, m, 1));
-#pragma unroll
-    for (int j = 0; j < 8; ++j) e[j] = expf(__fsub_rn(v[j], m));
-    float p[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      o[j] = __shfl_xor_sync(kFull, e[j], 1);
-      p[j] = __fadd_rn(e[j], o[j]);  // bins j and j + 8
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) p[j] = __fadd_rn(p[j], p[j + 4]);
-#pragma unroll
-    for (int j = 0; j < 2; ++j) p[j] = __fadd_rn(p[j], p[j + 2]);
-    z = __fadd_rn(p[0], p[1]);
-  }
-};
-
 // R = 16: a warp takes 4 rows, a group of 8 lanes one; lane bit 0 is the half of the side, bits 1-2 the side
 struct Lane16 {
   long long r;  // the lane's row
@@ -304,21 +270,6 @@ __device__ __forceinline__ Side16 side16(const Args& a, const Lane16& w, float (
   Side16 s;
   s.of(v);
   return s;
-}
-
-// K5 at R = 16: the side's expectation sum(e_j * j) / z across its two lanes, the numerator in torch's order (the
-// tree of `Side16::of` over the products e_j * j, each lane forming the other half's products from its e), the
-// same bits on both lanes
-__device__ __forceinline__ float expectation16(const Side16& s, int half) {
-  float p[8];
-#pragma unroll
-  for (int j = 0; j < 8; ++j)  // bins j and j + 8
-    p[j] = __fadd_rn(__fmul_rn(s.e[j], (float)(half * 8 + j)), __fmul_rn(s.o[j], (float)((1 - half) * 8 + j)));
-#pragma unroll
-  for (int j = 0; j < 4; ++j) p[j] = __fadd_rn(p[j], p[j + 4]);
-#pragma unroll
-  for (int j = 0; j < 2; ++j) p[j] = __fadd_rn(p[j], p[j + 2]);
-  return __fdiv_rn(__fadd_rn(p[0], p[1]), s.z);
 }
 
 template <typename T>

@@ -71,3 +71,56 @@ __device__ __forceinline__ float dfl_side_expectation(const float* e, float* w, 
     if (j < R) w[j] = __fmul_rn(e[j], (float)j);
   return __fdiv_rn(row_sum(w, R), z);
 }
+
+// ---- R = 16 on two lanes a side (lane bit 0 the half, each lane holding 8 consecutive bins): K5's and K6a's
+// layout in csrc/dfl.cu, and K3's decode in csrc/select_decode.cu ----
+
+// NaN-propagating max (torch's amax: any NaN makes the max NaN; which NaN does not matter, every use of m is
+// arithmetic and gives the canonical NaN)
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+// one side's softmax at R = 16 across its two lanes (lane bit 0 = the half): the lane's bins v, the side's max m,
+// the lane's e_j = expf(v_j - m), the other lane's (o), and z in torch's order, the same bits on both lanes
+struct Side16 {
+  float e[8], o[8];
+  float m, z;
+
+  __device__ __forceinline__ void of(const float (&v)[8]) {
+    m = v[0];
+#pragma unroll
+    for (int j = 1; j < 8; ++j) m = max_nan(m, v[j]);
+    m = max_nan(m, __shfl_xor_sync(0xffffffffu, m, 1));
+#pragma unroll
+    for (int j = 0; j < 8; ++j) e[j] = expf(__fsub_rn(v[j], m));
+    float p[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      o[j] = __shfl_xor_sync(0xffffffffu, e[j], 1);
+      p[j] = __fadd_rn(e[j], o[j]);  // bins j and j + 8
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) p[j] = __fadd_rn(p[j], p[j + 4]);
+#pragma unroll
+    for (int j = 0; j < 2; ++j) p[j] = __fadd_rn(p[j], p[j + 2]);
+    z = __fadd_rn(p[0], p[1]);
+  }
+};
+
+// R = 16 (K5, and K3's decode): the side's expectation sum(e_j * j) / z across its two lanes, the numerator in
+// torch's order (the tree of `Side16::of` over the products e_j * j, each lane forming the other half's products
+// from its e), the same bits on both lanes
+__device__ __forceinline__ float expectation16(const Side16& s, int half) {
+  float p[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)  // bins j and j + 8
+    p[j] = __fadd_rn(__fmul_rn(s.e[j], (float)(half * 8 + j)), __fmul_rn(s.o[j], (float)((1 - half) * 8 + j)));
+#pragma unroll
+  for (int j = 0; j < 4; ++j) p[j] = __fadd_rn(p[j], p[j + 4]);
+#pragma unroll
+  for (int j = 0; j < 2; ++j) p[j] = __fadd_rn(p[j], p[j + 2]);
+  return __fdiv_rn(__fadd_rn(p[0], p[1]), s.z);
+}

@@ -38,14 +38,18 @@
 //
 // Design: kernels on the caller's stream, no host sync, every buffer in one
 // workspace that the wrapper allocates with torch; the level descriptors
-// travel by value in the launches' parameters. One of two routes, picked on
-// the host from the shapes alone (`plan`, reported by select_decode_plan):
+// travel by value in the launches' parameters. One of three routes, picked on
+// the host from the shapes alone (`plan`, reported by select_decode_plan;
+// select_decode_pick runs a named one, for timing and the card tests):
 //
 // finish (a row of N <= kFinishCap entries: predict's 8,400 anchors, any
 //   single-label row at 640 and below): two launches.
 //   score:   one pass over the class logits (below), writing each entry's
 //            32-bit order key of its gated score (and, single-label, the
-//            argmax class); nothing else, so no state to reset;
+//            argmax class) and counting the keys' top 11 bits in a
+//            shared-memory histogram (warp-aggregated with __match_any_sync:
+//            ties are the rule at low conf), added into a per-image
+//            histogram in device memory after a memset;
 //   finish:  `reps` CTAs an image (the card's SMs over B, at most 8), each
 //            reading the image's key row into shared memory and selecting on
 //            its own (the same answer in each): a radix select over the
@@ -54,13 +58,40 @@
 //            entries, the lowest indices winning ties), the K winners
 //            collected and bitonic-sorted in shared memory, then each CTA
 //            decodes every reps-th winner, a thread a (candidate, side).
-// passes (longer rows: val's multi-label 400,000-entry rows): a memset of
-//   the per-image state, then
-//   score:   as above, and counts the keys' top 11 bits in a shared-memory
-//            histogram (warp-aggregated with __match_any_sync: ties are the
-//            rule at low conf), added into a per-image histogram in device
-//            memory; the last CTA of an image (`last_to_arrive`) finds the
-//            bin that holds the K-th largest entry;
+// cluster (longer rows with K <= kClusterMaxK: val's and the EMA val's
+//   multi-label rows of 400,000-670,000 entries at K 8,192; not NCHW planes
+//   whose candidates are a quarter of the anchors or more, which the passes
+//   route's dense decode reads coalesced): two launches.
+//   score:   as above;
+//   select:  one thread-block cluster of C CTAs of 1,024 threads an image, C
+//            the largest size of which the card runs all B clusters at once
+//            (cudaOccupancyMaxActiveClusters; `cluster_for`, as K4's). Each
+//            CTA reads its slice of the key row once and lists, in row order
+//            in its shared memory, the composites above the first digit's bin
+//            b0 of the K-th entry and those in it; the CTAs exchange their
+//            counts through distributed shared memory (DSMEM), and
+//            barrier.cluster takes the place of a kernel boundary. Where b0
+//            holds one key (the -1 fillers when fewer than K entries pass the
+//            gate) and the row lies in index order, its winners are its lowest
+//            indices, found by a prefix count of the CTAs' ties, with no radix
+//            pass; else, while the entries at or above the decided bits number
+//            more than K + slack, a later digit from per-CTA histograms of the
+//            listed ties summed through DSMEM. Those entries are put in order
+//            by one more digit (buckets summed through DSMEM, each bucket's
+//            entries sent to the one CTA that holds it, each one's place its
+//            count of larger ones there, or, where those counts would cost
+//            more than sorting the CTA's slots (keys that many entries share),
+//            its place in the CTA's sorted slots: a bitonic network, so the
+//            step is at most O(n log^2 n) whatever the keys' ties); the places
+//            below K are the rows, and each CTA decodes its
+//            rows from each candidate's own box logits, 8 lanes a row. A CTA
+//            whose tie list overflows reads its key slice again for each later
+//            digit (at most ceil((21 + ib) / 11): four for val's rows) and
+//            once to collect, inside the one kernel: correct, only slower.
+// passes (K past the cluster route's capacity, those NCHW planes and those
+//   batches): the memset, then
+//   score:   as above, and the last CTA of an image (`last_to_arrive`) finds
+//            the bin that holds the K-th largest entry;
 //   select:  a pass per later digit (`hist`), each skipped once its image is
 //            decided. After the first digit, an image whose entries at or
 //            above the K-th entry's bin number at most N / 4 lists their
@@ -92,10 +123,10 @@
 // class logit once, the 4R box logits of each distinct candidate anchor and
 // writes 49 bytes per candidate: at predict's B 32 fp32 (640 x 640) some 86
 // MB of class logits, 27 us at 3.35 TB/s. The score pass also writes the keys
-// (4 bytes an entry) and, single-label, the classes; the passes route reads
-// the keys again per digit where the list would be long; a candidate's box
-// logits in NCHW planes are 64 separate sectors (PERF.md; tools/k3_profile.py
-// splits the time by kernel).
+// (4 bytes an entry) and, single-label, the classes, which the finish and
+// cluster routes read once more; the passes route reads them again per digit
+// where the list would be long; a candidate's box logits in NCHW planes are
+// 64 separate sectors (PERF.md; tools/k3_profile.py splits the time by kernel).
 //
 // C interface, bound with ctypes (pointers and the stream are void*, ints are
 // int): launches on the caller's stream of the caller's device, allocates
@@ -107,7 +138,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <cooperative_groups.h>
+
 #include "dfl_math.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -160,6 +195,7 @@ struct Params {
   int32_t* cls_of;         // (B, A) single-label argmax
   float* dist;             // (B, A, 4) every anchor's DFL distances, when `dense`
   int dense;               // decode every anchor once (K >= A / 4), else each candidate (the passes route)
+  int box_vec;             // every level's box logits contiguous and on 16 bytes (the cluster route's 16-byte loads)
   int passes;              // the passes route (else finish): the score pass's last CTA of an image selects
   Image* img;              // (B)
   uint32_t* hist;          // (B, kBins)
@@ -664,8 +700,10 @@ __global__ void __launch_bounds__(kThreads) score_entry_vec(const __grid_constan
       const int a = p / P.nc, c0 = p - a * P.nc;
       const Level& L = P.levels[level_of_anchor(P, a)];
       const int local = a - L.off, y = local / L.w, x = local - y * L.w;
-      const uint4 raw = *reinterpret_cast<const uint4*>(static_cast<const T*>(L.ptr) +
-                                                        offset_of(L, b, y, x, 4 * P.reg_max + c0));
+      // evict-first: the class logits are read once, and the keys written here are read again (the cluster route's
+      // listing, the passes) while they are still in L2
+      const uint4 raw = __ldcs(reinterpret_cast<const uint4*>(static_cast<const T*>(L.ptr) +
+                                                             offset_of(L, b, y, x, 4 * P.reg_max + c0)));
       const T* vals = reinterpret_cast<const T*>(&raw);
 #pragma unroll
       for (int u = 0; u < kPer; ++u) {
@@ -927,15 +965,17 @@ __global__ void __launch_bounds__(128) decode(const __grid_constant__ Params P) 
 // ---------------- the finish route: select, sort and decode an image in shared memory ----------------
 
 // the bin of the composites counted in s_hist (nb bins, the digit at bits [lo, lo + log2 nb)) that holds the
-// *need-th largest of them: each thread sums a run of bins, the highest first, a block scan finds the one thread
-// whose run holds it, and that thread adds the bin to *prefix, sets *need to what the bin still has to give and
-// *done when every entry of the bin is taken (or the digit is the last). Every thread of the CTA calls it.
+// *need-th largest of them: each of the CTA's kT threads sums a run of bins, the highest first, a block scan finds
+// the one thread whose run holds it, and that thread adds the bin to *prefix, sets *need to what the bin still has
+// to give and *done when every entry of the bin is taken (or the digit is the last). Every thread of the CTA calls
+// it.
+template <int kT>
 __device__ void finish_bin(const uint32_t* s_hist, int nb, int lo, unsigned long long* prefix, unsigned* need,
                            unsigned* done) {
-  __shared__ unsigned s_warp[kFinishThreads / 32];
+  __shared__ unsigned s_warp[kT / 32];
   const unsigned want = *need;  // read before the one thread that finds the bin changes it
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  const int per = (nb + kFinishThreads - 1) / kFinishThreads;  // bins a thread sums, thread 0 the highest
+  const int per = (nb + kT - 1) / kT;  // bins a thread sums, thread 0 the highest
   const int top = nb - 1 - t * per;
   unsigned sum = 0;
   for (int j = 0; j < per; ++j)
@@ -1003,7 +1043,8 @@ __global__ void __launch_bounds__(kFinishThreads, 1) finish(const __grid_constan
     s_rows_n = 0;
   }
   __syncthreads();
-  finish_bin(s_hist, kBins, P.total_bits - kDigit, &s_prefix, &s_need, &s_done);  // the score pass counted it
+  // the first digit, which the score pass counted
+  finish_bin<kFinishThreads>(s_hist, kBins, P.total_bits - kDigit, &s_prefix, &s_need, &s_done);
   const int b0 = (int)(s_prefix >> (P.total_bits - kDigit));
   const int listed_all = P.k - (int)s_need + (int)s_hist[b0];  // the entries at or above b0
   // the key row into shared memory, 8 loads a thread in flight
@@ -1037,7 +1078,7 @@ __global__ void __launch_bounds__(kFinishThreads, 1) finish(const __grid_constan
     for (int p = t; p < n; p += kFinishThreads)
       if ((int)(s_key[p] >> shift) == b0) atomicAdd(&s_hist[(s_key[p] >> 10) & (kBins - 1)], 1u);
     __syncthreads();
-    finish_bin(s_hist, kBins, P.total_bits - 2 * kDigit, &s_prefix1, &s_need1, &s_done1);
+    finish_bin<kFinishThreads>(s_hist, kBins, P.total_bits - 2 * kDigit, &s_prefix1, &s_need1, &s_done1);
     b1 = (int)((s_prefix1 >> (P.total_bits - 2 * kDigit)) & (kBins - 1));
     listed = P.k - (int)s_need1 + (int)s_hist[b1];
   }
@@ -1124,7 +1165,7 @@ __global__ void __launch_bounds__(kFinishThreads, 1) finish(const __grid_constan
       count_bin(s_hist, bin);
     }
     __syncthreads();
-    finish_bin(s_hist, nb, lo, &s_prefix, &s_need, &s_done);
+    finish_bin<kFinishThreads>(s_hist, nb, lo, &s_prefix, &s_need, &s_done);
   }
   // the tie bin's entries at or above the threshold join the winners; the rest of s_win is padding
   const unsigned long long thr = s_prefix;
@@ -1163,6 +1204,607 @@ __global__ void __launch_bounds__(kFinishThreads, 1) finish(const __grid_constan
   for (int q = t; q < 4 * rows; q += kFinishThreads) {
     const int r = rep + (q >> 2) * reps;
     decode_side<RM>(P, b, r, q & 3, s_win[r]);
+  }
+}
+
+// ---------------- the cluster route: an image's select, order and decode in one thread-block cluster ----------------
+
+constexpr int kClusterThreads = 1024;                 // threads of a cluster CTA
+constexpr int kMaxCluster = 16;                       // CTAs a cluster, at most (above 8: the non-portable size)
+constexpr int kClusterMaxK = 8192;                    // candidates an image the cluster route takes, at most
+constexpr int kKeysAThread = 8;                       // keys a thread reads a step of its slice: two 16-byte loads
+constexpr int kSlack = 4096;                          // candidates past K the order may take (no more digit passes)
+constexpr int kSortStepReads = 16;                    // a count's reads a thread that a step of the sort costs (H100)
+constexpr int kTileKeys = kKeysAThread * kClusterThreads;  // keys a CTA reads a step
+constexpr int kMaxDevices = 64;
+
+typedef unsigned long long u64;
+
+struct SliceCounts {     // a cluster CTA's counts after listing its slice, read by the others through DSMEM
+  u64 top;               // the largest composite it listed (0 where none)
+  u64 bottom;            // the least composite above b0's bin it listed (~0 where none)
+  unsigned ties;         // entries in b0's bin
+  unsigned tie_min;      // the least and greatest key in b0's bin (~0 and 0 where it has none)
+  unsigned tie_max;
+};
+
+// exclusive scan of v over the CTA's threads in thread order; *total gets the sum. Every thread calls it.
+__device__ __forceinline__ unsigned cta_scan(unsigned v, unsigned* s_warp, unsigned* total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  unsigned incl = v;
+  for (int o = 1; o < 32; o <<= 1) {
+    const unsigned x = __shfl_up_sync(kFull, incl, o);
+    if (lane >= o) incl += x;
+  }
+  __syncthreads();  // every thread has read the previous call's s_warp
+  if (lane == 31) s_warp[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    unsigned w = s_warp[lane];
+    for (int o = 1; o < 32; o <<= 1) {
+      const unsigned x = __shfl_up_sync(kFull, w, o);
+      if (lane >= o) w += x;
+    }
+    s_warp[lane] = w;
+  }
+  __syncthreads();
+  *total = s_warp[31];
+  return incl - v + (warp ? s_warp[warp - 1] : 0u);
+}
+
+// keys[p, p + 8) of an image's key row (those at or past `end` read as 0): two 16-byte loads where the row's
+// length is a multiple of 4 (every slice then starts on 16 bytes), else one load a key
+__device__ __forceinline__ void load_keys(const uint32_t* keys, int p, int end, bool vec, uint32_t* k) {
+  if (vec && p + kKeysAThread <= end) {
+#pragma unroll
+    for (int q = 0; q < kKeysAThread / 4; ++q) {
+      const uint4 a = __ldg(reinterpret_cast<const uint4*>(keys + p) + q);
+      k[4 * q] = a.x;
+      k[4 * q + 1] = a.y;
+      k[4 * q + 2] = a.z;
+      k[4 * q + 3] = a.w;
+    }
+  } else {
+#pragma unroll
+    for (int u = 0; u < kKeysAThread; ++u) k[u] = p + u < end ? __ldg(keys + p + u) : 0u;
+  }
+}
+
+// the slice [lo, hi) of an image's key row again, 8 keys a thread a step: f(k, p0) for the keys at p0 .. p0 + 7
+// (past hi: 0). The path of a CTA whose tie list overflowed. Every thread calls it.
+template <typename F>
+__device__ __forceinline__ void each_key(const uint32_t* keys, int lo, int hi, bool vec, F f) {
+  for (int base = lo; base < hi; base += kTileKeys) {
+    uint32_t k[kKeysAThread];
+    const int p0 = base + kKeysAThread * threadIdx.x;
+    load_keys(keys, p0, hi, vec, k);
+    f(k, p0);
+  }
+}
+
+// s[0, n) in descending order, in place: a bitonic network whose every comparator puts the larger of its pair first
+// (a merge's first stage pairs mirrored places, so that every stage sorts one way), over the 2^k >= n places; the
+// places past n, which it never touches, act as the least values, so a comparator that reaches one is skipped. The
+// composites all differ. Every thread calls it.
+__device__ void sort_descending(u64* s, int n) {
+  int p2 = 1;
+  while (p2 < n) p2 <<= 1;
+  for (int size = 2; size <= p2; size <<= 1) {
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      for (int i = threadIdx.x; i < p2 >> 1; i += blockDim.x) {
+        const int lo = i / stride * 2 * stride + i % stride;
+        const int hi = stride == size >> 1 ? lo - i % stride + 2 * stride - 1 - i % stride : lo + stride;
+        if (hi < n && s[lo] < s[hi]) {
+          const u64 x = s[lo];
+          s[lo] = s[hi];
+          s[hi] = x;
+        }
+      }
+      __syncthreads();
+    }
+  }
+}
+
+// the composite c into the list s at the warp's next slots (*count the list's length); every lane calls it
+__device__ __forceinline__ void append(u64* s, unsigned* count, bool take, u64 c) {
+  const unsigned m = __ballot_sync(kFull, take);
+  const int lane = threadIdx.x & 31;
+  unsigned at = 0;
+  if (lane == 0 && m) at = atomicAdd(count, (unsigned)__popc(m));
+  at = __shfl_sync(kFull, at, 0);
+  if (take) s[at + __popc(m & ((1u << lane) - 1))] = c;
+}
+
+// the sum over the cluster's C CTAs of word i of the shared-memory array a (the same address in each), the loads
+// issued together
+__device__ __forceinline__ unsigned cluster_sum(cg::cluster_group& cluster, const uint32_t* a, int i, int C,
+                                                unsigned* before, int rank) {
+  unsigned x[kMaxCluster];
+#pragma unroll
+  for (int q = 0; q < kMaxCluster; ++q) x[q] = q < C ? cluster.map_shared_rank(a, q)[i] : 0u;
+  unsigned v = 0, b = 0;
+#pragma unroll
+  for (int q = 0; q < kMaxCluster; ++q) {
+    if (q == rank) b = v;
+    v += x[q];
+  }
+  if (before) *before = b;  // the CTAs' below this one
+  return v;
+}
+
+// the lane's 8 bins (half `half` of side `side`) of the anchor whose box logits start at element o of level L:
+// 16-byte loads where P.box_vec (the box logits contiguous and aligned), else one a bin
+template <typename T>
+__device__ __forceinline__ void load_half_side(const Params& P, const Level& L, long long o, int side, int half,
+                                               float (&v)[8]) {
+  const T* p = static_cast<const T*>(L.ptr) + o;
+  const long long first = (long long)(side * 16 + half * 8);
+  if (P.box_vec) {
+    constexpr int kPer = 16 / sizeof(T);
+#pragma unroll
+    for (int i = 0; i < 8 / kPer; ++i) {
+      const uint4 u = __ldg(reinterpret_cast<const uint4*>(p + first) + i);
+      const T* t = reinterpret_cast<const T*>(&u);
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) v[i * kPer + j] = to_float(t[j]);
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) v[j] = to_float(p[(first + j) * L.sc]);
+  }
+}
+
+// one output row as its decode reads it, worked out once from its composite (the 8 lanes of the row share it)
+struct RowInfo {
+  long long o;       // the element offset of the anchor's box logits in its level's map
+  float cx, cy, s;   // the anchor's centre (x + 0.5, y + 0.5) and its level's stride
+  int a, cl, l;      // the anchor, the class and the level
+  uint32_t key;      // the order key of the score
+};
+
+__device__ __forceinline__ RowInfo row_info(const Params& P, int b, u64 c) {
+  RowInfo r;
+  r.key = (uint32_t)(c >> P.ib);
+  const int idx = P.n - 1 - (int)(c & ((1ull << P.ib) - 1));
+  if (P.ml) {
+    r.a = idx / P.nc;
+    r.cl = idx - r.a * P.nc;
+  } else {
+    r.a = idx;
+    r.cl = P.cls_of[(size_t)b * P.a + r.a];
+  }
+  r.l = level_of_anchor(P, r.a);
+  const Level& L = P.levels[r.l];
+  const int local = r.a - L.off, y = local / L.w, x = local - y * L.w;
+  r.o = offset_of(L, b, y, x, 0);
+  r.cx = __fadd_rn((float)x, 0.5f);
+  r.cy = __fadd_rn((float)y, 0.5f);
+  r.s = L.stride;
+  return r;
+}
+
+// R = 16: output rows row0 + j, j < rows, of image b, whose composites are s_row[j], a chunk at a time. Each row's
+// RowInfo into `info`, a thread a row; with `table` (the image's anchors, multi-label), the first row of each anchor
+// claims it, and only those rows' anchors are decoded: a multi-label row repeats an anchor over its classes (val's
+// 8,192 candidates lie on some 75 anchors an image of its net's maps). The decode: 8 lanes a row, two a side (the
+// lane's 8 bins), every lane reaching the shuffles, two rows a lane group a step with the loads of both issued before
+// either's math, the side's distance (csrc/dfl_math.cuh `Side16`, `expectation16`: K5's arithmetic) into `dist`. Then a thread a row writes its outputs from its anchor's
+// distances.
+template <typename T>
+__device__ void decode_rows16(const Params& P, int b, int row0, int rows, const u64* s_row, RowInfo* info,
+                              float4* dist, int* todo, int* table, int chunk) {
+  constexpr int kStep = kClusterThreads / 8;  // rows a CTA takes at once
+  __shared__ unsigned s_todo;
+  const int lane = threadIdx.x & 31, side = (lane >> 1) & 3, half = lane & 1;
+  for (int c0 = 0; c0 < rows; c0 += chunk) {
+    const int n = min(chunk, rows - c0);
+    if (table)
+      for (int i = threadIdx.x; i < P.a; i += kClusterThreads) table[i] = -1;
+    if (threadIdx.x == 0) s_todo = 0;
+    __syncthreads();
+    for (int base = 0; base < n; base += kClusterThreads) {  // (every lane reaches the ballot in append)
+      const int j = base + threadIdx.x;
+      bool first = j < n;
+      if (first) {
+        info[j] = row_info(P, b, s_row[c0 + j]);
+        if (table) first = atomicCAS(&table[info[j].a], -1, j) == -1;
+      }
+      const unsigned m = __ballot_sync(kFull, first);
+      unsigned at = 0;
+      if (lane == 0 && m) at = atomicAdd(&s_todo, (unsigned)__popc(m));
+      at = __shfl_sync(kFull, at, 0);
+      if (first) todo[at + __popc(m & ((1u << lane) - 1))] = j;
+    }
+    __syncthreads();
+    const int m = (int)s_todo;
+    for (int base = 0; base < m; base += 2 * kStep) {
+      float v[2][8];
+      int j[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int q = base + h * kStep + (threadIdx.x >> 3);
+        j[h] = q < m ? todo[q] : -1;
+        if (j[h] >= 0) {
+          const RowInfo& r = info[j[h]];
+          load_half_side<T>(P, P.levels[r.l], r.o, side, half, v[h]);
+        } else {
+#pragma unroll
+          for (int u = 0; u < 8; ++u) v[h][u] = 0.0f;
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        Side16 side16;
+        side16.of(v[h]);
+        const float d = expectation16(side16, half);
+        if (j[h] >= 0 && half == 0) reinterpret_cast<float*>(dist + j[h])[side] = d;
+      }
+    }
+    __syncthreads();
+    for (int j = threadIdx.x; j < n; j += kClusterThreads) {
+      const RowInfo& r = info[j];
+      const float4 d = dist[table ? table[r.a] : j];
+      const size_t row = (size_t)b * P.k + row0 + c0 + j;
+      const float fcl = (float)r.cl, shift = P.agnostic ? 0.0f : __fmul_rn(fcl, 7680.0f);
+      const float4 box = make_float4(__fmul_rn(__fsub_rn(r.cx, d.x), r.s), __fmul_rn(__fsub_rn(r.cy, d.y), r.s),
+                                     __fmul_rn(__fadd_rn(r.cx, d.z), r.s), __fmul_rn(__fadd_rn(r.cy, d.w), r.s));
+      reinterpret_cast<float4*>(P.boxes)[row] = box;
+      reinterpret_cast<float4*>(P.shifted)[row] = make_float4(__fadd_rn(box.x, shift), __fadd_rn(box.y, shift),
+                                                              __fadd_rn(box.z, shift), __fadd_rn(box.w, shift));
+      const float val = key_value(r.key);
+      P.vals[row] = val;
+      P.bidx[row] = r.a;
+      P.cls[row] = fcl;
+      P.valid[row] = val > P.valid_thr;
+    }
+    __syncthreads();  // the chunk's info, dist and table read before the next chunk's are written
+  }
+}
+
+// One cluster of C CTAs an image (blockIdx.x = image * C + rank). Each CTA finds the first digit's bin b0 of the
+// K-th entry (the score pass's counts) and reads its slice of the image's key row once, listing in shared memory,
+// in row order, the composites above b0's bin (all winners; at most K - need of them in the whole row) and those in
+// it (the ties; the first tie_cap of them). Then, the counts shared through DSMEM:
+//   every entry of b0's bin wins (need = its count): nothing to resolve;
+//   the bin holds one key and the row is stored in index order (the rule when fewer than K entries pass the gate:
+//     b0 is the bin of the -1 fillers): the bin's winners are its `need` lowest indices, the first ones in row order,
+//     so each CTA takes the first ones of its tie list that a prefix count of the CTAs' ties leaves it: their rows
+//     follow from that count;
+//   else, where the entries at or above b0's bin number at most K + slack, nothing more either (they are ordered
+//     and those past row K dropped); else the later digits, each a histogram of the ties whose decided bits match
+//     (from the tie list, or the key slice where the list overflowed), summed over the cluster through DSMEM (one
+//     key: its index bits alone), until the entries at or above the decided bits number at most K + slack.
+// Those entries (the group; but for the shortcut's winners of b0's bin) are put in order by one more digit, the 11
+// bits below those that all of them share: its histograms summed over the cluster give each bucket its first place,
+// each entry goes to a slot of its bucket in the CTA that holds the bucket (the one whose even share of the places
+// holds the bucket's first place: a bucket never spans two CTAs), and each CTA moves each of its slots to the place
+// its count of larger ones in the bucket gives: places below K are the output rows (CTA r holds rows [r R, r R + R),
+// R = ceil(K / C)). Each CTA decodes its rows from the candidates' own box logits (at reg_max 16 on 8 lanes a row).
+template <int RM>
+__global__ void __launch_bounds__(kClusterThreads, 1)
+    cluster_select(const __grid_constant__ Params P, int win_cap, int row_cap, int tie_cap, int slack) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank(), C = (int)cluster.num_blocks();
+  const int b = blockIdx.x / C, t = threadIdx.x;
+  extern __shared__ __align__(16) uint8_t smem[];
+  uint32_t* s_hist = reinterpret_cast<uint32_t*>(smem);      // three arrays of kBins: counts, starts, slots
+  u64* s_win = reinterpret_cast<u64*>(s_hist + 3 * kBins);   // win_cap: the entries above b0, then the group's
+  u64* s_row = s_win + win_cap;                               // row_cap: the rows rank R .. rank R + R - 1
+  u64* s_tie = s_row + row_cap;                               // tie_cap: the ties, then this CTA's slots
+  __shared__ SliceCounts s_mine, s_all[kMaxCluster];
+  __shared__ unsigned s_warp[32];
+  __shared__ unsigned s_need, s_done, s_count, s_group;
+  __shared__ int s_first[kMaxCluster + 1];
+  __shared__ u64 s_prefix;
+  const int n = P.n, shift = 32 - kDigit, lo0 = P.total_bits - kDigit;
+  const uint32_t* keys = P.keys + (size_t)b * n;
+  const bool vec = (n & 3) == 0;
+
+  // the first digit: the bin b0 that holds the K-th largest entry, from the score pass's counts
+  for (int i = t; i < kBins; i += kClusterThreads) s_hist[i] = __ldcg(P.hist + (size_t)b * kBins + i);
+  if (t == 0) {
+    s_prefix = 0;
+    s_need = (unsigned)P.k;
+    s_done = 0;
+    s_group = (unsigned)P.k;
+    s_mine.top = 0;
+    s_mine.bottom = ~0ull;
+    s_mine.tie_min = ~0u;
+    s_mine.tie_max = 0;
+  }
+  __syncthreads();
+  finish_bin<kClusterThreads>(s_hist, kBins, lo0, &s_prefix, &s_need, &s_done);
+  const uint32_t b0 = (uint32_t)(s_prefix >> lo0);
+  const unsigned need0 = s_need, group0 = (unsigned)P.k - need0 + s_hist[b0];  // the entries at or above b0's bin
+  const bool done0 = s_done;
+
+  // this CTA's slice, read once (the next step's keys loaded while a step is listed): the entries above b0 into
+  // s_win and those in it into s_tie, in row order
+  const int per = (int)((((long long)n + C - 1) / C + kKeysAThread - 1) / kKeysAThread * kKeysAThread);
+  const int lo_p = (int)min((long long)rank * per, (long long)n);
+  const int hi_p = (int)min((long long)lo_p + per, (long long)n);
+  unsigned n_above = 0, n_tie = 0, tmin = ~0u, tmax = 0;
+  u64 top = 0, bottom = ~0ull;
+  const uint32_t lo_key = b0 << shift;  // the least key of b0's bin
+  uint32_t next[kKeysAThread];
+  load_keys(keys, lo_p + kKeysAThread * t, hi_p, vec, next);
+  for (int base = lo_p; base < hi_p; base += kTileKeys) {
+    uint32_t k[kKeysAThread];
+#pragma unroll
+    for (int u = 0; u < kKeysAThread; ++u) k[u] = next[u];
+    if (base + kTileKeys < hi_p) load_keys(keys, base + kTileKeys + kKeysAThread * t, hi_p, vec, next);
+    const int p0 = base + kKeysAThread * t;
+    unsigned above = 0, tie = 0;  // the thread's keys above b0's bin and in it, a bit a key
+    unsigned in = 0;              // those at or above b0's bin: one compare a key
+#pragma unroll
+    for (int u = 0; u < kKeysAThread; ++u) in |= (unsigned)(k[u] >= lo_key) << u;
+    in &= p0 + kKeysAThread <= hi_p ? (1u << kKeysAThread) - 1u : (1u << max(0, hi_p - p0)) - 1u;  // none past hi_p
+    if (in) {
+#pragma unroll
+      for (int u = 0; u < kKeysAThread; ++u) {
+        const uint32_t bin = k[u] >> shift;
+        above |= (unsigned)((in >> u & 1u) && bin > b0) << u;
+        tie |= (unsigned)((in >> u & 1u) && bin == b0) << u;
+      }
+    }
+    unsigned total;
+    const unsigned off = cta_scan(__popc(above) | (__popc(tie) << 16), s_warp, &total);  // at most 8,192 of each
+    if (above | tie) {
+      unsigned ao = n_above + (off & 0xffffu), to = n_tie + (off >> 16);
+#pragma unroll
+      for (int u = 0; u < kKeysAThread; ++u) {
+        if (!((above | tie) >> u & 1u)) continue;
+        const u64 c = composite(P, k[u], flat_index(P, p0 + u));
+        top = c > top ? c : top;
+        if (above >> u & 1u) {
+          bottom = c < bottom ? c : bottom;
+          s_win[ao++] = c;
+        } else {
+          tmin = min(tmin, k[u]);
+          tmax = max(tmax, k[u]);
+          if (to < (unsigned)tie_cap) s_tie[to] = c;
+          ++to;
+        }
+      }
+    }
+    n_above += total & 0xffffu;
+    n_tie += total >> 16;
+  }
+  tmin = __reduce_min_sync(kFull, tmin);
+  tmax = __reduce_max_sync(kFull, tmax);
+  for (int o = 16; o > 0; o >>= 1) {
+    const u64 x = __shfl_xor_sync(kFull, top, o), y = __shfl_xor_sync(kFull, bottom, o);
+    top = x > top ? x : top;
+    bottom = y < bottom ? y : bottom;
+  }
+  if ((t & 31) == 0) {
+    atomicMin(&s_mine.tie_min, tmin);
+    atomicMax(&s_mine.tie_max, tmax);
+    atomicMax(&s_mine.top, top);
+    atomicMin(&s_mine.bottom, bottom);
+  }
+  if (t == 0) {
+    s_mine.ties = n_tie;
+  }
+  const bool tie_over = n_tie > (unsigned)tie_cap;
+  cluster.sync();  // every CTA has listed its slice (and has started: the first access to another's memory follows)
+  if (t < C) s_all[t] = *cluster.map_shared_rank(&s_mine, t);
+  __syncthreads();
+
+  // the bin's keys and each CTA's share of its winners, the same in every thread of the cluster
+  unsigned tie_before = 0, tie_lo = ~0u, tie_hi = 0, before = 0;
+  u64 top_all = 0, bottom_all = ~0ull;
+  for (int q = 0; q < C; ++q) {
+    const SliceCounts& s = s_all[q];
+    if (q == rank) tie_before = before;
+    before += s.ties;
+    tie_lo = min(tie_lo, s.tie_min);
+    tie_hi = max(tie_hi, s.tie_max);
+    top_all = s.top > top_all ? s.top : top_all;
+    bottom_all = s.bottom < bottom_all ? s.bottom : bottom_all;
+  }
+  // the shortcut: a CTA's winners of the bin (at most need <= K) are the first ones of its tie list, which holds K +
+  // slack of them
+  const bool one_key = tie_lo == tie_hi;
+  const bool by_index = !done0 && one_key && !P.class_major;
+  const unsigned m_mine = need0 > tie_before ? min(need0 - tie_before, n_tie) : 0u;
+
+  // the later digits over the ties whose decided bits match (one key: all of them, its index bits alone), until the
+  // entries at or above the decided bits (the group) number at most K + slack: none where the first digit's do
+  if (!done0 && !by_index && group0 <= (unsigned)(P.k + slack)) {
+    if (t == 0) s_group = group0;
+    __syncthreads();
+  } else if (!done0 && !by_index) {
+    int hi = lo0;
+    if (one_key) {
+      if (t == 0) s_prefix = (u64)tie_lo << P.ib;
+      hi = P.ib;
+    }
+    __syncthreads();
+    for (int pass = 0; !s_done; ++pass) {
+      const int lo = max(hi - kDigit, 0), nb = 1 << (hi - lo);
+      uint32_t* cnt = s_hist + (pass & 1) * kBins;        // this CTA's counts, read by the others
+      uint32_t* sum = s_hist + ((pass + 1) & 1) * kBins;  // the cluster's, the others done with it (last pass)
+      zero_shared(cnt, nb);
+      __syncthreads();
+      const u64 want = s_prefix >> hi;
+      const u64 mask = (u64)(nb - 1);
+      if (!tie_over) {  // (the ties' digits rarely collide: one atomic an entry)
+        for (unsigned i = t; i < n_tie; i += kClusterThreads) {
+          const u64 c = s_tie[i];
+          if ((c >> hi) == want) atomicAdd(&cnt[(int)((c >> lo) & mask)], 1u);
+        }
+      } else {
+        each_key(keys, lo_p, hi_p, vec, [&](const uint32_t* k, int p0) {
+#pragma unroll
+          for (int u = 0; u < kKeysAThread; ++u) {
+            int bin = -1;
+            if (p0 + u < hi_p && (k[u] >> shift) == b0) {
+              const u64 c = composite(P, k[u], flat_index(P, p0 + u));
+              if ((c >> hi) == want) bin = (int)((c >> lo) & mask);
+            }
+            count_bin(cnt, bin);
+          }
+        });
+      }
+      cluster.sync();  // every CTA's counts of this digit are in
+      for (int i = t; i < nb; i += kClusterThreads) sum[i] = cluster_sum(cluster, cnt, i, C, nullptr, rank);
+      __syncthreads();
+      finish_bin<kClusterThreads>(sum, nb, lo, &s_prefix, &s_need, &s_done);
+      if (t == 0 && !s_done) {  // the entries at or above the bin: few enough to order, the rest past row K
+        const unsigned group = (unsigned)P.k - s_need + sum[(int)((s_prefix >> lo) & mask)];
+        if (group <= (unsigned)(P.k + slack)) {
+          s_group = group;
+          s_done = 1;
+        }
+      }
+      __syncthreads();
+      hi = lo;
+    }
+  }
+
+  // this CTA's share of the group: the entries above b0, then (but for the shortcut's, whose rows follow from the
+  // prefix count) those of b0's bin at or above the decided bits
+  if (t == 0) s_count = n_above;
+  __syncthreads();
+  if (!by_index) {
+    const u64 thr = s_prefix;
+    if (!tie_over) {
+      for (unsigned base = 0; base < n_tie; base += kClusterThreads) {
+        const unsigned i = base + t;
+        const u64 c = i < n_tie ? s_tie[i] : 0ull;
+        append(s_win, &s_count, i < n_tie && c >= thr, c);
+      }
+    } else {
+      each_key(keys, lo_p, hi_p, vec, [&](const uint32_t* k, int p0) {
+#pragma unroll
+        for (int u = 0; u < kKeysAThread; ++u) {
+          const bool tie = p0 + u < hi_p && (k[u] >> shift) == b0;
+          const u64 c = tie ? composite(P, k[u], flat_index(P, p0 + u)) : 0ull;
+          append(s_win, &s_count, tie && c >= thr, c);
+        }
+      });
+    }
+  }
+  // the ordering digit: the 11 bits below those that every entry of the group shares (they lie in [lowest,
+  // top_all]); the group takes places [0, group)
+  const int group = by_index ? P.k - (int)need0 : (int)s_group;
+  const u64 lowest = by_index ? bottom_all : s_prefix;
+  const int span = top_all > lowest ? 64 - __clzll((long long)(top_all ^ lowest)) : 0;
+  const int dlo = max(span - kDigit, 0), nd = 1 << (span - dlo);
+  uint32_t* cnt = s_hist + 2 * kBins;  // this CTA's group by digit, read by the others (the digits' two arrays may
+                                       // still be read: they are written after the next cluster barrier)
+  uint32_t* start = s_hist;            // each bucket's first place: the group's entries of the larger digits
+  uint32_t* slot = s_hist + kBins;     // this CTA's next slot in each bucket
+  zero_shared(cnt, nd);
+  __syncthreads();
+  const int n_win = (int)s_count;
+  for (int i = t; i < n_win; i += kClusterThreads) atomicAdd(&cnt[(int)((s_win[i] >> dlo) & (u64)(nd - 1))], 1u);
+  const int R = row_cap, RS = (group + C - 1) / C;  // rows, and slots, a CTA
+  for (unsigned j = t; j < (by_index ? m_mine : 0u); j += kClusterThreads) {  // the shortcut's rows
+    const unsigned row = (unsigned)group + tie_before + j;
+    *cluster.map_shared_rank(s_row + row % R, (int)(row / R)) = s_tie[j];
+  }
+  cluster.sync();  // every CTA's digit counts are in, and its tie list is free
+
+  // each bucket's first place (the buckets of larger digits first) and this CTA's first slot in it (after the CTAs
+  // below it); each entry to a slot of its bucket, in the CTA that holds that slot
+  {
+    const int d0 = nd - 1 - 2 * t;  // this thread's two buckets, the larger digit first
+    unsigned h0 = 0, h1 = 0, below0 = 0, below1 = 0;
+    if (d0 >= 0) h0 = cluster_sum(cluster, cnt, d0, C, &below0, rank);
+    if (d0 >= 1) h1 = cluster_sum(cluster, cnt, d0 - 1, C, &below1, rank);
+    unsigned total;
+    const unsigned first = cta_scan(h0 + h1, s_warp, &total);
+    if (d0 >= 0) {
+      start[d0] = first;
+      slot[d0] = first + below0;
+    }
+    if (d0 >= 1) {
+      start[d0 - 1] = first + h0;
+      slot[d0 - 1] = first + h0 + below1;
+    }
+  }
+  // the slots: a bucket's all in one CTA, the one whose share of RS places holds the bucket's first place; CTA q's
+  // slots are the places [first[q], first[q + 1]), first[q] the first bucket start at or past q RS (start[] does not
+  // increase with the digit: a binary search)
+  if (t <= C) {
+    int d = -1;  // the largest digit whose start is at or past t RS
+    for (int lo = 0, hi = nd - 1; lo <= hi;) {
+      const int mid = (lo + hi) >> 1;
+      if ((int)start[mid] >= t * RS) {
+        d = mid;
+        lo = mid + 1;
+      } else {
+        hi = mid - 1;
+      }
+    }
+    s_first[t] = t < C && d >= 0 ? min((int)start[d], group) : group;
+  }
+  __syncthreads();
+  for (int i = t; i < n_win; i += kClusterThreads) {
+    const u64 c = s_win[i];
+    const int d = (int)((c >> dlo) & (u64)(nd - 1)), q = (int)start[d] / RS;
+    const unsigned at = atomicAdd(&slot[d], 1u);
+    *cluster.map_shared_rank(s_tie + (at - s_first[q]), q) = c;
+  }
+  cluster.sync();  // every entry of the group is in its bucket's slots
+  // each slot's entry to its place: its bucket's first place plus the bucket's entries larger than it (the bucket's
+  // slots, all in this CTA: from its first place to the next smaller digit's); a place below K is a row. That count
+  // reads a bucket's size an entry, the squares of the buckets' sizes in all: where keys that many entries share
+  // (bf16 logits near a bias) make that cost more than sorting the CTA's slots (its bitonic network's steps, each
+  // worth kSortStepReads reads a thread), the CTA sorts them instead, and a slot's place is f0 plus its own (its
+  // buckets are the places [f0, f0 + slots), the larger digits first)
+  const int f0 = s_first[rank], slots = s_first[rank + 1] - f0;
+  unsigned work = 0;
+  for (int j = t; j < slots; j += kClusterThreads) {
+    const int d = (int)((s_tie[j] >> dlo) & (u64)(nd - 1));
+    work += (unsigned)((d > 0 ? (int)start[d - 1] : group) - (int)start[d]);
+  }
+  unsigned reads;
+  cta_scan(work, s_warp, &reads);
+  int p2 = 1, lg = 0;
+  while (p2 < slots) {
+    p2 <<= 1;
+    ++lg;
+  }
+  const long long steps = (long long)lg * (lg + 1) / 2 * ((p2 / 2 + kClusterThreads - 1) / kClusterThreads);
+  if ((long long)reads > (long long)kSortStepReads * kClusterThreads * steps) {
+    sort_descending(s_tie, slots);
+    for (int j = t; j < slots; j += kClusterThreads)
+      if (f0 + j < P.k) *cluster.map_shared_rank(s_row + (f0 + j) % R, (f0 + j) / R) = s_tie[j];
+  } else {
+    for (int j = t; j < slots; j += kClusterThreads) {
+      const u64 c = s_tie[j];
+      const int d = (int)((c >> dlo) & (u64)(nd - 1));
+      const int first = (int)start[d], end = d > 0 ? (int)start[d - 1] : group;
+      int larger = 0;
+      for (int p = first - f0; p < end - f0; ++p) larger += s_tie[p] > c;
+      const int row = first + larger;
+      if (row < P.k) *cluster.map_shared_rank(s_row + row % R, row / R) = c;
+    }
+  }
+  cluster.sync();  // every row is in its CTA; no CTA reads another's memory after this
+
+  // this CTA's rows: their RowInfo, distances and the rows to decode, a chunk at a time, over the free tie list; the
+  // anchors' table over the free s_win where it holds the image's anchors
+  const int row0 = rank * R, mine = max(0, min(R, P.k - row0));
+  if (RM == 16) {
+    constexpr int kRowBytes = sizeof(RowInfo) + sizeof(float4) + sizeof(int);
+    const int chunk = (int)(((long long)tie_cap * sizeof(u64) - 16) / kRowBytes);
+    RowInfo* info = reinterpret_cast<RowInfo*>(s_tie);
+    float4* dist = reinterpret_cast<float4*>((reinterpret_cast<uintptr_t>(info + chunk) + 15) & ~uintptr_t(15));
+    int* todo = reinterpret_cast<int*>(dist + chunk);
+    int* table = P.ml && (long long)P.a * sizeof(int) <= (long long)win_cap * sizeof(u64)
+                     ? reinterpret_cast<int*>(s_win) : nullptr;
+    if (P.map_type == 0)
+      decode_rows16<float>(P, b, row0, mine, s_row, info, dist, todo, table, chunk);
+    else if (P.map_type == 1)
+      decode_rows16<__nv_bfloat16>(P, b, row0, mine, s_row, info, dist, todo, table, chunk);
+    else
+      decode_rows16<__half>(P, b, row0, mine, s_row, info, dist, todo, table, chunk);
+  } else {
+    for (int q = t; q < 4 * mine; q += kClusterThreads) decode_side<RM>(P, b, row0 + (q >> 2), q & 3, s_row[q >> 2]);
   }
 }
 
@@ -1224,6 +1866,16 @@ bool vec_classes(int n_levels, const unsigned long long* ptrs, const long long* 
   return true;
 }
 
+// whether every level's box logits lie contiguous (channel stride 1) and each anchor's start on 16 bytes
+bool vec_boxes(int n_levels, const unsigned long long* ptrs, const long long* strides, int map_type) {
+  const long long elt = map_type == 0 ? 4 : 2;
+  for (int l = 0; l < n_levels; ++l) {
+    const long long* s = strides + 4 * l;
+    if (s[3] != 1 || ptrs[l] % 16 || (s[0] * elt) % 16 || (s[1] * elt) % 16 || (s[2] * elt) % 16) return false;
+  }
+  return true;
+}
+
 // whether every level is a set of NCHW planes whose anchors lie contiguous (x stride 1, y stride W) in runs of
 // V = kPlaneBytes / element that start on that many bytes in every class plane of every image
 bool plane_classes(int n_levels, const unsigned long long* ptrs, const long long* strides, const int* hw,
@@ -1238,20 +1890,122 @@ bool plane_classes(int n_levels, const unsigned long long* ptrs, const long long
 }
 
 enum Score { kScoreAnchor = 0, kScoreAnchorVec = 1, kScorePlane = 2, kScoreEntry = 3, kScoreEntryVec = 4 };
+enum Route { kPasses = 0, kFinish = 1, kCluster = 2 };
 
 // The route of a call, from its shapes and strides alone: finish (two launches) where an image's row fits the
-// finishing CTA's shared memory, else the passes; the score pass's kernel; the finishing CTAs an image and
-// their dynamic shared memory
+// finishing CTA's shared memory, else cluster (two launches) where K does, else the passes; the score pass's
+// kernel; the finishing CTAs an image and their dynamic shared memory; the cluster's CTAs an image, their dynamic
+// shared memory and cudaOccupancyMaxActiveClusters at that size
 struct Plan {
-  int finish, score, reps, p2, smem, launches;
+  int route, score, reps, p2, smem, launches, cluster, max_active;
 };
 
 int finish_smem(long long n, int p2) {  // keys, histogram, winners, tie list (or rows), candidates
   return (int)(round_up(n, 4) * 4 + kBins * 4 + (long long)p2 * 8 + kTieCap * 2 + kRankCap * 8);
 }
 
+bool finish_fits(long long n, int p2) { return n <= kFinishCap && finish_smem(n, p2) <= kMaxSmem - 1024; }
+
+int sm_count(int device) {
+  static int cached[64] = {0};
+  if (device < 0 || device >= 64) return 0;
+  if (!cached[device] && cudaDeviceGetAttribute(&cached[device], cudaDevAttrMultiProcessorCount, device) != cudaSuccess)
+    cached[device] = 0;
+  return cached[device];
+}
+
+// ---- the cluster kernel's launch: its shared memory, attributes and cluster size, asked once per device ----
+
+struct ClusterDevice {
+  int smem = 0;                          // dynamic shared memory of a CTA: all the card offers past the static
+  bool set[2] = {};                      // cluster_select<16>'s and <0>'s attributes set
+  int known[kMaxCluster + 1] = {};       // cudaOccupancyMaxActiveClusters + 1 by cluster size; 0: not asked yet
+};
+
+ClusterDevice cluster_devices[kMaxDevices];
+
+template <int RM>
+cudaError_t configure_cluster(int device) {
+  ClusterDevice& d = cluster_devices[device % kMaxDevices];
+  cudaError_t err = cudaSuccess;
+  if (!d.smem) {
+    int optin = 0;
+    cudaFuncAttributes fa16, fa0;
+    if ((err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device)) != cudaSuccess ||
+        (err = cudaFuncGetAttributes(&fa16, cluster_select<16>)) != cudaSuccess ||
+        (err = cudaFuncGetAttributes(&fa0, cluster_select<0>)) != cudaSuccess)
+      return err;
+    d.smem = optin - (int)(fa16.sharedSizeBytes > fa0.sharedSizeBytes ? fa16.sharedSizeBytes : fa0.sharedSizeBytes);
+  }
+  if (!d.set[RM ? 0 : 1]) {
+    if ((err = cudaFuncSetAttribute(cluster_select<RM>, cudaFuncAttributeMaxDynamicSharedMemorySize, d.smem)) !=
+            cudaSuccess ||
+        (err = cudaFuncSetAttribute(cluster_select<RM>, cudaFuncAttributeNonPortableClusterSizeAllowed, 1)) !=
+            cudaSuccess)
+      return err;
+    d.set[RM ? 0 : 1] = true;
+  }
+  return err;
+}
+
+cudaLaunchConfig_t cluster_config(cudaLaunchAttribute* attr, int b, int cluster, int smem, cudaStream_t stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)b * cluster);
+  cfg.blockDim = dim3(kClusterThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// cudaOccupancyMaxActiveClusters for clusters of c CTAs (0 where the card cannot run them), asked once per device
+int max_active_clusters(int device, int c) {
+  ClusterDevice& d = cluster_devices[device % kMaxDevices];
+  int& slot = d.known[c];
+  if (slot == 0) {
+    int n = 0;
+    cudaError_t err = configure_cluster<16>(device);
+    if (err == cudaSuccess) {
+      cudaLaunchAttribute attr[1];
+      const cudaLaunchConfig_t cfg = cluster_config(attr, 1, c, d.smem, nullptr);
+      err = cudaOccupancyMaxActiveClusters(&n, cluster_select<16>, &cfg);
+    }
+    if (err != cudaSuccess) {
+      cudaGetLastError();  // a size the card cannot co-schedule: not an error of a launch
+      n = 0;
+    }
+    slot = n + 1;
+  }
+  return slot - 1;
+}
+
+// The cluster size for a batch of b images, as K4's: the largest C <= 16 of which the card holds b clusters at once,
+// else 1 (the clusters then run in waves); 0 where the card runs no cluster of this kernel
+int cluster_for(int b, int device) {
+  for (int c = kMaxCluster; c > 1; --c)
+    if (max_active_clusters(device, c) >= b) return c;
+  return max_active_clusters(device, 1) > 0 ? 1 : 0;
+}
+
+// the cluster kernel's capacities in composites: a CTA's share of the group (at most K + slack), its output rows R
+// = ceil(K / C), its tie list (later its slots; at least K + slack, so that a CTA whose tie list overflows still
+// holds its winners of the bin), with slack the most of kSlack that fits; slack < 0 where K does not fit
+void cluster_caps(int k, int cluster, int smem, int* win_cap, int* row_cap, int* tie_cap, int* slack) {
+  *row_cap = (k + cluster - 1) / cluster;
+  const long long left = ((long long)smem - 3LL * kBins * 4 - 8LL * *row_cap) / 8;  // composites for the two lists
+  const long long most = left / 2 - k;
+  *slack = most < 0 ? -1 : (int)(most < kSlack ? most : kSlack);
+  *win_cap = k + (*slack > 0 ? *slack : 0);
+  *tie_cap = (int)(left - *win_cap);
+}
+
 Plan plan(int n_levels, const unsigned long long* ptrs, const long long* strides, const int* hw, int map_type,
-          int b, int nc, int reg_max, int ml, int k, long long a, int sms) {
+          int b, int nc, int reg_max, int ml, int k, long long a, int device, int pick) {
   const long long n = ml ? a * nc : a;
   Plan pl{};
   const bool vec = vec_classes(n_levels, ptrs, strides, map_type, nc, reg_max);
@@ -1259,12 +2013,28 @@ Plan plan(int n_levels, const unsigned long long* ptrs, const long long* strides
                 : vec ? kScoreAnchorVec : plane_classes(n_levels, ptrs, strides, hw, map_type) ? kScorePlane
                                                                                                : kScoreAnchor;
   pl.p2 = pow2_at_least(k);
-  pl.finish = n <= kFinishCap && finish_smem(n, pl.p2) <= kMaxSmem - 1024;  // (the kernel's static shared memory)
-  if (pl.finish) {
-    pl.reps = sms / (b > 0 ? b : 1);  // a finishing CTA an SM
+  // the cluster route decodes each candidate from its own box logits: where they lie in NCHW planes (64 scattered
+  // sectors a candidate) and the candidates are a quarter of the anchors or more, the passes route's dense decode
+  // (coalesced over the anchors) is the faster (PERF.md)
+  const bool finish = finish_fits(n, pl.p2),
+             cluster = k <= kClusterMaxK && (vec_boxes(n_levels, ptrs, strides, map_type) || 4LL * k < a);
+  // clusters of one CTA (a batch past what the card holds in clusters of two at once: B > 66 on an H100) read an
+  // image's key row on one SM: there the passes route, spread over the card, is the faster (PERF.md)
+  pl.route = pick >= 0 ? pick : finish ? kFinish : cluster && cluster_for(b, device) >= 2 ? kCluster : kPasses;
+  if ((pl.route == kFinish && !finish) || (pl.route == kCluster && !cluster) || pl.route < 0 || pl.route > 2) {
+    pl.route = -1;  // a route these shapes cannot take
+    return pl;
+  }
+  if (pl.route == kFinish) {
+    pl.reps = sm_count(device) / (b > 0 ? b : 1);  // a finishing CTA an SM
     pl.reps = pl.reps < 1 ? 1 : pl.reps > kMaxReps ? kMaxReps : pl.reps;
     if (pl.reps > k) pl.reps = k > 0 ? k : 1;
     pl.smem = finish_smem(n, pl.p2);
+    pl.launches = 2;
+  } else if (pl.route == kCluster) {
+    pl.cluster = cluster_for(b, device);
+    pl.max_active = pl.cluster ? max_active_clusters(device, pl.cluster) : 0;
+    pl.smem = cluster_devices[device % kMaxDevices].smem;
     pl.launches = 2;
   } else {
     const int ib = bit_length(n - 1) > 0 ? bit_length(n - 1) : 1;
@@ -1273,14 +2043,6 @@ Plan plan(int n_levels, const unsigned long long* ptrs, const long long* strides
     pl.launches = 2 + (passes - 1) + 3 + (4LL * k >= a ? 1 : 0) + 1;
   }
   return pl;
-}
-
-int sm_count(int device) {
-  static int cached[64] = {0};
-  if (device < 0 || device >= 64) return 0;
-  if (!cached[device] && cudaDeviceGetAttribute(&cached[device], cudaDevAttrMultiProcessorCount, device) != cudaSuccess)
-    cached[device] = 0;
-  return cached[device];
 }
 
 cudaError_t launch_score(const Params& P, int score, int b, long long a, long long n, cudaStream_t st) {
@@ -1334,27 +2096,53 @@ cudaError_t launch_finish(const Params& P, const Plan& pl, int b, cudaStream_t s
   return cudaGetLastError();
 }
 
+template <int RM>
+cudaError_t launch_cluster(const Params& P, const Plan& pl, int b, int device, cudaStream_t st) {
+  int win_cap, row_cap, tie_cap, slack;
+  if (pl.cluster < 1) return cudaErrorInvalidConfiguration;  // the card runs no cluster of this kernel
+  cluster_caps(P.k, pl.cluster, pl.smem, &win_cap, &row_cap, &tie_cap, &slack);
+  if (slack < 0) return cudaErrorInvalidValue;
+  cudaError_t err = configure_cluster<RM>(device);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = cluster_config(attr, b, pl.cluster, pl.smem, st);
+  if ((err = cudaLaunchKernelEx(&cfg, cluster_select<RM>, P, win_cap, row_cap, tie_cap, slack)) != cudaSuccess)
+    return err;
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" long long select_decode_workspace_bytes(int n_levels, int b, long long a, int nc, int ml, int k) {
   return layout(b, a, nc, ml, k).total;
 }
 
-// The route a call with these arguments takes (select_decode's leading arguments, then the device): route (0
-// passes, 1 finish), the score pass's kernel (0 anchor, 1 anchor_vec, 2 plane, 3 entry, 4 entry_vec), the kernel
-// launches of one call, the finishing CTAs an image and their dynamic shared memory in bytes, written to
-// plan_out[0..4]
+// The route a call with these arguments takes (select_decode's leading arguments, then the device and the route to
+// take, -1 for plan's pick, as select_decode_pick's): route (0 passes, 1 finish, 2 cluster; -1 where the named route
+// cannot take these shapes), the score pass's kernel (0 anchor, 1 anchor_vec, 2 plane, 3 entry, 4 entry_vec), the
+// kernel launches of one call, the finishing CTAs an image, the dynamic shared memory of a finishing or cluster CTA in
+// bytes, the cluster's CTAs an image, cudaOccupancyMaxActiveClusters at that size, and a cluster CTA's tie list and
+// slack in composites (`cluster_caps`), written to plan_out[0..8]
 extern "C" int select_decode_plan(int n_levels, const unsigned long long* ptrs, const long long* strides,
                                   const int* hw, int map_type, int b, int nc, int reg_max, int ml, int k, int device,
-                                  int* plan_out) {
+                                  int pick, int* plan_out) {
+  cudaError_t err = cudaSetDevice(device);  // the occupancy queries ask the current device
+  if (err != cudaSuccess) return static_cast<int>(err);
   long long a = 0;
   for (int l = 0; l < n_levels; ++l) a += (long long)hw[2 * l] * hw[2 * l + 1];
-  const Plan pl = plan(n_levels, ptrs, strides, hw, map_type, b, nc, reg_max, ml, k, a, sm_count(device));
-  plan_out[0] = pl.finish;
+  const Plan pl = plan(n_levels, ptrs, strides, hw, map_type, b, nc, reg_max, ml, k, a, device, pick);
+  plan_out[0] = pl.route;
   plan_out[1] = pl.score;
   plan_out[2] = pl.launches;
-  plan_out[3] = pl.finish ? pl.reps : 0;
-  plan_out[4] = pl.finish ? pl.smem : 0;
+  plan_out[3] = pl.route == kFinish ? pl.reps : 0;
+  plan_out[4] = pl.route == kFinish || pl.route == kCluster ? pl.smem : 0;
+  plan_out[5] = pl.cluster;
+  plan_out[6] = pl.max_active;
+  int win_cap = 0, row_cap = 0, tie_cap = 0, slack = 0;
+  if (pl.route == kCluster && pl.cluster > 0)
+    cluster_caps(k, pl.cluster, pl.smem, &win_cap, &row_cap, &tie_cap, &slack);
+  plan_out[7] = tie_cap;
+  plan_out[8] = slack;
   return 0;
 }
 
@@ -1372,11 +2160,12 @@ extern "C" int select_decode_sigmoid_check(void* bad, int device, void* stream) 
 
 namespace {
 
-// one call's launches; score_only: the memset and the score pass alone
+// one call's launches down route `pick` (-1: plan's); score_only: the memset and the score pass alone. *taken (where
+// not null) gets the route run.
 int run(int n_levels, const unsigned long long* ptrs, const long long* strides, const int* hw, const float* stride_px,
         int map_type, int b, int nc, int reg_max, int ml, int k, float thr, float valid_thr, int score_type,
         const void* mask, int agnostic, void* workspace, long long workspace_bytes, void* vals, void* bidx, void* cls,
-        void* boxes, void* shifted, void* valid, int device, void* stream, bool score_only) {
+        void* boxes, void* shifted, void* valid, int device, void* stream, bool score_only, int pick, int* taken) {
   if (n_levels < 1 || n_levels > kMaxLevels || b < 0 || nc < 1 || reg_max < 1 || reg_max > kMaxReg || k < 0 ||
       map_type < 0 || map_type > 2 || score_type < 0 || score_type > 2)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1391,7 +2180,9 @@ int run(int n_levels, const unsigned long long* ptrs, const long long* strides, 
   if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   char* ws = static_cast<char*>(workspace);
-  const Plan pl = plan(n_levels, ptrs, strides, hw, map_type, b, nc, reg_max, ml, k, a, sm_count(device));
+  const Plan pl = plan(n_levels, ptrs, strides, hw, map_type, b, nc, reg_max, ml, k, a, device, pick);
+  if (pl.route < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (taken) *taken = pl.route;
 
   Params P;
   long long off = 0;
@@ -1434,10 +2225,11 @@ int run(int n_levels, const unsigned long long* ptrs, const long long* strides, 
   P.dist = reinterpret_cast<float*>(ws + w.dist);
   P.list = reinterpret_cast<unsigned long long*>(ws + w.list);
   P.list_cap = (int)(n / 4);
-  // decode every anchor once when the candidates are at least a quarter of the anchors (val's 8,192 of 5,040-8,400),
-  // each candidate's own logits when they are fewer (predict's 512 of 8,400: the dense pass took twice as long);
-  // the finish route decodes each candidate's own
-  P.dense = !pl.finish && 4LL * k >= a;
+  // the passes route decodes every anchor once when the candidates are at least a quarter of the anchors (val's
+  // 8,192 of 5,040-8,400), each candidate's own logits when they are fewer (predict's 512 of 8,400: the dense pass
+  // took twice as long); the finish and cluster routes decode each candidate's own
+  P.dense = pl.route == kPasses && 4LL * k >= a;
+  P.box_vec = vec_boxes(n_levels, ptrs, strides, map_type);
   P.cand = reinterpret_cast<unsigned long long*>(ws + w.cand);
   P.sorted = reinterpret_cast<unsigned long long*>(ws + w.sorted);
   P.vals = static_cast<float*>(vals);
@@ -1447,12 +2239,16 @@ int run(int n_levels, const unsigned long long* ptrs, const long long* strides, 
   P.shifted = static_cast<float*>(shifted);
   P.valid = static_cast<uint8_t*>(valid);
 
-  P.passes = !pl.finish;
+  P.passes = pl.route == kPasses;
   // the per-image state and the histograms zeroed, then the score pass, which counts the first digit
   if ((err = cudaMemsetAsync(ws + w.img, 0, w.keys - w.img, st)) != cudaSuccess) return static_cast<int>(err);
   if ((err = launch_score(P, pl.score, b, a, n, st)) != cudaSuccess || score_only) return static_cast<int>(err);
-  if (pl.finish) {  // then a finishing CTA group an image
+  if (pl.route == kFinish) {  // then a finishing CTA group an image
     err = reg_max == 16 ? launch_finish<16>(P, pl, b, st) : launch_finish<0>(P, pl, b, st);
+    return static_cast<int>(err);
+  }
+  if (pl.route == kCluster) {  // then a cluster an image
+    err = reg_max == 16 ? launch_cluster<16>(P, pl, b, device, st) : launch_cluster<0>(P, pl, b, device, st);
     return static_cast<int>(err);
   }
   // the passes: the score pass's last CTA of each image selected the first digit; the list of the entries at or
@@ -1491,23 +2287,43 @@ int run(int n_levels, const unsigned long long* ptrs, const long long* strides, 
 
 }  // namespace
 
+// One call of K3 down the route the shapes pick (`plan`); *taken gets the route run (0 passes, 1 finish, 2 cluster),
+// which the wrapper counts
 extern "C" int select_decode(int n_levels, const unsigned long long* ptrs, const long long* strides, const int* hw,
                              const float* stride_px, int map_type, int b, int nc, int reg_max, int ml, int k,
                              float thr, float valid_thr, int score_type, const void* mask, int agnostic,
                              void* workspace, long long workspace_bytes, void* vals, void* bidx, void* cls,
-                             void* boxes, void* shifted, void* valid, int device, void* stream) {
+                             void* boxes, void* shifted, void* valid, int device, void* stream, int* taken) {
   return run(n_levels, ptrs, strides, hw, stride_px, map_type, b, nc, reg_max, ml, k, thr, valid_thr, score_type,
-             mask, agnostic, workspace, workspace_bytes, vals, bidx, cls, boxes, shifted, valid, device, stream, false);
+             mask, agnostic, workspace, workspace_bytes, vals, bidx, cls, boxes, shifted, valid, device, stream, false,
+             -1, taken);
 }
 
-// select_decode's memset and score pass alone, for timing the score pass (chip_smoke.py); the outputs are not written
+// select_decode down a named route (0 passes, 1 finish, 2 cluster; -1 plan's pick), cudaErrorInvalidValue where the
+// route cannot take these shapes; *taken gets the route run. For timing the routes on the same inputs
+// (chip_smoke.py, tools/k3_profile.py) and for the card tests; the path calls select_decode.
+extern "C" int select_decode_pick(int n_levels, const unsigned long long* ptrs, const long long* strides,
+                                  const int* hw, const float* stride_px, int map_type, int b, int nc, int reg_max,
+                                  int ml, int k, float thr, float valid_thr, int score_type, const void* mask,
+                                  int agnostic, void* workspace, long long workspace_bytes, void* vals, void* bidx,
+                                  void* cls, void* boxes, void* shifted, void* valid, int device, void* stream,
+                                  int route, int* taken) {
+  return run(n_levels, ptrs, strides, hw, stride_px, map_type, b, nc, reg_max, ml, k, thr, valid_thr, score_type,
+             mask, agnostic, workspace, workspace_bytes, vals, bidx, cls, boxes, shifted, valid, device, stream, false,
+             route, taken);
+}
+
+// select_decode's memset and score pass alone (down route `route`, as select_decode_pick's: the passes route's
+// score pass also selects the first digit), for timing the score pass; the outputs are not written
 extern "C" int select_decode_score(int n_levels, const unsigned long long* ptrs, const long long* strides,
                                    const int* hw, const float* stride_px, int map_type, int b, int nc, int reg_max,
                                    int ml, int k, float thr, float valid_thr, int score_type, const void* mask,
                                    int agnostic, void* workspace, long long workspace_bytes, void* vals, void* bidx,
-                                   void* cls, void* boxes, void* shifted, void* valid, int device, void* stream) {
+                                   void* cls, void* boxes, void* shifted, void* valid, int device, void* stream,
+                                   int route, int* taken) {
   return run(n_levels, ptrs, strides, hw, stride_px, map_type, b, nc, reg_max, ml, k, thr, valid_thr, score_type,
-             mask, agnostic, workspace, workspace_bytes, vals, bidx, cls, boxes, shifted, valid, device, stream, true);
+             mask, agnostic, workspace, workspace_bytes, vals, bidx, cls, boxes, shifted, valid, device, stream, true,
+             route, taken);
 }
 
 extern "C" const char* select_decode_error_string(int code) {

@@ -65,7 +65,8 @@ Hazards, each met here or by the callers named:
    `torch.cuda.current_stream()`, which during the capture is the capture
    stream.
 2. Launch counters. The `.launches` counters of `ops.kernels.COUNTED` (the
-   loss tail's K5-K7 and their backwards included) are Python-side: the
+   loss tail's K5-K7 and their backwards included, and K3's counts by
+   route, `select_decode.by_route`) are Python-side: the
    capture advances them though it launches nothing, and a replay runs no
    Python. So the capture's advance is taken back and added
    again at every replay.
@@ -99,10 +100,10 @@ from typing import Callable, Dict, Hashable, List, Sequence
 
 import torch
 
-from yololite_tpu_torch.ops.kernels import COUNTED
+from yololite_tpu_torch.ops.kernels import COUNTED, SELECT_ROUTES, select_decode
 
 # (object, attribute) of each Python-side counter that a replay must advance as the capture did (hazard 2)
-COUNTERS = tuple((w, "launches") for w in COUNTED)
+COUNTERS = tuple((w, "launches") for w in COUNTED) + tuple((select_decode.by_route, r) for r in SELECT_ROUTES)
 
 MAX_GRAPHS = 8  # graphs one cache holds; the least recently replayed goes first
 MAX_SEEN = 64  # keys seen once that one cache remembers

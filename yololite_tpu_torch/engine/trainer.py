@@ -742,12 +742,14 @@ def _train_rank(rank: int, world: int, device: torch.device, overrides: Dict, sa
     tr.train()
     if rank != 0:
         return None
-    from yololite_tpu_torch.ops.kernels import COUNTED
+    from yololite_tpu_torch.ops.kernels import COUNTED, select_decode
 
     return {"metrics": tr.metrics, "fitness": tr.fitness, "best_fitness": tr.best_fitness, "epoch": tr.epoch,
             "train_seconds": tr.train_seconds, "tlosses": tr.tlosses, "start_epoch": tr.start_epoch,
-            # this process' kernel launches (its EMA vals' and final val's NMS), which the caller's counters do not see
-            "rank_kernel_launches": {w.__name__: w.launches for w in COUNTED}}
+            # this process' kernel launches (its EMA vals' and final val's NMS), which the caller's counters do not see,
+            # and K3's by route
+            "rank_kernel_launches": {w.__name__: w.launches for w in COUNTED},
+            "rank_select_routes": select_decode.by_route.as_dict()}
 
 
 def data_parallel_step(rank: int, world: int, device, overrides: Dict, model: DetectionModel, batches,

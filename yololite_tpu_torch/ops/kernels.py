@@ -541,7 +541,7 @@ def select_decode_plain(feats: Sequence[torch.Tensor], strides: Sequence[int], n
 
 SCORE_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}  # K3's map and score type codes
 SELECT_MAX_LEVELS = 16  # level descriptors csrc/select_decode.cu carries in its launch parameters
-SELECT_ROUTES = ("passes", "finish")  # csrc/select_decode.cu's routes, by code
+SELECT_ROUTES = ("passes", "finish", "cluster")  # csrc/select_decode.cu's routes, by code
 SELECT_SCORES = ("anchor", "anchor_vec", "plane", "entry", "entry_vec")  # its score-pass kernels, by code
 
 
@@ -568,6 +568,8 @@ def select_decode(feats: Sequence[torch.Tensor], strides: Sequence[int], nc: int
     of one dtype, one launch, no host sync), a CPU tensor through
     `select_decode_plain`; both as the op
     `torch.ops.yololite_tpu_torch.select_decode`. Any other input raises.
+    Card calls are counted in `.launches` and, by the route the kernel took,
+    in `.by_route` (`SELECT_ROUTES`).
     """
     if max_cand < 0 or not len(feats) or len(strides) != len(feats):
         raise ValueError(f"select_decode: max_cand {max_cand}, {len(feats)} levels, {len(strides)} strides")
@@ -596,7 +598,21 @@ def select_decode(feats: Sequence[torch.Tensor], strides: Sequence[int], nc: int
                                                       bool(multi_label), bool(agnostic))
 
 
+class _RouteCounts:
+    """K3's launches by the route csrc/select_decode.cu took: one counter a route of `SELECT_ROUTES`."""
+
+    def __init__(self):
+        self.passes = self.finish = self.cluster = 0
+
+    def as_dict(self) -> dict:
+        return {r: getattr(self, r) for r in SELECT_ROUTES}
+
+    def reset(self):
+        self.passes = self.finish = self.cluster = 0
+
+
 select_decode.launches = 0  # kernel launches since the last reset
+select_decode.by_route = _RouteCounts()  # the same launches by route (engine/graphs.py advances both on a replay)
 
 
 @torch.library.custom_op("yololite_tpu_torch::select_decode", mutates_args=(), device_types="cpu")
@@ -629,14 +645,16 @@ def _level_args(feats: Sequence[Tensor], strides: Optional[Sequence[int]] = None
 
 def _select_decode_launch(feats: List[Tensor], strides: List[int], nc: int, reg_max: int, conf_thres: float,
                           max_cand: int, class_mask: Optional[Tensor], half: bool, multi_label: bool,
-                          agnostic: bool, score_only: bool = False):
-    """One launch sequence of csrc/select_decode.cu into fresh outputs (`score_only`: its entry point that launches
-    the score pass alone, into the workspace, for timing it)."""
+                          agnostic: bool, score_only: bool = False, route: str = "plan"):
+    """One launch sequence of csrc/select_decode.cu into fresh outputs, down `route` ("plan": the one the shapes
+    pick; else a name of `SELECT_ROUTES`, which raises where that route cannot take these shapes: for timing the
+    routes on the same inputs). `score_only`: the memset and the score pass alone, into the workspace, for timing
+    them. Returns the outputs and the route taken (None where nothing was launched)."""
     out = _select_decode_empty(feats, nc, max_cand, multi_label)
     vals, bidx, cls, boxes, shifted, valid = out
     b, k = vals.shape
     if b == 0 or k == 0:
-        return out
+        return out, None
     dev = feats[0].device
     ml = multi_label and nc > 1
     score_type = feats[0].dtype if half else torch.float32  # what the plain version's sigmoid computes in
@@ -648,24 +666,37 @@ def _select_decode_launch(feats: List[Tensor], strides: List[int], nc: int, reg_
     workspace = torch.empty(nbytes, dtype=torch.uint8, device=dev)
     stream = torch._C._cuda_getCurrentRawStream(dev.index)  # PyTorch's current stream, as an int
     mask = None if class_mask is None else class_mask.contiguous().data_ptr()
-    entry = lib.select_decode_score if score_only else lib.select_decode
-    rc = entry(len(feats), ptrs, strd, hw, px, SCORE_TYPES[feats[0].dtype], b, nc, reg_max, int(ml), k, thr,
-               valid_thr, SCORE_TYPES[score_type], mask, int(agnostic), workspace.data_ptr(), nbytes, vals.data_ptr(),
-               bidx.data_ptr(), cls.data_ptr(), boxes.data_ptr(), shifted.data_ptr(), valid.data_ptr(), dev.index,
-               stream)
+    taken = ctypes.c_int(-1)
+    args = (len(feats), ptrs, strd, hw, px, SCORE_TYPES[feats[0].dtype], b, nc, reg_max, int(ml), k, thr, valid_thr,
+            SCORE_TYPES[score_type], mask, int(agnostic), workspace.data_ptr(), nbytes, vals.data_ptr(),
+            bidx.data_ptr(), cls.data_ptr(), boxes.data_ptr(), shifted.data_ptr(), valid.data_ptr(), dev.index, stream)
+    if score_only:
+        rc = lib.select_decode_score(*args, _route_code(route), ctypes.byref(taken))
+    elif route == "plan":
+        rc = lib.select_decode(*args, ctypes.byref(taken))
+    else:
+        rc = lib.select_decode_pick(*args, _route_code(route), ctypes.byref(taken))
     if rc != 0:
-        raise RuntimeError(f"select_decode kernel launch failed: {lib.select_decode_error_string(rc).decode()}")
-    return out
+        raise RuntimeError(f"select_decode kernel launch failed (route {route}): "
+                           f"{lib.select_decode_error_string(rc).decode()}")
+    return out, SELECT_ROUTES[taken.value]
+
+
+def _route_code(route: str) -> int:
+    if route != "plan" and route not in SELECT_ROUTES:
+        raise ValueError(f"select_decode: route {route!r} is none of plan, {', '.join(SELECT_ROUTES)}")
+    return -1 if route == "plan" else SELECT_ROUTES.index(route)
 
 
 @_select_decode_op.register_kernel("cuda")
 def _select_decode_cuda(feats: List[Tensor], strides: List[int], nc: int, reg_max: int, conf_thres: float,
                         max_cand: int, class_mask: Optional[Tensor], half: bool, multi_label: bool,
                         agnostic: bool) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor, Tensor]:
-    out = _select_decode_launch(feats, strides, nc, reg_max, conf_thres, max_cand, class_mask, half, multi_label,
-                                agnostic)
-    if out[0].numel():
+    out, route = _select_decode_launch(feats, strides, nc, reg_max, conf_thres, max_cand, class_mask, half,
+                                       multi_label, agnostic)
+    if route is not None:
         select_decode.launches += 1
+        setattr(select_decode.by_route, route, getattr(select_decode.by_route, route) + 1)
     return out
 
 
@@ -684,18 +715,26 @@ def sigmoid_monotone(device: torch.device) -> bool:
 
 
 def select_decode_plan(feats: Sequence[torch.Tensor], nc: int, reg_max: int, max_cand: int,
-                       multi_label: bool = False) -> dict:
-    """The route csrc/select_decode.cu takes for these CUDA maps: {"route": "finish" | "passes", "score" (the
-    score pass's kernel), "launches" (kernels a call launches), "reps" (finishing CTAs an image), "smem" (their
-    dynamic shared memory, bytes)}. The rule lives in the kernel's `plan`, from the shapes and strides alone."""
+                       multi_label: bool = False, route: str = "plan") -> dict:
+    """The route csrc/select_decode.cu takes for these CUDA maps: {"route": "finish" | "cluster" | "passes" (None
+    where a named `route` cannot take these shapes), "score" (the score pass's kernel), "launches" (kernels a
+    call launches), "reps" (finishing CTAs an image), "smem" (a finishing or cluster CTA's dynamic shared memory,
+    bytes), "cluster" (the cluster's CTAs an image), "max_active_clusters" (cudaOccupancyMaxActiveClusters at
+    that size), "tie_cap" and "slack" (a cluster CTA's tie list and the candidates past K its order may take, in
+    entries)}. The rule lives in the kernel's `plan`, from the shapes and strides alone (and the card's
+    occupancy, for the cluster size); `route` names one to report on, as `_select_decode_launch` takes it."""
     b = int(feats[0].shape[0])
     k = min(max_cand, _n_entries(feats, nc, multi_label))
     ptrs, strd, hw, _ = _level_args(feats)
-    plan = (ctypes.c_int * 5)()
-    _select_lib().select_decode_plan(len(feats), ptrs, strd, hw, SCORE_TYPES[feats[0].dtype], b, nc, reg_max,
-                                     int(multi_label and nc > 1), k, feats[0].device.index or 0, plan)
-    return {"route": SELECT_ROUTES[plan[0]], "score": SELECT_SCORES[plan[1]], "launches": plan[2], "reps": plan[3],
-            "smem": plan[4]}
+    plan = (ctypes.c_int * 9)()
+    lib = _select_lib()
+    rc = lib.select_decode_plan(len(feats), ptrs, strd, hw, SCORE_TYPES[feats[0].dtype], b, nc, reg_max,
+                                int(multi_label and nc > 1), k, feats[0].device.index or 0, _route_code(route), plan)
+    if rc != 0:
+        raise RuntimeError(f"select_decode_plan failed: {lib.select_decode_error_string(rc).decode()}")
+    return {"route": SELECT_ROUTES[plan[0]] if plan[0] >= 0 else None, "score": SELECT_SCORES[plan[1]],
+            "launches": plan[2], "reps": plan[3], "smem": plan[4], "cluster": plan[5], "max_active_clusters": plan[6],
+            "tie_cap": plan[7], "slack": plan[8]}
 
 
 @_select_decode_op.register_fake
@@ -712,15 +751,18 @@ def _select_lib() -> ctypes.CDLL:
     if lib.select_decode.argtypes is None:  # declare the C signatures once per process
         levels = [ctypes.c_int, ctypes.POINTER(ctypes.c_uint64), ctypes.POINTER(ctypes.c_longlong),
                   ctypes.POINTER(ctypes.c_int)]
-        lib.select_decode.argtypes = levels + [ctypes.POINTER(ctypes.c_float)] + [ctypes.c_int] * 6 + [
+        call = levels + [ctypes.POINTER(ctypes.c_float)] + [ctypes.c_int] * 6 + [
             ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
             ctypes.c_longlong] + [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_void_p]
+        lib.select_decode.argtypes = call + [ctypes.POINTER(ctypes.c_int)]
         lib.select_decode.restype = ctypes.c_int
-        lib.select_decode_score.argtypes = lib.select_decode.argtypes
+        lib.select_decode_pick.argtypes = call + [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        lib.select_decode_pick.restype = ctypes.c_int
+        lib.select_decode_score.argtypes = lib.select_decode_pick.argtypes
         lib.select_decode_score.restype = ctypes.c_int
         lib.select_decode_sigmoid_check.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
         lib.select_decode_sigmoid_check.restype = ctypes.c_int
-        lib.select_decode_plan.argtypes = levels + [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int)]
+        lib.select_decode_plan.argtypes = levels + [ctypes.c_int] * 8 + [ctypes.POINTER(ctypes.c_int)]
         lib.select_decode_plan.restype = ctypes.c_int
         lib.select_decode_workspace_bytes.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
                                                       ctypes.c_int, ctypes.c_int]
