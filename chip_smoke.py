@@ -154,14 +154,16 @@ Phases, each of which exits non-zero on failure:
      medians, at batch 32, then one eager turn of each for the record; K8
      launches 76 times a forward and no quantize runs
      outside it; K8 equal to its plain version on every output of the 76
-     quantized convs of one batch-32 forward, timed by device time (a CUDA
-     graph of 20 launches replayed) through int8_conv and as the kernel alone,
-     with each conv's bound, its route (gemm1x1 where prefer_1x1 picks it),
-     each 1x1 conv on both routes (equal outputs, timed), at batch 32 and at
-     batch 1, sums by kind
-     (stem, 3x3, 1x1, depthwise) and torch._int_mm on each 1x1 product as a
-     yardstick (a column of the per-conv table k8_<model>_convs.tsv); the same
-     checks at yolo11m (init(0), 101 quantized convs);
+     quantized convs of one forward at batch 32 and at batch 1, with no input
+     copied (int8_conv.copies 0: the channel-split halves read in place),
+     timed by device time (a CUDA graph of 20 launches replayed) through
+     int8_conv, with each conv's bound and the route plan() picks, each 1x1
+     conv on both routes that can run it (route 1 and gemm1x1: equal
+     outputs, timed in turns), sums by kind (stem, 3x3, 1x1, depthwise)
+     against their bounds, the 1x1 convs on gemm1x1 and route 1, and
+     torch._int_mm on each 1x1 product as a yardstick (columns of the per-conv table
+     k8_<model>_convs.tsv); the same checks at yolo11m (init(0), 101
+     quantized convs);
      (c) export at 640, batch 8, fp32 and int8, reloaded and bit-equal to
      the in-process graph; (d) InferencePipeline at batch 8, 640, 32
      submissions, graphed, eagerly and graphed again: p50/p90/p99 ms, img/s,
@@ -3465,8 +3467,10 @@ def k8_build_report(lib_path: Path) -> str:
     for line in lib_path.with_suffix(".log").read_text().splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            k = re.search(r"int8_conv_(gemm|depthwise|direct|stem)(?:ILi(\d+)ELi(\d+)E)?", m.group(1))
-            name = None if k is None else k.group(1) if k.group(2) is None else f"gemm<N {k.group(2)}, WG {k.group(3)}>"
+            k = re.search(r"int8_conv_(gemm|depthwise|direct|stem|1x1)(?:ILi(\d+)E(?:Li(\d+)E)?)?", m.group(1))
+            second = "WG" if k is not None and k.group(1) == "gemm" else "min blocks"  # 1x1<BN, MINB>
+            name = None if k is None else k.group(1) if k.group(2) is None else (
+                f"{k.group(1)}<N {k.group(2)}" + (f", {second} {k.group(3)}>" if k.group(3) else ">"))
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m and name:
             spills = f"{m.group(1)}/{m.group(2)} B spilled"
@@ -3533,132 +3537,122 @@ def conv_kind(x, mod) -> str:
     return "stem" if x.shape[1] == 3 else "depthwise" if mod.groups > 1 else f"{kh}x{kw}"
 
 
-def k8_1x1_routes(name: str, x, mod, args, y) -> dict:
-    """One 1x1 conv (kernel 1x1, stride 1, groups 1) on both of K8's routes for it, each asserted equal to the
-    forward's output y: each route's kernel alone on a channels-last x ("gemm", the route before gemm1x1, and
-    "gemm1x1", None where that route cannot run), the route before gemm1x1 with the copy `int8_conv` makes of a
-    view that is not channels-last ("gemm_copy", timed as the conv's `ms` is), torch._int_mm on the same product,
-    and the quantities of the two plans that the route rule reads."""
+K8_PICKS = ("gemm", "gemm1x1")  # the routes int8_conv_pick can name: route 1 and gemm1x1
+
+
+def k8_routes(name: str, x, mod, args, y) -> dict:
+    """One 1x1 conv (groups 1) on each of K8's routes that can run it (`K8_PICKS`), each asserted equal to the
+    forward's output y, on x as the forward hands it (a channel-split view read in place), and torch._int_mm on the
+    same product (int32 out, no epilogue), timed in turns (a, b, .., b, a, the mean of the two).
+    Returns {route: ms or None, "int_mm": ms, f"{route}_plan": plan}."""
     import torch
 
     from yololite_tpu_torch.ops.kernels import _int8_conv_launch, int8_conv_plan, quantize_act
 
-    cl = torch.channels_last
-    x_cl = x.contiguous(memory_format=cl)
-    args_cl = (x_cl, *args[1:])
-    cout, _, _, cin = mod.weight.shape
-    out = {"gemm1x1": None}
-    for pick in ("gemm", "gemm1x1"):
-        plan = int8_conv_plan(x_cl, mod.weight, y, 1, 1, 0, pick=pick)
+    out, fns = {}, {}
+    for pick in K8_PICKS:
+        plan = int8_conv_plan(x, mod.weight, y, mod.groups, mod.stride, mod.padding, pick=pick)
         out[f"{pick}_plan"] = plan
+        out[pick] = None
         if plan["route"] is None:
             continue
-        if not torch.equal(_int8_conv_launch(*args_cl, pick=pick), y):
-            raise AssertionError(f"{name}: {tuple(x.shape)} -> {cout}: the {pick} route's output differs")
-        out[pick] = graph_ms(lambda: _int8_conv_launch(*args_cl, pick=pick))
-    out["gemm_copy"] = graph_ms(lambda: _int8_conv_launch(x.contiguous(memory_format=cl), *args[1:], pick="gemm"))
+        if not torch.equal(_int8_conv_launch(*args, pick=pick), y):
+            raise AssertionError(f"{name}: {tuple(x.shape)} -> {tuple(y.shape)}: the {pick} route's output differs")
+        fns[pick] = lambda pick=pick: _int8_conv_launch(*args, pick=pick)
+    cout, _, _, cin = mod.weight.shape
     xq = x if x.dtype == torch.int8 else quantize_act(x, mod.sin)
-    a2 = xq.permute(0, 2, 3, 1).reshape(-1, cin)  # channels-last: a view
+    a2 = xq.permute(0, 2, 3, 1).reshape(-1, cin)  # a copy where x is a channel-split view, made outside the timing
     b2 = mod.weight.reshape(cout, cin).t()
-    out["int_mm"] = graph_ms(lambda: torch._int_mm(a2, b2))
+    fns["int_mm"] = lambda: torch._int_mm(a2, b2)
+    times = {k: [] for k in fns}
+    for order in (list(fns), list(fns)[::-1]):
+        for k in order:
+            times[k].append(graph_ms(fns[k]))
+    out.update({k: sum(v) / len(v) for k, v in times.items()})
     return out
 
 
-def k8_on_convs(card: str, pred, frames, n_convs: int, name: str, time_plain: bool, only_1x1: bool = False) -> dict:
+def k8_on_convs(card: str, pred, frames, n_convs: int, name: str, time_plain: bool) -> dict:
     """K8 against its plain version (every output equal), and timed by device time, on every quantized conv of
-    one int8 forward of `pred` on `frames` (`only_1x1`: its 1x1 convs alone); with each conv's bound, and each
-    1x1 conv on both routes and torch._int_mm (`k8_1x1_routes`). A conv's `ms` is `int8_conv`'s, the copy of a
-    view that is not channels-last included, `kernel_ms` the kernel alone on a channels-last
-    x; the sums "old" put the 1x1 convs on the route before gemm1x1, timed the same way. Writes each conv's row to
-    chiprun_out/k8_<name>_convs.tsv (b<batch> appended below batch 32)."""
+    one int8 forward of `pred` on `frames`; with each conv's bound, the route plan() picks, and each 1x1 conv on both
+    routes and torch._int_mm (`k8_routes`). A conv's `ms` is `int8_conv`'s on the input as the forward hands it; the
+    forward must copy no input (`int8_conv.copies` 0). Sums by kind against their bounds; the 3x3 convs' own, and the
+    1x1 convs on gemm1x1, on route 1 and torch._int_mm. Writes each conv's row to chiprun_out/k8_<name>_convs.tsv
+    (b<batch> appended below batch 32)."""
     import numpy as np
     import torch
 
     from yololite_tpu_torch.engine import graphs
     from yololite_tpu_torch.models import modules as M
-    from yololite_tpu_torch.ops.kernels import _int8_conv_launch, int8_conv, int8_conv_plain, int8_conv_plan
+    from yololite_tpu_torch.ops.kernels import int8_conv, int8_conv_plain, int8_conv_plan, x_pitch
 
     calls = []
     hooks = [m.register_forward_hook(lambda mod, i, y: calls.append((mod, i[0], i[1], y)))
              for m in pred.net.modules() if isinstance(m, M.QConv)]
     try:
         raw = torch.from_numpy(np.stack(frames)).cuda().flip(-1)
+        int8_conv.copies = 0
         with graphs.eager():  # hooks run in the eager forward, not in a replay
             pred.infer_uint8(raw, 640)
+        copies = int8_conv.copies
     finally:
         for h in hooks:
             h.remove()
     if len(calls) != n_convs:
         raise AssertionError(f"{name}: {len(calls)} quantized conv calls in one int8 forward, not {n_convs}")
+    if copies:
+        raise AssertionError(f"{name}: int8_conv copied {copies} inputs before the kernel in one int8 forward")
     bs = len(frames)
-    keys = ("ms", "kernel_ms", "old_ms", "plain_ms", "bound_ms", "bytes", "ops", "ms_1x1", "kernel_1x1",
-            "old_1x1", "old_kernel_1x1", "int_mm_1x1", "bound_1x1", "edge_ms", "edge_bound")
-    tot = dict.fromkeys(keys, 0.0)
-    slower, missed = [], []  # 1x1 convs on gemm1x1 but slower there; on gemm but 3% or more faster on gemm1x1
-    kinds, routes, rows = {}, {}, []
-    differ = total = n_1x1 = 0
-    on_1x1 = [0, 0]  # 1x1 convs that gemm1x1 can run that take it, and that keep the route before it
+    tot = dict.fromkeys(("ms", "plain_ms", "bound_ms", "bytes", "ops", "edge_ms", "edge_bound"), 0.0)
+    sums = {k: dict.fromkeys(("ms", "bound_ms", "route1_ms", "new_ms", "int_mm_ms"), 0.0) for k in ("3x3", "1x1")}
+    slower, kinds, routes, rows = [], {}, {}, []
+    differ = total = split = 0
     with torch.inference_mode():
         for mod, x, act, y in calls:
             kind = conv_kind(x, mod)
             cout, kh, kw_, cin_g = mod.weight.shape
             is_1x1 = kh == kw_ == 1 and mod.stride == 1 and mod.groups == 1
-            if only_1x1 and not is_1x1:
-                continue
             args = (x, mod.weight, mod.scale, mod.bias, mod.stride, mod.padding, mod.groups, act, mod.sout or 0.0,
                     mod.sin_value)
             want = int8_conv_plain(*args)
             differ += int((y != want).sum())
             total += want.numel()
-            ms = graph_ms(lambda: int8_conv(*args))  # the wrapper: the copy of a view that is not channels-last too
-            args_cl = (x.contiguous(memory_format=torch.channels_last), *args[1:])
+            pitch = x_pitch(x)
+            split += pitch != x.shape[1]
+            ms = graph_ms(lambda: int8_conv(*args))
             bound, by = int8_conv_bound_ms(tuple(x.shape), x.element_size(), tuple(mod.weight.shape),
                                            tuple(y.shape), y.element_size())
             plan = int8_conv_plan(x, mod.weight, y, mod.groups, mod.stride, mod.padding)
-            route = plan["route"] + (f" N{plan['n_tile']} M{plan['m_tile']}" if plan["route"].startswith("gemm")
+            route = plan["route"] + (f" N{plan['n_tile']} M{plan['m_tile']}" if plan["route"] in ("gemm", "gemm1x1")
                                      else "")
             routes[route] = routes.get(route, 0) + 1
-            r = None
-            if is_1x1:
-                n_1x1 += 1
-                r = k8_1x1_routes(name, x, mod, args, y)
-                kernel = r.get(plan["route"]) or graph_ms(lambda: _int8_conv_launch(*args_cl))
-                tot["ms_1x1"] += ms
-                tot["kernel_1x1"] += kernel
-                tot["old_1x1"] += r["gemm_copy"]
-                tot["old_kernel_1x1"] += r["gemm"]
-                tot["int_mm_1x1"] += r["int_mm"]
-                tot["bound_1x1"] += bound
-                tot["old_ms"] += r["gemm_copy"]
-                if x.dtype != torch.int8:
-                    tot["edge_ms"] += ms
-                    tot["edge_bound"] += bound
-                if r["gemm1x1"] is not None:
-                    on_1x1[plan["route"] != "gemm1x1"] += 1
-                    what = f"{tuple(x.shape)} {x.dtype} -> {cout} {y.dtype}: {r['gemm1x1']:.4f} vs {r['gemm']:.4f} ms"
-                    if plan["route"] == "gemm1x1" and r["gemm1x1"] > r["gemm"]:
-                        slower.append(what)
-                    if plan["route"] != "gemm1x1" and r["gemm1x1"] <= 0.97 * r["gemm"]:
-                        missed.append(what)
-            else:
-                kernel = graph_ms(lambda: _int8_conv_launch(*args_cl))
-                tot["old_ms"] += ms
-            row = [kind, tuple(x.shape), x.dtype, tuple(mod.weight.shape), f"s{mod.stride}", y.dtype, route,
-                   f"{ms:.4f}", f"{kernel:.4f}", f"{bound:.4f}"]
+            if kind in sums:
+                sums[kind]["ms"] += ms
+                sums[kind]["bound_ms"] += bound
+            r = k8_routes(name, x, mod, args, y) if is_1x1 and kind == "1x1" else None
             if r is not None:
-                g, q = r["gemm_plan"], r["gemm1x1_plan"]
-                m_tiles = -(-int(np.prod(y.shape)) // cout // 128)
-                row += [f"{r['int_mm']:.4f}", f"{r['gemm']:.4f}",
-                        "" if r["gemm1x1"] is None else f"{r['gemm1x1']:.4f}", f"{r['gemm_copy']:.4f}", m_tiles,
-                        f"N{g['n_tile']} M{g['m_tile']}",
-                        *((q["n_tile"], q["n_groups"], q["blocks_per_sm"], q["a_sets"]) if q["route"] else ("",) * 4)]
+                s = sums["1x1"]
+                s["route1_ms"] += r["gemm"] if r["gemm"] is not None else ms
+                s["new_ms"] += r["gemm1x1"] if r["gemm1x1"] is not None else ms
+                s["int_mm_ms"] += r["int_mm"]
+                alt = [v for k, v in r.items() if k in K8_PICKS and k != plan["route"] and v is not None]
+                if alt and r[plan["route"]] > min(alt):
+                    slower.append(f"{tuple(x.shape)} {x.dtype} -> {cout} s{mod.stride} {y.dtype}: {plan['route']} "
+                                  f"{r[plan['route']]:.4f} vs {min(alt):.4f} ms")
+            if x.dtype != torch.int8 and is_1x1:
+                tot["edge_ms"] += ms
+                tot["edge_bound"] += bound
+            q = plan
+            row = [kind, tuple(x.shape), x.dtype, pitch, tuple(mod.weight.shape), f"s{mod.stride}", y.dtype, route,
+                   f"{ms:.4f}", f"{bound:.4f}", by]
+            row += ["" if r is None or r.get(k) is None else f"{r[k]:.4f}" for k in (*K8_PICKS, "int_mm")]
+            row += [q["blocks_per_sm"], q["n_groups"] or "", q["a_sets"] or "", int(q["whole_table"]), q["smem"]]
             rows.append("\t".join(str(v) for v in row))
             k = kinds.setdefault(kind, {"n": 0, "ms": 0.0, "bound_ms": 0.0})
             k["n"] += 1
             k["ms"] += ms
             k["bound_ms"] += bound
             tot["ms"] += ms
-            tot["kernel_ms"] += kernel
             tot["bound_ms"] += bound
             tot["bytes" if by == "bytes" else "ops"] += bound
             if time_plain:
@@ -3666,38 +3660,35 @@ def k8_on_convs(card: str, pred, frames, n_convs: int, name: str, time_plain: bo
     del calls
     out = Path("chiprun_out")  # each conv's row, for the record
     out.mkdir(exist_ok=True)
-    head = ("kind\tx\tx dtype\tw\tstride\tout dtype\troute\tms (int8_conv)\tkernel ms\tbound ms\t"
-            "torch._int_mm ms\tgemm ms\tgemm1x1 ms\tgemm ms with the copy\tM tiles of 128\tgemm tile\t"
-            "gemm1x1 N tile\tN groups\tblocks an SM\tA sets\n")
+    head = ("kind\tx\tx dtype\tpitch\tw\tstride\tout dtype\troute (plan)\tms (int8_conv)\tbound ms\tbound by\t"
+            "route 1 ms\tgemm1x1 ms\ttorch._int_mm ms\tblocks an SM\tN groups\tA sets\twhole table\tshared memory\n")
     (out / f"k8_{name}_convs{'' if bs == 32 else f'_b{bs}'}.tsv").write_text(head + "\n".join(rows) + "\n")
     if differ:
         raise AssertionError(f"{name}: K8 differs from its plain version on {differ} of {total} outputs")
 
     by_kind = "; ".join(f"{k} ({v['n']} convs) {v['ms']:.4f} ms vs bound {v['bound_ms']:.4f} ms "
                         f"({v['ms'] / v['bound_ms']:.1f}x)" for k, v in sorted(kinds.items()))
-    convs = f"its {n_1x1} 1x1 convs" if only_1x1 else f"all {n_convs} quantized convs"
-    log(f"serving (b): {name}: K8 == its plain version on {convs} of one int8 forward at 640, batch {bs} (0 of "
-        f"{total} outputs differ); device time (CUDA graph replay) summed: K8 {tot['ms']:.4f} ms through int8_conv "
-        f"(its copy of a view that is not channels-last included; the kernels alone {tot['kernel_ms']:.4f} ms), "
-        f"{tot['old_ms']:.4f} ms with the 1x1 convs on the route before gemm1x1 timed the same way, bound "
-        f"{tot['bound_ms']:.4f} ms ({tot['ms'] / tot['bound_ms']:.2f}x; {tot['bytes']:.4f} ms of it in bytes-bound "
-        f"convs, {tot['ops']:.4f} ms in operation-bound ones)"
-        + (f", plain {tot['plain_ms']:.3f} ms" if time_plain else "")
-        + f"; 1x1 convs through int8_conv {tot['ms_1x1']:.4f} ms, on the route before gemm1x1 {tot['old_1x1']:.4f} "
-        f"ms (kernels alone {tot['kernel_1x1']:.4f} vs {tot['old_kernel_1x1']:.4f} ms), torch._int_mm (int32 out, "
-        f"no epilogue) {tot['int_mm_1x1']:.4f} ms, bound {tot['bound_1x1']:.4f} ms; {on_1x1[0]} 1x1 convs take "
-        f"gemm1x1, {on_1x1[1]} that it can run keep the route before it; on gemm1x1 but slower there than on the "
-        f"route before (kernels alone): {len(slower)} {slower}; kept off gemm1x1 though 3% or more faster there: "
-        f"{len(missed)} {missed}; the float-edge 1x1s {tot['edge_ms']:.4f} ms vs bound {tot['edge_bound']:.4f} ms; "
-        f"by kind: {by_kind}; routes {routes}; on {card}")
-    return {"max_abs_err": 0.0, "ms": tot["ms"], "kernel_ms": tot["kernel_ms"], "old_ms": tot["old_ms"],
-            "plain_ms": tot["plain_ms"] if time_plain else None, "bound_ms": tot["bound_ms"],
-            "bound_by": "bytes" if tot["bytes"] >= tot["ops"] else "operations", "outputs_differing": differ,
-            "ms_1x1": tot["ms_1x1"], "old_1x1_ms": tot["old_1x1"], "kernel_1x1_ms": tot["kernel_1x1"],
-            "old_kernel_1x1_ms": tot["old_kernel_1x1"], "int_mm_1x1_ms": tot["int_mm_1x1"],
-            "bound_1x1_ms": tot["bound_1x1"], "edge_1x1_ms": tot["edge_ms"], "edge_1x1_bound_ms": tot["edge_bound"],
-            "slower_1x1": len(slower), "missed_1x1": len(missed), "on_gemm1x1": on_1x1[0], "routes": routes,
-            "by_kind": kinds}
+    s3, s1 = sums["3x3"], sums["1x1"]
+    log(f"serving (b): {name}: K8 == its plain version on all {n_convs} quantized convs of one int8 forward at 640, "
+        f"batch {bs} (0 of "
+        f"{total} outputs differ); int8_conv copied {copies} inputs (channel-split views read in place: {split}); "
+        f"device time (CUDA graph replay) summed: K8 {tot['ms']:.4f} ms through int8_conv, bound {tot['bound_ms']:.4f} "
+        f"ms ({tot['ms'] / tot['bound_ms']:.2f}x; {tot['bytes']:.4f} ms of it in bytes-bound convs, {tot['ops']:.4f} "
+        f"ms in operation-bound ones)" + (f", plain {tot['plain_ms']:.3f} ms" if time_plain else "")
+        + (f"; the 3x3 convs {s3['ms']:.4f} ms vs bound {s3['bound_ms']:.4f} ms "
+           f"({s3['ms'] / s3['bound_ms']:.1f}x)" if s3["ms"] else "")
+        + f"; the 1x1 convs {s1['ms']:.4f} ms vs bound {s1['bound_ms']:.4f} ms, in turns on gemm1x1 "
+        f"{s1['new_ms']:.4f} ms, on route 1 {s1['route1_ms']:.4f} ms, torch._int_mm (int32 out, no epilogue) "
+        f"{s1['int_mm_ms']:.4f} ms; the float-edge 1x1s {tot['edge_ms']:.4f} ms vs bound {tot['edge_bound']:.4f} ms; "
+        f"on a route slower than another that can run it: {len(slower)} {slower}; by kind: {by_kind}; routes "
+        f"{routes}; on {card}")
+    return {"max_abs_err": 0.0, "ms": tot["ms"], "plain_ms": tot["plain_ms"] if time_plain else None,
+            "bound_ms": tot["bound_ms"], "bound_by": "bytes" if tot["bytes"] >= tot["ops"] else "operations",
+            "outputs_differing": differ, "copies": copies, "split_views": split,
+            "ms_3x3": s3["ms"], "bound_3x3_ms": s3["bound_ms"], "ms_1x1": s1["ms"], "bound_1x1_ms": s1["bound_ms"],
+            "gemm1x1_1x1_ms": s1["new_ms"], "route1_1x1_ms": s1["route1_ms"], "int_mm_1x1_ms": s1["int_mm_ms"],
+            "edge_1x1_ms": tot["edge_ms"], "edge_1x1_bound_ms": tot["edge_bound"], "slower": len(slower),
+            "routes": routes, "by_kind": kinds}
 
 
 def int8_vs_bf16(card: str, path: str, frames, bs: int, n_convs: int, name: str, turns=("bf16", "int8", "int8",
@@ -3851,7 +3842,7 @@ def serving_phase(card: str, frames):
     k1, k3, k2 = k1 + n1, k3 + n1, k2 + n1
     k8_launches += n8
     k8 = k8_on_convs(card, pred, frames, 76, "yolo11n", time_plain=True)
-    k8_b1 = k8_on_convs(card, pred, frames[:1], 76, "yolo11n", time_plain=False, only_1x1=True)
+    k8_b1 = k8_on_convs(card, pred, frames[:1], 76, "yolo11n", time_plain=False)
     k8.update(int8_ms_b32=med32["int8"] * 1e3, bf16_ms_b32=med32["bf16"] * 1e3, int8_ms_b1=med1["int8"] * 1e3,
               bf16_ms_b1=med1["bf16"] * 1e3, int8_eager_ms_b32=med32["int8 eager"] * 1e3,
               bf16_eager_ms_b32=med32["bf16 eager"] * 1e3)
@@ -3860,13 +3851,13 @@ def serving_phase(card: str, frames):
     k1, k3, k2 = k1 + n1, k3 + n1, k2 + n1
     k8_launches += n8
     k8_m = k8_on_convs(card, pred, frames, 101, "yolo11m", time_plain=False)
-    k8_m_b1 = k8_on_convs(card, pred, frames[:1], 101, "yolo11m", time_plain=False, only_1x1=True)
-    sums = ("ms_1x1", "old_1x1_ms", "kernel_1x1_ms", "old_kernel_1x1_ms", "int_mm_1x1_ms", "bound_1x1_ms",
-            "slower_1x1", "missed_1x1", "on_gemm1x1")
-    k8["b1_1x1"] = {key: k8_b1[key] for key in sums}  # the 1x1 convs of a batch-1 forward
-    k8["yolo11m"] = {**{key: k8_m[key] for key in ("ms", "kernel_ms", "old_ms", "bound_ms", "bound_by",
-                                                   "edge_1x1_ms", "edge_1x1_bound_ms", "routes", *sums)},
-                     "b1_1x1": {key: k8_m_b1[key] for key in sums},
+    k8_m_b1 = k8_on_convs(card, pred, frames[:1], 101, "yolo11m", time_plain=False)
+    sums = ("ms", "bound_ms", "ms_3x3", "bound_3x3_ms", "ms_1x1", "bound_1x1_ms", "gemm1x1_1x1_ms", "route1_1x1_ms",
+            "int_mm_1x1_ms", "slower", "copies")
+    k8["b1"] = {key: k8_b1[key] for key in sums}  # every conv of a batch-1 forward
+    k8["yolo11m"] = {**{key: k8_m[key] for key in ("bound_by", "split_views", "edge_1x1_ms", "edge_1x1_bound_ms",
+                                                   "routes", *sums)},
+                     "b1": {key: k8_m_b1[key] for key in sums},
                      "int8_ms_b32": med_m["int8"] * 1e3, "bf16_ms_b32": med_m["bf16"] * 1e3}
     del pred
     torch.cuda.empty_cache()

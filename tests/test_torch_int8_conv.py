@@ -55,19 +55,21 @@ def _umulhi_div(n, d):
     return n if d == 1 else (n * ((0xFFFFFFFF // d) + 1)) >> 32
 
 
-def _gemm_model(x, w, stride, pad, bn, wg, granule, chunks=2):
+def _gemm_model(x, w, stride, pad, bn, wg, granule, chunks=2, flat=None, offset=0, pitch=None):
     """The gemm route on int8 NHWC x and OHWI w, as the kernel indexes it: int32 NHWC accumulators.
 
     K = taps x Cin is walked flat (k = (ky * kw + kx) * Cin + c) in steps of `chunks` chunks of 32; each
     16-byte K half (or 8-byte piece) finds its tap and channel from k, and a step runs one wgmma per chunk
-    that has K indices."""
+    that has K indices. With `flat`, x is a channel slice of a wider tensor: its pixels `pitch` elements apart in
+    `flat`, from `offset` (the kernel's x pointer)."""
     b, h, wi, cin = x.shape
+    pitch = cin if pitch is None else pitch
     cout, kh, kw, _ = w.shape
     ho, wo = (h + 2 * pad - kh) // stride + 1, (wi + 2 * pad - kw) // stride + 1
     m_all, bm, threads = b * ho * wo, 64 * wg, 128 * wg
     K = kh * kw * cin
     steps = -(-K // (chunks * CHUNK))
-    xf, wf = x.reshape(-1), w.reshape(-1)
+    xf, wf = (x.reshape(-1) if flat is None else flat), w.reshape(-1)
     out = np.full((m_all, cout), -(2 ** 31), np.int64)  # every element must be written once
     tid = np.arange(threads)
     row, half = tid >> 1, tid & 1
@@ -79,7 +81,7 @@ def _gemm_model(x, w, stride, pad, bn, wg, granule, chunks=2):
         rem = np.where(row_ok, m - bi * ho * wo, 0)
         oy, ox = rem // wo, rem % wo
         iy0, ix0 = oy * stride - pad, ox * stride - pad
-        xrow = ((bi * h + iy0) * wi + ix0) * cin
+        xrow = offset + ((bi * h + iy0) * wi + ix0) * pitch
 
         def x_offset(k):  # per thread: the x index of K index k, or -1 for a zero
             tap = _umulhi_div(k, cin)
@@ -88,7 +90,7 @@ def _gemm_model(x, w, stride, pad, bn, wg, granule, chunks=2):
             kx = tap - ky * kw
             iy, ix = iy0 + ky, ix0 + kx
             ok = row_ok & (k < K) & (iy >= 0) & (iy < h) & (ix >= 0) & (ix < wi)
-            return np.where(ok, xrow + (ky * wi + kx) * cin + c, -1)
+            return np.where(ok, xrow + (ky * wi + kx) * pitch + c, -1)
 
         for n0 in range(0, cout, bn):
             acc = np.zeros((bm, bn), np.int64)
@@ -175,6 +177,37 @@ def test_gemm_index_model_matches_conv(case, wg):
     bn, _, granule = _plan(b, cin, (h + 2 * (k // 2) - k) // stride + 1, (wd + 2 * (k // 2) - k) // stride + 1,
                            cout, 1)
     got = _gemm_model(x, w, stride, k // 2, bn, wg, granule)
+    np.testing.assert_array_equal(got, _reference(x, w, stride, k // 2))
+
+
+# (name, batch, Cin, pitch (the whole tensor's channels), channel offset, H, W, Cout, k, stride): channel-split views
+# as route 1 reads them in place (C3k2's Bottleneck cv1 and C2PSA's halves): either half, Cin 8 (8-byte copies), 16,
+# 32, 48 and 64, stride 1 and 2, 3x3 and 1x1
+SPLIT_CASES = [
+    ("3x3-cin8-second-half", 1, 8, 16, 8, 6, 5, 16, 3, 1),
+    ("3x3-cin16-first-half-s2", 1, 16, 32, 0, 7, 6, 16, 3, 2),
+    ("3x3-cin32-second-half", 2, 32, 64, 32, 5, 7, 32, 3, 1),
+    ("3x3-cin48-second-half-s2", 1, 48, 96, 48, 7, 7, 32, 3, 2),
+    ("3x3-cin64-second-half-cout256", 1, 64, 128, 64, 4, 4, 256, 3, 1),
+    ("1x1-cin64-second-half", 2, 64, 128, 64, 5, 7, 64, 1, 1),
+    ("1x1-cin8-first-half", 1, 8, 24, 0, 6, 6, 16, 1, 1),
+]
+
+
+@pytest.mark.parametrize("case", SPLIT_CASES, ids=[c[0] for c in SPLIT_CASES])
+@pytest.mark.parametrize("wg", [1, 2])
+def test_gemm_index_model_reads_split_views_in_place(case, wg):
+    """The gemm route's loader on a channel slice of a channels-last tensor (pixels `pitch` elements apart, x's
+    pointer at the slice's first channel) reads the same values as on the slice's copy: equal to F.conv2d, exactly."""
+    _, b, cin, pitch, offset, h, wd, cout, k, stride = case
+    rng = np.random.default_rng(cin * 5 + pitch + k)
+    full = rng.integers(-127, 128, (b, h, wd, pitch)).astype(np.int8)
+    x = np.ascontiguousarray(full[..., offset:offset + cin])
+    w = rng.integers(-127, 128, (cout, k, k, cin)).astype(np.int8)
+    bn, _, granule = _plan(b, cin, (h + 2 * (k // 2) - k) // stride + 1, (wd + 2 * (k // 2) - k) // stride + 1,
+                           cout, 1)
+    assert pitch % granule == 0  # plan(): an int8 pitch of whole copies
+    got = _gemm_model(x, w, stride, k // 2, bn, wg, granule, flat=full.reshape(-1), offset=offset, pitch=pitch)
     np.testing.assert_array_equal(got, _reference(x, w, stride, k // 2))
 
 
@@ -346,27 +379,69 @@ FLOAT_EDGES = {(256, 20, 20, 256), (80, 20, 20, 80), (80, 40, 40, 80), (80, 80, 
                (256, 80, 80, 256), (256, 40, 40, 256)}
 
 
-def _yolo_1x1_shapes():
-    """(B, Cin, H, W, Cout, x bytes) of every 1x1 conv of yolo11n and yolo11m at 640, batch 32 (a forward at 64
-    scaled by 10) with an int8 x, and of the float edges with a bf16 x."""
+def _yolo_conv_shapes():
+    """(B, Cin, H, W, Cout, k, stride, groups) of every conv of yolo11n and yolo11m at 640, batch 32 (a forward at
+    64 scaled by 10)."""
     from yololite_tpu_torch.models.model import DetectionModel
 
     shapes = set()
     for name in ("yolo11n.yaml", "yolo11m.yaml"):
         model, seen = DetectionModel(name).eval(), []
-        hooks = [m.conv.register_forward_hook(lambda mod, i, o: seen.append((i[0].shape, mod.weight.shape, mod.stride)))
+        hooks = [m.conv.register_forward_hook(lambda mod, i, o: seen.append((i[0].shape, mod.weight.shape, mod.stride,
+                                                                             mod.groups)))
                  for m in model.modules() if isinstance(m, M.Conv)]
         with torch.no_grad():
             model(torch.zeros(1, 3, 64, 64))
         for h in hooks:
             h.remove()
-        for (_, cin, h, w), (cout, _, kh, kw), stride in seen:
-            if kh == kw == 1 and tuple(stride) == (1, 1):
-                shapes.add((32, cin, 10 * h, 10 * w, cout, 1))
-                if (cin, 10 * h, 10 * w, cout) in FLOAT_EDGES:
-                    shapes.add((32, cin, 10 * h, 10 * w, cout, 2))
+        for (_, cin, h, w), (cout, _, kh, _), stride, groups in seen:
+            shapes.add((32, cin, 10 * h, 10 * w, cout, kh, stride[0], groups))
+    return sorted(shapes)
+
+
+def _yolo_1x1_shapes():
+    """(B, Cin, H, W, Cout, x bytes) of every 1x1 conv of yolo11n and yolo11m at 640, batch 32 with an int8 x, and of
+    the float edges with a bf16 x."""
+    shapes = set()
+    for b, cin, h, w, cout, k, stride, _ in _yolo_conv_shapes():
+        if k == 1 and stride == 1:
+            shapes.add((b, cin, h, w, cout, 1))
+            if (cin, h, w, cout) in FLOAT_EDGES:
+                shapes.add((b, cin, h, w, cout, 2))
     assert {s[1:5] for s in shapes if s[5] == 2} == FLOAT_EDGES
     return sorted(shapes)
+
+
+class _Barriers:
+    """mbarriers by their completed phases: a wait on parity P passes once the completed phases have the other
+    parity; an arrival completes a phase at the barrier's count."""
+
+    def __init__(self, counts):
+        self.counts, self.done, self.arrivals = counts, {}, {}
+
+    def passes(self, bar, parity):
+        return (self.done.get(bar, 0) & 1) != parity
+
+    def arrive(self, bar):
+        self.arrivals[bar] = self.arrivals.get(bar, 0) + 1
+        if self.arrivals[bar] == self.counts[bar[0]]:
+            self.arrivals[bar] = 0
+            self.done[bar] = self.done.get(bar, 0) + 1
+
+
+def _run_to_end(producer, consumers, outs, bars):
+    """Steps the producer and the consumers (generators that yield while a wait does not pass) until all end;
+    raises on a deadlock (nothing moved for 16 rounds)."""
+    alive, stalls = [producer, *consumers], 0
+    while alive:
+        before = (dict(bars.done), sum(len(o) for o in outs))
+        for a in list(alive):
+            try:
+                next(a)
+            except StopIteration:
+                alive.remove(a)
+        stalls = stalls + 1 if (dict(bars.done), sum(len(o) for o in outs)) == before else 0
+        assert stalls < 16, "the pipeline deadlocked"
 
 
 def _simulate_block(items, per_group, k_steps, quant, a_sets):
@@ -499,6 +574,17 @@ def _tma_box(src, r0, c0, rows, cols):
     return out
 
 
+def _tma_box_pitched(flat, offset, rows_all, cols_all, pitch, r0, c0, rows, cols):
+    """A 2-D TMA box of a (rows_all, cols_all) matrix of rows `pitch` elements apart in `flat` from `offset` (the
+    A map of a channel-split view: pixels, Cin, pitch), zero past the map's dimensions."""
+    out = np.zeros((rows, cols), flat.dtype)
+    for r in range(rows):
+        for c in range(cols):
+            if r0 + r < rows_all and c0 + c < cols_all:
+                out[r, c] = flat[offset + (r0 + r) * pitch + c0 + c]
+    return out
+
+
 def _swizzle32_write(slot, base, box):
     """A TMA box of 32-byte rows written with CU_TENSOR_MAP_SWIZZLE_32B: row r's 16-byte halves at r * 32, swapped
     where address bit 7 is set (the wgmma descriptors' 32-byte swizzle)."""
@@ -507,29 +593,32 @@ def _swizzle32_write(slot, base, box):
             slot[base + _swizzled_offset(r, k)] = box[r, k].view(np.uint8)
 
 
-@pytest.mark.parametrize("case", [(2, 48, 5, 7, 8, 1), (3, 64, 7, 9, 256, 1), (1, 96, 6, 6, 80, 2),
-                                  (1, 16, 4, 4, 24, 4)], ids=["cin48-k-tail", "cout256-m-tail", "bf16-x", "fp32-x-cout24"])
+@pytest.mark.parametrize("case", [(2, 48, 5, 7, 8, 1, 48), (3, 64, 7, 9, 256, 1, 64), (1, 96, 6, 6, 80, 2, 96),
+                                  (1, 16, 4, 4, 24, 4, 16), (2, 64, 5, 6, 32, 1, 128)],
+                         ids=["cin48-k-tail", "cout256-m-tail", "bf16-x", "fp32-x-cout24", "split-view-pitch128"])
 def test_1x1_layout_model_matches_conv(case):
-    """A numpy model of route 4's data path on one M tile after another: A's 32-byte chunks by TMA into the
-    swizzled slot (an int8 x), or a float x's raw box into the staging slot and each warpgroup's 64 rows
-    quantized into the A slot (8 elements a write, at swizzled_offset); B's chunks of each N tile; each
-    warpgroup's wgmma reading its 64 rows through the descriptors (chunk c at c * 4,096, warpgroup w at
-    w * 2,048; B chunk c at c * BN * 32). The int32 sums equal the reference conv."""
-    b, cin, h, w, cout, xes = case
+    """A numpy model of route 4's data path on one M tile after another: A's 32-byte chunks by TMA (rows `pitch`
+    elements apart: a channel-split view's second half read in place) into the swizzled slot (an int8 x), or a float
+    x's raw box into the staging slot and each warpgroup's 64 rows quantized into the A slot (8 elements a write, at
+    swizzled_offset); B's chunks of each N tile; each warpgroup's wgmma reading its 64 rows through the descriptors
+    (chunk c at c * 4,096, warpgroup w at w * 2,048; B chunk c at c * BN * 32). The int32 sums equal the reference
+    conv."""
+    b, cin, h, w, cout, xes, pitch = case
     rng = np.random.default_rng(cin + cout)
     bn, _ = _plan_1x1(cin, cout, xes)
     m = b * h * w
     wq = rng.integers(-127, 128, (cout, 1, 1, cin)).astype(np.int8)
     sin = np.float32(1 / 64)
+    offset = pitch - cin  # the view is the last Cin channels of each pixel
     if xes == 1:
-        x = rng.integers(-127, 128, (b, h, w, cin)).astype(np.int8)
-        xq = x
+        full = rng.integers(-127, 128, (b, h, w, pitch)).astype(np.int8)
     else:
-        x = rng.uniform(-0.5, 2.5, (b, h, w, cin)).astype(np.float32)
+        full = rng.uniform(-0.5, 2.5, (b, h, w, pitch)).astype(np.float32)
         if xes == 2:
-            x = torch.from_numpy(x).to(torch.bfloat16).float().numpy()
-        xq = K.quantize_act(torch.from_numpy(x), torch.tensor(sin)).numpy()
-    a_mat, b_mat = x.reshape(m, cin), wq.reshape(cout, cin)
+            full = torch.from_numpy(full).to(torch.bfloat16).float().numpy()
+    x = full[..., offset:]
+    xq = x if xes == 1 else K.quantize_act(torch.from_numpy(np.ascontiguousarray(x)), torch.tensor(sin)).numpy()
+    flat, b_mat = full.reshape(-1), wq.reshape(cout, cin)
     got = np.zeros((m, cout), np.int64)
     for mt in range(-(-m // BM)):
         for nt in range(cout // bn):
@@ -538,9 +627,10 @@ def test_1x1_layout_model_matches_conv(case):
                 sa = np.zeros(BM * STEP, np.uint8)
                 if xes == 1:
                     for c in range(_chunks(cin, ks)):
-                        _swizzle32_write(sa, c * BM * CHUNK, _tma_box(a_mat, mt * BM, ks * STEP + c * CHUNK, BM, CHUNK))
+                        box = _tma_box_pitched(flat, offset, m, cin, pitch, mt * BM, ks * STEP + c * CHUNK, BM, CHUNK)
+                        _swizzle32_write(sa, c * BM * CHUNK, box)
                 else:
-                    raw = _tma_box(a_mat, mt * BM, ks * STEP, BM, STEP)  # the staging slot, row-major
+                    raw = _tma_box_pitched(flat, offset, m, cin, pitch, mt * BM, ks * STEP, BM, STEP)  # staging slot
                     q = K.quantize_act(torch.from_numpy(raw), torch.tensor(sin)).numpy()
                     for r in range(BM):
                         for kg in range(8):
@@ -558,3 +648,54 @@ def test_1x1_layout_model_matches_conv(case):
             rows = min(BM, m - mt * BM)
             got[mt * BM:mt * BM + rows, nt * bn:(nt + 1) * bn] = acc[:rows]
     np.testing.assert_array_equal(got, xq.reshape(m, cin).astype(np.int64) @ b_mat.astype(np.int64).T)
+
+
+def test_int8_conv_on_a_split_view_equals_its_copy():
+    """On the CPU the op takes a channel-split view (the second half of a channels-last tensor, as C3k2 splits it)
+    as it is: the same output as on the view's contiguous copy, bit for bit, no copy counted; `x_pitch` reads its
+    pixel pitch (the whole tensor's channels) and rejects an NCHW layout; opcheck passes on the strided input."""
+    rng = np.random.default_rng(12)
+    full = torch.from_numpy(rng.integers(-127, 128, (2, 64, 9, 7)).astype(np.int8)).contiguous(
+        memory_format=torch.channels_last)
+    a, x = full.split((32, 32), 1)
+    assert K.x_pitch(x) == 64 and K.x_pitch(a) == 64 and K.x_pitch(full) == 64 and K.x_pitch(x.contiguous()) is None
+    for k, stride in ((3, 1), (3, 2), (1, 1)):
+        w, scale, bias = _conv_args(rng, 32, 24, k)
+        copies = K.int8_conv.copies
+        got = K.int8_conv(x, w, scale, bias, stride, k // 2, 1, 1, 0.05)
+        want = K.int8_conv(x.contiguous(memory_format=torch.channels_last), w, scale, bias, stride, k // 2, 1, 1, 0.05)
+        assert K.int8_conv.copies == copies and torch.equal(got, want)
+        torch.library.opcheck(torch.ops.yololite_tpu_torch.int8_conv.default,
+                              (x, w, scale, bias, stride, k // 2, 1, 1, 0.05, 0.0))
+
+
+def test_export_of_a_split_view_equals_the_in_process_run(tmp_path):
+    """A module that splits a channels-last int8 tensor and hands the second half to the op, as C3k2 does: its
+    torch.export graph records the op on the strided view (the fake gives the output's shape and layout), and the
+    program reloaded from disk gives the in-process output bit for bit, int8 and bf16 out."""
+    rng = np.random.default_rng(21)
+    w, scale, bias = _conv_args(rng, 16, 24, 3)
+
+    class Split(torch.nn.Module):
+        def __init__(self, sout):
+            super().__init__()
+            self.register_buffer("w", w)
+            self.register_buffer("scale", scale)
+            self.register_buffer("bias", bias)
+            self.sout = sout
+
+        def forward(self, x):
+            _, b = x.split((16, 16), 1)
+            return K.int8_conv(b, self.w, self.scale, self.bias, 1, 1, 1, 1, self.sout)
+
+    x = torch.from_numpy(rng.integers(-127, 128, (2, 32, 9, 7)).astype(np.int8)).contiguous(
+        memory_format=torch.channels_last)
+    for sout in (0.05, 0.0):
+        m = Split(sout)
+        want = m(x)
+        path = tmp_path / f"split_{sout}.pt2"
+        torch.export.save(torch.export.export(m, (x,)), str(path))
+        got = torch.export.load(str(path)).module()(x)
+        assert got.dtype == want.dtype and torch.equal(got, want)
+        assert torch.equal(want, K.int8_conv(x[:, 16:].contiguous(memory_format=torch.channels_last), w, scale, bias,
+                                             1, 1, 1, 1, sout))

@@ -173,11 +173,11 @@ def test_keep_op_equals_the_direct_launch(card):
 
 # (name, batch, Cin, H, W, Cout, k, stride, groups, act, sout, x dtype, route): yolo11n's kinds of quantized
 # conv, each route of csrc/int8_conv.cu, and their edges (Cin tails, wide and narrow Cout, odd frames, partial
-# M tiles, batch 1, float inputs quantized in the load, bf16 out, every activation); the 1x1 convs of Cin a
-# multiple of 16 take gemm1x1 where csrc/int8_conv.cu prefer_1x1 picks it (yolo11m's float edges, M and K tails,
-# Cout 256 and 512, Cin 1024), the others keep gemm (an int8 x: two blocks an SM in one or two rounds, an item of
-# two N tiles, one block an SM over four rounds, a K tail inside a 32-byte chunk), and Cin 8 keeps gemm (a tensor
-# map's row pitch is a multiple of 16 bytes); each 1x1 conv that gemm1x1 can run is held on both routes
+# tiles, batch 1, float inputs quantized in the load, bf16 out, every activation). The 3x3 convs of groups 1 take
+# route 1 (yolo11's 160x160, 320x320 and 40x40 shapes at batch 32, Cin tails of 8 and 48 inside a chunk, a Cin of 40
+# in 8-byte copies); the 1x1 convs of Cin a multiple of 16 take gemm1x1 where csrc/int8_conv.cu prefer_1x1 picks it
+# (yolo11m's float edges, M and K tails, Cout 256 and 512, Cin 1024), the others keep route 1, as does Cin 8 (a tensor
+# map's row pitch is a multiple of 16 bytes). Every case is also held on each other route that can run it.
 I8, BF16, FP32 = torch.int8, torch.bfloat16, torch.float32
 K8_CASES = [
     ("stem-fp32", 1, 3, 64, 64, 16, 3, 2, 1, 1, 0.05, FP32, "direct"),
@@ -220,41 +220,164 @@ K8_CASES = [
     ("1x1-b1-cout80-keeps-gemm", 1, 64, 80, 80, 80, 1, 1, 1, 1, 0.05, I8, "gemm"),
     ("1x1-cin48-cout80-k-tail", 4, 48, 20, 20, 80, 1, 1, 1, 1, 0.05, I8, "gemm"),
     ("1x1-cin48-bf16-k-tail", 4, 48, 20, 20, 64, 1, 1, 1, 0, 0.05, BF16, "gemm1x1"),
+    ("3x3-cin16-160-b32", 32, 16, 160, 160, 8, 3, 1, 1, 1, 0.05, I8, "gemm"),
+    ("3x3-cin32-s2-320", 4, 32, 320, 320, 64, 3, 2, 1, 1, 0.05, I8, "gemm"),
+    ("3x3-cin128-40-b32", 32, 128, 40, 40, 128, 3, 1, 1, 1, 0.05, I8, "gemm"),
+    ("3x3-cin48-k-tail", 2, 48, 20, 20, 64, 3, 1, 1, 1, 0.05, I8, "gemm"),
+    ("3x3-cin40-granule8", 2, 40, 12, 12, 32, 3, 1, 1, 1, 0.05, I8, "gemm"),
+    ("3x3-bf16-in-cin16-s2", 2, 16, 21, 19, 32, 3, 2, 1, 1, 0.0, BF16, "gemm"),
+    ("3x3-bf16-in-cin8", 2, 8, 20, 24, 16, 3, 1, 1, 1, 0.05, BF16, "gemm"),
+    ("3x3-b1-20x20-cout256", 1, 256, 20, 20, 256, 3, 1, 1, 1, 0.05, I8, "gemm"),
 ]
+
+
+def _k8_inputs(rng, card, b, cin, h, w, cout, k, groups, xdtype, pitch=None, offset=0):
+    """x (B, Cin, H, W) channels-last on the card (a channel slice [offset, offset + Cin) of a channels-last tensor of
+    `pitch` channels where given), int8 or a float quantized at 1/64 (some values clamp at +-127), and the weights."""
+    full = pitch or cin
+    if xdtype == torch.int8:
+        x = torch.from_numpy(rng.integers(-127, 128, (b, full, h, w)).astype(np.int8)).to(card)
+    else:  # an image or a bf16 island's output
+        x = torch.from_numpy(rng.uniform(-0.5, 2.5, (b, full, h, w)).astype(np.float32)).to(card, xdtype)
+    x = x.contiguous(memory_format=torch.channels_last)[:, offset:offset + cin]
+    wq = torch.from_numpy(rng.integers(-127, 128, (cout, k, k, cin // groups)).astype(np.int8)).to(card)
+    scale = torch.from_numpy(rng.uniform(2e-6, 2e-5, cout).astype(np.float32)).to(card)
+    bias = torch.from_numpy(rng.normal(0, 1, cout).astype(np.float32)).to(card)
+    return x, wq, scale, bias
+
+
+def _k8_every_route(args, want, groups, stride, padding):
+    """Each route of int8_conv_pick that can run this conv ("gemm" route 1, "gemm1x1") equals `want`; returns the
+    routes that ran."""
+    from yololite_tpu_torch.ops.kernels import _int8_conv_launch, int8_conv_plan
+
+    ran = []
+    for pick in ("gemm", "gemm1x1"):
+        if int8_conv_plan(args[0], args[1], want, groups, stride, padding, pick=pick)["route"] is None:
+            continue
+        got = _int8_conv_launch(*args, pick=pick)
+        torch.cuda.synchronize()
+        differ = int((got != want).sum())
+        assert differ == 0, f"{pick}: {differ} of {want.numel()} outputs differ"
+        ran.append(pick)
+    return ran
 
 
 @pytest.mark.parametrize("case", K8_CASES, ids=[c[0] for c in K8_CASES])
 def test_int8_conv_kernel_matches_plain(card, case):
     """K8 against its plain version on the same inputs: every output equal (0 int8 LSB, 0 bf16 ulp); one launch
-    down the expected route; a 1x1 conv that gemm1x1 can run also on both routes (int8_conv_pick)."""
-    from yololite_tpu_torch.ops.kernels import _int8_conv_launch, int8_conv_plan
+    down the expected route, no copy of a channels-last x; every other route that can run it equal too."""
+    from yololite_tpu_torch.ops.kernels import int8_conv_plan
 
     _, b, cin, h, w, cout, k, stride, groups, act, sout, xdtype, route = case
     rng = np.random.default_rng(cin + h + cout)
-    if xdtype == torch.int8:
-        x = torch.from_numpy(rng.integers(-127, 128, (b, cin, h, w)).astype(np.int8)).to(card)
-    else:  # an image or a bf16 island's output, quantized at sin = 1/64 (some values clamp at +-127)
-        x = torch.from_numpy(rng.uniform(-0.5, 2.5, (b, cin, h, w)).astype(np.float32)).to(card, xdtype)
-    wq = torch.from_numpy(rng.integers(-127, 128, (cout, k, k, cin // groups)).astype(np.int8)).to(card)
-    scale = torch.from_numpy(rng.uniform(2e-6, 2e-5, cout).astype(np.float32)).to(card)
-    bias = torch.from_numpy(rng.normal(0, 1, cout).astype(np.float32)).to(card)
+    x, wq, scale, bias = _k8_inputs(rng, card, b, cin, h, w, cout, k, groups, xdtype)
     args = (x, wq, scale, bias, stride, k // 2, groups, act, sout, 1.0 / 64)
-    before = int8_conv.launches
+    before, copies = int8_conv.launches, int8_conv.copies
     got = int8_conv(*args)
     torch.cuda.synchronize()
-    assert int8_conv.launches == before + 1
-    assert int8_conv_plan(x.contiguous(memory_format=torch.channels_last), wq, got, groups, stride,
-                          k // 2)["route"] == route
-    want = int8_conv_plain(x.contiguous(memory_format=torch.channels_last), *args[1:])
+    assert int8_conv.launches == before + 1 and int8_conv.copies == copies
+    assert int8_conv_plan(x, wq, got, groups, stride, k // 2)["route"] == route
+    want = int8_conv_plain(x, *args[1:])
     assert got.shape == want.shape and got.dtype == want.dtype
     differ = int((got != want).sum())
     assert differ == 0, f"{differ} of {want.numel()} outputs differ"
     if sout > 0:
         assert 0 < int((want != 0).sum()) and int((want.abs() == 127).sum()) < want.numel()
-    x_cl = x.contiguous(memory_format=torch.channels_last)
-    if int8_conv_plan(x_cl, wq, got, groups, stride, k // 2, pick="gemm1x1")["route"] == "gemm1x1":
-        for pick in ("gemm1x1", "gemm"):
-            assert torch.equal(_int8_conv_launch(x_cl, *args[1:], pick=pick), want), pick
+    assert route in _k8_every_route(args, want, groups, stride, k // 2) or route in ("direct", "depthwise")
+
+
+# (name, batch, Cin, pitch (the whole tensor's channels), channel offset, H, W, Cout, k, stride, act, sout): the
+# channel-split halves that C3k2 hands its Bottleneck's 3x3 cv1 (yolo11n) and its C3k's 1x1 cv1 and cv2 (yolo11m),
+# and the other half, read in place by route 1 and gemm1x1
+K8_SPLIT_CASES = [
+    ("n-bottleneck-cv1-160", 32, 16, 32, 16, 160, 160, 8, 3, 1, 1, 0.05),
+    ("n-bottleneck-cv1-80", 8, 32, 64, 32, 80, 80, 32, 3, 1, 1, 0.05),
+    ("first-half-3x3", 2, 32, 64, 0, 20, 20, 32, 3, 1, 1, 0.05),
+    ("3x3-s2-half", 2, 64, 128, 64, 40, 40, 64, 3, 2, 1, 0.0),
+    ("3x3-cin8-of-16", 2, 8, 16, 0, 24, 24, 16, 3, 1, 1, 0.05),
+    ("m-c3k-cv1-80", 8, 64, 128, 64, 80, 80, 32, 1, 1, 1, 0.05),
+    ("m-c3k-cv2-40", 32, 128, 256, 128, 40, 40, 64, 1, 1, 1, 0.05),
+    ("1x1-first-half-bf16-out", 4, 64, 128, 0, 20, 20, 64, 1, 1, 1, 0.0),
+]
+
+
+@pytest.mark.parametrize("xdtype", [I8, BF16, FP32], ids=["int8", "bf16", "fp32"])
+@pytest.mark.parametrize("case", K8_SPLIT_CASES, ids=[c[0] for c in K8_SPLIT_CASES])
+def test_int8_conv_reads_split_views_in_place(card, case, xdtype):
+    """A channel-split view (a channel slice of a channels-last tensor, pixels `pitch` channels apart) reaches the
+    kernel as it is: no copy, a GEMM route planned for it (route 1, or gemm1x1 for a 1x1), and every route that can run
+    it equal to the plain version on the view's contiguous copy, bit for bit."""
+    from yololite_tpu_torch.ops.kernels import int8_conv_plan, x_pitch
+
+    _, b, cin, pitch, offset, h, w, cout, k, stride, act, sout = case
+    rng = np.random.default_rng(cin + pitch + h + k)
+    x, wq, scale, bias = _k8_inputs(rng, card, b, cin, h, w, cout, k, 1, xdtype, pitch, offset)
+    assert x_pitch(x) == pitch and not x.is_contiguous(memory_format=torch.channels_last)
+    args = (x, wq, scale, bias, stride, k // 2, 1, act, sout, 1.0 / 64)
+    copies = int8_conv.copies
+    got = int8_conv(*args)
+    torch.cuda.synchronize()
+    assert int8_conv.copies == copies
+    want = int8_conv_plain(x.contiguous(memory_format=torch.channels_last), *args[1:])
+    differ = int((got != want).sum())
+    assert differ == 0, f"{differ} of {want.numel()} outputs differ"
+    route = int8_conv_plan(x, wq, got, 1, stride, k // 2)["route"]
+    assert route in ("gemm", "gemm1x1")  # a GEMM route, not the scalar fallback
+    assert route in _k8_every_route(args, want, 1, stride, k // 2)
+
+
+# (name, batch, Cin, pitch, channel offset, H, W, Cout, int8 out, gemm1x1's blocks an SM or None, route): 1x1 convs
+# with N tiles of 128 whose items span three rounds or more of two blocks an SM, which take gemm1x1's instance built
+# for two blocks an SM (yolo11m's 160x160 and 80x80 shapes at batch 32, a split half read in place), and a Cin of 96
+# (a 32-byte K step) whose gemm1x1 plan keeps one block, and so route 1
+K8_TWO_BLOCK_CASES = [
+    ("m-160x160-cout128", 32, 128, 128, 0, 160, 160, 128, True, 2, "gemm1x1"),
+    ("m-80x80-cout256", 32, 256, 256, 0, 80, 80, 256, True, 2, "gemm1x1"),
+    ("m-80x80-cin384-cout512", 32, 384, 384, 0, 80, 80, 512, True, 2, "gemm1x1"),
+    ("split-half-80x80-cout128", 16, 128, 256, 128, 80, 80, 128, True, 2, "gemm1x1"),
+    ("80x80-cout256-bf16-out", 32, 256, 256, 0, 80, 80, 256, False, None, "gemm1x1"),
+    ("n-80x80-cin96-keeps-one-block", 32, 96, 96, 0, 80, 80, 128, True, 1, "gemm"),
+]
+
+
+@pytest.mark.parametrize("case", K8_TWO_BLOCK_CASES, ids=[c[0] for c in K8_TWO_BLOCK_CASES])
+def test_int8_conv_1x1_two_blocks_an_sm(card, case):
+    """gemm1x1 with N tiles of 128: its plan takes the instance built for two blocks an SM where two fit and the
+    items span three rounds or more, and the conv equals its plain version bit for bit on the route planned and on
+    gemm1x1."""
+    from yololite_tpu_torch.ops.kernels import _int8_conv_launch, int8_conv_plan
+
+    _, b, cin, pitch, offset, h, w, cout, q8, blocks, route = case
+    rng = np.random.default_rng(cin + cout + h + offset)
+    x, wq, scale, bias = _k8_inputs(rng, card, b, cin, h, w, cout, 1, 1, I8, pitch, offset)
+    args = (x, wq, scale, bias, 1, 0, 1, 1, 0.05 if q8 else 0.0, 1.0 / 64)
+    got = int8_conv(*args)
+    torch.cuda.synchronize()
+    assert int8_conv_plan(x, wq, got, 1, 1, 0)["route"] == route
+    plan = int8_conv_plan(x, wq, got, 1, 1, 0, pick="gemm1x1")
+    assert plan["n_tile"] == 128 and (blocks is None or plan["blocks_per_sm"] == blocks), plan
+    want = int8_conv_plain(x.contiguous(memory_format=torch.channels_last), *args[1:])
+    for out in (got, _int8_conv_launch(*args, pick="gemm1x1")):
+        differ = int((out != want).sum())
+        assert differ == 0, f"{differ} of {want.numel()} outputs differ"
+
+
+def test_int8_conv_copies_only_what_it_cannot_read(card):
+    """An NCHW x is copied to channels-last (counted), a channels-last one or a channel slice of one is not; the
+    launch helper raises on a layout the kernel cannot read instead of copying it."""
+    from yololite_tpu_torch.ops.kernels import _int8_conv_launch
+
+    rng = np.random.default_rng(9)
+    x, wq, scale, bias = _k8_inputs(rng, card, 2, 32, 12, 12, 32, 3, 1, I8)
+    args = (wq, scale, bias, 1, 1, 1, 1, 0.05)
+    copies = int8_conv.copies
+    want = int8_conv(x, *args)
+    assert int8_conv.copies == copies
+    nchw = x.contiguous()
+    assert torch.equal(int8_conv(nchw, *args), want) and int8_conv.copies == copies + 1
+    with pytest.raises(ValueError):
+        _int8_conv_launch(nchw, *args)
 
 
 @pytest.mark.parametrize("act", [0, 1, 2], ids=["none", "silu", "relu"])

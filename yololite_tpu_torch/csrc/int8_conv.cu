@@ -22,9 +22,10 @@
 // int32 sum is exact in any order (|acc| <= 127^2 * 4,608 < 2^31). Never build
 // this with --use_fast_math.
 //
-// Layouts: x is NHWC (B, H, W, Cin), int8, bf16 or fp32; w is int8 OHWI
-// (Cout, KH, KW, Cin/groups); scale and bias fp32 (Cout); out NHWC
-// (B, Ho, Wo, Cout), int8 or bf16. Any stride, padding and groups; dilation 1.
+// Layouts: x is NHWC (B, H, W, Cin) with its pixels `pitch` elements apart (Cin, or more for a channel slice of a
+// wider channels-last tensor, as C3k2's and C2PSA's split halves are: read in place), int8, bf16 or fp32; w is int8
+// OHWI (Cout, KH, KW, Cin/groups); scale and bias fp32 (Cout); out NHWC (B, Ho, Wo, Cout), int8 or bf16. Any
+// stride, padding and groups; dilation 1.
 //
 // Bound on an H100 SXM: x and w read once, out written once, 2 * B * Ho * Wo *
 // Cout * taps * Cin/groups int8 operations at 1,979 TOP/s (tensor cores). At
@@ -48,16 +49,20 @@
 //    a ring of kStages shared-memory slots in the 32-byte swizzle layout,
 //    fetched by cp.async with zero-fill: src-size 0 for a tap outside the frame
 //    (the padding) or K past the end; 8-byte copies where Cin is not a multiple
-//    of 16; stride in the address. A bf16 or fp32 x is loaded into registers,
-//    quantized and stored to the slot as int8 instead. Each warpgroup issues a
+//    of 16; stride and pixel pitch in the address. A bf16 or fp32 x is loaded
+//    into registers, quantized and stored to the slot as int8 instead. Each warpgroup issues a
 //    wgmma.m64nNk32.s32.s8.s8 a chunk, asynchronously, while the copies of the
 //    step two ahead are in flight. At a tile's last step the epilogue runs on
 //    the accumulators in registers, stages the tile in shared memory and writes
-//    it out in 16-byte coalesced stores, while the next tile's copies fly.
+//    it out in 16-byte coalesced stores, while the next tile's copies fly. It
+//    keeps the 3x3 convs: a warp-specialised design (a producer warp
+//    TMA-loading each output tile's input once for its 9 taps) ran at
+//    0.42-0.98x its speed on most yolo11 3x3 convs (PERF.md, PR 21).
 // 4. gemm1x1 (kernel 1x1, stride 1, no padding, groups 1, Cin a multiple of 16,
-//    Cout of 8, where prefer_1x1 finds it faster than route 1: the float edges,
-//    and int8 convs by how its work items fill the card): the GEMM out = x w^T
-//    with A the plain (M, Cin) NHWC matrix, fed by TMA. Warp-specialised: one
+//    Cout of 8, a pixel pitch of whole 16 bytes, where prefer_1x1 finds it
+//    faster than route 1: the float edges, and int8 convs by how its work items
+//    fill the card): the GEMM out = x w^T with A the (M, Cin) NHWC matrix, rows
+//    `pitch` elements apart, fed by TMA. Warp-specialised: one
 //    producer warp issues every load (2-D tensor maps, the 32-byte swizzle the
 //    wgmma descriptors read, zero fill past M and Cin) into mbarrier-tracked
 //    slots, and two consumer warpgroups (64 rows each of a 128-pixel M tile)
@@ -70,8 +75,12 @@
 //    while the wgmmas of the step before run. The grid is persistent (one M
 //    tile after another per block), and a tile's epilogue (the same
 //    arithmetic, staged in shared memory, 16-byte stores) overlaps the loads of
-//    the next. Cin of 8 but not 16 stays on route 1: a tensor map's row pitch
-//    must be a multiple of 16 bytes.
+//    the next. An N tile of 128 (64 accumulators a thread) fits one block an
+//    SM in registers; where two fit in shared memory and the items span three
+//    rounds or more, an instance built for two blocks an SM runs instead, one
+//    block's epilogue under the other's loads and wgmmas (plan_1x1). Cin of 8
+//    but not 16 stays on route 1: a tensor map's row pitch must be a multiple
+//    of 16 bytes.
 // 2. depthwise (groups == Cin == Cout, a multiple of 16, 3x3): nothing for a
 //    tensor core (K = 9 per channel). One thread per output pixel and 16
 //    channels: the 9 taps' 16-byte loads in flight together, the 144 weight
@@ -94,7 +103,6 @@
 namespace {
 
 enum XType { kInt8 = 0, kBf16 = 1, kFp32 = 2 };
-enum Route { kGemm = 0, kDepthwise = 1, kDirect = 2, kGemm1x1 = 3 };
 
 constexpr int kStages = 4;  // ring slots: the step in the tensor cores, the one before it, two in flight
 constexpr int kChunk = 32;   // K bytes of one wgmma k32
@@ -111,6 +119,7 @@ struct Conv {
   float sin;   // the scale at which a bf16 or fp32 x is quantized
   const uint8_t* table;  // int8 out: the activation + requant table at (act, sout), or null
   float inv_sin;         // fl(1 / sin); inf for sin 0, which the quantize then treats as the division does
+  int pitch;             // x elements from one pixel to the next: Cin, or more for a channel-split view
 };
 
 
@@ -481,7 +490,7 @@ __global__ void __launch_bounds__(128 * WG, 1) int8_conv_gemm(Conv p, int granul
     const int oy = rem / p.wo, ox = rem - oy * p.wo;
     ld_iy0 = oy * p.stride - p.pad;
     ld_ix0 = ox * p.stride - p.pad;
-    ld_xrow = ((long long)(bi * p.h + ld_iy0) * p.w_in + ld_ix0) * p.cin;
+    ld_xrow = ((long long)(bi * p.h + ld_iy0) * p.w_in + ld_ix0) * p.pitch;
     ld_wbase = (ld_tile - mt * n_tiles) * BN * K;
   };
   set_tile();
@@ -492,7 +501,7 @@ __global__ void __launch_bounds__(128 * WG, 1) int8_conv_gemm(Conv p, int granul
     const int ky = p.kw > 1 ? __umulhi(tap, m_kw) : tap, kx = tap - ky * p.kw;
     const int iy = ld_iy0 + ky, ix = ld_ix0 + kx;
     if (iy < 0 || iy >= p.h || ix < 0 || ix >= p.w_in) return -1;
-    return ld_xrow + (long long)(ky * p.w_in + kx) * p.cin + c;
+    return ld_xrow + (long long)(ky * p.w_in + kx) * p.pitch + c;
   };
   auto load_next = [&](int slot) {
     const int k0 = ld_step * kChunks * kChunk;  // the step's first K index
@@ -720,9 +729,10 @@ __host__ __device__ inline Smem1x1 smem_1x1(int bn, int xes, int oes, int k_step
 // Persistent: block i takes work items i, i + grid, ...; item w is M tile w / groups and the w % groups-th group
 // of its N tiles (groups > 1 only where the M tiles alone would leave the card's blocks idle); an item walks its N
 // tiles (tile nt covers output channels nt * BN ...), each N tile its K steps. A of an item (k_steps slots) is
-// loaded once, at its first N tile; B of every (N tile, K step) goes through the ring.
-template <int BN>
-__global__ void __launch_bounds__(k1Threads, 1)
+// loaded once, at its first N tile; B of every (N tile, K step) goes through the ring. MINB 2: the instance held
+// to the registers of two blocks an SM (N tiles of 128 need more for one).
+template <int BN, int MINB = 1>
+__global__ void __launch_bounds__(k1Threads, MINB)
     int8_conv_1x1(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_b, Conv p,
                   int a_sets, int groups, int full_tab) {
   extern __shared__ __align__(1024) uint8_t smem[];
@@ -967,7 +977,7 @@ __global__ void __launch_bounds__(kDwThreads) int8_conv_depthwise(Conv p) {
   for (int t = 0; t < 9; ++t) {
     const int iy = oy * p.stride - p.pad + t / 3, ix = ox * p.stride - p.pad + t % 3;
     const bool in = iy >= 0 && iy < p.h && ix >= 0 && ix < p.w_in;  // zero padding adds nothing
-    const uint8_t* src = static_cast<const uint8_t*>(p.x) + (((bi * p.h + iy) * p.w_in + ix) * p.cin + c0) * es;
+    const uint8_t* src = static_cast<const uint8_t*>(p.x) + (((bi * p.h + iy) * p.w_in + ix) * p.pitch + c0) * es;
     if (p.xtype == kInt8) {
       const uint4 v = in ? *reinterpret_cast<const uint4*>(src) : make_uint4(0u, 0u, 0u, 0u);
       xv[t][0] = v.x; xv[t][1] = v.y; xv[t][2] = v.z; xv[t][3] = v.w;
@@ -1082,7 +1092,7 @@ __global__ void __launch_bounds__(kDirectThreads) int8_conv_direct(Conv p) {
       const int ix = ox * p.stride - p.pad + kx;
       if (ix < 0 || ix >= p.w_in) continue;  // zero padding adds nothing
       const int tap = ky * p.kw + kx;
-      const size_t base = ((bi * p.h + iy) * p.w_in + ix) * p.cin;
+      const size_t base = ((bi * p.h + iy) * p.w_in + ix) * p.pitch;
       if (one_group) {
         const size_t xg = base + (size_t)(oc0 / cout_g) * cin_g;
         for (int c = 0; c < cin_g; ++c) {
@@ -1129,7 +1139,10 @@ __global__ void __launch_bounds__(kStemTW * kStemTH) int8_conv_stem(Conv p) {
   for (int t = threadIdx.x; t < rows * row_bytes; t += kStemTW * kStemTH) {
     const int r = t / row_bytes, iy = iy0 + r, ixc = ixc0 + (t - r * row_bytes);  // ixc = ix * Cin + c
     const bool in = iy >= 0 && iy < p.h && ixc >= 0 && ixc < p.w_in * p.cin;  // zero padding stays 0
-    s_x[t] = static_cast<int8_t>(in ? load_q(p, (static_cast<size_t>(bi) * p.h + iy) * p.w_in * p.cin + ixc) : 0);
+    const size_t row = (static_cast<size_t>(bi) * p.h + iy) * p.w_in;  // a pixel row: x's ixc-th element, at its pitch
+    const int ix = p.pitch == p.cin || !in ? 0 : ixc / p.cin;
+    s_x[t] = static_cast<int8_t>(
+        in ? load_q(p, p.pitch == p.cin ? row * p.cin + ixc : (row + ix) * p.pitch + ixc - ix * p.cin) : 0);
   }
   __syncthreads();
   const int tx = threadIdx.x % kStemTW, ty = threadIdx.x / kStemTW;
@@ -1193,10 +1206,15 @@ __global__ void __launch_bounds__(256) int8_conv_table_kernel(uint8_t* table, in
 
 // ---------------- the plan and the launches ----------------
 
+enum RouteCode { kRouteGemm = 0, kRouteDepthwise = 1, kRouteDirect = 2, kRoute1x1 = 3 };
+
 struct Plan {
   int route, bn, wg, granule;
   int a_sets, groups, blocks, whole;  // gemm1x1's A sets, N groups, blocks an SM, and whether the table is whole
+  int minb;                           // gemm1x1's instance: 2 for int8_conv_1x1<128, 2>, else 1
 };
+
+constexpr Plan kNoPlan{-1, 0, 0, 0, 0, 0, 0, 0, 1};
 
 bool aligned(const void* ptr, int n) { return reinterpret_cast<uintptr_t>(ptr) % n == 0; }
 
@@ -1219,22 +1237,24 @@ int device_sms() {  // the current device's SM count, asked once per device
   return sms[dev];
 }
 
-// blocks of int8_conv_1x1<BN> an SM holds at this dynamic shared memory (the limit raised first), asked once per
-// (device, size); 0 where the query fails
-template <int BN>
+// blocks of int8_conv_1x1<BN, MINB> an SM holds at this dynamic shared memory (the limit raised first), asked once
+// per (device, size); 0 where the query fails
+template <int BN, int MINB>
 int blocks_1x1_t(int smem) {
   static int raised[64] = {0}, sizes[64][16] = {{0}}, blocks[64][16] = {{0}};
   int dev = 0;
   if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
   if (!raised[dev]) {
-    if (cudaFuncSetAttribute(int8_conv_1x1<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem) != cudaSuccess)
+    if (cudaFuncSetAttribute(int8_conv_1x1<BN, MINB>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem) !=
+        cudaSuccess)
       return 0;
     raised[dev] = 1;
   }
   for (int i = 0; i < 16 && sizes[dev][i]; ++i)
     if (sizes[dev][i] == smem) return blocks[dev][i];
   int n = 0;
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, int8_conv_1x1<BN>, k1Threads, smem) != cudaSuccess) return 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, int8_conv_1x1<BN, MINB>, k1Threads, smem) != cudaSuccess)
+    return 0;
   for (int i = 0; i < 16; ++i)
     if (!sizes[dev][i]) {
       sizes[dev][i] = smem;
@@ -1244,14 +1264,14 @@ int blocks_1x1_t(int smem) {
   return n;
 }
 
-int blocks_1x1(int bn, int smem) {
+int blocks_1x1(int bn, int minb, int smem) {
   switch (bn) {
-    case 128: return blocks_1x1_t<128>(smem);
-    case 80: return blocks_1x1_t<80>(smem);
-    case 64: return blocks_1x1_t<64>(smem);
-    case 32: return blocks_1x1_t<32>(smem);
-    case 16: return blocks_1x1_t<16>(smem);
-    default: return blocks_1x1_t<8>(smem);
+    case 128: return minb == 2 ? blocks_1x1_t<128, 2>(smem) : blocks_1x1_t<128, 1>(smem);
+    case 80: return blocks_1x1_t<80, 1>(smem);
+    case 64: return blocks_1x1_t<64, 1>(smem);
+    case 32: return blocks_1x1_t<32, 1>(smem);
+    case 16: return blocks_1x1_t<16, 1>(smem);
+    default: return blocks_1x1_t<8, 1>(smem);
   }
 }
 
@@ -1260,13 +1280,17 @@ int blocks_1x1(int bn, int smem) {
 // tables of yolo11n's and yolo11m's 1x1 convs on both routes at batch 32 and batch 1 (NVIDIA H100 80GB HBM3, 700 W):
 // - a float x: always (its quantize leaves the loads' path: 0.41-0.62x the time of the route before);
 // - an int8 x in whole 32-byte chunks of Cin (a K tail inside a chunk: 0.82-1.07x), either two blocks an SM (an
-//   N tile of at most 80) over three rounds or more (one block's epilogue overlaps the other's loads: 0.80-0.96x),
+//   N tile of at most 80, or of 128 on the two-block instance) over three rounds or more (one block's epilogue
+//   overlaps the other's loads: 0.80-0.96x; N tiles of 128, 0.85-1.00x),
 //   or one block an SM, one N tile an item and at most two rounds (the N groups spread few M tiles over idle SMs
 //   and each block reads its A once: 0.63-0.96x).
 // Elsewhere the route before it (more and smaller blocks: M tiles of 64 where they are few) keeps the conv: two
 // blocks an SM in one or two rounds (0.86-1.22x on gemm1x1, slower on 18 of 30 convs, 3% faster or more on 5, 1%
 // slower summed), one block an SM walking two N tiles or more an item (0.98-1.21x), or one N tile an item over three
-// rounds or more (1.00-1.16x). Blocks an SM other than 1 or 2 were not measured: those convs keep it too.
+// rounds or more (1.00-1.16x). Blocks an SM other than 1 or 2 were not measured: those convs keep it too. PR 21's
+// tables (tools/k8_routes.py --pick gemm1x1) kept the rule: it puts 13 of the 170 1x1 convs of both models at both
+// batches on the slower route, by 0.0001-0.0043 ms (0.0122 ms summed), and no quantity of the plan separates them
+// (one block walking two N tiles: gemm1x1 1.5-3% faster at 2 and 13 rounds, 10-18% slower at 4).
 bool prefer_1x1(const Conv& p, const Plan& q) {
   if (p.xtype != kInt8) return true;
   const long long m_tiles = ((long long)p.b * p.ho * p.wo + k1BM - 1) / k1BM, items = m_tiles * q.groups;
@@ -1277,59 +1301,74 @@ bool prefer_1x1(const Conv& p, const Plan& q) {
 }
 
 // gemm1x1's plan for a conv it can run (kernel 1x1, stride 1, no padding, groups 1, Cin a multiple of 16, Cout of
-// 8, 16-byte aligned, shared memory that fits), else a plan of route -1
+// 8, 16-byte aligned, a pixel pitch of whole 16 bytes, shared memory that fits), else kNoPlan
 Plan plan_1x1(const Conv& p, bool a16) {
   if (!(p.groups == 1 && p.kh == 1 && p.kw == 1 && p.stride == 1 && p.pad == 0 && p.cin % 16 == 0 &&
-        p.cout % 8 == 0 && a16))
-    return {-1, 0, 0, 0, 0, 0, 0, 0};
+        p.cout % 8 == 0 && a16 && (long long)p.pitch * xbytes(p.xtype) % 16 == 0))
+    return kNoPlan;
   // two sets of A slots let an int8 x's next item load during this one's N tiles (a float x's A slots are written
   // by the consumers); the N tiles split into groups (powers of two) while the M tiles alone would not give every
   // block of the card one item
   const int bn = n_tile(p.cout), k_steps = (p.cin + k1Step - 1) / k1Step, xes = xbytes(p.xtype);
   const int oes = p.sout > 0.0f ? 1 : 2;
-  // the most blocks an SM (a block's epilogue, which bounds these convs, overlaps another's loads and wgmmas),
-  // then the whole table (it spares some 12 instructions an int8 output), then two sets of A slots
-  int best_blocks = 0, best_whole = 0, best_sets = 0;
-  for (int whole = oes == 1 ? 1 : 0; whole >= 0; --whole)
-    for (int sets = p.xtype == kInt8 ? 2 : 1; sets >= 1; --sets) {
-      const int bytes = smem_1x1(bn, xes, oes, k_steps, sets, p.cout, whole).total;
-      const int blocks = bytes <= kMaxSmem ? blocks_1x1(bn, bytes) : 0;
-      if (blocks > best_blocks) {
-        best_blocks = blocks;
-        best_whole = whole;
-        best_sets = sets;
+  const long long m_tiles = ((long long)p.b * p.ho * p.wo + k1BM - 1) / k1BM, n_tiles = p.cout / bn;
+  // instance minb's plan: the most blocks an SM (a block's epilogue, which bounds these convs, overlaps another's
+  // loads and wgmmas), then the whole table (it spares some 12 instructions an int8 output), then two sets of A
+  // slots; and the rounds of its items over the card's block slots
+  long long rounds = 0;
+  auto best = [&](int minb) {
+    Plan q = kNoPlan;
+    for (int whole = oes == 1 ? 1 : 0; whole >= 0; --whole)
+      for (int sets = p.xtype == kInt8 ? 2 : 1; sets >= 1; --sets) {
+        const int bytes = smem_1x1(bn, xes, oes, k_steps, sets, p.cout, whole).total;
+        const int blocks = bytes <= kMaxSmem ? blocks_1x1(bn, minb, bytes) : 0;
+        if (blocks > q.blocks) q = {kRoute1x1, bn, 2, 16, sets, 1, blocks, whole, minb};
       }
+    if (q.blocks > 0) {
+      const long long slots = (long long)device_sms() * q.blocks;
+      while (2 * q.groups <= n_tiles && n_tiles % (2 * q.groups) == 0 && m_tiles * q.groups < slots) q.groups *= 2;
+      rounds = (m_tiles * q.groups + slots - 1) / slots;
     }
-  if (best_blocks > 0) {
-    const long long m_tiles = ((long long)p.b * p.ho * p.wo + k1BM - 1) / k1BM, n_tiles = p.cout / bn;
-    const long long slots = (long long)device_sms() * best_blocks;
-    int groups = 1;
-    while (2 * groups <= n_tiles && n_tiles % (2 * groups) == 0 && m_tiles * groups < slots) groups *= 2;
-    return {kGemm1x1, bn, 2, 16, best_sets, groups, best_blocks, best_whole};
+    return q;
+  };
+  // An N tile of 128 (64 accumulators a thread) holds one block an SM in registers. The instance built for two
+  // takes an int8 x in whole 64-byte K steps where two of its blocks fit an SM and its items span three rounds or
+  // more of the card's slots: 0.86-0.95x the time of one block an SM there, 0.85-1.00x route 1's (yolo11m's
+  // 160x160 and 80x80 convs at batch 32; tools/k8_routes.py --pick gemm1x1, NVIDIA H100 80GB HBM3, 700 W). Fewer
+  // rounds, a 32-byte K step or a float x keep one block (an N tile of 128 with Cin 96 at 80x80: 1.06x route 1's).
+  if (bn == 128 && p.xtype == kInt8 && p.cin % k1Step == 0) {
+    const Plan q = best(2);
+    if (q.blocks == 2 && rounds >= 3) return q;
   }
-  return {-1, 0, 0, 0, 0, 0, 0, 0};
+  return best(1);
 }
 
-// which route plan() may take: its own choice, the route before gemm1x1, or gemm1x1 wherever it can run (the last
-// two for timing the routes side by side: int8_conv_pick)
+// which route plan() may take: its own choice, or the one named (route 1 or gemm1x1; none where it cannot run):
+// int8_conv_pick, for timing the routes side by side
 enum Pick { kPickPlan = 0, kPickGemm = 1, kPick1x1 = 2 };
 
 // the route of a conv
 Plan plan(const Conv& p, int pick = kPickPlan) {
+  const int xes = xbytes(p.xtype);
   const bool a16 = aligned(p.x, 16) && aligned(p.w, 16) && aligned(p.out, 16);
-  if (pick != kPickGemm) {
+  if (pick == kPickPlan || pick == kPick1x1) {
     const Plan q = plan_1x1(p, a16);
-    if (q.route == kGemm1x1 && (pick == kPick1x1 || prefer_1x1(p, q))) return q;
+    if (q.route == kRoute1x1 && (pick == kPick1x1 || prefer_1x1(p, q))) return q;
+    if (pick == kPick1x1) return kNoPlan;
   }
-  if (p.groups == 1 && p.cin % 8 == 0 && p.cout % 8 == 0 && a16) {
+  const int granule = p.cin % 16 == 0 ? 16 : 8;
+  if (p.groups == 1 && p.cin % 8 == 0 && p.cout % 8 == 0 && a16 &&
+      (long long)p.pitch * xes % (p.xtype == kInt8 ? granule : 16) == 0) {
     const int bn = n_tile(p.cout);
     const long long m = (long long)p.b * p.ho * p.wo;
     const long long tiles128 = (m + 127) / 128 * (p.cout / bn);
-    return {kGemm, bn, tiles128 >= 2 * 132 ? 2 : 1, p.cin % 16 == 0 ? 16 : 8, 0, 0, 0, 0};
+    return {kRouteGemm, bn, tiles128 >= 2 * 132 ? 2 : 1, granule, 0, 0, 0, 0, 1};
   }
-  if (p.groups == p.cin && p.cin == p.cout && p.cin % 16 == 0 && p.kh == 3 && p.kw == 3 && a16)
-    return {kDepthwise, 0, 0, 0, 0, 0, 0, 0};
-  return {kDirect, 0, 0, 0, 0, 0, 0, 0};
+  if (pick == kPickGemm) return kNoPlan;
+  if (p.groups == p.cin && p.cin == p.cout && p.cin % 16 == 0 && p.kh == 3 && p.kw == 3 && a16 &&
+      (long long)p.pitch * xes % 16 == 0)
+    return {kRouteDepthwise, 0, 0, 0, 0, 0, 0, 0, 1};
+  return {kRouteDirect, 0, 0, 0, 0, 0, 0, 0, 1};
 }
 
 int gemm_smem(int bn, int wg, int cout) {
@@ -1350,6 +1389,18 @@ int stem_smem(const Conv& p) {  // the stem kernel's packed weights and input ti
 bool stem(const Conv& p) { return p.groups == 1 && p.kh * p.kw * p.cin <= 32 && stem_smem(p) <= 48 * 1024; }
 
 int direct_smem(const Conv& p) { return stem(p) ? stem_smem(p) : kOC * p.kh * p.kw * (p.cin / p.groups); }
+
+// the dynamic shared memory of a plan's launch
+int plan_smem(const Conv& p, const Plan& pl) {
+  const int xes = xbytes(p.xtype), oes = p.sout > 0.0f ? 1 : 2;
+  switch (pl.route) {
+    case kRoute1x1:
+      return smem_1x1(pl.bn, xes, oes, (p.cin + k1Step - 1) / k1Step, pl.a_sets, p.cout, pl.whole).total;
+    case kRouteGemm: return gemm_smem(pl.bn, pl.wg, p.cout);
+    case kRouteDirect: return direct_smem(p);
+    default: return 0;
+  }
+}
 
 template <int BN, int WG>
 cudaError_t launch_gemm(const Conv& p, int granule, cudaStream_t stream) {
@@ -1408,39 +1459,42 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// a row-major (rows, cols) matrix of `es`-byte elements at ptr as a 2-D tensor map with boxes of (box_rows,
-// box_cols); out of bounds reads as zero
+// a (rows, cols) matrix of `es`-byte elements at ptr, rows `pitch` elements apart, as a 2-D tensor map with boxes
+// of (box_rows, box_cols); out of bounds reads as zero
 bool tensor_map(CUtensorMap* map, const void* ptr, CUtensorMapDataType type, int es, long long rows, long long cols,
-                int box_rows, int box_cols, CUtensorMapSwizzle swizzle) {
+                long long pitch, int box_rows, int box_cols, CUtensorMapSwizzle swizzle) {
   const EncodeTiled encode = encode_tiled();
   if (!encode) return false;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols * es)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(pitch * es)};
   const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols), static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t elem[2] = {1, 1};
   return encode(map, type, 2, const_cast<void*>(ptr), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                 swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int BN>
+CUtensorMapDataType x_type(int xtype) {
+  return xtype == kInt8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+                        : xtype == kBf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+}
+
+template <int BN, int MINB>
 cudaError_t launch_1x1(const Conv& p, const Plan& pl, cudaStream_t stream) {
   const long long m = (long long)p.b * p.ho * p.wo;
   const int xes = xbytes(p.xtype);
   CUtensorMap map_a, map_b;
   const bool ok =
-      (p.xtype == kInt8 ? tensor_map(&map_a, p.x, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, m, p.cin, k1BM, kChunk,
+      (p.xtype == kInt8 ? tensor_map(&map_a, p.x, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, m, p.cin, p.pitch, k1BM, kChunk,
                                      CU_TENSOR_MAP_SWIZZLE_32B)
-                        : tensor_map(&map_a, p.x,
-                                     p.xtype == kBf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
-                                                      : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
-                                     xes, m, p.cin, k1BM, k1Step, CU_TENSOR_MAP_SWIZZLE_NONE)) &&
-      tensor_map(&map_b, p.w, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, p.cout, p.cin, BN, kChunk, CU_TENSOR_MAP_SWIZZLE_32B);
+                        : tensor_map(&map_a, p.x, x_type(p.xtype), xes, m, p.cin, p.pitch, k1BM, k1Step,
+                                     CU_TENSOR_MAP_SWIZZLE_NONE)) &&
+      tensor_map(&map_b, p.w, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, p.cout, p.cin, p.cin, BN, kChunk,
+                 CU_TENSOR_MAP_SWIZZLE_32B);
   if (!ok) return cudaErrorInvalidValue;
-  const int smem =
-      smem_1x1(BN, xes, p.sout > 0.0f ? 1 : 2, (p.cin + k1Step - 1) / k1Step, pl.a_sets, p.cout, pl.whole).total;
   const long long items = (m + k1BM - 1) / k1BM * pl.groups, slots = (long long)device_sms() * pl.blocks;
   const unsigned grid = static_cast<unsigned>(items < slots ? items : slots);
-  int8_conv_1x1<BN><<<grid, k1Threads, smem, stream>>>(map_a, map_b, p, pl.a_sets, pl.groups, pl.whole);
+  int8_conv_1x1<BN, MINB>
+      <<<grid, k1Threads, plan_smem(p, pl), stream>>>(map_a, map_b, p, pl.a_sets, pl.groups, pl.whole);
   return cudaGetLastError();
 }
 
@@ -1449,34 +1503,40 @@ cudaError_t launch_gemm_bn(const Conv& p, const Plan& pl, cudaStream_t stream) {
   return pl.wg == 2 ? launch_gemm<BN, 2>(p, pl.granule, stream) : launch_gemm<BN, 1>(p, pl.granule, stream);
 }
 
-cudaError_t launch(const Conv& p, cudaStream_t stream, int pick) {
-  const Plan pl = plan(p, pick);
+template <template <int> class L>
+cudaError_t launch_bn(const Conv& p, const Plan& pl, cudaStream_t stream) {
+  switch (pl.bn) {
+    case 128: return L<128>::run(p, pl, stream);
+    case 80: return L<80>::run(p, pl, stream);
+    case 64: return L<64>::run(p, pl, stream);
+    case 32: return L<32>::run(p, pl, stream);
+    case 16: return L<16>::run(p, pl, stream);
+    default: return L<8>::run(p, pl, stream);
+  }
+}
+
+template <int BN>
+struct Launch1x1 {
+  static cudaError_t run(const Conv& p, const Plan& pl, cudaStream_t s) { return launch_1x1<BN, 1>(p, pl, s); }
+};
+
+template <int BN>
+struct LaunchGemm {
+  static cudaError_t run(const Conv& p, const Plan& pl, cudaStream_t s) { return launch_gemm_bn<BN>(p, pl, s); }
+};
+
+cudaError_t launch(const Conv& p, const Plan& pl, cudaStream_t stream) {
   const long long npix = (long long)p.b * p.ho * p.wo;
-  if (pl.route == kGemm1x1) {
-    switch (pl.bn) {
-      case 128: return launch_1x1<128>(p, pl, stream);
-      case 80: return launch_1x1<80>(p, pl, stream);
-      case 64: return launch_1x1<64>(p, pl, stream);
-      case 32: return launch_1x1<32>(p, pl, stream);
-      case 16: return launch_1x1<16>(p, pl, stream);
-      default: return launch_1x1<8>(p, pl, stream);
-    }
-  }
-  if (pl.route == kGemm) {
-    switch (pl.bn) {
-      case 128: return launch_gemm_bn<128>(p, pl, stream);
-      case 80: return launch_gemm_bn<80>(p, pl, stream);
-      case 64: return launch_gemm_bn<64>(p, pl, stream);
-      case 32: return launch_gemm_bn<32>(p, pl, stream);
-      case 16: return launch_gemm_bn<16>(p, pl, stream);
-      default: return launch_gemm_bn<8>(p, pl, stream);
-    }
-  }
-  if (pl.route == kDepthwise) {
+  if (pl.route == kRoute1x1 && pl.minb == 2)
+    return pl.bn == 128 ? launch_1x1<128, 2>(p, pl, stream) : cudaErrorInvalidValue;
+  if (pl.route == kRoute1x1) return launch_bn<Launch1x1>(p, pl, stream);
+  if (pl.route == kRouteGemm) return launch_bn<LaunchGemm>(p, pl, stream);
+  if (pl.route == kRouteDepthwise) {
     const unsigned blocks = static_cast<unsigned>((npix * (p.cin / 16) + kDwThreads - 1) / kDwThreads);
     int8_conv_depthwise<<<blocks, kDwThreads, 0, stream>>>(p);
     return cudaGetLastError();
   }
+  if (pl.route != kRouteDirect) return cudaErrorInvalidValue;
   const int smem = direct_smem(p);
   if (stem(p)) {
     const dim3 grid((p.wo + kStemTW - 1) / kStemTW, (p.ho + kStemTH - 1) / kStemTH, p.b);
@@ -1497,42 +1557,51 @@ bool valid(const Conv& p) {
          p.kw > 0 && p.stride > 0 && p.pad >= 0 && p.groups > 0 && p.cin % p.groups == 0 &&
          p.cout % p.groups == 0 && p.act >= 0 && p.act <= 2 && p.xtype >= kInt8 && p.xtype <= kFp32 &&
          (p.xtype == kInt8 || p.sin >= 0.0f) && (long long)p.b * p.ho * p.wo < 0x7fffffffLL &&
+         p.pitch >= p.cin && (long long)p.b * p.h * p.w_in * p.pitch < 0x7fffffffLL &&
          p.kh * p.kw * (p.cin / p.groups) < 65536 &&  // the loader's division by Cin is exact below 2^16
          (p.cout + kOC - 1) / kOC <= 65535 && p.b <= 65535;
 }
 
-int run(const void* x, const void* w, const void* scale, const void* bias, void* out, int b, int h, int w_in,
-        int cin, int ho, int wo, int cout, int kh, int kw, int stride, int pad, int groups, int act, int xtype,
-        float sout, float sin, const void* table, int device, void* stream, int pick) {
-  const Conv p{x,    static_cast<const int8_t*>(w), static_cast<const float*>(scale), static_cast<const float*>(bias),
-               out,  b, h, w_in, cin, ho, wo, cout, kh, kw, stride, pad, groups, act, xtype, sout, sin,
-               static_cast<const uint8_t*>(table), 1.0f / sin};  // sin 0 (an all-zero calibration): inf
+Conv make_conv(const void* x, const void* w, const void* scale, const void* bias, void* out, int b, int h, int w_in,
+               int cin, int pitch, int ho, int wo, int cout, int kh, int kw, int stride, int pad, int groups, int act,
+               int xtype, float sout, float sin, const void* table) {
+  return Conv{x,    static_cast<const int8_t*>(w), static_cast<const float*>(scale), static_cast<const float*>(bias),
+              out,  b, h, w_in, cin, ho, wo, cout, kh, kw, stride, pad, groups, act, xtype, sout, sin,
+              static_cast<const uint8_t*>(table), 1.0f / sin, pitch};  // sin 0 (an all-zero calibration): inf
+}
+
+int run(const Conv& p, int device, void* stream, int pick) {
   if (!valid(p) || pick < kPickPlan || pick > kPick1x1) return static_cast<int>(cudaErrorInvalidValue);
-  if (pick == kPick1x1 && plan(p, pick).route != kGemm1x1) return static_cast<int>(cudaErrorInvalidValue);
-  if (b == 0) return 0;
   // nvcc links this library with its own CUDA runtime, whose current device is not PyTorch's
-  const cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(launch(p, static_cast<cudaStream_t>(stream), pick));
+  const Plan pl = plan(p, pick);
+  if (pl.route < 0) return static_cast<int>(cudaErrorInvalidValue);  // the route picked cannot take this conv
+  if (p.b == 0) return 0;
+  err = launch(p, pl, static_cast<cudaStream_t>(stream));
+  return static_cast<int>(err);
 }
 
 }  // namespace
 
 extern "C" int int8_conv(const void* x, const void* w, const void* scale, const void* bias, void* out, int b, int h,
-                         int w_in, int cin, int ho, int wo, int cout, int kh, int kw, int stride, int pad, int groups,
-                         int act, int xtype, float sout, float sin, const void* table, int device, void* stream) {
-  return run(x, w, scale, bias, out, b, h, w_in, cin, ho, wo, cout, kh, kw, stride, pad, groups, act, xtype, sout,
-             sin, table, device, stream, kPickPlan);
+                         int w_in, int cin, int pitch, int ho, int wo, int cout, int kh, int kw, int stride, int pad,
+                         int groups, int act, int xtype, float sout, float sin, const void* table, int device,
+                         void* stream) {
+  return run(make_conv(x, w, scale, bias, out, b, h, w_in, cin, pitch, ho, wo, cout, kh, kw, stride, pad, groups, act,
+                       xtype, sout, sin, table),
+             device, stream, kPickPlan);
 }
 
-// int8_conv on a route the caller picks (1: the route before gemm1x1, 2: gemm1x1, an error where it cannot run),
-// for timing the two routes side by side (chip_smoke.py); the same outputs
+// int8_conv on a route the caller picks (1: route 1, 2: gemm1x1; an error where it cannot run),
+// for timing the routes side by side (chip_smoke.py); the same outputs
 extern "C" int int8_conv_pick(const void* x, const void* w, const void* scale, const void* bias, void* out, int b,
-                              int h, int w_in, int cin, int ho, int wo, int cout, int kh, int kw, int stride, int pad,
-                              int groups, int act, int xtype, float sout, float sin, const void* table, int device,
-                              void* stream, int pick) {
-  return run(x, w, scale, bias, out, b, h, w_in, cin, ho, wo, cout, kh, kw, stride, pad, groups, act, xtype, sout,
-             sin, table, device, stream, pick);
+                              int h, int w_in, int cin, int pitch, int ho, int wo, int cout, int kh, int kw, int stride,
+                              int pad, int groups, int act, int xtype, float sout, float sin, const void* table,
+                              int device, void* stream, int pick) {
+  return run(make_conv(x, w, scale, bias, out, b, h, w_in, cin, pitch, ho, wo, cout, kh, kw, stride, pad, groups, act,
+                       xtype, sout, sin, table),
+             device, stream, pick);
 }
 
 // Fills `table` (int8_conv_table_bytes(), zeroed by the caller) with the activation + requant table at
@@ -1548,30 +1617,23 @@ extern "C" int int8_conv_table(void* table, int act, float sout, int device, voi
 
 extern "C" int int8_conv_table_bytes() { return kTabFullOff + kTabFullBytes; }
 
-// The route a call with these arguments takes, on the current device (pick as int8_conv_pick's, 0: int8_conv's
-// own): route (0 gemm, 1 depthwise, 2 direct, 3 gemm1x1, -1 none: gemm1x1 picked where it cannot run), the gemm's N
-// tile, its consumer warpgroups (M tile 64 * wg), its copy granule, the launch's dynamic shared memory in bytes, and
-// gemm1x1's sets of A slots, groups of N tiles, blocks an SM and whole table (1) or compressed (0), written to
-// plan_out[0..8].
-extern "C" int int8_conv_plan(const void* x, const void* w, void* out, int b, int cin, int ho, int wo, int cout,
-                              int kh, int kw, int stride, int pad, int groups, int xtype, float sout, int pick,
-                              int* plan_out) {
-  Conv p{};
-  p.x = x; p.w = static_cast<const int8_t*>(w); p.out = out;
-  p.b = b; p.cin = cin; p.ho = ho; p.wo = wo; p.cout = cout; p.kh = kh; p.kw = kw; p.groups = groups;
-  p.stride = stride; p.pad = pad; p.xtype = xtype; p.sout = sout;
-  if (pick < kPickPlan || pick > kPick1x1) return static_cast<int>(cudaErrorInvalidValue);
-  Plan pl = plan(p, pick);
-  if (pick == kPick1x1 && pl.route != kGemm1x1) pl = {-1, 0, 0, 0, 0, 0, 0, 0};
-  plan_out[0] = pl.route; plan_out[1] = pl.bn; plan_out[2] = pl.wg; plan_out[3] = pl.granule;
-  plan_out[4] = pl.route == kGemm1x1 ? smem_1x1(pl.bn, xbytes(xtype), sout > 0.0f ? 1 : 2, (cin + k1Step - 1) / k1Step,
-                                                pl.a_sets, cout, pl.whole).total
-                : pl.route == kGemm ? gemm_smem(pl.bn, pl.wg, cout)
-                : pl.route == kDirect ? direct_smem(p) : 0;
-  plan_out[5] = pl.a_sets;
-  plan_out[6] = pl.groups;
-  plan_out[7] = pl.blocks;
-  plan_out[8] = pl.whole;
+// The route a call with these arguments takes, on the given device (pick as int8_conv_pick's, 0: int8_conv's own),
+// written to plan_out[0..9]: route (0 gemm, 1 depthwise, 2 direct, 3 gemm1x1, -1 none: the route picked cannot
+// run), N tile, consumer warpgroups, route 1's copy granule, the launch's dynamic shared memory in bytes, gemm1x1's
+// sets of A slots, groups of N tiles and blocks an SM, the whole table (1) or the compressed one (0), and the M tile
+// (64 a consumer warpgroup).
+extern "C" int int8_conv_plan(const void* x, const void* w, void* out, int b, int h, int w_in, int cin, int pitch,
+                              int ho, int wo, int cout, int kh, int kw, int stride, int pad, int groups, int xtype,
+                              float sout, int pick, int device, int* plan_out) {
+  const Conv p = make_conv(x, w, nullptr, nullptr, out, b, h, w_in, cin, pitch, ho, wo, cout, kh, kw, stride, pad,
+                           groups, 0, xtype, sout, 1.0f, nullptr);
+  if (!valid(p) || pick < kPickPlan || pick > kPick1x1) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const Plan pl = plan(p, pick);
+  const int vals[10] = {pl.route,  pl.bn,     pl.wg,     pl.granule, pl.route < 0 ? 0 : plan_smem(p, pl),
+                        pl.a_sets, pl.groups, pl.blocks, pl.whole,   64 * pl.wg};
+  for (int i = 0; i < 10; ++i) plan_out[i] = vals[i];
   return 0;
 }
 

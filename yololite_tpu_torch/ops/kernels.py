@@ -320,6 +320,19 @@ ROUTES = ("gemm", "depthwise", "direct", "gemm1x1")  # csrc/int8_conv.cu's route
 PICKS = {"plan": 0, "gemm": 1, "gemm1x1": 2}  # the route int8_conv_pick takes: the plan's, or the one named
 
 
+def x_pitch(x: torch.Tensor) -> Optional[int]:
+    """The pixel pitch (elements from one pixel to the next) of a (B, C, H, W) x that K8 reads in place: channels
+    innermost and dense, pixels `pitch` >= C elements apart, rows and images dense in pixels (a channels-last tensor,
+    pitch C, or a channel slice of one, such as a `split` half, pitch the whole tensor's C); else None."""
+    b, c, h, w = x.shape
+    sn, sc, sh, sw = x.stride()
+    pitch = sw if w > 1 else sh if h > 1 else sn if b > 1 else c  # a size-1 dimension's stride says nothing
+    if (c > 1 and sc != 1) or pitch < c or (w > 1 and sw != pitch) or (h > 1 and sh != w * pitch) or (
+            b > 1 and sn != h * w * pitch):
+        return None
+    return pitch
+
+
 def int8_conv(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, stride: int = 1,
               padding: int = 0, groups: int = 1, act: int = 1, sout: float = 0.0,
               sin: Optional[float] = None) -> torch.Tensor:
@@ -329,9 +342,11 @@ def int8_conv(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor, bias: torch
 
     act: 0 none, 1 SiLU, 2 ReLU. A CUDA tensor goes through csrc/int8_conv.cu
     (a float x is quantized as the kernel loads it), a CPU tensor through
-    `int8_conv_plain`, both as the op `torch.ops.yololite_tpu_torch.int8_conv`;
-    x is made channels-last first (a no-op for the int8 edges the kernel
-    writes).
+    `int8_conv_plain`, both as the op `torch.ops.yololite_tpu_torch.int8_conv`.
+    The kernel reads x where it lies when `x_pitch` finds its pixel pitch (a
+    channels-last x, or a channel-split view of one, as C3k2's halves are);
+    any other layout of a CUDA x is copied to channels-last first, and counted
+    in `int8_conv.copies`. A CPU x goes to the plain version as it is.
     """
     if x.dtype not in X_TYPES or w.dtype != torch.int8:
         raise TypeError(f"int8_conv wants int8, bf16 or fp32 x and int8 w, got {x.dtype} and {w.dtype}")
@@ -350,13 +365,16 @@ def int8_conv(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor, bias: torch
         raise ValueError(f"int8_conv: unsupported device {x.device}")
     if act not in ACTS.values() or stride < 1 or padding < 0:
         raise ValueError(f"int8_conv: act {act}, stride {stride}, padding {padding}")
-    x = x.contiguous(memory_format=torch.channels_last)
+    if x.device.type == "cuda" and x_pitch(x) is None:
+        x = x.contiguous(memory_format=torch.channels_last)
+        int8_conv.copies += 1
     return torch.ops.yololite_tpu_torch.int8_conv(x, w.contiguous(), scale.contiguous(), bias.contiguous(),
                                                   int(stride), int(padding), int(groups), int(act), float(sout),
                                                   float(sin or 0.0))
 
 
 int8_conv.launches = 0  # kernel launches since the last reset
+int8_conv.copies = 0  # CUDA inputs copied to channels-last before the kernel since the last reset
 
 
 @torch.library.custom_op("yololite_tpu_torch::int8_conv", mutates_args=(), device_types="cpu")
@@ -367,9 +385,13 @@ def _int8_conv_op(x: Tensor, w: Tensor, scale: Tensor, bias: Tensor, stride: int
 
 def _int8_conv_launch(x: Tensor, w: Tensor, scale: Tensor, bias: Tensor, stride: int, padding: int, groups: int,
                       act: int, sout: float, sin: float = 0.0, pick: str = "plan") -> Tensor:
-    """One launch of csrc/int8_conv.cu into a fresh output, on the route its plan picks, or (`pick` "gemm", the
-    route before gemm1x1, or "gemm1x1") through its entry point int8_conv_pick, which chip_smoke.py times both
-    routes of a 1x1 conv with."""
+    """One launch of csrc/int8_conv.cu into a fresh output, on the route its plan picks, or (`pick` "gemm" for
+    route 1, or "gemm1x1") through its entry point int8_conv_pick, which chip_smoke.py times the routes of a conv
+    with. x is read in place at its pixel pitch (`x_pitch`); any other layout raises."""
+    pitch = x_pitch(x)
+    if pitch is None:
+        raise ValueError(f"int8_conv: the kernel reads a channels-last x or a channel slice of one, not strides "
+                         f"{x.stride()} of shape {tuple(x.shape)}")
     b, cin, h, wd = x.shape
     cout, kh, kw, _ = w.shape
     ho, wo = _conv_out_hw(h, wd, kh, kw, stride, padding)
@@ -378,12 +400,12 @@ def _int8_conv_launch(x: Tensor, w: Tensor, scale: Tensor, bias: Tensor, stride:
     stream = torch._C._cuda_getCurrentRawStream(x.device.index)  # PyTorch's current stream, as an int
     lib = _int8_lib()
     table = _requant_table(x.device, act, sout).data_ptr() if sout > 0 else None
-    args = (x.data_ptr(), w.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(), b, h, wd, cin, ho, wo,
-            cout, kh, kw, stride, padding, groups, act, X_TYPES[x.dtype], float(sout), float(sin), table,
+    args = (x.data_ptr(), w.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(), b, h, wd, cin, pitch, ho,
+            wo, cout, kh, kw, stride, padding, groups, act, X_TYPES[x.dtype], float(sout), float(sin), table,
             x.device.index, stream)
     rc = lib.int8_conv(*args) if pick == "plan" else lib.int8_conv_pick(*args, PICKS[pick])
     if rc != 0:
-        raise RuntimeError(f"int8_conv kernel launch failed: {lib.int8_conv_error_string(rc).decode()}")
+        raise RuntimeError(f"int8_conv kernel launch failed ({pick} route): {lib.int8_conv_error_string(rc).decode()}")
     return out
 
 
@@ -427,21 +449,28 @@ def _requant_table(device: torch.device, act: int, sout: float) -> torch.Tensor:
 
 def int8_conv_plan(x: torch.Tensor, w: torch.Tensor, out: torch.Tensor, groups: int, stride: int = 1,
                    padding: Optional[int] = None, pick: str = "plan") -> dict:
-    """The route csrc/int8_conv.cu takes for these CUDA tensors (x channels-last NCHW, w OHWI, out its output, int8
-    or bf16; the padding defaults to the model's k // 2): {"route": "gemm1x1" | "gemm" | "depthwise" | "direct",
-    "n_tile", "m_tile", "granule" (those three for the gemm routes), "smem" (the launch's dynamic shared memory,
-    bytes), "a_sets", "n_groups", "blocks_per_sm", "whole_table" (gemm1x1's sets of A slots, groups of N tiles,
-    blocks an SM, and whether it reads the requant table uncompressed)}. `pick` as `_int8_conv_launch`'s: with
-    "gemm1x1" where that route cannot run, the route is None."""
-    b, cin = x.shape[:2]
+    """The route csrc/int8_conv.cu takes for these CUDA tensors (x channels-last NCHW or a channel slice of one, w
+    OHWI, out its output, int8 or bf16; the padding defaults to the model's k // 2): {"route": "gemm1x1" | "gemm" |
+    "depthwise" | "direct", "n_tile", "m_tile" (the M tile of the GEMM routes), "granule" (route 1's copy granule),
+    "smem" (the launch's dynamic shared memory, bytes), "a_sets", "n_groups", "blocks_per_sm", "whole_table"
+    (gemm1x1's sets of A slots, groups of N tiles, blocks an SM, and whether it reads the requant table
+    uncompressed), "pitch" (x's pixel pitch)}. `pick` as `_int8_conv_launch`'s: where the route named cannot run, the
+    route is None."""
+    pitch = x_pitch(x)
+    if pitch is None:
+        raise ValueError(f"int8_conv_plan: x of strides {x.stride()} is not a layout the kernel reads")
+    b, cin, h, wd = x.shape
     cout, kh, kw, _ = w.shape
-    plan = (ctypes.c_int * 9)()
-    with torch.cuda.device(x.device):
-        _int8_lib().int8_conv_plan(x.data_ptr(), w.data_ptr(), out.data_ptr(), b, cin, out.shape[2], out.shape[3],
-                                   cout, kh, kw, stride, kh // 2 if padding is None else padding, groups,
-                                   X_TYPES[x.dtype], 1.0 if out.dtype == torch.int8 else 0.0, PICKS[pick], plan)
-    return {"route": ROUTES[plan[0]] if plan[0] >= 0 else None, "n_tile": plan[1], "m_tile": 64 * plan[2],
-            "granule": plan[3], "smem": plan[4], "a_sets": plan[5], "n_groups": plan[6], "blocks_per_sm": plan[7], "whole_table": bool(plan[8])}
+    plan = (ctypes.c_int * 10)()
+    rc = _int8_lib().int8_conv_plan(x.data_ptr(), w.data_ptr(), out.data_ptr(), b, h, wd, cin, pitch, out.shape[2],
+                                    out.shape[3], cout, kh, kw, stride, kh // 2 if padding is None else padding,
+                                    groups, X_TYPES[x.dtype], 1.0 if out.dtype == torch.int8 else 0.0, PICKS[pick],
+                                    x.device.index, plan)
+    if rc != 0:
+        raise RuntimeError(f"int8_conv_plan failed: {_int8_lib().int8_conv_error_string(rc).decode()}")
+    return {"route": ROUTES[plan[0]] if plan[0] >= 0 else None, "n_tile": plan[1], "m_tile": plan[9],
+            "granule": plan[3], "smem": plan[4], "a_sets": plan[5], "n_groups": plan[6], "blocks_per_sm": plan[7],
+            "whole_table": bool(plan[8]), "pitch": pitch}
 
 
 def _int8_lib() -> ctypes.CDLL:
@@ -449,7 +478,7 @@ def _int8_lib() -> ctypes.CDLL:
 
     lib = cuda_build.load("int8_conv")
     if lib.int8_conv.argtypes is None:  # declare the C signatures once per process
-        lib.int8_conv.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 14 + [ctypes.c_float, ctypes.c_float,
+        lib.int8_conv.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 15 + [ctypes.c_float, ctypes.c_float,
                                                                                  ctypes.c_void_p, ctypes.c_int,
                                                                                  ctypes.c_void_p]
         lib.int8_conv.restype = ctypes.c_int
@@ -459,7 +488,8 @@ def _int8_lib() -> ctypes.CDLL:
         lib.int8_conv_table.restype = ctypes.c_int
         lib.int8_conv_table_bytes.argtypes = []
         lib.int8_conv_table_bytes.restype = ctypes.c_int
-        lib.int8_conv_plan.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 11 + [ctypes.c_float, ctypes.c_int,
+        lib.int8_conv_plan.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 14 + [ctypes.c_float, ctypes.c_int,
+                                                                                 ctypes.c_int,
                                                                                  ctypes.POINTER(ctypes.c_int)]
         lib.int8_conv_plan.restype = ctypes.c_int
         lib.int8_conv_error_string.argtypes = [ctypes.c_int]
