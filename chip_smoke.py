@@ -2342,7 +2342,10 @@ def graphed_step_forms(card: str, trainer_fn) -> dict:
         trainers, batch = {}, None
         for form in ("compact", "dense"):
             st = trainer_fn(amp)
-            batch = batch or next(iter(st.train_loader))  # one batch for both: the loader's draws vary by thread
+            own = next(iter(st.train_loader))
+            if batch is not None and not all(np.array_equal(own[k], batch[k]) for k in ("img", "cls", "bboxes")):
+                raise AssertionError("two trainers' loaders, seeded alike, gave different first batches")
+            batch = own  # both forms step on the same batch
             trainers[form] = (st, torch.from_numpy(batch["img"]).to(st.device), st._targets(batch))
         for form in STEP_TURNS:
             st, images, targets = trainers[form]
@@ -2671,16 +2674,23 @@ def val_phase(card: str, model):
     ds = YOLODataset(str(root / "val64" / "images" / "val"), imgsz=640, batch_size=bs, rect=True,
                      data={"names": {i: str(i) for i in range(80)}})
     t_ds = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    batches = list(DataLoader(ds, batch_size=bs, workers=8))
-    t_load = time.perf_counter() - t0
+    t_load, batches = {}, None
+    for workers in (1, 8):  # the same batches at any workers (files in the page cache: the val runs read them)
+        t0 = time.perf_counter()
+        got = list(DataLoader(ds, batch_size=bs, workers=workers))
+        t_load[workers] = time.perf_counter() - t0
+        if batches is not None and not all(np.array_equal(a[k], b[k]) for a, b in zip(batches, got)
+                                           for k in ("img", "cls", "bboxes", "batch_idx")):
+            raise AssertionError(f"val loader: the batches at {workers} workers differ from those at 1")
+        batches = got
     t0 = time.perf_counter()
     net = inference_net(model.model, torch.device("cuda"), half=False)
     torch.cuda.synchronize()
     t_net = time.perf_counter() - t0
-    log(f"val: host loader alone (decode, letterbox, collate; two batches in flight): {n_img / t_load:.1f} img/s "
-        f"({t_load:.3f} s), buckets {sorted({b['img'].shape[1:3] for b in batches})}; set-up alone: dataset "
-        f"from the label cache {t_ds * 1e3:.1f} ms, fused net copy {t_net * 1e3:.1f} ms, on {card}")
+    log(f"val: host loader alone (decode, letterbox, collate; two batches in flight), {n_img} images: workers 1 "
+        f"{n_img / t_load[1]:.1f} img/s ({t_load[1]:.3f} s), workers 8 {n_img / t_load[8]:.1f} img/s "
+        f"({t_load[8]:.3f} s), the batches equal; buckets {sorted({b['img'].shape[1:3] for b in batches})}; set-up "
+        f"alone: dataset from the label cache {t_ds * 1e3:.1f} ms, fused net copy {t_net * 1e3:.1f} ms, on {card}")
     im = torch.from_numpy(batches[0]["img"]).cuda()
     with torch.inference_mode(), fp32_convs(im.device):
         x = im.float() * (1.0 / 255.0)
@@ -2918,6 +2928,64 @@ def graphed_vs_eager_verdict(report: dict) -> str:
     return ("within the eager-to-eager spread (" + "; ".join(f"{k} {v['graphed_eager']:.3g} <= {v['eager_eager']:.3g}"
                                                             for k, v in bad.items())
             + f"; ops with no deterministic CUDA version: {report['nondeterministic']})")
+
+
+def host_loader_numbers(card: str, hyp, dinfo, n_images: int) -> None:
+    """The train loader alone (mosaic, perspective, HSV, flips), at workers 0, 2, 8 and the host's CPU count: two
+    passes each (the first decodes every image once as the buffer fills, as a first epoch does; the second finds them
+    in the buffer), its batches at 8 workers checked equal to those at 0, bit for bit; then one batch's host time
+    split by stage, on one thread, from a fresh dataset (each item decodes its own image)."""
+    import os
+
+    import numpy as np
+
+    from yololite_tpu_torch.cfg import get_cfg
+    from yololite_tpu_torch.data.dataset import build_dataloader, build_yolo_dataset
+
+    bs, ncpu, keys = int(hyp.batch), os.cpu_count(), ("img", "cls", "bboxes", "batch_idx")
+    rates, kept = {}, {}
+    for workers in dict.fromkeys((0, 2, 8, ncpu)):
+        ds = build_yolo_dataset(hyp, dinfo["train"], bs, dinfo, mode="train")
+        loader = build_dataloader(ds, bs, workers, shuffle=True, seed=0)
+        rates[workers] = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            got = [{k: b[k] for k in keys} for b in loader]
+            rates[workers].append(n_images / (time.perf_counter() - t0))
+            if workers in (0, 8):
+                kept.setdefault(workers, []).extend(got)
+    if len(kept[0]) != len(kept[8]) or not all(np.array_equal(a[k], b[k]) for a, b in zip(kept[0], kept[8])
+                                               for k in keys):
+        raise AssertionError("train loader: the batches at 8 workers differ from those at 0")
+    log(f"train: host loader alone (mosaic, perspective, HSV, flips: the default recipe; batch {bs} at {hyp.imgsz}, "
+        f"{n_images} "
+        f"images, two batches in flight), img/s in the first pass (each image decoded once) and the second (the images "
+        f"in the buffer) by workers: "
+        + "; ".join(f"{w} {r[0]:.1f}, {r[1]:.1f}" for w, r in rates.items())
+        + f"; the {2 * len(kept[0])} batches at 8 workers equal those at 0 bit for bit; host {ncpu} CPUs, on {card}")
+
+    for recipe, over in (("the default recipe", {}), ("copy-paste 0.5 and mixup 0.5 added", {"copy_paste": 0.5,
+                                                                                            "mixup": 0.5})):
+        ds = build_yolo_dataset(get_cfg(overrides={**vars(hyp), **over}), dinfo["train"], bs, dinfo, mode="train")
+        chunk = next(build_dataloader(ds, bs, 0, shuffle=True, seed=0)._batches())
+        t0 = time.perf_counter()
+        items = [ds.plan(i) for i in chunk]
+        times = {"plan": time.perf_counter() - t0}
+        out = np.empty((len(items), *items[0]["img"].shape), np.uint8)
+        for j, item in enumerate(items):
+            ds.apply(item, out[j], times)
+        t0 = time.perf_counter()
+        for item in items:
+            item.pop("img")
+        ds.collate_fn(items)
+        times["collate"] += time.perf_counter() - t0
+        total = sum(times.values())
+        stages = ("plan", "decode", "mosaic", "copy_paste", "letterbox", "warp", "mixup", "albumentations", "hsv",
+                  "flips", "format", "collate")
+        log(f"train: one batch's host time by stage ({recipe}; batch {bs} at {hyp.imgsz}, a fresh dataset, one "
+            f"thread, host clock): " + ", ".join(f"{k} {times[k] * 1e3:.2f} ms" for k in stages if k in times)
+            + f"; total {total * 1e3:.1f} ms ({bs / total:.1f} img/s on one thread), the plan (the label work, all "
+            f"Python) {times['plan'] / total:.3f} of it; host {ncpu} CPUs, on {card}")
 
 
 def train_phase(card: str):
@@ -3251,19 +3319,9 @@ def train_phase(card: str):
     # NCHW-contiguous batch and, for the record, with the channels-last batch it fed the card before
     step_against_float64(card, root, data)
 
-    # the host loader alone, with mosaic
+    # the host loader alone, with mosaic, by workers, and one batch's host time by stage
     hyp = get_cfg(overrides={"data": str(data), "imgsz": 640, "batch": bs, "mode": "train"})
-    dinfo = check_det_dataset(str(data))
-    ds = build_yolo_dataset(hyp, dinfo["train"], bs, dinfo, mode="train")
-    loader = build_dataloader(ds, bs, hyp.workers, shuffle=True, seed=0)
-    for _ in loader:  # one pass fills the image buffer, as a first epoch does
-        pass
-    t0 = time.perf_counter()
-    for _ in loader:
-        pass
-    t_load = time.perf_counter() - t0
-    log(f"train: host loader alone (mosaic, perspective, HSV, flips; {hyp.workers} workers, two batches in flight, "
-        f"images in the RAM buffer): {n_train / t_load:.1f} img/s ({t_load:.3f} s for {n_train}), on {card}")
+    host_loader_numbers(card, hyp, check_det_dataset(str(data)), n_train)
 
     # one step's stages alone on a batch of 16 at 640 (CUDA events), its peak memory graphed and eager, per dtype
     for amp in (False, True):
@@ -3316,15 +3374,20 @@ def train_phase(card: str):
             f"fp32 and 19.0-19.2 bf16 (NVIDIA H100 80GB HBM3, 700 W); "
             f"{g.captures} captures, {g.replays} replays, on {card}")
 
-    # where an epoch loop's wall time goes (fp32), graphed and eager: blocked on the loader, enqueueing the step
-    # (a replay: the graph launch and the copies in and out), waiting for the card; every step in the warmup's ramp
-    # (lr and momentum moving), as the first 100 iterations of a run are
-    lt = DetectionTrainer(overrides={"data": str(data), "imgsz": 640, "batch": bs, "val": False, "save": False,
-                                     "project": str(root / "runs"), "name": "loop"})
-    lt.set_model(start_model().model)
-    lt._setup_train()
-    ni = 0
-    for mode in ("graphed", "eager"):
+    # where an epoch loop's wall time goes (fp32 graphed and eager, bf16 graphed), on the loader at the default
+    # workers: blocked on the loader, enqueueing the step (a replay: the graph launch and the copies in and out),
+    # waiting for the card; every step in the warmup's ramp (lr and momentum moving), as the first 100 iterations
+    # of a run are
+    loop_trainers, ni = {}, {}
+    for dtype, mode in (("fp32", "graphed"), ("fp32", "eager"), ("bf16", "graphed")):
+        if dtype not in loop_trainers:
+            lt = DetectionTrainer(overrides={"data": str(data), "imgsz": 640, "batch": bs, "val": False,
+                                             "save": False, "amp": dtype == "bf16", "project": str(root / "runs"),
+                                             "name": f"loop_{dtype}"})
+            lt.set_model(start_model().model)
+            lt._setup_train()
+            loop_trainers[dtype], ni[dtype] = lt, 0
+        lt = loop_trainers[dtype]
         parts = {"loader": 0.0, "upload": 0.0, "enqueue": 0.0, "device": 0.0}
         with graphs.eager() if mode == "eager" else contextlib.nullcontext():
             for rep in range(3):  # the first passes fill the image buffer, warm cuDNN and capture the keys
@@ -3344,8 +3407,8 @@ def train_phase(card: str):
                     torch.cuda.synchronize()
                     t2 = time.perf_counter()
                     captures = lt.graphs.captures
-                    _, lr_vec, momentum = lt._schedule(ni, 100, 0)
-                    ni += 1
+                    _, lr_vec, momentum = lt._schedule(ni[dtype], 100, 0)
+                    ni[dtype] += 1
                     lt._grad_step(images, targets)
                     lt._apply_step(lr_vec, momentum)
                     t3 = time.perf_counter()
@@ -3359,8 +3422,10 @@ def train_phase(card: str):
         ms = {k: v * 1e3 for k, v in parts.items()}
         calls, captures, replays = (a - b for a, b in zip((lt.graphs.calls, lt.graphs.captures, lt.graphs.replays),
                                                            counts))
-        log(f"train: one fp32 epoch loop taken apart, {mode}, its third pass ({n_train} images, {steps} steps in the "
-            f"warmup's ramp, iterations {ni - steps}-{ni - 1} of 100, "
+        log(f"train: one {dtype} epoch loop taken apart, {mode}, its third pass ({n_train} images, {steps} steps in "
+            f"the warmup's ramp, iterations {ni[dtype] - steps}-{ni[dtype] - 1} of 100, loader at {lt.args.workers} "
+            f"workers: blocked on it {ms['loader'] / steps:.1f} ms a step beside the card's "
+            f"{(ms['enqueue'] + ms['device']) / steps:.1f} ms a step from the step's enqueue to its end; "
             f"{calls} graph calls: {replays} replayed ({captures} of them captured in this pass), {calls - replays} "
             f"eager at a key's first sight; host clock, a sync after the upload and after each step): "
             f"{t_loop * 1e3:.1f} ms = blocked on the loader {ms['loader']:.1f} ms + uploading the pageable uint8 "
@@ -4322,6 +4387,47 @@ def float64_step(ov, model, batch, lr, momentum, picks=None) -> dict:
     return {"grads": grads, "before": before, "after": host(), "picks": recorded or picks}
 
 
+def rank_loader_numbers(card: str, ov, data) -> None:
+    """Each rank's host loader ms per step (mosaic, batch 16 at 640, the default workers) with the row split (rank r
+    of 2 builds its 8 image rows) and without it (the whole batch, as every rank built it before the split): the
+    loaders run one at a time in this process, each from a fresh dataset, a first pass (each image decoded once) and a
+    second (the images in the buffer). A rank's rows and labels are checked against the whole batch's."""
+    import os
+
+    import numpy as np
+
+    from yololite_tpu_torch.cfg import get_cfg
+    from yololite_tpu_torch.data.dataset import build_dataloader, build_yolo_dataset
+    from yololite_tpu_torch.data.utils import check_det_dataset
+
+    hyp = get_cfg(overrides={**ov, "mode": "train"})
+    hyp.workers = get_cfg().workers
+    dinfo = check_det_dataset(str(data))
+    bs = int(hyp.batch)
+    ms, first = {}, {}
+    for rank, world in ((0, 1), (0, 2), (1, 2)):
+        loader = build_dataloader(build_yolo_dataset(hyp, dinfo["train"], bs, dinfo, mode="train"), bs, hyp.workers,
+                                  shuffle=True, seed=0, rank=rank, world=world)
+        ms[rank, world] = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            batches = list(loader)
+            ms[rank, world].append((time.perf_counter() - t0) * 1e3 / len(batches))
+            first.setdefault((rank, world), batches[0])
+    whole = first[0, 1]
+    for rank in (0, 1):
+        got = first[rank, 2]
+        rows = slice(rank * bs // 2, (rank + 1) * bs // 2)
+        if got["img_rows"] != (rows.start, rows.stop, bs) or not np.array_equal(got["img"], whole["img"][rows]) or (
+                not all(np.array_equal(got[k], whole[k]) for k in ("cls", "bboxes", "batch_idx"))):
+            raise AssertionError(f"rank {rank} of 2: its loader's rows or labels differ from the whole batch's")
+    log(f"parallel: each rank's host loader, ms a step (mosaic, batch {bs} at {hyp.imgsz}, {hyp.workers} workers, "
+        f"{len(loader)} steps, one loader at a time; first pass, second pass): rank 0 of 2 with the row split "
+        f"{ms[0, 2][0]:.1f}, {ms[0, 2][1]:.1f}; rank 1 of 2 {ms[1, 2][0]:.1f}, {ms[1, 2][1]:.1f}; without the split "
+        f"(the whole batch on each rank) {ms[0, 1][0]:.1f}, {ms[0, 1][1]:.1f}; each rank's rows and labels equal to "
+        f"the whole batch's; host {os.cpu_count()} CPUs, on {card}")
+
+
 def seeded_batch(ov, data, seed: int):
     """The first batch of the train loader shuffled with `seed` (the step checks' batch)."""
     from yololite_tpu_torch.cfg import get_cfg
@@ -4475,6 +4581,7 @@ def parallel_phase(card: str, frames):
     ov = {"data": str(train_data), "imgsz": 640, "batch": 16, "nbs": 16, "val": False, "save": False,
           "optimizer": "SGD", "amp": False, "project": str(root / "runs"), "name": "dp", "workers": 2}
     batch = seeded_batch(ov, train_data, 0)
+    rank_loader_numbers(card, ov, train_data)
     model = DetectionModel("yolo11n.yaml").init(0)
     lr = [100.0] * 3  # far above the fp32 rounding of the new weights (see one_step_card_vs_cpu)
     ref = data_parallel_step(0, 1, torch.device("cuda:0"), ov, model, [batch], lr, 0.9, 5)
@@ -4547,7 +4654,7 @@ def parallel_phase(card: str, frames):
             for seq in m.model.detect.cv3:
                 seq[2].bias.fill_(-6.0)
         t0 = time.perf_counter()
-        m.train(data=str(train_data), epochs=1, imgsz=640, batch=16, amp=False, plots=False, workers=0,
+        m.train(data=str(train_data), epochs=1, imgsz=640, batch=16, amp=False, plots=False,
                 project=str(root / "runs"), name=name.replace(" ", "_"), **({"device": dev} if dev else {}))
         runs[name] = (m.trainer, time.perf_counter() - t0)
         curves[name] = np.loadtxt(m.trainer.csv, delimiter=",", skiprows=1, ndmin=2)[:, 1:4]
@@ -4563,7 +4670,8 @@ def parallel_phase(card: str, frames):
     rel = float(np.abs(curves["2 gloo ranks"] / curves["one process"] - 1).max())
     if rel > 1e-3:
         raise AssertionError(f"2-rank loss curve {curves['2 gloo ranks']} vs one process {curves['one process']}")
-    log(f"parallel: YOLOLite.train 1 epoch at 640, batch 16, fp32, 64 images, one loader thread: 2 gloo ranks {runs['2 gloo ranks'][1]:.1f}"
+    log(f"parallel: YOLOLite.train 1 epoch at 640, batch 16, fp32, 64 images, the default 8 loader threads (a rank "
+        f"builds its rows): 2 gloo ranks {runs['2 gloo ranks'][1]:.1f}"
         f" s (epoch loop {t2.train_seconds[0]:.3f} s), one process {runs['one process'][1]:.1f} s (epoch loop "
         f"{runs['one process'][0].train_seconds[0]:.3f} s); loss items {curves['2 gloo ranks'][0].round(5).tolist()}"
         f" within {rel:.1e} of the one-process epoch; rank 0 saved last.npz and ran the EMA val and final val with "
@@ -4673,6 +4781,8 @@ def main() -> int:
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     log(f"card: {card}")
+    log(f"host: {os.cpu_count()} CPUs")
+    card = f"{card}, host {os.cpu_count()} CPUs"  # every number's line names the card, its power limit and the host
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
 
     # ---- 1. build ----

@@ -10,13 +10,23 @@ The JAX package's transforms draw from the process-wide `random` and
 `random.Random` and an `np.random.RandomState`, in the same order: seeded
 alike, the two packages make the same images. The dataset owns one pair and
 hands it to all its transforms.
+
+Every draw depends on image shapes, labels and the order of loads, never on
+a pixel. So each transform works in two halves. Called on labels whose
+"img" is a `PlannedImage` (the dataset's loads are), it takes its draws,
+does all its label work and returns a `PlannedImage` that records its pixel
+work: the plan, which must run in load order on one thread. `build()` then
+does the pixel work with the same cv2 and numpy calls: the apply, which any
+thread may run. Called on an ndarray, a transform does both at once.
 """
 
 from __future__ import annotations
 
 import math
 import random
+import time
 from copy import deepcopy
+from functools import partial
 
 import numpy as np
 
@@ -24,6 +34,52 @@ from yololite_tpu_torch.ops.boxes import bbox_ioa
 from yololite_tpu_torch.ops.letterbox import LetterBox as _ImgLetterBox
 from yololite_tpu_torch.utils import LOGGER
 from yololite_tpu_torch.utils.instance import Instances
+
+
+class PlannedImage:
+    """An image whose shape the plan knows and whose pixels `build()` makes later.
+
+    `fn(*sources)` makes the pixels from the sources' (planned images or
+    arrays); `stage` names the apply's stage the work belongs to. The leaves
+    are the dataset's loads. Each node is built once, by one thread, and its
+    output goes to its one parent, which may write into it.
+    """
+
+    __slots__ = ("shape", "stage", "fn", "srcs")
+    dtype = np.dtype(np.uint8)
+
+    def __init__(self, shape, stage: str, fn, srcs=()):
+        self.shape, self.stage, self.fn, self.srcs = tuple(shape), stage, fn, srcs
+
+    def build(self, times=None) -> np.ndarray:
+        """The pixels; with a dict `times`, each stage's seconds (its sources' excluded) are added to it."""
+        args = [s.build(times) if isinstance(s, PlannedImage) else s for s in self.srcs]
+        t0 = time.perf_counter() if times is not None else 0.0
+        out = self.fn(*args)
+        if times is not None:
+            times[self.stage] = times.get(self.stage, 0.0) + time.perf_counter() - t0
+        if out.shape != self.shape:
+            raise RuntimeError(f"{self.stage} made an image of shape {out.shape}, its plan {self.shape}")
+        return out
+
+    def leaves(self) -> list:
+        """The planned images without planned sources (the loads), depth first."""
+        planned = [s for s in self.srcs if isinstance(s, PlannedImage)]
+        return [self] if not planned else [x for s in planned for x in s.leaves()]
+
+
+def _pixels(stage: str, shape, fn, *srcs):
+    """fn(*srcs) now when no source is planned, else a PlannedImage of `shape` that calls it at build time."""
+    if any(isinstance(s, PlannedImage) for s in srcs):
+        return PlannedImage(shape, stage, fn, srcs)
+    return fn(*srcs)
+
+
+def _mosaic_pixels(side, channels, windows, crop, *tiles):
+    canvas = np.full((side, side, channels), 114, dtype=np.uint8)
+    for (dst, src), tile in zip(windows, tiles):
+        canvas[dst] = tile[src]
+    return canvas[crop] if crop else canvas
 
 
 class Compose:
@@ -94,16 +150,13 @@ class Mosaic(BaseMixTransform):
 
     def _mosaic3(self, labels):
         """1 x 3 horizontal strip on a 3s canvas (centre, right, left bottom-aligned), cropped to 2s."""
-        mosaic_labels = []
+        mosaic_labels, windows, tiles = [], [], []
         s = self.imgsz
-        img3 = None
         h0 = w0 = 0
         for i in range(3):
             patch = labels if i == 0 else labels["mix_labels"][i - 1]
-            img = patch["img"]
             h, w = patch.pop("resized_shape")
             if i == 0:
-                img3 = np.full((s * 3, s * 3, img.shape[2]), 114, dtype=np.uint8)
                 h0, w0 = h, w
                 box = s, s, s + w, s + h
             elif i == 1:
@@ -112,23 +165,18 @@ class Mosaic(BaseMixTransform):
                 box = s - w, s + h0 - h, s, s + h0
             padw, padh = box[:2]
             x1, y1, x2, y2 = (max(v, 0) for v in box)
-            img3[y1:y2, x1:x2] = img[y1 - padh:, x1 - padw:]
+            windows.append(((slice(y1, y2), slice(x1, x2)), (slice(y1 - padh, None), slice(x1 - padw, None))))
+            tiles.append(patch["img"])
             mosaic_labels.append(self._update_labels(patch, padw + self.border[0], padh + self.border[1]))
-        final = self._cat_labels(mosaic_labels)
-        final["img"] = img3[-self.border[0]: self.border[0], -self.border[1]: self.border[1]]
-        return final
+        return self._canvas(self._cat_labels(mosaic_labels), s * 3, windows, tiles, crop=True)
 
     def _mosaic4(self, labels):
-        mosaic_labels = []
+        mosaic_labels, windows, tiles = [], [], []
         s = self.imgsz
         yc, xc = (int(self.rng.uniform(-x, 2 * s + x)) for x in self.border)
-        img4 = None
         for i in range(4):
             patch = labels if i == 0 else labels["mix_labels"][i - 1]
-            img = patch["img"]
             h, w = patch.pop("resized_shape")
-            if img4 is None:
-                img4 = np.full((s * 2, s * 2, img.shape[2]), 114, dtype=np.uint8)
             # canvas window (c*) at the shared centre (xc, yc); source window (s*) is what of the tile fits
             if i == 0:  # top-left
                 cx1, cy1, cx2, cy2 = max(xc - w, 0), max(yc - h, 0), xc, yc
@@ -142,24 +190,20 @@ class Mosaic(BaseMixTransform):
             else:  # bottom-right
                 cx1, cy1, cx2, cy2 = xc, yc, min(xc + w, s * 2), min(s * 2, yc + h)
                 sx1, sy1, sx2, sy2 = 0, 0, min(w, cx2 - cx1), min(cy2 - cy1, h)
-            img4[cy1:cy2, cx1:cx2] = img[sy1:sy2, sx1:sx2]
+            windows.append(((slice(cy1, cy2), slice(cx1, cx2)), (slice(sy1, sy2), slice(sx1, sx2))))
+            tiles.append(patch["img"])
             mosaic_labels.append(self._update_labels(patch, cx1 - sx1, cy1 - sy1))
-        final = self._cat_labels(mosaic_labels)
-        final["img"] = img4
-        return final
+        return self._canvas(self._cat_labels(mosaic_labels), s * 2, windows, tiles, crop=False)
 
     def _mosaic9(self, labels):
-        mosaic_labels = []
+        mosaic_labels, windows, tiles = [], [], []
         s = self.imgsz
         hp, wp = -1, -1
-        img9 = None
         for i in range(9):
             patch = labels if i == 0 else labels["mix_labels"][i - 1]
-            img = patch["img"]
             h, w = patch.pop("resized_shape")
             # spiral placement on the 3s canvas; h0/w0 the first tile, hp/wp the previous one
             if i == 0:
-                img9 = np.full((s * 3, s * 3, img.shape[2]), 114, dtype=np.uint8)
                 h0, w0 = h, w
                 box = s, s, s + w, s + h
             elif i == 1:
@@ -180,12 +224,21 @@ class Mosaic(BaseMixTransform):
                 box = s - w, s + h0 - hp - h, s, s + h0 - hp
             padw, padh = box[:2]
             x1, y1, x2, y2 = (max(v, 0) for v in box)
-            img9[y1:y2, x1:x2] = img[y1 - padh:, x1 - padw:]
+            windows.append(((slice(y1, y2), slice(x1, x2)), (slice(y1 - padh, None), slice(x1 - padw, None))))
+            tiles.append(patch["img"])
             hp, wp = h, w
             # labels live in the 2s centre crop, so the (negative) border shifts into the pad offsets
             mosaic_labels.append(self._update_labels(patch, padw + self.border[0], padh + self.border[1]))
-        final = self._cat_labels(mosaic_labels)
-        final["img"] = img9[-self.border[0]: self.border[0], -self.border[1]: self.border[1]]
+        return self._canvas(self._cat_labels(mosaic_labels), s * 3, windows, tiles, crop=True)
+
+    def _canvas(self, final, side: int, windows, tiles, crop: bool):
+        """The mosaic's image: a side x side canvas of 114 with each tile's window copied in, cropped by the border
+        (3 and 9 tiles)."""
+        crop = (slice(-self.border[0], self.border[0]), slice(-self.border[1], self.border[1])) if crop else None
+        channels = tiles[0].shape[2]
+        hw = (len(range(side)[crop[0]]), len(range(side)[crop[1]])) if crop else (side, side)
+        final["img"] = _pixels("mosaic", (*hw, channels), partial(_mosaic_pixels, side, channels, windows, crop),
+                               *tiles)
         return final
 
     @staticmethod
@@ -224,10 +277,15 @@ class MixUp(BaseMixTransform):
     def _mix_transform(self, labels):
         r = self.np_rng.beta(32.0, 32.0)
         labels2 = labels["mix_labels"][0]
-        labels["img"] = (labels["img"] * r + labels2["img"] * (1 - r)).astype(np.uint8)
+        img = labels["img"]
+        labels["img"] = _pixels("mixup", img.shape, partial(_mixup_pixels, r), img, labels2["img"])
         labels["instances"] = Instances.concatenate([labels["instances"], labels2["instances"]], axis=0)
         labels["cls"] = np.concatenate([labels["cls"], labels2["cls"]], 0)
         return labels
+
+
+def _mixup_pixels(r, im1, im2):
+    return (im1 * r + im2 * (1 - r)).astype(np.uint8)
 
 
 class CopyPaste:
@@ -239,8 +297,6 @@ class CopyPaste:
     def __call__(self, labels):
         if self.p == 0 or len(labels["instances"]) == 0:
             return labels
-        import cv2
-
         im = labels["img"]
         cls = labels["cls"]
         h, w = im.shape[:2]
@@ -256,17 +312,29 @@ class CopyPaste:
         if sel:
             cls = np.concatenate((cls, cls[sel]), axis=0)
             instances = Instances.concatenate((instances, ins_flip[sel]), axis=0)
-            im_new = np.zeros(im.shape, np.uint8)
-            for j in sel:
-                x1, y1, x2, y2 = ins_flip.bboxes[j].astype(int)
-                cv2.rectangle(im_new, (x1, y1), (x2, y2), (1, 1, 1), cv2.FILLED)
-            result = cv2.flip(im, 1)
-            i = cv2.flip(im_new, 1).astype(bool)
-            im[i] = result[i]
+            rects = [tuple(ins_flip.bboxes[j].astype(int)) for j in sel]
+            # a load's pixels are the dataset's shared copy (mosaic skipped): paste into a copy of them
+            shared = isinstance(im, PlannedImage) and not im.srcs
+            im = _pixels("copy_paste", im.shape, partial(_copy_paste_pixels, rects, shared), im)
         labels["img"] = im
         labels["cls"] = cls
         labels["instances"] = instances
         return labels
+
+
+def _copy_paste_pixels(rects, copy, im):
+    """Paste the mirrored image back inside the mirrored boxes' rectangles (x1, y1, x2, y2), in place (into a copy
+    with `copy`)."""
+    import cv2
+
+    if copy:
+        im = im.copy()
+    im_new = np.zeros(im.shape, np.uint8)
+    for x1, y1, x2, y2 in rects:
+        cv2.rectangle(im_new, (x1, y1), (x2, y2), (1, 1, 1), cv2.FILLED)
+    result = cv2.flip(im, 1)
+    np.copyto(im, result, where=cv2.flip(im_new, 1).astype(bool))  # im[mask] = result[mask], without the gathers
+    return im
 
 
 class RandomPerspective:
@@ -298,8 +366,8 @@ class RandomPerspective:
         T[:2, 2] = [u(0.5 - self.translate, 0.5 + self.translate) * d for d in size]
         M = T @ S @ R @ P @ C
         if (border[0] != 0) or (border[1] != 0) or (M != np.eye(3)).any():
-            warp = cv2.warpPerspective if self.perspective else cv2.warpAffine
-            img = warp(img, M if self.perspective else M[:2], dsize=size, borderValue=(114, 114, 114))
+            img = _pixels("warp", (size[1], size[0], *img.shape[2:]),
+                          partial(_warp_pixels, M, tuple(size), bool(self.perspective)), img)
         return img, M, s
 
     def apply_bboxes(self, bboxes, M):
@@ -347,6 +415,13 @@ class RandomPerspective:
         return (w2 > wh_thr) & (h2 > wh_thr) & (w2 * h2 / (w1 * h1 + eps) > area_thr) & (ar < ar_thr)
 
 
+def _warp_pixels(M, size, perspective, img):
+    import cv2
+
+    warp = cv2.warpPerspective if perspective else cv2.warpAffine
+    return warp(img, M if perspective else M[:2], dsize=size, borderValue=(114, 114, 114))
+
+
 class RandomHSV:
     """Hue, saturation and value jitter through lookup tables, in place."""
 
@@ -355,20 +430,24 @@ class RandomHSV:
         self.hgain, self.sgain, self.vgain = hgain, sgain, vgain
 
     def __call__(self, labels):
-        img = labels["img"]
         if self.hgain or self.sgain or self.vgain:
-            import cv2
-
             r = self.np_rng.uniform(-1, 1, 3) * [self.hgain, self.sgain, self.vgain] + 1
-            hue, sat, val = cv2.split(cv2.cvtColor(img, cv2.COLOR_BGR2HSV))
-            dtype = img.dtype
-            x = np.arange(0, 256, dtype=r.dtype)
-            luts = (((x * r[0]) % 180).astype(dtype),  # hue wraps at 180
-                    np.clip(x * r[1], 0, 255).astype(dtype),
-                    np.clip(x * r[2], 0, 255).astype(dtype))
-            im_hsv = cv2.merge(tuple(cv2.LUT(ch, lut) for ch, lut in zip((hue, sat, val), luts)))
-            cv2.cvtColor(im_hsv, cv2.COLOR_HSV2BGR, dst=img)
+            img = labels["img"]
+            labels["img"] = _pixels("hsv", img.shape, partial(_hsv_pixels, r), img)
         return labels
+
+
+def _hsv_pixels(r, img):
+    """BGR -> HSV, each channel through its table of gain r, -> BGR into img."""
+    import cv2
+
+    dtype = img.dtype
+    x = np.arange(0, 256, dtype=r.dtype)
+    lut = np.stack((((x * r[0]) % 180).astype(dtype),  # hue wraps at 180
+                    np.clip(x * r[1], 0, 255).astype(dtype),
+                    np.clip(x * r[2], 0, 255).astype(dtype)), -1)[:, None]  # (256, 1, 3): a table a channel
+    cv2.cvtColor(cv2.LUT(cv2.cvtColor(img, cv2.COLOR_BGR2HSV), lut), cv2.COLOR_HSV2BGR, dst=img)
+    return img
 
 
 class RandomFlip:
@@ -384,15 +463,24 @@ class RandomFlip:
         instances = labels.pop("instances")
         instances.convert_bbox(format="xywh")
         h, w = (1, 1) if instances.normalized else img.shape[:2]
+        flip = None  # cv2.flip's code: 0 about the x axis (np.flipud), 1 about the y axis (np.fliplr)
         if self.direction == "vertical" and self.rng.random() < self.p:
-            img = np.flipud(img)
+            flip = 0
             instances.flipud(h)
         if self.direction == "horizontal" and self.rng.random() < self.p:
-            img = np.fliplr(img)
+            flip = 1
             instances.fliplr(w)
-        labels["img"] = np.ascontiguousarray(img)
+        labels["img"] = _pixels("flips", img.shape, partial(_flip_pixels, flip), img)
         labels["instances"] = instances
         return labels
+
+
+def _flip_pixels(flip, img):
+    """np.flipud / np.fliplr made contiguous, by cv2 (numpy's copy of a view reversed over pixels of 3 bytes is some
+    10x slower)."""
+    import cv2
+
+    return cv2.flip(img, flip) if flip is not None else np.ascontiguousarray(img)
 
 
 class LetterBox:
@@ -405,8 +493,6 @@ class LetterBox:
         self.center = center
 
     def __call__(self, labels=None, image=None):
-        import cv2
-
         if labels is None:
             labels = {}
         img = labels.get("img") if image is None else image
@@ -416,13 +502,14 @@ class LetterBox:
             new_shape = (new_shape, new_shape)
         r, new_unpad, (dw, dh) = self.lb.params(shape, tuple(new_shape))
         ratio = (r, r) if r is not None else (new_shape[1] / shape[1], new_shape[0] / shape[0])
-        if shape[::-1] != new_unpad:
-            img = cv2.resize(img, new_unpad, interpolation=cv2.INTER_LINEAR)
         top = int(round(dh - 0.1)) if self.center else 0
         bottom = int(round(dh + 0.1))
         left = int(round(dw - 0.1)) if self.center else 0
         right = int(round(dw + 0.1))
-        img = cv2.copyMakeBorder(img, top, bottom, left, right, cv2.BORDER_CONSTANT, value=(114, 114, 114))
+        pads = (top, bottom, left, right)
+        resize = new_unpad if shape[::-1] != new_unpad else None
+        img = _pixels("letterbox", (new_unpad[1] + top + bottom, new_unpad[0] + left + right, *img.shape[2:]),
+                      partial(_letterbox_pixels, resize, pads), img)
         if labels.get("ratio_pad"):
             labels["ratio_pad"] = (labels["ratio_pad"], (left, top))
         if len(labels):
@@ -434,6 +521,15 @@ class LetterBox:
             labels["resized_shape"] = tuple(new_shape)
             return labels
         return img
+
+
+def _letterbox_pixels(resize, pads, img):
+    import cv2
+
+    if resize is not None:
+        img = cv2.resize(img, resize, interpolation=cv2.INTER_LINEAR)
+    top, bottom, left, right = pads
+    return cv2.copyMakeBorder(img, top, bottom, left, right, cv2.BORDER_CONSTANT, value=(114, 114, 114))
 
 
 class Format:
@@ -456,7 +552,7 @@ class Format:
         nl = len(instances)
 
         keep_bgr = self.bgr and self.rng.random() < self.bgr
-        labels["img"] = np.ascontiguousarray(img if keep_bgr else img[..., ::-1])  # BGR -> RGB
+        labels["img"] = _pixels("format", img.shape, partial(_format_pixels, bool(keep_bgr)), img)  # BGR -> RGB
         labels["cls"] = np.asarray(cls, np.float32).reshape(nl, -1)[:, :1] if nl else np.zeros((0, 1), np.float32)
         bboxes = instances.bboxes.astype(np.float32) if nl else np.zeros((0, 4), np.float32)
         if self.normalize and nl:
@@ -469,10 +565,19 @@ class Format:
         return labels
 
 
+def _format_pixels(keep_bgr, img):
+    """img[..., ::-1] made contiguous, by cv2 (numpy's copy of the reversed channel axis is some 100x slower)."""
+    import cv2
+
+    return np.ascontiguousarray(img) if keep_bgr else cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
+
+
 class Albumentations:
     """Optional albumentations recipe (Blur, MedianBlur, ToGray, CLAHE at p = 0.01); a no-op without the package.
 
-    The recipe is pixel-level only, so the boxes never change here.
+    The recipe is pixel-level only, so the boxes never change here. Its own
+    draws come from albumentations' generators at apply time, so with the
+    package installed the images repeat only where one thread builds them.
     """
 
     def __init__(self, rng: random.Random, p=1.0):
@@ -493,8 +598,14 @@ class Albumentations:
 
     def __call__(self, labels):
         if self.transform is not None and self.rng.random() <= self.p:
-            labels["img"] = self.transform(image=labels["img"])["image"]
+            img = labels["img"]
+            labels["img"] = _pixels("albumentations", img.shape, partial(_albumentations_pixels, self.transform),
+                                    img)
         return labels
+
+
+def _albumentations_pixels(transform, img):
+    return transform(image=img)["image"]
 
 
 def v8_transforms(dataset, imgsz, hyp, rng: random.Random, np_rng: np.random.RandomState):

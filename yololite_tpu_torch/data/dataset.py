@@ -2,13 +2,20 @@
 
 File globbing, the label cache (the JAX package's format and version, so
 either package reads the other's `labels.cache.npy`), rect batching, image
-loading, the train transforms with their rolling image buffer, and collate,
-with a thread-pool loader that keeps two batches in flight. Batches are numpy
-dicts; images stay uint8 NHWC RGB.
+loading, the train transforms with their rolling image buffer, and collate.
+Batches are numpy dicts; images stay uint8 NHWC RGB.
 
 With augment=True the dataset owns one `random.Random` and one
 `np.random.RandomState`, seeded with `seed`, from which all its transforms
 draw (the JAX package draws from the process-wide `random` and `np.random`).
+No draw depends on a pixel (data/augment.py), so an item is made in two
+halves: `plan(i)` takes its draws, keeps the buffer and does the label work
+from the image sizes in the label cache, in load order on one thread;
+`apply(item)` decodes, resizes and transforms the pixels on any thread.
+`dataset[i]` is the one followed by the other. The `DataLoader` plans each
+batch on one thread and spreads its applies over a pool, so any number of
+threads gives the batches one thread gives, which are the JAX package's
+loader's at workers 0.
 """
 
 from __future__ import annotations
@@ -19,14 +26,17 @@ import os
 import pickle
 import random
 import threading
+import time
+from collections import Counter, deque
 from concurrent.futures import ThreadPoolExecutor
 from copy import deepcopy
+from functools import partial
 from pathlib import Path
 from typing import Dict, List, Optional
 
 import numpy as np
 
-from yololite_tpu_torch.data.augment import Compose, Format, LetterBox, v8_transforms
+from yololite_tpu_torch.data.augment import Compose, Format, LetterBox, PlannedImage, v8_transforms
 from yololite_tpu_torch.data.utils import (
     IMG_FORMATS,
     get_hash,
@@ -40,6 +50,104 @@ from yololite_tpu_torch.utils.instance import Instances
 from yololite_tpu_torch.utils.patches import imread
 
 DATASET_CACHE_VERSION = "tpu-1.0"  # shared with the JAX package
+
+
+class _PlannedLoad(PlannedImage):
+    """A planned image's leaf: the dataset's image `index`, decoded and resized."""
+
+    __slots__ = ("index",)
+
+    def __init__(self, index: int, shape, fn):
+        super().__init__(shape, "decode", fn)
+        self.index = index
+
+
+class _Entry:
+    __slots__ = ("done", "value", "error")
+
+    def __init__(self):
+        self.done, self.value, self.error = threading.Event(), None, None
+
+
+class ImageCache:
+    """The decoded and resized images that the applies share, by dataset index; thread-safe.
+
+    The first apply that needs an image decodes it and the others wait for
+    it. The plan pins each image that an item reads (`pin`), and the item's
+    apply unpins it when the item is built; the plan also says which images
+    to keep (`keep`, `release`: the rolling buffer's). An image leaves the
+    cache when nothing pins it and nothing keeps it (`keep_all`: never), so
+    the cache is bounded by the buffer and the items in flight, and it never
+    drops an image that a planned item has still to read.
+    """
+
+    def __init__(self, keep_all: bool = False):
+        self.keep_all = keep_all
+        self._lock = threading.Lock()
+        self._entries: Dict[int, _Entry] = {}
+        self._pins = Counter()
+        self._kept = set()
+
+    def __contains__(self, i: int) -> bool:
+        return i in self._entries
+
+    def indices(self) -> set:
+        with self._lock:
+            return set(self._entries)
+
+    def pinned(self) -> Dict[int, int]:
+        """Each pinned image's count of planned items that have still to read it."""
+        with self._lock:
+            return dict(self._pins)
+
+    def pin(self, i: int):
+        with self._lock:
+            self._pins[i] += 1
+
+    def unpin(self, indices):
+        with self._lock:
+            for i in indices:
+                self._pins[i] -= 1
+                if self._pins[i] <= 0:
+                    del self._pins[i]
+                    self._drop(i)
+
+    def keep(self, i: int):
+        with self._lock:
+            self._kept.add(i)
+
+    def release(self, i: int):
+        with self._lock:
+            self._kept.discard(i)
+            self._drop(i)
+
+    def _drop(self, i: int):
+        if not self.keep_all and i not in self._kept and not self._pins[i]:
+            self._entries.pop(i, None)
+
+    def get(self, i: int, load) -> np.ndarray:
+        """Image i, from `load()` if no apply has loaded it and it is not loading."""
+        with self._lock:
+            entry = self._entries.get(i)
+            owner = entry is None
+            if owner:
+                entry = self._entries[i] = _Entry()
+        if owner:
+            try:
+                entry.value = load()
+            except BaseException as e:
+                entry.error = e
+                with self._lock:
+                    if self._entries.get(i) is entry:
+                        del self._entries[i]
+                raise
+            finally:
+                entry.done.set()
+        else:
+            entry.done.wait()
+            if entry.error is not None:
+                raise entry.error
+        return entry.value
 
 
 class YOLODataset:
@@ -80,12 +188,11 @@ class YOLODataset:
             self.update_labels(classes)
         self.ni = len(self.labels)
         self.cache_ram = cache is True or cache == "ram"
-        self.ims = [None] * self.ni  # RAM image cache
-        self.im_hw0 = [None] * self.ni
-        self.im_hw = [None] * self.ni
-        self.buffer: List[int] = []  # train: indices of the recently loaded images mosaic draws from
+        # the decoded images the applies share: the buffer's and, with cache='ram' and no augment, every one
+        self.ims = ImageCache(keep_all=self.cache_ram and not augment)
+        self.buffer: List[int] = []  # train: indices of the recently loaded images mosaic draws from (the plan's)
+        self._buffered = set()
         self.max_buffer_length = min(self.ni, batch_size * 8, 1000) if augment else 0
-        self._buffer_lock = threading.Lock()
         if self.rect:
             self.set_rectangle()
         self.rng = random.Random(seed)
@@ -188,42 +295,55 @@ class YOLODataset:
 
     # ---- image loading ----
 
-    def load_image(self, i: int):
-        """BGR image i resized so its long side is imgsz, with its original and new (h, w).
+    def plan_image(self, i: int):
+        """Plan the load of image i: its planned pixels (BGR, the long side resized to imgsz) and its original and
+        new (h, w), from the size the label cache holds.
 
-        With augment, the image joins the rolling buffer of the last
-        max_buffer_length loaded images, which stay in RAM for mosaic.
+        With augment, an image not in the rolling buffer of the last
+        max_buffer_length loaded images joins it (the oldest leaves), as
+        loading it did when the load decoded it. The image stays pinned in
+        the cache until the apply of the item that planned it is done.
         """
-        with self._buffer_lock:  # loader threads evict from the buffer while others read
-            im, hw0, hw = self.ims[i], self.im_hw0[i], self.im_hw[i]
-        if im is not None:
-            return im, hw0, hw
+        h0, w0 = (int(v) for v in self.labels[i]["shape"])
+        r = self.imgsz / max(h0, w0)
+        h, w = (min(math.ceil(h0 * r), self.imgsz), min(math.ceil(w0 * r), self.imgsz)) if r != 1 else (h0, w0)
+        if self.augment and i not in self._buffered:
+            self.buffer.append(i)
+            self._buffered.add(i)
+            self.ims.keep(i)
+            if 1 < len(self.buffer) >= self.max_buffer_length:
+                j = self.buffer.pop(0)
+                self._buffered.discard(j)
+                self.ims.release(j)
+        self.ims.pin(i)
+        return _PlannedLoad(i, (h, w, 3), partial(self.ims.get, i, partial(self.load_image, i))), (h0, w0), (h, w)
+
+    def load_image(self, i: int) -> np.ndarray:
+        """BGR image i decoded and resized so its long side is imgsz; raises if its size is not the label cache's,
+        the size its plan was made from."""
         import cv2
 
         im = imread(self.im_files[i])
         if im is None:
             raise FileNotFoundError(f"image not found {self.im_files[i]}")
         h0, w0 = im.shape[:2]
+        if (h0, w0) != tuple(int(v) for v in self.labels[i]["shape"]):
+            raise ValueError(f"{self.im_files[i]}: decoded as {h0}x{w0} (h x w), its label cache holds "
+                             f"{tuple(self.labels[i]['shape'])}, the size the transforms were planned for; delete "
+                             "the labels' .cache.npy to rescan")
         r = self.imgsz / max(h0, w0)
         if r != 1:
             w, h = (min(math.ceil(w0 * r), self.imgsz), min(math.ceil(h0 * r), self.imgsz))
             im = cv2.resize(im, (w, h), interpolation=cv2.INTER_LINEAR)
-        if self.augment or self.cache_ram:
-            with self._buffer_lock:
-                self.ims[i], self.im_hw0[i], self.im_hw[i] = im, (h0, w0), im.shape[:2]
-                if self.augment:
-                    self.buffer.append(i)
-                    if 1 < len(self.buffer) >= self.max_buffer_length:
-                        j = self.buffer.pop(0)
-                        self.ims[j], self.im_hw0[j], self.im_hw[j] = None, None, None
-        return im, (h0, w0), im.shape[:2]
+        return im
 
     # ---- items ----
 
     def get_image_and_label(self, index: int) -> Dict:
-        label = deepcopy(self.labels[index])
-        label.pop("shape", None)
-        label["img"], label["ori_shape"], label["resized_shape"] = self.load_image(index)
+        """Item index's labels with its planned image (`plan_image`)."""
+        label = {k: v.copy() if isinstance(v, np.ndarray) else deepcopy(v)  # a deepcopy, in a tenth of the time
+                 for k, v in self.labels[index].items() if k != "shape"}
+        label["img"], label["ori_shape"], label["resized_shape"] = self.plan_image(index)
         label["ratio_pad"] = (
             label["resized_shape"][0] / label["ori_shape"][0],
             label["resized_shape"][1] / label["ori_shape"][1],
@@ -235,8 +355,33 @@ class YOLODataset:
                                        normalized=label.pop("normalized"))
         return label
 
-    def __getitem__(self, index: int) -> Dict:
+    def plan(self, index: int) -> Dict:
+        """Item index with every draw taken and its labels final, its "img" a PlannedImage. Plans must run in load
+        order on one thread: they draw from the dataset's generators and keep the buffer."""
         return self.transforms(self.get_image_and_label(index))
+
+    def apply(self, item: Dict, out: Optional[np.ndarray] = None, times: Optional[Dict] = None) -> Dict:
+        """A planned item with its image built (into `out` if given), on any thread; with a dict `times`, the
+        seconds of each stage of the pixel work are added to it. Unpins the item's images."""
+        node = item["img"]
+        try:
+            img = node.build(times)
+        finally:
+            self.release(item)
+        if out is not None:
+            t0 = time.perf_counter()
+            np.copyto(out, img)
+            img = out
+            if times is not None:
+                times["collate"] = times.get("collate", 0.0) + time.perf_counter() - t0
+        return {**item, "img": img}
+
+    def release(self, item: Dict):
+        """Unpin a planned item's images, built or not (a rank's loader skips the other ranks' rows)."""
+        self.ims.unpin(x.index for x in item["img"].leaves())
+
+    def __getitem__(self, index: int) -> Dict:
+        return self.apply(self.plan(index))
 
     def __len__(self):
         return len(self.labels)
@@ -281,22 +426,38 @@ class YOLODataset:
 
 
 class DataLoader:
-    """Thread-pool map + prefetch loader over a map-style dataset.
+    """Batches of a YOLODataset built by a pool of threads, two batches in flight.
 
-    cv2 and numpy release the GIL for the heavy parts, so threads pipeline
-    well and share the RAM image cache. The explicit `seed` drives the
-    shuffle, so a run is repeatable.
+    One thread plans each batch's items in order, batch after batch
+    (`dataset.plan`: every augmentation draw, the labels, the image buffer).
+    Each item's pixel work (`dataset.apply`) then goes to the pool of
+    `workers` threads and writes its row of the batch's image array, and the
+    labels are collated in index order. So any `workers` gives the batches
+    one thread gives: those of the JAX package's loader at workers 0. cv2 and
+    numpy release the GIL for the pixel work. workers=0: one thread plans and
+    builds everything. A pool of more than one thread turns cv2's own thread
+    pool off for the process (`cv2.setNumThreads(0)`, as the upstream package
+    does at import): with both, the threads contended.
+
+    On a data-parallel rank (`rank` of `world`), every rank plans the whole
+    global batch and builds only its own rows of the images when the batch
+    divides (all of them when it does not): a batch's "img" holds rows
+    `img_rows` = (start, stop, n) of its n images, its labels are the global
+    batch's. The explicit `seed` drives the shuffle, so a run is repeatable.
     """
 
     def __init__(self, dataset, batch_size: int = 16, shuffle: bool = False, workers: int = 8,
-                 drop_last: bool = False, seed: int = 0):
+                 drop_last: bool = False, seed: int = 0, rank: int = 0, world: int = 1):
+        if not 0 <= rank < world:
+            raise ValueError(f"rank {rank} of a world of {world}")
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
-        self.workers = max(1, workers)
+        self.workers = max(0, workers)
         self.drop_last = drop_last
         self.rng = random.Random(seed)
-        self.collate_fn = getattr(dataset, "collate_fn", None)
+        self.rank, self.world = rank, world
+        self.collate_fn = dataset.collate_fn
 
     def __len__(self):
         n = len(self.dataset)
@@ -312,24 +473,62 @@ class DataLoader:
                 return
             yield chunk
 
-    def __iter__(self):
-        with ThreadPoolExecutor(max_workers=self.workers) as ex:
-            pending = []
-            batch_iter = self._batches()
-            for _ in range(2):  # two batches in flight
-                chunk = next(batch_iter, None)
-                if chunk is not None:
-                    pending.append(ex.submit(self._load_batch, chunk))
-            while pending:
-                fut = pending.pop(0)
-                chunk = next(batch_iter, None)
-                if chunk is not None:
-                    pending.append(ex.submit(self._load_batch, chunk))
-                yield fut.result()
+    def rows(self, n: int) -> slice:
+        """The image rows of a batch of n that this rank builds: its equal share when n divides, else all."""
+        if n % self.world:
+            return slice(0, n)
+        k = n // self.world
+        return slice(self.rank * k, (self.rank + 1) * k)
 
-    def _load_batch(self, indices):
-        items = [self.dataset[i] for i in indices]
-        return self.collate_fn(items) if self.collate_fn else items
+    def __iter__(self):
+        if self.workers > 1:  # the pool's threads each run cv2 on one thread: cv2's own pool fought them
+            import cv2
+
+            cv2.setNumThreads(0)
+        with ThreadPoolExecutor(1) as planner, ThreadPoolExecutor(max(1, self.workers)) as pool:
+            pending = deque()
+            chunks = self._batches()
+
+            def submit():
+                chunk = next(chunks, None)
+                if chunk is not None:
+                    pending.append(planner.submit(self._start_batch, chunk, pool if self.workers else None))
+
+            for _ in range(2):  # two batches in flight
+                submit()
+            while pending:
+                started = pending.popleft().result()
+                submit()
+                yield self._finish_batch(*started)
+
+    def _start_batch(self, chunk, pool):
+        """Plan the batch's items in order, then start the pixel work of this rank's rows (on the pool, or here)."""
+        items = [self.dataset.plan(i) for i in chunk]
+        rows = self.rows(len(items))
+        shape = items[rows.start]["img"].shape
+        for j in range(rows.start, rows.stop):
+            if items[j]["img"].shape != shape:
+                raise ValueError(f"a batch's images differ in shape: {items[j]['img'].shape} and {shape}")
+        out = np.empty((rows.stop - rows.start, *shape), np.uint8)
+        work = [partial(self.dataset.apply, items[j], out[j - rows.start]) for j in range(rows.start, rows.stop)]
+        for j in (*range(rows.start), *range(rows.stop, len(items))):  # other ranks' rows
+            self.dataset.release(items[j])
+        if pool is None:
+            for w in work:
+                w()
+            return items, rows, out, []
+        return items, rows, out, [pool.submit(w) for w in work]
+
+    def _finish_batch(self, items, rows, out, futures):
+        for f in futures:
+            f.result()
+        for item in items:
+            item.pop("img")
+        batch = self.collate_fn(items)
+        batch["img"] = out
+        if self.world > 1:
+            batch["img_rows"] = (rows.start, rows.stop, len(items))
+        return batch
 
 
 def build_yolo_dataset(cfg, img_path, batch, data, mode: str = "val", rect: bool = False, stride: int = 32):
@@ -353,6 +552,8 @@ def build_yolo_dataset(cfg, img_path, batch, data, mode: str = "val", rect: bool
     )
 
 
-def build_dataloader(dataset, batch: int, workers: int, shuffle: bool = True, seed: int = 0):
-    """Dataloader factory."""
-    return DataLoader(dataset, batch_size=batch, shuffle=shuffle, workers=workers, seed=seed)
+def build_dataloader(dataset, batch: int, workers: int, shuffle: bool = True, seed: int = 0, rank: int = 0,
+                     world: int = 1):
+    """Dataloader factory; on data-parallel ranks, `rank` of `world` builds its rows of each global batch."""
+    return DataLoader(dataset, batch_size=batch, shuffle=shuffle, workers=workers, seed=seed, rank=rank,
+                      world=world)

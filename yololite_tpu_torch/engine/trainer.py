@@ -34,10 +34,10 @@ either package resumes or predicts from the other's last.npz and best.npz.
 Data parallelism (device="0,1", a device list, a torchrun launch, or None
 with several cards visible and a batch that divides): one rank per device
 (parallel/mesh.py `launch`), and each step is the one-device step on the
-global batch, as the JAX package's step on a mesh is. Every rank runs the
-seeded loader on one thread (the dataset's generator is drawn in load order
-only then), so all see the same global batch with the same augmentation
-draws, and keeps its equal slice of the rows. The BNs take the global
+global batch, as the JAX package's step on a mesh is. Every rank plans the
+whole global batch from the seeded dataset (data/dataset.py `DataLoader`:
+the same draws, labels and targets, GT bucket M included, on every rank)
+and builds only its equal slice of the image rows. The BNs take the global
 batch's statistics (models/modules.py `CrossRankBatchNorm2d`), the loss
 divides by the global target_scores_sum, and the gradients are summed over
 the ranks before the clip, so the optimizer and the EMA stay identical on
@@ -242,10 +242,9 @@ class DetectionTrainer:
 
         train_ds = build_yolo_dataset(copy.copy(self.args), self.data["train"], self.batch_size, self.data,
                                       mode="train")
-        # the dataset draws its augmentations from one seeded generator, in load order only when one thread
-        # loads the batches: every rank must draw the same global batch
-        workers = self.args.workers if self.group is None else 0
-        self.train_loader = build_dataloader(train_ds, self.batch_size, workers, shuffle=True, seed=self.args.seed)
+        # any number of workers gives the same batches; a rank plans the global batch and builds its image rows
+        self.train_loader = build_dataloader(train_ds, self.batch_size, self.args.workers, shuffle=True,
+                                             seed=self.args.seed, rank=self.rank, world=self.world)
         if self.args.val and self.data.get("val") and self.rank == 0:
             from yololite_tpu_torch.engine.validator import DetectionValidator
 
@@ -341,8 +340,9 @@ class DetectionTrainer:
             return forward_nhwc(self.model, x)
 
     def _targets(self, batch) -> Dict[str, torch.Tensor]:
-        """The batch's GTs padded to the next power of two of its most boxes per image (>= 16, <= max_gt)."""
-        n = batch["img"].shape[0]
+        """The global batch's GTs padded to the next power of two of its most boxes per image (>= 16, <= max_gt); a
+        rank's loader batch holds the global batch's labels and its own image rows (`img_rows`)."""
+        n = batch["img_rows"][2] if "img_rows" in batch else batch["img"].shape[0]
         counts = np.bincount(np.asarray(batch["batch_idx"]).astype(int), minlength=n)
         need = max(16, int(counts.max(initial=16)))
         m_bucket = min(self.max_gt, 1 << (need - 1).bit_length())
@@ -403,17 +403,22 @@ class DetectionTrainer:
         items of the global batch.
 
         In one process this is the grad graph of the batch's key (engine/graphs.py; eager at its first sight and
-        off the card). On ranks, a batch that divides is cut to this rank's rows, and its BN statistics and loss
+        off the card). On ranks, `images` are this rank's rows already (`_rows`, the loader's) and the targets the
+        global batch's: a batch that divides takes its rows of the targets, and its BN statistics and loss
         normalization are global; one that does not runs whole here with a 1/world share of the loss.
         """
         if self.group is None:
             inputs = (images, targets["gt_labels"], targets["gt_bboxes"], targets["mask_gt"])
             items, self.fg_mask = self._graphed(self._grad_fn, inputs, self._step_key("grad", images, targets))
             return items
+        n = targets["gt_bboxes"].shape[0]
+        rows = self._rows(n)
+        if images.shape[0] != rows.stop - rows.start:
+            raise ValueError(f"rank {self.rank}: {images.shape[0]} image rows for rows {rows.start}-{rows.stop} of "
+                             f"the global batch of {n}")
         group = None
-        if images.shape[0] % self.world == 0:
-            rows = pmesh.batch_sharding(self.mesh, images.shape[0])[0][1]
-            images, targets = images[rows], {k: v[rows] for k, v in targets.items()}
+        if n % self.world == 0:
+            targets = {k: v[rows] for k, v in targets.items()}
             group = self.group
         with fp32_convs(self.device), cross_rank_bn(group):
             total, items, self.fg_mask = self.loss_fn.forward(self._forward(images), targets, group)
@@ -421,6 +426,12 @@ class DetectionTrainer:
         if group is not None:
             dist.all_reduce(items, group=group)
         return items
+
+    def _rows(self, n: int) -> slice:
+        """This process' rows of a global batch of n: its shard on ranks when n divides them, else all."""
+        if self.group is None or n % self.world:
+            return slice(0, n)
+        return pmesh.batch_sharding(self.mesh, n)[0][1]
 
     def _sum_grads(self):
         """On ranks: sum the gradients gathered since the last step over the ranks (once per step), in place."""
@@ -756,8 +767,12 @@ def data_parallel_step(rank: int, world: int, device, overrides: Dict, model: De
                        lr_vec, momentum: float, timed_steps: int = 0) -> Dict:
     """One optimizer step of a trainer (on `world` ranks, or alone for world 1) on given global batches.
 
-    Each batch is a loader batch dict (uint8 NHWC "img" with its ragged
-    labels); the step accumulates them, sums the gradients over the ranks,
+    Each batch is a one-process loader batch dict (uint8 NHWC "img" with its
+    ragged labels); each rank takes its rows of the images, as its loader
+    builds them (`DetectionTrainer._rows`), and the global batch's targets.
+    An int `batches` takes that many batches of the trainer's own loader
+    instead (on ranks, each builds its own rows). The step accumulates
+    them, sums the gradients over the ranks,
     clips, steps and updates the EMA, as the training loop does. Returns,
     on the host, each batch's loss items and this rank's fg_mask rows, the
     summed gradients, and the weights and buffers before and after, with the
@@ -776,8 +791,16 @@ def data_parallel_step(rank: int, world: int, device, overrides: Dict, model: De
     sync = torch.cuda.synchronize if tr.device.type == "cuda" else (lambda: None)
     before = host(tr.model.state_dict())
     items, fg = [], []
+    if isinstance(batches, int):
+        it = iter(tr.train_loader)
+        batches = [next(it) for _ in range(batches)]
+        it.close()
+
+    def rows(b):  # this rank's image rows (its own loader built only those)
+        return torch.from_numpy(b["img"] if "img_rows" in b else b["img"][tr._rows(len(b["img"]))]).to(tr.device)
+
     for b in batches:
-        items.append(tr._grad_step(torch.from_numpy(b["img"]).to(tr.device), tr._targets(b)).cpu())
+        items.append(tr._grad_step(rows(b), tr._targets(b)).cpu())
         fg.append(tr.fg_mask.cpu())
     tr._sum_grads()
     grads = host({n: p.grad for n, p in tr.model.named_parameters() if p.grad is not None})
@@ -789,7 +812,7 @@ def data_parallel_step(rank: int, world: int, device, overrides: Dict, model: De
         sync()
         t0 = time.perf_counter()
         for b in batches:
-            tr._grad_step(torch.from_numpy(b["img"]).to(tr.device), tr._targets(b))
+            tr._grad_step(rows(b), tr._targets(b))
         sync()
         t1 = time.perf_counter()
         tr._sum_grads()

@@ -16,6 +16,12 @@ from yololite_tpu_torch.ops.boxes import ltwh2xyxy, xywh2xyxy, xyxy2ltwh, xyxy2x
 _FORMATS = ("xyxy", "xywh", "ltwh")
 
 
+def _python_scalars(values) -> bool:
+    """All Python ints and floats: numpy casts each to the array's dtype before it operates (a NumPy scalar may
+    instead widen the operation), so the four column ops are one op with an array of that dtype."""
+    return all(type(v) is int or type(v) is float for v in values)
+
+
 class Bboxes:
     """A set of boxes in one of xyxy / xywh / ltwh formats."""
 
@@ -52,6 +58,9 @@ class Bboxes:
         """Scale coords by (sx, sy, sx2, sy2) or a scalar."""
         if not isinstance(scale, (tuple, list)):
             scale = (scale,) * 4
+        if _python_scalars(scale):
+            self.bboxes *= np.array(scale, dtype=self.bboxes.dtype)
+            return
         for i in range(4):
             self.bboxes[:, i] *= scale[i]
 
@@ -59,6 +68,9 @@ class Bboxes:
         """Offset coords by (ox, oy, ox2, oy2) or a scalar."""
         if not isinstance(offset, (tuple, list)):
             offset = (offset,) * 4
+        if _python_scalars(offset):
+            self.bboxes += np.array(offset, dtype=self.bboxes.dtype)
+            return
         for i in range(4):
             self.bboxes[:, i] += offset[i]
 
@@ -123,8 +135,9 @@ class Instances:
     def clip(self, w, h):
         fmt = self._bboxes.format
         self.convert_bbox("xyxy")
-        self.bboxes[:, [0, 2]] = self.bboxes[:, [0, 2]].clip(0, w)
-        self.bboxes[:, [1, 3]] = self.bboxes[:, [1, 3]].clip(0, h)
+        b = self.bboxes
+        np.clip(b[:, 0::2], 0, w, out=b[:, 0::2])  # in place through views: the same values as a gather, clip, scatter
+        np.clip(b[:, 1::2], 0, h, out=b[:, 1::2])
         if fmt != "xyxy":
             self.convert_bbox(fmt)
 
