@@ -133,10 +133,17 @@ Phases, each of which exits non-zero on failure:
      loader alone,
      one step's stages alone (forward, loss with TAL, backward, clip +
      optimizer + EMA, the whole step graphed and eager) with its peak memory
-     graphed and eager, an epoch loop's third pass taken apart (loader,
-     upload, host enqueue, the card; the pass's captures and first sights)
-     graphed and eager, the device's idle share over 2 epochs
-     (torch.profiler) graphed and eager; times K5, K6a and K6b forward and
+     graphed and eager, an epoch loop's third pass taken apart (blocked on
+     the feed, the hand-over, host enqueue, the card; the pass's captures
+     and first sights; from a fourth pass under torch.profiler, the
+     batches' copies: ms and GB/s on the card, and the share of each that
+     kernels overlapped) graphed and eager, the device's idle share over 2
+     epochs (torch.profiler) graphed and eager, with the host-to-device
+     copies by the source memory's kind (no batch from pageable memory) and
+     their overlap with kernels, and one epoch with the EMA val the same
+     way; the warm graphed loop as `_train_epochs` runs it (no sync a
+     step), fp32 and bf16, two passes under torch.profiler: ms a step, the
+     copies by kind, their ms and their overlap with kernels; times K5, K6a and K6b forward and
      backward at B 16, A 8,400, fp32 and bf16, K7 at M 32 and 64, and K9
      forward and backward at M 32 (K 320) on the assigner's masks, each warm
      (one input set) and cold (input sets in turn, more than 100 MB), beside
@@ -200,7 +207,16 @@ Phases, each of which exits non-zero on failure:
      the CPU on 2,000 random OBBs: batch_probiou, nms_rotated, the rotated
      assigner at B 16, A 8,400, M 32; (d) the deformable decoder at
      RT-DETR-L's widths (d 256, 8 heads, 3 levels, 4 points, 300 queries,
-     6 layers, batch 8) on the card against the CPU, relative L2 1e-4.
+     6 layers, batch 8) on the card against the CPU, relative L2 1e-4;
+     rank 0 fed its batches from page-locked buffers.
+  9. feed (run after phase 4): predict (batch 1, 32, and a folder of 128
+     JPEG frames at batch 32), val (32 PNGs, batch 16, rect) and
+     InferencePipeline (batch 8), each warm under torch.profiler: the
+     host-to-device copies by the source memory's kind, failing on any
+     batch copied from pageable memory; the hand-over's host ms, each
+     batch's copy ms and GB/s, and the share of each batch's copy that
+     kernels overlapped. Every window that counts copies begins and ends
+     with a pad (`htod_profile`).
 The kernels line's launches count the runs of the main paths (a replayed
 graph adds the launches its capture recorded): for K5, K6a, K6b, K9 (and
 their backwards), K7 and K10, phase 5 (b)'s graphed train runs in fp32 and
@@ -2382,6 +2398,163 @@ def profile_calls(fn, reps: int):
     return wall, busy, len(on_device)
 
 
+@contextlib.contextmanager
+def recorded_uploads():
+    """Every `Upload` (data/build.py: a feed's, or the pipeline's) made inside the block, in order: their counters
+    (batches, bytes, the byte sizes of the arrays sent, each batch's copy events, the hand-over's host time)."""
+    from yololite_tpu_torch.data import build
+
+    made, init = [], build.Upload.__init__
+
+    def recording(self, *a, **kw):
+        init(self, *a, **kw)
+        made.append(self)
+
+    build.Upload.__init__ = recording
+    try:
+        yield made
+    finally:
+        build.Upload.__init__ = init
+
+
+PAD_BYTES = 4099  # a pad copy's size: no batch array's (uint8 images are 3 H W a row, the targets multiples of 16)
+
+
+def _profiler_pad():
+    """Work on the card that is no batch's: 8 page-locked copies of PAD_BYTES and 256 small kernels, then a sync. In
+    this script's chip runs, a window profiled after earlier profiled phases lost one of its three batch copies (the
+    same calls profiled alone in a fresh process kept all of them), so a window that counts batch copies begins and
+    ends with this pad."""
+    import torch
+
+    host = torch.zeros(PAD_BYTES, dtype=torch.uint8).pin_memory()
+    dev = torch.empty(PAD_BYTES, dtype=torch.uint8, device="cuda")
+    for _ in range(8):
+        dev.copy_(host, non_blocking=True)
+    for _ in range(256):
+        dev.add_(1)
+    torch.cuda.synchronize()
+
+
+@contextlib.contextmanager
+def htod_profile():
+    """torch.profiler (CPU and CUDA) over the block, padded at both ends (`_profiler_pad`); yields (the profiler, the
+    uploads made in the block: `recorded_uploads`). Read the copies with `htod_copies` after the block."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _profiler_pad()
+        with recorded_uploads() as uploads:
+            yield prof, uploads
+        torch.cuda.synchronize()
+        _profiler_pad()
+
+
+def _merged(intervals):
+    out = []
+    for a, b in sorted(intervals):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def _covered(merged, starts, a: float, b: float) -> float:
+    """The length of [a, b] that the merged intervals cover."""
+    import bisect
+
+    got, i = 0.0, max(bisect.bisect_right(starts, a) - 1, 0)
+    while i < len(merged) and merged[i][0] < b:
+        got += max(0.0, min(b, merged[i][1]) - max(a, merged[i][0]))
+        i += 1
+    return got
+
+
+def htod_copies(prof, uploads, what: str) -> dict:
+    """The host-to-device copies that a torch.profiler run saw (its Chrome trace), by the source memory's kind
+    (Pinned or Pageable in the copy's name), and the batches' among them: those whose byte count is the size of an
+    array one of `uploads` sent; the pads of `htod_profile` are left out. Fails on any batch copied from pageable
+    memory, and unless the pinned batch copies number at least the batches the uploads sent. Returns the counts, the
+    batch copies' device ms a batch and GB/s, and, for each upload's batches after its first (each upload's copies
+    in time order, `arrays` a batch), the share of the batch's copy time that a kernel on the card overlapped."""
+    import json
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text())["traceEvents"]
+    kernels, copies, names = [], [], set()
+    for e in events:
+        if e.get("ph") != "X" or "dur" not in e:
+            continue
+        cat, name, t0 = str(e.get("cat", "")).lower(), str(e.get("name", "")), float(e["ts"])
+        if cat == "kernel":
+            kernels.append((t0, t0 + float(e["dur"])))
+        elif cat == "gpu_memcpy" and "HtoD" in name and int(e.get("args", {}).get("bytes", -1)) != PAD_BYTES:
+            names.add(name)
+            kind = "pinned" if "Pinned" in name else "pageable" if "Pageable" in name else name
+            copies.append((t0, t0 + float(e["dur"]), kind, int(e.get("args", {}).get("bytes", -1))))
+    sizes = set().union(*(u.sizes for u in uploads)) if uploads else set()
+    batches = sum(u.batches for u in uploads)
+    by_kind = {}
+    for _, _, kind, nbytes in copies:
+        n, b = by_kind.get(kind, (0, 0))
+        by_kind[kind] = (n + 1, b + max(nbytes, 0))
+    batch = sorted(c for c in copies if c[3] in sizes)
+    pageable = [c for c in batch if c[2] != "pinned"]
+    if pageable or len(batch) < batches:
+        raise AssertionError(f"{what}: {len(pageable)} batch copies from pageable memory and {len(batch)} batch "
+                             f"copies in all for {batches} batches sent ({len(copies)} host-to-device copies: "
+                             f"{sorted(names)}; {len(kernels)} kernels in the trace)")
+    merged = _merged(kernels)
+    starts = [a for a, _ in merged]
+    arrays = len(batch) // max(batches, 1)  # copies a batch: 1 (predict, val, pipeline) or 4 (train)
+    shares, i = [], 0
+    if len(batch) == arrays * batches:  # else other copies share a batch array's size: no grouping by batch
+        for u in uploads:
+            own = batch[i:i + u.batches * arrays]
+            i += u.batches * arrays
+            for j in range(1, u.batches):
+                group = own[j * arrays:(j + 1) * arrays]
+                dur = sum(b - a for a, b, _, _ in group)
+                shares.append(sum(_covered(merged, starts, a, b) for a, b, _, _ in group) / dur if dur > 0 else 1.0)
+    us = sum(b - a for a, b, _, _ in batch)
+    nbytes = sum(c[3] for c in batch)
+    return {"by_kind": by_kind, "batch_copies": len(batch), "batches": batches, "arrays": arrays, "shares": shares,
+            "copy_ms_a_batch": us / 1e3 / max(batches, 1), "gb_s": nbytes / us / 1e3 if us > 0 else None,
+            "mib_a_batch": nbytes / 2 ** 20 / max(batches, 1), "kernels": len(kernels)}
+
+
+def copies_text(c: dict) -> str:
+    kinds = ", ".join(f"{k} {n} ({b / 2 ** 20:.1f} MiB)" for k, (n, b) in sorted(c["by_kind"].items()))
+    rate = f"{c['gb_s']:.2f} GB/s" if c["gb_s"] else "no rate"
+    return (f"host-to-device copies by source kind: {kinds}; of them the batches' {c['batch_copies']} for "
+            f"{c['batches']} batches, all pinned, {c['copy_ms_a_batch']:.3f} ms a batch on the card "
+            f"({c['mib_a_batch']:.2f} MiB, {rate}); the batch copies' overlap with kernels on the card after each "
+            f"pass's first batch: {share_text(c['shares'])}")
+
+
+def share_text(shares) -> str:
+    import numpy as np
+
+    if not shares:
+        return "none measured (no batch after a pass's first)"
+    return (f"min {min(shares):.3f}, median {float(np.median(shares)):.3f}, mean {float(np.mean(shares)):.3f}, "
+            f"{sum(x >= 0.9 for x in shares)} of {len(shares)} batches at 0.9 or more")
+
+
+def handover_text(uploads) -> str:
+    """The consumer's host ms a batch handing batches over, and the share of the bytes staged by a host copy."""
+    batches = sum(u.batches for u in uploads)
+    hand = sum(u.handover_s for u in uploads) * 1e3 / max(batches, 1)
+    staged = sum(u.staged_bytes for u in uploads) / max(sum(u.bytes for u in uploads), 1)
+    return (f"hand-over {hand:.4f} ms a batch on the consumer's thread ({batches} batches); {staged:.3f} of the bytes "
+            f"copied into the ring on the host first")
+
+
 def card_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True).stdout.strip()
@@ -2890,10 +3063,10 @@ def graphed_vs_eager_steps(ov, model_fn, batches, nw: int) -> dict:
             calls = record_graph_calls(tr)
             items, fg, last, applies = [], [], -1, 0
             with graphs.eager() if kind != "graphed" else contextlib.nullcontext():
-                for ni, b in enumerate(batches):
+                for ni, (staged, _) in enumerate(tr.feed([dict(b) for b in batches])):
                     tr.accumulate, lr_vec, momentum = tr._schedule(ni, nw, 0)
                     apply = tr.fused or ni - last >= tr.accumulate
-                    items.append(tr._train_batch(dict(b), apply, lr_vec, momentum))
+                    items.append(tr._train_batch(staged, apply, lr_vec, momentum))
                     fg.append(tr.fg_mask)
                     if apply:
                         last, applies = ni, applies + 1
@@ -3013,7 +3186,7 @@ def train_phase(card: str):
     from yololite_tpu_torch.engine import validator as validator_mod
     from yololite_tpu_torch.engine.predictor import forward_nhwc, fp32_convs
     from yololite_tpu_torch.data.utils import check_det_dataset
-    from yololite_tpu_torch.engine.trainer import DetectionTrainer
+    from yololite_tpu_torch.engine.trainer import TARGET_KEYS, DetectionTrainer
     from yololite_tpu_torch.models import checkpoint as ckpt
     from yololite_tpu_torch.ops import loss_kernels as L
     from yololite_tpu_torch.ops import nms
@@ -3375,9 +3548,39 @@ def train_phase(card: str):
             f"{g.captures} captures, {g.replays} replays, on {card}")
 
     # where an epoch loop's wall time goes (fp32 graphed and eager, bf16 graphed), on the loader at the default
-    # workers: blocked on the loader, enqueueing the step (a replay: the graph launch and the copies in and out),
-    # waiting for the card; every step in the warmup's ramp (lr and momentum moving), as the first 100 iterations
-    # of a run are
+    # workers, the batches through the trainer's feed: blocked on the feed (the loader, or the feed's staging), handing
+    # the batch over (the step's stream waits on its copy), enqueueing the step (a replay: the graph launch and the
+    # copies in and out), waiting for the card; every step in the warmup's ramp (lr and momentum moving), as the first
+    # 100 iterations of a run are. A fourth pass, the same way under torch.profiler, gives the batches' copies on the
+    # card: ms, GB/s and the share of each copy that kernels overlapped
+    def loop_pass(lt, dtype):
+        """One pass of lt's loader through its feed, a sync after each step: the host seconds by part, each step's
+        host enqueue and whether it captured a graph, the pass's seconds."""
+        feed = lt.feed(lt.train_loader)
+        it, up = iter(feed), feed.upload
+        parts = dict.fromkeys(("feed", "handover", "enqueue", "device"), 0.0)
+        per_step = []
+        t_loop = time.perf_counter()
+        while True:
+            t0, h0 = time.perf_counter(), up.handover_s
+            got = next(it, None)
+            t1, hand = time.perf_counter(), up.handover_s - h0
+            if got is None:
+                break
+            staged = got[0]
+            captures = lt.graphs.captures
+            _, lr_vec, momentum = lt._schedule(ni[dtype], 100, 0)
+            ni[dtype] += 1
+            lt._grad_step(staged["img"], {k: staged[k] for k in TARGET_KEYS})
+            lt._apply_step(lr_vec, momentum)
+            t3 = time.perf_counter()
+            per_step.append((t3 - t1, lt.graphs.captures > captures))
+            torch.cuda.synchronize()
+            t4 = time.perf_counter()
+            for k, dt in zip(parts, (t1 - t0 - hand, hand, t3 - t1, t4 - t3)):
+                parts[k] += dt
+        return parts, per_step, time.perf_counter() - t_loop
+
     loop_trainers, ni = {}, {}
     for dtype, mode in (("fp32", "graphed"), ("fp32", "eager"), ("bf16", "graphed")):
         if dtype not in loop_trainers:
@@ -3388,64 +3591,87 @@ def train_phase(card: str):
             lt._setup_train()
             loop_trainers[dtype], ni[dtype] = lt, 0
         lt = loop_trainers[dtype]
-        parts = {"loader": 0.0, "upload": 0.0, "enqueue": 0.0, "device": 0.0}
         with graphs.eager() if mode == "eager" else contextlib.nullcontext():
             for rep in range(3):  # the first passes fill the image buffer, warm cuDNN and capture the keys
-                it = iter(lt.train_loader)
-                for k in parts:
-                    parts[k] = 0.0
                 counts = (lt.graphs.calls, lt.graphs.captures, lt.graphs.replays)
-                per_step = []  # (host enqueue s, whether the step captured a graph)
-                t_loop = time.perf_counter()
-                while True:
-                    t0 = time.perf_counter()
-                    b = next(it, None)
-                    t1 = time.perf_counter()
-                    if b is None:
-                        break
-                    images, targets = torch.from_numpy(b["img"]).to("cuda", non_blocking=True), lt._targets(b)
-                    torch.cuda.synchronize()
-                    t2 = time.perf_counter()
-                    captures = lt.graphs.captures
-                    _, lr_vec, momentum = lt._schedule(ni[dtype], 100, 0)
-                    ni[dtype] += 1
-                    lt._grad_step(images, targets)
-                    lt._apply_step(lr_vec, momentum)
-                    t3 = time.perf_counter()
-                    per_step.append((t3 - t2, lt.graphs.captures > captures))
-                    torch.cuda.synchronize()
-                    t4 = time.perf_counter()
-                    for k, dt in zip(parts, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
-                        parts[k] += dt
-                t_loop = time.perf_counter() - t_loop
+                parts, per_step, t_loop = loop_pass(lt, dtype)
+            calls, captures, replays = (a - b for a, b in zip((lt.graphs.calls, lt.graphs.captures,
+                                                               lt.graphs.replays), counts))
+            last = ni[dtype] - 1
+            with htod_profile() as (prof, uploads):
+                loop_pass(lt, dtype)
+        copies = htod_copies(prof, uploads, f"train {dtype} {mode} loop, a fourth pass")
         steps = len(lt.train_loader)
         ms = {k: v * 1e3 for k, v in parts.items()}
-        calls, captures, replays = (a - b for a, b in zip((lt.graphs.calls, lt.graphs.captures, lt.graphs.replays),
-                                                           counts))
         log(f"train: one {dtype} epoch loop taken apart, {mode}, its third pass ({n_train} images, {steps} steps in "
-            f"the warmup's ramp, iterations {ni[dtype] - steps}-{ni[dtype] - 1} of 100, loader at {lt.args.workers} "
-            f"workers: blocked on it {ms['loader'] / steps:.1f} ms a step beside the card's "
+            f"the warmup's ramp, iterations {last - steps + 1}-{last} of 100, loader at {lt.args.workers} "
+            f"workers: blocked on the feed {ms['feed'] / steps:.1f} ms a step beside the card's "
             f"{(ms['enqueue'] + ms['device']) / steps:.1f} ms a step from the step's enqueue to its end; "
             f"{calls} graph calls: {replays} replayed ({captures} of them captured in this pass), {calls - replays} "
-            f"eager at a key's first sight; host clock, a sync after the upload and after each step): "
-            f"{t_loop * 1e3:.1f} ms = blocked on the loader {ms['loader']:.1f} ms + uploading the pageable uint8 "
-            f"batch and the targets {ms['upload']:.1f} ms ({ms['upload'] / steps:.1f} ms a step) + host enqueueing "
-            f"forward, loss, backward, clip, AdamW and EMA {ms['enqueue']:.1f} ms ({ms['enqueue'] / steps:.1f} ms a "
-            f"step) + waiting for the card after that {ms['device']:.1f} ms ({ms['device'] / steps:.1f} ms a step); "
-            f"the enqueue of a step without a capture {', '.join(f'{e * 1e3:.1f}' for e, c in per_step if not c)} ms, "
-            f"of a step with one {', '.join(f'{e * 1e3:.1f}' for e, c in per_step if c) or '-'} ms, on {card}")
+            f"eager at a key's first sight; host clock, a sync after each step): "
+            f"{t_loop * 1e3:.1f} ms = blocked on the feed (the loader, or the feed's staging) {ms['feed']:.1f} ms + "
+            f"handing the batch and its targets over {ms['handover']:.3f} ms ({ms['handover'] / steps:.4f} ms a step) "
+            f"+ host enqueueing forward, loss, backward, clip, AdamW and EMA {ms['enqueue']:.1f} ms "
+            f"({ms['enqueue'] / steps:.1f} ms a step) + waiting for the card after that {ms['device']:.1f} ms "
+            f"({ms['device'] / steps:.1f} ms a step); the enqueue of a step without a capture "
+            f"{', '.join(f'{e * 1e3:.1f}' for e, c in per_step if not c)} ms, of a step with one "
+            f"{', '.join(f'{e * 1e3:.1f}' for e, c in per_step if c) or '-'} ms; a fourth pass the same way under "
+            f"torch.profiler: {copies_text(copies)}, on {card}")
 
-    # the device's idle share over a 2-epoch train (fp32, no val, no save) under torch.profiler, graphed and eager
-    for mode in ("graphed", "eager"):
-        pt = DetectionTrainer(overrides={"data": str(data), "imgsz": 640, "batch": bs, "epochs": 2, "val": False,
-                                         "save": False, "project": str(root / "runs"), "name": f"profile_{mode}"})
-        pt.set_model(start_model().model)
+    # the loop as `_train_epochs` runs it (no sync a step), graphed, on the warm trainers above (graphs captured, the
+    # images in the buffer): two passes under torch.profiler. The loop's ms a step, the steps' spans on the card (CUDA
+    # events), the feed's hand-over, and the batches' copies on the card (the trace): ms, GB/s and the share of each
+    # batch's copy after a pass's first that kernels overlapped
+    for dtype in ("fp32", "bf16"):
+        lt, spans = loop_trainers[dtype], []
+        with htod_profile() as (prof, uploads):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(2):
+                for staged, _ in lt.feed(lt.train_loader):
+                    _, lr_vec, momentum = lt._schedule(ni[dtype], 100, 0)
+                    ni[dtype] += 1
+                    span = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                    span[0].record()
+                    lt._grad_step(staged["img"], {k: staged[k] for k in TARGET_KEYS})
+                    lt._apply_step(lr_vec, momentum)
+                    span[1].record()
+                    spans.append(span)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        copies = htod_copies(prof, uploads, f"train {dtype} loop")
+        on_card = sum(a.elapsed_time(b) for a, b in spans)
+        log(f"train: the {dtype} epoch loop as _train_epochs runs it (graphed, warm, no sync a step, 2 passes of "
+            f"{len(spans) // 2} steps under torch.profiler): {wall * 1e3 / len(spans):.1f} ms a step, "
+            f"{n_train * 2 / wall:.1f} img/s, the steps' spans on the card {on_card / len(spans):.1f} ms a step; "
+            f"{copies_text(copies)}; {handover_text(uploads)}, on {card}")
+
+    # the device's idle share over a 2-epoch train (fp32, no val, no save) under torch.profiler, graphed and eager;
+    # the host-to-device copies in its trace by the source's kind (every batch from page-locked memory) and the share
+    # of each batch's copy that kernels overlapped; then one epoch with the EMA val, the same way
+    for mode, epochs, val in (("graphed", 2, False), ("eager", 2, False), ("graphed", 1, True)):
+        pt = DetectionTrainer(overrides={"data": str(data), "imgsz": 640, "batch": bs, "epochs": epochs, "val": val,
+                                         "save": False, "project": str(root / "runs"),
+                                         "name": f"profile_{mode}{'_val' if val else ''}"})
+        m = start_model().model
+        pt.set_model(m)
         with graphs.eager() if mode == "eager" else contextlib.nullcontext():
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with htod_profile() as (prof, uploads):
                 t0 = time.perf_counter()
                 pt.train()
                 torch.cuda.synchronize()
                 wall = (time.perf_counter() - t0) * 1e3
+        copies = htod_copies(prof, uploads, f"train {mode}{' with the EMA val' if val else ''}")
+        if val:
+            fed = {"train": sum(u.batches for u in uploads if u.ring is pt._ring),
+                   "val": sum(u.batches for u in uploads if u.ring is pt.validator._ring)}
+            if fed != {"train": n_train // bs, "val": len(pt.validator.dataloader)}:  # no save: no final val
+                raise AssertionError(f"train with val: batches fed {fed}")
+            log(f"train: one fp32 epoch, graphed, with the EMA val ({n_train} train and 16 val "
+                f"images, under torch.profiler): batches fed {fed}; {copies_text(copies)}; "
+                f"{handover_text(uploads)}, on "
+                f"{card}")
+            continue
         on_device = [e for e in prof.events()
                      if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
         if not on_device:
@@ -3460,7 +3686,8 @@ def train_phase(card: str):
             f"train() {wall:.1f} ms, epoch loops {loop:.1f} ms ({', '.join(f'{x * 1e3:.1f}' for x in pt.train_seconds)}"
             f"), device busy {device:.1f} ms, idle share of the epoch loops {1 - device / loop:.3f}, "
             f"{len(on_device)} device kernels and copies; {pt.graphs.captures} captures, {pt.graphs.replays} replays "
-            f"of {pt.graphs.calls} graph calls; top ms: {top}; on {card}")
+            f"of {pt.graphs.calls} graph calls; top ms: {top}; {copies_text(copies)}; {handover_text(uploads)}; "
+            f"on {card}")
 
     # K5, K6a, K6b (forward and backward) and K7 at the train step's shapes, beside their plain versions and bounds
     launches["loss_tail"] = loss_tail_numbers(card)
@@ -4664,6 +4891,9 @@ def parallel_phase(card: str, frames):
             t2.rank_kernel_launches["select_decode"] != n):
         raise AssertionError(f"2-rank train: last.npz {Path(t2.last).exists()}, rank 0's launches "
                              f"{t2.rank_kernel_launches}")
+    feed = t2.rank_feed  # rank 0's batches reached its card through the feed, from page-locked buffers
+    if not (feed["pinned"] and feed["batches"] == 64 // 16 and feed["pinned_bytes"] > 0):
+        raise AssertionError(f"2-rank train: rank 0's feed {feed}")
     k4 += n
     k3 += n
     k3_tally(n, "2-rank train (rank 0's EMA vals and final val)", routes=t2.rank_select_routes, only="cluster")
@@ -4675,7 +4905,8 @@ def parallel_phase(card: str, frames):
         f" s (epoch loop {t2.train_seconds[0]:.3f} s), one process {runs['one process'][1]:.1f} s (epoch loop "
         f"{runs['one process'][0].train_seconds[0]:.3f} s); loss items {curves['2 gloo ranks'][0].round(5).tolist()}"
         f" within {rel:.1e} of the one-process epoch; rank 0 saved last.npz and ran the EMA val and final val with "
-        f"K4 {n} launches, on {card}")
+        f"K4 {n} launches; rank 0 fed its {feed['batches']} batches from {feed['pinned_bytes'] / 2 ** 20:.1f} MiB of "
+        f"page-locked buffers, on {card}")
 
     # (c) rotated ops: the card against the CPU
     rng = np.random.default_rng(30)
@@ -4748,6 +4979,80 @@ def parallel_phase(card: str, frames):
         f"{t_dec:.3f} ms, on {card}")
     tmp.cleanup()
     return {"greedy_nms_keep": k1, "blocked_nms_finalize": k4, "select_decode": k3, "device_letterbox": k2}
+
+
+def feed_phase(card: str, model, frames) -> None:
+    """Phase 9: the feed to the card on predict, val and the pipeline, each run once warm under torch.profiler: its
+    host-to-device copies by the source memory's kind, failing on any batch copied from pageable memory
+    (`htod_copies`); the hand-over's host ms, each batch's copy ms and GB/s on the card (the trace), and the
+    share of each batch's copy that kernels overlapped. Train's and the EMA val's copies are counted in phase 5's
+    profiles, rank 0's feed in phase 8. The kernels' launch counts are restored at the end: these runs are
+    measurements, not the main paths' runs that the kernels line counts."""
+    import tempfile
+
+    import cv2
+    import torch
+
+    from yololite_tpu_torch.engine.predictor import DetectionPredictor
+    from yololite_tpu_torch.ops.kernels import COUNTED, select_decode
+    from yololite_tpu_torch.runtime import InferencePipeline
+
+    tmp = tempfile.TemporaryDirectory()
+    root = Path(tmp.name)
+    counts, routes = [w.launches for w in COUNTED], select_decode.by_route.as_dict()
+
+    def profiled(what: str, fn, n_img: int, calls: int = 3):
+        fn()
+        fn()  # a key's first sight runs eagerly, its second captures: the calls below replay
+        with htod_profile() as (prof, uploads):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        copies = htod_copies(prof, uploads, what)
+        log(f"feed: {what}, graphed, {calls} calls under torch.profiler: {calls * n_img / wall:.1f} img/s; "
+            f"{copies_text(copies)}; {handover_text(uploads)}, on {card}")
+
+    (root / "frames").mkdir()
+    for i in range(128):
+        if not cv2.imwrite(str(root / "frames" / f"f{i:03d}.jpg"), frames[i % len(frames)]):
+            raise RuntimeError("could not write a frame")
+    kw = dict(conf=1e-7, imgsz=640, save=False, verbose=False)
+    for what, src, bs, n_img in (("predict yolo11n fp32 at 640, batch 1, one in-memory frame a call", frames[:1], 1, 1),
+                                 ("predict yolo11n fp32 at 640, batch 32, 32 in-memory frames a call", frames, 32, 32),
+                                 ("predict yolo11n fp32 at 640, batch 32, a folder of 128 480x640 JPEG frames (4 "
+                                  "batches a call, decoded on the predictor's Prefetcher thread)", str(root / "frames"),
+                                  32, 128)):
+        profiled(what, lambda: model.predict(src, batch=bs, **kw), n_img)
+
+    shapes = [(480, 640), (640, 480), (640, 640), (360, 640)] * 8  # rect at batch 16: buckets of 8 to 16
+    data = write_val_dataset(root / "val32", shapes, seed=15)
+    profiled("val yolo11n fp32 at 640, batch 16, rect, 32 PNGs (the facade: a validator a call)",
+             lambda: model.val(data=str(data), imgsz=640, batch=16, rect=True, conf=1e-7, plots=False, verbose=False,
+                               project=str(root / "runs"), name="feed"), len(shapes))
+
+    pred = DetectionPredictor(overrides={"conf": 1e-7, "batch": 8, "imgsz": 640, "mode": "predict", "verbose": False,
+                                         "save": False})
+    pred.setup_model(model.model)
+    subs = [frames[(8 * i) % 32:(8 * i) % 32 + 8] for i in range(16)]
+
+    def pipeline():
+        pipe = InferencePipeline(pred, imgsz=640).start()
+        for b in subs:
+            pipe.submit(b)
+        pipe.close()
+        if len(list(pipe.results())) != len(subs):
+            raise AssertionError("pipeline: a submission's result is missing")
+
+    profiled("InferencePipeline yolo11n fp32 at 640, batch 8, 16 submissions (letterboxed on its host thread)",
+             pipeline, 8 * len(subs), calls=1)
+    for w, n in zip(COUNTED, counts):
+        w.launches = n
+    for r, n in routes.items():
+        setattr(select_decode.by_route, r, n)
+    tmp.cleanup()
 
 
 def main() -> int:
@@ -5072,6 +5377,10 @@ def main() -> int:
     # ---- 4. val: yolo11n val at 640 through the facade ----
     k4_launches, k3_val, val_k4 = val_phase(card, model)
     k3_launches += k3_val["launches"]
+
+    # ---- 9 (run here, before the processes of phase 8): the feed on predict, val and the pipeline, profiled; no batch
+    # from pageable memory (measurements only: its launches are taken back, they are not the main paths') ----
+    feed_phase(card, model, frames)
 
     # ---- 5. train: yolo11n train at 640 through the facade ----
     counts = train_phase(card)

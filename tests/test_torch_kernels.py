@@ -865,10 +865,10 @@ def test_train_state_stays_outside_the_graph_pool(card, tmp_path):
     tr.set_model(_yolo11n_detecting())
     tr._setup_train()
     last = -1
-    for ni, b in enumerate(_train_batches(6)):
+    for ni, (staged, _) in enumerate(tr.feed(_train_batches(6))):
         tr.accumulate, lr_vec, momentum = tr._schedule(ni, -1, 0)
         apply = ni - last >= tr.accumulate
-        tr._train_batch(b, apply, lr_vec, momentum)
+        tr._train_batch(staged, apply, lr_vec, momentum)
         last = ni if apply else last
     torch.cuda.synchronize()
     assert {k[0] for k in tr.graphs._graphs} == {"grad", "apply"}
@@ -1437,3 +1437,47 @@ def test_end2end_loss_gathers_with_k9_in_both_heads(card):
     """The end2end loss at 640, batch 16, M 32 (chip_smoke.e2e_loss_check): both heads compact (K9 and its backward
     twice a step), items within rtol 1e-5 and d loss / d maps bit for bit against the plain versions."""
     e2e_loss_check(torch.cuda.get_device_name(0))
+
+
+# ---------------- the feed to the card ----------------
+
+
+def test_feed_buffers_are_pinned_and_a_slow_step_keeps_its_batch(card, tmp_path):
+    """The feed's host buffers are page-locked, the loader's rows written straight into them (no staging copy);
+    a step slowed with torch.cuda._sleep, whose batch is dropped as soon as its read is queued, still reads the
+    bytes it was sent while the next batches are staged and copied into recycled memory (the ring reuses a host
+    buffer only after its copy, the allocator a device block only after the consumer's stream used it); the bytes
+    on the card equal a pageable upload's."""
+    from chip_smoke import write_val_dataset
+    from yololite_tpu_torch.data.build import DeviceFeed, PinnedRing
+    from yololite_tpu_torch.data.dataset import DataLoader, YOLODataset
+
+    rng = np.random.default_rng(5)
+    batches = [{"img": rng.integers(0, 256, (4, 256, 256, 3), np.uint8), "n": i} for i in range(12)]
+    ring = PinnedRing(card, depth=2)
+    feed = DeviceFeed(batches, card, lambda b, take: ({"img": b["img"]}, b["n"]), ring=ring)
+    reads = []
+    for tensors, n in feed:
+        x = tensors.pop("img")
+        torch.cuda._sleep(20_000_000)  # the step, some 10 ms on the card, then its read of the batch
+        reads.append((n, x.clone()))
+        del x, tensors
+    torch.cuda.synchronize()
+    assert [n for n, _ in reads] == list(range(12)) and ring.pinned and ring.in_use() == 0
+    assert all(b.host.is_pinned() for group in ring._idle.values() for b in group) and ring.allocations <= 3
+    for n, got in reads:
+        assert torch.equal(got, torch.from_numpy(batches[n]["img"]).to(card))  # a pageable upload's bytes
+    up = feed.upload
+    assert up.staged_bytes == up.bytes == sum(b["img"].nbytes for b in batches) and up.batches == 12
+
+    root = tmp_path / "ds"
+    write_val_dataset(root, [(480, 640), (640, 480), (640, 640), (360, 640)] * 2, seed=6)
+    loader = DataLoader(YOLODataset(str(root / "images" / "val"), imgsz=640, batch_size=4, rect=True,
+                                    data={"names": {i: str(i) for i in range(80)}}), batch_size=4, workers=2)
+    want = [b["img"] for b in loader]
+    ring = PinnedRing(card)
+    feed = DeviceFeed(loader, card, ring=ring)
+    got = [tensors["img"].cpu() for tensors, _ in feed]
+    assert feed.upload.staged_bytes == 0 and len(got) == len(want) == 2
+    assert all(torch.equal(g, torch.from_numpy(w)) for g, w in zip(got, want))
+    assert all(b.host.is_pinned() for group in ring._idle.values() for b in group) and ring.in_use() == 0

@@ -345,11 +345,11 @@ def test_step_scalars_in_tensors_match_host_floats(dataset, opt, acc):
     for p in ref.model.parameters():
         p.grad = None
     nw, last, updates, applies = 5, -1, 0, 0
-    for ni in range(8):
-        b = _batch(60 + ni, imgsz=64)
+    batches = [_batch(60 + ni, imgsz=64) for ni in range(8)]
+    for ni, ((staged, _), b) in enumerate(zip(tt.feed(batches), batches)):
         tt.accumulate, lr_vec, momentum = tt._schedule(ni, nw, 0)
         apply = tt.fused or ni - last >= tt.accumulate
-        got = tt._train_batch(b, apply, lr_vec, momentum)
+        got = tt._train_batch(staged, apply, lr_vec, momentum)
         total, want, _ = ref.loss_fn.forward(ref._forward(torch.from_numpy(b["img"])), ref._targets(b))
         total.backward()
         if apply:

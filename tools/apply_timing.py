@@ -15,7 +15,8 @@ weights) through `DetectionTrainer`:
     momentum move every iteration) in the unfused form (nbs 64: a grad
     graph, then the apply) and in the fused form (nbs 16: accumulate 1),
     each step's host enqueue (a sync before the step, the host clock until
-    the step's calls return) and how each graph call ran (eager, captured or
+    the step's calls return; a tree from before the feed of
+    data/build.py uploads its batch in that time) and how each graph call ran (eager, captured or
     replayed: `chip_smoke.record_graph_calls`).
 A process imports one package, so to compare two trees on one card run this
 once per tree in one call, in turns (A, B, B, A), for example with the parent
@@ -47,8 +48,10 @@ def warmup_steps(smoke, trainer_cls, overrides: dict, model, n: int = 12) -> dic
     tr._setup_train()
     calls = smoke.record_graph_calls(tr)
     enqueue, last, ni = [], -1, 0
+    # a tree with the feed hands the step device tensors; one before it uploads in `_train_batch`, inside the time
+    fed = (lambda: (b for b, _ in tr.feed(tr.train_loader))) if hasattr(tr, "feed") else lambda: tr.train_loader
     while ni < n:
-        for b in tr.train_loader:
+        for b in fed():
             if ni == n:
                 break
             tr.accumulate, lr_vec, momentum = tr._schedule(ni, 100, 0)

@@ -125,14 +125,14 @@ def main() -> int:
     class Timed(D.DataLoader):
         """Times each batch's plans on the planning thread (wall and that thread's CPU)."""
 
-        def _start_batch(self, chunk, pool):
+        def _start_batch(self, chunk, pool, alloc):
             t0, c0 = time.perf_counter(), time.thread_time()
             items = [self.dataset.plan(i) for i in chunk]
             self.plan_ms.append(((time.perf_counter() - t0) * 1e3, (time.thread_time() - c0) * 1e3))
             planned = iter(items)
             self.dataset.plan = lambda i: next(planned)
             try:
-                return super()._start_batch(chunk, pool)
+                return super()._start_batch(chunk, pool, alloc)
             finally:
                 del self.dataset.plan
 

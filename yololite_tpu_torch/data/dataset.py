@@ -32,7 +32,7 @@ from concurrent.futures import ThreadPoolExecutor
 from copy import deepcopy
 from functools import partial
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 
@@ -481,6 +481,11 @@ class DataLoader:
         return slice(self.rank * k, (self.rank + 1) * k)
 
     def __iter__(self):
+        return self.iterate()
+
+    def iterate(self, alloc: Callable = np.empty):
+        """The batches, each batch's image array made by `alloc(shape, np.uint8)` (a feed's pinned host buffer;
+        by default a fresh array, so that batches held at once never share memory)."""
         if self.workers > 1:  # the pool's threads each run cv2 on one thread: cv2's own pool fought them
             import cv2
 
@@ -492,7 +497,7 @@ class DataLoader:
             def submit():
                 chunk = next(chunks, None)
                 if chunk is not None:
-                    pending.append(planner.submit(self._start_batch, chunk, pool if self.workers else None))
+                    pending.append(planner.submit(self._start_batch, chunk, pool if self.workers else None, alloc))
 
             for _ in range(2):  # two batches in flight
                 submit()
@@ -501,15 +506,16 @@ class DataLoader:
                 submit()
                 yield self._finish_batch(*started)
 
-    def _start_batch(self, chunk, pool):
-        """Plan the batch's items in order, then start the pixel work of this rank's rows (on the pool, or here)."""
+    def _start_batch(self, chunk, pool, alloc):
+        """Plan the batch's items in order, then start the pixel work of this rank's rows (on the pool, or here) into
+        an array from `alloc`."""
         items = [self.dataset.plan(i) for i in chunk]
         rows = self.rows(len(items))
         shape = items[rows.start]["img"].shape
         for j in range(rows.start, rows.stop):
             if items[j]["img"].shape != shape:
                 raise ValueError(f"a batch's images differ in shape: {items[j]['img'].shape} and {shape}")
-        out = np.empty((rows.stop - rows.start, *shape), np.uint8)
+        out = alloc((rows.stop - rows.start, *shape), np.uint8)
         work = [partial(self.dataset.apply, items[j], out[j - rows.start]) for j in range(rows.start, rows.stop)]
         for j in (*range(rows.start), *range(rows.stop, len(items))):  # other ranks' rows
             self.dataset.release(items[j])

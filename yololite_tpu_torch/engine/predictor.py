@@ -1,13 +1,18 @@
 """Streaming detection predictor (port of yololite_tpu/engine/predictor.py).
 
-Per batch: a same-shape uint8 batch is uploaded as is (BGR) and letterboxed
-on the device (`ops.kernels.device_letterbox`, K2 on the card, which reverses
-the channels as it reads them and writes the layout the net's first conv
-reads); other batches are letterboxed on the host with cv2. Then forward +
-select-first decode (K3) + exact greedy NMS run on
-the device and return a padded (B, max_det, 6) tensor, which is copied to
-the host, rescaled and wrapped in Results. Tail batches are padded to the
-batch size so every batch has the same shape.
+The source is read (files decoded) on a `Prefetcher` thread, as in the JAX
+package. Per batch, on a feed's thread behind it (data/build.py
+`DeviceFeed`, the counterpart of the JAX package's `device_put`), the frames
+of a same-shape batch are stacked and zero-padded to the batch size
+straight into a page-locked buffer (BGR uint8); other batches are
+letterboxed on the host with cv2 first. The buffer is copied on the card's
+copy stream while the batch before is inferred. A uint8 batch is letterboxed on the device
+(`ops.kernels.device_letterbox`, K2 on the card, which reverses the channels
+as it reads them and writes the layout the net's first conv reads). Then
+forward + select-first decode (K3) + exact greedy NMS run on the device and
+return a padded (B, max_det, 6) tensor, which is copied to the host,
+rescaled and wrapped in Results. Tail batches are padded to the batch size
+so every batch has the same shape.
 
 Given several devices (a list, or a comma string such as '0,1'), the
 predictor holds one replica of the fused net per device: each batch that
@@ -42,7 +47,7 @@ import numpy as np
 import torch
 
 from yololite_tpu_torch.cfg import get_cfg, get_save_dir
-from yololite_tpu_torch.data.build import Prefetcher, load_inference_source
+from yololite_tpu_torch.data.build import DeviceFeed, PinnedRing, Prefetcher, load_inference_source
 from yololite_tpu_torch.data.loaders import VID_FORMATS
 from yololite_tpu_torch.engine.graphs import GraphCache
 from yololite_tpu_torch.engine.results import Results
@@ -130,6 +135,8 @@ class DetectionPredictor:
         self._lock = threading.Lock()
         self.done_warmup = False
         self._graphs = GraphCache()  # the captured steps of self.net's replicas
+        self._ring = PinnedRing(self.device)  # the feed's host buffers, kept across calls
+        self.last_feed: Optional[DeviceFeed] = None  # the last call's feed, with its counters
 
     # ---- setup ----
 
@@ -289,14 +296,32 @@ class DetectionPredictor:
             return self.stream_inference(source)
         return list(self.stream_inference(source))
 
-    def _pad(self, x, batch_size: int):
-        """Pad a batch with zero images up to batch_size (numpy array or tensor)."""
-        n = len(x)
-        if n >= batch_size:
-            return x
-        if isinstance(x, torch.Tensor):
-            return torch.cat([x, x.new_zeros((batch_size - n, *x.shape[1:]))])
-        return np.concatenate([x, np.zeros((batch_size - n, *x.shape[1:]), x.dtype)])
+    @staticmethod
+    def _padded(take, images, batch_size: int) -> np.ndarray:
+        """The images (arrays of one shape and dtype) stacked into `take`'s buffer, zero images after them up to
+        batch_size."""
+        n = len(images)
+        out = take((max(n, batch_size), *images[0].shape), images[0].dtype)
+        for j, im in enumerate(images):
+            out[j] = im
+        out[n:] = 0
+        return out
+
+    def _stage(self, item, take, is_tensor: bool):
+        """A loader batch -> the array to send and what the host keeps (`DeviceFeed`'s prepare, on its thread):
+        a pre-normalized float tensor source as it is, a same-shape batch of frames as uint8 BGR for the device's
+        letterbox, mixed shapes letterboxed here; each padded to the batch size."""
+        paths, im0s, infos = item
+        batch_size = int(self.args.batch)
+        if is_tensor:
+            im = np.asarray(im0s, np.float32)
+            return ({"x": self._padded(take, im, batch_size)},
+                    ("tensor", paths, convert_batch2numpy(im), infos, im0s, im.shape[1:3]))  # BGR uint8 for Results
+        if len({im.shape for im in im0s}) == 1:
+            return {"x": self._padded(take, im0s, batch_size)}, ("uint8", paths, im0s, infos, im0s,
+                                                                  (self.imgsz[0], self.imgsz[1]))
+        im = preprocess_batch(im0s, imgsz=self.imgsz[0])
+        return {"x": self._padded(take, im, batch_size)}, ("host", paths, im0s, infos, im0s, im.shape[1:3])
 
     def stream_inference(self, source):
         """Generator yielding per-image Results; the host side is prefetched on a thread."""
@@ -309,53 +334,49 @@ class DetectionPredictor:
             self.warmup(batch=self.args.batch)
 
         profilers = (Profile(), Profile(), Profile())
-        batch_size = int(self.args.batch)
         with self._lock:
             is_tensor = getattr(getattr(self.dataset, "source_type", None), "tensor", False)
-            for paths, im0s, infos in Prefetcher(self.dataset, depth=2):
-                n = len(im0s)
-                # a tensor source calibrates on itself, frames on their host letterbox
-                self._maybe_quantize(lambda: np.asarray(im0s, np.float32) if is_tensor
-                                     else preprocess_batch(im0s, imgsz=self.imgsz[0]))
-                if is_tensor:  # pre-normalized NHWC float batch: no letterbox needed
-                    im = np.asarray(im0s, np.float32)
-                    im0s = convert_batch2numpy(im)  # BGR uint8 for Results
-                    with profilers[0]:
-                        x = torch.from_numpy(self._pad(im, batch_size)).to(self.device)
-                        input_hw = im.shape[1:3]
+            # the source read on a thread of its own: read on the feed's thread, each batch's decode and stage in
+            # turn, a folder of JPEG frames predicted slower (tools/feed_probe.py)
+            feed = self.last_feed = DeviceFeed(Prefetcher(self.dataset, depth=2), self.device,
+                                               lambda item, take: self._stage(item, take, is_tensor), ring=self._ring)
+            batches = iter(feed)
+            try:
+                while True:
+                    with profilers[0]:  # this thread's time getting the batch onto the device
+                        staged = next(batches, None)
+                    if staged is None:
+                        break
+                    x, (kind, paths, im0s, infos, raw0s, input_hw) = staged[0]["x"], staged[1]
+                    n = len(raw0s)
+                    # a tensor source calibrates on itself, frames on their host letterbox
+                    self._maybe_quantize(lambda: np.asarray(raw0s, np.float32) if is_tensor
+                                         else preprocess_batch(raw0s, imgsz=self.imgsz[0]))
                     with profilers[1]:
-                        dets = self.infer(x).cpu().numpy()
-                elif len({im.shape for im in im0s}) == 1:  # device path: upload uint8, letterbox on the card
-                    with profilers[0]:
-                        raw = self._pad(torch.from_numpy(np.stack(im0s)).to(self.device), batch_size)  # BGR
-                        input_hw = (self.imgsz[0], self.imgsz[1])
-                    with profilers[1]:
-                        dets = self.infer_uint8(raw, self.imgsz[0], bgr=True).cpu().numpy()
-                else:  # mixed shapes: host letterbox (cv2)
-                    with profilers[0]:
-                        im = self._pad(preprocess_batch(im0s, imgsz=self.imgsz[0]), batch_size)
-                        x = torch.from_numpy(im).to(self.device)
-                        input_hw = im.shape[1:3]
-                    with profilers[1]:
-                        dets = self.infer(x).cpu().numpy()
-                with profilers[2]:
-                    results = self.postprocess(dets[:n], input_hw, im0s, paths)
+                        if kind == "uint8":  # letterboxed on the card from the BGR frames
+                            dets = self.infer_uint8(x, self.imgsz[0], bgr=True).cpu().numpy()
+                        else:
+                            dets = self.infer(x).cpu().numpy()
+                    with profilers[2]:
+                        results = self.postprocess(dets[:n], input_hw, im0s, paths)
 
-                if self.args.visualize and not is_tensor:
-                    self._visualize_features(preprocess_batch(im0s[:1], imgsz=self.imgsz[0]))
+                    if self.args.visualize and not is_tensor:
+                        self._visualize_features(preprocess_batch(im0s[:1], imgsz=self.imgsz[0]))
 
-                for i, result in enumerate(results):
-                    self.seen += 1
-                    result.speed = {
-                        "preprocess": profilers[0].dt * 1e3 / n,
-                        "inference": profilers[1].dt * 1e3 / n,
-                        "postprocess": profilers[2].dt * 1e3 / n,
-                    }
-                    if self.args.verbose:
-                        LOGGER.info(f"{infos[i]}{result.verbose()}{profilers[1].dt * 1e3 / n:.1f}ms")
-                    if not is_tensor:
-                        self._save(result, paths[i])
-                    yield result
+                    for i, result in enumerate(results):
+                        self.seen += 1
+                        result.speed = {
+                            "preprocess": profilers[0].dt * 1e3 / n,
+                            "inference": profilers[1].dt * 1e3 / n,
+                            "postprocess": profilers[2].dt * 1e3 / n,
+                        }
+                        if self.args.verbose:
+                            LOGGER.info(f"{infos[i]}{result.verbose()}{profilers[1].dt * 1e3 / n:.1f}ms")
+                        if not is_tensor:
+                            self._save(result, paths[i])
+                        yield result
+            finally:
+                batches.close()
 
         for vw in getattr(self, "_vid_writers", {}).values():
             vw.release()

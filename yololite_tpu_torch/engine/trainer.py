@@ -28,6 +28,12 @@ captured) and inside `graphs.eager()`, the same step functions run eagerly.
 Each (batch shape, GT bucket) is recorded as the JAX trainer records its jit
 variants; past 12, multi-scale coarsens its size grid from /32 to /64.
 
+Each batch reaches the device through a feed (data/build.py `DeviceFeed`,
+the counterpart of the JAX trainer's `device_put`): on its thread, in batch
+order, multi-scale's resize, the padded targets and the step's variant; the
+images arrive in page-locked buffers that the loader's threads wrote, and
+the copies run on the card's copy stream while the step before runs.
+
 Checkpoints are the JAX package's native .npz (models/checkpoint.py), so
 either package resumes or predicts from the other's last.npz and best.npz.
 
@@ -63,6 +69,7 @@ import torch
 import torch.distributed as dist
 
 from yololite_tpu_torch.cfg import get_cfg, get_save_dir
+from yololite_tpu_torch.data.build import DeviceFeed, PinnedRing
 from yololite_tpu_torch.data.dataset import build_dataloader, build_yolo_dataset
 from yololite_tpu_torch.data.utils import check_det_dataset
 from yololite_tpu_torch.engine import graphs, optim
@@ -77,6 +84,7 @@ from yololite_tpu_torch.utils.ema import ModelEMA
 from yololite_tpu_torch.utils.loss import E2EDetectLoss, build_targets, v8DetectionLoss
 
 MAX_TRAIN_GRAPHS = 32  # graphs a trainer's cache holds: (shape, GT bucket) variants, bounded by multi-scale's /64 grid
+TARGET_KEYS = ("gt_labels", "gt_bboxes", "mask_gt")
 
 
 def one_cycle(y1=1.0, y2=0.01, steps=100):
@@ -157,7 +165,7 @@ class DetectionTrainer:
         self.devices = [select_device(dev)] if self.group is not None else self._train_devices(dev)
         self.device = self.devices[0]
         self.mesh = None
-        self.np_rng = np.random.RandomState(self.args.seed)  # multi-scale draws on the main thread
+        self.np_rng = np.random.RandomState(self.args.seed)  # multi-scale draws: the feed's thread, in batch order
         self._set_save_dir(get_save_dir(self.args))
         self.epochs = int(self.args.epochs or 100)
         self.start_epoch = 0
@@ -179,6 +187,8 @@ class DetectionTrainer:
         self._step_shapes = set()  # (batch shape, GT bucket) variants of the step, as the JAX trainer records them
         self._ms_quant = 32  # multi-scale size grid; 64 once more than 12 variants were seen
         self.graphs = graphs.GraphCache(MAX_TRAIN_GRAPHS)  # the train steps' CUDA graphs (one process on the card)
+        self._ring = PinnedRing(self.device)  # the feed's host buffers, kept across the epochs
+        self.last_feed: Optional[DeviceFeed] = None  # the last epoch's feed, with its counters
 
     def _set_save_dir(self, save_dir):
         self.save_dir = Path(save_dir)
@@ -339,15 +349,35 @@ class DetectionTrainer:
         with torch.autocast(self.device.type, dtype=torch.bfloat16, enabled=bool(self.args.amp), cache_enabled=False):
             return forward_nhwc(self.model, x)
 
-    def _targets(self, batch) -> Dict[str, torch.Tensor]:
+    def _host_targets(self, batch) -> Dict[str, np.ndarray]:
         """The global batch's GTs padded to the next power of two of its most boxes per image (>= 16, <= max_gt); a
         rank's loader batch holds the global batch's labels and its own image rows (`img_rows`)."""
         n = batch["img_rows"][2] if "img_rows" in batch else batch["img"].shape[0]
         counts = np.bincount(np.asarray(batch["batch_idx"]).astype(int), minlength=n)
         need = max(16, int(counts.max(initial=16)))
         m_bucket = min(self.max_gt, 1 << (need - 1).bit_length())
-        t = build_targets(batch, n, batch["img"].shape[1:3], m_bucket)
-        return {k: torch.from_numpy(v).to(self.device, non_blocking=True) for k, v in t.items()}
+        return build_targets(batch, n, batch["img"].shape[1:3], m_bucket)
+
+    def _targets(self, batch) -> Dict[str, torch.Tensor]:
+        """`_host_targets` on the device, for a step taken by hand (tests, measurements); the training loop's
+        targets go through the feed with its images."""
+        return {k: torch.from_numpy(v).to(self.device) for k, v in self._host_targets(batch).items()}
+
+    def _stage(self, batch, take):
+        """A loader batch -> the arrays the step reads, on the feed's thread in batch order (`DeviceFeed`'s
+        `prepare`): multi-scale's resize and draw, this process' image rows, the padded targets; the step's variant
+        is recorded here, so that multi-scale's grid coarsens before the next batch's draw, as it did when each
+        batch was prepared on the loop's thread."""
+        batch = self.preprocess_batch(batch)
+        targets = self._host_targets(batch)
+        images = batch["img"] if "img_rows" in batch else batch["img"][self._rows(len(batch["img"]))]
+        self._track_compiles(images.shape, targets["gt_bboxes"].shape[1])
+        return {"img": images, **targets}, None
+
+    def feed(self, batches) -> DeviceFeed:
+        """The feed of host batches (the train loader, or any iterable of loader-like batches) to this trainer's
+        device: yields ({"img": this process' uint8 NHWC rows, "gt_labels", "gt_bboxes", "mask_gt"}, None)."""
+        return DeviceFeed(batches, self.device, self._stage, ring=self._ring)
 
     def _step_key(self, kind: str, images: Optional[torch.Tensor], targets: Optional[Dict]) -> tuple:
         """The graph key of a train step: its kind ("grad", "apply" or "fused"), the batch's device, and its shape and
@@ -477,13 +507,10 @@ class DetectionTrainer:
         lr = self.lr0 * self.lf(epoch)
         return self.accumulate, np.array([lr, lr, lr], np.float32), self.momentum
 
-    def _train_batch(self, batch, apply: bool, lr_vec, momentum: float):
-        """One iteration on a loader batch: the grad step, and the apply step if `apply` (one fused step where the
-        run is fused). Returns the loss items on the device."""
-        batch = self.preprocess_batch(batch)
-        images = torch.from_numpy(batch["img"]).to(self.device, non_blocking=True)
-        targets = self._targets(batch)
-        self._track_compiles(images.shape, targets["gt_bboxes"].shape[1])
+    def _train_batch(self, staged: Dict[str, torch.Tensor], apply: bool, lr_vec, momentum: float):
+        """One iteration on a batch from the feed (`feed`): the grad step, and the apply step if `apply` (one fused
+        step where the run is fused). Returns the loss items on the device."""
+        images, targets = staged["img"], {k: staged[k] for k in TARGET_KEYS}
         if self.fused:
             return self._fused_step(images, targets, lr_vec, momentum)
         items = self._grad_step(images, targets)
@@ -557,20 +584,24 @@ class DetectionTrainer:
             self.model.train()
             tloss = None
             t0 = time.perf_counter()
-            pbar = TQDM(enumerate(self.train_loader), total=nb, desc=f"epoch {epoch + 1}/{self.epochs}")
-            for i, batch in pbar:
-                ni = i + nb * epoch
-                self.accumulate, lr_vec, momentum = self._schedule(ni, nw, epoch)
-                apply = self.fused or ni - last_opt_step >= self.accumulate
-                items = self._train_batch(batch, apply, lr_vec, momentum)
-                if apply:
-                    last_opt_step = ni
-                # the running mean stays on the device: reading it here would sync every step
-                tloss = items if tloss is None else (tloss * i + items) / (i + 1)
-                if i % max(nb // 4, 1) == 0:
-                    t = tloss.tolist()
-                    pbar.set_description(f"epoch {epoch + 1}/{self.epochs} box {t[0]:.3f} cls {t[1]:.3f} "
-                                         f"dfl {t[2]:.3f}")
+            feed = self.last_feed = self.feed(self.train_loader)
+            pbar = TQDM(enumerate(feed), total=nb, desc=f"epoch {epoch + 1}/{self.epochs}")
+            try:
+                for i, (staged, _) in pbar:
+                    ni = i + nb * epoch
+                    self.accumulate, lr_vec, momentum = self._schedule(ni, nw, epoch)
+                    apply = self.fused or ni - last_opt_step >= self.accumulate
+                    items = self._train_batch(staged, apply, lr_vec, momentum)
+                    if apply:
+                        last_opt_step = ni
+                    # the running mean stays on the device: reading it here would sync every step
+                    tloss = items if tloss is None else (tloss * i + items) / (i + 1)
+                    if i % max(nb // 4, 1) == 0:
+                        t = tloss.tolist()
+                        pbar.set_description(f"epoch {epoch + 1}/{self.epochs} box {t[0]:.3f} cls {t[1]:.3f} "
+                                             f"dfl {t[2]:.3f}")
+            finally:
+                feed.close()
             tloss = tloss.cpu().numpy() if tloss is not None else None  # waits for the epoch's last step
             self.train_seconds.append(time.perf_counter() - t0)
             self.tlosses.append(tloss)
@@ -760,7 +791,10 @@ def _train_rank(rank: int, world: int, device: torch.device, overrides: Dict, sa
             # this process' kernel launches (its EMA vals' and final val's NMS), which the caller's counters do not see,
             # and K3's by route
             "rank_kernel_launches": {w.__name__: w.launches for w in COUNTED},
-            "rank_select_routes": select_decode.by_route.as_dict()}
+            "rank_select_routes": select_decode.by_route.as_dict(),
+            # how its batches reached its device: through the feed, from page-locked buffers on a card
+            "rank_feed": {"batches": tr.last_feed.upload.batches if tr.last_feed else 0, "pinned": tr._ring.pinned,
+                          "pinned_bytes": tr._ring.bytes}}
 
 
 def data_parallel_step(rank: int, world: int, device, overrides: Dict, model: DetectionModel, batches,
@@ -796,11 +830,12 @@ def data_parallel_step(rank: int, world: int, device, overrides: Dict, model: De
         batches = [next(it) for _ in range(batches)]
         it.close()
 
-    def rows(b):  # this rank's image rows (its own loader built only those)
-        return torch.from_numpy(b["img"] if "img_rows" in b else b["img"][tr._rows(len(b["img"]))]).to(tr.device)
+    def grad_steps():  # this rank's image rows (its own loader built only those) and the global targets, fed
+        for staged, _ in tr.feed(batches):
+            yield tr._grad_step(staged["img"], {k: staged[k] for k in TARGET_KEYS})
 
-    for b in batches:
-        items.append(tr._grad_step(rows(b), tr._targets(b)).cpu())
+    for step_items in grad_steps():
+        items.append(step_items.cpu())
         fg.append(tr.fg_mask.cpu())
     tr._sum_grads()
     grads = host({n: p.grad for n, p in tr.model.named_parameters() if p.grad is not None})
@@ -811,8 +846,8 @@ def data_parallel_step(rank: int, world: int, device, overrides: Dict, model: De
     for rep in range(timed_steps + 1 if timed_steps else 0):  # the first untimed: in one process it captures
         sync()
         t0 = time.perf_counter()
-        for b in batches:
-            tr._grad_step(rows(b), tr._targets(b))
+        for _ in grad_steps():
+            pass
         sync()
         t1 = time.perf_counter()
         tr._sum_grads()

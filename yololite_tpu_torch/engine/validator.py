@@ -1,7 +1,10 @@
 """Detection validator: device inference + host mAP accounting (port of yololite_tpu/engine/validator.py).
 
-Per batch, the collated uint8 NHWC batch is uploaded as it is and cast and
-divided by 255 on the device. The fused (and, with half, bf16) net runs,
+Per batch, the collated uint8 NHWC batch goes to the device as it is,
+through a feed (data/build.py `DeviceFeed`: the loader's threads write the
+batch into a page-locked buffer, and its copy runs on the card's copy
+stream while the batch before is inferred), and is cast and divided by 255
+on the device. The fused (and, with half, bf16) net runs,
 and the Detect maps go through the multi-label select-first NMS at
 K = 8192, scored in fp32 (`ops.nms.nms_from_feats`: on the card K3 reads
 the maps where they lie, bf16 ones upcast as read, then the
@@ -40,6 +43,7 @@ import numpy as np
 import torch
 
 from yololite_tpu_torch.cfg import get_cfg, get_save_dir
+from yololite_tpu_torch.data.build import DeviceFeed, PinnedRing
 from yololite_tpu_torch.data.dataset import build_dataloader, build_yolo_dataset
 from yololite_tpu_torch.data.utils import check_det_dataset
 from yololite_tpu_torch.engine.graphs import GraphCache
@@ -78,6 +82,8 @@ class DetectionValidator:
         self._infer = None
         self.ema_graphs = GraphCache()  # a trainer's val: its graphs, kept across the epochs
         self._ema_half = None  # (the trainer's EMA module, its bf16 copy) for a half-precision trainer val
+        self._ring = PinnedRing(self.device)  # the feed's host buffers, kept across calls
+        self.last_feed: Optional[DeviceFeed] = None  # the last call's feed, with its counters
 
     # ---- setup ----
 
@@ -160,14 +166,16 @@ class DetectionValidator:
         self.seen = 0
         self.stats = {"tp": [], "conf": [], "pred_cls": [], "target_cls": [], "target_img": []}
         profilers = (Profile(), Profile(), Profile())
-        bar = TQDM(self.dataloader, total=len(self.dataloader), desc="val")
-        for batch in bar:
-            with profilers[0]:
-                im = torch.from_numpy(batch["img"]).to(self.device)
-            with profilers[1]:
-                dets = infer(im).cpu().numpy()
-            with profilers[2]:
-                self.update_metrics(dets, batch)
+        feed = self.last_feed = DeviceFeed(self.dataloader, self.device, ring=self._ring)
+        try:
+            for staged, batch in TQDM(feed, total=len(self.dataloader), desc="val"):
+                with profilers[1]:
+                    dets = infer(staged["img"]).cpu().numpy()
+                with profilers[2]:
+                    self.update_metrics(dets, batch)
+        finally:
+            feed.close()
+        profilers[0].t = feed.wait_s  # this thread's time getting each batch onto the device
 
         stats = self.get_stats()
         self.speed = {

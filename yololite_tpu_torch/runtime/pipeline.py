@@ -2,9 +2,12 @@
 yololite_tpu/runtime/pipeline.py).
 
 Submission does not block while the buffers have room: a host thread
-letterboxes each batch (cv2) and pads it to the predictor's batch size, a
-dispatch thread uploads it, runs the predictor's `infer` on its device and
-copies the detections back, and the results wait in completion order.
+letterboxes each batch (cv2), writes it, padded to the predictor's batch
+size, into a page-locked buffer and starts its copy on the card's copy
+stream (data/build.py `Upload`); a dispatch thread waits for that copy on
+its own stream, runs the predictor's `infer` on its device and copies the
+detections back, so a batch's copy runs while the batch before is
+inferred. The results wait in completion order.
 Per-batch latency, submission to detections on the host, is recorded. A
 stage's exception is raised by `results()`; the stages go on draining their
 queues, so `submit` and `close` never block on a dead stage.
@@ -19,8 +22,8 @@ from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
 import numpy as np
-import torch
 
+from yololite_tpu_torch.data.build import PinnedRing, Upload
 from yololite_tpu_torch.ops.letterbox import preprocess_batch
 
 
@@ -63,8 +66,21 @@ class InferencePipeline:
         self._stop = object()
         self._threads: List[threading.Thread] = []
         self._started = False
+        self.upload = Upload(predictor.device, PinnedRing(predictor.device))
 
     # ---- stage workers ----
+
+    def _stage(self, images):
+        """Letterbox the frames into a host buffer of the ring, zero images after them up to the batch size, and
+        start its copy to the device."""
+        im = preprocess_batch(images, imgsz=self.imgsz)
+        n = im.shape[0]
+        shape = (max(n, self.batch), *im.shape[1:])
+        buf = self.upload.ring.take(int(np.prod(shape)) * im.itemsize)
+        x = buf.view(shape, im.dtype)
+        x[:n] = im
+        x[n:] = 0
+        return self.upload.stage({"x": x}, held=[buf]), n
 
     def _preprocess_worker(self):
         failed = None
@@ -77,11 +93,8 @@ class InferencePipeline:
                 continue
             try:
                 ticket, images, t0 = item
-                im = preprocess_batch(images, imgsz=self.imgsz)
-                n = im.shape[0]
-                if n < self.batch:
-                    im = np.concatenate([im, np.zeros((self.batch - n, *im.shape[1:]), im.dtype)])
-                self._disp_q.put((ticket, im, n, t0))
+                staged, n = self._stage(images)
+                self._disp_q.put((ticket, staged, n, t0))
             except BaseException as e:  # raised by results()
                 failed = e
                 self._disp_q.put(e)
@@ -101,8 +114,9 @@ class InferencePipeline:
                 self._out_q.put(item)
                 continue
             try:
-                ticket, im, n, t0 = item
-                dets = p.infer(torch.from_numpy(im).to(p.device)).cpu().numpy()[:n]  # the copy back waits for the card
+                ticket, staged, n, t0 = item
+                x = self.upload.hand_over(staged)["x"]
+                dets = p.infer(x).cpu().numpy()[:n]  # the copy back waits for the card
                 self.stats.latencies_ms.append((time.perf_counter() - t0) * 1e3)
                 self.stats.completed += n
                 self._out_q.put((ticket, dets))
